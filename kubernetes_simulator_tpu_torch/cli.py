@@ -1,0 +1,65 @@
+"""CLI of the port: replay a YAML config on the card.
+
+    python -m kubernetes_simulator_tpu_torch run config.yaml [--device cpu]
+
+Counterpart: ``kubernetes_simulator_tpu/cli.py`` (``cmd_run`` :83). The
+config is parsed as the JAX package parses it (utils.config); sections of
+modes the port does not carry yet are refused with an error naming them.
+Output is one JSONL replay row (stdout, or the config's ``output``) and
+an INFO summary line with placements/sec.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+
+import yaml
+
+from .framework.registry import get_strategy
+from .utils.config import SimConfig, build_encoded_case
+from .utils.metrics import JsonlWriter, config_hash, log, replay_row
+
+
+def cmd_run(args) -> int:
+    cfg = SimConfig.load(args.config)
+    with open(args.config) as f:
+        raw = yaml.safe_load(f) or {}
+    ec, ep = build_encoded_case(cfg)
+    log.info("encoded %d nodes / %d pods", ec.num_nodes, ep.num_pods)
+    engine = get_strategy("torch")(
+        ec, ep, cfg.framework,
+        wave_width=cfg.wave_width, chunk_waves=cfg.chunk_waves,
+        telemetry=cfg.telemetry, device=args.device,
+    )
+    context = {
+        "seed": int(cfg.workload.seed), "engine": "torch", "config_hash": config_hash(raw),
+    }
+    with JsonlWriter(cfg.output, context=context) as out:
+        res = engine.replay()
+        out.write(replay_row("replay-torch", res, {"config": args.config,
+                                                   "device": str(engine.device)}))
+    log.info(
+        "placed %d/%d pods in %.3fs (%.0f placements/sec) on %s",
+        res.placed, res.placed + res.unschedulable, res.wall_clock_s,
+        res.placements_per_sec, engine.device,
+    )
+    return 0
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(prog="kubernetes_simulator_tpu_torch")
+    sub = ap.add_subparsers(dest="cmd", required=True)
+    r = sub.add_parser("run", help="replay a config's trace")
+    r.add_argument("config")
+    r.add_argument(
+        "--device", default="cuda",
+        help="torch device (default cuda: the kernels; cpu: their plain twins)",
+    )
+    r.set_defaults(fn=cmd_run)
+    args = ap.parse_args(argv)
+    return args.fn(args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

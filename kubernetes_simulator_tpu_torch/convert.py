@@ -1,0 +1,100 @@
+"""Carry an encoded case and a scheduling state across from the JAX package.
+
+This system has no weights; the encoded tables and the carried state take
+their place. These functions take plain numpy arrays — what
+``dataclasses.asdict``-style field dicts of the JAX package's
+``EncodedCluster`` / ``EncodedPods`` / ``SchedState`` hold — so a test can
+feed both packages the identical case without the port importing
+anything of the JAX package.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, NamedTuple, Tuple
+
+import numpy as np
+import torch
+
+from .models.encode import EncodedCluster, EncodedPods, Vocab
+from .ops.reference import DevState
+
+_EC_ARRAYS = (
+    "allocatable", "node_label_key", "node_label_kv", "node_label_num", "taint_key",
+    "taint_kv", "taint_effect", "node_domain", "num_domains", "expr_key", "expr_op",
+    "expr_vals", "expr_num", "group_topo",
+)
+_EP_ARRAYS = (
+    "requests", "priority", "arrival", "duration", "ns", "bound_node", "tol_key", "tol_kv",
+    "tol_effect", "na_req", "na_has_req", "na_pref", "na_pref_w", "aff_req", "anti_req",
+    "pref_aff", "pref_aff_w", "spread_g", "spread_skew", "spread_dns", "pod_matches_group",
+    "group_id", "pg_min_member",
+)
+
+
+def encoded_from_numpy(
+    ec_fields: Dict[str, object], ep_fields: Dict[str, object]
+) -> Tuple[EncodedCluster, EncodedPods]:
+    """The port's (EncodedCluster, EncodedPods) from numpy field dicts.
+
+    ``ec_fields`` holds the cluster arrays by field name, ``max_domains``,
+    and ``resources``: the resource vocabulary as a name → row dict.
+    Optional: ``node_names`` and ``group_keys`` (only their count is used;
+    without them every group row with a topology key counts).
+    ``ep_fields`` holds the pod arrays by field name; ``names`` and
+    ``pg_names`` are optional."""
+    missing = [k for k in _EC_ARRAYS + ("resources",) if k not in ec_fields]
+    missing += [k for k in _EP_ARRAYS if k not in ep_fields]
+    if missing:
+        raise KeyError(f"missing fields: {', '.join(missing)}")
+    res = dict(ec_fields["resources"])
+    vocab = Vocab(resources=[name for name, _ in sorted(res.items(), key=lambda kv: kv[1])])
+    arr = {k: np.array(ec_fields[k], copy=True) for k in _EC_ARRAYS}
+    N = arr["allocatable"].shape[0]
+    G = len(ec_fields.get("group_keys") or []) or int((arr["group_topo"] >= 0).sum())
+    ec = EncodedCluster(
+        vocab=vocab,
+        node_names=list(ec_fields.get("node_names") or [f"node-{i}" for i in range(N)]),
+        num_nodes=N,
+        max_domains=int(ec_fields["max_domains"]),
+        group_keys=list(ec_fields.get("group_keys") or [None] * G),
+        **arr,
+    )
+    parr = {k: np.array(ep_fields[k], copy=True) for k in _EP_ARRAYS}
+    P = parr["requests"].shape[0]
+    ep = EncodedPods(
+        num_pods=P,
+        names=list(ep_fields.get("names") or [f"pod-{i}" for i in range(P)]),
+        pg_names=list(ep_fields.get("pg_names") or []),
+        **parr,
+    )
+    return ec, ep
+
+
+class CarriedState(NamedTuple):
+    """A scheduling state on a device: the carried planes plus ``bound``
+    (the pod → node map, PAD = unbound)."""
+
+    planes: DevState
+    bound: torch.Tensor  # [P] i32
+
+
+def state_from_numpy(used, match_count, anti_active, pref_wsum, bound, device) -> CarriedState:
+    """Copy a host state (models.state.SchedState layout) to ``device``
+    (always a copy: the planes are updated in place)."""
+    f = lambda a: torch.tensor(np.asarray(a, np.float32), device=device)
+    return CarriedState(
+        planes=DevState(f(used), f(match_count), f(anti_active), f(pref_wsum)),
+        bound=torch.tensor(np.asarray(bound, np.int32), device=device),
+    )
+
+
+def to_numpy(state: CarriedState) -> Dict[str, np.ndarray]:
+    """The inverse of :func:`state_from_numpy`: field name → host array."""
+    p = state.planes
+    return {
+        "used": p.used.cpu().numpy(),
+        "match_count": p.match_count.cpu().numpy(),
+        "anti_active": p.anti_active.cpu().numpy(),
+        "pref_wsum": p.pref_wsum.cpu().numpy(),
+        "bound": state.bound.cpu().numpy(),
+    }

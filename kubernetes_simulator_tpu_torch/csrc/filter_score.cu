@@ -1,0 +1,247 @@
+// K1 filter_score: the fused Filter + raw Score of ONE pod slot over all N
+// nodes, one thread per node.
+//
+// Replaces: kubernetes_simulator_tpu/ops/tpu3.py:944 make_wave_step3 (its
+// per-slot Filter+Score), with build_wave_pre3 (:712), class_masks (:923)
+// and _fit_score_r (:869) folded in. Semantics are ops/cpu.py's per-plugin
+// chain (the greedy anchor's) and ops/tpu.py:eval_pod's, bit for bit:
+//   mask  = fit & taints(NoSchedule/NoExecute) & required node affinity
+//           & inter-pod (anti-)affinity incl. the symmetric existing-pod
+//           anti term & DoNotSchedule topology spread
+//   rows  = fit strategy score (floored int chain), untolerated
+//           PreferNoSchedule count, preferred node-affinity weight sum,
+//           preferred inter-pod weight sum, ScheduleAnyway spread raw
+//           (+ its ignored mask).
+// The state is read where it lives: used [N,R] by row, the [G,D] count
+// planes through gdom [G,N] by direct indexing (no one-hot contractions).
+// A prologue per block reduces the pod's few term rows over D (bootstrap
+// totals of required-affinity groups, min counts of DoNotSchedule spread
+// groups) into shared memory.
+//
+// Bound on an H100: bytes. Each slot reads used + alloc (N·R·8 B), the
+// taint/label/domain rows it touches and writes 7 B + 20 B per node; the
+// arithmetic is a few dozen flops per node. At N=5000 that is ~0.3 MB, a
+// ~0.1 µs floor at 3.35 TB/s — far below one launch, so the kernel is
+// launch-bound at this N (see PERF.md).
+//
+// Exactness: compiled with --fmad=false and IEEE division; every
+// expression keeps the reference's operation order.
+#include "ksim.cuh"
+
+__device__ __forceinline__ float ksim_piecewise(const KsimArgs& a, float util) {
+  // ops/cpu.py piecewise_interp_int: seg = y0 + floor(t·Δy), lowest
+  // segment whose x1 >= util wins; util <= x0 of the first point → y0.
+  float out = a.y_last;
+  for (int i = a.n_seg - 1; i >= 0; --i) {
+    float t = (util - a.seg_x0[i]) * a.seg_inv[i];
+    float seg = a.seg_y0[i] + floorf(t * a.seg_dy[i]);
+    if (util <= a.seg_x1[i]) out = seg;
+  }
+  if (util <= a.x_first) out = a.y_first;
+  return out;
+}
+
+__global__ void __launch_bounds__(256) ksim_filter_score_kernel(KsimArgs a, int p) {
+  __shared__ float s_total[KSIM_MAX_TERMS];  // Σ_d match_count[g, d], aff terms
+  __shared__ float s_min[KSIM_MAX_TERMS];    // min_d<nd match_count[g, d], spread
+  __shared__ int s_nd[KSIM_MAX_TERMS];
+
+  const int N = a.N, R = a.R, G = a.G, D = a.D;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+
+  if (a.interpod) {
+    for (int t = warp; t < a.AR; t += nwarps) {
+      int g = a.aff_req[p * a.AR + t];
+      float s = 0.f;
+      if (g >= 0)
+        for (int d = lane; d < D; d += 32) s += a.match_count[g * D + d];
+      // integer-valued counts: any summation order is exact
+      for (int o = 16; o > 0; o >>= 1) s += __shfl_down_sync(0xffffffffu, s, o);
+      if (lane == 0) s_total[t] = s;
+    }
+  }
+  if (a.spread) {
+    for (int t = warp; t < a.SP; t += nwarps) {
+      int g = a.spread_g[p * a.SP + t];
+      int nd = g >= 0 ? a.gnd[g] : 0;
+      float m = INFINITY;
+      for (int d = lane; d < nd; d += 32) m = fminf(m, a.match_count[g * D + d]);
+      for (int o = 16; o > 0; o >>= 1) m = fminf(m, __shfl_down_sync(0xffffffffu, m, o));
+      if (lane == 0) {
+        s_min[t] = m;
+        s_nd[t] = nd;
+      }
+    }
+  }
+  __syncthreads();
+
+  const int n = blockIdx.x * blockDim.x + threadIdx.x;
+  if (n >= N) return;
+
+  bool ok = true;
+  const float* req = a.requests + (size_t)p * R;
+  const float* used = a.used + (size_t)n * R;
+  const float* alloc = a.alloc + (size_t)n * R;
+
+  // --- NodeResourcesFit ---------------------------------------------------
+  float fit_score = 0.f;
+  if (a.fit) {
+    float acc = 0.f;
+    for (int r = 0; r < R; ++r) {
+      float u = used[r], q = req[r], al = alloc[r];
+      if (!(u + q <= al + 1e-6f)) ok = false;
+      float w = a.res_w[r];
+      if (w == 0.f) continue;
+      float frac;
+      if (a.fit_strategy == 0)
+        frac = al > 0.f ? ((al - u) - q) / al : 0.f;
+      else
+        frac = al > 0.f ? (u + q) / al : 0.f;
+      frac = fminf(fmaxf(frac, 0.f), 1.f);
+      float s = floorf(frac * 100.f);
+      if (a.fit_strategy == 2) s = ksim_piecewise(a, s);
+      acc = acc + s * w;
+    }
+    fit_score = (a.wsum == 0.f) ? acc : floorf(acc / a.wsum);
+  }
+
+  // --- TaintToleration ----------------------------------------------------
+  float prefer_cnt = 0.f;
+  if (a.taints) {
+    for (int tt = 0; tt < a.TT; ++tt) {
+      int key = a.taint_key[n * a.TT + tt];
+      if (key == KSIM_PAD) continue;
+      int eff = a.taint_effect[n * a.TT + tt];
+      int kv = a.taint_kv[n * a.TT + tt];
+      bool hard = eff == KSIM_NO_SCHEDULE || eff == KSIM_NO_EXECUTE;
+      bool soft = eff == KSIM_PREFER_NO_SCHEDULE;
+      if (!hard && !soft) continue;
+      bool tolerated = false;
+      for (int j = 0; j < a.TO; ++j) {
+        int tk = a.tol_key[p * a.TO + j];
+        if (tk == KSIM_TOL_PAD) continue;
+        int tv = a.tol_kv[p * a.TO + j];
+        int te = a.tol_effect[p * a.TO + j];
+        bool key_ok = tk == KSIM_TOL_WILDCARD || tk == key;
+        bool val_ok = tv == KSIM_PAD || tv == kv;
+        bool eff_ok = te == 0 || te == eff;
+        if (key_ok && val_ok && eff_ok) tolerated = true;
+      }
+      if (!tolerated) {
+        if (hard) ok = false;
+        if (soft) prefer_cnt += 1.f;
+      }
+    }
+  }
+
+  // --- NodeAffinity -------------------------------------------------------
+  float na_raw = 0.f;
+  if (a.node_affinity) {
+    const uint8_t* M = a.expr_match + (size_t)n * a.E;
+    if (a.na_has_req[p]) {
+      bool any = false;
+      for (int t = 0; t < a.TR; ++t) {
+        const int32_t* term = a.na_req + ((size_t)p * a.TR + t) * a.TE;
+        if (term[0] < 0) continue;
+        bool all = true;
+        for (int e = 0; e < a.TE; ++e)
+          if (term[e] >= 0 && !M[term[e]]) all = false;
+        if (all) any = true;
+      }
+      if (!any) ok = false;
+    }
+    for (int t = 0; t < a.TP; ++t) {
+      const int32_t* term = a.na_pref + ((size_t)p * a.TP + t) * a.TE;
+      if (term[0] < 0) continue;
+      bool all = true;
+      for (int e = 0; e < a.TE; ++e)
+        if (term[e] >= 0 && !M[term[e]]) all = false;
+      if (all) na_raw = na_raw + a.na_pref_w[p * a.TP + t];
+    }
+  }
+
+  // --- InterPodAffinity ---------------------------------------------------
+  float ip_raw = 0.f;
+  if (a.interpod) {
+    const uint8_t* pm = a.pmg + (size_t)p * G;
+    for (int t = 0; t < a.AR; ++t) {
+      int g = a.aff_req[p * a.AR + t];
+      if (g < 0) continue;
+      int dom = a.gdom[g * N + n];
+      float cnt = dom >= 0 ? a.match_count[g * D + dom] : 0.f;
+      bool boot = s_total[t] == 0.f && pm[g];
+      bool term_ok = cnt >= 1.f && dom >= 0;
+      if (!(term_ok || boot)) ok = false;
+    }
+    for (int t = 0; t < a.AA; ++t) {
+      int g = a.anti_req[p * a.AA + t];
+      if (g < 0) continue;
+      int dom = a.gdom[g * N + n];
+      float cnt = dom >= 0 ? a.match_count[g * D + dom] : 0.f;
+      if (cnt >= 1.f && dom >= 0) ok = false;
+    }
+    for (int g = 0; g < G; ++g) {
+      if (!pm[g]) continue;
+      int dom = a.gdom[g * N + n];
+      if (dom >= 0 && a.anti_active[g * D + dom] > 0.f) ok = false;
+    }
+    for (int t = 0; t < a.PA; ++t) {
+      int g = a.pref_aff[p * a.PA + t];
+      if (g < 0) continue;
+      int dom = a.gdom[g * N + n];
+      float cnt = dom >= 0 ? a.match_count[g * D + dom] : 0.f;
+      ip_raw = ip_raw + a.pref_aff_w[p * a.PA + t] * cnt;
+    }
+    if (a.has_symmetric_pref) {
+      float sym = 0.f;
+      for (int g = 0; g < G; ++g) {
+        if (!pm[g]) continue;
+        int dom = a.gdom[g * N + n];
+        if (dom >= 0) sym = sym + a.pref_wsum[g * D + dom];
+      }
+      ip_raw = ip_raw + sym;
+    }
+  }
+
+  // --- PodTopologySpread --------------------------------------------------
+  float sp_raw = 0.f;
+  bool ign = false;
+  if (a.spread) {
+    for (int t = 0; t < a.SP; ++t) {
+      int g = a.spread_g[p * a.SP + t];
+      if (g < 0) continue;
+      int skew = a.spread_skew[p * a.SP + t];
+      int dom = a.gdom[g * N + n];
+      float cnt = dom >= 0 ? a.match_count[g * D + dom] : 0.f;
+      if (a.spread_dns[p * a.SP + t]) {
+        if (s_nd[t] == 0) {
+          ok = false;
+        } else {
+          float self = a.pmg[(size_t)p * G + g] ? 1.f : 0.f;
+          float nw = cnt + self;
+          if (!(dom >= 0 && (nw - s_min[t]) <= (float)skew)) ok = false;
+        }
+      } else {
+        sp_raw = sp_raw + (cnt * a.sp_w[g] + (float)(skew - 1));
+        if (dom < 0) ign = true;
+      }
+    }
+    sp_raw = floorf(sp_raw + 0.5f);
+  }
+
+  a.feasible[n] = ok ? 1 : 0;
+  a.ignored[n] = ign ? 1 : 0;
+  a.scores[KSIM_ROW_FIT * N + n] = fit_score;
+  a.scores[KSIM_ROW_TAINT * N + n] = prefer_cnt;
+  a.scores[KSIM_ROW_NA * N + n] = na_raw;
+  a.scores[KSIM_ROW_IP * N + n] = ip_raw;
+  a.scores[KSIM_ROW_SPREAD * N + n] = sp_raw;
+}
+
+KSIM_EXPORT int ksim_filter_score(const KsimArgs* args, int pod, void* stream) {
+  const int threads = 256;
+  const int blocks = (args->N + threads - 1) / threads;
+  ksim_filter_score_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(*args, pod);
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,108 @@
+// Shared argument block and helpers of the replay kernels.
+//
+// Every kernel takes one KsimArgs by value: the device pointers of the
+// encoded cluster, the encoded pod tables, the carried state, the per-slot
+// scratch rows, the dimensions and the static step constants. The Python
+// side (ops/kernels.py) mirrors this layout field for field as a
+// ctypes.Structure and checks sizeof() against ksim_args_size() at load.
+//
+// Layouts (row-major, C-contiguous):
+//   cluster  alloc [N,R] f32, taint_* [N,TT] i32, expr_match [N,E] u8,
+//            gdom [G,N] i32 (domain of node n under group g's topology key,
+//            -1 = none), gnd [G] i32 (domains of that key), sp_w [G] f32
+//   pods     requests [P,R] f32, tol_* [P,TO], na_req [P,TR,TE],
+//            na_pref [P,TP,TE], aff_req [P,AR], anti_req [P,AA],
+//            pref_aff [P,PA], spread_* [P,SP], pmg [P,G] u8, group_id [P]
+//   state    used [N,R] f32, match_count / anti_active / pref_wsum [G,D] f32
+//   scratch  feasible [N] u8, scores [5,N] f32, ignored [N] u8
+#pragma once
+
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+#define KSIM_PAD (-1)
+#define KSIM_TOL_PAD (-2)
+#define KSIM_TOL_WILDCARD (-1)
+#define KSIM_MAX_SEG 16
+#define KSIM_MAX_TERMS 64
+#define KSIM_MAX_WAVE 1024
+
+// Taint effects (models/core.py Effect).
+#define KSIM_NO_SCHEDULE 1
+#define KSIM_PREFER_NO_SCHEDULE 2
+#define KSIM_NO_EXECUTE 3
+
+// Score rows of the scratch block.
+#define KSIM_ROW_FIT 0
+#define KSIM_ROW_TAINT 1
+#define KSIM_ROW_NA 2
+#define KSIM_ROW_IP 3
+#define KSIM_ROW_SPREAD 4
+#define KSIM_ROWS 5
+
+struct KsimArgs {
+  // cluster
+  const float* alloc;
+  const int32_t* taint_key;
+  const int32_t* taint_kv;
+  const int32_t* taint_effect;
+  const uint8_t* expr_match;
+  const int32_t* gdom;
+  const int32_t* gnd;
+  const float* sp_w;
+  // pods
+  const float* requests;
+  const int32_t* tol_key;
+  const int32_t* tol_kv;
+  const int32_t* tol_effect;
+  const int32_t* na_req;
+  const uint8_t* na_has_req;
+  const int32_t* na_pref;
+  const float* na_pref_w;
+  const int32_t* aff_req;
+  const int32_t* anti_req;
+  const int32_t* pref_aff;
+  const float* pref_aff_w;
+  const int32_t* spread_g;
+  const int32_t* spread_skew;
+  const uint8_t* spread_dns;
+  const uint8_t* pmg;
+  const int32_t* group_id;
+  // state
+  float* used;
+  float* match_count;
+  float* anti_active;
+  float* pref_wsum;
+  // scratch
+  uint8_t* feasible;
+  float* scores;
+  uint8_t* ignored;
+  const float* res_w;  // [R] NodeResourcesFit resource weights
+  // dimensions
+  int32_t N, R, TT, E, G, D;
+  int32_t TO, TR, TE, TP, AR, AA, PA, SP;
+  // static step constants (sim/torch_runtime.StepSpec)
+  int32_t fit, taints, node_affinity, interpod, spread;
+  int32_t on_fit, on_taint, on_na, on_ip, on_sp;
+  int32_t has_symmetric_pref, sp_norm_f32, fit_strategy, n_seg;
+  float wsum, w_fit, w_taint, w_na, w_ip, w_sp;
+  float x_first, y_first, y_last, pad0;
+  float seg_x0[KSIM_MAX_SEG];
+  float seg_x1[KSIM_MAX_SEG];
+  float seg_y0[KSIM_MAX_SEG];
+  float seg_inv[KSIM_MAX_SEG];
+  float seg_dy[KSIM_MAX_SEG];
+};
+
+#define KSIM_EXPORT extern "C" __attribute__((visibility("default")))
+
+// Layout check for the ctypes mirror (every library exports it).
+KSIM_EXPORT int ksim_args_size() { return (int)sizeof(KsimArgs); }
+
+// Python floor division of int32 (jnp // and numpy // semantics).
+__device__ __forceinline__ int32_t ksim_floordiv(int32_t a, int32_t b) {
+  int32_t q = a / b;
+  if ((a % b != 0) && ((a < 0) != (b < 0))) q -= 1;
+  return q;
+}

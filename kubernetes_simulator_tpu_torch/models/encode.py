@@ -1,0 +1,505 @@
+"""String→integer SoA encodings of the cluster object model (SURVEY.md §3.4).
+
+Counterpart: ``kubernetes_simulator_tpu/models/encode.py`` (a copy: both
+packages build identical arrays from identical object models).
+
+Everything the scheduling hot loop touches is encoded here ONCE, on host,
+into rectangular numpy arrays (padded + masked — SURVEY.md §7 hard part #4).
+Nothing inside the CPU-vectorized or JAX device loop touches strings.
+
+Key encoding decisions:
+
+- **kv ids**: every (label key, label value) pair gets one integer id, so
+  set-membership tests (``In``/``NotIn``) are integer equality — equal kv id
+  implies equal key AND value.
+- **Selector-expression dedup**: node-selector match expressions are
+  interned into one table (``expr_*``); pods reference expressions by id.
+  Node-side match matrices ``[N, E]`` are then computed *on device* from
+  node label tensors, so what-if label perturbations flow through without
+  re-encoding (SURVEY.md §2 "what-if scenario engine").
+- **Count groups**: every unique (label selector, resolved namespace set,
+  topology key) used by inter-pod (anti-)affinity or topology-spread terms
+  becomes one "count group" g. The mutable scheduling state carries
+  ``match_count[g, domain]`` (plus symmetric-anti and preferred-weight
+  tensors) updated by scatter-add at bind time — SURVEY.md §7 hard part #2.
+  Pod labels are static, so ``pod_matches_group[p, g]`` is precomputed host
+  side.
+
+Provenance: [K8S] semantics + [BASELINE] surface; reference mount empty
+(SURVEY.md §0) — no reference file:line citations are possible.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from .core import (
+    CPU,
+    MEMORY,
+    PODS,
+    Cluster,
+    Effect,
+    LabelSelector,
+    MatchExpression,
+    NodeSelectorTerm,
+    Operator,
+    Pod,
+    PodAffinityTerm,
+)
+
+# Default allocatable "pods" slots when a node spec omits it ([K8S] kubelet
+# default --max-pods).
+DEFAULT_MAX_PODS = 110.0
+
+# Pad values. PAD = empty slot; WILDCARD is used by toleration keys
+# (key=None + Exists → tolerate everything).
+PAD = -1
+TOL_PAD = -2
+TOL_WILDCARD = -1
+
+
+def _try_float(s: str) -> float:
+    try:
+        return float(s)
+    except (TypeError, ValueError):
+        return np.nan
+
+
+@dataclass
+class Vocab:
+    """Interning tables shared by every encoded tensor."""
+
+    resources: List[str] = field(default_factory=list)
+    keys: List[str] = field(default_factory=list)
+    kvs: List[Tuple[str, str]] = field(default_factory=list)
+    namespaces: List[str] = field(default_factory=list)
+    topo_keys: List[str] = field(default_factory=list)
+
+    def __post_init__(self):
+        self._r = {v: i for i, v in enumerate(self.resources)}
+        self._k = {v: i for i, v in enumerate(self.keys)}
+        self._kv = {v: i for i, v in enumerate(self.kvs)}
+        self._ns = {v: i for i, v in enumerate(self.namespaces)}
+        self._t = {v: i for i, v in enumerate(self.topo_keys)}
+
+    def _intern(self, table: list, index: dict, item) -> int:
+        i = index.get(item)
+        if i is None:
+            i = len(table)
+            table.append(item)
+            index[item] = i
+        return i
+
+    def resource(self, name: str) -> int:
+        return self._intern(self.resources, self._r, name)
+
+    def key(self, k: str) -> int:
+        return self._intern(self.keys, self._k, k)
+
+    def kv(self, k: str, v: str) -> int:
+        return self._intern(self.kvs, self._kv, (k, str(v)))
+
+    def ns(self, n: str) -> int:
+        return self._intern(self.namespaces, self._ns, n)
+
+    def topo(self, k: str) -> int:
+        return self._intern(self.topo_keys, self._t, k)
+
+
+@dataclass(frozen=True)
+class CountGroupKey:
+    """Dedup key for a count group (see module docstring)."""
+
+    selector: LabelSelector
+    namespaces: Tuple[str, ...]  # sorted, resolved
+    topology_key: str
+
+
+def _pad2(rows: Sequence[Sequence[int]], width: int, pad=PAD, dtype=np.int32) -> np.ndarray:
+    out = np.full((len(rows), max(width, 1)), pad, dtype=dtype)
+    for i, r in enumerate(rows):
+        if r:
+            out[i, : len(r)] = r
+    return out
+
+
+def _pad3(rows: Sequence[Sequence[Sequence[int]]], w1: int, w2: int, pad=PAD) -> np.ndarray:
+    out = np.full((len(rows), max(w1, 1), max(w2, 1)), pad, dtype=np.int32)
+    for i, terms in enumerate(rows):
+        for j, term in enumerate(terms):
+            if term:
+                out[i, j, : len(term)] = term
+    return out
+
+
+@dataclass
+class EncodedCluster:
+    """Static (per-scenario) node-side tensors. Shapes use N nodes, R
+    resources, L label slots, TT taint slots, T topology keys, E exprs,
+    G count groups, D domains (padded to Dmax)."""
+
+    vocab: Vocab
+    node_names: List[str]
+    num_nodes: int
+    allocatable: np.ndarray  # [N, R] f32
+    node_label_key: np.ndarray  # [N, L] i32 (PAD)
+    node_label_kv: np.ndarray  # [N, L] i32 (PAD)
+    node_label_num: np.ndarray  # [N, L] f32 (NaN when not numeric)
+    taint_key: np.ndarray  # [N, TT] i32 (PAD)
+    taint_kv: np.ndarray  # [N, TT] i32 (PAD)
+    taint_effect: np.ndarray  # [N, TT] i32 (0 = pad)
+    node_domain: np.ndarray  # [T, N] i32 domain id per topology key (PAD = key absent)
+    num_domains: np.ndarray  # [T] i32
+    max_domains: int
+    # Interned node-selector expression table.
+    expr_key: np.ndarray  # [E] i32
+    expr_op: np.ndarray  # [E] i32
+    expr_vals: np.ndarray  # [E, V] i32 (PAD)
+    expr_num: np.ndarray  # [E] f32
+    # Count groups.
+    group_topo: np.ndarray  # [G] i32 → topology-key index
+    group_keys: List[CountGroupKey]
+
+    @property
+    def num_resources(self) -> int:
+        return self.allocatable.shape[1]
+
+    @property
+    def num_groups(self) -> int:
+        return len(self.group_keys)
+
+
+@dataclass
+class EncodedPods:
+    """Workload-side tensors. Index order = arrival order; the first
+    ``num_prebound`` entries may carry ``bound_node >= 0`` (initial state)."""
+
+    num_pods: int
+    names: List[str]
+    requests: np.ndarray  # [P, R] f32
+    priority: np.ndarray  # [P] i32
+    arrival: np.ndarray  # [P] f64
+    duration: np.ndarray  # [P] f32 (inf = runs forever)
+    ns: np.ndarray  # [P] i32
+    bound_node: np.ndarray  # [P] i32 (PAD = needs scheduling)
+    # Tolerations.
+    tol_key: np.ndarray  # [P, TO] i32 (TOL_PAD / TOL_WILDCARD)
+    tol_kv: np.ndarray  # [P, TO] i32 (PAD = Exists operator: any value)
+    tol_effect: np.ndarray  # [P, TO] i32 (0 = all effects)
+    # Node affinity (expression ids into EncodedCluster.expr_*).
+    na_req: np.ndarray  # [P, TR, TE] i32 (PAD); a term is valid iff slot 0 >= 0
+    na_has_req: np.ndarray  # [P] bool
+    na_pref: np.ndarray  # [P, TP, TE] i32
+    na_pref_w: np.ndarray  # [P, TP] f32 (0 = pad)
+    # Inter-pod affinity (count-group ids).
+    aff_req: np.ndarray  # [P, AR] i32 (PAD)
+    anti_req: np.ndarray  # [P, AA] i32 (PAD)
+    pref_aff: np.ndarray  # [P, PA] i32 (PAD)
+    pref_aff_w: np.ndarray  # [P, PA] f32 (negative = preferred anti-affinity)
+    # Topology spread.
+    spread_g: np.ndarray  # [P, SP] i32 (PAD)
+    spread_skew: np.ndarray  # [P, SP] i32
+    spread_dns: np.ndarray  # [P, SP] bool (True = DoNotSchedule)
+    # Static selector matches.
+    pod_matches_group: np.ndarray  # [P, G] bool
+    # Gang / coscheduling.
+    group_id: np.ndarray  # [P] i32 (PAD = not in a pod group)
+    pg_min_member: np.ndarray  # [NG] i32
+    pg_names: List[str]
+
+
+class Encoder:
+    """Builds :class:`EncodedCluster` + :class:`EncodedPods` from the object
+    model. One encoder instance = one shared vocab."""
+
+    def __init__(self):
+        self.vocab = Vocab()
+        # Seed well-known resources so indices are stable across traces.
+        for r in (CPU, MEMORY, PODS):
+            self.vocab.resource(r)
+        self._exprs: List[Tuple[int, int, Tuple[int, ...], float]] = []
+        self._expr_index: Dict = {}
+        self._groups: List[CountGroupKey] = []
+        self._group_index: Dict[CountGroupKey, int] = {}
+
+    # -- interning ---------------------------------------------------------
+
+    def _intern_expr(self, e: MatchExpression) -> int:
+        kid = self.vocab.key(e.key)
+        vals = tuple(sorted(self.vocab.kv(e.key, v) for v in e.values))
+        num = _try_float(e.values[0]) if e.values else np.nan
+        item = (kid, int(e.operator), vals, num)
+        idx = self._expr_index.get(item)
+        if idx is None:
+            idx = len(self._exprs)
+            self._exprs.append(item)
+            self._expr_index[item] = idx
+        return idx
+
+    def _intern_group(self, selector: LabelSelector, namespaces: Tuple[str, ...], topology_key: str) -> int:
+        key = CountGroupKey(selector, tuple(sorted(namespaces)), topology_key)
+        idx = self._group_index.get(key)
+        if idx is None:
+            idx = len(self._groups)
+            self._groups.append(key)
+            self._group_index[key] = idx
+            self.vocab.topo(topology_key)
+            for n in namespaces:
+                self.vocab.ns(n)
+        return idx
+
+    def _term_group(self, term: PodAffinityTerm, pod_ns: str) -> int:
+        ns = term.namespaces or (pod_ns,)
+        return self._intern_group(term.label_selector, tuple(ns), term.topology_key)
+
+    # -- main entry --------------------------------------------------------
+
+    def encode(self, cluster: Cluster, workload: Sequence[Pod]) -> Tuple[EncodedCluster, EncodedPods]:
+        pods: List[Pod] = list(cluster.pods) + list(workload)
+
+        # Resource vocabulary: union over nodes and pods (extended resources
+        # become extra rows — [BASELINE] "device-plugin extended resources").
+        for n in cluster.nodes:
+            for r in n.allocatable:
+                self.vocab.resource(r)
+        for p in pods:
+            for r in p.requests:
+                self.vocab.resource(r)
+
+        enc_pods = self._encode_pods(cluster, pods)
+        enc_cluster = self._encode_cluster(cluster)
+        # pod_matches_group needs the final group table → fill here.
+        G = len(self._groups)
+        pmg = np.zeros((len(pods), max(G, 1)), dtype=bool)
+        for gi, gk in enumerate(self._groups):
+            ns_set = set(gk.namespaces)
+            for pi, p in enumerate(pods):
+                if p.namespace in ns_set and gk.selector.matches(p.labels):
+                    pmg[pi, gi] = True
+        enc_pods.pod_matches_group = pmg
+        return enc_cluster, enc_pods
+
+    # -- pods --------------------------------------------------------------
+
+    def _encode_pods(self, cluster: Cluster, pods: List[Pod]) -> EncodedPods:
+        P = len(pods)
+        node_index = {n.name: i for i, n in enumerate(cluster.nodes)}
+
+        tol_rows_k, tol_rows_v, tol_rows_e = [], [], []
+        na_req_rows, na_pref_rows, na_pref_w_rows = [], [], []
+        aff_rows, anti_rows, pref_rows, pref_w_rows = [], [], [], []
+        spr_rows, spr_skew_rows, spr_dns_rows = [], [], []
+
+        for p in pods:
+            tk, tv, te = [], [], []
+            for t in p.tolerations:
+                tk.append(TOL_WILDCARD if t.key is None else self.vocab.key(t.key))
+                tv.append(PAD if t.operator == "Exists" else self.vocab.kv(t.key or "", t.value))
+                te.append(0 if t.effect is None else int(t.effect))
+            tol_rows_k.append(tk)
+            tol_rows_v.append(tv)
+            tol_rows_e.append(te)
+
+            na_req_rows.append(
+                [[self._intern_expr(e) for e in term.match_expressions] for term in p.node_affinity.required]
+            )
+            na_pref_rows.append(
+                [[self._intern_expr(e) for e in pt.term.match_expressions] for pt in p.node_affinity.preferred]
+            )
+            na_pref_w_rows.append([float(pt.weight) for pt in p.node_affinity.preferred])
+
+            aff_rows.append([self._term_group(t, p.namespace) for t in p.pod_affinity.required])
+            anti_rows.append([self._term_group(t, p.namespace) for t in p.pod_anti_affinity.required])
+            pg, pw = [], []
+            for wt in p.pod_affinity.preferred:
+                pg.append(self._term_group(wt.term, p.namespace))
+                pw.append(float(wt.weight))
+            for wt in p.pod_anti_affinity.preferred:
+                pg.append(self._term_group(wt.term, p.namespace))
+                pw.append(-float(wt.weight))
+            pref_rows.append(pg)
+            pref_w_rows.append(pw)
+
+            sg, sk, sd = [], [], []
+            for c in p.topology_spread:
+                sg.append(self._intern_group(c.label_selector, (p.namespace,), c.topology_key))
+                sk.append(int(c.max_skew))
+                sd.append(c.when_unsatisfiable == "DoNotSchedule")
+            spr_rows.append(sg)
+            spr_skew_rows.append(sk)
+            spr_dns_rows.append(sd)
+
+        R = len(self.vocab.resources)
+        requests = np.zeros((P, R), dtype=np.float32)
+        for i, p in enumerate(pods):
+            for r, q in p.requests.items():
+                requests[i, self.vocab.resource(r)] = q
+
+        # Gang groups.
+        pg_index: Dict[str, int] = {}
+        pg_names: List[str] = []
+        group_id = np.full(P, PAD, dtype=np.int32)
+        explicit_sizes: Dict[str, int] = {}
+        member_counts: Dict[str, int] = {}
+        for i, p in enumerate(pods):
+            if p.pod_group is not None:
+                if p.pod_group not in pg_index:
+                    pg_index[p.pod_group] = len(pg_names)
+                    pg_names.append(p.pod_group)
+                group_id[i] = pg_index[p.pod_group]
+                member_counts[p.pod_group] = member_counts.get(p.pod_group, 0) + 1
+        for name, g in cluster.pod_groups.items():
+            explicit_sizes[name] = g.min_member
+        pg_min = np.array(
+            [explicit_sizes.get(n, member_counts.get(n, 1)) for n in pg_names],
+            dtype=np.int32,
+        ).reshape(-1)
+
+        w = lambda rows: max((len(r) for r in rows), default=0)
+        na_req_w1 = w(na_req_rows)
+        na_req_w2 = max((len(t) for r in na_req_rows for t in r), default=0)
+        na_pref_w1 = w(na_pref_rows)
+        na_pref_w2 = max((len(t) for r in na_pref_rows for t in r), default=0)
+
+        pref_w_arr = np.zeros((P, max(w(pref_rows), 1)), dtype=np.float32)
+        for i, r in enumerate(pref_w_rows):
+            if r:
+                pref_w_arr[i, : len(r)] = r
+        na_pref_w_arr = np.zeros((P, max(na_pref_w1, 1)), dtype=np.float32)
+        for i, r in enumerate(na_pref_w_rows):
+            if r:
+                na_pref_w_arr[i, : len(r)] = r
+        spr_skew = _pad2(spr_skew_rows, w(spr_rows), pad=0)
+        spr_dns = np.zeros((P, max(w(spr_rows), 1)), dtype=bool)
+        for i, r in enumerate(spr_dns_rows):
+            if r:
+                spr_dns[i, : len(r)] = r
+
+        return EncodedPods(
+            num_pods=P,
+            names=[p.name for p in pods],
+            requests=requests,
+            priority=np.array([p.priority for p in pods], dtype=np.int32).reshape(-1),
+            arrival=np.array([p.arrival_time for p in pods], dtype=np.float64).reshape(-1),
+            duration=np.array(
+                [np.inf if p.duration is None else p.duration for p in pods], dtype=np.float32
+            ).reshape(-1),
+            ns=np.array([self.vocab.ns(p.namespace) for p in pods], dtype=np.int32).reshape(-1),
+            bound_node=np.array(
+                [node_index.get(p.node_name, PAD) if p.node_name else PAD for p in pods],
+                dtype=np.int32,
+            ).reshape(-1),
+            tol_key=_pad2(tol_rows_k, w(tol_rows_k), pad=TOL_PAD),
+            tol_kv=_pad2(tol_rows_v, w(tol_rows_v)),
+            tol_effect=_pad2(tol_rows_e, w(tol_rows_e), pad=0),
+            na_req=_pad3(na_req_rows, na_req_w1, na_req_w2),
+            na_has_req=np.array([len(p.node_affinity.required) > 0 for p in pods], dtype=bool),
+            na_pref=_pad3(na_pref_rows, na_pref_w1, na_pref_w2),
+            na_pref_w=na_pref_w_arr,
+            aff_req=_pad2(aff_rows, w(aff_rows)),
+            anti_req=_pad2(anti_rows, w(anti_rows)),
+            pref_aff=_pad2(pref_rows, w(pref_rows)),
+            pref_aff_w=pref_w_arr,
+            spread_g=_pad2(spr_rows, w(spr_rows)),
+            spread_skew=spr_skew,
+            spread_dns=spr_dns,
+            pod_matches_group=np.zeros((P, 1), dtype=bool),  # filled in encode()
+            group_id=group_id,
+            pg_min_member=pg_min,
+            pg_names=pg_names,
+        )
+
+    # -- cluster -----------------------------------------------------------
+
+    def _encode_cluster(self, cluster: Cluster) -> EncodedCluster:
+        N = len(cluster.nodes)
+        R = len(self.vocab.resources)
+        alloc = np.zeros((N, R), dtype=np.float32)
+        pods_ri = self.vocab.resource(PODS)
+        for i, n in enumerate(cluster.nodes):
+            for r, q in n.allocatable.items():
+                alloc[i, self.vocab.resource(r)] = q
+            if PODS not in n.allocatable:
+                alloc[i, pods_ri] = DEFAULT_MAX_PODS
+
+        lab_k, lab_v, lab_n = [], [], []
+        tn_k, tn_v, tn_e = [], [], []
+        for n in cluster.nodes:
+            lk, lv, ln = [], [], []
+            for k, v in n.labels.items():
+                lk.append(self.vocab.key(k))
+                lv.append(self.vocab.kv(k, v))
+                ln.append(_try_float(v))
+            lab_k.append(lk)
+            lab_v.append(lv)
+            lab_n.append(ln)
+            tk, tv, te = [], [], []
+            for t in n.taints:
+                tk.append(self.vocab.key(t.key))
+                tv.append(self.vocab.kv(t.key, t.value))
+                te.append(int(t.effect))
+            tn_k.append(tk)
+            tn_v.append(tv)
+            tn_e.append(te)
+
+        L = max((len(r) for r in lab_k), default=0)
+        label_num = np.full((N, max(L, 1)), np.nan, dtype=np.float32)
+        for i, r in enumerate(lab_n):
+            if r:
+                label_num[i, : len(r)] = r
+
+        # Topology domains per topo key (sorted label values → deterministic
+        # domain ids; SURVEY.md §7 hard part #6 determinism).
+        T = len(self.vocab.topo_keys)
+        node_domain = np.full((max(T, 1), N), PAD, dtype=np.int32)
+        num_domains = np.zeros(max(T, 1), dtype=np.int32)
+        for ti, tkey in enumerate(self.vocab.topo_keys):
+            vals = sorted({n.labels[tkey] for n in cluster.nodes if tkey in n.labels})
+            vi = {v: j for j, v in enumerate(vals)}
+            num_domains[ti] = len(vals)
+            for ni, n in enumerate(cluster.nodes):
+                if tkey in n.labels:
+                    node_domain[ti, ni] = vi[n.labels[tkey]]
+
+        E = len(self._exprs)
+        V = max((len(e[2]) for e in self._exprs), default=0)
+        expr_key = np.array([e[0] for e in self._exprs] or [PAD], dtype=np.int32).reshape(-1)
+        expr_op = np.array([e[1] for e in self._exprs] or [0], dtype=np.int32).reshape(-1)
+        expr_vals = _pad2([list(e[2]) for e in self._exprs] or [[]], V)
+        expr_num = np.array(
+            [e[3] for e in self._exprs] or [np.nan], dtype=np.float32
+        ).reshape(-1)
+
+        group_topo = np.array(
+            [self.vocab.topo(g.topology_key) for g in self._groups] or [PAD], dtype=np.int32
+        ).reshape(-1)
+
+        return EncodedCluster(
+            vocab=self.vocab,
+            node_names=[n.name for n in cluster.nodes],
+            num_nodes=N,
+            allocatable=alloc,
+            node_label_key=_pad2(lab_k, L),
+            node_label_kv=_pad2(lab_v, L),
+            node_label_num=label_num,
+            taint_key=_pad2(tn_k, max((len(r) for r in tn_k), default=0)),
+            taint_kv=_pad2(tn_v, max((len(r) for r in tn_v), default=0)),
+            taint_effect=_pad2(tn_e, max((len(r) for r in tn_e), default=0), pad=0),
+            node_domain=node_domain,
+            num_domains=num_domains,
+            max_domains=int(num_domains.max()) if T else 1,
+            expr_key=expr_key,
+            expr_op=expr_op,
+            expr_vals=expr_vals,
+            expr_num=expr_num,
+            group_topo=group_topo,
+            group_keys=list(self._groups),
+        )
+
+
+def encode(cluster: Cluster, workload: Sequence[Pod]) -> Tuple[EncodedCluster, EncodedPods]:
+    """Convenience one-shot encode with a fresh vocab."""
+    return Encoder().encode(cluster, workload)

@@ -1,0 +1,150 @@
+"""Mutable scheduling state (numpy host version).
+
+Counterpart: ``kubernetes_simulator_tpu/models/state.py`` (a copy). The
+port keeps this host layout for its result's ``state`` and its device
+planes (``used [N, R]``, ``[G, D]`` count planes) mirror it one to one.
+
+The entire effect of a binding on future scheduling decisions is captured by
+four dense tensors (SURVEY.md §3.5 ``apply_bindings``):
+
+- ``used[N, R]``          — per-node resource usage (includes the "pods" row)
+- ``match_count[G, D]``   — placed pods matching count-group g per domain
+- ``anti_active[G, D]``   — placed pods *having* required anti-affinity term g
+                            per domain (the symmetric anti-affinity check)
+- ``pref_wsum[G, D]``     — summed preferred-(anti)affinity weights of placed
+                            pods per (group, domain) (symmetric scoring)
+
+``bind``/``unbind`` are exact inverses — gang rollback and pod completion
+depend on that (SURVEY.md §7 hard part #3). The JAX backend carries the same
+tensors as a pytree and updates them with scatter-adds inside ``lax.scan``.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+
+from .encode import PAD, EncodedCluster, EncodedPods
+
+
+@dataclass
+class SchedState:
+    used: np.ndarray  # [N, R] f32
+    match_count: np.ndarray  # [G, D] f32
+    anti_active: np.ndarray  # [G, D] f32
+    pref_wsum: np.ndarray  # [G, D] f32
+    bound: np.ndarray  # [P] i32 (PAD = unbound)
+
+    def copy(self) -> "SchedState":
+        return SchedState(
+            self.used.copy(),
+            self.match_count.copy(),
+            self.anti_active.copy(),
+            self.pref_wsum.copy(),
+            self.bound.copy(),
+        )
+
+
+def init_state(ec: EncodedCluster, pods: EncodedPods, apply_prebound: bool = True) -> SchedState:
+    G = max(ec.num_groups, 1)
+    D = max(ec.max_domains, 1)
+    st = SchedState(
+        used=np.zeros((ec.num_nodes, ec.num_resources), dtype=np.float32),
+        match_count=np.zeros((G, D), dtype=np.float32),
+        anti_active=np.zeros((G, D), dtype=np.float32),
+        pref_wsum=np.zeros((G, D), dtype=np.float32),
+        bound=np.full(pods.num_pods, PAD, dtype=np.int32),
+    )
+    if apply_prebound:
+        for p in np.nonzero(pods.bound_node >= 0)[0]:
+            bind(ec, pods, st, int(p), int(pods.bound_node[p]))
+    return st
+
+
+def _group_domains(ec: EncodedCluster, node: int) -> np.ndarray:
+    """Domain id of ``node`` for each count group's topology key ([G] i32,
+    PAD where the node lacks the key or the group row is padding)."""
+    gt = ec.group_topo
+    dom = np.where(gt >= 0, ec.node_domain[np.clip(gt, 0, None), node], PAD)
+    return dom
+
+
+def _apply(ec: EncodedCluster, pods: EncodedPods, st: SchedState, p: int, n: int, sign: float) -> None:
+    st.used[n] += sign * pods.requests[p]
+    dom = _group_domains(ec, n)  # [G]
+    ok = dom >= 0
+    sel = ok & pods.pod_matches_group[p]
+    if sel.any():
+        np.add.at(st.match_count, (np.nonzero(sel)[0], dom[sel]), sign)
+    for g in pods.anti_req[p]:
+        if g >= 0 and dom[g] >= 0:
+            st.anti_active[g, dom[g]] += sign
+    for g, w in zip(pods.pref_aff[p], pods.pref_aff_w[p]):
+        if g >= 0 and dom[g] >= 0:
+            st.pref_wsum[g, dom[g]] += sign * w
+
+
+def bind(ec: EncodedCluster, pods: EncodedPods, st: SchedState, p: int, n: int) -> None:
+    _apply(ec, pods, st, p, n, 1.0)
+    st.bound[p] = n
+
+
+def unbind(ec: EncodedCluster, pods: EncodedPods, st: SchedState, p: int) -> None:
+    n = int(st.bound[p])
+    if n == PAD:
+        return
+    _apply(ec, pods, st, p, n, -1.0)
+    st.bound[p] = PAD
+
+
+def release_delta(
+    ec: EncodedCluster, pods: EncodedPods, idx: np.ndarray, nodes: np.ndarray
+):
+    """Aggregate state contribution of pods ``idx`` bound at ``nodes`` —
+    the vectorized sum of per-pod ``_apply(sign=+1)`` effects, in the host
+    state layout. The device engines subtract it from the carried planes
+    when completed pods free their resources at chunk boundaries
+    (SURVEY.md §2 L4: completions are the other half of the binding
+    contract). Returns (used [N,R], match_count [G,D], anti_active [G,D],
+    pref_wsum [G,D])."""
+    N, R = ec.num_nodes, ec.num_resources
+    G = max(ec.num_groups, 1)
+    D = max(ec.max_domains, 1)
+    used = np.zeros((N, R), np.float32)
+    mc = np.zeros((G, D), np.float32)
+    aa = np.zeros((G, D), np.float32)
+    pw = np.zeros((G, D), np.float32)
+    if len(idx) == 0:
+        return used, mc, aa, pw
+    idx = np.asarray(idx)
+    nodes = np.asarray(nodes)
+    np.add.at(used, nodes, pods.requests[idx])
+    gt = ec.group_topo[:G]
+    # dom[g, k] = domain of pod k's node under group g's topology.
+    dom = np.where(
+        (gt >= 0)[:, None], ec.node_domain[np.clip(gt, 0, None)][:, nodes], PAD
+    )  # [G, K]
+    sel = (dom >= 0) & pods.pod_matches_group[idx].T[:G]
+    gg, kk = np.nonzero(sel)
+    np.add.at(mc, (gg, dom[gg, kk]), 1.0)
+    for col in range(pods.anti_req.shape[1]):
+        g = pods.anti_req[idx, col]
+        ok = (g >= 0) & (dom[np.clip(g, 0, None), np.arange(len(idx))] >= 0)
+        if ok.any():
+            np.add.at(
+                aa,
+                (g[ok], dom[g[ok], np.nonzero(ok)[0]]),
+                1.0,
+            )
+    for col in range(pods.pref_aff.shape[1]):
+        g = pods.pref_aff[idx, col]
+        w = pods.pref_aff_w[idx, col]
+        ok = (g >= 0) & (dom[np.clip(g, 0, None), np.arange(len(idx))] >= 0)
+        if ok.any():
+            np.add.at(
+                pw,
+                (g[ok], dom[g[ok], np.nonzero(ok)[0]]),
+                w[ok].astype(np.float32),
+            )
+    return used, mc, aa, pw

@@ -1,0 +1,665 @@
+"""Plain-PyTorch scheduling chain and the plain twins of the kernels.
+
+Counterpart: ``kubernetes_simulator_tpu/ops/cpu.py`` (all of it: the
+per-plugin Filter/Score arithmetic over ``[N]`` node vectors) and
+``kubernetes_simulator_tpu/ops/tpu.py`` (``_int_resource_score`` :617,
+``spread_norm_from_extrema`` :565, ``_normalize_row`` :699,
+``select_node`` :739), re-expressed in torch over the device data model
+below. Every expression keeps the reference's operation order, so the
+floor-quantized integer-valued f32 scores are bit-identical to the numpy
+and JAX chains and argmax ties break on the lowest index.
+
+Three functions are the plain twins of the hand-written kernels in
+``csrc/`` (``ops/kernels.py`` wraps both):
+
+- :func:`filter_score` — K1: fused feasibility mask + raw score rows of
+  one pod over all nodes;
+- :func:`normalize_select` — K2: per-plugin normalization, weighted total
+  and the lowest-index argmax, written to a device int32;
+- :func:`apply_placements` — K3: ±contribution of K (pod, node) pairs to
+  the carried state (bind, gang rollback, completion release).
+
+The twins run on any device; the wrappers take them only for CPU tensors.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import NamedTuple, Tuple
+
+import numpy as np
+import torch
+
+from ..models.core import Effect, Operator
+from ..models.encode import PAD, TOL_PAD, TOL_WILDCARD, EncodedCluster, EncodedPods
+
+MAX_NODE_SCORE = 100.0
+
+#: Rows of the per-slot score block (csrc/ksim.cuh KSIM_ROW_*).
+ROW_FIT, ROW_TAINT, ROW_NA, ROW_IP, ROW_SPREAD = range(5)
+NUM_ROWS = 5
+
+#: NodeResourcesFit scoring strategies (csrc/ksim.cuh fit_strategy codes).
+FIT_STRATEGIES = ("LeastAllocated", "MostAllocated", "RequestedToCapacityRatio")
+
+
+# ---------------------------------------------------------------------------
+# Device data model
+# ---------------------------------------------------------------------------
+
+
+class DevCluster(NamedTuple):
+    """Static node-side tensors (device copies of EncodedCluster plus the
+    derived expression-match matrix and per-group domain maps)."""
+
+    allocatable: torch.Tensor  # [N, R] f32
+    taint_key: torch.Tensor  # [N, TT] i32
+    taint_kv: torch.Tensor  # [N, TT] i32
+    taint_effect: torch.Tensor  # [N, TT] i32
+    expr_match: torch.Tensor  # [N, E] bool
+    gdom: torch.Tensor  # [G, N] i32 domain of node n under group g's key (PAD)
+    gnd: torch.Tensor  # [G] i32 domain count of group g's key
+    sp_w: torch.Tensor  # [G] f32 spread topologyNormalizingWeight
+
+
+class DevPods(NamedTuple):
+    """Encoded pod tables resident on the device (indexed by pod id)."""
+
+    requests: torch.Tensor  # [P, R] f32
+    tol_key: torch.Tensor  # [P, TO] i32
+    tol_kv: torch.Tensor
+    tol_effect: torch.Tensor
+    na_req: torch.Tensor  # [P, TR, TE] i32
+    na_has_req: torch.Tensor  # [P] bool
+    na_pref: torch.Tensor  # [P, TP, TE] i32
+    na_pref_w: torch.Tensor  # [P, TP] f32
+    aff_req: torch.Tensor  # [P, AR] i32
+    anti_req: torch.Tensor  # [P, AA] i32
+    pref_aff: torch.Tensor  # [P, PA] i32
+    pref_aff_w: torch.Tensor  # [P, PA] f32
+    spread_g: torch.Tensor  # [P, SP] i32
+    spread_skew: torch.Tensor  # [P, SP] i32
+    spread_dns: torch.Tensor  # [P, SP] bool
+    pmg: torch.Tensor  # [P, G] bool
+    group_id: torch.Tensor  # [P] i32
+
+
+class DevState(NamedTuple):
+    """Carried scheduling state in the host layout of models.state
+    (updated in place by :func:`apply_placements` / the K3 kernel)."""
+
+    used: torch.Tensor  # [N, R] f32
+    match_count: torch.Tensor  # [G, D] f32
+    anti_active: torch.Tensor  # [G, D] f32
+    pref_wsum: torch.Tensor  # [G, D] f32
+
+
+class Scratch(NamedTuple):
+    """Per-slot K1 outputs, K2 inputs (reused slot after slot: launches
+    are ordered on one stream)."""
+
+    feasible: torch.Tensor  # [N] bool
+    scores: torch.Tensor  # [NUM_ROWS, N] f32
+    ignored: torch.Tensor  # [N] bool
+
+
+@dataclass(frozen=True)
+class StepConsts:
+    """Static step constants, resolved once per engine from the StepSpec
+    (sim.torch_runtime.StepSpec.consts)."""
+
+    fit: bool
+    taints: bool
+    node_affinity: bool
+    interpod: bool
+    spread: bool
+    on_fit: bool  # the row enters the weighted total
+    on_taint: bool
+    on_na: bool
+    on_ip: bool
+    on_sp: bool
+    has_symmetric_pref: bool
+    sp_norm_f32: bool
+    fit_strategy: int  # index into FIT_STRATEGIES
+    res_w: Tuple[float, ...]  # [R] f32 resource weights (non-zero enter)
+    wsum: float  # f32 of the f64 sum of the non-zero weights
+    w_fit: float  # f32 plugin weights
+    w_taint: float
+    w_na: float
+    w_ip: float
+    w_sp: float
+    # RequestedToCapacityRatio shape, per segment i (f32, host-computed
+    # exactly as ops/cpu.piecewise_interp_int does)
+    seg_x0: Tuple[float, ...]
+    seg_x1: Tuple[float, ...]
+    seg_y0: Tuple[float, ...]
+    seg_inv: Tuple[float, ...]  # f32(1) / (x1 - x0)
+    seg_dy: Tuple[float, ...]  # y1 - y0
+    x_first: float
+    y_first: float
+    y_last: float
+
+
+class Tables(NamedTuple):
+    """Everything a slot step reads or writes, on one device."""
+
+    cluster: DevCluster
+    pods: DevPods
+    state: DevState
+    scratch: Scratch
+    consts: StepConsts
+
+
+def expr_match_matrix(ec: EncodedCluster) -> np.ndarray:
+    """``M[n, e]`` — does node n satisfy interned expression e ([K8S]
+    semantics: In/Gt/Lt require the key present; NotIn/DoesNotExist also
+    match when it is absent). Host numpy, once per engine (ops/cpu.py
+    ``expr_match_matrix``)."""
+    nk = ec.node_label_key[:, :, None]
+    nv = ec.node_label_kv[:, :, None]
+    ek = ec.expr_key[None, None, :]
+    key_present = np.any((nk == ek) & (nk != PAD), axis=1)
+    in_set = np.any(
+        (nv[:, :, :, None] == ec.expr_vals[None, None, :, :]) & (nv[:, :, :, None] != PAD),
+        axis=(1, 3),
+    )
+    num = ec.node_label_num[:, :, None]
+    with np.errstate(invalid="ignore"):
+        gt = np.any((nk == ek) & (num > ec.expr_num[None, None, :]), axis=1)
+        lt = np.any((nk == ek) & (num < ec.expr_num[None, None, :]), axis=1)
+    op = ec.expr_op[None, :]
+    return (
+        ((op == Operator.IN) & key_present & in_set)
+        | ((op == Operator.NOT_IN) & ~(key_present & in_set))
+        | ((op == Operator.EXISTS) & key_present)
+        | ((op == Operator.DOES_NOT_EXIST) & ~key_present)
+        | ((op == Operator.GT) & gt)
+        | ((op == Operator.LT) & lt)
+    )
+
+
+def group_domains(ec: EncodedCluster) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Host: (gdom [G, N] i32, gnd [G] i32, sp_w [G] f32). ``sp_w`` is the
+    upstream topologyNormalizingWeight ``log(size + 2)`` per group, f64 log
+    cast once to f32 (ops/cpu.py spread_weight)."""
+    G = max(ec.num_groups, 1)
+    gt = ec.group_topo[:G]
+    if gt.shape[0] < G:
+        gt = np.full(G, PAD, np.int32)
+    safe = np.clip(gt, 0, None)
+    gdom = np.where(gt[:, None] >= 0, ec.node_domain[safe], PAD).astype(np.int32)
+    gnd = np.where(gt >= 0, ec.num_domains[safe], 0).astype(np.int32)
+    sp_w = np.log(gnd.astype(np.float64) + 2.0).astype(np.float32)
+    return gdom, gnd, sp_w
+
+
+def cluster_to(ec: EncodedCluster, device) -> DevCluster:
+    gdom, gnd, sp_w = group_domains(ec)
+    t = lambda a, dt: torch.as_tensor(np.ascontiguousarray(a), dtype=dt, device=device)
+    return DevCluster(
+        allocatable=t(ec.allocatable, torch.float32),
+        taint_key=t(ec.taint_key, torch.int32),
+        taint_kv=t(ec.taint_kv, torch.int32),
+        taint_effect=t(ec.taint_effect, torch.int32),
+        expr_match=t(expr_match_matrix(ec), torch.bool),
+        gdom=t(gdom, torch.int32),
+        gnd=t(gnd, torch.int32),
+        sp_w=t(sp_w, torch.float32),
+    )
+
+
+def pods_to(ep: EncodedPods, device) -> DevPods:
+    t = lambda a, dt: torch.as_tensor(np.ascontiguousarray(a), dtype=dt, device=device)
+    i32, f32, b = torch.int32, torch.float32, torch.bool
+    return DevPods(
+        requests=t(ep.requests, f32),
+        tol_key=t(ep.tol_key, i32),
+        tol_kv=t(ep.tol_kv, i32),
+        tol_effect=t(ep.tol_effect, i32),
+        na_req=t(ep.na_req, i32),
+        na_has_req=t(ep.na_has_req, b),
+        na_pref=t(ep.na_pref, i32),
+        na_pref_w=t(ep.na_pref_w, f32),
+        aff_req=t(ep.aff_req, i32),
+        anti_req=t(ep.anti_req, i32),
+        pref_aff=t(ep.pref_aff, i32),
+        pref_aff_w=t(ep.pref_aff_w, f32),
+        spread_g=t(ep.spread_g, i32),
+        spread_skew=t(ep.spread_skew, i32),
+        spread_dns=t(ep.spread_dns, b),
+        pmg=t(ep.pod_matches_group, b),
+        group_id=t(ep.group_id, i32),
+    )
+
+
+def new_scratch(N: int, device) -> Scratch:
+    return Scratch(
+        feasible=torch.zeros(N, dtype=torch.bool, device=device),
+        scores=torch.zeros((NUM_ROWS, N), dtype=torch.float32, device=device),
+        ignored=torch.zeros(N, dtype=torch.bool, device=device),
+    )
+
+
+# ---------------------------------------------------------------------------
+# Filters (ops/cpu.py, one pod p over all nodes)
+# ---------------------------------------------------------------------------
+
+
+def fit_mask(cl: DevCluster, st: DevState, pods: DevPods, p: int) -> torch.Tensor:
+    req = pods.requests[p]
+    return torch.all(st.used + req[None, :] <= cl.allocatable + 1e-6, dim=1)
+
+
+def _untolerated(cl: DevCluster, pods: DevPods, p: int, effects) -> torch.Tensor:
+    """[N, TT] — taint slot active with effect ∈ ``effects`` and not
+    tolerated by any of pod p's tolerations."""
+    t_eff = cl.taint_effect
+    active = torch.zeros_like(cl.taint_key, dtype=torch.bool)
+    for e in effects:
+        active |= t_eff == int(e)
+    active &= cl.taint_key != PAD
+    tk, tv, te = pods.tol_key[p], pods.tol_kv[p], pods.tol_effect[p]
+    valid_tol = tk != TOL_PAD
+    key_ok = (tk[None, None, :] == TOL_WILDCARD) | (tk[None, None, :] == cl.taint_key[:, :, None])
+    val_ok = (tv[None, None, :] == PAD) | (tv[None, None, :] == cl.taint_kv[:, :, None])
+    eff_ok = (te[None, None, :] == 0) | (te[None, None, :] == t_eff[:, :, None])
+    tolerated = torch.any(key_ok & val_ok & eff_ok & valid_tol[None, None, :], dim=2)
+    return active & ~tolerated
+
+
+def taint_mask(cl: DevCluster, pods: DevPods, p: int) -> torch.Tensor:
+    bad = _untolerated(cl, pods, p, (Effect.NO_SCHEDULE, Effect.NO_EXECUTE))
+    return ~torch.any(bad, dim=1)
+
+
+def taint_prefer_count(cl: DevCluster, pods: DevPods, p: int) -> torch.Tensor:
+    bad = _untolerated(cl, pods, p, (Effect.PREFER_NO_SCHEDULE,))
+    return bad.sum(dim=1).to(torch.float32)
+
+
+def _terms_matched(M: torch.Tensor, terms: torch.Tensor) -> torch.Tensor:
+    """[N, T] — term t valid (slot 0 is a real expr) and every real expr
+    of it matched by node n (PAD exprs auto-true)."""
+    valid_term = terms[:, 0] >= 0
+    per_expr = M[:, terms.clamp(min=0)] | (terms[None, :, :] < 0)
+    return torch.all(per_expr, dim=2) & valid_term[None, :]
+
+
+def node_affinity_mask(cl: DevCluster, pods: DevPods, p: int) -> torch.Tensor:
+    N = cl.allocatable.shape[0]
+    if not bool(pods.na_has_req[p]):
+        return torch.ones(N, dtype=torch.bool, device=cl.allocatable.device)
+    return torch.any(_terms_matched(cl.expr_match, pods.na_req[p]), dim=1)
+
+
+def node_affinity_score(cl: DevCluster, pods: DevPods, p: int) -> torch.Tensor:
+    """Σ weight over matched preferred terms (raw)."""
+    per_term = _terms_matched(cl.expr_match, pods.na_pref[p])
+    w = pods.na_pref_w[p]
+    raw = torch.zeros(per_term.shape[0], dtype=torch.float32, device=w.device)
+    for t in range(per_term.shape[1]):
+        raw = raw + torch.where(per_term[:, t], w[t], torch.zeros_like(w[t]))
+    return raw
+
+
+def _counts_at_nodes(plane: torch.Tensor, gdom: torch.Tensor) -> torch.Tensor:
+    """``plane[g, dom(g, n)]`` → [G, N]; 0 where the node lacks the key
+    (a PAD domain never reads column 0)."""
+    vals = torch.gather(plane, 1, gdom.clamp(min=0).to(torch.int64))
+    return torch.where(gdom >= 0, vals, torch.zeros_like(vals))
+
+
+def interpod_filter_mask(cl: DevCluster, st: DevState, pods: DevPods, p: int) -> torch.Tensor:
+    gdom = cl.gdom
+    cnt = _counts_at_nodes(st.match_count, gdom)
+    total = st.match_count.sum(dim=1)
+    ok = torch.ones(gdom.shape[1], dtype=torch.bool, device=gdom.device)
+    pm = pods.pmg[p]
+    # Required affinity, with the [K8S] bootstrap exception: nothing
+    # matches anywhere and the pod matches its own term.
+    for g in pods.aff_req[p].tolist():
+        if g < 0:
+            continue
+        boot = bool(total[g] == 0) and bool(pm[g])
+        term_ok = (cnt[g] >= 1) & (gdom[g] >= 0)
+        ok &= term_ok | boot
+    # Required anti-affinity of the incoming pod.
+    for g in pods.anti_req[p].tolist():
+        if g < 0:
+            continue
+        ok &= ~((cnt[g] >= 1) & (gdom[g] >= 0))
+    # Symmetric: placed pods' required anti terms reject this pod.
+    anti_here = _counts_at_nodes(st.anti_active, gdom)
+    blocked = torch.any((anti_here > 0) & pm[:, None], dim=0)
+    return ok & ~blocked
+
+
+def interpod_score(
+    cl: DevCluster, st: DevState, pods: DevPods, p: int, has_symmetric_pref: bool = True
+) -> torch.Tensor:
+    gdom = cl.gdom
+    cnt = _counts_at_nodes(st.match_count, gdom)
+    raw = torch.zeros(gdom.shape[1], dtype=torch.float32, device=gdom.device)
+    w_row = pods.pref_aff_w[p]
+    for i, g in enumerate(pods.pref_aff[p].tolist()):
+        if g >= 0:
+            raw = raw + w_row[i] * cnt[g]
+    if has_symmetric_pref:
+        wsum = _counts_at_nodes(st.pref_wsum, gdom)
+        sym = torch.zeros_like(raw)
+        for g in torch.nonzero(pods.pmg[p]).flatten().tolist():
+            sym = sym + wsum[g]
+        raw = raw + sym
+    return raw
+
+
+def spread_filter_mask(cl: DevCluster, st: DevState, pods: DevPods, p: int) -> torch.Tensor:
+    gdom = cl.gdom
+    N = gdom.shape[1]
+    ok = torch.ones(N, dtype=torch.bool, device=gdom.device)
+    dns_row = pods.spread_dns[p].tolist()
+    skew_row = pods.spread_skew[p].tolist()
+    for i, g in enumerate(pods.spread_g[p].tolist()):
+        if g < 0 or not dns_row[i]:
+            continue
+        nd = int(cl.gnd[g])
+        if nd == 0:
+            ok &= False
+            continue
+        min_cnt = st.match_count[g, :nd].min()
+        cnt = _counts_at_nodes(st.match_count[g : g + 1], gdom[g : g + 1])[0]
+        self_match = 1.0 if bool(pods.pmg[p, g]) else 0.0
+        new = cnt + self_match
+        ok &= (gdom[g] >= 0) & (new - min_cnt <= float(skew_row[i]))
+    return ok
+
+
+def spread_score(
+    cl: DevCluster, st: DevState, pods: DevPods, p: int
+) -> Tuple[torch.Tensor, torch.Tensor, bool]:
+    """Upstream podtopologyspread raw score over the ScheduleAnyway
+    constraints: ``floor(Σ cnt·log(size+2) + (maxSkew−1) + 0.5)`` per node,
+    the ignored mask (node missing a scored key) and the any-scored flag
+    (PreScore Skip when False)."""
+    gdom = cl.gdom
+    N = gdom.shape[1]
+    raw = torch.zeros(N, dtype=torch.float32, device=gdom.device)
+    ignored = torch.zeros(N, dtype=torch.bool, device=gdom.device)
+    any_scored = False
+    dns_row = pods.spread_dns[p].tolist()
+    skew_row = pods.spread_skew[p].tolist()
+    for i, g in enumerate(pods.spread_g[p].tolist()):
+        if g < 0 or dns_row[i]:
+            continue
+        any_scored = True
+        cnt = _counts_at_nodes(st.match_count[g : g + 1], gdom[g : g + 1])[0]
+        contrib = cnt * cl.sp_w[g] + torch.tensor(
+            float(skew_row[i] - 1), dtype=torch.float32, device=gdom.device
+        )
+        raw = raw + contrib
+        ignored |= gdom[g] < 0
+    raw = torch.floor(raw + 0.5)
+    return raw, ignored, any_scored
+
+
+# ---------------------------------------------------------------------------
+# Resource scores (integer-valued f32 floor chains)
+# ---------------------------------------------------------------------------
+
+
+def _resource_frac(cl: DevCluster, st: DevState, pods: DevPods, p: int, least: bool):
+    req = pods.requests[p][None, :]
+    alloc = cl.allocatable
+    denom = torch.where(alloc > 0, alloc, torch.ones_like(alloc))
+    num = (alloc - st.used) - req if least else st.used + req
+    frac = torch.where(alloc > 0, num / denom, torch.zeros_like(alloc))
+    return frac.clamp(0.0, 1.0)
+
+
+def piecewise_interp_int(util: torch.Tensor, k: StepConsts) -> torch.Tensor:
+    """Integer-valued piecewise-linear eval (ops/cpu.py
+    piecewise_interp_int) with the segment constants precomputed in f32."""
+    f = lambda x: torch.tensor(x, dtype=torch.float32, device=util.device)
+    out = torch.full_like(util, k.y_last)
+    for i in range(len(k.seg_x0) - 1, -1, -1):
+        t = (util - f(k.seg_x0[i])) * f(k.seg_inv[i])
+        seg = f(k.seg_y0[i]) + torch.floor(t * f(k.seg_dy[i]))
+        out = torch.where(util <= f(k.seg_x1[i]), seg, out)
+    return torch.where(util <= f(k.x_first), f(k.y_first), out)
+
+
+def fit_score(cl: DevCluster, st: DevState, pods: DevPods, p: int, k: StepConsts) -> torch.Tensor:
+    """``floor(Σ_r w_r·s_r / Σw)`` with ``s_r = floor(100·frac_r)``
+    (Least/MostAllocated) or the shape value of ``floor(100·util_r)``
+    (RequestedToCapacityRatio)."""
+    strategy = FIT_STRATEGIES[k.fit_strategy]
+    frac = _resource_frac(cl, st, pods, p, least=strategy == "LeastAllocated")
+    s = torch.floor(frac * 100.0)
+    if strategy == "RequestedToCapacityRatio":
+        s = piecewise_interp_int(s, k)
+    acc = torch.zeros(s.shape[0], dtype=torch.float32, device=s.device)
+    for r, w in enumerate(k.res_w):
+        if w != 0:
+            acc = acc + s[:, r] * torch.tensor(w, dtype=torch.float32, device=s.device)
+    if k.wsum == 0:
+        return acc
+    return torch.floor(acc / torch.tensor(k.wsum, dtype=torch.float32, device=s.device))
+
+
+# ---------------------------------------------------------------------------
+# K1 twin
+# ---------------------------------------------------------------------------
+
+
+def filter_score(tb: Tables, p: int) -> None:
+    """Plain twin of K1 (csrc/filter_score.cu): writes the fused mask and
+    the raw score rows of pod ``p`` into ``tb.scratch``."""
+    cl, pods, st, k, out = tb.cluster, tb.pods, tb.state, tb.consts, tb.scratch
+    N = cl.allocatable.shape[0]
+    dev = cl.allocatable.device
+    ok = torch.ones(N, dtype=torch.bool, device=dev)
+    rows = torch.zeros((NUM_ROWS, N), dtype=torch.float32, device=dev)
+    ignored = torch.zeros(N, dtype=torch.bool, device=dev)
+    if k.fit:
+        ok &= fit_mask(cl, st, pods, p)
+        rows[ROW_FIT] = fit_score(cl, st, pods, p, k)
+    if k.taints:
+        ok &= taint_mask(cl, pods, p)
+        rows[ROW_TAINT] = taint_prefer_count(cl, pods, p)
+    if k.node_affinity:
+        ok &= node_affinity_mask(cl, pods, p)
+        rows[ROW_NA] = node_affinity_score(cl, pods, p)
+    if k.interpod:
+        ok &= interpod_filter_mask(cl, st, pods, p)
+        rows[ROW_IP] = interpod_score(cl, st, pods, p, k.has_symmetric_pref)
+    if k.spread:
+        ok &= spread_filter_mask(cl, st, pods, p)
+        rows[ROW_SPREAD], ignored, _ = spread_score(cl, st, pods, p)
+    out.feasible.copy_(ok)
+    out.scores.copy_(rows)
+    out.ignored.copy_(ignored)
+
+
+# ---------------------------------------------------------------------------
+# Normalization and selection (K2 twin)
+# ---------------------------------------------------------------------------
+
+
+def normalize_max(raw: torch.Tensor, feasible: torch.Tensor, reverse: bool = False) -> torch.Tensor:
+    """``floor(raw·100/max)`` over feasible nodes (0-filled max);
+    ``reverse`` flips (ops/tpu.py _normalize_row, max form)."""
+    hi = torch.where(feasible, raw, torch.zeros_like(raw)).max()
+    pos = hi > 0
+    out = torch.floor((raw * 100.0) / torch.where(pos, hi, torch.ones_like(hi)))
+    out = torch.where(pos, out, torch.zeros_like(out))
+    if reverse:
+        out = torch.where(pos, 100.0 - out, torch.full_like(out, MAX_NODE_SCORE))
+    return out
+
+
+def normalize_min_max(raw: torch.Tensor, feasible: torch.Tensor) -> torch.Tensor:
+    """``floor((raw−lo)·(100/span))`` over feasible nodes; constant or
+    empty → 0 (ops/tpu.py _normalize_row, min-max form)."""
+    inf = torch.tensor(float("inf"), dtype=raw.dtype, device=raw.device)
+    lo = torch.where(feasible, raw, inf).min()
+    hi = torch.where(feasible, raw, -inf).max()
+    span = hi - lo
+    ok = feasible.any() & (span > 0)
+    one = torch.ones_like(span)
+    # A true f32 division: torch evaluates ``scalar / tensor`` as
+    # ``reciprocal(tensor) * scalar``, which rounds differently.
+    k = torch.div(torch.full_like(span, MAX_NODE_SCORE), torch.where(ok, span, one))
+    out = torch.floor((raw - torch.where(ok, lo, 0 * one)) * k)
+    return torch.where(ok, out, torch.zeros_like(out))
+
+
+def spread_normalize(
+    raw: torch.Tensor, ignored: torch.Tensor, feasible: torch.Tensor, any_scored: bool,
+    f32ok: bool,
+) -> torch.Tensor:
+    """Upstream two-pass NormalizeScore ``100·(max+min−s) // max`` with the
+    extrema over feasible & ~ignored nodes (ops/tpu.py
+    spread_norm_from_extrema): the int32 floor division, or its f32 form
+    under the static ``f32ok`` bound."""
+    inf = torch.tensor(float("inf"), dtype=raw.dtype, device=raw.device)
+    okn = feasible & ~ignored
+    hi = torch.where(okn, raw, -inf).max()
+    lo = torch.where(okn, raw, inf).min()
+    has = hi > -inf
+    zero = torch.zeros_like(hi)
+    hi_f = torch.where(has, hi, zero)
+    lo_f = torch.where(has, lo, zero)
+    if f32ok:
+        pos = hi_f > 0
+        vals = torch.floor((100.0 * ((hi_f + lo_f) - raw)) / torch.where(pos, hi_f, zero + 1))
+        out = torch.where(pos, vals, torch.full_like(vals, MAX_NODE_SCORE))
+    else:
+        hi_i = hi_f.to(torch.int32)
+        lo_i = lo_f.to(torch.int32)
+        num = 100 * ((hi_i + lo_i) - raw.to(torch.int32))
+        vals = torch.div(num, torch.where(hi_i > 0, hi_i, torch.ones_like(hi_i)),
+                         rounding_mode="floor")
+        out = torch.where(hi_i > 0, vals.to(torch.float32),
+                          torch.full_like(raw, MAX_NODE_SCORE))
+    drop = ignored | ~has | torch.tensor(not any_scored, device=raw.device)
+    return torch.where(drop, torch.zeros_like(out), out)
+
+
+def normalized_rows(tb: Tables, p: int) -> torch.Tensor:
+    """[NUM_ROWS, N] — each plugin's NormalizeScore of the scratch rows:
+    the fit score as is, the taint count reverse max-normalized, the
+    node-affinity sum max-normalized, the inter-pod sum min-max
+    normalized, the spread raw by the upstream two-pass form. Rows of
+    plugins off in the step stay 0."""
+    k, x, pods = tb.consts, tb.scratch, tb.pods
+    f, s = x.feasible, x.scores
+    out = torch.zeros_like(s)
+    if k.fit:
+        out[ROW_FIT] = s[ROW_FIT]
+    if k.taints:
+        out[ROW_TAINT] = normalize_max(s[ROW_TAINT], f, reverse=True)
+    if k.node_affinity:
+        out[ROW_NA] = normalize_max(s[ROW_NA], f)
+    if k.interpod:
+        out[ROW_IP] = normalize_min_max(s[ROW_IP], f)
+    if k.spread:
+        any_scored = bool(((pods.spread_g[p] >= 0) & ~pods.spread_dns[p]).any())
+        out[ROW_SPREAD] = spread_normalize(s[ROW_SPREAD], x.ignored, f, any_scored, k.sp_norm_f32)
+    return out
+
+
+def weighted_total(tb: Tables, p: int) -> torch.Tensor:
+    """Σ w·normalized row in the reference's plugin order (fit, taint,
+    node affinity, inter-pod, spread), each added to a running f32 total
+    from 0."""
+    k = tb.consts
+    rows = normalized_rows(tb, p)
+    total = torch.zeros_like(rows[0])
+    for on, w, r in (
+        (k.on_fit, k.w_fit, ROW_FIT),
+        (k.on_taint, k.w_taint, ROW_TAINT),
+        (k.on_na, k.w_na, ROW_NA),
+        (k.on_ip, k.w_ip, ROW_IP),
+        (k.on_sp, k.w_sp, ROW_SPREAD),
+    ):
+        if on:
+            total = total + torch.tensor(w, dtype=torch.float32, device=rows.device) * rows[r]
+    return total
+
+
+def select_node(scores: torch.Tensor, feasible: torch.Tensor) -> torch.Tensor:
+    """int32 0-d choice: lowest-index argmax of the masked scores, PAD when
+    nothing is feasible (ops/tpu.py select_node)."""
+    masked = torch.where(feasible, scores, torch.full_like(scores, float("-inf")))
+    mx = masked.max()
+    first = torch.nonzero(masked == mx).flatten()[:1]
+    placed = mx > float("-inf")
+    choice = first[0] if first.numel() else torch.tensor(PAD, device=scores.device)
+    return torch.where(placed, choice, torch.full_like(choice, PAD)).to(torch.int32)
+
+
+def normalize_select(tb: Tables, p: int, choice_out: torch.Tensor) -> None:
+    """Plain twin of K2 (csrc/normalize_select.cu): writes pod ``p``'s
+    choice (PAD when unplaced) into the 0-d/1-element int32
+    ``choice_out``."""
+    total = weighted_total(tb, p)
+    choice_out.copy_(select_node(total, tb.scratch.feasible).reshape(choice_out.shape))
+
+
+# ---------------------------------------------------------------------------
+# State update (K3 twin)
+# ---------------------------------------------------------------------------
+
+
+def gang_rollback_mask(pods: DevPods, pod_ids: torch.Tensor, nodes: torch.Tensor) -> torch.Tensor:
+    """[K] bool — placed pairs whose gang has an unplaced member among the
+    K slots (the wave-end all-or-nothing commit)."""
+    valid = pod_ids >= 0
+    g = torch.where(valid, pods.group_id[pod_ids.clamp(min=0).long()], torch.full_like(pod_ids, PAD))
+    failed = valid & (nodes < 0) & (g >= 0)
+    same = (g[:, None] == g[None, :]) & failed[None, :]
+    return valid & (nodes >= 0) & (g >= 0) & same.any(dim=1)
+
+
+def apply_placements(
+    tb: Tables, pod_ids: torch.Tensor, nodes: torch.Tensor, sign: float, rollback: bool = False
+) -> None:
+    """Plain twin of K3 (csrc/apply_placements.cu): add ``sign`` × the
+    state contribution of each (pod, node) pair, in pair order
+    (models/state._apply); ``rollback`` restricts the pairs to failed-gang
+    members and overwrites their ``nodes`` entries with PAD."""
+    pods, cl, st = tb.pods, tb.cluster, tb.state
+    keep = (pod_ids >= 0) & (nodes >= 0)
+    if rollback:
+        keep = gang_rollback_mask(pods, pod_ids, nodes)
+    sel = torch.nonzero(keep).flatten()
+    if sel.numel():
+        p = pod_ids[sel].long()
+        n = nodes[sel].long()
+        D = st.match_count.shape[1]
+        st.used.index_add_(0, n, sign * pods.requests[p])
+        dom = cl.gdom[:, n]  # [G, K]
+        hit = (dom >= 0) & pods.pmg[p].T
+        gg, kk = torch.nonzero(hit, as_tuple=True)
+        flat = gg * D + dom[gg, kk].long()
+        st.match_count.view(-1).index_add_(
+            0, flat, torch.full(flat.shape, sign, dtype=torch.float32, device=flat.device)
+        )
+        karange = torch.arange(p.shape[0], device=p.device)
+        for col in range(pods.anti_req.shape[1]):
+            g = pods.anti_req[p, col].long()
+            d = dom[g.clamp(min=0), karange]
+            ok = (g >= 0) & (d >= 0)
+            st.anti_active.view(-1).index_add_(
+                0, g[ok] * D + d[ok].long(),
+                torch.full((int(ok.sum()),), sign, dtype=torch.float32, device=p.device),
+            )
+        for col in range(pods.pref_aff.shape[1]):
+            g = pods.pref_aff[p, col].long()
+            d = dom[g.clamp(min=0), karange]
+            ok = (g >= 0) & (d >= 0)
+            st.pref_wsum.view(-1).index_add_(
+                0, g[ok] * D + d[ok].long(), sign * pods.pref_aff_w[p, col][ok]
+            )
+    if rollback:
+        nodes.masked_fill_(keep, PAD)

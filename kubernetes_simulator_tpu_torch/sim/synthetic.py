@@ -1,0 +1,203 @@
+"""Synthetic cluster/workload generators for the [BASELINE] eval configs.
+
+Counterpart: ``kubernetes_simulator_tpu/sim/synthetic.py`` (a copy, seeded
+exactly as the JAX package's so both build identical traces; the chaos
+timeline generator is not carried over).
+
+Config 1: 100 nodes / 1k pods, NodeResourcesFit + LeastAllocated.
+Config 2: 5k nodes / 50k pods, full default plugin set (affinity, taints,
+topology-spread). Config 4's Borg-2019-like 10k×1M generator (gangs,
+priorities, alloc sets) lives in :mod:`.borg`.
+
+All generators are seeded and deterministic (SURVEY.md §4.3).
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Tuple
+
+import numpy as np
+
+from ..models.core import (
+    Cluster,
+    LabelSelector,
+    MatchExpression,
+    Node,
+    NodeAffinitySpec,
+    NodeSelectorTerm,
+    Pod,
+    PodAffinitySpec,
+    PodAffinityTerm,
+    PreferredSchedulingTerm,
+    Taint,
+    Toleration,
+    TopologySpreadConstraint,
+    WeightedPodAffinityTerm,
+)
+
+MACHINE_SHAPES = [  # (cpu cores, memory GiB) mimicking heterogeneous fleets
+    (16, 64),
+    (32, 128),
+    (64, 256),
+    (96, 384),
+]
+
+
+def make_cluster(
+    num_nodes: int,
+    seed: int = 0,
+    num_zones: int = 8,
+    taint_fraction: float = 0.0,
+    extended_resources: Optional[dict] = None,
+) -> Cluster:
+    """Heterogeneous nodes across zones/racks; optional taints and extended
+    resources (e.g. ``{"google.com/tpu": 8}`` on a fraction of nodes)."""
+    rng = np.random.default_rng(seed)
+    nodes: List[Node] = []
+    for i in range(num_nodes):
+        cpu, mem = MACHINE_SHAPES[rng.integers(len(MACHINE_SHAPES))]
+        labels = {
+            "topology.kubernetes.io/zone": f"zone-{i % num_zones}",
+            "topology.kubernetes.io/rack": f"rack-{i % (num_zones * 4)}",
+            "node.kubernetes.io/instance-type": f"type-{cpu}",
+            "tier": "hot" if i % 5 == 0 else "standard",
+        }
+        taints = []
+        if taint_fraction and rng.random() < taint_fraction:
+            taints.append(Taint("dedicated", "batch", "NoSchedule"))
+        capacity = {"cpu": float(cpu), "memory": float(mem) * 2**30, "pods": 110}
+        if extended_resources:
+            for r, (count, frac) in extended_resources.items():
+                if rng.random() < frac:
+                    capacity[r] = float(count)
+                    labels["accelerator"] = r.split("/")[-1]
+        nodes.append(Node(name=f"node-{i}", capacity=capacity, labels=labels, taints=taints))
+    return Cluster(nodes=nodes)
+
+
+def make_workload(
+    num_pods: int,
+    seed: int = 0,
+    arrival_rate: float = 100.0,
+    duration_mean: Optional[float] = None,
+    with_affinity: bool = False,
+    with_spread: bool = False,
+    with_tolerations: bool = False,
+    num_apps: int = 20,
+    gang_fraction: float = 0.0,
+    gang_size: int = 4,
+    extended_resource: Optional[Tuple[str, int, float]] = None,
+) -> Tuple[List[Pod], dict]:
+    """Pods in arrival order with app labels; optional affinity/spread/
+    toleration terms, gangs, extended-resource requests."""
+    rng = np.random.default_rng(seed + 1)
+    pods: List[Pod] = []
+    t = 0.0
+    gang_id = 0
+    gang_left = 0
+    gang_name = None
+    for i in range(num_pods):
+        t += float(rng.exponential(1.0 / arrival_rate))
+        app = f"app-{int(rng.integers(num_apps))}"
+        labels = {"app": app, "role": "worker" if rng.random() < 0.8 else "leader"}
+        requests = {
+            "cpu": float(rng.choice([0.25, 0.5, 1.0, 2.0, 4.0])),
+            "memory": float(rng.choice([0.5, 1.0, 2.0, 8.0])) * 2**30,
+        }
+        pod = Pod(
+            name=f"pod-{i}",
+            labels=labels,
+            requests=requests,
+            priority=int(rng.choice([0, 0, 0, 100, 1000])),
+            arrival_time=t,
+            duration=float(rng.exponential(duration_mean)) if duration_mean else None,
+        )
+        if with_tolerations and rng.random() < 0.3:
+            pod.tolerations.append(Toleration(key="dedicated", operator="Equal", value="batch"))
+        if with_affinity:
+            r = rng.random()
+            if r < 0.10:
+                pod.pod_affinity = PodAffinitySpec(
+                    required=(
+                        PodAffinityTerm(
+                            label_selector=LabelSelector.make({"app": app}),
+                            topology_key="topology.kubernetes.io/zone",
+                        ),
+                    )
+                )
+            elif r < 0.18:
+                pod.pod_anti_affinity = PodAffinitySpec(
+                    required=(
+                        PodAffinityTerm(
+                            label_selector=LabelSelector.make({"app": app, "role": "leader"}),
+                            topology_key="kubernetes.io/hostname",
+                        ),
+                    )
+                )
+            elif r < 0.35:
+                pod.node_affinity = NodeAffinitySpec(
+                    preferred=(
+                        PreferredSchedulingTerm(
+                            weight=int(rng.integers(1, 100)),
+                            term=NodeSelectorTerm(
+                                (MatchExpression.make("tier", "In", ["hot"]),)
+                            ),
+                        ),
+                    )
+                )
+        if with_spread and rng.random() < 0.25:
+            pod.topology_spread.append(
+                TopologySpreadConstraint(
+                    max_skew=int(rng.choice([1, 2, 5])),
+                    topology_key="topology.kubernetes.io/zone",
+                    when_unsatisfiable="DoNotSchedule" if rng.random() < 0.5 else "ScheduleAnyway",
+                    label_selector=LabelSelector.make({"app": app}),
+                )
+            )
+        if extended_resource is not None:
+            rname, count, frac = extended_resource
+            if rng.random() < frac:
+                pod.requests[rname] = float(rng.choice([1, 2, count]))
+        if gang_fraction and gang_left == 0 and rng.random() < gang_fraction:
+            gang_name = f"gang-{gang_id}"
+            gang_id += 1
+            gang_left = gang_size
+        if gang_left > 0:
+            pod.pod_group = gang_name
+            gang_left -= 1
+        pods.append(pod)
+    meta = {"num_gangs": gang_id, "makespan": t}
+    return pods, meta
+
+
+def config1(num_nodes: int = 100, num_pods: int = 1000, seed: int = 0):
+    """[BASELINE] config #1: default kube-scheduler shape, fit+LeastAllocated."""
+    cluster = make_cluster(num_nodes, seed=seed)
+    pods, _ = make_workload(num_pods, seed=seed)
+    plugins = [{"name": "NodeResourcesFit", "args": {"strategy": "LeastAllocated"}}]
+    return cluster, pods, plugins
+
+
+def config2(num_nodes: int = 5000, num_pods: int = 50_000, seed: int = 0):
+    """[BASELINE] config #2: full default plugin set at 5k/50k scale."""
+    cluster = make_cluster(num_nodes, seed=seed, taint_fraction=0.1)
+    pods, _ = make_workload(
+        num_pods, seed=seed, with_affinity=True, with_spread=True, with_tolerations=True
+    )
+    return cluster, pods, None  # None → full default plugin set
+
+
+def config5_multitenant(num_nodes: int = 1000, num_pods: int = 10_000, seed: int = 0):
+    """[BASELINE] config #5 shape: extended resources + pod-group coscheduling."""
+    cluster = make_cluster(
+        num_nodes, seed=seed, extended_resources={"google.com/tpu": (8, 0.25)}
+    )
+    pods, meta = make_workload(
+        num_pods,
+        seed=seed,
+        gang_fraction=0.05,
+        gang_size=4,
+        extended_resource=("google.com/tpu", 8, 0.2),
+        with_tolerations=True,
+    )
+    return cluster, pods, None

@@ -1,0 +1,175 @@
+"""YAML configuration.
+
+Counterpart: ``kubernetes_simulator_tpu/utils/config.py`` (``SimConfig``,
+``build_case``, ``build_encoded_case``) — the sections the port runs: the
+synthetic ``cluster``/``workload``, the ``profile`` (plugins, weights),
+``telemetry``, ``output``, ``waveWidth`` and ``chunkWaves``. Parsing is
+the reference's, key for key, so one YAML file yields the same encoded
+case in both packages.
+
+Every other section of the JAX package's schema belongs to a mode the port
+does not carry yet; :meth:`SimConfig.from_dict` refuses it with an error
+naming the section instead of silently running something else.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Any, Dict, Optional
+
+import yaml
+
+from ..framework.framework import FrameworkConfig
+
+
+@dataclass
+class SyntheticClusterSpec:
+    nodes: int = 100
+    seed: int = 0
+    taint_fraction: float = 0.0
+    zones: int = 8
+    extended_resources: Optional[Dict[str, Any]] = None
+
+
+@dataclass
+class SyntheticWorkloadSpec:
+    pods: int = 1000
+    seed: int = 0
+    affinity: bool = False
+    spread: bool = False
+    tolerations: bool = False
+    gang_fraction: float = 0.0
+    gang_size: int = 4
+    arrival_rate: float = 100.0
+    duration_mean: Optional[float] = None
+    num_apps: int = 20
+
+
+#: Sections of the JAX package's schema the port refuses, with the mode
+#: each one selects.
+_REFUSED_SECTIONS = {
+    "whatIf": "the scenario-batched what-if engine and its retryBuffer",
+    "chaos": "chaos node-event timelines",
+    "dcn": "the multi-process fleet",
+    "service": "the resident query service",
+    "tune": "the policy tuner",
+    "flightRecorder": "the flight recorder",
+    "faultline": "fleet fault injection",
+    "overlap": "the stall-hiding overlap gates",
+}
+
+
+def _refuse(section: str, what: str) -> None:
+    raise NotImplementedError(
+        f"config section {section!r} ({what}) is not supported by the "
+        "PyTorch port yet; run it with the JAX package "
+        "(python -m kubernetes_simulator_tpu)"
+    )
+
+
+@dataclass
+class SimConfig:
+    strategy: str = "torch"
+    cluster: SyntheticClusterSpec = field(default_factory=SyntheticClusterSpec)
+    workload: SyntheticWorkloadSpec = field(default_factory=SyntheticWorkloadSpec)
+    framework: FrameworkConfig = field(default_factory=FrameworkConfig)
+    telemetry: str = "summary"
+    output: Optional[str] = None
+    wave_width: int = 8
+    chunk_waves: int = 1024
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "SimConfig":
+        for section, what in _REFUSED_SECTIONS.items():
+            if d.get(section) is not None:
+                _refuse(section, what)
+        if d.get("devicePreemption", False):
+            _refuse("devicePreemption", "device preemption")
+        if int(d.get("nodeShards", 0) or 0) > 1:
+            _refuse("nodeShards", "node-sharded replay")
+        if d.get("pagedWaves", False):
+            _refuse("pagedWaves", "paged pod waves")
+        cfg = cls()
+        cl = d.get("cluster", {})
+        syn = cl.get("synthetic", cl) or {}
+        cfg.cluster = SyntheticClusterSpec(
+            nodes=int(syn.get("nodes", 100)),
+            seed=int(syn.get("seed", 0)),
+            taint_fraction=float(syn.get("taintFraction", 0.0)),
+            zones=int(syn.get("zones", 8)),
+            extended_resources=syn.get("extendedResources"),
+        )
+        wl = d.get("workload", {})
+        if "borg" in wl:
+            _refuse("workload.borg", "Borg-shaped traces")
+        syn = wl.get("synthetic", wl) or {}
+        cfg.workload = SyntheticWorkloadSpec(
+            pods=int(syn.get("pods", 1000)),
+            seed=int(syn.get("seed", 0)),
+            affinity=bool(syn.get("affinity", False)),
+            spread=bool(syn.get("spread", False)),
+            tolerations=bool(syn.get("tolerations", False)),
+            gang_fraction=float(syn.get("gangFraction", 0.0)),
+            gang_size=int(syn.get("gangSize", 4)),
+            arrival_rate=float(syn.get("arrivalRate", 100.0)),
+            duration_mean=syn.get("durationMean"),
+            num_apps=int(syn.get("numApps", 20)),
+        )
+        prof = d.get("profile", {})
+        cfg.framework = FrameworkConfig(
+            plugins=prof.get("plugins"), weights=prof.get("weights")
+        )
+        tl = d.get("telemetry")
+        if tl is not None:
+            if tl.get("timelineOut"):
+                _refuse("telemetry.timelineOut", "the timeline export")
+            cfg.telemetry = str(tl.get("granularity", "summary"))
+        cfg.output = d.get("output")
+        ww = d.get("waveWidth", 8)
+        cfg.wave_width = 8 if ww == "auto" else int(ww)
+        cfg.chunk_waves = int(d.get("chunkWaves", 1024))
+        return cfg
+
+    @classmethod
+    def load(cls, path: str) -> "SimConfig":
+        with open(path) as f:
+            return cls.from_dict(yaml.safe_load(f) or {})
+
+
+def build_case(cfg: SimConfig):
+    """Materialize (cluster, pods) from a SimConfig."""
+    from ..plugins.builtin import inject_default_spread
+    from ..sim.synthetic import make_cluster, make_workload
+
+    ext = None
+    if cfg.cluster.extended_resources:
+        ext = {k: tuple(v) for k, v in cfg.cluster.extended_resources.items()}
+    cluster = make_cluster(
+        cfg.cluster.nodes,
+        seed=cfg.cluster.seed,
+        num_zones=cfg.cluster.zones,
+        taint_fraction=cfg.cluster.taint_fraction,
+        extended_resources=ext,
+    )
+    wl = cfg.workload
+    pods, _ = make_workload(
+        wl.pods,
+        seed=wl.seed,
+        arrival_rate=wl.arrival_rate,
+        duration_mean=wl.duration_mean,
+        with_affinity=wl.affinity,
+        with_spread=wl.spread,
+        with_tolerations=wl.tolerations,
+        num_apps=wl.num_apps,
+        gang_fraction=wl.gang_fraction,
+        gang_size=wl.gang_size,
+    )
+    inject_default_spread(pods, cfg.framework)
+    return cluster, pods
+
+
+def build_encoded_case(cfg: SimConfig):
+    """(EncodedCluster, EncodedPods) for a SimConfig."""
+    from ..models.encode import encode
+
+    return encode(*build_case(cfg))
