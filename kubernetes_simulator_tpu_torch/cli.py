@@ -1,12 +1,15 @@
-"""CLI of the port: replay a YAML config on the card.
+"""CLI of the port: replay a YAML config, or run its what-if batch, on
+the card.
 
     python -m kubernetes_simulator_tpu_torch run config.yaml [--device cpu]
+    python -m kubernetes_simulator_tpu_torch what-if config.yaml [--device cpu]
 
-Counterpart: ``kubernetes_simulator_tpu/cli.py`` (``cmd_run`` :83). The
-config is parsed as the JAX package parses it (utils.config); sections of
-modes the port does not carry yet are refused with an error naming them.
-Output is one JSONL replay row (stdout, or the config's ``output``) and
-an INFO summary line with placements/sec.
+Counterpart: ``kubernetes_simulator_tpu/cli.py`` (``cmd_run`` :83,
+``cmd_whatif`` :140). The config is parsed as the JAX package parses it
+(utils.config); sections of modes the port does not carry yet are refused
+with an error naming them. ``run`` writes one JSONL replay row,
+``what-if`` the ``whatif_rows`` (stdout, or the config's ``output``), and
+each an INFO summary line with placements/sec.
 """
 
 from __future__ import annotations
@@ -18,7 +21,7 @@ import yaml
 
 from .framework.registry import get_strategy
 from .utils.config import SimConfig, build_encoded_case
-from .utils.metrics import JsonlWriter, config_hash, log, replay_row
+from .utils.metrics import JsonlWriter, config_hash, log, replay_row, whatif_rows
 
 
 def cmd_run(args) -> int:
@@ -47,16 +50,53 @@ def cmd_run(args) -> int:
     return 0
 
 
+def cmd_whatif(args) -> int:
+    from .sim.whatif import WhatIfEngine, uniform_scenarios
+
+    cfg = SimConfig.load(args.config)
+    if cfg.whatif.scenarios <= 0:
+        log.error("config has no whatIf.scenarios")
+        return 2
+    with open(args.config) as f:
+        raw = yaml.safe_load(f) or {}
+    ec, ep = build_encoded_case(cfg)
+    scen = uniform_scenarios(
+        ec, cfg.whatif.scenarios, seed=cfg.whatif.seed, p_node_down=cfg.whatif.node_down_p,
+        p_capacity=cfg.whatif.capacity_p, p_taint=cfg.whatif.taint_p,
+    )
+    eng = WhatIfEngine(
+        ec, ep, scen, cfg.framework, wave_width=cfg.wave_width, chunk_waves=cfg.chunk_waves,
+        completions=cfg.whatif.completions, telemetry=cfg.telemetry, device=args.device,
+    )
+    context = {
+        "seed": int(cfg.workload.seed), "engine": "torch", "config_hash": config_hash(raw),
+    }
+    with JsonlWriter(cfg.output, context=context) as out:
+        res = eng.run()
+        for row in whatif_rows(res, {"config": args.config, "mesh": False,
+                                     "device": str(eng.device)}):
+            out.write(row)
+    log.info(
+        "what-if: %d scenarios, %d placements in %.3fs (%.0f placements/sec aggregate) on %s",
+        len(scen), res.total_placed, res.wall_clock_s, res.placements_per_sec, eng.device,
+    )
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="kubernetes_simulator_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
-    r = sub.add_parser("run", help="replay a config's trace")
-    r.add_argument("config")
-    r.add_argument(
-        "--device", default="cuda",
-        help="torch device (default cuda: the kernels; cpu: their plain twins)",
-    )
-    r.set_defaults(fn=cmd_run)
+    for name, fn, text in (
+        ("run", cmd_run, "replay a config's trace"),
+        ("what-if", cmd_whatif, "run a config's what-if scenario batch"),
+    ):
+        r = sub.add_parser(name, help=text)
+        r.add_argument("config")
+        r.add_argument(
+            "--device", default="cuda",
+            help="torch device (default cuda: the kernels; cpu: their plain twins)",
+        )
+        r.set_defaults(fn=fn)
     args = ap.parse_args(argv)
     return args.fn(args)
 

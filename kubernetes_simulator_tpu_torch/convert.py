@@ -16,13 +16,14 @@ import numpy as np
 import torch
 
 from .models.encode import EncodedCluster, EncodedPods, Vocab
-from .ops.reference import DevState
+from .ops.reference import DevState, stacked_state
 
 _EC_ARRAYS = (
     "allocatable", "node_label_key", "node_label_kv", "node_label_num", "taint_key",
     "taint_kv", "taint_effect", "node_domain", "num_domains", "expr_key", "expr_op",
     "expr_vals", "expr_num", "group_topo",
 )
+_VOCAB = ("resources", "keys", "kvs", "namespaces", "topo_keys")
 _EP_ARRAYS = (
     "requests", "priority", "arrival", "duration", "ns", "bound_node", "tol_key", "tol_kv",
     "tol_effect", "na_req", "na_has_req", "na_pref", "na_pref_w", "aff_req", "anti_req",
@@ -36,18 +37,28 @@ def encoded_from_numpy(
 ) -> Tuple[EncodedCluster, EncodedPods]:
     """The port's (EncodedCluster, EncodedPods) from numpy field dicts.
 
-    ``ec_fields`` holds the cluster arrays by field name, ``max_domains``,
-    and ``resources``: the resource vocabulary as a name → row dict.
-    Optional: ``node_names`` and ``group_keys`` (only their count is used;
-    without them every group row with a topology key counts).
+    ``ec_fields`` holds the cluster arrays by field name, ``max_domains``
+    and the whole interning vocabulary: ``resources`` (name → row dict),
+    ``keys``, ``kvs`` ((key, value) pairs), ``namespaces`` and
+    ``topo_keys`` (lists in id order). A later interning of a new key or
+    key/value pair (the what-if ``add_taint``) then gives the same id in
+    both packages. Optional: ``node_names`` and ``group_keys`` (only their
+    count is used; without them every group row with a topology key
+    counts).
     ``ep_fields`` holds the pod arrays by field name; ``names`` and
     ``pg_names`` are optional."""
-    missing = [k for k in _EC_ARRAYS + ("resources",) if k not in ec_fields]
+    missing = [k for k in _EC_ARRAYS + _VOCAB if k not in ec_fields]
     missing += [k for k in _EP_ARRAYS if k not in ep_fields]
     if missing:
         raise KeyError(f"missing fields: {', '.join(missing)}")
     res = dict(ec_fields["resources"])
-    vocab = Vocab(resources=[name for name, _ in sorted(res.items(), key=lambda kv: kv[1])])
+    vocab = Vocab(
+        resources=[name for name, _ in sorted(res.items(), key=lambda kv: kv[1])],
+        keys=[str(k) for k in ec_fields["keys"]],
+        kvs=[(str(k), str(v)) for k, v in ec_fields["kvs"]],
+        namespaces=[str(n) for n in ec_fields["namespaces"]],
+        topo_keys=[str(t) for t in ec_fields["topo_keys"]],
+    )
     arr = {k: np.array(ec_fields[k], copy=True) for k in _EC_ARRAYS}
     N = arr["allocatable"].shape[0]
     G = len(ec_fields.get("group_keys") or []) or int((arr["group_topo"] >= 0).sum())
@@ -71,8 +82,9 @@ def encoded_from_numpy(
 
 
 class CarriedState(NamedTuple):
-    """A scheduling state on a device: the carried planes plus ``bound``
-    (the pod → node map, PAD = unbound)."""
+    """One scheduling state on a device: the carried planes, as the S = 1
+    stack the engines and kernels take, plus ``bound`` (the pod → node
+    map, PAD = unbound)."""
 
     planes: DevState
     bound: torch.Tensor  # [P] i32
@@ -81,9 +93,8 @@ class CarriedState(NamedTuple):
 def state_from_numpy(used, match_count, anti_active, pref_wsum, bound, device) -> CarriedState:
     """Copy a host state (models.state.SchedState layout) to ``device``
     (always a copy: the planes are updated in place)."""
-    f = lambda a: torch.tensor(np.asarray(a, np.float32), device=device)
     return CarriedState(
-        planes=DevState(f(used), f(match_count), f(anti_active), f(pref_wsum)),
+        planes=stacked_state(used, match_count, anti_active, pref_wsum, 1, device),
         bound=torch.tensor(np.asarray(bound, np.int32), device=device),
     )
 
@@ -92,9 +103,9 @@ def to_numpy(state: CarriedState) -> Dict[str, np.ndarray]:
     """The inverse of :func:`state_from_numpy`: field name → host array."""
     p = state.planes
     return {
-        "used": p.used.cpu().numpy(),
-        "match_count": p.match_count.cpu().numpy(),
-        "anti_active": p.anti_active.cpu().numpy(),
-        "pref_wsum": p.pref_wsum.cpu().numpy(),
+        "used": p.used[0].cpu().numpy(),
+        "match_count": p.match_count[0].cpu().numpy(),
+        "anti_active": p.anti_active[0].cpu().numpy(),
+        "pref_wsum": p.pref_wsum[0].cpu().numpy(),
         "bound": state.bound.cpu().numpy(),
     }

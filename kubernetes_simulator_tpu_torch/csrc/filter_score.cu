@@ -1,5 +1,6 @@
 // K1 filter_score: the fused Filter + raw Score of ONE pod slot over all N
-// nodes, one thread per node.
+// nodes of all S scenarios, one thread per (scenario, node): grid
+// (ceil(N/256), S), blockIdx.y selects the scenario.
 //
 // Replaces: kubernetes_simulator_tpu/ops/tpu3.py:944 make_wave_step3 (its
 // per-slot Filter+Score), with build_wave_pre3 (:712), class_masks (:923)
@@ -13,16 +14,18 @@
 //           preferred inter-pod weight sum, ScheduleAnyway spread raw
 //           (+ its ignored mask).
 // The state is read where it lives: used [N,R] by row, the [G,D] count
-// planes through gdom [G,N] by direct indexing (no one-hot contractions).
-// A prologue per block reduces the pod's few term rows over D (bootstrap
-// totals of required-affinity groups, min counts of DoNotSchedule spread
-// groups) into shared memory.
+// planes through gdom [G,N] by direct indexing (no one-hot contractions),
+// each at its scenario's offset (KsimArgs *_ss strides; the what-if batch
+// of sim/whatif.py:1285 _build_chunk_fn vmaps the same step over S). A
+// prologue per block reduces the pod's few term rows of its scenario over
+// D (bootstrap totals of required-affinity groups, min counts of
+// DoNotSchedule spread groups) into shared memory.
 //
-// Bound on an H100: bytes. Each slot reads used + alloc (N·R·8 B), the
-// taint/label/domain rows it touches and writes 7 B + 20 B per node; the
-// arithmetic is a few dozen flops per node. At N=5000 that is ~0.3 MB, a
-// ~0.1 µs floor at 3.35 TB/s — far below one launch, so the kernel is
-// launch-bound at this N (see PERF.md).
+// Bound on an H100: bytes. Each slot reads used + alloc (S·N·R·8 B), the
+// taint/label/domain rows it touches and writes 7 B + 20 B per
+// scenario-node; the arithmetic is a few dozen flops per node. At S=1,
+// N=5000 that is ~0.4 MB (~0.1 µs at 3.35 TB/s, launch-bound); at S=128,
+// N=2000 the grid of 1,024 blocks fills the card (see PERF.md).
 //
 // Exactness: compiled with --fmad=false and IEEE division; every
 // expression keeps the reference's operation order.
@@ -49,16 +52,20 @@ __global__ void __launch_bounds__(256) ksim_filter_score_kernel(KsimArgs a, int 
   const int N = a.N, R = a.R, G = a.G, D = a.D;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nwarps = blockDim.x >> 5;
+  const int64_t scen = blockIdx.y;
+  const float* match_count = a.match_count + scen * a.plane_ss;
+  const float* anti_active = a.anti_active + scen * a.plane_ss;
+  const float* pref_wsum = a.pref_wsum + scen * a.plane_ss;
 
   if (a.interpod) {
     for (int t = warp; t < a.AR; t += nwarps) {
       int g = a.aff_req[p * a.AR + t];
-      float s = 0.f;
+      float t_sum = 0.f;
       if (g >= 0)
-        for (int d = lane; d < D; d += 32) s += a.match_count[g * D + d];
+        for (int d = lane; d < D; d += 32) t_sum += match_count[g * D + d];
       // integer-valued counts: any summation order is exact
-      for (int o = 16; o > 0; o >>= 1) s += __shfl_down_sync(0xffffffffu, s, o);
-      if (lane == 0) s_total[t] = s;
+      for (int o = 16; o > 0; o >>= 1) t_sum += __shfl_down_sync(0xffffffffu, t_sum, o);
+      if (lane == 0) s_total[t] = t_sum;
     }
   }
   if (a.spread) {
@@ -66,7 +73,7 @@ __global__ void __launch_bounds__(256) ksim_filter_score_kernel(KsimArgs a, int 
       int g = a.spread_g[p * a.SP + t];
       int nd = g >= 0 ? a.gnd[g] : 0;
       float m = INFINITY;
-      for (int d = lane; d < nd; d += 32) m = fminf(m, a.match_count[g * D + d]);
+      for (int d = lane; d < nd; d += 32) m = fminf(m, match_count[g * D + d]);
       for (int o = 16; o > 0; o >>= 1) m = fminf(m, __shfl_down_sync(0xffffffffu, m, o));
       if (lane == 0) {
         s_min[t] = m;
@@ -81,8 +88,11 @@ __global__ void __launch_bounds__(256) ksim_filter_score_kernel(KsimArgs a, int 
 
   bool ok = true;
   const float* req = a.requests + (size_t)p * R;
-  const float* used = a.used + (size_t)n * R;
-  const float* alloc = a.alloc + (size_t)n * R;
+  const float* used = a.used + scen * a.used_ss + (size_t)n * R;
+  const float* alloc = a.alloc + scen * a.alloc_ss + (size_t)n * R;
+  const int32_t* taint_key = a.taint_key + scen * a.taint_ss;
+  const int32_t* taint_kv = a.taint_kv + scen * a.taint_ss;
+  const int32_t* taint_effect = a.taint_effect + scen * a.taint_ss;
 
   // --- NodeResourcesFit ---------------------------------------------------
   float fit_score = 0.f;
@@ -110,10 +120,10 @@ __global__ void __launch_bounds__(256) ksim_filter_score_kernel(KsimArgs a, int 
   float prefer_cnt = 0.f;
   if (a.taints) {
     for (int tt = 0; tt < a.TT; ++tt) {
-      int key = a.taint_key[n * a.TT + tt];
+      int key = taint_key[n * a.TT + tt];
       if (key == KSIM_PAD) continue;
-      int eff = a.taint_effect[n * a.TT + tt];
-      int kv = a.taint_kv[n * a.TT + tt];
+      int eff = taint_effect[n * a.TT + tt];
+      int kv = taint_kv[n * a.TT + tt];
       bool hard = eff == KSIM_NO_SCHEDULE || eff == KSIM_NO_EXECUTE;
       bool soft = eff == KSIM_PREFER_NO_SCHEDULE;
       if (!hard && !soft) continue;
@@ -169,7 +179,7 @@ __global__ void __launch_bounds__(256) ksim_filter_score_kernel(KsimArgs a, int 
       int g = a.aff_req[p * a.AR + t];
       if (g < 0) continue;
       int dom = a.gdom[g * N + n];
-      float cnt = dom >= 0 ? a.match_count[g * D + dom] : 0.f;
+      float cnt = dom >= 0 ? match_count[g * D + dom] : 0.f;
       bool boot = s_total[t] == 0.f && pm[g];
       bool term_ok = cnt >= 1.f && dom >= 0;
       if (!(term_ok || boot)) ok = false;
@@ -178,19 +188,19 @@ __global__ void __launch_bounds__(256) ksim_filter_score_kernel(KsimArgs a, int 
       int g = a.anti_req[p * a.AA + t];
       if (g < 0) continue;
       int dom = a.gdom[g * N + n];
-      float cnt = dom >= 0 ? a.match_count[g * D + dom] : 0.f;
+      float cnt = dom >= 0 ? match_count[g * D + dom] : 0.f;
       if (cnt >= 1.f && dom >= 0) ok = false;
     }
     for (int g = 0; g < G; ++g) {
       if (!pm[g]) continue;
       int dom = a.gdom[g * N + n];
-      if (dom >= 0 && a.anti_active[g * D + dom] > 0.f) ok = false;
+      if (dom >= 0 && anti_active[g * D + dom] > 0.f) ok = false;
     }
     for (int t = 0; t < a.PA; ++t) {
       int g = a.pref_aff[p * a.PA + t];
       if (g < 0) continue;
       int dom = a.gdom[g * N + n];
-      float cnt = dom >= 0 ? a.match_count[g * D + dom] : 0.f;
+      float cnt = dom >= 0 ? match_count[g * D + dom] : 0.f;
       ip_raw = ip_raw + a.pref_aff_w[p * a.PA + t] * cnt;
     }
     if (a.has_symmetric_pref) {
@@ -198,7 +208,7 @@ __global__ void __launch_bounds__(256) ksim_filter_score_kernel(KsimArgs a, int 
       for (int g = 0; g < G; ++g) {
         if (!pm[g]) continue;
         int dom = a.gdom[g * N + n];
-        if (dom >= 0) sym = sym + a.pref_wsum[g * D + dom];
+        if (dom >= 0) sym = sym + pref_wsum[g * D + dom];
       }
       ip_raw = ip_raw + sym;
     }
@@ -213,7 +223,7 @@ __global__ void __launch_bounds__(256) ksim_filter_score_kernel(KsimArgs a, int 
       if (g < 0) continue;
       int skew = a.spread_skew[p * a.SP + t];
       int dom = a.gdom[g * N + n];
-      float cnt = dom >= 0 ? a.match_count[g * D + dom] : 0.f;
+      float cnt = dom >= 0 ? match_count[g * D + dom] : 0.f;
       if (a.spread_dns[p * a.SP + t]) {
         if (s_nd[t] == 0) {
           ok = false;
@@ -230,18 +240,20 @@ __global__ void __launch_bounds__(256) ksim_filter_score_kernel(KsimArgs a, int 
     sp_raw = floorf(sp_raw + 0.5f);
   }
 
-  a.feasible[n] = ok ? 1 : 0;
-  a.ignored[n] = ign ? 1 : 0;
-  a.scores[KSIM_ROW_FIT * N + n] = fit_score;
-  a.scores[KSIM_ROW_TAINT * N + n] = prefer_cnt;
-  a.scores[KSIM_ROW_NA * N + n] = na_raw;
-  a.scores[KSIM_ROW_IP * N + n] = ip_raw;
-  a.scores[KSIM_ROW_SPREAD * N + n] = sp_raw;
+  a.feasible[scen * a.feas_ss + n] = ok ? 1 : 0;
+  a.ignored[scen * a.feas_ss + n] = ign ? 1 : 0;
+  float* scores = a.scores + scen * a.scores_ss;
+  scores[KSIM_ROW_FIT * N + n] = fit_score;
+  scores[KSIM_ROW_TAINT * N + n] = prefer_cnt;
+  scores[KSIM_ROW_NA * N + n] = na_raw;
+  scores[KSIM_ROW_IP * N + n] = ip_raw;
+  scores[KSIM_ROW_SPREAD * N + n] = sp_raw;
 }
 
 KSIM_EXPORT int ksim_filter_score(const KsimArgs* args, int pod, void* stream) {
   const int threads = 256;
-  const int blocks = (args->N + threads - 1) / threads;
-  ksim_filter_score_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(*args, pod);
+  if (args->S < 1 || args->S > 65535) return (int)cudaErrorInvalidValue;
+  const dim3 grid((args->N + threads - 1) / threads, args->S);
+  ksim_filter_score_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(*args, pod);
   return (int)cudaGetLastError();
 }

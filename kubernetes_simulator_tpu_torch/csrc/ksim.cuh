@@ -6,15 +6,22 @@
 // side (ops/kernels.py) mirrors this layout field for field as a
 // ctypes.Structure and checks sizeof() against ksim_args_size() at load.
 //
-// Layouts (row-major, C-contiguous):
-//   cluster  alloc [N,R] f32, taint_* [N,TT] i32, expr_match [N,E] u8,
+// Layouts (row-major, C-contiguous). S scenarios share the pod tables,
+// the labels and the topology domains; each has its own state and scratch
+// rows, and may have its own allocatable and taints:
+//   cluster  alloc [S,N,R] f32, taint_* [S,N,TT] i32 (or [N,R] / [N,TT]
+//            shared by every scenario), expr_match [N,E] u8,
 //            gdom [G,N] i32 (domain of node n under group g's topology key,
 //            -1 = none), gnd [G] i32 (domains of that key), sp_w [G] f32
 //   pods     requests [P,R] f32, tol_* [P,TO], na_req [P,TR,TE],
 //            na_pref [P,TP,TE], aff_req [P,AR], anti_req [P,AA],
 //            pref_aff [P,PA], spread_* [P,SP], pmg [P,G] u8, group_id [P]
-//   state    used [N,R] f32, match_count / anti_active / pref_wsum [G,D] f32
-//   scratch  feasible [N] u8, scores [5,N] f32, ignored [N] u8
+//   state    used [S,N,R] f32, match_count / anti_active / pref_wsum
+//            [S,G,D] f32
+//   scratch  feasible [S,N] u8, scores [S,5,N] f32, ignored [S,N] u8
+// The *_ss fields are the per-scenario strides in elements: scenario s of
+// a table starts at base + s * ss, and ss = 0 where the table is shared.
+// The single-scenario replay is the S = 1 case.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -79,8 +86,10 @@ struct KsimArgs {
   float* scores;
   uint8_t* ignored;
   const float* res_w;  // [R] NodeResourcesFit resource weights
+  // per-scenario strides (elements; 0 = shared)
+  int64_t alloc_ss, taint_ss, used_ss, plane_ss, feas_ss, scores_ss;
   // dimensions
-  int32_t N, R, TT, E, G, D;
+  int32_t S, N, R, TT, E, G, D;
   int32_t TO, TR, TE, TP, AR, AA, PA, SP;
   // static step constants (sim/torch_runtime.StepSpec)
   int32_t fit, taints, node_affinity, interpod, spread;

@@ -1,5 +1,7 @@
 // K2 normalize_select: per-plugin NormalizeScore, the weighted total and
-// the node choice of ONE pod slot, one block of 1024 threads.
+// the node choice of ONE pod slot in each of S scenarios, one block of 1024
+// threads per scenario (the scenario axis of sim/whatif.py:1285
+// _build_chunk_fn).
 //
 // Replaces: kubernetes_simulator_tpu/ops/tpu.py:739 select_node (and the
 // packed variant :840 the TPU build takes under its f32 gate) plus the
@@ -13,12 +15,13 @@
 //   pass 2  normalized rows, total = Σ w·row in the reference's plugin
 //           order, and the argmax with lowest-index ties; placed iff the
 //           best masked total is > -inf.
-// The choice (or -1) is written to a device int32 — nothing returns to the
-// host per slot.
+// Scenario s's choice (or -1) is written to the device int32
+// choice_out[s * choice_ss] — nothing returns to the host per slot.
 //
-// Bound on an H100: bytes — two reads of the [5,N] f32 rows and the [N]
-// masks (~0.25 MB at N=5000, ~0.07 µs at 3.35 TB/s); one block keeps the
-// reduction deterministic and is launch-bound at this N.
+// Bound on an H100: bytes — one read of the [5,N] f32 rows and the [N]
+// masks per scenario (~0.11 MB at S=1, N=5000; ~5.6 MB at S=128, N=2000:
+// 1.7 µs at 3.35 TB/s). One block per scenario keeps each reduction
+// deterministic; at S=1 the kernel is launch-bound.
 #include "ksim.cuh"
 
 #define K2_THREADS 1024
@@ -59,17 +62,21 @@ __device__ void k2_reduce(float* v, int nv, const bool* is_max, float* red) {
   __syncthreads();
 }
 
-__global__ void __launch_bounds__(K2_THREADS) ksim_normalize_select_kernel(KsimArgs a, int p, int* choice_out) {
+__global__ void __launch_bounds__(K2_THREADS) ksim_normalize_select_kernel(KsimArgs a, int p, int* choice_out,
+                                                                     int64_t choice_ss) {
   __shared__ float red[7 * 32];
   __shared__ float best_v[32];
   __shared__ int best_i[32];
   const int N = a.N;
-  const uint8_t* feas = a.feasible;
-  const float* taint = a.scores + KSIM_ROW_TAINT * N;
-  const float* na = a.scores + KSIM_ROW_NA * N;
-  const float* ip = a.scores + KSIM_ROW_IP * N;
-  const float* sp = a.scores + KSIM_ROW_SPREAD * N;
-  const float* fit = a.scores + KSIM_ROW_FIT * N;
+  const int64_t scen = blockIdx.x;
+  const uint8_t* feas = a.feasible + scen * a.feas_ss;
+  const uint8_t* ignored = a.ignored + scen * a.feas_ss;
+  const float* rows = a.scores + scen * a.scores_ss;
+  const float* taint = rows + KSIM_ROW_TAINT * N;
+  const float* na = rows + KSIM_ROW_NA * N;
+  const float* ip = rows + KSIM_ROW_IP * N;
+  const float* sp = rows + KSIM_ROW_SPREAD * N;
+  const float* fit = rows + KSIM_ROW_FIT * N;
 
   // pass 1: extrema. Order: taint_hi, na_hi, ip_lo, ip_hi, sp_lo, sp_hi, any_f
   float v[7] = {-INFINITY, -INFINITY, INFINITY, -INFINITY, INFINITY, -INFINITY, 0.f};
@@ -82,7 +89,7 @@ __global__ void __launch_bounds__(K2_THREADS) ksim_normalize_select_kernel(KsimA
       v[2] = fminf(v[2], ip[n]);
       v[3] = fmaxf(v[3], ip[n]);
       v[6] = 1.f;
-      if (!a.ignored[n]) {
+      if (!ignored[n]) {
         v[4] = fminf(v[4], sp[n]);
         v[5] = fmaxf(v[5], sp[n]);
       }
@@ -145,7 +152,7 @@ __global__ void __launch_bounds__(K2_THREADS) ksim_normalize_select_kernel(KsimA
         int32_t vals = ksim_floordiv(num, sp_hi_i > 0 ? sp_hi_i : 1);
         o = sp_hi_i > 0 ? (float)vals : 100.f;
       }
-      if (a.ignored[n] || !sp_has || !any_scored) o = 0.f;
+      if (ignored[n] || !sp_has || !any_scored) o = 0.f;
       total = total + a.w_sp * o;
     }
     if (feas[n]) k2_better(bv, bi, total, n);
@@ -170,13 +177,14 @@ __global__ void __launch_bounds__(K2_THREADS) ksim_normalize_select_kernel(KsimA
       int oi = __shfl_down_sync(0xffffffffu, bi, o);
       k2_better(bv, bi, ov, oi);
     }
-    if (lane == 0) *choice_out = bv > -INFINITY ? bi : KSIM_PAD;
+    if (lane == 0) choice_out[scen * choice_ss] = bv > -INFINITY ? bi : KSIM_PAD;
   }
 }
 
 KSIM_EXPORT int ksim_normalize_select(const KsimArgs* args, int pod, int* choice_out,
-                                      void* stream) {
-  ksim_normalize_select_kernel<<<1, K2_THREADS, 0, (cudaStream_t)stream>>>(*args, pod,
-                                                                          choice_out);
+                                      long long choice_ss, void* stream) {
+  if (args->S < 1) return (int)cudaErrorInvalidValue;
+  ksim_normalize_select_kernel<<<args->S, K2_THREADS, 0, (cudaStream_t)stream>>>(
+      *args, pod, choice_out, (int64_t)choice_ss);
   return (int)cudaGetLastError();
 }

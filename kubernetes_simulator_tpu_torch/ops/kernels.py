@@ -1,7 +1,10 @@
 """The replay's hand-written Hopper kernels: build, binding and wrappers.
 
 Three CUDA C++ kernels (``csrc/*.cu``, compiled for ``sm_90a``) carry the
-single-scenario replay's device work:
+device work of the replay and of the scenario-batched what-if: every
+kernel takes the S-stacked tables of :mod:`.reference` (the
+single-scenario replay is S = 1) and runs each scenario in its own
+blocks:
 
 ============================  ================================================
 wrapper                       replaces (kubernetes_simulator_tpu/...)
@@ -14,8 +17,9 @@ wrapper                       replaces (kubernetes_simulator_tpu/...)
                               (_normalize_row :699, spread_norm_from_extrema
                               :565)
 :func:`apply_placements` (K3) sim/jax_runtime.py:1414 _apply_release / :1475
-                              _donated_subtract, and make_wave_step3's wave
-                              commit and gang rollback
+                              _donated_subtract, sim/whatif.py:1620
+                              _release_core / :1742 _release_fn, and
+                              make_wave_step3's wave commit and gang rollback
 ============================  ================================================
 
 Each wrapper takes its plain twin (:mod:`.reference`) for CPU tensors and
@@ -69,9 +73,11 @@ KERNELS = {
 #: argtypes of each C entry point (every one returns a cudaError_t as int)
 _ARGTYPES = {
     "filter_score": [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p],
-    "normalize_select": [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p],
-    "apply_placements": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                         ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
+    "normalize_select": [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong,
+                         ctypes.c_void_p],
+    "apply_placements": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                         ctypes.c_int, ctypes.c_longlong, ctypes.c_float, ctypes.c_int,
+                         ctypes.c_void_p],
 }
 
 _MAX_SEG = 16
@@ -92,8 +98,11 @@ class KsimArgs(ctypes.Structure):
             "used", "match_count", "anti_active", "pref_wsum",
             "feasible", "scores", "ignored", "res_w",
         )]
+        + [(name, ctypes.c_int64) for name in (
+            "alloc_ss", "taint_ss", "used_ss", "plane_ss", "feas_ss", "scores_ss",
+        )]
         + [(name, ctypes.c_int32) for name in (
-            "N", "R", "TT", "E", "G", "D", "TO", "TR", "TE", "TP", "AR", "AA", "PA", "SP",
+            "S", "N", "R", "TT", "E", "G", "D", "TO", "TR", "TE", "TP", "AR", "AA", "PA", "SP",
             "fit", "taints", "node_affinity", "interpod", "spread",
             "on_fit", "on_taint", "on_na", "on_ip", "on_sp",
             "has_symmetric_pref", "sp_norm_f32", "fit_strategy", "n_seg",
@@ -203,19 +212,34 @@ def _check(rc: int, name: str) -> None:
 # ---------------------------------------------------------------------------
 
 
+def _scenario_stride(t: torch.Tensor, S: int, name: str) -> int:
+    """Elements between two scenarios' rows of a cluster table: 0 for a
+    table shared by every scenario (no leading S), its row size for an
+    [S, ...] stack."""
+    if t.dim() == 2:
+        return 0
+    if t.dim() == 3 and t.shape[0] == S:
+        return t.shape[1] * t.shape[2]
+    raise ValueError(f"{name}: expected [N, *] (shared) or [{S}, N, *], got {tuple(t.shape)}")
+
+
 def pack_args(tb: ref.Tables, res_w: torch.Tensor) -> KsimArgs:
     """The ctypes argument block of one Tables (CUDA tensors only; every
     tensor is contiguous and keeps its storage for the engine's life —
     state updates are in place). ``res_w`` holds the resource weights on
     the device; the caller keeps it alive with the block."""
     c, p, s, x, k = tb.cluster, tb.pods, tb.state, tb.scratch, tb.consts
+    S, N, R = s.used.shape
+    G, D = s.match_count.shape[1:]
     dims = dict(
-        N=c.allocatable.shape[0], R=c.allocatable.shape[1], TT=c.taint_key.shape[1],
-        E=c.expr_match.shape[1], G=c.gdom.shape[0], D=s.match_count.shape[1],
+        S=S, N=N, R=R, TT=c.taint_key.shape[-1],
+        E=c.expr_match.shape[1], G=G, D=D,
         TO=p.tol_key.shape[1], TR=p.na_req.shape[1], TE=p.na_req.shape[2],
         TP=p.na_pref.shape[1], AR=p.aff_req.shape[1], AA=p.anti_req.shape[1],
         PA=p.pref_aff.shape[1], SP=p.spread_g.shape[1],
     )
+    if S > 65535:
+        raise ValueError(f"{S} scenarios: the kernels' grids take at most 65535")
     if dims["AR"] > _MAX_TERMS or dims["SP"] > _MAX_TERMS:
         raise ValueError(
             f"a pod carries more than {_MAX_TERMS} affinity or spread terms "
@@ -226,6 +250,24 @@ def pack_args(tb: ref.Tables, res_w: torch.Tensor) -> KsimArgs:
         raise ValueError("na_req and na_pref must share the expression width")
     if len(k.seg_x0) > _MAX_SEG:
         raise ValueError(f"RequestedToCapacityRatio shape has more than {_MAX_SEG + 1} points")
+    taint_ss = _scenario_stride(c.taint_key, S, "taint_key")
+    for name in ("taint_kv", "taint_effect"):
+        if getattr(c, name).shape != c.taint_key.shape:
+            raise ValueError(f"{name} must have taint_key's shape")
+    strides = dict(
+        alloc_ss=_scenario_stride(c.allocatable, S, "allocatable"), taint_ss=taint_ss,
+        used_ss=N * R, plane_ss=G * D, feas_ss=N, scores_ss=ref.NUM_ROWS * N,
+    )
+    for name, t in (("alloc", c.allocatable), ("taint_key", c.taint_key)):
+        if t.shape[-2:-1] != (N,):
+            raise ValueError(f"{name}: {tuple(t.shape)} does not have the state's {N} nodes")
+    for name, t, shape in (
+        ("anti_active", s.anti_active, (S, G, D)), ("pref_wsum", s.pref_wsum, (S, G, D)),
+        ("feasible", x.feasible, (S, N)), ("scores", x.scores, (S, ref.NUM_ROWS, N)),
+        ("ignored", x.ignored, (S, N)), ("gdom", c.gdom, (G, N)),
+    ):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name}: expected shape {shape}, got {tuple(t.shape)}")
     tensors = {
         "alloc": c.allocatable, "taint_key": c.taint_key, "taint_kv": c.taint_kv,
         "taint_effect": c.taint_effect, "expr_match": c.expr_match, "gdom": c.gdom,
@@ -236,14 +278,15 @@ def pack_args(tb: ref.Tables, res_w: torch.Tensor) -> KsimArgs:
         "pref_wsum": s.pref_wsum,
         "feasible": x.feasible, "scores": x.scores, "ignored": x.ignored,
     }
+    dev = s.used.device
     for name, t in tensors.items():
-        if not t.is_cuda or not t.is_contiguous():
-            raise ValueError(f"{name}: kernels take contiguous CUDA tensors")
+        if not t.is_cuda or not t.is_contiguous() or t.device != dev:
+            raise ValueError(f"{name}: kernels take contiguous CUDA tensors on one device")
     a = KsimArgs()
     for name, t in tensors.items():
         setattr(a, name, t.data_ptr())
     a.res_w = res_w.data_ptr()
-    for name, v in dims.items():
+    for name, v in {**dims, **strides}.items():
         setattr(a, name, int(v))
     for name in ("fit", "taints", "node_affinity", "interpod", "spread", "on_fit",
                  "on_taint", "on_na", "on_ip", "on_sp", "has_symmetric_pref",
@@ -286,7 +329,8 @@ def _stream() -> int:
 
 
 def filter_score(b: Bound, pod: int) -> None:
-    """K1: mask + raw score rows of pod ``pod`` into the scratch rows."""
+    """K1: mask + raw score rows of pod ``pod`` in every scenario, into the
+    scratch rows."""
     if not b.cuda:
         ref.filter_score(b.tables, pod)
         return
@@ -295,42 +339,58 @@ def filter_score(b: Bound, pod: int) -> None:
     filter_score.launches += 1
 
 
-def normalize_select(b: Bound, pod: int, choice_out: torch.Tensor) -> None:
-    """K2: normalized total and lowest-index argmax of the scratch rows;
-    the choice (PAD when unplaced) lands in the int32 element
-    ``choice_out`` on the device."""
+def _check_choices(b: Bound, choices: torch.Tensor) -> None:
+    S = b.tables.state.used.shape[0]
+    if (choices.dtype != torch.int32 or choices.dim() != 2 or choices.shape[0] != S
+            or not choices.is_contiguous()
+            or choices.device != b.tables.state.used.device):
+        raise ValueError(
+            f"choices must be a contiguous int32 [{S}, L] tensor on the tables' device"
+        )
+
+
+def normalize_select(b: Bound, pod: int, choices: torch.Tensor, slot: int) -> None:
+    """K2: normalized total and lowest-index argmax of the scratch rows of
+    every scenario; scenario s's choice (PAD when unplaced) lands in the
+    int32 ``choices[s, slot]`` on the device."""
     if not b.cuda:
-        ref.normalize_select(b.tables, pod, choice_out)
+        ref.normalize_select(b.tables, pod, choices, slot)
         return
-    if choice_out.dtype != torch.int32 or choice_out.numel() != 1 or not choice_out.is_cuda:
-        raise ValueError("choice_out must be one CUDA int32 element")
+    _check_choices(b, choices)
+    if not 0 <= slot < choices.shape[1]:
+        raise ValueError(f"slot {slot} outside the choice buffer's {choices.shape[1]} columns")
     _check(_libs["normalize_select"](
-        b._args_ptr, int(pod), choice_out.data_ptr(), _stream()), "normalize_select")
+        b._args_ptr, int(pod), choices.data_ptr() + 4 * int(slot), choices.shape[1],
+        _stream()), "normalize_select")
     normalize_select.launches += 1
 
 
 def apply_placements(
-    b: Bound, pod_ids: torch.Tensor, nodes: torch.Tensor, sign: float, rollback: bool = False
+    b: Bound, pod_ids: torch.Tensor, pos: torch.Tensor, choices: torch.Tensor, sign: float,
+    rollback: bool = False,
 ) -> None:
-    """K3: ``sign`` × the contribution of each (pod, node) pair, in pair
-    order, into the state; ``rollback`` undoes only failed-gang members and
-    sets their ``nodes`` entries to PAD."""
+    """K3: ``sign`` × the contribution of each pair (``pod_ids[k]``, the
+    node ``choices[s, pos[k]]``), in pair order, into each scenario s's
+    state; PAD pods and nodes are skipped. ``rollback`` undoes only
+    failed-gang members and writes PAD over their choices."""
     if not b.cuda:
-        ref.apply_placements(b.tables, pod_ids, nodes, sign, rollback)
+        ref.apply_placements(b.tables, pod_ids, pos, choices, sign, rollback)
         return
     K = pod_ids.numel()
-    if nodes.numel() != K:
-        raise ValueError("pod_ids and nodes must have the same length")
-    for t in (pod_ids, nodes):
-        if t.dtype != torch.int32 or not t.is_cuda or not t.is_contiguous():
-            raise ValueError("pod_ids / nodes must be contiguous CUDA int32")
+    if pos.numel() != K:
+        raise ValueError("pod_ids and pos must have the same length")
+    dev = b.tables.state.used.device
+    for t in (pod_ids, pos):
+        if t.dtype != torch.int32 or t.device != dev or not t.is_contiguous():
+            raise ValueError("pod_ids / pos must be contiguous int32 on the tables' device")
+    _check_choices(b, choices)
     if rollback and K > _MAX_WAVE:
         raise ValueError(f"a rollback covers at most {_MAX_WAVE} slots")
     if K == 0:
         return
     _check(_libs["apply_placements"](
-        b._args_ptr, pod_ids.data_ptr(), nodes.data_ptr(), int(K), float(sign),
-        int(bool(rollback)), _stream()), "apply_placements")
+        b._args_ptr, pod_ids.data_ptr(), pos.data_ptr(), choices.data_ptr(), int(K),
+        choices.shape[1], float(sign), int(bool(rollback)), _stream()), "apply_placements")
     apply_placements.launches += 1
 
 

@@ -13,11 +13,20 @@ Three functions are the plain twins of the hand-written kernels in
 ``csrc/`` (``ops/kernels.py`` wraps both):
 
 - :func:`filter_score` — K1: fused feasibility mask + raw score rows of
-  one pod over all nodes;
+  one pod over all nodes of every scenario;
 - :func:`normalize_select` — K2: per-plugin normalization, weighted total
-  and the lowest-index argmax, written to a device int32;
+  and the lowest-index argmax of every scenario, written to a device
+  int32 choice buffer;
 - :func:`apply_placements` — K3: ±contribution of K (pod, node) pairs to
-  the carried state (bind, gang rollback, completion release).
+  every scenario's carried state (bind, gang rollback, completion
+  release), each scenario's node read from its row of the choice buffer.
+
+Every table carries a leading scenario dimension S (the what-if batch of
+``sim/whatif.py``; the single-scenario replay is S = 1): the state
+``[S, ...]``, the scratch rows ``[S, ...]`` and, per scenario or shared,
+the allocatable and the taints. Each scenario's arithmetic is the
+single-scenario chain's, element for element, so slice s of a batched
+twin equals the same twin at S = 1 on scenario s's tables.
 
 The twins run on any device; the wrappers take them only for CPU tensors.
 """
@@ -50,12 +59,15 @@ FIT_STRATEGIES = ("LeastAllocated", "MostAllocated", "RequestedToCapacityRatio")
 
 class DevCluster(NamedTuple):
     """Static node-side tensors (device copies of EncodedCluster plus the
-    derived expression-match matrix and per-group domain maps)."""
+    derived expression-match matrix and per-group domain maps). The
+    allocatable and the taints are either shared by every scenario
+    (``[N, *]``) or stacked per scenario (``[S, N, *]``, the what-if
+    ScenarioSet); the labels and the domains are always shared."""
 
-    allocatable: torch.Tensor  # [N, R] f32
-    taint_key: torch.Tensor  # [N, TT] i32
-    taint_kv: torch.Tensor  # [N, TT] i32
-    taint_effect: torch.Tensor  # [N, TT] i32
+    allocatable: torch.Tensor  # [N, R] or [S, N, R] f32
+    taint_key: torch.Tensor  # [N, TT] or [S, N, TT] i32
+    taint_kv: torch.Tensor  # like taint_key
+    taint_effect: torch.Tensor  # like taint_key
     expr_match: torch.Tensor  # [N, E] bool
     gdom: torch.Tensor  # [G, N] i32 domain of node n under group g's key (PAD)
     gnd: torch.Tensor  # [G] i32 domain count of group g's key
@@ -85,22 +97,23 @@ class DevPods(NamedTuple):
 
 
 class DevState(NamedTuple):
-    """Carried scheduling state in the host layout of models.state
-    (updated in place by :func:`apply_placements` / the K3 kernel)."""
+    """Carried scheduling state of S scenarios, each in the host layout of
+    models.state (updated in place by :func:`apply_placements` / the K3
+    kernel)."""
 
-    used: torch.Tensor  # [N, R] f32
-    match_count: torch.Tensor  # [G, D] f32
-    anti_active: torch.Tensor  # [G, D] f32
-    pref_wsum: torch.Tensor  # [G, D] f32
+    used: torch.Tensor  # [S, N, R] f32
+    match_count: torch.Tensor  # [S, G, D] f32
+    anti_active: torch.Tensor  # [S, G, D] f32
+    pref_wsum: torch.Tensor  # [S, G, D] f32
 
 
 class Scratch(NamedTuple):
     """Per-slot K1 outputs, K2 inputs (reused slot after slot: launches
     are ordered on one stream)."""
 
-    feasible: torch.Tensor  # [N] bool
-    scores: torch.Tensor  # [NUM_ROWS, N] f32
-    ignored: torch.Tensor  # [N] bool
+    feasible: torch.Tensor  # [S, N] bool
+    scores: torch.Tensor  # [S, NUM_ROWS, N] f32
+    ignored: torch.Tensor  # [S, N] bool
 
 
 @dataclass(frozen=True)
@@ -232,49 +245,64 @@ def pods_to(ep: EncodedPods, device) -> DevPods:
     )
 
 
-def new_scratch(N: int, device) -> Scratch:
+def new_scratch(S: int, N: int, device) -> Scratch:
     return Scratch(
-        feasible=torch.zeros(N, dtype=torch.bool, device=device),
-        scores=torch.zeros((NUM_ROWS, N), dtype=torch.float32, device=device),
-        ignored=torch.zeros(N, dtype=torch.bool, device=device),
+        feasible=torch.zeros((S, N), dtype=torch.bool, device=device),
+        scores=torch.zeros((S, NUM_ROWS, N), dtype=torch.float32, device=device),
+        ignored=torch.zeros((S, N), dtype=torch.bool, device=device),
     )
 
 
+def stacked_state(used, match_count, anti_active, pref_wsum, S: int, device) -> DevState:
+    """S copies of one host state (numpy ``[N, R]`` / ``[G, D]`` planes,
+    models.state layout) as an S-stacked DevState on ``device``."""
+    t = lambda a: torch.tensor(np.asarray(a, np.float32), device=device)[None].repeat(
+        S, *([1] * np.ndim(a)))
+    return DevState(t(used), t(match_count), t(anti_active), t(pref_wsum))
+
+
+def _stacked(t: torch.Tensor) -> torch.Tensor:
+    """A shared ``[N, *]`` cluster table as ``[1, N, *]`` (it broadcasts
+    over the scenarios); an ``[S, N, *]`` stack as it is."""
+    return t.unsqueeze(0) if t.dim() == 2 else t
+
+
 # ---------------------------------------------------------------------------
-# Filters (ops/cpu.py, one pod p over all nodes)
+# Filters (ops/cpu.py, one pod p over all nodes of every scenario: [S, N],
+# or [1, N] / [N] where the inputs are shared and broadcast)
 # ---------------------------------------------------------------------------
 
 
 def fit_mask(cl: DevCluster, st: DevState, pods: DevPods, p: int) -> torch.Tensor:
     req = pods.requests[p]
-    return torch.all(st.used + req[None, :] <= cl.allocatable + 1e-6, dim=1)
+    return torch.all(st.used + req <= _stacked(cl.allocatable) + 1e-6, dim=2)
 
 
 def _untolerated(cl: DevCluster, pods: DevPods, p: int, effects) -> torch.Tensor:
-    """[N, TT] — taint slot active with effect ∈ ``effects`` and not
+    """[S|1, N, TT] — taint slot active with effect ∈ ``effects`` and not
     tolerated by any of pod p's tolerations."""
-    t_eff = cl.taint_effect
-    active = torch.zeros_like(cl.taint_key, dtype=torch.bool)
+    t_key, t_kv, t_eff = (_stacked(t) for t in (cl.taint_key, cl.taint_kv, cl.taint_effect))
+    active = torch.zeros_like(t_key, dtype=torch.bool)
     for e in effects:
         active |= t_eff == int(e)
-    active &= cl.taint_key != PAD
+    active &= t_key != PAD
     tk, tv, te = pods.tol_key[p], pods.tol_kv[p], pods.tol_effect[p]
     valid_tol = tk != TOL_PAD
-    key_ok = (tk[None, None, :] == TOL_WILDCARD) | (tk[None, None, :] == cl.taint_key[:, :, None])
-    val_ok = (tv[None, None, :] == PAD) | (tv[None, None, :] == cl.taint_kv[:, :, None])
-    eff_ok = (te[None, None, :] == 0) | (te[None, None, :] == t_eff[:, :, None])
-    tolerated = torch.any(key_ok & val_ok & eff_ok & valid_tol[None, None, :], dim=2)
+    key_ok = (tk == TOL_WILDCARD) | (tk == t_key[..., None])
+    val_ok = (tv == PAD) | (tv == t_kv[..., None])
+    eff_ok = (te == 0) | (te == t_eff[..., None])
+    tolerated = torch.any(key_ok & val_ok & eff_ok & valid_tol, dim=-1)
     return active & ~tolerated
 
 
 def taint_mask(cl: DevCluster, pods: DevPods, p: int) -> torch.Tensor:
     bad = _untolerated(cl, pods, p, (Effect.NO_SCHEDULE, Effect.NO_EXECUTE))
-    return ~torch.any(bad, dim=1)
+    return ~torch.any(bad, dim=-1)
 
 
 def taint_prefer_count(cl: DevCluster, pods: DevPods, p: int) -> torch.Tensor:
     bad = _untolerated(cl, pods, p, (Effect.PREFER_NO_SCHEDULE,))
-    return bad.sum(dim=1).to(torch.float32)
+    return bad.sum(dim=-1).to(torch.float32)
 
 
 def _terms_matched(M: torch.Tensor, terms: torch.Tensor) -> torch.Tensor:
@@ -286,14 +314,14 @@ def _terms_matched(M: torch.Tensor, terms: torch.Tensor) -> torch.Tensor:
 
 
 def node_affinity_mask(cl: DevCluster, pods: DevPods, p: int) -> torch.Tensor:
-    N = cl.allocatable.shape[0]
+    N = cl.gdom.shape[1]
     if not bool(pods.na_has_req[p]):
-        return torch.ones(N, dtype=torch.bool, device=cl.allocatable.device)
+        return torch.ones(N, dtype=torch.bool, device=cl.gdom.device)
     return torch.any(_terms_matched(cl.expr_match, pods.na_req[p]), dim=1)
 
 
 def node_affinity_score(cl: DevCluster, pods: DevPods, p: int) -> torch.Tensor:
-    """Σ weight over matched preferred terms (raw)."""
+    """Σ weight over matched preferred terms (raw), [N]."""
     per_term = _terms_matched(cl.expr_match, pods.na_pref[p])
     w = pods.na_pref_w[p]
     raw = torch.zeros(per_term.shape[0], dtype=torch.float32, device=w.device)
@@ -303,34 +331,36 @@ def node_affinity_score(cl: DevCluster, pods: DevPods, p: int) -> torch.Tensor:
 
 
 def _counts_at_nodes(plane: torch.Tensor, gdom: torch.Tensor) -> torch.Tensor:
-    """``plane[g, dom(g, n)]`` → [G, N]; 0 where the node lacks the key
-    (a PAD domain never reads column 0)."""
-    vals = torch.gather(plane, 1, gdom.clamp(min=0).to(torch.int64))
+    """``plane[s, g, dom(g, n)]`` → [S, G, N]; 0 where the node lacks the
+    key (a PAD domain never reads column 0)."""
+    idx = gdom.clamp(min=0).to(torch.int64).unsqueeze(0).expand(plane.shape[0], -1, -1)
+    vals = torch.gather(plane, 2, idx)
     return torch.where(gdom >= 0, vals, torch.zeros_like(vals))
 
 
 def interpod_filter_mask(cl: DevCluster, st: DevState, pods: DevPods, p: int) -> torch.Tensor:
     gdom = cl.gdom
+    S, N = st.match_count.shape[0], gdom.shape[1]
     cnt = _counts_at_nodes(st.match_count, gdom)
-    total = st.match_count.sum(dim=1)
-    ok = torch.ones(gdom.shape[1], dtype=torch.bool, device=gdom.device)
+    total = st.match_count.sum(dim=2)  # [S, G]
+    ok = torch.ones((S, N), dtype=torch.bool, device=gdom.device)
     pm = pods.pmg[p]
     # Required affinity, with the [K8S] bootstrap exception: nothing
-    # matches anywhere and the pod matches its own term.
+    # matches anywhere (in that scenario) and the pod matches its own term.
     for g in pods.aff_req[p].tolist():
         if g < 0:
             continue
-        boot = bool(total[g] == 0) and bool(pm[g])
-        term_ok = (cnt[g] >= 1) & (gdom[g] >= 0)
-        ok &= term_ok | boot
+        boot = (total[:, g] == 0) & pm[g]
+        term_ok = (cnt[:, g] >= 1) & (gdom[g] >= 0)
+        ok &= term_ok | boot[:, None]
     # Required anti-affinity of the incoming pod.
     for g in pods.anti_req[p].tolist():
         if g < 0:
             continue
-        ok &= ~((cnt[g] >= 1) & (gdom[g] >= 0))
+        ok &= ~((cnt[:, g] >= 1) & (gdom[g] >= 0))
     # Symmetric: placed pods' required anti terms reject this pod.
     anti_here = _counts_at_nodes(st.anti_active, gdom)
-    blocked = torch.any((anti_here > 0) & pm[:, None], dim=0)
+    blocked = torch.any((anti_here > 0) & pm[None, :, None], dim=1)
     return ok & ~blocked
 
 
@@ -339,24 +369,24 @@ def interpod_score(
 ) -> torch.Tensor:
     gdom = cl.gdom
     cnt = _counts_at_nodes(st.match_count, gdom)
-    raw = torch.zeros(gdom.shape[1], dtype=torch.float32, device=gdom.device)
+    raw = torch.zeros(cnt[:, 0].shape, dtype=torch.float32, device=gdom.device)
     w_row = pods.pref_aff_w[p]
     for i, g in enumerate(pods.pref_aff[p].tolist()):
         if g >= 0:
-            raw = raw + w_row[i] * cnt[g]
+            raw = raw + w_row[i] * cnt[:, g]
     if has_symmetric_pref:
         wsum = _counts_at_nodes(st.pref_wsum, gdom)
         sym = torch.zeros_like(raw)
         for g in torch.nonzero(pods.pmg[p]).flatten().tolist():
-            sym = sym + wsum[g]
+            sym = sym + wsum[:, g]
         raw = raw + sym
     return raw
 
 
 def spread_filter_mask(cl: DevCluster, st: DevState, pods: DevPods, p: int) -> torch.Tensor:
     gdom = cl.gdom
-    N = gdom.shape[1]
-    ok = torch.ones(N, dtype=torch.bool, device=gdom.device)
+    S, N = st.match_count.shape[0], gdom.shape[1]
+    ok = torch.ones((S, N), dtype=torch.bool, device=gdom.device)
     dns_row = pods.spread_dns[p].tolist()
     skew_row = pods.spread_skew[p].tolist()
     for i, g in enumerate(pods.spread_g[p].tolist()):
@@ -366,11 +396,11 @@ def spread_filter_mask(cl: DevCluster, st: DevState, pods: DevPods, p: int) -> t
         if nd == 0:
             ok &= False
             continue
-        min_cnt = st.match_count[g, :nd].min()
-        cnt = _counts_at_nodes(st.match_count[g : g + 1], gdom[g : g + 1])[0]
+        min_cnt = st.match_count[:, g, :nd].amin(dim=1)  # [S]
+        cnt = _counts_at_nodes(st.match_count[:, g : g + 1], gdom[g : g + 1])[:, 0]
         self_match = 1.0 if bool(pods.pmg[p, g]) else 0.0
         new = cnt + self_match
-        ok &= (gdom[g] >= 0) & (new - min_cnt <= float(skew_row[i]))
+        ok &= (gdom[g] >= 0) & (new - min_cnt[:, None] <= float(skew_row[i]))
     return ok
 
 
@@ -378,12 +408,12 @@ def spread_score(
     cl: DevCluster, st: DevState, pods: DevPods, p: int
 ) -> Tuple[torch.Tensor, torch.Tensor, bool]:
     """Upstream podtopologyspread raw score over the ScheduleAnyway
-    constraints: ``floor(Σ cnt·log(size+2) + (maxSkew−1) + 0.5)`` per node,
-    the ignored mask (node missing a scored key) and the any-scored flag
-    (PreScore Skip when False)."""
+    constraints: ``floor(Σ cnt·log(size+2) + (maxSkew−1) + 0.5)`` per
+    scenario and node [S, N], the ignored mask [N] (node missing a scored
+    key) and the any-scored flag (PreScore Skip when False)."""
     gdom = cl.gdom
-    N = gdom.shape[1]
-    raw = torch.zeros(N, dtype=torch.float32, device=gdom.device)
+    S, N = st.match_count.shape[0], gdom.shape[1]
+    raw = torch.zeros((S, N), dtype=torch.float32, device=gdom.device)
     ignored = torch.zeros(N, dtype=torch.bool, device=gdom.device)
     any_scored = False
     dns_row = pods.spread_dns[p].tolist()
@@ -392,7 +422,7 @@ def spread_score(
         if g < 0 or dns_row[i]:
             continue
         any_scored = True
-        cnt = _counts_at_nodes(st.match_count[g : g + 1], gdom[g : g + 1])[0]
+        cnt = _counts_at_nodes(st.match_count[:, g : g + 1], gdom[g : g + 1])[:, 0]
         contrib = cnt * cl.sp_w[g] + torch.tensor(
             float(skew_row[i] - 1), dtype=torch.float32, device=gdom.device
         )
@@ -408,8 +438,8 @@ def spread_score(
 
 
 def _resource_frac(cl: DevCluster, st: DevState, pods: DevPods, p: int, least: bool):
-    req = pods.requests[p][None, :]
-    alloc = cl.allocatable
+    req = pods.requests[p]
+    alloc = _stacked(cl.allocatable)
     denom = torch.where(alloc > 0, alloc, torch.ones_like(alloc))
     num = (alloc - st.used) - req if least else st.used + req
     frac = torch.where(alloc > 0, num / denom, torch.zeros_like(alloc))
@@ -431,16 +461,16 @@ def piecewise_interp_int(util: torch.Tensor, k: StepConsts) -> torch.Tensor:
 def fit_score(cl: DevCluster, st: DevState, pods: DevPods, p: int, k: StepConsts) -> torch.Tensor:
     """``floor(Σ_r w_r·s_r / Σw)`` with ``s_r = floor(100·frac_r)``
     (Least/MostAllocated) or the shape value of ``floor(100·util_r)``
-    (RequestedToCapacityRatio)."""
+    (RequestedToCapacityRatio), [S, N]."""
     strategy = FIT_STRATEGIES[k.fit_strategy]
     frac = _resource_frac(cl, st, pods, p, least=strategy == "LeastAllocated")
     s = torch.floor(frac * 100.0)
     if strategy == "RequestedToCapacityRatio":
         s = piecewise_interp_int(s, k)
-    acc = torch.zeros(s.shape[0], dtype=torch.float32, device=s.device)
+    acc = torch.zeros(s.shape[:-1], dtype=torch.float32, device=s.device)
     for r, w in enumerate(k.res_w):
         if w != 0:
-            acc = acc + s[:, r] * torch.tensor(w, dtype=torch.float32, device=s.device)
+            acc = acc + s[..., r] * torch.tensor(w, dtype=torch.float32, device=s.device)
     if k.wsum == 0:
         return acc
     return torch.floor(acc / torch.tensor(k.wsum, dtype=torch.float32, device=s.device))
@@ -453,42 +483,44 @@ def fit_score(cl: DevCluster, st: DevState, pods: DevPods, p: int, k: StepConsts
 
 def filter_score(tb: Tables, p: int) -> None:
     """Plain twin of K1 (csrc/filter_score.cu): writes the fused mask and
-    the raw score rows of pod ``p`` into ``tb.scratch``."""
+    the raw score rows of pod ``p`` in every scenario into
+    ``tb.scratch``."""
     cl, pods, st, k, out = tb.cluster, tb.pods, tb.state, tb.consts, tb.scratch
-    N = cl.allocatable.shape[0]
-    dev = cl.allocatable.device
-    ok = torch.ones(N, dtype=torch.bool, device=dev)
-    rows = torch.zeros((NUM_ROWS, N), dtype=torch.float32, device=dev)
-    ignored = torch.zeros(N, dtype=torch.bool, device=dev)
+    S, N = out.feasible.shape
+    dev = out.feasible.device
+    ok = torch.ones((S, N), dtype=torch.bool, device=dev)
+    rows = torch.zeros((S, NUM_ROWS, N), dtype=torch.float32, device=dev)
+    ignored = torch.zeros((S, N), dtype=torch.bool, device=dev)
     if k.fit:
         ok &= fit_mask(cl, st, pods, p)
-        rows[ROW_FIT] = fit_score(cl, st, pods, p, k)
+        rows[:, ROW_FIT] = fit_score(cl, st, pods, p, k)
     if k.taints:
         ok &= taint_mask(cl, pods, p)
-        rows[ROW_TAINT] = taint_prefer_count(cl, pods, p)
+        rows[:, ROW_TAINT] = taint_prefer_count(cl, pods, p)
     if k.node_affinity:
         ok &= node_affinity_mask(cl, pods, p)
-        rows[ROW_NA] = node_affinity_score(cl, pods, p)
+        rows[:, ROW_NA] = node_affinity_score(cl, pods, p)
     if k.interpod:
         ok &= interpod_filter_mask(cl, st, pods, p)
-        rows[ROW_IP] = interpod_score(cl, st, pods, p, k.has_symmetric_pref)
+        rows[:, ROW_IP] = interpod_score(cl, st, pods, p, k.has_symmetric_pref)
     if k.spread:
         ok &= spread_filter_mask(cl, st, pods, p)
-        rows[ROW_SPREAD], ignored, _ = spread_score(cl, st, pods, p)
+        rows[:, ROW_SPREAD], ign, _ = spread_score(cl, st, pods, p)
+        ignored[:] = ign
     out.feasible.copy_(ok)
     out.scores.copy_(rows)
     out.ignored.copy_(ignored)
 
 
 # ---------------------------------------------------------------------------
-# Normalization and selection (K2 twin)
+# Normalization and selection (K2 twin), per scenario row
 # ---------------------------------------------------------------------------
 
 
 def normalize_max(raw: torch.Tensor, feasible: torch.Tensor, reverse: bool = False) -> torch.Tensor:
-    """``floor(raw·100/max)`` over feasible nodes (0-filled max);
-    ``reverse`` flips (ops/tpu.py _normalize_row, max form)."""
-    hi = torch.where(feasible, raw, torch.zeros_like(raw)).max()
+    """``floor(raw·100/max)`` over each row's feasible nodes (0-filled
+    max); ``reverse`` flips (ops/tpu.py _normalize_row, max form)."""
+    hi = torch.where(feasible, raw, torch.zeros_like(raw)).amax(dim=-1, keepdim=True)
     pos = hi > 0
     out = torch.floor((raw * 100.0) / torch.where(pos, hi, torch.ones_like(hi)))
     out = torch.where(pos, out, torch.zeros_like(out))
@@ -498,13 +530,13 @@ def normalize_max(raw: torch.Tensor, feasible: torch.Tensor, reverse: bool = Fal
 
 
 def normalize_min_max(raw: torch.Tensor, feasible: torch.Tensor) -> torch.Tensor:
-    """``floor((raw−lo)·(100/span))`` over feasible nodes; constant or
-    empty → 0 (ops/tpu.py _normalize_row, min-max form)."""
+    """``floor((raw−lo)·(100/span))`` over each row's feasible nodes;
+    constant or empty → 0 (ops/tpu.py _normalize_row, min-max form)."""
     inf = torch.tensor(float("inf"), dtype=raw.dtype, device=raw.device)
-    lo = torch.where(feasible, raw, inf).min()
-    hi = torch.where(feasible, raw, -inf).max()
+    lo = torch.where(feasible, raw, inf).amin(dim=-1, keepdim=True)
+    hi = torch.where(feasible, raw, -inf).amax(dim=-1, keepdim=True)
     span = hi - lo
-    ok = feasible.any() & (span > 0)
+    ok = feasible.any(dim=-1, keepdim=True) & (span > 0)
     one = torch.ones_like(span)
     # A true f32 division: torch evaluates ``scalar / tensor`` as
     # ``reciprocal(tensor) * scalar``, which rounds differently.
@@ -518,13 +550,13 @@ def spread_normalize(
     f32ok: bool,
 ) -> torch.Tensor:
     """Upstream two-pass NormalizeScore ``100·(max+min−s) // max`` with the
-    extrema over feasible & ~ignored nodes (ops/tpu.py
+    extrema over each row's feasible & ~ignored nodes (ops/tpu.py
     spread_norm_from_extrema): the int32 floor division, or its f32 form
     under the static ``f32ok`` bound."""
     inf = torch.tensor(float("inf"), dtype=raw.dtype, device=raw.device)
     okn = feasible & ~ignored
-    hi = torch.where(okn, raw, -inf).max()
-    lo = torch.where(okn, raw, inf).min()
+    hi = torch.where(okn, raw, -inf).amax(dim=-1, keepdim=True)
+    lo = torch.where(okn, raw, inf).amin(dim=-1, keepdim=True)
     has = hi > -inf
     zero = torch.zeros_like(hi)
     hi_f = torch.where(has, hi, zero)
@@ -546,7 +578,7 @@ def spread_normalize(
 
 
 def normalized_rows(tb: Tables, p: int) -> torch.Tensor:
-    """[NUM_ROWS, N] — each plugin's NormalizeScore of the scratch rows:
+    """[S, NUM_ROWS, N] — each plugin's NormalizeScore of the scratch rows:
     the fit score as is, the taint count reverse max-normalized, the
     node-affinity sum max-normalized, the inter-pod sum min-max
     normalized, the spread raw by the upstream two-pass form. Rows of
@@ -555,26 +587,27 @@ def normalized_rows(tb: Tables, p: int) -> torch.Tensor:
     f, s = x.feasible, x.scores
     out = torch.zeros_like(s)
     if k.fit:
-        out[ROW_FIT] = s[ROW_FIT]
+        out[:, ROW_FIT] = s[:, ROW_FIT]
     if k.taints:
-        out[ROW_TAINT] = normalize_max(s[ROW_TAINT], f, reverse=True)
+        out[:, ROW_TAINT] = normalize_max(s[:, ROW_TAINT], f, reverse=True)
     if k.node_affinity:
-        out[ROW_NA] = normalize_max(s[ROW_NA], f)
+        out[:, ROW_NA] = normalize_max(s[:, ROW_NA], f)
     if k.interpod:
-        out[ROW_IP] = normalize_min_max(s[ROW_IP], f)
+        out[:, ROW_IP] = normalize_min_max(s[:, ROW_IP], f)
     if k.spread:
         any_scored = bool(((pods.spread_g[p] >= 0) & ~pods.spread_dns[p]).any())
-        out[ROW_SPREAD] = spread_normalize(s[ROW_SPREAD], x.ignored, f, any_scored, k.sp_norm_f32)
+        out[:, ROW_SPREAD] = spread_normalize(s[:, ROW_SPREAD], x.ignored, f, any_scored,
+                                              k.sp_norm_f32)
     return out
 
 
 def weighted_total(tb: Tables, p: int) -> torch.Tensor:
-    """Σ w·normalized row in the reference's plugin order (fit, taint,
-    node affinity, inter-pod, spread), each added to a running f32 total
-    from 0."""
+    """[S, N] — Σ w·normalized row in the reference's plugin order (fit,
+    taint, node affinity, inter-pod, spread), each added to a running f32
+    total from 0."""
     k = tb.consts
     rows = normalized_rows(tb, p)
-    total = torch.zeros_like(rows[0])
+    total = torch.zeros_like(rows[:, 0])
     for on, w, r in (
         (k.on_fit, k.w_fit, ROW_FIT),
         (k.on_taint, k.w_taint, ROW_TAINT),
@@ -583,27 +616,28 @@ def weighted_total(tb: Tables, p: int) -> torch.Tensor:
         (k.on_sp, k.w_sp, ROW_SPREAD),
     ):
         if on:
-            total = total + torch.tensor(w, dtype=torch.float32, device=rows.device) * rows[r]
+            total = total + torch.tensor(w, dtype=torch.float32, device=rows.device) * rows[:, r]
     return total
 
 
 def select_node(scores: torch.Tensor, feasible: torch.Tensor) -> torch.Tensor:
-    """int32 0-d choice: lowest-index argmax of the masked scores, PAD when
-    nothing is feasible (ops/tpu.py select_node)."""
+    """int32 choice per row of ``scores`` (``[..., N]`` → ``[...]``): the
+    lowest-index argmax of the masked scores, PAD when nothing is feasible
+    (ops/tpu.py select_node)."""
     masked = torch.where(feasible, scores, torch.full_like(scores, float("-inf")))
-    mx = masked.max()
-    first = torch.nonzero(masked == mx).flatten()[:1]
-    placed = mx > float("-inf")
-    choice = first[0] if first.numel() else torch.tensor(PAD, device=scores.device)
-    return torch.where(placed, choice, torch.full_like(choice, PAD)).to(torch.int32)
+    mx = masked.amax(dim=-1, keepdim=True)
+    N = scores.shape[-1]
+    ar = torch.arange(N, device=scores.device)
+    first = torch.where(masked == mx, ar, torch.full_like(ar, N)).amin(dim=-1)
+    placed = mx.squeeze(-1) > float("-inf")
+    return torch.where(placed, first, torch.full_like(first, PAD)).to(torch.int32)
 
 
-def normalize_select(tb: Tables, p: int, choice_out: torch.Tensor) -> None:
+def normalize_select(tb: Tables, p: int, choices: torch.Tensor, slot: int) -> None:
     """Plain twin of K2 (csrc/normalize_select.cu): writes pod ``p``'s
-    choice (PAD when unplaced) into the 0-d/1-element int32
-    ``choice_out``."""
-    total = weighted_total(tb, p)
-    choice_out.copy_(select_node(total, tb.scratch.feasible).reshape(choice_out.shape))
+    choice in each scenario s (PAD when unplaced) into the int32
+    ``choices[s, slot]``."""
+    choices[:, slot] = select_node(weighted_total(tb, p), tb.scratch.feasible)
 
 
 # ---------------------------------------------------------------------------
@@ -612,54 +646,62 @@ def normalize_select(tb: Tables, p: int, choice_out: torch.Tensor) -> None:
 
 
 def gang_rollback_mask(pods: DevPods, pod_ids: torch.Tensor, nodes: torch.Tensor) -> torch.Tensor:
-    """[K] bool — placed pairs whose gang has an unplaced member among the
-    K slots (the wave-end all-or-nothing commit)."""
+    """``[..., K]`` bool — placed pairs whose gang has an unplaced member
+    among the K slots (the wave-end all-or-nothing commit), per row of
+    ``nodes`` (``[K]`` or ``[S, K]``; the pods are shared)."""
     valid = pod_ids >= 0
     g = torch.where(valid, pods.group_id[pod_ids.clamp(min=0).long()], torch.full_like(pod_ids, PAD))
     failed = valid & (nodes < 0) & (g >= 0)
-    same = (g[:, None] == g[None, :]) & failed[None, :]
-    return valid & (nodes >= 0) & (g >= 0) & same.any(dim=1)
+    same = (g[:, None] == g[None, :]) & failed[..., None, :]
+    return valid & (nodes >= 0) & (g >= 0) & same.any(dim=-1)
 
 
 def apply_placements(
-    tb: Tables, pod_ids: torch.Tensor, nodes: torch.Tensor, sign: float, rollback: bool = False
+    tb: Tables, pod_ids: torch.Tensor, pos: torch.Tensor, choices: torch.Tensor, sign: float,
+    rollback: bool = False,
 ) -> None:
     """Plain twin of K3 (csrc/apply_placements.cu): add ``sign`` × the
-    state contribution of each (pod, node) pair, in pair order
-    (models/state._apply); ``rollback`` restricts the pairs to failed-gang
-    members and overwrites their ``nodes`` entries with PAD."""
+    state contribution of each pair (``pod_ids[k]``, node
+    ``choices[s, pos[k]]``) to scenario s's state, in pair order
+    (models/state._apply); PAD pods and nodes are skipped. ``rollback``
+    restricts the pairs to failed-gang members and overwrites their
+    choices with PAD."""
     pods, cl, st = tb.pods, tb.cluster, tb.state
-    keep = (pod_ids >= 0) & (nodes >= 0)
+    S, N, R = st.used.shape
+    G, D = st.match_count.shape[1:]
+    posl = pos.long()
+    nodes = choices[:, posl]  # [S, K]
     if rollback:
         keep = gang_rollback_mask(pods, pod_ids, nodes)
-    sel = torch.nonzero(keep).flatten()
-    if sel.numel():
-        p = pod_ids[sel].long()
-        n = nodes[sel].long()
-        D = st.match_count.shape[1]
-        st.used.index_add_(0, n, sign * pods.requests[p])
-        dom = cl.gdom[:, n]  # [G, K]
+    else:
+        keep = (pod_ids >= 0) & (nodes >= 0)
+    ss, kk = torch.nonzero(keep, as_tuple=True)  # scenario-major, pair order within
+    if ss.numel():
+        p = pod_ids[kk].long()
+        n = nodes[ss, kk].long()
+        st.used.view(S * N, R).index_add_(0, ss * N + n, sign * pods.requests[p])
+        dom = cl.gdom[:, n]  # [G, M]
         hit = (dom >= 0) & pods.pmg[p].T
-        gg, kk = torch.nonzero(hit, as_tuple=True)
-        flat = gg * D + dom[gg, kk].long()
+        gg, mm = torch.nonzero(hit, as_tuple=True)
+        flat = (ss[mm] * G + gg) * D + dom[gg, mm].long()
         st.match_count.view(-1).index_add_(
             0, flat, torch.full(flat.shape, sign, dtype=torch.float32, device=flat.device)
         )
-        karange = torch.arange(p.shape[0], device=p.device)
+        m_ar = torch.arange(p.shape[0], device=p.device)
         for col in range(pods.anti_req.shape[1]):
             g = pods.anti_req[p, col].long()
-            d = dom[g.clamp(min=0), karange]
+            d = dom[g.clamp(min=0), m_ar]
             ok = (g >= 0) & (d >= 0)
             st.anti_active.view(-1).index_add_(
-                0, g[ok] * D + d[ok].long(),
+                0, (ss[ok] * G + g[ok]) * D + d[ok].long(),
                 torch.full((int(ok.sum()),), sign, dtype=torch.float32, device=p.device),
             )
         for col in range(pods.pref_aff.shape[1]):
             g = pods.pref_aff[p, col].long()
-            d = dom[g.clamp(min=0), karange]
+            d = dom[g.clamp(min=0), m_ar]
             ok = (g >= 0) & (d >= 0)
             st.pref_wsum.view(-1).index_add_(
-                0, g[ok] * D + d[ok].long(), sign * pods.pref_aff_w[p, col][ok]
+                0, (ss[ok] * G + g[ok]) * D + d[ok].long(), sign * pods.pref_aff_w[p, col][ok]
             )
     if rollback:
-        nodes.masked_fill_(keep, PAD)
+        choices[:, posl] = torch.where(keep, torch.full_like(nodes, PAD), nodes)

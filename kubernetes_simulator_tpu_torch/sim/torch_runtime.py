@@ -1,29 +1,36 @@
 """The ``torch`` scheduling strategy: the single-scenario replay on the
-card, through the hand-written kernels of :mod:`..ops.kernels`.
+card, through the hand-written kernels of :mod:`..ops.kernels`, and the
+S-batched chunk loop it shares with the what-if engine
+(:mod:`.whatif`).
 
 Counterpart: ``kubernetes_simulator_tpu/sim/jax_runtime.py`` —
 ``StepSpec`` (:122, with ``from_config``), ``_spread_norm_f32_ok`` (:215),
 ``_spread_w_table`` (:236), ``wave_start_times`` (:764), the plain path
 of ``JaxReplayEngine.replay`` (:2012) with the chunk program
-``make_chunk_fn3_src`` (:742), and ``_apply_release`` (:1414). The
-one-chunk-slack side of ``bind_chunk_of`` (:773) is the fold lag of the
-chunk loop, as on the reference's plain path.
+``make_chunk_fn3_src`` (:742), and ``_apply_release`` (:1414); and the
+device-release staging of ``kubernetes_simulator_tpu/sim/whatif.py``
+(``_stage_dev_rel`` :2200), which both engines use.
 
 Semantics are :mod:`kubernetes_simulator_tpu.sim.greedy`'s
-``greedy_replay`` exactly (the parity anchor of both packages):
-arrival-order waves of W slots; within a wave, slots run in order and each
-sees the speculative binds of the slots before it; at the wave end a gang
-commits whole or rolls back; completed pods release at chunk boundaries
-under the one-chunk-slack rule (boundary b sees the binds of chunks
-≤ b−2). Unlike the reference's v3 program, which commits a wave's ``used``
-in one reduction, the port adds per pod, as ``greedy_replay`` does.
+``greedy_replay`` exactly (the parity anchor of both packages), in every
+scenario: arrival-order waves of W slots; within a wave, slots run in
+order and each sees the speculative binds of the slots before it; at the
+wave end a gang commits whole or rolls back; completed pods release at
+chunk boundaries under the one-chunk-slack rule (boundary b sees the
+binds of chunks ≤ b−2). Unlike the reference's v3 program, which commits
+a wave's ``used`` in one reduction, the port adds per pod, as
+``greedy_replay`` does.
 
 Per slot the host enqueues K1 (filter_score) → K2 (normalize_select) → K3
-(apply_placements, bind) on the current stream; K2 writes the choice to a
-device array and K3 reads it there, so nothing returns to the host per
-pod. A wave holding gang members ends with a K3 rollback. The host
-synchronises once per chunk, to fetch that chunk's choices for the release
-bookkeeping and the result.
+(apply_placements, bind) on the current stream, each over all S
+scenarios; K2 writes each scenario's choice into the device-resident
+choice buffer ``[S, L]`` and K3 reads it there, so nothing returns to the
+host per pod. A wave holding gang members ends with a K3 rollback. The
+boundary at which a completed pod releases is the same in every scenario
+and is bucketed once per engine on the host (:func:`plan_chunks`); at a
+boundary one K3 release launch walks that bucket, reading each
+scenario's own choice (PAD for unplaced and rolled-back pods). The host
+synchronises once per run, to fetch the choice buffer.
 """
 
 from __future__ import annotations
@@ -31,7 +38,7 @@ from __future__ import annotations
 import contextlib
 import time
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -243,13 +250,222 @@ def resolve_device(device) -> torch.device:
 
 def _later(what: str, slice_: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} is not ported yet ({slice_}); the PyTorch engine runs the "
-        "plain single-scenario replay — use the JAX package for it"
+        f"{what} is not ported yet ({slice_}); the PyTorch engines run the "
+        "plain replay and the what-if batch — use the JAX package for it"
     )
 
 
-class TorchReplayEngine:
-    """Single-scenario replay of an encoded trace on one device.
+def release_times(pods: EncodedPods) -> np.ndarray:
+    """[P] time at which each pod completes (inf for a pod that runs on)."""
+    return pods.arrival + np.where(np.isfinite(pods.duration), pods.duration, np.inf)
+
+
+@dataclass
+class ChunkPlan:
+    """Static chunk layout of one trace, built once per engine on the host
+    (wave packing, durations and chunk size are fixed per engine).
+
+    The choice buffer has one row per scenario and ``L`` columns: one per
+    wave slot (``idx.size``, in wave order) and then a static tail with
+    one column per pre-bound pod, whose node every scenario shares.
+    ``buckets[b]`` holds the pods that release at boundary b (the start of
+    chunk b) and their choice-buffer columns, in pod order; None where
+    nothing releases."""
+
+    idx: np.ndarray  # [num_waves, W] i32, padded to a multiple of C
+    C: int
+    gang_wave: np.ndarray  # [num_waves] bool: the wave holds a gang member
+    prebound: np.ndarray  # pre-bound pod ids, in tail order
+    buckets: List[Optional[Tuple[np.ndarray, np.ndarray]]]
+
+    @property
+    def L(self) -> int:
+        return self.idx.size + self.prebound.size
+
+
+def plan_chunks(
+    pods: EncodedPods, wave_idx: np.ndarray, C: int, completions_on: bool, has_gangs: bool
+) -> ChunkPlan:
+    """Pad the waves to whole chunks of C and bucket the completion
+    releases (sim/whatif.py ``_stage_dev_rel``): a pod releases at
+    ``b_rel = max(first boundary whose start time ≥ its release time,
+    chunk_of + 2)`` — the one-chunk slack — where ``chunk_of`` is the
+    chunk holding its slot (−2 for a pre-bound pod). Boundaries past the
+    last finite one never release."""
+    W = wave_idx.shape[1]
+    C = min(int(C), max(wave_idx.shape[0], 1))
+    pad_to = ((wave_idx.shape[0] + C - 1) // C) * C
+    idx = wave_idx
+    if pad_to != idx.shape[0]:
+        idx = np.concatenate([idx, np.full((pad_to - idx.shape[0], W), PAD, np.int32)])
+    idx = np.ascontiguousarray(idx, np.int32)
+    gang_wave = (
+        (np.where(idx >= 0, pods.group_id[np.clip(idx, 0, None)], PAD) >= 0).any(axis=1)
+        if has_gangs
+        else np.zeros(idx.shape[0], bool)
+    )
+    prebound = np.nonzero(pods.bound_node >= 0)[0]
+    nchunks = idx.shape[0] // C
+    buckets: List[Optional[Tuple[np.ndarray, np.ndarray]]] = [None] * nchunks
+    if completions_on:
+        P = pods.num_pods
+        flat = idx.reshape(-1)
+        vmask = flat >= 0
+        Wtot = flat.size
+        pos_of = np.full(P, -1, np.int64)
+        pos_of[flat[vmask]] = np.nonzero(vmask)[0]
+        chunk_of = np.full(P, 1 << 30, np.int64)
+        chunk_of[flat[vmask]] = np.nonzero(vmask)[0] // (C * W)
+        chunk_of[prebound] = -2
+        pos_of[prebound] = Wtot + np.arange(prebound.size)
+        rel_time = release_times(pods)
+        tb_all = wave_start_times(pods, idx)[0::C][:nchunks]
+        nfin = int(np.isfinite(tb_all).sum())
+        elig = np.searchsorted(tb_all[:nfin], rel_time, side="left").astype(np.int64)
+        elig_ok = np.isfinite(rel_time) & (elig < nfin)
+        b_rel = np.maximum(elig, chunk_of + 2)
+        ok = elig_ok & (b_rel < nchunks) & (pos_of >= 0)
+        pods_ok = np.nonzero(ok)[0]
+        b_ok = b_rel[pods_ok]
+        order = np.lexsort((pods_ok, b_ok))
+        pods_s, b_s = pods_ok[order], b_ok[order]
+        counts = np.bincount(b_s, minlength=nchunks)
+        starts = np.concatenate(([0], np.cumsum(counts)[:-1]))
+        for b in np.nonzero(counts)[0]:
+            seg = pods_s[starts[b] : starts[b] + counts[b]]
+            buckets[b] = (seg.astype(np.int32), pos_of[seg].astype(np.int32))
+    return ChunkPlan(idx=idx, C=C, gang_wave=gang_wave, prebound=prebound, buckets=buckets)
+
+
+def run_chunks(
+    plan: ChunkPlan, tb: ref.Tables, bound_node: np.ndarray, plain: bool, timers=None
+) -> np.ndarray:
+    """Replay every chunk of ``plan`` over the S scenarios of ``tb`` (its
+    state is updated in place) and return the host copy of the choice
+    buffer ``[S, L]``. ``plain`` runs the plain twins on any device;
+    otherwise the kernel wrappers run (the kernels for CUDA tensors, the
+    twins for CPU tensors). The one synchronisation is the final fetch."""
+    tick = timers.tick if timers is not None else (lambda name: contextlib.nullcontext())
+    dev = tb.state.used.device
+    S = tb.state.used.shape[0]
+    idx, C = plan.idx, plan.C
+    W = idx.shape[1]
+    Wtot = idx.size
+    if plain:
+        filter_score, normalize_select, apply_placements = (
+            ref.filter_score, ref.normalize_select, ref.apply_placements)
+        h = tb
+    else:
+        filter_score, normalize_select, apply_placements = (
+            K.filter_score, K.normalize_select, K.apply_placements)
+        h = K.Bound(tb)
+    idx_dev = torch.as_tensor(idx.reshape(-1), device=dev)
+    pos_dev = torch.arange(plan.L, dtype=torch.int32, device=dev)
+    buckets = [
+        None if bk is None else tuple(torch.as_tensor(a, device=dev) for a in bk)
+        for bk in plan.buckets
+    ]
+    choices = torch.full((S, plan.L), PAD, dtype=torch.int32, device=dev)
+    if plan.prebound.size:
+        choices[:, Wtot:] = torch.as_tensor(bound_node[plan.prebound].astype(np.int32),
+                                            device=dev)
+    rows = idx.tolist()
+    gang_wave = plan.gang_wave.tolist()
+    for b in range(idx.shape[0] // C):
+        with tick("dispatch"):
+            if buckets[b] is not None:
+                apply_placements(h, buckets[b][0], buckets[b][1], choices, -1.0)
+            for w in range(b * C, (b + 1) * C):
+                base = w * W
+                for k, p in enumerate(rows[w]):
+                    if p < 0:
+                        continue
+                    s = base + k
+                    filter_score(h, p)
+                    normalize_select(h, p, choices, s)
+                    apply_placements(h, idx_dev[s : s + 1], pos_dev[s : s + 1], choices, 1.0)
+                if gang_wave[w]:
+                    apply_placements(h, idx_dev[base : base + W], pos_dev[base : base + W],
+                                     choices, -1.0, rollback=True)
+    with tick("device_wait"):
+        return choices.cpu().numpy()
+
+
+def assignments_from_choices(
+    plan: ChunkPlan, host_choices: np.ndarray, bound_node: np.ndarray
+) -> Tuple[np.ndarray, np.ndarray, int]:
+    """(assignments [S, P], placed [S], pods to schedule) from a fetched
+    choice buffer: pre-bound pods keep their node, every wave pod takes
+    its slot's choice (PAD = unplaced or rolled back)."""
+    flat_idx = plan.idx.reshape(-1)
+    valid = flat_idx >= 0
+    slot = host_choices[:, : flat_idx.size][:, valid]
+    S = host_choices.shape[0]
+    assignments = np.repeat(
+        np.where(bound_node >= 0, bound_node, PAD).astype(np.int32)[None], S, axis=0)
+    assignments[:, flat_idx[valid]] = slot
+    placed = (slot >= 0).sum(axis=1).astype(np.int32)
+    return assignments, placed, int(valid.sum())
+
+
+class ChunkEngine:
+    """The setup and the run that the single replay and the what-if batch
+    share: wave packing, the completions gate (on when the trace has finite
+    durations, unless ``completions=False``), the granularity guard, the
+    static chunk plan, the tables of S scenarios on the device and one pass
+    of :func:`run_chunks`."""
+
+    def _prepare(
+        self, ec: EncodedCluster, pods: EncodedPods, spec: StepSpec, cluster: ref.DevCluster,
+        S: int, wave_width, chunk_waves: int, completions: Optional[bool],
+        granularity_guard: bool, engine_name: str, device: torch.device, plain: bool,
+    ) -> None:
+        self.ec, self.pods, self.spec, self.S, self.device = ec, pods, spec, S, device
+        self.consts = spec.consts()
+        self.plain = bool(plain)
+        self.wave_width = 8 if wave_width == "auto" else int(wave_width)
+        if self.wave_width > 1024:
+            raise ValueError("wave_width must be <= 1024 (one rollback block)")
+        self.waves = pack_waves(pods, self.wave_width)
+        self.completions_on = completions is not False and bool(
+            np.isfinite(release_times(pods)).any())
+        self.chunk_waves = int(chunk_waves)
+        if self.completions_on:
+            from .granularity import guard
+
+            self.chunk_waves, _ = guard(
+                pods, self.waves.idx, self.chunk_waves, 0,
+                enabled=granularity_guard, engine_name=engine_name,
+            )
+        #: chunk layout and release buckets, static per engine
+        self.plan = plan_chunks(pods, self.waves.idx, self.chunk_waves, self.completions_on,
+                                spec.has_gangs)
+        self._cluster = cluster
+        self._pods = ref.pods_to(pods, device)
+
+    def _tables(self) -> ref.Tables:
+        st = init_state(self.ec, self.pods)
+        return ref.Tables(
+            cluster=self._cluster, pods=self._pods,
+            state=ref.stacked_state(st.used, st.match_count, st.anti_active, st.pref_wsum,
+                                    self.S, self.device),
+            scratch=ref.new_scratch(self.S, self.ec.num_nodes, self.device), consts=self.consts,
+        )
+
+    def _run(self, timers=None):
+        """(tables after the run, wall seconds, assignments [S, P], placed
+        [S], pods to schedule)."""
+        tb = self._tables()
+        t0 = time.perf_counter()
+        host_choices = run_chunks(self.plan, tb, self.pods.bound_node, self.plain, timers)
+        wall = time.perf_counter() - t0
+        return (tb, wall) + assignments_from_choices(self.plan, host_choices,
+                                                     self.pods.bound_node)
+
+
+class TorchReplayEngine(ChunkEngine):
+    """Single-scenario replay of an encoded trace on one device: the S = 1
+    case of the chunk loop (:func:`run_chunks`).
 
     ``device`` defaults to ``"cuda"`` (the kernels); ``device="cpu"`` runs
     the kernels' plain twins. ``plain=True`` runs the twins on any device
@@ -291,35 +507,12 @@ class TorchReplayEngine:
         if flight_recorder is not None:
             raise _later("flight_recorder", "the flight recorder")
         self.telemetry = resolve_granularity(telemetry)
-        self.device = resolve_device(device)
-        self.ec = ec
-        self.pods = pods
-        self.spec = StepSpec.from_config(ec, config, pods)
-        self.consts = self.spec.consts()
-        self.chunk_waves = int(chunk_waves)
-        self.wave_width = 8 if wave_width == "auto" else int(wave_width)
-        if self.wave_width > 1024:
-            raise ValueError("wave_width must be <= 1024 (one rollback block)")
-        self.completions = completions
-        self.granularity_guard = granularity_guard
-        self.plain = bool(plain)
-        self.waves = pack_waves(pods, self.wave_width)
-        self._cluster = ref.cluster_to(ec, self.device)
-        self._pods = ref.pods_to(pods, self.device)
+        device = resolve_device(device)
+        self._prepare(ec, pods, StepSpec.from_config(ec, config, pods),
+                      ref.cluster_to(ec, device), 1, wave_width, chunk_waves, completions,
+                      granularity_guard, "torch replay engine", device, plain)
 
     # -- one replay --------------------------------------------------------
-
-    def _tables(self) -> ref.Tables:
-        st = init_state(self.ec, self.pods)
-        t = lambda a: torch.tensor(a, dtype=torch.float32, device=self.device)
-        state = ref.DevState(
-            used=t(st.used), match_count=t(st.match_count),
-            anti_active=t(st.anti_active), pref_wsum=t(st.pref_wsum),
-        )
-        return ref.Tables(
-            cluster=self._cluster, pods=self._pods, state=state,
-            scratch=ref.new_scratch(self.ec.num_nodes, self.device), consts=self.consts,
-        )
 
     def replay(
         self,
@@ -333,129 +526,18 @@ class TorchReplayEngine:
         if node_events:
             raise _later("node_events", "chaos node events, queue A item 6")
         ep = self.pods
-        chunk_req = self.chunk_waves
-        if self.completions is not False:
-            from .granularity import guard
-
-            chunk_req, _ = guard(
-                ep, self.waves.idx, chunk_req, 0,
-                enabled=self.granularity_guard, engine_name="torch replay engine",
-            )
-        idx = self.waves.idx
-        W = idx.shape[1]
-        C = min(chunk_req, max(idx.shape[0], 1))
-        pad_to = ((idx.shape[0] + C - 1) // C) * C
-        if pad_to != idx.shape[0]:
-            idx = np.concatenate(
-                [idx, np.full((pad_to - idx.shape[0], W), PAD, np.int32)]
-            )
         timers = PhaseTimers() if self.telemetry != "off" else None
-        tick = timers.tick if timers is not None else (lambda name: contextlib.nullcontext())
-
-        tb = self._tables()
-        dev = self.device
-        if self.plain:
-            filter_score = ref.filter_score
-            normalize_select = ref.normalize_select
-            apply_placements = ref.apply_placements
-            handle = tb
-        else:
-            filter_score = K.filter_score
-            normalize_select = K.normalize_select
-            apply_placements = K.apply_placements
-            handle = K.Bound(tb)
-        flat_idx = idx.reshape(-1).astype(np.int32)
-        idx_dev = torch.as_tensor(flat_idx, device=dev)
-        choices = torch.full((flat_idx.size,), PAD, dtype=torch.int32, device=dev)
-        gang_wave = (
-            ((np.where(idx >= 0, ep.group_id[np.clip(idx, 0, None)], PAD)) >= 0).any(axis=1)
-            if self.spec.has_gangs
-            else np.zeros(idx.shape[0], bool)
-        )
-        rel_time = ep.arrival + np.where(np.isfinite(ep.duration), ep.duration, np.inf)
-        completions_on = bool(self.completions is not False and np.isfinite(rel_time).any())
-        wave_times = wave_start_times(ep, idx) if completions_on else None
-        host_assign = np.where(ep.bound_node >= 0, ep.bound_node, PAD).astype(np.int32)
-        released = np.zeros(ep.num_pods, bool)
-        on_cuda = dev.type == "cuda"
-        fetched = []  # per chunk: (host choices, event or None)
-        pending_fold = None  # (chunk rows, host choices, event) not yet folded
-
-        def _fold(rows, ch, ev):
-            if ev is not None:
-                ev.synchronize()
-            ch = ch.numpy().reshape(rows.shape)
-            v = rows >= 0
-            host_assign[rows[v]] = ch[v]
-
-        t0 = time.perf_counter()
-        for c0 in range(0, idx.shape[0], C):
-            if completions_on:
-                t_chunk = wave_times[c0]
-                if np.isfinite(t_chunk):
-                    due_p = np.nonzero(
-                        (host_assign != PAD) & ~released & np.isfinite(rel_time)
-                        & (rel_time <= t_chunk)
-                    )[0]
-                    if due_p.size:
-                        with tick("host_mirror"):
-                            apply_placements(
-                                handle,
-                                torch.as_tensor(due_p.astype(np.int32), device=dev),
-                                torch.as_tensor(host_assign[due_p], device=dev),
-                                -1.0,
-                            )
-                        released[due_p] = True
-            with tick("dispatch"):
-                for w in range(c0, c0 + C):
-                    base = w * W
-                    for k, p in enumerate(idx[w].tolist()):
-                        if p < 0:
-                            continue
-                        s = base + k
-                        filter_score(handle, p)
-                        normalize_select(handle, p, choices[s : s + 1])
-                        apply_placements(handle, idx_dev[s : s + 1], choices[s : s + 1], 1.0)
-                    if gang_wave[w]:
-                        apply_placements(
-                            handle, idx_dev[base : base + W], choices[base : base + W],
-                            -1.0, rollback=True,
-                        )
-                sl = choices[c0 * W : (c0 + C) * W]
-                if on_cuda:
-                    host = torch.empty(sl.shape, dtype=torch.int32, pin_memory=True)
-                    host.copy_(sl, non_blocking=True)
-                    ev = torch.cuda.Event()
-                    ev.record()
-                else:
-                    host, ev = sl.clone(), None
-            fetched.append((host, ev))
-            if completions_on:
-                # Fold the previous chunk after enqueuing this one: boundary
-                # b only ever sees chunks <= b-2 (the one-chunk slack).
-                if pending_fold is not None:
-                    with tick("boundary_fold"):
-                        _fold(*pending_fold)
-                pending_fold = (idx[c0 : c0 + C], host, ev)
-        with tick("device_wait"):
-            if on_cuda:
-                torch.cuda.synchronize(dev)
-        wall = time.perf_counter() - t0
-
-        flat_choice = torch.cat([h for h, _ in fetched]).numpy() if fetched else np.zeros(0, np.int32)
-        assignments = np.where(ep.bound_node >= 0, ep.bound_node, PAD).astype(np.int32)
-        valid = flat_idx >= 0
-        assignments[flat_idx[valid]] = flat_choice[valid]
-        placed = int((flat_choice[valid] >= 0).sum())
-        to_schedule = int(valid.sum())
+        tb, wall, assignments, placed_s, to_schedule = self._run(timers)
+        assignments = assignments[0]
+        placed = int(placed_s[0])
 
         st = tb.state
-        used = st.used.cpu().numpy()
+        used = st.used[0].cpu().numpy()
         host_state = SchedState(
             used=used,
-            match_count=st.match_count.cpu().numpy(),
-            anti_active=st.anti_active.cpu().numpy(),
-            pref_wsum=st.pref_wsum.cpu().numpy(),
+            match_count=st.match_count[0].cpu().numpy(),
+            anti_active=st.anti_active[0].cpu().numpy(),
+            pref_wsum=st.pref_wsum[0].cpu().numpy(),
             bound=assignments.copy(),
         )
         util = utilization_means(used, self.ec.allocatable, self.ec.vocab._r)

@@ -1,11 +1,13 @@
 """YAML configuration.
 
 Counterpart: ``kubernetes_simulator_tpu/utils/config.py`` (``SimConfig``,
-``build_case``, ``build_encoded_case``) — the sections the port runs: the
-synthetic ``cluster``/``workload``, the ``profile`` (plugins, weights),
-``telemetry``, ``output``, ``waveWidth`` and ``chunkWaves``. Parsing is
-the reference's, key for key, so one YAML file yields the same encoded
-case in both packages.
+``WhatIfSpec``, ``build_case``, ``build_encoded_case``) — the sections the
+port runs: the synthetic ``cluster``/``workload``, the ``profile``
+(plugins, weights), ``telemetry``, ``output``, ``waveWidth``,
+``chunkWaves`` and ``whatIf`` (``scenarios``, ``seed``, ``nodeDownP``,
+``capacityP``, ``taintP``, ``completions``). Parsing is the reference's,
+key for key, so one YAML file yields the same encoded case and the same
+scenario batch in both packages.
 
 Every other section of the JAX package's schema belongs to a mode the port
 does not carry yet; :meth:`SimConfig.from_dict` refuses it with an error
@@ -45,10 +47,30 @@ class SyntheticWorkloadSpec:
     num_apps: int = 20
 
 
+@dataclass
+class WhatIfSpec:
+    scenarios: int = 0
+    seed: int = 0
+    node_down_p: float = 0.02
+    capacity_p: float = 0.3
+    taint_p: float = 0.1
+    # None = default-on completions; True/False are the explicit forms.
+    completions: Optional[bool] = None
+
+
+def _coerce_completions(v: object) -> Optional[bool]:
+    """None stays None (default on); bool/int coerce to bool; anything
+    else is a config error."""
+    if v is None:
+        return None
+    if isinstance(v, (bool, int)):
+        return bool(v)
+    raise ValueError(f"whatIf.completions: must be true or false, got {v!r}")
+
+
 #: Sections of the JAX package's schema the port refuses, with the mode
 #: each one selects.
 _REFUSED_SECTIONS = {
-    "whatIf": "the scenario-batched what-if engine and its retryBuffer",
     "chaos": "chaos node-event timelines",
     "dcn": "the multi-process fleet",
     "service": "the resident query service",
@@ -77,9 +99,15 @@ class SimConfig:
     output: Optional[str] = None
     wave_width: int = 8
     chunk_waves: int = 1024
+    whatif: WhatIfSpec = field(default_factory=WhatIfSpec)
 
     @classmethod
     def from_dict(cls, d: dict) -> "SimConfig":
+        wi = d.get("whatIf") or {}
+        if wi.get("mesh", False):
+            _refuse("whatIf.mesh", "the scenario axis over several cards")
+        if int(wi.get("retryBuffer", 0) or 0) > 0:
+            _refuse("whatIf.retryBuffer", "the boundary retry buffer")
         for section, what in _REFUSED_SECTIONS.items():
             if d.get(section) is not None:
                 _refuse(section, what)
@@ -128,6 +156,14 @@ class SimConfig:
         ww = d.get("waveWidth", 8)
         cfg.wave_width = 8 if ww == "auto" else int(ww)
         cfg.chunk_waves = int(d.get("chunkWaves", 1024))
+        cfg.whatif = WhatIfSpec(
+            scenarios=int(wi.get("scenarios", 0)),
+            seed=int(wi.get("seed", 0)),
+            node_down_p=float(wi.get("nodeDownP", 0.02)),
+            capacity_p=float(wi.get("capacityP", 0.3)),
+            taint_p=float(wi.get("taintP", 0.1)),
+            completions=_coerce_completions(wi.get("completions")),
+        )
         return cfg
 
     @classmethod

@@ -1,8 +1,9 @@
 """Metrics and result rows.
 
 Counterpart: ``kubernetes_simulator_tpu/utils/metrics.py`` — what the
-``run`` command prints: the utilization means, the end-of-replay
-fragmentation gauges, the JSONL writer and the replay row. The float64
+``run`` and ``what-if`` commands print: the utilization means, the
+end-of-replay fragmentation gauges, the JSONL writer, the replay row and
+the what-if rows (``whatif_rows`` :329). The float64
 host arithmetic is the reference's, line for line, so both packages give
 the same gauges from the same committed state. The multi-process (fleet)
 row stamp is not carried over."""
@@ -15,7 +16,7 @@ import logging
 import os
 import sys
 import time
-from typing import IO, Dict, Optional
+from typing import IO, Dict, Iterable, Optional
 
 import numpy as np
 
@@ -221,3 +222,32 @@ def replay_row(kind: str, res, extra: Optional[dict] = None) -> dict:
     if extra:
         row.update(extra)
     return _scrub_timing(row)
+
+
+def whatif_rows(res, extra: Optional[dict] = None) -> Iterable[dict]:
+    """One ``whatif-aggregate`` row and one ``whatif-scenario`` row per
+    scenario. The reference's per-scenario kube, chaos, latency and
+    fragmentation fields come from modes the port does not run yet and are
+    left out."""
+    base = extra or {}
+    yield _scrub_timing({
+        "kind": "whatif-aggregate",
+        "scenarios": int(res.placed.shape[0]),
+        "total_placed": res.total_placed,
+        "wall_clock_s": round(res.wall_clock_s, 4),
+        "placements_per_sec": round(res.placements_per_sec, 1),
+        "completions_on": bool(res.completions_on),
+        "engine": res.engine,
+        **base,
+    })
+    for s in range(res.placed.shape[0]):
+        yield {
+            "kind": "whatif-scenario",
+            "scenario": s,
+            "placed": int(res.placed[s]),
+            "unschedulable": int(res.unschedulable[s]),
+            "utilization_cpu": (
+                round(float(res.utilization_cpu[s]), 4) if res.utilization_cpu is not None else None
+            ),
+            **base,
+        }

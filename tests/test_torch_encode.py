@@ -151,3 +151,34 @@ def test_encoded_from_numpy_names_missing_fields():
     del ecf["allocatable"], epf["requests"]
     with pytest.raises(KeyError, match="allocatable.*requests"):
         encoded_from_numpy(ecf, epf)
+
+
+@pytest.mark.parametrize("case", ["full_seed0", "extended"])
+def test_carried_vocab_equals_reference_and_interns_alike(case):
+    """The carried vocabulary holds every interning table of the JAX
+    package's, so interning a new key or key/value pair afterwards (the
+    what-if add_taint) gives the same id in both packages."""
+    ckw, wkw, _ = CASES[case]
+    ec, ep = J_encode.encode(J_syn.make_cluster(**ckw), J_syn.make_workload(**wkw)[0])
+    pec, _ = port_case(ec, ep)
+    for lst in ("resources", "keys", "kvs", "namespaces", "topo_keys"):
+        assert getattr(pec.vocab, lst) == getattr(ec.vocab, lst), lst
+    assert ec.vocab.keys and ec.vocab.kvs
+    old_key, old_kv = ec.vocab.keys[-1], ec.vocab.kvs[-1]
+    for fn, args in (
+        ("key", ("whatif/injected",)), ("kv", ("whatif/injected", "true")),
+        ("key", (old_key,)), ("kv", old_kv), ("kv", (old_key, "a-new-value")),
+        ("ns", ("a-new-namespace",)), ("topo", ("example.com/rack",)),
+        ("resource", ("example.com/gpu",)),
+    ):
+        want = getattr(ec.vocab, fn)(*args)
+        assert getattr(pec.vocab, fn)(*args) == want, (fn, args)
+    assert pec.vocab.key("whatif/injected") == len(ec.vocab.keys) - 1
+
+
+def test_encoded_from_numpy_requires_the_vocabulary():
+    ec, ep = J_encode.encode(*J_syn.config1(num_nodes=4, num_pods=5)[:2])
+    ecf, epf = field_dicts(ec, ep)
+    del ecf["kvs"], ecf["topo_keys"]
+    with pytest.raises(KeyError, match="kvs.*topo_keys"):
+        encoded_from_numpy(ecf, epf)

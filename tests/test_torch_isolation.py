@@ -109,7 +109,7 @@ def test_cli_default_device_raises_without_a_card(monkeypatch, tmp_path):
 
 @pytest.mark.parametrize(
     "section",
-    ["whatIf: {scenarios: 4}", "chaos: {enabled: true}", "devicePreemption: kube",
+    ["whatIf: {scenarios: 4, mesh: true}", "chaos: {enabled: true}", "devicePreemption: kube",
      "nodeShards: 2", "pagedWaves: true", "dcn: {recovery: {enable: true}}",
      "service: {maxBatch: 2}", "workload: {borg: {tasks: 10}}"],
 )
@@ -163,11 +163,12 @@ def test_wrappers_take_the_twin_only_on_cpu():
 @pytest.mark.parametrize(
     "name,refused",
     [("config1_default_cpu.yaml", None), ("config2_full_plugins_5k.yaml", None),
-     ("config3_whatif_256.yaml", "whatIf"), ("config8_kube_preempt.yaml", "whatIf")],
+     ("config3_whatif_256.yaml", None), ("config8_kube_preempt.yaml", "whatIf")],
 )
 def test_example_configs_parse_or_refuse(name, refused):
-    """The repo's example configs: the run configs parse with the JAX
-    package's values; the what-if / preemption ones are refused by name."""
+    """The repo's example configs: the run and what-if configs parse with
+    the JAX package's values; the preemption one (a what-if retry buffer)
+    is refused by name."""
     import yaml
 
     from kubernetes_simulator_tpu_torch.utils.config import SimConfig
@@ -183,3 +184,6 @@ def test_example_configs_parse_or_refuse(name, refused):
     assert cfg.cluster.nodes == syn["nodes"]
     assert cfg.workload.pods == raw["workload"]["synthetic"]["pods"]
     assert cfg.chunk_waves == raw.get("chunkWaves", 1024)
+    wi = raw.get("whatIf") or {}
+    assert cfg.whatif.scenarios == wi.get("scenarios", 0)
+    assert cfg.whatif.seed == wi.get("seed", 0)

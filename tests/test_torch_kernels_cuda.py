@@ -6,7 +6,9 @@ where torch has no CUDA device. On the card, run them with
     python -m pytest tests/test_torch_kernels_cuda.py -q -m cuda
 
 Tolerance: none — the kernels keep the twins' operation order, and are
-compiled without FMA contraction and with IEEE division."""
+compiled without FMA contraction and with IEEE division — except the
+what-if ``utilization_cpu`` of the card against the CPU (1e-6: an f32 mean
+over nodes summed in another order)."""
 
 import numpy as np
 import pytest
@@ -43,30 +45,100 @@ def test_kernels_equal_twins(card, seed):
     cl, pods = ref.cluster_to(ec, card), ref.pods_to(ep, card)
     G, D = cl.gdom.shape[0], max(ec.max_domains, 1)
     z = lambda *s: torch.zeros(s, dtype=torch.float32, device=card)
-    st_k = ref.DevState(z(ec.num_nodes, ec.num_resources), z(G, D), z(G, D), z(G, D))
+    st_k = ref.DevState(z(1, ec.num_nodes, ec.num_resources), z(1, G, D), z(1, G, D),
+                        z(1, G, D))
     st_t = ref.DevState(*(t.clone() for t in st_k))
-    tb_k = ref.Tables(cl, pods, st_k, ref.new_scratch(ec.num_nodes, card), consts)
-    tb_t = ref.Tables(cl, pods, st_t, ref.new_scratch(ec.num_nodes, card), consts)
+    tb_k = ref.Tables(cl, pods, st_k, ref.new_scratch(1, ec.num_nodes, card), consts)
+    tb_t = ref.Tables(cl, pods, st_t, ref.new_scratch(1, ec.num_nodes, card), consts)
     b = K.Bound(tb_k)
     ids = torch.arange(ep.num_pods, dtype=torch.int32, device=card)
-    ch_k = torch.full((ep.num_pods,), PAD, dtype=torch.int32, device=card)
+    ch_k = torch.full((1, ep.num_pods), PAD, dtype=torch.int32, device=card)
     ch_t = ch_k.clone()
     for p in range(ep.num_pods):
         K.filter_score(b, p)
         ref.filter_score(tb_t, p)
         for f in ref.Scratch._fields:
             assert torch.equal(getattr(tb_k.scratch, f), getattr(tb_t.scratch, f)), (p, f)
-        K.normalize_select(b, p, ch_k[p : p + 1])
-        ref.normalize_select(tb_t, p, ch_t[p : p + 1])
-        assert int(ch_k[p]) == int(ch_t[p]), p
-        K.apply_placements(b, ids[p : p + 1], ch_k[p : p + 1], 1.0)
-        ref.apply_placements(tb_t, ids[p : p + 1], ch_t[p : p + 1], 1.0)
-    rel = torch.nonzero(ch_k >= 0).flatten()[::3].to(torch.int32)
-    K.apply_placements(b, rel, ch_k[rel.long()].contiguous(), -1.0)
-    ref.apply_placements(tb_t, rel, ch_t[rel.long()].contiguous(), -1.0)
+        K.normalize_select(b, p, ch_k, p)
+        ref.normalize_select(tb_t, p, ch_t, p)
+        assert int(ch_k[0, p]) == int(ch_t[0, p]), p
+        K.apply_placements(b, ids[p : p + 1], ids[p : p + 1], ch_k, 1.0)
+        ref.apply_placements(tb_t, ids[p : p + 1], ids[p : p + 1], ch_t, 1.0)
+    rel = ids[::3].contiguous()
+    K.apply_placements(b, rel, rel, ch_k, -1.0)
+    ref.apply_placements(tb_t, rel, rel, ch_t, -1.0)
     torch.cuda.synchronize()
     for f in ref.DevState._fields:
         assert torch.equal(getattr(st_k, f), getattr(st_t, f)), f
+
+
+def test_batched_kernels_equal_twins(card):
+    """At S=3 (scenarios whose allocatable and taints differ), each kernel
+    equals its batched twin: masks, score rows, choices and the state after
+    every bind, a bucketed release and a gang rollback."""
+    from torch_port_case import scenario_tables
+
+    ep, tb_cpu, _ = scenario_tables()
+    move = lambda nt: type(nt)(*(x.to(card) if torch.is_tensor(x) else x for x in nt))
+    mk = lambda: ref.Tables(move(tb_cpu.cluster), move(tb_cpu.pods),
+                            type(tb_cpu.state)(*(x.to(card).clone() for x in tb_cpu.state)),
+                            move(tb_cpu.scratch), tb_cpu.consts)
+    tb_k, tb_t = mk(), mk()
+    b = K.Bound(tb_k)
+    P = ep.num_pods
+    ids = torch.arange(P, dtype=torch.int32, device=card)
+    ch_k = torch.full((3, P), PAD, dtype=torch.int32, device=card)
+    ch_t = ch_k.clone()
+
+    def same(where):
+        torch.cuda.synchronize()
+        for part in ("state", "scratch"):
+            for f in getattr(tb_k, part)._fields:
+                assert torch.equal(getattr(getattr(tb_k, part), f),
+                                   getattr(getattr(tb_t, part), f)), (where, f)
+        assert torch.equal(ch_k, ch_t), where
+
+    for p in range(P):
+        K.filter_score(b, p)
+        ref.filter_score(tb_t, p)
+        K.normalize_select(b, p, ch_k, p)
+        ref.normalize_select(tb_t, p, ch_t, p)
+        K.apply_placements(b, ids[p : p + 1], ids[p : p + 1], ch_k, 1.0)
+        ref.apply_placements(tb_t, ids[p : p + 1], ids[p : p + 1], ch_t, 1.0)
+        same(f"slot {p}")
+    assert not torch.equal(ch_k[0], ch_k[1]) and (ch_k < 0).any()
+    rel = ids[::3].contiguous()
+    K.apply_placements(b, rel, rel, ch_k, -1.0)
+    ref.apply_placements(tb_t, rel, rel, ch_t, -1.0)
+    same("release")
+    gid = ep.group_id
+    wave = torch.as_tensor(np.nonzero(gid == gid[gid >= 0][0])[0].astype(np.int32),
+                           device=card)
+    ch_k[1, wave[-1].long()] = PAD
+    ch_t[1, wave[-1].long()] = PAD
+    K.apply_placements(b, wave, wave, ch_k, -1.0, rollback=True)
+    ref.apply_placements(tb_t, wave, wave, ch_t, -1.0, rollback=True)
+    same("rollback")
+    assert (ch_k[1, wave.long()] == PAD).all()
+
+
+def test_whatif_kernel_path_equals_plain_path(card):
+    from kubernetes_simulator_tpu_torch.sim.whatif import WhatIfEngine, uniform_scenarios
+
+    ec, ep = _case(8, nodes=40, pods=600, duration_mean=3.0, arrival_rate=50.0,
+                   gang_fraction=0.1, gang_size=3)
+    scen = uniform_scenarios(ec, 6, seed=1, p_node_down=0.5, p_taint=0.5)
+    kw = dict(wave_width=4, chunk_waves=8, collect_assignments=True)
+    K.reset_launch_counts()
+    kern = WhatIfEngine(ec, ep, scen, FrameworkConfig(), device=card, **kw).run()
+    assert all(n > 0 for n in K.launch_counts().values())
+    plain = WhatIfEngine(ec, ep, scen, FrameworkConfig(), device=card, plain=True, **kw).run()
+    cpu = WhatIfEngine(ec, ep, scen, FrameworkConfig(), device="cpu", **kw).run()
+    np.testing.assert_array_equal(kern.assignments, plain.assignments)
+    np.testing.assert_array_equal(kern.assignments, cpu.assignments)
+    np.testing.assert_array_equal(kern.utilization_cpu, plain.utilization_cpu)
+    # The card and the CPU take the f32 mean over nodes in different orders.
+    np.testing.assert_allclose(kern.utilization_cpu, cpu.utilization_cpu, atol=1e-6)
 
 
 def test_replay_kernel_path_equals_plain_path(card):

@@ -30,7 +30,7 @@ from kubernetes_simulator_tpu_torch.ops import reference as ref
 from kubernetes_simulator_tpu_torch.sim.torch_runtime import StepSpec
 
 from test_oracle_parity import random_cluster_pods
-from torch_port_case import port_case, port_state
+from torch_port_case import port_case, port_state, scenario_tables
 
 PAD = -1
 
@@ -68,7 +68,7 @@ def _tables(ec, ep, st, plugins):
     spec = StepSpec.from_config(pec, FrameworkConfig(plugins=plugins), pep)
     tb = ref.Tables(
         cluster=ref.cluster_to(pec, "cpu"), pods=ref.pods_to(pep, "cpu"),
-        state=port_state(st).planes, scratch=ref.new_scratch(ec.num_nodes, "cpu"),
+        state=port_state(st).planes, scratch=ref.new_scratch(1, ec.num_nodes, "cpu"),
         consts=spec.consts(),
     )
     return tb
@@ -145,26 +145,27 @@ def test_filter_score_select_twins_match_reference_chains(seed):
     chain = _jax_chain(jspec)
     slots = T.gather_slots(ep, np.arange(ep.num_pods))
     rng = np.random.default_rng(seed + 99)
-    choice = torch.empty(1, dtype=torch.int32)
+    choices = torch.full((1, 1), PAD, dtype=torch.int32)
     placed_any = 0
     for p in range(ep.num_pods):
         ref.filter_score(tb, p)
-        ref.normalize_select(tb, p, choice)
-        feas = tb.scratch.feasible.numpy()
+        ref.normalize_select(tb, p, choices, 0)
+        choice = choices[0, 0]
+        feas = tb.scratch.feasible[0].numpy()
         # JAX chain
         s = jax.tree.map(lambda a: a[p], slots)
         jf, jtotal, jchoice, jrows = chain(dc, d, _jax_state(ec, st), s)
         np.testing.assert_array_equal(feas, np.asarray(jf), err_msg=f"mask p={p}")
         np.testing.assert_array_equal(
-            ref.normalized_rows(tb, p).numpy(), np.asarray(jrows),
+            ref.normalized_rows(tb, p)[0].numpy(), np.asarray(jrows),
             err_msg=f"normalized rows p={p}")
         np.testing.assert_array_equal(
-            ref.weighted_total(tb, p).numpy(), np.asarray(jtotal), err_msg=f"total p={p}")
+            ref.weighted_total(tb, p)[0].numpy(), np.asarray(jtotal), err_msg=f"total p={p}")
         assert int(choice) == int(jchoice), p
         # numpy chain
         np.testing.assert_array_equal(feas, fw.feasible_mask(st, p), err_msg=f"cpu mask p={p}")
         assert int(choice) == fw.schedule_one(st, p, allow_preemption=False).node, p
-        sc = tb.scratch.scores.numpy()
+        sc = tb.scratch.scores[0].numpy()
         k = tb.consts
         if k.taints:
             np.testing.assert_array_equal(sc[ref.ROW_TAINT], C.taint_prefer_count(ec, ep, p))
@@ -176,7 +177,7 @@ def test_filter_score_select_twins_match_reference_chains(seed):
         if k.spread:
             craw = C.spread_score(ec, st, ep, p)
             if craw is not None:
-                ign = tb.scratch.ignored.numpy()
+                ign = tb.scratch.ignored[0].numpy()
                 np.testing.assert_array_equal(ign, craw == -1)
                 np.testing.assert_array_equal(sc[ref.ROW_SPREAD][~ign], craw[~ign])
         # Bind on a random feasible node in both states (K3 twin = bind).
@@ -184,12 +185,12 @@ def test_filter_score_select_twins_match_reference_chains(seed):
             n = int(rng.choice(np.nonzero(feas)[0]))
             bind(ec, ep, st, p, n)
             ref.apply_placements(
-                tb, torch.tensor([p], dtype=torch.int32), torch.tensor([n], dtype=torch.int32),
-                1.0)
+                tb, torch.tensor([p], dtype=torch.int32), torch.tensor([0], dtype=torch.int32),
+                torch.tensor([[n]], dtype=torch.int32), 1.0)
             placed_any += 1
         for name in ("used", "match_count", "anti_active", "pref_wsum"):
             np.testing.assert_array_equal(
-                getattr(tb.state, name).numpy(), getattr(st, name), err_msg=f"{name} p={p}")
+                getattr(tb.state, name)[0].numpy(), getattr(st, name), err_msg=f"{name} p={p}")
     assert placed_any > 0
 
 
@@ -217,10 +218,11 @@ def test_apply_twin_release_equals_unbind_and_release_delta():
         unbind(ec, ep, seq, int(p))
     du, dmc, daa, dpw = release_delta(ec, ep, rel, nodes)
     ref.apply_placements(
-        tb, torch.tensor(rel, dtype=torch.int32), torch.tensor(nodes, dtype=torch.int32), -1.0)
+        tb, torch.tensor(rel, dtype=torch.int32), torch.arange(rel.size, dtype=torch.int32),
+        torch.tensor(nodes, dtype=torch.int32)[None], -1.0)
     for name, delta in (("used", du), ("match_count", dmc), ("anti_active", daa),
                         ("pref_wsum", dpw)):
-        got = getattr(tb.state, name).numpy()
+        got = getattr(tb.state, name)[0].numpy()
         np.testing.assert_array_equal(got, getattr(seq, name), err_msg=name)
         np.testing.assert_array_equal(got, getattr(st, name) - delta, err_msg=name)
     assert rel.size > 10
@@ -243,19 +245,20 @@ def test_apply_twin_gang_rollback_equals_unbind():
     last = fm[-1]
     unbind(ec, ep, st, int(last))  # the unplaced member never bound
     ref.apply_placements(
-        tb, torch.tensor([int(last)], dtype=torch.int32),
-        torch.tensor([int(nodes[len(fm) - 1])], dtype=torch.int32), -1.0)
+        tb, torch.tensor([int(last)], dtype=torch.int32), torch.tensor([0], dtype=torch.int32),
+        torch.tensor([[int(nodes[len(fm) - 1])]], dtype=torch.int32), -1.0)
     nodes[len(fm) - 1] = PAD
     expect_nodes = nodes.copy()
     expect_nodes[: len(fm)] = PAD
     for p in fm[:-1]:
         unbind(ec, ep, st, int(p))
-    nodes_t = torch.tensor(nodes)
-    ref.apply_placements(tb, torch.tensor(wave), nodes_t, -1.0, rollback=True)
-    np.testing.assert_array_equal(nodes_t.numpy(), expect_nodes)
+    nodes_t = torch.tensor(nodes)[None]
+    ref.apply_placements(tb, torch.tensor(wave), torch.arange(wave.size, dtype=torch.int32),
+                         nodes_t, -1.0, rollback=True)
+    np.testing.assert_array_equal(nodes_t[0].numpy(), expect_nodes)
     for name in ("used", "match_count", "anti_active", "pref_wsum"):
         np.testing.assert_array_equal(
-            getattr(tb.state, name).numpy(), getattr(st, name), err_msg=name)
+            getattr(tb.state, name)[0].numpy(), getattr(st, name), err_msg=name)
 
 
 def test_gang_rollback_mask_rules():
@@ -267,3 +270,56 @@ def test_gang_rollback_mask_rules():
     nodes = torch.tensor([5, -1, 7, 8, -1, -1], dtype=torch.int32)
     mask = ref.gang_rollback_mask(pods, ids, nodes)
     assert mask.tolist() == [True, False, False, False, False, False]
+
+
+def _assert_slices(batched, singles, where, parts=("state", "scratch")):
+    for s, tb in enumerate(singles):
+        for part in parts:
+            for name in getattr(tb, part)._fields:
+                got = getattr(getattr(batched, part), name)[s : s + 1]
+                assert torch.equal(got, getattr(getattr(tb, part), name)), (where, s, name)
+
+
+def test_batched_twins_equal_single_scenario_twins():
+    """At S=3, slice s of each batched twin equals the same twin at S=1 on
+    scenario s's tables: masks, score rows and choices slot after slot,
+    the state after every bind, a bucketed release and a gang rollback."""
+    ep, batched, singles = scenario_tables()
+    P = ep.num_pods
+    ids = torch.arange(P, dtype=torch.int32)
+    ch_b = torch.full((3, P), PAD, dtype=torch.int32)
+    ch_s = [torch.full((1, P), PAD, dtype=torch.int32) for _ in singles]
+    for p in range(P):
+        ref.filter_score(batched, p)
+        ref.normalize_select(batched, p, ch_b, p)
+        for s, tb in enumerate(singles):
+            ref.filter_score(tb, p)
+            ref.normalize_select(tb, p, ch_s[s], p)
+            assert int(ch_s[s][0, p]) == int(ch_b[s, p]), (p, s)
+        _assert_slices(batched, singles, f"slot {p} scores", ("scratch",))
+        ref.apply_placements(batched, ids[p : p + 1], ids[p : p + 1], ch_b, 1.0)
+        for s, tb in enumerate(singles):
+            ref.apply_placements(tb, ids[p : p + 1], ids[p : p + 1], ch_s[s], 1.0)
+        _assert_slices(batched, singles, f"slot {p} bind")
+    # The scenarios differ, and some slots are unplaced.
+    assert not torch.equal(ch_b[0], ch_b[1]) and not torch.equal(ch_b[1], ch_b[2])
+    assert (ch_b < 0).any() and (ch_b >= 0).sum() > P
+    # A release bucket: every third pod, each scenario's own node (PAD skipped).
+    rel = ids[::3].contiguous()
+    ref.apply_placements(batched, rel, rel, ch_b, -1.0)
+    for s, tb in enumerate(singles):
+        ref.apply_placements(tb, rel, rel, ch_s[s], -1.0)
+    _assert_slices(batched, singles, "release")
+    # A gang rollback over a wave of gang members, one member unplaced in
+    # scenario 1 only.
+    gid = ep.group_id
+    g0 = int(gid[gid >= 0][0])
+    wave = torch.as_tensor(np.nonzero(gid == g0)[0].astype(np.int32))
+    ch_b[1, int(wave[-1])] = PAD
+    ch_s[1][0, int(wave[-1])] = PAD
+    ref.apply_placements(batched, wave, wave, ch_b, -1.0, rollback=True)
+    for s, tb in enumerate(singles):
+        ref.apply_placements(tb, wave, wave, ch_s[s], -1.0, rollback=True)
+        assert torch.equal(ch_s[s][0], ch_b[s]), s
+    _assert_slices(batched, singles, "rollback")
+    assert (ch_b[1, wave.long()] == PAD).all() and (ch_b[0, wave.long()] >= 0).all()
