@@ -34,7 +34,26 @@ From the root of a checkout, on a host with one CUDA card. In order:
    one profiled run for the device's busy share; then each kernel held
    against its twin at the headline shapes (S=128, N=2,000) and timed
    beside its twin, a PyTorch yardstick and its least possible time on
-   the card.
+   the card;
+9. tier preemption, reduced: a tier-preemption replay (config6 cut to 20
+   nodes x 1,040 pods) and a preemption x completions what-if (8
+   scenarios x 8 nodes x 400 pods) on the kernel path, the plain path on
+   the card and the plain path on the CPU: assignments and victims
+   identical;
+10. config6 (``examples/config6_preempt_defaults.yaml``, 500 nodes x
+   26,000 pods, tiers {0, 100, 1000}) as a tier-preemption replay, with
+   the counters zeroed just before and read just after: placed, victims
+   and the assignments' sha256 equal greedy_replay's pinned constants
+   (PREEMPT_PINS); median of 3 timed runs and a profiled run; then each
+   kernel held against its twin launch by launch in a window of the
+   replay where evictions fire (candidate rows, choices, eviction records,
+   victim marks and counters, state and tier planes), a release bucket,
+   and each kernel's preemption work timed there;
+11. the tier-preemption what-if: 128 ``uniform_scenarios(seed=0)`` over
+   config6 with durationMean 200 and gangs (0.02 x 4), chunkWaves 512,
+   completions on — scenario 0 equal to the pinned constants and to a
+   single-scenario replay, median of 3, busy share, the same kernel
+   checks at S=128 (with a gang rollback) and timings.
 
 Prints the kernel table as one JSON line, then, as its last line,
 ``{"ok": true, "device": {...}}``. Any failed check raises (exit code not
@@ -44,6 +63,7 @@ Prints the kernel table as one JSON line, then, as its last line,
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import json
 import os
 import subprocess
@@ -78,6 +98,23 @@ F32_OPS_PER_S = 67e12  # H100 SXM f32 rate outside the tensor cores
 SEED = 0
 HEADLINE = dict(scenarios=128, nodes=2000, pods=20_000, chunk_waves=512)
 
+#: Tier preemption (devicePreemption: true): priority tiers contending for
+#: an over-committed cluster (500 nodes, 26,000 pods, tiers {0, 100, 1000}).
+CONFIG6 = "examples/config6_preempt_defaults.yaml"
+#: The what-if shape: CONFIG6 with durations and gangs, 128 scenarios.
+PREEMPT_WHATIF = dict(scenarios=128, chunk_waves=512, duration_mean=200.0, gang_fraction=0.02,
+                      gang_size=4)
+#: greedy_replay(preemption=True) of the JAX package on CONFIG6 and on the
+#: what-if shape (completions_chunk_waves=512): placed pods, victims and the
+#: sha256 of the int32 assignments. tests/test_torch_preempt_pins.py
+#: recomputes them on the CPU.
+PREEMPT_PINS = {
+    "config6": dict(placed=17928, victims=5920,
+                    sha256="6ed8cc1ab5f14847fb9bc64a95d12f34995b8785444cd07ad7b16bd63b0af348"),
+    "whatif": dict(placed=25765, victims=180,
+                   sha256="f78d570f85ec5002d72885c6e4a4f9b5bba49b4359b84e6921f1578d368f1fb6"),
+}
+
 SOURCES = {
     "filter_score": ("kubernetes_simulator_tpu_torch/csrc/filter_score.cu",
                      "kubernetes_simulator_tpu/ops/tpu3.py:944"),
@@ -85,6 +122,15 @@ SOURCES = {
                          "kubernetes_simulator_tpu/ops/tpu.py:739"),
     "apply_placements": ("kubernetes_simulator_tpu_torch/csrc/apply_placements.cu",
                          "kubernetes_simulator_tpu/sim/jax_runtime.py:1414"),
+}
+#: The kernels' tier-preemption work, each with the kernel it runs in and
+#: the reference function it replaces.
+PREEMPT_SOURCES = {
+    "filter_score_tier": ("filter_score", "kubernetes_simulator_tpu/ops/tpu3.py:1510"),
+    "normalize_select_argmin": ("normalize_select", "kubernetes_simulator_tpu/ops/tpu.py:788"),
+    "apply_placements_evict": ("apply_placements", "kubernetes_simulator_tpu/ops/tpu3.py:1629"),
+    "apply_placements_tier_release": ("apply_placements",
+                                      "kubernetes_simulator_tpu/sim/whatif.py:2145"),
 }
 
 
@@ -184,6 +230,36 @@ class Work:
         k = self.k
         self.rows_on = int(k.on_fit) + int(k.on_taint) + int(k.on_na) + int(k.on_ip) + int(k.on_sp)
         self._k3_terms = {}
+        pre = tb.preempt
+        self.pod_tier = pre.tier_host.astype(np.int64) if pre is not None else None
+        self.Tt = pre.used_tier.shape[1] if pre is not None else 0
+
+    def k1_preempt(self, p):
+        """(bytes, ops) K1 adds under tier preemption for pod p: the tier
+        cells below its tier read, the candidate row written (0 for a pod
+        that may not preempt)."""
+        if self.pod_tier is None or self.ep.group_id[p] >= 0 or self.pod_tier[p] == 0:
+            return 0, 0
+        S, N, R, tp = self.S, self.N, self.R, int(self.pod_tier[p])
+        return S * N * (tp * (R + 1) * 4 + 4), S * N * (tp * (2 * R + 3) + R * 3 + 3)
+
+    def k2_fire(self, fired):
+        """(bytes, ops) K2 adds in the ``fired`` scenarios: the candidate
+        row read, the eviction record and stamp written."""
+        return fired * (self.N * 4 + 12), fired * self.N * 2
+
+    def k3_evict(self, cols, matches, victims, ev_tiers):
+        """(bytes, ops) of K3's eviction step: the ``cols`` choice-buffer
+        columns it reads in each evicting scenario (one per entry of
+        ``ev_tiers``), the pod, tier, gang id and release boundary of the
+        ``matches`` columns that hold the evicting node, a PAD per victim,
+        and per eviction the node's used row and its tier cells below the
+        preempting tier, read and written."""
+        R = self.R
+        nbytes = (len(ev_tiers) * cols * 4 + matches * 16 + victims * 4
+                  + sum(R * 8 + int(t) * (R + 1) * 8 for t in ev_tiers))
+        return nbytes, len(ev_tiers) * cols + matches * 4 + sum(int(t) * (R + 1)
+                                                                for t in ev_tiers)
 
     def k1(self, p):
         """(bytes, ops) of K1 for pod p over all S scenarios."""
@@ -259,6 +335,10 @@ class Work:
             pl, g = self._terms(u)
             if g.size:
                 parts.append((np.tile(pl, c), np.tile(g, c), np.repeat(order[a : a + c], g.size)))
+        if self.pod_tier is not None:  # tier cells of the non-gang pairs, distinct once
+            ng = ep.group_id[p] < 0
+            tcell = (s_i[ng] * self.Tt + self.pod_tier[p[ng]]) * N + n[ng]
+            nbytes += np.unique(tcell).size * (R + 1) * 8
         if not parts:
             return nbytes, s_i.size * R
         pl, g, j = (np.concatenate(x) for x in zip(*parts))
@@ -613,6 +693,439 @@ def check_whatif_result(ep, res, S):
         raise AssertionError("total_placed is not the sum over scenarios")
 
 
+# ---------------------------------------------------------------------------
+# Tier preemption (devicePreemption: true)
+# ---------------------------------------------------------------------------
+
+
+def config6_case(whatif=False, nodes=None, pods=None):
+    """(SimConfig, EncodedCluster, EncodedPods) of CONFIG6 as the port's
+    config parses it: 500 nodes, 26,000 pods, priority tiers {0, 100,
+    1000}, the full default plugin set. ``whatif`` adds the what-if shape's
+    durations and gangs (PREEMPT_WHATIF); ``nodes`` / ``pods`` cut it."""
+    import yaml
+
+    from kubernetes_simulator_tpu_torch.utils.config import SimConfig, build_encoded_case
+
+    with open(os.path.join(ROOT, CONFIG6)) as f:
+        d = yaml.safe_load(f)
+    syn = d["workload"]["synthetic"]
+    if whatif:
+        syn.update(durationMean=PREEMPT_WHATIF["duration_mean"],
+                   gangFraction=PREEMPT_WHATIF["gang_fraction"],
+                   gangSize=PREEMPT_WHATIF["gang_size"])
+    if nodes:
+        d["cluster"]["synthetic"]["nodes"] = nodes
+    if pods:
+        syn["pods"] = pods
+    cfg = SimConfig.from_dict(d)
+    return (cfg,) + tuple(build_encoded_case(cfg))
+
+
+def assignments_sha256(a):
+    return hashlib.sha256(np.ascontiguousarray(a, np.int32).tobytes()).hexdigest()
+
+
+def check_pins(where, pin, placed, victims, assignments):
+    got = dict(placed=int(placed), victims=int(victims), sha256=assignments_sha256(assignments))
+    if got != pin:
+        raise AssertionError(f"{where}: {got} != greedy_replay's pinned {pin}")
+
+
+def hold_preempt(where, eng, n_check, dev, results):
+    """Each kernel against its twin under tier preemption, launch after
+    launch, in a mid-replay window where evictions fire: a kernel-path run
+    of ``eng`` (counting victims every 16 waves) finds the 16-wave block
+    with the most victims; a second run stops at that block, the state is
+    copied into twin tables on the card, and from there K1 → K2 → K3 (and
+    each boundary release and gang rollback) run on both for ``n_check``
+    slots. After every launch the masks, score rows, candidate rows,
+    choices, eviction records and stamps, victim marks (the whole choice
+    buffer), victim counters, state planes and tier planes must be equal.
+    Then a release bucket of the placed pods (tier planes included) and,
+    where the trace has gangs, a gang rollback. Returns what the timings
+    reuse."""
+    from kubernetes_simulator_tpu_torch.sim.torch_runtime import new_choices, run_waves
+
+    plan, S, bound_node = eng.plan, eng.S, eng.pods.bound_node
+    nw = plan.idx.shape[0]
+    tb = eng._tables()
+    ch = new_choices(plan, S, bound_node, dev)
+    seen = []
+    for w0 in range(0, nw, 16):
+        run_waves(plan, tb, ch, w0, min(w0 + 16, nw), plain=False)
+        seen.append(int(tb.preempt.victims.sum()))
+    gain = np.diff([0] + seen)
+    if gain.max() <= 0:
+        raise AssertionError(f"{where}: no eviction fired in the run")
+    w_start = int(np.argmax(gain)) * 16
+    tb_k = eng._tables()
+    ch_k = new_choices(plan, S, bound_node, dev)
+    run_waves(plan, tb_k, ch_k, 0, w_start, plain=False)
+    torch.cuda.synchronize()
+    clone = lambda nt: type(nt)(*(x.clone() if torch.is_tensor(x) else x for x in nt))
+    tb_t = tb_k._replace(state=clone(tb_k.state), scratch=clone(tb_k.scratch),
+                         preempt=clone(tb_k.preempt))
+    ch_t = ch_k.clone()
+    b = K.Bound(tb_k)
+    pk, pt = tb_k.preempt, tb_t.preempt
+
+    def same(at, parts=("state", "preempt", "choices")):
+        if "scratch" in parts:
+            for name in ("feasible", "ignored", "scores"):
+                if not torch.equal(getattr(tb_k.scratch, name), getattr(tb_t.scratch, name)):
+                    raise AssertionError(f"{where}, {at}: scratch {name} differs")
+        if "state" in parts:
+            for name in ref.DevState._fields:
+                x, y = getattr(tb_k.state, name), getattr(tb_t.state, name)
+                if not torch.equal(x, y):
+                    raise AssertionError(f"{where}, {at}: state {name} differs "
+                                         f"(max |d| {float((x - y).abs().max())})")
+        if "preempt" in parts:
+            for name in ("used_tier", "npods_tier", "cand", "last_wave", "ev_node", "ev_tier",
+                         "victims"):
+                if not torch.equal(getattr(pk, name), getattr(pt, name)):
+                    raise AssertionError(f"{where}, {at}: preempt.{name} differs")
+        if "choices" in parts and not torch.equal(ch_k, ch_t):
+            bad = torch.nonzero(ch_k != ch_t)[:5].tolist()
+            raise AssertionError(f"{where}, {at}: choice buffers differ at {bad}")
+
+    same("the window's start")
+    idx_dev = torch.as_tensor(plan.idx.reshape(-1), device=dev)
+    pos_dev = torch.arange(plan.L, dtype=torch.int32, device=dev)
+    W, C = plan.idx.shape[1], plan.C
+    slots, evictions, fire_slot, v0 = 0, 0, None, int(pk.victims.sum())
+    releases = rollbacks = cand_rows = 0
+    w = w_start
+    while slots < n_check and w < nw:
+        bnd = w // C
+        if w % C == 0 and plan.buckets[bnd] is not None:
+            bp, bpos = (torch.as_tensor(x, device=dev) for x in plan.buckets[bnd])
+            K.apply_placements(b, bp, bpos, ch_k, -1.0)
+            ref.apply_placements(tb_t, bp, bpos, ch_t, -1.0)
+            same(f"release at boundary {bnd}")
+            releases += 1
+        for k, p in enumerate(plan.idx[w].tolist()):
+            if p < 0:
+                continue
+            s = w * W + k
+            K.filter_score(b, p)
+            ref.filter_score(tb_t, p)
+            same(f"K1 of pod {p}", ("scratch", "preempt"))
+            cand_rows += int(pk.eligible[p])
+            K.normalize_select(b, p, ch_k, s, w)
+            ref.normalize_select(tb_t, p, ch_t, s, w)
+            same(f"K2 of pod {p}", ("preempt", "choices"))
+            fired = int((pk.ev_node >= 0).sum())
+            if fired:
+                evictions += fired
+                if fire_slot is None or fired > fire_slot["fired"]:
+                    # The slot the timings replay: its tables before K3.
+                    fire_slot = dict(p=p, s=s, boundary=bnd, fired=fired, ch=ch_k.clone(),
+                                     tables=tb_k._replace(state=clone(tb_k.state),
+                                                          scratch=clone(tb_k.scratch),
+                                                          preempt=clone(pk)))
+            K.apply_placements(b, idx_dev[s : s + 1], pos_dev[s : s + 1], ch_k, 1.0,
+                               boundary=bnd)
+            ref.apply_placements(tb_t, idx_dev[s : s + 1], pos_dev[s : s + 1], ch_t, 1.0,
+                                 boundary=bnd)
+            same(f"K3 bind of pod {p}")
+            slots += 1
+        if plan.gang_wave[w]:
+            K.apply_placements(b, idx_dev[w * W : (w + 1) * W], pos_dev[w * W : (w + 1) * W],
+                               ch_k, -1.0, rollback=True)
+            ref.apply_placements(tb_t, idx_dev[w * W : (w + 1) * W],
+                                 pos_dev[w * W : (w + 1) * W], ch_t, -1.0, rollback=True)
+            same(f"rollback of wave {w}")
+            rollbacks += 1
+        w += 1
+    victims = int(pk.victims.sum()) - v0
+    if evictions == 0 or victims == 0:
+        raise AssertionError(f"{where}: the window fired no eviction")
+    # A release bucket of placed pods in pod order (their tier cells drop).
+    end = w * W
+    cols = np.arange(end)
+    host_ch = ch_k.cpu().numpy()
+    col_pod = plan.col_pod
+    cols = cols[(col_pod[cols] >= 0) & (host_ch[:, cols] >= 0).any(axis=0)]
+    cols = cols[np.argsort(col_pod[cols], kind="stable")][:4000]
+    rel_p = torch.as_tensor(col_pod[cols], device=dev)
+    rel_pos = torch.as_tensor(cols.astype(np.int32), device=dev)
+    K.apply_placements(b, rel_p, rel_pos, ch_k, -1.0)
+    ref.apply_placements(tb_t, rel_p, rel_pos, ch_t, -1.0)
+    same(f"a {cols.size}-pod release")
+    # A gang rollback: a gang's last member unplaced in the odd scenarios.
+    gid = eng.pods.group_id
+    rolled = None
+    if (gid >= 0).any():
+        g0 = np.nonzero(gid == gid[gid >= 0][0])[0]
+        wcols = np.nonzero(np.isin(col_pod[: plan.idx.size],
+                                   np.append(g0, np.nonzero(gid < 0)[0][:1])))[0]
+        wave = col_pod[wcols]
+        odd = torch.as_tensor(np.nonzero((np.arange(S) % 2 == 1) | (S == 1))[0], device=dev)
+        last = int(wcols[wave == g0[-1]][0])
+        before = (host_ch[:, wcols] >= 0).sum()
+        for c in (ch_k, ch_t):
+            c[odd, last] = PAD
+        wp = torch.as_tensor(wave, device=dev)
+        wpos = torch.as_tensor(wcols.astype(np.int32), device=dev)
+        K.apply_placements(b, wp, wpos, ch_k, -1.0, rollback=True)
+        ref.apply_placements(tb_t, wp, wpos, ch_t, -1.0, rollback=True)
+        same("a gang rollback")
+        rolled = int(before - (ch_k[:, wcols] >= 0).sum().item())
+    out = dict(window_waves=[w_start, w], slots=slots, eviction_events=evictions,
+               victims=victims, cand_rows=cand_rows, releases_in_window=releases,
+               rollbacks_in_window=rollbacks, release_pods=int(cols.size),
+               rollback_pads=rolled)
+    results[where] = out
+    print(f"{where}: waves {w_start}..{w}, {slots} slots x {S} scenarios, {evictions} eviction "
+          f"events, {victims} victims, {cand_rows} candidate rows, {releases} boundary releases, "
+          f"{rollbacks} gang-wave rollbacks, a {cols.size}-pod release"
+          f"{'' if rolled is None else ' and a gang rollback'}; kernels equal their twins "
+          f"exactly", flush=True)
+    return dict(b=b, tb_k=tb_k, tb_t=tb_t, ch_k=ch_k, ch_t=ch_t, fire=fire_slot,
+                rel=(rel_p, rel_pos, col_pod[cols]))
+
+
+def time_preempt(eng, held, dev, iters=200, plain_iters=20):
+    """Device time per launch (torch.profiler) of each kernel's preemption
+    work, beside its twin, a PyTorch yardstick and its least time, at the
+    window slot where the most scenarios preempted (its tables before K3):
+    K1 for that pod (with its candidate row), K2 where the masked argmin
+    fires (a new wave stamp every call), K3's bind with the eviction step
+    (the victims leave on the first call), and K3's release of the held
+    bucket with the tier planes. Runs on copies of the held tables."""
+    f = held["fire"]
+    p, s, bnd = f["p"], f["s"], f["boundary"]
+    clone = lambda nt: type(nt)(*(x.clone() if torch.is_tensor(x) else x for x in nt))
+    snap = f["tables"]
+    tk = snap._replace(state=clone(snap.state), scratch=clone(snap.scratch),
+                       preempt=clone(snap.preempt))
+    tt = snap._replace(state=clone(snap.state), scratch=clone(snap.scratch),
+                       preempt=clone(snap.preempt))
+    b = K.Bound(tk)
+    ch_k, ch_t = f["ch"].clone(), f["ch"].clone()
+    pk = tk.preempt
+    S = tk.state.used.shape[0]
+    work = Work(eng.pods, tk)
+    dms = lambda fn, it, match=None: device_ms(fn, it, match) or time_cuda(fn, it)
+    t_k1 = dms(lambda i: K.filter_score(b, p), iters, "ksim_filter_score")
+    t_k1_plain = time_cuda(lambda i: ref.filter_score(tt, p), plain_iters)
+    k1b, k1o = work.k1(p)
+    k1pb, k1po = work.k1_preempt(p)
+    K.normalize_select(b, p, ch_k, s, 10_000_000)
+    fire_n = int((pk.ev_node >= 0).sum())
+    if fire_n != f["fired"]:
+        raise AssertionError(f"K2 fired in {fire_n} scenarios on replay, {f['fired']} in the run")
+    t_k2 = dms(lambda i: K.normalize_select(b, p, ch_k, s, 10_000_001 + i), iters,
+                     "ksim_normalize_select")
+    t_k2_plain = time_cuda(lambda i: ref.normalize_select(tt, p, ch_t, s, 10_000_001 + i),
+                           plain_iters)
+    masked = torch.where(pk.cand < float("inf"), pk.cand, torch.full_like(pk.cand, float("inf")))
+    t_argmin = dms(lambda i: torch.argmin(masked, dim=1), iters)
+    k2b, k2o = work.k2()
+    k2fb, k2fo = work.k2_fire(fire_n)
+    # The record of one more K2 call is the one every K3 call below reads.
+    K.normalize_select(b, p, ch_k, s, 20_000_000)
+    ref.normalize_select(tt, p, ch_t, s, 20_000_000)
+    ev_t = pk.ev_tier[pk.ev_node >= 0].tolist()
+    cols = s + (ch_k.shape[1] - pk.n_slots)
+    scanned = torch.cat([ch_k[:, :s], ch_k[:, pk.n_slots:]], dim=1)
+    matches = int(((scanned == pk.ev_node[:, None]) & (pk.ev_node[:, None] >= 0)).sum())
+    one_p = torch.as_tensor([p], dtype=torch.int32, device=dev)
+    one_pos = torch.as_tensor([s], dtype=torch.int32, device=dev)
+    vic0 = int(pk.victims.sum())
+    K.apply_placements(b, one_p, one_pos, ch_k, 1.0, boundary=bnd)
+    vic = int(pk.victims.sum()) - vic0
+    k3b, k3o = work.k3([p], ch_k[:, s].cpu().numpy())
+    k3eb, k3eo = work.k3_evict(cols, matches, vic, ev_t)
+    t_k3 = dms(lambda i: K.apply_placements(b, one_p, one_pos, ch_k, 1.0, boundary=bnd),
+                     iters, "ksim_apply")
+    t_k3_plain = time_cuda(lambda i: ref.apply_placements(tt, one_p, one_pos, ch_t, 1.0,
+                                                          boundary=bnd), plain_iters)
+    rel_p, rel_pos, rel_pods = held["rel"]
+    rel_ch = held["ch_k"].clone()
+    rb, ro = work.k3(rel_pods, rel_ch[:, rel_pos.long()].cpu().numpy())
+    t_rel = dms(lambda i: K.apply_placements(b, rel_p, rel_pos, rel_ch,
+                                                   1.0 - 2.0 * (i % 2)), 10, "ksim_apply")
+    t_rel_plain = time_cuda(lambda i: ref.apply_placements(tt, rel_p, rel_pos, rel_ch,
+                                                           1.0 - 2.0 * (i % 2)), 10)
+    out = {
+        "filter_score_tier": dict(ms=t_k1, plain_ms=t_k1_plain, bytes=float(k1b + k1pb),
+                                  ops=float(k1o + k1po), library_ms=None),
+        "normalize_select_argmin": dict(ms=t_k2, plain_ms=t_k2_plain, bytes=float(k2b + k2fb),
+                                        ops=float(k2o + k2fo), library_ms=t_argmin,
+                                        scenarios_firing=fire_n),
+        "apply_placements_evict": dict(ms=t_k3, plain_ms=t_k3_plain, bytes=float(k3b + k3eb),
+                                       ops=float(k3o + k3eo), library_ms=None,
+                                       scenarios_evicting=len(ev_t), victims=vic,
+                                       columns_scanned=cols, columns_matching=matches),
+        "apply_placements_tier_release": dict(ms=t_rel, plain_ms=t_rel_plain, bytes=float(rb),
+                                              ops=float(ro), library_ms=None,
+                                              pairs=int(rel_p.numel())),
+    }
+    for m in out.values():
+        m["bound_ms"], m["bound_by"] = bound(m["bytes"], m["ops"])
+        m["scenarios"] = S
+    return out
+
+
+def check_reduced_preempt(results, dev="cuda"):
+    """A reduced tier-preemption replay (CONFIG6 cut to 20 nodes x 1,040
+    pods) and a reduced preemption x completions what-if (8 scenarios x 8
+    nodes x 400 pods, durationMean 20: evictions fire and completions move
+    placements), each on the kernel path, the plain path on the card and
+    the plain path on the CPU: assignments and preemptions identical."""
+    cfg, ec, ep = config6_case(nodes=20, pods=1040)
+    kw = dict(wave_width=8, chunk_waves=cfg.chunk_waves, preemption=True)
+    t0 = time.perf_counter()
+    kern = TorchReplayEngine(ec, ep, cfg.framework, device=dev, **kw).replay()
+    t1 = time.perf_counter()
+    plain = TorchReplayEngine(ec, ep, cfg.framework, device=dev, plain=True, **kw).replay()
+    t2 = time.perf_counter()
+    cpu = TorchReplayEngine(ec, ep, cfg.framework, device="cpu", **kw).replay()
+    t3 = time.perf_counter()
+    for name, other in (("plain on the card", plain), ("plain on the cpu", cpu)):
+        diff = np.nonzero(kern.assignments != other.assignments)[0]
+        if diff.size or kern.preemptions != other.preemptions:
+            raise AssertionError(f"reduced preemption replay: kernel path != {name} at pods "
+                                 f"{diff[:5]} ({kern.preemptions} vs {other.preemptions} victims)")
+    if kern.preemptions <= 0:
+        raise AssertionError("reduced preemption replay fired no eviction")
+    results["reduced_preempt_replay"] = dict(
+        nodes=20, pods=1040, placed=kern.placed, victims=kern.preemptions,
+        kernel_s=t1 - t0, plain_card_s=t2 - t1, plain_cpu_s=t3 - t2)
+    cluster = make_cluster(8, seed=2, taint_fraction=0.2)
+    workload, _ = make_workload(400, seed=2, with_spread=True, with_tolerations=True,
+                                duration_mean=20.0, arrival_rate=12.0)
+    ec2, ep2 = encode(cluster, workload)
+    scen = uniform_scenarios(ec2, 8, seed=1, p_node_down=0.5, p_capacity=0.5, p_taint=0.5)
+    wkw = dict(wave_width=8, chunk_waves=4, collect_assignments=True, preemption=True)
+    mk = lambda **o: WhatIfEngine(ec2, ep2, scen, FrameworkConfig(), **{**wkw, **o})
+    t0 = time.perf_counter()
+    wk = mk(device=dev).run()
+    t1 = time.perf_counter()
+    wp = mk(device=dev, plain=True).run()
+    t2 = time.perf_counter()
+    wc = mk(device="cpu").run()
+    t3 = time.perf_counter()
+    for name, other in (("plain on the card", wp), ("plain on the cpu", wc)):
+        bad = np.argwhere(wk.assignments != other.assignments)
+        if bad.size or not np.array_equal(wk.preemptions, other.preemptions):
+            raise AssertionError(f"reduced preemption what-if: kernel path != {name} at "
+                                 f"(scenario, pod) {bad[:5].tolist()}")
+    off = mk(device=dev, completions=False).run()
+    moved = int((off.assignments != wk.assignments).sum())
+    if (wk.preemptions <= 0).all() or moved == 0:
+        raise AssertionError("reduced preemption what-if is vacuous")
+    results["reduced_preempt_whatif"] = dict(
+        scenarios=8, nodes=8, pods=400, placed=wk.placed.tolist(),
+        victims=wk.preemptions.tolist(), moved_by_completions=moved,
+        kernel_s=t1 - t0, plain_card_s=t2 - t1, plain_cpu_s=t3 - t2)
+    print(f"reduced tier preemption: replay (20 nodes x 1040 pods) placed {kern.placed}, "
+          f"{kern.preemptions} victims; what-if (8 x 8 nodes x 400 pods) victims "
+          f"{wk.preemptions.tolist()}, completions move {moved}; identical on the kernel path, "
+          f"the plain path on the card and on the CPU", flush=True)
+
+
+def run_preempt_paths(results, dev):
+    """The tier-preemption paths at full width: CONFIG6 as a single replay
+    and the what-if shape (128 ``uniform_scenarios(seed=0)``), each with
+    the launch counters zeroed just before its warm-up run and read just
+    after, the result held against greedy_replay's pinned constants, then
+    a median of 3 timed runs and one profiled run; then each kernel held
+    against its twin in an eviction window of each shape and timed there.
+    Returns the kernel-table rows' numbers."""
+    cfg, ec, ep = config6_case()
+    eng = TorchReplayEngine(ec, ep, cfg.framework, wave_width=cfg.wave_width,
+                            chunk_waves=cfg.chunk_waves, preemption=True)
+    K.reset_launch_counts()
+    warm = eng.replay()
+    launches = K.launch_counts()
+    for k, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"kernel {k} was not launched by the config6 replay")
+    check_result(ec, ep, warm)
+    check_pins("config6 replay", PREEMPT_PINS["config6"], warm.placed, warm.preemptions,
+               warm.assignments)
+    runs = [eng.replay() for _ in range(3)]
+    for r in runs:
+        if not np.array_equal(r.assignments, warm.assignments):
+            raise AssertionError("the config6 replay placed differently from run to run")
+    walls = sorted(r.wall_clock_s for r in runs)
+    wall = float(np.median(walls))
+    res_p, busy_s = profiled_busy_s(eng.replay)
+    results["config6"] = dict(
+        nodes=ec.num_nodes, pods=ep.num_pods, chunk_waves=eng.plan.C, launches=launches,
+        placed=warm.placed, victims=warm.preemptions, walls_s=walls, wall_s=wall,
+        placements_per_s=warm.placed / wall, profiled_wall_s=res_p.wall_clock_s,
+        device_busy_s=busy_s, device_busy_share=busy_s / res_p.wall_clock_s if busy_s else None)
+    print(f"config6 tier-preemption replay ({ec.num_nodes} nodes x {ep.num_pods} pods): median "
+          f"wall {wall:.3f}s of {[round(x, 3) for x in walls]}, {warm.placed / wall:.1f} "
+          f"placements/s, placed {warm.placed}, {warm.preemptions} victims (== greedy_replay's "
+          f"pins); launches {json.dumps(launches)}; profiled: wall {res_p.wall_clock_s:.3f}s, "
+          f"device busy {busy_s:.3f}s ({busy_s / res_p.wall_clock_s:.1%})", flush=True)
+    held1 = hold_preempt("S=1 preemption kernel checks (config6)", eng, 300, dev, results)
+    results["kernels_preempt_s1"] = time_preempt(eng, held1, dev)
+    del eng, warm, runs, res_p, held1
+
+    pw = PREEMPT_WHATIF
+    cfg, ec, ep = config6_case(whatif=True)
+    scen = uniform_scenarios(ec, pw["scenarios"], seed=0)
+    t0 = time.perf_counter()
+    eng = WhatIfEngine(ec, ep, scen, cfg.framework, wave_width=cfg.wave_width,
+                       chunk_waves=pw["chunk_waves"], collect_assignments=True, preemption=True)
+    setup_s = time.perf_counter() - t0
+    K.reset_launch_counts()
+    warm = eng.run()
+    launches = K.launch_counts()
+    for k, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"kernel {k} was not launched by the preemption what-if")
+    check_whatif_result(ep, warm, pw["scenarios"])
+    check_pins("what-if scenario 0", PREEMPT_PINS["whatif"], warm.placed[0],
+               warm.preemptions[0], warm.assignments[0])
+    single = TorchReplayEngine(ec, ep, cfg.framework, wave_width=cfg.wave_width,
+                               chunk_waves=pw["chunk_waves"], preemption=True).replay()
+    if (not np.array_equal(single.assignments, warm.assignments[0])
+            or single.preemptions != int(warm.preemptions[0])):
+        raise AssertionError("what-if scenario 0 differs from the single-scenario replay")
+    runs = [eng.run() for _ in range(3)]
+    for r in runs:
+        if not np.array_equal(r.assignments, warm.assignments):
+            raise AssertionError("the preemption what-if placed differently from run to run")
+    walls = sorted(r.wall_clock_s for r in runs)
+    wall = float(np.median(walls))
+    res_p, busy_s = profiled_busy_s(eng.run)
+    results["preempt_whatif"] = dict(
+        **pw, nodes=ec.num_nodes, pods=ep.num_pods, setup_s=setup_s,
+        chunk_waves_run=eng.plan.C, completions_on=warm.completions_on, launches=launches,
+        launches_detail=dict(release=sum(bk is not None for bk in eng.plan.buckets),
+                             rollback=int(eng.plan.gang_wave.sum())),
+        walls_s=walls, wall_s=wall, placements_per_s=warm.total_placed / wall,
+        total_placed=warm.total_placed, victims_total=int(warm.preemptions.sum()),
+        victims_min=int(warm.preemptions.min()), victims_max=int(warm.preemptions.max()),
+        scenario0_placed=int(warm.placed[0]), scenario0_victims=int(warm.preemptions[0]),
+        single_replay_wall_s=single.wall_clock_s, profiled_wall_s=res_p.wall_clock_s,
+        device_busy_s=busy_s, device_busy_share=busy_s / res_p.wall_clock_s if busy_s else None)
+    print(f"tier-preemption what-if ({pw['scenarios']} scenarios x {ec.num_nodes} nodes x "
+          f"{ep.num_pods} pods, durationMean {pw['duration_mean']}, gangs, chunkWaves "
+          f"{pw['chunk_waves']}): median wall {wall:.3f}s of {[round(x, 3) for x in walls]}, "
+          f"{warm.total_placed / wall:.1f} aggregate placements/s, victims "
+          f"{int(warm.preemptions.min())}..{int(warm.preemptions.max())} per scenario; "
+          f"scenario 0 == greedy_replay's pins == the single replay ({single.wall_clock_s:.3f}s); "
+          f"launches {json.dumps(launches)}; profiled: wall {res_p.wall_clock_s:.3f}s, device "
+          f"busy {busy_s:.3f}s ({busy_s / res_p.wall_clock_s:.1%})", flush=True)
+    held = hold_preempt(f"S={pw['scenarios']} preemption kernel checks (what-if shape)", eng,
+                        300, dev, results)
+    kernels = time_preempt(eng, held, dev)
+    results["kernels_preempt"] = kernels
+    print(f"preemption kernels at S={pw['scenarios']}, N={ec.num_nodes}: "
+          + "; ".join(f"{k} {m['ms'] * 1e3:.2f} us (bound {m['bound_ms'] * 1e3:.4f} us, twin "
+                      f"{m['plain_ms']:.3f} ms)" for k, m in kernels.items()), flush=True)
+    return kernels, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this script needs a CUDA "
@@ -743,6 +1256,11 @@ def main() -> int:
           f"{json.dumps(results['chunk_loop_bound_ms_headline'])} ms; release of "
           f"{release['pairs']} pods x {release['scenarios']} scenarios: {release['ms']:.4f} ms, "
           f"bound {release['bound_ms']:.6f} ms", flush=True)
+    del eng, warm, runs, res_p, single, tb_t, tb_k, held
+
+    # Steps 9-11: tier preemption.
+    check_reduced_preempt(results)
+    pkernels, plaunches = run_preempt_paths(results, dev)
     results["wall_s_total"] = time.perf_counter() - t_start
 
     table = []
@@ -751,6 +1269,14 @@ def main() -> int:
         table.append({
             "name": k, "route": "cuda", "source": src, "replaces": replaces,
             "launches": launches[k], "max_abs_err": m["max_abs_err"], "ms": m["ms"],
+            "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
+            "library_ms": m["library_ms"],
+        })
+    for k, m in pkernels.items():
+        kernel, replaces = PREEMPT_SOURCES[k]
+        table.append({
+            "name": k, "route": "cuda", "source": SOURCES[kernel][0], "replaces": replaces,
+            "launches": plaunches[kernel], "max_abs_err": 0.0, "ms": m["ms"],
             "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
             "library_ms": m["library_ms"],
         })

@@ -33,7 +33,7 @@ def cmd_run(args) -> int:
     engine = get_strategy("torch")(
         ec, ep, cfg.framework,
         wave_width=cfg.wave_width, chunk_waves=cfg.chunk_waves,
-        telemetry=cfg.telemetry, device=args.device,
+        telemetry=cfg.telemetry, device=args.device, preemption=cfg.device_preemption,
     )
     context = {
         "seed": int(cfg.workload.seed), "engine": "torch", "config_hash": config_hash(raw),
@@ -67,6 +67,7 @@ def cmd_whatif(args) -> int:
     eng = WhatIfEngine(
         ec, ep, scen, cfg.framework, wave_width=cfg.wave_width, chunk_waves=cfg.chunk_waves,
         completions=cfg.whatif.completions, telemetry=cfg.telemetry, device=args.device,
+        preemption=cfg.device_preemption,
     )
     context = {
         "seed": int(cfg.workload.seed), "engine": "torch", "config_hash": config_hash(raw),

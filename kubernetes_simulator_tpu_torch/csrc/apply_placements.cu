@@ -26,6 +26,13 @@
 // Pairs with a pod or node of -1 are skipped, so padded slots and PAD
 // domains never touch column 0 of a plane.
 //
+// Tier preemption (ops/tpu3.py:1629-1730, 1796; sim/whatif.py:2145
+// _tier_rel_fn / :2161 _npods_rel_fn): every pair of a non-gang pod also
+// moves its tier's cells used_tier[tier, n, :] and npods_tier[tier, n] (a
+// bind adds, a release subtracts; a rollback only undoes gang pods, which
+// the tier planes never hold), and a bind given a boundary >= 0 first
+// applies the slot's eviction record (k3_evict).
+//
 // No float atomics: within a scenario's block every state cell belongs to
 // one thread for the whole launch (thread 0 the anti/pref terms, whose
 // group ids may repeat within a pod; the others a used column or a
@@ -40,9 +47,59 @@
 
 #define K3_THREADS 256
 
+// The eviction step of a bind under tier preemption (sim/greedy.py:182-215;
+// the victim walk of sim/jax_runtime.py:788 preemption_walk, done here on
+// the device): scenario scen's record (ev_node, ev_tier) from K2 names the
+// node. Every column of the choice buffer before the slot or in the
+// pre-bound tail whose pod is non-gang, of a lower tier, bound at that node
+// and not released at `boundary` gets PAD and is counted; used[node] drops
+// by the lower tiers' usage summed from tier 0 up (the sum K1's fit after
+// eviction used) and those tier cells are zeroed. The count planes keep
+// the victims (phantom counts), and a victim's PAD keeps it out of every
+// later release.
+__device__ void k3_evict(const KsimArgs& a, int64_t scen, int32_t* ch, int slot, int L,
+                         int boundary, float* used) {
+  __shared__ int red[K3_THREADS / 32];
+  const int ev = a.ev_node[scen];
+  if (ev < 0) return;  // uniform over the block
+  const int evt = a.ev_tier[scen];
+  const int N = a.N, R = a.R;
+  const int tail = L - a.n_slots;
+  int cnt = 0;
+  for (int i = threadIdx.x; i < slot + tail; i += blockDim.x) {
+    const int c = i < slot ? i : a.n_slots + (i - slot);
+    if (ch[c] != ev) continue;  // most columns: another node or PAD
+    const int p = a.col_pod[c];
+    if (p < 0 || a.group_id[p] >= 0 || a.pod_tier[p] >= evt || a.col_relb[c] <= boundary)
+      continue;
+    ch[c] = KSIM_PAD;
+    ++cnt;
+  }
+  for (int o = 16; o > 0; o >>= 1) cnt += __shfl_down_sync(0xffffffffu, cnt, o);
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = cnt;
+  float* ut = a.used_tier + scen * (int64_t)a.Tt * N * R;
+  float* nt = a.npods_tier + scen * (int64_t)a.Tt * N;
+  for (int r = threadIdx.x; r < R; r += blockDim.x) {
+    float lower = 0.f;
+    for (int t = 0; t < evt; ++t) {
+      float* cell = ut + ((size_t)t * N + ev) * R + r;
+      lower = lower + *cell;
+      *cell = 0.f;
+    }
+    used[(size_t)ev * R + r] = used[(size_t)ev * R + r] - lower;
+  }
+  for (int t = threadIdx.x; t < evt; t += blockDim.x) nt[(size_t)t * N + ev] = 0.f;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int total = 0;
+    for (int w = 0; w < (int)(blockDim.x >> 5); ++w) total += red[w];
+    a.victims[scen] += total;
+  }
+}
+
 __global__ void __launch_bounds__(K3_THREADS)
     ksim_apply_kernel(KsimArgs a, const int32_t* pods, const int32_t* pos, int32_t* choices,
-                      int K, int64_t choice_ss, float sign, int rollback) {
+                      int K, int64_t choice_ss, float sign, int rollback, int boundary) {
   __shared__ uint8_t active[KSIM_MAX_WAVE];
   const int N = a.N, R = a.R, G = a.G, D = a.D;
   const int64_t scen = blockIdx.x;
@@ -51,6 +108,15 @@ __global__ void __launch_bounds__(K3_THREADS)
   float* match_count = a.match_count + scen * a.plane_ss;
   float* anti_active = a.anti_active + scen * a.plane_ss;
   float* pref_wsum = a.pref_wsum + scen * a.plane_ss;
+  if (boundary >= 0 && a.preempt) {
+    k3_evict(a, scen, ch, pos[0], (int)choice_ss, boundary, used);
+    __syncthreads();
+  }
+  // Tier-plane columns of a pair (non-gang pods under tier preemption):
+  // used_tier[tier, n, 0..R) then npods_tier[tier, n].
+  const int TC = a.preempt ? R + 1 : 0;
+  float* used_tier = a.used_tier + scen * (int64_t)a.Tt * N * R;
+  float* npods_tier = a.npods_tier + scen * (int64_t)a.Tt * N;
   if (rollback) {
     for (int k = threadIdx.x; k < K; k += blockDim.x) {
       int p = pods[k], n = ch[pos[k]];
@@ -88,14 +154,22 @@ __global__ void __launch_bounds__(K3_THREADS)
         if (dom >= 0) pref_wsum[g * D + dom] += sign * a.pref_aff_w[p * a.PA + t];
       }
     } else {
-      for (int c = tid - 1; c < R + G; c += blockDim.x - 1) {
+      const bool tiered = TC && a.group_id[p] < 0;
+      for (int c = tid - 1; c < R + G + TC; c += blockDim.x - 1) {
         if (c < R) {
           used[(size_t)n * R + c] += sign * a.requests[(size_t)p * R + c];
-        } else {
+        } else if (c < R + G) {
           int g = c - R;
           if (!a.pmg[(size_t)p * G + g]) continue;
           int dom = a.gdom[g * N + n];
           if (dom >= 0) match_count[g * D + dom] += sign;
+        } else if (tiered) {
+          const int r = c - R - G;
+          const size_t cell = (size_t)a.pod_tier[p] * N + n;
+          if (r < R)
+            used_tier[cell * R + r] += sign * a.requests[(size_t)p * R + r];
+          else
+            npods_tier[cell] += sign;
         }
       }
     }
@@ -110,11 +184,12 @@ __global__ void __launch_bounds__(K3_THREADS)
 KSIM_EXPORT int ksim_apply_placements(const KsimArgs* args, const int32_t* pods,
                                       const int32_t* pos, int32_t* choices, int K,
                                       long long choice_ss, float sign, int rollback,
-                                      void* stream) {
+                                      int boundary, void* stream) {
   if (K <= 0) return 0;
   if (args->S < 1) return (int)cudaErrorInvalidValue;
   if (rollback && K > KSIM_MAX_WAVE) return (int)cudaErrorInvalidValue;
+  if (boundary >= 0 && (K != 1 || rollback)) return (int)cudaErrorInvalidValue;
   ksim_apply_kernel<<<args->S, K3_THREADS, 0, (cudaStream_t)stream>>>(
-      *args, pods, pos, choices, K, (int64_t)choice_ss, sign, rollback);
+      *args, pods, pos, choices, K, (int64_t)choice_ss, sign, rollback, boundary);
   return (int)cudaGetLastError();
 }

@@ -27,6 +27,10 @@
 // N=5000 that is ~0.4 MB (~0.1 µs at 3.35 TB/s, launch-bound); at S=128,
 // N=2000 the grid of 1,024 blocks fills the card (see PERF.md).
 //
+// Under tier preemption (ops/tpu3.py:1062-1088, 1510-1560) a pod that may
+// preempt also gets its candidate row (sim/tiers.py), read by K2 when no
+// node is feasible.
+//
 // Exactness: compiled with --fmad=false and IEEE division; every
 // expression keeps the reference's operation order.
 #include "ksim.cuh"
@@ -86,7 +90,8 @@ __global__ void __launch_bounds__(256) ksim_filter_score_kernel(KsimArgs a, int 
   const int n = blockIdx.x * blockDim.x + threadIdx.x;
   if (n >= N) return;
 
-  bool ok = true;
+  bool ok = true;      // every filter but the resource fit
+  bool fit_ok = true;  // NodeResourcesFit
   const float* req = a.requests + (size_t)p * R;
   const float* used = a.used + scen * a.used_ss + (size_t)n * R;
   const float* alloc = a.alloc + scen * a.alloc_ss + (size_t)n * R;
@@ -100,7 +105,7 @@ __global__ void __launch_bounds__(256) ksim_filter_score_kernel(KsimArgs a, int 
     float acc = 0.f;
     for (int r = 0; r < R; ++r) {
       float u = used[r], q = req[r], al = alloc[r];
-      if (!(u + q <= al + 1e-6f)) ok = false;
+      if (!(u + q <= al + 1e-6f)) fit_ok = false;
       float w = a.res_w[r];
       if (w == 0.f) continue;
       float frac;
@@ -240,7 +245,32 @@ __global__ void __launch_bounds__(256) ksim_filter_score_kernel(KsimArgs a, int 
     sp_raw = floorf(sp_raw + 0.5f);
   }
 
-  a.feasible[scen * a.feas_ss + n] = ok ? 1 : 0;
+  // --- Tier preemption: the candidate row (sim/greedy.py _try_tier_preempt) --
+  // Evicting every non-gang pod of a lower tier bound at n must make the pod
+  // fit ((used - lower) + req <= alloc + 1e-6, lower summed from tier 0 up),
+  // the other filters pass at their current values and a victim exist; the
+  // rank is victims·1024 + the highest victim tier, +inf for no candidate.
+  if (ksim_may_preempt(a, p)) {
+    const int tp = a.pod_tier[p];
+    const float* ut = a.used_tier + scen * (int64_t)a.Tt * N * R + (size_t)n * R;
+    const float* nt = a.npods_tier + scen * (int64_t)a.Tt * N + n;
+    bool pre_fit = true;
+    for (int r = 0; r < R; ++r) {
+      float lower = 0.f;
+      for (int t = 0; t < tp; ++t) lower = lower + ut[(size_t)t * N * R + r];
+      if (!((used[r] - lower) + req[r] <= alloc[r] + 1e-6f)) pre_fit = false;
+    }
+    float victims = 0.f, maxtier = -1.f;
+    for (int t = 0; t < tp; ++t) {
+      float c = nt[(size_t)t * N];
+      victims = victims + c;
+      if (c > 0.f) maxtier = (float)t;
+    }
+    a.cand[scen * N + n] =
+        (pre_fit && ok && victims > 0.f) ? victims * 1024.f + maxtier : INFINITY;
+  }
+
+  a.feasible[scen * a.feas_ss + n] = (ok && fit_ok) ? 1 : 0;
   a.ignored[scen * a.feas_ss + n] = ign ? 1 : 0;
   float* scores = a.scores + scen * a.scores_ss;
   scores[KSIM_ROW_FIT * N + n] = fit_score;

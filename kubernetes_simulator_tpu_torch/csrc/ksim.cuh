@@ -19,6 +19,12 @@
 //   state    used [S,N,R] f32, match_count / anti_active / pref_wsum
 //            [S,G,D] f32
 //   scratch  feasible [S,N] u8, scores [S,5,N] f32, ignored [S,N] u8
+//   tier preemption (preempt = 1; null pointers and Tt = 0 when off)
+//            pod_tier [P] i32, used_tier [S,Tt,N,R] f32, npods_tier
+//            [S,Tt,N] f32, cand [S,N] f32 (K1 -> K2), last_wave / ev_node /
+//            ev_tier / victims [S] i32 (K2 -> K3), col_pod / col_relb [L]
+//            i32 (pod of each choice-buffer column and the boundary at
+//            which it releases; columns >= n_slots are the pre-bound tail)
 // The *_ss fields are the per-scenario strides in elements: scenario s of
 // a table starts at base + s * ss, and ss = 0 where the table is shared.
 // The single-scenario replay is the S = 1 case.
@@ -86,6 +92,17 @@ struct KsimArgs {
   float* scores;
   uint8_t* ignored;
   const float* res_w;  // [R] NodeResourcesFit resource weights
+  // tier preemption
+  const int32_t* pod_tier;
+  float* used_tier;
+  float* npods_tier;
+  float* cand;
+  int32_t* last_wave;
+  int32_t* ev_node;
+  int32_t* ev_tier;
+  int32_t* victims;
+  const int32_t* col_pod;
+  const int32_t* col_relb;
   // per-scenario strides (elements; 0 = shared)
   int64_t alloc_ss, taint_ss, used_ss, plane_ss, feas_ss, scores_ss;
   // dimensions
@@ -95,6 +112,7 @@ struct KsimArgs {
   int32_t fit, taints, node_affinity, interpod, spread;
   int32_t on_fit, on_taint, on_na, on_ip, on_sp;
   int32_t has_symmetric_pref, sp_norm_f32, fit_strategy, n_seg;
+  int32_t preempt, Tt, n_slots;
   float wsum, w_fit, w_taint, w_na, w_ip, w_sp;
   float x_first, y_first, y_last, pad0;
   float seg_x0[KSIM_MAX_SEG];
@@ -108,6 +126,11 @@ struct KsimArgs {
 
 // Layout check for the ctypes mirror (every library exports it).
 KSIM_EXPORT int ksim_args_size() { return (int)sizeof(KsimArgs); }
+
+// May pod p preempt (tier preemption on, non-gang, tier > 0)?
+__device__ __forceinline__ bool ksim_may_preempt(const KsimArgs& a, int p) {
+  return a.preempt && a.group_id[p] < 0 && a.pod_tier[p] > 0;
+}
 
 // Python floor division of int32 (jnp // and numpy // semantics).
 __device__ __forceinline__ int32_t ksim_floordiv(int32_t a, int32_t b) {

@@ -17,6 +17,10 @@
 //           best masked total is > -inf.
 // Scenario s's choice (or -1) is written to the device int32
 // choice_out[s * choice_ss] — nothing returns to the host per slot.
+// Under tier preemption a scenario with no feasible node may instead take
+// the masked argmin of K1's candidate row (ops/tpu.py:788 masked_argmin),
+// once per wave, and writes the eviction record (ev_node, ev_tier) that
+// K3 applies before the bind; every other scenario writes ev_node = -1.
 //
 // Bound on an H100: bytes — one read of the [5,N] f32 rows and the [N]
 // masks per scenario (~0.11 MB at S=1, N=5000; ~5.6 MB at S=128, N=2000:
@@ -62,11 +66,20 @@ __device__ void k2_reduce(float* v, int nv, const bool* is_max, float* red) {
   __syncthreads();
 }
 
+// Lowest value, then lowest index (the masked argmin's order).
+__device__ __forceinline__ void k2_lower(float& bv, int& bi, float v, int i) {
+  if (v < bv || (v == bv && i < bi)) {
+    bv = v;
+    bi = i;
+  }
+}
+
 __global__ void __launch_bounds__(K2_THREADS) ksim_normalize_select_kernel(KsimArgs a, int p, int* choice_out,
-                                                                     int64_t choice_ss) {
+                                                                     int64_t choice_ss, int wave) {
   __shared__ float red[7 * 32];
   __shared__ float best_v[32];
   __shared__ int best_i[32];
+  __shared__ int s_choice;
   const int N = a.N;
   const int64_t scen = blockIdx.x;
   const uint8_t* feas = a.feasible + scen * a.feas_ss;
@@ -177,14 +190,67 @@ __global__ void __launch_bounds__(K2_THREADS) ksim_normalize_select_kernel(KsimA
       int oi = __shfl_down_sync(0xffffffffu, bi, o);
       k2_better(bv, bi, ov, oi);
     }
-    if (lane == 0) choice_out[scen * choice_ss] = bv > -INFINITY ? bi : KSIM_PAD;
+    if (lane == 0) s_choice = bv > -INFINITY ? bi : KSIM_PAD;
+  }
+  __syncthreads();
+  if (!a.preempt) {
+    if (threadIdx.x == 0) choice_out[scen * choice_ss] = s_choice;
+    return;
+  }
+  // Tier preemption (ops/tpu3.py:1542-1575): nothing feasible, the pod may
+  // preempt and no preemption fired yet in this wave of this scenario ->
+  // the lowest-index masked argmin (ops/tpu.py:788) of K1's candidate row,
+  // and the eviction record K3 applies before the bind.
+  const bool fire = s_choice == KSIM_PAD && ksim_may_preempt(a, p) &&
+                    a.last_wave[scen] != wave;  // uniform over the block
+  int node = KSIM_PAD;
+  if (fire) {
+    const float* cand = a.cand + scen * N;
+    float mv = INFINITY;
+    int mi = 0x7fffffff;
+    for (int n = threadIdx.x; n < N; n += blockDim.x) {
+      float c = cand[n];
+      if (c < INFINITY) k2_lower(mv, mi, c, n);
+    }
+    for (int o = 16; o > 0; o >>= 1) {
+      float ov = __shfl_down_sync(0xffffffffu, mv, o);
+      int oi = __shfl_down_sync(0xffffffffu, mi, o);
+      k2_lower(mv, mi, ov, oi);
+    }
+    if (lane == 0) {
+      best_v[warp] = mv;
+      best_i[warp] = mi;
+    }
+    __syncthreads();
+    if (warp == 0) {
+      const int nw = blockDim.x >> 5;
+      mv = lane < nw ? best_v[lane] : INFINITY;
+      mi = lane < nw ? best_i[lane] : 0x7fffffff;
+      for (int o = 16; o > 0; o >>= 1) {
+        float ov = __shfl_down_sync(0xffffffffu, mv, o);
+        int oi = __shfl_down_sync(0xffffffffu, mi, o);
+        k2_lower(mv, mi, ov, oi);
+      }
+      if (lane == 0 && mv < INFINITY) node = mi;
+    }
+  }
+  if (threadIdx.x == 0) {
+    if (node >= 0) {
+      choice_out[scen * choice_ss] = node;
+      a.ev_node[scen] = node;
+      a.ev_tier[scen] = a.pod_tier[p];
+      a.last_wave[scen] = wave;
+    } else {
+      choice_out[scen * choice_ss] = s_choice;
+      a.ev_node[scen] = KSIM_PAD;
+    }
   }
 }
 
 KSIM_EXPORT int ksim_normalize_select(const KsimArgs* args, int pod, int* choice_out,
-                                      long long choice_ss, void* stream) {
+                                      long long choice_ss, int wave, void* stream) {
   if (args->S < 1) return (int)cudaErrorInvalidValue;
   ksim_normalize_select_kernel<<<args->S, K2_THREADS, 0, (cudaStream_t)stream>>>(
-      *args, pod, choice_out, (int64_t)choice_ss);
+      *args, pod, choice_out, (int64_t)choice_ss, wave);
   return (int)cudaGetLastError();
 }

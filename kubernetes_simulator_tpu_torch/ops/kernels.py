@@ -22,6 +22,12 @@ wrapper                       replaces (kubernetes_simulator_tpu/...)
                               make_wave_step3's wave commit and gang rollback
 ============================  ================================================
 
+Under tier preemption (a Tables with ``preempt``) the same three kernels
+carry ops/tpu3.py's preemption sections: K1 the candidate row (:1510), K2
+the masked argmin (ops/tpu.py:788 masked_argmin) and the eviction record,
+K3 the eviction and per-tier commit (:1629-1730, :1796) and the tier
+releases (sim/whatif.py:2145 _tier_rel_fn, :2161 _npods_rel_fn).
+
 Each wrapper takes its plain twin (:mod:`.reference`) for CPU tensors and
 launches its kernel for CUDA tensors — it never falls back: a failed
 build or launch raises. A launch adds one to the wrapper's ``launches``
@@ -74,10 +80,10 @@ KERNELS = {
 _ARGTYPES = {
     "filter_score": [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p],
     "normalize_select": [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong,
-                         ctypes.c_void_p],
+                         ctypes.c_int, ctypes.c_void_p],
     "apply_placements": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                          ctypes.c_int, ctypes.c_longlong, ctypes.c_float, ctypes.c_int,
-                         ctypes.c_void_p],
+                         ctypes.c_int, ctypes.c_void_p],
 }
 
 _MAX_SEG = 16
@@ -97,6 +103,8 @@ class KsimArgs(ctypes.Structure):
             "spread_g", "spread_skew", "spread_dns", "pmg", "group_id",
             "used", "match_count", "anti_active", "pref_wsum",
             "feasible", "scores", "ignored", "res_w",
+            "pod_tier", "used_tier", "npods_tier", "cand", "last_wave", "ev_node", "ev_tier",
+            "victims", "col_pod", "col_relb",
         )]
         + [(name, ctypes.c_int64) for name in (
             "alloc_ss", "taint_ss", "used_ss", "plane_ss", "feas_ss", "scores_ss",
@@ -106,6 +114,7 @@ class KsimArgs(ctypes.Structure):
             "fit", "taints", "node_affinity", "interpod", "spread",
             "on_fit", "on_taint", "on_na", "on_ip", "on_sp",
             "has_symmetric_pref", "sp_norm_f32", "fit_strategy", "n_seg",
+            "preempt", "Tt", "n_slots",
         )]
         + [(name, ctypes.c_float) for name in (
             "wsum", "w_fit", "w_taint", "w_na", "w_ip", "w_sp",
@@ -278,6 +287,23 @@ def pack_args(tb: ref.Tables, res_w: torch.Tensor) -> KsimArgs:
         "pref_wsum": s.pref_wsum,
         "feasible": x.feasible, "scores": x.scores, "ignored": x.ignored,
     }
+    pre = tb.preempt
+    if pre is not None:
+        Tt = pre.used_tier.shape[1]
+        L = pre.col_pod.shape[0]
+        for name, t, shape in (
+            ("pod_tier", pre.pod_tier, tuple(p.group_id.shape)),
+            ("used_tier", pre.used_tier, (S, Tt, N, R)), ("npods_tier", pre.npods_tier, (S, Tt, N)),
+            ("cand", pre.cand, (S, N)), ("last_wave", pre.last_wave, (S,)),
+            ("ev_node", pre.ev_node, (S,)), ("ev_tier", pre.ev_tier, (S,)),
+            ("victims", pre.victims, (S,)), ("col_pod", pre.col_pod, (L,)),
+            ("col_relb", pre.col_relb, (L,)),
+        ):
+            if tuple(t.shape) != shape:
+                raise ValueError(f"preempt.{name}: expected shape {shape}, got {tuple(t.shape)}")
+            tensors[name] = t
+        if not 0 <= pre.n_slots <= L:
+            raise ValueError(f"preempt.n_slots {pre.n_slots} outside the {L} columns")
     dev = s.used.device
     for name, t in tensors.items():
         if not t.is_cuda or not t.is_contiguous() or t.device != dev:
@@ -286,6 +312,8 @@ def pack_args(tb: ref.Tables, res_w: torch.Tensor) -> KsimArgs:
     for name, t in tensors.items():
         setattr(a, name, t.data_ptr())
     a.res_w = res_w.data_ptr()
+    if pre is not None:
+        a.preempt, a.Tt, a.n_slots = 1, pre.used_tier.shape[1], pre.n_slots
     for name, v in {**dims, **strides}.items():
         setattr(a, name, int(v))
     for name in ("fit", "taints", "node_affinity", "interpod", "spread", "on_fit",
@@ -349,32 +377,37 @@ def _check_choices(b: Bound, choices: torch.Tensor) -> None:
         )
 
 
-def normalize_select(b: Bound, pod: int, choices: torch.Tensor, slot: int) -> None:
+def normalize_select(b: Bound, pod: int, choices: torch.Tensor, slot: int,
+                     wave: int = -1) -> None:
     """K2: normalized total and lowest-index argmax of the scratch rows of
     every scenario; scenario s's choice (PAD when unplaced) lands in the
-    int32 ``choices[s, slot]`` on the device."""
+    int32 ``choices[s, slot]`` on the device. Under tier preemption a
+    scenario with no feasible node, once per ``wave``, takes the
+    lowest-index argmin of the candidate row and records the eviction."""
     if not b.cuda:
-        ref.normalize_select(b.tables, pod, choices, slot)
+        ref.normalize_select(b.tables, pod, choices, slot, wave)
         return
     _check_choices(b, choices)
     if not 0 <= slot < choices.shape[1]:
         raise ValueError(f"slot {slot} outside the choice buffer's {choices.shape[1]} columns")
     _check(_libs["normalize_select"](
         b._args_ptr, int(pod), choices.data_ptr() + 4 * int(slot), choices.shape[1],
-        _stream()), "normalize_select")
+        int(wave), _stream()), "normalize_select")
     normalize_select.launches += 1
 
 
 def apply_placements(
     b: Bound, pod_ids: torch.Tensor, pos: torch.Tensor, choices: torch.Tensor, sign: float,
-    rollback: bool = False,
+    rollback: bool = False, boundary: Optional[int] = None,
 ) -> None:
     """K3: ``sign`` × the contribution of each pair (``pod_ids[k]``, the
     node ``choices[s, pos[k]]``), in pair order, into each scenario s's
     state; PAD pods and nodes are skipped. ``rollback`` undoes only
-    failed-gang members and writes PAD over their choices."""
+    failed-gang members and writes PAD over their choices. Under tier
+    preemption the tier planes follow the non-gang pairs, and a bind given
+    the current ``boundary`` first applies the slot's eviction record."""
     if not b.cuda:
-        ref.apply_placements(b.tables, pod_ids, pos, choices, sign, rollback)
+        ref.apply_placements(b.tables, pod_ids, pos, choices, sign, rollback, boundary)
         return
     K = pod_ids.numel()
     if pos.numel() != K:
@@ -386,11 +419,19 @@ def apply_placements(
     _check_choices(b, choices)
     if rollback and K > _MAX_WAVE:
         raise ValueError(f"a rollback covers at most {_MAX_WAVE} slots")
+    if boundary is not None:
+        pre = b.tables.preempt
+        if pre is None or K != 1 or rollback or sign <= 0 or int(boundary) < 0:
+            raise ValueError("an eviction step takes one bind under tier preemption and a "
+                             "boundary >= 0")
+        if choices.shape[1] != pre.col_pod.shape[0]:
+            raise ValueError("the choice buffer must have one column per preempt.col_pod entry")
     if K == 0:
         return
     _check(_libs["apply_placements"](
         b._args_ptr, pod_ids.data_ptr(), pos.data_ptr(), choices.data_ptr(), int(K),
-        choices.shape[1], float(sign), int(bool(rollback)), _stream()), "apply_placements")
+        choices.shape[1], float(sign), int(bool(rollback)),
+        -1 if boundary is None else int(boundary), _stream()), "apply_placements")
     apply_placements.launches += 1
 
 

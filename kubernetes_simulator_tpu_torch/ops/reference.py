@@ -34,7 +34,7 @@ The twins run on any device; the wrappers take them only for CPU tensors.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -153,6 +153,54 @@ class StepConsts:
     y_last: float
 
 
+class Preempt(NamedTuple):
+    """Tier preemption (sim/tiers.py) of S scenarios: the static tier and
+    choice-buffer tables, the tier planes and the per-scenario eviction
+    state (ops/tpu3.py:483-533, ``DevState3.used_tier`` / ``npods_tier``,
+    S-stacked; here in the port's ``[N, R]`` layout). None in a Tables
+    when preemption is off, which leaves the three kernels' work as it
+    was."""
+
+    pod_tier: torch.Tensor  # [P] i32 tier index (0 = lowest priority)
+    tier_host: np.ndarray  # [P] i32, the same on the host
+    eligible: np.ndarray  # [P] bool, host: non-gang with tier > 0 (may preempt)
+    col_pod: torch.Tensor  # [L] i32 pod of each choice-buffer column (PAD: padded slot)
+    col_relb: torch.Tensor  # [L] i32 boundary at which that pod releases (INT32_MAX: never)
+    n_slots: int  # first column of the pre-bound tail
+    used_tier: torch.Tensor  # [S, Tt, N, R] f32 usage of the bound non-gang pods by tier
+    npods_tier: torch.Tensor  # [S, Tt, N] f32 their count
+    cand: torch.Tensor  # [S, N] f32 K1's candidate row (victims·1024 + max tier, or inf)
+    last_wave: torch.Tensor  # [S] i32 the wave of each scenario's last preemption
+    ev_node: torch.Tensor  # [S] i32 K2's eviction record for the slot (PAD: none)
+    ev_tier: torch.Tensor  # [S] i32 the preempting pod's tier
+    victims: torch.Tensor  # [S] i32 victims so far
+
+
+NEVER = np.iinfo(np.int32).max
+
+
+def new_preempt(pod_tier: np.ndarray, group_id: np.ndarray, col_pod: np.ndarray,
+                col_relb: np.ndarray, n_slots: int, used_tier: np.ndarray,
+                npods_tier: np.ndarray, S: int, device) -> Preempt:
+    """A Preempt of S scenarios on ``device``, each starting from the host
+    tier planes (``[Tt, N, R]`` / ``[Tt, N]``) and no eviction."""
+    t = lambda a, dt: torch.as_tensor(np.ascontiguousarray(a), dtype=dt, device=device)
+    rep = lambda a: t(a, torch.float32)[None].repeat(S, *([1] * a.ndim)).contiguous()
+    i32 = torch.int32
+    return Preempt(
+        pod_tier=t(pod_tier, i32), tier_host=np.asarray(pod_tier, np.int32),
+        eligible=(np.asarray(group_id) < 0) & (np.asarray(pod_tier) > 0),
+        col_pod=t(col_pod, i32), col_relb=t(col_relb, i32), n_slots=int(n_slots),
+        used_tier=rep(used_tier), npods_tier=rep(npods_tier),
+        cand=torch.full((S, used_tier.shape[1]), float("inf"), dtype=torch.float32,
+                        device=device),
+        last_wave=torch.full((S,), -1, dtype=i32, device=device),
+        ev_node=torch.full((S,), PAD, dtype=i32, device=device),
+        ev_tier=torch.zeros((S,), dtype=i32, device=device),
+        victims=torch.zeros((S,), dtype=i32, device=device),
+    )
+
+
 class Tables(NamedTuple):
     """Everything a slot step reads or writes, on one device."""
 
@@ -161,6 +209,7 @@ class Tables(NamedTuple):
     state: DevState
     scratch: Scratch
     consts: StepConsts
+    preempt: Optional[Preempt] = None
 
 
 def expr_match_matrix(ec: EncodedCluster) -> np.ndarray:
@@ -488,11 +537,12 @@ def filter_score(tb: Tables, p: int) -> None:
     cl, pods, st, k, out = tb.cluster, tb.pods, tb.state, tb.consts, tb.scratch
     S, N = out.feasible.shape
     dev = out.feasible.device
-    ok = torch.ones((S, N), dtype=torch.bool, device=dev)
+    ok = torch.ones((S, N), dtype=torch.bool, device=dev)  # every filter but the fit
+    fit_ok = torch.ones((S, N), dtype=torch.bool, device=dev)
     rows = torch.zeros((S, NUM_ROWS, N), dtype=torch.float32, device=dev)
     ignored = torch.zeros((S, N), dtype=torch.bool, device=dev)
     if k.fit:
-        ok &= fit_mask(cl, st, pods, p)
+        fit_ok = fit_mask(cl, st, pods, p)
         rows[:, ROW_FIT] = fit_score(cl, st, pods, p, k)
     if k.taints:
         ok &= taint_mask(cl, pods, p)
@@ -507,9 +557,36 @@ def filter_score(tb: Tables, p: int) -> None:
         ok &= spread_filter_mask(cl, st, pods, p)
         rows[:, ROW_SPREAD], ign, _ = spread_score(cl, st, pods, p)
         ignored[:] = ign
-    out.feasible.copy_(ok)
+    out.feasible.copy_(ok & fit_ok)
     out.scores.copy_(rows)
     out.ignored.copy_(ignored)
+    pre = tb.preempt
+    if pre is not None and bool(pre.eligible[p]):
+        pre.cand.copy_(preempt_candidates(cl, st, pods, pre, p, ok))
+
+
+def preempt_candidates(cl: DevCluster, st: DevState, pods: DevPods, pre: Preempt, p: int,
+                       non_fit_ok: torch.Tensor) -> torch.Tensor:
+    """[S, N] f32 candidate row of pod ``p`` (sim/greedy.py
+    ``_try_tier_preempt``; ops/tpu3.py:1510-1560): ``victims·1024 + max
+    victim tier`` where evicting every non-gang pod of a lower tier makes
+    the pod fit, the other filters pass at their current values and there
+    is a victim; +inf elsewhere. The lower-tier usage sums the tier planes
+    from tier 0 up; the fit after eviction is ``(used − lower) + req ≤
+    alloc + 1e-6``."""
+    tp = int(pre.tier_host[p])
+    lower = torch.zeros_like(st.used)
+    victims = torch.zeros_like(pre.npods_tier[:, 0])
+    maxtier = torch.full_like(victims, -1.0)
+    for t in range(tp):
+        lower = lower + pre.used_tier[:, t]
+        cnt = pre.npods_tier[:, t]
+        victims = victims + cnt
+        maxtier = torch.where(cnt > 0, torch.full_like(maxtier, float(t)), maxtier)
+    pre_fit = torch.all((st.used - lower) + pods.requests[p] <= _stacked(cl.allocatable) + 1e-6,
+                        dim=2)
+    cand = pre_fit & non_fit_ok & (victims > 0)
+    return torch.where(cand, victims * 1024.0 + maxtier, torch.full_like(victims, float("inf")))
 
 
 # ---------------------------------------------------------------------------
@@ -633,11 +710,43 @@ def select_node(scores: torch.Tensor, feasible: torch.Tensor) -> torch.Tensor:
     return torch.where(placed, first, torch.full_like(first, PAD)).to(torch.int32)
 
 
-def normalize_select(tb: Tables, p: int, choices: torch.Tensor, slot: int) -> None:
+def masked_argmin(scores: torch.Tensor, mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(choice int32, any bool) per row of ``scores`` (``[..., N]``): the
+    lowest-index argmin over the masked entries, PAD where nothing is
+    masked in (ops/tpu.py:788 ``masked_argmin``)."""
+    inf = torch.full_like(scores, float("inf"))
+    masked = torch.where(mask, scores, inf)
+    lo = masked.amin(dim=-1, keepdim=True)
+    N = scores.shape[-1]
+    ar = torch.arange(N, device=scores.device)
+    hit = mask & (masked == lo)
+    first = torch.where(hit, ar, torch.full_like(ar, N)).amin(dim=-1)
+    ok = lo.squeeze(-1) < float("inf")
+    return torch.where(ok, first, torch.full_like(first, PAD)).to(torch.int32), ok
+
+
+def normalize_select(tb: Tables, p: int, choices: torch.Tensor, slot: int,
+                     wave: int = -1) -> None:
     """Plain twin of K2 (csrc/normalize_select.cu): writes pod ``p``'s
     choice in each scenario s (PAD when unplaced) into the int32
-    ``choices[s, slot]``."""
-    choices[:, slot] = select_node(weighted_total(tb, p), tb.scratch.feasible)
+    ``choices[s, slot]``. With tier preemption (``tb.preempt``), a scenario
+    where nothing is feasible, the pod may preempt and no preemption fired
+    yet in ``wave`` takes the lowest-index argmin of the candidate row
+    instead, and records the eviction (node, the pod's tier) for K3;
+    every other scenario records none."""
+    choice = select_node(weighted_total(tb, p), tb.scratch.feasible)
+    pre = tb.preempt
+    if pre is not None:
+        if bool(pre.eligible[p]):
+            node, ok = masked_argmin(pre.cand, pre.cand < float("inf"))
+            fire = (choice < 0) & (pre.last_wave != wave) & ok
+            choice = torch.where(fire, node, choice)
+            pre.ev_node.copy_(torch.where(fire, node, torch.full_like(node, PAD)))
+            pre.ev_tier.copy_(torch.where(fire, pre.pod_tier[p], pre.ev_tier))
+            pre.last_wave.copy_(torch.where(fire, torch.full_like(node, wave), pre.last_wave))
+        else:
+            pre.ev_node.fill_(PAD)
+    choices[:, slot] = choice
 
 
 # ---------------------------------------------------------------------------
@@ -656,19 +765,65 @@ def gang_rollback_mask(pods: DevPods, pod_ids: torch.Tensor, nodes: torch.Tensor
     return valid & (nodes >= 0) & (g >= 0) & same.any(dim=-1)
 
 
+def evict(tb: Tables, slot: int, choices: torch.Tensor, boundary: int) -> None:
+    """The eviction step of K3's bind (sim/greedy.py:182-215, the victim
+    walk of sim/jax_runtime.py:788 ``preemption_walk``): in each scenario
+    whose eviction record names a node, every column of the choice buffer
+    before ``slot`` or in the pre-bound tail that holds a non-gang pod of
+    a lower tier at that node, not yet released at ``boundary``, is
+    overwritten with PAD and counted; the node's ``used`` drops by the
+    lower tiers' usage (summed from tier 0 up) and those tier cells are
+    zeroed. Counts stay (phantom counts)."""
+    pre, pods, st = tb.preempt, tb.pods, tb.state
+    ev = pre.ev_node
+    has = ev >= 0
+    if not bool(has.any()):
+        return
+    S, N, R = st.used.shape
+    dev = ev.device
+    L = choices.shape[1]
+    cols = torch.cat([torch.arange(slot, device=dev), torch.arange(pre.n_slots, L, device=dev)])
+    p = pre.col_pod[cols].long()
+    pc = p.clamp(min=0)
+    n = choices[:, cols]
+    victim = (has[:, None] & (p >= 0)[None] & (n == ev[:, None])
+              & (pods.group_id[pc] < 0)[None] & (pre.pod_tier[pc][None] < pre.ev_tier[:, None])
+              & (pre.col_relb[cols] > boundary)[None])
+    choices[:, cols] = torch.where(victim, torch.full_like(n, PAD), n)
+    pre.victims.add_(victim.sum(dim=1).to(torch.int32))
+    s_ar = torch.arange(S, device=dev)
+    evc = ev.clamp(min=0).long()
+    Tt = pre.used_tier.shape[1]
+    lower = torch.zeros((S, R), dtype=torch.float32, device=dev)
+    for t in range(Tt):
+        below = (has & (t < pre.ev_tier))
+        cell = pre.used_tier[s_ar, t, evc]  # [S, R]
+        lower = torch.where(below[:, None], lower + cell, lower)
+        pre.used_tier[s_ar, t, evc] = torch.where(below[:, None], torch.zeros_like(cell), cell)
+        cnt = pre.npods_tier[s_ar, t, evc]
+        pre.npods_tier[s_ar, t, evc] = torch.where(below, torch.zeros_like(cnt), cnt)
+    row = st.used[s_ar, evc]
+    st.used[s_ar, evc] = torch.where(has[:, None], row - lower, row)
+
+
 def apply_placements(
     tb: Tables, pod_ids: torch.Tensor, pos: torch.Tensor, choices: torch.Tensor, sign: float,
-    rollback: bool = False,
+    rollback: bool = False, boundary: Optional[int] = None,
 ) -> None:
     """Plain twin of K3 (csrc/apply_placements.cu): add ``sign`` × the
     state contribution of each pair (``pod_ids[k]``, node
     ``choices[s, pos[k]]``) to scenario s's state, in pair order
     (models/state._apply); PAD pods and nodes are skipped. ``rollback``
     restricts the pairs to failed-gang members and overwrites their
-    choices with PAD."""
+    choices with PAD. With tier preemption the tier planes follow the
+    non-gang pairs, and a bind given the current ``boundary`` first
+    applies the slot's eviction record (:func:`evict`)."""
     pods, cl, st = tb.pods, tb.cluster, tb.state
     S, N, R = st.used.shape
     G, D = st.match_count.shape[1:]
+    pre = tb.preempt
+    if pre is not None and boundary is not None:
+        evict(tb, int(pos[0]), choices, boundary)
     posl = pos.long()
     nodes = choices[:, posl]  # [S, K]
     if rollback:
@@ -680,6 +835,12 @@ def apply_placements(
         p = pod_ids[kk].long()
         n = nodes[ss, kk].long()
         st.used.view(S * N, R).index_add_(0, ss * N + n, sign * pods.requests[p])
+        if pre is not None:
+            ng = pods.group_id[p] < 0
+            tcell = (ss[ng] * pre.used_tier.shape[1] + pre.pod_tier[p[ng]].long()) * N + n[ng]
+            pre.used_tier.view(-1, R).index_add_(0, tcell, sign * pods.requests[p[ng]])
+            pre.npods_tier.view(-1).index_add_(
+                0, tcell, torch.full(tcell.shape, sign, dtype=torch.float32, device=tcell.device))
         dom = cl.gdom[:, n]  # [G, M]
         hit = (dom >= 0) & pods.pmg[p].T
         gg, mm = torch.nonzero(hit, as_tuple=True)

@@ -31,6 +31,16 @@ and is bucketed once per engine on the host (:func:`plan_chunks`); at a
 boundary one K3 release launch walks that bucket, reading each
 scenario's own choice (PAD for unplaced and rolled-back pods). The host
 synchronises once per run, to fetch the choice buffer.
+
+Tier preemption (``preemption=True`` / ``"tier"``; :mod:`.tiers`, the
+``st.preemption`` sections of ``ops/tpu3.py`` and the results of
+``JaxReplayEngine`` :2486-2515) adds no launch: K1 also writes the
+candidate row of a pod that may preempt, K2 takes its masked argmin where
+nothing is feasible (once per wave and scenario) and records the
+eviction, and K3's bind first writes PAD over the victims' columns of the
+choice buffer, frees their usage and counts them. The victims' PAD keeps
+them out of every later release, and the final fetch yields the
+assignments with no host walk (``preemption_walk`` :788 is not needed).
 """
 
 from __future__ import annotations
@@ -54,6 +64,7 @@ from ..plugins.builtin import DEFAULT_WEIGHTS, PLUGIN_NAMES
 from ..utils.metrics import fragmentation_gauges, utilization_means
 from .runtime import ReplayResult
 from .telemetry import PhaseTimers, ReplayTelemetry, latency_summary, resolve_granularity
+from .tiers import check_tier_mode, normalize_preemption, tier_planes
 from .waves import pack_waves
 
 
@@ -255,6 +266,29 @@ def _later(what: str, slice_: str) -> NotImplementedError:
     )
 
 
+def tier_preemption(preemption, engine: str = "v3", retry_buffer: int = 0,
+                    node_shards: int = 0) -> bool:
+    """True for tier preemption (``True`` / ``"tier"``), False when off;
+    the reference's errors for the modes tier preemption excludes, and
+    ``"kube"`` (the host boundary pass with the retry buffer) refused by
+    name."""
+    mode = normalize_preemption(preemption)
+    if mode == "kube":
+        raise _later("preemption='kube' (the boundary PostFilter pass with the retry buffer)",
+                     "queue A item 6 in the replay, queue A item 7 in the what-if")
+    if mode == "tier" and engine != "v3":
+        raise ValueError("device tier preemption requires engine='v3'")
+    if mode == "tier" and retry_buffer:
+        raise ValueError("retry_buffer is not supported with tier preemption")
+    if mode == "tier" and node_shards and int(node_shards) > 1:
+        raise ValueError(
+            "node_shards is not supported with tier preemption: the node-sharded chunk "
+            "program is the node-space (v2) engine and tier preemption is v3-only — use "
+            "preemption='kube'"
+        )
+    return mode == "tier"
+
+
 def release_times(pods: EncodedPods) -> np.ndarray:
     """[P] time at which each pod completes (inf for a pod that runs on)."""
     return pods.arrival + np.where(np.isfinite(pods.duration), pods.duration, np.inf)
@@ -277,10 +311,18 @@ class ChunkPlan:
     gang_wave: np.ndarray  # [num_waves] bool: the wave holds a gang member
     prebound: np.ndarray  # pre-bound pod ids, in tail order
     buckets: List[Optional[Tuple[np.ndarray, np.ndarray]]]
+    #: [L] i32 boundary at which each column's pod releases (ref.NEVER
+    #: for a pod that runs on and for a padded slot)
+    col_relb: np.ndarray
 
     @property
     def L(self) -> int:
         return self.idx.size + self.prebound.size
+
+    @property
+    def col_pod(self) -> np.ndarray:
+        """[L] i32 pod of each choice-buffer column (PAD: a padded slot)."""
+        return np.concatenate([self.idx.reshape(-1), self.prebound]).astype(np.int32)
 
 
 def plan_chunks(
@@ -307,6 +349,7 @@ def plan_chunks(
     prebound = np.nonzero(pods.bound_node >= 0)[0]
     nchunks = idx.shape[0] // C
     buckets: List[Optional[Tuple[np.ndarray, np.ndarray]]] = [None] * nchunks
+    col_relb = np.full(idx.size + prebound.size, ref.NEVER, np.int32)
     if completions_on:
         P = pods.num_pods
         flat = idx.reshape(-1)
@@ -334,23 +377,33 @@ def plan_chunks(
         for b in np.nonzero(counts)[0]:
             seg = pods_s[starts[b] : starts[b] + counts[b]]
             buckets[b] = (seg.astype(np.int32), pos_of[seg].astype(np.int32))
-    return ChunkPlan(idx=idx, C=C, gang_wave=gang_wave, prebound=prebound, buckets=buckets)
+        col_relb[pos_of[pods_ok]] = b_rel[pods_ok]
+    return ChunkPlan(idx=idx, C=C, gang_wave=gang_wave, prebound=prebound, buckets=buckets,
+                     col_relb=col_relb)
 
 
-def run_chunks(
-    plan: ChunkPlan, tb: ref.Tables, bound_node: np.ndarray, plain: bool, timers=None
-) -> np.ndarray:
-    """Replay every chunk of ``plan`` over the S scenarios of ``tb`` (its
-    state is updated in place) and return the host copy of the choice
-    buffer ``[S, L]``. ``plain`` runs the plain twins on any device;
-    otherwise the kernel wrappers run (the kernels for CUDA tensors, the
-    twins for CPU tensors). The one synchronisation is the final fetch."""
-    tick = timers.tick if timers is not None else (lambda name: contextlib.nullcontext())
+def new_choices(plan: ChunkPlan, S: int, bound_node: np.ndarray, device) -> torch.Tensor:
+    """A fresh choice buffer ``[S, L]``: PAD in every slot column, each
+    pre-bound pod's node in its tail column."""
+    choices = torch.full((S, plan.L), PAD, dtype=torch.int32, device=device)
+    if plan.prebound.size:
+        choices[:, plan.idx.size :] = torch.as_tensor(
+            bound_node[plan.prebound].astype(np.int32), device=device)
+    return choices
+
+
+def run_waves(plan: ChunkPlan, tb: ref.Tables, choices: torch.Tensor, first: int, end: int,
+              plain: bool) -> None:
+    """Enqueue waves ``[first, end)`` of ``plan`` over the S scenarios of
+    ``tb`` (state and ``choices`` updated in place, no synchronisation):
+    the release bucket of a boundary where a chunk starts, then per slot
+    K1 → K2 → K3 bind, and a K3 rollback after a wave holding a gang
+    member. ``plain`` runs the plain twins on any device; otherwise the
+    kernel wrappers run (the kernels for CUDA tensors, the twins for CPU
+    tensors)."""
     dev = tb.state.used.device
-    S = tb.state.used.shape[0]
     idx, C = plan.idx, plan.C
     W = idx.shape[1]
-    Wtot = idx.size
     if plain:
         filter_score, normalize_select, apply_placements = (
             ref.filter_score, ref.normalize_select, ref.apply_placements)
@@ -361,32 +414,42 @@ def run_chunks(
         h = K.Bound(tb)
     idx_dev = torch.as_tensor(idx.reshape(-1), device=dev)
     pos_dev = torch.arange(plan.L, dtype=torch.int32, device=dev)
-    buckets = [
-        None if bk is None else tuple(torch.as_tensor(a, device=dev) for a in bk)
-        for bk in plan.buckets
-    ]
-    choices = torch.full((S, plan.L), PAD, dtype=torch.int32, device=dev)
-    if plan.prebound.size:
-        choices[:, Wtot:] = torch.as_tensor(bound_node[plan.prebound].astype(np.int32),
-                                            device=dev)
+    # Every release bucket of the range is staged before the first launch.
+    buckets = {
+        w // C: tuple(torch.as_tensor(a, device=dev) for a in plan.buckets[w // C])
+        for w in range(first, end) if w % C == 0 and plan.buckets[w // C] is not None
+    }
     rows = idx.tolist()
     gang_wave = plan.gang_wave.tolist()
-    for b in range(idx.shape[0] // C):
-        with tick("dispatch"):
-            if buckets[b] is not None:
-                apply_placements(h, buckets[b][0], buckets[b][1], choices, -1.0)
-            for w in range(b * C, (b + 1) * C):
-                base = w * W
-                for k, p in enumerate(rows[w]):
-                    if p < 0:
-                        continue
-                    s = base + k
-                    filter_score(h, p)
-                    normalize_select(h, p, choices, s)
-                    apply_placements(h, idx_dev[s : s + 1], pos_dev[s : s + 1], choices, 1.0)
-                if gang_wave[w]:
-                    apply_placements(h, idx_dev[base : base + W], pos_dev[base : base + W],
-                                     choices, -1.0, rollback=True)
+    preempt = tb.preempt is not None
+    for w in range(first, end):
+        b = w // C
+        if w % C == 0 and b in buckets:
+            apply_placements(h, buckets[b][0], buckets[b][1], choices, -1.0)
+        base = w * W
+        for k, p in enumerate(rows[w]):
+            if p < 0:
+                continue
+            s = base + k
+            filter_score(h, p)
+            normalize_select(h, p, choices, s, w)
+            apply_placements(h, idx_dev[s : s + 1], pos_dev[s : s + 1], choices, 1.0,
+                             boundary=b if preempt else None)
+        if gang_wave[w]:
+            apply_placements(h, idx_dev[base : base + W], pos_dev[base : base + W], choices,
+                             -1.0, rollback=True)
+
+
+def run_chunks(
+    plan: ChunkPlan, tb: ref.Tables, bound_node: np.ndarray, plain: bool, timers=None
+) -> np.ndarray:
+    """Replay every chunk of ``plan`` over the S scenarios of ``tb`` (its
+    state is updated in place) and return the host copy of the choice
+    buffer ``[S, L]``. The one synchronisation is the final fetch."""
+    tick = timers.tick if timers is not None else (lambda name: contextlib.nullcontext())
+    choices = new_choices(plan, tb.state.used.shape[0], bound_node, tb.state.used.device)
+    with tick("dispatch"):
+        run_waves(plan, tb, choices, 0, plan.idx.shape[0], plain)
     with tick("device_wait"):
         return choices.cpu().numpy()
 
@@ -395,14 +458,15 @@ def assignments_from_choices(
     plan: ChunkPlan, host_choices: np.ndarray, bound_node: np.ndarray
 ) -> Tuple[np.ndarray, np.ndarray, int]:
     """(assignments [S, P], placed [S], pods to schedule) from a fetched
-    choice buffer: pre-bound pods keep their node, every wave pod takes
-    its slot's choice (PAD = unplaced or rolled back)."""
+    choice buffer: every wave pod takes its slot's choice and every
+    pre-bound pod its tail column's (PAD = unplaced, rolled back or
+    evicted)."""
     flat_idx = plan.idx.reshape(-1)
     valid = flat_idx >= 0
     slot = host_choices[:, : flat_idx.size][:, valid]
     S = host_choices.shape[0]
-    assignments = np.repeat(
-        np.where(bound_node >= 0, bound_node, PAD).astype(np.int32)[None], S, axis=0)
+    assignments = np.full((S, bound_node.shape[0]), PAD, np.int32)
+    assignments[:, plan.prebound] = host_choices[:, flat_idx.size :]
     assignments[:, flat_idx[valid]] = slot
     placed = (slot >= 0).sum(axis=1).astype(np.int32)
     return assignments, placed, int(valid.sum())
@@ -412,15 +476,20 @@ class ChunkEngine:
     """The setup and the run that the single replay and the what-if batch
     share: wave packing, the completions gate (on when the trace has finite
     durations, unless ``completions=False``), the granularity guard, the
-    static chunk plan, the tables of S scenarios on the device and one pass
-    of :func:`run_chunks`."""
+    static chunk plan, the tables of S scenarios on the device (with the
+    tier-preemption tables when ``preemption`` is on) and one pass of
+    :func:`run_chunks`."""
 
     def _prepare(
         self, ec: EncodedCluster, pods: EncodedPods, spec: StepSpec, cluster: ref.DevCluster,
         S: int, wave_width, chunk_waves: int, completions: Optional[bool],
         granularity_guard: bool, engine_name: str, device: torch.device, plain: bool,
+        preemption: bool = False,
     ) -> None:
         self.ec, self.pods, self.spec, self.S, self.device = ec, pods, spec, S, device
+        #: (tiers, pod_tier) under tier preemption, else None
+        self.tiers = (check_tier_mode(ec, pods, spec.interpod, spec.spread)
+                      if preemption else None)
         self.consts = spec.consts()
         self.plain = bool(plain)
         self.wave_width = 8 if wave_width == "auto" else int(wave_width)
@@ -445,17 +514,27 @@ class ChunkEngine:
 
     def _tables(self) -> ref.Tables:
         st = init_state(self.ec, self.pods)
+        pre = None
+        if self.tiers is not None:
+            tiers, pod_tier = self.tiers
+            ut, nt = tier_planes(self.pods, pod_tier, len(tiers), self.ec.num_nodes,
+                                 self.ec.num_resources)
+            pre = ref.new_preempt(pod_tier, self.pods.group_id, self.plan.col_pod,
+                                  self.plan.col_relb, self.plan.idx.size, ut, nt, self.S,
+                                  self.device)
         return ref.Tables(
             cluster=self._cluster, pods=self._pods,
             state=ref.stacked_state(st.used, st.match_count, st.anti_active, st.pref_wsum,
                                     self.S, self.device),
             scratch=ref.new_scratch(self.S, self.ec.num_nodes, self.device), consts=self.consts,
+            preempt=pre,
         )
 
     def _run(self, timers=None):
         """(tables after the run, wall seconds, assignments [S, P], placed
-        [S], pods to schedule)."""
+        [S], pods to schedule). The tables are kept as ``last_tables``."""
         tb = self._tables()
+        self.last_tables = tb
         t0 = time.perf_counter()
         host_choices = run_chunks(self.plan, tb, self.pods.bound_node, self.plain, timers)
         wall = time.perf_counter() - t0
@@ -494,10 +573,9 @@ class TorchReplayEngine(ChunkEngine):
         flight_recorder=None,
         plain: bool = False,
     ):
+        mode = tier_preemption(preemption, engine, retry_buffer, node_shards)
         if engine != "v3":
             raise _later(f"engine={engine!r} (the v2 node-space chain)", "queue B row B8")
-        if preemption not in (False, None):
-            raise _later(f"preemption={preemption!r}", "tier preemption, queue B row B10")
         if retry_buffer:
             raise _later("retry_buffer", "boundary retry and kube modes")
         if node_shards and int(node_shards) > 1:
@@ -508,9 +586,10 @@ class TorchReplayEngine(ChunkEngine):
             raise _later("flight_recorder", "the flight recorder")
         self.telemetry = resolve_granularity(telemetry)
         device = resolve_device(device)
+        self.preemption = mode
         self._prepare(ec, pods, StepSpec.from_config(ec, config, pods),
                       ref.cluster_to(ec, device), 1, wave_width, chunk_waves, completions,
-                      granularity_guard, "torch replay engine", device, plain)
+                      granularity_guard, "torch replay engine", device, plain, mode)
 
     # -- one replay --------------------------------------------------------
 
@@ -521,6 +600,11 @@ class TorchReplayEngine(ChunkEngine):
         resume: bool = False,
         node_events=None,
     ) -> ReplayResult:
+        if self.preemption and (checkpoint_path or resume):
+            raise ValueError(
+                "checkpoint/resume is not supported with device preemption (tier planes are "
+                "not checkpointed)"
+            )
         if checkpoint_path or checkpoint_every or resume:
             raise _later("checkpoint/resume", "engine modes, queue A item 6")
         if node_events:
@@ -557,7 +641,7 @@ class TorchReplayEngine(ChunkEngine):
             assignments=assignments,
             placed=placed,
             unschedulable=to_schedule - placed,
-            preemptions=0,
+            preemptions=int(tb.preempt.victims[0]) if tb.preempt is not None else 0,
             attempts=to_schedule,
             wall_clock_s=wall,
             placements_per_sec=placed / wall if wall > 0 else 0.0,

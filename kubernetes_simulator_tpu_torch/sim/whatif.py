@@ -19,6 +19,14 @@ taints ``[S, N, TT]`` are stacked per scenario. The perturbations ported
 are ``node_down``, ``scale_capacity`` and ``add_taint``; ``set_label``
 (per-scenario domain tables) and the engine's other modes raise
 ``NotImplementedError`` naming the queue item that ports them.
+
+Tier preemption (``preemption=True``; the reference's batch of
+:590-620, :863-880, :2110-2165 and :2828-3005) runs with completions and
+gangs: each scenario carries its own tier planes, eviction record and
+victim counter (``WhatIfResult.preemptions [S]``), and the release
+buckets drop completed non-gang pods from the tier planes (``_tier_rel_fn``
+:2145, ``_npods_rel_fn`` :2161). As in the reference, it refuses pre-bound
+pods.
 """
 
 from __future__ import annotations
@@ -34,7 +42,7 @@ from ..models.core import Effect
 from ..models.encode import PAD, EncodedCluster, EncodedPods
 from ..ops import reference as ref
 from .telemetry import resolve_granularity
-from .torch_runtime import ChunkEngine, StepSpec, resolve_device
+from .torch_runtime import ChunkEngine, StepSpec, resolve_device, tier_preemption
 
 
 @dataclass
@@ -137,7 +145,8 @@ class WhatIfResult:
     """The reference's result record. This engine fills ``placed``,
     ``unschedulable``, ``total_placed``, ``wall_clock_s``,
     ``placements_per_sec``, ``assignments`` (when collected),
-    ``utilization_cpu``, ``completions_on`` and ``engine``; the fields of
+    ``utilization_cpu``, ``completions_on``, ``engine`` and, under tier
+    preemption, ``preemptions`` (victims per scenario); the fields of
     modes not ported yet stay None."""
 
     placed: np.ndarray  # [S] i32
@@ -204,6 +213,16 @@ class WhatIfEngine(ChunkEngine):
         plain: bool = False,
     ):
         scenarios = list(scenarios)
+        mode = tier_preemption(preemption, retry_buffer=retry_buffer)
+        if mode and (engine != "v3" or fork_checkpoint):
+            raise ValueError(
+                "what-if preemption requires the v3 engine (no label perturbations) and no "
+                "fork checkpoint"
+            )
+        if mode and bool((pods.bound_node >= 0).any()):
+            # The reference's aggregate tally cannot tell pre-bound victims
+            # from replay placements; the port keeps its refusal.
+            raise ValueError("what-if preemption does not support pre-bound pods")
         if engine != "v3":
             raise _later(f"engine={engine!r} (the v2 node-space chain, row B8)",
                          "queue B item 2")
@@ -213,9 +232,6 @@ class WhatIfEngine(ChunkEngine):
             raise _later("node_shards (node-plane sharding, row B13)", "queue A item 10")
         if fork_checkpoint is not None:
             raise _later("fork_checkpoint (what-if forks from a checkpoint)", "queue A item 7")
-        if preemption not in (False, None):
-            raise _later(f"preemption={preemption!r} (kube and tier preemption batches)",
-                         "queue A item 7")
         if retry_buffer:
             raise _later("retry_buffer (the retry variant of row B12)", "queue A items 6-7")
         if policies is not None:
@@ -239,8 +255,9 @@ class WhatIfEngine(ChunkEngine):
             allocatable=self.sset.alloc, taint_key=self.sset.taint_key,
             taint_kv=self.sset.taint_kv, taint_effect=self.sset.taint_effect,
         )
+        self.preemption = mode
         self._prepare(ec, pods, spec, cluster, self.sset.num_scenarios, wave_width, chunk_waves,
-                      completions, granularity_guard, "what-if engine", device, plain)
+                      completions, granularity_guard, "what-if engine", device, plain, mode)
 
     def _utilization_cpu(self, tb: ref.Tables) -> Optional[np.ndarray]:
         """[S] mean over nodes of used/allocatable cpu (0 where a node has
@@ -267,6 +284,7 @@ class WhatIfEngine(ChunkEngine):
             utilization_cpu=self._utilization_cpu(tb),
             completions_on=self.completions_on,
             engine=self.engine,
+            preemptions=(tb.preempt.victims.cpu().numpy() if tb.preempt is not None else None),
         )
 
 

@@ -4,8 +4,9 @@ Counterpart: ``kubernetes_simulator_tpu/utils/config.py`` (``SimConfig``,
 ``WhatIfSpec``, ``build_case``, ``build_encoded_case``) — the sections the
 port runs: the synthetic ``cluster``/``workload``, the ``profile``
 (plugins, weights), ``telemetry``, ``output``, ``waveWidth``,
-``chunkWaves`` and ``whatIf`` (``scenarios``, ``seed``, ``nodeDownP``,
-``capacityP``, ``taintP``, ``completions``). Parsing is the reference's,
+``chunkWaves``, ``devicePreemption`` (``true`` / ``"tier"``: tier
+preemption; ``"kube"`` is refused) and ``whatIf`` (``scenarios``,
+``seed``, ``nodeDownP``, ``capacityP``, ``taintP``, ``completions``). Parsing is the reference's,
 key for key, so one YAML file yields the same encoded case and the same
 scenario batch in both packages.
 
@@ -100,6 +101,8 @@ class SimConfig:
     wave_width: int = 8
     chunk_waves: int = 1024
     whatif: WhatIfSpec = field(default_factory=WhatIfSpec)
+    # False, or tier preemption (True / "tier"); "kube" is refused.
+    device_preemption: object = False
 
     @classmethod
     def from_dict(cls, d: dict) -> "SimConfig":
@@ -111,8 +114,14 @@ class SimConfig:
         for section, what in _REFUSED_SECTIONS.items():
             if d.get(section) is not None:
                 _refuse(section, what)
-        if d.get("devicePreemption", False):
-            _refuse("devicePreemption", "device preemption")
+        dp = d.get("devicePreemption", False)
+        if dp == "kube":
+            _refuse("devicePreemption: kube",
+                    "kube preemption, the boundary PostFilter pass with the retry buffer")
+        if dp not in (True, False, "tier"):
+            raise ValueError(
+                f"devicePreemption: must be true/false/'tier'/'kube', got {dp!r}"
+            )
         if int(d.get("nodeShards", 0) or 0) > 1:
             _refuse("nodeShards", "node-sharded replay")
         if d.get("pagedWaves", False):
@@ -156,6 +165,7 @@ class SimConfig:
         ww = d.get("waveWidth", 8)
         cfg.wave_width = 8 if ww == "auto" else int(ww)
         cfg.chunk_waves = int(d.get("chunkWaves", 1024))
+        cfg.device_preemption = dp if isinstance(dp, str) else bool(dp)
         cfg.whatif = WhatIfSpec(
             scenarios=int(wi.get("scenarios", 0)),
             seed=int(wi.get("seed", 0)),

@@ -226,10 +226,12 @@ def replay_row(kind: str, res, extra: Optional[dict] = None) -> dict:
 
 def whatif_rows(res, extra: Optional[dict] = None) -> Iterable[dict]:
     """One ``whatif-aggregate`` row and one ``whatif-scenario`` row per
-    scenario. The reference's per-scenario kube, chaos, latency and
-    fragmentation fields come from modes the port does not run yet and are
-    left out."""
+    scenario; a batch run with tier preemption adds each scenario's
+    ``preemptions`` (its victims). The reference's per-scenario kube,
+    chaos, latency and fragmentation fields come from modes the port does
+    not run yet and are left out."""
     base = extra or {}
+    pre = getattr(res, "preemptions", None)
     yield _scrub_timing({
         "kind": "whatif-aggregate",
         "scenarios": int(res.placed.shape[0]),
@@ -241,7 +243,7 @@ def whatif_rows(res, extra: Optional[dict] = None) -> Iterable[dict]:
         **base,
     })
     for s in range(res.placed.shape[0]):
-        yield {
+        row = {
             "kind": "whatif-scenario",
             "scenario": s,
             "placed": int(res.placed[s]),
@@ -251,3 +253,6 @@ def whatif_rows(res, extra: Optional[dict] = None) -> Iterable[dict]:
             ),
             **base,
         }
+        if pre is not None:
+            row["preemptions"] = int(pre[s])
+        yield row

@@ -125,7 +125,7 @@ def test_config_refuses_later_sections_by_name(section):
 
 @pytest.mark.parametrize(
     "kw",
-    [dict(engine="v2"), dict(preemption="tier"), dict(retry_buffer=8),
+    [dict(engine="v2"), dict(preemption="kube"), dict(retry_buffer=8),
      dict(node_shards=2), dict(paged=True), dict(flight_recorder="f.jsonl"),
      dict(telemetry="series")],
 )

@@ -153,3 +153,103 @@ def test_replay_kernel_path_equals_plain_path(card):
     np.testing.assert_array_equal(kern.assignments, plain.assignments)
     np.testing.assert_array_equal(kern.assignments, cpu.assignments)
     np.testing.assert_array_equal(kern.state.used, cpu.state.used)
+
+
+def _contended_preempt_case():
+    """8 nodes, 300 pods with spread, tolerations and durations: evictions
+    fire and completions release (tests/test_whatif_preempt_completions.py's
+    contended trace)."""
+    cluster = make_cluster(8, seed=2, taint_fraction=0.2)
+    workload, _ = make_workload(300, seed=2, with_spread=True, with_tolerations=True,
+                                duration_mean=20.0, arrival_rate=12.0)
+    return encode(cluster, workload)
+
+
+def test_preempt_kernels_equal_twins(card):
+    """Under tier preemption, at S=4, launch after launch over a whole
+    run: K1's candidate rows, K2's masked argmin (choices, eviction
+    records, wave stamps), K3's eviction and victim marking (the whole
+    choice buffer, the victim counters) and the state and tier planes
+    after every bind, release and rollback equal the twins'."""
+    from kubernetes_simulator_tpu_torch.sim.torch_runtime import new_choices
+    from kubernetes_simulator_tpu_torch.sim.whatif import WhatIfEngine, uniform_scenarios
+
+    ec, ep = _contended_preempt_case()
+    eng = WhatIfEngine(ec, ep, uniform_scenarios(ec, 4, seed=1, p_capacity=0.5),
+                       FrameworkConfig(), chunk_waves=4, preemption=True, device=card)
+    plan = eng.plan
+    tb_k, tb_t = eng._tables(), eng._tables()
+    ch_k = new_choices(plan, 4, ep.bound_node, card)
+    ch_t = ch_k.clone()
+    b = K.Bound(tb_k)
+    pk, pt = tb_k.preempt, tb_t.preempt
+    idx = torch.as_tensor(plan.idx.reshape(-1), device=card)
+    pos = torch.arange(plan.L, dtype=torch.int32, device=card)
+
+    def same(where):
+        torch.cuda.synchronize()
+        for part in ("state", "scratch"):
+            for f in getattr(tb_k, part)._fields:
+                assert torch.equal(getattr(getattr(tb_k, part), f),
+                                   getattr(getattr(tb_t, part), f)), (where, f)
+        for f in ("used_tier", "npods_tier", "cand", "last_wave", "ev_node", "ev_tier",
+                  "victims"):
+            assert torch.equal(getattr(pk, f), getattr(pt, f)), (where, f)
+        assert torch.equal(ch_k, ch_t), where
+
+    W, C = plan.idx.shape[1], plan.C
+    fired = 0
+    for w in range(plan.idx.shape[0]):
+        if w % C == 0 and plan.buckets[w // C] is not None:
+            bp, bpos = (torch.as_tensor(x, device=card) for x in plan.buckets[w // C])
+            K.apply_placements(b, bp, bpos, ch_k, -1.0)
+            ref.apply_placements(tb_t, bp, bpos, ch_t, -1.0)
+            same(f"release {w // C}")
+        for k, p in enumerate(plan.idx[w].tolist()):
+            if p < 0:
+                continue
+            s = w * W + k
+            K.filter_score(b, p)
+            ref.filter_score(tb_t, p)
+            K.normalize_select(b, p, ch_k, s, w)
+            ref.normalize_select(tb_t, p, ch_t, s, w)
+            same(f"slot {s}")
+            fired += int((pk.ev_node >= 0).sum())
+            K.apply_placements(b, idx[s : s + 1], pos[s : s + 1], ch_k, 1.0, boundary=w // C)
+            ref.apply_placements(tb_t, idx[s : s + 1], pos[s : s + 1], ch_t, 1.0,
+                                 boundary=w // C)
+            same(f"bind {s}")
+        if plan.gang_wave[w]:
+            K.apply_placements(b, idx[w * W : (w + 1) * W], pos[w * W : (w + 1) * W], ch_k,
+                               -1.0, rollback=True)
+            ref.apply_placements(tb_t, idx[w * W : (w + 1) * W], pos[w * W : (w + 1) * W],
+                                 ch_t, -1.0, rollback=True)
+            same(f"rollback {w}")
+    assert fired > 0 and int(pk.victims.sum()) > 0
+
+
+def test_preempt_kernel_path_equals_plain_path(card):
+    """Tier preemption x completions: the replay and the S=4 what-if on the
+    kernel path equal the plain path on the card and on the CPU, with the
+    kernels launched."""
+    from kubernetes_simulator_tpu_torch.sim.whatif import WhatIfEngine, uniform_scenarios
+
+    ec, ep = _contended_preempt_case()
+    kw = dict(chunk_waves=4, preemption=True)
+    K.reset_launch_counts()
+    kern = TorchReplayEngine(ec, ep, FrameworkConfig(), device=card, **kw).replay()
+    assert all(n > 0 for n in K.launch_counts().values())
+    for other in (TorchReplayEngine(ec, ep, FrameworkConfig(), device=card, plain=True,
+                                    **kw).replay(),
+                  TorchReplayEngine(ec, ep, FrameworkConfig(), device="cpu", **kw).replay()):
+        np.testing.assert_array_equal(kern.assignments, other.assignments)
+        assert kern.preemptions == other.preemptions
+    assert kern.preemptions > 0
+    scen = uniform_scenarios(ec, 4, seed=1, p_capacity=0.5)
+    wkw = dict(kw, collect_assignments=True)
+    wk = WhatIfEngine(ec, ep, scen, FrameworkConfig(), device=card, **wkw).run()
+    for other in (WhatIfEngine(ec, ep, scen, FrameworkConfig(), device=card, plain=True,
+                               **wkw).run(),
+                  WhatIfEngine(ec, ep, scen, FrameworkConfig(), device="cpu", **wkw).run()):
+        np.testing.assert_array_equal(wk.assignments, other.assignments)
+        np.testing.assert_array_equal(wk.preemptions, other.preemptions)

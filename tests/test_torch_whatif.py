@@ -284,7 +284,7 @@ def _tiny():
     "kw,item",
     [(dict(mesh=object()), "queue A item 10"),
      (dict(fork_checkpoint="fork.npz"), "queue A item 7"),
-     (dict(preemption="tier"), "queue A item 7"),
+     (dict(preemption="kube", retry_buffer=8), "queue A item 7"),
      (dict(preemption="kube"), "queue A item 7"),
      (dict(retry_buffer=8), "queue A items 6-7"),
      (dict(policies=np.zeros((2, 6), np.float32)), "queue A item 7"),
