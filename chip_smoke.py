@@ -53,7 +53,30 @@ From the root of a checkout, on a host with one CUDA card. In order:
    config6 with durationMean 200 and gangs (0.02 x 4), chunkWaves 512,
    completions on — scenario 0 equal to the pinned constants and to a
    single-scenario replay, median of 3, busy share, the same kernel
-   checks at S=128 (with a gang rollback) and timings.
+   checks at S=128 (with a gang rollback) and timings; for both tier
+   paths B6's bound, from each scenario's victims wave by wave;
+12. the retry buffer, reduced: CONFIG7 (``examples/config7_retry_completions.yaml``)
+   cut to 40 nodes x 3,000 pods, chunkWaves 32, retryBuffer 64 (buffers
+   fill and overflow), as a single replay and an 8-scenario what-if, on
+   the kernel path, the plain path on the card and on the CPU: placed,
+   drops, assignments and every retry record identical;
+13. the main retry path: CONFIG7's what-if as shipped (64
+   ``uniform_scenarios(seed=0)`` x 500 nodes x 20,000 pods, retryBuffer
+   256, chunkWaves 256) with the counters zeroed just before its warm-up
+   and read just after — every scenario places 20,000 with no drop,
+   scenario 0 equals greedy_replay's pins (RETRY_PINS), the batch without
+   the buffer places fewer (scenario 0 pinned too); median of 3, busy
+   share, B6's bound;
+14. ``run``'s engine on CONFIG7 (S = 1) against the same pins: wall and
+   placements/s;
+15. the contended retry what-if: CONFIG7 cut to 150 nodes, 64 scenarios —
+   scenario 0 against its pins with and without the buffer, the batch
+   placing differently without it; then at the boundary where the most
+   scenarios hold buffered pods every launch of the boundary sequence
+   (static and pending releases, each pass slot's K1 → K2 → K3, K4) and
+   the following main-path binds (failure appends and overflows) held
+   against the twins plane by plane, and each retry mode timed beside
+   its twin and its least time.
 
 Prints the kernel table as one JSON line, then, as its last line,
 ``{"ok": true, "device": {...}}``. Any failed check raises (exit code not
@@ -85,6 +108,9 @@ from kubernetes_simulator_tpu_torch.sim.synthetic import make_cluster, make_work
 from kubernetes_simulator_tpu_torch.sim.torch_runtime import (  # noqa: E402
     StepSpec,
     TorchReplayEngine,
+    new_choices,
+    retry_slots,
+    run_waves,
 )
 from kubernetes_simulator_tpu_torch.sim.whatif import (  # noqa: E402
     Perturbation,
@@ -115,6 +141,30 @@ PREEMPT_PINS = {
                    sha256="f78d570f85ec5002d72885c6e4a4f9b5bba49b4359b84e6921f1578d368f1fb6"),
 }
 
+#: The unschedulable-retry buffer: CONFIG7 (a what-if of 64 scenarios x
+#: 500 nodes x 20,000 pods, durationMean 40, retryBuffer 256, chunkWaves
+#: 256) as shipped, and its cluster cut to RETRY_CUT_NODES so that the
+#: buffer fills and overflows.
+CONFIG7 = "examples/config7_retry_completions.yaml"
+RETRY_CUT_NODES = 150
+#: greedy_replay(retry_buffer=256, completions_chunk_waves=256) of the JAX
+#: package on CONFIG7 (scenario 0 of its what-if) and on its 150-node cut,
+#: with and without the buffer: placed pods, drops and the sha256 of the
+#: int32 assignments. tests/test_torch_retry_pins.py recomputes them.
+RETRY_PINS = {
+    "config7": dict(placed=20000, retry_dropped=0,
+                    sha256="1f423f2ffe2680a96a3fe5a8c9a7287305a02bfec527e6c477d0de8d8c6f2100"),
+    "config7_no_retry": dict(placed=19995, retry_dropped=0,
+                             sha256="e07628c9ed2e9576601b5d5f3d8f1f6d222dbae7c90937511d1b8c825d6b564b"),
+    "cut150": dict(placed=18228, retry_dropped=1608,
+                   sha256="4a45ace5c00e5876f62113048b545d1211621392ce81ca98629486373f3f3664"),
+    "cut150_no_retry": dict(placed=18508, retry_dropped=0,
+                            sha256="ae0ce5f0b76ab61d5fc8bea303e0fc6da99685a2a71dbdd65738204995ac66bc"),
+}
+#: The retry tables compared between paths and launch by launch.
+RETRY_PLANES = ("rbuf", "rcount", "rdrop", "rchoice", "pend_id", "pend_node", "pend_relb",
+                "rnode", "rbind_b")
+
 SOURCES = {
     "filter_score": ("kubernetes_simulator_tpu_torch/csrc/filter_score.cu",
                      "kubernetes_simulator_tpu/ops/tpu3.py:944"),
@@ -122,7 +172,25 @@ SOURCES = {
                          "kubernetes_simulator_tpu/ops/tpu.py:739"),
     "apply_placements": ("kubernetes_simulator_tpu_torch/csrc/apply_placements.cu",
                          "kubernetes_simulator_tpu/sim/jax_runtime.py:1414"),
+    "retry_boundary": ("kubernetes_simulator_tpu_torch/csrc/retry_boundary.cu",
+                       "kubernetes_simulator_tpu/sim/whatif.py:1456"),
 }
+#: The kernels' retry-buffer work, each with the kernel it runs in and the
+#: reference lines it replaces.
+RETRY_SOURCES = {
+    "apply_placements_pending_release": ("apply_placements",
+                                         "kubernetes_simulator_tpu/sim/whatif.py:1437"),
+    "filter_score_per_scenario_pod": ("filter_score",
+                                      "kubernetes_simulator_tpu/sim/whatif.py:1444"),
+    "normalize_select_per_scenario_pod": ("normalize_select",
+                                          "kubernetes_simulator_tpu/sim/whatif.py:1444"),
+    "apply_placements_retry_bind": ("apply_placements",
+                                    "kubernetes_simulator_tpu/sim/whatif.py:1444"),
+    "apply_placements_failure_append": ("apply_placements",
+                                        "kubernetes_simulator_tpu/sim/whatif.py:1502"),
+}
+#: The kernels every path launches (the retry buffer adds retry_boundary).
+SOURCES_PLAIN = ("filter_score", "normalize_select", "apply_placements")
 #: The kernels' tier-preemption work, each with the kernel it runs in and
 #: the reference function it replaces.
 PREEMPT_SOURCES = {
@@ -261,9 +329,10 @@ class Work:
         return nbytes, len(ev_tiers) * cols + matches * 4 + sum(int(t) * (R + 1)
                                                                 for t in ev_tiers)
 
-    def k1(self, p):
-        """(bytes, ops) of K1 for pod p over all S scenarios."""
-        ep, k, S, N, R = self.ep, self.k, self.S, self.N, self.R
+    def _k1_reads(self, p):
+        """(expression columns, looked-up groups, plane cells) K1 reads for
+        pod p."""
+        ep, k = self.ep, self.k
         mc, aa, pw = set(), set(), set()
         if k.interpod:
             mc = _ids(ep.aff_req[p]) | _ids(ep.anti_req[p]) | _ids(ep.pref_aff[p])
@@ -274,26 +343,69 @@ class Work:
         exprs = set()
         if k.node_affinity:
             exprs = _ids(ep.na_pref[p]) | (_ids(ep.na_req[p]) if ep.na_has_req[p] else set())
-        looked_up = mc | aa | pw
-        cells = sum(int(self.gnd[g]) for gs in (mc, aa, pw) for g in gs)
+        return exprs, mc | aa | pw, sum(int(self.gnd[g]) for gs in (mc, aa, pw) for g in gs)
+
+    def k1(self, p):
+        """(bytes, ops) of K1 for pod p over all S scenarios."""
+        return self.k1_scen(np.full(self.S, p))
+
+    def k1_scen(self, pods):
+        """(bytes, ops) of K1 with pod ``pods[s]`` in scenario s (the retry
+        pass; PAD: the scenario only writes its zero rows). Tables shared by
+        the scenarios count once, the pod rows once per distinct pod."""
+        ep, k, N, R = self.ep, self.k, self.N, self.R
+        pods = np.asarray(pods, np.int64)
+        live = pods[pods >= 0]
+        act, pad = live.size, pods.size - live.size
         TO = ep.tol_key.shape[1]
+        exprs, looked_up = set(), set()
+        cells = 0
+        for p in np.unique(live).tolist():
+            e, g, c = self._k1_reads(p)
+            exprs |= e
+            looked_up |= g
+            cells += c * int((live == p).sum())
+        per = lambda copies: copies if copies == 1 else act  # shared once, else per scenario
         nbytes = (
-            S * N * R * 4 + self.alloc_copies * N * R * 4 + R * 4  # used, alloc, request
-            + (self.taint_copies * 3 * N * self.TT * 4 + TO * 12 if k.taints else 0)
-            + N * len(exprs)  # expression-match columns the pod's terms name
+            act * N * R * 4 + (N * R * 4 if self.alloc_copies == 1 else act * N * R * 4)
+            + np.unique(live).size * (R * 4 + (TO * 12 if k.taints else 0))  # pod rows
+            + (per(self.taint_copies) * 3 * N * self.TT * 4 if k.taints and act else 0)
+            + N * len(exprs)  # expression-match columns the pods' terms name
             + len(looked_up) * N * 4  # gdom rows, shared
-            + S * cells * 4  # plane cells, per scenario
-            + S * N * (1 + self.rows_on * 4 + int(k.on_sp))  # feasible, rows, ignored
+            + cells * 4  # plane cells, per scenario
+            + act * N * (1 + self.rows_on * 4 + int(k.on_sp))  # feasible, rows, ignored
+            + pad * N * (2 + ref.NUM_ROWS * 4)  # an empty slot's zero rows
         )
-        nops = S * N * (R * 8 + (self.TT * (4 + TO * 6) if k.taints else 0)
-                        + len(exprs) + len(looked_up) * 4 + 16)
+        nops = act * N * (R * 8 + (self.TT * (4 + TO * 6) if k.taints else 0)
+                          + len(exprs) + len(looked_up) * 4 + 16)
         return nbytes, nops
 
     def k2(self):
         """(bytes, ops) of K2 for one slot over all S scenarios."""
-        S, N = self.S, self.N
-        return (S * (N * (1 + self.rows_on * 4 + int(self.k.on_sp)) + 4),
-                S * N * (2 + self.rows_on * 8))
+        return self.k2_scen(self.S)
+
+    def k2_scen(self, act):
+        """(bytes, ops) of K2 where ``act`` of the S scenarios hold a pod;
+        the others write their PAD choice only."""
+        N = self.N
+        return (act * (N * (1 + self.rows_on * 4 + int(self.k.on_sp)) + 4) + (self.S - act) * 8,
+                act * N * (2 + self.rows_on * 8))
+
+    def k3_append(self):
+        """(bytes, ops) a main-path bind adds under the retry buffer: each
+        scenario's count read and its buffer slot or drop counter written."""
+        return self.S * 12, self.S
+
+    def k4(self, rbuf, rchoice, pend_id, pend_relb, n_tbt):
+        """(bytes, ops) of K4 on a boundary's buffers [S, RB]: every buffer
+        slot, choice and pending entry read, the lists and counts written,
+        and per retried bind its duration, its log2(B) steps of the
+        boundary times and its two records."""
+        S, RB = rbuf.shape
+        placed = int(((rbuf >= 0) & (rchoice >= 0)).sum())
+        steps = max(int(np.ceil(np.log2(max(n_tbt, 2)))), 1)
+        nbytes = S * RB * 20 + S * (RB * 16 + 4) + placed * (4 + steps * 4 + 8)
+        return nbytes, S * RB * 8 + placed * (steps + 4)
 
     def _terms(self, p):
         """(plane, group) pairs K3 adds to for pod p: match_count (0) for
@@ -310,23 +422,25 @@ class Work:
         return t
 
     def k3(self, pods, nodes, rollback=False):
-        """(bytes, ops) of K3 applying pods[k] at nodes[s, k] in each of the
-        S scenarios. A rollback reads the wave's choices and gang ids and
-        undoes only the pairs of a gang left partial: pass those pairs'
-        nodes (PAD for the rest)."""
+        """(bytes, ops) of K3 applying pods[k] (or, per scenario, pods[s, k])
+        at nodes[s, k] in each of the S scenarios. A rollback reads the
+        wave's choices and gang ids and undoes only the pairs of a gang left
+        partial: pass those pairs' nodes (PAD for the rest)."""
         ep, N, R, G, D = self.ep, self.N, self.R, self.G, self.D
         pods = np.asarray(pods, np.int64)
-        nodes = np.asarray(nodes, np.int64).reshape(-1, pods.size)
+        K = pods.shape[-1]
+        nodes = np.asarray(nodes, np.int64).reshape(-1, K)
         S = nodes.shape[0]
+        pods2 = np.broadcast_to(pods, (S, K))
         uniq = np.unique(pods[pods >= 0])
         AA, PA = ep.anti_req.shape[1], ep.pref_aff.shape[1]
-        nbytes = (pods.size * 8 + S * pods.size * 4  # pod ids, slots; each scenario's choice
+        nbytes = (pods.size * 4 + K * 4 + S * K * 4  # pod ids, slots; each scenario's choice
                   + uniq.size * (R * 4 + G + AA * 4 + PA * 8)  # the pods' shared rows
                   + (pods.size * 4 if rollback else 0))  # gang ids
-        s_i, k_i = np.nonzero((nodes >= 0) & (pods >= 0)[None])
+        s_i, k_i = np.nonzero((nodes >= 0) & (pods2 >= 0))
         if s_i.size == 0:
             return nbytes, 0
-        n, p = nodes[s_i, k_i], pods[k_i]
+        n, p = nodes[s_i, k_i], pods2[s_i, k_i]
         nbytes += np.unique(s_i * N + n).size * R * 8  # used rows, read and written
         order = np.argsort(p, kind="stable")
         up, first, count = np.unique(p[order], return_index=True, return_counts=True)
@@ -350,29 +464,76 @@ class Work:
         nbytes += np.unique(cell).size * 8  # plane cells, read and written
         return nbytes, s_i.size * R + int(live.sum())
 
-    def chunk_loop_ms(self, plan, assignments, launches):
+    def chunk_loop_ms(self, plan, assignments, launches, evictions=None, retry_walk=None):
         """B6's bound: the sum over every launch of a run of that launch's
         least time. K1 counts each wave pod, K2 each slot; K3 binds and
-        releases count the nodes the run's assignments [S, P] give them,
-        which leaves out the binds of gang pods later rolled back, and a
-        rollback counts its reads only (the run records no undone pair):
-        this term is a floor."""
+        releases count the nodes the run's assignments [S, P] give them
+        (for the main-path binds: a pod placed on retry counts as PAD
+        there), which leaves out the binds of pods later rolled back or
+        evicted, and a rollback counts its reads only (the run records no
+        undone pair): this term is a floor.
+
+        Under tier preemption ``evictions`` ([waves, S] victims each wave
+        took in each scenario; at most one eviction a wave and scenario)
+        adds K1's candidate rows of the pods that may preempt, K2's argmin
+        where it fired, and per eviction a floor of K3's step: the columns
+        before the wave's first slot and the pre-bound tail scanned, each
+        victim read and marked, one tier below the preemptor's. Under the
+        retry buffer ``retry_walk`` (per boundary b > 0: the buffer and
+        pending list before the boundary, the pass's choices) adds the
+        pending release, each pass slot's K1 → K2 → K3, K4, and each
+        main-path bind's failure append."""
         S = self.S
         wave_pods = plan.idx[plan.idx >= 0]
         k1 = sum(bound(*self.k1(int(p)))[0] for p in wave_pods)
-        k2 = launches["normalize_select"] * bound(*self.k2())[0]
+        k2 = wave_pods.size * bound(*self.k2())[0]
         binds = sum(bound(*self.k3([p], assignments[:, p]))[0] for p in wave_pods.tolist())
         pad = lambda w: np.full((S, w.size), PAD)
         rollbacks = sum(bound(*self.k3(w, pad(w), rollback=True))[0]
                         for w in plan.idx[plan.gang_wave])
         releases = sum(bound(*self.k3(bk[0], assignments[:, bk[0]]))[0]
                        for bk in plan.buckets if bk is not None)
-        n_k3 = (wave_pods.size + int(plan.gang_wave.sum())
-                + sum(bk is not None for bk in plan.buckets))
-        if (launches["filter_score"] != wave_pods.size or launches["apply_placements"] != n_k3):
-            raise AssertionError(f"launch counts {launches} do not match the chunk plan")
-        return dict(k1=k1, k2=k2, k3_bind=binds, k3_rollback=rollbacks, k3_release=releases,
-                    total=k1 + k2 + binds + rollbacks + releases)
+        want = dict(filter_score=wave_pods.size, normalize_select=wave_pods.size,
+                    apply_placements=(wave_pods.size + int(plan.gang_wave.sum())
+                                      + sum(bk is not None for bk in plan.buckets)),
+                    retry_boundary=0)
+        out = dict(k1=k1, k2=k2, k3_bind=binds, k3_rollback=rollbacks, k3_release=releases)
+        if evictions is not None:
+            W, tail = plan.idx.shape[1], plan.prebound.size
+            out["k1_candidates"] = sum(bound(*self.k1_preempt(int(p)))[0] for p in wave_pods)
+            fired = (evictions > 0).sum(axis=1)
+            out["k2_argmin"] = sum(bound(*self.k2_fire(int(f)))[0] for f in fired if f)
+            out["k3_evict"] = sum(
+                bound(*self.k3_evict(w * W + tail, int(v.sum()), int(v.sum()),
+                                     [1] * int((v > 0).sum())))[0]
+                for w, v in enumerate(evictions) if v.any())
+        if retry_walk is not None:
+            RB = retry_walk[0]["rbuf"].shape[1] if retry_walk else 0
+            k1r = k2r = k3r = pend = k4 = 0.0
+            for b, step in enumerate(retry_walk, start=1):
+                rbuf, rch = step["rbuf"], step["rchoice"]
+                due = (step["pend_id"] >= 0) & (step["pend_relb"] <= b)
+                nb, no = self.k3(step["pend_id"], np.where(due, step["pend_node"], PAD))
+                pend += bound(nb + S * RB * 4, no)[0]
+                n = retry_slots(plan, b, RB)
+                for k in range(n):
+                    k1r += bound(*self.k1_scen(rbuf[:, k]))[0]
+                    k2r += bound(*self.k2_scen(int((rbuf[:, k] >= 0).sum())))[0]
+                    k3r += bound(*self.k3(rbuf[:, k : k + 1],
+                                          np.where(rbuf[:, k : k + 1] >= 0, rch[:, k : k + 1],
+                                                   PAD)))[0]
+                k4 += bound(*self.k4(rbuf, rch, step["pend_id"], step["pend_relb"],
+                                     plan.tbt.size))[0]
+                for name in ("filter_score", "normalize_select"):
+                    want[name] += n
+                want["apply_placements"] += 1 + n
+                want["retry_boundary"] += 1
+            out.update(k3_pending_release=pend, k1_retry=k1r, k2_retry=k2r, k3_retry_bind=k3r,
+                       k4=k4, k3_append=wave_pods.size * bound(*self.k3_append())[0])
+        if any(launches.get(k, 0) != n for k, n in want.items()):
+            raise AssertionError(f"launch counts {launches} do not match the chunk plan {want}")
+        out["total"] = sum(out.values())
+        return out
 
 
 def mid_replay_tables(ec, ep, cl, consts, S, rng, dev):
@@ -735,8 +896,9 @@ def check_pins(where, pin, placed, victims, assignments):
 def hold_preempt(where, eng, n_check, dev, results):
     """Each kernel against its twin under tier preemption, launch after
     launch, in a mid-replay window where evictions fire: a kernel-path run
-    of ``eng`` (counting victims every 16 waves) finds the 16-wave block
-    with the most victims; a second run stops at that block, the state is
+    of ``eng`` (reading each scenario's victims after every wave, which
+    also gives B6's bound its evictions) finds the 16-wave block with the
+    most victims; a second run stops at that block, the state is
     copied into twin tables on the card, and from there K1 → K2 → K3 (and
     each boundary release and gang rollback) run on both for ``n_check``
     slots. After every launch the masks, score rows, candidate rows,
@@ -745,17 +907,16 @@ def hold_preempt(where, eng, n_check, dev, results):
     Then a release bucket of the placed pods (tier planes included) and,
     where the trace has gangs, a gang rollback. Returns what the timings
     reuse."""
-    from kubernetes_simulator_tpu_torch.sim.torch_runtime import new_choices, run_waves
-
     plan, S, bound_node = eng.plan, eng.S, eng.pods.bound_node
     nw = plan.idx.shape[0]
     tb = eng._tables()
     ch = new_choices(plan, S, bound_node, dev)
-    seen = []
-    for w0 in range(0, nw, 16):
-        run_waves(plan, tb, ch, w0, min(w0 + 16, nw), plain=False)
-        seen.append(int(tb.preempt.victims.sum()))
-    gain = np.diff([0] + seen)
+    vic = np.zeros((nw + 1, S), np.int64)
+    for w in range(nw):
+        run_waves(plan, tb, ch, w, w + 1, plain=False)
+        vic[w + 1] = tb.preempt.victims.cpu().numpy()
+    wave_victims = np.diff(vic, axis=0)  # [waves, S] victims each wave took
+    gain = np.add.reduceat(wave_victims.sum(axis=1), np.arange(0, nw, 16))
     if gain.max() <= 0:
         raise AssertionError(f"{where}: no eviction fired in the run")
     w_start = int(np.argmax(gain)) * 16
@@ -884,7 +1045,7 @@ def hold_preempt(where, eng, n_check, dev, results):
           f"{'' if rolled is None else ' and a gang rollback'}; kernels equal their twins "
           f"exactly", flush=True)
     return dict(b=b, tb_k=tb_k, tb_t=tb_t, ch_k=ch_k, ch_t=ch_t, fire=fire_slot,
-                rel=(rel_p, rel_pos, col_pod[cols]))
+                rel=(rel_p, rel_pos, col_pod[cols]), wave_victims=wave_victims)
 
 
 def time_preempt(eng, held, dev, iters=200, plain_iters=20):
@@ -1042,8 +1203,8 @@ def run_preempt_paths(results, dev):
     K.reset_launch_counts()
     warm = eng.replay()
     launches = K.launch_counts()
-    for k, n in launches.items():
-        if n <= 0:
+    for k in SOURCES_PLAIN:
+        if launches[k] <= 0:
             raise AssertionError(f"kernel {k} was not launched by the config6 replay")
     check_result(ec, ep, warm)
     check_pins("config6 replay", PREEMPT_PINS["config6"], warm.placed, warm.preemptions,
@@ -1066,6 +1227,10 @@ def run_preempt_paths(results, dev):
           f"pins); launches {json.dumps(launches)}; profiled: wall {res_p.wall_clock_s:.3f}s, "
           f"device busy {busy_s:.3f}s ({busy_s / res_p.wall_clock_s:.1%})", flush=True)
     held1 = hold_preempt("S=1 preemption kernel checks (config6)", eng, 300, dev, results)
+    results["chunk_loop_bound_ms_config6"] = Work(ep, eng._tables()).chunk_loop_ms(
+        eng.plan, warm.assignments[None], launches, evictions=held1["wave_victims"])
+    print(f"config6 chunk-loop bound (B6): "
+          f"{json.dumps(results['chunk_loop_bound_ms_config6'])} ms", flush=True)
     results["kernels_preempt_s1"] = time_preempt(eng, held1, dev)
     del eng, warm, runs, res_p, held1
 
@@ -1079,8 +1244,8 @@ def run_preempt_paths(results, dev):
     K.reset_launch_counts()
     warm = eng.run()
     launches = K.launch_counts()
-    for k, n in launches.items():
-        if n <= 0:
+    for k in SOURCES_PLAIN:
+        if launches[k] <= 0:
             raise AssertionError(f"kernel {k} was not launched by the preemption what-if")
     check_whatif_result(ep, warm, pw["scenarios"])
     check_pins("what-if scenario 0", PREEMPT_PINS["whatif"], warm.placed[0],
@@ -1118,9 +1283,495 @@ def run_preempt_paths(results, dev):
           f"busy {busy_s:.3f}s ({busy_s / res_p.wall_clock_s:.1%})", flush=True)
     held = hold_preempt(f"S={pw['scenarios']} preemption kernel checks (what-if shape)", eng,
                         300, dev, results)
+    results["chunk_loop_bound_ms_preempt_whatif"] = Work(ep, eng._tables()).chunk_loop_ms(
+        eng.plan, warm.assignments, launches, evictions=held["wave_victims"])
+    print(f"tier-preemption what-if chunk-loop bound (B6): "
+          f"{json.dumps(results['chunk_loop_bound_ms_preempt_whatif'])} ms", flush=True)
     kernels = time_preempt(eng, held, dev)
     results["kernels_preempt"] = kernels
     print(f"preemption kernels at S={pw['scenarios']}, N={ec.num_nodes}: "
+          + "; ".join(f"{k} {m['ms'] * 1e3:.2f} us (bound {m['bound_ms'] * 1e3:.4f} us, twin "
+                      f"{m['plain_ms']:.3f} ms)" for k, m in kernels.items()), flush=True)
+    return kernels, launches
+
+
+# ---------------------------------------------------------------------------
+# The unschedulable-retry buffer (whatIf.retryBuffer)
+# ---------------------------------------------------------------------------
+
+
+def config7_case(nodes=None, pods=None):
+    """(SimConfig, EncodedCluster, EncodedPods) of CONFIG7 as the port's
+    config parses it (500 nodes, 20,000 pods, durationMean 40, affinity,
+    spread, tolerations, retryBuffer 256, chunkWaves 256); ``nodes`` /
+    ``pods`` cut it."""
+    import yaml
+
+    from kubernetes_simulator_tpu_torch.utils.config import SimConfig, build_encoded_case
+
+    with open(os.path.join(ROOT, CONFIG7)) as f:
+        d = yaml.safe_load(f)
+    if nodes:
+        d["cluster"]["synthetic"]["nodes"] = nodes
+    if pods:
+        d["workload"]["synthetic"]["pods"] = pods
+    cfg = SimConfig.from_dict(d)
+    return (cfg,) + tuple(build_encoded_case(cfg))
+
+
+def check_retry_pins(where, pin, placed, dropped, assignments):
+    got = dict(placed=int(placed), retry_dropped=int(dropped),
+               sha256=assignments_sha256(assignments))
+    if got != pin:
+        raise AssertionError(f"{where}: {got} != greedy_replay's pinned {pin}")
+
+
+def retry_records(tb):
+    """The retry tables of a run's tables as host arrays."""
+    return {f: getattr(tb.retry, f).cpu().numpy() for f in RETRY_PLANES}
+
+
+def same_records(where, a, b):
+    for f in RETRY_PLANES:
+        if not np.array_equal(a[f], b[f]):
+            raise AssertionError(f"{where}: retry.{f} differs")
+
+
+def check_reduced_retry(results, dev="cuda"):
+    """Reduced retry cases on the kernel path, the plain path on the card
+    and the plain path on the CPU: CONFIG7's workload and plugins cut to
+    40 nodes x 3,000 pods (chunkWaves 32, retryBuffer 64: the buffer fills
+    and overflows), as a single replay and as an 8-scenario what-if.
+    Placed, retry_dropped, the (internal) assignments and every retry
+    record must be identical, and retry must change the outcome."""
+    cfg, ec, ep = config7_case(nodes=40, pods=3000)
+    kw = dict(wave_width=cfg.wave_width, chunk_waves=32, retry_buffer=64)
+    runs, walls = [], []
+    for o in (dict(device=dev), dict(device=dev, plain=True), dict(device="cpu")):
+        t0 = time.perf_counter()
+        eng = TorchReplayEngine(ec, ep, cfg.framework, **kw, **o)
+        r = eng.replay()
+        walls.append(time.perf_counter() - t0)
+        runs.append((r, retry_records(eng.last_tables)))
+    (kern, rec), others = runs[0], runs[1:]
+    for name, (other, orec) in zip(("plain on the card", "plain on the cpu"), others):
+        diff = np.nonzero(kern.assignments != other.assignments)[0]
+        if diff.size or (kern.placed, kern.retry_dropped) != (other.placed, other.retry_dropped):
+            raise AssertionError(f"reduced retry replay: kernel path != {name} at pods "
+                                 f"{diff[:5]}")
+        same_records(f"reduced retry replay vs {name}", rec, orec)
+    off_replay = TorchReplayEngine(ec, ep, cfg.framework, wave_width=cfg.wave_width,
+                                   chunk_waves=32, device=dev).replay().placed
+    if kern.retry_dropped <= 0 or (rec["rnode"] >= 0).sum() == 0 or off_replay == kern.placed:
+        raise AssertionError("reduced retry replay is vacuous (no drop, no retried bind or no "
+                             "change against no retry)")
+    results["reduced_retry_replay"] = dict(
+        nodes=40, pods=3000, placed=kern.placed, retry_dropped=kern.retry_dropped,
+        retried_binds=int((rec["rnode"] >= 0).sum()), placed_without_retry=off_replay,
+        kernel_s=walls[0], plain_card_s=walls[1], plain_cpu_s=walls[2])
+    scen = uniform_scenarios(ec, 8, seed=1, p_node_down=0.5, p_capacity=0.5, p_taint=0.5)
+    runs, walls = [], []
+    for o in (dict(device=dev), dict(device=dev, plain=True), dict(device="cpu")):
+        t0 = time.perf_counter()
+        eng = WhatIfEngine(ec, ep, scen, cfg.framework, **kw, **o)
+        tb, _, assignments, placed, _ = eng._run()
+        walls.append(time.perf_counter() - t0)
+        runs.append((assignments, placed, retry_records(tb)))
+    (ka, kp, krec), others = runs[0], runs[1:]
+    for name, (oa, op, orec) in zip(("plain on the card", "plain on the cpu"), others):
+        bad = np.argwhere(ka != oa)
+        if bad.size or not np.array_equal(kp, op):
+            raise AssertionError(f"reduced retry what-if: kernel path != {name} at (scenario, "
+                                 f"pod) {bad[:5].tolist()}")
+        same_records(f"reduced retry what-if vs {name}", krec, orec)
+    off = WhatIfEngine(ec, ep, scen, cfg.framework, wave_width=cfg.wave_width, chunk_waves=32,
+                       device=dev).run()
+    if (krec["rdrop"] > 0).sum() < 4 or np.array_equal(off.placed, kp):
+        raise AssertionError("reduced retry what-if is vacuous")
+    results["reduced_retry_whatif"] = dict(
+        scenarios=8, nodes=40, pods=3000, placed=kp.tolist(), retry_dropped=krec["rdrop"].tolist(),
+        placed_without_retry=off.placed.tolist(), kernel_s=walls[0], plain_card_s=walls[1],
+        plain_cpu_s=walls[2])
+    print(f"reduced retry: replay (40 nodes x 3000 pods, retryBuffer 64) placed {kern.placed} "
+          f"(without retry {off_replay}), {kern.retry_dropped} dropped; what-if (8 x 40 x 3000) placed {kp.tolist()}, dropped "
+          f"{krec['rdrop'].tolist()}; identical on the kernel path, the plain path on the card "
+          f"and on the CPU, every retry record included", flush=True)
+
+
+def clone_tables(tb):
+    c = lambda nt: None if nt is None else type(nt)(
+        *(x.clone() if torch.is_tensor(x) else x for x in nt))
+    return tb._replace(state=c(tb.state), scratch=c(tb.scratch), retry=c(tb.retry))
+
+
+def lockstep(where, plan, tb_k, tb_t, ch_k, ch_t, first, end, dev, snap=None,
+             after_bind=None):
+    """Waves [first, end) of ``plan`` (as run_waves enqueues them, with the
+    retry sequence at each boundary past 0) on the kernels over ``tb_k``
+    and on the twins over ``tb_t``, launch by launch: after every launch
+    the scratch rows, the choice buffer, the state and every retry table
+    must be equal. ``snap(name, at)`` is called before chosen launches
+    (the kernel tables as they stand) and ``after_bind()`` after each
+    main-path bind. Returns the count of each kind of launch (``appends``
+    and ``overflows`` count scenarios)."""
+    b_k = K.Bound(tb_k)
+    rk, rt = tb_k.retry, tb_t.retry
+    RB = rk.rbuf.shape[1]
+    W, C = plan.idx.shape[1], plan.C
+    idx_dev = torch.as_tensor(plan.idx.reshape(-1), device=dev)
+    pos_dev = torch.arange(plan.L, dtype=torch.int32, device=dev)
+    pos_rb = torch.arange(RB, dtype=torch.int32, device=dev)
+    n = dict(static_release=0, pending_release=0, retry_slots=0, k4=0, binds=0, appends=0,
+             overflows=0, rollbacks=0)
+
+    def same(at):
+        for part in ("state", "scratch", "retry"):
+            x, y = getattr(tb_k, part), getattr(tb_t, part)
+            for name in x._fields:
+                if not torch.equal(getattr(x, name), getattr(y, name)):
+                    raise AssertionError(f"{where}, {at}: {part}.{name} differs")
+        if not torch.equal(ch_k, ch_t):
+            raise AssertionError(f"{where}, {at}: choice buffers differ at "
+                                 f"{torch.nonzero(ch_k != ch_t)[:5].tolist()}")
+
+    for w in range(first, end):
+        b = w // C
+        if w % C == 0 and plan.buckets[b] is not None:
+            bp, bpos = (torch.as_tensor(x, device=dev) for x in plan.buckets[b])
+            K.apply_placements(b_k, bp, bpos, ch_k, -1.0)
+            ref.apply_placements(tb_t, bp, bpos, ch_t, -1.0)
+            same(f"static release at boundary {b}")
+            n["static_release"] += 1
+        if w % C == 0 and b > 0:
+            if snap:
+                snap("pending_release", b)
+            K.apply_placements(b_k, rk.pend_id, pos_rb, rk.pend_node, -1.0, due=(rk.pend_relb, b))
+            ref.apply_placements(tb_t, rt.pend_id, pos_rb, rt.pend_node, -1.0,
+                                 due=(rt.pend_relb, b))
+            same(f"pending release at boundary {b}")
+            n["pending_release"] += 1
+            for k in range(retry_slots(plan, b, RB)):
+                if snap and k == 0:
+                    snap("retry_slot", b)
+                K.filter_score(b_k, PAD, rk.rbuf[:, k])
+                ref.filter_score(tb_t, PAD, rt.rbuf[:, k])
+                same(f"retry K1, boundary {b} slot {k}")
+                K.normalize_select(b_k, PAD, rk.rchoice, k, -1, rk.rbuf[:, k])
+                ref.normalize_select(tb_t, PAD, rt.rchoice, k, -1, rt.rbuf[:, k])
+                same(f"retry K2, boundary {b} slot {k}")
+                K.apply_placements(b_k, rk.rbuf[:, k : k + 1], pos_rb[k : k + 1], rk.rchoice, 1.0)
+                ref.apply_placements(tb_t, rt.rbuf[:, k : k + 1], pos_rb[k : k + 1], rt.rchoice,
+                                     1.0)
+                same(f"retry K3, boundary {b} slot {k}")
+                n["retry_slots"] += 1
+            if snap:
+                snap("k4", b)
+            t_b = float(np.float32(plan.tb[b]))
+            K.retry_boundary(b_k, b, t_b)
+            ref.retry_boundary(tb_t, b, t_b)
+            same(f"K4 at boundary {b}")
+            n["k4"] += 1
+        for k, p in enumerate(plan.idx[w].tolist()):
+            if p < 0:
+                continue
+            s = w * W + k
+            K.filter_score(b_k, p)
+            ref.filter_score(tb_t, p)
+            K.normalize_select(b_k, p, ch_k, s, w)
+            ref.normalize_select(tb_t, p, ch_t, s, w)
+            before = (rk.rcount.clone(), rk.rdrop.clone())
+            if snap:
+                snap("bind", (w, k))
+            K.apply_placements(b_k, idx_dev[s : s + 1], pos_dev[s : s + 1], ch_k, 1.0, append=True)
+            ref.apply_placements(tb_t, idx_dev[s : s + 1], pos_dev[s : s + 1], ch_t, 1.0,
+                                 append=True)
+            same(f"bind of pod {p} (wave {w})")
+            if after_bind:
+                after_bind()
+            n["binds"] += 1
+            n["appends"] += int((rk.rcount > before[0]).sum())
+            n["overflows"] += int((rk.rdrop > before[1]).sum())
+        if plan.gang_wave[w]:
+            K.apply_placements(b_k, idx_dev[w * W : (w + 1) * W], pos_dev[w * W : (w + 1) * W],
+                               ch_k, -1.0, rollback=True)
+            ref.apply_placements(tb_t, idx_dev[w * W : (w + 1) * W], pos_dev[w * W : (w + 1) * W],
+                                 ch_t, -1.0, rollback=True)
+            same(f"rollback of wave {w}")
+            n["rollbacks"] += 1
+    return n
+
+
+def retry_walk(eng, dev):
+    """A kernel-path run of ``eng`` chunk by chunk, reading the retry
+    tables after each chunk: per boundary b > 0 the buffer and pending list
+    it starts from and its pass's choices (B6's bound and the choice of the
+    densest boundary take them)."""
+    plan = eng.plan
+    tb = eng._tables()
+    ch = new_choices(plan, eng.S, eng.pods.bound_node, dev)
+    snaps = []
+    for c in range(len(plan.buckets)):
+        run_waves(plan, tb, ch, c * plan.C, (c + 1) * plan.C, plain=False)
+        snaps.append({f: getattr(tb.retry, f).cpu().numpy()
+                      for f in ("rbuf", "pend_id", "pend_node", "pend_relb", "rchoice")})
+    return [dict(rbuf=snaps[b - 1]["rbuf"], pend_id=snaps[b - 1]["pend_id"],
+                 pend_node=snaps[b - 1]["pend_node"], pend_relb=snaps[b - 1]["pend_relb"],
+                 rchoice=snaps[b]["rchoice"]) for b in range(1, len(snaps))]
+
+
+def hold_retry(where, eng, walk, dev, results, waves_after=16):
+    """Each kernel against its twin under the retry buffer, launch after
+    launch, at the boundary where the most scenarios hold buffered pods
+    (from ``walk``): a kernel-path run stops there, the tables are copied
+    into twin tables on the card, and from there the static release, the
+    pending release, every pass slot's K1 → K2 → K3, K4 and the waves
+    after it — at least ``waves_after``, and on until a main-path bind has
+    appended a failure and one has overflowed a full buffer — run on both,
+    every plane compared after every launch. Returns snapshots of the
+    kernel tables before each timed mode."""
+    plan, S = eng.plan, eng.S
+    held = [int((step["rbuf"][:, 0] >= 0).sum()) for step in walk]
+    pods_held = [int((step["rbuf"] >= 0).sum()) for step in walk]
+    b = 1 + max(range(len(walk)), key=lambda i: (held[i], pods_held[i]))
+    tb_k = eng._tables()
+    ch_k = new_choices(plan, S, eng.pods.bound_node, dev)
+    run_waves(plan, tb_k, ch_k, 0, b * plan.C, plain=False)
+    torch.cuda.synchronize()
+    tb_t, ch_t = clone_tables(tb_k), ch_k.clone()
+    snaps, last = {}, {}
+
+    def snap(name, at):
+        if name == "bind":
+            last["bind"] = (clone_tables(tb_k), ch_k.clone(), at)
+            last["counts"] = (tb_k.retry.rcount.clone(), tb_k.retry.rdrop.clone())
+        elif name not in snaps:
+            snaps[name] = (clone_tables(tb_k), ch_k.clone(), at)
+
+    def snap_after_bind():
+        rc, rd = last["counts"]
+        if "append" not in snaps and bool((tb_k.retry.rcount > rc).any()):
+            snaps["append"] = last["bind"]
+        if "overflow" not in snaps and bool((tb_k.retry.rdrop > rd).any()):
+            snaps["overflow"] = last["bind"]
+
+    n = dict(static_release=0, pending_release=0, retry_slots=0, k4=0, binds=0, appends=0,
+             overflows=0, rollbacks=0)
+    end = b * plan.C
+    while end < plan.idx.shape[0] and (end < b * plan.C + waves_after or n["appends"] == 0
+                                       or n["overflows"] == 0):
+        for k, v in lockstep(where, plan, tb_k, tb_t, ch_k, ch_t, end, end + 1, dev, snap,
+                             snap_after_bind).items():
+            n[k] += v
+        end += 1
+    if n["appends"] == 0 or n["overflows"] == 0 or n["retry_slots"] == 0:
+        raise AssertionError(f"{where}: the window saw no append, overflow or retry slot: {n}")
+    out = dict(boundary=b, scenarios_holding=held[b - 1], pods_held=pods_held[b - 1],
+               waves=[b * plan.C, end], **n)
+    results[where] = out
+    print(f"{where}: boundary {b} ({held[b - 1]} of {S} scenarios holding {pods_held[b - 1]} "
+          f"buffered pods), "
+          f"{json.dumps(n)}; every launch equals its twin exactly", flush=True)
+    return snaps, b
+
+
+def time_retry(eng, snaps, bnd, dev, iters=200, plain_iters=10):
+    """Device time per launch (torch.profiler) of each retry-buffer mode,
+    beside its twin's wall (CUDA events) and its least time, on copies of
+    the tables snapshot before it in the held window."""
+    plan = eng.plan
+    pos_rb = None
+    out = {}
+    dms = lambda fn, match: device_ms(fn, iters, match) or time_cuda(fn, iters)
+
+    def pair(name):
+        tb, ch, at = snaps[name]
+        tk, tt = clone_tables(tb), clone_tables(tb)
+        return K.Bound(tk), tk, tt, ch.clone(), ch.clone(), at
+
+    b, tk, tt, _, _, _ = pair("pending_release")
+    work = Work(eng.pods, tk)
+    RB = tk.retry.rbuf.shape[1]
+    pos_rb = torch.arange(RB, dtype=torch.int32, device=dev)
+    rk, rt = tk.retry, tt.retry
+    sgn = lambda i: 1.0 - 2.0 * (i % 2)
+    due = (rk.pend_id >= 0) & (rk.pend_relb <= bnd)
+    nb, no = work.k3(rk.pend_id.cpu().numpy(),
+                     torch.where(due, rk.pend_node, torch.full_like(rk.pend_node, PAD))
+                     .cpu().numpy())
+    out["apply_placements_pending_release"] = dict(
+        ms=dms(lambda i: K.apply_placements(b, rk.pend_id, pos_rb, rk.pend_node, sgn(i),
+                                            due=(rk.pend_relb, bnd)), "ksim_apply"),
+        plain_ms=time_cuda(lambda i: ref.apply_placements(tt, rt.pend_id, pos_rb, rt.pend_node,
+                                                          sgn(i), due=(rt.pend_relb, bnd)),
+                           plain_iters),
+        bytes=float(nb + work.S * RB * 4), ops=float(no), due_entries=int(due.sum()))
+    b, tk, tt, _, _, _ = pair("retry_slot")
+    rk, rt = tk.retry, tt.retry
+    pods0 = rk.rbuf[:, 0].cpu().numpy()
+    act = int((pods0 >= 0).sum())
+    out["filter_score_per_scenario_pod"] = dict(
+        ms=dms(lambda i: K.filter_score(b, PAD, rk.rbuf[:, 0]), "ksim_filter_score"),
+        plain_ms=time_cuda(lambda i: ref.filter_score(tt, PAD, rt.rbuf[:, 0]), plain_iters),
+        **dict(zip(("bytes", "ops"), map(float, work.k1_scen(pods0)))), scenarios_with_pod=act)
+    out["normalize_select_per_scenario_pod"] = dict(
+        ms=dms(lambda i: K.normalize_select(b, PAD, rk.rchoice, 0, -1, rk.rbuf[:, 0]),
+               "ksim_normalize_select"),
+        plain_ms=time_cuda(lambda i: ref.normalize_select(tt, PAD, rt.rchoice, 0, -1,
+                                                          rt.rbuf[:, 0]), plain_iters),
+        **dict(zip(("bytes", "ops"), map(float, work.k2_scen(act)))), scenarios_with_pod=act)
+    K.normalize_select(b, PAD, rk.rchoice, 0, -1, rk.rbuf[:, 0])
+    ref.normalize_select(tt, PAD, rt.rchoice, 0, -1, rt.rbuf[:, 0])
+    rch0 = rk.rchoice[:, :1].cpu().numpy()
+    nb, no = work.k3(pods0[:, None], np.where(pods0[:, None] >= 0, rch0, PAD))
+    out["apply_placements_retry_bind"] = dict(
+        ms=dms(lambda i: K.apply_placements(b, rk.rbuf[:, 0:1], pos_rb[0:1], rk.rchoice, sgn(i)),
+               "ksim_apply"),
+        plain_ms=time_cuda(lambda i: ref.apply_placements(tt, rt.rbuf[:, 0:1], pos_rb[0:1],
+                                                          rt.rchoice, sgn(i)), plain_iters),
+        bytes=float(nb), ops=float(no), placed=int((rch0 >= 0).sum()))
+    b, tk, tt, _, _, _ = pair("k4")
+    rk, rt = tk.retry, tt.retry
+    t_b = float(np.float32(plan.tb[bnd]))
+    h = lambda t: t.cpu().numpy()
+    nb, no = work.k4(h(rk.rbuf), h(rk.rchoice), h(rk.pend_id), h(rk.pend_relb), plan.tbt.size)
+    out["retry_boundary"] = dict(
+        ms=dms(lambda i: K.retry_boundary(b, bnd, t_b), "ksim_retry_boundary"),
+        plain_ms=time_cuda(lambda i: ref.retry_boundary(tt, bnd, t_b), plain_iters),
+        bytes=float(nb), ops=float(no),
+        retried_binds=int(((h(rk.rbuf) >= 0) & (h(rk.rchoice) >= 0)).sum()))
+    b, tk, tt, ch_k, ch_t, (w, k) = pair("append")
+    s = w * plan.idx.shape[1] + k
+    p = int(plan.idx[w, k])
+    one_p = torch.as_tensor([p], dtype=torch.int32, device=dev)
+    one_s = torch.as_tensor([s], dtype=torch.int32, device=dev)
+    nb, no = work.k3([p], ch_k[:, s].cpu().numpy())
+    ab, ao = work.k3_append()
+    out["apply_placements_failure_append"] = dict(
+        ms=dms(lambda i: K.apply_placements(b, one_p, one_s, ch_k, 1.0, append=True),
+               "ksim_apply"),
+        plain_ms=time_cuda(lambda i: ref.apply_placements(tt, one_p, one_s, ch_t, 1.0,
+                                                          append=True), plain_iters),
+        bytes=float(nb + ab), ops=float(no + ao), failing=int((ch_k[:, s] < 0).sum()))
+    for m in out.values():
+        m["bound_ms"], m["bound_by"] = bound(m["bytes"], m["ops"])
+        m["library_ms"] = None
+        m["scenarios"] = eng.S
+    return out
+
+
+def run_retry_paths(results, dev):
+    """The retry buffer at full width. CONFIG7's what-if as shipped (64
+    ``uniform_scenarios(seed=0)`` x 500 nodes x 20,000 pods) with the
+    counters zeroed just before its warm-up run and read just after: every
+    scenario places every pod with no drop, scenario 0 equals
+    greedy_replay's pins, the batch without the buffer places fewer; a
+    median of 3 timed runs and one profiled run; B6's bound. Then ``run``'s
+    engine on CONFIG7 (S = 1) against the same pins, and the contended
+    what-if (CONFIG7 cut to 150 nodes): its pins, the batch without the
+    buffer differing, and each kernel held against its twin and timed at
+    the boundary where the most scenarios hold buffered pods."""
+    cfg, ec, ep = config7_case()
+    rb = cfg.whatif.retry_buffer
+    kw = dict(wave_width=cfg.wave_width, chunk_waves=cfg.chunk_waves, device=dev)
+    scen = uniform_scenarios(ec, cfg.whatif.scenarios, seed=cfg.whatif.seed)
+    S = len(scen)
+    t0 = time.perf_counter()
+    eng = WhatIfEngine(ec, ep, scen, cfg.framework, retry_buffer=rb, **kw)
+    setup_s = time.perf_counter() - t0
+    K.reset_launch_counts()
+    warm = eng.run()
+    launches = K.launch_counts()
+    for k, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"kernel {k} was not launched by the config7 what-if")
+    check_whatif_result(ep, warm, S)
+    if (warm.placed != ep.num_pods).any() or warm.retry_dropped.any():
+        raise AssertionError(f"config7 what-if: placed {warm.placed.min()}..{warm.placed.max()}, "
+                             f"dropped {warm.retry_dropped.max()}")
+    tb, _, assignments, placed, _ = eng._run()
+    check_retry_pins("config7 what-if scenario 0", RETRY_PINS["config7"], placed[0],
+                     warm.retry_dropped[0], assignments[0])
+    runs = [eng.run() for _ in range(3)]
+    for r in runs:
+        if not np.array_equal(r.placed, warm.placed):
+            raise AssertionError("the config7 what-if placed differently from run to run")
+    walls = sorted(r.wall_clock_s for r in runs)
+    wall = float(np.median(walls))
+    res_p, busy_s = profiled_busy_s(eng.run)
+    off_eng = WhatIfEngine(ec, ep, scen, cfg.framework, collect_assignments=True, **kw)
+    off = off_eng.run()
+    check_retry_pins("config7 what-if without retry, scenario 0", RETRY_PINS["config7_no_retry"],
+                     off.placed[0], 0, off.assignments[0])
+    if off.total_placed >= warm.total_placed:
+        raise AssertionError("config7 what-if: the buffer did not place more")
+    rnode = tb.retry.rnode.cpu().numpy()
+    walk = retry_walk(eng, dev)
+    results["chunk_loop_bound_ms_config7_whatif"] = Work(ep, eng._tables()).chunk_loop_ms(
+        eng.plan, np.where(rnode >= 0, PAD, assignments), launches, retry_walk=walk)
+    slots = [retry_slots(eng.plan, b, eng.retry_buffer) for b in range(1, len(eng.plan.buckets))]
+    results["config7_whatif"] = dict(
+        scenarios=S, nodes=ec.num_nodes, pods=ep.num_pods, retry_buffer=eng.retry_buffer,
+        chunk_waves_run=eng.plan.C, setup_s=setup_s, launches=launches,
+        launches_detail=dict(pass_slots_per_boundary=slots,
+                             retry_launches=3 * sum(slots) + 2 * len(slots)),
+        walls_s=walls, wall_s=wall, placements_per_s=warm.total_placed / wall,
+        total_placed=warm.total_placed, total_placed_without_retry=off.total_placed,
+        retried_binds=int((rnode >= 0).sum()), profiled_wall_s=res_p.wall_clock_s,
+        device_busy_s=busy_s, device_busy_share=busy_s / res_p.wall_clock_s if busy_s else None)
+    print(f"config7 retry what-if ({S} scenarios x {ec.num_nodes} nodes x {ep.num_pods} pods, "
+          f"retryBuffer {eng.retry_buffer}, chunkWaves {eng.plan.C}): median wall {wall:.3f}s of "
+          f"{[round(x, 3) for x in walls]}, {warm.total_placed / wall:.1f} aggregate placements/s, "
+          f"every scenario placed {ep.num_pods} with 0 dropped ({int((rnode >= 0).sum())} on "
+          f"retry; {off.total_placed} without the buffer); scenario 0 == greedy_replay's pins; "
+          f"launches {json.dumps(launches)}; profiled: wall {res_p.wall_clock_s:.3f}s, device "
+          f"busy {busy_s:.3f}s ({busy_s / res_p.wall_clock_s:.1%}); B6 bound "
+          f"{json.dumps(results['chunk_loop_bound_ms_config7_whatif'])} ms", flush=True)
+    del eng, off_eng, tb, res_p
+
+    single = TorchReplayEngine(ec, ep, cfg.framework, retry_buffer=rb, **kw)
+    single.replay()
+    res1 = single.replay()
+    check_retry_pins("config7 run", RETRY_PINS["config7"], res1.placed, res1.retry_dropped,
+                     res1.assignments)
+    results["config7_run"] = dict(wall_s=res1.wall_clock_s,
+                                  placements_per_s=res1.placements_per_sec, placed=res1.placed)
+    print(f"config7 run (S=1, retryBuffer {rb}): wall {res1.wall_clock_s:.3f}s, "
+          f"{res1.placements_per_sec:.1f} placements/s, placed {res1.placed} == greedy_replay's "
+          f"pins", flush=True)
+    del single
+
+    cfg, ec, ep = config7_case(nodes=RETRY_CUT_NODES)
+    scen = uniform_scenarios(ec, cfg.whatif.scenarios, seed=cfg.whatif.seed)
+    eng = WhatIfEngine(ec, ep, scen, cfg.framework, retry_buffer=rb, **kw)
+    K.reset_launch_counts()
+    warm = eng.run()
+    launches3 = K.launch_counts()
+    tb, _, assignments, placed, _ = eng._run()
+    check_retry_pins(f"{RETRY_CUT_NODES}-node what-if scenario 0", RETRY_PINS["cut150"],
+                     placed[0], warm.retry_dropped[0], assignments[0])
+    off = WhatIfEngine(ec, ep, scen, cfg.framework, collect_assignments=True, **kw).run()
+    check_retry_pins(f"{RETRY_CUT_NODES}-node what-if without retry, scenario 0",
+                     RETRY_PINS["cut150_no_retry"], off.placed[0], 0, off.assignments[0])
+    if np.array_equal(off.placed, warm.placed):
+        raise AssertionError("the contended what-if places alike with and without the buffer")
+    walk = retry_walk(eng, dev)
+    overflowing = int((warm.retry_dropped > 0).sum())
+    results["cut150_whatif"] = dict(
+        scenarios=S, nodes=ec.num_nodes, pods=ep.num_pods, launches=launches3,
+        wall_s=warm.wall_clock_s, total_placed=warm.total_placed,
+        total_placed_without_retry=off.total_placed, placed=warm.placed.tolist(),
+        retry_dropped=warm.retry_dropped.tolist(), scenarios_overflowing=overflowing,
+        pending_entries_max=int(max((st["pend_id"] >= 0).sum(axis=1).max() for st in walk)))
+    print(f"contended retry what-if ({S} x {ec.num_nodes} nodes x {ep.num_pods} pods): placed "
+          f"{int(warm.placed.min())}..{int(warm.placed.max())} (without the buffer "
+          f"{int(off.placed.min())}..{int(off.placed.max())}), {overflowing} scenarios "
+          f"overflowing; scenario 0 == greedy_replay's pins; wall {warm.wall_clock_s:.3f}s; "
+          f"launches {json.dumps(launches3)}", flush=True)
+    snaps, bnd = hold_retry(f"S={S} retry kernel checks ({RETRY_CUT_NODES} nodes)", eng, walk,
+                            dev, results)
+    kernels = time_retry(eng, snaps, bnd, dev)
+    results["kernels_retry"] = kernels
+    print(f"retry kernels at S={S}, N={ec.num_nodes}: "
           + "; ".join(f"{k} {m['ms'] * 1e3:.2f} us (bound {m['bound_ms'] * 1e3:.4f} us, twin "
                       f"{m['plain_ms']:.3f} ms)" for k, m in kernels.items()), flush=True)
     return kernels, launches
@@ -1166,8 +1817,8 @@ def main() -> int:
     res = eng.replay()
     launches_c2 = K.launch_counts()
     check_result(ec, ep, res)
-    for k, n in launches_c2.items():
-        if n <= 0:
+    for k in SOURCES_PLAIN:
+        if launches_c2[k] <= 0:
             raise AssertionError(f"kernel {k} was not launched by the config2 replay")
     res_p, busy_s = profiled_busy_s(eng.replay)
     if not np.array_equal(res_p.assignments, res.assignments):
@@ -1201,8 +1852,8 @@ def main() -> int:
     K.reset_launch_counts()
     warm = eng.run()
     launches = K.launch_counts()
-    for k, n in launches.items():
-        if n <= 0:
+    for k in SOURCES_PLAIN:
+        if launches[k] <= 0:
             raise AssertionError(f"kernel {k} was not launched on the main path")
     check_whatif_result(ep, warm, hs["scenarios"])
     runs = [eng.run() for _ in range(3)]
@@ -1261,6 +1912,9 @@ def main() -> int:
     # Steps 9-11: tier preemption.
     check_reduced_preempt(results)
     pkernels, plaunches = run_preempt_paths(results, dev)
+    # Steps 12-15: the retry buffer.
+    check_reduced_retry(results)
+    rkernels, rlaunches = run_retry_paths(results, dev)
     results["wall_s_total"] = time.perf_counter() - t_start
 
     table = []
@@ -1277,6 +1931,14 @@ def main() -> int:
         table.append({
             "name": k, "route": "cuda", "source": SOURCES[kernel][0], "replaces": replaces,
             "launches": plaunches[kernel], "max_abs_err": 0.0, "ms": m["ms"],
+            "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
+            "library_ms": m["library_ms"],
+        })
+    for k, m in rkernels.items():
+        kernel, replaces = RETRY_SOURCES[k] if k in RETRY_SOURCES else (k, SOURCES[k][1])
+        table.append({
+            "name": k, "route": "cuda", "source": SOURCES[kernel][0], "replaces": replaces,
+            "launches": rlaunches[kernel], "max_abs_err": 0.0, "ms": m["ms"],
             "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
             "library_ms": m["library_ms"],
         })

@@ -5,7 +5,7 @@ the card.
     python -m kubernetes_simulator_tpu_torch what-if config.yaml [--device cpu]
 
 Counterpart: ``kubernetes_simulator_tpu/cli.py`` (``cmd_run`` :83,
-``cmd_whatif`` :140). The config is parsed as the JAX package parses it
+``cmd_whatif`` :140; both pass ``whatIf.retryBuffer``, :100 and :182). The config is parsed as the JAX package parses it
 (utils.config); sections of modes the port does not carry yet are refused
 with an error naming them. ``run`` writes one JSONL replay row,
 ``what-if`` the ``whatif_rows`` (stdout, or the config's ``output``), and
@@ -34,6 +34,7 @@ def cmd_run(args) -> int:
         ec, ep, cfg.framework,
         wave_width=cfg.wave_width, chunk_waves=cfg.chunk_waves,
         telemetry=cfg.telemetry, device=args.device, preemption=cfg.device_preemption,
+        retry_buffer=cfg.whatif.retry_buffer,
     )
     context = {
         "seed": int(cfg.workload.seed), "engine": "torch", "config_hash": config_hash(raw),
@@ -67,7 +68,7 @@ def cmd_whatif(args) -> int:
     eng = WhatIfEngine(
         ec, ep, scen, cfg.framework, wave_width=cfg.wave_width, chunk_waves=cfg.chunk_waves,
         completions=cfg.whatif.completions, telemetry=cfg.telemetry, device=args.device,
-        preemption=cfg.device_preemption,
+        preemption=cfg.device_preemption, retry_buffer=cfg.whatif.retry_buffer,
     )
     context = {
         "seed": int(cfg.workload.seed), "engine": "torch", "config_hash": config_hash(raw),

@@ -26,6 +26,19 @@
 // Pairs with a pod or node of -1 are skipped, so padded slots and PAD
 // domains never touch column 0 of a plane.
 //
+// Retry buffer (sim/whatif.py:1406-1557; the host FIFO of sim/boundary.py):
+// the pod list may be per scenario (pod_ss > 0: scenario s reads pods +
+// s * pod_ss), as in two more uses:
+//   retry bind    sign +1, K = 1, the pod in scenario s's buffer slot and
+//                 the node K2 wrote for it in rchoice;
+//   pending       sign -1 over a scenario's pending list (pend_id, nodes
+//   release       pend_node), only the pairs whose due_relb <= due_b
+//                 (sim/whatif.py:1437-1443), in list order.
+// And a main-path bind with append = 1 also appends a failed non-gang pod
+// (node -1) to its scenario's FIFO at rbuf[s, rcount[s]], or counts it in
+// rdrop[s] when the buffer is full (sim/whatif.py:1502-1528): thread 0 of
+// the scenario's block, in pair order.
+//
 // Tier preemption (ops/tpu3.py:1629-1730, 1796; sim/whatif.py:2145
 // _tier_rel_fn / :2161 _npods_rel_fn): every pair of a non-gang pod also
 // moves its tier's cells used_tier[tier, n, :] and npods_tier[tier, n] (a
@@ -98,11 +111,14 @@ __device__ void k3_evict(const KsimArgs& a, int64_t scen, int32_t* ch, int slot,
 }
 
 __global__ void __launch_bounds__(K3_THREADS)
-    ksim_apply_kernel(KsimArgs a, const int32_t* pods, const int32_t* pos, int32_t* choices,
-                      int K, int64_t choice_ss, float sign, int rollback, int boundary) {
+    ksim_apply_kernel(KsimArgs a, const int32_t* pods_all, int64_t pod_ss, const int32_t* pos,
+                      int32_t* choices, int K, int64_t choice_ss, float sign, int rollback,
+                      int boundary, const int32_t* due_relb, int due_b, int append) {
   __shared__ uint8_t active[KSIM_MAX_WAVE];
   const int N = a.N, R = a.R, G = a.G, D = a.D;
   const int64_t scen = blockIdx.x;
+  const int32_t* pods = pods_all + scen * pod_ss;
+  const int32_t* relb = due_relb ? due_relb + scen * pod_ss : nullptr;
   int32_t* ch = choices + scen * choice_ss;
   float* used = a.used + scen * a.used_ss;
   float* match_count = a.match_count + scen * a.plane_ss;
@@ -140,6 +156,7 @@ __global__ void __launch_bounds__(K3_THREADS)
     int n = ch[pos[k]];
     if (n < 0) continue;
     if (rollback && !active[k]) continue;
+    if (relb && relb[k] > due_b) continue;
     if (tid == 0) {
       for (int t = 0; t < a.AA; ++t) {
         int g = a.anti_req[p * a.AA + t];
@@ -179,17 +196,33 @@ __global__ void __launch_bounds__(K3_THREADS)
     for (int k = threadIdx.x; k < K; k += blockDim.x)
       if (active[k]) ch[pos[k]] = KSIM_PAD;
   }
+  if (append && tid == 0) {
+    for (int k = 0; k < K; ++k) {
+      const int p = pods[k];
+      if (p < 0 || ch[pos[k]] >= 0 || a.group_id[p] >= 0) continue;
+      const int c = a.rcount[scen];
+      if (c < a.RB) {
+        a.rbuf[scen * a.RB + c] = p;
+        a.rcount[scen] = c + 1;
+      } else {
+        a.rdrop[scen] += 1;
+      }
+    }
+  }
 }
 
 KSIM_EXPORT int ksim_apply_placements(const KsimArgs* args, const int32_t* pods,
-                                      const int32_t* pos, int32_t* choices, int K,
-                                      long long choice_ss, float sign, int rollback,
-                                      int boundary, void* stream) {
+                                      long long pod_ss, const int32_t* pos, int32_t* choices,
+                                      int K, long long choice_ss, float sign, int rollback,
+                                      int boundary, const int32_t* due_relb, int due_b,
+                                      int append, void* stream) {
   if (K <= 0) return 0;
   if (args->S < 1) return (int)cudaErrorInvalidValue;
-  if (rollback && K > KSIM_MAX_WAVE) return (int)cudaErrorInvalidValue;
+  if (rollback && (K > KSIM_MAX_WAVE || pod_ss)) return (int)cudaErrorInvalidValue;
   if (boundary >= 0 && (K != 1 || rollback)) return (int)cudaErrorInvalidValue;
+  if ((append || due_relb || pod_ss) && !args->retry) return (int)cudaErrorInvalidValue;
   ksim_apply_kernel<<<args->S, K3_THREADS, 0, (cudaStream_t)stream>>>(
-      *args, pods, pos, choices, K, (int64_t)choice_ss, sign, rollback, boundary);
+      *args, pods, (int64_t)pod_ss, pos, choices, K, (int64_t)choice_ss, sign, rollback,
+      boundary, due_relb, due_b, append);
   return (int)cudaGetLastError();
 }

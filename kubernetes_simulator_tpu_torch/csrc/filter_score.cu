@@ -31,6 +31,11 @@
 // preempt also gets its candidate row (sim/tiers.py), read by K2 when no
 // node is feasible.
 //
+// The retry pass of the retry buffer (sim/whatif.py:1444-1455) runs one pod
+// per scenario: given pod_of_s, scenario s's blocks take pod
+// pod_of_s[s * pod_ss] (a column of its buffer); an empty slot (-1) writes
+// an all-zero mask, rows and ignored mask, so K2 selects nothing there.
+//
 // Exactness: compiled with --fmad=false and IEEE division; every
 // expression keeps the reference's operation order.
 #include "ksim.cuh"
@@ -48,7 +53,9 @@ __device__ __forceinline__ float ksim_piecewise(const KsimArgs& a, float util) {
   return out;
 }
 
-__global__ void __launch_bounds__(256) ksim_filter_score_kernel(KsimArgs a, int p) {
+__global__ void __launch_bounds__(256) ksim_filter_score_kernel(KsimArgs a, int p_shared,
+                                                                const int32_t* pod_of_s,
+                                                                int64_t pod_ss) {
   __shared__ float s_total[KSIM_MAX_TERMS];  // Σ_d match_count[g, d], aff terms
   __shared__ float s_min[KSIM_MAX_TERMS];    // min_d<nd match_count[g, d], spread
   __shared__ int s_nd[KSIM_MAX_TERMS];
@@ -57,6 +64,16 @@ __global__ void __launch_bounds__(256) ksim_filter_score_kernel(KsimArgs a, int 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nwarps = blockDim.x >> 5;
   const int64_t scen = blockIdx.y;
+  const int p = pod_of_s ? pod_of_s[scen * pod_ss] : p_shared;
+  if (p < 0) {  // uniform over the block: this scenario's buffer slot is empty
+    const int n = blockIdx.x * blockDim.x + threadIdx.x;
+    if (n < N) {
+      a.feasible[scen * a.feas_ss + n] = 0;
+      a.ignored[scen * a.feas_ss + n] = 0;
+      for (int r = 0; r < KSIM_ROWS; ++r) a.scores[scen * a.scores_ss + r * N + n] = 0.f;
+    }
+    return;
+  }
   const float* match_count = a.match_count + scen * a.plane_ss;
   const float* anti_active = a.anti_active + scen * a.plane_ss;
   const float* pref_wsum = a.pref_wsum + scen * a.plane_ss;
@@ -280,10 +297,13 @@ __global__ void __launch_bounds__(256) ksim_filter_score_kernel(KsimArgs a, int 
   scores[KSIM_ROW_SPREAD * N + n] = sp_raw;
 }
 
-KSIM_EXPORT int ksim_filter_score(const KsimArgs* args, int pod, void* stream) {
+KSIM_EXPORT int ksim_filter_score(const KsimArgs* args, int pod, const int32_t* pod_of_s,
+                                  long long pod_ss, void* stream) {
   const int threads = 256;
   if (args->S < 1 || args->S > 65535) return (int)cudaErrorInvalidValue;
+  if (pod_of_s && args->preempt) return (int)cudaErrorInvalidValue;
   const dim3 grid((args->N + threads - 1) / threads, args->S);
-  ksim_filter_score_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(*args, pod);
+  ksim_filter_score_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(*args, pod, pod_of_s,
+                                                                       (int64_t)pod_ss);
   return (int)cudaGetLastError();
 }

@@ -25,6 +25,14 @@
 //            ev_tier / victims [S] i32 (K2 -> K3), col_pod / col_relb [L]
 //            i32 (pod of each choice-buffer column and the boundary at
 //            which it releases; columns >= n_slots are the pre-bound tail)
+//   retry buffer (retry = 1; null pointers and RB = 0 when off)
+//            dur [P] f32 pod durations, tbt [B] f32 start times of the
+//            finite boundaries, rbuf [S,RB] i32 FIFO of failed non-gang
+//            pods (then -1), rcount / rdrop [S] i32, rchoice [S,RB] i32 (the
+//            retry pass's K2 -> K3, K4), pend_id / pend_node / pend_relb
+//            [S,RB] i32 pending releases of pods placed on retry (then -1),
+//            rnode / rbind_b [S,P] i32 each pod's retried node and the
+//            boundary of that bind
 // The *_ss fields are the per-scenario strides in elements: scenario s of
 // a table starts at base + s * ss, and ss = 0 where the table is shared.
 // The single-scenario replay is the S = 1 case.
@@ -40,6 +48,7 @@
 #define KSIM_MAX_SEG 16
 #define KSIM_MAX_TERMS 64
 #define KSIM_MAX_WAVE 1024
+#define KSIM_MAX_RB 4096
 
 // Taint effects (models/core.py Effect).
 #define KSIM_NO_SCHEDULE 1
@@ -103,6 +112,18 @@ struct KsimArgs {
   int32_t* victims;
   const int32_t* col_pod;
   const int32_t* col_relb;
+  // retry buffer
+  const float* dur;
+  const float* tbt;
+  int32_t* rbuf;
+  int32_t* rcount;
+  int32_t* rdrop;
+  int32_t* rchoice;
+  int32_t* pend_id;
+  int32_t* pend_node;
+  int32_t* pend_relb;
+  int32_t* rnode;
+  int32_t* rbind_b;
   // per-scenario strides (elements; 0 = shared)
   int64_t alloc_ss, taint_ss, used_ss, plane_ss, feas_ss, scores_ss;
   // dimensions
@@ -113,6 +134,7 @@ struct KsimArgs {
   int32_t on_fit, on_taint, on_na, on_ip, on_sp;
   int32_t has_symmetric_pref, sp_norm_f32, fit_strategy, n_seg;
   int32_t preempt, Tt, n_slots;
+  int32_t retry, RB, B, P;
   float wsum, w_fit, w_taint, w_na, w_ip, w_sp;
   float x_first, y_first, y_last, pad0;
   float seg_x0[KSIM_MAX_SEG];

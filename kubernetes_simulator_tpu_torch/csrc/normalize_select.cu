@@ -22,6 +22,10 @@
 // once per wave, and writes the eviction record (ev_node, ev_tier) that
 // K3 applies before the bind; every other scenario writes ev_node = -1.
 //
+// The retry pass (sim/whatif.py:1444-1455) selects for one pod per
+// scenario: given pod_of_s, scenario s's block takes pod pod_of_s[s *
+// pod_ss] and an empty buffer slot (-1) writes -1.
+//
 // Bound on an H100: bytes — one read of the [5,N] f32 rows and the [N]
 // masks per scenario (~0.11 MB at S=1, N=5000; ~5.6 MB at S=128, N=2000:
 // 1.7 µs at 3.35 TB/s). One block per scenario keeps each reduction
@@ -74,14 +78,20 @@ __device__ __forceinline__ void k2_lower(float& bv, int& bi, float v, int i) {
   }
 }
 
-__global__ void __launch_bounds__(K2_THREADS) ksim_normalize_select_kernel(KsimArgs a, int p, int* choice_out,
-                                                                     int64_t choice_ss, int wave) {
+__global__ void __launch_bounds__(K2_THREADS)
+    ksim_normalize_select_kernel(KsimArgs a, int p_shared, int* choice_out, int64_t choice_ss,
+                                 int wave, const int32_t* pod_of_s, int64_t pod_ss) {
   __shared__ float red[7 * 32];
   __shared__ float best_v[32];
   __shared__ int best_i[32];
   __shared__ int s_choice;
   const int N = a.N;
   const int64_t scen = blockIdx.x;
+  const int p = pod_of_s ? pod_of_s[scen * pod_ss] : p_shared;
+  if (p < 0) {  // uniform over the block: this scenario's buffer slot is empty
+    if (threadIdx.x == 0) choice_out[scen * choice_ss] = KSIM_PAD;
+    return;
+  }
   const uint8_t* feas = a.feasible + scen * a.feas_ss;
   const uint8_t* ignored = a.ignored + scen * a.feas_ss;
   const float* rows = a.scores + scen * a.scores_ss;
@@ -248,9 +258,11 @@ __global__ void __launch_bounds__(K2_THREADS) ksim_normalize_select_kernel(KsimA
 }
 
 KSIM_EXPORT int ksim_normalize_select(const KsimArgs* args, int pod, int* choice_out,
-                                      long long choice_ss, int wave, void* stream) {
+                                      long long choice_ss, int wave, const int32_t* pod_of_s,
+                                      long long pod_ss, void* stream) {
   if (args->S < 1) return (int)cudaErrorInvalidValue;
+  if (pod_of_s && args->preempt) return (int)cudaErrorInvalidValue;
   ksim_normalize_select_kernel<<<args->S, K2_THREADS, 0, (cudaStream_t)stream>>>(
-      *args, pod, choice_out, (int64_t)choice_ss, wave);
+      *args, pod, choice_out, (int64_t)choice_ss, wave, pod_of_s, (int64_t)pod_ss);
   return (int)cudaGetLastError();
 }

@@ -1,6 +1,6 @@
 """The replay's hand-written Hopper kernels: build, binding and wrappers.
 
-Three CUDA C++ kernels (``csrc/*.cu``, compiled for ``sm_90a``) carry the
+Four CUDA C++ kernels (``csrc/*.cu``, compiled for ``sm_90a``) carry the
 device work of the replay and of the scenario-batched what-if: every
 kernel takes the S-stacked tables of :mod:`.reference` (the
 single-scenario replay is S = 1) and runs each scenario in its own
@@ -20,7 +20,15 @@ wrapper                       replaces (kubernetes_simulator_tpu/...)
                               _donated_subtract, sim/whatif.py:1620
                               _release_core / :1742 _release_fn, and
                               make_wave_step3's wave commit and gang rollback
+:func:`retry_boundary` (K4)   sim/whatif.py:1456-1497, the boundary
+                              bookkeeping of the retry variant of
+                              _build_chunk_fn (pending list, compaction)
 ============================  ================================================
+
+Under the retry buffer (a Tables with ``retry``) K1–K3 also take one pod
+per scenario (the retry pass), K3 appends failed non-gang pods to the
+buffer on a main-path bind (sim/whatif.py:1502-1528) and releases the
+pending list's due entries (:1437-1443 through ``_release_core``).
 
 Under tier preemption (a Tables with ``preempt``) the same three kernels
 carry ops/tpu3.py's preemption sections: K1 the candidate row (:1510), K2
@@ -53,7 +61,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -74,21 +82,27 @@ KERNELS = {
     "filter_score": "filter_score.cu",
     "normalize_select": "normalize_select.cu",
     "apply_placements": "apply_placements.cu",
+    "retry_boundary": "retry_boundary.cu",
 }
 
 #: argtypes of each C entry point (every one returns a cudaError_t as int)
+_P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _ARGTYPES = {
-    "filter_score": [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p],
-    "normalize_select": [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong,
-                         ctypes.c_int, ctypes.c_void_p],
-    "apply_placements": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                         ctypes.c_int, ctypes.c_longlong, ctypes.c_float, ctypes.c_int,
-                         ctypes.c_int, ctypes.c_void_p],
+    # (args, pod, pod_of_s, pod_ss, stream)
+    "filter_score": [_P, _I, _P, _LL, _P],
+    # (args, pod, choice_out, choice_ss, wave, pod_of_s, pod_ss, stream)
+    "normalize_select": [_P, _I, _P, _LL, _I, _P, _LL, _P],
+    # (args, pods, pod_ss, pos, choices, K, choice_ss, sign, rollback, boundary,
+    #  due_relb, due_b, append, stream)
+    "apply_placements": [_P, _P, _LL, _P, _P, _I, _LL, _F, _I, _I, _P, _I, _I, _P],
+    # (args, b, t_b, stream)
+    "retry_boundary": [_P, _I, _F, _P],
 }
 
 _MAX_SEG = 16
 _MAX_TERMS = 64
 _MAX_WAVE = 1024
+_MAX_RB = 4096  # the granularity guard's cap (sim/granularity.py)
 
 
 class KsimArgs(ctypes.Structure):
@@ -105,6 +119,8 @@ class KsimArgs(ctypes.Structure):
             "feasible", "scores", "ignored", "res_w",
             "pod_tier", "used_tier", "npods_tier", "cand", "last_wave", "ev_node", "ev_tier",
             "victims", "col_pod", "col_relb",
+            "dur", "tbt", "rbuf", "rcount", "rdrop", "rchoice", "pend_id", "pend_node",
+            "pend_relb", "rnode", "rbind_b",
         )]
         + [(name, ctypes.c_int64) for name in (
             "alloc_ss", "taint_ss", "used_ss", "plane_ss", "feas_ss", "scores_ss",
@@ -115,6 +131,7 @@ class KsimArgs(ctypes.Structure):
             "on_fit", "on_taint", "on_na", "on_ip", "on_sp",
             "has_symmetric_pref", "sp_norm_f32", "fit_strategy", "n_seg",
             "preempt", "Tt", "n_slots",
+            "retry", "RB", "B", "P",
         )]
         + [(name, ctypes.c_float) for name in (
             "wsum", "w_fit", "w_taint", "w_na", "w_ip", "w_sp",
@@ -304,6 +321,30 @@ def pack_args(tb: ref.Tables, res_w: torch.Tensor) -> KsimArgs:
             tensors[name] = t
         if not 0 <= pre.n_slots <= L:
             raise ValueError(f"preempt.n_slots {pre.n_slots} outside the {L} columns")
+    rt = tb.retry
+    if rt is not None:
+        if pre is not None:
+            raise ValueError("the retry buffer does not run with tier preemption")
+        RB = rt.rbuf.shape[1]
+        P = p.group_id.shape[0]
+        if not 0 < RB <= _MAX_RB:
+            raise ValueError(f"retry buffer of {RB} slots: the kernels take 1..{_MAX_RB}")
+        for name, t, shape, dt in (
+            ("dur", rt.dur, (P,), torch.float32), ("tbt", rt.tbt, (rt.tbt.shape[0],),
+                                                   torch.float32),
+            ("rbuf", rt.rbuf, (S, RB), torch.int32), ("rcount", rt.rcount, (S,), torch.int32),
+            ("rdrop", rt.rdrop, (S,), torch.int32), ("rchoice", rt.rchoice, (S, RB), torch.int32),
+            ("pend_id", rt.pend_id, (S, RB), torch.int32),
+            ("pend_node", rt.pend_node, (S, RB), torch.int32),
+            ("pend_relb", rt.pend_relb, (S, RB), torch.int32),
+            ("rnode", rt.rnode, (S, P), torch.int32), ("rbind_b", rt.rbind_b, (S, P), torch.int32),
+        ):
+            if tuple(t.shape) != shape or t.dtype != dt:
+                raise ValueError(f"retry.{name}: expected {dt} {shape}, got {t.dtype} "
+                                 f"{tuple(t.shape)}")
+            tensors[name] = t
+        if rt.tbt.shape[0] < 1:
+            raise ValueError("retry.tbt: no finite boundary")
     dev = s.used.device
     for name, t in tensors.items():
         if not t.is_cuda or not t.is_contiguous() or t.device != dev:
@@ -314,6 +355,8 @@ def pack_args(tb: ref.Tables, res_w: torch.Tensor) -> KsimArgs:
     a.res_w = res_w.data_ptr()
     if pre is not None:
         a.preempt, a.Tt, a.n_slots = 1, pre.used_tier.shape[1], pre.n_slots
+    if rt is not None:
+        a.retry, a.RB, a.B, a.P = 1, rt.rbuf.shape[1], rt.tbt.shape[0], rt.rnode.shape[1]
     for name, v in {**dims, **strides}.items():
         setattr(a, name, int(v))
     for name in ("fit", "taints", "node_affinity", "interpod", "spread", "on_fit",
@@ -356,13 +399,30 @@ def _stream() -> int:
 # ---------------------------------------------------------------------------
 
 
-def filter_score(b: Bound, pod: int) -> None:
+def _pod_row(b: Bound, pod_of_s: Optional[torch.Tensor]):
+    """(pointer, scenario stride) of a per-scenario pod row ``[S]`` i32 on
+    the tables' device (a column of the retry buffer), or (None, 0)."""
+    if pod_of_s is None:
+        return None, 0
+    S = b.tables.state.used.shape[0]
+    if (pod_of_s.dtype != torch.int32 or tuple(pod_of_s.shape) != (S,)
+            or pod_of_s.device != b.tables.state.used.device):
+        raise ValueError(f"pod_of_s must be an int32 [{S}] tensor on the tables' device")
+    if b.tables.preempt is not None:
+        raise ValueError("per-scenario pods do not run with tier preemption")
+    return pod_of_s.data_ptr(), pod_of_s.stride(0)
+
+
+def filter_score(b: Bound, pod: int, pod_of_s: Optional[torch.Tensor] = None) -> None:
     """K1: mask + raw score rows of pod ``pod`` in every scenario, into the
-    scratch rows."""
+    scratch rows; with ``pod_of_s`` ([S] i32, the retry pass) of pod
+    ``pod_of_s[s]`` in scenario s (PAD: all-zero rows, nothing
+    feasible)."""
     if not b.cuda:
-        ref.filter_score(b.tables, pod)
+        ref.filter_score(b.tables, pod, pod_of_s)
         return
-    _check(_libs["filter_score"](b._args_ptr, int(pod), _stream()),
+    ptr, ss = _pod_row(b, pod_of_s)
+    _check(_libs["filter_score"](b._args_ptr, int(pod), ptr, ss, _stream()),
            "filter_score")
     filter_score.launches += 1
 
@@ -378,47 +438,71 @@ def _check_choices(b: Bound, choices: torch.Tensor) -> None:
 
 
 def normalize_select(b: Bound, pod: int, choices: torch.Tensor, slot: int,
-                     wave: int = -1) -> None:
+                     wave: int = -1, pod_of_s: Optional[torch.Tensor] = None) -> None:
     """K2: normalized total and lowest-index argmax of the scratch rows of
     every scenario; scenario s's choice (PAD when unplaced) lands in the
     int32 ``choices[s, slot]`` on the device. Under tier preemption a
     scenario with no feasible node, once per ``wave``, takes the
-    lowest-index argmin of the candidate row and records the eviction."""
+    lowest-index argmin of the candidate row and records the eviction.
+    With ``pod_of_s`` (the retry pass) scenario s selects for pod
+    ``pod_of_s[s]`` (PAD: writes PAD)."""
     if not b.cuda:
-        ref.normalize_select(b.tables, pod, choices, slot, wave)
+        ref.normalize_select(b.tables, pod, choices, slot, wave, pod_of_s)
         return
     _check_choices(b, choices)
     if not 0 <= slot < choices.shape[1]:
         raise ValueError(f"slot {slot} outside the choice buffer's {choices.shape[1]} columns")
+    ptr, ss = _pod_row(b, pod_of_s)
     _check(_libs["normalize_select"](
         b._args_ptr, int(pod), choices.data_ptr() + 4 * int(slot), choices.shape[1],
-        int(wave), _stream()), "normalize_select")
+        int(wave), ptr, ss, _stream()), "normalize_select")
     normalize_select.launches += 1
 
 
 def apply_placements(
     b: Bound, pod_ids: torch.Tensor, pos: torch.Tensor, choices: torch.Tensor, sign: float,
     rollback: bool = False, boundary: Optional[int] = None,
+    due: Optional[Tuple[torch.Tensor, int]] = None, append: bool = False,
 ) -> None:
     """K3: ``sign`` × the contribution of each pair (``pod_ids[k]``, the
     node ``choices[s, pos[k]]``), in pair order, into each scenario s's
-    state; PAD pods and nodes are skipped. ``rollback`` undoes only
-    failed-gang members and writes PAD over their choices. Under tier
-    preemption the tier planes follow the non-gang pairs, and a bind given
-    the current ``boundary`` first applies the slot's eviction record."""
+    state; PAD pods and nodes are skipped. ``pod_ids`` is ``[K]`` (shared)
+    or ``[S, K]`` (one list per scenario, rows may be strided). ``rollback``
+    undoes only failed-gang members and writes PAD over their choices.
+    ``due = (relb, b)`` (``relb`` laid out like ``pod_ids``) keeps the
+    pairs with ``relb <= b``. ``append`` adds each failed non-gang pod to
+    its scenario's retry buffer. Under tier preemption the tier planes
+    follow the non-gang pairs, and a bind given the current ``boundary``
+    first applies the slot's eviction record."""
     if not b.cuda:
-        ref.apply_placements(b.tables, pod_ids, pos, choices, sign, rollback, boundary)
+        ref.apply_placements(b.tables, pod_ids, pos, choices, sign, rollback, boundary, due,
+                             append)
         return
-    K = pod_ids.numel()
-    if pos.numel() != K:
-        raise ValueError("pod_ids and pos must have the same length")
+    S = b.tables.state.used.shape[0]
     dev = b.tables.state.used.device
-    for t in (pod_ids, pos):
-        if t.dtype != torch.int32 or t.device != dev or not t.is_contiguous():
-            raise ValueError("pod_ids / pos must be contiguous int32 on the tables' device")
+    per_scenario = pod_ids.dim() == 2
+    K = pod_ids.shape[-1]
+    if pos.numel() != K or (per_scenario and pod_ids.shape[0] != S):
+        raise ValueError(f"pod_ids must be [K] or [{S}, K] and pos [K]")
+    pod_ss = pod_ids.stride(0) if per_scenario else 0
+    for name, t in (("pod_ids", pod_ids), ("pos", pos)):
+        if (t.dtype != torch.int32 or t.device != dev
+                or (t.shape[-1] > 1 and t.stride(-1) != 1)):
+            raise ValueError(f"{name} must be int32 rows of unit stride on the tables' device")
     _check_choices(b, choices)
-    if rollback and K > _MAX_WAVE:
-        raise ValueError(f"a rollback covers at most {_MAX_WAVE} slots")
+    if rollback and (K > _MAX_WAVE or per_scenario):
+        raise ValueError(f"a rollback covers at most {_MAX_WAVE} shared slots")
+    relb_ptr, due_b = None, 0
+    if due is not None:
+        relb, due_b = due
+        if (not per_scenario or relb.shape != pod_ids.shape or relb.stride() != pod_ids.stride()
+                or relb.dtype != torch.int32 or relb.device != dev):
+            raise ValueError("due: relb must be laid out like per-scenario pod_ids")
+        relb_ptr = relb.data_ptr()
+    if (append or due is not None or per_scenario) and b.tables.retry is None:
+        raise ValueError("per-scenario pods, due pairs and failure appends need retry tables")
+    if append and (rollback or sign <= 0 or per_scenario):
+        raise ValueError("a failure append rides a main-path bind")
     if boundary is not None:
         pre = b.tables.preempt
         if pre is None or K != 1 or rollback or sign <= 0 or int(boundary) < 0:
@@ -429,13 +513,29 @@ def apply_placements(
     if K == 0:
         return
     _check(_libs["apply_placements"](
-        b._args_ptr, pod_ids.data_ptr(), pos.data_ptr(), choices.data_ptr(), int(K),
+        b._args_ptr, pod_ids.data_ptr(), pod_ss, pos.data_ptr(), choices.data_ptr(), int(K),
         choices.shape[1], float(sign), int(bool(rollback)),
-        -1 if boundary is None else int(boundary), _stream()), "apply_placements")
+        -1 if boundary is None else int(boundary), relb_ptr, int(due_b), int(bool(append)),
+        _stream()), "apply_placements")
     apply_placements.launches += 1
 
 
-WRAPPERS = (filter_score, normalize_select, apply_placements)
+def retry_boundary(b: Bound, bnd: int, t_b: float) -> None:
+    """K4: boundary ``bnd``'s retry bookkeeping after the retry pass, in
+    each scenario (start time ``t_b``, an f32): the retried binds into
+    ``rnode`` / ``rbind_b``, the pending list without its due entries and
+    with the new releases, the buffer compacted."""
+    if not b.cuda:
+        ref.retry_boundary(b.tables, bnd, t_b)
+        return
+    if b.tables.retry is None:
+        raise ValueError("retry_boundary needs retry tables")
+    _check(_libs["retry_boundary"](b._args_ptr, int(bnd), float(t_b), _stream()),
+           "retry_boundary")
+    retry_boundary.launches += 1
+
+
+WRAPPERS = (filter_score, normalize_select, apply_placements, retry_boundary)
 
 
 def reset_launch_counts() -> None:

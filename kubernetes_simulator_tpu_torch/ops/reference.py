@@ -21,6 +21,13 @@ Three functions are the plain twins of the hand-written kernels in
   every scenario's carried state (bind, gang rollback, completion
   release), each scenario's node read from its row of the choice buffer.
 
+Under the unschedulable-retry buffer (a Tables with ``retry``) the three
+take one pod per scenario (the retry pass over the buffer), K3 also
+appends a failed non-gang pod to its scenario's buffer and releases the
+due entries of the pending list, and a fourth twin,
+:func:`retry_boundary` (K4, ``csrc/retry_boundary.cu``), does the
+boundary's bookkeeping.
+
 Every table carries a leading scenario dimension S (the what-if batch of
 ``sim/whatif.py``; the single-scenario replay is S = 1): the state
 ``[S, ...]``, the scratch rows ``[S, ...]`` and, per scenario or shared,
@@ -201,6 +208,43 @@ def new_preempt(pod_tier: np.ndarray, group_id: np.ndarray, col_pod: np.ndarray,
     )
 
 
+class Retry(NamedTuple):
+    """The unschedulable-retry buffer of S scenarios (the retry variant of
+    kubernetes_simulator_tpu/sim/whatif.py:1406-1557, S-stacked; the
+    host FIFO of sim/boundary.py:350-678): a per-scenario FIFO of failed
+    non-gang pods, the pending list of the releases of pods placed on
+    retry, and each pod's retried bind. None in a Tables when the buffer
+    is off, which leaves the kernels' work as it was."""
+
+    dur: torch.Tensor  # [P] f32 pod durations (inf: runs on)
+    tbt: torch.Tensor  # [B] f32 start times of the finite boundaries
+    rbuf: torch.Tensor  # [S, RB] i32 buffered pods in FIFO order, then PAD
+    rcount: torch.Tensor  # [S] i32 buffered pods
+    rdrop: torch.Tensor  # [S] i32 failures dropped on a full buffer
+    rchoice: torch.Tensor  # [S, RB] i32 the retry pass's choice per buffer slot
+    pend_id: torch.Tensor  # [S, RB] i32 pending releases in list order, then PAD
+    pend_node: torch.Tensor  # [S, RB] i32 their nodes
+    pend_relb: torch.Tensor  # [S, RB] i32 the boundary at which each releases
+    rnode: torch.Tensor  # [S, P] i32 each pod's node from the retry pass (PAD: none)
+    rbind_b: torch.Tensor  # [S, P] i32 the boundary of that bind
+
+
+def new_retry(RB: int, duration: np.ndarray, tbt: np.ndarray, S: int, device) -> Retry:
+    """An empty Retry of S scenarios with a buffer of RB slots on
+    ``device``."""
+    P = int(np.asarray(duration).shape[0])
+    i32 = torch.int32
+    pad = lambda *shape: torch.full(shape, PAD, dtype=i32, device=device)
+    return Retry(
+        dur=torch.as_tensor(np.asarray(duration, np.float32), device=device),
+        tbt=torch.as_tensor(np.ascontiguousarray(tbt, np.float32), device=device),
+        rbuf=pad(S, RB), rcount=torch.zeros(S, dtype=i32, device=device),
+        rdrop=torch.zeros(S, dtype=i32, device=device), rchoice=pad(S, RB),
+        pend_id=pad(S, RB), pend_node=pad(S, RB), pend_relb=pad(S, RB),
+        rnode=pad(S, P), rbind_b=pad(S, P),
+    )
+
+
 class Tables(NamedTuple):
     """Everything a slot step reads or writes, on one device."""
 
@@ -210,6 +254,28 @@ class Tables(NamedTuple):
     scratch: Scratch
     consts: StepConsts
     preempt: Optional[Preempt] = None
+    retry: Optional[Retry] = None
+
+
+def _scenario_subset(tb: Tables, idx: torch.Tensor) -> Tables:
+    """Copies of the scenarios ``idx`` of ``tb`` (their cluster rows where
+    stacked, state and scratch) as a Tables of ``len(idx)`` scenarios."""
+    cl = tb.cluster
+    pick = lambda t: t[idx] if t.dim() == 3 else t
+    return Tables(
+        cl._replace(allocatable=pick(cl.allocatable), taint_key=pick(cl.taint_key),
+                    taint_kv=pick(cl.taint_kv), taint_effect=pick(cl.taint_effect)),
+        tb.pods, DevState(*(x[idx] for x in tb.state)), Scratch(*(x[idx] for x in tb.scratch)),
+        tb.consts)
+
+
+def _pods_of_scenarios(pod_of_s: torch.Tensor):
+    """(pod, scenario index tensor) for each distinct pod >= 0 of a
+    per-scenario pod row ``[S]``."""
+    pods = pod_of_s.tolist()
+    for q in sorted({v for v in pods if v >= 0}):
+        yield q, torch.as_tensor([s for s, v in enumerate(pods) if v == q],
+                                 device=pod_of_s.device)
 
 
 def expr_match_matrix(ec: EncodedCluster) -> np.ndarray:
@@ -530,10 +596,22 @@ def fit_score(cl: DevCluster, st: DevState, pods: DevPods, p: int, k: StepConsts
 # ---------------------------------------------------------------------------
 
 
-def filter_score(tb: Tables, p: int) -> None:
+def filter_score(tb: Tables, p: int, pod_of_s: Optional[torch.Tensor] = None) -> None:
     """Plain twin of K1 (csrc/filter_score.cu): writes the fused mask and
     the raw score rows of pod ``p`` in every scenario into
-    ``tb.scratch``."""
+    ``tb.scratch``. With ``pod_of_s`` ([S] i32, the retry pass) scenario s
+    takes pod ``pod_of_s[s]`` instead, and a PAD pod gets an all-zero
+    mask, rows and ignored mask."""
+    if pod_of_s is not None:
+        out = tb.scratch
+        for x in out:
+            x.zero_()
+        for q, idx in _pods_of_scenarios(pod_of_s):
+            sub = _scenario_subset(tb, idx)
+            filter_score(sub, q)
+            for x, y in zip(out, sub.scratch):
+                x[idx] = y
+        return
     cl, pods, st, k, out = tb.cluster, tb.pods, tb.state, tb.consts, tb.scratch
     S, N = out.feasible.shape
     dev = out.feasible.device
@@ -726,14 +804,23 @@ def masked_argmin(scores: torch.Tensor, mask: torch.Tensor) -> Tuple[torch.Tenso
 
 
 def normalize_select(tb: Tables, p: int, choices: torch.Tensor, slot: int,
-                     wave: int = -1) -> None:
+                     wave: int = -1, pod_of_s: Optional[torch.Tensor] = None) -> None:
     """Plain twin of K2 (csrc/normalize_select.cu): writes pod ``p``'s
     choice in each scenario s (PAD when unplaced) into the int32
     ``choices[s, slot]``. With tier preemption (``tb.preempt``), a scenario
     where nothing is feasible, the pod may preempt and no preemption fired
     yet in ``wave`` takes the lowest-index argmin of the candidate row
     instead, and records the eviction (node, the pod's tier) for K3;
-    every other scenario records none."""
+    every other scenario records none. With ``pod_of_s`` ([S] i32, the
+    retry pass) scenario s selects for pod ``pod_of_s[s]`` (PAD: writes
+    PAD)."""
+    if pod_of_s is not None:
+        out = torch.full((choices.shape[0],), PAD, dtype=torch.int32, device=choices.device)
+        for q, idx in _pods_of_scenarios(pod_of_s):
+            sub = _scenario_subset(tb, idx)
+            out[idx] = select_node(weighted_total(sub, q), sub.scratch.feasible)
+        choices[:, slot] = out
+        return
     choice = select_node(weighted_total(tb, p), tb.scratch.feasible)
     pre = tb.preempt
     if pre is not None:
@@ -806,17 +893,42 @@ def evict(tb: Tables, slot: int, choices: torch.Tensor, boundary: int) -> None:
     st.used[s_ar, evc] = torch.where(has[:, None], row - lower, row)
 
 
+def append_failures(tb: Tables, pod_ids: torch.Tensor, nodes: torch.Tensor) -> None:
+    """The failure append of a main-path bind (sim/boundary.py:350
+    ``offer_failure``; sim/whatif.py:1502-1528): in each scenario, in pair
+    order, a valid non-gang pod whose node is PAD enters the scenario's
+    FIFO at ``rbuf[s, rcount[s]]``, or, with the buffer full, is dropped
+    and counted in ``rdrop[s]``."""
+    rt, gid = tb.retry, tb.pods.group_id
+    RB = rt.rbuf.shape[1]
+    s_ar = torch.arange(rt.rbuf.shape[0], device=rt.rbuf.device)
+    fail = (pod_ids >= 0) & (nodes < 0) & (gid[pod_ids.clamp(min=0).long()] < 0)
+    for k in range(fail.shape[1]):
+        f = fail[:, k]
+        room = rt.rcount < RB
+        put = f & room
+        rt.rbuf[s_ar[put], rt.rcount[put].long()] = pod_ids[put, k]
+        rt.rcount.add_(put.to(torch.int32))
+        rt.rdrop.add_((f & ~room).to(torch.int32))
+
+
 def apply_placements(
     tb: Tables, pod_ids: torch.Tensor, pos: torch.Tensor, choices: torch.Tensor, sign: float,
     rollback: bool = False, boundary: Optional[int] = None,
+    due: Optional[Tuple[torch.Tensor, int]] = None, append: bool = False,
 ) -> None:
     """Plain twin of K3 (csrc/apply_placements.cu): add ``sign`` × the
     state contribution of each pair (``pod_ids[k]``, node
     ``choices[s, pos[k]]``) to scenario s's state, in pair order
-    (models/state._apply); PAD pods and nodes are skipped. ``rollback``
-    restricts the pairs to failed-gang members and overwrites their
-    choices with PAD. With tier preemption the tier planes follow the
-    non-gang pairs, and a bind given the current ``boundary`` first
+    (models/state._apply); PAD pods and nodes are skipped. ``pod_ids`` is
+    ``[K]`` (shared by the scenarios) or ``[S, K]`` (per scenario: the
+    retry pass's bind and the pending release). ``rollback`` restricts the
+    pairs to failed-gang members and overwrites their choices with PAD.
+    ``due = (relb [S, K], b)`` keeps only the pairs with ``relb <= b`` (the
+    pending release). ``append`` (a main-path bind under the retry buffer)
+    then appends each failed non-gang pod to its scenario's buffer
+    (:func:`append_failures`). With tier preemption the tier planes follow
+    the non-gang pairs, and a bind given the current ``boundary`` first
     applies the slot's eviction record (:func:`evict`)."""
     pods, cl, st = tb.pods, tb.cluster, tb.state
     S, N, R = st.used.shape
@@ -826,13 +938,16 @@ def apply_placements(
         evict(tb, int(pos[0]), choices, boundary)
     posl = pos.long()
     nodes = choices[:, posl]  # [S, K]
+    pid = pod_ids if pod_ids.dim() == 2 else pod_ids.expand(S, -1)
     if rollback:
         keep = gang_rollback_mask(pods, pod_ids, nodes)
     else:
-        keep = (pod_ids >= 0) & (nodes >= 0)
+        keep = (pid >= 0) & (nodes >= 0)
+    if due is not None:
+        keep = keep & (due[0] <= due[1])
     ss, kk = torch.nonzero(keep, as_tuple=True)  # scenario-major, pair order within
     if ss.numel():
-        p = pod_ids[kk].long()
+        p = pid[ss, kk].long()
         n = nodes[ss, kk].long()
         st.used.view(S * N, R).index_add_(0, ss * N + n, sign * pods.requests[p])
         if pre is not None:
@@ -866,3 +981,66 @@ def apply_placements(
             )
     if rollback:
         choices[:, posl] = torch.where(keep, torch.full_like(nodes, PAD), nodes)
+    if append:
+        append_failures(tb, pid, nodes)
+
+
+# ---------------------------------------------------------------------------
+# Boundary bookkeeping of the retry buffer (K4 twin)
+# ---------------------------------------------------------------------------
+
+
+def _stable_front(flags: torch.Tensor, RB: int) -> torch.Tensor:
+    """[S, RB] indices that bring each row's True entries to the front in
+    their order (the first RB of them)."""
+    return torch.argsort((~flags).to(torch.int8), dim=1, stable=True)[:, :RB]
+
+
+def retry_boundary(tb: Tables, b: int, t_b: float) -> None:
+    """Plain twin of K4 (csrc/retry_boundary.cu): boundary ``b``'s
+    bookkeeping after the retry pass (sim/whatif.py:1456-1497; the host
+    pass of sim/boundary.py:547-678), in each scenario:
+
+    1. each buffered pod the pass placed (``rchoice >= 0``) records its
+       node in ``rnode`` and ``b`` in ``rbind_b``;
+    2. the pending list drops its due entries (``relb <= b``: K3 released
+       them before the pass) and then appends, in buffer order, each
+       placed pod whose release boundary ``relb = max(searchsorted_left(
+       tbt, f32(t_b) + f32(duration)), b + 1)`` exists (the search below
+       ``len(tbt)``), stably, capped at RB (a release that does not fit is
+       lost: the pod keeps its node to the end);
+    3. the buffer keeps its unplaced pods, stably (``rcount`` their
+       number).
+
+    Entries past a list's end are PAD in every field."""
+    rt = tb.retry
+    RB = rt.rbuf.shape[1]
+    rbuf, ch = rt.rbuf, rt.rchoice
+    valid = rbuf >= 0
+    placed = valid & (ch >= 0)
+    s_i, k_i = torch.nonzero(placed, as_tuple=True)
+    q = rbuf[s_i, k_i].long()
+    rt.rnode[s_i, q] = ch[s_i, k_i]
+    rt.rbind_b[s_i, q] = b
+    v = torch.tensor(t_b, dtype=torch.float32, device=rbuf.device) + rt.dur[rbuf.clamp(min=0).long()]
+    rbn = torch.searchsorted(rt.tbt, v.contiguous(), right=False).to(torch.int32)
+    add = placed & (rbn < rt.tbt.shape[0])
+    relb_new = torch.clamp(rbn, min=b + 1)
+    keep_old = (rt.pend_id >= 0) & (rt.pend_relb > b)
+    ids = torch.cat([torch.where(keep_old, rt.pend_id, torch.full_like(rbuf, PAD)),
+                     torch.where(add, rbuf, torch.full_like(rbuf, PAD))], dim=1)
+    node = torch.cat([rt.pend_node, ch], dim=1)
+    relb = torch.cat([rt.pend_relb, relb_new], dim=1)
+    o = _stable_front(ids >= 0, RB)
+    kept = torch.gather(ids, 1, o) >= 0
+    padded = lambda t: torch.where(kept, torch.gather(t, 1, o), torch.full_like(kept, PAD,
+                                                                                 dtype=t.dtype))
+    new_id, new_node, new_relb = padded(ids), padded(node), padded(relb)
+    rt.pend_id.copy_(new_id)
+    rt.pend_node.copy_(new_node)
+    rt.pend_relb.copy_(new_relb)
+    keep_q = valid & (ch < 0)
+    oq = _stable_front(keep_q, RB)
+    rt.rbuf.copy_(torch.where(torch.gather(keep_q, 1, oq), torch.gather(rbuf, 1, oq),
+                              torch.full_like(rbuf, PAD)))
+    rt.rcount.copy_(keep_q.sum(dim=1).to(torch.int32))

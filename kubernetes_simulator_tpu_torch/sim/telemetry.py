@@ -1,9 +1,9 @@
 """Replay telemetry at granularity ``off`` or ``summary``.
 
 Counterpart: ``kubernetes_simulator_tpu/sim/telemetry.py`` — the
-``summary`` level: the first-bind latency histogram (every plain-path
-placement binds in its arrival wave, latency 0) and the wall-clock phase
-timers. ``series`` and ``timeline`` (rejection attribution, depth series,
+``summary`` level: the first-bind latency histogram (a placement in its
+arrival wave has latency 0; one by the retry buffer's pass waits until its
+boundary) and the wall-clock phase timers. ``series`` and ``timeline`` (rejection attribution, depth series,
 timeline events) are a later slice of the port and raise here.
 """
 
@@ -71,6 +71,17 @@ def latency_summary(zero_count: int, values: Sequence[float]) -> Optional[dict]:
         "p99": p99,
         "buckets": buckets,
     }
+
+
+def first_bind_latency(placed: int, retry_waits: Sequence[float]) -> Optional[dict]:
+    """The summary histogram of a run's ``placed`` first binds: a pod
+    placed in its arrival wave waits 0; one placed by the retry pass waits
+    from its arrival to the start time of its boundary (``retry_waits``;
+    boundary-granular, kubernetes_simulator_tpu/sim/boundary.py:614-628),
+    counted as 0 when that is not later."""
+    waits = np.asarray(list(retry_waits), dtype=np.float64)
+    later = waits[waits > 0.0]
+    return latency_summary(int(placed) - later.size, later)
 
 
 class PhaseTimers:

@@ -41,6 +41,20 @@ eviction, and K3's bind first writes PAD over the victims' columns of the
 choice buffer, frees their usage and counts them. The victims' PAD keeps
 them out of every later release, and the final fetch yields the
 assignments with no host walk (``preemption_walk`` :788 is not needed).
+
+The unschedulable-retry buffer (``retry_buffer=RB``; the semantics of
+``greedy_replay(retry_buffer=...)``, sim/greedy.py:110, which the JAX
+package runs as the host boundary pass of sim/boundary.py:350-678 in the
+single replay and as the retry variant of ``_build_chunk_fn``,
+sim/whatif.py:1406-1557, in the what-if) runs on the device in both
+engines: a main-path K3 bind appends a failed non-gang pod to its
+scenario's FIFO (overflow drops the newest, counted); at each boundary
+after the static release, K3 releases the due entries of the pending
+list, the retry pass runs K1 → K2 → K3 over the buffer slots with one
+pod per scenario, and K4 (retry_boundary) records the retried binds,
+schedules their releases on the pending list and compacts the buffer. A
+retried pod's slot column keeps PAD, so its static bucket never releases
+it; its node comes back in ``Retry.rnode``.
 """
 
 from __future__ import annotations
@@ -63,7 +77,7 @@ from ..ops import reference as ref
 from ..plugins.builtin import DEFAULT_WEIGHTS, PLUGIN_NAMES
 from ..utils.metrics import fragmentation_gauges, utilization_means
 from .runtime import ReplayResult
-from .telemetry import PhaseTimers, ReplayTelemetry, latency_summary, resolve_granularity
+from .telemetry import PhaseTimers, ReplayTelemetry, first_bind_latency, resolve_granularity
 from .tiers import check_tier_mode, normalize_preemption, tier_planes
 from .waves import pack_waves
 
@@ -266,6 +280,14 @@ def _later(what: str, slice_: str) -> NotImplementedError:
     )
 
 
+def check_retry_buffer(retry_buffer) -> int:
+    """The requested buffer as an int (0: off); a negative one raises."""
+    rb = int(retry_buffer or 0)
+    if rb < 0:
+        raise ValueError(f"retry_buffer must be >= 0, got {rb}")
+    return rb
+
+
 def tier_preemption(preemption, engine: str = "v3", retry_buffer: int = 0,
                     node_shards: int = 0) -> bool:
     """True for tier preemption (``True`` / ``"tier"``), False when off;
@@ -294,6 +316,12 @@ def release_times(pods: EncodedPods) -> np.ndarray:
     return pods.arrival + np.where(np.isfinite(pods.duration), pods.duration, np.inf)
 
 
+def completions_gate(pods: EncodedPods, completions: Optional[bool]) -> bool:
+    """Completions are on when the trace has finite durations, unless the
+    caller passes ``completions=False``."""
+    return completions is not False and bool(np.isfinite(release_times(pods)).any())
+
+
 @dataclass
 class ChunkPlan:
     """Static chunk layout of one trace, built once per engine on the host
@@ -314,6 +342,17 @@ class ChunkPlan:
     #: [L] i32 boundary at which each column's pod releases (ref.NEVER
     #: for a pod that runs on and for a padded slot)
     col_relb: np.ndarray
+    #: [nchunks] f64 start time of each boundary (its first pod's arrival)
+    tb: np.ndarray
+    #: [nchunks] valid non-gang pods in the waves before each boundary: no
+    #: more can wait in a scenario's retry buffer there
+    nongang_before: np.ndarray
+
+    @property
+    def tbt(self) -> np.ndarray:
+        """[B] f32 start times of the finite boundaries (the retry pass's
+        release search, sim/whatif.py:2316)."""
+        return self.tb[np.isfinite(self.tb)].astype(np.float32)
 
     @property
     def L(self) -> int:
@@ -350,6 +389,9 @@ def plan_chunks(
     nchunks = idx.shape[0] // C
     buckets: List[Optional[Tuple[np.ndarray, np.ndarray]]] = [None] * nchunks
     col_relb = np.full(idx.size + prebound.size, ref.NEVER, np.int32)
+    tb_all = wave_start_times(pods, idx)[0::C][:nchunks]
+    nongang = ((idx >= 0) & (pods.group_id[np.clip(idx, 0, None)] < 0)).sum(axis=1)
+    nongang_before = np.concatenate(([0], np.cumsum(nongang)))[0 : nchunks * C : C]
     if completions_on:
         P = pods.num_pods
         flat = idx.reshape(-1)
@@ -362,7 +404,6 @@ def plan_chunks(
         chunk_of[prebound] = -2
         pos_of[prebound] = Wtot + np.arange(prebound.size)
         rel_time = release_times(pods)
-        tb_all = wave_start_times(pods, idx)[0::C][:nchunks]
         nfin = int(np.isfinite(tb_all).sum())
         elig = np.searchsorted(tb_all[:nfin], rel_time, side="left").astype(np.int64)
         elig_ok = np.isfinite(rel_time) & (elig < nfin)
@@ -379,7 +420,7 @@ def plan_chunks(
             buckets[b] = (seg.astype(np.int32), pos_of[seg].astype(np.int32))
         col_relb[pos_of[pods_ok]] = b_rel[pods_ok]
     return ChunkPlan(idx=idx, C=C, gang_wave=gang_wave, prebound=prebound, buckets=buckets,
-                     col_relb=col_relb)
+                     col_relb=col_relb, tb=tb_all, nongang_before=nongang_before)
 
 
 def new_choices(plan: ChunkPlan, S: int, bound_node: np.ndarray, device) -> torch.Tensor:
@@ -392,26 +433,56 @@ def new_choices(plan: ChunkPlan, S: int, bound_node: np.ndarray, device) -> torc
     return choices
 
 
+def retry_slots(plan: ChunkPlan, b: int, RB: int) -> int:
+    """Buffer slots the retry pass at boundary b runs: the host cannot
+    see the buffer without waiting on the card, so every slot that may
+    hold a pod — no more than the valid non-gang pods of the waves before
+    b (none at b = 0), at most RB."""
+    return min(RB, int(plan.nongang_before[b]))
+
+
+def run_retry_boundary(plan: ChunkPlan, b: int, h, fns, rt: ref.Retry,
+                       pos_rb: torch.Tensor) -> None:
+    """Boundary b's retry sequence (after its static release): the K3
+    release of the pending list's due entries, the retry pass — K1 → K2
+    → K3 bind over each buffer slot that may hold a pod, one pod per
+    scenario (a scenario whose slot is empty does nothing) — and K4."""
+    filter_score, normalize_select, apply_placements, retry_boundary = fns
+    RB = rt.rbuf.shape[1]
+    apply_placements(h, rt.pend_id, pos_rb, rt.pend_node, -1.0, due=(rt.pend_relb, b))
+    for k in range(retry_slots(plan, b, RB)):
+        pod_of_s = rt.rbuf[:, k]
+        filter_score(h, PAD, pod_of_s)
+        normalize_select(h, PAD, rt.rchoice, k, -1, pod_of_s)
+        apply_placements(h, rt.rbuf[:, k : k + 1], pos_rb[k : k + 1], rt.rchoice, 1.0)
+    retry_boundary(h, b, float(np.float32(plan.tb[b])))
+
+
 def run_waves(plan: ChunkPlan, tb: ref.Tables, choices: torch.Tensor, first: int, end: int,
               plain: bool) -> None:
     """Enqueue waves ``[first, end)`` of ``plan`` over the S scenarios of
     ``tb`` (state and ``choices`` updated in place, no synchronisation):
-    the release bucket of a boundary where a chunk starts, then per slot
-    K1 → K2 → K3 bind, and a K3 rollback after a wave holding a gang
-    member. ``plain`` runs the plain twins on any device; otherwise the
-    kernel wrappers run (the kernels for CUDA tensors, the twins for CPU
-    tensors)."""
+    the release bucket of a boundary where a chunk starts, then (under the
+    retry buffer, past boundary 0) the boundary's retry sequence
+    (:func:`run_retry_boundary`), then per slot K1 → K2 → K3 bind (which
+    appends a failed non-gang pod to the buffer), and a K3 rollback after
+    a wave holding a gang member. ``plain`` runs the plain twins on any
+    device; otherwise the kernel wrappers run (the kernels for CUDA
+    tensors, the twins for CPU tensors)."""
     dev = tb.state.used.device
     idx, C = plan.idx, plan.C
     W = idx.shape[1]
     if plain:
-        filter_score, normalize_select, apply_placements = (
-            ref.filter_score, ref.normalize_select, ref.apply_placements)
+        fns = (ref.filter_score, ref.normalize_select, ref.apply_placements,
+               ref.retry_boundary)
         h = tb
     else:
-        filter_score, normalize_select, apply_placements = (
-            K.filter_score, K.normalize_select, K.apply_placements)
+        fns = (K.filter_score, K.normalize_select, K.apply_placements, K.retry_boundary)
         h = K.Bound(tb)
+    filter_score, normalize_select, apply_placements = fns[:3]
+    rt = tb.retry
+    if rt is not None:
+        pos_rb = torch.arange(rt.rbuf.shape[1], dtype=torch.int32, device=dev)
     idx_dev = torch.as_tensor(idx.reshape(-1), device=dev)
     pos_dev = torch.arange(plan.L, dtype=torch.int32, device=dev)
     # Every release bucket of the range is staged before the first launch.
@@ -422,10 +493,13 @@ def run_waves(plan: ChunkPlan, tb: ref.Tables, choices: torch.Tensor, first: int
     rows = idx.tolist()
     gang_wave = plan.gang_wave.tolist()
     preempt = tb.preempt is not None
+    append = rt is not None
     for w in range(first, end):
         b = w // C
         if w % C == 0 and b in buckets:
             apply_placements(h, buckets[b][0], buckets[b][1], choices, -1.0)
+        if w % C == 0 and rt is not None and b > 0:
+            run_retry_boundary(plan, b, h, fns, rt, pos_rb)
         base = w * W
         for k, p in enumerate(rows[w]):
             if p < 0:
@@ -434,7 +508,7 @@ def run_waves(plan: ChunkPlan, tb: ref.Tables, choices: torch.Tensor, first: int
             filter_score(h, p)
             normalize_select(h, p, choices, s, w)
             apply_placements(h, idx_dev[s : s + 1], pos_dev[s : s + 1], choices, 1.0,
-                             boundary=b if preempt else None)
+                             boundary=b if preempt else None, append=append)
         if gang_wave[w]:
             apply_placements(h, idx_dev[base : base + W], pos_dev[base : base + W], choices,
                              -1.0, rollback=True)
@@ -455,12 +529,14 @@ def run_chunks(
 
 
 def assignments_from_choices(
-    plan: ChunkPlan, host_choices: np.ndarray, bound_node: np.ndarray
+    plan: ChunkPlan, host_choices: np.ndarray, bound_node: np.ndarray,
+    rnode: Optional[np.ndarray] = None,
 ) -> Tuple[np.ndarray, np.ndarray, int]:
     """(assignments [S, P], placed [S], pods to schedule) from a fetched
     choice buffer: every wave pod takes its slot's choice and every
     pre-bound pod its tail column's (PAD = unplaced, rolled back or
-    evicted)."""
+    evicted); under the retry buffer a pod placed on retry (``rnode``
+    [S, P], its slot PAD) takes its retried node and counts once."""
     flat_idx = plan.idx.reshape(-1)
     valid = flat_idx >= 0
     slot = host_choices[:, : flat_idx.size][:, valid]
@@ -469,6 +545,10 @@ def assignments_from_choices(
     assignments[:, plan.prebound] = host_choices[:, flat_idx.size :]
     assignments[:, flat_idx[valid]] = slot
     placed = (slot >= 0).sum(axis=1).astype(np.int32)
+    if rnode is not None:
+        retried = rnode >= 0
+        assignments[retried] = rnode[retried]
+        placed += retried.sum(axis=1).astype(np.int32)
     return assignments, placed, int(valid.sum())
 
 
@@ -477,14 +557,19 @@ class ChunkEngine:
     share: wave packing, the completions gate (on when the trace has finite
     durations, unless ``completions=False``), the granularity guard, the
     static chunk plan, the tables of S scenarios on the device (with the
-    tier-preemption tables when ``preemption`` is on) and one pass of
-    :func:`run_chunks`."""
+    tier-preemption tables when ``preemption`` is on and the retry tables
+    when ``retry_buffer`` is) and one pass of :func:`run_chunks`.
+
+    The buffer the guard recommends (grown to cover one chunk's failures
+    when it shrinks the chunks) is rounded up to a multiple of the wave
+    width, as the reference rounds it in both engines (sim/whatif.py:1078
+    and, for the single replay, sim/boundary.py ``BoundaryOps``)."""
 
     def _prepare(
         self, ec: EncodedCluster, pods: EncodedPods, spec: StepSpec, cluster: ref.DevCluster,
         S: int, wave_width, chunk_waves: int, completions: Optional[bool],
         granularity_guard: bool, engine_name: str, device: torch.device, plain: bool,
-        preemption: bool = False,
+        preemption: bool = False, retry_buffer: int = 0,
     ) -> None:
         self.ec, self.pods, self.spec, self.S, self.device = ec, pods, spec, S, device
         #: (tiers, pod_tier) under tier preemption, else None
@@ -496,16 +581,18 @@ class ChunkEngine:
         if self.wave_width > 1024:
             raise ValueError("wave_width must be <= 1024 (one rollback block)")
         self.waves = pack_waves(pods, self.wave_width)
-        self.completions_on = completions is not False and bool(
-            np.isfinite(release_times(pods)).any())
+        self.completions_on = completions_gate(pods, completions)
         self.chunk_waves = int(chunk_waves)
+        rb = int(retry_buffer)
         if self.completions_on:
             from .granularity import guard
 
-            self.chunk_waves, _ = guard(
-                pods, self.waves.idx, self.chunk_waves, 0,
+            self.chunk_waves, rb = guard(
+                pods, self.waves.idx, self.chunk_waves, rb,
                 enabled=granularity_guard, engine_name=engine_name,
             )
+        #: effective retry buffer slots per scenario (0: off)
+        self.retry_buffer = -(-rb // self.wave_width) * self.wave_width
         #: chunk layout and release buckets, static per engine
         self.plan = plan_chunks(pods, self.waves.idx, self.chunk_waves, self.completions_on,
                                 spec.has_gangs)
@@ -522,12 +609,16 @@ class ChunkEngine:
             pre = ref.new_preempt(pod_tier, self.pods.group_id, self.plan.col_pod,
                                   self.plan.col_relb, self.plan.idx.size, ut, nt, self.S,
                                   self.device)
+        rt = None
+        if self.retry_buffer:
+            rt = ref.new_retry(self.retry_buffer, self.pods.duration, self.plan.tbt, self.S,
+                               self.device)
         return ref.Tables(
             cluster=self._cluster, pods=self._pods,
             state=ref.stacked_state(st.used, st.match_count, st.anti_active, st.pref_wsum,
                                     self.S, self.device),
             scratch=ref.new_scratch(self.S, self.ec.num_nodes, self.device), consts=self.consts,
-            preempt=pre,
+            preempt=pre, retry=rt,
         )
 
     def _run(self, timers=None):
@@ -538,8 +629,17 @@ class ChunkEngine:
         t0 = time.perf_counter()
         host_choices = run_chunks(self.plan, tb, self.pods.bound_node, self.plain, timers)
         wall = time.perf_counter() - t0
+        rnode = tb.retry.rnode.cpu().numpy() if tb.retry is not None else None
         return (tb, wall) + assignments_from_choices(self.plan, host_choices,
-                                                     self.pods.bound_node)
+                                                     self.pods.bound_node, rnode)
+
+    def _retry_waits(self, tb: ref.Tables, s: int) -> np.ndarray:
+        """Scenario s's pods placed on retry: the start time of the
+        boundary of each bind less the pod's arrival."""
+        rnode = tb.retry.rnode[s].cpu().numpy()
+        rb = tb.retry.rbind_b[s].cpu().numpy()
+        p = np.nonzero(rnode >= 0)[0]
+        return self.plan.tb[rb[p]] - self.pods.arrival[p]
 
 
 class TorchReplayEngine(ChunkEngine):
@@ -550,9 +650,11 @@ class TorchReplayEngine(ChunkEngine):
     the kernels' plain twins. ``plain=True`` runs the twins on any device
     (a reference run for holding the kernel path against; the wrappers
     never fall back on their own). ``completions`` (None = on when the
-    trace has finite durations) and ``granularity_guard`` behave as in
-    ``JaxReplayEngine``; ``telemetry`` is "off" or "summary". Every other
-    mode of the JAX engine raises ``NotImplementedError`` naming it."""
+    trace has finite durations), ``retry_buffer`` and
+    ``granularity_guard`` behave as in ``JaxReplayEngine``; the retry
+    pass runs on the chunk grid also when no pod has a duration (nothing
+    then releases). ``telemetry`` is "off" or "summary". Every other mode
+    of the JAX engine raises ``NotImplementedError`` naming it."""
 
     def __init__(
         self,
@@ -573,11 +675,15 @@ class TorchReplayEngine(ChunkEngine):
         flight_recorder=None,
         plain: bool = False,
     ):
-        mode = tier_preemption(preemption, engine, retry_buffer, node_shards)
+        rb = check_retry_buffer(retry_buffer)
+        mode = tier_preemption(preemption, engine, rb, node_shards)
         if engine != "v3":
             raise _later(f"engine={engine!r} (the v2 node-space chain)", "queue B row B8")
-        if retry_buffer:
-            raise _later("retry_buffer", "boundary retry and kube modes")
+        if rb and completions is False:
+            raise ValueError(
+                "completions=False is not supported with retry_buffer/kube preemption (the "
+                "boundary pass owns releases)"
+            )
         if node_shards and int(node_shards) > 1:
             raise _later("node_shards", "node sharding, queue B row B13")
         if paged:
@@ -589,7 +695,7 @@ class TorchReplayEngine(ChunkEngine):
         self.preemption = mode
         self._prepare(ec, pods, StepSpec.from_config(ec, config, pods),
                       ref.cluster_to(ec, device), 1, wave_width, chunk_waves, completions,
-                      granularity_guard, "torch replay engine", device, plain, mode)
+                      granularity_guard, "torch replay engine", device, plain, mode, rb)
 
     # -- one replay --------------------------------------------------------
 
@@ -631,10 +737,10 @@ class TorchReplayEngine(ChunkEngine):
         )
         tel = None
         if timers is not None:
-            # Every plain-path placement binds in its arrival wave: latency 0.
             tel = ReplayTelemetry(
                 granularity=self.telemetry,
-                latency=latency_summary(placed, []),
+                latency=first_bind_latency(
+                    placed, self._retry_waits(tb, 0) if tb.retry is not None else ()),
                 phases=timers.summary(),
             )
         return ReplayResult(
@@ -642,6 +748,7 @@ class TorchReplayEngine(ChunkEngine):
             placed=placed,
             unschedulable=to_schedule - placed,
             preemptions=int(tb.preempt.victims[0]) if tb.preempt is not None else 0,
+            retry_dropped=int(tb.retry.rdrop[0]) if tb.retry is not None else 0,
             attempts=to_schedule,
             wall_clock_s=wall,
             placements_per_sec=placed / wall if wall > 0 else 0.0,

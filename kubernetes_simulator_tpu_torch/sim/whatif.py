@@ -27,6 +27,16 @@ victim counter (``WhatIfResult.preemptions [S]``), and the release
 buckets drop completed non-gang pods from the tier planes (``_tier_rel_fn``
 :2145, ``_npods_rel_fn`` :2161). As in the reference, it refuses pre-bound
 pods.
+
+The unschedulable-retry buffer (``retry_buffer=RB``; the retry variant of
+``_build_chunk_fn``, :1406-1557) gives each scenario its own FIFO of
+failed non-gang pods, retry pass and pending list
+(:func:`.torch_runtime.run_retry_boundary`; ``WhatIfResult.retry_dropped
+[S]``). It keeps the reference's refusals (no finite durations or
+``completions=False``, ``collect_assignments``, tier preemption, fork
+checkpoints). The reference also refuses traces whose count planes
+need non-singleton host-scale rows (:956-966), a limit of its TPU plane
+layout; the port's state has no host planes, so it runs them.
 """
 
 from __future__ import annotations
@@ -42,7 +52,14 @@ from ..models.core import Effect
 from ..models.encode import PAD, EncodedCluster, EncodedPods
 from ..ops import reference as ref
 from .telemetry import resolve_granularity
-from .torch_runtime import ChunkEngine, StepSpec, resolve_device, tier_preemption
+from .torch_runtime import (
+    ChunkEngine,
+    StepSpec,
+    check_retry_buffer,
+    completions_gate,
+    resolve_device,
+    tier_preemption,
+)
 
 
 @dataclass
@@ -145,9 +162,10 @@ class WhatIfResult:
     """The reference's result record. This engine fills ``placed``,
     ``unschedulable``, ``total_placed``, ``wall_clock_s``,
     ``placements_per_sec``, ``assignments`` (when collected),
-    ``utilization_cpu``, ``completions_on``, ``engine`` and, under tier
-    preemption, ``preemptions`` (victims per scenario); the fields of
-    modes not ported yet stay None."""
+    ``utilization_cpu``, ``completions_on``, ``engine``, under tier
+    preemption ``preemptions`` (victims per scenario) and under the retry
+    buffer ``retry_dropped`` (failures dropped on a full buffer, per
+    scenario); the fields of modes not ported yet stay None."""
 
     placed: np.ndarray  # [S] i32
     unschedulable: np.ndarray  # [S] i32
@@ -183,9 +201,10 @@ class WhatIfEngine(ChunkEngine):
     ``device`` defaults to ``"cuda"`` (the kernels; raises without a card)
     and ``device="cpu"`` runs the plain twins; ``plain=True`` runs the
     twins on any device. ``completions`` (None = on when the trace has
-    finite durations), ``granularity_guard`` and ``collect_assignments``
-    behave as in the JAX engine; the result is the same whether or not
-    the assignments are collected. ``telemetry`` is "off" or "summary".
+    finite durations), ``retry_buffer``, ``granularity_guard`` and
+    ``collect_assignments`` behave as in the JAX engine; the result is the
+    same whether or not the assignments are collected. ``telemetry`` is
+    "off" or "summary".
     Every other mode raises ``NotImplementedError`` naming its queue
     item."""
 
@@ -213,7 +232,14 @@ class WhatIfEngine(ChunkEngine):
         plain: bool = False,
     ):
         scenarios = list(scenarios)
-        mode = tier_preemption(preemption, retry_buffer=retry_buffer)
+        mode = tier_preemption(preemption)
+        rb = check_retry_buffer(retry_buffer)
+        if rb and (not completions_gate(pods, completions) or collect_assignments or mode
+                   or fork_checkpoint is not None):
+            raise ValueError(
+                "retry_buffer requires the device-release completions path (finite durations, "
+                "completions on, no collect_assignments, tier preemption or fork checkpoint)"
+            )
         if mode and (engine != "v3" or fork_checkpoint):
             raise ValueError(
                 "what-if preemption requires the v3 engine (no label perturbations) and no "
@@ -232,8 +258,6 @@ class WhatIfEngine(ChunkEngine):
             raise _later("node_shards (node-plane sharding, row B13)", "queue A item 10")
         if fork_checkpoint is not None:
             raise _later("fork_checkpoint (what-if forks from a checkpoint)", "queue A item 7")
-        if retry_buffer:
-            raise _later("retry_buffer (the retry variant of row B12)", "queue A items 6-7")
         if policies is not None:
             raise _later("policies (traced per-scenario policies)", "queue A item 7")
         if _dcn_recovery is not None:
@@ -257,7 +281,7 @@ class WhatIfEngine(ChunkEngine):
         )
         self.preemption = mode
         self._prepare(ec, pods, spec, cluster, self.sset.num_scenarios, wave_width, chunk_waves,
-                      completions, granularity_guard, "what-if engine", device, plain, mode)
+                      completions, granularity_guard, "what-if engine", device, plain, mode, rb)
 
     def _utilization_cpu(self, tb: ref.Tables) -> Optional[np.ndarray]:
         """[S] mean over nodes of used/allocatable cpu (0 where a node has
@@ -285,6 +309,7 @@ class WhatIfEngine(ChunkEngine):
             completions_on=self.completions_on,
             engine=self.engine,
             preemptions=(tb.preempt.victims.cpu().numpy() if tb.preempt is not None else None),
+            retry_dropped=(tb.retry.rdrop.cpu().numpy() if tb.retry is not None else None),
         )
 
 

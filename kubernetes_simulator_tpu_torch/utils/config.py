@@ -6,9 +6,12 @@ port runs: the synthetic ``cluster``/``workload``, the ``profile``
 (plugins, weights), ``telemetry``, ``output``, ``waveWidth``,
 ``chunkWaves``, ``devicePreemption`` (``true`` / ``"tier"``: tier
 preemption; ``"kube"`` is refused) and ``whatIf`` (``scenarios``,
-``seed``, ``nodeDownP``, ``capacityP``, ``taintP``, ``completions``). Parsing is the reference's,
-key for key, so one YAML file yields the same encoded case and the same
-scenario batch in both packages.
+``seed``, ``nodeDownP``, ``capacityP``, ``taintP``, ``completions``,
+``retryBuffer``: the unschedulable-retry buffer of ``run`` and
+``what-if``). Parsing is the reference's, key for key, so one YAML file
+yields the same encoded case and the same scenario batch in both
+packages; the reference's ``validate`` refusals of a retry buffer
+(kubernetes_simulator_tpu/cli.py:705-730) raise ``ValueError`` here.
 
 Every other section of the JAX package's schema belongs to a mode the port
 does not carry yet; :meth:`SimConfig.from_dict` refuses it with an error
@@ -57,6 +60,8 @@ class WhatIfSpec:
     taint_p: float = 0.1
     # None = default-on completions; True/False are the explicit forms.
     completions: Optional[bool] = None
+    # Unschedulable-retry buffer slots per scenario (0 = off).
+    retry_buffer: int = 0
 
 
 def _coerce_completions(v: object) -> Optional[bool]:
@@ -109,8 +114,6 @@ class SimConfig:
         wi = d.get("whatIf") or {}
         if wi.get("mesh", False):
             _refuse("whatIf.mesh", "the scenario axis over several cards")
-        if int(wi.get("retryBuffer", 0) or 0) > 0:
-            _refuse("whatIf.retryBuffer", "the boundary retry buffer")
         for section, what in _REFUSED_SECTIONS.items():
             if d.get(section) is not None:
                 _refuse(section, what)
@@ -121,6 +124,16 @@ class SimConfig:
         if dp not in (True, False, "tier"):
             raise ValueError(
                 f"devicePreemption: must be true/false/'tier'/'kube', got {dp!r}"
+            )
+        rb = int(wi.get("retryBuffer", 0) or 0)
+        if rb < 0:
+            raise ValueError("whatIf.retryBuffer: must be >= 0")
+        if rb and dp in (True, "tier"):
+            raise ValueError("whatIf.retryBuffer is not supported with tier devicePreemption")
+        if rb and _coerce_completions(wi.get("completions")) is False:
+            raise ValueError(
+                "whatIf.retryBuffer requires the device-release path; remove "
+                "whatIf.completions: false (the retry pass runs at completion boundaries)"
             )
         if int(d.get("nodeShards", 0) or 0) > 1:
             _refuse("nodeShards", "node-sharded replay")
@@ -173,6 +186,7 @@ class SimConfig:
             capacity_p=float(wi.get("capacityP", 0.3)),
             taint_p=float(wi.get("taintP", 0.1)),
             completions=_coerce_completions(wi.get("completions")),
+            retry_buffer=rb,
         )
         return cfg
 

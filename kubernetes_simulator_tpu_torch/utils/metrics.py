@@ -227,11 +227,15 @@ def replay_row(kind: str, res, extra: Optional[dict] = None) -> dict:
 def whatif_rows(res, extra: Optional[dict] = None) -> Iterable[dict]:
     """One ``whatif-aggregate`` row and one ``whatif-scenario`` row per
     scenario; a batch run with tier preemption adds each scenario's
-    ``preemptions`` (its victims). The reference's per-scenario kube,
-    chaos, latency and fragmentation fields come from modes the port does
-    not run yet and are left out."""
+    ``preemptions`` (its victims), and ``retry_dropped`` rides with them
+    where the result has both, as in the reference's rows
+    (kubernetes_simulator_tpu/utils/metrics.py:342-361; its retry what-if
+    without preemption reports no per-scenario drops there). The
+    reference's per-scenario kube, chaos, latency and fragmentation fields
+    come from modes the port does not run yet and are left out."""
     base = extra or {}
     pre = getattr(res, "preemptions", None)
+    drop = getattr(res, "retry_dropped", None)
     yield _scrub_timing({
         "kind": "whatif-aggregate",
         "scenarios": int(res.placed.shape[0]),
@@ -255,4 +259,6 @@ def whatif_rows(res, extra: Optional[dict] = None) -> Iterable[dict]:
         }
         if pre is not None:
             row["preemptions"] = int(pre[s])
+            if drop is not None:
+                row["retry_dropped"] = int(drop[s])
         yield row

@@ -23,6 +23,9 @@ from kubernetes_simulator_tpu_torch.sim.torch_runtime import StepSpec, TorchRepl
 
 pytestmark = pytest.mark.cuda
 
+#: The kernels every path launches (the retry buffer adds retry_boundary).
+PATH_KERNELS = ("filter_score", "normalize_select", "apply_placements")
+
 
 @pytest.fixture
 def card():
@@ -131,7 +134,7 @@ def test_whatif_kernel_path_equals_plain_path(card):
     kw = dict(wave_width=4, chunk_waves=8, collect_assignments=True)
     K.reset_launch_counts()
     kern = WhatIfEngine(ec, ep, scen, FrameworkConfig(), device=card, **kw).run()
-    assert all(n > 0 for n in K.launch_counts().values())
+    assert all(K.launch_counts()[k] > 0 for k in PATH_KERNELS)
     plain = WhatIfEngine(ec, ep, scen, FrameworkConfig(), device=card, plain=True, **kw).run()
     cpu = WhatIfEngine(ec, ep, scen, FrameworkConfig(), device="cpu", **kw).run()
     np.testing.assert_array_equal(kern.assignments, plain.assignments)
@@ -147,7 +150,7 @@ def test_replay_kernel_path_equals_plain_path(card):
     kw = dict(wave_width=4, chunk_waves=8)
     K.reset_launch_counts()
     kern = TorchReplayEngine(ec, ep, FrameworkConfig(), device=card, **kw).replay()
-    assert all(n > 0 for n in K.launch_counts().values())
+    assert all(K.launch_counts()[k] > 0 for k in PATH_KERNELS)
     plain = TorchReplayEngine(ec, ep, FrameworkConfig(), device=card, plain=True, **kw).replay()
     cpu = TorchReplayEngine(ec, ep, FrameworkConfig(), device="cpu", **kw).replay()
     np.testing.assert_array_equal(kern.assignments, plain.assignments)
@@ -238,7 +241,7 @@ def test_preempt_kernel_path_equals_plain_path(card):
     kw = dict(chunk_waves=4, preemption=True)
     K.reset_launch_counts()
     kern = TorchReplayEngine(ec, ep, FrameworkConfig(), device=card, **kw).replay()
-    assert all(n > 0 for n in K.launch_counts().values())
+    assert all(K.launch_counts()[k] > 0 for k in PATH_KERNELS)
     for other in (TorchReplayEngine(ec, ep, FrameworkConfig(), device=card, plain=True,
                                     **kw).replay(),
                   TorchReplayEngine(ec, ep, FrameworkConfig(), device="cpu", **kw).replay()):
@@ -253,3 +256,78 @@ def test_preempt_kernel_path_equals_plain_path(card):
                   WhatIfEngine(ec, ep, scen, FrameworkConfig(), device="cpu", **wkw).run()):
         np.testing.assert_array_equal(wk.assignments, other.assignments)
         np.testing.assert_array_equal(wk.preemptions, other.preemptions)
+
+
+def _retry_case(seed=3):
+    """3 nodes, 300 pods with affinity, spread, tolerations, short durations
+    and gangs arriving fast: buffers of 8 fill and overflow, pods are
+    placed on retry and released through the pending list."""
+    cluster = make_cluster(3, seed=seed, taint_fraction=0.2)
+    workload, _ = make_workload(300, seed=seed, arrival_rate=120.0, duration_mean=3.0,
+                                with_affinity=True, with_spread=True, with_tolerations=True,
+                                gang_fraction=0.05, gang_size=2)
+    return encode(cluster, workload)
+
+
+def _chip_smoke():
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    import chip_smoke
+
+    return chip_smoke
+
+
+def test_retry_kernels_equal_twins(card):
+    """A whole S=4 retry what-if launch by launch: every pending release,
+    retry-pass K1 / K2 / K3 (one pod per scenario), K4 and main-path bind
+    with its failure append equals the twin, every plane compared."""
+    from kubernetes_simulator_tpu_torch.sim.torch_runtime import new_choices
+    from kubernetes_simulator_tpu_torch.sim.whatif import WhatIfEngine, uniform_scenarios
+
+    cs = _chip_smoke()
+    ec, ep = _retry_case()
+    scen = uniform_scenarios(ec, 4, seed=1, p_node_down=0.5, p_capacity=0.5, p_taint=0.5)
+    eng = WhatIfEngine(ec, ep, scen, FrameworkConfig(), wave_width=4, chunk_waves=3,
+                       retry_buffer=8, device=card)
+    tb_k = eng._tables()
+    tb_t = cs.clone_tables(tb_k)
+    ch_k = new_choices(eng.plan, 4, eng.pods.bound_node, card)
+    ch_t = ch_k.clone()
+    n = cs.lockstep("S=4 retry what-if", eng.plan, tb_k, tb_t, ch_k, ch_t, 0,
+                    eng.plan.idx.shape[0], card)
+    assert n["appends"] and n["overflows"] and n["retry_slots"] and n["k4"]
+    assert int((tb_k.retry.rnode >= 0).sum()) > 0
+
+
+def test_retry_kernel_path_equals_plain_path(card):
+    """The retry replay and the S=4 retry what-if on the kernel path equal
+    the plain path on the card and on the CPU: assignments, placed, drops
+    and every retry record, with all four kernels launched."""
+    from kubernetes_simulator_tpu_torch.sim.whatif import WhatIfEngine, uniform_scenarios
+
+    cs = _chip_smoke()
+    ec, ep = _retry_case(4)
+    kw = dict(wave_width=4, chunk_waves=3, retry_buffer=8)
+    K.reset_launch_counts()
+    eng = TorchReplayEngine(ec, ep, FrameworkConfig(), device=card, **kw)
+    kern = eng.replay()
+    assert all(n > 0 for n in K.launch_counts().values())
+    rec = cs.retry_records(eng.last_tables)
+    for o in (dict(device=card, plain=True), dict(device="cpu")):
+        e = TorchReplayEngine(ec, ep, FrameworkConfig(), **kw, **o)
+        other = e.replay()
+        np.testing.assert_array_equal(kern.assignments, other.assignments)
+        assert (kern.placed, kern.retry_dropped) == (other.placed, other.retry_dropped)
+        cs.same_records("replay", rec, cs.retry_records(e.last_tables))
+    assert kern.retry_dropped > 0 and (rec["rnode"] >= 0).any()
+    scen = uniform_scenarios(ec, 4, seed=1, p_capacity=0.5)
+    runs = []
+    for o in (dict(device=card), dict(device=card, plain=True), dict(device="cpu")):
+        tb, _, a, placed, _ = WhatIfEngine(ec, ep, scen, FrameworkConfig(), **kw, **o)._run()
+        runs.append((a, placed, cs.retry_records(tb)))
+    for a, placed, r in runs[1:]:
+        np.testing.assert_array_equal(runs[0][0], a)
+        np.testing.assert_array_equal(runs[0][1], placed)
+        cs.same_records("what-if", runs[0][2], r)

@@ -286,7 +286,6 @@ def _tiny():
      (dict(fork_checkpoint="fork.npz"), "queue A item 7"),
      (dict(preemption="kube", retry_buffer=8), "queue A item 7"),
      (dict(preemption="kube"), "queue A item 7"),
-     (dict(retry_buffer=8), "queue A items 6-7"),
      (dict(policies=np.zeros((2, 6), np.float32)), "queue A item 7"),
      (dict(node_shards=2), "queue A item 10"),
      (dict(_dcn_recovery={"block": (0, 1)}), "queue A item 11"),
@@ -356,11 +355,26 @@ def test_whatif_cli_writes_rows(tmp_path):
 
 
 def test_whatif_cli_refuses_mesh_and_retry_buffer(tmp_path):
+    """``whatIf.mesh`` is refused by name. ``whatIf.retryBuffer`` runs,
+    and is refused only where the reference refuses it: a trace with no
+    finite duration (no release boundary) and ``completions: false``."""
     from kubernetes_simulator_tpu_torch import cli
 
-    for extra, name in (("mesh: true", "whatIf.mesh"), ("retryBuffer: 64", "whatIf.retryBuffer")):
-        cfg = tmp_path / "w.yaml"
-        cfg.write_text("cluster: {synthetic: {nodes: 4}}\nworkload: {synthetic: {pods: 5}}\n"
-                       f"whatIf: {{scenarios: 2, {extra}}}\n")
-        with pytest.raises(NotImplementedError, match=name):
-            cli.main(["what-if", str(cfg), "--device", "cpu"])
+    cfg = tmp_path / "w.yaml"
+    base = "cluster: {synthetic: {nodes: 4}}\nworkload: {synthetic: {pods: 5%s}}\n"
+    cfg.write_text(base % "" + "whatIf: {scenarios: 2, mesh: true}\n")
+    with pytest.raises(NotImplementedError, match="whatIf.mesh"):
+        cli.main(["what-if", str(cfg), "--device", "cpu"])
+    cfg.write_text(base % "" + "whatIf: {scenarios: 2, retryBuffer: 64}\n")
+    with pytest.raises(ValueError, match="retry_buffer requires"):
+        cli.main(["what-if", str(cfg), "--device", "cpu"])
+    cfg.write_text(base % ", durationMean: 1.0"
+                   + "whatIf: {scenarios: 2, retryBuffer: 64, completions: false}\n")
+    with pytest.raises(ValueError, match="whatIf.retryBuffer requires"):
+        cli.main(["what-if", str(cfg), "--device", "cpu"])
+    out = tmp_path / "rows.jsonl"
+    cfg.write_text(base % ", durationMean: 1.0"
+                   + f"whatIf: {{scenarios: 2, retryBuffer: 64}}\noutput: {out}\n")
+    assert cli.main(["what-if", str(cfg), "--device", "cpu"]) == 0
+    rows = [json.loads(line) for line in out.read_text().splitlines()]
+    assert [r["placed"] for r in rows[1:]] == [5, 5]
