@@ -56,7 +56,7 @@ From the root of a checkout, on a host with one CUDA card. In order:
    checks at S=128 (with a gang rollback) and timings; for both tier
    paths B6's bound, from each scenario's victims wave by wave;
 12. the retry buffer, reduced: CONFIG7 (``examples/config7_retry_completions.yaml``)
-   cut to 40 nodes x 3,000 pods, chunkWaves 32, retryBuffer 64 (buffers
+   cut to 40 nodes x 2,000 pods, chunkWaves 32, retryBuffer 64 (buffers
    fill and overflow), as a single replay and an 8-scenario what-if, on
    the kernel path, the plain path on the card and on the CPU: placed,
    drops, assignments and every retry record identical;
@@ -76,7 +76,32 @@ From the root of a checkout, on a host with one CUDA card. In order:
    (static and pending releases, each pass slot's K1 → K2 → K3, K4) and
    the following main-path binds (failure appends and overflows) held
    against the twins plane by plane, and each retry mode timed beside
-   its twin and its least time.
+   its twin and its least time;
+16. label perturbations (``set_label``), reduced: 8 scenarios x 60 nodes x
+   3,000 pods (durationMean 60, gangs) — a move to an existing zone with a
+   capacity cut, a new zone, emptying a singleton zone, a node gaining the
+   key, a taint-only scenario, a tier flip, and a new zone beside uniform
+   perturbations — on the kernel path, the plain path on the card and the
+   plain path on the CPU: assignments identical;
+17. the relabel what-if at the headline's full width (the slice's main
+   run): 128 ``relabel_scenarios`` (``uniform_scenarios(seed=0)`` plus one
+   relabel of 1..32 nodes each, cycling a zone move, a new zone and a tier
+   flip; 128 label rows) over the headline trace, inside the DynTables
+   envelope with completions on — counters zeroed just before a warm-up
+   and read just after, median of 3, busy share, scenario 0 equal to the
+   headline's, one scenario of each kind equal to a single replay of its
+   cluster relabelled explicitly and re-encoded; K1, K2 and K3 held
+   against their twins launch by launch in a window of the batch's own
+   replay (a release bucket, binds and a gang rollback), and again at a
+   synthetic mid-replay state, where each is timed beside its twin and its
+   least time;
+18. the label cut (LABEL_CUT: the base and one scenario of each kind over
+   500 nodes x 5,000 pods): each relabelled scenario's placed count and
+   assignments' sha256 equal greedy_replay's pins (LABEL_PINS);
+19. outside the envelope: 16 scenarios over the headline trace, each
+   moving a whole zone (250 nodes) into the next, completions off —
+   engine "v2", completions off, scenario 1 equal to its from-scratch
+   replay, and the wall.
 
 Prints the kernel table as one JSON line, then, as its last line,
 ``{"ok": true, "device": {...}}``. Any failed check raises (exit code not
@@ -85,6 +110,7 @@ Prints the kernel table as one JSON line, then, as its last line,
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import hashlib
 import json
@@ -114,6 +140,7 @@ from kubernetes_simulator_tpu_torch.sim.torch_runtime import (  # noqa: E402
 )
 from kubernetes_simulator_tpu_torch.sim.whatif import (  # noqa: E402
     Perturbation,
+    Scenario,
     ScenarioSet,
     WhatIfEngine,
     uniform_scenarios,
@@ -165,6 +192,29 @@ RETRY_PINS = {
 RETRY_PLANES = ("rbuf", "rcount", "rdrop", "rchoice", "pend_id", "pend_node", "pend_relb",
                 "rnode", "rbind_b")
 
+#: Label perturbations (set_label): the relabel what-if over the headline
+#: trace, each scenario past 0 adding one relabel of 1..32 nodes to its
+#: uniform_scenarios perturbations (relabel_scenarios), and its cut to
+#: LABEL_CUT (four scenarios: the base and one of each kind).
+ZONE = "topology.kubernetes.io/zone"
+LABEL_KINDS = ("zone_move", "new_zone", "tier_hot")  # by scenario index mod 3
+LABEL_CUT = dict(nodes=500, pods=5000, scenarios=4, chunk_waves=64)
+#: greedy_replay(completions_chunk_waves=64) of the JAX package on each
+#: relabelled scenario of the cut, perturbed explicitly and re-encoded:
+#: placed pods and the sha256 of the int32 assignments.
+#: tests/test_torch_label_pins.py recomputes them.
+LABEL_PINS = {
+    "zone_move": dict(placed=5000,
+                      sha256="cca193fc0e528b8837250e1395f8f0c052bb163a1f0ede2928d96f3680f551f4"),
+    "new_zone": dict(placed=5000,
+                     sha256="e06ea9414bcd2dad1973e73c9022a2faa9a11d293d935cffc3b166ec8db6e3d0"),
+    "tier_hot": dict(placed=5000,
+                     sha256="a79b6b8535701a50c8379ee886c7680f9fc6a1662f0c7cb7addebf66392b5e86"),
+}
+#: The outside-the-envelope batch: scenario s moves all nodes of zone
+#: s mod 8 into zone s+1 mod 8 (250 nodes: K > 32, the reference's v2).
+OUTSIDE_SCENARIOS = 16
+
 SOURCES = {
     "filter_score": ("kubernetes_simulator_tpu_torch/csrc/filter_score.cu",
                      "kubernetes_simulator_tpu/ops/tpu3.py:944"),
@@ -188,6 +238,13 @@ RETRY_SOURCES = {
                                     "kubernetes_simulator_tpu/sim/whatif.py:1444"),
     "apply_placements_failure_append": ("apply_placements",
                                         "kubernetes_simulator_tpu/sim/whatif.py:1502"),
+}
+#: The kernels' label-row work (each block's scenario row), each with the
+#: kernel it runs in and the reference lines it replaces.
+LABEL_SOURCES = {
+    "filter_score_label_rows": ("filter_score", "kubernetes_simulator_tpu/ops/tpu3.py:944"),
+    "apply_placements_label_rows": ("apply_placements",
+                                    "kubernetes_simulator_tpu/sim/whatif.py:1760"),
 }
 #: The kernels every path launches (the retry buffer adds retry_boundary).
 SOURCES_PLAIN = ("filter_score", "normalize_select", "apply_placements")
@@ -276,11 +333,13 @@ def _ids(a):
 class Work:
     """Bytes and operations each kernel's function needs on given inputs,
     for its least time on the card: each input read once and each output
-    written once. A table shared by the S scenarios (the pod rows, labels,
-    domains, a shared allocatable or taints) counts once, a stacked one S
-    times. A plane row counts only for the groups and planes the pod reads
-    it in, and only over the domains of the group's key; a domain-map
-    (gdom) cell counts once however many scenarios look it up; a score row
+    written once. A table shared by the S scenarios (the pod rows, a
+    shared allocatable or taints) counts once, a stacked one S times; a
+    label row (expression matches, domains) once for each distinct row the
+    scenarios read, and each scenario's row index once. A plane row counts
+    only for the groups and planes the pod reads it in, and only over the
+    domains of the group's key in the scenario's row; a domain-map (gdom)
+    cell counts once however many scenarios look it up; a score row
     counts only where its on_* flag puts it into the total. Where the work
     depends on the run's data (K3's nodes), the nodes given are counted:
     a PAD node costs only the read of its choice."""
@@ -292,8 +351,9 @@ class Work:
         self.alloc_copies = c.allocatable.shape[0] if c.allocatable.dim() == 3 else 1
         self.taint_copies = c.taint_key.shape[0] if c.taint_key.dim() == 3 else 1
         self.TT = c.taint_key.shape[-1]
-        self.gdom = c.gdom.cpu().numpy().astype(np.int64)
-        self.gnd = c.gnd.cpu().numpy().astype(np.int64)
+        self.gdom = c.gdom.cpu().numpy().astype(np.int64)  # [L, G, N]
+        self.gnd = c.gnd.cpu().numpy().astype(np.int64)  # [L, G]
+        self.lrow = c.lrow.cpu().numpy().astype(np.int64)  # [S]
         self.G, self.D = tb.state.match_count.shape[1:]
         k = self.k
         self.rows_on = int(k.on_fit) + int(k.on_taint) + int(k.on_na) + int(k.on_ip) + int(k.on_sp)
@@ -330,8 +390,8 @@ class Work:
                                                                 for t in ev_tiers)
 
     def _k1_reads(self, p):
-        """(expression columns, looked-up groups, plane cells) K1 reads for
-        pod p."""
+        """(expression columns, looked-up groups, the groups whose plane
+        rows it reads, with repeats) K1 reads for pod p."""
         ep, k = self.ep, self.k
         mc, aa, pw = set(), set(), set()
         if k.interpod:
@@ -343,7 +403,7 @@ class Work:
         exprs = set()
         if k.node_affinity:
             exprs = _ids(ep.na_pref[p]) | (_ids(ep.na_req[p]) if ep.na_has_req[p] else set())
-        return exprs, mc | aa | pw, sum(int(self.gnd[g]) for gs in (mc, aa, pw) for g in gs)
+        return exprs, mc | aa | pw, [g for gs in (mc, aa, pw) for g in gs]
 
     def k1(self, p):
         """(bytes, ops) of K1 for pod p over all S scenarios."""
@@ -361,17 +421,20 @@ class Work:
         exprs, looked_up = set(), set()
         cells = 0
         for p in np.unique(live).tolist():
-            e, g, c = self._k1_reads(p)
+            e, g, gl = self._k1_reads(p)
             exprs |= e
             looked_up |= g
-            cells += c * int((live == p).sum())
+            rows = self.lrow[pods == p]
+            cells += int(self.gnd[rows][:, gl].sum())
+        n_rows = np.unique(self.lrow[pods >= 0]).size
         per = lambda copies: copies if copies == 1 else act  # shared once, else per scenario
         nbytes = (
             act * N * R * 4 + (N * R * 4 if self.alloc_copies == 1 else act * N * R * 4)
             + np.unique(live).size * (R * 4 + (TO * 12 if k.taints else 0))  # pod rows
             + (per(self.taint_copies) * 3 * N * self.TT * 4 if k.taints and act else 0)
-            + N * len(exprs)  # expression-match columns the pods' terms name
-            + len(looked_up) * N * 4  # gdom rows, shared
+            + n_rows * N * len(exprs)  # expression-match columns the pods' terms name
+            + n_rows * len(looked_up) * N * 4  # gdom rows, shared by a label row's scenarios
+            + pods.size * 4  # each scenario's label row index
             + cells * 4  # plane cells, per scenario
             + act * N * (1 + self.rows_on * 4 + int(k.on_sp))  # feasible, rows, ignored
             + pad * N * (2 + ref.NUM_ROWS * 4)  # an empty slot's zero rows
@@ -435,6 +498,7 @@ class Work:
         uniq = np.unique(pods[pods >= 0])
         AA, PA = ep.anti_req.shape[1], ep.pref_aff.shape[1]
         nbytes = (pods.size * 4 + K * 4 + S * K * 4  # pod ids, slots; each scenario's choice
+                  + S * 4  # each scenario's label row index
                   + uniq.size * (R * 4 + G + AA * 4 + PA * 8)  # the pods' shared rows
                   + (pods.size * 4 if rollback else 0))  # gang ids
         s_i, k_i = np.nonzero((nodes >= 0) & (pods2 >= 0))
@@ -457,8 +521,9 @@ class Work:
             return nbytes, s_i.size * R
         pl, g, j = (np.concatenate(x) for x in zip(*parts))
         nn, ss = n[j], s_i[j]
-        nbytes += np.unique(g * N + nn).size * 4  # gdom cells, shared
-        dom = self.gdom[g, nn]
+        lr = self.lrow[ss] if self.lrow.size == S else np.zeros_like(ss)
+        nbytes += np.unique((lr * G + g) * N + nn).size * 4  # gdom cells, shared by a row
+        dom = self.gdom[lr, g, nn]
         live = dom >= 0
         cell = ((ss[live] * 3 + pl[live]) * G + g[live]) * D + dom[live]
         nbytes += np.unique(cell).size * 8  # plane cells, read and written
@@ -536,13 +601,18 @@ class Work:
         return out
 
 
-def mid_replay_tables(ec, ep, cl, consts, S, rng, dev):
+def mid_replay_tables(ec, ep, cl, consts, S, rng, dev, state=None):
     """Twin and kernel tables of S scenarios in a mid-replay state: a third
-    of the trace bound at random nodes, chosen per scenario. Returns
+    of the trace bound at random nodes, chosen per scenario, from the
+    engine's initial ``state`` (a copy; None: the trace's own). Returns
     (twin tables, kernel tables with a copy of the state, pre-bound pods,
     their nodes [S, n])."""
-    st = init_state(ec, ep)
-    state = ref.stacked_state(st.used, st.match_count, st.anti_active, st.pref_wsum, S, dev)
+    if state is None:
+        st = init_state(ec, ep)
+        state = ref.stacked_state(st.used, st.match_count, st.anti_active, st.pref_wsum, S,
+                                  dev)
+    else:
+        state = ref.DevState(*(t.clone() for t in state))
     pods = ref.pods_to(ep, dev)
     tb_t = ref.Tables(cl, pods, state, ref.new_scratch(S, ec.num_nodes, dev), consts)
     pre = rng.choice(ep.num_pods, size=ep.num_pods // 3, replace=False).astype(np.int32)
@@ -732,7 +802,7 @@ def check_kernels_s4(ec, ep, results, dev):
             raise AssertionError("the S=4 check's scenarios do not differ")
     consts = dataclasses.replace(StepSpec.from_config(ec, FrameworkConfig(), ep),
                                  taint_score=True).consts()
-    cl = ref.cluster_to(ec, dev)._replace(
+    cl = ref.cluster_to(ec, dev, 4)._replace(
         allocatable=ss.alloc, taint_key=ss.taint_key, taint_kv=ss.taint_kv,
         taint_effect=ss.taint_effect)
     rng = np.random.default_rng(SEED + 4)
@@ -1340,11 +1410,12 @@ def same_records(where, a, b):
 def check_reduced_retry(results, dev="cuda"):
     """Reduced retry cases on the kernel path, the plain path on the card
     and the plain path on the CPU: CONFIG7's workload and plugins cut to
-    40 nodes x 3,000 pods (chunkWaves 32, retryBuffer 64: the buffer fills
+    40 nodes x 2,000 pods (chunkWaves 32, retryBuffer 64: the buffer fills
     and overflows), as a single replay and as an 8-scenario what-if.
     Placed, retry_dropped, the (internal) assignments and every retry
     record must be identical, and retry must change the outcome."""
-    cfg, ec, ep = config7_case(nodes=40, pods=3000)
+    nodes, pods = 40, 2000
+    cfg, ec, ep = config7_case(nodes=nodes, pods=pods)
     kw = dict(wave_width=cfg.wave_width, chunk_waves=32, retry_buffer=64)
     runs, walls = [], []
     for o in (dict(device=dev), dict(device=dev, plain=True), dict(device="cpu")):
@@ -1366,7 +1437,7 @@ def check_reduced_retry(results, dev="cuda"):
         raise AssertionError("reduced retry replay is vacuous (no drop, no retried bind or no "
                              "change against no retry)")
     results["reduced_retry_replay"] = dict(
-        nodes=40, pods=3000, placed=kern.placed, retry_dropped=kern.retry_dropped,
+        nodes=nodes, pods=pods, placed=kern.placed, retry_dropped=kern.retry_dropped,
         retried_binds=int((rec["rnode"] >= 0).sum()), placed_without_retry=off_replay,
         kernel_s=walls[0], plain_card_s=walls[1], plain_cpu_s=walls[2])
     scen = uniform_scenarios(ec, 8, seed=1, p_node_down=0.5, p_capacity=0.5, p_taint=0.5)
@@ -1389,11 +1460,13 @@ def check_reduced_retry(results, dev="cuda"):
     if (krec["rdrop"] > 0).sum() < 4 or np.array_equal(off.placed, kp):
         raise AssertionError("reduced retry what-if is vacuous")
     results["reduced_retry_whatif"] = dict(
-        scenarios=8, nodes=40, pods=3000, placed=kp.tolist(), retry_dropped=krec["rdrop"].tolist(),
+        scenarios=8, nodes=nodes, pods=pods, placed=kp.tolist(),
+        retry_dropped=krec["rdrop"].tolist(),
         placed_without_retry=off.placed.tolist(), kernel_s=walls[0], plain_card_s=walls[1],
         plain_cpu_s=walls[2])
-    print(f"reduced retry: replay (40 nodes x 3000 pods, retryBuffer 64) placed {kern.placed} "
-          f"(without retry {off_replay}), {kern.retry_dropped} dropped; what-if (8 x 40 x 3000) placed {kp.tolist()}, dropped "
+    print(f"reduced retry: replay ({nodes} nodes x {pods} pods, retryBuffer 64) placed "
+          f"{kern.placed} (without retry {off_replay}), {kern.retry_dropped} dropped; what-if "
+          f"(8 x {nodes} x {pods}) placed {kp.tolist()}, dropped "
           f"{krec['rdrop'].tolist()}; identical on the kernel path, the plain path on the card "
           f"and on the CPU, every retry record included", flush=True)
 
@@ -1407,16 +1480,16 @@ def clone_tables(tb):
 def lockstep(where, plan, tb_k, tb_t, ch_k, ch_t, first, end, dev, snap=None,
              after_bind=None):
     """Waves [first, end) of ``plan`` (as run_waves enqueues them, with the
-    retry sequence at each boundary past 0) on the kernels over ``tb_k``
-    and on the twins over ``tb_t``, launch by launch: after every launch
-    the scratch rows, the choice buffer, the state and every retry table
-    must be equal. ``snap(name, at)`` is called before chosen launches
+    retry sequence at each boundary past 0 when the tables have a retry
+    buffer) on the kernels over ``tb_k`` and on the twins over ``tb_t``,
+    launch by launch: after every launch the scratch rows, the choice
+    buffer, the state and every retry table must be equal. ``snap(name, at)`` is called before chosen launches
     (the kernel tables as they stand) and ``after_bind()`` after each
     main-path bind. Returns the count of each kind of launch (``appends``
     and ``overflows`` count scenarios)."""
     b_k = K.Bound(tb_k)
     rk, rt = tb_k.retry, tb_t.retry
-    RB = rk.rbuf.shape[1]
+    RB = rk.rbuf.shape[1] if rk is not None else 0
     W, C = plan.idx.shape[1], plan.C
     idx_dev = torch.as_tensor(plan.idx.reshape(-1), device=dev)
     pos_dev = torch.arange(plan.L, dtype=torch.int32, device=dev)
@@ -1427,7 +1500,7 @@ def lockstep(where, plan, tb_k, tb_t, ch_k, ch_t, first, end, dev, snap=None,
     def same(at):
         for part in ("state", "scratch", "retry"):
             x, y = getattr(tb_k, part), getattr(tb_t, part)
-            for name in x._fields:
+            for name in (x._fields if x is not None else ()):
                 if not torch.equal(getattr(x, name), getattr(y, name)):
                     raise AssertionError(f"{where}, {at}: {part}.{name} differs")
         if not torch.equal(ch_k, ch_t):
@@ -1442,7 +1515,7 @@ def lockstep(where, plan, tb_k, tb_t, ch_k, ch_t, first, end, dev, snap=None,
             ref.apply_placements(tb_t, bp, bpos, ch_t, -1.0)
             same(f"static release at boundary {b}")
             n["static_release"] += 1
-        if w % C == 0 and b > 0:
+        if w % C == 0 and b > 0 and rk is not None:
             if snap:
                 snap("pending_release", b)
             K.apply_placements(b_k, rk.pend_id, pos_rb, rk.pend_node, -1.0, due=(rk.pend_relb, b))
@@ -1479,18 +1552,22 @@ def lockstep(where, plan, tb_k, tb_t, ch_k, ch_t, first, end, dev, snap=None,
             ref.filter_score(tb_t, p)
             K.normalize_select(b_k, p, ch_k, s, w)
             ref.normalize_select(tb_t, p, ch_t, s, w)
-            before = (rk.rcount.clone(), rk.rdrop.clone())
+            same(f"K1 and K2 of pod {p} (wave {w})")
             if snap:
                 snap("bind", (w, k))
-            K.apply_placements(b_k, idx_dev[s : s + 1], pos_dev[s : s + 1], ch_k, 1.0, append=True)
+            append = rk is not None
+            before = (rk.rcount.clone(), rk.rdrop.clone()) if append else None
+            K.apply_placements(b_k, idx_dev[s : s + 1], pos_dev[s : s + 1], ch_k, 1.0,
+                               append=append)
             ref.apply_placements(tb_t, idx_dev[s : s + 1], pos_dev[s : s + 1], ch_t, 1.0,
-                                 append=True)
+                                 append=append)
             same(f"bind of pod {p} (wave {w})")
             if after_bind:
                 after_bind()
             n["binds"] += 1
-            n["appends"] += int((rk.rcount > before[0]).sum())
-            n["overflows"] += int((rk.rdrop > before[1]).sum())
+            if append:
+                n["appends"] += int((rk.rcount > before[0]).sum())
+                n["overflows"] += int((rk.rdrop > before[1]).sum())
         if plan.gang_wave[w]:
             K.apply_placements(b_k, idx_dev[w * W : (w + 1) * W], pos_dev[w * W : (w + 1) * W],
                                ch_k, -1.0, rollback=True)
@@ -1776,6 +1853,293 @@ def run_retry_paths(results, dev):
                       f"{m['plain_ms']:.3f} ms)" for k, m in kernels.items()), flush=True)
     return kernels, launches
 
+# ---------------------------------------------------------------------------
+# Label perturbations (set_label)
+# ---------------------------------------------------------------------------
+
+
+def relabel_scenarios(ec, S, seed=SEED):
+    """Scenario 0 the base; scenario s of 1..S-1 ``uniform_scenarios(seed)``'s
+    perturbations plus one ``set_label`` of k = rng.integers(1, 33) nodes
+    (numpy ``default_rng(seed)``), of the kind ``LABEL_KINDS[s % 3]``: the
+    zone set to an existing zone, the zone set to a new one ``zone-x{s}``,
+    or ``tier`` set to ``hot`` (which pods prefer through node affinity)."""
+    scen = uniform_scenarios(ec, S, seed=seed)
+    rng = np.random.default_rng(seed)
+    for s in range(1, S):
+        k = int(rng.integers(1, 33))
+        nodes = rng.choice(ec.num_nodes, size=k, replace=False)
+        kind = LABEL_KINDS[s % 3]
+        if kind == "zone_move":
+            key, value = ZONE, f"zone-{int(rng.integers(8))}"
+        elif kind == "new_zone":
+            key, value = ZONE, f"zone-x{s}"
+        else:
+            key, value = "tier", "hot"
+        scen[s].perturbations.append(Perturbation("set_label", nodes=nodes, key=key, value=value))
+    return scen
+
+
+def explicit_cluster(cluster, sc, taint=None):
+    """A copy of the object-model ``cluster`` with scenario ``sc``'s
+    perturbations applied to its nodes (the from-scratch check).
+    ``taint``: the Taint class of the cluster's object model (None: the
+    port's)."""
+    if taint is None:
+        from kubernetes_simulator_tpu_torch.models.core import Taint as taint
+
+    c2 = copy.deepcopy(cluster)
+    for pt in sc.perturbations:
+        for n in np.atleast_1d(np.arange(len(c2.nodes))[pt.nodes]).tolist():
+            node = c2.nodes[n]
+            if pt.op == "set_label":
+                node.labels[pt.key] = pt.value
+            elif pt.op == "scale_capacity":
+                node.allocatable = {k: (v * pt.factor if k == pt.resource else v)
+                                    for k, v in node.allocatable.items()}
+            elif pt.op == "node_down":
+                node.allocatable = {k: 0.0 for k in node.allocatable}
+            elif pt.op == "add_taint":
+                node.taints.append(taint(pt.key, pt.value, pt.effect))
+    return c2
+
+
+def case_objects(nodes, pods, seed=SEED, duration_mean=50.0, gang_fraction=0.02):
+    """The object-model cluster and workload :func:`case` encodes."""
+    cluster = make_cluster(nodes, seed=seed, taint_fraction=0.1)
+    workload, _ = make_workload(
+        pods, seed=seed, with_affinity=True, with_spread=True, with_tolerations=True,
+        duration_mean=duration_mean, gang_fraction=gang_fraction, gang_size=4,
+    )
+    return cluster, workload
+
+
+def first_of_each_kind(S):
+    """{kind: the first scenario of ``relabel_scenarios`` of that kind}."""
+    return {LABEL_KINDS[s % 3]: s for s in range(min(S, 4) - 1, 0, -1)}
+
+
+def check_reduced_relabel(results, dev="cuda"):
+    """The relabel batch reduced: 8 scenarios x 60 nodes x 3,000 pods
+    (durationMean 60, gangs) — a move to an existing zone with a capacity
+    cut, a new zone, emptying a singleton zone, a node gaining the key, a
+    taint-only scenario, a tier flip and a new zone beside uniform
+    perturbations — on the kernel path, the plain path on the card and the
+    plain path on the CPU: assignments [S, P] identical."""
+    nodes, pods = 60, 3000
+    cluster, workload = case_objects(nodes, pods, duration_mean=60.0, gang_fraction=0.05)
+    cluster.nodes[7].labels[ZONE] = "zonly"
+    del cluster.nodes[11].labels[ZONE]
+    ec, ep = encode(cluster, workload)
+    P = lambda nodes, key=ZONE, value=None, **kw: Perturbation(
+        "set_label", nodes=np.asarray(nodes), key=key, value=value, **kw)
+    scen = [Scenario() for _ in range(8)]
+    scen[1].perturbations = [P([0, 4], value="zone-1"),
+                             Perturbation("scale_capacity", nodes=np.array([2]),
+                                          resource="cpu", factor=0.5)]
+    scen[2].perturbations = [P([1, 9, 17], value="zz-fresh")]
+    scen[3].perturbations = [P([7], value="zone-0")]
+    scen[4].perturbations = [P([11], value="zone-2")]
+    scen[5].perturbations = [Perturbation("add_taint", nodes=np.array([5, 6]), key="wi",
+                                          value="x", effect="NoSchedule")]
+    scen[6].perturbations = [P(np.arange(1, 30, 2), key="tier", value="hot")]
+    scen[7].perturbations = (uniform_scenarios(ec, 2, seed=3, p_node_down=1.0,
+                                               p_taint=1.0)[1].perturbations
+                             + [P(np.arange(20, 40), value="zone-new")])
+    kw = dict(wave_width=8, chunk_waves=64)
+    runs, walls = [], []
+    for o in (dict(device=dev), dict(device=dev, plain=True), dict(device="cpu")):
+        t0 = time.perf_counter()
+        eng = WhatIfEngine(ec, ep, scen, FrameworkConfig(), **kw, **o)
+        if eng.engine != "v3" or not eng.completions_on:
+            raise AssertionError(f"reduced relabel: engine {eng.engine}, completions "
+                                 f"{eng.completions_on}")
+        runs.append(eng._run()[2])
+        walls.append(time.perf_counter() - t0)
+    for name, other in (("plain on the card", runs[1]), ("plain on the cpu", runs[2])):
+        bad = np.argwhere(runs[0] != other)
+        if bad.size:
+            raise AssertionError(f"reduced relabel: kernel path != {name} at (scenario, pod) "
+                                 f"{bad[:5].tolist()}")
+    moved = [s for s in range(1, 8) if (runs[0][s] != runs[0][0]).any()]
+    if len(moved) < 6:
+        raise AssertionError(f"reduced relabel is vacuous: scenarios {moved} differ from 0")
+    results["reduced_relabel"] = dict(scenarios=8, nodes=nodes, pods=pods,
+                                      placed=(runs[0] >= 0).sum(axis=1).tolist(),
+                                      scenarios_moved=moved, kernel_s=walls[0],
+                                      plain_card_s=walls[1], plain_cpu_s=walls[2])
+    print(f"reduced relabel what-if (8 x {nodes} nodes x {pods} pods): assignments identical on "
+          f"the kernel path, the plain path on the card and on the CPU "
+          f"({walls[0]:.2f}s / {walls[1]:.2f}s / {walls[2]:.2f}s); scenarios {moved} differ "
+          f"from the base", flush=True)
+
+
+def check_label_cut(results, dev):
+    """The relabel batch on LABEL_CUT (the base and one scenario of each
+    kind): each relabelled scenario's placed count and assignments' sha256
+    equal greedy_replay's pins (LABEL_PINS)."""
+    lc = LABEL_CUT
+    ec, ep = case(lc["nodes"], lc["pods"])
+    scen = relabel_scenarios(ec, lc["scenarios"])
+    eng = WhatIfEngine(ec, ep, scen, FrameworkConfig(), chunk_waves=lc["chunk_waves"],
+                       device=dev)
+    if eng.engine != "v3" or not eng.completions_on or eng.chunk_waves != lc["chunk_waves"]:
+        raise AssertionError(f"label cut: engine {eng.engine}, completions "
+                             f"{eng.completions_on}, chunk waves {eng.chunk_waves}")
+    _, wall, assignments, placed, _ = eng._run()
+    for kind, s in first_of_each_kind(lc["scenarios"]).items():
+        got = dict(placed=int(placed[s]), sha256=assignments_sha256(assignments[s]))
+        if got != LABEL_PINS[kind]:
+            raise AssertionError(f"label cut scenario {s} ({kind}): {got} != greedy_replay's "
+                                 f"pinned {LABEL_PINS[kind]}")
+    results["label_cut"] = dict(nodes=lc["nodes"], pods=lc["pods"], placed=placed.tolist(),
+                                wall_s=wall)
+    print(f"label cut ({lc['nodes']} nodes x {lc['pods']} pods): scenarios "
+          f"{sorted(first_of_each_kind(lc['scenarios']).values())} == greedy_replay's pins, "
+          f"placed {placed.tolist()}, wall {wall:.3f}s", flush=True)
+
+
+def hold_label_window(where, eng, dev, results, min_waves=16):
+    """K1 and K3 against their twins launch by launch in a mid-replay
+    window of ``eng``'s relabel batch: a kernel-path run up to the first
+    boundary past 0 with a release bucket, the tables copied into twin
+    tables on the card, then that release, and every K1, K2 and bind after
+    it — at least ``min_waves`` waves, and on past a wave with a gang
+    rollback — on both, every plane compared after every launch."""
+    plan = eng.plan
+    b = next(b for b in range(1, len(plan.buckets)) if plan.buckets[b] is not None)
+    first = b * plan.C
+    gang = np.nonzero(plan.gang_wave[first:])[0]
+    end = first + max(min_waves, int(gang[0]) + 1 if gang.size else min_waves)
+    tb_k = eng._tables()
+    ch_k = new_choices(plan, eng.S, eng.pods.bound_node, dev)
+    run_waves(plan, tb_k, ch_k, 0, first, plain=False)
+    torch.cuda.synchronize()
+    tb_t, ch_t = clone_tables(tb_k), ch_k.clone()
+    n = lockstep(where, plan, tb_k, tb_t, ch_k, ch_t, first, end, dev)
+    if not (n["static_release"] and n["rollbacks"] and n["binds"]):
+        raise AssertionError(f"{where}: the window ran {n}")
+    results["label_window"] = dict(boundary=b, waves=[first, end], **n)
+    print(f"{where}: boundary {b}'s release and waves {first}..{end} ({n['binds']} binds, "
+          f"{n['rollbacks']} rollbacks) x {eng.S} scenarios: K1, K2 and K3 equal their twins "
+          f"launch by launch", flush=True)
+
+
+def run_label_paths(results, headline_s0, dev):
+    """The relabel what-if at the headline's full width (the slice's main
+    run): 128 ``relabel_scenarios`` over the headline trace, inside the
+    DynTables envelope (completions on). Counters zeroed just before a
+    warm-up and read just after; three timed runs and a profiled one;
+    scenario 0 equal to the headline's; one relabelled scenario of each
+    kind equal to a single-scenario replay on the card of its cluster,
+    relabelled explicitly and re-encoded; K1 and K3 held against their
+    twins at a synthetic mid-replay state (and timed) and in a window of
+    the batch's own replay. Then the label cut against its pins and the
+    batch outside the envelope. Returns (kernel timings, launches)."""
+    hs = HEADLINE
+    S = hs["scenarios"]
+    t0 = time.perf_counter()
+    cluster, workload = case_objects(hs["nodes"], hs["pods"])
+    ec, ep = encode(cluster, workload)
+    scen = relabel_scenarios(ec, S)
+    eng = WhatIfEngine(ec, ep, scen, FrameworkConfig(), chunk_waves=hs["chunk_waves"])
+    setup_s = time.perf_counter() - t0
+    cl = eng._tables().cluster
+    if eng.engine != "v3" or not eng.completions_on or cl.gdom.shape[0] != S:
+        raise AssertionError(f"relabel what-if: engine {eng.engine}, completions "
+                             f"{eng.completions_on}, {cl.gdom.shape[0]} label rows")
+    K.reset_launch_counts()
+    _, warm_wall, assignments, placed, _ = eng._run()
+    launches = K.launch_counts()
+    for k in SOURCES_PLAIN:
+        if launches[k] <= 0:
+            raise AssertionError(f"kernel {k} was not launched by the relabel what-if")
+    runs = [eng.run() for _ in range(3)]
+    for r in runs:
+        if not np.array_equal(r.placed, placed):
+            raise AssertionError("the relabel what-if placed differently from run to run")
+    check_whatif_result(ep, runs[0], S)
+    walls = sorted(r.wall_clock_s for r in runs)
+    wall = float(np.median(walls))
+    res_p, busy_s = profiled_busy_s(eng.run)
+    if not np.array_equal(assignments[0], headline_s0):
+        raise AssertionError("relabel what-if scenario 0 != the headline's scenario 0")
+    singles = {}
+    for kind, s in first_of_each_kind(S).items():
+        ec_s, ep_s = encode(explicit_cluster(cluster, scen[s]), workload)
+        one = TorchReplayEngine(ec_s, ep_s, FrameworkConfig(), chunk_waves=eng.chunk_waves)
+        res1 = one.replay()
+        bad = np.nonzero(res1.assignments != assignments[s])[0]
+        if bad.size:
+            raise AssertionError(f"relabel what-if scenario {s} ({kind}) != its from-scratch "
+                                 f"replay at pods {bad[:5].tolist()}")
+        singles[kind] = dict(scenario=s, placed=res1.placed, wall_s=res1.wall_clock_s)
+    moved = int(sum((assignments[s] != assignments[0]).any() for s in range(1, S)))
+    results["relabel_whatif"] = dict(
+        **hs, setup_s=setup_s, label_rows=int(cl.gdom.shape[0]),
+        domains=int(eng._tables().state.match_count.shape[2]), chunk_waves_run=eng.plan.C,
+        completions_on=eng.completions_on, launches=launches, warmup_wall_s=warm_wall,
+        walls_s=walls, wall_s=wall, placements_per_s=float(placed.sum()) / wall,
+        total_placed=int(placed.sum()), placed_min=int(placed.min()),
+        placed_max=int(placed.max()), scenarios_moved=moved, singles=singles,
+        profiled_wall_s=res_p.wall_clock_s, device_busy_s=busy_s,
+        device_busy_share=busy_s / res_p.wall_clock_s if busy_s else None)
+    print(f"relabel what-if ({S} scenarios x {hs['nodes']} nodes x {hs['pods']} pods, "
+          f"{cl.gdom.shape[0]} label rows, completions on): median wall {wall:.3f}s of "
+          f"{[round(w, 3) for w in walls]}, {float(placed.sum()) / wall:.1f} aggregate "
+          f"placements/s, placed {int(placed.min())}..{int(placed.max())}; {moved} scenarios "
+          f"differ from 0; scenario 0 == the headline's; scenarios "
+          f"{[v['scenario'] for v in singles.values()]} == their from-scratch replays; launches "
+          f"{json.dumps(launches)}; profiled: wall {res_p.wall_clock_s:.3f}s, device busy "
+          f"{busy_s:.3f}s ({busy_s / res_p.wall_clock_s:.1%})", flush=True)
+    results["chunk_loop_bound_ms_relabel"] = Work(ep, eng._tables()).chunk_loop_ms(
+        eng.plan, assignments, launches)
+    hold_label_window(f"S={S} relabel window (N={hs['nodes']})", eng, dev, results)
+    rng = np.random.default_rng(SEED + 256)
+    tb0 = eng._tables()
+    tb_t, tb_k, pre, pre_nodes = mid_replay_tables(ec, ep, tb0.cluster, tb0.consts, S, rng,
+                                                   dev, state=tb0.state)
+    held = hold_kernels(f"S={S} label-row kernel checks (N={hs['nodes']})", ep, tb_t, tb_k,
+                        pre, pre_nodes, 40, rng, dev)
+    kernels, release = time_kernels(ep, tb_t, held, dev)
+    results["kernels_label"], results["apply_release_label"] = kernels, release
+    del eng, res_p, tb0, tb_t, tb_k, held
+
+    check_label_cut(results, dev)
+
+    # Outside the envelope: whole zones move (K = 250 > 32), completions off.
+    t0 = time.perf_counter()
+    out_scen = []
+    for s in range(OUTSIDE_SCENARIOS):
+        zone = np.array([n.labels[ZONE] == f"zone-{s % 8}" for n in cluster.nodes])
+        out_scen.append(Scenario([Perturbation("set_label", nodes=np.nonzero(zone)[0], key=ZONE,
+                                               value=f"zone-{(s + 1) % 8}")]))
+    out = WhatIfEngine(ec, ep, out_scen, FrameworkConfig(), chunk_waves=hs["chunk_waves"],
+                       completions=False, collect_assignments=True)
+    setup_out = time.perf_counter() - t0
+    if out.engine != "v2" or out.completions_on or out.sset.relabelled != hs["nodes"] // 8:
+        raise AssertionError(f"outside the envelope: engine {out.engine}, completions "
+                             f"{out.completions_on}, K {out.sset.relabelled}")
+    out.run()
+    res_out = out.run()
+    ec_1, ep_1 = encode(explicit_cluster(cluster, out_scen[1]), workload)
+    one = TorchReplayEngine(ec_1, ep_1, FrameworkConfig(), chunk_waves=out.chunk_waves,
+                            completions=False).replay()
+    if not np.array_equal(one.assignments, res_out.assignments[1]):
+        raise AssertionError("outside the envelope: scenario 1 != its from-scratch replay")
+    results["relabel_outside"] = dict(
+        scenarios=OUTSIDE_SCENARIOS, engine=res_out.engine,
+        completions_on=res_out.completions_on, relabelled_per_scenario=out.sset.relabelled,
+        setup_s=setup_out, wall_s=res_out.wall_clock_s,
+        placements_per_s=res_out.placements_per_sec,
+        placed_min=int(res_out.placed.min()), placed_max=int(res_out.placed.max()))
+    print(f"relabel what-if outside the envelope ({OUTSIDE_SCENARIOS} scenarios, "
+          f"{out.sset.relabelled} nodes relabelled each): engine {res_out.engine}, completions "
+          f"{res_out.completions_on}, wall {res_out.wall_clock_s:.3f}s, placed "
+          f"{int(res_out.placed.min())}..{int(res_out.placed.max())}; scenario 1 == its "
+          f"from-scratch replay", flush=True)
+    return kernels, launches
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1907,6 +2271,7 @@ def main() -> int:
           f"{json.dumps(results['chunk_loop_bound_ms_headline'])} ms; release of "
           f"{release['pairs']} pods x {release['scenarios']} scenarios: {release['ms']:.4f} ms, "
           f"bound {release['bound_ms']:.6f} ms", flush=True)
+    headline_s0 = warm.assignments[0].copy()
     del eng, warm, runs, res_p, single, tb_t, tb_k, held
 
     # Steps 9-11: tier preemption.
@@ -1915,6 +2280,9 @@ def main() -> int:
     # Steps 12-15: the retry buffer.
     check_reduced_retry(results)
     rkernels, rlaunches = run_retry_paths(results, dev)
+    # Steps 16-19: label perturbations (set_label).
+    check_reduced_relabel(results)
+    lkernels, llaunches = run_label_paths(results, headline_s0, dev)
     results["wall_s_total"] = time.perf_counter() - t_start
 
     table = []
@@ -1939,6 +2307,14 @@ def main() -> int:
         table.append({
             "name": k, "route": "cuda", "source": SOURCES[kernel][0], "replaces": replaces,
             "launches": rlaunches[kernel], "max_abs_err": 0.0, "ms": m["ms"],
+            "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
+            "library_ms": m["library_ms"],
+        })
+    for k, (kernel, replaces) in LABEL_SOURCES.items():
+        m = lkernels[kernel]
+        table.append({
+            "name": k, "route": "cuda", "source": SOURCES[kernel][0], "replaces": replaces,
+            "launches": llaunches[kernel], "max_abs_err": m["max_abs_err"], "ms": m["ms"],
             "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
             "library_ms": m["library_ms"],
         })

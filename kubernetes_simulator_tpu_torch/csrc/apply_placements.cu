@@ -39,6 +39,10 @@
 // rdrop[s] when the buffer is full (sim/whatif.py:1502-1528): thread 0 of
 // the scenario's block, in pair order.
 //
+// Relabelled scenarios (set_label; the dyn release of sim/whatif.py
+// :1760-1817 and the dyn commit of make_wave_step3): each block reads the
+// node domains gdom of its scenario's label row lrow[s], in every use.
+//
 // Tier preemption (ops/tpu3.py:1629-1730, 1796; sim/whatif.py:2145
 // _tier_rel_fn / :2161 _npods_rel_fn): every pair of a non-gang pod also
 // moves its tier's cells used_tier[tier, n, :] and npods_tier[tier, n] (a
@@ -124,6 +128,7 @@ __global__ void __launch_bounds__(K3_THREADS)
   float* match_count = a.match_count + scen * a.plane_ss;
   float* anti_active = a.anti_active + scen * a.plane_ss;
   float* pref_wsum = a.pref_wsum + scen * a.plane_ss;
+  const int32_t* gdom = ksim_label_rows(a, scen).gdom;
   if (boundary >= 0 && a.preempt) {
     k3_evict(a, scen, ch, pos[0], (int)choice_ss, boundary, used);
     __syncthreads();
@@ -161,13 +166,13 @@ __global__ void __launch_bounds__(K3_THREADS)
       for (int t = 0; t < a.AA; ++t) {
         int g = a.anti_req[p * a.AA + t];
         if (g < 0) continue;
-        int dom = a.gdom[g * N + n];
+        int dom = gdom[g * N + n];
         if (dom >= 0) anti_active[g * D + dom] += sign;
       }
       for (int t = 0; t < a.PA; ++t) {
         int g = a.pref_aff[p * a.PA + t];
         if (g < 0) continue;
-        int dom = a.gdom[g * N + n];
+        int dom = gdom[g * N + n];
         if (dom >= 0) pref_wsum[g * D + dom] += sign * a.pref_aff_w[p * a.PA + t];
       }
     } else {
@@ -178,7 +183,7 @@ __global__ void __launch_bounds__(K3_THREADS)
         } else if (c < R + G) {
           int g = c - R;
           if (!a.pmg[(size_t)p * G + g]) continue;
-          int dom = a.gdom[g * N + n];
+          int dom = gdom[g * N + n];
           if (dom >= 0) match_count[g * D + dom] += sign;
         } else if (tiered) {
           const int r = c - R - G;

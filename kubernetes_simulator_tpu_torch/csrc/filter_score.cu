@@ -21,6 +21,12 @@
 // D (bootstrap totals of required-affinity groups, min counts of
 // DoNotSchedule spread groups) into shared memory.
 //
+// Relabelled scenarios (set_label; the dyn sections of make_wave_step3,
+// ops/tpu3.py:798-846, 1054-1059, 1222-1285, and build_wave_pre3(dyn)
+// :712): each block loads its scenario's label row lrow[s] once and reads
+// expr_match, gdom, gnd and sp_w there. Domain ids are dense per row, so
+// the spread minimum over [0, gnd) needs no existence mask.
+//
 // Bound on an H100: bytes. Each slot reads used + alloc (S·N·R·8 B), the
 // taint/label/domain rows it touches and writes 7 B + 20 B per
 // scenario-node; the arithmetic is a few dozen flops per node. At S=1,
@@ -77,6 +83,8 @@ __global__ void __launch_bounds__(256) ksim_filter_score_kernel(KsimArgs a, int 
   const float* match_count = a.match_count + scen * a.plane_ss;
   const float* anti_active = a.anti_active + scen * a.plane_ss;
   const float* pref_wsum = a.pref_wsum + scen * a.plane_ss;
+  const KsimLabels lab = ksim_label_rows(a, scen);
+  const int32_t* gdom = lab.gdom;
 
   if (a.interpod) {
     for (int t = warp; t < a.AR; t += nwarps) {
@@ -92,7 +100,7 @@ __global__ void __launch_bounds__(256) ksim_filter_score_kernel(KsimArgs a, int 
   if (a.spread) {
     for (int t = warp; t < a.SP; t += nwarps) {
       int g = a.spread_g[p * a.SP + t];
-      int nd = g >= 0 ? a.gnd[g] : 0;
+      int nd = g >= 0 ? lab.gnd[g] : 0;
       float m = INFINITY;
       for (int d = lane; d < nd; d += 32) m = fminf(m, match_count[g * D + d]);
       for (int o = 16; o > 0; o >>= 1) m = fminf(m, __shfl_down_sync(0xffffffffu, m, o));
@@ -170,7 +178,7 @@ __global__ void __launch_bounds__(256) ksim_filter_score_kernel(KsimArgs a, int 
   // --- NodeAffinity -------------------------------------------------------
   float na_raw = 0.f;
   if (a.node_affinity) {
-    const uint8_t* M = a.expr_match + (size_t)n * a.E;
+    const uint8_t* M = lab.expr_match + (size_t)n * a.E;
     if (a.na_has_req[p]) {
       bool any = false;
       for (int t = 0; t < a.TR; ++t) {
@@ -200,7 +208,7 @@ __global__ void __launch_bounds__(256) ksim_filter_score_kernel(KsimArgs a, int 
     for (int t = 0; t < a.AR; ++t) {
       int g = a.aff_req[p * a.AR + t];
       if (g < 0) continue;
-      int dom = a.gdom[g * N + n];
+      int dom = gdom[g * N + n];
       float cnt = dom >= 0 ? match_count[g * D + dom] : 0.f;
       bool boot = s_total[t] == 0.f && pm[g];
       bool term_ok = cnt >= 1.f && dom >= 0;
@@ -209,19 +217,19 @@ __global__ void __launch_bounds__(256) ksim_filter_score_kernel(KsimArgs a, int 
     for (int t = 0; t < a.AA; ++t) {
       int g = a.anti_req[p * a.AA + t];
       if (g < 0) continue;
-      int dom = a.gdom[g * N + n];
+      int dom = gdom[g * N + n];
       float cnt = dom >= 0 ? match_count[g * D + dom] : 0.f;
       if (cnt >= 1.f && dom >= 0) ok = false;
     }
     for (int g = 0; g < G; ++g) {
       if (!pm[g]) continue;
-      int dom = a.gdom[g * N + n];
+      int dom = gdom[g * N + n];
       if (dom >= 0 && anti_active[g * D + dom] > 0.f) ok = false;
     }
     for (int t = 0; t < a.PA; ++t) {
       int g = a.pref_aff[p * a.PA + t];
       if (g < 0) continue;
-      int dom = a.gdom[g * N + n];
+      int dom = gdom[g * N + n];
       float cnt = dom >= 0 ? match_count[g * D + dom] : 0.f;
       ip_raw = ip_raw + a.pref_aff_w[p * a.PA + t] * cnt;
     }
@@ -229,7 +237,7 @@ __global__ void __launch_bounds__(256) ksim_filter_score_kernel(KsimArgs a, int 
       float sym = 0.f;
       for (int g = 0; g < G; ++g) {
         if (!pm[g]) continue;
-        int dom = a.gdom[g * N + n];
+        int dom = gdom[g * N + n];
         if (dom >= 0) sym = sym + pref_wsum[g * D + dom];
       }
       ip_raw = ip_raw + sym;
@@ -244,7 +252,7 @@ __global__ void __launch_bounds__(256) ksim_filter_score_kernel(KsimArgs a, int 
       int g = a.spread_g[p * a.SP + t];
       if (g < 0) continue;
       int skew = a.spread_skew[p * a.SP + t];
-      int dom = a.gdom[g * N + n];
+      int dom = gdom[g * N + n];
       float cnt = dom >= 0 ? match_count[g * D + dom] : 0.f;
       if (a.spread_dns[p * a.SP + t]) {
         if (s_nd[t] == 0) {
@@ -255,7 +263,7 @@ __global__ void __launch_bounds__(256) ksim_filter_score_kernel(KsimArgs a, int 
           if (!(dom >= 0 && (nw - s_min[t]) <= (float)skew)) ok = false;
         }
       } else {
-        sp_raw = sp_raw + (cnt * a.sp_w[g] + (float)(skew - 1));
+        sp_raw = sp_raw + (cnt * lab.sp_w[g] + (float)(skew - 1));
         if (dom < 0) ign = true;
       }
     }

@@ -6,13 +6,15 @@
 // side (ops/kernels.py) mirrors this layout field for field as a
 // ctypes.Structure and checks sizeof() against ksim_args_size() at load.
 //
-// Layouts (row-major, C-contiguous). S scenarios share the pod tables,
-// the labels and the topology domains; each has its own state and scratch
-// rows, and may have its own allocatable and taints:
+// Layouts (row-major, C-contiguous). S scenarios share the pod tables;
+// each has its own state and scratch rows, may have its own allocatable
+// and taints, and reads row lrow[s] of the L rows of label tables (row 0
+// the base cluster, one more per scenario that relabels nodes):
 //   cluster  alloc [S,N,R] f32, taint_* [S,N,TT] i32 (or [N,R] / [N,TT]
-//            shared by every scenario), expr_match [N,E] u8,
-//            gdom [G,N] i32 (domain of node n under group g's topology key,
-//            -1 = none), gnd [G] i32 (domains of that key), sp_w [G] f32
+//            shared by every scenario), expr_match [L,N,E] u8,
+//            gdom [L,G,N] i32 (domain of node n under group g's topology
+//            key, -1 = none), gnd [L,G] i32 (domains of that key), sp_w
+//            [L,G] f32, lrow [S] i32
 //   pods     requests [P,R] f32, tol_* [P,TO], na_req [P,TR,TE],
 //            na_pref [P,TP,TE], aff_req [P,AR], anti_req [P,AA],
 //            pref_aff [P,PA], spread_* [P,SP], pmg [P,G] u8, group_id [P]
@@ -73,6 +75,7 @@ struct KsimArgs {
   const int32_t* gdom;
   const int32_t* gnd;
   const float* sp_w;
+  const int32_t* lrow;
   // pods
   const float* requests;
   const int32_t* tol_key;
@@ -148,6 +151,20 @@ struct KsimArgs {
 
 // Layout check for the ctypes mirror (every library exports it).
 KSIM_EXPORT int ksim_args_size() { return (int)sizeof(KsimArgs); }
+
+// Scenario scen's rows of the label tables (ksim_label_rows).
+struct KsimLabels {
+  const uint8_t* expr_match;  // [N,E]
+  const int32_t* gdom;        // [G,N]
+  const int32_t* gnd;         // [G]
+  const float* sp_w;          // [G]
+};
+
+__device__ __forceinline__ KsimLabels ksim_label_rows(const KsimArgs& a, int64_t scen) {
+  const int64_t row = a.lrow[scen];
+  return KsimLabels{a.expr_match + row * a.N * a.E, a.gdom + row * a.G * a.N,
+                    a.gnd + row * a.G, a.sp_w + row * a.G};
+}
 
 // May pod p preempt (tier preemption on, non-gang, tier > 0)?
 __device__ __forceinline__ bool ksim_may_preempt(const KsimArgs& a, int p) {

@@ -30,6 +30,12 @@ per scenario (the retry pass), K3 appends failed non-gang pods to the
 buffer on a main-path bind (sim/whatif.py:1502-1528) and releases the
 pending list's due entries (:1437-1443 through ``_release_core``).
 
+In a what-if batch whose scenarios relabel nodes (``set_label``; row B11,
+the dyn sections of ops/tpu3.py:944 make_wave_step3 and the dyn release
+of sim/whatif.py:1760-1817) K1 and K3 read the label tables (expression
+matches, node domains, domain counts, spread weights) from the row
+``lrow[s]`` of their scenario; K2 and K4 read no label table.
+
 Under tier preemption (a Tables with ``preempt``) the same three kernels
 carry ops/tpu3.py's preemption sections: K1 the candidate row (:1510), K2
 the masked argmin (ops/tpu.py:788 masked_argmin) and the eviction record,
@@ -111,7 +117,7 @@ class KsimArgs(ctypes.Structure):
     _fields_ = (
         [(name, ctypes.c_void_p) for name in (
             "alloc", "taint_key", "taint_kv", "taint_effect", "expr_match", "gdom",
-            "gnd", "sp_w",
+            "gnd", "sp_w", "lrow",
             "requests", "tol_key", "tol_kv", "tol_effect", "na_req", "na_has_req",
             "na_pref", "na_pref_w", "aff_req", "anti_req", "pref_aff", "pref_aff_w",
             "spread_g", "spread_skew", "spread_dns", "pmg", "group_id",
@@ -257,9 +263,10 @@ def pack_args(tb: ref.Tables, res_w: torch.Tensor) -> KsimArgs:
     c, p, s, x, k = tb.cluster, tb.pods, tb.state, tb.scratch, tb.consts
     S, N, R = s.used.shape
     G, D = s.match_count.shape[1:]
+    L = c.gdom.shape[0]
     dims = dict(
         S=S, N=N, R=R, TT=c.taint_key.shape[-1],
-        E=c.expr_match.shape[1], G=G, D=D,
+        E=c.expr_match.shape[-1], G=G, D=D,
         TO=p.tol_key.shape[1], TR=p.na_req.shape[1], TE=p.na_req.shape[2],
         TP=p.na_pref.shape[1], AR=p.aff_req.shape[1], AA=p.anti_req.shape[1],
         PA=p.pref_aff.shape[1], SP=p.spread_g.shape[1],
@@ -290,14 +297,18 @@ def pack_args(tb: ref.Tables, res_w: torch.Tensor) -> KsimArgs:
     for name, t, shape in (
         ("anti_active", s.anti_active, (S, G, D)), ("pref_wsum", s.pref_wsum, (S, G, D)),
         ("feasible", x.feasible, (S, N)), ("scores", x.scores, (S, ref.NUM_ROWS, N)),
-        ("ignored", x.ignored, (S, N)), ("gdom", c.gdom, (G, N)),
+        ("ignored", x.ignored, (S, N)), ("gdom", c.gdom, (L, G, N)),
+        ("expr_match", c.expr_match, (L, N, dims["E"])), ("gnd", c.gnd, (L, G)),
+        ("sp_w", c.sp_w, (L, G)), ("lrow", c.lrow, (S,)),
     ):
         if tuple(t.shape) != shape:
             raise ValueError(f"{name}: expected shape {shape}, got {tuple(t.shape)}")
+    if c.lrow.dtype != torch.int32 or not bool(((c.lrow >= 0) & (c.lrow < L)).all()):
+        raise ValueError(f"lrow: int32 label rows in [0, {L}) expected")
     tensors = {
         "alloc": c.allocatable, "taint_key": c.taint_key, "taint_kv": c.taint_kv,
         "taint_effect": c.taint_effect, "expr_match": c.expr_match, "gdom": c.gdom,
-        "gnd": c.gnd, "sp_w": c.sp_w,
+        "gnd": c.gnd, "sp_w": c.sp_w, "lrow": c.lrow,
         **{f: getattr(p, f) for f in ref.DevPods._fields if f != "pmg"},
         "pmg": p.pmg,
         "used": s.used, "match_count": s.match_count, "anti_active": s.anti_active,

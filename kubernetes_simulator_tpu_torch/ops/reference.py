@@ -31,9 +31,13 @@ boundary's bookkeeping.
 Every table carries a leading scenario dimension S (the what-if batch of
 ``sim/whatif.py``; the single-scenario replay is S = 1): the state
 ``[S, ...]``, the scratch rows ``[S, ...]`` and, per scenario or shared,
-the allocatable and the taints. Each scenario's arithmetic is the
-single-scenario chain's, element for element, so slice s of a batched
-twin equals the same twin at S = 1 on scenario s's tables.
+the allocatable and the taints. The label tables (expression matches,
+node domains, domain counts, spread weights) are a stack of L rows and
+scenario s reads row ``lrow[s]``: row 0 is the base cluster, and each
+scenario whose ``set_label`` perturbations relabel nodes has a row of its
+own. Each scenario's arithmetic is the single-scenario chain's, element
+for element, so slice s of a batched twin equals the same twin at S = 1
+on scenario s's tables.
 
 The twins run on any device; the wrappers take them only for CPU tensors.
 """
@@ -69,16 +73,18 @@ class DevCluster(NamedTuple):
     derived expression-match matrix and per-group domain maps). The
     allocatable and the taints are either shared by every scenario
     (``[N, *]``) or stacked per scenario (``[S, N, *]``, the what-if
-    ScenarioSet); the labels and the domains are always shared."""
+    ScenarioSet). The label tables are L rows (L = 1 unless a what-if
+    scenario relabels nodes) and scenario s reads row ``lrow[s]``."""
 
     allocatable: torch.Tensor  # [N, R] or [S, N, R] f32
     taint_key: torch.Tensor  # [N, TT] or [S, N, TT] i32
     taint_kv: torch.Tensor  # like taint_key
     taint_effect: torch.Tensor  # like taint_key
-    expr_match: torch.Tensor  # [N, E] bool
-    gdom: torch.Tensor  # [G, N] i32 domain of node n under group g's key (PAD)
-    gnd: torch.Tensor  # [G] i32 domain count of group g's key
-    sp_w: torch.Tensor  # [G] f32 spread topologyNormalizingWeight
+    expr_match: torch.Tensor  # [L, N, E] bool
+    gdom: torch.Tensor  # [L, G, N] i32 domain of node n under group g's key (PAD)
+    gnd: torch.Tensor  # [L, G] i32 domain count of group g's key
+    sp_w: torch.Tensor  # [L, G] f32 spread topologyNormalizingWeight
+    lrow: torch.Tensor  # [S] i32 the label row of each scenario
 
 
 class DevPods(NamedTuple):
@@ -264,7 +270,8 @@ def _scenario_subset(tb: Tables, idx: torch.Tensor) -> Tables:
     pick = lambda t: t[idx] if t.dim() == 3 else t
     return Tables(
         cl._replace(allocatable=pick(cl.allocatable), taint_key=pick(cl.taint_key),
-                    taint_kv=pick(cl.taint_kv), taint_effect=pick(cl.taint_effect)),
+                    taint_kv=pick(cl.taint_kv), taint_effect=pick(cl.taint_effect),
+                    lrow=cl.lrow[idx]),
         tb.pods, DevState(*(x[idx] for x in tb.state)), Scratch(*(x[idx] for x in tb.scratch)),
         tb.consts)
 
@@ -278,20 +285,24 @@ def _pods_of_scenarios(pod_of_s: torch.Tensor):
                                  device=pod_of_s.device)
 
 
-def expr_match_matrix(ec: EncodedCluster) -> np.ndarray:
+def expr_match_matrix(ec: EncodedCluster, labels=None) -> np.ndarray:
     """``M[n, e]`` — does node n satisfy interned expression e ([K8S]
     semantics: In/Gt/Lt require the key present; NotIn/DoesNotExist also
     match when it is absent). Host numpy, once per engine (ops/cpu.py
-    ``expr_match_matrix``)."""
-    nk = ec.node_label_key[:, :, None]
-    nv = ec.node_label_kv[:, :, None]
+    ``expr_match_matrix``). ``labels`` = (key, kv, num) ``[N, L]`` node
+    label arrays (a what-if scenario's relabelled ones) in place of
+    ``ec``'s."""
+    lk, lv, ln = labels if labels is not None else (
+        ec.node_label_key, ec.node_label_kv, ec.node_label_num)
+    nk = lk[:, :, None]
+    nv = lv[:, :, None]
     ek = ec.expr_key[None, None, :]
     key_present = np.any((nk == ek) & (nk != PAD), axis=1)
     in_set = np.any(
         (nv[:, :, :, None] == ec.expr_vals[None, None, :, :]) & (nv[:, :, :, None] != PAD),
         axis=(1, 3),
     )
-    num = ec.node_label_num[:, :, None]
+    num = ln[:, :, None]
     with np.errstate(invalid="ignore"):
         gt = np.any((nk == ek) & (num > ec.expr_num[None, None, :]), axis=1)
         lt = np.any((nk == ek) & (num < ec.expr_num[None, None, :]), axis=1)
@@ -306,33 +317,53 @@ def expr_match_matrix(ec: EncodedCluster) -> np.ndarray:
     )
 
 
-def group_domains(ec: EncodedCluster) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """Host: (gdom [G, N] i32, gnd [G] i32, sp_w [G] f32). ``sp_w`` is the
+def group_domains(ec: EncodedCluster, node_domain: Optional[np.ndarray] = None,
+                  num_domains: Optional[np.ndarray] = None
+                  ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Host: (gdom [G, N] i32, gnd [G] i32, sp_w [G] f32) of ``ec``'s
+    topology domains, or of the given ``node_domain [T, N]`` /
+    ``num_domains [T]`` (a relabelled scenario's). ``sp_w`` is the
     upstream topologyNormalizingWeight ``log(size + 2)`` per group, f64 log
     cast once to f32 (ops/cpu.py spread_weight)."""
+    nd = ec.node_domain if node_domain is None else node_domain
+    ndom = ec.num_domains if num_domains is None else num_domains
     G = max(ec.num_groups, 1)
     gt = ec.group_topo[:G]
     if gt.shape[0] < G:
         gt = np.full(G, PAD, np.int32)
     safe = np.clip(gt, 0, None)
-    gdom = np.where(gt[:, None] >= 0, ec.node_domain[safe], PAD).astype(np.int32)
-    gnd = np.where(gt >= 0, ec.num_domains[safe], 0).astype(np.int32)
+    gdom = np.where(gt[:, None] >= 0, nd[safe], PAD).astype(np.int32)
+    gnd = np.where(gt >= 0, ndom[safe], 0).astype(np.int32)
     sp_w = np.log(gnd.astype(np.float64) + 2.0).astype(np.float32)
     return gdom, gnd, sp_w
 
 
-def cluster_to(ec: EncodedCluster, device) -> DevCluster:
-    gdom, gnd, sp_w = group_domains(ec)
+def label_tables(ec: EncodedCluster, rows, device) -> dict:
+    """The stacked label tables of a DevCluster, one row per entry of
+    ``rows``: each a (labels, node_domain, num_domains) triple as
+    :func:`expr_match_matrix` and :func:`group_domains` take them (None:
+    ``ec``'s own)."""
+    t = lambda a, dt: torch.as_tensor(np.ascontiguousarray(a), dtype=dt, device=device)
+    em, doms = [], []
+    for labels, nd, ndom in rows:
+        em.append(expr_match_matrix(ec, labels))
+        doms.append(group_domains(ec, nd, ndom))
+    gdom, gnd, sp_w = (np.stack(x) for x in zip(*doms))
+    return dict(expr_match=t(np.stack(em), torch.bool), gdom=t(gdom, torch.int32),
+                gnd=t(gnd, torch.int32), sp_w=t(sp_w, torch.float32))
+
+
+def cluster_to(ec: EncodedCluster, device, S: int = 1) -> DevCluster:
+    """``ec`` on ``device`` for S scenarios that all read its labels
+    (one label row)."""
     t = lambda a, dt: torch.as_tensor(np.ascontiguousarray(a), dtype=dt, device=device)
     return DevCluster(
         allocatable=t(ec.allocatable, torch.float32),
         taint_key=t(ec.taint_key, torch.int32),
         taint_kv=t(ec.taint_kv, torch.int32),
         taint_effect=t(ec.taint_effect, torch.int32),
-        expr_match=t(expr_match_matrix(ec), torch.bool),
-        gdom=t(gdom, torch.int32),
-        gnd=t(gnd, torch.int32),
-        sp_w=t(sp_w, torch.float32),
+        lrow=torch.zeros(S, dtype=torch.int32, device=device),
+        **label_tables(ec, [(None, None, None)], device),
     )
 
 
@@ -370,9 +401,17 @@ def new_scratch(S: int, N: int, device) -> Scratch:
 
 def stacked_state(used, match_count, anti_active, pref_wsum, S: int, device) -> DevState:
     """S copies of one host state (numpy ``[N, R]`` / ``[G, D]`` planes,
-    models.state layout) as an S-stacked DevState on ``device``."""
-    t = lambda a: torch.tensor(np.asarray(a, np.float32), device=device)[None].repeat(
-        S, *([1] * np.ndim(a)))
+    models.state layout), or the S host states of an ``[S, N, R]`` /
+    ``[S, G, D]`` stack, as an S-stacked DevState on ``device``."""
+
+    def t(a):
+        a = np.asarray(a, np.float32)
+        if a.ndim == 3:
+            if a.shape[0] != S:
+                raise ValueError(f"a stacked plane of {a.shape[0]} scenarios, expected {S}")
+            return torch.tensor(a, device=device)
+        return torch.tensor(a, device=device)[None].repeat(S, *([1] * a.ndim))
+
     return DevState(t(used), t(match_count), t(anti_active), t(pref_wsum))
 
 
@@ -380,6 +419,13 @@ def _stacked(t: torch.Tensor) -> torch.Tensor:
     """A shared ``[N, *]`` cluster table as ``[1, N, *]`` (it broadcasts
     over the scenarios); an ``[S, N, *]`` stack as it is."""
     return t.unsqueeze(0) if t.dim() == 2 else t
+
+
+def _rows(cl: DevCluster, t: torch.Tensor) -> torch.Tensor:
+    """Label table ``t`` ([L, ...]) as each scenario reads it: its one row
+    as ``[1, ...]`` (it broadcasts over the scenarios) when L = 1, else
+    ``t[lrow]`` ([S, ...])."""
+    return t[:1] if t.shape[0] == 1 else t[cl.lrow.long()]
 
 
 # ---------------------------------------------------------------------------
@@ -421,41 +467,44 @@ def taint_prefer_count(cl: DevCluster, pods: DevPods, p: int) -> torch.Tensor:
 
 
 def _terms_matched(M: torch.Tensor, terms: torch.Tensor) -> torch.Tensor:
-    """[N, T] — term t valid (slot 0 is a real expr) and every real expr
-    of it matched by node n (PAD exprs auto-true)."""
+    """[S|1, N, T] — term t valid (slot 0 is a real expr) and every real
+    expr of it matched by node n (PAD exprs auto-true), per row of the
+    ``[S|1, N, E]`` expression matches ``M``."""
     valid_term = terms[:, 0] >= 0
-    per_expr = M[:, terms.clamp(min=0)] | (terms[None, :, :] < 0)
-    return torch.all(per_expr, dim=2) & valid_term[None, :]
+    per_expr = M[:, :, terms.clamp(min=0)] | (terms < 0)
+    return torch.all(per_expr, dim=3) & valid_term
 
 
 def node_affinity_mask(cl: DevCluster, pods: DevPods, p: int) -> torch.Tensor:
-    N = cl.gdom.shape[1]
+    """[S|1, N] required node affinity of pod p."""
+    M = _rows(cl, cl.expr_match)
     if not bool(pods.na_has_req[p]):
-        return torch.ones(N, dtype=torch.bool, device=cl.gdom.device)
-    return torch.any(_terms_matched(cl.expr_match, pods.na_req[p]), dim=1)
+        return torch.ones(M.shape[:2], dtype=torch.bool, device=M.device)
+    return torch.any(_terms_matched(M, pods.na_req[p]), dim=2)
 
 
 def node_affinity_score(cl: DevCluster, pods: DevPods, p: int) -> torch.Tensor:
-    """Σ weight over matched preferred terms (raw), [N]."""
-    per_term = _terms_matched(cl.expr_match, pods.na_pref[p])
+    """Σ weight over matched preferred terms (raw), [S|1, N]."""
+    per_term = _terms_matched(_rows(cl, cl.expr_match), pods.na_pref[p])
     w = pods.na_pref_w[p]
-    raw = torch.zeros(per_term.shape[0], dtype=torch.float32, device=w.device)
-    for t in range(per_term.shape[1]):
-        raw = raw + torch.where(per_term[:, t], w[t], torch.zeros_like(w[t]))
+    raw = torch.zeros(per_term.shape[:2], dtype=torch.float32, device=w.device)
+    for t in range(per_term.shape[2]):
+        raw = raw + torch.where(per_term[..., t], w[t], torch.zeros_like(w[t]))
     return raw
 
 
 def _counts_at_nodes(plane: torch.Tensor, gdom: torch.Tensor) -> torch.Tensor:
-    """``plane[s, g, dom(g, n)]`` → [S, G, N]; 0 where the node lacks the
-    key (a PAD domain never reads column 0)."""
-    idx = gdom.clamp(min=0).to(torch.int64).unsqueeze(0).expand(plane.shape[0], -1, -1)
+    """``plane[s, g, dom(s, g, n)]`` → [S, G, N] through each scenario's
+    domain map ``gdom`` ([S|1, G, N]); 0 where the node lacks the key (a
+    PAD domain never reads column 0)."""
+    idx = gdom.clamp(min=0).to(torch.int64).expand(plane.shape[0], -1, -1)
     vals = torch.gather(plane, 2, idx)
     return torch.where(gdom >= 0, vals, torch.zeros_like(vals))
 
 
 def interpod_filter_mask(cl: DevCluster, st: DevState, pods: DevPods, p: int) -> torch.Tensor:
-    gdom = cl.gdom
-    S, N = st.match_count.shape[0], gdom.shape[1]
+    gdom = _rows(cl, cl.gdom)
+    S, N = st.match_count.shape[0], gdom.shape[2]
     cnt = _counts_at_nodes(st.match_count, gdom)
     total = st.match_count.sum(dim=2)  # [S, G]
     ok = torch.ones((S, N), dtype=torch.bool, device=gdom.device)
@@ -466,13 +515,13 @@ def interpod_filter_mask(cl: DevCluster, st: DevState, pods: DevPods, p: int) ->
         if g < 0:
             continue
         boot = (total[:, g] == 0) & pm[g]
-        term_ok = (cnt[:, g] >= 1) & (gdom[g] >= 0)
+        term_ok = (cnt[:, g] >= 1) & (gdom[:, g] >= 0)
         ok &= term_ok | boot[:, None]
     # Required anti-affinity of the incoming pod.
     for g in pods.anti_req[p].tolist():
         if g < 0:
             continue
-        ok &= ~((cnt[:, g] >= 1) & (gdom[g] >= 0))
+        ok &= ~((cnt[:, g] >= 1) & (gdom[:, g] >= 0))
     # Symmetric: placed pods' required anti terms reject this pod.
     anti_here = _counts_at_nodes(st.anti_active, gdom)
     blocked = torch.any((anti_here > 0) & pm[None, :, None], dim=1)
@@ -482,7 +531,7 @@ def interpod_filter_mask(cl: DevCluster, st: DevState, pods: DevPods, p: int) ->
 def interpod_score(
     cl: DevCluster, st: DevState, pods: DevPods, p: int, has_symmetric_pref: bool = True
 ) -> torch.Tensor:
-    gdom = cl.gdom
+    gdom = _rows(cl, cl.gdom)
     cnt = _counts_at_nodes(st.match_count, gdom)
     raw = torch.zeros(cnt[:, 0].shape, dtype=torch.float32, device=gdom.device)
     w_row = pods.pref_aff_w[p]
@@ -499,23 +548,25 @@ def interpod_score(
 
 
 def spread_filter_mask(cl: DevCluster, st: DevState, pods: DevPods, p: int) -> torch.Tensor:
-    gdom = cl.gdom
-    S, N = st.match_count.shape[0], gdom.shape[1]
+    """DoNotSchedule spread. The minimum runs over each scenario's domains
+    ``[0, gnd)``: domain ids are dense ranks of the values present, so
+    every one of them holds a node (an emptied domain has no id)."""
+    gdom, gnd = _rows(cl, cl.gdom), _rows(cl, cl.gnd)
+    S, N = st.match_count.shape[0], gdom.shape[2]
     ok = torch.ones((S, N), dtype=torch.bool, device=gdom.device)
+    d_ar = torch.arange(st.match_count.shape[2], device=gdom.device)
+    inf = torch.tensor(float("inf"), device=gdom.device)
     dns_row = pods.spread_dns[p].tolist()
     skew_row = pods.spread_skew[p].tolist()
     for i, g in enumerate(pods.spread_g[p].tolist()):
         if g < 0 or not dns_row[i]:
             continue
-        nd = int(cl.gnd[g])
-        if nd == 0:
-            ok &= False
-            continue
-        min_cnt = st.match_count[:, g, :nd].amin(dim=1)  # [S]
-        cnt = _counts_at_nodes(st.match_count[:, g : g + 1], gdom[g : g + 1])[:, 0]
+        nd = gnd[:, g : g + 1]  # [S|1, 1]
+        min_cnt = torch.where(d_ar < nd, st.match_count[:, g], inf).amin(dim=1)  # [S]
+        cnt = _counts_at_nodes(st.match_count[:, g : g + 1], gdom[:, g : g + 1])[:, 0]
         self_match = 1.0 if bool(pods.pmg[p, g]) else 0.0
         new = cnt + self_match
-        ok &= (gdom[g] >= 0) & (new - min_cnt[:, None] <= float(skew_row[i]))
+        ok &= (nd > 0) & (gdom[:, g] >= 0) & (new - min_cnt[:, None] <= float(skew_row[i]))
     return ok
 
 
@@ -524,12 +575,12 @@ def spread_score(
 ) -> Tuple[torch.Tensor, torch.Tensor, bool]:
     """Upstream podtopologyspread raw score over the ScheduleAnyway
     constraints: ``floor(Σ cnt·log(size+2) + (maxSkew−1) + 0.5)`` per
-    scenario and node [S, N], the ignored mask [N] (node missing a scored
-    key) and the any-scored flag (PreScore Skip when False)."""
-    gdom = cl.gdom
-    S, N = st.match_count.shape[0], gdom.shape[1]
+    scenario and node [S, N], the ignored mask [S|1, N] (node missing a
+    scored key) and the any-scored flag (PreScore Skip when False)."""
+    gdom, sp_w = _rows(cl, cl.gdom), _rows(cl, cl.sp_w)
+    S, N = st.match_count.shape[0], gdom.shape[2]
     raw = torch.zeros((S, N), dtype=torch.float32, device=gdom.device)
-    ignored = torch.zeros(N, dtype=torch.bool, device=gdom.device)
+    ignored = torch.zeros(gdom[:, 0].shape, dtype=torch.bool, device=gdom.device)
     any_scored = False
     dns_row = pods.spread_dns[p].tolist()
     skew_row = pods.spread_skew[p].tolist()
@@ -537,12 +588,12 @@ def spread_score(
         if g < 0 or dns_row[i]:
             continue
         any_scored = True
-        cnt = _counts_at_nodes(st.match_count[:, g : g + 1], gdom[g : g + 1])[:, 0]
-        contrib = cnt * cl.sp_w[g] + torch.tensor(
+        cnt = _counts_at_nodes(st.match_count[:, g : g + 1], gdom[:, g : g + 1])[:, 0]
+        contrib = cnt * sp_w[:, g : g + 1] + torch.tensor(
             float(skew_row[i] - 1), dtype=torch.float32, device=gdom.device
         )
         raw = raw + contrib
-        ignored |= gdom[g] < 0
+        ignored |= gdom[:, g] < 0
     raw = torch.floor(raw + 0.5)
     return raw, ignored, any_scored
 
@@ -956,7 +1007,8 @@ def apply_placements(
             pre.used_tier.view(-1, R).index_add_(0, tcell, sign * pods.requests[p[ng]])
             pre.npods_tier.view(-1).index_add_(
                 0, tcell, torch.full(tcell.shape, sign, dtype=torch.float32, device=tcell.device))
-        dom = cl.gdom[:, n]  # [G, M]
+        # [G, M]: each pair's node under its scenario's label row
+        dom = cl.gdom[0][:, n] if cl.gdom.shape[0] == 1 else cl.gdom[cl.lrow[ss].long(), :, n].T
         hit = (dom >= 0) & pods.pmg[p].T
         gg, mm = torch.nonzero(hit, as_tuple=True)
         flat = (ss[mm] * G + gg) * D + dom[gg, mm].long()

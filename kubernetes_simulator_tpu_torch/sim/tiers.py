@@ -4,7 +4,8 @@ Counterpart: ``kubernetes_simulator_tpu/sim/greedy.py`` (``priority_tiers``
 :50, ``normalize_preemption`` :98) and the static gates of
 ``kubernetes_simulator_tpu/ops/tpu3.py`` (``V3Static.MAX_TIERS`` :226 and
 its check :313-322, the hostname-scale ``is_host = nd_g > DMAX_COARSE``
-rule :245 and the host-row refusal :383-388).
+rule :245, the singleton-topology flags ``single_g`` :249-258 and the
+host-row refusal :383-388).
 
 Semantics (the greedy anchor's): a pod that no node accepts may preempt
 when it is non-gang with tier > 0 and no preemption has fired yet in this
@@ -49,10 +50,10 @@ def normalize_preemption(preemption) -> Optional[str]:
     raise ValueError(f"preemption must be False/True/'tier'/'kube', got {preemption!r}")
 
 
-def has_host_rows(ec: EncodedCluster, ep: EncodedPods, interpod: bool, spread: bool) -> bool:
-    """Does any term the step reads name a group whose topology key has
-    more than DMAX_COARSE domains (the reference's host-plane rows)?
-    ``interpod`` / ``spread``: the step's plugin flags (StepSpec)."""
+def _host_groups(ec: EncodedCluster, ep: EncodedPods, interpod: bool, spread: bool
+                 ) -> Tuple[np.ndarray, np.ndarray]:
+    """([G] bool groups that a term the step reads names and whose topology
+    key has more than DMAX_COARSE domains, [G] i32 their topology)."""
     G = max(ec.num_groups, 1)
     gt = ec.group_topo[:G] if ec.group_topo.shape[0] >= G else np.full(G, -1, np.int32)
     nd_g = np.where(gt >= 0, ec.num_domains[np.clip(gt, 0, None)], 0)
@@ -62,7 +63,26 @@ def has_host_rows(ec: EncodedCluster, ep: EncodedPods, interpod: bool, spread: b
                     (ep.spread_g, spread), (ep.pref_aff, interpod)):
         if on and arr.size:
             ref[np.unique(arr[arr >= 0])] = True
-    return bool((ref & is_host).any())
+    return ref & is_host, gt
+
+
+def has_host_rows(ec: EncodedCluster, ep: EncodedPods, interpod: bool, spread: bool) -> bool:
+    """Does any term the step reads name a group whose topology key has
+    more than DMAX_COARSE domains (the reference's host-plane rows)?
+    ``interpod`` / ``spread``: the step's plugin flags (StepSpec)."""
+    return bool(_host_groups(ec, ep, interpod, spread)[0].any())
+
+
+def nonsingleton_host_rows(ec: EncodedCluster, ep: EncodedPods, interpod: bool,
+                           spread: bool) -> bool:
+    """Does such a host-plane row have a domain of more than one node (the
+    reference's device releases cannot regroup it)?"""
+    host, gt = _host_groups(ec, ep, interpod, spread)
+    for t in np.unique(gt[host]):
+        dom = ec.node_domain[t]
+        if dom[dom >= 0].size and np.bincount(dom[dom >= 0]).max() > 1:
+            return True
+    return False
 
 
 def check_tier_mode(ec: EncodedCluster, ep: EncodedPods, interpod: bool, spread: bool

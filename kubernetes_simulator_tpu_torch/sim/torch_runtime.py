@@ -61,7 +61,7 @@ from __future__ import annotations
 
 import contextlib
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, replace as dc_replace
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -569,9 +569,12 @@ class ChunkEngine:
         self, ec: EncodedCluster, pods: EncodedPods, spec: StepSpec, cluster: ref.DevCluster,
         S: int, wave_width, chunk_waves: int, completions: Optional[bool],
         granularity_guard: bool, engine_name: str, device: torch.device, plain: bool,
-        preemption: bool = False, retry_buffer: int = 0,
+        preemption: bool = False, retry_buffer: int = 0, domains=None,
     ) -> None:
         self.ec, self.pods, self.spec, self.S, self.device = ec, pods, spec, S, device
+        #: (node_domain [L, T, N], num_domains [L, T], lrow [S], D) of the
+        #: label rows of a batch whose scenarios relabel nodes, else None
+        self._domains = domains
         #: (tiers, pod_tier) under tier preemption, else None
         self.tiers = (check_tier_mode(ec, pods, spec.interpod, spec.spread)
                       if preemption else None)
@@ -599,8 +602,25 @@ class ChunkEngine:
         self._cluster = cluster
         self._pods = ref.pods_to(pods, device)
 
+    def _initial_planes(self) -> Tuple[np.ndarray, ...]:
+        """Host (used, match_count, anti_active, pref_wsum) every scenario
+        starts from: the pre-bound pods bound with the scenario's own
+        topology domains — one state, or an ``[S, ...]`` stack where the
+        label rows differ and pods are pre-bound."""
+        fields = ("used", "match_count", "anti_active", "pref_wsum")
+        if self._domains is None:
+            st = init_state(self.ec, self.pods)
+            return tuple(getattr(st, f) for f in fields)
+        nd, ndom, lrow, D = self._domains
+        row_ec = lambda r: dc_replace(self.ec, node_domain=nd[r], num_domains=ndom[r],
+                                      max_domains=D)
+        if not bool((self.pods.bound_node >= 0).any()):
+            st = init_state(row_ec(0), self.pods)
+            return tuple(getattr(st, f) for f in fields)
+        rows = [init_state(row_ec(r), self.pods) for r in range(nd.shape[0])]
+        return tuple(np.stack([getattr(rows[r], f) for r in lrow]) for f in fields)
+
     def _tables(self) -> ref.Tables:
-        st = init_state(self.ec, self.pods)
         pre = None
         if self.tiers is not None:
             tiers, pod_tier = self.tiers
@@ -615,8 +635,7 @@ class ChunkEngine:
                                self.device)
         return ref.Tables(
             cluster=self._cluster, pods=self._pods,
-            state=ref.stacked_state(st.used, st.match_count, st.anti_active, st.pref_wsum,
-                                    self.S, self.device),
+            state=ref.stacked_state(*self._initial_planes(), self.S, self.device),
             scratch=ref.new_scratch(self.S, self.ec.num_nodes, self.device), consts=self.consts,
             preempt=pre, retry=rt,
         )

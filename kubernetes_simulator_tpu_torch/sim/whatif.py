@@ -13,12 +13,41 @@ from static per-boundary buckets (``_stage_dev_rel`` :2200, ``_release_fn``
 :1742): no per-chunk transfer of choices, one fetch of ``[S, L]`` choices
 at the end.
 
-Pod-side tensors, labels and topology domains are shared by the
-scenarios (the trace is common); the allocatable ``[S, N, R]`` and the
-taints ``[S, N, TT]`` are stacked per scenario. The perturbations ported
-are ``node_down``, ``scale_capacity`` and ``add_taint``; ``set_label``
-(per-scenario domain tables) and the engine's other modes raise
-``NotImplementedError`` naming the queue item that ports them.
+Pod-side tensors are shared by the scenarios (the trace is common); the
+allocatable ``[S, N, R]`` and the taints ``[S, N, TT]`` are stacked per
+scenario. The perturbations are ``node_down``, ``scale_capacity``,
+``add_taint`` and ``set_label``.
+
+``set_label`` (row B11: the reference's DynTables, ``ScenarioDyn`` :408,
+``make_wave_step3(dyn=...)``, and the labels-dirty role of the v2 chain,
+row B8) gives each scenario that relabels nodes a row of its own in the
+label tables — expression matches ``[L, N, E]``, node domains ``[L, G,
+N]``, domain counts and spread weights ``[L, G]`` — and ``lrow [S]``
+names each scenario's row (row 0 is the base cluster, which every other
+scenario reads). The kernels read the row of their scenario with one
+extra load per block and index the host-layout count planes through it
+directly, so none of the reference's per-scenario correction tables
+(overrides, ``dexist``, correction matmuls) is needed. Domains are
+re-derived as the reference's v2 path derives them (:142-190): per
+topology key, the dense rank of each present value, ordered by the value
+string. With dense ranks every domain below the count holds a node, so
+the DoNotSchedule spread minimum over ``[0, count)`` already skips an
+emptied domain: ``dexist`` is not ported. The count planes are as wide
+as the batch's largest domain count, and the pre-bound pods' initial
+planes are built per row with that row's domains. The step's on/off
+flags (StepSpec) depend on the pods and the taints only, not on node
+labels; its f32 spread-normalize bound is checked again with the rows'
+largest weights (as :900-913 does).
+
+The engine reports what the reference reports: ``engine="v3"`` inside the
+DynTables envelope (at most 32 relabelled nodes per scenario, no change
+under a hostname-scale topology key, no pre-bound pods, no preemption,
+no fork) and ``"v2"`` outside it; completions are off where the
+reference cannot honour them (the v2 fallback, and a DynTables batch with
+``collect_assignments`` or non-singleton host-scale count planes), with
+its warning, or its error under ``completions=True``. Both run on the
+same kernels. Tier preemption and the retry buffer refuse relabelled
+batches with the reference's errors.
 
 Tier preemption (``preemption=True``; the reference's batch of
 :590-620, :863-880, :2110-2165 and :2828-3005) runs with completions and
@@ -37,12 +66,16 @@ failed non-gang pods, retry pass and pending list
 checkpoints). The reference also refuses traces whose count planes
 need non-singleton host-scale rows (:956-966), a limit of its TPU plane
 layout; the port's state has no host planes, so it runs them.
+
+The engine's other modes raise ``NotImplementedError`` naming the queue
+item that ports them.
 """
 
 from __future__ import annotations
 
+import warnings
 from dataclasses import dataclass, field, replace as dc_replace
-from typing import List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -51,15 +84,22 @@ from ..framework.framework import FrameworkConfig
 from ..models.core import Effect
 from ..models.encode import PAD, EncodedCluster, EncodedPods
 from ..ops import reference as ref
+from ..utils.metrics import log
 from .telemetry import resolve_granularity
+from .tiers import DMAX_COARSE, nonsingleton_host_rows
 from .torch_runtime import (
     ChunkEngine,
     StepSpec,
+    _spread_norm_f32_ok,
     check_retry_buffer,
     completions_gate,
+    release_times,
     resolve_device,
     tier_preemption,
 )
+
+#: The reference's DynTables envelope: relabelled nodes per scenario.
+MAX_RELABELLED = 32
 
 
 @dataclass
@@ -94,9 +134,13 @@ def _later(what: str, item: str) -> NotImplementedError:
 class ScenarioSet:
     """Stacked per-scenario node tables of a batch: ``alloc [S, N, R]`` f32
     and ``taint_key / taint_kv / taint_effect [S, N, TT]`` i32 on
-    ``device``, with two spare taint slots per node for ``add_taint``.
-    ``add_taint`` interns its key and key/value pair into ``ec.vocab``, as
-    the reference does."""
+    ``device``, with two spare taint slots per node for ``add_taint``, and
+    the label tables (:meth:`labels`): one row for the base cluster and one
+    for each scenario that ``set_label`` relabels, ``lrow [S]`` each
+    scenario's row. ``add_taint`` and ``set_label`` intern their key and
+    key/value pair into ``ec.vocab``, as the reference does; ``set_label``
+    writes the node's slot for the key, or its first free one, with the
+    numeric value ``float(value)`` or NaN."""
 
     def __init__(self, ec: EncodedCluster, scenarios: Sequence[Scenario],
                  spare_taint_slots: int = 2, device="cpu"):
@@ -114,6 +158,11 @@ class ScenarioSet:
         tk = np.repeat(base_tk[None], S, axis=0).copy()
         tv = np.repeat(base_tv[None], S, axis=0).copy()
         te = np.repeat(base_te[None], S, axis=0).copy()
+        lk = np.repeat(ec.node_label_key[None], S, axis=0).copy()
+        lv = np.repeat(ec.node_label_kv[None], S, axis=0).copy()
+        ln = np.repeat(ec.node_label_num[None], S, axis=0).copy()
+        labels_dirty = np.zeros(S, dtype=bool)
+        relabelled: Dict[int, set] = {}  # scenario → nodes set_label touched
         for si, sc in enumerate(scenarios):
             for pt in sc.perturbations:
                 mask = np.zeros(N, dtype=bool)
@@ -137,9 +186,20 @@ class ScenarioSet:
                         tv[si, n, free[0]] = kvid
                         te[si, n, free[0]] = eff
                 elif pt.op == "set_label":
-                    raise _later(
-                        "set_label (per-scenario topology domains: the labels-dirty "
-                        "DynTables row B11)", "queue A item 7")
+                    kid = vocab.key(pt.key)
+                    kvid = vocab.kv(pt.key, pt.value or "")
+                    try:
+                        num = float(pt.value)
+                    except (TypeError, ValueError):
+                        num = np.nan
+                    for n in np.nonzero(mask)[0]:
+                        slots = np.nonzero(lk[si, n] == kid)[0]
+                        slot = slots[0] if slots.size else np.nonzero(lk[si, n] == PAD)[0][0]
+                        lk[si, n, slot] = kid
+                        lv[si, n, slot] = kvid
+                        ln[si, n, slot] = num
+                        relabelled.setdefault(si, set()).add(int(n))
+                    labels_dirty[si] = True
                 else:
                     raise ValueError(f"unknown perturbation op {pt.op!r}")
         # Injected PreferNoSchedule taints re-enable the taint score row
@@ -150,11 +210,126 @@ class ScenarioSet:
             for sc in scenarios
             for pt in sc.perturbations
         )
+        dirty = np.nonzero(labels_dirty)[0]
+        nd, ndom = _rank_domains(ec, lk, lv, dirty)
+        #: the count planes' domain width (the reference's ``max_domains``)
+        self.max_domains = max(int(ndom.max()) if ndom.size else 1, ec.max_domains, 1)
+        self.labels_dirty = bool(dirty.size)
+        #: relabelled nodes of the scenario that relabels most (DynTables' K)
+        self.relabelled = max((len(v) for v in relabelled.values()), default=0)
+        #: does a relabel move a node's domain under a hostname-scale key?
+        self.host_changed = _host_scale_changed(ec, lk, lv, relabelled)
+        #: [S] the label row of each scenario (0: the base cluster's)
+        self.lrow_host = np.zeros(S, np.int32)
+        self.lrow_host[dirty] = np.arange(1, dirty.size + 1, dtype=np.int32)
+        #: [L, T, N] / [L, T] the node domains and domain counts of each row
+        self.node_domain = np.concatenate([ec.node_domain[None], nd[dirty]])
+        self.num_domains = np.concatenate([ec.num_domains[None], ndom[dirty]])
+        self._label_rows = [(None, None, None)] + [
+            ((lk[s], lv[s], ln[s]), nd[s], ndom[s]) for s in dirty.tolist()]
+        self._ec, self._alloc, self._taints = ec, alloc, (tk, tv, te)
+        self.to(device)
+
+    def to(self, device) -> "ScenarioSet":
+        """(Re)place the stacked tables on ``device``."""
         t = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=device)
-        self.alloc = t(alloc.astype(np.float32))
-        self.taint_key = t(tk)
-        self.taint_kv = t(tv)
-        self.taint_effect = t(te)
+        self.alloc = t(self._alloc.astype(np.float32))
+        self.taint_key, self.taint_kv, self.taint_effect = (t(a) for a in self._taints)
+        self.lrow = t(self.lrow_host)
+        self._labels = None
+        self._device = device
+        return self
+
+    def labels(self) -> dict:
+        """The DevCluster label fields of the batch on its device:
+        ``expr_match [L, N, E]``, ``gdom [L, G, N]``, ``gnd`` / ``sp_w [L,
+        G]`` and ``lrow [S]``."""
+        if self._labels is None:
+            self._labels = dict(ref.label_tables(self._ec, self._label_rows, self._device),
+                                lrow=self.lrow)
+        return self._labels
+
+    def outside_envelope(self, preemption: bool, fork_checkpoint, pods: EncodedPods
+                         ) -> List[str]:
+        """Why a relabelled batch falls outside the reference's DynTables
+        envelope (sim/whatif.py:807-862), in its words; empty inside it."""
+        reasons = []
+        if self.relabelled == 0:
+            reasons.append("no DynTables")
+        else:
+            if self.host_changed:
+                reasons.append("host-scale topology change")
+            if self.relabelled > MAX_RELABELLED:
+                reasons.append(f">{MAX_RELABELLED} perturbed nodes/scenario "
+                               f"(K={self.relabelled})")
+        if preemption:
+            reasons.append("preemption")
+        if fork_checkpoint is not None:
+            reasons.append("fork checkpoint")
+        if bool((pods.bound_node >= 0).any()):
+            reasons.append("pre-bound pods")
+        return reasons
+
+
+def _key_values(lk: np.ndarray, lv: np.ndarray, kid: int) -> np.ndarray:
+    """[..., N] the kv id of key ``kid`` on each node of the ``[..., N,
+    slots]`` label arrays, -1 where the node lacks the key."""
+    is_k = lk == kid
+    slot = is_k.argmax(axis=-1)
+    return np.where(is_k.any(axis=-1),
+                    np.take_along_axis(lv, slot[..., None], -1)[..., 0], -1)
+
+
+def _rank_domains(ec: EncodedCluster, lk: np.ndarray, lv: np.ndarray, dirty: np.ndarray):
+    """(node_domain [S, T, N], num_domains [S, T]): the base cluster's,
+    re-derived in the ``dirty`` scenarios as the dense ranks of the values
+    present under each topology key, ordered by the value string (the
+    reference's v2 re-derivation, sim/whatif.py:142-190)."""
+    S = lk.shape[0]
+    vocab = ec.vocab
+    nd = np.repeat(ec.node_domain[None], S, axis=0).copy()
+    ndom = np.repeat(ec.num_domains[None], S, axis=0).copy()
+    if not dirty.size:
+        return nd, ndom
+    n_kv = len(vocab.kvs)
+    for ti, tkey in enumerate(vocab.topo_keys):
+        kid = vocab._k.get(tkey)
+        if kid is None:
+            continue
+        # Each kv id's position among this key's values in string order.
+        kv_of_key = sorted((i for i in range(n_kv) if vocab.kvs[i][0] == tkey),
+                           key=lambda i: vocab.kvs[i][1])
+        gpos = np.full(n_kv + 1, -1, np.int64)
+        gpos[kv_of_key] = np.arange(len(kv_of_key))
+        vals = _key_values(lk[dirty], lv[dirty], kid)  # [Sd, N]
+        g = np.where(vals >= 0, gpos[np.clip(vals, 0, n_kv)], -1)
+        for row, si in zip(g, dirty):
+            present = row >= 0
+            uniq = np.unique(row[present])
+            out = np.full(ec.num_nodes, PAD, np.int32)
+            out[present] = np.searchsorted(uniq, row[present]).astype(np.int32)
+            nd[si, ti] = out
+            ndom[si, ti] = len(uniq)
+    return nd, ndom
+
+
+def _host_scale_changed(ec: EncodedCluster, lk: np.ndarray, lv: np.ndarray,
+                        relabelled: Dict[int, set]) -> bool:
+    """Does a relabelled node change its value (so its domain) under a
+    topology key of more than DMAX_COARSE base domains (the reference's
+    ``host_changed``, sim/whatif.py:352-360)?"""
+    vocab = ec.vocab
+    for ti, tkey in enumerate(vocab.topo_keys):
+        kid = vocab._k.get(tkey)
+        if kid is None or int(ec.num_domains[ti]) <= DMAX_COARSE:
+            continue
+        for si, nodes in relabelled.items():
+            n = np.array(sorted(nodes))
+            new = _key_values(lk[si, n], lv[si, n], kid)
+            old = _key_values(ec.node_label_key[n], ec.node_label_kv[n], kid)
+            if (new != old).any():
+                return True
+    return False
 
 
 @dataclass
@@ -234,13 +409,25 @@ class WhatIfEngine(ChunkEngine):
         scenarios = list(scenarios)
         mode = tier_preemption(preemption)
         rb = check_retry_buffer(retry_buffer)
+        sset = ScenarioSet(ec, scenarios)
+        self.engine = "v3"
+        if sset.labels_dirty:
+            reasons = sset.outside_envelope(mode, fork_checkpoint, pods)
+            if reasons:
+                # The reference's v2 fallback: the same kernels run the
+                # batch here; completions follow the reference's gate below.
+                self.engine = "v2"
+                log.info("what-if: labels_dirty batch outside the DynTables envelope (%s) — "
+                         "the v2 fallback engine; WhatIfResult.engine reports it",
+                         ", ".join(reasons))
         if rb and (not completions_gate(pods, completions) or collect_assignments or mode
-                   or fork_checkpoint is not None):
+                   or fork_checkpoint is not None or sset.labels_dirty):
             raise ValueError(
                 "retry_buffer requires the device-release completions path (finite durations, "
-                "completions on, no collect_assignments, tier preemption or fork checkpoint)"
+                "completions on, no collect_assignments, tier preemption or fork checkpoint) "
+                "without label-perturbation DynTables"
             )
-        if mode and (engine != "v3" or fork_checkpoint):
+        if mode and (engine != "v3" or self.engine != "v3" or fork_checkpoint):
             raise ValueError(
                 "what-if preemption requires the v3 engine (no label perturbations) and no "
                 "fork checkpoint"
@@ -270,18 +457,57 @@ class WhatIfEngine(ChunkEngine):
         self.telemetry = resolve_granularity(telemetry)
         device = resolve_device(device)
         self.collect_assignments = bool(collect_assignments)
-        self.engine = "v3"
         spec = StepSpec.from_config(ec, config, pods)
-        self.sset = ScenarioSet(ec, scenarios, device=device)
-        if self.sset.injected_prefer_taint and not spec.taint_score:
+        completions = self._completions_gate(ec, pods, completions, sset, spec)
+        self.sset = sset.to(device)
+        if sset.injected_prefer_taint and not spec.taint_score:
             spec = dc_replace(spec, taint_score=True)
-        cluster = ref.cluster_to(ec, device)._replace(
-            allocatable=self.sset.alloc, taint_key=self.sset.taint_key,
-            taint_kv=self.sset.taint_kv, taint_effect=self.sset.taint_effect,
+        cluster = ref.cluster_to(ec, device, sset.num_scenarios)._replace(
+            allocatable=sset.alloc, taint_key=sset.taint_key, taint_kv=sset.taint_kv,
+            taint_effect=sset.taint_effect,
         )
+        domains = None
+        if sset.labels_dirty:
+            labels = sset.labels()
+            cluster = cluster._replace(**labels)
+            # The relabelled rows' spread weights may exceed the bound of
+            # the f32 normalize division (sim/whatif.py:900-913).
+            w_max = tuple(float(x) for x in labels["sp_w"].amax(dim=0).cpu())
+            if spec.sp_norm_f32 and not _spread_norm_f32_ok(w_max, pods):
+                spec = dc_replace(spec, sp_norm_f32=False)
+            domains = (sset.node_domain, sset.num_domains, sset.lrow_host, sset.max_domains)
         self.preemption = mode
-        self._prepare(ec, pods, spec, cluster, self.sset.num_scenarios, wave_width, chunk_waves,
-                      completions, granularity_guard, "what-if engine", device, plain, mode, rb)
+        self._prepare(ec, pods, spec, cluster, sset.num_scenarios, wave_width, chunk_waves,
+                      completions, granularity_guard, "what-if engine", device, plain, mode, rb,
+                      domains)
+
+    def _completions_gate(self, ec: EncodedCluster, pods: EncodedPods,
+                          completions: Optional[bool], sset: ScenarioSet, spec: StepSpec
+                          ) -> Optional[bool]:
+        """The reference's gate for a relabelled batch (sim/whatif.py:940-1000):
+        completions cannot be honoured on the v2 fallback, nor on a DynTables
+        batch off the device-release path (``collect_assignments``, or
+        count planes of non-singleton host-scale rows). Such a batch warns
+        and runs arrivals-only, or raises under ``completions=True``.
+        Returns the ``completions`` argument the chunk loop takes."""
+        if self.engine != "v3":
+            blocker = ("the v2 fallback engine (label perturbations outside the DynTables "
+                       "envelope)")
+        elif sset.labels_dirty and (self.collect_assignments or nonsingleton_host_rows(
+                ec, pods, spec.interpod, spec.spread)):
+            why = ("collect_assignments" if self.collect_assignments
+                   else "non-singleton host-scale count planes")
+            blocker = (f"labels_dirty DynTables batches off the device-release path ({why} — "
+                       "per-scenario release domain corrections need the device path)")
+        else:
+            return completions
+        if completions is not False and bool(np.isfinite(release_times(pods)).any()):
+            msg = (f"what-if completions cannot be honored with {blocker} — this batch runs "
+                   "ARRIVALS-ONLY (placed pods never release resources)")
+            if completions is True:
+                raise ValueError(msg)
+            warnings.warn(msg, stacklevel=3)
+        return False
 
     def _utilization_cpu(self, tb: ref.Tables) -> Optional[np.ndarray]:
         """[S] mean over nodes of used/allocatable cpu (0 where a node has

@@ -46,7 +46,7 @@ def test_kernels_equal_twins(card, seed):
     ec, ep = _case(seed, gang_fraction=0.1, gang_size=3)
     consts = StepSpec.from_config(ec, FrameworkConfig(), ep).consts()
     cl, pods = ref.cluster_to(ec, card), ref.pods_to(ep, card)
-    G, D = cl.gdom.shape[0], max(ec.max_domains, 1)
+    G, D = cl.gdom.shape[1], max(ec.max_domains, 1)
     z = lambda *s: torch.zeros(s, dtype=torch.float32, device=card)
     st_k = ref.DevState(z(1, ec.num_nodes, ec.num_resources), z(1, G, D), z(1, G, D),
                         z(1, G, D))
@@ -331,3 +331,47 @@ def test_retry_kernel_path_equals_plain_path(card):
         np.testing.assert_array_equal(runs[0][0], a)
         np.testing.assert_array_equal(runs[0][1], placed)
         cs.same_records("what-if", runs[0][2], r)
+
+
+def test_label_kernels_equal_twins(card):
+    """K1 and K3 with label rows, launch by launch over a whole S=4
+    what-if whose scenarios read four rows — the base, a zone move, a new
+    zone and a tier flip: scratch rows, choices and state after every K1,
+    K2, bind, release and rollback equal the twins'."""
+    from kubernetes_simulator_tpu_torch.sim.torch_runtime import new_choices
+    from kubernetes_simulator_tpu_torch.sim.whatif import Perturbation, Scenario, WhatIfEngine
+
+    cs = _chip_smoke()
+    ec, ep = _case(9, nodes=40, pods=600, duration_mean=3.0, arrival_rate=50.0,
+                   gang_fraction=0.1, gang_size=3)
+    zone = "topology.kubernetes.io/zone"
+    scen = [Scenario(),
+            Scenario([Perturbation("set_label", nodes=np.arange(0, 12), key=zone,
+                                   value="zone-3")]),
+            Scenario([Perturbation("set_label", nodes=np.arange(5, 20, 2), key=zone,
+                                   value="zone-new")]),
+            Scenario([Perturbation("set_label", nodes=np.arange(1, 30, 3), key="tier",
+                                   value="hot")])]
+    eng = WhatIfEngine(ec, ep, scen, FrameworkConfig(), wave_width=4, chunk_waves=8,
+                       device=card)
+    tb_k = eng._tables()
+    assert tb_k.cluster.gdom.shape[0] == 4 and tb_k.cluster.lrow.tolist() == [0, 1, 2, 3]
+    tb_t = cs.clone_tables(tb_k)
+    ch_k = new_choices(eng.plan, 4, eng.pods.bound_node, card)
+    ch_t = ch_k.clone()
+    n = cs.lockstep("S=4 label rows", eng.plan, tb_k, tb_t, ch_k, ch_t, 0,
+                    eng.plan.idx.shape[0], card)
+    assert n["binds"] and n["static_release"] and n["rollbacks"]
+    assert len({r.tobytes() for r in ch_k.cpu().numpy()}) == 4
+
+
+def test_label_kernel_path_equals_plain_path(card):
+    """The reduced relabel what-if (chip_smoke.check_reduced_relabel: 8
+    scenarios x 60 nodes x 3,000 pods) on the kernel path equals the plain
+    path on the card and on the CPU, with the kernels launched."""
+    cs = _chip_smoke()
+    K.reset_launch_counts()
+    results = {}
+    cs.check_reduced_relabel(results, dev=card)
+    assert all(K.launch_counts()[k] > 0 for k in PATH_KERNELS)
+    assert len(results["reduced_relabel"]["scenarios_moved"]) == 7

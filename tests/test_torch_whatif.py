@@ -291,8 +291,7 @@ def _tiny():
      (dict(_dcn_recovery={"block": (0, 1)}), "queue A item 11"),
      (dict(telemetry="series"), "queue A item 6"),
      (dict(engine="v2"), "queue B item 2"),
-     ("events", "queue A item 7"),
-     ("set_label", "queue A item 7")],
+     ("events", "queue A item 7")],
     ids=lambda v: v if isinstance(v, str) else None,
 )
 def test_engine_refuses_later_modes_by_queue_item(kw, item):
@@ -301,12 +300,18 @@ def test_engine_refuses_later_modes_by_queue_item(kw, item):
     if kw == "events":
         scen[1].events = [object()]
         kw = {}
-    elif kw == "set_label":
-        scen[1].perturbations = [T.Perturbation("set_label", nodes=np.arange(2), key="zone",
-                                                value="z9")]
-        kw = {}
     with pytest.raises(NotImplementedError, match=item):
         T.WhatIfEngine(ec, ep, scen, device="cpu", **kw)
+
+
+def test_set_label_batch_runs():
+    """``set_label`` is ported (tests/test_torch_labels_whatif.py holds it
+    against the reference): a batch that relabels nodes runs."""
+    ec, ep = _tiny()
+    scen = [T.Scenario(), T.Scenario([T.Perturbation(
+        "set_label", nodes=np.arange(2), key="topology.kubernetes.io/zone", value="z9")])]
+    res = T.WhatIfEngine(ec, ep, scen, device="cpu", collect_assignments=True).run()
+    assert res.engine == "v3" and res.placed.tolist() == [6, 6]
 
 
 def test_default_device_is_cuda_and_raises_without_a_card(monkeypatch):

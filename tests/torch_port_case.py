@@ -75,7 +75,7 @@ def scenario_tables(seed=6):
     pods = ref.pods_to(ep, "cpu")
     planes = (st.used, st.match_count, st.anti_active, st.pref_wsum)
     batched = ref.Tables(
-        base._replace(allocatable=ss.alloc, taint_key=ss.taint_key, taint_kv=ss.taint_kv,
+        ref.cluster_to(ec, "cpu", 3)._replace(allocatable=ss.alloc, taint_key=ss.taint_key, taint_kv=ss.taint_kv,
                       taint_effect=ss.taint_effect),
         pods, ref.stacked_state(*planes, 3, "cpu"), ref.new_scratch(3, ec.num_nodes, "cpu"),
         consts)
