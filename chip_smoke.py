@@ -15,7 +15,7 @@ From the root of a checkout, on a host with one CUDA card. In order:
 4. the same checks at S=4 and N=5,000, with scenarios whose allocatable
    and taints differ (node loss, capacity changes, hard and soft injected
    taints), scenario by scenario;
-5. replays a reduced case (300 nodes, 3,000 pods, completions and gangs)
+5. replays a reduced case (300 nodes, 2,000 pods, completions and gangs)
    through the kernel path, the plain path on the card and the plain path
    on the CPU: assignments must be identical;
 6. runs a reduced what-if (8 scenarios × 60 nodes × 3,000 pods,
@@ -78,7 +78,7 @@ From the root of a checkout, on a host with one CUDA card. In order:
    against the twins plane by plane, and each retry mode timed beside
    its twin and its least time;
 16. label perturbations (``set_label``), reduced: 8 scenarios x 60 nodes x
-   3,000 pods (durationMean 60, gangs) — a move to an existing zone with a
+   2,000 pods (durationMean 60, gangs) — a move to an existing zone with a
    capacity cut, a new zone, emptying a singleton zone, a node gaining the
    key, a taint-only scenario, a tier flip, and a new zone beside uniform
    perturbations — on the kernel path, the plain path on the card and the
@@ -101,7 +101,29 @@ From the root of a checkout, on a host with one CUDA card. In order:
 19. outside the envelope: 16 scenarios over the headline trace, each
    moving a whole zone (250 nodes) into the next, completions off —
    engine "v2", completions off, scenario 1 equal to its from-scratch
-   replay, and the wall.
+   replay, and the wall;
+20. series telemetry, reduced: CONFIG6's trace cut to 20 nodes x 1,040
+   pods with devicePreemption off at ``series`` on the kernel path, the
+   plain path on the card and on the CPU (reasons, attempts, series and
+   latency identical; step 12's replay runs at ``timeline`` and holds its
+   telemetry and events the same way), and ``run`` through the port's CLI
+   with ``timelineOut`` on CONFIG7's 40-node cut on the card and on the
+   CPU: rows and Chrome traces identical;
+21. series telemetry at full width (the slice's main path), counters zeroed
+   just before each run and read just after: (a) CONFIG6's trace with
+   devicePreemption off at ``series`` (the plain path, K5 after every
+   slot's K2) against REJECT_PINS, with sum(reasons) = 500 x unschedulable
+   and attempts = reasons; (b) CONFIG7 as shipped through the CLI ``run``
+   with ``telemetry: series`` and ``timelineOut`` (the retry path: K5 in
+   the retry pass and as the chunk fold), its row, events and the Chrome
+   trace's sha256 against REJECT_PINS; (c) the 150-node cut at
+   ``timeline`` against REJECT_PINS and RETRY_PINS; the walls of (a) and
+   (b) beside ``summary`` on the same trace, and their busy shares;
+   CONFIG6 as shipped (tier preemption) at ``series`` logging the
+   reference's note and placing as PREEMPT_PINS; K5 held against its twin
+   launch by launch in a window of (a) at S = 1, at a fold and a retry
+   pass of (c) at S = 1 and of CONFIG7's 40-node cut at S = 4, and timed
+   per launch on the plain path and as a fold.
 
 Prints the kernel table as one JSON line, then, as its last line,
 ``{"ok": true, "device": {...}}``. Any failed check raises (exit code not
@@ -114,6 +136,7 @@ import copy
 import dataclasses
 import hashlib
 import json
+import logging
 import os
 import subprocess
 import sys
@@ -150,6 +173,10 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 F32_OPS_PER_S = 67e12  # H100 SXM f32 rate outside the tensor cores
 SEED = 0
 HEADLINE = dict(scenarios=128, nodes=2000, pods=20_000, chunk_waves=512)
+#: Pods of the reduced replay and relabel what-if held on three paths
+#: (3,000 before the series steps were added; the plain path on the card
+#: costs ≈6 ms a pod slot).
+REDUCED_PODS = 2000
 
 #: Tier preemption (devicePreemption: true): priority tiers contending for
 #: an over-committed cluster (500 nodes, 26,000 pods, tiers {0, 100, 1000}).
@@ -211,6 +238,34 @@ LABEL_PINS = {
     "tier_hot": dict(placed=5000,
                      sha256="a79b6b8535701a50c8379ee886c7680f9fc6a1662f0c7cb7addebf66392b5e86"),
 }
+#: Series telemetry: JaxReplayEngine of the JAX package at "series" on
+#: CONFIG6's trace with devicePreemption off (the plain path) and at
+#: "timeline" on CONFIG7 as shipped (what its ``run`` with timelineOut
+#: collects; the retry path) and on its 150-node cut: reasons, rejection
+#: attempts, the sha256 of the series and of the events (series_digest),
+#: and of CONFIG7's Chrome trace. tests/test_torch_telemetry_pins.py
+#: recomputes them.
+REJECT_PINS = {
+    "config6": dict(
+        reasons={"NodeResourcesFit": 4336494, "TaintToleration": 6},
+        attempts={"NodeResourcesFit": 4336494, "TaintToleration": 6},
+        series_sha256="c8cfe5588fd62c1a70a6ee2306d9d67e30484c1da161954f7f5be9b6e3eba2e3",
+        events_sha256="4f53cda18c2baa0c0354bb5f9a3ecbe5ed12ab4d8e11ba873c2f11161202b945"),
+    # Barely contended: nothing is attributed; the series and the 20,000
+    # bind events are what is held.
+    "config7": dict(
+        reasons={}, attempts={},
+        series_sha256="5441f22a027f60a57256d9e1908fb0be6064a838de1888063b326624b2e2eced",
+        events_sha256="5db02611b38a016989994bec2c9e449e6cadf575d1351b2560cf23341265118d",
+        trace_sha256="a41735ff2f68e1836e63046c3b7f7cbdd2fd38dc34237a0c48965a50d20245f5"),
+    # Every buffer overflows, yet nothing is attributed: each failed slot
+    # had a feasible node at its chunk's start, and every retried pod
+    # bound at its first retry.
+    "cut150": dict(
+        reasons={}, attempts={},
+        series_sha256="29c455faffeee6e77be4fd80a9ef494be129ef922ffac32d654add7d380eec2d",
+        events_sha256="ba78c540117c3aaf31037d69f40d07911a22972a00b71bcae917b35edda0d508"),
+}
 #: The outside-the-envelope batch: scenario s moves all nodes of zone
 #: s mod 8 into zone s+1 mod 8 (250 nodes: K > 32, the reference's v2).
 OUTSIDE_SCENARIOS = 16
@@ -224,6 +279,15 @@ SOURCES = {
                          "kubernetes_simulator_tpu/sim/jax_runtime.py:1414"),
     "retry_boundary": ("kubernetes_simulator_tpu_torch/csrc/retry_boundary.cu",
                        "kubernetes_simulator_tpu/sim/whatif.py:1456"),
+    "first_reject": ("kubernetes_simulator_tpu_torch/csrc/first_reject.cu",
+                     "kubernetes_simulator_tpu/ops/tpu.py:816"),
+}
+#: K5's modes, each with the reference lines it replaces: the plain path's
+#: per-slot attribution (make_wave_step_rej) and the retry path's chunk
+#: fold (sim/boundary.py fold_chunk).
+SERIES_SOURCES = {
+    "first_reject": "kubernetes_simulator_tpu/ops/tpu.py:816",
+    "first_reject_fold": "kubernetes_simulator_tpu/sim/boundary.py:373",
 }
 #: The kernels' retry-buffer work, each with the kernel it runs in and the
 #: reference lines it replaces.
@@ -270,10 +334,22 @@ def case(nodes, pods, seed=SEED, duration_mean=50.0, gang_fraction=0.02):
     return encode(cluster, workload)
 
 
-def time_cuda(fn, iters):
-    """Mean ms of ``fn(i)`` over ``iters`` calls, by CUDA events after a
-    warm-up."""
-    for i in range(3):
+#: Wall of each step of the script since the previous ``mark`` (seconds),
+#: into ``chip_smoke.json``'s ``step_s``.
+STEP_S = {}
+_last_mark = [time.perf_counter()]
+
+
+def mark(step):
+    now = time.perf_counter()
+    STEP_S[step] = now - _last_mark[0]
+    _last_mark[0] = now
+
+
+def time_cuda(fn, iters, warm=3):
+    """Mean ms of ``fn(i)`` over ``iters`` calls, by CUDA events after
+    ``warm`` warm-up calls."""
+    for i in range(warm):
         fn(i)
     torch.cuda.synchronize()
     a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -443,6 +519,29 @@ class Work:
                           + len(exprs) + len(looked_up) * 4 + 16)
         return nbytes, nops
 
+    def k5(self, pods, failed):
+        """(bytes, ops) of K5 over one launch's slots: ``pods`` [S, M] the
+        slots' pods (PAD: a padded slot) and ``failed`` [S, M] the slots
+        whose gate is PAD (their Filter chain runs: K1's mask reads, no
+        score row written; a charge writes its [K] counts twice and the
+        episode mark); every slot reads its pod and gate."""
+        pods = np.asarray(pods, np.int64).reshape(self.S, -1)
+        failed = np.asarray(failed, bool).reshape(pods.shape)
+        K_ = sum(map(bool, (self.k.fit, self.k.taints, self.k.node_affinity, self.k.interpod,
+                            self.k.spread)))
+        nbytes, nops = pods.size * 8, 0
+        for m in range(pods.shape[1]):
+            col = np.where(failed[:, m] & (pods[:, m] >= 0), pods[:, m], PAD)
+            act = int((col >= 0).sum())
+            if not act:
+                continue
+            nb, no = self.k1_scen(col)
+            nbytes += (nb - act * self.N * (1 + self.rows_on * 4 + int(self.k.on_sp))
+                       - (col.size - act) * self.N * (2 + ref.NUM_ROWS * 4)
+                       + act * (K_ * 8 + 1))
+            nops += no
+        return nbytes, nops
+
     def k2(self):
         """(bytes, ops) of K2 for one slot over all S scenarios."""
         return self.k2_scen(self.S)
@@ -483,6 +582,49 @@ class Work:
                  .astype(np.int64), np.concatenate([g0, g1, g2]).astype(np.int64))
             self._k3_terms[p] = t
         return t
+
+    def k3_binds(self, pods, assignments, block=256):
+        """[(bytes, ops)] of the main-path bind of each of ``pods`` (one pod
+        a launch) at its nodes ``assignments[:, p]``: :meth:`k3` of ``[p]``
+        for every pod, counted block by block over the pods at once."""
+        ep, N, R, G, D, S = self.ep, self.N, self.R, self.G, self.D, self.S
+        AA, PA = ep.anti_req.shape[1], ep.pref_aff.shape[1]
+        GM = ep.pod_matches_group.shape[1]
+        fixed = 4 + 4 + S * 4 + S * 4 + R * 4 + G + AA * 4 + PA * 8
+        lrow = self.lrow if self.lrow.size == S else np.zeros(S, np.int64)
+        gspan, cspan = self.gdom.shape[0] * G * N, S * 3 * G * D
+        pods = np.asarray(pods, np.int64)
+        out = []
+        for a in range(0, pods.size, block):
+            p = pods[a : a + block]
+            B = p.size
+            nodes = np.asarray(assignments[:, p], np.int64)  # [S, B]
+            placed = nodes >= 0
+            n_s = placed.sum(axis=0)
+            nbytes = fixed + n_s * R * 8  # used rows, read and written
+            if self.pod_tier is not None:  # non-gang pairs' tier cells
+                nbytes = nbytes + np.where(ep.group_id[p] < 0, n_s * (R + 1) * 8, 0)
+            # The pods' (plane, group) terms (Work._terms), padded.
+            pl = np.concatenate([np.zeros((B, GM)), np.ones((B, AA)), np.full((B, PA), 2)],
+                                axis=1).astype(np.int64)
+            g = np.concatenate([np.broadcast_to(np.arange(GM), (B, GM)), ep.anti_req[p],
+                                ep.pref_aff[p]], axis=1).astype(np.int64)
+            tmask = np.concatenate([ep.pod_matches_group[p] != 0, ep.anti_req[p] >= 0,
+                                    ep.pref_aff[p] >= 0], axis=1)
+            s_i, b_i, t_i = np.nonzero(placed[:, :, None] & tmask[None])
+            gg, pp, nn = g[b_i, t_i], pl[b_i, t_i], nodes[s_i, b_i]
+            lr = lrow[s_i]
+            gcells = np.bincount(np.unique(b_i * gspan + (lr * G + gg) * N + nn) // gspan,
+                                 minlength=B)  # gdom cells, shared by a row
+            dom = self.gdom[lr, gg, nn]
+            live = dom >= 0
+            cell = ((s_i[live] * 3 + pp[live]) * G + gg[live]) * D + dom[live]
+            pcells = np.bincount(np.unique(b_i[live] * cspan + cell) // cspan,
+                                 minlength=B)  # plane cells, read and written
+            nbytes = nbytes + gcells * 4 + pcells * 8
+            ops = n_s * R + np.bincount(b_i[live], minlength=B)
+            out.extend(zip(nbytes.tolist(), ops.tolist()))
+        return out
 
     def k3(self, pods, nodes, rollback=False):
         """(bytes, ops) of K3 applying pods[k] (or, per scenario, pods[s, k])
@@ -552,7 +694,7 @@ class Work:
         wave_pods = plan.idx[plan.idx >= 0]
         k1 = sum(bound(*self.k1(int(p)))[0] for p in wave_pods)
         k2 = wave_pods.size * bound(*self.k2())[0]
-        binds = sum(bound(*self.k3([p], assignments[:, p]))[0] for p in wave_pods.tolist())
+        binds = sum(bound(nb, no)[0] for nb, no in self.k3_binds(wave_pods, assignments))
         pad = lambda w: np.full((S, w.size), PAD)
         rollbacks = sum(bound(*self.k3(w, pad(w), rollback=True))[0]
                         for w in plan.idx[plan.gang_wave])
@@ -816,7 +958,8 @@ def check_kernels_s4(ec, ep, results, dev):
 def check_reduced_replay(results, dev="cuda"):
     """Step 5: kernel path == plain path on the card == plain path on the
     CPU, on a trace where completions change the placements."""
-    ec, ep = case(300, 3000, duration_mean=20.0, gang_fraction=0.05)
+    nodes, pods = 300, REDUCED_PODS
+    ec, ep = case(nodes, pods, duration_mean=20.0, gang_fraction=0.05)
     kw = dict(wave_width=8, chunk_waves=64)
     t0 = time.perf_counter()
     kern = TorchReplayEngine(ec, ep, FrameworkConfig(), device=dev, **kw).replay()
@@ -838,10 +981,10 @@ def check_reduced_replay(results, dev="cuda"):
     moved = int((off.assignments != kern.assignments).sum())
     if kern.placed <= 0 or moved == 0:
         raise AssertionError("reduced replay placed nothing or completions changed nothing")
-    results["reduced"] = dict(nodes=300, pods=3000, placed=kern.placed,
+    results["reduced"] = dict(nodes=nodes, pods=pods, placed=kern.placed,
                               unschedulable=kern.unschedulable, moved_by_completions=moved,
                               kernel_s=t1 - t0, plain_card_s=t2 - t1, plain_cpu_s=t3 - t2)
-    print(f"reduced replay (300 nodes, 3000 pods): placed {kern.placed}, identical on the "
+    print(f"reduced replay ({nodes} nodes, {pods} pods): placed {kern.placed}, identical on the "
           f"kernel path, the plain path on the card and on the CPU "
           f"({t1 - t0:.2f}s / {t2 - t1:.2f}s / {t3 - t2:.2f}s); completions move "
           f"{moved} assignments", flush=True)
@@ -1296,11 +1439,14 @@ def run_preempt_paths(results, dev):
           f"placements/s, placed {warm.placed}, {warm.preemptions} victims (== greedy_replay's "
           f"pins); launches {json.dumps(launches)}; profiled: wall {res_p.wall_clock_s:.3f}s, "
           f"device busy {busy_s:.3f}s ({busy_s / res_p.wall_clock_s:.1%})", flush=True)
+    mark("10 config6 replays")
     held1 = hold_preempt("S=1 preemption kernel checks (config6)", eng, 300, dev, results)
+    mark("10 config6 hold")
     results["chunk_loop_bound_ms_config6"] = Work(ep, eng._tables()).chunk_loop_ms(
         eng.plan, warm.assignments[None], launches, evictions=held1["wave_victims"])
     print(f"config6 chunk-loop bound (B6): "
           f"{json.dumps(results['chunk_loop_bound_ms_config6'])} ms", flush=True)
+    mark("10 config6 B6 bound")
     results["kernels_preempt_s1"] = time_preempt(eng, held1, dev)
     del eng, warm, runs, res_p, held1
 
@@ -1351,12 +1497,15 @@ def run_preempt_paths(results, dev):
           f"scenario 0 == greedy_replay's pins == the single replay ({single.wall_clock_s:.3f}s); "
           f"launches {json.dumps(launches)}; profiled: wall {res_p.wall_clock_s:.3f}s, device "
           f"busy {busy_s:.3f}s ({busy_s / res_p.wall_clock_s:.1%})", flush=True)
+    mark("11 tier what-if runs")
     held = hold_preempt(f"S={pw['scenarios']} preemption kernel checks (what-if shape)", eng,
                         300, dev, results)
+    mark("11 tier what-if hold")
     results["chunk_loop_bound_ms_preempt_whatif"] = Work(ep, eng._tables()).chunk_loop_ms(
         eng.plan, warm.assignments, launches, evictions=held["wave_victims"])
     print(f"tier-preemption what-if chunk-loop bound (B6): "
           f"{json.dumps(results['chunk_loop_bound_ms_preempt_whatif'])} ms", flush=True)
+    mark("11 tier what-if B6 bound")
     kernels = time_preempt(eng, held, dev)
     results["kernels_preempt"] = kernels
     print(f"preemption kernels at S={pw['scenarios']}, N={ec.num_nodes}: "
@@ -1370,14 +1519,9 @@ def run_preempt_paths(results, dev):
 # ---------------------------------------------------------------------------
 
 
-def config7_case(nodes=None, pods=None):
-    """(SimConfig, EncodedCluster, EncodedPods) of CONFIG7 as the port's
-    config parses it (500 nodes, 20,000 pods, durationMean 40, affinity,
-    spread, tolerations, retryBuffer 256, chunkWaves 256); ``nodes`` /
-    ``pods`` cut it."""
+def config7_dict(nodes=None, pods=None):
+    """CONFIG7's YAML as a dict; ``nodes`` / ``pods`` cut it."""
     import yaml
-
-    from kubernetes_simulator_tpu_torch.utils.config import SimConfig, build_encoded_case
 
     with open(os.path.join(ROOT, CONFIG7)) as f:
         d = yaml.safe_load(f)
@@ -1385,7 +1529,17 @@ def config7_case(nodes=None, pods=None):
         d["cluster"]["synthetic"]["nodes"] = nodes
     if pods:
         d["workload"]["synthetic"]["pods"] = pods
-    cfg = SimConfig.from_dict(d)
+    return d
+
+
+def config7_case(nodes=None, pods=None):
+    """(SimConfig, EncodedCluster, EncodedPods) of CONFIG7 as the port's
+    config parses it (500 nodes, 20,000 pods, durationMean 40, affinity,
+    spread, tolerations, retryBuffer 256, chunkWaves 256); ``nodes`` /
+    ``pods`` cut it."""
+    from kubernetes_simulator_tpu_torch.utils.config import SimConfig, build_encoded_case
+
+    cfg = SimConfig.from_dict(config7_dict(nodes, pods))
     return (cfg,) + tuple(build_encoded_case(cfg))
 
 
@@ -1420,7 +1574,7 @@ def check_reduced_retry(results, dev="cuda"):
     runs, walls = [], []
     for o in (dict(device=dev), dict(device=dev, plain=True), dict(device="cpu")):
         t0 = time.perf_counter()
-        eng = TorchReplayEngine(ec, ep, cfg.framework, **kw, **o)
+        eng = TorchReplayEngine(ec, ep, cfg.framework, telemetry="timeline", **kw, **o)
         r = eng.replay()
         walls.append(time.perf_counter() - t0)
         runs.append((r, retry_records(eng.last_tables)))
@@ -1431,6 +1585,11 @@ def check_reduced_retry(results, dev="cuda"):
             raise AssertionError(f"reduced retry replay: kernel path != {name} at pods "
                                  f"{diff[:5]}")
         same_records(f"reduced retry replay vs {name}", rec, orec)
+        if (series_digest(kern.telemetry) != series_digest(other.telemetry)
+                or kern.telemetry.latency != other.telemetry.latency):
+            raise AssertionError(f"reduced retry replay: telemetry != {name}")
+    if sum(kern.telemetry.rejection_attempts.values()) <= sum(kern.telemetry.reasons.values()):
+        raise AssertionError("reduced retry replay: no retry-pass attempt was attributed")
     off_replay = TorchReplayEngine(ec, ep, cfg.framework, wave_width=cfg.wave_width,
                                    chunk_waves=32, device=dev).replay().placed
     if kern.retry_dropped <= 0 or (rec["rnode"] >= 0).sum() == 0 or off_replay == kern.placed:
@@ -1438,6 +1597,8 @@ def check_reduced_retry(results, dev="cuda"):
                              "change against no retry)")
     results["reduced_retry_replay"] = dict(
         nodes=nodes, pods=pods, placed=kern.placed, retry_dropped=kern.retry_dropped,
+        reasons=kern.telemetry.reasons, attempts=kern.telemetry.rejection_attempts,
+        events=len(kern.telemetry.events),
         retried_binds=int((rec["rnode"] >= 0).sum()), placed_without_retry=off_replay,
         kernel_s=walls[0], plain_card_s=walls[1], plain_cpu_s=walls[2])
     scen = uniform_scenarios(ec, 8, seed=1, p_node_down=0.5, p_capacity=0.5, p_taint=0.5)
@@ -1468,25 +1629,42 @@ def check_reduced_retry(results, dev="cuda"):
           f"{kern.placed} (without retry {off_replay}), {kern.retry_dropped} dropped; what-if "
           f"(8 x {nodes} x {pods}) placed {kp.tolist()}, dropped "
           f"{krec['rdrop'].tolist()}; identical on the kernel path, the plain path on the card "
-          f"and on the CPU, every retry record included", flush=True)
+          f"and on the CPU, every retry record and (replay, timeline) the reasons "
+          f"{json.dumps(kern.telemetry.reasons)}, attempts "
+          f"{json.dumps(kern.telemetry.rejection_attempts)}, series and events included",
+          flush=True)
 
 
 def clone_tables(tb):
     c = lambda nt: None if nt is None else type(nt)(
         *(x.clone() if torch.is_tensor(x) else x for x in nt))
-    return tb._replace(state=c(tb.state), scratch=c(tb.scratch), retry=c(tb.retry))
+    return tb._replace(state=c(tb.state), scratch=c(tb.scratch), retry=c(tb.retry),
+                       reject=c(tb.reject))
+
+
+def clone_series(ser):
+    c = lambda x: x.clone() if torch.is_tensor(x) else x
+    return dataclasses.replace(
+        ser, snap=None if ser.snap is None else ref.DevState(*(x.clone() for x in ser.snap)),
+        used=c(ser.used), rcount=c(ser.rcount), pend=c(ser.pend))
 
 
 def lockstep(where, plan, tb_k, tb_t, ch_k, ch_t, first, end, dev, snap=None,
-             after_bind=None):
+             after_bind=None, ser=None):
     """Waves [first, end) of ``plan`` (as run_waves enqueues them, with the
     retry sequence at each boundary past 0 when the tables have a retry
     buffer) on the kernels over ``tb_k`` and on the twins over ``tb_t``,
     launch by launch: after every launch the scratch rows, the choice
     buffer, the state and every retry table must be equal. ``snap(name, at)`` is called before chosen launches
     (the kernel tables as they stand) and ``after_bind()`` after each
-    main-path bind. Returns the count of each kind of launch (``appends``
-    and ``overflows`` count scenarios)."""
+    main-path bind. With ``ser`` = (kernel Series, twin Series) of a series
+    run (telemetry series), K5 runs where run_waves launches it — after
+    each slot's K2 on the plain path; in each retry-pass slot and as the
+    chunk fold at each boundary (and at the run's end) on the retry path,
+    the chunk-start planes copied at each boundary — and the reject
+    counters are compared after each K5 as well. Returns the count of each
+    kind of launch (``appends``, ``overflows`` and ``k5_charged`` count
+    scenarios)."""
     b_k = K.Bound(tb_k)
     rk, rt = tb_k.retry, tb_t.retry
     RB = rk.rbuf.shape[1] if rk is not None else 0
@@ -1495,10 +1673,29 @@ def lockstep(where, plan, tb_k, tb_t, ch_k, ch_t, first, end, dev, snap=None,
     pos_dev = torch.arange(plan.L, dtype=torch.int32, device=dev)
     pos_rb = torch.arange(RB, dtype=torch.int32, device=dev)
     n = dict(static_release=0, pending_release=0, retry_slots=0, k4=0, binds=0, appends=0,
-             overflows=0, rollbacks=0)
+             overflows=0, rollbacks=0, k5_slot=0, k5_retry=0, k5_fold=0, k5_charged=0)
+    ser_k, ser_t = ser if ser is not None else (None, None)
+    attribute = ser_k is not None and ser_k.attribute
+    fold = attribute and ser_k.fold
+    if fold:
+        snap_k = K.Bound(tb_k._replace(state=ser_k.snap))
+        snap_t = tb_t._replace(state=ser_t.snap)
+
+    def k5(hk, ht, pods_k, pods_t, gate_k, gate_t, key, at):
+        before = tb_k.reject.attempts.clone()
+        (K.first_reject_fold if key == "k5_fold" else K.first_reject)(hk, pods_k, gate_k)
+        ref.first_reject(ht, pods_t, gate_t)
+        same(at)
+        n[key] += 1
+        n["k5_charged"] += int((tb_k.reject.attempts != before).any(dim=1).sum())
+
+    def k5_fold(c, at):
+        cols = slice(c * C * W, (c + 1) * C * W)
+        k5(snap_k, snap_t, idx_dev[cols], idx_dev[cols], ch_k[:, cols], ch_t[:, cols], "k5_fold",
+           at)
 
     def same(at):
-        for part in ("state", "scratch", "retry"):
+        for part in ("state", "scratch", "retry", "reject"):
             x, y = getattr(tb_k, part), getattr(tb_t, part)
             for name in (x._fields if x is not None else ()):
                 if not torch.equal(getattr(x, name), getattr(y, name)):
@@ -1509,6 +1706,8 @@ def lockstep(where, plan, tb_k, tb_t, ch_k, ch_t, first, end, dev, snap=None,
 
     for w in range(first, end):
         b = w // C
+        if fold and w % C == 0 and b > 0:
+            k5_fold(b - 1, f"K5 fold of chunk {b - 1}")
         if w % C == 0 and plan.buckets[b] is not None:
             bp, bpos = (torch.as_tensor(x, device=dev) for x in plan.buckets[b])
             K.apply_placements(b_k, bp, bpos, ch_k, -1.0)
@@ -1532,6 +1731,10 @@ def lockstep(where, plan, tb_k, tb_t, ch_k, ch_t, first, end, dev, snap=None,
                 K.normalize_select(b_k, PAD, rk.rchoice, k, -1, rk.rbuf[:, k])
                 ref.normalize_select(tb_t, PAD, rt.rchoice, k, -1, rt.rbuf[:, k])
                 same(f"retry K2, boundary {b} slot {k}")
+                if attribute:
+                    k5(b_k, tb_t, rk.rbuf[:, k : k + 1], rt.rbuf[:, k : k + 1],
+                       rk.rchoice[:, k : k + 1], rt.rchoice[:, k : k + 1], "k5_retry",
+                       f"retry K5, boundary {b} slot {k}")
                 K.apply_placements(b_k, rk.rbuf[:, k : k + 1], pos_rb[k : k + 1], rk.rchoice, 1.0)
                 ref.apply_placements(tb_t, rt.rbuf[:, k : k + 1], pos_rb[k : k + 1], rt.rchoice,
                                      1.0)
@@ -1544,6 +1747,10 @@ def lockstep(where, plan, tb_k, tb_t, ch_k, ch_t, first, end, dev, snap=None,
             ref.retry_boundary(tb_t, b, t_b)
             same(f"K4 at boundary {b}")
             n["k4"] += 1
+        if fold and w % C == 0:
+            for sr, tb in ((ser_k, tb_k), (ser_t, tb_t)):
+                for dst, src in zip(sr.snap, tb.state):
+                    dst.copy_(src)
         for k, p in enumerate(plan.idx[w].tolist()):
             if p < 0:
                 continue
@@ -1553,6 +1760,9 @@ def lockstep(where, plan, tb_k, tb_t, ch_k, ch_t, first, end, dev, snap=None,
             K.normalize_select(b_k, p, ch_k, s, w)
             ref.normalize_select(tb_t, p, ch_t, s, w)
             same(f"K1 and K2 of pod {p} (wave {w})")
+            if attribute and not fold:
+                k5(b_k, tb_t, idx_dev[s : s + 1], idx_dev[s : s + 1], ch_k[:, s : s + 1],
+                   ch_t[:, s : s + 1], "k5_slot", f"K5 of pod {p} (wave {w})")
             if snap:
                 snap("bind", (w, k))
             append = rk is not None
@@ -1575,6 +1785,8 @@ def lockstep(where, plan, tb_k, tb_t, ch_k, ch_t, first, end, dev, snap=None,
                                  ch_t, -1.0, rollback=True)
             same(f"rollback of wave {w}")
             n["rollbacks"] += 1
+    if fold and end == plan.idx.shape[0] and end > first:
+        k5_fold((end - 1) // C, "K5 fold of the last chunk")
     return n
 
 
@@ -1638,7 +1850,7 @@ def hold_retry(where, eng, walk, dev, results, waves_after=16):
                                        or n["overflows"] == 0):
         for k, v in lockstep(where, plan, tb_k, tb_t, ch_k, ch_t, end, end + 1, dev, snap,
                              snap_after_bind).items():
-            n[k] += v
+            n[k] = n.get(k, 0) + v
         end += 1
     if n["appends"] == 0 or n["overflows"] == 0 or n["retry_slots"] == 0:
         raise AssertionError(f"{where}: the window saw no append, overflow or retry slot: {n}")
@@ -1758,8 +1970,8 @@ def run_retry_paths(results, dev):
     K.reset_launch_counts()
     warm = eng.run()
     launches = K.launch_counts()
-    for k, n in launches.items():
-        if n <= 0:
+    for k in SOURCES_PLAIN + ("retry_boundary",):
+        if launches[k] <= 0:
             raise AssertionError(f"kernel {k} was not launched by the config7 what-if")
     check_whatif_result(ep, warm, S)
     if (warm.placed != ep.num_pods).any() or warm.retry_dropped.any():
@@ -1783,6 +1995,7 @@ def run_retry_paths(results, dev):
         raise AssertionError("config7 what-if: the buffer did not place more")
     rnode = tb.retry.rnode.cpu().numpy()
     walk = retry_walk(eng, dev)
+    mark("13 config7 what-if runs, walk")
     results["chunk_loop_bound_ms_config7_whatif"] = Work(ep, eng._tables()).chunk_loop_ms(
         eng.plan, np.where(rnode >= 0, PAD, assignments), launches, retry_walk=walk)
     slots = [retry_slots(eng.plan, b, eng.retry_buffer) for b in range(1, len(eng.plan.buckets))]
@@ -1805,6 +2018,7 @@ def run_retry_paths(results, dev):
           f"{json.dumps(results['chunk_loop_bound_ms_config7_whatif'])} ms", flush=True)
     del eng, off_eng, tb, res_p
 
+    mark("13 config7 B6 bound")
     single = TorchReplayEngine(ec, ep, cfg.framework, retry_buffer=rb, **kw)
     single.replay()
     res1 = single.replay()
@@ -1844,14 +2058,391 @@ def run_retry_paths(results, dev):
           f"{int(off.placed.min())}..{int(off.placed.max())}), {overflowing} scenarios "
           f"overflowing; scenario 0 == greedy_replay's pins; wall {warm.wall_clock_s:.3f}s; "
           f"launches {json.dumps(launches3)}", flush=True)
+    mark("14 cut150 what-if runs, walk")
     snaps, bnd = hold_retry(f"S={S} retry kernel checks ({RETRY_CUT_NODES} nodes)", eng, walk,
                             dev, results)
+    mark("15 cut150 hold")
     kernels = time_retry(eng, snaps, bnd, dev)
     results["kernels_retry"] = kernels
     print(f"retry kernels at S={S}, N={ec.num_nodes}: "
           + "; ".join(f"{k} {m['ms'] * 1e3:.2f} us (bound {m['bound_ms'] * 1e3:.4f} us, twin "
                       f"{m['plain_ms']:.3f} ms)" for k, m in kernels.items()), flush=True)
     return kernels, launches
+
+# ---------------------------------------------------------------------------
+# Series and timeline telemetry (telemetry: series | timeline)
+# ---------------------------------------------------------------------------
+
+
+def series_digest(tel):
+    """What REJECT_PINS holds of a telemetry: reasons, rejection attempts
+    and the sha256 of the series and of the events (as JSON)."""
+    h = lambda x: hashlib.sha256(json.dumps(x).encode()).hexdigest()
+    return dict(reasons=dict(sorted(tel.reasons.items())),
+                attempts=dict(sorted(tel.rejection_attempts.items())),
+                series_sha256=h(tel.series), events_sha256=h([list(e) for e in tel.events]))
+
+
+def file_sha256(path):
+    with open(path, "rb") as f:
+        return hashlib.sha256(f.read()).hexdigest()
+
+
+def check_series_pins(where, pin, tel, extra=None):
+    got = {**series_digest(tel), **(extra or {})}
+    if got != pin:
+        raise AssertionError(f"{where}: {got} != JaxReplayEngine's pinned {pin}")
+
+
+class LogLines(logging.Handler):
+    """The messages of the port's logger while it is attached."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.lines = []
+
+    def emit(self, record):
+        self.lines.append(record.getMessage())
+
+    def __enter__(self):
+        logging.getLogger("k8sim.torch").addHandler(self)
+        return self
+
+    def __exit__(self, *exc):
+        logging.getLogger("k8sim.torch").removeHandler(self)
+        return False
+
+
+def check_reduced_series(results, dev="cuda"):
+    """Series telemetry on the kernel path, the plain path on the card and
+    the plain path on the CPU: CONFIG6's trace cut to 20 nodes x 1,040
+    pods with devicePreemption off (the plain path: in-scan attribution):
+    assignments, reasons, attempts, series and latency identical (the
+    retry path's are held in check_reduced_retry); then ``run`` through the
+    port's CLI with ``timelineOut`` on CONFIG7's cut to 40 nodes x 2,000
+    pods (chunkWaves 32, retryBuffer 64) on the card and on the CPU: the
+    rows' telemetry and the Chrome traces identical, and the trace
+    parses."""
+    from kubernetes_simulator_tpu_torch import cli
+
+    out = {}
+    for name, (cfg, ec, ep), kw in (
+        ("config6_cut", config6_case(nodes=20, pods=1040), dict(telemetry="series")),
+    ):
+        kw["chunk_waves"] = cfg.chunk_waves
+        runs, walls = [], []
+        for o in (dict(device=dev), dict(device=dev, plain=True), dict(device="cpu")):
+            K.reset_launch_counts()
+            t0 = time.perf_counter()
+            r = TorchReplayEngine(ec, ep, cfg.framework, wave_width=8, **kw, **o).replay()
+            walls.append(time.perf_counter() - t0)
+            runs.append((r, K.launch_counts()))
+        (kern, launches), others = runs[0], runs[1:]
+        if launches["first_reject"] <= 0:
+            raise AssertionError(f"reduced series {name}: K5 was not launched")
+        for other_name, (other, _) in zip(("plain on the card", "plain on the cpu"), others):
+            if (not np.array_equal(kern.assignments, other.assignments)
+                    or series_digest(kern.telemetry) != series_digest(other.telemetry)
+                    or kern.telemetry.latency != other.telemetry.latency):
+                raise AssertionError(f"reduced series {name}: kernel path != {other_name}")
+        tel = kern.telemetry
+        if sum(tel.rejection_attempts.values()) == 0:
+            raise AssertionError(f"reduced series {name} is vacuous: nothing attributed")
+        out[name] = dict(nodes=ec.num_nodes, pods=ep.num_pods, placed=kern.placed,
+                         reasons=tel.reasons, attempts=tel.rejection_attempts,
+                         samples=len(tel.series["t"]), events=len(tel.events),
+                         launches=launches, kernel_s=walls[0], plain_card_s=walls[1],
+                         plain_cpu_s=walls[2])
+    import yaml
+
+    d = config7_dict(nodes=40, pods=2000)
+    d["chunkWaves"], d["whatIf"]["retryBuffer"] = 32, 64
+    outdir = os.path.join(ROOT, "chiprun_out")
+    os.makedirs(outdir, exist_ok=True)
+    docs, rows = {}, {}
+    for device in (dev.type, "cpu"):
+        d["telemetry"] = {"granularity": "series",
+                          "timelineOut": os.path.join(outdir, f"reduced_timeline_{device}.json")}
+        d["output"] = os.path.join(outdir, f"reduced_run_{device}.jsonl")
+        path = os.path.join(outdir, f"reduced_series_{device}.yaml")
+        with open(path, "w") as f:
+            yaml.safe_dump(d, f)
+        if cli.main(["run", path, "--device", device]) != 0:
+            raise AssertionError(f"reduced series: the CLI run on {device} failed")
+        with open(d["telemetry"]["timelineOut"]) as f:
+            docs[device] = json.load(f)
+        with open(d["output"]) as f:
+            rows[device] = json.loads(f.read().splitlines()[-1])["telemetry"]
+        os.remove(d["telemetry"]["timelineOut"])
+    strip = lambda t: {k: v for k, v in t.items() if k != "phases"}
+    if docs[dev.type] != docs["cpu"] or strip(rows[dev.type]) != strip(rows["cpu"]):
+        raise AssertionError("reduced series: the CLI's trace or row differs between the card "
+                             "and the CPU")
+    if rows["cpu"]["granularity"] != "timeline" or not docs["cpu"]["traceEvents"]:
+        raise AssertionError("reduced series: timelineOut did not give a timeline")
+    out["cli"] = dict(trace_events=len(docs["cpu"]["traceEvents"]), row=strip(rows["cpu"]))
+    results["reduced_series"] = out
+    print("reduced series: " + "; ".join(
+        f"{k} ({v['nodes']} x {v['pods']}) reasons {json.dumps(v['reasons'])}, attempts "
+        f"{json.dumps(v['attempts'])}, {v['samples']} samples, {v['events']} events"
+        for k, v in out.items() if k != "cli")
+        + f"; identical on the kernel path, the plain path on the card and on the CPU; the CLI's "
+          f"trace ({out['cli']['trace_events']} events) identical on the card and the CPU",
+          flush=True)
+
+
+def hold_first_reject(where, eng, first, end, dev, results, must_charge=True):
+    """K1–K5 against their twins launch by launch over waves [first, end)
+    of a series run of ``eng`` (a kernel-path run with the series carriers
+    up to ``first``, then the tables, series buffers and choice buffer
+    copied for the twins), reject counters compared after every K5."""
+    from kubernetes_simulator_tpu_torch.sim.torch_runtime import new_series
+
+    plan = eng.plan
+    tb_k = eng._tables(attribute=True)
+    ser_k = new_series(plan, tb_k, True)
+    ch_k = new_choices(plan, eng.S, eng.pods.bound_node, dev)
+    run_waves(plan, tb_k, ch_k, 0, first, plain=False, ser=ser_k)
+    torch.cuda.synchronize()
+    tb_t, ch_t, ser_t = clone_tables(tb_k), ch_k.clone(), clone_series(ser_k)
+    n = lockstep(where, plan, tb_k, tb_t, ch_k, ch_t, first, end, dev, ser=(ser_k, ser_t))
+    k5 = n["k5_slot"] + n["k5_retry"] + n["k5_fold"]
+    if not k5 or (must_charge and not n["k5_charged"]):
+        raise AssertionError(f"{where}: the window launched or charged nothing: {n}")
+    results.setdefault("first_reject_holds", {})[where] = dict(waves=[first, end], **n)
+    print(f"{where}: waves {first}..{end}: {json.dumps({k: v for k, v in n.items() if v})}; "
+          f"every launch equals its twin exactly, reject counters included", flush=True)
+    return n
+
+
+def time_first_reject(tb, pods, gate, iters=200, plain_iters=10, wrapper=None):
+    """K5 on ``tb`` with the slots ``pods`` / ``gate`` through ``wrapper``
+    (K.first_reject by default): its device time per launch
+    (torch.profiler; the launch interval by CUDA events where the profiler
+    recorded no kernel) and its twin's wall (CUDA events, on a copy). The
+    counters move; the result is not read."""
+    b = K.Bound(tb)
+    wrapper = wrapper or K.first_reject
+    run = lambda i: wrapper(b, pods, gate)
+    d_ms = device_ms(run, iters, match="first_reject")
+    interval = time_cuda(run, iters)
+    tb_t = clone_tables(tb)
+    plain_ms = time_cuda(lambda i: ref.first_reject(tb_t, pods, gate), plain_iters,
+                         warm=min(3, plain_iters))
+    return dict(ms=d_ms if d_ms is not None else interval, device_ms=d_ms,
+                launch_interval_ms=interval, plain_ms=plain_ms)
+
+
+def run_series_paths(results, dev):
+    """Series telemetry at full width (the slice's main path), each run
+    with the counters zeroed just before and read just after:
+    (a) CONFIG6's trace with devicePreemption off at ``series`` (500 nodes
+    x 26,000 pods, contended, the plain path: K5 after every slot's K2),
+    against REJECT_PINS, sum(reasons) = nodes x unschedulable and attempts
+    = reasons; (b) CONFIG7 as shipped through the port's CLI ``run`` with
+    ``telemetry: series`` and ``timelineOut`` (the retry path), the row,
+    the events and the Chrome trace against REJECT_PINS; (c) the 150-node
+    cut at ``timeline`` against REJECT_PINS. The walls of (a) and (b) at
+    ``series`` against ``summary`` in turns, and each one's busy share.
+    CONFIG6 as shipped (tier preemption) at ``series`` logs the
+    reference's note and places as PREEMPT_PINS. K5 held against its twin
+    launch by launch in a window of (a) at S = 1, at a chunk fold and the
+    retry pass of (c) at S = 1 and of CONFIG7's 40-node cut at S = 4, and
+    timed per launch on the plain path and as a fold."""
+    from kubernetes_simulator_tpu_torch import cli
+    import yaml
+
+    out = {}
+    # (a)
+    cfg, ec, ep = config6_case()
+    kw = dict(wave_width=8, chunk_waves=cfg.chunk_waves, device=dev)
+    eng_sum = TorchReplayEngine(ec, ep, cfg.framework, telemetry="summary", **kw)
+    eng = TorchReplayEngine(ec, ep, cfg.framework, telemetry="series", **kw)
+    eng_sum.replay()
+    K.reset_launch_counts()
+    res = eng.replay()
+    launches = K.launch_counts()
+    for k in SOURCES_PLAIN + ("first_reject",):
+        if launches[k] <= 0:
+            raise AssertionError(f"kernel {k} was not launched by config6's series replay")
+    tel = res.telemetry
+    check_series_pins("config6 series", REJECT_PINS["config6"], tel)
+    if (sum(tel.reasons.values()) != ec.num_nodes * res.unschedulable
+            or tel.rejection_attempts != tel.reasons):
+        raise AssertionError(f"config6 series: reasons {tel.reasons} do not charge {ec.num_nodes}"
+                             f" nodes for each of {res.unschedulable} unschedulable pods")
+    walls = {"summary": [], "series": []}
+    for g, e in (("summary", eng_sum), ("series", eng), ("series", eng), ("summary", eng_sum)):
+        walls[g].append(e.replay().wall_clock_s)
+    res_p, busy_s = profiled_busy_s(eng.replay)
+    out["config6"] = dict(nodes=ec.num_nodes, pods=ep.num_pods, placed=res.placed,
+                          unschedulable=res.unschedulable, reasons=tel.reasons,
+                          samples=len(tel.series["t"]), launches=launches, walls_s=walls,
+                          profiled_wall_s=res_p.wall_clock_s, device_busy_s=busy_s,
+                          device_busy_share=busy_s / res_p.wall_clock_s if busy_s else None)
+    print(f"(a) config6 series ({ec.num_nodes} x {ep.num_pods}, devicePreemption off): placed "
+          f"{res.placed}, reasons {json.dumps(tel.reasons)} == {ec.num_nodes} x "
+          f"{res.unschedulable}, attempts == reasons, == REJECT_PINS; launches "
+          f"{json.dumps(launches)}; walls series {[round(w, 3) for w in walls['series']]} s vs "
+          f"summary {[round(w, 3) for w in walls['summary']]} s; profiled busy "
+          f"{busy_s / res_p.wall_clock_s:.1%}", flush=True)
+    mark("21 (a) config6 series runs")
+    # K5 launch by launch in a window of (a) where pods fail, and timed there.
+    unplaced = np.nonzero(res.assignments < 0)[0]
+    flat = eng.plan.idx.reshape(-1)
+    w0 = int(np.nonzero(np.isin(flat, unplaced[:1]))[0][0]) // eng.plan.idx.shape[1]
+    hold_first_reject("K5 at S=1 (config6, plain path)", eng, w0, w0 + 8, dev, results)
+    p = int(unplaced[-1])
+    pods = torch.tensor([p], dtype=torch.int32, device=dev)
+    gate = torch.full((1, 1), PAD, dtype=torch.int32, device=dev)
+    tb_end = eng.last_tables
+    nb, no = Work(ep, tb_end).k5([[p]], [[True]])
+    bms, bby = bound(nb, no)
+    kernels = {"first_reject": dict(**time_first_reject(tb_end, pods, gate), bound_ms=bms,
+                                    bound_by=bby, library_ms=None, max_abs_err=0.0,
+                                    launches=launches["first_reject"])}
+    del eng, eng_sum, res_p
+    mark("21 (a) K5 hold, time")
+    # Config6 as shipped: tier preemption keeps its placements, with the note.
+    eng_t = TorchReplayEngine(ec, ep, cfg.framework, telemetry="series", preemption=True, **kw)
+    with LogLines() as lines:
+        rt = eng_t.replay()
+    if not any("not available with in-scan tier preemption" in m for m in lines.lines):
+        raise AssertionError("config6 (tier) at series: the reference's note was not logged")
+    check_pins("config6 (tier) at series", PREEMPT_PINS["config6"], rt.placed, rt.preemptions,
+               rt.assignments)
+    if rt.telemetry.reasons != {}:
+        raise AssertionError("config6 (tier) at series attributed rejections")
+    print("config6 (tier preemption) at series: the reference's note logged, reasons empty, "
+          "placements == PREEMPT_PINS", flush=True)
+    del eng_t, rt
+
+    mark("21 config6 tier at series")
+    # (b) config7 through the CLI.
+    cfg7, ec7, ep7 = config7_case()
+    outdir = os.path.join(ROOT, "chiprun_out")
+    os.makedirs(outdir, exist_ok=True)
+    d = config7_dict()
+    trace = os.path.join(outdir, "config7_timeline.json")
+    d["telemetry"] = {"granularity": "series", "timelineOut": trace}
+    d["output"] = os.path.join(outdir, "config7_run.jsonl")
+    path = os.path.join(outdir, "config7_series.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(d, f)
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    if cli.main(["run", path, "--device", dev.type]) != 0:
+        raise AssertionError("config7 run through the CLI failed")
+    cli_s = time.perf_counter() - t0
+    launches7 = K.launch_counts()
+    for k, n in launches7.items():
+        if n <= 0:
+            raise AssertionError(f"kernel {k} was not launched by config7's CLI run")
+    with open(d["output"]) as f:
+        row = json.loads(f.read().splitlines()[-1])
+    with open(trace) as f:
+        doc = json.load(f)
+    trace_sha = file_sha256(trace)
+    os.remove(trace)
+    rb = cfg7.whatif.retry_buffer
+    kw7 = dict(wave_width=8, chunk_waves=cfg7.chunk_waves, retry_buffer=rb, device=dev)
+    e7 = {g: TorchReplayEngine(ec7, ep7, cfg7.framework, telemetry=g, **kw7)
+          for g in ("summary", "timeline")}
+    r7 = e7["timeline"].replay()
+    check_series_pins("config7 run (CLI)", REJECT_PINS["config7"], r7.telemetry,
+                      dict(trace_sha256=trace_sha))
+    if (row["telemetry"]["granularity"] != "timeline" or row["placed"] != r7.placed
+            or row["telemetry"]["timeline_events"] != len(r7.telemetry.events)
+            or len(doc["traceEvents"]) == 0):
+        raise AssertionError(f"config7 run (CLI): row {row['telemetry']} or trace disagree")
+    walls7 = {"summary": [], "timeline": []}
+    for g in ("summary", "timeline", "timeline", "summary"):
+        walls7[g].append(e7[g].replay().wall_clock_s)
+    res_p, busy7 = profiled_busy_s(e7["timeline"].replay)
+    out["config7"] = dict(nodes=ec7.num_nodes, pods=ep7.num_pods, placed=r7.placed,
+                          reasons=r7.telemetry.reasons, events=len(r7.telemetry.events),
+                          trace_events=len(doc["traceEvents"]), cli_s=cli_s, launches=launches7,
+                          walls_s=walls7, profiled_wall_s=res_p.wall_clock_s,
+                          device_busy_s=busy7,
+                          device_busy_share=busy7 / res_p.wall_clock_s if busy7 else None)
+    print(f"(b) config7 run through the CLI (series + timelineOut, retryBuffer {rb}): placed "
+          f"{r7.placed}, {len(r7.telemetry.events)} events, trace of {len(doc['traceEvents'])} "
+          f"events parses, == REJECT_PINS (trace sha256 included); CLI {cli_s:.2f} s; launches "
+          f"{json.dumps(launches7)}; walls timeline {[round(w, 3) for w in walls7['timeline']]} s"
+          f" vs summary {[round(w, 3) for w in walls7['summary']]} s; profiled busy "
+          f"{busy7 / res_p.wall_clock_s:.1%}", flush=True)
+    del e7, r7, res_p
+
+    mark("21 (b) config7 CLI, runs")
+    # (c) the 150-node cut.
+    cfgc, ecc, epc = config7_case(nodes=RETRY_CUT_NODES)
+    ec_ = TorchReplayEngine(ecc, epc, cfgc.framework, telemetry="timeline",
+                            wave_width=8, chunk_waves=cfgc.chunk_waves, retry_buffer=rb,
+                            device=dev)
+    K.reset_launch_counts()
+    rc = ec_.replay()
+    launchesc = K.launch_counts()
+    for k, n in launchesc.items():
+        if n <= 0:
+            raise AssertionError(f"kernel {k} was not launched by the {RETRY_CUT_NODES}-node cut")
+    check_series_pins(f"{RETRY_CUT_NODES}-node cut at timeline", REJECT_PINS["cut150"],
+                      rc.telemetry)
+    check_retry_pins(f"{RETRY_CUT_NODES}-node cut at timeline", RETRY_PINS["cut150"], rc.placed,
+                     rc.retry_dropped, rc.assignments)
+    out["cut150"] = dict(placed=rc.placed, retry_dropped=rc.retry_dropped,
+                         reasons=rc.telemetry.reasons, launches=launchesc,
+                         wall_s=rc.wall_clock_s)
+    print(f"(c) {RETRY_CUT_NODES}-node cut at timeline: placed {rc.placed}, dropped "
+          f"{rc.retry_dropped}, reasons {json.dumps(rc.telemetry.reasons)}, attempts "
+          f"{json.dumps(rc.telemetry.rejection_attempts)}, == REJECT_PINS and RETRY_PINS; "
+          f"launches {json.dumps(launchesc)}; wall {rc.wall_clock_s:.3f} s", flush=True)
+    mark("21 (c) cut150 run")
+    # K5 at a fold and in a retry pass of (c), S = 1 (the fold charges
+    # nothing there: every failed slot had room at its chunk's start).
+    C = ec_.plan.C
+    b = max(len(ec_.plan.buckets) // 2, 1)
+    hold_first_reject(f"K5 at S=1 ({RETRY_CUT_NODES}-node cut, fold and retry pass)", ec_,
+                      b * C - 2, b * C + 2, dev, results,
+                      must_charge=bool(REJECT_PINS["cut150"]["attempts"]))
+    plan = ec_.plan
+    CW = C * plan.idx.shape[1]
+    cols = slice((b - 1) * CW, b * CW)
+    ch_dev = torch.as_tensor(ec_.last_choices, device=dev)
+    idx_dev = torch.as_tensor(plan.idx.reshape(-1), device=dev)
+    tb_c = ec_.last_tables
+    slots = plan.idx.reshape(-1)[cols]
+    nb, no = Work(epc, tb_c).k5(slots[None], (ec_.last_choices[:, cols] < 0))
+    bms, bby = bound(nb, no)
+    kernels["first_reject_fold"] = dict(
+        **time_first_reject(tb_c, idx_dev[cols], ch_dev[:, cols], iters=50, plain_iters=1,
+                            wrapper=K.first_reject_fold),
+        bound_ms=bms, bound_by=bby, library_ms=None, max_abs_err=0.0,
+        launches=launchesc["first_reject_fold"])
+    mark("21 (c) K5 hold, fold time")
+    # S = 4: CONFIG7's 40-node cut as a 4-scenario batch (chunkWaves 32,
+    # retryBuffer 64), fold and retry pass both charging.
+    cfg4, ec4, ep4 = config7_case(nodes=40, pods=2000)
+    scen = uniform_scenarios(ec4, 4, seed=1, p_node_down=0.5, p_capacity=0.5, p_taint=0.5)
+    w4 = WhatIfEngine(ec4, ep4, scen, cfg4.framework, wave_width=8, chunk_waves=32,
+                      retry_buffer=64, device=dev)
+    # Failures gather late in the trace: the window is the last boundary
+    # whose fold charges, walking back from the run's end.
+    nb = len(w4.plan.buckets)
+    for b4 in range(nb - 1, max(nb - 4, 0), -1):
+        n4 = hold_first_reject(f"K5 at S=4 (config7 cut to 40 nodes, boundary {b4})", w4,
+                               b4 * 32 - 2, b4 * 32 + 2, dev, results, must_charge=False)
+        if n4["k5_charged"]:
+            break
+    else:
+        raise AssertionError("K5 at S=4: no window near the end of the run charged anything")
+    results["series"] = out
+    results["kernels_series"] = kernels
+    print("K5: " + "; ".join(
+        f"{k} {m['ms'] * 1e3:.2f} us (bound {m['bound_ms'] * 1e3:.4f} us, {m['bound_by']}; twin "
+        f"{m['plain_ms']:.3f} ms), {m['launches']} launches" for k, m in kernels.items()),
+          flush=True)
+    return kernels
+
 
 # ---------------------------------------------------------------------------
 # Label perturbations (set_label)
@@ -1920,13 +2511,13 @@ def first_of_each_kind(S):
 
 
 def check_reduced_relabel(results, dev="cuda"):
-    """The relabel batch reduced: 8 scenarios x 60 nodes x 3,000 pods
+    """The relabel batch reduced: 8 scenarios x 60 nodes x 2,000 pods
     (durationMean 60, gangs) — a move to an existing zone with a capacity
     cut, a new zone, emptying a singleton zone, a node gaining the key, a
     taint-only scenario, a tier flip and a new zone beside uniform
     perturbations — on the kernel path, the plain path on the card and the
     plain path on the CPU: assignments [S, P] identical."""
-    nodes, pods = 60, 3000
+    nodes, pods = 60, REDUCED_PODS
     cluster, workload = case_objects(nodes, pods, duration_mean=60.0, gang_fraction=0.05)
     cluster.nodes[7].labels[ZONE] = "zonly"
     del cluster.nodes[11].labels[ZONE]
@@ -2092,6 +2683,7 @@ def run_label_paths(results, headline_s0, dev):
           f"{[v['scenario'] for v in singles.values()]} == their from-scratch replays; launches "
           f"{json.dumps(launches)}; profiled: wall {res_p.wall_clock_s:.3f}s, device busy "
           f"{busy_s:.3f}s ({busy_s / res_p.wall_clock_s:.1%})", flush=True)
+    mark("17 relabel what-if runs")
     results["chunk_loop_bound_ms_relabel"] = Work(ep, eng._tables()).chunk_loop_ms(
         eng.plan, assignments, launches)
     hold_label_window(f"S={S} relabel window (N={hs['nodes']})", eng, dev, results)
@@ -2099,8 +2691,10 @@ def run_label_paths(results, headline_s0, dev):
     tb0 = eng._tables()
     tb_t, tb_k, pre, pre_nodes = mid_replay_tables(ec, ep, tb0.cluster, tb0.consts, S, rng,
                                                    dev, state=tb0.state)
+    mark("17 relabel B6 bound, window")
     held = hold_kernels(f"S={S} label-row kernel checks (N={hs['nodes']})", ep, tb_t, tb_k,
                         pre, pre_nodes, 40, rng, dev)
+    mark("18 label-row hold")
     kernels, release = time_kernels(ep, tb_t, held, dev)
     results["kernels_label"], results["apply_release_label"] = kernels, release
     del eng, res_p, tb0, tb_t, tb_k, held
@@ -2154,8 +2748,9 @@ def main() -> int:
     print(smi, flush=True)
     name = torch.cuda.get_device_name(0)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on {name}", flush=True)
-    results = {"nvidia_smi": smi, "device": name}
+    results = {"nvidia_smi": smi, "device": name, "step_s": STEP_S}
     dev = torch.device("cuda")
+    _last_mark[0] = t_start
 
     t0 = time.perf_counter()
     K.build(verbose=True)
@@ -2170,10 +2765,14 @@ def main() -> int:
           f"R={ec.num_resources} G={ec.num_groups} D={ec.max_domains} "
           f"T={ec.node_domain.shape[0]} ({results['encode_s']:.1f}s)", flush=True)
 
+    mark("1-2 build, encode")
     check_kernels_s1(ec, ep, results, dev)
     check_kernels_s4(ec, ep, results, dev)
+    mark("3-4 kernel checks S=1, S=4")
     check_reduced_replay(results)
+    mark("5 reduced replay")
     check_reduced_whatif(results)
+    mark("6 reduced what-if")
 
     # Step 7: the config2 single replay, kernel path; counters from zero.
     eng = TorchReplayEngine(ec, ep, FrameworkConfig(), wave_width=8, chunk_waves=1024)
@@ -2204,6 +2803,7 @@ def main() -> int:
           f"{json.dumps(launches_c2)}; profiled: wall {res_p.wall_clock_s:.3f}s, device busy "
           f"{busy_s:.3f}s", flush=True)
     del eng, res, res_p
+    mark("7 config2 replay")
 
     # Step 8: the main path, the headline what-if; counters from zero.
     hs = HEADLINE
@@ -2263,6 +2863,7 @@ def main() -> int:
                                                    hs["scenarios"], rng, dev)
     held = hold_kernels(f"S={hs['scenarios']} kernel checks (N={hs['nodes']})", ep, tb_t, tb_k,
                         pre, pre_nodes, 40, rng, dev)
+    mark("8 headline runs")
     kernels, release = time_kernels(ep, tb_t, held, dev)
     results["kernels"], results["apply_release"] = kernels, release
     results["chunk_loop_bound_ms_headline"] = Work(ep, eng._tables()).chunk_loop_ms(
@@ -2274,16 +2875,30 @@ def main() -> int:
     headline_s0 = warm.assignments[0].copy()
     del eng, warm, runs, res_p, single, tb_t, tb_k, held
 
+    mark("8 headline hold, kernel times")
     # Steps 9-11: tier preemption.
     check_reduced_preempt(results)
+    mark("9 reduced preemption")
     pkernels, plaunches = run_preempt_paths(results, dev)
+    mark("11 tier kernel times")
     # Steps 12-15: the retry buffer.
     check_reduced_retry(results)
+    mark("12 reduced retry")
     rkernels, rlaunches = run_retry_paths(results, dev)
+    mark("15 retry kernel times")
     # Steps 16-19: label perturbations (set_label).
     check_reduced_relabel(results)
+    mark("16 reduced relabel")
     lkernels, llaunches = run_label_paths(results, headline_s0, dev)
+    mark("18-19 label kernel times, cut, outside")
+    # Steps 20-21: series and timeline telemetry.
+    check_reduced_series(results, dev)
+    mark("20 reduced series")
+    skernels = run_series_paths(results, dev)
+    mark("21 S=4 K5 holds")
     results["wall_s_total"] = time.perf_counter() - t_start
+    print("step walls (s): " + json.dumps({k: round(v, 1) for k, v in STEP_S.items()}),
+          flush=True)
 
     table = []
     for k, m in kernels.items():
@@ -2317,6 +2932,13 @@ def main() -> int:
             "launches": llaunches[kernel], "max_abs_err": m["max_abs_err"], "ms": m["ms"],
             "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
             "library_ms": m["library_ms"],
+        })
+    for k, m in skernels.items():
+        table.append({
+            "name": k, "route": "cuda", "source": SOURCES["first_reject"][0],
+            "replaces": SERIES_SOURCES[k], "launches": m["launches"],
+            "max_abs_err": m["max_abs_err"], "ms": m["ms"], "plain_ms": m["plain_ms"],
+            "bound_ms": m["bound_ms"], "bound_by": m["bound_by"], "library_ms": m["library_ms"],
         })
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:

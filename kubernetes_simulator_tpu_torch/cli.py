@@ -1,7 +1,7 @@
 """CLI of the port: replay a YAML config, or run its what-if batch, on
 the card.
 
-    python -m kubernetes_simulator_tpu_torch run config.yaml [--device cpu]
+    python -m kubernetes_simulator_tpu_torch run config.yaml [--device cpu] [--timeline-out t.json]
     python -m kubernetes_simulator_tpu_torch what-if config.yaml [--device cpu]
 
 Counterpart: ``kubernetes_simulator_tpu/cli.py`` (``cmd_run`` :83,
@@ -9,7 +9,9 @@ Counterpart: ``kubernetes_simulator_tpu/cli.py`` (``cmd_run`` :83,
 (utils.config); sections of modes the port does not carry yet are refused
 with an error naming them. ``run`` writes one JSONL replay row,
 ``what-if`` the ``whatif_rows`` (stdout, or the config's ``output``), and
-each an INFO summary line with placements/sec.
+each an INFO summary line with placements/sec. ``run --timeline-out`` (or
+``telemetry.timelineOut``) collects at granularity ``timeline`` and writes
+the simulated cluster timeline as a Chrome trace (:87-129).
 """
 
 from __future__ import annotations
@@ -28,12 +30,16 @@ def cmd_run(args) -> int:
     cfg = SimConfig.load(args.config)
     with open(args.config) as f:
         raw = yaml.safe_load(f) or {}
+    timeline_out = getattr(args, "timeline_out", None) or cfg.timeline_out
+    gran = cfg.telemetry
+    if timeline_out and gran != "off":
+        gran = "timeline"  # a timeline sink needs timeline events
     ec, ep = build_encoded_case(cfg)
     log.info("encoded %d nodes / %d pods", ec.num_nodes, ep.num_pods)
     engine = get_strategy("torch")(
         ec, ep, cfg.framework,
         wave_width=cfg.wave_width, chunk_waves=cfg.chunk_waves,
-        telemetry=cfg.telemetry, device=args.device, preemption=cfg.device_preemption,
+        telemetry=gran, device=args.device, preemption=cfg.device_preemption,
         retry_buffer=cfg.whatif.retry_buffer,
     )
     context = {
@@ -43,6 +49,14 @@ def cmd_run(args) -> int:
         res = engine.replay()
         out.write(replay_row("replay-torch", res, {"config": args.config,
                                                    "device": str(engine.device)}))
+    if timeline_out and res.telemetry is not None:
+        from .sim.telemetry import write_chrome_trace
+
+        n_ev = write_chrome_trace(
+            timeline_out, res, arrival=ep.arrival, duration=ep.duration,
+            requests=ep.requests, rindex=ec.vocab._r,
+        )
+        log.info("timeline: wrote %d trace events to %s", n_ev, timeline_out)
     log.info(
         "placed %d/%d pods in %.3fs (%.0f placements/sec) on %s",
         res.placed, res.placed + res.unschedulable, res.wall_clock_s,
@@ -98,6 +112,12 @@ def main(argv=None) -> int:
             "--device", default="cuda",
             help="torch device (default cuda: the kernels; cpu: their plain twins)",
         )
+        if name == "run":
+            r.add_argument(
+                "--timeline-out", default=None,
+                help="write the simulated cluster timeline as a Chrome trace JSON "
+                     "(Perfetto-loadable); implies telemetry granularity 'timeline'",
+            )
         r.set_defaults(fn=fn)
     args = ap.parse_args(argv)
     return args.fn(args)

@@ -177,3 +177,267 @@ __device__ __forceinline__ int32_t ksim_floordiv(int32_t a, int32_t b) {
   if ((a % b != 0) && ((a < 0) != (b < 0))) q -= 1;
   return q;
 }
+
+// ---------------------------------------------------------------------------
+// The per-node Filter chain and raw Score rows of one pod (K1 filter_score and
+// K5 first_reject evaluate every node through these, so the two kernels can
+// never disagree on a mask).
+// ---------------------------------------------------------------------------
+
+// Filter plugins in the reference's evaluation order (spec_plugin_names of
+// kubernetes_simulator_tpu/sim/jax_runtime.py:251): bit k of
+// KsimNodeEval::pass is plugin k's verdict.
+#define KSIM_PLUGIN_FIT 0
+#define KSIM_PLUGIN_TAINT 1
+#define KSIM_PLUGIN_NA 2
+#define KSIM_PLUGIN_IP 3
+#define KSIM_PLUGIN_SPREAD 4
+#define KSIM_PLUGINS 5
+#define KSIM_PASS_ALL ((1u << KSIM_PLUGINS) - 1u)
+
+// Is Filter plugin k on in this step (a plugin that is off admits every node)?
+__device__ __forceinline__ bool ksim_plugin_on(const KsimArgs& a, int k) {
+  switch (k) {
+    case KSIM_PLUGIN_FIT: return a.fit != 0;
+    case KSIM_PLUGIN_TAINT: return a.taints != 0;
+    case KSIM_PLUGIN_NA: return a.node_affinity != 0;
+    case KSIM_PLUGIN_IP: return a.interpod != 0;
+    default: return a.spread != 0;
+  }
+}
+
+// Per-block term tables of pod p in one scenario (shared memory): the
+// bootstrap totals Σ_d match_count[g, d] of its required-affinity groups and
+// the minimum count over [0, gnd) of its spread groups, reduced one warp per
+// term. The caller synchronises the block after it.
+struct KsimTerms {
+  float total[KSIM_MAX_TERMS];  // aff_req term t
+  float min[KSIM_MAX_TERMS];    // spread term t
+  int nd[KSIM_MAX_TERMS];       // spread term t: domains of its key
+};
+
+__device__ __forceinline__ void ksim_filter_prologue(const KsimArgs& a, int p,
+                                                     const float* match_count,
+                                                     const KsimLabels& lab, KsimTerms* terms) {
+  const int D = a.D;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  if (a.interpod) {
+    for (int t = warp; t < a.AR; t += nwarps) {
+      int g = a.aff_req[p * a.AR + t];
+      float t_sum = 0.f;
+      if (g >= 0)
+        for (int d = lane; d < D; d += 32) t_sum += match_count[g * D + d];
+      // integer-valued counts: any summation order is exact
+      for (int o = 16; o > 0; o >>= 1) t_sum += __shfl_down_sync(0xffffffffu, t_sum, o);
+      if (lane == 0) terms->total[t] = t_sum;
+    }
+  }
+  if (a.spread) {
+    for (int t = warp; t < a.SP; t += nwarps) {
+      int g = a.spread_g[p * a.SP + t];
+      int nd = g >= 0 ? lab.gnd[g] : 0;
+      float m = INFINITY;
+      for (int d = lane; d < nd; d += 32) m = fminf(m, match_count[g * D + d]);
+      for (int o = 16; o > 0; o >>= 1) m = fminf(m, __shfl_down_sync(0xffffffffu, m, o));
+      if (lane == 0) {
+        terms->min[t] = m;
+        terms->nd[t] = nd;
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ float ksim_piecewise(const KsimArgs& a, float util) {
+  // ops/cpu.py piecewise_interp_int: seg = y0 + floor(t·Δy), lowest
+  // segment whose x1 >= util wins; util <= x0 of the first point → y0.
+  float out = a.y_last;
+  for (int i = a.n_seg - 1; i >= 0; --i) {
+    float t = (util - a.seg_x0[i]) * a.seg_inv[i];
+    float seg = a.seg_y0[i] + floorf(t * a.seg_dy[i]);
+    if (util <= a.seg_x1[i]) out = seg;
+  }
+  if (util <= a.x_first) out = a.y_first;
+  return out;
+}
+
+// One node's verdicts and (with SCORES) raw Score rows.
+struct KsimNodeEval {
+  unsigned pass;  // bit KSIM_PLUGIN_k: plugin k admits the node
+  float fit_score, prefer_cnt, na_raw, ip_raw, sp_raw;
+  bool ign;  // ScheduleAnyway spread: the node lacks a scored key
+};
+
+// The Filter chain (and, with SCORES, the raw Score rows) of pod p on node n
+// of scenario scen, from the state planes given (a scenario's own, or a
+// snapshot of them): ops/cpu.py's per-plugin chain and ops/tpu.py:eval_pod's,
+// bit for bit, every expression in the reference's operation order.
+template <bool SCORES>
+__device__ __forceinline__ KsimNodeEval ksim_eval_node(
+    const KsimArgs& a, int p, int64_t scen, int n, const KsimLabels& lab, const float* used_s,
+    const float* match_count, const float* anti_active, const float* pref_wsum,
+    const KsimTerms* terms) {
+  const int N = a.N, R = a.R, G = a.G, D = a.D;
+  const int32_t* gdom = lab.gdom;
+  KsimNodeEval e;
+  e.pass = KSIM_PASS_ALL;
+  e.fit_score = e.prefer_cnt = e.na_raw = e.ip_raw = e.sp_raw = 0.f;
+  e.ign = false;
+  const float* req = a.requests + (size_t)p * R;
+  const float* used = used_s + (size_t)n * R;
+  const float* alloc = a.alloc + scen * a.alloc_ss + (size_t)n * R;
+  const int32_t* taint_key = a.taint_key + scen * a.taint_ss;
+  const int32_t* taint_kv = a.taint_kv + scen * a.taint_ss;
+  const int32_t* taint_effect = a.taint_effect + scen * a.taint_ss;
+
+  // --- NodeResourcesFit ---------------------------------------------------
+  if (a.fit) {
+    float acc = 0.f;
+    for (int r = 0; r < R; ++r) {
+      float u = used[r], q = req[r], al = alloc[r];
+      if (!(u + q <= al + 1e-6f)) e.pass &= ~(1u << KSIM_PLUGIN_FIT);
+      if (!SCORES) continue;
+      float w = a.res_w[r];
+      if (w == 0.f) continue;
+      float frac;
+      if (a.fit_strategy == 0)
+        frac = al > 0.f ? ((al - u) - q) / al : 0.f;
+      else
+        frac = al > 0.f ? (u + q) / al : 0.f;
+      frac = fminf(fmaxf(frac, 0.f), 1.f);
+      float s = floorf(frac * 100.f);
+      if (a.fit_strategy == 2) s = ksim_piecewise(a, s);
+      acc = acc + s * w;
+    }
+    if (SCORES) e.fit_score = (a.wsum == 0.f) ? acc : floorf(acc / a.wsum);
+  }
+
+  // --- TaintToleration ----------------------------------------------------
+  if (a.taints) {
+    for (int tt = 0; tt < a.TT; ++tt) {
+      int key = taint_key[n * a.TT + tt];
+      if (key == KSIM_PAD) continue;
+      int eff = taint_effect[n * a.TT + tt];
+      int kv = taint_kv[n * a.TT + tt];
+      bool hard = eff == KSIM_NO_SCHEDULE || eff == KSIM_NO_EXECUTE;
+      bool soft = SCORES && eff == KSIM_PREFER_NO_SCHEDULE;
+      if (!hard && !soft) continue;
+      bool tolerated = false;
+      for (int j = 0; j < a.TO; ++j) {
+        int tk = a.tol_key[p * a.TO + j];
+        if (tk == KSIM_TOL_PAD) continue;
+        int tv = a.tol_kv[p * a.TO + j];
+        int te = a.tol_effect[p * a.TO + j];
+        bool key_ok = tk == KSIM_TOL_WILDCARD || tk == key;
+        bool val_ok = tv == KSIM_PAD || tv == kv;
+        bool eff_ok = te == 0 || te == eff;
+        if (key_ok && val_ok && eff_ok) tolerated = true;
+      }
+      if (!tolerated) {
+        if (hard) e.pass &= ~(1u << KSIM_PLUGIN_TAINT);
+        if (soft) e.prefer_cnt += 1.f;
+      }
+    }
+  }
+
+  // --- NodeAffinity -------------------------------------------------------
+  if (a.node_affinity) {
+    const uint8_t* M = lab.expr_match + (size_t)n * a.E;
+    if (a.na_has_req[p]) {
+      bool any = false;
+      for (int t = 0; t < a.TR; ++t) {
+        const int32_t* term = a.na_req + ((size_t)p * a.TR + t) * a.TE;
+        if (term[0] < 0) continue;
+        bool all = true;
+        for (int e2 = 0; e2 < a.TE; ++e2)
+          if (term[e2] >= 0 && !M[term[e2]]) all = false;
+        if (all) any = true;
+      }
+      if (!any) e.pass &= ~(1u << KSIM_PLUGIN_NA);
+    }
+    if (SCORES) {
+      for (int t = 0; t < a.TP; ++t) {
+        const int32_t* term = a.na_pref + ((size_t)p * a.TP + t) * a.TE;
+        if (term[0] < 0) continue;
+        bool all = true;
+        for (int e2 = 0; e2 < a.TE; ++e2)
+          if (term[e2] >= 0 && !M[term[e2]]) all = false;
+        if (all) e.na_raw = e.na_raw + a.na_pref_w[p * a.TP + t];
+      }
+    }
+  }
+
+  // --- InterPodAffinity ---------------------------------------------------
+  if (a.interpod) {
+    const uint8_t* pm = a.pmg + (size_t)p * G;
+    bool ok = true;
+    for (int t = 0; t < a.AR; ++t) {
+      int g = a.aff_req[p * a.AR + t];
+      if (g < 0) continue;
+      int dom = gdom[g * N + n];
+      float cnt = dom >= 0 ? match_count[g * D + dom] : 0.f;
+      bool boot = terms->total[t] == 0.f && pm[g];
+      bool term_ok = cnt >= 1.f && dom >= 0;
+      if (!(term_ok || boot)) ok = false;
+    }
+    for (int t = 0; t < a.AA; ++t) {
+      int g = a.anti_req[p * a.AA + t];
+      if (g < 0) continue;
+      int dom = gdom[g * N + n];
+      float cnt = dom >= 0 ? match_count[g * D + dom] : 0.f;
+      if (cnt >= 1.f && dom >= 0) ok = false;
+    }
+    for (int g = 0; g < G; ++g) {
+      if (!pm[g]) continue;
+      int dom = gdom[g * N + n];
+      if (dom >= 0 && anti_active[g * D + dom] > 0.f) ok = false;
+    }
+    if (!ok) e.pass &= ~(1u << KSIM_PLUGIN_IP);
+    if (SCORES) {
+      for (int t = 0; t < a.PA; ++t) {
+        int g = a.pref_aff[p * a.PA + t];
+        if (g < 0) continue;
+        int dom = gdom[g * N + n];
+        float cnt = dom >= 0 ? match_count[g * D + dom] : 0.f;
+        e.ip_raw = e.ip_raw + a.pref_aff_w[p * a.PA + t] * cnt;
+      }
+      if (a.has_symmetric_pref) {
+        float sym = 0.f;
+        for (int g = 0; g < G; ++g) {
+          if (!pm[g]) continue;
+          int dom = gdom[g * N + n];
+          if (dom >= 0) sym = sym + pref_wsum[g * D + dom];
+        }
+        e.ip_raw = e.ip_raw + sym;
+      }
+    }
+  }
+
+  // --- PodTopologySpread --------------------------------------------------
+  if (a.spread) {
+    float sp_raw = 0.f;
+    for (int t = 0; t < a.SP; ++t) {
+      int g = a.spread_g[p * a.SP + t];
+      if (g < 0) continue;
+      int skew = a.spread_skew[p * a.SP + t];
+      int dom = gdom[g * N + n];
+      float cnt = dom >= 0 ? match_count[g * D + dom] : 0.f;
+      if (a.spread_dns[p * a.SP + t]) {
+        bool ok;
+        if (terms->nd[t] == 0) {
+          ok = false;
+        } else {
+          float self = a.pmg[(size_t)p * G + g] ? 1.f : 0.f;
+          float nw = cnt + self;
+          ok = dom >= 0 && (nw - terms->min[t]) <= (float)skew;
+        }
+        if (!ok) e.pass &= ~(1u << KSIM_PLUGIN_SPREAD);
+      } else if (SCORES) {
+        sp_raw = sp_raw + (cnt * lab.sp_w[g] + (float)(skew - 1));
+        if (dom < 0) e.ign = true;
+      }
+    }
+    if (SCORES) e.sp_raw = floorf(sp_raw + 0.5f);
+  }
+  return e;
+}

@@ -1,9 +1,10 @@
 """Scheduler configuration.
 
 Counterpart: ``kubernetes_simulator_tpu/framework/framework.py`` — the
-plugin list and Score weights of its :class:`FrameworkConfig` (its
-``enable_preemption`` and ``profile`` switches select modes the port does
-not carry yet). The JAX package's host ``SchedulerFramework`` (the numpy
+plugin list and Score weights of its :class:`FrameworkConfig`, and its
+``enable_preemption`` switch (``profile.preemption``), which only the
+reference's CPU event engine reads (its PostFilter); the port does not
+carry that engine yet. The JAX package's host ``SchedulerFramework`` (the numpy
 per-plugin chain) has its PyTorch counterpart in :mod:`..ops.reference`.
 """
 
@@ -17,3 +18,5 @@ from typing import Dict, List, Optional
 class FrameworkConfig:
     plugins: Optional[List[dict]] = None  # [{"name":..., "args": {...}}]
     weights: Optional[Dict[str, float]] = None  # Score weights by plugin name
+    # PostFilter preemption of the CPU event engine (profile.preemption).
+    enable_preemption: bool = True

@@ -1,6 +1,6 @@
 """The replay's hand-written Hopper kernels: build, binding and wrappers.
 
-Four CUDA C++ kernels (``csrc/*.cu``, compiled for ``sm_90a``) carry the
+Five CUDA C++ kernels (``csrc/*.cu``, compiled for ``sm_90a``) carry the
 device work of the replay and of the scenario-batched what-if: every
 kernel takes the S-stacked tables of :mod:`.reference` (the
 single-scenario replay is S = 1) and runs each scenario in its own
@@ -23,7 +23,16 @@ wrapper                       replaces (kubernetes_simulator_tpu/...)
 :func:`retry_boundary` (K4)   sim/whatif.py:1456-1497, the boundary
                               bookkeeping of the retry variant of
                               _build_chunk_fn (pending list, compaction)
+:func:`first_reject` (K5)     ops/tpu.py:816 first_reject_counts over
+                              eval_pod(want_masks=True) (sim/jax_runtime.py
+                              :270, :405), and the retry pass's host
+                              attribution (sim/boundary.py:563-582)
+:func:`first_reject_fold`     K5 as the retry path's chunk fold
+                              (sim/boundary.py:360-398), counted apart
 ============================  ================================================
+
+K5 runs only at telemetry ``series``/``timeline``: the default ``summary``
+launches K1–K4 as before.
 
 Under the retry buffer (a Tables with ``retry``) K1–K3 also take one pod
 per scenario (the retry pass), K3 appends failed non-gang pods to the
@@ -89,6 +98,7 @@ KERNELS = {
     "normalize_select": "normalize_select.cu",
     "apply_placements": "apply_placements.cu",
     "retry_boundary": "retry_boundary.cu",
+    "first_reject": "first_reject.cu",
 }
 
 #: argtypes of each C entry point (every one returns a cudaError_t as int)
@@ -103,6 +113,9 @@ _ARGTYPES = {
     "apply_placements": [_P, _P, _LL, _P, _P, _I, _LL, _F, _I, _I, _P, _I, _I, _P],
     # (args, b, t_b, stream)
     "retry_boundary": [_P, _I, _F, _P],
+    # (args, pods, pod_ss, M, gate, gate_ss, reasons, attempts, attributed, K, attr_ss,
+    #  stream)
+    "first_reject": [_P, _P, _LL, _I, _P, _LL, _P, _P, _P, _I, _LL, _P],
 }
 
 _MAX_SEG = 16
@@ -385,9 +398,27 @@ def pack_args(tb: ref.Tables, res_w: torch.Tensor) -> KsimArgs:
     return a
 
 
+def check_reject(tb: ref.Tables) -> None:
+    """The reject counters of a Tables, as K5 takes them: contiguous
+    ``[S, K]`` i32 reasons / attempts and ``[S, P]`` u8 episode marks on
+    the state's device, K the number of Filter plugins that are on."""
+    rj, k = tb.reject, tb.consts
+    S = tb.state.used.shape[0]
+    K_, P = rj.reasons.shape[1], tb.pods.group_id.shape[0]
+    for name, t, shape, dt in (("reasons", rj.reasons, (S, K_), torch.int32),
+                               ("attempts", rj.attempts, (S, K_), torch.int32),
+                               ("attributed", rj.attributed, (S, P), torch.uint8)):
+        if (tuple(t.shape) != shape or t.dtype != dt or t.device != tb.state.used.device
+                or not t.is_contiguous()):
+            raise ValueError(f"reject.{name}: expected contiguous {dt} {shape}")
+    if not 0 < K_ == sum(map(bool, (k.fit, k.taints, k.node_affinity, k.interpod, k.spread))):
+        raise ValueError(f"reject tables of {K_} plugins for a step with another number on")
+
+
 class Bound:
     """A Tables plus, on a CUDA device, its packed argument block — what
-    the wrappers take."""
+    the wrappers take. The tables are checked here, once; the wrappers
+    check what each call adds."""
 
     def __init__(self, tb: ref.Tables):
         self.tables = tb
@@ -399,6 +430,8 @@ class Bound:
             self._res_w = torch.tensor(tb.consts.res_w, dtype=torch.float32, device=c.device)
             self.args = pack_args(tb, self._res_w)
             self._args_ptr = ctypes.addressof(self.args)
+            if tb.reject is not None:
+                check_reject(tb)
 
 
 def _stream() -> int:
@@ -546,7 +579,60 @@ def retry_boundary(b: Bound, bnd: int, t_b: float) -> None:
     retry_boundary.launches += 1
 
 
-WRAPPERS = (filter_score, normalize_select, apply_placements, retry_boundary)
+def _launch_first_reject(b: Bound, pod_ids: torch.Tensor, gate: torch.Tensor) -> bool:
+    """K5 over M slots into ``b.tables.reject`` (see :func:`first_reject`);
+    True when the kernel was launched."""
+    rj = b.tables.reject
+    if rj is None:
+        raise ValueError("first_reject needs reject tables")
+    S = b.tables.state.used.shape[0]
+    dev = b.tables.state.used.device
+    M = gate.shape[-1]
+    per_scenario = pod_ids.dim() == 2
+    if gate.dim() != 2 or gate.shape[0] != S or pod_ids.shape[-1] != M or (
+            per_scenario and pod_ids.shape[0] != S):
+        raise ValueError(f"gate must be [{S}, M] and pod_ids [M] or [{S}, M]")
+    for name, t in (("pod_ids", pod_ids), ("gate", gate)):
+        if t.dtype != torch.int32 or t.device != dev or (M > 1 and t.stride(-1) != 1):
+            raise ValueError(f"{name} must be int32 rows of unit stride on the tables' device")
+    if M == 0:
+        return False
+    _check(_libs["first_reject"](
+        b._args_ptr, pod_ids.data_ptr(), pod_ids.stride(0) if per_scenario else 0, int(M),
+        gate.data_ptr(), gate.stride(0), rj.reasons.data_ptr(), rj.attempts.data_ptr(),
+        rj.attributed.data_ptr(), rj.reasons.shape[1], rj.attributed.shape[1], _stream()),
+        "first_reject")
+    return True
+
+
+def first_reject(b: Bound, pod_ids: torch.Tensor, gate: torch.Tensor) -> None:
+    """K5: first-reject attribution of M slots in every scenario, into
+    ``b.tables.reject``: the pod of slot m (``pod_ids [M]`` shared, or
+    ``[S, M]`` one per scenario) is charged where its gate choice
+    (``gate [S, M]``, a view of a choice buffer) is PAD and no node passes
+    every Filter at the tables' state — ``attempts`` always, ``reasons``
+    and the episode mark on its first charge. The per-slot use (plain
+    path, retry pass)."""
+    if not b.cuda:
+        ref.first_reject(b.tables, pod_ids, gate)
+        return
+    if _launch_first_reject(b, pod_ids, gate):
+        first_reject.launches += 1
+
+
+def first_reject_fold(b: Bound, pod_ids: torch.Tensor, gate: torch.Tensor) -> None:
+    """K5 as the retry path's chunk fold: a chunk's C·W slots in one launch
+    against the chunk-start planes ``b`` holds (:func:`first_reject`'s
+    kernel, counted apart)."""
+    if not b.cuda:
+        ref.first_reject(b.tables, pod_ids, gate)
+        return
+    if _launch_first_reject(b, pod_ids, gate):
+        first_reject_fold.launches += 1
+
+
+WRAPPERS = (filter_score, normalize_select, apply_placements, retry_boundary, first_reject,
+            first_reject_fold)
 
 
 def reset_launch_counts() -> None:

@@ -21,6 +21,11 @@ Three functions are the plain twins of the hand-written kernels in
   every scenario's carried state (bind, gang rollback, completion
   release), each scenario's node read from its row of the choice buffer.
 
+The fifth twin, :func:`first_reject` (K5, ``csrc/first_reject.cu``), is
+the series telemetry's first-reject attribution: the per-plugin Filter
+masks of failed slots, in ``spec_plugin_names`` order, counted into the
+Tables' ``reject`` counters.
+
 Under the unschedulable-retry buffer (a Tables with ``retry``) the three
 take one pod per scenario (the retry pass over the buffer), K3 also
 appends a failed non-gang pod to its scenario's buffer and releases the
@@ -251,6 +256,29 @@ def new_retry(RB: int, duration: np.ndarray, tbt: np.ndarray, S: int, device) ->
     )
 
 
+class Reject(NamedTuple):
+    """First-reject attribution of S scenarios (telemetry ``series``: the
+    carried ``[K]`` counters of kubernetes_simulator_tpu/sim/jax_runtime.py
+    :405 make_wave_step_rej, and the episode set of sim/telemetry.py:338
+    TelemetryCollector), in ``spec_plugin_names`` order. None in a Tables
+    when attribution is off.
+
+    An episode ends with a bind or an eviction. The port runs neither kube
+    preemption nor chaos yet, so an episode ends only with a bind, after
+    which the pod is never attempted again: ``attributed`` needs no
+    clearing. Kube preemption (queue A item 6a) will clear it for victims."""
+
+    reasons: torch.Tensor  # [S, K] i32 per unschedulable episode
+    attempts: torch.Tensor  # [S, K] i32 per failed attempt
+    attributed: torch.Tensor  # [S, P] u8 the pod's episode is charged to reasons
+
+
+def new_reject(K: int, P: int, S: int, device) -> Reject:
+    """Zero counters of K plugins for S scenarios of P pods on ``device``."""
+    z = lambda *shape, dt=torch.int32: torch.zeros(shape, dtype=dt, device=device)
+    return Reject(reasons=z(S, K), attempts=z(S, K), attributed=z(S, P, dt=torch.uint8))
+
+
 class Tables(NamedTuple):
     """Everything a slot step reads or writes, on one device."""
 
@@ -261,6 +289,7 @@ class Tables(NamedTuple):
     consts: StepConsts
     preempt: Optional[Preempt] = None
     retry: Optional[Retry] = None
+    reject: Optional[Reject] = None
 
 
 def _scenario_subset(tb: Tables, idx: torch.Tensor) -> Tables:
@@ -1096,3 +1125,71 @@ def retry_boundary(tb: Tables, b: int, t_b: float) -> None:
     rt.rbuf.copy_(torch.where(torch.gather(keep_q, 1, oq), torch.gather(rbuf, 1, oq),
                               torch.full_like(rbuf, PAD)))
     rt.rcount.copy_(keep_q.sum(dim=1).to(torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# First-reject attribution (K5 twin)
+# ---------------------------------------------------------------------------
+
+
+def filter_masks(tb: Tables, p: int) -> list:
+    """The Filter masks of pod ``p`` in every scenario (``[S, N]`` bool
+    each), one per plugin that is on, in ``spec_plugin_names`` order —
+    the ``masks`` of eval_pod(want_masks=True)
+    (kubernetes_simulator_tpu/sim/jax_runtime.py:270), from the same
+    per-plugin functions :func:`filter_score` ANDs."""
+    cl, pods, st, k = tb.cluster, tb.pods, tb.state, tb.consts
+    S, N = st.used.shape[:2]
+    full = lambda m: m.expand(S, N)  # a [1, N] mask of shared inputs broadcasts
+    out = []
+    if k.fit:
+        out.append(full(fit_mask(cl, st, pods, p)))
+    if k.taints:
+        out.append(full(taint_mask(cl, pods, p)))
+    if k.node_affinity:
+        out.append(full(node_affinity_mask(cl, pods, p)))
+    if k.interpod:
+        out.append(full(interpod_filter_mask(cl, st, pods, p)))
+    if k.spread:
+        out.append(full(spread_filter_mask(cl, st, pods, p)))
+    return out
+
+
+def first_reject_counts(masks) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(``[S, K]`` i32 nodes each plugin rejects first, ``[S]`` bool some
+    node passes every plugin) of ordered ``[S, N]`` masks
+    (kubernetes_simulator_tpu/ops/tpu.py:816 first_reject_counts, per
+    scenario and ungated)."""
+    so_far = torch.ones_like(masks[0])
+    outs = []
+    for m in masks:
+        outs.append((so_far & ~m).sum(dim=-1).to(torch.int32))
+        so_far = so_far & m
+    return torch.stack(outs, dim=-1), so_far.any(dim=-1)
+
+
+def first_reject(tb: Tables, pod_ids: torch.Tensor, gate: torch.Tensor) -> None:
+    """Plain twin of K5 (csrc/first_reject.cu): for each of M slots, pod
+    ``pod_ids[m]`` (``[M]``, shared) or ``pod_ids[s, m]`` (``[S, M]``, one
+    pod per scenario: the retry pass), in each scenario s where the pod is
+    valid, its gate choice ``gate[s, m]`` is PAD and no node passes every
+    Filter at ``tb.state``: add the first-reject counts to
+    ``tb.reject.attempts[s]`` and, when the pod's episode is not charged
+    yet, to ``reasons[s]`` and mark it (sim/telemetry.py:338-404). Slots
+    are taken in order (a pod occurs in at most one slot per call)."""
+    rj = tb.reject
+    S = gate.shape[0]
+    for m in range(gate.shape[1]):
+        col = pod_ids[:, m] if pod_ids.dim() == 2 else pod_ids[m].expand(S)
+        for q, idx in _pods_of_scenarios(col):
+            fail = gate[idx, m] < 0
+            if not bool(fail.any()):
+                continue
+            sub = _scenario_subset(tb, idx)
+            counts, feasible = first_reject_counts(filter_masks(sub, q))
+            charge = fail & ~feasible
+            new = charge & (rj.attributed[idx, q] == 0)
+            rj.attempts[idx] += torch.where(charge[:, None], counts, torch.zeros_like(counts))
+            rj.reasons[idx] += torch.where(new[:, None], counts, torch.zeros_like(counts))
+            rj.attributed[idx, q] = torch.where(new, torch.ones_like(rj.attributed[idx, q]),
+                                                rj.attributed[idx, q])

@@ -75,9 +75,9 @@ from ..models.state import SchedState, init_state
 from ..ops import kernels as K
 from ..ops import reference as ref
 from ..plugins.builtin import DEFAULT_WEIGHTS, PLUGIN_NAMES
-from ..utils.metrics import fragmentation_gauges, utilization_means
+from ..utils.metrics import fragmentation_gauges, log, series_gauges, utilization_means
 from .runtime import ReplayResult
-from .telemetry import PhaseTimers, ReplayTelemetry, first_bind_latency, resolve_granularity
+from .telemetry import TelemetryCollector, TelemetryConfig, resolve_granularity
 from .tiers import check_tier_mode, normalize_preemption, tier_planes
 from .waves import pack_waves
 
@@ -251,6 +251,25 @@ def _spread_w_table(ec: EncodedCluster) -> Tuple[float, ...]:
     """[G] upstream topologyNormalizingWeight (log(size + 2)) per group:
     f64 log cast once to f32."""
     return tuple(float(x) for x in ref.group_domains(ec)[2])
+
+
+def spec_plugin_names(spec: StepSpec) -> Tuple[str, ...]:
+    """Filter plugins that are on, in evaluation order: the key order of
+    the first-reject counters (kubernetes_simulator_tpu/sim/jax_runtime.py
+    :251), K5's plugin order (csrc/ksim.cuh KSIM_PLUGIN_*) and
+    :func:`..ops.reference.filter_masks`'."""
+    names = []
+    if spec.fit:
+        names.append("NodeResourcesFit")
+    if spec.taints:
+        names.append("TaintToleration")
+    if spec.node_affinity:
+        names.append("NodeAffinity")
+    if spec.interpod:
+        names.append("InterPodAffinity")
+    if spec.spread:
+        names.append("PodTopologySpread")
+    return tuple(names)
 
 
 def wave_start_times(pods: EncodedPods, idx: np.ndarray) -> np.ndarray:
@@ -441,25 +460,71 @@ def retry_slots(plan: ChunkPlan, b: int, RB: int) -> int:
     return min(RB, int(plan.nongang_before[b]))
 
 
+@dataclass
+class Series:
+    """The device side of telemetry ``series``/``timeline`` in one run of S
+    scenarios over the plan's B boundaries (kubernetes_simulator_tpu/sim/
+    jax_runtime.py:2117-2160, :2343-2366; sim/boundary.py:360-398,
+    :563-668). Nothing here synchronises: the samples are device-to-device
+    copies, read after the run's one fetch.
+
+    - ``attribute``: K5 first-reject attribution into the Tables'
+      ``reject`` counters (off under tier preemption, as the reference's);
+    - ``fold``: the retry path's form of it — a chunk's failed slots
+      charged after its last wave against ``snap``, the planes at its
+      start, and each failed retry-pass attempt at its own state; without
+      ``fold`` (the plain path) each slot is charged right after its K2;
+    - ``used`` / ``rcount`` / ``pend``: ``used``, the buffer's length and
+      the pending list after each boundary with a finite start time
+      (releases and retry sequence done), for the host's series gauges."""
+
+    attribute: bool
+    fold: bool
+    snap: Optional[ref.DevState]
+    used: torch.Tensor  # [B, S, N, R] f32
+    rcount: Optional[torch.Tensor] = None  # [B, S] i32
+    pend: Optional[torch.Tensor] = None  # [B, S, RB] i32
+
+
+def new_series(plan: ChunkPlan, tb: ref.Tables, attribute: bool) -> Series:
+    """Zeroed series buffers for a run of ``plan`` over ``tb``."""
+    B = len(plan.buckets)
+    st, rt = tb.state, tb.retry
+    fold = attribute and rt is not None
+    return Series(
+        attribute=attribute, fold=fold,
+        snap=ref.DevState(*(torch.empty_like(x) for x in st)) if fold else None,
+        used=torch.zeros((B,) + tuple(st.used.shape), dtype=torch.float32,
+                         device=st.used.device),
+        rcount=(torch.zeros((B,) + tuple(rt.rcount.shape), dtype=torch.int32,
+                            device=st.used.device) if rt is not None else None),
+        pend=(torch.full((B,) + tuple(rt.pend_id.shape), PAD, dtype=torch.int32,
+                         device=st.used.device) if rt is not None else None),
+    )
+
+
 def run_retry_boundary(plan: ChunkPlan, b: int, h, fns, rt: ref.Retry,
-                       pos_rb: torch.Tensor) -> None:
+                       pos_rb: torch.Tensor, reject=None) -> None:
     """Boundary b's retry sequence (after its static release): the K3
     release of the pending list's due entries, the retry pass — K1 → K2
-    → K3 bind over each buffer slot that may hold a pod, one pod per
-    scenario (a scenario whose slot is empty does nothing) — and K4."""
-    filter_score, normalize_select, apply_placements, retry_boundary = fns
+    (→ K5 ``reject``, series telemetry) → K3 bind over each buffer slot
+    that may hold a pod, one pod per scenario (a scenario whose slot is
+    empty does nothing) — and K4."""
+    filter_score, normalize_select, apply_placements, retry_boundary = fns[:4]
     RB = rt.rbuf.shape[1]
     apply_placements(h, rt.pend_id, pos_rb, rt.pend_node, -1.0, due=(rt.pend_relb, b))
     for k in range(retry_slots(plan, b, RB)):
         pod_of_s = rt.rbuf[:, k]
         filter_score(h, PAD, pod_of_s)
         normalize_select(h, PAD, rt.rchoice, k, -1, pod_of_s)
+        if reject is not None:
+            reject(h, rt.rbuf[:, k : k + 1], rt.rchoice[:, k : k + 1])
         apply_placements(h, rt.rbuf[:, k : k + 1], pos_rb[k : k + 1], rt.rchoice, 1.0)
     retry_boundary(h, b, float(np.float32(plan.tb[b])))
 
 
 def run_waves(plan: ChunkPlan, tb: ref.Tables, choices: torch.Tensor, first: int, end: int,
-              plain: bool) -> None:
+              plain: bool, ser: Optional[Series] = None) -> None:
     """Enqueue waves ``[first, end)`` of ``plan`` over the S scenarios of
     ``tb`` (state and ``choices`` updated in place, no synchronisation):
     the release bucket of a boundary where a chunk starts, then (under the
@@ -468,16 +533,26 @@ def run_waves(plan: ChunkPlan, tb: ref.Tables, choices: torch.Tensor, first: int
     appends a failed non-gang pod to the buffer), and a K3 rollback after
     a wave holding a gang member. ``plain`` runs the plain twins on any
     device; otherwise the kernel wrappers run (the kernels for CUDA
-    tensors, the twins for CPU tensors)."""
+    tensors, the twins for CPU tensors).
+
+    With ``ser`` (telemetry series, :class:`Series`) each boundary also
+    copies its samples, and K5 attributes failures: on the plain path
+    after each slot's K2; on the retry path in each retry-pass slot and,
+    for a chunk's failed slots, in one launch when the chunk is done (at
+    the next boundary, before its releases, or at the run's end) against
+    the chunk's start planes, copied at each boundary. The order is the
+    reference's: chunk b−1's fold precedes boundary b's releases and retry
+    pass (sim/jax_runtime.py:1716-1745)."""
     dev = tb.state.used.device
     idx, C = plan.idx, plan.C
     W = idx.shape[1]
     if plain:
         fns = (ref.filter_score, ref.normalize_select, ref.apply_placements,
-               ref.retry_boundary)
+               ref.retry_boundary, ref.first_reject, ref.first_reject)
         h = tb
     else:
-        fns = (K.filter_score, K.normalize_select, K.apply_placements, K.retry_boundary)
+        fns = (K.filter_score, K.normalize_select, K.apply_placements, K.retry_boundary,
+               K.first_reject, K.first_reject_fold)
         h = K.Bound(tb)
     filter_score, normalize_select, apply_placements = fns[:3]
     rt = tb.retry
@@ -494,12 +569,36 @@ def run_waves(plan: ChunkPlan, tb: ref.Tables, choices: torch.Tensor, first: int
     gang_wave = plan.gang_wave.tolist()
     preempt = tb.preempt is not None
     append = rt is not None
+    reject = fns[4] if ser is not None and ser.attribute else None
+    slot_reject = reject if ser is not None and not ser.fold else None
+    fold_reject = fns[5]
+    CW = C * W
+    if ser is not None and ser.fold:
+        snap_tb = tb._replace(state=ser.snap)
+        h_snap = snap_tb if plain else K.Bound(snap_tb)
+
+    def fold(c: int) -> None:
+        cols = slice(c * CW, (c + 1) * CW)
+        fold_reject(h_snap, idx_dev[cols], choices[:, cols])
+
     for w in range(first, end):
         b = w // C
-        if w % C == 0 and b in buckets:
-            apply_placements(h, buckets[b][0], buckets[b][1], choices, -1.0)
-        if w % C == 0 and rt is not None and b > 0:
-            run_retry_boundary(plan, b, h, fns, rt, pos_rb)
+        if w % C == 0:
+            if ser is not None and ser.fold and b > 0:
+                fold(b - 1)
+            if b in buckets:
+                apply_placements(h, buckets[b][0], buckets[b][1], choices, -1.0)
+            if rt is not None and b > 0:
+                run_retry_boundary(plan, b, h, fns, rt, pos_rb, reject)
+            if ser is not None:
+                if np.isfinite(plan.tb[b]):
+                    ser.used[b].copy_(tb.state.used)
+                    if rt is not None:
+                        ser.rcount[b].copy_(rt.rcount)
+                        ser.pend[b].copy_(rt.pend_id)
+                if ser.fold:
+                    for dst, src in zip(ser.snap, tb.state):
+                        dst.copy_(src)
         base = w * W
         for k, p in enumerate(rows[w]):
             if p < 0:
@@ -507,15 +606,20 @@ def run_waves(plan: ChunkPlan, tb: ref.Tables, choices: torch.Tensor, first: int
             s = base + k
             filter_score(h, p)
             normalize_select(h, p, choices, s, w)
+            if slot_reject is not None:
+                slot_reject(h, idx_dev[s : s + 1], choices[:, s : s + 1])
             apply_placements(h, idx_dev[s : s + 1], pos_dev[s : s + 1], choices, 1.0,
                              boundary=b if preempt else None, append=append)
         if gang_wave[w]:
             apply_placements(h, idx_dev[base : base + W], pos_dev[base : base + W], choices,
                              -1.0, rollback=True)
+    if ser is not None and ser.fold and end == idx.shape[0] and end > first:
+        fold((end - 1) // C)
 
 
 def run_chunks(
-    plan: ChunkPlan, tb: ref.Tables, bound_node: np.ndarray, plain: bool, timers=None
+    plan: ChunkPlan, tb: ref.Tables, bound_node: np.ndarray, plain: bool, timers=None,
+    ser: Optional[Series] = None,
 ) -> np.ndarray:
     """Replay every chunk of ``plan`` over the S scenarios of ``tb`` (its
     state is updated in place) and return the host copy of the choice
@@ -523,7 +627,7 @@ def run_chunks(
     tick = timers.tick if timers is not None else (lambda name: contextlib.nullcontext())
     choices = new_choices(plan, tb.state.used.shape[0], bound_node, tb.state.used.device)
     with tick("dispatch"):
-        run_waves(plan, tb, choices, 0, plan.idx.shape[0], plain)
+        run_waves(plan, tb, choices, 0, plan.idx.shape[0], plain, ser)
     with tick("device_wait"):
         return choices.cpu().numpy()
 
@@ -620,7 +724,9 @@ class ChunkEngine:
         rows = [init_state(row_ec(r), self.pods) for r in range(nd.shape[0])]
         return tuple(np.stack([getattr(rows[r], f) for r in lrow]) for f in fields)
 
-    def _tables(self) -> ref.Tables:
+    def _tables(self, attribute: bool = False) -> ref.Tables:
+        """The tables of one run; ``attribute`` adds zeroed first-reject
+        counters (telemetry series)."""
         pre = None
         if self.tiers is not None:
             tiers, pod_tier = self.tiers
@@ -638,27 +744,29 @@ class ChunkEngine:
             state=ref.stacked_state(*self._initial_planes(), self.S, self.device),
             scratch=ref.new_scratch(self.S, self.ec.num_nodes, self.device), consts=self.consts,
             preempt=pre, retry=rt,
+            reject=(ref.new_reject(len(spec_plugin_names(self.spec)), self.pods.num_pods, self.S,
+                                   self.device) if attribute else None),
         )
 
-    def _run(self, timers=None):
+    def _run(self, timers=None, series: bool = False):
         """(tables after the run, wall seconds, assignments [S, P], placed
-        [S], pods to schedule). The tables are kept as ``last_tables``."""
-        tb = self._tables()
+        [S], pods to schedule). ``series`` takes the boundary samples and
+        the first-reject attribution (:class:`Series`; none when no Filter
+        plugin is on). The tables are kept as ``last_tables``, the fetched
+        choice buffer as ``last_choices`` and the series buffers as
+        ``last_series``."""
+        attribute = series and bool(spec_plugin_names(self.spec))
+        tb = self._tables(attribute)
         self.last_tables = tb
+        ser = new_series(self.plan, tb, attribute) if series else None
+        self.last_series = ser
         t0 = time.perf_counter()
-        host_choices = run_chunks(self.plan, tb, self.pods.bound_node, self.plain, timers)
+        host_choices = run_chunks(self.plan, tb, self.pods.bound_node, self.plain, timers, ser)
         wall = time.perf_counter() - t0
+        self.last_choices = host_choices
         rnode = tb.retry.rnode.cpu().numpy() if tb.retry is not None else None
         return (tb, wall) + assignments_from_choices(self.plan, host_choices,
                                                      self.pods.bound_node, rnode)
-
-    def _retry_waits(self, tb: ref.Tables, s: int) -> np.ndarray:
-        """Scenario s's pods placed on retry: the start time of the
-        boundary of each bind less the pod's arrival."""
-        rnode = tb.retry.rnode[s].cpu().numpy()
-        rb = tb.retry.rbind_b[s].cpu().numpy()
-        p = np.nonzero(rnode >= 0)[0]
-        return self.plan.tb[rb[p]] - self.pods.arrival[p]
 
 
 class TorchReplayEngine(ChunkEngine):
@@ -672,8 +780,20 @@ class TorchReplayEngine(ChunkEngine):
     trace has finite durations), ``retry_buffer`` and
     ``granularity_guard`` behave as in ``JaxReplayEngine``; the retry
     pass runs on the chunk grid also when no pod has a duration (nothing
-    then releases). ``telemetry`` is "off" or "summary". Every other mode
-    of the JAX engine raises ``NotImplementedError`` naming it."""
+    then releases).
+
+    ``engine`` is "v3" or "v2" (the reference's node-space chain, row B8):
+    both run on K1–K3, which commit pod by pod as v2 and greedy_replay do,
+    so the two place alike; tier preemption needs "v3", as the
+    reference's.
+
+    ``telemetry`` is "off", "summary", "series" or "timeline" (a name or
+    a :class:`..sim.telemetry.TelemetryConfig`). ``series`` adds K5's
+    first-reject attribution and the boundary-sampled series, ``timeline``
+    the bind events (kubernetes_simulator_tpu/sim/jax_runtime.py:2117-2160,
+    sim/boundary.py:360-398, :563-668); under tier preemption attribution
+    is off, as the reference's. Every other mode of the JAX engine raises
+    ``NotImplementedError`` naming it."""
 
     def __init__(
         self,
@@ -694,10 +814,10 @@ class TorchReplayEngine(ChunkEngine):
         flight_recorder=None,
         plain: bool = False,
     ):
+        if engine not in ("v2", "v3"):
+            raise ValueError(f"engine must be 'v2' or 'v3', got {engine!r}")
         rb = check_retry_buffer(retry_buffer)
         mode = tier_preemption(preemption, engine, rb, node_shards)
-        if engine != "v3":
-            raise _later(f"engine={engine!r} (the v2 node-space chain)", "queue B row B8")
         if rb and completions is False:
             raise ValueError(
                 "completions=False is not supported with retry_buffer/kube preemption (the "
@@ -709,6 +829,7 @@ class TorchReplayEngine(ChunkEngine):
             raise _later("paged=True", "the paged pod pager")
         if flight_recorder is not None:
             raise _later("flight_recorder", "the flight recorder")
+        self.engine = engine
         self.telemetry = resolve_granularity(telemetry)
         device = resolve_device(device)
         self.preemption = mode
@@ -735,8 +856,23 @@ class TorchReplayEngine(ChunkEngine):
         if node_events:
             raise _later("node_events", "chaos node events, queue A item 6")
         ep = self.pods
-        timers = PhaseTimers() if self.telemetry != "off" else None
-        tb, wall, assignments, placed_s, to_schedule = self._run(timers)
+        tcfg = TelemetryConfig.resolve(self.telemetry)
+        tel = TelemetryCollector(tcfg) if tcfg.enabled else None
+        series = tcfg.want_series and not self.preemption
+        if tcfg.want_series and self.preemption:
+            log.info(
+                "telemetry: rejection attribution is not available with in-scan tier "
+                "preemption (the attributed chain carries no tier planes) — latency/phase "
+                "telemetry still collected"
+            )
+        elif series and not self.retry_buffer and self.engine == "v3":
+            log.info(
+                "telemetry series: the plain v3 replay attributes rejections in-scan as the "
+                "reference (v2) chunk program does — K5 after each slot's K2 on the "
+                "pod-by-pod K1–K3 chain; placements are bit-identical"
+            )
+        tb, wall, assignments, placed_s, to_schedule = self._run(
+            tel.phases if tel is not None else None, series=series)
         assignments = assignments[0]
         placed = int(placed_s[0])
 
@@ -754,14 +890,8 @@ class TorchReplayEngine(ChunkEngine):
         frag = fragmentation_gauges(
             self.ec.allocatable, used, ep.requests[pending_m], self.ec.vocab._r
         )
-        tel = None
-        if timers is not None:
-            tel = ReplayTelemetry(
-                granularity=self.telemetry,
-                latency=first_bind_latency(
-                    placed, self._retry_waits(tb, 0) if tb.retry is not None else ()),
-                phases=timers.summary(),
-            )
+        if tel is not None:
+            self._collect(tel, tb, placed)
         return ReplayResult(
             assignments=assignments,
             placed=placed,
@@ -775,8 +905,64 @@ class TorchReplayEngine(ChunkEngine):
             utilization=util,
             state=host_state,
             fragmentation=frag,
-            telemetry=tel,
+            telemetry=tel.result() if tel is not None else None,
         )
+
+    def _collect(self, tel: TelemetryCollector, tb: ref.Tables, placed: int) -> None:
+        """Fill ``tel`` from the fetched run (host work, no device step):
+        first-bind latencies, K5's counters, the series gauges (the
+        reference's f64 ``series_gauges`` of each boundary's copied
+        ``used``) and, at ``timeline``, the bind events in the reference's
+        fold order: per chunk c, boundary c's retried binds (at its start
+        time, buffer order, which is slot order) and then chunk c's
+        wave-placed pods (at their arrival, slot order)."""
+        plan, ep, rt = self.plan, self.pods, tb.retry
+        order = np.zeros(0, np.int64)
+        if rt is not None:
+            rnode = rt.rnode[0].cpu().numpy()
+            rbind_b = rt.rbind_b[0].cpu().numpy()
+            flat = plan.idx.reshape(-1)
+            pos_of = np.full(ep.num_pods, -1, np.int64)
+            pos_of[flat[flat >= 0]] = np.nonzero(flat >= 0)[0]
+            retried = np.nonzero(rnode >= 0)[0]
+            order = retried[np.lexsort((pos_of[retried], rbind_b[retried]))]
+            later = 0
+            for p in order.tolist():
+                lat = float(plan.tb[rbind_b[p]]) - float(ep.arrival[p])
+                if lat > 0.0:
+                    tel.bind_latency(p, lat)
+                    later += 1
+            tel.bind_zero(placed - later)
+        else:
+            tel.bind_zero(placed)
+        if tb.reject is not None:
+            tel.rejection_totals(spec_plugin_names(self.spec),
+                                 tb.reject.reasons[0].cpu().numpy(),
+                                 tb.reject.attempts[0].cpu().numpy())
+        ser = self.last_series
+        if ser is not None:
+            used = ser.used[:, 0].cpu().numpy()
+            rcount = ser.rcount[:, 0].cpu().numpy() if ser.rcount is not None else None
+            pend = (ser.pend[:, 0] >= 0).sum(dim=1).cpu().numpy() if ser.pend is not None else None
+            for b in range(len(plan.buckets)):
+                if not np.isfinite(plan.tb[b]):
+                    continue
+                depths = ({} if rcount is None
+                          else dict(retry_depth=int(rcount[b]), pend_depth=int(pend[b])))
+                tel.sample(float(plan.tb[b]), **depths,
+                           **series_gauges(used[b], self.ec.allocatable, self.ec.vocab._r))
+        if tel.cfg.want_timeline and rt is not None:
+            ch = self.last_choices[0, : plan.idx.size]
+            flat = plan.idx.reshape(-1)
+            CW = plan.C * plan.idx.shape[1]
+            bnd = rbind_b[order]
+            for c in range(len(plan.buckets)):
+                for p in order[bnd == c].tolist():
+                    tel.event("bind", float(plan.tb[c]), p, int(rnode[p]))
+                pods, nodes = flat[c * CW : (c + 1) * CW], ch[c * CW : (c + 1) * CW]
+                m = (pods >= 0) & (nodes >= 0)
+                for p, n in zip(pods[m].tolist(), nodes[m].tolist()):
+                    tel.event("bind", float(ep.arrival[p]), p, n)
 
 
 @register_strategy("torch")

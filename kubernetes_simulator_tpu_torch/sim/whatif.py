@@ -85,7 +85,7 @@ from ..models.core import Effect
 from ..models.encode import PAD, EncodedCluster, EncodedPods
 from ..ops import reference as ref
 from ..utils.metrics import log
-from .telemetry import resolve_granularity
+from .telemetry import PhaseTimers, ReplayTelemetry, resolve_granularity
 from .tiers import DMAX_COARSE, nonsingleton_host_rows
 from .torch_runtime import (
     ChunkEngine,
@@ -337,7 +337,8 @@ class WhatIfResult:
     """The reference's result record. This engine fills ``placed``,
     ``unschedulable``, ``total_placed``, ``wall_clock_s``,
     ``placements_per_sec``, ``assignments`` (when collected),
-    ``utilization_cpu``, ``completions_on``, ``engine``, under tier
+    ``utilization_cpu``, ``completions_on``, ``engine``,
+    ``fleet_telemetry`` (above telemetry "off"), under tier
     preemption ``preemptions`` (victims per scenario) and under the retry
     buffer ``retry_dropped`` (failures dropped on a full buffer, per
     scenario); the fields of modes not ported yet stay None."""
@@ -379,7 +380,9 @@ class WhatIfEngine(ChunkEngine):
     finite durations), ``retry_buffer``, ``granularity_guard`` and
     ``collect_assignments`` behave as in the JAX engine; the result is the
     same whether or not the assignments are collected. ``telemetry`` is
-    "off" or "summary".
+    any granularity; above "off" the result's ``fleet_telemetry`` carries
+    it and the batch's phase timers, and, as the reference's batch off the
+    kube path, no per-scenario reasons or series.
     Every other mode raises ``NotImplementedError`` naming its queue
     item."""
 
@@ -451,9 +454,10 @@ class WhatIfEngine(ChunkEngine):
             raise _later("_dcn_recovery (the multi-process fleet)", "queue A item 11")
         if any(sc.events for sc in scenarios):
             raise _later("Scenario.events (per-scenario chaos timelines)", "queue A item 7")
-        if telemetry in ("series", "timeline"):
-            raise _later(f"telemetry={telemetry!r} (rejection attribution, row B9)",
-                         "queue A item 6")
+        # Off the kube path the reference's batch collects the same at every
+        # granularity above "off": the batch's phase timers in one fleet
+        # telemetry and no per-scenario reasons (those come from the kube
+        # mirrors, sim/whatif.py:2847-2863, :3576-3588).
         self.telemetry = resolve_granularity(telemetry)
         device = resolve_device(device)
         self.collect_assignments = bool(collect_assignments)
@@ -522,7 +526,8 @@ class WhatIfEngine(ChunkEngine):
         return frac.mean(dim=1).cpu().numpy()
 
     def run(self) -> WhatIfResult:
-        tb, wall, assignments, placed, to_schedule = self._run()
+        timers = PhaseTimers() if self.telemetry != "off" else None
+        tb, wall, assignments, placed, to_schedule = self._run(timers)
         total = int(placed.sum())
         return WhatIfResult(
             placed=placed,
@@ -536,6 +541,8 @@ class WhatIfEngine(ChunkEngine):
             engine=self.engine,
             preemptions=(tb.preempt.victims.cpu().numpy() if tb.preempt is not None else None),
             retry_dropped=(tb.retry.rdrop.cpu().numpy() if tb.retry is not None else None),
+            fleet_telemetry=(ReplayTelemetry(granularity=self.telemetry, phases=timers.summary())
+                             if timers is not None else None),
         )
 
 

@@ -3,7 +3,11 @@
 Counterpart: ``kubernetes_simulator_tpu/utils/config.py`` (``SimConfig``,
 ``WhatIfSpec``, ``build_case``, ``build_encoded_case``) — the sections the
 port runs: the synthetic ``cluster``/``workload``, the ``profile``
-(plugins, weights), ``telemetry``, ``output``, ``waveWidth``,
+(plugins, weights, ``preemption``), ``telemetry`` (with ``timelineOut``,
+which promotes the granularity to ``timeline``), ``output``,
+``strategy`` (``jax`` and ``torch`` run the port's engine; ``cpu``, the
+reference's CPU event engine, is refused by name; a config without the key
+runs the port's engine), ``waveWidth``,
 ``chunkWaves``, ``devicePreemption`` (``true`` / ``"tier"``: tier
 preemption; ``"kube"`` is refused) and ``whatIf`` (``scenarios``,
 ``seed``, ``nodeDownP``, ``capacityP``, ``taintP``, ``completions``,
@@ -87,6 +91,27 @@ _REFUSED_SECTIONS = {
 }
 
 
+#: Strategies whose configs the port runs on its engine (the reference's
+#: device strategy and the port's own).
+STRATEGIES = ("jax", "torch")
+
+
+def _strategy(v) -> str:
+    """``strategy:`` of a config: ``jax`` / ``torch`` run; ``cpu`` (the
+    reference's default, its CPU event engine with the PostFilter) is not
+    ported; any other name raises as the reference's registry does."""
+    s = "torch" if v is None else str(v)
+    if s == "cpu":
+        raise NotImplementedError(
+            "strategy 'cpu' (the CPU event engine, CpuReplayEngine, with its PostFilter "
+            "preemption) is not ported yet (queue A item 13); run it with the JAX package "
+            "(python -m kubernetes_simulator_tpu), or set strategy: jax"
+        )
+    if s not in STRATEGIES:
+        raise KeyError(f"unknown strategy {s!r}; registered: {sorted(STRATEGIES + ('cpu',))}")
+    return s
+
+
 def _refuse(section: str, what: str) -> None:
     raise NotImplementedError(
         f"config section {section!r} ({what}) is not supported by the "
@@ -102,6 +127,8 @@ class SimConfig:
     workload: SyntheticWorkloadSpec = field(default_factory=SyntheticWorkloadSpec)
     framework: FrameworkConfig = field(default_factory=FrameworkConfig)
     telemetry: str = "summary"
+    # Chrome-trace path of the simulated cluster timeline (telemetry.timelineOut).
+    timeline_out: Optional[str] = None
     output: Optional[str] = None
     wave_width: int = 8
     chunk_waves: int = 1024
@@ -140,6 +167,7 @@ class SimConfig:
         if d.get("pagedWaves", False):
             _refuse("pagedWaves", "paged pod waves")
         cfg = cls()
+        cfg.strategy = _strategy(d.get("strategy"))
         cl = d.get("cluster", {})
         syn = cl.get("synthetic", cl) or {}
         cfg.cluster = SyntheticClusterSpec(
@@ -167,13 +195,15 @@ class SimConfig:
         )
         prof = d.get("profile", {})
         cfg.framework = FrameworkConfig(
-            plugins=prof.get("plugins"), weights=prof.get("weights")
+            plugins=prof.get("plugins"), weights=prof.get("weights"),
+            enable_preemption=bool(prof.get("preemption", True)),
         )
         tl = d.get("telemetry")
         if tl is not None:
-            if tl.get("timelineOut"):
-                _refuse("telemetry.timelineOut", "the timeline export")
             cfg.telemetry = str(tl.get("granularity", "summary"))
+            cfg.timeline_out = tl.get("timelineOut")
+            if cfg.timeline_out and cfg.telemetry != "off":
+                cfg.telemetry = "timeline"  # a timeline sink needs timeline events
         cfg.output = d.get("output")
         ww = d.get("waveWidth", 8)
         cfg.wave_width = 8 if ww == "auto" else int(ww)

@@ -2,7 +2,8 @@
 
 Counterpart: ``kubernetes_simulator_tpu/utils/metrics.py`` — what the
 ``run`` and ``what-if`` commands print: the utilization means, the
-end-of-replay fragmentation gauges, the JSONL writer, the replay row and
+telemetry series gauges (``series_gauges`` :122), the end-of-replay
+fragmentation gauges, the JSONL writer, the replay row and
 the what-if rows (``whatif_rows`` :329). The float64
 host arithmetic is the reference's, line for line, so both packages give
 the same gauges from the same committed state. The multi-process (fleet)
@@ -73,6 +74,29 @@ def utilization_means(used, allocatable, rindex) -> Dict[str, float]:
                 u = np.where(alloc > 0, used[:, ri] / np.where(alloc > 0, alloc, 1), 0)
             util[rname] = float(u.mean())
     return util
+
+
+def series_gauges(used, allocatable, rindex) -> Dict[str, float]:
+    """Per-sample utilization gauges of the telemetry series
+    (kubernetes_simulator_tpu/utils/metrics.py:122): ``util_cpu`` (mean
+    per-node CPU utilization), ``util_mem`` (only when the vocab has a
+    memory column) and ``frag_cpu`` (1 − largest free CPU block / total
+    free; 0 when nothing is free)."""
+    means = utilization_means(used, allocatable, rindex)
+    out = {"util_cpu": means.get("cpu", 0.0)}
+    if "memory" in means:
+        out["util_mem"] = means["memory"]
+    ci = rindex.get("cpu")
+    frag = 0.0
+    if ci is not None:
+        alloc = np.asarray(allocatable, dtype=np.float64)[:, ci]
+        u = np.asarray(used, dtype=np.float64)[:, ci]
+        free = np.maximum(alloc - u, 0.0)
+        total_free = float(free.sum())
+        if total_free > 0.0:
+            frag = 1.0 - float(free.max()) / total_free
+    out["frag_cpu"] = frag
+    return out
 
 
 def fragmentation_gauges(allocatable, used, pending_requests, rindex) -> dict:

@@ -125,9 +125,9 @@ def test_config_refuses_later_sections_by_name(section):
 
 @pytest.mark.parametrize(
     "kw",
-    [dict(engine="v2"), dict(preemption="kube"), dict(preemption="kube", retry_buffer=8),
-     dict(node_shards=2), dict(paged=True), dict(flight_recorder="f.jsonl"),
-     dict(telemetry="series")],
+    [dict(engine="v2", preemption="kube", retry_buffer=8), dict(preemption="kube"),
+     dict(preemption="kube", retry_buffer=8), dict(node_shards=2), dict(paged=True),
+     dict(flight_recorder="f.jsonl"), dict(telemetry="series", node_shards=2)],
 )
 def test_engine_refuses_later_modes(kw):
     from kubernetes_simulator_tpu_torch.sim.torch_runtime import TorchReplayEngine
@@ -156,13 +156,14 @@ def test_wrappers_take_the_twin_only_on_cpu():
     K.reset_launch_counts()
     TorchReplayEngine(ec, ep, device="cpu").replay()
     assert K.launch_counts() == {"filter_score": 0, "normalize_select": 0,
-                                 "apply_placements": 0, "retry_boundary": 0}
+                                 "apply_placements": 0, "retry_boundary": 0,
+                                 "first_reject": 0, "first_reject_fold": 0}
     assert np.all(np.isfinite(ec.allocatable))
 
 
 @pytest.mark.parametrize(
     "name,refused",
-    [("config1_default_cpu.yaml", None), ("config2_full_plugins_5k.yaml", None),
+    [("config1_default_cpu.yaml", "cpu"), ("config2_full_plugins_5k.yaml", None),
      ("config3_whatif_256.yaml", None), ("config8_kube_preempt.yaml", "kube")],
 )
 def test_example_configs_parse_or_refuse(name, refused):

@@ -313,7 +313,10 @@ def test_retry_kernel_path_equals_plain_path(card):
     K.reset_launch_counts()
     eng = TorchReplayEngine(ec, ep, FrameworkConfig(), device=card, **kw)
     kern = eng.replay()
-    assert all(n > 0 for n in K.launch_counts().values())
+    counts = K.launch_counts()
+    assert all(counts[k] > 0 for k in PATH_KERNELS + ("retry_boundary",))
+    # summary telemetry attributes nothing
+    assert counts["first_reject"] == counts["first_reject_fold"] == 0
     rec = cs.retry_records(eng.last_tables)
     for o in (dict(device=card, plain=True), dict(device="cpu")):
         e = TorchReplayEngine(ec, ep, FrameworkConfig(), **kw, **o)
@@ -375,3 +378,36 @@ def test_label_kernel_path_equals_plain_path(card):
     cs.check_reduced_relabel(results, dev=card)
     assert all(K.launch_counts()[k] > 0 for k in PATH_KERNELS)
     assert len(results["reduced_relabel"]["scenarios_moved"]) == 7
+
+
+def test_first_reject_equals_twin(card):
+    """K5 against its twin launch by launch in series replays: the plain
+    path at S=1 (after each slot's K2) and the retry path at S=4 (each
+    retry-pass slot and the chunk folds against the chunk-start planes),
+    reject counters compared after every launch; then whole series replays
+    on the kernel path equal the plain path on the card and on the CPU."""
+    from kubernetes_simulator_tpu_torch.sim.whatif import WhatIfEngine, uniform_scenarios
+
+    cs = _chip_smoke()
+    results = {}
+    ec, ep = _retry_case(4)
+    eng = TorchReplayEngine(ec, ep, FrameworkConfig(), device=card, wave_width=4, chunk_waves=3,
+                            telemetry="series")
+    n = cs.hold_first_reject("S=1 plain", eng, 0, eng.plan.idx.shape[0], card, results)
+    assert n["k5_slot"] and n["k5_charged"]
+    scen = uniform_scenarios(ec, 4, seed=1, p_node_down=0.5, p_capacity=0.5, p_taint=0.5)
+    w = WhatIfEngine(ec, ep, scen, FrameworkConfig(), wave_width=4, chunk_waves=3,
+                     retry_buffer=8, device=card)
+    n = cs.hold_first_reject("S=4 retry", w, 0, w.plan.idx.shape[0], card, results)
+    assert n["k5_fold"] and n["k5_retry"] and n["k5_charged"]
+    for kw in (dict(), dict(retry_buffer=8)):
+        K.reset_launch_counts()
+        runs = [TorchReplayEngine(ec, ep, FrameworkConfig(), wave_width=4, chunk_waves=3,
+                                  telemetry="timeline", **kw, **o).replay()
+                for o in (dict(device=card), dict(device=card, plain=True), dict(device="cpu"))]
+        counts = K.launch_counts()
+        assert counts["first_reject"] > 0
+        assert (counts["first_reject_fold"] > 0) == bool(kw)  # the fold: retry path only
+        for other in runs[1:]:
+            np.testing.assert_array_equal(runs[0].assignments, other.assignments)
+            assert cs.series_digest(runs[0].telemetry) == cs.series_digest(other.telemetry)

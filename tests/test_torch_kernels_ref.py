@@ -6,7 +6,9 @@ feasibility mask, the per-plugin normalized scores, the weighted total and
 the choice of the JAX chain (sim/jax_runtime.eval_pod + ops/tpu
 select_node), and the mask, raw scores and choice of the numpy chain
 (ops/cpu through SchedulerFramework). The K3 twin (apply_placements)
-equals models/state bind / unbind / release_delta exactly. Tolerance: none
+equals models/state bind / unbind / release_delta exactly. The K5 twin
+(first_reject) gives eval_pod(want_masks=True)'s per-plugin masks and
+ops/tpu first_reject_counts' counts. Tolerance: none
 — the scores are integer-valued f32 floor chains and the planes are sums
 of bucketed quantities, so everything compares bit for bit."""
 
@@ -24,10 +26,11 @@ from kubernetes_simulator_tpu.ops import cpu as C
 from kubernetes_simulator_tpu.ops import tpu as T
 from kubernetes_simulator_tpu.sim.jax_runtime import StepSpec as J_StepSpec
 from kubernetes_simulator_tpu.sim.jax_runtime import eval_pod
+from kubernetes_simulator_tpu.sim.jax_runtime import spec_plugin_names as j_spec_plugin_names
 from kubernetes_simulator_tpu.sim.synthetic import make_cluster, make_workload
 from kubernetes_simulator_tpu_torch.framework.framework import FrameworkConfig
 from kubernetes_simulator_tpu_torch.ops import reference as ref
-from kubernetes_simulator_tpu_torch.sim.torch_runtime import StepSpec
+from kubernetes_simulator_tpu_torch.sim.torch_runtime import StepSpec, spec_plugin_names
 
 from test_oracle_parity import random_cluster_pods
 from torch_port_case import port_case, port_state, scenario_tables
@@ -323,3 +326,111 @@ def test_batched_twins_equal_single_scenario_twins():
         assert torch.equal(ch_s[s][0], ch_b[s]), s
     _assert_slices(batched, singles, "rollback")
     assert (ch_b[1, wave.long()] == PAD).all() and (ch_b[0, wave.long()] >= 0).all()
+
+
+def _jax_masks(spec):
+    """eval_pod(want_masks=True)'s ordered per-plugin masks (jitted with the
+    cluster tensors as arguments; the masks are exact booleans)."""
+    return jax.jit(lambda dc, d, dst, s: eval_pod(dc, d, dst, s, spec, want_masks=True)[2])
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_first_reject_twin_matches_reference_counts(seed):
+    """The K5 twin op by op against ops/tpu.py:816 first_reject_counts over
+    eval_pod(want_masks=True), pod by pod at random mid-replay states (each
+    pod then bound on a random feasible node): the per-plugin masks, the
+    ungated counts, and the gated add with its episode rule (a pod no node
+    admits charges attempts on every call and reasons on the first)."""
+    cluster, pods = random_cluster_pods(seed)
+    plugins = STRATEGIES[seed]
+    ec, ep = encode(cluster, pods)
+    st = init_state(ec, ep)
+    tb = _tables(ec, ep, st, plugins)
+    pec, pep = port_case(ec, ep)
+    names = spec_plugin_names(StepSpec.from_config(pec, FrameworkConfig(plugins=plugins), pep))
+    tb = tb._replace(reject=ref.new_reject(len(names), ep.num_pods, 1, "cpu"))
+    jspec = J_StepSpec.from_config(ec, J_Config(plugins=plugins), ep)
+    assert names == j_spec_plugin_names(jspec)
+    dc = T.DevCluster.from_encoded(ec)
+    d = T.Derived.build(dc)
+    masks_of = _jax_masks(jspec)
+    slots = T.gather_slots(ep, np.arange(ep.num_pods))
+    rng = np.random.default_rng(seed + 7)
+    gate = torch.full((1, 1), PAD, dtype=torch.int32)
+    want_r = np.zeros(len(names), np.int64)
+    rejecting = 0
+    for p in range(ep.num_pods):
+        s = jax.tree.map(lambda a: a[p], slots)
+        jm = masks_of(dc, d, _jax_state(ec, st), s)
+        tm = ref.filter_masks(tb, p)
+        assert len(tm) == len(jm) == len(names)
+        for k, (a, b) in enumerate(zip(tm, jm)):
+            np.testing.assert_array_equal(a[0].numpy(), np.asarray(b), err_msg=f"p={p} {k}")
+        counts, feasible = ref.first_reject_counts(tm)
+        np.testing.assert_array_equal(counts[0].numpy(),
+                                      np.asarray(T.first_reject_counts(jm, True)))
+        failed = not bool(feasible[0])
+        want = np.asarray(T.first_reject_counts(jm, failed))
+        before = tb.reject.attempts.clone()
+        pid = torch.tensor([p], dtype=torch.int32)
+        for _ in range(2):  # a second failed attempt of the same episode
+            ref.first_reject(tb, pid, gate)
+        np.testing.assert_array_equal((tb.reject.attempts - before)[0].numpy(), 2 * want)
+        want_r += want
+        np.testing.assert_array_equal(tb.reject.reasons[0].numpy(), want_r)
+        assert int(tb.reject.attributed[0, p]) == int(failed)
+        rejecting += int(counts.sum() > 0)
+        feas = np.asarray(jm[0])
+        for m in jm[1:]:
+            feas = feas & np.asarray(m)
+        if feas.any():
+            n = int(rng.choice(np.nonzero(feas)[0]))
+            bind(ec, ep, st, p, n)
+            ref.apply_placements(
+                tb, torch.tensor([p], dtype=torch.int32), torch.tensor([0], dtype=torch.int32),
+                torch.tensor([[n]], dtype=torch.int32), 1.0)
+    assert rejecting > 0  # some plugin rejected some node
+
+
+def test_first_reject_twin_gates_and_batches():
+    """At S=3 the twin equals the S=1 twin on each scenario's tables; a
+    placed gate, a PAD pod and a pod some node admits charge nothing; per
+    scenario pods ([S, M], the retry pass) charge their own rows."""
+    ep, batched, singles = scenario_tables()
+    K_ = sum(map(bool, (batched.consts.fit, batched.consts.taints, batched.consts.node_affinity,
+                        batched.consts.interpod, batched.consts.spread)))
+    batched = batched._replace(reject=ref.new_reject(K_, ep.num_pods, 3, "cpu"))
+    singles = [tb._replace(reject=ref.new_reject(K_, ep.num_pods, 1, "cpu")) for tb in singles]
+    # Fill the state so that some pods fail: bind every pod where it fits.
+    P = ep.num_pods
+    ids = torch.arange(P, dtype=torch.int32)
+    ch_b = torch.full((3, P), PAD, dtype=torch.int32)
+    for p in range(P):
+        ref.filter_score(batched, p)
+        ref.normalize_select(batched, p, ch_b, p)
+        ref.apply_placements(batched, ids[p : p + 1], ids[p : p + 1], ch_b, 1.0)
+    for s, tb in enumerate(singles):
+        for name in ref.DevState._fields:
+            getattr(tb.state, name).copy_(getattr(batched.state, name)[s : s + 1])
+    gate = torch.full((3, P), PAD, dtype=torch.int32)
+    gate[:, ::5] = 0  # placed: never charged
+    slot_pods = ids.clone()
+    slot_pods[3] = PAD
+    ref.first_reject(batched, slot_pods, gate)
+    for s, tb in enumerate(singles):
+        ref.first_reject(tb, slot_pods, gate[s : s + 1])
+        for name in ref.Reject._fields:
+            assert torch.equal(getattr(batched.reject, name)[s : s + 1],
+                               getattr(tb.reject, name)), (s, name)
+    assert int(batched.reject.attempts.sum()) > 0
+    assert not bool(batched.reject.attributed[:, ::5].any())
+    assert not bool(batched.reject.attributed[:, 3].any())
+    # One pod per scenario: scenario s attributes pod q_s at its own state.
+    q = torch.tensor([[P - 1], [P - 2], [PAD]], dtype=torch.int32)
+    before = batched.reject.attempts.clone()
+    ref.first_reject(batched, q, torch.full((3, 1), PAD, dtype=torch.int32))
+    for s, tb in enumerate(singles):
+        if int(q[s, 0]) >= 0:
+            ref.first_reject(tb, q[s], torch.full((1, 1), PAD, dtype=torch.int32))
+        assert torch.equal(batched.reject.attempts[s : s + 1], tb.reject.attempts), s
+    assert torch.equal(batched.reject.attempts[2], before[2])

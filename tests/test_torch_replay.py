@@ -4,8 +4,8 @@ Every case of tests/test_jax_parity.py (fit-only, the full plugin set on
 seeds 0-2, gangs, infeasible-gang rollback, extended resources, chunked
 equals single-shot, the domainless-node bootstrap) and the completions
 trace of tests/test_completions_device.py: the port's assignments and
-``placed`` equal greedy_replay's and JaxReplayEngine's (engine v3)
-exactly; ``used`` agrees to atol 1e-3 and ``match_count`` to atol 1e-5 —
+``placed`` equal greedy_replay's and JaxReplayEngine's (engine v3, and
+engine v2 in ``test_parity_engine_v2``) exactly; ``used`` agrees to atol 1e-3 and ``match_count`` to atol 1e-5 —
 the tolerances of tests/test_jax_parity.py::assert_parity, which stem
 from f32 sums of bucketed quantities."""
 
@@ -50,14 +50,15 @@ def torch_replay(ec, ep, plugins=None, **kw):
 
 
 def assert_parity3(cluster, pods, plugins=None, wave_width=8, completions_chunk_waves=None,
-                   **kw):
-    """Port vs greedy_replay vs JaxReplayEngine(v3) on one case."""
+                   engine="v3", **kw):
+    """Port vs greedy_replay vs JaxReplayEngine(engine) on one case, with
+    ``engine`` on both sides."""
     ec, ep = encode(cluster, pods)
     anchor = greedy_replay(ec, ep, J_Config(plugins=plugins), wave_width=wave_width,
                            completions_chunk_waves=completions_chunk_waves)
     jax_res = JaxReplayEngine(ec, ep, J_Config(plugins=plugins), wave_width=wave_width,
-                              engine="v3", **kw).replay()
-    res = torch_replay(ec, ep, plugins, wave_width=wave_width, **kw)
+                              engine=engine, **kw).replay()
+    res = torch_replay(ec, ep, plugins, wave_width=wave_width, engine=engine, **kw)
     for name, other in (("greedy", anchor), ("jax", jax_res)):
         mismatch = np.nonzero(res.assignments != other.assignments)[0]
         assert mismatch.size == 0, (
@@ -70,28 +71,27 @@ def assert_parity3(cluster, pods, plugins=None, wave_width=8, completions_chunk_
     return res, anchor
 
 
-def test_parity_fit_only():
+def _case_fit_only():
     cluster, pods, plugins = config1(num_nodes=40, num_pods=300)
-    assert_parity3(cluster, pods, plugins)
+    return cluster, pods, plugins, {}
 
 
-@pytest.mark.parametrize("seed", range(3))
-def test_parity_full_plugin_set(seed):
+def _case_full_plugin_set(seed):
     cluster = make_cluster(25, seed=seed, taint_fraction=0.2)
     pods, _ = make_workload(
         120, seed=seed, with_affinity=True, with_spread=True, with_tolerations=True
     )
-    assert_parity3(cluster, pods)
+    return cluster, pods, None, {}
 
 
-def test_parity_with_gangs():
+def _case_gangs():
     cluster = make_cluster(15, seed=5)
     pods, meta = make_workload(80, seed=5, gang_fraction=0.2, gang_size=3)
     assert meta["num_gangs"] > 0
-    assert_parity3(cluster, pods)
+    return cluster, pods, None, {}
 
 
-def test_parity_gang_infeasible_rolls_back_identically():
+def _case_gang_infeasible():
     # A 4-pod gang of 1 cpu each can never fit two nodes of 3 cpu in all:
     # every gang rolls back at its wave boundary; the singleton fits.
     cluster = Cluster(nodes=[Node("n0", {"cpu": 2}), Node("n1", {"cpu": 1})])
@@ -102,19 +102,75 @@ def test_parity_gang_infeasible_rolls_back_identically():
         for m in range(4)
     ]
     pods.append(Pod("single", requests={"cpu": 1}, arrival_time=100.0))
-    res, _ = assert_parity3(cluster, pods, wave_width=4)
+    return cluster, pods, None, dict(wave_width=4)
+
+
+def _case_extended_resources():
+    cluster = make_cluster(20, seed=3, extended_resources={"google.com/tpu": (8, 0.3)})
+    pods, _ = make_workload(
+        100, seed=3, extended_resource=("google.com/tpu", 8, 0.3), gang_fraction=0.1,
+        gang_size=4,
+    )
+    return cluster, pods, None, {}
+
+
+def _case_completions():
+    cluster = make_cluster(12, seed=3, taint_fraction=0.2)
+    pods, _ = make_workload(
+        80, seed=3, arrival_rate=10.0, duration_mean=2.0,
+        with_affinity=True, with_spread=True, with_tolerations=True,
+    )
+    return cluster, pods, None, dict(wave_width=4, completions_chunk_waves=4, chunk_waves=4)
+
+
+#: The parity cases of this file that test_parity_engine_v2 runs with
+#: engine v2 on both sides.
+PARITY_CASES = {
+    "fit_only": _case_fit_only,
+    **{f"full_plugin_set_{s}": (lambda s=s: _case_full_plugin_set(s)) for s in range(3)},
+    "gangs": _case_gangs,
+    "gang_infeasible": _case_gang_infeasible,
+    "extended_resources": _case_extended_resources,
+    "completions": _case_completions,
+}
+
+
+def test_parity_fit_only():
+    cluster, pods, plugins, kw = _case_fit_only()
+    assert_parity3(cluster, pods, plugins, **kw)
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_parity_full_plugin_set(seed):
+    cluster, pods, plugins, kw = _case_full_plugin_set(seed)
+    assert_parity3(cluster, pods, plugins, **kw)
+
+
+def test_parity_with_gangs():
+    cluster, pods, plugins, kw = _case_gangs()
+    assert_parity3(cluster, pods, plugins, **kw)
+
+
+def test_parity_gang_infeasible_rolls_back_identically():
+    cluster, pods, plugins, kw = _case_gang_infeasible()
+    res, _ = assert_parity3(cluster, pods, plugins, **kw)
     assert res.unschedulable == 12
     assert res.assignments[-1] >= 0
     assert res.state.used[:, 0].sum() == 1.0  # only the singleton holds cpu (row 0)
 
 
 def test_parity_extended_resources_multitenant():
-    cluster = make_cluster(20, seed=3, extended_resources={"google.com/tpu": (8, 0.3)})
-    pods, _ = make_workload(
-        100, seed=3, extended_resource=("google.com/tpu", 8, 0.3), gang_fraction=0.1,
-        gang_size=4,
-    )
-    assert_parity3(cluster, pods)
+    cluster, pods, plugins, kw = _case_extended_resources()
+    assert_parity3(cluster, pods, plugins, **kw)
+
+
+@pytest.mark.parametrize("case", sorted(PARITY_CASES))
+def test_parity_engine_v2(case):
+    """engine="v2" (the reference's node-space chain, row B8) runs on the
+    port's K1–K3, which commit pod by pod as v2 does: each parity case
+    equals JaxReplayEngine(engine="v2") and greedy_replay."""
+    cluster, pods, plugins, kw = PARITY_CASES[case]()
+    assert_parity3(cluster, pods, plugins, engine="v2", **kw)
 
 
 @pytest.mark.parametrize("strategy", ["MostAllocated", "RequestedToCapacityRatio"])
@@ -163,13 +219,8 @@ def test_parity_bootstrap_on_domainless_node():
 
 
 def test_completions_parity_random():
-    cluster = make_cluster(12, seed=3, taint_fraction=0.2)
-    pods, _ = make_workload(
-        80, seed=3, arrival_rate=10.0, duration_mean=2.0,
-        with_affinity=True, with_spread=True, with_tolerations=True,
-    )
-    res, anchor = assert_parity3(cluster, pods, wave_width=4, completions_chunk_waves=4,
-                                 chunk_waves=4)
+    cluster, pods, plugins, kw = _case_completions()
+    res, anchor = assert_parity3(cluster, pods, plugins, **kw)
     # Releases must actually matter on this trace, or the test is vacuous.
     ec, ep = encode(cluster, pods)
     off = torch_replay(ec, ep, wave_width=4, chunk_waves=4, completions=False)

@@ -289,7 +289,7 @@ def _tiny():
      (dict(policies=np.zeros((2, 6), np.float32)), "queue A item 7"),
      (dict(node_shards=2), "queue A item 10"),
      (dict(_dcn_recovery={"block": (0, 1)}), "queue A item 11"),
-     (dict(telemetry="series"), "queue A item 6"),
+     (dict(telemetry="series", engine="v2"), "queue B item 2"),
      (dict(engine="v2"), "queue B item 2"),
      ("events", "queue A item 7")],
     ids=lambda v: v if isinstance(v, str) else None,
