@@ -123,7 +123,28 @@ From the root of a checkout, on a host with one CUDA card. In order:
    reference's note and placing as PREEMPT_PINS; K5 held against its twin
    launch by launch in a window of (a) at S = 1, at a fold and a retry
    pass of (c) at S = 1 and of CONFIG7's 40-node cut at S = 4, and timed
-   per launch on the plain path and as a fold.
+   per launch on the plain path and as a fold;
+22. (P1) per-scenario policy rows at full width (their main path):
+   ``PolicyTuner`` over the headline trace (CEM, 32 candidates x 4 train
+   scenarios = 128 rows a sweep, 2 held-out scenarios, 2 rounds, no
+   oracle), counters zeroed just before and read just after; one engine
+   set-up across both rounds; K1, K2 and K3 held against their twins launch
+   by launch in a window of a sweep with distinct rows, MostAllocated rows
+   among them; a sweep whose rows all equal the default vector equal to
+   the same 128 scenarios without policies (assignments' sha256); the
+   held-out sweep's default half equal to a static what-if of the held-out
+   split; the policy sweep against the static batch in turns (median of
+   3), its launches and busy share; K1 and K2 with policy rows held and
+   timed at a synthetic mid-replay state;
+23. (P2) four policy rows (the default, MostAllocated, a zero weight,
+   non-integer weights) x four scenarios over the headline's generators cut
+   to 500 nodes x 5,000 pods: each row's placed pods and assignments'
+   sha256 equal greedy_replay's pins (POLICY_PINS);
+24. (P3) ``python -m kubernetes_simulator_tpu_torch tune`` on CONFIG11 as
+   shipped, through the CLI's entry point on the card: the trajectory
+   file's sha256 equal to the JAX package's (TUNE_PINS), the oracle's
+   envelope <= 1e-6, one engine set-up; the walls of the search, the
+   held-out sweep and the oracle.
 
 Prints the kernel table as one JSON line, then, as its last line,
 ``{"ok": true, "device": {...}}``. Any failed check raises (exit code not
@@ -161,6 +182,7 @@ from kubernetes_simulator_tpu_torch.sim.torch_runtime import (  # noqa: E402
     retry_slots,
     run_waves,
 )
+from kubernetes_simulator_tpu_torch.sim.tuner import PolicyTuner  # noqa: E402
 from kubernetes_simulator_tpu_torch.sim.whatif import (  # noqa: E402
     Perturbation,
     Scenario,
@@ -266,6 +288,52 @@ REJECT_PINS = {
         series_sha256="29c455faffeee6e77be4fd80a9ef494be129ef922ffac32d654add7d380eec2d",
         events_sha256="ba78c540117c3aaf31037d69f40d07911a22972a00b71bcae917b35edda0d508"),
 }
+#: Per-scenario policy rows (row B1w). P1: the policy tuner's sweep over
+#: the headline trace — CEM, 32 candidates x 4 train scenarios = 128 rows
+#: a sweep, 2 held-out scenarios, 2 rounds, no oracle.
+TUNE_SWEEP = dict(algo="cem", population=32, train_scenarios=4, heldout_scenarios=2,
+                  rounds=2, seed=0)
+#: P2: four policy rows x the first four ``uniform_scenarios`` of the
+#: headline's generators cut to 500 nodes x 5,000 pods (chunkWaves 64),
+#: row-major: scenario r·4 + s runs row r on scenario s.
+POLICY_CUT = dict(nodes=500, pods=5000, scenarios=4, chunk_waves=64)
+POLICY_ROWS = {
+    "default": (1.0, 3.0, 2.0, 2.0, 2.0, 1.0),
+    "most_allocated": (0.8, 3.0, 2.5, 1.25, 2.0, 0.0),
+    "zero_weight": (1.0, 3.0, 2.0, 2.0, 0.0, 1.0),
+    "non_integer": (2.5, 0.75, 9.9, 0.3, 0.05, 1.0),
+}
+#: greedy_replay(completions_chunk_waves=64) of each row's four scenarios,
+#: with the row as an ordinary config (exact f32 weights, the selector's
+#: strategy): placed per scenario and the sha256 of the int32 [4, P]
+#: assignments. tests/test_torch_policy_pins.py recomputes them with the
+#: port's greedy_replay and the JAX package's.
+POLICY_PINS = {
+    "default": dict(placed=[5000, 5000, 5000, 5000],
+                    sha256="750614a6f8c9edb47abd0560518cae734bc80e0f18468a439a9cd0d4d3771e15"),
+    "most_allocated": dict(placed=[5000, 5000, 5000, 5000],
+                           sha256="d19ea0c06f7f0ad89562bbc94a598a3da8135c46f23c3b261718f0b1e3a0deb8"),
+    "zero_weight": dict(placed=[5000, 5000, 5000, 5000],
+                        sha256="f9755524e42df713151243ea55bc2aa87a78d5157444728586a92762f3b254e9"),
+    "non_integer": dict(placed=[5000, 5000, 5000, 5000],
+                        sha256="f2c6462bdabffdcd670880545e00a6231e50273463fec94f62a54ae8d41d403a"),
+}
+#: P3: config11 as shipped through the CLI ``tune``; the sha256 of its
+#: trajectory file and its rows, from the JAX package's ``tune`` on the
+#: CPU (tests/test_torch_tuner.py::test_config11_as_shipped_pin).
+CONFIG11 = "examples/config11_tune.yaml"
+TUNE_PINS = {
+    "config11": dict(rows=103,
+                     sha256="ef6da9eecb8c393ce738863c6d2febb7519853172a4c167cbc2b6a67f1ea478c"),
+}
+#: The kernels' policy-row work, each with the kernel it runs in and the
+#: reference lines it replaces.
+POLICY_SOURCES = {
+    "filter_score_policy_rows": ("filter_score", "kubernetes_simulator_tpu/ops/tpu3.py:1316"),
+    "normalize_select_policy_rows": ("normalize_select",
+                                     "kubernetes_simulator_tpu/ops/tpu.py:62"),
+}
+
 #: The outside-the-envelope batch: scenario s moves all nodes of zone
 #: s mod 8 into zone s+1 mod 8 (250 nodes: K > 32, the reference's v2).
 OUTSIDE_SCENARIOS = 16
@@ -433,6 +501,8 @@ class Work:
         self.G, self.D = tb.state.match_count.shape[1:]
         k = self.k
         self.rows_on = int(k.on_fit) + int(k.on_taint) + int(k.on_na) + int(k.on_ip) + int(k.on_sp)
+        #: policy rows: K1 reads a scenario's selector, K2 its five weights
+        self.policy = tb.wrow is not None
         self._k3_terms = {}
         pre = tb.preempt
         self.pod_tier = pre.tier_host.astype(np.int64) if pre is not None else None
@@ -514,6 +584,7 @@ class Work:
             + cells * 4  # plane cells, per scenario
             + act * N * (1 + self.rows_on * 4 + int(k.on_sp))  # feasible, rows, ignored
             + pad * N * (2 + ref.NUM_ROWS * 4)  # an empty slot's zero rows
+            + (act * 4 if self.policy else 0)  # each scenario's fit selector
         )
         nops = act * N * (R * 8 + (self.TT * (4 + TO * 6) if k.taints else 0)
                           + len(exprs) + len(looked_up) * 4 + 16)
@@ -550,7 +621,8 @@ class Work:
         """(bytes, ops) of K2 where ``act`` of the S scenarios hold a pod;
         the others write their PAD choice only."""
         N = self.N
-        return (act * (N * (1 + self.rows_on * 4 + int(self.k.on_sp)) + 4) + (self.S - act) * 8,
+        return (act * (N * (1 + self.rows_on * 4 + int(self.k.on_sp)) + 4 + 20 * self.policy)
+                + (self.S - act) * 8,
                 act * N * (2 + self.rows_on * 8))
 
     def k3_append(self):
@@ -743,12 +815,12 @@ class Work:
         return out
 
 
-def mid_replay_tables(ec, ep, cl, consts, S, rng, dev, state=None):
+def mid_replay_tables(ec, ep, cl, consts, S, rng, dev, state=None, wrow=None):
     """Twin and kernel tables of S scenarios in a mid-replay state: a third
     of the trace bound at random nodes, chosen per scenario, from the
-    engine's initial ``state`` (a copy; None: the trace's own). Returns
-    (twin tables, kernel tables with a copy of the state, pre-bound pods,
-    their nodes [S, n])."""
+    engine's initial ``state`` (a copy; None: the trace's own), with the
+    policy rows ``wrow`` (None: static). Returns (twin tables, kernel
+    tables with a copy of the state, pre-bound pods, their nodes [S, n])."""
     if state is None:
         st = init_state(ec, ep)
         state = ref.stacked_state(st.used, st.match_count, st.anti_active, st.pref_wsum, S,
@@ -756,7 +828,7 @@ def mid_replay_tables(ec, ep, cl, consts, S, rng, dev, state=None):
     else:
         state = ref.DevState(*(t.clone() for t in state))
     pods = ref.pods_to(ep, dev)
-    tb_t = ref.Tables(cl, pods, state, ref.new_scratch(S, ec.num_nodes, dev), consts)
+    tb_t = ref.Tables(cl, pods, state, ref.new_scratch(S, ec.num_nodes, dev), consts, wrow=wrow)
     pre = rng.choice(ep.num_pods, size=ep.num_pods // 3, replace=False).astype(np.int32)
     pre_nodes = rng.integers(0, ec.num_nodes, size=(S, pre.size)).astype(np.int32)
     pre_t = torch.as_tensor(pre, device=dev)
@@ -1072,11 +1144,27 @@ def check_whatif_result(ep, res, S):
 # ---------------------------------------------------------------------------
 
 
+#: Encoded cases already built, keyed by case and arguments: a later step
+#: that asks for the same case gets a deep copy instead of a new encode.
+_CASES = {}
+
+
+def _case_copy(key, build):
+    if key not in _CASES:
+        _CASES[key] = build()
+    return copy.deepcopy(_CASES[key])
+
+
 def config6_case(whatif=False, nodes=None, pods=None):
     """(SimConfig, EncodedCluster, EncodedPods) of CONFIG6 as the port's
     config parses it: 500 nodes, 26,000 pods, priority tiers {0, 100,
     1000}, the full default plugin set. ``whatif`` adds the what-if shape's
     durations and gangs (PREEMPT_WHATIF); ``nodes`` / ``pods`` cut it."""
+    return _case_copy(("config6", whatif, nodes, pods),
+                      lambda: _config6_case(whatif, nodes, pods))
+
+
+def _config6_case(whatif, nodes, pods):
     import yaml
 
     from kubernetes_simulator_tpu_torch.utils.config import SimConfig, build_encoded_case
@@ -1539,8 +1627,11 @@ def config7_case(nodes=None, pods=None):
     ``pods`` cut it."""
     from kubernetes_simulator_tpu_torch.utils.config import SimConfig, build_encoded_case
 
-    cfg = SimConfig.from_dict(config7_dict(nodes, pods))
-    return (cfg,) + tuple(build_encoded_case(cfg))
+    def build():
+        cfg = SimConfig.from_dict(config7_dict(nodes, pods))
+        return (cfg,) + tuple(build_encoded_case(cfg))
+
+    return _case_copy(("config7", nodes, pods), build)
 
 
 def check_retry_pins(where, pin, placed, dropped, assignments):
@@ -1808,7 +1899,7 @@ def retry_walk(eng, dev):
                  rchoice=snaps[b]["rchoice"]) for b in range(1, len(snaps))]
 
 
-def hold_retry(where, eng, walk, dev, results, waves_after=16):
+def hold_retry(where, eng, walk, dev, results, waves_after=8):
     """Each kernel against its twin under the retry buffer, launch after
     launch, at the boundary where the most scenarios hold buffered pods
     (from ``walk``): a kernel-path run stops there, the tables are copied
@@ -2590,13 +2681,14 @@ def check_label_cut(results, dev):
           f"placed {placed.tolist()}, wall {wall:.3f}s", flush=True)
 
 
-def hold_label_window(where, eng, dev, results, min_waves=16):
-    """K1 and K3 against their twins launch by launch in a mid-replay
-    window of ``eng``'s relabel batch: a kernel-path run up to the first
-    boundary past 0 with a release bucket, the tables copied into twin
-    tables on the card, then that release, and every K1, K2 and bind after
-    it — at least ``min_waves`` waves, and on past a wave with a gang
-    rollback — on both, every plane compared after every launch."""
+def hold_window(where, eng, dev, results, key, min_waves=16):
+    """K1, K2 and K3 against their twins launch by launch in a mid-replay
+    window of ``eng``'s batch (its label rows, its policy rows): a
+    kernel-path run up to the first boundary past 0 with a release bucket,
+    the tables copied into twin tables on the card, then that release, and
+    every K1, K2 and bind after it — at least ``min_waves`` waves, and on
+    past a wave with a gang rollback — on both, every plane compared after
+    every launch. The counts go to ``results[key]``."""
     plan = eng.plan
     b = next(b for b in range(1, len(plan.buckets)) if plan.buckets[b] is not None)
     first = b * plan.C
@@ -2610,7 +2702,7 @@ def hold_label_window(where, eng, dev, results, min_waves=16):
     n = lockstep(where, plan, tb_k, tb_t, ch_k, ch_t, first, end, dev)
     if not (n["static_release"] and n["rollbacks"] and n["binds"]):
         raise AssertionError(f"{where}: the window ran {n}")
-    results["label_window"] = dict(boundary=b, waves=[first, end], **n)
+    results[key] = dict(boundary=b, waves=[first, end], **n)
     print(f"{where}: boundary {b}'s release and waves {first}..{end} ({n['binds']} binds, "
           f"{n['rollbacks']} rollbacks) x {eng.S} scenarios: K1, K2 and K3 equal their twins "
           f"launch by launch", flush=True)
@@ -2686,7 +2778,7 @@ def run_label_paths(results, headline_s0, dev):
     mark("17 relabel what-if runs")
     results["chunk_loop_bound_ms_relabel"] = Work(ep, eng._tables()).chunk_loop_ms(
         eng.plan, assignments, launches)
-    hold_label_window(f"S={S} relabel window (N={hs['nodes']})", eng, dev, results)
+    hold_window(f"S={S} relabel window (N={hs['nodes']})", eng, dev, results, "label_window")
     rng = np.random.default_rng(SEED + 256)
     tb0 = eng._tables()
     tb_t, tb_k, pre, pre_nodes = mid_replay_tables(ec, ep, tb0.cluster, tb0.consts, S, rng,
@@ -2733,6 +2825,235 @@ def run_label_paths(results, headline_s0, dev):
           f"{int(res_out.placed.min())}..{int(res_out.placed.max())}; scenario 1 == its "
           f"from-scratch replay", flush=True)
     return kernels, launches
+
+
+def policy_cut_batch(ec):
+    """(scenarios, policy rows [16, 6]) of P2 over ``ec``: each row of
+    POLICY_ROWS on the first ``POLICY_CUT['scenarios']`` uniform_scenarios,
+    row-major (the tuner's candidate-major layout)."""
+    n = POLICY_CUT["scenarios"]
+    rows = np.asarray(list(POLICY_ROWS.values()), np.float32)
+    return uniform_scenarios(ec, n, seed=SEED) * len(rows), np.repeat(rows, n, axis=0)
+
+
+def run_policy_paths(results, ec, ep, dev):
+    """P1, the main path of policy rows: the policy tuner's sweep at the
+    headline's full width (``PolicyTuner`` over the headline trace, 32
+    candidates x 4 train scenarios = 128 rows a sweep, 2 rounds), counters
+    zeroed just before and read just after; the engine set up once across
+    both rounds; K1, K2 and K3 against their twins launch by launch in a
+    window of a sweep with distinct rows (the last round's candidates,
+    every other one MostAllocated); a
+    sweep whose rows all equal the default vector equal to the same 128
+    scenarios without policies (sha256 of the assignments); the held-out
+    sweep's default half equal to a static what-if of the held-out split;
+    the policy sweep timed against the static batch in turns (median of
+    3), its launches and busy share; K1 and K2 with policy rows held and
+    timed at a synthetic mid-replay state. Returns (kernel timings,
+    launches)."""
+    hs, ts = HEADLINE, TUNE_SWEEP
+    kw = dict(chunk_waves=hs["chunk_waves"], device=dev)
+    t0 = time.perf_counter()
+    tuner = PolicyTuner(ec, ep, FrameworkConfig(), cpu_oracle=False, **ts, **kw)
+    K.reset_launch_counts()
+    res = tuner.run()
+    launches = K.launch_counts()
+    tune_s = time.perf_counter() - t0
+    for k in SOURCES_PLAIN:
+        if launches[k] <= 0:
+            raise AssertionError(f"kernel {k} was not launched by the policy sweep")
+    eng = tuner._train_engine
+    S, S_h = eng.S, ts["heldout_scenarios"]
+    if S != ts["population"] * ts["train_scenarios"] or eng.setups != 1 or res.compile_count != 1:
+        raise AssertionError(f"policy sweep: {S} rows, {eng.setups} set-ups")
+    if len(res.trajectory) != ts["rounds"] * (ts["population"] + 1) + 1:
+        raise AssertionError(f"policy sweep: {len(res.trajectory)} trajectory rows")
+    # The window's and the timed sweeps' rows: the last round's candidates,
+    # every other one switched to MostAllocated.
+    cand = eng._wrow.cpu().numpy()[:: ts["train_scenarios"]].copy()
+    cand[:, 5] = np.arange(len(cand)) % 2 == 0
+    sweep_rows = np.repeat(cand, ts["train_scenarios"], axis=0)
+    if len({r.tobytes() for r in cand}) < len(cand) // 2:
+        raise AssertionError("policy sweep: the last round's candidates are not distinct")
+    eng.set_policies(sweep_rows)
+    print(f"P1 policy tuner ({ts['population']} candidates x {ts['train_scenarios']} train "
+          f"scenarios = {S} rows over the headline trace, {ts['rounds']} rounds): best "
+          f"{json.dumps(res.best_policy)}, train {res.train_objective:.6f}, held-out "
+          f"{res.heldout_objective:.6f} vs default {res.default_heldout_objective:.6f}; "
+          f"{eng.setups} set-up; walls {json.dumps({k: round(v, 3) for k, v in res.phase_s.items()})}"
+          f" s; launches {json.dumps(launches)}", flush=True)
+    mark("P1 tuner")
+    hold_window(f"S={S} policy-row window (N={hs['nodes']})", eng, dev, results, "policy_window")
+    mark("P1 window")
+    # (a) every row the default vector == the same scenarios without policies.
+    eng.set_policies(np.repeat(tuner.space.defaults[None], S, axis=0))
+    _, _, a_pol, _, _ = eng._run()
+    static = WhatIfEngine(ec, ep, tuner.train_split * ts["population"], FrameworkConfig(),
+                          **kw)
+    _, _, a_static, _, _ = static._run()
+    sha_pol, sha_static = assignments_sha256(a_pol), assignments_sha256(a_static)
+    if sha_pol != sha_static:
+        raise AssertionError(f"default policy rows {sha_pol} != policies=None {sha_static}")
+    # (d) the held-out sweep's default half == a static what-if of the held-out split.
+    hpol = np.concatenate([np.repeat(res.best_vector[None], S_h, axis=0),
+                           np.repeat(tuner.space.defaults[None], S_h, axis=0)])
+    held = WhatIfEngine(ec, ep, tuner.heldout_split * 2, FrameworkConfig(), policies=hpol,
+                        collect_assignments=True, **kw).run()
+    hstatic = WhatIfEngine(ec, ep, tuner.heldout_split, FrameworkConfig(),
+                           collect_assignments=True, **kw).run()
+    h_default = float(tuner._objective(hstatic).mean())
+    if (not np.array_equal(held.assignments[S_h:], hstatic.assignments)
+            or h_default != res.default_heldout_objective):
+        raise AssertionError("the held-out sweep's default half != the static held-out what-if")
+    mark("P1 default rows, held-out")
+    # The sweep against the static batch, in turns; launches and busy share.
+    eng.set_policies(sweep_rows)
+    walls = {"static": [], "policy": []}
+    for name, e in (("static", static), ("policy", eng), ("policy", eng), ("static", static),
+                    ("static", static), ("policy", eng)):
+        if name == "policy" and not walls["policy"]:
+            K.reset_launch_counts()  # the first policy sweep: its launches
+            sweep = e.run()
+            sweep_launches = K.launch_counts()
+        else:
+            sweep = e.run()
+        walls[name].append(sweep.wall_clock_s)
+    res_p, busy_s = profiled_busy_s(eng.run)
+    wall = float(np.median(walls["policy"]))
+    results["policy_sweep"] = dict(
+        **ts, rows=S, nodes=ec.num_nodes, pods=ep.num_pods, tune_s=tune_s,
+        phase_s=res.phase_s, launches=launches, setups=eng.setups,
+        best_policy=res.best_policy, train_objective=res.train_objective,
+        heldout_objective=res.heldout_objective,
+        default_heldout_objective=res.default_heldout_objective,
+        default_rows_sha256=sha_pol, walls_s=walls, wall_s=wall,
+        static_wall_s=float(np.median(walls["static"])),
+        placements_per_s=float(sweep.placed.sum()) / wall, sweep_launches=sweep_launches,
+        profiled_wall_s=res_p.wall_clock_s, device_busy_s=busy_s,
+        device_busy_share=busy_s / res_p.wall_clock_s if busy_s else None)
+    print(f"P1 policy sweep ({S} rows): default rows == policies=None (sha256 {sha_pol[:16]}); "
+          f"held-out default half == the static held-out what-if; walls policy "
+          f"{[round(w, 3) for w in walls['policy']]} s vs static "
+          f"{[round(w, 3) for w in walls['static']]} s, {float(sweep.placed.sum()) / wall:.1f} "
+          f"aggregate placements/s; launches {json.dumps(sweep_launches)}; profiled busy "
+          f"{busy_s:.3f}s ({busy_s / res_p.wall_clock_s:.1%})", flush=True)
+    mark("P1 timed sweeps")
+    rng = np.random.default_rng(SEED + 512)
+    tb0 = eng._tables()
+    tb_t, tb_k, pre, pre_nodes = mid_replay_tables(ec, ep, tb0.cluster, tb0.consts, S, rng,
+                                                   dev, state=tb0.state, wrow=eng._wrow)
+    held_k = hold_kernels(f"S={S} policy-row kernel checks (N={hs['nodes']})", ep, tb_t, tb_k,
+                          pre, pre_nodes, 40, rng, dev)
+    kernels, _ = time_kernels(ep, tb_t, held_k, dev)
+    results["kernels_policy"] = kernels
+    # K1 and K2 with and without the policy rows on the same tables, in
+    # turns (device time per launch, µs): what reading the rows costs.
+    b_static = K.Bound(tb_k._replace(wrow=None, consts=eng.spec.consts()))
+    sl, ch = held_k["slots"].tolist(), held_k["ch_k"]
+    ab = {"policy": {"K1": [], "K2": []}, "static": {"K1": [], "K2": []}}
+    us = lambda d: None if d is None else 1e3 * d  # no profiler record: None
+    for name, bb in (("policy", held_k["b"]), ("static", b_static), ("static", b_static),
+                     ("policy", held_k["b"])):
+        ab[name]["K1"].append(us(device_ms(lambda i: K.filter_score(bb, sl[i % len(sl)]), 200,
+                                           "ksim_filter_score")))
+        ab[name]["K2"].append(us(device_ms(
+            lambda i: K.normalize_select(bb, sl[i % len(sl)], ch, 0), 200,
+            "ksim_normalize_select")))
+    results["policy_ab_us"] = ab
+    print(f"K1, K2 with policy rows vs static on the same tables, in turns (us): "
+          f"{json.dumps(ab)}", flush=True)
+    del tuner, eng, static, res_p, tb0, tb_t, tb_k, held_k, b_static
+    mark("P1 kernel hold, times")
+    return kernels, launches
+
+
+def check_policy_cut(results, dev):
+    """P2: POLICY_ROWS x four scenarios over POLICY_CUT as one 16-row
+    what-if on the card: each row's placed pods and assignments' sha256
+    equal greedy_replay's pins (POLICY_PINS)."""
+    pc = POLICY_CUT
+    ec, ep = case(pc["nodes"], pc["pods"])
+    scen, pol = policy_cut_batch(ec)
+    eng = WhatIfEngine(ec, ep, scen, FrameworkConfig(), chunk_waves=pc["chunk_waves"],
+                       policies=pol, collect_assignments=True, device=dev)
+    if eng.chunk_waves != pc["chunk_waves"] or not eng.completions_on:
+        raise AssertionError(f"policy cut: chunkWaves {eng.chunk_waves}, completions "
+                             f"{eng.completions_on}")
+    res = eng.run()
+    n = pc["scenarios"]
+    out = {}
+    for r, name in enumerate(POLICY_ROWS):
+        a = res.assignments[r * n : (r + 1) * n]
+        got = dict(placed=[int(x) for x in res.placed[r * n : (r + 1) * n]],
+                   sha256=assignments_sha256(a))
+        if got != POLICY_PINS[name]:
+            raise AssertionError(f"policy cut row {name}: {got} != POLICY_PINS {POLICY_PINS[name]}")
+        out[name] = got
+    if len({v["sha256"] for v in out.values()}) != len(out):
+        raise AssertionError("policy cut: two rows placed alike")
+    results["policy_cut"] = dict(**pc, rows=out, wall_s=res.wall_clock_s)
+    print(f"P2 policy cut ({len(POLICY_ROWS)} rows x {n} scenarios over {pc['nodes']} x "
+          f"{pc['pods']}): every row == POLICY_PINS, wall {res.wall_clock_s:.3f}s", flush=True)
+
+
+def run_tune_cli(results, dev):
+    """P3: ``python -m kubernetes_simulator_tpu_torch tune`` on CONFIG11 as
+    shipped, on the card, through the CLI's entry point (in this process,
+    so the launch counts show), writing its trajectory into a scratch
+    directory: the file's sha256 against TUNE_PINS, the oracle's envelope
+    <= 1e-6, one engine set-up; the walls of the search, the held-out sweep
+    and the oracle."""
+    import re
+
+    from kubernetes_simulator_tpu_torch import cli
+
+    outdir = os.path.join(ROOT, "chiprun_out", "tune_config11")
+    os.makedirs(outdir, exist_ok=True)
+    traj = os.path.join(outdir, "tune_trajectory.jsonl")
+    if os.path.exists(traj):
+        os.remove(traj)  # the writer appends
+    cwd = os.getcwd()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    os.chdir(outdir)
+    try:
+        with LogLines() as lines:
+            rc = cli.main(["tune", os.path.join(ROOT, CONFIG11), "--device", dev.type])
+    finally:
+        os.chdir(cwd)
+    wall = time.perf_counter() - t0
+    launches = K.launch_counts()
+    if rc != 0:
+        raise AssertionError(f"config11 tune: the CLI returned {rc}")
+    with open(traj, "rb") as f:
+        data = f.read()
+    rows = data.decode().splitlines()
+    sha = hashlib.sha256(data).hexdigest()
+    pin = TUNE_PINS["config11"]
+    if sha != pin["sha256"] or len(rows) != pin["rows"]:
+        raise AssertionError(f"config11 tune: trajectory {len(rows)} rows, sha256 {sha} != "
+                             f"TUNE_PINS {pin}")
+    final = json.loads(rows[-1])
+    setups = [int(m.group(1)) for m in (re.search(r"evaluations, (\d+) set-up", x)
+                                        for x in lines.lines) if m]
+    phase = [m.groups() for m in (re.search(
+        r"walls set-up ([\d.]+)s, search ([\d.]+)s, held-out ([\d.]+)s, oracle ([\d.]+)s", x)
+        for x in lines.lines) if m]
+    if final["cpu_envelope"] is None or final["cpu_envelope"] > 1e-6 or setups != [1]:
+        raise AssertionError(f"config11 tune: envelope {final['cpu_envelope']}, set-ups {setups}")
+    if any(launches[k] <= 0 for k in SOURCES_PLAIN):
+        raise AssertionError(f"config11 tune did not launch every kernel: {launches}")
+    setup_s, search_s, heldout_s, oracle_s = (float(x) for x in phase[0])
+    results["tune_config11"] = dict(
+        wall_s=wall, setup_s=setup_s, search_s=search_s, heldout_s=heldout_s, oracle_s=oracle_s,
+        launches=launches, rows=len(rows), sha256=sha, best_policy=final["best_policy"],
+        heldout_objective=final["heldout_objective"], cpu_objective=final["cpu_objective"],
+        cpu_envelope=final["cpu_envelope"])
+    print(f"P3 config11 tune through the CLI on the card: trajectory == TUNE_PINS ({len(rows)} "
+          f"rows, sha256 {sha[:16]}), cpu_envelope {final['cpu_envelope']}, 1 set-up; walls "
+          f"set-up {setup_s:.3f}s, search {search_s:.3f}s, held-out {heldout_s:.3f}s, oracle "
+          f"{oracle_s:.3f}s (command "
+          f"{wall:.1f}s); launches {json.dumps(launches)}", flush=True)
 
 
 def main() -> int:
@@ -2873,6 +3194,7 @@ def main() -> int:
           f"{release['pairs']} pods x {release['scenarios']} scenarios: {release['ms']:.4f} ms, "
           f"bound {release['bound_ms']:.6f} ms", flush=True)
     headline_s0 = warm.assignments[0].copy()
+    headline_case = (ec, ep)
     del eng, warm, runs, res_p, single, tb_t, tb_k, held
 
     mark("8 headline hold, kernel times")
@@ -2896,6 +3218,12 @@ def main() -> int:
     mark("20 reduced series")
     skernels = run_series_paths(results, dev)
     mark("21 S=4 K5 holds")
+    # P1-P3: per-scenario policy rows (row B1w) and the policy tuner.
+    polkernels, pollaunches = run_policy_paths(results, *headline_case, dev)
+    check_policy_cut(results, dev)
+    mark("P2 policy cut")
+    run_tune_cli(results, dev)
+    mark("P3 config11 tune")
     results["wall_s_total"] = time.perf_counter() - t_start
     print("step walls (s): " + json.dumps({k: round(v, 1) for k, v in STEP_S.items()}),
           flush=True)
@@ -2939,6 +3267,15 @@ def main() -> int:
             "replaces": SERIES_SOURCES[k], "launches": m["launches"],
             "max_abs_err": m["max_abs_err"], "ms": m["ms"], "plain_ms": m["plain_ms"],
             "bound_ms": m["bound_ms"], "bound_by": m["bound_by"], "library_ms": m["library_ms"],
+        })
+    for k, (kernel, replaces) in POLICY_SOURCES.items():
+        m = polkernels[kernel]
+        table.append({
+            "name": k, "route": "cuda", "source": SOURCES[kernel][0], "replaces": replaces,
+            "launches": pollaunches[kernel], "max_abs_err": m["max_abs_err"], "ms": m["ms"],
+            "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
+            # no single PyTorch call computes a per-scenario weighted total
+            "library_ms": None,
         })
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:

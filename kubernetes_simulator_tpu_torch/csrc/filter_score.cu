@@ -23,6 +23,13 @@
 // raw rows are ksim.cuh's ksim_filter_prologue / ksim_eval_node, shared with
 // K5 (first_reject.cu), so the two kernels judge every node alike.
 //
+// Per-scenario policies (row B1w: ops/tpu3.py:1316-1329, the v2 form
+// ops/tpu.py:1160-1175): with policy rows (a.wrow), scenario s scores
+// NodeResourcesFit with LeastAllocated where its row's selector is > 0.5 and
+// MostAllocated elsewhere, unless the static strategy is
+// RequestedToCapacityRatio (ksim_fit_strategy). One 4-byte load a thread;
+// null wrow keeps the static strategy.
+//
 // Relabelled scenarios (set_label; the dyn sections of make_wave_step3,
 // ops/tpu3.py:798-846, 1054-1059, 1222-1285, and build_wave_pre3(dyn)
 // :712): each block loads its scenario's label row lrow[s] once and reads

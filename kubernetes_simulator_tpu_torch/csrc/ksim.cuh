@@ -35,6 +35,11 @@
 //            [S,RB] i32 pending releases of pods placed on retry (then -1),
 //            rnode / rbind_b [S,P] i32 each pod's retried node and the
 //            boundary of that bind
+//   policies (null when off) wrow [S,6] f32: scenario s's Score weights
+//            (columns 0-4, the plugin order of the weighted total) and its
+//            NodeResourcesFit selector (column 5, > 0.5 -> LeastAllocated,
+//            else MostAllocated; ignored under RequestedToCapacityRatio),
+//            ops/policy.py POLICY_COLS
 // The *_ss fields are the per-scenario strides in elements: scenario s of
 // a table starts at base + s * ss, and ss = 0 where the table is shared.
 // The single-scenario replay is the S = 1 case.
@@ -56,6 +61,10 @@
 #define KSIM_NO_SCHEDULE 1
 #define KSIM_PREFER_NO_SCHEDULE 2
 #define KSIM_NO_EXECUTE 3
+
+// Columns of a policy row (ops/policy.py POLICY_COLS).
+#define KSIM_POLICY_COLS 6
+#define KSIM_POLICY_FIT_LEAST 5
 
 // Score rows of the scratch block.
 #define KSIM_ROW_FIT 0
@@ -127,6 +136,8 @@ struct KsimArgs {
   int32_t* pend_relb;
   int32_t* rnode;
   int32_t* rbind_b;
+  // per-scenario policies (null: the static constants below)
+  const float* wrow;  // [S, KSIM_POLICY_COLS]
   // per-scenario strides (elements; 0 = shared)
   int64_t alloc_ss, taint_ss, used_ss, plane_ss, feas_ss, scores_ss;
   // dimensions
@@ -164,6 +175,14 @@ __device__ __forceinline__ KsimLabels ksim_label_rows(const KsimArgs& a, int64_t
   const int64_t row = a.lrow[scen];
   return KsimLabels{a.expr_match + row * a.N * a.E, a.gdom + row * a.G * a.N,
                     a.gnd + row * a.G, a.sp_w + row * a.G};
+}
+
+// NodeResourcesFit strategy of scenario scen (0 Least, 1 Most, 2
+// RequestedToCapacityRatio): the static one, or with policy rows the row's
+// selector under a static Least/MostAllocated (ops/tpu3.py:1316-1329).
+__device__ __forceinline__ int ksim_fit_strategy(const KsimArgs& a, int64_t scen) {
+  if (a.wrow == nullptr || a.fit_strategy == 2) return a.fit_strategy;
+  return a.wrow[scen * KSIM_POLICY_COLS + KSIM_POLICY_FIT_LEAST] > 0.5f ? 0 : 1;
 }
 
 // May pod p preempt (tier preemption on, non-gang, tier > 0)?
@@ -292,6 +311,7 @@ __device__ __forceinline__ KsimNodeEval ksim_eval_node(
 
   // --- NodeResourcesFit ---------------------------------------------------
   if (a.fit) {
+    const int strategy = SCORES ? ksim_fit_strategy(a, scen) : 0;
     float acc = 0.f;
     for (int r = 0; r < R; ++r) {
       float u = used[r], q = req[r], al = alloc[r];
@@ -300,13 +320,13 @@ __device__ __forceinline__ KsimNodeEval ksim_eval_node(
       float w = a.res_w[r];
       if (w == 0.f) continue;
       float frac;
-      if (a.fit_strategy == 0)
+      if (strategy == 0)
         frac = al > 0.f ? ((al - u) - q) / al : 0.f;
       else
         frac = al > 0.f ? (u + q) / al : 0.f;
       frac = fminf(fmaxf(frac, 0.f), 1.f);
       float s = floorf(frac * 100.f);
-      if (a.fit_strategy == 2) s = ksim_piecewise(a, s);
+      if (strategy == 2) s = ksim_piecewise(a, s);
       acc = acc + s * w;
     }
     if (SCORES) e.fit_score = (a.wsum == 0.f) ? acc : floorf(acc / a.wsum);

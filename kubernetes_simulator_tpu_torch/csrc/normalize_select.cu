@@ -22,6 +22,16 @@
 // once per wave, and writes the eviction record (ev_node, ev_tier) that
 // K3 applies before the bind; every other scenario writes ev_node = -1.
 //
+// Per-scenario policies (row B1w: ops/tpu.py:62 policy_weight_fns, the
+// wvec fold of ops/tpu3.py:947-985 and ops/tpu.py:1074 eval_pod_fused):
+// with policy rows (a.wrow) the five weights are scenario s's row, read once
+// per block; each w·row product is rounded to f32 and added in the plugin
+// order (--fmad=false: no contraction), as the reference's traced fold and
+// the greedy anchor's `total += w * normalize(...)` compute it. The
+// reference turns its packed select off under wvec; this kernel never
+// packs: its (value, index) reduction gives the lowest index on ties of
+// non-integer totals too.
+//
 // The retry pass (sim/whatif.py:1444-1455) selects for one pod per
 // scenario: given pod_of_s, scenario s's block takes pod pod_of_s[s *
 // pod_ss] and an empty buffer slot (-1) writes -1.
@@ -144,26 +154,34 @@ __global__ void __launch_bounds__(K2_THREADS)
   const int32_t sp_hi_i = (int32_t)sp_hi_f;
   const int32_t sp_lo_i = (int32_t)sp_lo_f;
 
+  // Weights: the static constants, or scenario scen's policy row (columns
+  // 0-4; every row the step enables enters the total, a zero weight as an
+  // exact 0 * row, ops/tpu.py:62 policy_weight_fns).
+  const float* wr = a.wrow ? a.wrow + scen * KSIM_POLICY_COLS : nullptr;
+  const float w_fit = wr ? wr[0] : a.w_fit, w_taint = wr ? wr[1] : a.w_taint;
+  const float w_na = wr ? wr[2] : a.w_na, w_ip = wr ? wr[3] : a.w_ip;
+  const float w_sp = wr ? wr[4] : a.w_sp;
+
   // pass 2: total + argmax (lowest index on ties)
   float bv = -INFINITY;
   int bi = 0x7fffffff;
   for (int n = threadIdx.x; n < N; n += blockDim.x) {
     float total = 0.f;
-    if (a.on_fit) total = total + a.w_fit * fit[n];
+    if (a.on_fit) total = total + w_fit * fit[n];
     if (a.on_taint) {
       float o = floorf((taint[n] * 100.f) / t_den);
       o = t_pos ? 100.f - o : 100.f;
-      total = total + a.w_taint * o;
+      total = total + w_taint * o;
     }
     if (a.on_na) {
       float o = floorf((na[n] * 100.f) / na_den);
       o = na_pos ? o : 0.f;
-      total = total + a.w_na * o;
+      total = total + w_na * o;
     }
     if (a.on_ip) {
       float o = floorf((ip[n] - ip_lo0) * ip_k);
       o = ip_ok ? o : 0.f;
-      total = total + a.w_ip * o;
+      total = total + w_ip * o;
     }
     if (a.on_sp) {
       float o;
@@ -176,7 +194,7 @@ __global__ void __launch_bounds__(K2_THREADS)
         o = sp_hi_i > 0 ? (float)vals : 100.f;
       }
       if (ignored[n] || !sp_has || !any_scored) o = 0.f;
-      total = total + a.w_sp * o;
+      total = total + w_sp * o;
     }
     if (feas[n]) k2_better(bv, bi, total, n);
   }

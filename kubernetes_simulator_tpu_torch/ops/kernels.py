@@ -45,6 +45,12 @@ of sim/whatif.py:1760-1817) K1 and K3 read the label tables (expression
 matches, node domains, domain counts, spread weights) from the row
 ``lrow[s]`` of their scenario; K2 and K4 read no label table.
 
+With per-scenario policies (a Tables with ``wrow``, row B1w: ops/tpu.py:62
+policy_weight_fns and the ``wvec`` sections of ops/tpu3.py:947-985,
+:1316-1329) K1 takes each scenario's NodeResourcesFit strategy and K2 its
+five Score weights from the scenario's row of ``wrow [S, 6]``; a null
+``wrow`` keeps the static constants, byte for byte.
+
 Under tier preemption (a Tables with ``preempt``) the same three kernels
 carry ops/tpu3.py's preemption sections: K1 the candidate row (:1510), K2
 the masked argmin (ops/tpu.py:788 masked_argmin) and the eviction record,
@@ -81,6 +87,7 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 
 from . import reference as ref
+from .policy import POLICY_COLS
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
@@ -139,7 +146,7 @@ class KsimArgs(ctypes.Structure):
             "pod_tier", "used_tier", "npods_tier", "cand", "last_wave", "ev_node", "ev_tier",
             "victims", "col_pod", "col_relb",
             "dur", "tbt", "rbuf", "rcount", "rdrop", "rchoice", "pend_id", "pend_node",
-            "pend_relb", "rnode", "rbind_b",
+            "pend_relb", "rnode", "rbind_b", "wrow",
         )]
         + [(name, ctypes.c_int64) for name in (
             "alloc_ss", "taint_ss", "used_ss", "plane_ss", "feas_ss", "scores_ss",
@@ -369,6 +376,11 @@ def pack_args(tb: ref.Tables, res_w: torch.Tensor) -> KsimArgs:
             tensors[name] = t
         if rt.tbt.shape[0] < 1:
             raise ValueError("retry.tbt: no finite boundary")
+    if tb.wrow is not None:
+        if tuple(tb.wrow.shape) != (S, len(POLICY_COLS)) or tb.wrow.dtype != torch.float32:
+            raise ValueError(f"wrow: expected float32 ({S}, {len(POLICY_COLS)}), got "
+                             f"{tb.wrow.dtype} {tuple(tb.wrow.shape)}")
+        tensors["wrow"] = tb.wrow
     dev = s.used.device
     for name, t in tensors.items():
         if not t.is_cuda or not t.is_contiguous() or t.device != dev:

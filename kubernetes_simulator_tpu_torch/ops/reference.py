@@ -44,6 +44,11 @@ own. Each scenario's arithmetic is the single-scenario chain's, element
 for element, so slice s of a batched twin equals the same twin at S = 1
 on scenario s's tables.
 
+With per-scenario policy rows (``Tables.wrow [S, 6]``, :mod:`.policy`)
+the K1 twin takes each scenario's NodeResourcesFit strategy from its row's
+selector and the K2 twin weights the normalized rows with its row's
+columns 0–4 (ops/tpu.py:62 ``policy_weight_fns``, ops/tpu3.py:1316-1329).
+
 The twins run on any device; the wrappers take them only for CPU tensors.
 """
 
@@ -57,6 +62,7 @@ import torch
 
 from ..models.core import Effect, Operator
 from ..models.encode import PAD, TOL_PAD, TOL_WILDCARD, EncodedCluster, EncodedPods
+from .policy import IDX_FIT_LEAST, TRACED_FIT_STRATEGIES
 
 MAX_NODE_SCORE = 100.0
 
@@ -290,6 +296,9 @@ class Tables(NamedTuple):
     preempt: Optional[Preempt] = None
     retry: Optional[Retry] = None
     reject: Optional[Reject] = None
+    #: [S, len(POLICY_COLS)] f32 policy row of each scenario (ops/policy.py),
+    #: None in static mode: K1 reads its fit strategy, K2 its Score weights
+    wrow: Optional[torch.Tensor] = None
 
 
 def _scenario_subset(tb: Tables, idx: torch.Tensor) -> Tables:
@@ -302,7 +311,7 @@ def _scenario_subset(tb: Tables, idx: torch.Tensor) -> Tables:
                     taint_kv=pick(cl.taint_kv), taint_effect=pick(cl.taint_effect),
                     lrow=cl.lrow[idx]),
         tb.pods, DevState(*(x[idx] for x in tb.state)), Scratch(*(x[idx] for x in tb.scratch)),
-        tb.consts)
+        tb.consts, wrow=tb.wrow[idx] if tb.wrow is not None else None)
 
 
 def _pods_of_scenarios(pod_of_s: torch.Tensor):
@@ -653,11 +662,8 @@ def piecewise_interp_int(util: torch.Tensor, k: StepConsts) -> torch.Tensor:
     return torch.where(util <= f(k.x_first), f(k.y_first), out)
 
 
-def fit_score(cl: DevCluster, st: DevState, pods: DevPods, p: int, k: StepConsts) -> torch.Tensor:
-    """``floor(Σ_r w_r·s_r / Σw)`` with ``s_r = floor(100·frac_r)``
-    (Least/MostAllocated) or the shape value of ``floor(100·util_r)``
-    (RequestedToCapacityRatio), [S, N]."""
-    strategy = FIT_STRATEGIES[k.fit_strategy]
+def _fit_score_of(cl: DevCluster, st: DevState, pods: DevPods, p: int, k: StepConsts,
+                  strategy: str) -> torch.Tensor:
     frac = _resource_frac(cl, st, pods, p, least=strategy == "LeastAllocated")
     s = torch.floor(frac * 100.0)
     if strategy == "RequestedToCapacityRatio":
@@ -669,6 +675,22 @@ def fit_score(cl: DevCluster, st: DevState, pods: DevPods, p: int, k: StepConsts
     if k.wsum == 0:
         return acc
     return torch.floor(acc / torch.tensor(k.wsum, dtype=torch.float32, device=s.device))
+
+
+def fit_score(cl: DevCluster, st: DevState, pods: DevPods, p: int, k: StepConsts,
+              wrow: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``floor(Σ_r w_r·s_r / Σw)`` with ``s_r = floor(100·frac_r)``
+    (Least/MostAllocated) or the shape value of ``floor(100·util_r)``
+    (RequestedToCapacityRatio), [S, N]. With policy rows ``wrow`` [S, K]
+    and a static Least/MostAllocated, scenario s takes LeastAllocated
+    where ``wrow[s, IDX_FIT_LEAST] > 0.5`` and MostAllocated elsewhere
+    (ops/tpu3.py:1316-1329)."""
+    strategy = FIT_STRATEGIES[k.fit_strategy]
+    if wrow is None or strategy not in TRACED_FIT_STRATEGIES:
+        return _fit_score_of(cl, st, pods, p, k, strategy)
+    least = (wrow[:, IDX_FIT_LEAST] > 0.5)[:, None]
+    return torch.where(least, _fit_score_of(cl, st, pods, p, k, "LeastAllocated"),
+                       _fit_score_of(cl, st, pods, p, k, "MostAllocated"))
 
 
 # ---------------------------------------------------------------------------
@@ -701,7 +723,7 @@ def filter_score(tb: Tables, p: int, pod_of_s: Optional[torch.Tensor] = None) ->
     ignored = torch.zeros((S, N), dtype=torch.bool, device=dev)
     if k.fit:
         fit_ok = fit_mask(cl, st, pods, p)
-        rows[:, ROW_FIT] = fit_score(cl, st, pods, p, k)
+        rows[:, ROW_FIT] = fit_score(cl, st, pods, p, k, tb.wrow)
     if k.taints:
         ok &= taint_mask(cl, pods, p)
         rows[:, ROW_TAINT] = taint_prefer_count(cl, pods, p)
@@ -838,20 +860,24 @@ def normalized_rows(tb: Tables, p: int) -> torch.Tensor:
 
 def weighted_total(tb: Tables, p: int) -> torch.Tensor:
     """[S, N] — Σ w·normalized row in the reference's plugin order (fit,
-    taint, node affinity, inter-pod, spread), each added to a running f32
-    total from 0."""
+    taint, node affinity, inter-pod, spread), each product rounded to f32
+    and added to a running f32 total from 0. The weights are the static
+    constants, or with policy rows (``tb.wrow``) each scenario's columns
+    0–4."""
     k = tb.consts
     rows = normalized_rows(tb, p)
     total = torch.zeros_like(rows[:, 0])
-    for on, w, r in (
+    for col, (on, w, r) in enumerate((
         (k.on_fit, k.w_fit, ROW_FIT),
         (k.on_taint, k.w_taint, ROW_TAINT),
         (k.on_na, k.w_na, ROW_NA),
         (k.on_ip, k.w_ip, ROW_IP),
         (k.on_sp, k.w_sp, ROW_SPREAD),
-    ):
+    )):
         if on:
-            total = total + torch.tensor(w, dtype=torch.float32, device=rows.device) * rows[:, r]
+            wt = (tb.wrow[:, col : col + 1] if tb.wrow is not None
+                  else torch.tensor(w, dtype=torch.float32, device=rows.device))
+            total = total + wt * rows[:, r]
     return total
 
 

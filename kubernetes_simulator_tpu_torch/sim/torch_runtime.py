@@ -181,12 +181,15 @@ class StepSpec:
             sp_norm_f32=_spread_norm_f32_ok(sp_w, pods) if sp_on else False,
         )
 
-    def consts(self) -> ref.StepConsts:
+    def consts(self, traced: bool = False) -> ref.StepConsts:
         """The kernels' static constants, every float rounded to f32 the
-        way the reference's weak-typed arithmetic rounds it."""
+        way the reference's weak-typed arithmetic rounds it. ``traced``
+        (per-scenario policy rows, ops/policy.py): every enabled plugin's
+        row enters the weighted total, whatever its config weight, and the
+        kernels take the weights and the fit strategy from the rows."""
         w = dict(self.weights)
         f32 = lambda v: float(np.float32(v))
-        on = lambda name: w.get(name, 1.0) != 0
+        on = lambda name: traced or w.get(name, 1.0) != 0
         rw = [f32(x) for x in self.resource_weights]
         wsum = 0.0
         for x in rw:
@@ -661,8 +664,10 @@ class ChunkEngine:
     share: wave packing, the completions gate (on when the trace has finite
     durations, unless ``completions=False``), the granularity guard, the
     static chunk plan, the tables of S scenarios on the device (with the
-    tier-preemption tables when ``preemption`` is on and the retry tables
-    when ``retry_buffer`` is) and one pass of :func:`run_chunks`.
+    tier-preemption tables when ``preemption`` is on, the retry tables
+    when ``retry_buffer`` is, and the policy rows ``wrow`` every run's
+    tables share) and one pass of :func:`run_chunks`. ``setups`` counts
+    the set-ups; a value swap of the policy rows adds none.
 
     The buffer the guard recommends (grown to cover one chunk's failures
     when it shrinks the chunks) is rounded up to a multiple of the wave
@@ -674,15 +679,21 @@ class ChunkEngine:
         S: int, wave_width, chunk_waves: int, completions: Optional[bool],
         granularity_guard: bool, engine_name: str, device: torch.device, plain: bool,
         preemption: bool = False, retry_buffer: int = 0, domains=None,
+        wrow: Optional[torch.Tensor] = None,
     ) -> None:
+        #: set-ups of this engine (plan and device tables): a value swap
+        #: (``WhatIfEngine.set_policies``) must not add one
+        self.setups = getattr(self, "setups", 0) + 1
         self.ec, self.pods, self.spec, self.S, self.device = ec, pods, spec, S, device
+        #: [S, len(POLICY_COLS)] f32 policy rows on the device, or None
+        self._wrow = wrow
         #: (node_domain [L, T, N], num_domains [L, T], lrow [S], D) of the
         #: label rows of a batch whose scenarios relabel nodes, else None
         self._domains = domains
         #: (tiers, pod_tier) under tier preemption, else None
         self.tiers = (check_tier_mode(ec, pods, spec.interpod, spec.spread)
                       if preemption else None)
-        self.consts = spec.consts()
+        self.consts = spec.consts(traced=wrow is not None)
         self.plain = bool(plain)
         self.wave_width = 8 if wave_width == "auto" else int(wave_width)
         if self.wave_width > 1024:
@@ -746,6 +757,7 @@ class ChunkEngine:
             preempt=pre, retry=rt,
             reject=(ref.new_reject(len(spec_plugin_names(self.spec)), self.pods.num_pods, self.S,
                                    self.device) if attribute else None),
+            wrow=self._wrow,
         )
 
     def _run(self, timers=None, series: bool = False):

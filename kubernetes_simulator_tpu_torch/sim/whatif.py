@@ -67,6 +67,15 @@ checkpoints). The reference also refuses traces whose count planes
 need non-singleton host-scale rows (:956-966), a limit of its TPU plane
 layout; the port's state has no host planes, so it runs them.
 
+Per-scenario policies (``policies=[S, 6]``, row B1w; the reference's
+:1101-1133 and ``set_policies`` :1155) give each scenario its own Score
+weights and NodeResourcesFit selector (:mod:`..ops.policy`): the rows
+live in one device tensor that K1 and K2 read on every path the batch
+runs (plain, device release, label rows, the v2 fallback), and
+``set_policies`` copies new values into it, so a search runs on one
+set-up (``setups``). Kube or tier preemption, the retry buffer and fork
+checkpoints refuse policies with the reference's error.
+
 The engine's other modes raise ``NotImplementedError`` naming the queue
 item that ports them.
 """
@@ -84,9 +93,10 @@ from ..framework.framework import FrameworkConfig
 from ..models.core import Effect
 from ..models.encode import PAD, EncodedCluster, EncodedPods
 from ..ops import reference as ref
+from ..ops.policy import POLICY_COLS
 from ..utils.metrics import log
 from .telemetry import PhaseTimers, ReplayTelemetry, resolve_granularity
-from .tiers import DMAX_COARSE, nonsingleton_host_rows
+from .tiers import DMAX_COARSE, nonsingleton_host_rows, normalize_preemption
 from .torch_runtime import (
     ChunkEngine,
     StepSpec,
@@ -240,6 +250,15 @@ class ScenarioSet:
         self._device = device
         return self
 
+    def host_clusters(self) -> List[EncodedCluster]:
+        """Per-scenario host EncodedCluster twins (the reference's
+        ``host_clusters`` :223): each scenario's perturbed allocatable and
+        taints over the base cluster, for ``greedy_replay``."""
+        tk, tv, te = self._taints
+        return [dc_replace(self._ec, allocatable=self._alloc[s], taint_key=tk[s],
+                           taint_kv=tv[s], taint_effect=te[s])
+                for s in range(self.num_scenarios)]
+
     def labels(self) -> dict:
         """The DevCluster label fields of the batch on its device:
         ``expr_match [L, N, E]``, ``gdom [L, G, N]``, ``gnd`` / ``sp_w [L,
@@ -382,7 +401,9 @@ class WhatIfEngine(ChunkEngine):
     same whether or not the assignments are collected. ``telemetry`` is
     any granularity; above "off" the result's ``fleet_telemetry`` carries
     it and the batch's phase timers, and, as the reference's batch off the
-    kube path, no per-scenario reasons or series.
+    kube path, no per-scenario reasons or series. ``policies`` ([S, 6]
+    f32, :mod:`..ops.policy`) gives each scenario its own Score weights and
+    fit strategy; ``set_policies`` swaps their values.
     Every other mode raises ``NotImplementedError`` naming its queue
     item."""
 
@@ -410,6 +431,8 @@ class WhatIfEngine(ChunkEngine):
         plain: bool = False,
     ):
         scenarios = list(scenarios)
+        pol = self._check_policies(policies, len(scenarios), preemption, retry_buffer,
+                                   fork_checkpoint)
         mode = tier_preemption(preemption)
         rb = check_retry_buffer(retry_buffer)
         sset = ScenarioSet(ec, scenarios)
@@ -448,8 +471,6 @@ class WhatIfEngine(ChunkEngine):
             raise _later("node_shards (node-plane sharding, row B13)", "queue A item 10")
         if fork_checkpoint is not None:
             raise _later("fork_checkpoint (what-if forks from a checkpoint)", "queue A item 7")
-        if policies is not None:
-            raise _later("policies (traced per-scenario policies)", "queue A item 7")
         if _dcn_recovery is not None:
             raise _later("_dcn_recovery (the multi-process fleet)", "queue A item 11")
         if any(sc.events for sc in scenarios):
@@ -481,9 +502,55 @@ class WhatIfEngine(ChunkEngine):
                 spec = dc_replace(spec, sp_norm_f32=False)
             domains = (sset.node_domain, sset.num_domains, sset.lrow_host, sset.max_domains)
         self.preemption = mode
+        wrow = torch.tensor(pol, device=device) if pol is not None else None
         self._prepare(ec, pods, spec, cluster, sset.num_scenarios, wave_width, chunk_waves,
                       completions, granularity_guard, "what-if engine", device, plain, mode, rb,
-                      domains)
+                      domains, wrow)
+
+    @staticmethod
+    def _check_policies(policies, S: int, preemption, retry_buffer, fork_checkpoint
+                        ) -> Optional[np.ndarray]:
+        """The ``[S, K]`` f32 policy rows, or None: the reference's shape
+        checks and its refusals of the paths that carry no policy axis
+        (sim/whatif.py:1101-1133). The granularity guard never turns a
+        retry buffer on, so the requested one decides."""
+        if policies is None:
+            return None
+        pol = np.asarray(policies, dtype=np.float32)
+        K = len(POLICY_COLS)
+        if pol.ndim != 2 or pol.shape[1] != K:
+            raise ValueError(f"policies must be [num_scenarios, {K}] (columns {POLICY_COLS}), "
+                             f"got shape {pol.shape}")
+        if pol.shape[0] != S:
+            raise ValueError(f"policies rows ({pol.shape[0]}) must match num_scenarios ({S})")
+        mode = normalize_preemption(preemption)
+        blockers = [what for what, on in (
+            ("kube preemption", mode == "kube"), ("tier preemption", mode == "tier"),
+            ("retry_buffer", bool(retry_buffer)),
+            ("fork checkpoints", fork_checkpoint is not None),
+        ) if on]
+        if blockers:
+            raise ValueError("per-scenario policies run on the plain/completions what-if "
+                             "paths — not supported with " + ", ".join(blockers))
+        return pol
+
+    def set_policies(self, policies) -> None:
+        """Swap the per-scenario policy VALUES in place: the new ``[S, K]``
+        rows are copied into the engine's device tensor, which every K1
+        and K2 launch reads; no set-up runs again (``setups`` stays 1).
+        The reference's DCN slicing of a global population
+        (sim/whatif.py:1170-1176) belongs to the fleet, which this engine
+        refuses at construction (queue A item 11)."""
+        if self._wrow is None:
+            raise ValueError(
+                "engine was built without policies — pass policies=[S, K] at construction "
+                "to enable the policy axis"
+            )
+        pol = np.asarray(policies, dtype=np.float32)
+        if pol.shape != tuple(self._wrow.shape):
+            raise ValueError(f"policies shape {pol.shape} must match the engine's "
+                             f"{tuple(self._wrow.shape)} (the device rows are updated in place)")
+        self._wrow.copy_(torch.from_numpy(np.ascontiguousarray(pol)))
 
     def _completions_gate(self, ec: EncodedCluster, pods: EncodedPods,
                           completions: Optional[bool], sset: ScenarioSet, spec: StepSpec

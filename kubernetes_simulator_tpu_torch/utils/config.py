@@ -12,9 +12,10 @@ runs the port's engine), ``waveWidth``,
 preemption; ``"kube"`` is refused) and ``whatIf`` (``scenarios``,
 ``seed``, ``nodeDownP``, ``capacityP``, ``taintP``, ``completions``,
 ``retryBuffer``: the unschedulable-retry buffer of ``run`` and
-``what-if``). Parsing is the reference's, key for key, so one YAML file
-yields the same encoded case and the same scenario batch in both
-packages; the reference's ``validate`` refusals of a retry buffer
+``what-if``) and ``tune`` (the policy tuner; ``mesh: true`` and
+``evaluator: cpu`` are refused by name). Parsing is the reference's, key
+for key, so one YAML file yields the same encoded case and the same
+scenario batch in both packages; the reference's ``validate`` refusals of a retry buffer
 (kubernetes_simulator_tpu/cli.py:705-730) raise ``ValueError`` here.
 
 Every other section of the JAX package's schema belongs to a mode the port
@@ -25,7 +26,7 @@ naming the section instead of silently running something else.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 import yaml
 
@@ -68,6 +69,70 @@ class WhatIfSpec:
     retry_buffer: int = 0
 
 
+@dataclass
+class TuneSpec:
+    """Policy-tuner section (``tune:`` YAML; the reference's ``TuneSpec``,
+    utils/config.py:115-170): a seeded search over the Score policy
+    surface of the ``profile:`` scheduler against scenarios derived from
+    the config's cluster/workload (:mod:`..sim.tuner`). ``objective`` maps
+    metric name → weight (maximized; costs use negative weights);
+    ``output`` is the trajectory JSONL sink (falls back to the top-level
+    ``output``). ``mesh: true`` and ``evaluator: cpu`` are refused."""
+
+    algo: str = "cem"
+    population: int = 16
+    rounds: int = 6
+    seed: int = 0
+    elite_frac: float = 0.25
+    objective: Optional[Dict[str, float]] = None
+    constraints: Optional[List[Dict[str, float]]] = None
+    evaluator: str = "auto"
+    train_scenarios: int = 4
+    heldout_scenarios: int = 2
+    scenario_seed: int = 0
+    node_down_p: float = 0.02
+    capacity_p: float = 0.3
+    taint_p: float = 0.1
+    weight_bounds: Optional[List[float]] = None
+    tune_strategy: bool = True
+    cpu_oracle: bool = True
+    cpu_envelope: float = 1e-6
+    output: Optional[str] = None
+
+
+def _tune_spec(tu: dict) -> TuneSpec:
+    """The reference's parsing of ``tune:`` (utils/config.py:435-460), key
+    for key; ``mesh: true`` and ``evaluator: cpu`` are refused by name."""
+    if bool(tu.get("mesh", False)):
+        _refuse("tune.mesh", "a policy sweep over several cards, queue A item 10")
+    if str(tu.get("evaluator", "auto")) == "cpu":
+        _refuse("tune.evaluator: cpu",
+                "the host evaluator on the CPU event engine, queue A item 13")
+    sc = tu.get("scenarios", {}) or {}
+    wb = tu.get("weightBounds")
+    return TuneSpec(
+        algo=str(tu.get("algo", "cem")),
+        population=int(tu.get("population", 16)),
+        rounds=int(tu.get("rounds", 6)),
+        seed=int(tu.get("seed", 0)),
+        elite_frac=float(tu.get("eliteFrac", 0.25)),
+        objective=tu.get("objective"),
+        constraints=tu.get("constraints"),
+        evaluator=str(tu.get("evaluator", "auto")),
+        train_scenarios=int(sc.get("train", 4)),
+        heldout_scenarios=int(sc.get("heldout", 2)),
+        scenario_seed=int(sc.get("seed", 0)),
+        node_down_p=float(sc.get("nodeDownP", 0.02)),
+        capacity_p=float(sc.get("capacityP", 0.3)),
+        taint_p=float(sc.get("taintP", 0.1)),
+        weight_bounds=[float(wb[0]), float(wb[1])] if wb is not None else None,
+        tune_strategy=bool(tu.get("tuneStrategy", True)),
+        cpu_oracle=bool(tu.get("cpuOracle", True)),
+        cpu_envelope=float(tu.get("cpuEnvelope", 1e-6)),
+        output=tu.get("output"),
+    )
+
+
 def _coerce_completions(v: object) -> Optional[bool]:
     """None stays None (default on); bool/int coerce to bool; anything
     else is a config error."""
@@ -84,7 +149,6 @@ _REFUSED_SECTIONS = {
     "chaos": "chaos node-event timelines",
     "dcn": "the multi-process fleet",
     "service": "the resident query service",
-    "tune": "the policy tuner",
     "flightRecorder": "the flight recorder",
     "faultline": "fleet fault injection",
     "overlap": "the stall-hiding overlap gates",
@@ -135,6 +199,7 @@ class SimConfig:
     whatif: WhatIfSpec = field(default_factory=WhatIfSpec)
     # False, or tier preemption (True / "tier"); "kube" is refused.
     device_preemption: object = False
+    tune: Optional[TuneSpec] = None
 
     @classmethod
     def from_dict(cls, d: dict) -> "SimConfig":
@@ -218,6 +283,8 @@ class SimConfig:
             completions=_coerce_completions(wi.get("completions")),
             retry_buffer=rb,
         )
+        if d.get("tune") is not None:
+            cfg.tune = _tune_spec(d["tune"])
         return cfg
 
     @classmethod

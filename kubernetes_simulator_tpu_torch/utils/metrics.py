@@ -3,8 +3,10 @@
 Counterpart: ``kubernetes_simulator_tpu/utils/metrics.py`` — what the
 ``run`` and ``what-if`` commands print: the utilization means, the
 telemetry series gauges (``series_gauges`` :122), the end-of-replay
-fragmentation gauges, the JSONL writer, the replay row and
-the what-if rows (``whatif_rows`` :329). The float64
+fragmentation gauges, the JSONL writer (``stamp_ts=False`` drops the
+wall-clock stamp, as the tuner's trajectory rows need), the replay row,
+the what-if rows (``whatif_rows`` :329) and the tuner's row schema
+(``TUNE_SCHEMA_VERSION`` :79). The float64
 host arithmetic is the reference's, line for line, so both packages give
 the same gauges from the same committed state. The multi-process (fleet)
 row stamp is not carried over."""
@@ -37,6 +39,9 @@ if not log.handlers:
 
 #: JSONL row schema version of the JAX package's replay rows.
 SCHEMA_VERSION = 7
+#: Schema of the policy tuner's trajectory rows (``run_type: "tune"``,
+#: scripts/check_metrics_schema.py).
+TUNE_SCHEMA_VERSION = 3
 
 
 def config_hash(cfg_dict: dict) -> str:

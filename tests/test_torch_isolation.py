@@ -25,6 +25,8 @@ from kubernetes_simulator_tpu_torch.models.encode import encode
 from kubernetes_simulator_tpu_torch.sim.synthetic import make_cluster, make_workload
 from kubernetes_simulator_tpu_torch.sim.torch_runtime import TorchReplayEngine
 import kubernetes_simulator_tpu_torch.cli, kubernetes_simulator_tpu_torch.convert
+import kubernetes_simulator_tpu_torch.ops.cpu, kubernetes_simulator_tpu_torch.ops.policy
+import kubernetes_simulator_tpu_torch.sim.greedy, kubernetes_simulator_tpu_torch.sim.tuner
 cluster = make_cluster(6, seed=1, taint_fraction=0.3)
 pods, _ = make_workload(30, seed=1, with_affinity=True, with_spread=True,
                         with_tolerations=True, gang_fraction=0.1, gang_size=2,
@@ -164,11 +166,12 @@ def test_wrappers_take_the_twin_only_on_cpu():
 @pytest.mark.parametrize(
     "name,refused",
     [("config1_default_cpu.yaml", "cpu"), ("config2_full_plugins_5k.yaml", None),
-     ("config3_whatif_256.yaml", None), ("config8_kube_preempt.yaml", "kube")],
+     ("config3_whatif_256.yaml", None), ("config8_kube_preempt.yaml", "kube"),
+     ("config11_tune.yaml", None), ("config12_utilization.yaml", "kube")],
 )
 def test_example_configs_parse_or_refuse(name, refused):
-    """The repo's example configs: the run and what-if configs parse with
-    the JAX package's values; the kube-preemption one is refused by
+    """The repo's example configs: the run, what-if and tune configs parse
+    with the JAX package's values; the kube-preemption ones are refused by
     name."""
     import yaml
 
@@ -188,3 +191,18 @@ def test_example_configs_parse_or_refuse(name, refused):
     wi = raw.get("whatIf") or {}
     assert cfg.whatif.scenarios == wi.get("scenarios", 0)
     assert cfg.whatif.seed == wi.get("seed", 0)
+
+
+def test_config11_tune_section_parses_like_the_reference():
+    from kubernetes_simulator_tpu.utils.config import SimConfig as J_SimConfig
+    from kubernetes_simulator_tpu_torch.utils.config import SimConfig
+
+    path = str(ROOT / "examples" / "config11_tune.yaml")
+    got, want = SimConfig.load(path).tune, J_SimConfig.load(path).tune
+    for f in ("algo", "population", "rounds", "seed", "elite_frac", "objective", "constraints",
+              "evaluator", "train_scenarios", "heldout_scenarios", "scenario_seed",
+              "node_down_p", "capacity_p", "taint_p", "weight_bounds", "tune_strategy",
+              "cpu_oracle", "cpu_envelope", "output"):
+        assert getattr(got, f) == getattr(want, f), f
+    # tune.mesh: true is refused at parse time, so the port keeps no field.
+    assert want.mesh is False and not hasattr(got, "mesh")

@@ -411,3 +411,68 @@ def test_first_reject_equals_twin(card):
         for other in runs[1:]:
             np.testing.assert_array_equal(runs[0].assignments, other.assignments)
             assert cs.series_digest(runs[0].telemetry) == cs.series_digest(other.telemetry)
+
+
+#: Policy rows: the default, non-integer weights under MostAllocated, a zero
+#: weight, non-integer weights under LeastAllocated.
+POLICY_ROWS = [[1.0, 3.0, 2.0, 2.0, 2.0, 1.0], [2.3125, 0.7, 4.1, 1.55, 3.3, 0.0],
+               [1.0, 0.0, 2.0, 0.0, 5.25, 1.0], [9.99, 0.125, 0.3333, 7.77, 0.01, 1.0]]
+
+
+def test_policy_kernels_equal_twins(card):
+    """K1 and K2 with per-scenario policy rows (row B1w) equal their twins
+    slot by slot at S=4, one row per scenario."""
+    ec, ep = _case(5, nodes=48, pods=400)
+    S = len(POLICY_ROWS)
+    consts = StepSpec.from_config(ec, FrameworkConfig(), ep).consts(traced=True)
+    cl, pods = ref.cluster_to(ec, card, S), ref.pods_to(ep, card)
+    G, D = cl.gdom.shape[1], max(ec.max_domains, 1)
+    z = lambda *s: torch.zeros(s, dtype=torch.float32, device=card)
+    wrow = torch.tensor(POLICY_ROWS, dtype=torch.float32, device=card)
+    mk = lambda: ref.Tables(cl, pods, ref.DevState(z(S, ec.num_nodes, ec.num_resources),
+                                                   z(S, G, D), z(S, G, D), z(S, G, D)),
+                            ref.new_scratch(S, ec.num_nodes, card), consts, wrow=wrow)
+    tb_k, tb_t = mk(), mk()
+    b = K.Bound(tb_k)
+    ids = torch.arange(ep.num_pods, dtype=torch.int32, device=card)
+    ch_k = torch.full((S, ep.num_pods), PAD, dtype=torch.int32, device=card)
+    ch_t = ch_k.clone()
+    for p in range(ep.num_pods):
+        K.filter_score(b, p)
+        ref.filter_score(tb_t, p)
+        K.normalize_select(b, p, ch_k, p)
+        ref.normalize_select(tb_t, p, ch_t, p)
+        K.apply_placements(b, ids[p : p + 1], ids[p : p + 1], ch_k, 1.0)
+        ref.apply_placements(tb_t, ids[p : p + 1], ids[p : p + 1], ch_t, 1.0)
+        torch.cuda.synchronize()
+        for f in ref.Scratch._fields:
+            assert torch.equal(getattr(tb_k.scratch, f), getattr(tb_t.scratch, f)), (p, f)
+        assert torch.equal(ch_k[:, p], ch_t[:, p]), p
+    # The MostAllocated row (1) and the non-integer row (3) place apart from
+    # every other row; rows 0 and 2 place alike on this 48-node trace.
+    c = ch_k.cpu().numpy()
+    for i, j in ((1, 0), (1, 2), (1, 3), (3, 0), (3, 2)):
+        assert (c[i] != c[j]).any(), (i, j)
+
+
+def test_policy_whatif_kernel_path_equals_plain_path(card):
+    """A policy what-if with completions on the kernel path equals the
+    plain path on the card and the CPU, before and after set_policies,
+    with one set-up."""
+    from kubernetes_simulator_tpu_torch.sim.whatif import WhatIfEngine, uniform_scenarios
+
+    ec, ep = _case(8, nodes=40, pods=600, duration_mean=3.0, arrival_rate=50.0,
+                   gang_fraction=0.1, gang_size=3)
+    scen = uniform_scenarios(ec, 4, seed=1, p_node_down=0.5, p_taint=0.5)
+    pol = np.asarray(POLICY_ROWS, np.float32)
+    kw = dict(wave_width=4, chunk_waves=8, collect_assignments=True)
+    eng = WhatIfEngine(ec, ep, scen, FrameworkConfig(), device=card, policies=pol, **kw)
+    for rows in (pol, pol[::-1].copy()):
+        eng.set_policies(rows)
+        K.reset_launch_counts()
+        kern = eng.run()
+        assert all(K.launch_counts()[k] > 0 for k in PATH_KERNELS)
+        for o in (dict(device=card, plain=True), dict(device="cpu")):
+            other = WhatIfEngine(ec, ep, scen, FrameworkConfig(), policies=rows, **kw, **o).run()
+            np.testing.assert_array_equal(kern.assignments, other.assignments)
+    assert eng.setups == 1

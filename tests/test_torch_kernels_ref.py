@@ -434,3 +434,111 @@ def test_first_reject_twin_gates_and_batches():
             ref.first_reject(tb, q[s], torch.full((1, 1), PAD, dtype=torch.int32))
         assert torch.equal(batched.reject.attempts[s : s + 1], tb.reject.attempts), s
     assert torch.equal(batched.reject.attempts[2], before[2])
+
+
+# -- per-scenario policy rows (row B1w) ------------------------------------------
+
+#: Four policy rows: the default, non-integer weights under MostAllocated,
+#: a zero weight, non-integer weights under LeastAllocated.
+POLICY_ROWS = np.array([
+    [1.0, 3.0, 2.0, 2.0, 2.0, 1.0],
+    [2.3125, 0.7, 4.1, 1.55, 3.3, 0.0],
+    [1.0, 0.0, 2.0, 0.0, 5.25, 1.0],
+    [9.99, 0.125, 0.3333, 7.77, 0.01, 1.0],
+], np.float32)
+
+
+@pytest.mark.parametrize("plugins", [None, STRATEGIES[4]], ids=["least", "ratio"])
+def test_policy_row_twins_match_traced_fold(plugins):
+    """K1's strategy row and K2's weight row, op by op, against the JAX
+    package's traced fold (ops/tpu.py eval_pod_fused(wvec), eager): at each
+    slot of real waves, for each policy row, the mask, the fit row of the
+    row's strategy (the selector ignored under RequestedToCapacityRatio),
+    the weighted total where feasible and the choice."""
+    from kubernetes_simulator_tpu.sim.waves import pack_waves
+
+    cluster = make_cluster(12, seed=8, taint_fraction=0.3)
+    pods, _ = make_workload(24, seed=8, with_affinity=True, with_spread=True,
+                            with_tolerations=True)
+    ec, ep = encode(cluster, pods)
+    st = init_state(ec, ep)
+    R = POLICY_ROWS.shape[0]
+    pec, pep = port_case(ec, ep)
+    spec = StepSpec.from_config(pec, FrameworkConfig(plugins=plugins), pep)
+    wrow = torch.from_numpy(POLICY_ROWS.copy())
+    ps = port_state(st).planes
+    tb = ref.Tables(
+        cluster=ref.cluster_to(pec, "cpu"), pods=ref.pods_to(pep, "cpu"),
+        state=ref.stacked_state(*(x[0].numpy() for x in ps), R, "cpu"),
+        scratch=ref.new_scratch(R, ec.num_nodes, "cpu"), consts=spec.consts(traced=True),
+        wrow=wrow,
+    )
+    jspec = J_StepSpec.from_config(ec, J_Config(plugins=plugins), ep)
+    dc = T.DevCluster.from_encoded(ec)
+    d = T.Derived.build(dc)
+    rw = np.asarray(jspec.resource_weights, np.float32)
+    sb = T.gather_slots(ep, pack_waves(ep, 8).idx)
+    rng = np.random.default_rng(8)
+    choices = torch.full((R, 1), PAD, dtype=torch.int32)
+    checked = 0
+    for wi in range(sb.pod_id.shape[0]):
+        wave = jax.tree.map(lambda a: a[wi], sb)
+        pre = T.build_wave_pre(dc, d, wave, jspec)
+        widths = T.wave_widths(wave, jspec)
+        for k in range(8):
+            p = int(wave.pod_id[k])
+            if not bool(wave.valid[k]):
+                continue
+            s = jax.tree.map(lambda a: a[k], wave)
+            pk = jax.tree.map(lambda a: a[k], pre)
+            dst = _jax_state(ec, st)
+            ref.filter_score(tb, p)
+            ref.normalize_select(tb, p, choices, 0)
+            total = ref.weighted_total(tb, p)
+            for r in range(R):
+                f1, sc1, _ = T.eval_pod_fused(dc, d, dst, s, pk, jspec, widths,
+                                              wvec=jnp.asarray(POLICY_ROWS[r]))
+                f1 = np.asarray(f1)
+                np.testing.assert_array_equal(tb.scratch.feasible[r].numpy(), f1)
+                if jspec.fit_strategy in ("LeastAllocated", "MostAllocated"):
+                    least = POLICY_ROWS[r, 5] > 0.5
+                    fit = (T.least_allocated_score if least else T.most_allocated_score)(
+                        dc, dst, s, rw)
+                else:
+                    fit = T.requested_to_capacity_ratio_score(
+                        dc, dst, s, rw, jspec.shape_x, jspec.shape_y)
+                np.testing.assert_array_equal(
+                    tb.scratch.scores[r, ref.ROW_FIT].numpy(), np.asarray(fit),
+                    err_msg=f"fit row p={p} r={r}")
+                np.testing.assert_array_equal(total[r].numpy()[f1], np.asarray(sc1)[f1],
+                                              err_msg=f"total p={p} r={r}")
+                node, placed = T.select_node(sc1, jnp.asarray(f1))
+                assert int(choices[r, 0]) == (int(node) if bool(placed) else PAD), (p, r)
+                checked += 1
+            feas = tb.scratch.feasible[0].numpy()
+            if feas.any():  # every row binds the same node: one shared state
+                n = int(rng.choice(np.nonzero(feas)[0]))
+                bind(ec, ep, st, p, n)
+                ref.apply_placements(
+                    tb, torch.tensor([p], dtype=torch.int32),
+                    torch.tensor([0], dtype=torch.int32),
+                    torch.full((R, 1), n, dtype=torch.int32), 1.0)
+    assert checked == 4 * ep.num_pods
+    if plugins is not None:  # the selector is inert: rows 0 and 1 share a fit row
+        np.testing.assert_array_equal(tb.scratch.scores[0, ref.ROW_FIT].numpy(),
+                                      tb.scratch.scores[1, ref.ROW_FIT].numpy())
+
+
+def test_traced_consts_keep_zero_weight_rows():
+    """Static mode gates a zero-weight plugin out of the total; traced
+    mode keeps every enabled row in (ops/tpu.py:62 policy_weight_fns)."""
+    ec, ep = encode(make_cluster(6, seed=1, taint_fraction=0.5),
+                    make_workload(20, seed=1, with_affinity=True, with_spread=True,
+                                  with_tolerations=True)[0])
+    pec, pep = port_case(ec, ep)
+    cfg = FrameworkConfig(weights={"NodeAffinity": 0.0, "PodTopologySpread": 0.0})
+    spec = StepSpec.from_config(pec, cfg, pep)
+    static, traced = spec.consts(), spec.consts(traced=True)
+    assert (static.on_na, static.on_sp) == (False, False)
+    assert (traced.on_na, traced.on_sp) == (spec.node_affinity, spec.spread) == (True, True)
+    assert traced.on_fit == static.on_fit and traced.on_taint == static.on_taint

@@ -286,7 +286,7 @@ def _tiny():
      (dict(fork_checkpoint="fork.npz"), "queue A item 7"),
      (dict(preemption="kube", retry_buffer=8), "queue A item 7"),
      (dict(preemption="kube"), "queue A item 7"),
-     (dict(policies=np.zeros((2, 6), np.float32)), "queue A item 7"),
+     (dict(policies=np.ones((2, 6), np.float32), mesh=object()), "queue A item 10"),
      (dict(node_shards=2), "queue A item 10"),
      (dict(_dcn_recovery={"block": (0, 1)}), "queue A item 11"),
      (dict(telemetry="series", engine="v2"), "queue B item 2"),
