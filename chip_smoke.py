@@ -16,15 +16,19 @@ From the root of a checkout, on a host with one CUDA card. In order:
    and taints differ (node loss, capacity changes, hard and soft injected
    taints), scenario by scenario;
 5. replays a reduced case (300 nodes, 2,000 pods, completions and gangs)
-   through the kernel path, the plain path on the card and the plain path
-   on the CPU: assignments must be identical;
+   on four routes — the chunk route (K6, one launch a chunk), the per-slot
+   kernels (K1 -> K2 -> K3 a slot), the plain path on the card and the
+   plain path on the CPU: assignments must be identical (so do steps 6, 9,
+   12 and 16; step 20's series runs take the per-slot route, and step 12's
+   timeline replay is held against the same replay at summary on K6);
 6. runs a reduced what-if (8 scenarios × 60 nodes × 3,000 pods,
    durationMean 60, gangs: a contended trace where gangs roll back and
    completions move placements) the same three ways: assignments [S, P]
    must be identical;
 7. replays the config2 shape (durationMean 50, gangFraction 0.02) on the
    kernel path with every launch counter zeroed just before, checks the
-   result and each kernel's launches, and profiles a second replay;
+   result and each kernel's launches, and profiles a second replay; K6
+   held against its twin over the first K6_TWIN_WAVES waves at S=1;
 8. the main path: the headline what-if — 128 scenarios
    (``uniform_scenarios(seed=0)``) × 2,000 nodes × 20,000 pods, the full
    default plugin set, durationMean 50, gangs (0.02 × 4), chunkWaves 512
@@ -34,7 +38,19 @@ From the root of a checkout, on a host with one CUDA card. In order:
    one profiled run for the device's busy share; then each kernel held
    against its twin at the headline shapes (S=128, N=2,000) and timed
    beside its twin, a PyTorch yardstick and its least possible time on
-   the card;
+   the card. The batch runs on the chunk route (K6 one launch a chunk, K1
+   and K2 none); its per-slot route places alike (assignments' sha256),
+   and K6 is held against its twin over the first K6_TWIN_WAVES waves and
+   against the per-slot kernels over the first chunk (choices and every
+   plane), and its launch over K6_TIMED_WAVES waves timed;
+8c. config4 (``examples/config4_borg_1m.yaml``: 10,000 nodes x 1,000,000
+   Borg-shaped tasks, chunkWaves 2048) through the CLI ``run`` on the card,
+   counters zeroed just before and read just after: placed, unschedulable,
+   set-up seconds by part, replay wall, placements/s, launches, B6's bound;
+   K6 held against its twin over the first K6_TWIN_WAVES waves (S=1) and
+   its first two chunks against the per-slot kernels;
+8d. config4's generator cut to BORG_CUT (12 nodes x 5,000 tasks) on both
+   routes against greedy_replay's pins (BORG_PINS);
 9. tier preemption, reduced: a tier-preemption replay (config6 cut to 20
    nodes x 1,040 pods) and a preemption x completions what-if (8
    scenarios x 8 nodes x 400 pods) on the kernel path, the plain path on
@@ -146,7 +162,11 @@ From the root of a checkout, on a host with one CUDA card. In order:
    envelope <= 1e-6, one engine set-up; the walls of the search, the
    held-out sweep and the oracle.
 
-Prints the kernel table as one JSON line, then, as its last line,
+Every phase prints its route. Prints the kernel table as one JSON line
+(K6 ``chunk_replay`` among the kernels; each row's ``launches`` from its
+path's main run, where K1 and K2 run inside K6 and launch 0 times, and
+``slot_route_launches`` from the same batch on the per-slot route), then,
+as its last line,
 ``{"ok": true, "device": {...}}``. Any failed check raises (exit code not
 0, no result line). Details go to ``chiprun_out/chip_smoke.json``.
 """
@@ -159,6 +179,7 @@ import hashlib
 import json
 import logging
 import os
+import re
 import subprocess
 import sys
 import time
@@ -178,6 +199,7 @@ from kubernetes_simulator_tpu_torch.sim.synthetic import make_cluster, make_work
 from kubernetes_simulator_tpu_torch.sim.torch_runtime import (  # noqa: E402
     StepSpec,
     TorchReplayEngine,
+    assignments_from_choices,
     new_choices,
     retry_slots,
     run_waves,
@@ -349,6 +371,8 @@ SOURCES = {
                        "kubernetes_simulator_tpu/sim/whatif.py:1456"),
     "first_reject": ("kubernetes_simulator_tpu_torch/csrc/first_reject.cu",
                      "kubernetes_simulator_tpu/ops/tpu.py:816"),
+    "chunk_replay": ("kubernetes_simulator_tpu_torch/csrc/chunk_replay.cu",
+                     "kubernetes_simulator_tpu/sim/jax_runtime.py:742"),
 }
 #: K5's modes, each with the reference lines it replaces: the plain path's
 #: per-slot attribution (make_wave_step_rej) and the retry path's chunk
@@ -378,8 +402,25 @@ LABEL_SOURCES = {
     "apply_placements_label_rows": ("apply_placements",
                                     "kubernetes_simulator_tpu/sim/whatif.py:1760"),
 }
-#: The kernels every path launches (the retry buffer adds retry_boundary).
+#: The kernels the per-slot route launches (the retry buffer adds
+#: retry_boundary): at telemetry series, under engine v2, and on any path
+#: whose route is chosen explicitly.
 SOURCES_PLAIN = ("filter_score", "normalize_select", "apply_placements")
+#: config4 (examples/config4_borg_1m.yaml, 10,000 nodes x 1,000,000 tasks)
+#: through the CLI ``run``; the first chunks held against the per-slot route.
+CONFIG4 = "examples/config4_borg_1m.yaml"
+CONFIG4_HOLD_CHUNKS = 2
+#: config4's generator cut so that greedy_replay recomputes it on a CPU in
+#: seconds (tests/test_torch_borg_pins.py), contended (190 pods unschedulable:
+#: every node choice matters), chunkWaves 32 (21 chunks, releases at 19).
+BORG_CUT = dict(nodes=12, tasks=5000, chunk_waves=32)
+BORG_PINS = {"placed": 4810, "unschedulable": 190,
+             "sha256": "d320d2a1c17a1e88b28055be12e7fc18164d3176f9c481de920f917567a4705b"}
+#: Waves of the headline's first chunk that K6 is held against its twin over
+#: (the twin costs ~6 ms a slot at S = 128; the whole chunk, 512 waves, ~25 s),
+#: and of the window its launch is timed in.
+K6_TWIN_WAVES = 64
+K6_TIMED_WAVES = 8
 #: The kernels' tier-preemption work, each with the kernel it runs in and
 #: the reference function it replaces.
 PREEMPT_SOURCES = {
@@ -451,17 +492,59 @@ def device_ms(fn, iters, match=None):
     return total_us / iters / 1e3 if total_us > 0 else None
 
 
-def profiled_busy_s(fn):
-    """(result of fn(), seconds of device time torch.profiler recorded)."""
+def profiled_busy_s(fn, by_kernel=None):
+    """(result of fn(), seconds of device time torch.profiler recorded);
+    ``by_kernel`` (a dict) receives the seconds by kernel name."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         out = fn()
-    busy_us = sum(
-        (getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0.0))
-        for e in prof.key_averages()
-    )
+    busy_us = 0.0
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0.0)
+        busy_us += us
+        if by_kernel is not None and us:
+            by_kernel[e.key] = by_kernel.get(e.key, 0.0) + us / 1e6
     return out, busy_us / 1e6
+
+
+def k6_device_s(by_kernel):
+    """K6's device seconds in a profiled run's kernel times."""
+    return sum(t for k, t in by_kernel.items() if "chunk_replay" in k)
+
+
+def check_chunk_launches(where, launches, plan, retry=False):
+    """The chunk route's launches in a run (counters zeroed just before it):
+    one K6 a chunk, K3 at each release, K1 and K2 none outside the retry
+    pass (retry: K1, K2 and K4 in it)."""
+    want_k6 = len(plan.buckets)
+    if launches["chunk_replay"] != want_k6:
+        raise AssertionError(f"{where}: {launches['chunk_replay']} K6 launches for "
+                             f"{want_k6} chunks")
+    if retry:
+        if any(launches[k] <= 0 for k in SOURCES_PLAIN + ("retry_boundary",)):
+            raise AssertionError(f"{where}: a kernel of the retry pass was not launched: "
+                                 f"{launches}")
+    elif launches["filter_score"] or launches["normalize_select"]:
+        raise AssertionError(f"{where}: K1/K2 launched on the chunk route: {launches}")
+    if any(bk is not None for bk in plan.buckets) and launches["apply_placements"] <= 0:
+        raise AssertionError(f"{where}: no K3 release was launched")
+
+
+def slot_route(where, eng, want, series=False):
+    """``eng``'s run on the per-slot route (K1 → K2 → K3 a slot), counters
+    zeroed just before and read just after: it must place ``want`` [S, P]
+    (the chunk route's assignments). Returns (its launches, its wall)."""
+    K.reset_launch_counts()
+    _, wall, a, _, _ = eng._run(series=series, route="slot")
+    launches = K.launch_counts()
+    if launches["chunk_replay"] or any(launches[k] <= 0 for k in SOURCES_PLAIN):
+        raise AssertionError(f"{where}: the per-slot route launched {launches}")
+    bad = np.argwhere(a != want)
+    if bad.size:
+        raise AssertionError(f"{where}: the chunk route != the per-slot route at (scenario, "
+                             f"pod) {bad[:5].tolist()}")
+    return launches, wall
 
 
 def bound(nbytes, nops):
@@ -503,10 +586,10 @@ class Work:
         self.rows_on = int(k.on_fit) + int(k.on_taint) + int(k.on_na) + int(k.on_ip) + int(k.on_sp)
         #: policy rows: K1 reads a scenario's selector, K2 its five weights
         self.policy = tb.wrow is not None
-        self._k3_terms = {}
         pre = tb.preempt
         self.pod_tier = pre.tier_host.astype(np.int64) if pre is not None else None
         self.Tt = pre.used_tier.shape[1] if pre is not None else 0
+        self.RB = tb.retry.rbuf.shape[1] if tb.retry is not None else 0
 
     def k1_preempt(self, p):
         """(bytes, ops) K1 adds under tier preemption for pod p: the tier
@@ -535,9 +618,9 @@ class Work:
         return nbytes, len(ev_tiers) * cols + matches * 4 + sum(int(t) * (R + 1)
                                                                 for t in ev_tiers)
 
-    def _k1_reads(self, p):
-        """(expression columns, looked-up groups, the groups whose plane
-        rows it reads, with repeats) K1 reads for pod p."""
+    def _k1_sets(self, p):
+        """(the groups whose match_count, anti_active and pref_wsum rows K1
+        reads, the expression columns it reads) for pod p."""
         ep, k = self.ep, self.k
         mc, aa, pw = set(), set(), set()
         if k.interpod:
@@ -549,7 +632,25 @@ class Work:
         exprs = set()
         if k.node_affinity:
             exprs = _ids(ep.na_pref[p]) | (_ids(ep.na_req[p]) if ep.na_has_req[p] else set())
+        return mc, aa, pw, exprs
+
+    def _k1_reads(self, p):
+        """(expression columns, looked-up groups, the groups whose plane
+        rows it reads, with repeats) K1 reads for pod p."""
+        mc, aa, pw, exprs = self._k1_sets(p)
         return exprs, mc | aa | pw, [g for gs in (mc, aa, pw) for g in gs]
+
+    def _term_rows(self, pods):
+        """[len(pods), *] the term rows K1's work depends on, one per pod:
+        pods with equal rows cost K1 alike (a million Borg tasks share ~100
+        template rows)."""
+        ep = self.ep
+        return np.concatenate([
+            ep.aff_req[pods], ep.anti_req[pods], ep.pref_aff[pods], ep.spread_g[pods],
+            ep.na_pref[pods].reshape(pods.size, -1), ep.na_req[pods].reshape(pods.size, -1),
+            ep.na_has_req[pods].reshape(pods.size, -1).astype(np.int64),
+            ep.pod_matches_group[pods].astype(np.int64),
+        ], axis=1).astype(np.int64)
 
     def k1(self, p):
         """(bytes, ops) of K1 for pod p over all S scenarios."""
@@ -641,63 +742,6 @@ class Work:
         nbytes = S * RB * 20 + S * (RB * 16 + 4) + placed * (4 + steps * 4 + 8)
         return nbytes, S * RB * 8 + placed * (steps + 4)
 
-    def _terms(self, p):
-        """(plane, group) pairs K3 adds to for pod p: match_count (0) for
-        each group p matches, anti_active (1) for its anti terms, pref_wsum
-        (2) for its preferred terms."""
-        t = self._k3_terms.get(p)
-        if t is None:
-            ep = self.ep
-            g0 = np.nonzero(ep.pod_matches_group[p])[0]
-            g1, g2 = ep.anti_req[p][ep.anti_req[p] >= 0], ep.pref_aff[p][ep.pref_aff[p] >= 0]
-            t = (np.concatenate([np.zeros(g0.size), np.ones(g1.size), np.full(g2.size, 2)])
-                 .astype(np.int64), np.concatenate([g0, g1, g2]).astype(np.int64))
-            self._k3_terms[p] = t
-        return t
-
-    def k3_binds(self, pods, assignments, block=256):
-        """[(bytes, ops)] of the main-path bind of each of ``pods`` (one pod
-        a launch) at its nodes ``assignments[:, p]``: :meth:`k3` of ``[p]``
-        for every pod, counted block by block over the pods at once."""
-        ep, N, R, G, D, S = self.ep, self.N, self.R, self.G, self.D, self.S
-        AA, PA = ep.anti_req.shape[1], ep.pref_aff.shape[1]
-        GM = ep.pod_matches_group.shape[1]
-        fixed = 4 + 4 + S * 4 + S * 4 + R * 4 + G + AA * 4 + PA * 8
-        lrow = self.lrow if self.lrow.size == S else np.zeros(S, np.int64)
-        gspan, cspan = self.gdom.shape[0] * G * N, S * 3 * G * D
-        pods = np.asarray(pods, np.int64)
-        out = []
-        for a in range(0, pods.size, block):
-            p = pods[a : a + block]
-            B = p.size
-            nodes = np.asarray(assignments[:, p], np.int64)  # [S, B]
-            placed = nodes >= 0
-            n_s = placed.sum(axis=0)
-            nbytes = fixed + n_s * R * 8  # used rows, read and written
-            if self.pod_tier is not None:  # non-gang pairs' tier cells
-                nbytes = nbytes + np.where(ep.group_id[p] < 0, n_s * (R + 1) * 8, 0)
-            # The pods' (plane, group) terms (Work._terms), padded.
-            pl = np.concatenate([np.zeros((B, GM)), np.ones((B, AA)), np.full((B, PA), 2)],
-                                axis=1).astype(np.int64)
-            g = np.concatenate([np.broadcast_to(np.arange(GM), (B, GM)), ep.anti_req[p],
-                                ep.pref_aff[p]], axis=1).astype(np.int64)
-            tmask = np.concatenate([ep.pod_matches_group[p] != 0, ep.anti_req[p] >= 0,
-                                    ep.pref_aff[p] >= 0], axis=1)
-            s_i, b_i, t_i = np.nonzero(placed[:, :, None] & tmask[None])
-            gg, pp, nn = g[b_i, t_i], pl[b_i, t_i], nodes[s_i, b_i]
-            lr = lrow[s_i]
-            gcells = np.bincount(np.unique(b_i * gspan + (lr * G + gg) * N + nn) // gspan,
-                                 minlength=B)  # gdom cells, shared by a row
-            dom = self.gdom[lr, gg, nn]
-            live = dom >= 0
-            cell = ((s_i[live] * 3 + pp[live]) * G + gg[live]) * D + dom[live]
-            pcells = np.bincount(np.unique(b_i[live] * cspan + cell) // cspan,
-                                 minlength=B)  # plane cells, read and written
-            nbytes = nbytes + gcells * 4 + pcells * 8
-            ops = n_s * R + np.bincount(b_i[live], minlength=B)
-            out.extend(zip(nbytes.tolist(), ops.tolist()))
-        return out
-
     def k3(self, pods, nodes, rollback=False):
         """(bytes, ops) of K3 applying pods[k] (or, per scenario, pods[s, k])
         at nodes[s, k] in each of the S scenarios. A rollback reads the
@@ -720,20 +764,23 @@ class Work:
             return nbytes, 0
         n, p = nodes[s_i, k_i], pods2[s_i, k_i]
         nbytes += np.unique(s_i * N + n).size * R * 8  # used rows, read and written
-        order = np.argsort(p, kind="stable")
-        up, first, count = np.unique(p[order], return_index=True, return_counts=True)
-        parts = []
-        for u, a, c in zip(up.tolist(), first.tolist(), count.tolist()):
-            pl, g = self._terms(u)
-            if g.size:
-                parts.append((np.tile(pl, c), np.tile(g, c), np.repeat(order[a : a + c], g.size)))
         if self.pod_tier is not None:  # tier cells of the non-gang pairs, distinct once
             ng = ep.group_id[p] < 0
             tcell = (s_i[ng] * self.Tt + self.pod_tier[p[ng]]) * N + n[ng]
             nbytes += np.unique(tcell).size * (R + 1) * 8
-        if not parts:
+        # Each pair's (plane, group) terms: match_count (0) for each group its
+        # pod matches, anti_active (1) for its anti terms, pref_wsum (2) for
+        # its preferred terms.
+        GM = ep.pod_matches_group.shape[1]
+        plane = np.concatenate([np.zeros(GM), np.ones(AA), np.full(PA, 2)]).astype(np.int64)
+        gcol = np.concatenate([np.broadcast_to(np.arange(GM), (p.size, GM)), ep.anti_req[p],
+                               ep.pref_aff[p]], axis=1).astype(np.int64)
+        tmask = np.concatenate([ep.pod_matches_group[p] != 0, ep.anti_req[p] >= 0,
+                                ep.pref_aff[p] >= 0], axis=1)
+        j, t = np.nonzero(tmask)
+        if not j.size:
             return nbytes, s_i.size * R
-        pl, g, j = (np.concatenate(x) for x in zip(*parts))
+        pl, g = plane[t], gcol[j, t]
         nn, ss = n[j], s_i[j]
         lr = self.lrow[ss] if self.lrow.size == S else np.zeros_like(ss)
         nbytes += np.unique((lr * G + g) * N + nn).size * 4  # gdom cells, shared by a row
@@ -743,49 +790,130 @@ class Work:
         nbytes += np.unique(cell).size * 8  # plane cells, read and written
         return nbytes, s_i.size * R + int(live.sum())
 
-    def chunk_loop_ms(self, plan, assignments, launches, evictions=None, retry_walk=None):
-        """B6's bound: the sum over every launch of a run of that launch's
-        least time. K1 counts each wave pod, K2 each slot; K3 binds and
-        releases count the nodes the run's assignments [S, P] give them
-        (for the main-path binds: a pod placed on retry counts as PAD
-        there), which leaves out the binds of pods later rolled back or
-        evicted, and a rollback counts its reads only (the run records no
-        undone pair): this term is a floor.
+    def k6(self, waves, gang, assignments, first=0, evictions=None, tail=0, append=False):
+        """(bytes, ops) of one K6 launch over the wave rows ``waves`` [n, W]
+        (waves ``first`` on, ``gang`` [n] their gang flags) with the run's
+        ``assignments`` [S, P] for the binds: the chunk as one function.
+        Bytes: each input it needs read once and each output written once —
+        the descriptor, the used plane, the cluster tables, expression
+        columns, domain-map rows and plane cells the window's pods read,
+        each distinct pod's rows and each scenario's label row index (and
+        policy row); the choices, and the used rows and plane cells (and
+        tier cells) the binds change. K1's mask and Score rows, which K2
+        reads back, are K6's own scratch and are not counted, nor is a
+        slot's re-read of what an earlier slot of the launch read. Ops:
+        every slot's K1, K2 and K3 work as :meth:`k1_scen`, :meth:`k2_scen`
+        and :meth:`k3` count it (pods with equal term rows counted once and
+        weighted). Under tier preemption ``evictions`` [n, S] (the victims
+        each wave took in each scenario; ``tail`` the pre-bound columns)
+        adds K1's candidate work, K2's argmin where it fired, and K3's
+        eviction step with the choice buffer read once; under the retry
+        buffer ``append`` adds each scenario's buffer and counters."""
+        ep, k, S, N, R, G, D = self.ep, self.k, self.S, self.N, self.R, self.G, self.D
+        waves = np.asarray(waves, np.int64)
+        pods = waves[waves >= 0]
+        nbytes, nops = waves.size * 4 + len(waves), 0  # the descriptor: slots, gang flags
+        if not pods.size:
+            return nbytes, 0
+        TO, TT = ep.tol_key.shape[1], self.TT
+        AA, PA, GM = ep.anti_req.shape[1], ep.pref_aff.shape[1], ep.pod_matches_group.shape[1]
+        _, first_i, count = np.unique(self._term_rows(pods), axis=0, return_index=True,
+                                      return_counts=True)
+        exprs, looked, cells = set(), set(), set()
+        per_node = R * 8 + (TT * (4 + TO * 6) if k.taints else 0) + 16
+        for i, c in zip(first_i.tolist(), count.tolist()):
+            mc, aa, pw, e = self._k1_sets(int(pods[i]))
+            exprs |= e
+            looked |= mc | aa | pw
+            cells |= {(0, g) for g in mc} | {(1, g) for g in aa} | {(2, g) for g in pw}
+            nops += c * S * N * (per_node + len(e) + len(mc | aa | pw) * 4)  # K1
+        nops += pods.size * S * N * (2 + self.rows_on * 8)  # K2
+        lrow = self.lrow if self.lrow.size == S else np.zeros(S, np.int64)
+        n_rows = np.unique(lrow).size
+        gnd = self.gnd[lrow]  # [S, G]
+        uniq = np.unique(pods)
+        nbytes += (
+            S * N * R * 4  # the used plane
+            + self.alloc_copies * N * R * 4
+            + (self.taint_copies * 3 * N * TT * 4 if k.taints else 0)
+            + uniq.size * (R * 4 + (TO * 12 if k.taints else 0) + GM + AA * 4 + PA * 8 + 4)
+            + n_rows * N * len(exprs)  # expression-match columns
+            + n_rows * len(looked) * N * 4  # domain-map rows
+            + sum(int(gnd[:, g].sum()) for _, g in cells) * 4  # plane cells read
+            + S * 4 + (S * 20 if self.policy else 0)  # label row index, policy row
+            + S * pods.size * 4  # the choices written
+        )
+        # K3's binds: the used rows and plane cells they change (read above).
+        nodes = np.asarray(assignments, np.int64)[:, pods]  # [S, K]
+        s_i, k_i = np.nonzero(nodes >= 0)
+        n, p = nodes[s_i, k_i], pods[k_i]
+        nbytes += np.unique(s_i * N + n).size * R * 4
+        nops += s_i.size * R
+        if self.pod_tier is not None:
+            tiers = self.pod_tier[pods][self.ep.group_id[pods] < 0]
+            nbytes += S * N * int(tiers.max(initial=0)) * (R + 1) * 4  # tier cells K1 reads
+            ng = ep.group_id[p] < 0
+            tcell = (s_i[ng] * self.Tt + self.pod_tier[p[ng]]) * N + n[ng]
+            nbytes += np.unique(tcell).size * (R + 1) * 4
+            nops += sum(self.k1_preempt(int(q))[1] for q in pods)
+        plane = np.concatenate([np.zeros(GM), np.ones(AA), np.full(PA, 2)]).astype(np.int64)
+        gcol = np.concatenate([np.broadcast_to(np.arange(GM), (p.size, GM)), ep.anti_req[p],
+                               ep.pref_aff[p]], axis=1).astype(np.int64)
+        tmask = np.concatenate([ep.pod_matches_group[p] != 0, ep.anti_req[p] >= 0,
+                                ep.pref_aff[p] >= 0], axis=1)
+        j, t = np.nonzero(tmask)
+        if j.size:
+            pl, g, nn, ss = plane[t], gcol[j, t], n[j], s_i[j]
+            lr = lrow[ss]
+            unread = ~np.isin(g, sorted(looked))  # domain-map cells K1 did not read
+            nbytes += np.unique(((lr * G + g) * N + nn)[unread]).size * 4
+            dom = self.gdom[lr, g, nn]
+            live = dom >= 0
+            cell = ((ss[live] * 3 + pl[live]) * G + g[live]) * D + dom[live]
+            nbytes += np.unique(cell).size * 4
+            nops += int(live.sum())
+        if evictions is not None:
+            ev = np.asarray(evictions)
+            W = waves.shape[1]
+            nops += sum(self.k2_fire(int(f))[1] for f in (ev > 0).sum(axis=1) if f)
+            if ev.any():
+                nbytes += S * ((first + len(waves)) * W + tail) * 4  # choice buffer
+            for w, v in enumerate(ev):
+                if v.any():
+                    cols = (first + w) * W + tail
+                    nb, no = self.k3_evict(cols, int(v.sum()), int(v.sum()),
+                                           [1] * int((v > 0).sum()))
+                    nbytes += nb - int((v > 0).sum()) * cols * 4
+                    nops += no
+        if append:
+            nbytes += S * (self.RB * 4 + 16)  # buffer, count and drop counter
+            nops += S * pods.size
+        return nbytes, nops
 
-        Under tier preemption ``evictions`` ([waves, S] victims each wave
-        took in each scenario; at most one eviction a wave and scenario)
-        adds K1's candidate rows of the pods that may preempt, K2's argmin
-        where it fired, and per eviction a floor of K3's step: the columns
-        before the wave's first slot and the pre-bound tail scanned, each
-        victim read and marked, one tier below the preemptor's. Under the
-        retry buffer ``retry_walk`` (per boundary b > 0: the buffer and
-        pending list before the boundary, the pass's choices) adds the
-        pending release, each pass slot's K1 → K2 → K3, K4, and each
-        main-path bind's failure append."""
-        S = self.S
-        wave_pods = plan.idx[plan.idx >= 0]
-        k1 = sum(bound(*self.k1(int(p)))[0] for p in wave_pods)
-        k2 = wave_pods.size * bound(*self.k2())[0]
-        binds = sum(bound(nb, no)[0] for nb, no in self.k3_binds(wave_pods, assignments))
-        pad = lambda w: np.full((S, w.size), PAD)
-        rollbacks = sum(bound(*self.k3(w, pad(w), rollback=True))[0]
-                        for w in plan.idx[plan.gang_wave])
+    def chunk_loop_ms(self, plan, assignments, launches, evictions=None, retry_walk=None):
+        """B6's bound for a run on the chunk route (``launches``, the run's
+        counts, must be the route's): each chunk's K6 launch (:meth:`k6`)
+        and the host's launches between chunks — each release's K3 and,
+        under the retry buffer ``retry_walk`` (per boundary b > 0: the
+        buffer and pending list before the boundary, the pass's choices),
+        the pending release, each pass slot's K1 → K2 → K3 and K4. The
+        binds count the nodes the run's assignments [S, P] give them (a pod
+        placed on retry counts as PAD there), which leaves out the binds of
+        pods later rolled back or evicted: this term is a floor.
+        ``evictions`` ([waves, S]) goes to :meth:`k6`."""
+        S, C = self.S, plan.C
+        k6 = 0.0
+        for c in range(len(plan.buckets)):
+            w = slice(c * C, (c + 1) * C)
+            k6 += bound(*self.k6(plan.idx[w], plan.gang_wave[w], assignments, c * C,
+                                 None if evictions is None else evictions[w],
+                                 plan.prebound.size, retry_walk is not None))[0]
         releases = sum(bound(*self.k3(bk[0], assignments[:, bk[0]]))[0]
                        for bk in plan.buckets if bk is not None)
-        want = dict(filter_score=wave_pods.size, normalize_select=wave_pods.size,
-                    apply_placements=(wave_pods.size + int(plan.gang_wave.sum())
-                                      + sum(bk is not None for bk in plan.buckets)),
-                    retry_boundary=0)
-        out = dict(k1=k1, k2=k2, k3_bind=binds, k3_rollback=rollbacks, k3_release=releases)
-        if evictions is not None:
-            W, tail = plan.idx.shape[1], plan.prebound.size
-            out["k1_candidates"] = sum(bound(*self.k1_preempt(int(p)))[0] for p in wave_pods)
-            fired = (evictions > 0).sum(axis=1)
-            out["k2_argmin"] = sum(bound(*self.k2_fire(int(f)))[0] for f in fired if f)
-            out["k3_evict"] = sum(
-                bound(*self.k3_evict(w * W + tail, int(v.sum()), int(v.sum()),
-                                     [1] * int((v > 0).sum())))[0]
-                for w, v in enumerate(evictions) if v.any())
+        want = dict(filter_score=0, normalize_select=0,
+                    apply_placements=sum(bk is not None for bk in plan.buckets),
+                    retry_boundary=0, chunk_replay=len(plan.buckets))
+        out = dict(k6=k6, k3_release=releases)
         if retry_walk is not None:
             RB = retry_walk[0]["rbuf"].shape[1] if retry_walk else 0
             k1r = k2r = k3r = pend = k4 = 0.0
@@ -808,11 +936,132 @@ class Work:
                 want["apply_placements"] += 1 + n
                 want["retry_boundary"] += 1
             out.update(k3_pending_release=pend, k1_retry=k1r, k2_retry=k2r, k3_retry_bind=k3r,
-                       k4=k4, k3_append=wave_pods.size * bound(*self.k3_append())[0])
+                       k4=k4)
         if any(launches.get(k, 0) != n for k, n in want.items()):
             raise AssertionError(f"launch counts {launches} do not match the chunk plan {want}")
         out["total"] = sum(out.values())
+        out["slots"] = int((plan.idx >= 0).sum())
         return out
+
+
+def _planes(tb):
+    """Every carried plane of a Tables (state, scratch, tier and retry
+    tables) by name."""
+    out = {}
+    for part in ("state", "scratch", "preempt", "retry"):
+        nt = getattr(tb, part)
+        if nt is not None:
+            out.update({f"{part}.{f}": x for f, x in zip(nt._fields, nt) if torch.is_tensor(x)})
+    return out
+
+
+def same_planes(where, tb_a, ch_a, tb_b, ch_b):
+    torch.cuda.synchronize()
+    bad = torch.nonzero(ch_a != ch_b)
+    if bad.numel():
+        raise AssertionError(f"{where}: choices differ at (scenario, column) "
+                             f"{bad[:5].tolist()}")
+    pb = _planes(tb_b)
+    for name, x in _planes(tb_a).items():
+        if not torch.equal(x, pb[name]):
+            raise AssertionError(f"{where}: {name} differs")
+
+
+def hold_twin(where, plan, mk, waves):
+    """K6 against its twin (``ref.chunk_replay``) from the initial state
+    ``mk()`` makes ((tables, choices)), over waves [0, ``waves``) of the
+    first chunk: the choice buffer and every plane equal after. Returns
+    (K6's tables and choices, the twin's, the record)."""
+    (tb_k, ch_k), (tb_t, ch_t) = mk(), mk()
+    t0 = time.perf_counter()
+    run_waves(plan, tb_k, ch_k, 0, waves, plain=False, route="chunk")
+    torch.cuda.synchronize()
+    k6_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    run_waves(plan, tb_t, ch_t, 0, waves, plain=True, route="chunk")
+    torch.cuda.synchronize()
+    twin_s = time.perf_counter() - t0
+    same_planes(f"{where}: K6 vs its twin over waves [0, {waves})", tb_k, ch_k, tb_t, ch_t)
+    rec = dict(twin_window_waves=waves, twin_window_slots=int((plan.idx[:waves] >= 0).sum()),
+               k6_window_s=k6_s, twin_window_s=twin_s)
+    print(f"{where}: K6 == its twin over waves [0, {waves}) ({rec['twin_window_slots']} slots, "
+          f"S={ch_k.shape[0]}; {k6_s:.3f}s vs {twin_s:.1f}s), choices and every plane",
+          flush=True)
+    return (tb_k, ch_k), (tb_t, ch_t), rec
+
+
+def k6_tiles(S, N):
+    """K6's work items (scenario, 1,024-node tile); its grid is the smaller
+    of these and the blocks the card holds at once (occupancy x SMs)."""
+    return S * -(-N // 1024)
+
+
+def hold_chunk_replay(where, eng, dev, results, assignments=None):
+    """K6 against its twin and the per-slot route, from ``eng``'s initial
+    state: the first K6_TWIN_WAVES waves of the first chunk on K6 and on
+    its twin (:func:`hold_twin`), then the rest of the chunk on K6
+    against the per-slot kernels over the whole chunk — the choice buffer
+    and every plane equal after each. Then K6's launch over the next
+    K6_TIMED_WAVES waves timed (device time by torch.profiler, the state
+    restored before each launch) beside its twin's wall and the window's
+    least time (:meth:`Work.k6`, with ``assignments`` [S, P] of the full
+    run for the binds). Returns the kernel-table row's numbers."""
+    plan, S = eng.plan, eng.S
+    desc = plan.device_desc(dev)
+    mk = lambda: (eng._tables(), new_choices(plan, S, eng.pods.bound_node, dev))
+    w1, C = min(K6_TWIN_WAVES, plan.C), plan.C
+    (tb_k, ch_k), (tb_t, ch_t), twin_rec = hold_twin(where, plan, mk, w1)
+    tb_s, ch_s = mk()
+    # K6's launch over the next waves, timed from a snapshot of the state.
+    w2 = min(w1 + K6_TIMED_WAVES, C)
+    snap = {name: x.clone() for name, x in _planes(tb_k).items()}
+    ch_snap = ch_k.clone()
+    b = K.Bound(tb_k)
+    boundary = 0 if tb_k.preempt is not None else None
+    append = tb_k.retry is not None
+
+    def restore(tb, ch):
+        for name, x in _planes(tb).items():
+            x.copy_(snap[name])
+        ch.copy_(ch_snap)
+
+    def k6(_):
+        restore(tb_k, ch_k)
+        K.chunk_replay(b, desc.idx, desc.gang, ch_k, w1, w2, boundary, append)
+
+    ms = device_ms(k6, 20, match="chunk_replay")
+    if ms is None:
+        ms = time_cuda(k6, 20)
+
+    def twin(_):
+        restore(tb_t, ch_t)
+        ref.chunk_replay(tb_t, desc.idx, desc.gang, ch_t, w1, w2, boundary, append)
+
+    plain_ms = time_cuda(twin, 1, warm=1)
+    same_planes(f"{where}: K6 vs its twin over waves [{w1}, {w2})", tb_k, ch_k, tb_t, ch_t)
+    window = plan.idx[w1:w2]
+    pods = window[window >= 0]
+    a = assignments if assignments is not None else np.full((S, eng.pods.num_pods), PAD)
+    if tb_k.preempt is not None:
+        raise AssertionError(f"{where}: the window's bound takes no evictions")
+    bound_ms, bound_by = bound(*Work(eng.pods, tb_k).k6(window, plan.gang_wave[w1:w2], a, w1,
+                                                         append=append))
+    # The rest of the first chunk on K6 against the per-slot kernels.
+    restore(tb_k, ch_k)
+    run_waves(plan, tb_k, ch_k, w1, C, plain=False, route="chunk")
+    run_waves(plan, tb_s, ch_s, 0, C, plain=False, route="slot")
+    same_planes(f"{where}: K6 vs the per-slot kernels over the first chunk ({C} waves)",
+                tb_k, ch_k, tb_s, ch_s)
+    tiles = k6_tiles(S, tb_k.state.used.shape[1])
+    out = dict(ms=ms, per_slot_ms=ms / max(pods.size, 1), plain_ms=plain_ms, bound_ms=bound_ms,
+               bound_by=bound_by, slots=int(pods.size), waves=w2 - w1, tiles=tiles,
+               max_abs_err=0.0, **twin_rec)
+    results.setdefault("k6", {})[where] = out
+    print(f"{where}: K6 == the per-slot kernels over the first chunk ({C} waves), choices and "
+          f"every plane; K6 over {w2 - w1} waves ({pods.size} slots, {tiles} tiles): "
+          f"{ms * 1e3:.1f} us a launch, {ms * 1e3 / max(pods.size, 1):.2f} us a slot (bound "
+          f"{bound_ms * 1e3:.3f} us by {bound_by}; twin {plain_ms:.1f} ms)", flush=True)
+    return out
 
 
 def mid_replay_tables(ec, ep, cl, consts, S, rng, dev, state=None, wrow=None):
@@ -1034,8 +1283,13 @@ def check_reduced_replay(results, dev="cuda"):
     ec, ep = case(nodes, pods, duration_mean=20.0, gang_fraction=0.05)
     kw = dict(wave_width=8, chunk_waves=64)
     t0 = time.perf_counter()
-    kern = TorchReplayEngine(ec, ep, FrameworkConfig(), device=dev, **kw).replay()
+    eng = TorchReplayEngine(ec, ep, FrameworkConfig(), device=dev, **kw)
+    kern = eng.replay()
     t1 = time.perf_counter()
+    if kern.route != "chunk":
+        raise AssertionError(f"reduced replay ran on route {kern.route}")
+    _, slot_s = slot_route("reduced replay", eng, kern.assignments[None])
+    t1s = time.perf_counter()
     plain = TorchReplayEngine(ec, ep, FrameworkConfig(), device=dev, plain=True,
                               **kw).replay()
     t2 = time.perf_counter()
@@ -1055,11 +1309,12 @@ def check_reduced_replay(results, dev="cuda"):
         raise AssertionError("reduced replay placed nothing or completions changed nothing")
     results["reduced"] = dict(nodes=nodes, pods=pods, placed=kern.placed,
                               unschedulable=kern.unschedulable, moved_by_completions=moved,
-                              kernel_s=t1 - t0, plain_card_s=t2 - t1, plain_cpu_s=t3 - t2)
+                              kernel_s=t1 - t0, slot_route_s=slot_s, plain_card_s=t2 - t1s,
+                              plain_cpu_s=t3 - t2)
     print(f"reduced replay ({nodes} nodes, {pods} pods): placed {kern.placed}, identical on the "
-          f"kernel path, the plain path on the card and on the CPU "
-          f"({t1 - t0:.2f}s / {t2 - t1:.2f}s / {t3 - t2:.2f}s); completions move "
-          f"{moved} assignments", flush=True)
+          f"chunk route (K6), the per-slot kernels, the plain path on the card and on the CPU "
+          f"({t1 - t0:.2f}s / {slot_s:.2f}s / {t2 - t1s:.2f}s / {t3 - t2:.2f}s); completions "
+          f"move {moved} assignments", flush=True)
 
 
 def check_reduced_whatif(results, dev="cuda"):
@@ -1071,8 +1326,13 @@ def check_reduced_whatif(results, dev="cuda"):
     kw = dict(wave_width=8, chunk_waves=64, collect_assignments=True)
     mk = lambda **o: WhatIfEngine(ec, ep, scen, FrameworkConfig(), **{**kw, **o})
     t0 = time.perf_counter()
-    kern = mk(device=dev).run()
+    eng = mk(device=dev)
+    kern = eng.run()
     t1 = time.perf_counter()
+    if kern.route != "chunk":
+        raise AssertionError(f"reduced what-if ran on route {kern.route}")
+    _, slot_s = slot_route("reduced what-if", eng, kern.assignments)
+    t1s = time.perf_counter()
     plain = mk(device=dev, plain=True).run()
     t2 = time.perf_counter()
     cpu = mk(device="cpu").run()
@@ -1095,10 +1355,11 @@ def check_reduced_whatif(results, dev="cuda"):
         scenarios=len(scen), nodes=nodes, pods=pods, placed=kern.placed.tolist(),
         moved_by_completions=moved, distinct_scenarios=distinct,
         gang_pods_unplaced=gang_unplaced,
-        kernel_s=t1 - t0, plain_card_s=t2 - t1, plain_cpu_s=t3 - t2)
+        kernel_s=t1 - t0, slot_route_s=slot_s, plain_card_s=t2 - t1s, plain_cpu_s=t3 - t2)
     print(f"reduced what-if (8 scenarios x {nodes} nodes x {pods} pods): placed "
-          f"{kern.placed.tolist()}, assignments identical on the kernel path, the plain path on "
-          f"the card and on the CPU ({t1 - t0:.2f}s / {t2 - t1:.2f}s / {t3 - t2:.2f}s); "
+          f"{kern.placed.tolist()}, assignments identical on the chunk route (K6), the per-slot "
+          f"kernels, the plain path on the card and on the CPU ({t1 - t0:.2f}s / "
+          f"{slot_s:.2f}s / {t2 - t1s:.2f}s / {t3 - t2:.2f}s); "
           f"completions move {moved} assignments, {gang_unplaced} gang pods rolled back or "
           f"unplaced", flush=True)
 
@@ -1441,8 +1702,15 @@ def check_reduced_preempt(results, dev="cuda"):
     cfg, ec, ep = config6_case(nodes=20, pods=1040)
     kw = dict(wave_width=8, chunk_waves=cfg.chunk_waves, preemption=True)
     t0 = time.perf_counter()
-    kern = TorchReplayEngine(ec, ep, cfg.framework, device=dev, **kw).replay()
+    eng = TorchReplayEngine(ec, ep, cfg.framework, device=dev, **kw)
+    kern = eng.replay()
     t1 = time.perf_counter()
+    if kern.route != "chunk":
+        raise AssertionError(f"reduced preemption replay ran on route {kern.route}")
+    slot_route("reduced preemption replay", eng, kern.assignments[None])
+    if int(eng.last_tables.preempt.victims[0]) != kern.preemptions:
+        raise AssertionError("reduced preemption replay: the per-slot route's victims differ")
+    t1s = time.perf_counter()
     plain = TorchReplayEngine(ec, ep, cfg.framework, device=dev, plain=True, **kw).replay()
     t2 = time.perf_counter()
     cpu = TorchReplayEngine(ec, ep, cfg.framework, device="cpu", **kw).replay()
@@ -1456,7 +1724,7 @@ def check_reduced_preempt(results, dev="cuda"):
         raise AssertionError("reduced preemption replay fired no eviction")
     results["reduced_preempt_replay"] = dict(
         nodes=20, pods=1040, placed=kern.placed, victims=kern.preemptions,
-        kernel_s=t1 - t0, plain_card_s=t2 - t1, plain_cpu_s=t3 - t2)
+        kernel_s=t1 - t0, plain_card_s=t2 - t1s, plain_cpu_s=t3 - t2)
     cluster = make_cluster(8, seed=2, taint_fraction=0.2)
     workload, _ = make_workload(400, seed=2, with_spread=True, with_tolerations=True,
                                 duration_mean=20.0, arrival_rate=12.0)
@@ -1465,8 +1733,15 @@ def check_reduced_preempt(results, dev="cuda"):
     wkw = dict(wave_width=8, chunk_waves=4, collect_assignments=True, preemption=True)
     mk = lambda **o: WhatIfEngine(ec2, ep2, scen, FrameworkConfig(), **{**wkw, **o})
     t0 = time.perf_counter()
-    wk = mk(device=dev).run()
+    weng = mk(device=dev)
+    wk = weng.run()
     t1 = time.perf_counter()
+    if wk.route != "chunk":
+        raise AssertionError(f"reduced preemption what-if ran on route {wk.route}")
+    slot_route("reduced preemption what-if", weng, wk.assignments)
+    if not np.array_equal(weng.last_tables.preempt.victims.cpu().numpy(), wk.preemptions):
+        raise AssertionError("reduced preemption what-if: the per-slot route's victims differ")
+    t1s = time.perf_counter()
     wp = mk(device=dev, plain=True).run()
     t2 = time.perf_counter()
     wc = mk(device="cpu").run()
@@ -1483,11 +1758,11 @@ def check_reduced_preempt(results, dev="cuda"):
     results["reduced_preempt_whatif"] = dict(
         scenarios=8, nodes=8, pods=400, placed=wk.placed.tolist(),
         victims=wk.preemptions.tolist(), moved_by_completions=moved,
-        kernel_s=t1 - t0, plain_card_s=t2 - t1, plain_cpu_s=t3 - t2)
+        kernel_s=t1 - t0, plain_card_s=t2 - t1s, plain_cpu_s=t3 - t2)
     print(f"reduced tier preemption: replay (20 nodes x 1040 pods) placed {kern.placed}, "
           f"{kern.preemptions} victims; what-if (8 x 8 nodes x 400 pods) victims "
-          f"{wk.preemptions.tolist()}, completions move {moved}; identical on the kernel path, "
-          f"the plain path on the card and on the CPU", flush=True)
+          f"{wk.preemptions.tolist()}, completions move {moved}; identical on the chunk route "
+          f"(K6), the per-slot kernels, the plain path on the card and on the CPU", flush=True)
 
 
 def run_preempt_paths(results, dev):
@@ -1497,16 +1772,15 @@ def run_preempt_paths(results, dev):
     after, the result held against greedy_replay's pinned constants, then
     a median of 3 timed runs and one profiled run; then each kernel held
     against its twin in an eviction window of each shape and timed there.
-    Returns the kernel-table rows' numbers."""
+    Returns (kernel timings, the what-if's launches, its per-slot route's
+    launches)."""
     cfg, ec, ep = config6_case()
     eng = TorchReplayEngine(ec, ep, cfg.framework, wave_width=cfg.wave_width,
                             chunk_waves=cfg.chunk_waves, preemption=True)
     K.reset_launch_counts()
     warm = eng.replay()
     launches = K.launch_counts()
-    for k in SOURCES_PLAIN:
-        if launches[k] <= 0:
-            raise AssertionError(f"kernel {k} was not launched by the config6 replay")
+    check_chunk_launches("config6 replay", launches, eng.plan)
     check_result(ec, ep, warm)
     check_pins("config6 replay", PREEMPT_PINS["config6"], warm.placed, warm.preemptions,
                warm.assignments)
@@ -1518,11 +1792,13 @@ def run_preempt_paths(results, dev):
     wall = float(np.median(walls))
     res_p, busy_s = profiled_busy_s(eng.replay)
     results["config6"] = dict(
-        nodes=ec.num_nodes, pods=ep.num_pods, chunk_waves=eng.plan.C, launches=launches,
+        route=warm.route, nodes=ec.num_nodes, pods=ep.num_pods, chunk_waves=eng.plan.C,
+        launches=launches,
         placed=warm.placed, victims=warm.preemptions, walls_s=walls, wall_s=wall,
         placements_per_s=warm.placed / wall, profiled_wall_s=res_p.wall_clock_s,
         device_busy_s=busy_s, device_busy_share=busy_s / res_p.wall_clock_s if busy_s else None)
-    print(f"config6 tier-preemption replay ({ec.num_nodes} nodes x {ep.num_pods} pods): median "
+    print(f"config6 tier-preemption replay ({ec.num_nodes} nodes x {ep.num_pods} pods, route "
+          f"{warm.route}): median "
           f"wall {wall:.3f}s of {[round(x, 3) for x in walls]}, {warm.placed / wall:.1f} "
           f"placements/s, placed {warm.placed}, {warm.preemptions} victims (== greedy_replay's "
           f"pins); launches {json.dumps(launches)}; profiled: wall {res_p.wall_clock_s:.3f}s, "
@@ -1548,9 +1824,7 @@ def run_preempt_paths(results, dev):
     K.reset_launch_counts()
     warm = eng.run()
     launches = K.launch_counts()
-    for k in SOURCES_PLAIN:
-        if launches[k] <= 0:
-            raise AssertionError(f"kernel {k} was not launched by the preemption what-if")
+    check_chunk_launches("tier what-if", launches, eng.plan)
     check_whatif_result(ep, warm, pw["scenarios"])
     check_pins("what-if scenario 0", PREEMPT_PINS["whatif"], warm.placed[0],
                warm.preemptions[0], warm.assignments[0])
@@ -1566,18 +1840,25 @@ def run_preempt_paths(results, dev):
     walls = sorted(r.wall_clock_s for r in runs)
     wall = float(np.median(walls))
     res_p, busy_s = profiled_busy_s(eng.run)
+    # The per-slot route of the batch: the same placements and victims.
+    slot_launches, slot_wall = slot_route("tier what-if", eng, warm.assignments)
+    if not np.array_equal(eng.last_tables.preempt.victims.cpu().numpy(), warm.preemptions):
+        raise AssertionError("tier what-if: the per-slot route's victims differ")
     results["preempt_whatif"] = dict(
         **pw, nodes=ec.num_nodes, pods=ep.num_pods, setup_s=setup_s,
-        chunk_waves_run=eng.plan.C, completions_on=warm.completions_on, launches=launches,
+        chunk_waves_run=eng.plan.C, completions_on=warm.completions_on, route=warm.route,
+        launches=launches,
         launches_detail=dict(release=sum(bk is not None for bk in eng.plan.buckets),
                              rollback=int(eng.plan.gang_wave.sum())),
+        slot_route=dict(launches=slot_launches, wall_s=slot_wall),
         walls_s=walls, wall_s=wall, placements_per_s=warm.total_placed / wall,
         total_placed=warm.total_placed, victims_total=int(warm.preemptions.sum()),
         victims_min=int(warm.preemptions.min()), victims_max=int(warm.preemptions.max()),
         scenario0_placed=int(warm.placed[0]), scenario0_victims=int(warm.preemptions[0]),
         single_replay_wall_s=single.wall_clock_s, profiled_wall_s=res_p.wall_clock_s,
         device_busy_s=busy_s, device_busy_share=busy_s / res_p.wall_clock_s if busy_s else None)
-    print(f"tier-preemption what-if ({pw['scenarios']} scenarios x {ec.num_nodes} nodes x "
+    print(f"tier-preemption what-if (route {warm.route}, {pw['scenarios']} scenarios x "
+          f"{ec.num_nodes} nodes x "
           f"{ep.num_pods} pods, durationMean {pw['duration_mean']}, gangs, chunkWaves "
           f"{pw['chunk_waves']}): median wall {wall:.3f}s of {[round(x, 3) for x in walls]}, "
           f"{warm.total_placed / wall:.1f} aggregate placements/s, victims "
@@ -1599,7 +1880,7 @@ def run_preempt_paths(results, dev):
     print(f"preemption kernels at S={pw['scenarios']}, N={ec.num_nodes}: "
           + "; ".join(f"{k} {m['ms'] * 1e3:.2f} us (bound {m['bound_ms'] * 1e3:.4f} us, twin "
                       f"{m['plain_ms']:.3f} ms)" for k, m in kernels.items()), flush=True)
-    return kernels, launches
+    return kernels, launches, slot_launches
 
 
 # ---------------------------------------------------------------------------
@@ -1681,6 +1962,15 @@ def check_reduced_retry(results, dev="cuda"):
             raise AssertionError(f"reduced retry replay: telemetry != {name}")
     if sum(kern.telemetry.rejection_attempts.values()) <= sum(kern.telemetry.reasons.values()):
         raise AssertionError("reduced retry replay: no retry-pass attempt was attributed")
+    # timeline runs on the per-slot route; the same replay at summary on K6
+    chunk_eng = TorchReplayEngine(ec, ep, cfg.framework, device=dev, **kw)
+    chunk = chunk_eng.replay()
+    if chunk.route != "chunk" or runs[0][0].route != "slot":
+        raise AssertionError(f"reduced retry replay routes {chunk.route}, {runs[0][0].route}")
+    if (not np.array_equal(chunk.assignments, kern.assignments)
+            or (chunk.placed, chunk.retry_dropped) != (kern.placed, kern.retry_dropped)):
+        raise AssertionError("reduced retry replay: the chunk route != the per-slot route")
+    same_records("reduced retry replay, chunk route", rec, retry_records(chunk_eng.last_tables))
     off_replay = TorchReplayEngine(ec, ep, cfg.framework, wave_width=cfg.wave_width,
                                    chunk_waves=32, device=dev).replay().placed
     if kern.retry_dropped <= 0 or (rec["rnode"] >= 0).sum() == 0 or off_replay == kern.placed:
@@ -1701,6 +1991,10 @@ def check_reduced_retry(results, dev="cuda"):
         walls.append(time.perf_counter() - t0)
         runs.append((assignments, placed, retry_records(tb)))
     (ka, kp, krec), others = runs[0], runs[1:]
+    slot_eng = WhatIfEngine(ec, ep, scen, cfg.framework, device=dev, **kw)
+    slot_route("reduced retry what-if", slot_eng, ka)
+    same_records("reduced retry what-if, per-slot route", krec,
+                 retry_records(slot_eng.last_tables))
     for name, (oa, op, orec) in zip(("plain on the card", "plain on the cpu"), others):
         bad = np.argwhere(ka != oa)
         if bad.size or not np.array_equal(kp, op):
@@ -1719,8 +2013,9 @@ def check_reduced_retry(results, dev="cuda"):
     print(f"reduced retry: replay ({nodes} nodes x {pods} pods, retryBuffer 64) placed "
           f"{kern.placed} (without retry {off_replay}), {kern.retry_dropped} dropped; what-if "
           f"(8 x {nodes} x {pods}) placed {kp.tolist()}, dropped "
-          f"{krec['rdrop'].tolist()}; identical on the kernel path, the plain path on the card "
-          f"and on the CPU, every retry record and (replay, timeline) the reasons "
+          f"{krec['rdrop'].tolist()}; identical on the chunk route (K6), the per-slot kernels, "
+          f"the plain path on the card and on the CPU, every retry record and (replay, "
+          f"timeline, per-slot route) the reasons "
           f"{json.dumps(kern.telemetry.reasons)}, attempts "
           f"{json.dumps(kern.telemetry.rejection_attempts)}, series and events included",
           flush=True)
@@ -2061,9 +2356,7 @@ def run_retry_paths(results, dev):
     K.reset_launch_counts()
     warm = eng.run()
     launches = K.launch_counts()
-    for k in SOURCES_PLAIN + ("retry_boundary",):
-        if launches[k] <= 0:
-            raise AssertionError(f"kernel {k} was not launched by the config7 what-if")
+    check_chunk_launches("config7 what-if", launches, eng.plan, retry=True)
     check_whatif_result(ep, warm, S)
     if (warm.placed != ep.num_pods).any() or warm.retry_dropped.any():
         raise AssertionError(f"config7 what-if: placed {warm.placed.min()}..{warm.placed.max()}, "
@@ -2092,14 +2385,15 @@ def run_retry_paths(results, dev):
     slots = [retry_slots(eng.plan, b, eng.retry_buffer) for b in range(1, len(eng.plan.buckets))]
     results["config7_whatif"] = dict(
         scenarios=S, nodes=ec.num_nodes, pods=ep.num_pods, retry_buffer=eng.retry_buffer,
-        chunk_waves_run=eng.plan.C, setup_s=setup_s, launches=launches,
+        chunk_waves_run=eng.plan.C, setup_s=setup_s, route=warm.route, launches=launches,
         launches_detail=dict(pass_slots_per_boundary=slots,
                              retry_launches=3 * sum(slots) + 2 * len(slots)),
         walls_s=walls, wall_s=wall, placements_per_s=warm.total_placed / wall,
         total_placed=warm.total_placed, total_placed_without_retry=off.total_placed,
         retried_binds=int((rnode >= 0).sum()), profiled_wall_s=res_p.wall_clock_s,
         device_busy_s=busy_s, device_busy_share=busy_s / res_p.wall_clock_s if busy_s else None)
-    print(f"config7 retry what-if ({S} scenarios x {ec.num_nodes} nodes x {ep.num_pods} pods, "
+    print(f"config7 retry what-if (route {warm.route} + the host's retry pass, {S} scenarios "
+          f"x {ec.num_nodes} nodes x {ep.num_pods} pods, "
           f"retryBuffer {eng.retry_buffer}, chunkWaves {eng.plan.C}): median wall {wall:.3f}s of "
           f"{[round(x, 3) for x in walls]}, {warm.total_placed / wall:.1f} aggregate placements/s, "
           f"every scenario placed {ep.num_pods} with 0 dropped ({int((rnode >= 0).sum())} on "
@@ -2117,7 +2411,8 @@ def run_retry_paths(results, dev):
                      res1.assignments)
     results["config7_run"] = dict(wall_s=res1.wall_clock_s,
                                   placements_per_s=res1.placements_per_sec, placed=res1.placed)
-    print(f"config7 run (S=1, retryBuffer {rb}): wall {res1.wall_clock_s:.3f}s, "
+    print(f"config7 run (S=1, retryBuffer {rb}, route {res1.route}): wall "
+          f"{res1.wall_clock_s:.3f}s, "
           f"{res1.placements_per_sec:.1f} placements/s, placed {res1.placed} == greedy_replay's "
           f"pins", flush=True)
     del single
@@ -2144,7 +2439,8 @@ def run_retry_paths(results, dev):
         total_placed_without_retry=off.total_placed, placed=warm.placed.tolist(),
         retry_dropped=warm.retry_dropped.tolist(), scenarios_overflowing=overflowing,
         pending_entries_max=int(max((st["pend_id"] >= 0).sum(axis=1).max() for st in walk)))
-    print(f"contended retry what-if ({S} x {ec.num_nodes} nodes x {ep.num_pods} pods): placed "
+    print(f"contended retry what-if ({S} x {ec.num_nodes} nodes x {ep.num_pods} pods, route "
+          f"{warm.route}): placed "
           f"{int(warm.placed.min())}..{int(warm.placed.max())} (without the buffer "
           f"{int(off.placed.min())}..{int(off.placed.max())}), {overflowing} scenarios "
           f"overflowing; scenario 0 == greedy_replay's pins; wall {warm.wall_clock_s:.3f}s; "
@@ -2371,7 +2667,8 @@ def run_series_paths(results, dev):
                           samples=len(tel.series["t"]), launches=launches, walls_s=walls,
                           profiled_wall_s=res_p.wall_clock_s, device_busy_s=busy_s,
                           device_busy_share=busy_s / res_p.wall_clock_s if busy_s else None)
-    print(f"(a) config6 series ({ec.num_nodes} x {ep.num_pods}, devicePreemption off): placed "
+    print(f"(a) config6 series ({ec.num_nodes} x {ep.num_pods}, devicePreemption off, route "
+          f"{res.route}): placed "
           f"{res.placed}, reasons {json.dumps(tel.reasons)} == {ec.num_nodes} x "
           f"{res.unschedulable}, attempts == reasons, == REJECT_PINS; launches "
           f"{json.dumps(launches)}; walls series {[round(w, 3) for w in walls['series']]} s vs "
@@ -2427,8 +2724,8 @@ def run_series_paths(results, dev):
     cli_s = time.perf_counter() - t0
     launches7 = K.launch_counts()
     for k, n in launches7.items():
-        if n <= 0:
-            raise AssertionError(f"kernel {k} was not launched by config7's CLI run")
+        if (n <= 0) != (k == "chunk_replay"):  # series: the per-slot route
+            raise AssertionError(f"config7's CLI run at series launched {k} {n} times")
     with open(d["output"]) as f:
         row = json.loads(f.read().splitlines()[-1])
     with open(trace) as f:
@@ -2456,7 +2753,8 @@ def run_series_paths(results, dev):
                           walls_s=walls7, profiled_wall_s=res_p.wall_clock_s,
                           device_busy_s=busy7,
                           device_busy_share=busy7 / res_p.wall_clock_s if busy7 else None)
-    print(f"(b) config7 run through the CLI (series + timelineOut, retryBuffer {rb}): placed "
+    print(f"(b) config7 run through the CLI (series + timelineOut, retryBuffer {rb}, route "
+          f"{r7.route}): placed "
           f"{r7.placed}, {len(r7.telemetry.events)} events, trace of {len(doc['traceEvents'])} "
           f"events parses, == REJECT_PINS (trace sha256 included); CLI {cli_s:.2f} s; launches "
           f"{json.dumps(launches7)}; walls timeline {[round(w, 3) for w in walls7['timeline']]} s"
@@ -2474,8 +2772,9 @@ def run_series_paths(results, dev):
     rc = ec_.replay()
     launchesc = K.launch_counts()
     for k, n in launchesc.items():
-        if n <= 0:
-            raise AssertionError(f"kernel {k} was not launched by the {RETRY_CUT_NODES}-node cut")
+        if (n <= 0) != (k == "chunk_replay"):  # timeline: the per-slot route
+            raise AssertionError(f"the {RETRY_CUT_NODES}-node cut at timeline launched {k} {n} "
+                                 "times")
     check_series_pins(f"{RETRY_CUT_NODES}-node cut at timeline", REJECT_PINS["cut150"],
                       rc.telemetry)
     check_retry_pins(f"{RETRY_CUT_NODES}-node cut at timeline", RETRY_PINS["cut150"], rc.placed,
@@ -2483,7 +2782,8 @@ def run_series_paths(results, dev):
     out["cut150"] = dict(placed=rc.placed, retry_dropped=rc.retry_dropped,
                          reasons=rc.telemetry.reasons, launches=launchesc,
                          wall_s=rc.wall_clock_s)
-    print(f"(c) {RETRY_CUT_NODES}-node cut at timeline: placed {rc.placed}, dropped "
+    print(f"(c) {RETRY_CUT_NODES}-node cut at timeline (route {rc.route}): placed "
+          f"{rc.placed}, dropped "
           f"{rc.retry_dropped}, reasons {json.dumps(rc.telemetry.reasons)}, attempts "
           f"{json.dumps(rc.telemetry.rejection_attempts)}, == REJECT_PINS and RETRY_PINS; "
           f"launches {json.dumps(launchesc)}; wall {rc.wall_clock_s:.3f} s", flush=True)
@@ -2638,6 +2938,10 @@ def check_reduced_relabel(results, dev="cuda"):
                                  f"{eng.completions_on}")
         runs.append(eng._run()[2])
         walls.append(time.perf_counter() - t0)
+        if o == dict(device=dev):
+            if eng.last_route != "chunk":
+                raise AssertionError(f"reduced relabel ran on route {eng.last_route}")
+            slot_route("reduced relabel what-if", eng, runs[0])
     for name, other in (("plain on the card", runs[1]), ("plain on the cpu", runs[2])):
         bad = np.argwhere(runs[0] != other)
         if bad.size:
@@ -2651,7 +2955,7 @@ def check_reduced_relabel(results, dev="cuda"):
                                       scenarios_moved=moved, kernel_s=walls[0],
                                       plain_card_s=walls[1], plain_cpu_s=walls[2])
     print(f"reduced relabel what-if (8 x {nodes} nodes x {pods} pods): assignments identical on "
-          f"the kernel path, the plain path on the card and on the CPU "
+          f"the chunk route (K6), the per-slot kernels, the plain path on the card and on the CPU "
           f"({walls[0]:.2f}s / {walls[1]:.2f}s / {walls[2]:.2f}s); scenarios {moved} differ "
           f"from the base", flush=True)
 
@@ -2676,7 +2980,8 @@ def check_label_cut(results, dev):
                                  f"pinned {LABEL_PINS[kind]}")
     results["label_cut"] = dict(nodes=lc["nodes"], pods=lc["pods"], placed=placed.tolist(),
                                 wall_s=wall)
-    print(f"label cut ({lc['nodes']} nodes x {lc['pods']} pods): scenarios "
+    print(f"label cut ({lc['nodes']} nodes x {lc['pods']} pods, route {eng.last_route}): "
+          f"scenarios "
           f"{sorted(first_of_each_kind(lc['scenarios']).values())} == greedy_replay's pins, "
           f"placed {placed.tolist()}, wall {wall:.3f}s", flush=True)
 
@@ -2718,7 +3023,8 @@ def run_label_paths(results, headline_s0, dev):
     relabelled explicitly and re-encoded; K1 and K3 held against their
     twins at a synthetic mid-replay state (and timed) and in a window of
     the batch's own replay. Then the label cut against its pins and the
-    batch outside the envelope. Returns (kernel timings, launches)."""
+    batch outside the envelope. Returns (kernel timings, the batch's
+    launches, its per-slot route's launches)."""
     hs = HEADLINE
     S = hs["scenarios"]
     t0 = time.perf_counter()
@@ -2734,9 +3040,7 @@ def run_label_paths(results, headline_s0, dev):
     K.reset_launch_counts()
     _, warm_wall, assignments, placed, _ = eng._run()
     launches = K.launch_counts()
-    for k in SOURCES_PLAIN:
-        if launches[k] <= 0:
-            raise AssertionError(f"kernel {k} was not launched by the relabel what-if")
+    check_chunk_launches("relabel what-if", launches, eng.plan)
     runs = [eng.run() for _ in range(3)]
     for r in runs:
         if not np.array_equal(r.placed, placed):
@@ -2747,6 +3051,9 @@ def run_label_paths(results, headline_s0, dev):
     res_p, busy_s = profiled_busy_s(eng.run)
     if not np.array_equal(assignments[0], headline_s0):
         raise AssertionError("relabel what-if scenario 0 != the headline's scenario 0")
+    route = eng.last_route
+    # The per-slot route: the same placements.
+    slot_launches, slot_wall = slot_route("relabel what-if", eng, assignments)
     singles = {}
     for kind, s in first_of_each_kind(S).items():
         ec_s, ep_s = encode(explicit_cluster(cluster, scen[s]), workload)
@@ -2761,13 +3068,15 @@ def run_label_paths(results, headline_s0, dev):
     results["relabel_whatif"] = dict(
         **hs, setup_s=setup_s, label_rows=int(cl.gdom.shape[0]),
         domains=int(eng._tables().state.match_count.shape[2]), chunk_waves_run=eng.plan.C,
-        completions_on=eng.completions_on, launches=launches, warmup_wall_s=warm_wall,
+        completions_on=eng.completions_on, route=route, launches=launches,
+        slot_route=dict(launches=slot_launches, wall_s=slot_wall), warmup_wall_s=warm_wall,
         walls_s=walls, wall_s=wall, placements_per_s=float(placed.sum()) / wall,
         total_placed=int(placed.sum()), placed_min=int(placed.min()),
         placed_max=int(placed.max()), scenarios_moved=moved, singles=singles,
         profiled_wall_s=res_p.wall_clock_s, device_busy_s=busy_s,
         device_busy_share=busy_s / res_p.wall_clock_s if busy_s else None)
-    print(f"relabel what-if ({S} scenarios x {hs['nodes']} nodes x {hs['pods']} pods, "
+    print(f"relabel what-if (route {route}, {S} scenarios x {hs['nodes']} nodes x "
+          f"{hs['pods']} pods, "
           f"{cl.gdom.shape[0]} label rows, completions on): median wall {wall:.3f}s of "
           f"{[round(w, 3) for w in walls]}, {float(placed.sum()) / wall:.1f} aggregate "
           f"placements/s, placed {int(placed.min())}..{int(placed.max())}; {moved} scenarios "
@@ -2778,6 +3087,7 @@ def run_label_paths(results, headline_s0, dev):
     mark("17 relabel what-if runs")
     results["chunk_loop_bound_ms_relabel"] = Work(ep, eng._tables()).chunk_loop_ms(
         eng.plan, assignments, launches)
+    hold_chunk_replay(f"S={S} relabel what-if", eng, dev, results, assignments)
     hold_window(f"S={S} relabel window (N={hs['nodes']})", eng, dev, results, "label_window")
     rng = np.random.default_rng(SEED + 256)
     tb0 = eng._tables()
@@ -2819,12 +3129,13 @@ def run_label_paths(results, headline_s0, dev):
         setup_s=setup_out, wall_s=res_out.wall_clock_s,
         placements_per_s=res_out.placements_per_sec,
         placed_min=int(res_out.placed.min()), placed_max=int(res_out.placed.max()))
-    print(f"relabel what-if outside the envelope ({OUTSIDE_SCENARIOS} scenarios, "
+    print(f"relabel what-if outside the envelope (route {res_out.route}, {OUTSIDE_SCENARIOS} "
+          f"scenarios, "
           f"{out.sset.relabelled} nodes relabelled each): engine {res_out.engine}, completions "
           f"{res_out.completions_on}, wall {res_out.wall_clock_s:.3f}s, placed "
           f"{int(res_out.placed.min())}..{int(res_out.placed.max())}; scenario 1 == its "
           f"from-scratch replay", flush=True)
-    return kernels, launches
+    return kernels, launches, slot_launches
 
 
 def policy_cut_batch(ec):
@@ -2849,8 +3160,8 @@ def run_policy_paths(results, ec, ep, dev):
     sweep's default half equal to a static what-if of the held-out split;
     the policy sweep timed against the static batch in turns (median of
     3), its launches and busy share; K1 and K2 with policy rows held and
-    timed at a synthetic mid-replay state. Returns (kernel timings,
-    launches)."""
+    timed at a synthetic mid-replay state. Returns (kernel timings, the
+    tuner's launches, the sweep's per-slot route's launches)."""
     hs, ts = HEADLINE, TUNE_SWEEP
     kw = dict(chunk_waves=hs["chunk_waves"], device=dev)
     t0 = time.perf_counter()
@@ -2859,9 +3170,9 @@ def run_policy_paths(results, ec, ep, dev):
     res = tuner.run()
     launches = K.launch_counts()
     tune_s = time.perf_counter() - t0
-    for k in SOURCES_PLAIN:
-        if launches[k] <= 0:
-            raise AssertionError(f"kernel {k} was not launched by the policy sweep")
+    if (launches["chunk_replay"] <= 0 or launches["apply_placements"] <= 0
+            or launches["filter_score"] or launches["normalize_select"]):
+        raise AssertionError(f"the policy sweep's chunk-route launches: {launches}")
     eng = tuner._train_engine
     S, S_h = eng.S, ts["heldout_scenarios"]
     if S != ts["population"] * ts["train_scenarios"] or eng.setups != 1 or res.compile_count != 1:
@@ -2876,7 +3187,8 @@ def run_policy_paths(results, ec, ep, dev):
     if len({r.tobytes() for r in cand}) < len(cand) // 2:
         raise AssertionError("policy sweep: the last round's candidates are not distinct")
     eng.set_policies(sweep_rows)
-    print(f"P1 policy tuner ({ts['population']} candidates x {ts['train_scenarios']} train "
+    print(f"P1 policy tuner (route chunk, {ts['population']} candidates x "
+          f"{ts['train_scenarios']} train "
           f"scenarios = {S} rows over the headline trace, {ts['rounds']} rounds): best "
           f"{json.dumps(res.best_policy)}, train {res.train_objective:.6f}, held-out "
           f"{res.heldout_objective:.6f} vs default {res.default_heldout_objective:.6f}; "
@@ -2920,6 +3232,9 @@ def run_policy_paths(results, ec, ep, dev):
         walls[name].append(sweep.wall_clock_s)
     res_p, busy_s = profiled_busy_s(eng.run)
     wall = float(np.median(walls["policy"]))
+    # The per-slot route of the sweep: the same placements.
+    _, _, a_sweep, _, _ = eng._run()
+    slot_launches, slot_wall = slot_route("policy sweep", eng, a_sweep)
     results["policy_sweep"] = dict(
         **ts, rows=S, nodes=ec.num_nodes, pods=ep.num_pods, tune_s=tune_s,
         phase_s=res.phase_s, launches=launches, setups=eng.setups,
@@ -2929,9 +3244,11 @@ def run_policy_paths(results, ec, ep, dev):
         default_rows_sha256=sha_pol, walls_s=walls, wall_s=wall,
         static_wall_s=float(np.median(walls["static"])),
         placements_per_s=float(sweep.placed.sum()) / wall, sweep_launches=sweep_launches,
+        route=sweep.route, slot_route=dict(launches=slot_launches, wall_s=slot_wall),
         profiled_wall_s=res_p.wall_clock_s, device_busy_s=busy_s,
         device_busy_share=busy_s / res_p.wall_clock_s if busy_s else None)
-    print(f"P1 policy sweep ({S} rows): default rows == policies=None (sha256 {sha_pol[:16]}); "
+    print(f"P1 policy sweep ({S} rows, route {sweep.route}): default rows == policies=None "
+          f"(sha256 {sha_pol[:16]}); "
           f"held-out default half == the static held-out what-if; walls policy "
           f"{[round(w, 3) for w in walls['policy']]} s vs static "
           f"{[round(w, 3) for w in walls['static']]} s, {float(sweep.placed.sum()) / wall:.1f} "
@@ -2964,7 +3281,7 @@ def run_policy_paths(results, ec, ep, dev):
           f"{json.dumps(ab)}", flush=True)
     del tuner, eng, static, res_p, tb0, tb_t, tb_k, held_k, b_static
     mark("P1 kernel hold, times")
-    return kernels, launches
+    return kernels, launches, slot_launches
 
 
 def check_policy_cut(results, dev):
@@ -2993,7 +3310,8 @@ def check_policy_cut(results, dev):
         raise AssertionError("policy cut: two rows placed alike")
     results["policy_cut"] = dict(**pc, rows=out, wall_s=res.wall_clock_s)
     print(f"P2 policy cut ({len(POLICY_ROWS)} rows x {n} scenarios over {pc['nodes']} x "
-          f"{pc['pods']}): every row == POLICY_PINS, wall {res.wall_clock_s:.3f}s", flush=True)
+          f"{pc['pods']}, route {res.route}): every row == POLICY_PINS, wall "
+          f"{res.wall_clock_s:.3f}s", flush=True)
 
 
 def run_tune_cli(results, dev):
@@ -3003,8 +3321,6 @@ def run_tune_cli(results, dev):
     directory: the file's sha256 against TUNE_PINS, the oracle's envelope
     <= 1e-6, one engine set-up; the walls of the search, the held-out sweep
     and the oracle."""
-    import re
-
     from kubernetes_simulator_tpu_torch import cli
 
     outdir = os.path.join(ROOT, "chiprun_out", "tune_config11")
@@ -3041,19 +3357,146 @@ def run_tune_cli(results, dev):
         for x in lines.lines) if m]
     if final["cpu_envelope"] is None or final["cpu_envelope"] > 1e-6 or setups != [1]:
         raise AssertionError(f"config11 tune: envelope {final['cpu_envelope']}, set-ups {setups}")
-    if any(launches[k] <= 0 for k in SOURCES_PLAIN):
-        raise AssertionError(f"config11 tune did not launch every kernel: {launches}")
+    if (launches["chunk_replay"] <= 0 or launches["filter_score"]
+            or launches["normalize_select"]):
+        raise AssertionError(f"config11 tune's chunk-route launches: {launches}")
     setup_s, search_s, heldout_s, oracle_s = (float(x) for x in phase[0])
     results["tune_config11"] = dict(
         wall_s=wall, setup_s=setup_s, search_s=search_s, heldout_s=heldout_s, oracle_s=oracle_s,
         launches=launches, rows=len(rows), sha256=sha, best_policy=final["best_policy"],
         heldout_objective=final["heldout_objective"], cpu_objective=final["cpu_objective"],
         cpu_envelope=final["cpu_envelope"])
-    print(f"P3 config11 tune through the CLI on the card: trajectory == TUNE_PINS ({len(rows)} "
+    print(f"P3 config11 tune through the CLI on the card (route chunk): trajectory == "
+          f"TUNE_PINS ({len(rows)} "
           f"rows, sha256 {sha[:16]}), cpu_envelope {final['cpu_envelope']}, 1 set-up; walls "
           f"set-up {setup_s:.3f}s, search {search_s:.3f}s, held-out {heldout_s:.3f}s, oracle "
           f"{oracle_s:.3f}s (command "
           f"{wall:.1f}s); launches {json.dumps(launches)}", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# Borg-shaped traces: config4 (10,000 nodes x 1,000,000 tasks) on K6
+# ---------------------------------------------------------------------------
+
+
+def run_config4(results, dev):
+    """(c) config4 as shipped through the CLI ``run`` on the card (in this
+    process, the engine the CLI builds kept for the holds), counters zeroed
+    just before and read just after: one K6 a chunk, K3 at each release;
+    placed, unschedulable, the set-up seconds by part, the replay wall and
+    placements/s from the CLI's row and log; the result's planes finite,
+    within the allocatable, gangs whole; B6's bound; then, from the initial
+    state, K6 held against its twin over the first K6_TWIN_WAVES waves and
+    the first CONFIG4_HOLD_CHUNKS chunks on K6 against the per-slot
+    kernels, the choices and every plane equal after each."""
+    import contextlib
+    import io
+
+    from kubernetes_simulator_tpu_torch import cli
+    from kubernetes_simulator_tpu_torch.framework import registry
+
+    factory = registry.get_strategy("torch")
+    made = []
+    registry._STRATEGIES["torch"] = lambda *a, **kw: made.append(factory(*a, **kw)) or made[-1]
+    out = io.StringIO()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        with LogLines() as lines, contextlib.redirect_stdout(out):
+            rc = cli.main(["run", os.path.join(ROOT, CONFIG4), "--device", dev.type])
+    finally:
+        registry._STRATEGIES["torch"] = factory
+    command_s = time.perf_counter() - t0
+    launches = K.launch_counts()
+    if rc != 0 or len(made) != 1:
+        raise AssertionError(f"config4 run: the CLI returned {rc}")
+    eng = made[0]
+    row = json.loads([x for x in out.getvalue().splitlines() if x.startswith("{")][-1])
+    ec, ep, plan = eng.ec, eng.pods, eng.plan
+    if (ec.num_nodes, ep.num_pods) != (10_000, 1_000_000) or eng.last_route != "chunk":
+        raise AssertionError(f"config4 run: {ec.num_nodes} nodes, {ep.num_pods} tasks, route "
+                             f"{eng.last_route}")
+    check_chunk_launches("config4 run", launches, plan)
+    if row["placed"] + row["unschedulable"] != ep.num_pods or row["placed"] <= 0:
+        raise AssertionError(f"config4 run: placed {row['placed']}, unschedulable "
+                             f"{row['unschedulable']}")
+    a, placed, _ = assignments_from_choices(plan, eng.last_choices, ep.bound_node)
+    if int(placed[0]) != row["placed"]:
+        raise AssertionError("config4 run: the row's placed != the choice buffer's")
+    st = eng.last_tables.state
+    used = st.used[0].cpu().numpy()
+    if not all(torch.isfinite(x).all() for x in st) or (used > ec.allocatable + 1e-3).any():
+        raise AssertionError("config4 run: non-finite planes or a node past its allocatable")
+    if min(float(x.min()) for x in (st.match_count, st.anti_active)) < 0:
+        raise AssertionError("config4 run: a count plane went negative")
+    gid = ep.group_id
+    g_placed = np.bincount(gid[gid >= 0], weights=(a[0][gid >= 0] >= 0).astype(float))
+    g_size = np.bincount(gid[gid >= 0])
+    if ((g_placed > 0) & (g_placed < g_size)).any():
+        raise AssertionError("config4 run: a gang placed partially")
+    setup = [m.groups() for m in (re.search(r"set-up: trace ([\d.]+)s, engine ([\d.]+)s", x)
+                                  for x in lines.lines) if m]
+    mark("c config4 CLI run")
+    bound_ms = Work(ep, eng._tables()).chunk_loop_ms(plan, a, launches)
+    mark("c config4 B6 bound")
+    mk = lambda: (eng._tables(), new_choices(plan, 1, ep.bound_node, dev))
+    _, _, twin_rec = hold_twin("config4", plan, mk, min(K6_TWIN_WAVES, plan.C))
+    mark("c config4 twin hold")
+    # The first chunks on K6 and on the per-slot kernels, from the initial state.
+    (tb_k, ch_k), (tb_s, ch_s) = ((eng._tables(), new_choices(plan, 1, ep.bound_node, dev))
+                                  for _ in range(2))
+    walls = {"chunk": 0.0, "slot": 0.0}
+    for c in range(min(CONFIG4_HOLD_CHUNKS, len(plan.buckets))):
+        for route, tb, ch in (("chunk", tb_k, ch_k), ("slot", tb_s, ch_s)):
+            t1 = time.perf_counter()
+            run_waves(plan, tb, ch, c * plan.C, (c + 1) * plan.C, plain=False, route=route)
+            torch.cuda.synchronize()
+            walls[route] += time.perf_counter() - t1
+        same_planes(f"config4 chunk {c}: K6 vs the per-slot kernels", tb_k, ch_k, tb_s, ch_s)
+    hold_slots = int((plan.idx[: CONFIG4_HOLD_CHUNKS * plan.C] >= 0).sum())
+    results["config4"] = dict(
+        nodes=ec.num_nodes, tasks=ep.num_pods, chunk_waves=plan.C, chunks=len(plan.buckets),
+        waves=int(plan.idx.shape[0]), gang_waves=int(plan.gang_wave.sum()),
+        releases=sum(bk is not None for bk in plan.buckets), route=eng.last_route,
+        placed=row["placed"], unschedulable=row["unschedulable"], wall_s=row["wall_clock_s"],
+        placements_per_s=row["placements_per_sec"], command_s=command_s,
+        setup_trace_s=float(setup[0][0]), setup_engine_s=float(setup[0][1]),
+        setup_s=eng.setup_s, launches=launches, chunk_loop_bound_ms=bound_ms,
+        k6_tiles=k6_tiles(1, ec.num_nodes), k6_twin=twin_rec, held_chunks=CONFIG4_HOLD_CHUNKS,
+        held_slots=hold_slots, held_walls_s=walls, utilization=row["utilization"])
+    print(f"config4 through the CLI run on the card ({ec.num_nodes} nodes x {ep.num_pods} tasks, "
+          f"chunkWaves {plan.C}, {len(plan.buckets)} chunks, route {eng.last_route}): placed "
+          f"{row['placed']}, unschedulable {row['unschedulable']}; set-up trace "
+          f"{float(setup[0][0]):.2f}s, engine {float(setup[0][1]):.2f}s "
+          f"({json.dumps({k: round(v, 3) for k, v in eng.setup_s.items()})}); replay wall "
+          f"{row['wall_clock_s']:.3f}s, {row['placements_per_sec']:.1f} placements/s; command "
+          f"{command_s:.1f}s; launches {json.dumps(launches)}; B6 bound "
+          f"{bound_ms['total']:.3f} ms; the first {CONFIG4_HOLD_CHUNKS} chunks ({hold_slots} "
+          f"slots) on K6 == the per-slot kernels, choices and every plane ({walls['chunk']:.2f}s "
+          f"vs {walls['slot']:.2f}s)", flush=True)
+    del eng, made, tb_k, tb_s
+
+
+def check_borg_pins(results, dev):
+    """(d) config4's generator on BORG_CUT on the card, on both routes:
+    placed, unschedulable and the assignments' sha256 equal BORG_PINS
+    (greedy_replay's, recomputed by tests/test_torch_borg_pins.py)."""
+    from kubernetes_simulator_tpu_torch.sim.borg import BorgSpec, make_borg_encoded
+
+    bc = BORG_CUT
+    ec, ep, _ = make_borg_encoded(BorgSpec(nodes=bc["nodes"], tasks=bc["tasks"], seed=SEED))
+    eng = TorchReplayEngine(ec, ep, FrameworkConfig(), chunk_waves=bc["chunk_waves"])
+    res = eng.replay()
+    got = dict(placed=res.placed, unschedulable=res.unschedulable,
+               sha256=assignments_sha256(res.assignments))
+    if got != BORG_PINS or res.route != "chunk" or eng.plan.C != bc["chunk_waves"]:
+        raise AssertionError(f"Borg cut: {got} (route {res.route}) != BORG_PINS {BORG_PINS}")
+    slot_route("Borg cut", eng, res.assignments[None])
+    results["borg_cut"] = dict(**bc, **got, wall_s=res.wall_clock_s)
+    print(f"Borg cut ({bc['nodes']} nodes x {bc['tasks']} tasks, chunkWaves "
+          f"{bc['chunk_waves']}): placed {res.placed}, unschedulable {res.unschedulable}, "
+          f"sha256 {got['sha256'][:16]} == BORG_PINS on the chunk route and the per-slot route",
+          flush=True)
 
 
 def main() -> int:
@@ -3101,9 +3544,7 @@ def main() -> int:
     res = eng.replay()
     launches_c2 = K.launch_counts()
     check_result(ec, ep, res)
-    for k in SOURCES_PLAIN:
-        if launches_c2[k] <= 0:
-            raise AssertionError(f"kernel {k} was not launched by the config2 replay")
+    check_chunk_launches("config2 replay", launches_c2, eng.plan)
     res_p, busy_s = profiled_busy_s(eng.replay)
     if not np.array_equal(res_p.assignments, res.assignments):
         raise AssertionError("the profiled replay placed differently")
@@ -3111,15 +3552,19 @@ def main() -> int:
         eng.plan, res.assignments[None], launches_c2)
     print(f"config2 chunk-loop bound (B6): {json.dumps(results['chunk_loop_bound_ms_config2'])} "
           f"ms", flush=True)
+    mk = lambda: (eng._tables(), new_choices(eng.plan, 1, ep.bound_node, dev))
+    _, _, twin_c2 = hold_twin("config2", eng.plan, mk, min(K6_TWIN_WAVES, eng.plan.C))
     results["config2"] = dict(
+        route=res.route, chunks=len(eng.plan.buckets),
         nodes=ec.num_nodes, pods=ep.num_pods, wall_s=res.wall_clock_s,
         placements_per_s=res.placements_per_sec, placed=res.placed,
         unschedulable=res.unschedulable, launches=launches_c2,
         phases=res.telemetry.phases if res.telemetry is not None else None,
         profiled_wall_s=res_p.wall_clock_s, device_busy_s=busy_s,
-        device_busy_share=busy_s / res_p.wall_clock_s if busy_s else None,
+        device_busy_share=busy_s / res_p.wall_clock_s if busy_s else None, k6_twin=twin_c2,
     )
-    print(f"config2 replay (5000 nodes, 50000 pods): wall {res.wall_clock_s:.3f}s, "
+    print(f"config2 replay (5000 nodes, 50000 pods, route {res.route}): wall "
+          f"{res.wall_clock_s:.3f}s, "
           f"{res.placements_per_sec:.1f} placements/s, placed {res.placed}, launches "
           f"{json.dumps(launches_c2)}; profiled: wall {res_p.wall_clock_s:.3f}s, device busy "
           f"{busy_s:.3f}s", flush=True)
@@ -3137,9 +3582,7 @@ def main() -> int:
     K.reset_launch_counts()
     warm = eng.run()
     launches = K.launch_counts()
-    for k in SOURCES_PLAIN:
-        if launches[k] <= 0:
-            raise AssertionError(f"kernel {k} was not launched on the main path")
+    check_chunk_launches("headline", launches, eng.plan)
     check_whatif_result(ep, warm, hs["scenarios"])
     runs = [eng.run() for _ in range(3)]
     for r in runs:
@@ -3151,14 +3594,24 @@ def main() -> int:
     if int(warm.placed[0]) != single.placed:
         raise AssertionError(f"scenario 0 placed {int(warm.placed[0])}, the single replay "
                              f"{single.placed}")
-    res_p, busy_s = profiled_busy_s(eng.run)
+    by_kernel = {}
+    res_p, busy_s = profiled_busy_s(eng.run, by_kernel)
+    k6_s = k6_device_s(by_kernel)
+    # (b) the per-slot route of the same batch: the same assignments, its
+    # launches (the K1-K3 rows' slot_route_launches) and its wall.
+    slot_launches, slot_wall = slot_route("headline", eng, warm.assignments)
     rel_launches = sum(bk is not None for bk in eng.plan.buckets)
     rollbacks = int(eng.plan.gang_wave.sum())
     results["headline"] = dict(
         **hs, setup_s=setup_s, chunk_waves_run=eng.plan.C, chunks=len(eng.plan.buckets),
-        completions_on=warm.completions_on, launches=launches,
+        completions_on=warm.completions_on, route=warm.route, launches=launches,
         launches_detail=dict(release=rel_launches, rollback=rollbacks,
-                             bind=launches["apply_placements"] - rel_launches - rollbacks),
+                             k6=launches["chunk_replay"]),
+        slot_route=dict(launches=slot_launches, wall_s=slot_wall,
+                        sha256=assignments_sha256(warm.assignments)),
+        k6_device_s=k6_s, k6_ms_per_launch=k6_s * 1e3 / launches["chunk_replay"],
+        k6_us_per_slot=k6_s * 1e6 / int((eng.plan.idx >= 0).sum()),
+        device_s_by_kernel=by_kernel,
         walls_s=walls, warmup_wall_s=warm.wall_clock_s, wall_s=wall,
         placements_per_s=warm.total_placed / wall, total_placed=warm.total_placed,
         placed_min=int(warm.placed.min()), placed_max=int(warm.placed.max()),
@@ -3169,13 +3622,18 @@ def main() -> int:
         device_busy_share=busy_s / res_p.wall_clock_s if busy_s else None,
     )
     print(f"headline what-if ({hs['scenarios']} scenarios x {hs['nodes']} nodes x "
-          f"{hs['pods']} pods, chunkWaves {hs['chunk_waves']}, completions + gangs): "
+          f"{hs['pods']} pods, chunkWaves {hs['chunk_waves']}, completions + gangs, route "
+          f"{warm.route}): "
           f"median wall {wall:.3f}s of {[round(w, 3) for w in walls]}, "
           f"{warm.total_placed / wall:.1f} aggregate placements/s, placed "
           f"{int(warm.placed.min())}..{int(warm.placed.max())} per scenario; scenario 0 "
           f"{int(warm.placed[0])} == single replay {single.placed}; launches "
           f"{json.dumps(launches)}; profiled: wall {res_p.wall_clock_s:.3f}s, device busy "
-          f"{busy_s:.3f}s ({busy_s / res_p.wall_clock_s:.1%})", flush=True)
+          f"{busy_s:.3f}s ({busy_s / res_p.wall_clock_s:.1%}); the per-slot route places alike "
+          f"(assignments' sha256 {assignments_sha256(warm.assignments)[:16]}) in "
+          f"{slot_wall:.3f}s, launches {json.dumps(slot_launches)}", flush=True)
+    mark("8 headline runs")
+    k6 = hold_chunk_replay("headline", eng, dev, results, warm.assignments)
 
     # Each kernel held against its twin, and timed, at the headline shapes.
     rng = np.random.default_rng(SEED + 128)
@@ -3184,7 +3642,7 @@ def main() -> int:
                                                    hs["scenarios"], rng, dev)
     held = hold_kernels(f"S={hs['scenarios']} kernel checks (N={hs['nodes']})", ep, tb_t, tb_k,
                         pre, pre_nodes, 40, rng, dev)
-    mark("8 headline runs")
+    mark("8 headline K6 hold and kernel checks")
     kernels, release = time_kernels(ep, tb_t, held, dev)
     results["kernels"], results["apply_release"] = kernels, release
     results["chunk_loop_bound_ms_headline"] = Work(ep, eng._tables()).chunk_loop_ms(
@@ -3198,10 +3656,15 @@ def main() -> int:
     del eng, warm, runs, res_p, single, tb_t, tb_k, held
 
     mark("8 headline hold, kernel times")
+    # (c)-(d): Borg-shaped traces, config4 at 10,000 x 1,000,000 on K6.
+    run_config4(results, dev)
+    mark("c config4 holds")
+    check_borg_pins(results, dev)
+    mark("d Borg cut pins")
     # Steps 9-11: tier preemption.
     check_reduced_preempt(results)
     mark("9 reduced preemption")
-    pkernels, plaunches = run_preempt_paths(results, dev)
+    pkernels, plaunches, pslot = run_preempt_paths(results, dev)
     mark("11 tier kernel times")
     # Steps 12-15: the retry buffer.
     check_reduced_retry(results)
@@ -3211,7 +3674,7 @@ def main() -> int:
     # Steps 16-19: label perturbations (set_label).
     check_reduced_relabel(results)
     mark("16 reduced relabel")
-    lkernels, llaunches = run_label_paths(results, headline_s0, dev)
+    lkernels, llaunches, lslot = run_label_paths(results, headline_s0, dev)
     mark("18-19 label kernel times, cut, outside")
     # Steps 20-21: series and timeline telemetry.
     check_reduced_series(results, dev)
@@ -3219,7 +3682,7 @@ def main() -> int:
     skernels = run_series_paths(results, dev)
     mark("21 S=4 K5 holds")
     # P1-P3: per-scenario policy rows (row B1w) and the policy tuner.
-    polkernels, pollaunches = run_policy_paths(results, *headline_case, dev)
+    polkernels, pollaunches, polslot = run_policy_paths(results, *headline_case, dev)
     check_policy_cut(results, dev)
     mark("P2 policy cut")
     run_tune_cli(results, dev)
@@ -3228,20 +3691,33 @@ def main() -> int:
     print("step walls (s): " + json.dumps({k: round(v, 1) for k, v in STEP_S.items()}),
           flush=True)
 
+    # Each row's launches are its path's main run's (the chunk route runs
+    # K1's and K2's bodies inside K6: they launch 0 times there);
+    # slot_route_launches are the same batch's on the per-slot route.
     table = []
     for k, m in kernels.items():
         src, replaces = SOURCES[k]
         table.append({
             "name": k, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": launches[k], "max_abs_err": m["max_abs_err"], "ms": m["ms"],
-            "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
-            "library_ms": m["library_ms"],
+            "launches": launches[k], "slot_route_launches": slot_launches[k],
+            "max_abs_err": m["max_abs_err"],
+            "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+            "bound_by": m["bound_by"], "library_ms": m["library_ms"],
         })
+    src, replaces = SOURCES["chunk_replay"]
+    table.append({
+        "name": "chunk_replay", "route": "cuda", "source": src, "replaces": replaces,
+        "launches": launches["chunk_replay"], "max_abs_err": k6["max_abs_err"], "ms": k6["ms"],
+        "plain_ms": k6["plain_ms"], "bound_ms": k6["bound_ms"], "bound_by": k6["bound_by"],
+        # no single PyTorch call runs a chunk of the scheduler's waves
+        "library_ms": None,
+    })
     for k, m in pkernels.items():
         kernel, replaces = PREEMPT_SOURCES[k]
         table.append({
             "name": k, "route": "cuda", "source": SOURCES[kernel][0], "replaces": replaces,
-            "launches": plaunches[kernel], "max_abs_err": 0.0, "ms": m["ms"],
+            "launches": plaunches[kernel], "slot_route_launches": pslot[kernel],
+            "max_abs_err": 0.0, "ms": m["ms"],
             "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
             "library_ms": m["library_ms"],
         })
@@ -3257,7 +3733,8 @@ def main() -> int:
         m = lkernels[kernel]
         table.append({
             "name": k, "route": "cuda", "source": SOURCES[kernel][0], "replaces": replaces,
-            "launches": llaunches[kernel], "max_abs_err": m["max_abs_err"], "ms": m["ms"],
+            "launches": llaunches[kernel], "slot_route_launches": lslot[kernel],
+            "max_abs_err": m["max_abs_err"], "ms": m["ms"],
             "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
             "library_ms": m["library_ms"],
         })
@@ -3272,7 +3749,8 @@ def main() -> int:
         m = polkernels[kernel]
         table.append({
             "name": k, "route": "cuda", "source": SOURCES[kernel][0], "replaces": replaces,
-            "launches": pollaunches[kernel], "max_abs_err": m["max_abs_err"], "ms": m["ms"],
+            "launches": pollaunches[kernel], "slot_route_launches": polslot[kernel],
+            "max_abs_err": m["max_abs_err"], "ms": m["ms"],
             "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
             # no single PyTorch call computes a per-scenario weighted total
             "library_ms": None,

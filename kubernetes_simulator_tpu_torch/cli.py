@@ -9,9 +9,13 @@ Counterpart: ``kubernetes_simulator_tpu/cli.py`` (``cmd_run`` :83,
 ``cmd_whatif`` :140; both pass ``whatIf.retryBuffer``, :100 and :182;
 ``cmd_tune`` :205). The config is parsed as the JAX package parses it
 (utils.config); sections of modes the port does not carry yet are refused
-with an error naming them. ``run`` writes one JSONL replay row,
+with an error naming them; a ``workload.borg`` section (config4's 10,000
+nodes x 1,000,000 tasks) is checked as the reference's ``validate`` checks
+it, and its seed stamps the rows. ``run`` writes one JSONL replay row,
 ``what-if`` the ``whatif_rows`` (stdout, or the config's ``output``), and
-each an INFO summary line with placements/sec; ``tune`` writes the
+each an INFO summary line with placements/sec and the route the chunks
+took (``chunk``: one K6 launch a chunk; ``slot``: K1 → K2 → K3 a slot);
+``tune`` writes the
 policy search's trajectory (schema-v3 rows without a wall-clock stamp, to
 ``tune.output`` or ``output``) and INFO lines with the winner, the
 held-out objectives, the CPU oracle's envelope and the walls. ``run --timeline-out`` (or
@@ -23,23 +27,37 @@ from __future__ import annotations
 
 import argparse
 import sys
+import time
 
 import yaml
 
 from .framework.registry import get_strategy
-from .utils.config import SimConfig, build_encoded_case
+from .utils.config import SimConfig, borg_errors, build_encoded_case, workload_seed
 from .utils.metrics import JsonlWriter, config_hash, log, replay_row, whatif_rows
 
 
+def _load(path: str) -> SimConfig:
+    """The config at ``path``; a ``workload.borg`` section that fails the
+    reference's checks (kubernetes_simulator_tpu/cli.py:671-693) raises
+    ``ValueError`` listing them."""
+    cfg = SimConfig.load(path)
+    errors = borg_errors(cfg)
+    if errors:
+        raise ValueError("invalid config: " + "; ".join(errors))
+    return cfg
+
+
 def cmd_run(args) -> int:
-    cfg = SimConfig.load(args.config)
+    cfg = _load(args.config)
     with open(args.config) as f:
         raw = yaml.safe_load(f) or {}
     timeline_out = getattr(args, "timeline_out", None) or cfg.timeline_out
     gran = cfg.telemetry
     if timeline_out and gran != "off":
         gran = "timeline"  # a timeline sink needs timeline events
+    t0 = time.perf_counter()
     ec, ep = build_encoded_case(cfg)
+    t1 = time.perf_counter()
     log.info("encoded %d nodes / %d pods", ec.num_nodes, ep.num_pods)
     engine = get_strategy("torch")(
         ec, ep, cfg.framework,
@@ -47,8 +65,10 @@ def cmd_run(args) -> int:
         telemetry=gran, device=args.device, preemption=cfg.device_preemption,
         retry_buffer=cfg.whatif.retry_buffer,
     )
+    log.info("set-up: trace %.3fs, engine %.3fs (%s)", t1 - t0, time.perf_counter() - t1,
+             ", ".join(f"{k} {v:.3f}s" for k, v in engine.setup_s.items()))
     context = {
-        "seed": int(cfg.workload.seed), "engine": "torch", "config_hash": config_hash(raw),
+        "seed": workload_seed(cfg), "engine": "torch", "config_hash": config_hash(raw),
     }
     with JsonlWriter(cfg.output, context=context) as out:
         res = engine.replay()
@@ -63,9 +83,9 @@ def cmd_run(args) -> int:
         )
         log.info("timeline: wrote %d trace events to %s", n_ev, timeline_out)
     log.info(
-        "placed %d/%d pods in %.3fs (%.0f placements/sec) on %s",
+        "placed %d/%d pods in %.3fs (%.0f placements/sec) on %s, route %s",
         res.placed, res.placed + res.unschedulable, res.wall_clock_s,
-        res.placements_per_sec, engine.device,
+        res.placements_per_sec, engine.device, res.route,
     )
     return 0
 
@@ -73,7 +93,7 @@ def cmd_run(args) -> int:
 def cmd_whatif(args) -> int:
     from .sim.whatif import WhatIfEngine, uniform_scenarios
 
-    cfg = SimConfig.load(args.config)
+    cfg = _load(args.config)
     if cfg.whatif.scenarios <= 0:
         log.error("config has no whatIf.scenarios")
         return 2
@@ -90,7 +110,7 @@ def cmd_whatif(args) -> int:
         preemption=cfg.device_preemption, retry_buffer=cfg.whatif.retry_buffer,
     )
     context = {
-        "seed": int(cfg.workload.seed), "engine": "torch", "config_hash": config_hash(raw),
+        "seed": workload_seed(cfg), "engine": "torch", "config_hash": config_hash(raw),
     }
     with JsonlWriter(cfg.output, context=context) as out:
         res = eng.run()
@@ -98,8 +118,10 @@ def cmd_whatif(args) -> int:
                                      "device": str(eng.device)}):
             out.write(row)
     log.info(
-        "what-if: %d scenarios, %d placements in %.3fs (%.0f placements/sec aggregate) on %s",
+        "what-if: %d scenarios, %d placements in %.3fs (%.0f placements/sec aggregate) on %s, "
+        "route %s",
         len(scen), res.total_placed, res.wall_clock_s, res.placements_per_sec, eng.device,
+        res.route,
     )
     return 0
 
@@ -107,7 +129,7 @@ def cmd_whatif(args) -> int:
 def cmd_tune(args) -> int:
     from .sim.tuner import PolicyTuner, tune_config_errors
 
-    cfg = SimConfig.load(args.config)
+    cfg = _load(args.config)
     if cfg.tune is None:
         log.error("config has no tune: section")
         return 2
@@ -137,7 +159,7 @@ def cmd_tune(args) -> int:
     )
     # The reference's row context: the config's strategy names the engine.
     context = {
-        "seed": int(cfg.workload.seed), "engine": cfg.strategy, "config_hash": config_hash(raw),
+        "seed": workload_seed(cfg), "engine": cfg.strategy, "config_hash": config_hash(raw),
     }
     with JsonlWriter(tu.output or cfg.output, context=context) as out:
         res = tuner.run(writer=out)

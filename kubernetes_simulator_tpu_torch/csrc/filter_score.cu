@@ -55,74 +55,15 @@
 // expression keeps the reference's operation order.
 #include "ksim.cuh"
 
+// The body is ksim.cuh's ksim_filter_score_body, which K6 (chunk_replay.cu)
+// runs too: one block of 256 threads per (node tile, scenario).
 __global__ void __launch_bounds__(256) ksim_filter_score_kernel(KsimArgs a, int p_shared,
                                                                 const int32_t* pod_of_s,
                                                                 int64_t pod_ss) {
   __shared__ KsimTerms terms;
-
-  const int N = a.N, R = a.R;
   const int64_t scen = blockIdx.y;
   const int p = pod_of_s ? pod_of_s[scen * pod_ss] : p_shared;
-  if (p < 0) {  // uniform over the block: this scenario's buffer slot is empty
-    const int n = blockIdx.x * blockDim.x + threadIdx.x;
-    if (n < N) {
-      a.feasible[scen * a.feas_ss + n] = 0;
-      a.ignored[scen * a.feas_ss + n] = 0;
-      for (int r = 0; r < KSIM_ROWS; ++r) a.scores[scen * a.scores_ss + r * N + n] = 0.f;
-    }
-    return;
-  }
-  const float* match_count = a.match_count + scen * a.plane_ss;
-  const KsimLabels lab = ksim_label_rows(a, scen);
-  ksim_filter_prologue(a, p, match_count, lab, &terms);
-  __syncthreads();
-
-  const int n = blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= N) return;
-
-  const float* used_s = a.used + scen * a.used_ss;
-  const KsimNodeEval e = ksim_eval_node<true>(a, p, scen, n, lab, used_s, match_count,
-                                               a.anti_active + scen * a.plane_ss,
-                                               a.pref_wsum + scen * a.plane_ss, &terms);
-  // every filter but the resource fit
-  const bool ok = (e.pass | (1u << KSIM_PLUGIN_FIT)) == KSIM_PASS_ALL;
-  const float* req = a.requests + (size_t)p * R;
-  const float* used = used_s + (size_t)n * R;
-  const float* alloc = a.alloc + scen * a.alloc_ss + (size_t)n * R;
-
-  // --- Tier preemption: the candidate row (sim/greedy.py _try_tier_preempt) --
-  // Evicting every non-gang pod of a lower tier bound at n must make the pod
-  // fit ((used - lower) + req <= alloc + 1e-6, lower summed from tier 0 up),
-  // the other filters pass at their current values and a victim exist; the
-  // rank is victims·1024 + the highest victim tier, +inf for no candidate.
-  if (ksim_may_preempt(a, p)) {
-    const int tp = a.pod_tier[p];
-    const float* ut = a.used_tier + scen * (int64_t)a.Tt * N * R + (size_t)n * R;
-    const float* nt = a.npods_tier + scen * (int64_t)a.Tt * N + n;
-    bool pre_fit = true;
-    for (int r = 0; r < R; ++r) {
-      float lower = 0.f;
-      for (int t = 0; t < tp; ++t) lower = lower + ut[(size_t)t * N * R + r];
-      if (!((used[r] - lower) + req[r] <= alloc[r] + 1e-6f)) pre_fit = false;
-    }
-    float victims = 0.f, maxtier = -1.f;
-    for (int t = 0; t < tp; ++t) {
-      float c = nt[(size_t)t * N];
-      victims = victims + c;
-      if (c > 0.f) maxtier = (float)t;
-    }
-    a.cand[scen * N + n] =
-        (pre_fit && ok && victims > 0.f) ? victims * 1024.f + maxtier : INFINITY;
-  }
-
-  a.feasible[scen * a.feas_ss + n] = e.pass == KSIM_PASS_ALL ? 1 : 0;
-  a.ignored[scen * a.feas_ss + n] = e.ign ? 1 : 0;
-  float* scores = a.scores + scen * a.scores_ss;
-  scores[KSIM_ROW_FIT * N + n] = e.fit_score;
-  scores[KSIM_ROW_TAINT * N + n] = e.prefer_cnt;
-  scores[KSIM_ROW_NA * N + n] = e.na_raw;
-  scores[KSIM_ROW_IP * N + n] = e.ip_raw;
-  scores[KSIM_ROW_SPREAD * N + n] = e.sp_raw;
+  ksim_filter_score_body(a, p, scen, blockIdx.x * blockDim.x + threadIdx.x, &terms);
 }
 
 KSIM_EXPORT int ksim_filter_score(const KsimArgs* args, int pod, const int32_t* pod_of_s,

@@ -35,6 +35,8 @@
 //            [S,RB] i32 pending releases of pods placed on retry (then -1),
 //            rnode / rbind_b [S,P] i32 each pod's retried node and the
 //            boundary of that bind
+//   release  rel [S,N,R] f32, zero between launches: K3 sums a release's
+//            requests per node there before subtracting them
 //   policies (null when off) wrow [S,6] f32: scenario s's Score weights
 //            (columns 0-4, the plugin order of the weighted total) and its
 //            NodeResourcesFit selector (column 5, > 0.5 -> LeastAllocated,
@@ -138,6 +140,8 @@ struct KsimArgs {
   int32_t* rbind_b;
   // per-scenario policies (null: the static constants below)
   const float* wrow;  // [S, KSIM_POLICY_COLS]
+  // [S,N,R] f32 all-zero accumulator of a release's summed requests (K3)
+  float* rel;
   // per-scenario strides (elements; 0 = shared)
   int64_t alloc_ss, taint_ss, used_ss, plane_ss, feas_ss, scores_ss;
   // dimensions
@@ -460,4 +464,496 @@ __device__ __forceinline__ KsimNodeEval ksim_eval_node(
     if (SCORES) e.sp_raw = floorf(sp_raw + 0.5f);
   }
   return e;
+}
+
+// ---------------------------------------------------------------------------
+// The bodies of the three per-slot kernels. K1 filter_score, K2
+// normalize_select and K3 apply_placements are thin __global__ wrappers over
+// them, and K6 chunk_replay runs the same three bodies in one cooperative
+// launch a chunk, so the per-slot route and the chunk route execute the same
+// arithmetic. Each body is written for one block; any block size that is a
+// multiple of 32 and at most 1024 gives the same result (every reduction over
+// nodes is a max, a min or a (value, index) pair with the lowest index on ties,
+// and every state cell belongs to one thread, which applies pairs in order).
+// ---------------------------------------------------------------------------
+
+#define KSIM_MAX_WARPS 32
+
+// K1's block body: the fused Filter + raw Score of pod p on node n (this
+// thread's node; n >= N is idle) of scenario scen into the scratch rows, with
+// the tier-preemption candidate row. p < 0 (an empty retry-buffer slot, uniform
+// over the block) writes an all-zero mask, rows and ignored mask. The block
+// computes the pod's term tables for scenario scen into `terms` first; a caller
+// that runs the body again synchronises the block before it.
+__device__ __forceinline__ void ksim_filter_score_body(const KsimArgs& a, int p, int64_t scen,
+                                                       int n, KsimTerms* terms) {
+  const int N = a.N, R = a.R;
+  if (p < 0) {
+    if (n < N) {
+      a.feasible[scen * a.feas_ss + n] = 0;
+      a.ignored[scen * a.feas_ss + n] = 0;
+      for (int r = 0; r < KSIM_ROWS; ++r) a.scores[scen * a.scores_ss + r * N + n] = 0.f;
+    }
+    return;
+  }
+  const float* match_count = a.match_count + scen * a.plane_ss;
+  const KsimLabels lab = ksim_label_rows(a, scen);
+  ksim_filter_prologue(a, p, match_count, lab, terms);
+  __syncthreads();
+  if (n >= N) return;
+
+  const float* used_s = a.used + scen * a.used_ss;
+  const KsimNodeEval e = ksim_eval_node<true>(a, p, scen, n, lab, used_s, match_count,
+                                               a.anti_active + scen * a.plane_ss,
+                                               a.pref_wsum + scen * a.plane_ss, terms);
+  // every filter but the resource fit
+  const bool ok = (e.pass | (1u << KSIM_PLUGIN_FIT)) == KSIM_PASS_ALL;
+  const float* req = a.requests + (size_t)p * R;
+  const float* used = used_s + (size_t)n * R;
+  const float* alloc = a.alloc + scen * a.alloc_ss + (size_t)n * R;
+
+  // --- Tier preemption: the candidate row (sim/greedy.py _try_tier_preempt) --
+  // Evicting every non-gang pod of a lower tier bound at n must make the pod
+  // fit ((used - lower) + req <= alloc + 1e-6, lower summed from tier 0 up),
+  // the other filters pass at their current values and a victim exist; the
+  // rank is victims·1024 + the highest victim tier, +inf for no candidate.
+  if (ksim_may_preempt(a, p)) {
+    const int tp = a.pod_tier[p];
+    const float* ut = a.used_tier + scen * (int64_t)a.Tt * N * R + (size_t)n * R;
+    const float* nt = a.npods_tier + scen * (int64_t)a.Tt * N + n;
+    bool pre_fit = true;
+    for (int r = 0; r < R; ++r) {
+      float lower = 0.f;
+      for (int t = 0; t < tp; ++t) lower = lower + ut[(size_t)t * N * R + r];
+      if (!((used[r] - lower) + req[r] <= alloc[r] + 1e-6f)) pre_fit = false;
+    }
+    float victims = 0.f, maxtier = -1.f;
+    for (int t = 0; t < tp; ++t) {
+      float c = nt[(size_t)t * N];
+      victims = victims + c;
+      if (c > 0.f) maxtier = (float)t;
+    }
+    a.cand[scen * N + n] =
+        (pre_fit && ok && victims > 0.f) ? victims * 1024.f + maxtier : INFINITY;
+  }
+
+  a.feasible[scen * a.feas_ss + n] = e.pass == KSIM_PASS_ALL ? 1 : 0;
+  a.ignored[scen * a.feas_ss + n] = e.ign ? 1 : 0;
+  float* scores = a.scores + scen * a.scores_ss;
+  scores[KSIM_ROW_FIT * N + n] = e.fit_score;
+  scores[KSIM_ROW_TAINT * N + n] = e.prefer_cnt;
+  scores[KSIM_ROW_NA * N + n] = e.na_raw;
+  scores[KSIM_ROW_IP * N + n] = e.ip_raw;
+  scores[KSIM_ROW_SPREAD * N + n] = e.sp_raw;
+}
+
+__device__ __forceinline__ void ksim_better(float& bv, int& bi, float v, int i) {
+  if (v > bv || (v == bv && i < bi)) {
+    bv = v;
+    bi = i;
+  }
+}
+
+// Lowest value, then lowest index (the masked argmin's order).
+__device__ __forceinline__ void ksim_lower(float& bv, int& bi, float v, int i) {
+  if (v < bv || (v == bv && i < bi)) {
+    bv = v;
+    bi = i;
+  }
+}
+
+// Block-wide reduction of nv extrema (in shared scratch `red`, 32 a value);
+// returns through the same array.
+__device__ __forceinline__ void ksim_block_extrema(float* v, int nv, const bool* is_max,
+                                                   float* red) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int k = 0; k < nv; ++k) {
+    float x = v[k];
+    for (int o = 16; o > 0; o >>= 1) {
+      float y = __shfl_down_sync(0xffffffffu, x, o);
+      x = is_max[k] ? fmaxf(x, y) : fminf(x, y);
+    }
+    if (lane == 0) red[k * 32 + warp] = x;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    const int nw = blockDim.x >> 5;
+    for (int k = 0; k < nv; ++k) {
+      float x = lane < nw ? red[k * 32 + lane] : (is_max[k] ? -INFINITY : INFINITY);
+      for (int o = 16; o > 0; o >>= 1) {
+        float y = __shfl_down_sync(0xffffffffu, x, o);
+        x = is_max[k] ? fmaxf(x, y) : fminf(x, y);
+      }
+      if (lane == 0) red[k * 32] = x;
+    }
+  }
+  __syncthreads();
+  for (int k = 0; k < nv; ++k) v[k] = red[k * 32];
+  __syncthreads();
+}
+
+// Block-wide (value, index) reduction through `better` (ksim_better for the
+// argmax, ksim_lower for the argmin); the result is valid in thread 0 (and
+// every lane of warp 0).
+template <bool MAX>
+__device__ __forceinline__ void ksim_block_pick(float& bv, int& bi, float* best_v,
+                                                int* best_i) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const float none = MAX ? -INFINITY : INFINITY;
+  for (int o = 16; o > 0; o >>= 1) {
+    float ov = __shfl_down_sync(0xffffffffu, bv, o);
+    int oi = __shfl_down_sync(0xffffffffu, bi, o);
+    if (MAX) ksim_better(bv, bi, ov, oi); else ksim_lower(bv, bi, ov, oi);
+  }
+  if (lane == 0) {
+    best_v[warp] = bv;
+    best_i[warp] = bi;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    const int nw = blockDim.x >> 5;
+    bv = lane < nw ? best_v[lane] : none;
+    bi = lane < nw ? best_i[lane] : 0x7fffffff;
+    for (int o = 16; o > 0; o >>= 1) {
+      float ov = __shfl_down_sync(0xffffffffu, bv, o);
+      int oi = __shfl_down_sync(0xffffffffu, bi, o);
+      if (MAX) ksim_better(bv, bi, ov, oi); else ksim_lower(bv, bi, ov, oi);
+    }
+  }
+}
+
+// K2's block body: the normalized total and the lowest-index argmax of pod p's
+// scratch rows in scenario scen; thread 0 writes the choice (or PAD) to
+// *choice. p < 0 (an empty retry-buffer slot, uniform over the block) writes
+// PAD. Under tier preemption a scenario with no feasible node takes, once per
+// `wave`, the masked argmin of K1's candidate row and writes the eviction
+// record K3 applies before the bind; every other scenario writes ev_node = -1.
+__device__ __forceinline__ void ksim_normalize_select_body(const KsimArgs& a, int p,
+                                                           int64_t scen, int* choice,
+                                                           int wave) {
+  __shared__ float red[7 * 32];
+  __shared__ float best_v[KSIM_MAX_WARPS];
+  __shared__ int best_i[KSIM_MAX_WARPS];
+  __shared__ int s_choice;
+  const int N = a.N;
+  if (p < 0) {
+    if (threadIdx.x == 0) *choice = KSIM_PAD;
+    return;
+  }
+  const uint8_t* feas = a.feasible + scen * a.feas_ss;
+  const uint8_t* ignored = a.ignored + scen * a.feas_ss;
+  const float* rows = a.scores + scen * a.scores_ss;
+  const float* taint = rows + KSIM_ROW_TAINT * N;
+  const float* na = rows + KSIM_ROW_NA * N;
+  const float* ip = rows + KSIM_ROW_IP * N;
+  const float* sp = rows + KSIM_ROW_SPREAD * N;
+  const float* fit = rows + KSIM_ROW_FIT * N;
+
+  // pass 1: extrema. Order: taint_hi, na_hi, ip_lo, ip_hi, sp_lo, sp_hi, any_f
+  float v[7] = {-INFINITY, -INFINITY, INFINITY, -INFINITY, INFINITY, -INFINITY, 0.f};
+  const bool is_max[7] = {true, true, false, true, false, true, true};
+  for (int n = threadIdx.x; n < N; n += blockDim.x) {
+    bool f = feas[n] != 0;
+    v[0] = fmaxf(v[0], f ? taint[n] : 0.f);
+    v[1] = fmaxf(v[1], f ? na[n] : 0.f);
+    if (f) {
+      v[2] = fminf(v[2], ip[n]);
+      v[3] = fmaxf(v[3], ip[n]);
+      v[6] = 1.f;
+      if (!ignored[n]) {
+        v[4] = fminf(v[4], sp[n]);
+        v[5] = fmaxf(v[5], sp[n]);
+      }
+    }
+  }
+  ksim_block_extrema(v, 7, is_max, red);
+  const float taint_hi = v[0], na_hi = v[1], ip_lo = v[2], ip_hi = v[3];
+  const float sp_lo = v[4], sp_hi = v[5];
+  const bool any_f = v[6] > 0.f;
+
+  bool any_scored = false;
+  if (a.spread)
+    for (int t = 0; t < a.SP; ++t)
+      if (a.spread_g[p * a.SP + t] >= 0 && !a.spread_dns[p * a.SP + t]) any_scored = true;
+
+  // Row constants (ops/tpu.py _normalize_row / spread_norm_from_extrema).
+  const bool t_pos = taint_hi > 0.f;
+  const float t_den = t_pos ? taint_hi : 1.f;
+  const bool na_pos = na_hi > 0.f;
+  const float na_den = na_pos ? na_hi : 1.f;
+  const float ip_span = ip_hi - ip_lo;
+  const bool ip_ok = any_f && ip_span > 0.f;
+  const float ip_lo0 = ip_ok ? ip_lo : 0.f;
+  const float ip_k = 100.f / (ip_ok ? ip_span : 1.f);
+  const bool sp_has = sp_hi > -INFINITY;
+  const float sp_hi_f = sp_has ? sp_hi : 0.f;
+  const float sp_lo_f = sp_has ? sp_lo : 0.f;
+  const bool sp_pos = sp_hi_f > 0.f;
+  const int32_t sp_hi_i = (int32_t)sp_hi_f;
+  const int32_t sp_lo_i = (int32_t)sp_lo_f;
+
+  // Weights: the static constants, or scenario scen's policy row (columns
+  // 0-4; every row the step enables enters the total, a zero weight as an
+  // exact 0 * row, ops/tpu.py:62 policy_weight_fns).
+  const float* wr = a.wrow ? a.wrow + scen * KSIM_POLICY_COLS : nullptr;
+  const float w_fit = wr ? wr[0] : a.w_fit, w_taint = wr ? wr[1] : a.w_taint;
+  const float w_na = wr ? wr[2] : a.w_na, w_ip = wr ? wr[3] : a.w_ip;
+  const float w_sp = wr ? wr[4] : a.w_sp;
+
+  // pass 2: total + argmax (lowest index on ties)
+  float bv = -INFINITY;
+  int bi = 0x7fffffff;
+  for (int n = threadIdx.x; n < N; n += blockDim.x) {
+    float total = 0.f;
+    if (a.on_fit) total = total + w_fit * fit[n];
+    if (a.on_taint) {
+      float o = floorf((taint[n] * 100.f) / t_den);
+      o = t_pos ? 100.f - o : 100.f;
+      total = total + w_taint * o;
+    }
+    if (a.on_na) {
+      float o = floorf((na[n] * 100.f) / na_den);
+      o = na_pos ? o : 0.f;
+      total = total + w_na * o;
+    }
+    if (a.on_ip) {
+      float o = floorf((ip[n] - ip_lo0) * ip_k);
+      o = ip_ok ? o : 0.f;
+      total = total + w_ip * o;
+    }
+    if (a.on_sp) {
+      float o;
+      if (a.sp_norm_f32) {
+        float vals = floorf((100.f * ((sp_hi_f + sp_lo_f) - sp[n])) / (sp_pos ? sp_hi_f : 1.f));
+        o = sp_pos ? vals : 100.f;
+      } else {
+        int32_t num = 100 * ((sp_hi_i + sp_lo_i) - (int32_t)sp[n]);
+        int32_t vals = ksim_floordiv(num, sp_hi_i > 0 ? sp_hi_i : 1);
+        o = sp_hi_i > 0 ? (float)vals : 100.f;
+      }
+      if (ignored[n] || !sp_has || !any_scored) o = 0.f;
+      total = total + w_sp * o;
+    }
+    if (feas[n]) ksim_better(bv, bi, total, n);
+  }
+  ksim_block_pick<true>(bv, bi, best_v, best_i);
+  if (threadIdx.x == 0) s_choice = bv > -INFINITY ? bi : KSIM_PAD;
+  __syncthreads();
+  if (!a.preempt) {
+    if (threadIdx.x == 0) *choice = s_choice;
+    return;
+  }
+  // Tier preemption (ops/tpu3.py:1542-1575): nothing feasible, the pod may
+  // preempt and no preemption fired yet in this wave of this scenario ->
+  // the lowest-index masked argmin (ops/tpu.py:788) of K1's candidate row,
+  // and the eviction record K3 applies before the bind.
+  const bool fire = s_choice == KSIM_PAD && ksim_may_preempt(a, p) &&
+                    a.last_wave[scen] != wave;  // uniform over the block
+  int node = KSIM_PAD;
+  if (fire) {
+    const float* cand = a.cand + scen * N;
+    float mv = INFINITY;
+    int mi = 0x7fffffff;
+    for (int n = threadIdx.x; n < N; n += blockDim.x) {
+      float c = cand[n];
+      if (c < INFINITY) ksim_lower(mv, mi, c, n);
+    }
+    ksim_block_pick<false>(mv, mi, best_v, best_i);
+    if (threadIdx.x == 0 && mv < INFINITY) node = mi;
+  }
+  if (threadIdx.x == 0) {
+    if (node >= 0) {
+      *choice = node;
+      a.ev_node[scen] = node;
+      a.ev_tier[scen] = a.pod_tier[p];
+      a.last_wave[scen] = wave;
+    } else {
+      *choice = s_choice;
+      a.ev_node[scen] = KSIM_PAD;
+    }
+  }
+}
+
+// The eviction step of a bind under tier preemption (sim/greedy.py:182-215;
+// the victim walk of sim/jax_runtime.py:788 preemption_walk, done here on
+// the device): scenario scen's record (ev_node, ev_tier) from K2 names the
+// node. Every column of the choice buffer before the slot or in the
+// pre-bound tail whose pod is non-gang, of a lower tier, bound at that node
+// and not released at `boundary` gets PAD and is counted; used[node] drops
+// by the lower tiers' usage summed from tier 0 up (the sum K1's fit after
+// eviction used) and those tier cells are zeroed. The count planes keep
+// the victims (phantom counts), and a victim's PAD keeps it out of every
+// later release.
+__device__ __forceinline__ void ksim_evict(const KsimArgs& a, int64_t scen, int32_t* ch,
+                                           int slot, int L, int boundary, float* used) {
+  __shared__ int red[KSIM_MAX_WARPS];
+  const int ev = a.ev_node[scen];
+  if (ev < 0) return;  // uniform over the block
+  const int evt = a.ev_tier[scen];
+  const int N = a.N, R = a.R;
+  const int tail = L - a.n_slots;
+  int cnt = 0;
+  for (int i = threadIdx.x; i < slot + tail; i += blockDim.x) {
+    const int c = i < slot ? i : a.n_slots + (i - slot);
+    if (ch[c] != ev) continue;  // most columns: another node or PAD
+    const int p = a.col_pod[c];
+    if (p < 0 || a.group_id[p] >= 0 || a.pod_tier[p] >= evt || a.col_relb[c] <= boundary)
+      continue;
+    ch[c] = KSIM_PAD;
+    ++cnt;
+  }
+  for (int o = 16; o > 0; o >>= 1) cnt += __shfl_down_sync(0xffffffffu, cnt, o);
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = cnt;
+  float* ut = a.used_tier + scen * (int64_t)a.Tt * N * R;
+  float* nt = a.npods_tier + scen * (int64_t)a.Tt * N;
+  for (int r = threadIdx.x; r < R; r += blockDim.x) {
+    float lower = 0.f;
+    for (int t = 0; t < evt; ++t) {
+      float* cell = ut + ((size_t)t * N + ev) * R + r;
+      lower = lower + *cell;
+      *cell = 0.f;
+    }
+    used[(size_t)ev * R + r] = used[(size_t)ev * R + r] - lower;
+  }
+  for (int t = threadIdx.x; t < evt; t += blockDim.x) nt[(size_t)t * N + ev] = 0.f;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int total = 0;
+    for (int w = 0; w < (int)(blockDim.x >> 5); ++w) total += red[w];
+    a.victims[scen] += total;
+  }
+}
+
+// K3's block body in scenario scen: sign × the contribution of K (pod, node)
+// pairs, in pair order. Pair k is pod pods_all[scen * pod_ss + k] at the
+// node of choice-buffer column pos[k] (pos null: column col0 + k) of the
+// scenario's row choices + scen * choice_ss. rollback, boundary (the
+// eviction step of a bind under tier preemption), due_relb / due_b (the
+// pending release) and append (the failure append of a main-path bind)
+// as K3's launch takes them (apply_placements.cu).
+__device__ __forceinline__ void ksim_apply_body(const KsimArgs& a, int64_t scen,
+                                                const int32_t* pods_all, int64_t pod_ss,
+                                                const int32_t* pos, int col0, int32_t* choices,
+                                                int K, int64_t choice_ss, float sign,
+                                                int rollback, int boundary,
+                                                const int32_t* due_relb, int due_b, int append) {
+  __shared__ uint8_t active[KSIM_MAX_WAVE];
+  const int N = a.N, R = a.R, G = a.G, D = a.D;
+  const int32_t* pods = pods_all + scen * pod_ss;
+  const int32_t* relb = due_relb ? due_relb + scen * pod_ss : nullptr;
+  int32_t* ch = choices + scen * choice_ss;
+  float* used = a.used + scen * a.used_ss;
+  float* match_count = a.match_count + scen * a.plane_ss;
+  float* anti_active = a.anti_active + scen * a.plane_ss;
+  float* pref_wsum = a.pref_wsum + scen * a.plane_ss;
+  const int32_t* gdom = ksim_label_rows(a, scen).gdom;
+#define KSIM_COL(k) (pos ? pos[(k)] : col0 + (k))
+  if (boundary >= 0 && a.preempt) {
+    ksim_evict(a, scen, ch, KSIM_COL(0), (int)choice_ss, boundary, used);
+    __syncthreads();
+  }
+  // Tier-plane columns of a pair (non-gang pods under tier preemption):
+  // used_tier[tier, n, 0..R) then npods_tier[tier, n].
+  const int TC = a.preempt ? R + 1 : 0;
+  float* used_tier = a.used_tier + scen * (int64_t)a.Tt * N * R;
+  float* npods_tier = a.npods_tier + scen * (int64_t)a.Tt * N;
+  if (rollback) {
+    for (int k = threadIdx.x; k < K; k += blockDim.x) {
+      int p = pods[k], n = ch[KSIM_COL(k)];
+      uint8_t act = 0;
+      if (p >= 0 && n >= 0) {
+        int g = a.group_id[p];
+        if (g >= 0)
+          for (int j = 0; j < K; ++j) {
+            int pj = pods[j];
+            if (pj >= 0 && a.group_id[pj] == g && ch[KSIM_COL(j)] < 0) act = 1;
+          }
+      }
+      active[k] = act;
+    }
+    __syncthreads();
+  }
+  // A release (sign < 0, not a rollback) subtracts each node's requests
+  // summed in pair order from zero, as the reference subtracts the summed
+  // delta of the released pods (models/state.py release_delta): column c
+  // of node n accumulates in rel, then used -= rel and rel is zeroed, by
+  // the thread that owns column c. Binds and rollbacks add pod by pod.
+  const bool summed = sign < 0.f && !rollback;
+  float* rel = a.rel + scen * a.used_ss;
+  const int tid = threadIdx.x;
+  for (int k = 0; k < K; ++k) {
+    int p = pods[k];
+    if (p < 0) continue;
+    int n = ch[KSIM_COL(k)];
+    if (n < 0) continue;
+    if (rollback && !active[k]) continue;
+    if (relb && relb[k] > due_b) continue;
+    if (tid == 0) {
+      for (int t = 0; t < a.AA; ++t) {
+        int g = a.anti_req[p * a.AA + t];
+        if (g < 0) continue;
+        int dom = gdom[g * N + n];
+        if (dom >= 0) anti_active[g * D + dom] += sign;
+      }
+      for (int t = 0; t < a.PA; ++t) {
+        int g = a.pref_aff[p * a.PA + t];
+        if (g < 0) continue;
+        int dom = gdom[g * N + n];
+        if (dom >= 0) pref_wsum[g * D + dom] += sign * a.pref_aff_w[p * a.PA + t];
+      }
+    } else {
+      const bool tiered = TC && a.group_id[p] < 0;
+      for (int c = tid - 1; c < R + G + TC; c += blockDim.x - 1) {
+        if (c < R) {
+          if (summed)
+            rel[(size_t)n * R + c] += a.requests[(size_t)p * R + c];
+          else
+            used[(size_t)n * R + c] += sign * a.requests[(size_t)p * R + c];
+        } else if (c < R + G) {
+          int g = c - R;
+          if (!a.pmg[(size_t)p * G + g]) continue;
+          int dom = gdom[g * N + n];
+          if (dom >= 0) match_count[g * D + dom] += sign;
+        } else if (tiered) {
+          const int r = c - R - G;
+          const size_t cell = (size_t)a.pod_tier[p] * N + n;
+          if (r < R)
+            used_tier[cell * R + r] += sign * a.requests[(size_t)p * R + r];
+          else
+            npods_tier[cell] += sign;
+        }
+      }
+    }
+  }
+  if (summed && tid > 0) {
+    for (int k = 0; k < K; ++k) {
+      const int p = pods[k];
+      const int n = p < 0 ? KSIM_PAD : ch[KSIM_COL(k)];
+      if (n < 0 || (relb && relb[k] > due_b)) continue;
+      for (int c = tid - 1; c < R; c += blockDim.x - 1) {
+        float* acc = rel + (size_t)n * R + c;
+        used[(size_t)n * R + c] = used[(size_t)n * R + c] - *acc;
+        *acc = 0.f;
+      }
+    }
+  }
+  if (rollback) {
+    __syncthreads();
+    for (int k = threadIdx.x; k < K; k += blockDim.x)
+      if (active[k]) ch[KSIM_COL(k)] = KSIM_PAD;
+  }
+  if (append && tid == 0) {
+    for (int k = 0; k < K; ++k) {
+      const int p = pods[k];
+      if (p < 0 || ch[KSIM_COL(k)] >= 0 || a.group_id[p] >= 0) continue;
+      const int c = a.rcount[scen];
+      if (c < a.RB) {
+        a.rbuf[scen * a.RB + c] = p;
+        a.rcount[scen] = c + 1;
+      } else {
+        a.rdrop[scen] += 1;
+      }
+    }
+  }
+#undef KSIM_COL
 }

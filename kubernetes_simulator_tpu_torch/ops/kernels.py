@@ -1,6 +1,6 @@
 """The replay's hand-written Hopper kernels: build, binding and wrappers.
 
-Five CUDA C++ kernels (``csrc/*.cu``, compiled for ``sm_90a``) carry the
+Six CUDA C++ kernels (``csrc/*.cu``, compiled for ``sm_90a``) carry the
 device work of the replay and of the scenario-batched what-if: every
 kernel takes the S-stacked tables of :mod:`.reference` (the
 single-scenario replay is S = 1) and runs each scenario in its own
@@ -29,7 +29,15 @@ wrapper                       replaces (kubernetes_simulator_tpu/...)
                               attribution (sim/boundary.py:563-582)
 :func:`first_reject_fold`     K5 as the retry path's chunk fold
                               (sim/boundary.py:360-398), counted apart
+:func:`chunk_replay` (K6)     sim/jax_runtime.py:742 make_chunk_fn3_src (the
+                              chunk program: one launch a chunk), with the
+                              slot gathers ops/tpu.py:285, ops/tpu3.py:633
 ============================  ================================================
+
+K6 runs K1's, K2's and K3's bodies (``csrc/ksim.cuh``) for every slot of
+a chunk's waves in one cooperative launch, so a chunk on the chunk route
+equals the same chunk on the per-slot route (K1 → K2 → K3 a slot) bit for
+bit; :mod:`..sim.torch_runtime` chooses the route from the run's mode.
 
 K5 runs only at telemetry ``series``/``timeline``: the default ``summary``
 launches K1–K4 as before.
@@ -106,6 +114,7 @@ KERNELS = {
     "apply_placements": "apply_placements.cu",
     "retry_boundary": "retry_boundary.cu",
     "first_reject": "first_reject.cu",
+    "chunk_replay": "chunk_replay.cu",
 }
 
 #: argtypes of each C entry point (every one returns a cudaError_t as int)
@@ -123,6 +132,8 @@ _ARGTYPES = {
     # (args, pods, pod_ss, M, gate, gate_ss, reasons, attempts, attributed, K, attr_ss,
     #  stream)
     "first_reject": [_P, _P, _LL, _I, _P, _LL, _P, _P, _P, _I, _LL, _P],
+    # (args, idx, gang, choices, choice_ss, W, first, end, boundary, append, stream)
+    "chunk_replay": [_P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _P],
 }
 
 _MAX_SEG = 16
@@ -146,7 +157,7 @@ class KsimArgs(ctypes.Structure):
             "pod_tier", "used_tier", "npods_tier", "cand", "last_wave", "ev_node", "ev_tier",
             "victims", "col_pod", "col_relb",
             "dur", "tbt", "rbuf", "rcount", "rdrop", "rchoice", "pend_id", "pend_node",
-            "pend_relb", "rnode", "rbind_b", "wrow",
+            "pend_relb", "rnode", "rbind_b", "wrow", "rel",
         )]
         + [(name, ctypes.c_int64) for name in (
             "alloc_ss", "taint_ss", "used_ss", "plane_ss", "feas_ss", "scores_ss",
@@ -275,11 +286,12 @@ def _scenario_stride(t: torch.Tensor, S: int, name: str) -> int:
     raise ValueError(f"{name}: expected [N, *] (shared) or [{S}, N, *], got {tuple(t.shape)}")
 
 
-def pack_args(tb: ref.Tables, res_w: torch.Tensor) -> KsimArgs:
+def pack_args(tb: ref.Tables, res_w: torch.Tensor, rel: torch.Tensor) -> KsimArgs:
     """The ctypes argument block of one Tables (CUDA tensors only; every
     tensor is contiguous and keeps its storage for the engine's life —
     state updates are in place). ``res_w`` holds the resource weights on
-    the device; the caller keeps it alive with the block."""
+    the device and ``rel`` K3's all-zero release accumulator (the state's
+    ``used`` shape); the caller keeps both alive with the block."""
     c, p, s, x, k = tb.cluster, tb.pods, tb.state, tb.scratch, tb.consts
     S, N, R = s.used.shape
     G, D = s.match_count.shape[1:]
@@ -389,6 +401,9 @@ def pack_args(tb: ref.Tables, res_w: torch.Tensor) -> KsimArgs:
     for name, t in tensors.items():
         setattr(a, name, t.data_ptr())
     a.res_w = res_w.data_ptr()
+    if rel.shape != s.used.shape or rel.dtype != torch.float32 or rel.device != dev:
+        raise ValueError("rel: an f32 tensor of the state's used shape on its device")
+    a.rel = rel.data_ptr()
     if pre is not None:
         a.preempt, a.Tt, a.n_slots = 1, pre.used_tier.shape[1], pre.n_slots
     if rt is not None:
@@ -440,7 +455,8 @@ class Bound:
             build()
             c = tb.cluster.allocatable
             self._res_w = torch.tensor(tb.consts.res_w, dtype=torch.float32, device=c.device)
-            self.args = pack_args(tb, self._res_w)
+            self._rel = torch.zeros_like(tb.state.used)
+            self.args = pack_args(tb, self._res_w, self._rel)
             self._args_ptr = ctypes.addressof(self.args)
             if tb.reject is not None:
                 check_reject(tb)
@@ -643,8 +659,50 @@ def first_reject_fold(b: Bound, pod_ids: torch.Tensor, gate: torch.Tensor) -> No
         first_reject_fold.launches += 1
 
 
+def chunk_replay(b: Bound, idx: torch.Tensor, gang: torch.Tensor, choices: torch.Tensor,
+                 first: int, end: int, boundary: Optional[int] = None,
+                 append: bool = False) -> None:
+    """K6: waves ``[first, end)`` of one chunk in every scenario, one
+    launch: for each slot ``s`` of wave ``w`` whose pod ``idx[s]`` (``idx``
+    the plan's ``[num_waves * W]`` i32 slot index on the device) is not PAD,
+    K1 → K2 (the choice into ``choices[:, s]``, ``w`` the wave of the tier
+    preemption's once-a-wave rule) → K3 bind, and after the last slot of a
+    wave whose ``gang`` flag (``[num_waves]`` u8) is set, K3's rollback over
+    the wave. ``boundary`` (tier preemption: the chunk's boundary, where a
+    bind's eviction releases nothing later) and ``append`` (the retry
+    buffer's failure append) are K3's bind options."""
+    if not b.cuda:
+        ref.chunk_replay(b.tables, idx, gang, choices, first, end, boundary, append)
+        return
+    dev = b.tables.state.used.device
+    _check_choices(b, choices)
+    if (idx.dtype != torch.int32 or gang.dtype != torch.uint8 or idx.dim() != 1
+            or gang.dim() != 1 or gang.numel() < 1 or idx.numel() % gang.numel()
+            or not idx.is_contiguous() or not gang.is_contiguous()
+            or idx.device != dev or gang.device != dev):
+        raise ValueError("idx must be int32 [num_waves * W] and gang uint8 [num_waves], "
+                         "contiguous on the tables' device")
+    W = idx.numel() // gang.numel()
+    if not 0 <= first <= end <= gang.numel() or W > _MAX_WAVE:
+        raise ValueError(f"waves [{first}, {end}) of {gang.numel()} (width {W}, at most "
+                         f"{_MAX_WAVE})")
+    if end * W > choices.shape[1]:
+        raise ValueError("the choice buffer has no column for every slot of the waves")
+    if (boundary is not None) != (b.tables.preempt is not None):
+        raise ValueError("a boundary goes with tier preemption, and only with it")
+    if append and b.tables.retry is None:
+        raise ValueError("a failure append needs retry tables")
+    if end == first:
+        return
+    _check(_libs["chunk_replay"](
+        b._args_ptr, idx.data_ptr(), gang.data_ptr(), choices.data_ptr(), choices.shape[1],
+        int(W), int(first), int(end), -1 if boundary is None else int(boundary),
+        int(bool(append)), _stream()), "chunk_replay")
+    chunk_replay.launches += 1
+
+
 WRAPPERS = (filter_score, normalize_select, apply_placements, retry_boundary, first_reject,
-            first_reject_fold)
+            first_reject_fold, chunk_replay)
 
 
 def reset_launch_counts() -> None:

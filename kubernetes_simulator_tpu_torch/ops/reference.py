@@ -21,6 +21,9 @@ Three functions are the plain twins of the hand-written kernels in
   every scenario's carried state (bind, gang rollback, completion
   release), each scenario's node read from its row of the choice buffer.
 
+:func:`chunk_replay` is the plain twin of K6 (``csrc/chunk_replay.cu``):
+one chunk's waves walked through the three twins above in K6's order.
+
 The fifth twin, :func:`first_reject` (K5, ``csrc/first_reject.cu``), is
 the series telemetry's first-reject attribution: the per-plugin Filter
 masks of failed slots, in ``spec_plugin_names`` order, counted into the
@@ -1026,7 +1029,11 @@ def apply_placements(
     """Plain twin of K3 (csrc/apply_placements.cu): add ``sign`` × the
     state contribution of each pair (``pod_ids[k]``, node
     ``choices[s, pos[k]]``) to scenario s's state, in pair order
-    (models/state._apply); PAD pods and nodes are skipped. ``pod_ids`` is
+    (models/state._apply) — except that a release (``sign < 0``, not a
+    rollback) subtracts each node's ``used`` delta summed from zero in pair
+    order, as the reference subtracts ``release_delta`` (a difference only
+    where requests are not exact binary fractions, such as 0.1 cpu); PAD
+    pods and nodes are skipped. ``pod_ids`` is
     ``[K]`` (shared by the scenarios) or ``[S, K]`` (per scenario: the
     retry pass's bind and the pending release). ``rollback`` restricts the
     pairs to failed-gang members and overwrites their choices with PAD.
@@ -1055,7 +1062,14 @@ def apply_placements(
     if ss.numel():
         p = pid[ss, kk].long()
         n = nodes[ss, kk].long()
-        st.used.view(S * N, R).index_add_(0, ss * N + n, sign * pods.requests[p])
+        if sign < 0 and not rollback:
+            # A release subtracts each node's requests summed in pair order
+            # from zero (models/state.py release_delta, the reference's delta).
+            delta = torch.zeros_like(st.used).view(S * N, R)
+            delta.index_add_(0, ss * N + n, pods.requests[p])
+            st.used.sub_(delta.view(S, N, R))
+        else:
+            st.used.view(S * N, R).index_add_(0, ss * N + n, sign * pods.requests[p])
         if pre is not None:
             ng = pods.group_id[p] < 0
             tcell = (ss[ng] * pre.used_tier.shape[1] + pre.pod_tier[p[ng]].long()) * N + n[ng]
@@ -1090,6 +1104,35 @@ def apply_placements(
         choices[:, posl] = torch.where(keep, torch.full_like(nodes, PAD), nodes)
     if append:
         append_failures(tb, pid, nodes)
+
+
+def chunk_replay(tb: Tables, idx: torch.Tensor, gang: torch.Tensor, choices: torch.Tensor,
+                 first: int, end: int, boundary: Optional[int] = None,
+                 append: bool = False) -> None:
+    """Plain twin of K6 (csrc/chunk_replay.cu): waves ``[first, end)`` of the
+    device slot index ``idx [num_waves * W]`` with gang flags ``gang
+    [num_waves]``, in K6's order — for each non-PAD slot ``s`` of wave ``w``,
+    :func:`filter_score`, :func:`normalize_select` (into ``choices[:, s]``,
+    wave ``w``) and the bind of :func:`apply_placements` (with ``boundary``
+    and ``append``), and after the last such slot of a gang wave the
+    rollback over the wave's W columns."""
+    W = idx.numel() // gang.numel()
+    rows = idx[first * W : end * W].tolist()
+    flags = gang.tolist()
+    pos = torch.arange(choices.shape[1], dtype=torch.int32, device=choices.device)
+    for w in range(first, end):
+        base = w * W
+        for s in range(base, base + W):
+            p = rows[s - first * W]
+            if p < 0:
+                continue
+            filter_score(tb, p)
+            normalize_select(tb, p, choices, s, w)
+            apply_placements(tb, idx[s : s + 1], pos[s : s + 1], choices, 1.0,
+                             boundary=boundary, append=append)
+        if flags[w]:
+            apply_placements(tb, idx[base : base + W], pos[base : base + W], choices, -1.0,
+                             rollback=True)
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,352 @@
+"""Borg-2019-like trace generation at config #4 scale (10,000 nodes /
+1,000,000 tasks, alloc-set gangs).
+
+Counterpart: ``kubernetes_simulator_tpu/sim/borg.py`` (a copy: ``BorgSpec``,
+``_make_templates``, ``_sample_cols``, ``encoded_from_cols``,
+``make_borg_encoded``, ``export_trace_csv`` / ``load_trace_csv`` and
+``make_borg_trace``, the same numpy draws in the same order), built on the
+port's own object model, ``Encoder`` and ``make_cluster``. The reference's
+C++ trace reader and writer (``native/traceio.cpp``) stay with the JAX
+package: the port writes and parses the CSV with numpy, the reference's
+fallback path, which gives the same columns.
+
+The real Google cluster trace ships as BigQuery tables (collection_events /
+instance_events) that a replay cannot fetch, so this module generates a
+statistically Borg-shaped workload:
+
+- heterogeneous machines (a few platform shapes, zone/rack topology)
+- tasks with bucketed normalized cpu/memory requests (log-uniform-ish mix)
+- priority tiers (free ≈ 0, batch ≈ 100, mid ≈ 200, prod ≈ 360,
+  monitoring ≈ 450 — the 2019 trace's tiering)
+- alloc sets → pod-groups (gangs) with contiguous members
+- diurnal-bursty arrivals
+- a slice of prod pods with zone topology-spread; batch pods tolerate a
+  ``dedicated=batch`` taint on a fraction of machines
+
+For 1M tasks, building Python Pod objects is too slow, so the generator
+expands a few hundred *template pods* (run through the normal Encoder so
+vocab/expr/count-group tables are exact) into vectorized EncodedPods
+arrays — every per-pod row is a fancy-index of its template row.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import List, Tuple
+
+import numpy as np
+
+from ..models.core import (
+    Cluster,
+    LabelSelector,
+    Pod,
+    Toleration,
+    TopologySpreadConstraint,
+)
+from ..models.encode import PAD, EncodedCluster, EncodedPods, Encoder
+from .synthetic import make_cluster
+
+PRIORITY_TIERS = np.array([0, 100, 200, 360, 450], dtype=np.int32)
+TIER_PROBS = np.array([0.25, 0.35, 0.15, 0.2, 0.05])
+CPU_BUCKETS = np.array([0.1, 0.25, 0.5, 1.0, 2.0, 4.0, 8.0], dtype=np.float32)
+CPU_PROBS = np.array([0.2, 0.25, 0.2, 0.15, 0.1, 0.07, 0.03])
+MEM_BUCKETS = (np.array([0.25, 0.5, 1.0, 2.0, 4.0, 8.0, 16.0], dtype=np.float32) * 2**30)
+MEM_PROBS = np.array([0.15, 0.2, 0.25, 0.15, 0.12, 0.08, 0.05])
+
+
+@dataclass
+class BorgSpec:
+    nodes: int = 10_000
+    tasks: int = 1_000_000
+    seed: int = 0
+    gang_fraction: float = 0.08  # fraction of tasks that arrive in alloc sets
+    max_gang: int = 8
+    num_apps: int = 48  # apps with interpod/spread terms (bounds count groups)
+    spread_app_fraction: float = 0.25
+    toleration_fraction: float = 0.3
+    mean_duration: float = 3600.0
+
+    @classmethod
+    def from_spec(cls, spec) -> "BorgSpec":
+        """From any spec-like object (BorgSpec or
+        utils.config.BorgWorkloadSpec) — the one conversion site."""
+        if isinstance(spec, cls):
+            return spec
+        return cls(
+            nodes=spec.nodes,
+            tasks=spec.tasks,
+            seed=spec.seed,
+            gang_fraction=spec.gang_fraction,
+            max_gang=spec.max_gang,
+            num_apps=getattr(spec, "num_apps", 48),
+        )
+
+
+def _make_templates(spec: BorgSpec) -> List[Pod]:
+    """One template per (app-term-class, cpu bucket, mem bucket, tier) cell
+    actually used; kept small (~hundreds)."""
+    out: List[Pod] = []
+    for app in range(spec.num_apps):
+        labels = {"app": f"borg-app-{app}"}
+        spread = []
+        if app < int(spec.num_apps * spec.spread_app_fraction):
+            spread = [
+                TopologySpreadConstraint(
+                    max_skew=5,
+                    topology_key="topology.kubernetes.io/zone",
+                    when_unsatisfiable="ScheduleAnyway",
+                    label_selector=LabelSelector.make({"app": f"borg-app-{app}"}),
+                )
+            ]
+        for tol in (False, True):
+            p = Pod(
+                name=f"tmpl-{app}-{int(tol)}",
+                labels=dict(labels),
+                requests={"cpu": 1.0, "memory": 2**30},
+                topology_spread=list(spread),
+                tolerations=(
+                    [Toleration(key="dedicated", operator="Equal", value="batch")] if tol else []
+                ),
+            )
+            out.append(p)
+    return out
+
+
+def _sample_cols(spec: BorgSpec) -> dict:
+    """Sample the per-task trace columns (the columnar schema of
+    export_trace_csv): arrival, cpu, mem, priority, group_id,
+    app_id, tolerates, duration."""
+    rng = np.random.default_rng(spec.seed)
+    P = spec.tasks
+    app_probs = 1.0 / (np.arange(spec.num_apps) + 2.0)
+    app_probs /= app_probs.sum()
+    app = rng.choice(spec.num_apps, size=P, p=app_probs).astype(np.int32)
+    tier = rng.choice(len(PRIORITY_TIERS), size=P, p=TIER_PROBS)
+    tol = ((tier <= 1) & (rng.random(P) < spec.toleration_fraction)).astype(np.int32)
+
+    cpu = rng.choice(CPU_BUCKETS, size=P, p=CPU_PROBS).astype(np.float32)
+    mem = rng.choice(MEM_BUCKETS, size=P, p=MEM_PROBS).astype(np.float32)
+
+    # Diurnal-bursty arrivals over a virtual day.
+    base_rate = P / 86400.0
+    phase = rng.random() * 86400
+    gaps = rng.exponential(1.0 / base_rate, size=P)
+    arrival = np.cumsum(gaps)
+    arrival *= 1.0 + 0.5 * np.sin((arrival + phase) * (2 * np.pi / 86400.0))
+    arrival = np.sort(arrival).astype(np.float64)
+
+    # Alloc sets: contiguous gangs.
+    group_id = np.full(P, PAD, dtype=np.int32)
+    i = 0
+    g = 0
+    while i < P:
+        if rng.random() < spec.gang_fraction / max(spec.max_gang / 2, 1):
+            size = int(rng.integers(2, spec.max_gang + 1))
+            size = min(size, P - i)
+            group_id[i : i + size] = g
+            g += 1
+            i += size
+        else:
+            i += 1
+
+    return {
+        "arrival": arrival,
+        "cpu": cpu,
+        "mem": mem,
+        "priority": PRIORITY_TIERS[tier].astype(np.int32),
+        "group_id": group_id,
+        "app_id": app,
+        "tolerates": tol,
+        "duration": rng.exponential(spec.mean_duration, size=P).astype(np.float32),
+    }
+
+
+def encoded_from_cols(spec: BorgSpec, cols: dict) -> Tuple[EncodedCluster, EncodedPods, dict]:
+    """Columnar trace → (EncodedCluster, EncodedPods, meta) by expanding the
+    app/toleration templates through the normal Encoder. The inverse of
+    export_trace_csv; also the ingest path for external trace files."""
+    cluster = make_cluster(spec.nodes, seed=spec.seed, taint_fraction=0.15)
+    templates = _make_templates(spec)
+    enc = Encoder()
+    ec, tmpl_ep = enc.encode(cluster, templates)
+
+    P = len(cols["arrival"])
+    # Real Borg app/logical-collection ids are sparse 64-bit values far past
+    # num_apps; remap to contiguous ids in first-appearance order (mirrors
+    # the group_id remap below) so tasks spread across template classes
+    # instead of all clipping into the top one. Apps past num_apps wrap.
+    app_raw = np.asarray(cols["app_id"], np.int64)
+    if app_raw.size and app_raw.max(initial=0) >= spec.num_apps:
+        uniq_a, first_a, inv_a = np.unique(
+            app_raw, return_index=True, return_inverse=True
+        )
+        rank_a = np.empty(len(uniq_a), dtype=np.int64)
+        rank_a[np.argsort(first_a)] = np.arange(len(uniq_a), dtype=np.int64)
+        app_raw = rank_a[inv_a] % spec.num_apps
+    app = np.clip(app_raw, 0, spec.num_apps - 1)
+    tol = np.asarray(cols["tolerates"], np.int64).clip(0, 1)
+    tidx = app * 2 + tol
+
+    requests = tmpl_ep.requests[tidx].copy()
+    ci, mi, pi = enc.vocab._r["cpu"], enc.vocab._r["memory"], enc.vocab._r["pods"]
+    requests[:, ci] = np.asarray(cols["cpu"], np.float32)
+    requests[:, mi] = np.asarray(cols["mem"], np.float32)
+    requests[:, pi] = 1.0
+
+    arrival = np.asarray(cols["arrival"], np.float64)
+    # int64 until after the remap: real Borg collection ids exceed 2^31.
+    group_raw = np.asarray(cols["group_id"], np.int64)
+    duration = np.asarray(cols["duration"], np.float32)
+
+    # pg_min_member is indexed by gang id, so external traces with sparse
+    # group ids (real Borg collection ids) are remapped to contiguous ids
+    # in first-appearance order.
+    mask = group_raw >= 0
+    group_id = np.full(P, PAD, dtype=np.int32)
+    if mask.any():
+        uniq, first_idx, inv = np.unique(
+            group_raw[mask], return_index=True, return_inverse=True
+        )
+        rank = np.empty(len(uniq), dtype=np.int32)
+        rank[np.argsort(first_idx)] = np.arange(len(uniq), dtype=np.int32)
+        group_id[mask] = rank[inv]
+        gang_sizes = [int(c) for c in np.bincount(group_id[mask], minlength=len(uniq))]
+    else:
+        gang_sizes = []
+    pg_min = np.array(gang_sizes or [1], dtype=np.int32)
+
+    ep = EncodedPods(
+        num_pods=P,
+        names=[f"task-{j}" for j in range(P)],
+        requests=requests,
+        priority=np.asarray(cols["priority"], np.int32),
+        arrival=arrival,
+        duration=duration,
+        ns=tmpl_ep.ns[tidx],
+        bound_node=np.full(P, PAD, dtype=np.int32),
+        tol_key=tmpl_ep.tol_key[tidx],
+        tol_kv=tmpl_ep.tol_kv[tidx],
+        tol_effect=tmpl_ep.tol_effect[tidx],
+        na_req=tmpl_ep.na_req[tidx],
+        na_has_req=tmpl_ep.na_has_req[tidx],
+        na_pref=tmpl_ep.na_pref[tidx],
+        na_pref_w=tmpl_ep.na_pref_w[tidx],
+        aff_req=tmpl_ep.aff_req[tidx],
+        anti_req=tmpl_ep.anti_req[tidx],
+        pref_aff=tmpl_ep.pref_aff[tidx],
+        pref_aff_w=tmpl_ep.pref_aff_w[tidx],
+        spread_g=tmpl_ep.spread_g[tidx],
+        spread_skew=tmpl_ep.spread_skew[tidx],
+        spread_dns=tmpl_ep.spread_dns[tidx],
+        pod_matches_group=tmpl_ep.pod_matches_group[tidx],
+        group_id=group_id,
+        pg_min_member=pg_min,
+        pg_names=[f"alloc-set-{j}" for j in range(len(gang_sizes))] or ["none"],
+    )
+    meta = {
+        "num_gangs": len(gang_sizes),
+        "gang_pods": int((group_id >= 0).sum()),
+        "num_groups": ec.num_groups,
+        "makespan": float(arrival[-1]) if P else 0.0,
+    }
+    return ec, ep, meta
+
+
+def make_borg_encoded(spec: BorgSpec) -> Tuple[EncodedCluster, EncodedPods, dict]:
+    """Vectorized trace build → (EncodedCluster, EncodedPods, meta)."""
+    return encoded_from_cols(spec, _sample_cols(spec))
+
+
+#: Header of the columnar task-event CSV (the reference's, column for column).
+TRACE_HEADER = "arrival_s,cpu,mem_bytes,priority,group_id,app_id,tolerates,duration_s"
+
+
+def export_trace_csv(spec: BorgSpec, path) -> dict:
+    """Sample a Borg-shaped trace and write it as a columnar task-event CSV
+    (the reference's numpy writer). Returns the cols."""
+    cols = _sample_cols(spec)
+    stacked = np.column_stack(
+        [
+            cols["arrival"], cols["cpu"], cols["mem"], cols["priority"],
+            cols["group_id"], cols["app_id"], cols["tolerates"], cols["duration"],
+        ]
+    )
+    np.savetxt(path, stacked, fmt="%.6f,%g,%g,%d,%d,%d,%d,%g", header=TRACE_HEADER, comments="")
+    return cols
+
+
+def load_trace_csv(path, spec: BorgSpec) -> Tuple[EncodedCluster, EncodedPods, dict]:
+    """Ingest a task-event trace file (the replay's external-trace
+    path; the reference's pure-numpy reader, the same per-line rule as its
+    native one: blanks, ``#`` comments and any non-numeric (header) line
+    are skipped wherever they appear). ``spec`` supplies the cluster shape
+    and template vocabulary."""
+
+    def _data_lines(f):
+        for line in f:
+            s = line.lstrip()
+            if s and s[0] != "#" and s[0] in "0123456789-+.":
+                yield s
+
+    with open(path) as f:
+        raw = np.genfromtxt(_data_lines(f), delimiter=",")
+    raw = raw.reshape(-1, 8)
+    cols = {
+        "arrival": raw[:, 0].astype(np.float64),
+        "cpu": raw[:, 1].astype(np.float32),
+        "mem": raw[:, 2].astype(np.float32),
+        "priority": raw[:, 3].astype(np.int32),
+        "group_id": raw[:, 4].astype(np.int64),
+        "app_id": raw[:, 5].astype(np.int64),
+        "tolerates": raw[:, 6].astype(np.int32),
+        "duration": raw[:, 7].astype(np.float32),
+    }
+    return encoded_from_cols(spec, cols)
+
+
+def make_borg_trace(spec) -> Tuple[Cluster, List[Pod]]:
+    """Object-model variant for SMALL task counts (CPU-engine tests).
+    ``spec`` may be a BorgSpec or utils.config.BorgWorkloadSpec."""
+    bspec = BorgSpec.from_spec(spec)
+    if bspec.tasks > 200_000:
+        raise ValueError("object-model borg trace capped at 200k tasks; use make_borg_encoded")
+    rng = np.random.default_rng(bspec.seed)
+    cluster = make_cluster(bspec.nodes, seed=bspec.seed, taint_fraction=0.15)
+    templates = _make_templates(bspec)
+    app_probs = 1.0 / (np.arange(bspec.num_apps) + 2.0)
+    app_probs /= app_probs.sum()
+    pods: List[Pod] = []
+    t = 0.0
+    g = 0
+    i = 0
+    while i < bspec.tasks:
+        gang = rng.random() < bspec.gang_fraction / max(bspec.max_gang / 2, 1)
+        size = int(rng.integers(2, bspec.max_gang + 1)) if gang else 1
+        size = min(size, bspec.tasks - i)
+        gname = f"alloc-set-{g}" if gang else None
+        if gang:
+            g += 1
+        for _ in range(size):
+            t += float(rng.exponential(86400.0 / bspec.tasks))
+            app = int(rng.choice(bspec.num_apps, p=app_probs))
+            tier = int(rng.choice(len(PRIORITY_TIERS), p=TIER_PROBS))
+            tol = tier <= 1 and rng.random() < bspec.toleration_fraction
+            tmpl = templates[app * 2 + int(tol)]
+            pods.append(
+                Pod(
+                    name=f"task-{i}",
+                    labels=dict(tmpl.labels),
+                    requests={
+                        "cpu": float(rng.choice(CPU_BUCKETS, p=CPU_PROBS)),
+                        "memory": float(rng.choice(MEM_BUCKETS, p=MEM_PROBS)),
+                    },
+                    priority=int(PRIORITY_TIERS[tier]),
+                    arrival_time=t,
+                    duration=float(rng.exponential(bspec.mean_duration)),
+                    tolerations=list(tmpl.tolerations),
+                    topology_spread=list(tmpl.topology_spread),
+                    pod_group=gname,
+                )
+            )
+            i += 1
+    return cluster, pods

@@ -41,6 +41,9 @@ class ReplayResult:
     fragmentation: Optional[dict] = None
     # Telemetry (sim.telemetry.ReplayTelemetry) — None at granularity "off".
     telemetry: Optional[object] = None
+    # The route the chunks' waves took (sim.torch_runtime.choose_route):
+    # "chunk" (one K6 launch a chunk) or "slot" (K1 -> K2 -> K3 a slot).
+    route: Optional[str] = None
 
     def summary(self) -> dict:
         out = {

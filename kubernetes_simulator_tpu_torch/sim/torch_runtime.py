@@ -21,16 +21,28 @@ binds of chunks ≤ b−2). Unlike the reference's v3 program, which commits
 a wave's ``used`` in one reduction, the port adds per pod, as
 ``greedy_replay`` does.
 
-Per slot the host enqueues K1 (filter_score) → K2 (normalize_select) → K3
-(apply_placements, bind) on the current stream, each over all S
-scenarios; K2 writes each scenario's choice into the device-resident
-choice buffer ``[S, L]`` and K3 reads it there, so nothing returns to the
-host per pod. A wave holding gang members ends with a K3 rollback. The
-boundary at which a completed pod releases is the same in every scenario
-and is bucketed once per engine on the host (:func:`plan_chunks`); at a
-boundary one K3 release launch walks that bucket, reading each
-scenario's own choice (PAD for unplaced and rolled-back pods). The host
-synchronises once per run, to fetch the choice buffer.
+Two routes run a chunk's waves, chosen from the run's mode alone
+(:func:`choose_route`), never from a failure:
+
+- ``"chunk"`` (the main path): one K6 (chunk_replay) launch a chunk runs
+  every slot's K1 → K2 → K3 and each gang wave's rollback on the card,
+  reading the pods from the plan's device descriptor (:class:`ChunkDesc`,
+  uploaded once a run) — the counterpart of the reference's one dispatch a
+  chunk (``make_chunk_fn3_src``);
+- ``"slot"``: per slot the host enqueues K1 (filter_score) → K2
+  (normalize_select) → K3 (apply_placements, bind) and a K3 rollback after a
+  wave holding gang members. Telemetry ``series``/``timeline`` (K5 after a
+  slot's K2) and the plain twins (``plain=True``) take it.
+
+Either way every launch covers all S scenarios; K2 writes each scenario's
+choice into the device-resident choice buffer ``[S, L]`` and K3 reads it
+there, so nothing returns to the host per pod, and the two routes place
+alike bit for bit (K6 runs K1's, K2's and K3's bodies). The boundary at
+which a completed pod releases is the same in every scenario and is
+bucketed once per engine on the host (:func:`plan_chunks`); at a boundary,
+before the chunk's waves, one K3 release launch walks that bucket, reading
+each scenario's own choice (PAD for unplaced and rolled-back pods). The
+host synchronises once per run, to fetch the choice buffer.
 
 Tier preemption (``preemption=True`` / ``"tier"``; :mod:`.tiers`, the
 ``st.preemption`` sections of ``ops/tpu3.py`` and the results of
@@ -62,7 +74,7 @@ from __future__ import annotations
 import contextlib
 import time
 from dataclasses import dataclass, replace as dc_replace
-from typing import List, Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -344,6 +356,26 @@ def completions_gate(pods: EncodedPods, completions: Optional[bool]) -> bool:
     return completions is not False and bool(np.isfinite(release_times(pods)).any())
 
 
+class ChunkDesc(NamedTuple):
+    """The device descriptor of a :class:`ChunkPlan`, K6's per-chunk input:
+    the slot index and the gang flags, uploaded once a run."""
+
+    idx: torch.Tensor  # [num_waves * W] i32 pod of each slot (PAD: empty)
+    gang: torch.Tensor  # [num_waves] u8: the wave holds a gang member
+
+
+#: The two routes of a chunk's waves (module docstring).
+ROUTES = ("chunk", "slot")
+
+
+def choose_route(plain: bool, series: bool) -> str:
+    """The route of a run, from its mode: the per-slot route for the plain
+    twins and telemetry series/timeline (K5 after each slot's K2); the
+    chunk route (K6) for everything else, ``engine="v2"`` included (K1–K3
+    commit pod by pod, so v2 places as v3 on either route)."""
+    return "slot" if plain or series else "chunk"
+
+
 @dataclass
 class ChunkPlan:
     """Static chunk layout of one trace, built once per engine on the host
@@ -384,6 +416,13 @@ class ChunkPlan:
     def col_pod(self) -> np.ndarray:
         """[L] i32 pod of each choice-buffer column (PAD: a padded slot)."""
         return np.concatenate([self.idx.reshape(-1), self.prebound]).astype(np.int32)
+
+    def device_desc(self, device) -> ChunkDesc:
+        """The plan's :class:`ChunkDesc` on ``device``."""
+        return ChunkDesc(
+            idx=torch.as_tensor(self.idx.reshape(-1), device=device),
+            gang=torch.as_tensor(self.gang_wave.astype(np.uint8), device=device),
+        )
 
 
 def plan_chunks(
@@ -527,49 +566,55 @@ def run_retry_boundary(plan: ChunkPlan, b: int, h, fns, rt: ref.Retry,
 
 
 def run_waves(plan: ChunkPlan, tb: ref.Tables, choices: torch.Tensor, first: int, end: int,
-              plain: bool, ser: Optional[Series] = None) -> None:
+              plain: bool, ser: Optional[Series] = None, route: str = "slot") -> None:
     """Enqueue waves ``[first, end)`` of ``plan`` over the S scenarios of
     ``tb`` (state and ``choices`` updated in place, no synchronisation):
     the release bucket of a boundary where a chunk starts, then (under the
     retry buffer, past boundary 0) the boundary's retry sequence
-    (:func:`run_retry_boundary`), then per slot K1 → K2 → K3 bind (which
-    appends a failed non-gang pod to the buffer), and a K3 rollback after
-    a wave holding a gang member. ``plain`` runs the plain twins on any
-    device; otherwise the kernel wrappers run (the kernels for CUDA
-    tensors, the twins for CPU tensors).
+    (:func:`run_retry_boundary`), then the chunk's waves on ``route``: one
+    K6 launch over the chunk's waves in the range (``"chunk"``, reading the
+    plan's :class:`ChunkDesc`, uploaded once a call),
+    or per slot K1 → K2 → K3 bind (which appends a failed non-gang pod to
+    the buffer) and a K3 rollback after a wave holding a gang member
+    (``"slot"``). ``plain`` runs the plain twins on any device; otherwise
+    the kernel wrappers run (the kernels for CUDA tensors, the twins for
+    CPU tensors).
 
-    With ``ser`` (telemetry series, :class:`Series`) each boundary also
-    copies its samples, and K5 attributes failures: on the plain path
-    after each slot's K2; on the retry path in each retry-pass slot and,
-    for a chunk's failed slots, in one launch when the chunk is done (at
-    the next boundary, before its releases, or at the run's end) against
-    the chunk's start planes, copied at each boundary. The order is the
-    reference's: chunk b−1's fold precedes boundary b's releases and retry
-    pass (sim/jax_runtime.py:1716-1745)."""
+    With ``ser`` (telemetry series, :class:`Series`; the per-slot route
+    only) each boundary also copies its samples, and K5 attributes
+    failures: on the plain path after each slot's K2; on the retry path in
+    each retry-pass slot and, for a chunk's failed slots, in one launch
+    when the chunk is done (at the next boundary, before its releases, or
+    at the run's end) against the chunk's start planes, copied at each
+    boundary. The order is the reference's: chunk b−1's fold precedes
+    boundary b's releases and retry pass (sim/jax_runtime.py:1716-1745)."""
+    if route not in ROUTES:
+        raise ValueError(f"route must be one of {ROUTES}, got {route!r}")
+    if route == "chunk" and ser is not None:
+        raise ValueError("telemetry series runs on the per-slot route (K5 after each slot's K2)")
     dev = tb.state.used.device
     idx, C = plan.idx, plan.C
     W = idx.shape[1]
     if plain:
         fns = (ref.filter_score, ref.normalize_select, ref.apply_placements,
-               ref.retry_boundary, ref.first_reject, ref.first_reject)
+               ref.retry_boundary, ref.first_reject, ref.first_reject, ref.chunk_replay)
         h = tb
     else:
         fns = (K.filter_score, K.normalize_select, K.apply_placements, K.retry_boundary,
-               K.first_reject, K.first_reject_fold)
+               K.first_reject, K.first_reject_fold, K.chunk_replay)
         h = K.Bound(tb)
     filter_score, normalize_select, apply_placements = fns[:3]
+    chunk_replay = fns[6]
     rt = tb.retry
     if rt is not None:
         pos_rb = torch.arange(rt.rbuf.shape[1], dtype=torch.int32, device=dev)
-    idx_dev = torch.as_tensor(idx.reshape(-1), device=dev)
-    pos_dev = torch.arange(plan.L, dtype=torch.int32, device=dev)
+    desc = plan.device_desc(dev)
+    idx_dev = desc.idx
     # Every release bucket of the range is staged before the first launch.
     buckets = {
         w // C: tuple(torch.as_tensor(a, device=dev) for a in plan.buckets[w // C])
         for w in range(first, end) if w % C == 0 and plan.buckets[w // C] is not None
     }
-    rows = idx.tolist()
-    gang_wave = plan.gang_wave.tolist()
     preempt = tb.preempt is not None
     append = rt is not None
     reject = fns[4] if ser is not None and ser.attribute else None
@@ -584,24 +629,42 @@ def run_waves(plan: ChunkPlan, tb: ref.Tables, choices: torch.Tensor, first: int
         cols = slice(c * CW, (c + 1) * CW)
         fold_reject(h_snap, idx_dev[cols], choices[:, cols])
 
+    def boundary_work(b: int) -> None:
+        if ser is not None and ser.fold and b > 0:
+            fold(b - 1)
+        if b in buckets:
+            apply_placements(h, buckets[b][0], buckets[b][1], choices, -1.0)
+        if rt is not None and b > 0:
+            run_retry_boundary(plan, b, h, fns, rt, pos_rb, reject)
+        if ser is not None:
+            if np.isfinite(plan.tb[b]):
+                ser.used[b].copy_(tb.state.used)
+                if rt is not None:
+                    ser.rcount[b].copy_(rt.rcount)
+                    ser.pend[b].copy_(rt.pend_id)
+            if ser.fold:
+                for dst, src in zip(ser.snap, tb.state):
+                    dst.copy_(src)
+
+    if route == "chunk":
+        w = first
+        while w < end:
+            b = w // C
+            if w % C == 0:
+                boundary_work(b)
+            hi = min(end, (b + 1) * C)
+            chunk_replay(h, desc.idx, desc.gang, choices, w, hi,
+                         boundary=b if preempt else None, append=append)
+            w = hi
+        return
+
+    rows = idx.tolist()
+    gang_wave = plan.gang_wave.tolist()
+    pos_dev = torch.arange(plan.L, dtype=torch.int32, device=dev)
     for w in range(first, end):
         b = w // C
         if w % C == 0:
-            if ser is not None and ser.fold and b > 0:
-                fold(b - 1)
-            if b in buckets:
-                apply_placements(h, buckets[b][0], buckets[b][1], choices, -1.0)
-            if rt is not None and b > 0:
-                run_retry_boundary(plan, b, h, fns, rt, pos_rb, reject)
-            if ser is not None:
-                if np.isfinite(plan.tb[b]):
-                    ser.used[b].copy_(tb.state.used)
-                    if rt is not None:
-                        ser.rcount[b].copy_(rt.rcount)
-                        ser.pend[b].copy_(rt.pend_id)
-                if ser.fold:
-                    for dst, src in zip(ser.snap, tb.state):
-                        dst.copy_(src)
+            boundary_work(b)
         base = w * W
         for k, p in enumerate(rows[w]):
             if p < 0:
@@ -622,15 +685,17 @@ def run_waves(plan: ChunkPlan, tb: ref.Tables, choices: torch.Tensor, first: int
 
 def run_chunks(
     plan: ChunkPlan, tb: ref.Tables, bound_node: np.ndarray, plain: bool, timers=None,
-    ser: Optional[Series] = None,
+    ser: Optional[Series] = None, route: Optional[str] = None,
 ) -> np.ndarray:
     """Replay every chunk of ``plan`` over the S scenarios of ``tb`` (its
-    state is updated in place) and return the host copy of the choice
-    buffer ``[S, L]``. The one synchronisation is the final fetch."""
+    state is updated in place) on ``route`` (None: :func:`choose_route`
+    of ``plain`` and ``ser``) and return the host copy of the choice buffer
+    ``[S, L]``. The one synchronisation is the final fetch."""
     tick = timers.tick if timers is not None else (lambda name: contextlib.nullcontext())
+    route = route or choose_route(plain, ser is not None)
     choices = new_choices(plan, tb.state.used.shape[0], bound_node, tb.state.used.device)
-    with tick("dispatch"):
-        run_waves(plan, tb, choices, 0, plan.idx.shape[0], plain, ser)
+    with tick("dispatch"), tick(f"dispatch_{route}"):
+        run_waves(plan, tb, choices, 0, plan.idx.shape[0], plain, ser, route)
     with tick("device_wait"):
         return choices.cpu().numpy()
 
@@ -698,7 +763,12 @@ class ChunkEngine:
         self.wave_width = 8 if wave_width == "auto" else int(wave_width)
         if self.wave_width > 1024:
             raise ValueError("wave_width must be <= 1024 (one rollback block)")
+        #: host seconds of the set-up's parts (wave packing, the chunk plan
+        #: with its granularity guard, the pod tables' upload)
+        self.setup_s = {}
+        t0 = time.perf_counter()
         self.waves = pack_waves(pods, self.wave_width)
+        t1 = time.perf_counter()
         self.completions_on = completions_gate(pods, completions)
         self.chunk_waves = int(chunk_waves)
         rb = int(retry_buffer)
@@ -714,8 +784,11 @@ class ChunkEngine:
         #: chunk layout and release buckets, static per engine
         self.plan = plan_chunks(pods, self.waves.idx, self.chunk_waves, self.completions_on,
                                 spec.has_gangs)
+        t2 = time.perf_counter()
         self._cluster = cluster
         self._pods = ref.pods_to(pods, device)
+        self.setup_s = dict(pack_waves=t1 - t0, plan_chunks=t2 - t1,
+                            pod_tables=time.perf_counter() - t2)
 
     def _initial_planes(self) -> Tuple[np.ndarray, ...]:
         """Host (used, match_count, anti_active, pref_wsum) every scenario
@@ -760,20 +833,24 @@ class ChunkEngine:
             wrow=self._wrow,
         )
 
-    def _run(self, timers=None, series: bool = False):
+    def _run(self, timers=None, series: bool = False, route: Optional[str] = None):
         """(tables after the run, wall seconds, assignments [S, P], placed
         [S], pods to schedule). ``series`` takes the boundary samples and
         the first-reject attribution (:class:`Series`; none when no Filter
-        plugin is on). The tables are kept as ``last_tables``, the fetched
-        choice buffer as ``last_choices`` and the series buffers as
-        ``last_series``."""
+        plugin is on). ``route`` (``"chunk"`` or ``"slot"``) overrides the
+        route the mode chooses (:func:`choose_route`), so a kernel run can be
+        held against the other route. The tables are kept as
+        ``last_tables``, the fetched choice buffer as ``last_choices``, the
+        series buffers as ``last_series`` and the route as ``last_route``."""
         attribute = series and bool(spec_plugin_names(self.spec))
         tb = self._tables(attribute)
         self.last_tables = tb
         ser = new_series(self.plan, tb, attribute) if series else None
         self.last_series = ser
+        self.last_route = route or choose_route(self.plain, series)
         t0 = time.perf_counter()
-        host_choices = run_chunks(self.plan, tb, self.pods.bound_node, self.plain, timers, ser)
+        host_choices = run_chunks(self.plan, tb, self.pods.bound_node, self.plain, timers, ser,
+                                  self.last_route)
         wall = time.perf_counter() - t0
         self.last_choices = host_choices
         rnode = tb.retry.rnode.cpu().numpy() if tb.retry is not None else None
@@ -918,6 +995,7 @@ class TorchReplayEngine(ChunkEngine):
             state=host_state,
             fragmentation=frag,
             telemetry=tel.result() if tel is not None else None,
+            route=self.last_route,
         )
 
     def _collect(self, tel: TelemetryCollector, tb: ref.Tables, placed: int) -> None:

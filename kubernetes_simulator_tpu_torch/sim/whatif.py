@@ -76,6 +76,11 @@ runs (plain, device release, label rows, the v2 fallback), and
 set-up (``setups``). Kube or tier preemption, the retry buffer and fork
 checkpoints refuse policies with the reference's error.
 
+The batch's chunks take the route its mode chooses
+(:func:`.torch_runtime.choose_route`): one K6 launch a chunk on every path
+above, the v2 fallback included, but the plain twins, which run K1 → K2
+→ K3 a slot; ``WhatIfResult.route`` records it.
+
 The engine's other modes raise ``NotImplementedError`` naming the queue
 item that ports them.
 """
@@ -388,6 +393,8 @@ class WhatIfResult:
     n_devices: int = 1
     mesh_shape: Optional[dict] = None
     process_count: int = 1
+    #: the route the chunks' waves took: "chunk" (K6) or "slot" (K1 -> K2 -> K3)
+    route: Optional[str] = None
 
 
 class WhatIfEngine(ChunkEngine):
@@ -610,6 +617,7 @@ class WhatIfEngine(ChunkEngine):
             retry_dropped=(tb.retry.rdrop.cpu().numpy() if tb.retry is not None else None),
             fleet_telemetry=(ReplayTelemetry(granularity=self.telemetry, phases=timers.summary())
                              if timers is not None else None),
+            route=self.last_route,
         )
 
 

@@ -1,8 +1,11 @@
 """YAML configuration.
 
 Counterpart: ``kubernetes_simulator_tpu/utils/config.py`` (``SimConfig``,
-``WhatIfSpec``, ``build_case``, ``build_encoded_case``) — the sections the
-port runs: the synthetic ``cluster``/``workload``, the ``profile``
+``BorgWorkloadSpec``, ``WhatIfSpec``, ``build_case``, ``build_encoded_case``)
+— the sections the port runs: the synthetic ``cluster``/``workload`` or a
+Borg-shaped ``workload.borg`` (generated from its seed, read from a
+task-event CSV, ``tracePath``, or from the 2019 tables, ``instanceEvents``
+/ ``collectionEvents``; :mod:`..sim.borg`, :mod:`..sim.borg_etl`), the ``profile``
 (plugins, weights, ``preemption``), ``telemetry`` (with ``timelineOut``,
 which promotes the granularity to ``timeline``), ``output``,
 ``strategy`` (``jax`` and ``torch`` run the port's engine; ``cpu``, the
@@ -54,6 +57,23 @@ class SyntheticWorkloadSpec:
     arrival_rate: float = 100.0
     duration_mean: Optional[float] = None
     num_apps: int = 20
+
+
+@dataclass
+class BorgWorkloadSpec:
+    nodes: int = 10_000
+    tasks: int = 1_000_000
+    seed: int = 0
+    gang_fraction: float = 0.08
+    max_gang: int = 8
+    num_apps: int = 48  # template/app vocabulary (clip bound for app_id)
+    trace_path: Optional[str] = None  # external task-event CSV (sim.borg)
+    # Real Borg-2019 schema ingest (sim.borg_etl): instance_events CSV
+    # (required for the ETL path) + optional collection_events fallback.
+    instance_events: Optional[str] = None
+    collection_events: Optional[str] = None
+    cpu_scale: float = 8.0
+    mem_scale: float = 16.0 * 2**30
 
 
 @dataclass
@@ -188,7 +208,9 @@ def _refuse(section: str, what: str) -> None:
 class SimConfig:
     strategy: str = "torch"
     cluster: SyntheticClusterSpec = field(default_factory=SyntheticClusterSpec)
-    workload: SyntheticWorkloadSpec = field(default_factory=SyntheticWorkloadSpec)
+    # None under workload.borg (then ``borg`` is set), as in the reference.
+    workload: Optional[SyntheticWorkloadSpec] = field(default_factory=SyntheticWorkloadSpec)
+    borg: Optional[BorgWorkloadSpec] = None
     framework: FrameworkConfig = field(default_factory=FrameworkConfig)
     telemetry: str = "summary"
     # Chrome-trace path of the simulated cluster timeline (telemetry.timelineOut).
@@ -244,20 +266,35 @@ class SimConfig:
         )
         wl = d.get("workload", {})
         if "borg" in wl:
-            _refuse("workload.borg", "Borg-shaped traces")
-        syn = wl.get("synthetic", wl) or {}
-        cfg.workload = SyntheticWorkloadSpec(
-            pods=int(syn.get("pods", 1000)),
-            seed=int(syn.get("seed", 0)),
-            affinity=bool(syn.get("affinity", False)),
-            spread=bool(syn.get("spread", False)),
-            tolerations=bool(syn.get("tolerations", False)),
-            gang_fraction=float(syn.get("gangFraction", 0.0)),
-            gang_size=int(syn.get("gangSize", 4)),
-            arrival_rate=float(syn.get("arrivalRate", 100.0)),
-            duration_mean=syn.get("durationMean"),
-            num_apps=int(syn.get("numApps", 20)),
-        )
+            b = wl["borg"]
+            cfg.workload = None
+            cfg.borg = BorgWorkloadSpec(
+                nodes=int(b.get("nodes", 10_000)),
+                tasks=int(b.get("tasks", 1_000_000)),
+                seed=int(b.get("seed", 0)),
+                gang_fraction=float(b.get("gangFraction", 0.08)),
+                max_gang=int(b.get("maxGang", 8)),
+                num_apps=int(b.get("numApps", 48)),
+                trace_path=b.get("tracePath"),
+                instance_events=b.get("instanceEvents"),
+                collection_events=b.get("collectionEvents"),
+                cpu_scale=float(b.get("cpuScale", 8.0)),
+                mem_scale=float(b.get("memScale", 16.0 * 2**30)),
+            )
+        else:
+            syn = wl.get("synthetic", wl) or {}
+            cfg.workload = SyntheticWorkloadSpec(
+                pods=int(syn.get("pods", 1000)),
+                seed=int(syn.get("seed", 0)),
+                affinity=bool(syn.get("affinity", False)),
+                spread=bool(syn.get("spread", False)),
+                tolerations=bool(syn.get("tolerations", False)),
+                gang_fraction=float(syn.get("gangFraction", 0.0)),
+                gang_size=int(syn.get("gangSize", 4)),
+                arrival_rate=float(syn.get("arrivalRate", 100.0)),
+                duration_mean=syn.get("durationMean"),
+                num_apps=int(syn.get("numApps", 20)),
+            )
         prof = d.get("profile", {})
         cfg.framework = FrameworkConfig(
             plugins=prof.get("plugins"), weights=prof.get("weights"),
@@ -293,11 +330,54 @@ class SimConfig:
             return cls.from_dict(yaml.safe_load(f) or {})
 
 
+def workload_seed(cfg: SimConfig) -> int:
+    """The seed a result row is stamped with: ``workload.borg.seed`` under
+    a Borg workload, else ``workload.seed`` (kubernetes_simulator_tpu/cli.py
+    :39-44)."""
+    if cfg.borg is not None:
+        return int(cfg.borg.seed)
+    return int(cfg.workload.seed) if cfg.workload is not None else 0
+
+
+def borg_errors(cfg: SimConfig) -> List[str]:
+    """The reference's structural checks of a ``workload.borg`` section
+    (kubernetes_simulator_tpu/cli.py:671-693 ``validate_config``), as
+    actionable error strings (empty: ok)."""
+    import os
+
+    b = cfg.borg
+    if b is None:
+        return []
+    errors = []
+    if b.nodes <= 0:
+        errors.append("workload.borg.nodes: must be > 0")
+    if b.tasks <= 0:
+        errors.append("workload.borg.tasks: must be > 0")
+    if b.max_gang > cfg.wave_width:
+        errors.append(
+            f"workload.borg.maxGang ({b.max_gang}) exceeds waveWidth ({cfg.wave_width}): a "
+            "gang must fit in one wave"
+        )
+    for attr, key in (("trace_path", "tracePath"), ("instance_events", "instanceEvents"),
+                      ("collection_events", "collectionEvents")):
+        path = getattr(b, attr)
+        if path and not os.path.exists(path):
+            errors.append(f"workload.borg.{key}: file not found: {path}")
+    if b.cpu_scale <= 0 or b.mem_scale <= 0:
+        errors.append("workload.borg.cpuScale/memScale: must be > 0")
+    return errors
+
+
 def build_case(cfg: SimConfig):
-    """Materialize (cluster, pods) from a SimConfig."""
+    """Materialize (cluster, pods) from a SimConfig (a Borg workload through
+    the object-model generator, which caps at 200k tasks)."""
     from ..plugins.builtin import inject_default_spread
     from ..sim.synthetic import make_cluster, make_workload
 
+    if cfg.borg is not None:
+        from ..sim.borg import make_borg_trace
+
+        return make_borg_trace(cfg.borg)
     ext = None
     if cfg.cluster.extended_resources:
         ext = {k: tuple(v) for k, v in cfg.cluster.extended_resources.items()}
@@ -326,7 +406,40 @@ def build_case(cfg: SimConfig):
 
 
 def build_encoded_case(cfg: SimConfig):
-    """(EncodedCluster, EncodedPods) for a SimConfig."""
+    """(EncodedCluster, EncodedPods) for a SimConfig. Borg workloads use the
+    vectorized template-expansion fast path (the object-model generator caps
+    at 200k tasks), from an external task-event trace
+    (``workload.borg.tracePath``) or the 2019 tables
+    (``instanceEvents``) where given; everything else goes through
+    build_case + encode."""
     from ..models.encode import encode
 
+    if cfg.borg is not None:
+        from ..plugins.builtin import resolved_default_constraints
+        from ..sim.borg import BorgSpec, load_trace_csv, make_borg_encoded
+
+        if resolved_default_constraints(cfg.framework):
+            import warnings
+
+            warnings.warn(
+                "PodTopologySpread cluster-default constraints apply only to "
+                "object-model workloads; the encoded Borg fast path ignores "
+                "them (Borg tasks carry no controller labels to select on).",
+                stacklevel=2,
+            )
+        spec = BorgSpec.from_spec(cfg.borg)
+        if cfg.borg.instance_events:
+            from ..sim.borg_etl import load_borg2019
+
+            ec, ep, _ = load_borg2019(
+                cfg.borg.instance_events, spec,
+                collection_events=cfg.borg.collection_events,
+                cpu_scale=cfg.borg.cpu_scale,
+                mem_scale=cfg.borg.mem_scale,
+            )
+        elif cfg.borg.trace_path:
+            ec, ep, _ = load_trace_csv(cfg.borg.trace_path, spec)
+        else:
+            ec, ep, _ = make_borg_encoded(spec)
+        return ec, ep
     return encode(*build_case(cfg))

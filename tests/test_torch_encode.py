@@ -3,7 +3,6 @@ make_cluster / make_workload / encode / pack_waves give identical arrays
 on the seeds and shapes of tests/test_jax_parity.py, and the carry-across
 functions round-trip."""
 
-import dataclasses
 
 import numpy as np
 import pytest
@@ -25,7 +24,7 @@ from kubernetes_simulator_tpu_torch.plugins.builtin import (
 from kubernetes_simulator_tpu_torch.sim import synthetic as T_syn
 from kubernetes_simulator_tpu_torch.sim.waves import pack_waves as T_pack
 
-from torch_port_case import field_dicts, port_case
+from torch_port_case import assert_same as _assert_same, field_dicts, port_case
 
 # (cluster kwargs, workload kwargs, wave width) — the shapes of
 # tests/test_jax_parity.py plus the completions trace of
@@ -56,26 +55,6 @@ CASES = {
         4,
     ),
 }
-
-
-def _fields(obj):
-    return {f.name: getattr(obj, f.name) for f in dataclasses.fields(obj)}
-
-
-def _assert_same(a, b, where):
-    assert type(a).__name__ == type(b).__name__ or not dataclasses.is_dataclass(a)
-    for name, va in _fields(a).items():
-        vb = getattr(b, name)
-        if isinstance(va, np.ndarray):
-            assert va.dtype == vb.dtype, f"{where}.{name} dtype"
-            np.testing.assert_array_equal(va, vb, err_msg=f"{where}.{name}")
-        elif name == "vocab":
-            for lst in ("resources", "keys", "kvs", "namespaces", "topo_keys"):
-                assert getattr(va, lst) == getattr(vb, lst), f"{where}.vocab.{lst}"
-        elif name == "group_keys":
-            assert [repr(g) for g in va] == [repr(g) for g in vb], f"{where}.group_keys"
-        else:
-            assert va == vb, f"{where}.{name}"
 
 
 @pytest.mark.parametrize("case", sorted(CASES))

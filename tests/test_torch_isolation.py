@@ -27,6 +27,12 @@ from kubernetes_simulator_tpu_torch.sim.torch_runtime import TorchReplayEngine
 import kubernetes_simulator_tpu_torch.cli, kubernetes_simulator_tpu_torch.convert
 import kubernetes_simulator_tpu_torch.ops.cpu, kubernetes_simulator_tpu_torch.ops.policy
 import kubernetes_simulator_tpu_torch.sim.greedy, kubernetes_simulator_tpu_torch.sim.tuner
+from kubernetes_simulator_tpu_torch.ops import kernels as K
+from kubernetes_simulator_tpu_torch.sim.borg import BorgSpec, make_borg_encoded
+from kubernetes_simulator_tpu_torch.sim.borg_etl import load_borg2019
+bec, bep, _ = make_borg_encoded(BorgSpec(nodes=8, tasks=200, seed=1))
+bres = TorchReplayEngine(bec, bep, FrameworkConfig(), device="cpu", chunk_waves=4).replay()
+assert bres.route == "chunk" and bres.placed > 0 and K.chunk_replay.launches == 0
 cluster = make_cluster(6, seed=1, taint_fraction=0.3)
 pods, _ = make_workload(30, seed=1, with_affinity=True, with_spread=True,
                         with_tolerations=True, gang_fraction=0.1, gang_size=2,
@@ -113,7 +119,7 @@ def test_cli_default_device_raises_without_a_card(monkeypatch, tmp_path):
     "section",
     ["whatIf: {scenarios: 4, mesh: true}", "chaos: {enabled: true}", "devicePreemption: kube",
      "nodeShards: 2", "pagedWaves: true", "dcn: {recovery: {enable: true}}",
-     "service: {maxBatch: 2}", "workload: {borg: {tasks: 10}}"],
+     "service: {maxBatch: 2}"],
 )
 def test_config_refuses_later_sections_by_name(section):
     import yaml
@@ -159,22 +165,27 @@ def test_wrappers_take_the_twin_only_on_cpu():
     TorchReplayEngine(ec, ep, device="cpu").replay()
     assert K.launch_counts() == {"filter_score": 0, "normalize_select": 0,
                                  "apply_placements": 0, "retry_boundary": 0,
-                                 "first_reject": 0, "first_reject_fold": 0}
+                                 "first_reject": 0, "first_reject_fold": 0,
+                                 "chunk_replay": 0}
     assert np.all(np.isfinite(ec.allocatable))
 
 
 @pytest.mark.parametrize(
     "name,refused",
     [("config1_default_cpu.yaml", "cpu"), ("config2_full_plugins_5k.yaml", None),
-     ("config3_whatif_256.yaml", None), ("config8_kube_preempt.yaml", "kube"),
-     ("config11_tune.yaml", None), ("config12_utilization.yaml", "kube")],
+     ("config3_whatif_256.yaml", None), ("config4_borg_1m.yaml", None),
+     ("config8_kube_preempt.yaml", "kube"), ("config11_tune.yaml", None),
+     ("config12_utilization.yaml", "kube")],
 )
 def test_example_configs_parse_or_refuse(name, refused):
     """The repo's example configs: the run, what-if and tune configs parse
-    with the JAX package's values; the kube-preemption ones are refused by
-    name."""
+    with the JAX package's values (config4's workload.borg section field for
+    field); the kube-preemption ones are refused by name."""
+    import dataclasses
+
     import yaml
 
+    from kubernetes_simulator_tpu.utils.config import SimConfig as J_SimConfig
     from kubernetes_simulator_tpu_torch.utils.config import SimConfig
 
     path = ROOT / "examples" / name
@@ -184,6 +195,13 @@ def test_example_configs_parse_or_refuse(name, refused):
         return
     cfg = SimConfig.load(str(path))
     raw = yaml.safe_load(path.read_text())
+    if "borg" in raw["workload"]:
+        ref = J_SimConfig.load(str(path))
+        assert cfg.workload is None and ref.workload is None
+        assert dataclasses.asdict(cfg.borg) == dataclasses.asdict(ref.borg)
+        assert (cfg.borg.nodes, cfg.borg.tasks) == (10_000, 1_000_000)
+        assert cfg.chunk_waves == ref.chunk_waves == raw["chunkWaves"]
+        return
     syn = raw["cluster"]["synthetic"]
     assert cfg.cluster.nodes == syn["nodes"]
     assert cfg.workload.pods == raw["workload"]["synthetic"]["pods"]

@@ -23,8 +23,12 @@ from kubernetes_simulator_tpu_torch.sim.torch_runtime import StepSpec, TorchRepl
 
 pytestmark = pytest.mark.cuda
 
-#: The kernels every path launches (the retry buffer adds retry_boundary).
-PATH_KERNELS = ("filter_score", "normalize_select", "apply_placements")
+#: The kernels every path with completions launches on the chunk route, the
+#: main path (the retry buffer adds K1, K2 in its retry pass and
+#: retry_boundary).
+PATH_KERNELS = ("apply_placements", "chunk_replay")
+#: The kernels of the per-slot route.
+SLOT_KERNELS = ("filter_score", "normalize_select", "apply_placements")
 
 
 @pytest.fixture
@@ -150,12 +154,18 @@ def test_replay_kernel_path_equals_plain_path(card):
     kw = dict(wave_width=4, chunk_waves=8)
     K.reset_launch_counts()
     kern = TorchReplayEngine(ec, ep, FrameworkConfig(), device=card, **kw).replay()
-    assert all(K.launch_counts()[k] > 0 for k in PATH_KERNELS)
+    assert all(K.launch_counts()[k] > 0 for k in PATH_KERNELS) and kern.route == "chunk"
     plain = TorchReplayEngine(ec, ep, FrameworkConfig(), device=card, plain=True, **kw).replay()
     cpu = TorchReplayEngine(ec, ep, FrameworkConfig(), device="cpu", **kw).replay()
     np.testing.assert_array_equal(kern.assignments, plain.assignments)
     np.testing.assert_array_equal(kern.assignments, cpu.assignments)
     np.testing.assert_array_equal(kern.state.used, cpu.state.used)
+    K.reset_launch_counts()
+    slot = TorchReplayEngine(ec, ep, FrameworkConfig(), device=card, **kw)
+    _, _, a_slot, _, _ = slot._run(route="slot")
+    assert all(K.launch_counts()[k] > 0 for k in SLOT_KERNELS)
+    assert K.launch_counts()["chunk_replay"] == 0
+    np.testing.assert_array_equal(kern.assignments, a_slot[0])
 
 
 def _contended_preempt_case():
@@ -314,7 +324,7 @@ def test_retry_kernel_path_equals_plain_path(card):
     eng = TorchReplayEngine(ec, ep, FrameworkConfig(), device=card, **kw)
     kern = eng.replay()
     counts = K.launch_counts()
-    assert all(counts[k] > 0 for k in PATH_KERNELS + ("retry_boundary",))
+    assert all(counts[k] > 0 for k in PATH_KERNELS + SLOT_KERNELS + ("retry_boundary",))
     # summary telemetry attributes nothing
     assert counts["first_reject"] == counts["first_reject_fold"] == 0
     rec = cs.retry_records(eng.last_tables)
@@ -376,7 +386,9 @@ def test_label_kernel_path_equals_plain_path(card):
     K.reset_launch_counts()
     results = {}
     cs.check_reduced_relabel(results, dev=card)
-    assert all(K.launch_counts()[k] > 0 for k in PATH_KERNELS)
+    # The check runs the chunk route (K6, its route asserted) and then the
+    # per-slot route with the counters zeroed just before it.
+    assert all(K.launch_counts()[k] > 0 for k in SLOT_KERNELS)
     assert len(results["reduced_relabel"]["scenarios_moved"]) == 7
 
 
@@ -476,3 +488,76 @@ def test_policy_whatif_kernel_path_equals_plain_path(card):
             other = WhatIfEngine(ec, ep, scen, FrameworkConfig(), policies=rows, **kw, **o).run()
             np.testing.assert_array_equal(kern.assignments, other.assignments)
     assert eng.setups == 1
+
+
+def _chunk_cases():
+    """(name, engine factory) of the chunk route's modes at small sizes:
+    the plain path with completions and gangs (S=1 and S=4), label rows,
+    policy rows, tier preemption, the retry buffer's main-path binds and
+    engine="v2"."""
+    from kubernetes_simulator_tpu_torch.sim.whatif import (Perturbation, Scenario, WhatIfEngine,
+                                                           uniform_scenarios)
+
+    ec, ep = _case(8, nodes=40, pods=600, duration_mean=3.0, arrival_rate=50.0,
+                   gang_fraction=0.1, gang_size=3)
+    scen = uniform_scenarios(ec, 4, seed=1, p_node_down=0.5, p_taint=0.5)
+    zone = "topology.kubernetes.io/zone"
+    relabel = [Scenario(), Scenario([Perturbation("set_label", nodes=np.arange(0, 12), key=zone,
+                                                  value="zone-new")])]
+    pec, pep = _contended_preempt_case()
+    rec, rep = _retry_case(4)
+    kw = dict(wave_width=4, chunk_waves=8)
+    return [
+        ("replay", lambda dev: TorchReplayEngine(ec, ep, FrameworkConfig(), device=dev, **kw)),
+        ("what-if", lambda dev: WhatIfEngine(ec, ep, scen, FrameworkConfig(), device=dev, **kw)),
+        ("labels", lambda dev: WhatIfEngine(ec, ep, relabel, FrameworkConfig(), device=dev, **kw)),
+        ("policies", lambda dev: WhatIfEngine(ec, ep, scen, FrameworkConfig(), device=dev,
+                                              policies=np.asarray(POLICY_ROWS, np.float32),
+                                              **kw)),
+        ("tier", lambda dev: WhatIfEngine(pec, pep, uniform_scenarios(pec, 4, seed=1,
+                                                                      p_capacity=0.5),
+                                          FrameworkConfig(), chunk_waves=4, preemption=True,
+                                          device=dev)),
+        ("retry", lambda dev: WhatIfEngine(rec, rep, scen[:1] * 4, FrameworkConfig(),
+                                           wave_width=4, chunk_waves=3, retry_buffer=8,
+                                           device=dev)),
+        ("v2", lambda dev: TorchReplayEngine(ec, ep, FrameworkConfig(), device=dev, engine="v2",
+                                             **kw)),
+    ]
+
+
+@pytest.mark.parametrize("case", range(7))
+def test_chunk_replay_equals_slot_route_and_twin(card, case):
+    """K6 against the per-slot route and its twin: a whole run of each mode
+    on the chunk route (one K6 launch a chunk, K1 and K2 never launched
+    outside the retry pass) equals the same engine on the per-slot route on
+    the card, and the twin ref.chunk_replay, chunk by chunk: the choice
+    buffer and every state plane after each chunk."""
+    from kubernetes_simulator_tpu_torch.sim.torch_runtime import new_choices, run_waves
+
+    name, make = _chunk_cases()[case]
+    eng = make(card)
+    K.reset_launch_counts()
+    tb_c, _, a_chunk, placed, _ = eng._run(route="chunk")
+    counts = K.launch_counts()
+    assert eng.last_route == "chunk" and counts["chunk_replay"] == len(eng.plan.buckets), counts
+    if eng.retry_buffer == 0:
+        assert counts["filter_score"] == counts["normalize_select"] == 0, counts
+    tb_s, _, a_slot, placed_s, _ = eng._run(route="slot")
+    np.testing.assert_array_equal(a_chunk, a_slot)
+    np.testing.assert_array_equal(placed, placed_s)
+    plan = eng.plan
+    tb_k, tb_t = eng._tables(), eng._tables()
+    S = tb_k.state.used.shape[0]
+    ch_k = new_choices(plan, S, eng.pods.bound_node, card)
+    ch_t = ch_k.clone()
+    for c in range(len(plan.buckets)):
+        lo, hi = c * plan.C, (c + 1) * plan.C
+        run_waves(plan, tb_k, ch_k, lo, hi, plain=False, route="chunk")
+        run_waves(plan, tb_t, ch_t, lo, hi, plain=True, route="chunk")
+        torch.cuda.synchronize()
+        assert torch.equal(ch_k, ch_t), (name, c)
+        for f in ref.DevState._fields:
+            assert torch.equal(getattr(tb_k.state, f), getattr(tb_t.state, f)), (name, c, f)
+    for f in ref.DevState._fields:
+        assert torch.equal(getattr(tb_k.state, f), getattr(tb_c.state, f)), (name, f)

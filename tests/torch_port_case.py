@@ -21,6 +21,25 @@ def field_dicts(ec, ep):
     return ecf, epf
 
 
+def assert_same(a, b, where):
+    """Two encoded dataclasses (EncodedCluster / EncodedPods of either
+    package) field for field: arrays with their dtypes, the vocabulary's
+    tables, the count-group keys by repr, everything else by ==."""
+    assert type(a).__name__ == type(b).__name__, where
+    for f in dataclasses.fields(a):
+        va, vb = getattr(a, f.name), getattr(b, f.name)
+        if isinstance(va, np.ndarray):
+            assert va.dtype == vb.dtype, f"{where}.{f.name} dtype"
+            np.testing.assert_array_equal(va, vb, err_msg=f"{where}.{f.name}")
+        elif f.name == "vocab":
+            for lst in ("resources", "keys", "kvs", "namespaces", "topo_keys"):
+                assert getattr(va, lst) == getattr(vb, lst), f"{where}.vocab.{lst}"
+        elif f.name == "group_keys":
+            assert [repr(g) for g in va] == [repr(g) for g in vb], f"{where}.group_keys"
+        else:
+            assert va == vb, f"{where}.{f.name}"
+
+
 def port_case(ec, ep):
     """The port's (EncodedCluster, EncodedPods) for a JAX-package case."""
     return encoded_from_numpy(*field_dicts(ec, ep))
