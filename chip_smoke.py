@@ -51,6 +51,24 @@ From the root of a checkout, on a host with one CUDA card. In order:
    its first two chunks against the per-slot kernels;
 8d. config4's generator cut to BORG_CUT (12 nodes x 5,000 tasks) on both
    routes against greedy_replay's pins (BORG_PINS);
+8e. node-plane shards (row B13) and paged pod waves: the reduced sharded
+   replay (SHARD_REDUCED: 100 nodes over 3 shards, two pad rows, 600 pods)
+   on four routes — the shard route on the kernels (K1 over the padded
+   node axis -> K7 -> K8 a slot), its twins on the card and on the CPU, the replicated
+   K6 route — paged and not: assignments, placed and ``used`` identical;
+   SHARD_CUT (BORG_CUT over 4 shards, paged) against SHARD_PINS; config13
+   (``examples/config13_borgscale.yaml`` as shipped: 10,000 nodes x 100,000
+   Borg tasks, nodeShards 8, pagedWaves, chunkWaves 512) through the CLI
+   ``run``, counters zeroed just before and read just after, its
+   assignments equal to the same trace replicated on K6; the wall,
+   placements/s, set-up split, launches, the pager's stalls; its first
+   chunk profiled (K1's, K7's and K8's device time a launch) beside their
+   bounds; K1 on the sharded tables, K7 and K8 held against their
+   twins launch by launch in mid-replay windows of config13's trace at 8
+   shards and at 3 (two pad rows), every node but one in a hundred filled to
+   its allocatable (binds, undone gang rollbacks, a release),
+   and timed at 8 beside their twins, their bounds and, for K7's choice,
+   ``torch.argmax`` over the masked total row;
 9. tier preemption, reduced: a tier-preemption replay (config6 cut to 20
    nodes x 1,040 pods) and a preemption x completions what-if (8
    scenarios x 8 nodes x 400 pods) on the kernel path, the plain path on
@@ -200,6 +218,7 @@ from kubernetes_simulator_tpu_torch.sim.torch_runtime import (  # noqa: E402
     StepSpec,
     TorchReplayEngine,
     assignments_from_choices,
+    joint_release,
     new_choices,
     retry_slots,
     run_waves,
@@ -373,7 +392,33 @@ SOURCES = {
                      "kubernetes_simulator_tpu/ops/tpu.py:816"),
     "chunk_replay": ("kubernetes_simulator_tpu_torch/csrc/chunk_replay.cu",
                      "kubernetes_simulator_tpu/sim/jax_runtime.py:742"),
+    "shard_select": ("kubernetes_simulator_tpu_torch/csrc/shard_select.cu",
+                     "kubernetes_simulator_tpu/ops/tpu.py:1316"),
+    "shard_apply": ("kubernetes_simulator_tpu_torch/csrc/shard_apply.cu",
+                    "kubernetes_simulator_tpu/ops/tpu.py:1406"),
 }
+#: The node-shard work (row B13), each with the kernel it runs in and the
+#: reference lines it replaces: K1 on the sharded tables (the mask and rows
+#: over the padded node axis, pad rows masked; eval_pod_fused(shard_ctx)),
+#: K7 (with each shard's packed extrema), and K8's bind, gang rollback and
+#: release.
+SHARD_SOURCES = {
+    "filter_score_shards": ("filter_score", "kubernetes_simulator_tpu/ops/tpu.py:1059"),
+    "shard_select": ("shard_select", "kubernetes_simulator_tpu/ops/tpu.py:1316"),
+    "shard_apply": ("shard_apply", "kubernetes_simulator_tpu/ops/tpu.py:1406"),
+    "shard_apply_rollback": ("shard_apply", "kubernetes_simulator_tpu/ops/tpu.py:1435"),
+    "shard_apply_release": ("shard_apply", "kubernetes_simulator_tpu/sim/jax_runtime.py:1224"),
+}
+#: config13 (examples/config13_borgscale.yaml: 10,000 nodes x 100,000 Borg
+#: tasks, nodeShards 8, pagedWaves, chunkWaves 512) through the CLI ``run``.
+CONFIG13 = "examples/config13_borgscale.yaml"
+#: The reduced sharded replay (four routes, paged and not): 100 nodes over 3
+#: shards (two pad rows), 600 pods, gangs, completions.
+SHARD_REDUCED = dict(nodes=100, pods=600, node_shards=3, chunk_waves=8)
+#: Waves of a mid-replay window the shard kernels are held against their
+#: twins over, launch by launch, after every node but one in a hundred is
+#: filled to its allocatable (so gangs fail and roll back).
+SHARD_HOLD_WAVES = 6
 #: K5's modes, each with the reference lines it replaces: the plain path's
 #: per-slot attribution (make_wave_step_rej) and the retry path's chunk
 #: fold (sim/boundary.py fold_chunk).
@@ -406,6 +451,10 @@ LABEL_SOURCES = {
 #: retry_boundary): at telemetry series, under engine v2, and on any path
 #: whose route is chosen explicitly.
 SOURCES_PLAIN = ("filter_score", "normalize_select", "apply_placements")
+#: The kernels the per-slot route never launches: K6 (the chunk route's) and
+#: K7, K8 (the shard route's; K8 also counted by mode).
+NOT_SLOT_ROUTE = ("chunk_replay", "shard_select", "shard_apply", "shard_apply_bind",
+                  "shard_apply_rollback", "shard_apply_release")
 #: config4 (examples/config4_borg_1m.yaml, 10,000 nodes x 1,000,000 tasks)
 #: through the CLI ``run``; the first chunks held against the per-slot route.
 CONFIG4 = "examples/config4_borg_1m.yaml"
@@ -416,6 +465,13 @@ CONFIG4_HOLD_CHUNKS = 2
 BORG_CUT = dict(nodes=12, tasks=5000, chunk_waves=32)
 BORG_PINS = {"placed": 4810, "unschedulable": 190,
              "sha256": "d320d2a1c17a1e88b28055be12e7fc18164d3176f9c481de920f917567a4705b"}
+#: The same cut node-sharded and paged (row B13): 4 shards of 3 nodes, pages of
+#: 32 x 8 slots. The placements are the replicated ones, so SHARD_PINS are
+#: JaxReplayEngine(node_shards=4, paged=True)'s and greedy_replay's
+#: (tests/test_torch_shards.py recomputes them).
+SHARD_CUT = dict(nodes=12, tasks=5000, chunk_waves=32, node_shards=4)
+SHARD_PINS = {"placed": 4810, "unschedulable": 190,
+              "sha256": "d320d2a1c17a1e88b28055be12e7fc18164d3176f9c481de920f917567a4705b"}
 #: Waves of the headline's first chunk that K6 is held against its twin over
 #: (the twin costs ~6 ms a slot at S = 128; the whole chunk, 512 waves, ~25 s),
 #: and of the window its launch is timed in.
@@ -2036,7 +2092,7 @@ def clone_series(ser):
 
 
 def lockstep(where, plan, tb_k, tb_t, ch_k, ch_t, first, end, dev, snap=None,
-             after_bind=None, ser=None):
+             after_bind=None, ser=None, joint=False):
     """Waves [first, end) of ``plan`` (as run_waves enqueues them, with the
     retry sequence at each boundary past 0 when the tables have a retry
     buffer) on the kernels over ``tb_k`` and on the twins over ``tb_t``,
@@ -2048,7 +2104,9 @@ def lockstep(where, plan, tb_k, tb_t, ch_k, ch_t, first, end, dev, snap=None,
     each slot's K2 on the plain path; in each retry-pass slot and as the
     chunk fold at each boundary (and at the run's end) on the retry path,
     the chunk-start planes copied at each boundary — and the reject
-    counters are compared after each K5 as well. Returns the count of each
+    counters are compared after each K5 as well. ``joint`` (the single
+    replay's order, as run_waves) releases a boundary's pending list and
+    static bucket in one launch. Returns the count of each
     kind of launch (``appends``, ``overflows`` and ``k5_charged`` count
     scenarios)."""
     b_k = K.Bound(tb_k)
@@ -2058,8 +2116,10 @@ def lockstep(where, plan, tb_k, tb_t, ch_k, ch_t, first, end, dev, snap=None,
     idx_dev = torch.as_tensor(plan.idx.reshape(-1), device=dev)
     pos_dev = torch.arange(plan.L, dtype=torch.int32, device=dev)
     pos_rb = torch.arange(RB, dtype=torch.int32, device=dev)
-    n = dict(static_release=0, pending_release=0, retry_slots=0, k4=0, binds=0, appends=0,
-             overflows=0, rollbacks=0, k5_slot=0, k5_retry=0, k5_fold=0, k5_charged=0)
+    n = dict(static_release=0, pending_release=0, joint_release=0, retry_slots=0, k4=0,
+             binds=0, appends=0, overflows=0, rollbacks=0, k5_slot=0, k5_retry=0, k5_fold=0,
+             k5_charged=0)
+    joint = joint and rk is not None
     ser_k, ser_t = ser if ser is not None else (None, None)
     attribute = ser_k is not None and ser_k.attribute
     fold = attribute and ser_k.fold
@@ -2094,13 +2154,22 @@ def lockstep(where, plan, tb_k, tb_t, ch_k, ch_t, first, end, dev, snap=None,
         b = w // C
         if fold and w % C == 0 and b > 0:
             k5_fold(b - 1, f"K5 fold of chunk {b - 1}")
-        if w % C == 0 and plan.buckets[b] is not None:
-            bp, bpos = (torch.as_tensor(x, device=dev) for x in plan.buckets[b])
-            K.apply_placements(b_k, bp, bpos, ch_k, -1.0)
-            ref.apply_placements(tb_t, bp, bpos, ch_t, -1.0)
+        bucket = (tuple(torch.as_tensor(x, device=dev) for x in plan.buckets[b])
+                  if w % C == 0 and plan.buckets[b] is not None else None)
+        if w % C == 0 and b > 0 and joint:
+            # the single replay's one release of the pending list and the bucket
+            if snap:
+                snap("pending_release", b)
+            joint_release(b, b_k, K.apply_placements, rk, ch_k, bucket)
+            joint_release(b, tb_t, ref.apply_placements, rt, ch_t, bucket)
+            same(f"joint pending and static release at boundary {b}")
+            n["joint_release"] += 1
+        elif bucket is not None:
+            K.apply_placements(b_k, *bucket, ch_k, -1.0)
+            ref.apply_placements(tb_t, *bucket, ch_t, -1.0)
             same(f"static release at boundary {b}")
             n["static_release"] += 1
-        if w % C == 0 and b > 0 and rk is not None:
+        if w % C == 0 and b > 0 and rk is not None and not joint:
             if snap:
                 snap("pending_release", b)
             K.apply_placements(b_k, rk.pend_id, pos_rb, rk.pend_node, -1.0, due=(rk.pend_relb, b))
@@ -2108,6 +2177,7 @@ def lockstep(where, plan, tb_k, tb_t, ch_k, ch_t, first, end, dev, snap=None,
                                  due=(rt.pend_relb, b))
             same(f"pending release at boundary {b}")
             n["pending_release"] += 1
+        if w % C == 0 and b > 0 and rk is not None:
             for k in range(retry_slots(plan, b, RB)):
                 if snap and k == 0:
                     snap("retry_slot", b)
@@ -2578,21 +2648,23 @@ def check_reduced_series(results, dev="cuda"):
           flush=True)
 
 
-def hold_first_reject(where, eng, first, end, dev, results, must_charge=True):
+def hold_first_reject(where, eng, first, end, dev, results, must_charge=True, joint=False):
     """K1–K5 against their twins launch by launch over waves [first, end)
     of a series run of ``eng`` (a kernel-path run with the series carriers
     up to ``first``, then the tables, series buffers and choice buffer
-    copied for the twins), reject counters compared after every K5."""
+    copied for the twins), reject counters compared after every K5
+    (``joint``: the single replay's release order, as run_waves)."""
     from kubernetes_simulator_tpu_torch.sim.torch_runtime import new_series
 
     plan = eng.plan
     tb_k = eng._tables(attribute=True)
     ser_k = new_series(plan, tb_k, True)
     ch_k = new_choices(plan, eng.S, eng.pods.bound_node, dev)
-    run_waves(plan, tb_k, ch_k, 0, first, plain=False, ser=ser_k)
+    run_waves(plan, tb_k, ch_k, 0, first, plain=False, ser=ser_k, joint=joint)
     torch.cuda.synchronize()
     tb_t, ch_t, ser_t = clone_tables(tb_k), ch_k.clone(), clone_series(ser_k)
-    n = lockstep(where, plan, tb_k, tb_t, ch_k, ch_t, first, end, dev, ser=(ser_k, ser_t))
+    n = lockstep(where, plan, tb_k, tb_t, ch_k, ch_t, first, end, dev, ser=(ser_k, ser_t),
+                 joint=joint)
     k5 = n["k5_slot"] + n["k5_retry"] + n["k5_fold"]
     if not k5 or (must_charge and not n["k5_charged"]):
         raise AssertionError(f"{where}: the window launched or charged nothing: {n}")
@@ -2724,7 +2796,7 @@ def run_series_paths(results, dev):
     cli_s = time.perf_counter() - t0
     launches7 = K.launch_counts()
     for k, n in launches7.items():
-        if (n <= 0) != (k == "chunk_replay"):  # series: the per-slot route
+        if (n <= 0) != (k in NOT_SLOT_ROUTE):  # series: the per-slot route
             raise AssertionError(f"config7's CLI run at series launched {k} {n} times")
     with open(d["output"]) as f:
         row = json.loads(f.read().splitlines()[-1])
@@ -2772,7 +2844,7 @@ def run_series_paths(results, dev):
     rc = ec_.replay()
     launchesc = K.launch_counts()
     for k, n in launchesc.items():
-        if (n <= 0) != (k == "chunk_replay"):  # timeline: the per-slot route
+        if (n <= 0) != (k in NOT_SLOT_ROUTE):  # timeline: the per-slot route
             raise AssertionError(f"the {RETRY_CUT_NODES}-node cut at timeline launched {k} {n} "
                                  "times")
     check_series_pins(f"{RETRY_CUT_NODES}-node cut at timeline", REJECT_PINS["cut150"],
@@ -2794,7 +2866,7 @@ def run_series_paths(results, dev):
     b = max(len(ec_.plan.buckets) // 2, 1)
     hold_first_reject(f"K5 at S=1 ({RETRY_CUT_NODES}-node cut, fold and retry pass)", ec_,
                       b * C - 2, b * C + 2, dev, results,
-                      must_charge=bool(REJECT_PINS["cut150"]["attempts"]))
+                      must_charge=bool(REJECT_PINS["cut150"]["attempts"]), joint=True)
     plan = ec_.plan
     CW = C * plan.idx.shape[1]
     cols = slice((b - 1) * CW, b * CW)
@@ -3499,6 +3571,379 @@ def check_borg_pins(results, dev):
           flush=True)
 
 
+def _clone_shard_tables(tb):
+    """A deep copy of a sharded Tables' state, scratch and shard buffers."""
+    c = lambda nt: type(nt)(*(x.clone() if torch.is_tensor(x) else x for x in nt))
+    return tb._replace(state=c(tb.state), scratch=c(tb.scratch), shards=c(tb.shards))
+
+
+def hold_shards(where, eng, dev, seed):
+    """K1 on the sharded tables, K7 and K8 against their twins, launch by launch,
+    in a mid-replay window of ``eng`` (node-sharded): the kernels replay up to
+    the first boundary past chunk 1 that releases pods; every node is filled
+    to its allocatable but one in a hundred (at least 16), left 0-3 mean
+    requests of room; then from that boundary's K8
+    release, every slot's K1 (scratch rows), K7 (each shard's packed
+    extrema, the choice and the column's domain ids) and K8 bind (every plane),
+    and each gang wave's K8 rollback, over SHARD_HOLD_WAVES waves (more until
+    a rollback undid a pair), must equal the twins' bit for bit. Returns the
+    record, the kernel tables and choices at the window's end, a live slot
+    (for timing) and the window's release pairs."""
+    plan = eng.plan
+    C, W = plan.C, plan.idx.shape[1]
+    b = next(i for i in range(2, len(plan.buckets)) if plan.buckets[i] is not None)
+    tb_k = eng._tables()
+    ch_k = new_choices(plan, 1, eng.pods.bound_node, dev)
+    run_waves(plan, tb_k, ch_k, 0, b * C, plain=False, route="shard")
+    rng = np.random.default_rng(seed)
+    lay = eng.layout
+    alloc = tb_k.cluster.allocatable
+    room = np.zeros((lay.n_pad, 1))
+    open_nodes = rng.choice(lay.n_real, size=max(16, lay.n_real // 100), replace=False)
+    room[open_nodes] = rng.uniform(0.0, 3.0, size=(open_nodes.size, 1))
+    room = room * eng.pods.requests.mean(axis=0)
+    tb_k.state.used.copy_(torch.maximum(
+        tb_k.state.used, alloc[None] - torch.as_tensor(room.astype(np.float32), device=dev)))
+    tb_t = _clone_shard_tables(tb_k)
+    ch_t = ch_k.clone()
+    bk = K.Bound(tb_k)
+    idx = torch.as_tensor(plan.idx.reshape(-1), device=dev)
+    pos = torch.arange(plan.L, dtype=torch.int32, device=dev)
+    n = dict(releases=0, binds=0, rollbacks=0, undone=0, unplaced=0)
+    rolled = None
+
+    def same(at, scratch=False):
+        torch.cuda.synchronize()
+        parts = [(tb_k.state, tb_t.state)] + ([(tb_k.scratch, tb_t.scratch)] if scratch else [])
+        for x, y in parts:
+            for f, a in zip(x._fields, x):
+                if not torch.equal(a, getattr(y, f)):
+                    raise AssertionError(f"{where}, {at}: {f} differs")
+        for f in ("ext", "cdom"):
+            if not torch.equal(getattr(tb_k.shards, f), getattr(tb_t.shards, f)):
+                raise AssertionError(f"{where}, {at}: shards.{f} differs")
+        if not torch.equal(ch_k, ch_t):
+            raise AssertionError(f"{where}, {at}: choices differ")
+
+    rel_ids, rel_pos = (torch.as_tensor(a, device=dev) for a in plan.buckets[b])
+    K.shard_apply(bk, rel_ids, rel_pos, ch_k, -1.0)
+    ref.shard_apply(tb_t, rel_ids, rel_pos, ch_t, -1.0)
+    same(f"K8 release of boundary {b} ({rel_ids.numel()} pods)")
+    n["releases"] += 1
+    live = None
+    w = b * C
+    while w < b * C + SHARD_HOLD_WAVES or (n["undone"] == 0 and w < (b + 1) * C):
+        for k, p in enumerate(plan.idx[w].tolist()):
+            if p < 0:
+                continue
+            s = w * W + k
+            K.filter_score(bk, p)
+            ref.filter_score(tb_t, p)
+            same(f"K1 of pod {p}", scratch=True)
+            K.shard_select(bk, p, ch_k, s)
+            ref.shard_select(tb_t, p, ch_t, s)
+            same(f"K7 of pod {p}")
+            live = live or (p, s)
+            n["unplaced"] += int(ch_k[0, s]) < 0
+            K.shard_apply(bk, idx[s : s + 1], pos[s : s + 1], ch_k, 1.0)
+            ref.shard_apply(tb_t, idx[s : s + 1], pos[s : s + 1], ch_t, 1.0)
+            same(f"K8 bind of pod {p}")
+            n["binds"] += 1
+        if plan.gang_wave[w]:
+            sl = slice(w * W, (w + 1) * W)
+            before = ch_k[:, sl].clone()
+            K.shard_apply(bk, idx[sl], pos[sl], ch_k, -1.0, rollback=True)
+            ref.shard_apply(tb_t, idx[sl], pos[sl], ch_t, -1.0, rollback=True)
+            same(f"K8 rollback of wave {w}")
+            n["rollbacks"] += 1
+            undone = int((before >= 0).sum()) - int((ch_k[:, sl] >= 0).sum())
+            if undone:
+                n["undone"] += undone
+                rolled = (sl, before, idx[sl].clone())
+        w += 1
+    if not (n["binds"] and n["rollbacks"] and n["undone"] and n["releases"]):
+        raise AssertionError(f"{where}: the window lacked a bind, an undone rollback or a "
+                             f"release: {n}")
+    rec = dict(P=lay.P, n_local=lay.n_local, n_pad=lay.n_pad, n_real=lay.n_real,
+               boundary=b, waves=w - b * C, max_abs_err=0.0, **n)
+    print(f"{where}: K1, K7 and K8 == their twins launch by launch at P={lay.P} "
+          f"(n_local {lay.n_local}, {lay.n_pad - lay.n_real} pad rows) over waves "
+          f"[{b * C}, {w}) from boundary {b}'s release: {json.dumps(n)}", flush=True)
+    return rec, tb_k, ch_k, tb_t, ch_t, live, (rel_ids, rel_pos), rolled
+
+
+def time_shards(work, tb_k, ch_k, tb_t, ch_t, live, rel, rolled, dev, iters=200,
+                plain_iters=10):
+    """Each shard kernel's device time per launch (torch.profiler) at the
+    window's end state, beside its twin's wall per call (CUDA events), its
+    least time from ``work`` and, for K7's choice, ``torch.argmax`` over the
+    masked total row (the library call for the select part)."""
+    bk = K.Bound(tb_k)
+    p, s = live
+    sh = tb_k.shards
+    sgn = lambda i: 1.0 if i % 2 == 0 else -1.0
+    idx1 = torch.tensor([p], dtype=torch.int32, device=dev)
+    pos1 = torch.tensor([s], dtype=torch.int32, device=dev)
+    ids, cols = rel
+    out = {}
+    K.filter_score(bk, p)
+    ref.filter_score(tb_t, p)
+    nb, no = work.k1(p)
+    d1 = device_ms(lambda i: K.filter_score(bk, p), iters, "ksim_filter_score_kernel")
+    t1 = time_cuda(lambda i: ref.filter_score(tb_t, p), plain_iters)
+    out["filter_score_shards"] = dict(ms=d1, plain_ms=t1, library_ms=None,
+                                      **dict(zip(("bound_ms", "bound_by"), bound(nb, no))))
+    # K7: the shards' extrema and the two-stage choice (choices[s] rewritten
+    # alike each call); the exchange buffers written and read once
+    nb, no = work.k2_scen(work.S)
+    nb += (2 * sh.ext.numel() + 2 * sh.best_v.numel() + 2 * sh.best_i.numel() + 2 * work.G) * 4
+    d7 = device_ms(lambda i: K.shard_select(bk, p, ch_k, s), iters, "shard_select")
+    t7 = time_cuda(lambda i: ref.shard_select(tb_t, p, ch_t, s), plain_iters)
+    ext = ref.exchange_pmax(tb_t.shards.ext[:, i] for i in range(sh.P))
+    total = ref.weighted_total(tb_t, p, ext)
+    masked = torch.where(tb_t.scratch.feasible, total, torch.full_like(total, float("-inf")))
+    lib = device_ms(lambda i: torch.argmax(masked, dim=-1), iters)
+    out["shard_select"] = dict(ms=d7, plain_ms=t7, library_ms=lib,
+                               **dict(zip(("bound_ms", "bound_by"), bound(nb, no))))
+    # K8: a bind and its undo in turns (the slot's node), a release and its
+    # re-add in turns (the window's boundary bucket)
+    node = ch_k[:, s].cpu().numpy()
+    nb, no = work.k3(np.array([p]), node[:, None])
+    d8 = device_ms(lambda i: K.shard_apply(bk, idx1, pos1, ch_k, sgn(i)), iters, "shard_apply")
+    t8 = time_cuda(lambda i: ref.shard_apply(tb_t, idx1, pos1, ch_t, sgn(i)), plain_iters)
+    out["shard_apply"] = dict(ms=d8, plain_ms=t8, library_ms=None,
+                              **dict(zip(("bound_ms", "bound_by"), bound(nb, no))))
+    rel_nodes = ch_k[:, cols.long()].cpu().numpy()
+    nb, no = work.k3(ids.cpu().numpy(), rel_nodes)
+    dr = device_ms(lambda i: K.shard_apply(bk, ids, cols, ch_k, -sgn(i)), 20, "shard_apply")
+    tr = time_cuda(lambda i: ref.shard_apply(tb_t, ids, cols, ch_t, -sgn(i)), 4)
+    out["shard_apply_release"] = dict(ms=dr, plain_ms=tr, library_ms=None, pairs=int(ids.numel()),
+                                      **dict(zip(("bound_ms", "bound_by"), bound(nb, no))))
+    # K8's rollback of the window's last wave that undid pairs, its choices
+    # restored before each call (a copy the profiler's match leaves out)
+    sl, before, ids_w = rolled
+    pos_w = torch.arange(sl.start, sl.stop, dtype=torch.int32, device=dev)
+    after = ch_k[:, sl].cpu().numpy()
+    undo = np.where(after < 0, before.cpu().numpy(), PAD)  # the pairs the rollback undid
+    nb, no = work.k3(ids_w.cpu().numpy(), undo, rollback=True)
+
+    def rb_k(i):
+        ch_k[:, sl].copy_(before)
+        K.shard_apply(bk, ids_w, pos_w, ch_k, -1.0, rollback=True)
+
+    def rb_t(i):
+        ch_t[:, sl].copy_(before)
+        ref.shard_apply(tb_t, ids_w, pos_w, ch_t, -1.0, rollback=True)
+
+    out["shard_apply_rollback"] = dict(
+        ms=device_ms(rb_k, 50, "shard_apply"), plain_ms=time_cuda(rb_t, 4), library_ms=None,
+        **dict(zip(("bound_ms", "bound_by"), bound(nb, no))))
+    torch.cuda.synchronize()
+    return out
+
+
+def check_reduced_shards(results, dev):
+    """The reduced sharded replay (SHARD_REDUCED: 100 nodes over 3 shards, two
+    pad rows; 600 pods, durationMean 50, gangs 0.1 x 4) on four routes — the
+    shard route on the kernels, its twins on the card and on the CPU, and
+    the replicated K6 route — then the same paged: assignments, placed and
+    ``used`` identical; the kernel run launches K1, K7 and K8 a slot and no
+    K2, K3 or K6."""
+    sr = SHARD_REDUCED
+    ec, ep = case(sr["nodes"], sr["pods"], gang_fraction=0.1)
+    out = {}
+    for paged in (False, True):
+        mk = lambda d, P, **kw: TorchReplayEngine(ec, ep, FrameworkConfig(),
+                                                  chunk_waves=sr["chunk_waves"], device=d,
+                                                  node_shards=P, paged=paged, **kw)
+        K.reset_launch_counts()
+        eng = mk(dev, sr["node_shards"])
+        res = eng.replay()
+        launches = K.launch_counts()
+        slots = int((eng.plan.idx >= 0).sum())
+        if (res.route != "shard" or launches["shard_select"] != slots
+                or launches["filter_score"] != slots or launches["normalize_select"]
+                or launches["apply_placements"] or launches["chunk_replay"]):
+            raise AssertionError(f"reduced shards (paged={paged}): route {res.route}, "
+                                 f"launches {launches}")
+        routes = {"shard kernels": res,
+                  "shard twins on the card": mk(dev, sr["node_shards"], plain=True).replay(),
+                  "shard twins on the CPU": mk("cpu", sr["node_shards"]).replay(),
+                  "replicated K6": mk(dev, 1).replay()}
+        for name, r in routes.items():
+            if (not np.array_equal(r.assignments, res.assignments) or r.placed != res.placed
+                    or not np.array_equal(r.state.used, res.state.used)):
+                raise AssertionError(f"reduced shards (paged={paged}): {name} differs")
+        out["paged" if paged else "resident"] = dict(
+            placed=res.placed, unschedulable=res.unschedulable, launches=launches,
+            walls_s={k: r.wall_clock_s for k, r in routes.items()},
+            pager_stalls=eng.last_pager.stalls if paged else None)
+        print(f"reduced sharded replay ({sr['nodes']} nodes over {sr['node_shards']} shards, "
+              f"{sr['pods']} pods, paged={paged}): placed {res.placed} on the shard kernels == "
+              f"the twins on the card and the CPU == replicated K6 (assignments, used); "
+              f"launches {json.dumps(launches)}", flush=True)
+    results["reduced_shards"] = out
+
+
+def check_shard_pins(results, dev):
+    """SHARD_CUT on the card (node_shards=4, paged): placed, unschedulable and
+    the assignments' sha256 equal SHARD_PINS."""
+    from kubernetes_simulator_tpu_torch.sim.borg import BorgSpec, make_borg_encoded
+
+    sc = SHARD_CUT
+    ec, ep, _ = make_borg_encoded(BorgSpec(nodes=sc["nodes"], tasks=sc["tasks"], seed=SEED))
+    eng = TorchReplayEngine(ec, ep, FrameworkConfig(), chunk_waves=sc["chunk_waves"],
+                            node_shards=sc["node_shards"], paged=True, device=dev)
+    res = eng.replay()
+    got = dict(placed=res.placed, unschedulable=res.unschedulable,
+               sha256=assignments_sha256(res.assignments))
+    if got != SHARD_PINS or res.route != "shard":
+        raise AssertionError(f"shard cut: {got} (route {res.route}) != SHARD_PINS {SHARD_PINS}")
+    results["shard_cut"] = dict(**sc, **got, wall_s=res.wall_clock_s,
+                                pager_stalls=eng.last_pager.stalls)
+    print(f"shard cut ({sc['nodes']} nodes over {sc['node_shards']} shards x {sc['tasks']} "
+          f"tasks, paged): placed {res.placed}, sha256 {got['sha256'][:16]} == SHARD_PINS",
+          flush=True)
+
+
+def run_config13(results, dev):
+    """config13 as shipped through the CLI ``run`` on the card (nodeShards 8,
+    pagedWaves, chunkWaves 512), counters zeroed just before and read just
+    after: the shard route, K1 and K7 once a slot, K8 a slot plus each gang
+    wave and release; the assignments equal the same trace replicated on K6
+    (node_shards=1); the wall, placements/s, set-up split, the pager's stalls;
+    then K1 on the sharded tables, K7 and K8 held against their twins launch by
+    launch at P = 8 and at P = 3 (two pad rows) in mid-replay windows, their
+    device times per launch in a profiled chunk of the run's own route and at
+    the window's state, with their bounds, twins and torch.argmax. Returns
+    the kernel rows' numbers and the run's launches."""
+    import contextlib
+    import io
+
+    from kubernetes_simulator_tpu_torch import cli
+    from kubernetes_simulator_tpu_torch.framework import registry
+
+    factory = registry.get_strategy("torch")
+    made = []
+    registry._STRATEGIES["torch"] = lambda *a, **kw: made.append(factory(*a, **kw)) or made[-1]
+    out = io.StringIO()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        with LogLines() as lines, contextlib.redirect_stdout(out):
+            rc = cli.main(["run", os.path.join(ROOT, CONFIG13), "--device", dev.type])
+    finally:
+        registry._STRATEGIES["torch"] = factory
+    command_s = time.perf_counter() - t0
+    launches = K.launch_counts()
+    if rc != 0 or len(made) != 1:
+        raise AssertionError(f"config13 run: the CLI returned {rc}")
+    eng = made[0]
+    row = json.loads([x for x in out.getvalue().splitlines() if x.startswith("{")][-1])
+    ec, ep, plan = eng.ec, eng.pods, eng.plan
+    from kubernetes_simulator_tpu_torch.utils.config import SimConfig
+
+    cfg = SimConfig.load(os.path.join(ROOT, CONFIG13))
+    if ((ec.num_nodes, ep.num_pods) != (cfg.borg.nodes, cfg.borg.tasks)
+            or eng.last_route != "shard" or eng.layout.P != cfg.node_shards or not eng.paged):
+        raise AssertionError(f"config13 run: {ec.num_nodes} nodes, {ep.num_pods} tasks, route "
+                             f"{eng.last_route}, {eng.layout}, paged {eng.paged}")
+    slots = int((plan.idx >= 0).sum())
+    gang_waves = int(plan.gang_wave.sum())
+    releases = sum(bk is not None for bk in plan.buckets)
+    want = dict(filter_score=slots, shard_select=slots,
+                shard_apply=slots + gang_waves + releases, shard_apply_bind=slots,
+                shard_apply_rollback=gang_waves, shard_apply_release=releases,
+                normalize_select=0, apply_placements=0, chunk_replay=0)
+    if any(launches[k] != v for k, v in want.items()):
+        raise AssertionError(f"config13 run: launches {launches}, expected {want}")
+    a_sh, placed, _ = assignments_from_choices(plan, eng.last_choices, ep.bound_node)
+    if int(placed[0]) != row["placed"] or row["placed"] + row["unschedulable"] != ep.num_pods:
+        raise AssertionError(f"config13 run: placed {row['placed']} / {int(placed[0])}")
+    pager = eng.last_pager
+    setup = [m.groups() for m in (re.search(r"set-up: trace ([\d.]+)s, engine ([\d.]+)s", x)
+                                  for x in lines.lines) if m]
+    cfg_c = cfg.chunk_waves
+    rep = TorchReplayEngine(ec, ep, FrameworkConfig(), wave_width=plan.idx.shape[1],
+                            chunk_waves=cfg_c, device=dev)
+    K.reset_launch_counts()
+    res_rep = rep.replay()
+    if res_rep.route != "chunk" or not np.array_equal(res_rep.assignments, a_sh[0]):
+        bad = np.nonzero(res_rep.assignments != a_sh[0])[0]
+        raise AssertionError(f"config13: the sharded run != the replicated K6 run at pods "
+                             f"{bad[:5].tolist()} (route {res_rep.route})")
+    mark("e config13 CLI run, K6 run")
+    # The run's own route over its first chunk, profiled: device time a launch.
+    by_kernel = {}
+    tb_p = eng._tables()
+    ch_p = new_choices(plan, 1, ep.bound_node, dev)
+    K.reset_launch_counts()
+    t_chunk = time.perf_counter()
+    _, busy_s = profiled_busy_s(lambda: (run_waves(plan, tb_p, ch_p, 0, plan.C, plain=False,
+                                                   route="shard"), torch.cuda.synchronize()),
+                                by_kernel)
+    chunk_wall = time.perf_counter() - t_chunk
+    chunk_launches = K.launch_counts()
+    per_launch = {}
+    for name, key in (("filter_score_shards", "ksim_filter_score_kernel"),
+                      ("shard_select", "shard_select"), ("shard_apply", "shard_apply")):
+        dev_s = sum(t for k, t in by_kernel.items() if key in k)
+        n_l = chunk_launches["filter_score" if name == "filter_score_shards" else name]
+        per_launch[name] = dev_s * 1e3 / n_l if n_l and dev_s else None
+    work = Work(ep, eng._tables())
+    # The bounds of the run's launches, summed over the first chunk's slots.
+    b1 = b7 = 0.0
+    for p in plan.idx[: plan.C].reshape(-1).tolist():
+        if p >= 0:
+            nb, no = work.k1(p)
+            b1 += bound(nb, no)[0]
+            nb, no = work.k2_scen(1)
+            b7 += bound(nb + (2 * 8 * 7 + 32 + 2 * work.G) * 4, no)[0]
+    bound_chunk = dict(filter_score_shards_ms=b1, shard_select_ms=b7)
+    mark("e config13 profiled chunk")
+    holds, times = {}, {}
+    for P in (8, 3):
+        he = eng if P == 8 else TorchReplayEngine(ec, ep, FrameworkConfig(), chunk_waves=cfg_c,
+                                                  node_shards=P, device=dev)
+        rec, tb_k, ch_k, tb_t, ch_t, live, rel, rolled = hold_shards(f"config13 P={P}", he,
+                                                                      dev, SEED + P)
+        holds[P] = rec
+        if P == 8:
+            times = time_shards(Work(ep, tb_k), tb_k, ch_k, tb_t, ch_t, live, rel, rolled, dev)
+        del tb_k, tb_t
+    mark("e config13 holds, times")
+    results["config13"] = dict(
+        nodes=ec.num_nodes, tasks=ep.num_pods, node_shards=eng.layout.P,
+        n_local=eng.layout.n_local, chunk_waves=plan.C, chunks=len(plan.buckets),
+        slots=slots, gang_waves=gang_waves, releases=releases, route=eng.last_route,
+        placed=row["placed"], unschedulable=row["unschedulable"], wall_s=row["wall_clock_s"],
+        placements_per_s=row["placements_per_sec"], command_s=command_s,
+        setup_trace_s=float(setup[0][0]), setup_engine_s=float(setup[0][1]),
+        setup_s=eng.setup_s, launches=launches,
+        pager=dict(stalls=pager.stalls, stall_s=pager.stall_s, waits=pager.waits,
+                   prefetches=pager.prefetches, prefetch_wall_s=pager.prefetch_wall_s,
+                   page_rows=pager.rows),
+        replicated_k6=dict(wall_s=res_rep.wall_clock_s, route=res_rep.route,
+                           placed=res_rep.placed),
+        first_chunk=dict(launches=chunk_launches, device_ms_per_launch=per_launch,
+                         device_busy_s=busy_s, profiled_wall_s=chunk_wall,
+                         bounds_ms=bound_chunk),
+        holds=holds, kernel_times=times, utilization=row["utilization"])
+    print(f"config13 through the CLI run on the card ({ec.num_nodes} nodes over "
+          f"{eng.layout.P} shards of {eng.layout.n_local}, {ep.num_pods} tasks, chunkWaves "
+          f"{plan.C}, paged, route {eng.last_route}): placed {row['placed']}, unschedulable "
+          f"{row['unschedulable']} == the replicated K6 run ({res_rep.wall_clock_s:.3f}s); "
+          f"set-up trace {float(setup[0][0]):.2f}s, engine {float(setup[0][1]):.2f}s "
+          f"({json.dumps({k: round(v, 3) for k, v in eng.setup_s.items()})}); replay wall "
+          f"{row['wall_clock_s']:.3f}s, {row['placements_per_sec']:.1f} placements/s; command "
+          f"{command_s:.1f}s; launches {json.dumps(launches)}; pager stalls {pager.stalls} "
+          f"({pager.stall_s:.4f}s, {pager.waits} waits); first chunk (profiled: wall "
+          f"{chunk_wall:.3f}s, device busy {busy_s:.3f}s) device ms a launch "
+          f"{json.dumps(per_launch)}, bounds {json.dumps(bound_chunk)}; kernel times "
+          f"{json.dumps(times)}", flush=True)
+    return times, launches, holds
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this script needs a CUDA "
@@ -3661,6 +4106,13 @@ def main() -> int:
     mark("c config4 holds")
     check_borg_pins(results, dev)
     mark("d Borg cut pins")
+    # (e) node-plane shards (row B13) and paged pod waves: the reduced replay
+    # on four routes, SHARD_PINS, config13 through the CLI.
+    check_reduced_shards(results, dev)
+    mark("e reduced shards")
+    check_shard_pins(results, dev)
+    mark("e shard cut pins")
+    shtimes, shlaunches, shholds = run_config13(results, dev)
     # Steps 9-11: tier preemption.
     check_reduced_preempt(results)
     mark("9 reduced preemption")
@@ -3754,6 +4206,17 @@ def main() -> int:
             "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
             # no single PyTorch call computes a per-scenario weighted total
             "library_ms": None,
+        })
+    for k, (kernel, replaces) in SHARD_SOURCES.items():
+        m = shtimes[k]
+        # config13's CLI run, counters zeroed just before it: K8 by mode
+        n_launch = shlaunches[{"filter_score_shards": "filter_score",
+                               "shard_apply": "shard_apply_bind"}.get(k, k)]
+        table.append({
+            "name": k, "route": "cuda", "source": SOURCES[kernel][0], "replaces": replaces,
+            "launches": n_launch, "max_abs_err": max(h["max_abs_err"] for h in shholds.values()),
+            "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+            "bound_by": m["bound_by"], "library_ms": m["library_ms"],
         })
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:

@@ -15,7 +15,9 @@ it, and its seed stamps the rows. ``run`` writes one JSONL replay row,
 ``what-if`` the ``whatif_rows`` (stdout, or the config's ``output``), and
 each an INFO summary line with placements/sec and the route the chunks
 took (``chunk``: one K6 launch a chunk; ``slot``: K1 → K2 → K3 a slot);
-``tune`` writes the
+``run`` passes ``nodeShards`` and ``pagedWaves`` to the engine (:101-102; route
+``shard``: K1 → K7 → K8 a slot), after the reference's checks of them
+(:735-757). ``tune`` writes the
 policy search's trajectory (schema-v3 rows without a wall-clock stamp, to
 ``tune.output`` or ``output``) and INFO lines with the winner, the
 held-out objectives, the CPU oracle's envelope and the walls. ``run --timeline-out`` (or
@@ -32,16 +34,19 @@ import time
 import yaml
 
 from .framework.registry import get_strategy
-from .utils.config import SimConfig, borg_errors, build_encoded_case, workload_seed
+from .utils.config import (
+    SimConfig, borg_errors, build_encoded_case, shard_errors, workload_seed,
+)
 from .utils.metrics import JsonlWriter, config_hash, log, replay_row, whatif_rows
 
 
 def _load(path: str) -> SimConfig:
-    """The config at ``path``; a ``workload.borg`` section that fails the
-    reference's checks (kubernetes_simulator_tpu/cli.py:671-693) raises
+    """The config at ``path``; a ``workload.borg`` section or a
+    ``nodeShards`` / ``pagedWaves`` setting that fails the reference's
+    checks (kubernetes_simulator_tpu/cli.py:671-693, :735-757) raises
     ``ValueError`` listing them."""
     cfg = SimConfig.load(path)
-    errors = borg_errors(cfg)
+    errors = borg_errors(cfg) + shard_errors(cfg)
     if errors:
         raise ValueError("invalid config: " + "; ".join(errors))
     return cfg
@@ -63,7 +68,8 @@ def cmd_run(args) -> int:
         ec, ep, cfg.framework,
         wave_width=cfg.wave_width, chunk_waves=cfg.chunk_waves,
         telemetry=gran, device=args.device, preemption=cfg.device_preemption,
-        retry_buffer=cfg.whatif.retry_buffer,
+        retry_buffer=cfg.whatif.retry_buffer, node_shards=cfg.node_shards,
+        paged=cfg.paged_waves,
     )
     log.info("set-up: trace %.3fs, engine %.3fs (%s)", t1 - t0, time.perf_counter() - t1,
              ", ".join(f"{k} {v:.3f}s" for k, v in engine.setup_s.items()))

@@ -99,6 +99,38 @@ def state_from_numpy(used, match_count, anti_active, pref_wsum, bound, device) -
     )
 
 
+def shard_state_from_numpy(used, match_count, anti_active, pref_wsum, gdom, max_domains: int,
+                           layout, device) -> DevState:
+    """The JAX engine's padded node-space state in the port's shard layout.
+
+    The inputs are the numpy form of the planes of the JAX package's v2
+    (node-space) state (``JaxReplayEngine._to_dev_state_v2``): ``used
+    [N_pad, R]`` and the count planes ``match_count`` / ``anti_active`` /
+    ``pref_wsum`` ``[G, N_pad]``, each node's count of its domain under group
+    g's key, with the node → domain map ``gdom [G, N_pad]`` (PAD: none) of
+    the same node axis; its first ``layout.n_real`` rows are the real nodes.
+    The result is an S = 1 DevState on ``device``: ``used`` over
+    ``layout``'s padded node axis (pad rows 0; shard p's block its rows
+    ``[p · n_local, (p + 1) · n_local)``) and the replicated domain-space
+    planes ``[G, D]`` (D = ``max(max_domains, 1)``), each domain's count read
+    at a node of it."""
+    n = layout.n_real
+    used = np.asarray(used, np.float32)[:n]
+    gdom = np.asarray(gdom)[:, :n]
+    G, D = gdom.shape[0], max(int(max_domains), 1)
+    u = np.zeros((layout.n_pad, used.shape[1]), np.float32)
+    u[:n] = used
+
+    def dom(plane):
+        plane = np.asarray(plane, np.float32)[:, :n]
+        out = np.zeros((G, D), np.float32)
+        g, m = np.nonzero(gdom >= 0)
+        out[g, gdom[g, m]] = plane[g, m]
+        return out
+
+    return stacked_state(u, dom(match_count), dom(anti_active), dom(pref_wsum), 1, device)
+
+
 def to_numpy(state: CarriedState) -> Dict[str, np.ndarray]:
     """The inverse of :func:`state_from_numpy`: field name → host array."""
     p = state.planes

@@ -51,6 +51,15 @@
 // pod_of_s[s * pod_ss] (a column of its buffer); an empty slot (-1) writes
 // an all-zero mask, rows and ignored mask, so K2 selects nothing there.
 //
+// Node shards (row B13: eval_pod_fused(shard_ctx), ops/tpu.py:1059): the
+// launch is the unsharded one over the padded node axis. Filter and Score
+// are per node and the count planes are replicated, so each node's mask and
+// rows are the unsharded ones; a node of global id >= n_real is a pad row
+// and never feasible (ops/tpu.py:1096-1100, ksim_filter_score_body). Each
+// shard's packed extrema are reduced by K7 (shard_select.cu) over its own
+// block. The reference's spread pmin (:1134-1137) has no work here: the
+// domain-space counts every shard reads are the global ones.
+//
 // Exactness: compiled with --fmad=false and IEEE division; every
 // expression keeps the reference's operation order.
 #include "ksim.cuh"

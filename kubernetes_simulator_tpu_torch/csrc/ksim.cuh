@@ -42,6 +42,14 @@
 //            NodeResourcesFit selector (column 5, > 0.5 -> LeastAllocated,
 //            else MostAllocated; ignored under RequestedToCapacityRatio),
 //            ops/policy.py POLICY_COLS
+//   node shards (row B13; null pointers and NP = 1, n_local = n_real = N
+//            when off) the node axis is NP shard blocks of n_local nodes
+//            (N = NP * n_local), node n >= n_real a pad row; ext [S,NP,7]
+//            f32 each shard's packed normalization extrema (K7's exchange,
+//            KSIM_EXT_*), best_v [S,NP] f32 / best_i [S,NP] i32 each
+//            shard's (best total, lowest global id) (K7's exchange), cdom
+//            [S,L,G] i32 the domain ids of each choice-buffer column's node
+//            (K7 -> K8; L the choice buffer's row length)
 // The *_ss fields are the per-scenario strides in elements: scenario s of
 // a table starts at base + s * ss, and ss = 0 where the table is shared.
 // The single-scenario replay is the S = 1 case.
@@ -140,8 +148,13 @@ struct KsimArgs {
   int32_t* rbind_b;
   // per-scenario policies (null: the static constants below)
   const float* wrow;  // [S, KSIM_POLICY_COLS]
-  // [S,N,R] f32 all-zero accumulator of a release's summed requests (K3)
+  // [S,N,R] f32 all-zero accumulator of a release's summed requests (K3, K8)
   float* rel;
+  // node shards
+  float* ext;
+  float* best_v;
+  int32_t* best_i;
+  int32_t* cdom;
   // per-scenario strides (elements; 0 = shared)
   int64_t alloc_ss, taint_ss, used_ss, plane_ss, feas_ss, scores_ss;
   // dimensions
@@ -153,6 +166,7 @@ struct KsimArgs {
   int32_t has_symmetric_pref, sp_norm_f32, fit_strategy, n_seg;
   int32_t preempt, Tt, n_slots;
   int32_t retry, RB, B, P;
+  int32_t n_real, NP, n_local;
   float wsum, w_fit, w_taint, w_na, w_ip, w_sp;
   float x_first, y_first, y_last, pad0;
   float seg_x0[KSIM_MAX_SEG];
@@ -537,7 +551,9 @@ __device__ __forceinline__ void ksim_filter_score_body(const KsimArgs& a, int p,
         (pre_fit && ok && victims > 0.f) ? victims * 1024.f + maxtier : INFINITY;
   }
 
-  a.feasible[scen * a.feas_ss + n] = e.pass == KSIM_PASS_ALL ? 1 : 0;
+  // A pad row of the sharded node axis is never feasible, whatever its fill
+  // (ops/tpu.py:1096-1100); unsharded, n_real = N and the test never fails.
+  a.feasible[scen * a.feas_ss + n] = (e.pass == KSIM_PASS_ALL && n < a.n_real) ? 1 : 0;
   a.ignored[scen * a.feas_ss + n] = e.ign ? 1 : 0;
   float* scores = a.scores + scen * a.scores_ss;
   scores[KSIM_ROW_FIT * N + n] = e.fit_score;
@@ -622,6 +638,136 @@ __device__ __forceinline__ void ksim_block_pick(float& bv, int& bi, float* best_
   }
 }
 
+// The packed normalization extrema (ops/reference.py EXT_*): the max of the
+// taint and node-affinity raws (0-filled over the feasible nodes), the
+// inter-pod raw's -min and max, the spread raw's -min and max over the
+// feasible, not ignored nodes, and the any-feasible bit. Packed, every value
+// folds by max, so shards exchange them as one max (ops/tpu.py:1211-1223).
+#define KSIM_EXT 7
+
+// Unpacked extrema in K2's order: taint_hi, na_hi, ip_lo, ip_hi, sp_lo,
+// sp_hi, any_f (the mins as mins).
+__device__ __forceinline__ void ksim_extrema_init(float* v) {
+  v[0] = -INFINITY; v[1] = -INFINITY; v[2] = INFINITY; v[3] = -INFINITY;
+  v[4] = INFINITY; v[5] = -INFINITY; v[6] = 0.f;
+}
+
+#define KSIM_EXTREMA_IS_MAX {true, true, false, true, false, true, true}
+
+// Fold node n's scratch rows of scenario scen into the unpacked extrema v
+// (K2's pass 1).
+__device__ __forceinline__ void ksim_extrema_node(const KsimArgs& a, int64_t scen, int n,
+                                                  float* v) {
+  const int N = a.N;
+  const bool f = a.feasible[scen * a.feas_ss + n] != 0;
+  const float* rows = a.scores + scen * a.scores_ss;
+  v[0] = fmaxf(v[0], f ? rows[KSIM_ROW_TAINT * N + n] : 0.f);
+  v[1] = fmaxf(v[1], f ? rows[KSIM_ROW_NA * N + n] : 0.f);
+  if (f) {
+    const float ip = rows[KSIM_ROW_IP * N + n];
+    v[2] = fminf(v[2], ip);
+    v[3] = fmaxf(v[3], ip);
+    v[6] = 1.f;
+    if (!a.ignored[scen * a.feas_ss + n]) {
+      const float sp = rows[KSIM_ROW_SPREAD * N + n];
+      v[4] = fminf(v[4], sp);
+      v[5] = fmaxf(v[5], sp);
+    }
+  }
+}
+
+// Packed <-> unpacked (the mins negate; -(+inf) = -inf is the identity).
+__device__ __forceinline__ void ksim_extrema_flip(float* v) {
+  v[2] = -v[2];
+  v[4] = -v[4];
+}
+
+// The row constants of one pod's NormalizeScore from its extrema
+// (ops/tpu.py _normalize_row / spread_norm_from_extrema) and the Score
+// weights of scenario scen.
+struct KsimNorm {
+  bool t_pos, na_pos, ip_ok, sp_has, sp_pos, any_scored;
+  float t_den, na_den, ip_lo0, ip_k, sp_hi_f, sp_lo_f;
+  int32_t sp_hi_i, sp_lo_i;
+  float w_fit, w_taint, w_na, w_ip, w_sp;
+};
+
+__device__ __forceinline__ KsimNorm ksim_norm(const KsimArgs& a, int p, int64_t scen,
+                                              const float* v) {
+  KsimNorm c;
+  const float taint_hi = v[0], na_hi = v[1], ip_lo = v[2], ip_hi = v[3];
+  const float sp_lo = v[4], sp_hi = v[5];
+  const bool any_f = v[6] > 0.f;
+  c.any_scored = false;
+  if (a.spread)
+    for (int t = 0; t < a.SP; ++t)
+      if (a.spread_g[p * a.SP + t] >= 0 && !a.spread_dns[p * a.SP + t]) c.any_scored = true;
+  c.t_pos = taint_hi > 0.f;
+  c.t_den = c.t_pos ? taint_hi : 1.f;
+  c.na_pos = na_hi > 0.f;
+  c.na_den = c.na_pos ? na_hi : 1.f;
+  const float ip_span = ip_hi - ip_lo;
+  c.ip_ok = any_f && ip_span > 0.f;
+  c.ip_lo0 = c.ip_ok ? ip_lo : 0.f;
+  c.ip_k = 100.f / (c.ip_ok ? ip_span : 1.f);
+  c.sp_has = sp_hi > -INFINITY;
+  c.sp_hi_f = c.sp_has ? sp_hi : 0.f;
+  c.sp_lo_f = c.sp_has ? sp_lo : 0.f;
+  c.sp_pos = c.sp_hi_f > 0.f;
+  c.sp_hi_i = (int32_t)c.sp_hi_f;
+  c.sp_lo_i = (int32_t)c.sp_lo_f;
+  // Weights: the static constants, or scenario scen's policy row (columns
+  // 0-4; every row the step enables enters the total, a zero weight as an
+  // exact 0 * row, ops/tpu.py:62 policy_weight_fns).
+  const float* wr = a.wrow ? a.wrow + scen * KSIM_POLICY_COLS : nullptr;
+  c.w_fit = wr ? wr[0] : a.w_fit;
+  c.w_taint = wr ? wr[1] : a.w_taint;
+  c.w_na = wr ? wr[2] : a.w_na;
+  c.w_ip = wr ? wr[3] : a.w_ip;
+  c.w_sp = wr ? wr[4] : a.w_sp;
+  return c;
+}
+
+// Node n's weighted total of scenario scen's normalized rows, in the
+// reference's plugin order.
+__device__ __forceinline__ float ksim_total(const KsimArgs& a, const KsimNorm& c, int64_t scen,
+                                            int n) {
+  const int N = a.N;
+  const float* rows = a.scores + scen * a.scores_ss;
+  float total = 0.f;
+  if (a.on_fit) total = total + c.w_fit * rows[KSIM_ROW_FIT * N + n];
+  if (a.on_taint) {
+    float o = floorf((rows[KSIM_ROW_TAINT * N + n] * 100.f) / c.t_den);
+    o = c.t_pos ? 100.f - o : 100.f;
+    total = total + c.w_taint * o;
+  }
+  if (a.on_na) {
+    float o = floorf((rows[KSIM_ROW_NA * N + n] * 100.f) / c.na_den);
+    o = c.na_pos ? o : 0.f;
+    total = total + c.w_na * o;
+  }
+  if (a.on_ip) {
+    float o = floorf((rows[KSIM_ROW_IP * N + n] - c.ip_lo0) * c.ip_k);
+    o = c.ip_ok ? o : 0.f;
+    total = total + c.w_ip * o;
+  }
+  if (a.on_sp) {
+    const float sp = rows[KSIM_ROW_SPREAD * N + n];
+    float o;
+    if (a.sp_norm_f32) {
+      float vals = floorf((100.f * ((c.sp_hi_f + c.sp_lo_f) - sp)) / (c.sp_pos ? c.sp_hi_f : 1.f));
+      o = c.sp_pos ? vals : 100.f;
+    } else {
+      int32_t num = 100 * ((c.sp_hi_i + c.sp_lo_i) - (int32_t)sp);
+      int32_t vals = ksim_floordiv(num, c.sp_hi_i > 0 ? c.sp_hi_i : 1);
+      o = c.sp_hi_i > 0 ? (float)vals : 100.f;
+    }
+    if (a.ignored[scen * a.feas_ss + n] || !c.sp_has || !c.any_scored) o = 0.f;
+    total = total + c.w_sp * o;
+  }
+  return total;
+}
+
 // K2's block body: the normalized total and the lowest-index argmax of pod p's
 // scratch rows in scenario scen; thread 0 writes the choice (or PAD) to
 // *choice. p < 0 (an empty retry-buffer slot, uniform over the block) writes
@@ -631,7 +777,7 @@ __device__ __forceinline__ void ksim_block_pick(float& bv, int& bi, float* best_
 __device__ __forceinline__ void ksim_normalize_select_body(const KsimArgs& a, int p,
                                                            int64_t scen, int* choice,
                                                            int wave) {
-  __shared__ float red[7 * 32];
+  __shared__ float red[KSIM_EXT * 32];
   __shared__ float best_v[KSIM_MAX_WARPS];
   __shared__ int best_i[KSIM_MAX_WARPS];
   __shared__ int s_choice;
@@ -641,99 +787,20 @@ __device__ __forceinline__ void ksim_normalize_select_body(const KsimArgs& a, in
     return;
   }
   const uint8_t* feas = a.feasible + scen * a.feas_ss;
-  const uint8_t* ignored = a.ignored + scen * a.feas_ss;
-  const float* rows = a.scores + scen * a.scores_ss;
-  const float* taint = rows + KSIM_ROW_TAINT * N;
-  const float* na = rows + KSIM_ROW_NA * N;
-  const float* ip = rows + KSIM_ROW_IP * N;
-  const float* sp = rows + KSIM_ROW_SPREAD * N;
-  const float* fit = rows + KSIM_ROW_FIT * N;
 
-  // pass 1: extrema. Order: taint_hi, na_hi, ip_lo, ip_hi, sp_lo, sp_hi, any_f
-  float v[7] = {-INFINITY, -INFINITY, INFINITY, -INFINITY, INFINITY, -INFINITY, 0.f};
-  const bool is_max[7] = {true, true, false, true, false, true, true};
-  for (int n = threadIdx.x; n < N; n += blockDim.x) {
-    bool f = feas[n] != 0;
-    v[0] = fmaxf(v[0], f ? taint[n] : 0.f);
-    v[1] = fmaxf(v[1], f ? na[n] : 0.f);
-    if (f) {
-      v[2] = fminf(v[2], ip[n]);
-      v[3] = fmaxf(v[3], ip[n]);
-      v[6] = 1.f;
-      if (!ignored[n]) {
-        v[4] = fminf(v[4], sp[n]);
-        v[5] = fmaxf(v[5], sp[n]);
-      }
-    }
-  }
-  ksim_block_extrema(v, 7, is_max, red);
-  const float taint_hi = v[0], na_hi = v[1], ip_lo = v[2], ip_hi = v[3];
-  const float sp_lo = v[4], sp_hi = v[5];
-  const bool any_f = v[6] > 0.f;
-
-  bool any_scored = false;
-  if (a.spread)
-    for (int t = 0; t < a.SP; ++t)
-      if (a.spread_g[p * a.SP + t] >= 0 && !a.spread_dns[p * a.SP + t]) any_scored = true;
-
-  // Row constants (ops/tpu.py _normalize_row / spread_norm_from_extrema).
-  const bool t_pos = taint_hi > 0.f;
-  const float t_den = t_pos ? taint_hi : 1.f;
-  const bool na_pos = na_hi > 0.f;
-  const float na_den = na_pos ? na_hi : 1.f;
-  const float ip_span = ip_hi - ip_lo;
-  const bool ip_ok = any_f && ip_span > 0.f;
-  const float ip_lo0 = ip_ok ? ip_lo : 0.f;
-  const float ip_k = 100.f / (ip_ok ? ip_span : 1.f);
-  const bool sp_has = sp_hi > -INFINITY;
-  const float sp_hi_f = sp_has ? sp_hi : 0.f;
-  const float sp_lo_f = sp_has ? sp_lo : 0.f;
-  const bool sp_pos = sp_hi_f > 0.f;
-  const int32_t sp_hi_i = (int32_t)sp_hi_f;
-  const int32_t sp_lo_i = (int32_t)sp_lo_f;
-
-  // Weights: the static constants, or scenario scen's policy row (columns
-  // 0-4; every row the step enables enters the total, a zero weight as an
-  // exact 0 * row, ops/tpu.py:62 policy_weight_fns).
-  const float* wr = a.wrow ? a.wrow + scen * KSIM_POLICY_COLS : nullptr;
-  const float w_fit = wr ? wr[0] : a.w_fit, w_taint = wr ? wr[1] : a.w_taint;
-  const float w_na = wr ? wr[2] : a.w_na, w_ip = wr ? wr[3] : a.w_ip;
-  const float w_sp = wr ? wr[4] : a.w_sp;
+  // pass 1: extrema
+  float v[KSIM_EXT];
+  ksim_extrema_init(v);
+  const bool is_max[KSIM_EXT] = KSIM_EXTREMA_IS_MAX;
+  for (int n = threadIdx.x; n < N; n += blockDim.x) ksim_extrema_node(a, scen, n, v);
+  ksim_block_extrema(v, KSIM_EXT, is_max, red);
+  const KsimNorm c = ksim_norm(a, p, scen, v);
 
   // pass 2: total + argmax (lowest index on ties)
   float bv = -INFINITY;
   int bi = 0x7fffffff;
   for (int n = threadIdx.x; n < N; n += blockDim.x) {
-    float total = 0.f;
-    if (a.on_fit) total = total + w_fit * fit[n];
-    if (a.on_taint) {
-      float o = floorf((taint[n] * 100.f) / t_den);
-      o = t_pos ? 100.f - o : 100.f;
-      total = total + w_taint * o;
-    }
-    if (a.on_na) {
-      float o = floorf((na[n] * 100.f) / na_den);
-      o = na_pos ? o : 0.f;
-      total = total + w_na * o;
-    }
-    if (a.on_ip) {
-      float o = floorf((ip[n] - ip_lo0) * ip_k);
-      o = ip_ok ? o : 0.f;
-      total = total + w_ip * o;
-    }
-    if (a.on_sp) {
-      float o;
-      if (a.sp_norm_f32) {
-        float vals = floorf((100.f * ((sp_hi_f + sp_lo_f) - sp[n])) / (sp_pos ? sp_hi_f : 1.f));
-        o = sp_pos ? vals : 100.f;
-      } else {
-        int32_t num = 100 * ((sp_hi_i + sp_lo_i) - (int32_t)sp[n]);
-        int32_t vals = ksim_floordiv(num, sp_hi_i > 0 ? sp_hi_i : 1);
-        o = sp_hi_i > 0 ? (float)vals : 100.f;
-      }
-      if (ignored[n] || !sp_has || !any_scored) o = 0.f;
-      total = total + w_sp * o;
-    }
+    const float total = ksim_total(a, c, scen, n);
     if (feas[n]) ksim_better(bv, bi, total, n);
   }
   ksim_block_pick<true>(bv, bi, best_v, best_i);
@@ -755,8 +822,8 @@ __device__ __forceinline__ void ksim_normalize_select_body(const KsimArgs& a, in
     float mv = INFINITY;
     int mi = 0x7fffffff;
     for (int n = threadIdx.x; n < N; n += blockDim.x) {
-      float c = cand[n];
-      if (c < INFINITY) ksim_lower(mv, mi, c, n);
+      float c2 = cand[n];
+      if (c2 < INFINITY) ksim_lower(mv, mi, c2, n);
     }
     ksim_block_pick<false>(mv, mi, best_v, best_i);
     if (threadIdx.x == 0 && mv < INFINITY) node = mi;

@@ -1,6 +1,6 @@
 """The replay's hand-written Hopper kernels: build, binding and wrappers.
 
-Six CUDA C++ kernels (``csrc/*.cu``, compiled for ``sm_90a``) carry the
+Eight CUDA C++ kernels (``csrc/*.cu``, compiled for ``sm_90a``) carry the
 device work of the replay and of the scenario-batched what-if: every
 kernel takes the S-stacked tables of :mod:`.reference` (the
 single-scenario replay is S = 1) and runs each scenario in its own
@@ -32,6 +32,12 @@ wrapper                       replaces (kubernetes_simulator_tpu/...)
 :func:`chunk_replay` (K6)     sim/jax_runtime.py:742 make_chunk_fn3_src (the
                               chunk program: one launch a chunk), with the
                               slot gathers ops/tpu.py:285, ops/tpu3.py:633
+:func:`shard_select` (K7)     ops/tpu.py:1316 select_node_sharded and the
+                              sharded normalize of eval_pod_fused
+                              (:1200-1225, the packed pmax)
+:func:`shard_apply` (K8)      ops/tpu.py:1406 apply_binding_sharded, :1435
+                              apply_unbind_wave_sharded and the sharded
+                              release (sim/jax_runtime.py:1224-1240)
 ============================  ================================================
 
 K6 runs K1's, K2's and K3's bodies (``csrc/ksim.cuh``) for every slot of
@@ -41,6 +47,13 @@ bit; :mod:`..sim.torch_runtime` chooses the route from the run's mode.
 
 K5 runs only at telemetry ``series``/``timeline``: the default ``summary``
 launches K1–K4 as before.
+
+Under node shards (a Tables with ``shards``, row B13: sim/jax_runtime.py:494
+make_wave_step_sharded, :548 make_chunk_fn_sharded) a slot is K1 over the
+padded node axis (pad rows infeasible) → K7 (each shard's packed
+normalization extrema over its own block, then the two-stage choice) →
+K8's bind, with K8's rollback after a gang wave and K8's release at a
+boundary; K2, K3, K5 and K6 refuse sharded tables.
 
 Under the retry buffer (a Tables with ``retry``) K1–K3 also take one pod
 per scenario (the retry pass), K3 appends failed non-gang pods to the
@@ -115,6 +128,8 @@ KERNELS = {
     "retry_boundary": "retry_boundary.cu",
     "first_reject": "first_reject.cu",
     "chunk_replay": "chunk_replay.cu",
+    "shard_select": "shard_select.cu",
+    "shard_apply": "shard_apply.cu",
 }
 
 #: argtypes of each C entry point (every one returns a cudaError_t as int)
@@ -134,6 +149,10 @@ _ARGTYPES = {
     "first_reject": [_P, _P, _LL, _I, _P, _LL, _P, _P, _P, _I, _LL, _P],
     # (args, idx, gang, choices, choice_ss, W, first, end, boundary, append, stream)
     "chunk_replay": [_P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _P],
+    # (args, pod, choices, choice_ss, slot, stream)
+    "shard_select": [_P, _I, _P, _LL, _I, _P],
+    # (args, pods, pos, choices, K, choice_ss, sign, rollback, stream)
+    "shard_apply": [_P, _P, _P, _P, _I, _LL, _F, _I, _P],
 }
 
 _MAX_SEG = 16
@@ -158,6 +177,7 @@ class KsimArgs(ctypes.Structure):
             "victims", "col_pod", "col_relb",
             "dur", "tbt", "rbuf", "rcount", "rdrop", "rchoice", "pend_id", "pend_node",
             "pend_relb", "rnode", "rbind_b", "wrow", "rel",
+            "ext", "best_v", "best_i", "cdom",
         )]
         + [(name, ctypes.c_int64) for name in (
             "alloc_ss", "taint_ss", "used_ss", "plane_ss", "feas_ss", "scores_ss",
@@ -169,6 +189,7 @@ class KsimArgs(ctypes.Structure):
             "has_symmetric_pref", "sp_norm_f32", "fit_strategy", "n_seg",
             "preempt", "Tt", "n_slots",
             "retry", "RB", "B", "P",
+            "n_real", "NP", "n_local",
         )]
         + [(name, ctypes.c_float) for name in (
             "wsum", "w_fit", "w_taint", "w_na", "w_ip", "w_sp",
@@ -388,6 +409,27 @@ def pack_args(tb: ref.Tables, res_w: torch.Tensor, rel: torch.Tensor) -> KsimArg
             tensors[name] = t
         if rt.tbt.shape[0] < 1:
             raise ValueError("retry.tbt: no finite boundary")
+    sh = tb.shards
+    if sh is not None:
+        if pre is not None or rt is not None:
+            raise ValueError("node shards run without tier preemption and the retry buffer")
+        if sh.P < 1 or sh.P * sh.n_local != N or not 0 < sh.n_real <= N:
+            raise ValueError(f"shards: {sh.P} x {sh.n_local} nodes ({sh.n_real} real) do not "
+                             f"tile the tables' {N} nodes")
+        for name, t, shape, dt in (
+            ("ext", sh.ext, (S, sh.P, ref.NUM_EXT), torch.float32),
+            ("best_v", sh.best_v, (S, sh.P), torch.float32),
+            ("best_i", sh.best_i, (S, sh.P), torch.int32),
+        ):
+            if tuple(t.shape) != shape or t.dtype != dt:
+                raise ValueError(f"shards.{name}: expected {dt} {shape}, got {t.dtype} "
+                                 f"{tuple(t.shape)}")
+            tensors[name] = t
+        if (sh.cdom.dim() != 3 or sh.cdom.shape[0] != S or sh.cdom.shape[2] != G
+                or sh.cdom.dtype != torch.int32):
+            raise ValueError(f"shards.cdom: expected int32 ({S}, L, {G}), got {sh.cdom.dtype} "
+                             f"{tuple(sh.cdom.shape)}")
+        tensors["cdom"] = sh.cdom
     if tb.wrow is not None:
         if tuple(tb.wrow.shape) != (S, len(POLICY_COLS)) or tb.wrow.dtype != torch.float32:
             raise ValueError(f"wrow: expected float32 ({S}, {len(POLICY_COLS)}), got "
@@ -408,6 +450,7 @@ def pack_args(tb: ref.Tables, res_w: torch.Tensor, rel: torch.Tensor) -> KsimArg
         a.preempt, a.Tt, a.n_slots = 1, pre.used_tier.shape[1], pre.n_slots
     if rt is not None:
         a.retry, a.RB, a.B, a.P = 1, rt.rbuf.shape[1], rt.tbt.shape[0], rt.rnode.shape[1]
+    a.n_real, a.NP, a.n_local = (sh.n_real, sh.P, sh.n_local) if sh is not None else (N, 1, N)
     for name, v in {**dims, **strides}.items():
         setattr(a, name, int(v))
     for name in ("fit", "taints", "node_affinity", "interpod", "spread", "on_fit",
@@ -485,11 +528,20 @@ def _pod_row(b: Bound, pod_of_s: Optional[torch.Tensor]):
     return pod_of_s.data_ptr(), pod_of_s.stride(0)
 
 
+def _no_shards(b: Bound, name: str) -> None:
+    if b.tables.shards is not None:
+        raise ValueError(f"{name} takes the replicated layout; node-sharded tables run "
+                         "K1 -> K7 (shard_select) -> K8 (shard_apply)")
+
+
 def filter_score(b: Bound, pod: int, pod_of_s: Optional[torch.Tensor] = None) -> None:
     """K1: mask + raw score rows of pod ``pod`` in every scenario, into the
     scratch rows; with ``pod_of_s`` ([S] i32, the retry pass) of pod
     ``pod_of_s[s]`` in scenario s (PAD: all-zero rows, nothing
-    feasible)."""
+    feasible). On node-sharded tables the launch spans the padded node
+    axis, pad rows infeasible."""
+    if b.tables.shards is not None and pod_of_s is not None:
+        raise ValueError("node shards take one pod for every scenario")
     if not b.cuda:
         ref.filter_score(b.tables, pod, pod_of_s)
         return
@@ -518,6 +570,7 @@ def normalize_select(b: Bound, pod: int, choices: torch.Tensor, slot: int,
     lowest-index argmin of the candidate row and records the eviction.
     With ``pod_of_s`` (the retry pass) scenario s selects for pod
     ``pod_of_s[s]`` (PAD: writes PAD)."""
+    _no_shards(b, "normalize_select")
     if not b.cuda:
         ref.normalize_select(b.tables, pod, choices, slot, wave, pod_of_s)
         return
@@ -546,6 +599,7 @@ def apply_placements(
     its scenario's retry buffer. Under tier preemption the tier planes
     follow the non-gang pairs, and a bind given the current ``boundary``
     first applies the slot's eviction record."""
+    _no_shards(b, "apply_placements")
     if not b.cuda:
         ref.apply_placements(b.tables, pod_ids, pos, choices, sign, rollback, boundary, due,
                              append)
@@ -610,6 +664,7 @@ def retry_boundary(b: Bound, bnd: int, t_b: float) -> None:
 def _launch_first_reject(b: Bound, pod_ids: torch.Tensor, gate: torch.Tensor) -> bool:
     """K5 over M slots into ``b.tables.reject`` (see :func:`first_reject`);
     True when the kernel was launched."""
+    _no_shards(b, "first_reject")
     rj = b.tables.reject
     if rj is None:
         raise ValueError("first_reject needs reject tables")
@@ -671,6 +726,7 @@ def chunk_replay(b: Bound, idx: torch.Tensor, gang: torch.Tensor, choices: torch
     the wave. ``boundary`` (tier preemption: the chunk's boundary, where a
     bind's eviction releases nothing later) and ``append`` (the retry
     buffer's failure append) are K3's bind options."""
+    _no_shards(b, "chunk_replay")
     if not b.cuda:
         ref.chunk_replay(b.tables, idx, gang, choices, first, end, boundary, append)
         return
@@ -701,17 +757,82 @@ def chunk_replay(b: Bound, idx: torch.Tensor, gang: torch.Tensor, choices: torch
     chunk_replay.launches += 1
 
 
+def _check_shards(b: Bound, choices: torch.Tensor) -> None:
+    sh = b.tables.shards
+    if sh is None:
+        raise ValueError("shard_select / shard_apply need node-sharded tables")
+    _check_choices(b, choices)
+    if sh.cdom.shape[1] != choices.shape[1]:
+        raise ValueError(f"shards.cdom has {sh.cdom.shape[1]} columns, the choice buffer "
+                         f"{choices.shape[1]}")
+
+
+def shard_select(b: Bound, pod: int, choices: torch.Tensor, slot: int) -> None:
+    """K7: the two-stage choice of pod ``pod`` over the node shards of every
+    scenario, after K1: each shard's packed extrema over its own block (into
+    ``shards.ext``), their fold, each shard's (max total, lowest global id)
+    pair, their fold in shard order; the owner shard writes the choice
+    (PAD: unplaced) into ``choices[s, slot]`` and the winner's domain ids
+    into ``shards.cdom[s, slot]``."""
+    _check_shards(b, choices)
+    if not 0 <= slot < choices.shape[1]:
+        raise ValueError(f"slot {slot} outside the choice buffer's {choices.shape[1]} columns")
+    if not b.cuda:
+        ref.shard_select(b.tables, pod, choices, slot)
+        return
+    _check(_libs["shard_select"](b._args_ptr, int(pod), choices.data_ptr(), choices.shape[1],
+                                 int(slot), _stream()), "shard_select")
+    shard_select.launches += 1
+
+
+def shard_apply(b: Bound, pod_ids: torch.Tensor, pos: torch.Tensor, choices: torch.Tensor,
+                sign: float, rollback: bool = False) -> None:
+    """K8: ``sign`` × the contribution of each pair (``pod_ids[k]`` [K], the
+    node ``choices[s, pos[k]]``), in pair order, into the node-sharded state
+    of each scenario: each shard's ``used`` rows by its own block (a release
+    summed per node from zero, then subtracted once), the replicated count
+    planes at the columns' domain ids (``shards.cdom``). ``rollback``
+    undoes only failed-gang members and writes PAD over their choices.
+    Each launch also counts under its mode (``modes``: a bind, ``sign >
+    0``; a rollback; a release, ``sign < 0`` without rollback)."""
+    _check_shards(b, choices)
+    K = pod_ids.shape[-1]
+    dev = b.tables.state.used.device
+    if pod_ids.dim() != 1 or pos.numel() != K:
+        raise ValueError("pod_ids must be [K] and pos [K]")
+    for name, t in (("pod_ids", pod_ids), ("pos", pos)):
+        if t.dtype != torch.int32 or t.device != dev or (K > 1 and t.stride(-1) != 1):
+            raise ValueError(f"{name} must be int32 rows of unit stride on the tables' device")
+    if rollback and K > _MAX_WAVE:
+        raise ValueError(f"a rollback covers at most {_MAX_WAVE} slots")
+    if not b.cuda:
+        ref.shard_apply(b.tables, pod_ids, pos, choices, sign, rollback)
+        return
+    if K == 0:
+        return
+    _check(_libs["shard_apply"](b._args_ptr, pod_ids.data_ptr(), pos.data_ptr(),
+                                choices.data_ptr(), int(K), choices.shape[1], float(sign),
+                                int(bool(rollback)), _stream()), "shard_apply")
+    shard_apply.launches += 1
+    shard_apply.modes["rollback" if rollback else "bind" if sign > 0 else "release"] += 1
+
+
 WRAPPERS = (filter_score, normalize_select, apply_placements, retry_boundary, first_reject,
-            first_reject_fold, chunk_replay)
+            first_reject_fold, chunk_replay, shard_select, shard_apply)
 
 
 def reset_launch_counts() -> None:
     for w in WRAPPERS:
         w.launches = 0
+    shard_apply.modes = dict(bind=0, rollback=0, release=0)
 
 
 def launch_counts() -> Dict[str, int]:
-    return {w.__name__: w.launches for w in WRAPPERS}
+    """Launches by wrapper, and K8's by mode (``shard_apply_bind``,
+    ``_rollback``, ``_release``; they sum to ``shard_apply``)."""
+    out = {w.__name__: w.launches for w in WRAPPERS}
+    out.update({f"shard_apply_{k}": n for k, n in shard_apply.modes.items()})
+    return out
 
 
 reset_launch_counts()

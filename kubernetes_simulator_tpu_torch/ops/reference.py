@@ -302,6 +302,36 @@ class Tables(NamedTuple):
     #: [S, len(POLICY_COLS)] f32 policy row of each scenario (ops/policy.py),
     #: None in static mode: K1 reads its fit strategy, K2 its Score weights
     wrow: Optional[torch.Tensor] = None
+    #: node-plane shards (row B13, :class:`Shards`), None in the replicated
+    #: layout
+    shards: Optional["Shards"] = None
+
+
+class Shards(NamedTuple):
+    """The node-plane shards of a Tables (row B13; the layout of
+    :mod:`..parallel.shards`): the tables' node axis is the padded axis of
+    ``P · n_local`` nodes, shard p's block its rows ``[p · n_local, (p + 1) ·
+    n_local)``, and a node of global id ``>= n_real`` is a pad row. The
+    count planes stay replicated (one copy). The buffers carry what crosses
+    shards, each written by one shard and read through an exchange."""
+
+    P: int
+    n_local: int
+    n_real: int
+    ext: torch.Tensor  # [S, P, NUM_EXT] f32 each shard's packed extrema (K7's exchange)
+    best_v: torch.Tensor  # [S, P] f32 each shard's best total (K7's exchange)
+    best_i: torch.Tensor  # [S, P] i32 its lowest global id (SHARD_NONE: none)
+    #: [S, L, G] i32 the domain ids of each choice-buffer column's node under
+    #: each group's key (PAD: unplaced or no domain), written by the owner
+    #: shard when it wins the slot (K7) and read by the binds, gang
+    #: rollbacks and releases of the replicated planes (K8)
+    cdom: torch.Tensor
+
+
+#: The (score, global id) pair of a shard with no feasible node: an i32 max
+#: id (the reference's f32 2**31, ops/tpu.py:1366-1367), which loses every
+#: fold on equal (−inf) scores.
+SHARD_NONE = np.iinfo(np.int32).max
 
 
 def _scenario_subset(tb: Tables, idx: torch.Tensor) -> Tables:
@@ -707,6 +737,11 @@ def filter_score(tb: Tables, p: int, pod_of_s: Optional[torch.Tensor] = None) ->
     ``tb.scratch``. With ``pod_of_s`` ([S] i32, the retry pass) scenario s
     takes pod ``pod_of_s[s]`` instead, and a PAD pod gets an all-zero
     mask, rows and ignored mask."""
+    if tb.shards is not None:
+        if pod_of_s is not None:
+            raise ValueError("node shards take one pod for every scenario")
+        shard_filter_score(tb, p)
+        return
     if pod_of_s is not None:
         out = tb.scratch
         for x in out:
@@ -777,10 +812,10 @@ def preempt_candidates(cl: DevCluster, st: DevState, pods: DevPods, pre: Preempt
 # ---------------------------------------------------------------------------
 
 
-def normalize_max(raw: torch.Tensor, feasible: torch.Tensor, reverse: bool = False) -> torch.Tensor:
-    """``floor(raw·100/max)`` over each row's feasible nodes (0-filled
-    max); ``reverse`` flips (ops/tpu.py _normalize_row, max form)."""
-    hi = torch.where(feasible, raw, torch.zeros_like(raw)).amax(dim=-1, keepdim=True)
+def normalize_max(raw: torch.Tensor, hi: torch.Tensor, reverse: bool = False) -> torch.Tensor:
+    """``floor(raw·100/max)`` with ``hi`` ([..., 1]) the row's max over its
+    feasible nodes (0-filled); ``reverse`` flips (ops/tpu.py
+    _normalize_row, max form)."""
     pos = hi > 0
     out = torch.floor((raw * 100.0) / torch.where(pos, hi, torch.ones_like(hi)))
     out = torch.where(pos, out, torch.zeros_like(out))
@@ -789,14 +824,14 @@ def normalize_max(raw: torch.Tensor, feasible: torch.Tensor, reverse: bool = Fal
     return out
 
 
-def normalize_min_max(raw: torch.Tensor, feasible: torch.Tensor) -> torch.Tensor:
-    """``floor((raw−lo)·(100/span))`` over each row's feasible nodes;
-    constant or empty → 0 (ops/tpu.py _normalize_row, min-max form)."""
-    inf = torch.tensor(float("inf"), dtype=raw.dtype, device=raw.device)
-    lo = torch.where(feasible, raw, inf).amin(dim=-1, keepdim=True)
-    hi = torch.where(feasible, raw, -inf).amax(dim=-1, keepdim=True)
+def normalize_min_max(raw: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
+                      any_f: torch.Tensor) -> torch.Tensor:
+    """``floor((raw−lo)·(100/span))`` with ``lo`` / ``hi`` the row's extrema
+    over its feasible nodes and ``any_f`` whether it has one ([..., 1]
+    each); constant or empty → 0 (ops/tpu.py _normalize_row, min-max
+    form)."""
     span = hi - lo
-    ok = feasible.any(dim=-1, keepdim=True) & (span > 0)
+    ok = any_f & (span > 0)
     one = torch.ones_like(span)
     # A true f32 division: torch evaluates ``scalar / tensor`` as
     # ``reciprocal(tensor) * scalar``, which rounds differently.
@@ -806,18 +841,14 @@ def normalize_min_max(raw: torch.Tensor, feasible: torch.Tensor) -> torch.Tensor
 
 
 def spread_normalize(
-    raw: torch.Tensor, ignored: torch.Tensor, feasible: torch.Tensor, any_scored: bool,
-    f32ok: bool,
+    raw: torch.Tensor, ignored: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
+    any_scored: bool, f32ok: bool,
 ) -> torch.Tensor:
-    """Upstream two-pass NormalizeScore ``100·(max+min−s) // max`` with the
-    extrema over each row's feasible & ~ignored nodes (ops/tpu.py
-    spread_norm_from_extrema): the int32 floor division, or its f32 form
-    under the static ``f32ok`` bound."""
-    inf = torch.tensor(float("inf"), dtype=raw.dtype, device=raw.device)
-    okn = feasible & ~ignored
-    hi = torch.where(okn, raw, -inf).amax(dim=-1, keepdim=True)
-    lo = torch.where(okn, raw, inf).amin(dim=-1, keepdim=True)
-    has = hi > -inf
+    """Upstream two-pass NormalizeScore ``100·(max+min−s) // max`` with
+    ``lo`` / ``hi`` ([..., 1]) the extrema over the row's feasible & ~ignored
+    nodes (ops/tpu.py spread_norm_from_extrema): the int32 floor division,
+    or its f32 form under the static ``f32ok`` bound."""
+    has = hi > -float("inf")
     zero = torch.zeros_like(hi)
     hi_f = torch.where(has, hi, zero)
     lo_f = torch.where(has, lo, zero)
@@ -837,38 +868,71 @@ def spread_normalize(
     return torch.where(drop, torch.zeros_like(out), out)
 
 
-def normalized_rows(tb: Tables, p: int) -> torch.Tensor:
+#: Columns of the packed normalization extrema (csrc/ksim.cuh KSIM_EXT_*):
+#: the max of the taint and node-affinity rows (0-filled over the feasible
+#: nodes), the inter-pod row's −min and max, the spread row's −min and max
+#: over the feasible, not ignored nodes, and the any-feasible bit. Every
+#: column folds by max, so the exchange of shards' extrema is one packed max
+#: (ops/tpu.py:1211-1223); −(+inf) = −inf is the identity of an empty shard.
+EXT_TAINT_HI, EXT_NA_HI, EXT_IP_NLO, EXT_IP_HI, EXT_SP_NLO, EXT_SP_HI, EXT_ANY = range(7)
+NUM_EXT = 7
+
+
+def row_extrema(x: Scratch) -> torch.Tensor:
+    """[S, NUM_EXT] f32 packed extrema of the scratch rows ``x`` over their
+    nodes (K2's pass 1; under node shards, K7's per-shard phase 0)."""
+    f, s, ign = x.feasible, x.scores, x.ignored
+    inf = torch.tensor(float("inf"), dtype=s.dtype, device=s.device)
+    zero = torch.zeros_like(s[:, 0])
+    okn = f & ~ign
+    return torch.stack([
+        torch.where(f, s[:, ROW_TAINT], zero).amax(dim=-1),
+        torch.where(f, s[:, ROW_NA], zero).amax(dim=-1),
+        -torch.where(f, s[:, ROW_IP], inf).amin(dim=-1),
+        torch.where(f, s[:, ROW_IP], -inf).amax(dim=-1),
+        -torch.where(okn, s[:, ROW_SPREAD], inf).amin(dim=-1),
+        torch.where(okn, s[:, ROW_SPREAD], -inf).amax(dim=-1),
+        f.any(dim=-1).to(s.dtype),
+    ], dim=-1)
+
+
+def normalized_rows(tb: Tables, p: int, ext: Optional[torch.Tensor] = None) -> torch.Tensor:
     """[S, NUM_ROWS, N] — each plugin's NormalizeScore of the scratch rows:
     the fit score as is, the taint count reverse max-normalized, the
     node-affinity sum max-normalized, the inter-pod sum min-max
     normalized, the spread raw by the upstream two-pass form. Rows of
-    plugins off in the step stay 0."""
+    plugins off in the step stay 0. The extrema are ``ext`` ([S, NUM_EXT],
+    packed: a node shard's rows against the exchanged extrema), by default
+    the rows' own (:func:`row_extrema`)."""
     k, x, pods = tb.consts, tb.scratch, tb.pods
-    f, s = x.feasible, x.scores
+    s = x.scores
+    ext = row_extrema(x) if ext is None else ext
+    col = lambda c: ext[:, c : c + 1]
     out = torch.zeros_like(s)
     if k.fit:
         out[:, ROW_FIT] = s[:, ROW_FIT]
     if k.taints:
-        out[:, ROW_TAINT] = normalize_max(s[:, ROW_TAINT], f, reverse=True)
+        out[:, ROW_TAINT] = normalize_max(s[:, ROW_TAINT], col(EXT_TAINT_HI), reverse=True)
     if k.node_affinity:
-        out[:, ROW_NA] = normalize_max(s[:, ROW_NA], f)
+        out[:, ROW_NA] = normalize_max(s[:, ROW_NA], col(EXT_NA_HI))
     if k.interpod:
-        out[:, ROW_IP] = normalize_min_max(s[:, ROW_IP], f)
+        out[:, ROW_IP] = normalize_min_max(s[:, ROW_IP], -col(EXT_IP_NLO), col(EXT_IP_HI),
+                                           col(EXT_ANY) > 0.5)
     if k.spread:
         any_scored = bool(((pods.spread_g[p] >= 0) & ~pods.spread_dns[p]).any())
-        out[:, ROW_SPREAD] = spread_normalize(s[:, ROW_SPREAD], x.ignored, f, any_scored,
-                                              k.sp_norm_f32)
+        out[:, ROW_SPREAD] = spread_normalize(s[:, ROW_SPREAD], x.ignored, -col(EXT_SP_NLO),
+                                              col(EXT_SP_HI), any_scored, k.sp_norm_f32)
     return out
 
 
-def weighted_total(tb: Tables, p: int) -> torch.Tensor:
+def weighted_total(tb: Tables, p: int, ext: Optional[torch.Tensor] = None) -> torch.Tensor:
     """[S, N] — Σ w·normalized row in the reference's plugin order (fit,
     taint, node affinity, inter-pod, spread), each product rounded to f32
     and added to a running f32 total from 0. The weights are the static
     constants, or with policy rows (``tb.wrow``) each scenario's columns
-    0–4."""
+    0–4. ``ext``: as :func:`normalized_rows`."""
     k = tb.consts
-    rows = normalized_rows(tb, p)
+    rows = normalized_rows(tb, p, ext)
     total = torch.zeros_like(rows[:, 0])
     for col, (on, w, r) in enumerate((
         (k.on_fit, k.w_fit, ROW_FIT),
@@ -1021,6 +1085,62 @@ def append_failures(tb: Tables, pod_ids: torch.Tensor, nodes: torch.Tensor) -> N
         rt.rdrop.add_((f & ~room).to(torch.int32))
 
 
+def _apply_planes(tb: Tables, ss: torch.Tensor, p: torch.Tensor, dom: torch.Tensor,
+                  sign: float) -> None:
+    """``sign`` × the count-plane contribution of M pairs, in pair order:
+    pod ``p[m]`` of scenario ``ss[m]`` whose node lies in domain ``dom[g,
+    m]`` under group g's key (PAD: none)."""
+    pods, st = tb.pods, tb.state
+    G, D = st.match_count.shape[1:]
+    hit = (dom >= 0) & pods.pmg[p].T
+    gg, mm = torch.nonzero(hit, as_tuple=True)
+    flat = (ss[mm] * G + gg) * D + dom[gg, mm].long()
+    st.match_count.view(-1).index_add_(
+        0, flat, torch.full(flat.shape, sign, dtype=torch.float32, device=flat.device)
+    )
+    m_ar = torch.arange(p.shape[0], device=p.device)
+    for col in range(pods.anti_req.shape[1]):
+        g = pods.anti_req[p, col].long()
+        d = dom[g.clamp(min=0), m_ar]
+        ok = (g >= 0) & (d >= 0)
+        st.anti_active.view(-1).index_add_(
+            0, (ss[ok] * G + g[ok]) * D + d[ok].long(),
+            torch.full((int(ok.sum()),), sign, dtype=torch.float32, device=p.device),
+        )
+    for col in range(pods.pref_aff.shape[1]):
+        g = pods.pref_aff[p, col].long()
+        d = dom[g.clamp(min=0), m_ar]
+        ok = (g >= 0) & (d >= 0)
+        st.pref_wsum.view(-1).index_add_(
+            0, (ss[ok] * G + g[ok]) * D + d[ok].long(), sign * pods.pref_aff_w[p, col][ok]
+        )
+
+
+def _add_in_pair_order(target: torch.Tensor, rows: torch.Tensor, vals: torch.Tensor,
+                       unique: bool = False) -> None:
+    """``target[rows[k]] += vals[k]`` for k in order, on any device: the
+    k-th pair on a node joins its row in the k-th pass, one ``index_add_``
+    a pass over rows that are unique within it, so each row's sum runs in
+    pair order whatever order a device's ``index_add_`` keeps among equal
+    rows (CUDA's atomics keep none). ``unique``: the caller knows the rows
+    differ (one pair a scenario), one pass."""
+    M = rows.numel()
+    if M == 0:
+        return
+    if unique:
+        target.index_add_(0, rows, vals)
+        return
+    srt = torch.sort(rows, stable=True)
+    ar = torch.arange(M, device=rows.device)
+    head = torch.ones(M, dtype=torch.bool, device=rows.device)
+    head[1:] = srt.values[1:] != srt.values[:-1]
+    rank = torch.empty_like(ar)
+    rank[srt.indices] = ar - torch.cummax(torch.where(head, ar, 0), dim=0).values
+    for r in range(int(rank.max()) + 1):
+        sel = rank == r
+        target.index_add_(0, rows[sel], vals[sel])
+
+
 def apply_placements(
     tb: Tables, pod_ids: torch.Tensor, pos: torch.Tensor, choices: torch.Tensor, sign: float,
     rollback: bool = False, boundary: Optional[int] = None,
@@ -1045,7 +1165,6 @@ def apply_placements(
     applies the slot's eviction record (:func:`evict`)."""
     pods, cl, st = tb.pods, tb.cluster, tb.state
     S, N, R = st.used.shape
-    G, D = st.match_count.shape[1:]
     pre = tb.preempt
     if pre is not None and boundary is not None:
         evict(tb, int(pos[0]), choices, boundary)
@@ -1062,44 +1181,25 @@ def apply_placements(
     if ss.numel():
         p = pid[ss, kk].long()
         n = nodes[ss, kk].long()
+        one = pid.shape[1] == 1  # one pair a scenario: the rows differ
         if sign < 0 and not rollback:
             # A release subtracts each node's requests summed in pair order
             # from zero (models/state.py release_delta, the reference's delta).
             delta = torch.zeros_like(st.used).view(S * N, R)
-            delta.index_add_(0, ss * N + n, pods.requests[p])
+            _add_in_pair_order(delta, ss * N + n, pods.requests[p], one)
             st.used.sub_(delta.view(S, N, R))
         else:
-            st.used.view(S * N, R).index_add_(0, ss * N + n, sign * pods.requests[p])
+            _add_in_pair_order(st.used.view(S * N, R), ss * N + n, sign * pods.requests[p], one)
         if pre is not None:
             ng = pods.group_id[p] < 0
             tcell = (ss[ng] * pre.used_tier.shape[1] + pre.pod_tier[p[ng]].long()) * N + n[ng]
-            pre.used_tier.view(-1, R).index_add_(0, tcell, sign * pods.requests[p[ng]])
+            _add_in_pair_order(pre.used_tier.view(-1, R), tcell, sign * pods.requests[p[ng]],
+                               one)
             pre.npods_tier.view(-1).index_add_(
                 0, tcell, torch.full(tcell.shape, sign, dtype=torch.float32, device=tcell.device))
         # [G, M]: each pair's node under its scenario's label row
         dom = cl.gdom[0][:, n] if cl.gdom.shape[0] == 1 else cl.gdom[cl.lrow[ss].long(), :, n].T
-        hit = (dom >= 0) & pods.pmg[p].T
-        gg, mm = torch.nonzero(hit, as_tuple=True)
-        flat = (ss[mm] * G + gg) * D + dom[gg, mm].long()
-        st.match_count.view(-1).index_add_(
-            0, flat, torch.full(flat.shape, sign, dtype=torch.float32, device=flat.device)
-        )
-        m_ar = torch.arange(p.shape[0], device=p.device)
-        for col in range(pods.anti_req.shape[1]):
-            g = pods.anti_req[p, col].long()
-            d = dom[g.clamp(min=0), m_ar]
-            ok = (g >= 0) & (d >= 0)
-            st.anti_active.view(-1).index_add_(
-                0, (ss[ok] * G + g[ok]) * D + d[ok].long(),
-                torch.full((int(ok.sum()),), sign, dtype=torch.float32, device=p.device),
-            )
-        for col in range(pods.pref_aff.shape[1]):
-            g = pods.pref_aff[p, col].long()
-            d = dom[g.clamp(min=0), m_ar]
-            ok = (g >= 0) & (d >= 0)
-            st.pref_wsum.view(-1).index_add_(
-                0, (ss[ok] * G + g[ok]) * D + d[ok].long(), sign * pods.pref_aff_w[p, col][ok]
-            )
+        _apply_planes(tb, ss, p, dom, sign)
     if rollback:
         choices[:, posl] = torch.where(keep, torch.full_like(nodes, PAD), nodes)
     if append:
@@ -1133,6 +1233,184 @@ def chunk_replay(tb: Tables, idx: torch.Tensor, gang: torch.Tensor, choices: tor
         if flags[w]:
             apply_placements(tb, idx[base : base + W], pos[base : base + W], choices, -1.0,
                              rollback=True)
+
+
+# ---------------------------------------------------------------------------
+# Node-plane shards (row B13): the twins of K1 on sharded tables, K7 and K8,
+# written per shard over the P shard blocks. A twin reads node-axis data only
+# from its own block; what another shard holds comes in through an exchange
+# function, each the counterpart of one collective of the reference
+# (ops/tpu.py:1316-1470 and eval_pod_fused's shard_ctx sections).
+# ---------------------------------------------------------------------------
+
+
+def new_shards(P: int, n_local: int, n_real: int, S: int, L: int, G: int, device,
+               tail_dom: Optional[np.ndarray] = None) -> Shards:
+    """The Shards of S scenarios over a choice buffer of L columns; the
+    last ``len(tail_dom)`` columns (the pre-bound tail) take the domain ids
+    ``tail_dom [n_tail, G]`` of their nodes, every other column PAD."""
+    cdom = torch.full((S, L, max(G, 1)), PAD, dtype=torch.int32, device=device)
+    if tail_dom is not None and len(tail_dom):
+        cdom[:, L - len(tail_dom):] = torch.as_tensor(
+            np.ascontiguousarray(tail_dom, np.int32), device=device)
+    return Shards(
+        P=int(P), n_local=int(n_local), n_real=int(n_real),
+        ext=torch.zeros((S, P, NUM_EXT), dtype=torch.float32, device=device),
+        best_v=torch.zeros((S, P), dtype=torch.float32, device=device),
+        best_i=torch.zeros((S, P), dtype=torch.int32, device=device),
+        cdom=cdom,
+    )
+
+
+def shard_view(tb: Tables, i: int) -> Tables:
+    """Shard ``i``'s block of a sharded Tables: its rows of every node-axis
+    table (allocatable, taints, expression matches, node → domain, ``used``
+    and the scratch rows), as views; the replicated count planes and the
+    pod tables as they are."""
+    sh = tb.shards
+    b = slice(i * sh.n_local, (i + 1) * sh.n_local)
+    cl, st, x = tb.cluster, tb.state, tb.scratch
+    return tb._replace(
+        cluster=cl._replace(
+            allocatable=cl.allocatable[..., b, :], taint_key=cl.taint_key[..., b, :],
+            taint_kv=cl.taint_kv[..., b, :], taint_effect=cl.taint_effect[..., b, :],
+            expr_match=cl.expr_match[:, b], gdom=cl.gdom[:, :, b]),
+        state=st._replace(used=st.used[:, b]),
+        scratch=Scratch(feasible=x.feasible[:, b], scores=x.scores[:, :, b],
+                        ignored=x.ignored[:, b]),
+        shards=None,
+    )
+
+
+def exchange_pmax(rows) -> torch.Tensor:
+    """The packed max of the shards' normalization extrema and any-feasible
+    bits (ops/tpu.py:1211-1223, one ``pmax``): the P ``[S, NUM_EXT]`` rows →
+    ``[S, NUM_EXT]``. Exact: an f32 max of maxes is the max."""
+    return torch.stack(list(rows), dim=1).amax(dim=1)
+
+
+def exchange_all_gather(parts) -> torch.Tensor:
+    """Every shard's ``[S, ...]`` part, stacked ``[S, P, ...]`` in shard
+    order (ops/tpu.py:1390, the ``all_gather`` of the (score, gid) pair)."""
+    return torch.stack(list(parts), dim=1)
+
+
+def exchange_owner_psum(rows, mine) -> torch.Tensor:
+    """The owner-masked sum of the shards' ``[S, G]`` i32 domain rows
+    (ops/tpu.py:1395-1400): shard i contributes its row where ``mine[i]``
+    ([S] bool) and 0 elsewhere, so the sum is the owner's row exactly (and
+    0 where no shard owns the slot)."""
+    out = None
+    for r, m in zip(rows, mine):
+        part = torch.where(m[:, None], r, torch.zeros_like(r))
+        out = part if out is None else out + part
+    return out
+
+
+def shard_filter_score(tb: Tables, p: int) -> None:
+    """Plain twin of K1 under node shards: each shard block's mask and raw
+    Score rows of pod ``p`` (:func:`filter_score` on the block, the replicated
+    count planes read where they are), its pad rows (global id >= n_real)
+    masked infeasible whatever their fill (ops/tpu.py:1096-1100) — K1's
+    launch over the padded node axis. The reference's per-constraint
+    spread ``pmin`` (:1134-1137) has no counterpart here: the domain-space
+    count planes are replicated, so each shard's spread minimum over the
+    domains is already the global one."""
+    sh = tb.shards
+    for i in range(sh.P):
+        v = shard_view(tb, i)
+        filter_score(v, p)
+        gid = torch.arange(i * sh.n_local, (i + 1) * sh.n_local, device=v.scratch.feasible.device)
+        v.scratch.feasible.logical_and_(gid < sh.n_real)
+
+
+def shard_select(tb: Tables, p: int, choices: torch.Tensor, slot: int) -> None:
+    """Plain twin of K7 (csrc/shard_select.cu; ops/tpu.py:1316
+    ``select_node_sharded`` with the sharded normalize of eval_pod_fused,
+    :1200-1225): (0) each shard block's packed extrema of its scratch rows
+    into ``shards.ext[:, i]``; (a) their fold through :func:`exchange_pmax`;
+    (b) each block's weighted total against them (K2's order) and its
+    (max total, lowest global id) pair, ``SHARD_NONE`` for a shard with no
+    feasible node; (c) the pairs through :func:`exchange_all_gather`,
+    folded in shard order — the larger total wins, the lower id on equal
+    totals; (d) the choice (PAD: unplaced) into ``choices[:, slot]`` and
+    the winner's domain ids, read by the owner shard in its own block and
+    passed on by :func:`exchange_owner_psum`, into ``shards.cdom[:, slot]``.
+    The choice equals :func:`normalize_select`'s on the unsharded tables."""
+    sh = tb.shards
+    nl = sh.n_local
+    for i in range(sh.P):
+        sh.ext[:, i] = row_extrema(shard_view(tb, i).scratch)
+    ext = exchange_pmax(sh.ext[:, i] for i in range(sh.P))
+    for i in range(sh.P):
+        v = shard_view(tb, i)
+        total = weighted_total(v, p, ext)
+        masked = torch.where(v.scratch.feasible, total, torch.full_like(total, float("-inf")))
+        mx = masked.amax(dim=-1)
+        ar = torch.arange(nl, device=total.device)
+        loc = torch.where(masked == mx[:, None], ar, torch.full_like(ar, nl)).amin(dim=-1)
+        sh.best_v[:, i] = mx
+        sh.best_i[:, i] = torch.where(mx > float("-inf"), i * nl + loc,
+                                      torch.full_like(loc, SHARD_NONE)).to(torch.int32)
+    V = exchange_all_gather(sh.best_v[:, i] for i in range(sh.P))
+    I = exchange_all_gather(sh.best_i[:, i] for i in range(sh.P))
+    bv, bi = V[:, 0], I[:, 0]
+    for q in range(1, sh.P):
+        better = (V[:, q] > bv) | ((V[:, q] == bv) & (I[:, q] < bi))
+        bv, bi = torch.where(better, V[:, q], bv), torch.where(better, I[:, q], bi)
+    placed = bv > float("-inf")
+    choice = torch.where(placed, bi, torch.full_like(bi, PAD))
+    owner = torch.where(placed, choice // nl, torch.full_like(choice, -1))
+    rows = []
+    for i in range(sh.P):
+        gd = _rows(tb.cluster, tb.cluster.gdom)[:, :, i * nl:(i + 1) * nl]  # [S|1, G, nl]
+        local = (choice - i * nl).clamp(0, nl - 1).long()
+        rows.append(torch.gather(gd.expand(choice.shape[0], -1, -1), 2,
+                                 local[:, None, None].expand(-1, gd.shape[1], 1))[:, :, 0])
+    dom = exchange_owner_psum(rows, [owner == i for i in range(sh.P)])
+    choices[:, slot] = choice
+    sh.cdom[:, slot] = torch.where(placed[:, None], dom, torch.full_like(dom, PAD))
+
+
+def shard_apply(tb: Tables, pod_ids: torch.Tensor, pos: torch.Tensor, choices: torch.Tensor,
+                sign: float, rollback: bool = False) -> None:
+    """Plain twin of K8 (csrc/shard_apply.cu; ops/tpu.py:1406
+    ``apply_binding_sharded``, :1435 ``apply_unbind_wave_sharded`` and the
+    sharded release, sim/jax_runtime.py:1224-1240): ``sign`` × the
+    contribution of each pair (``pod_ids[k]`` [K], the node ``choices[s,
+    pos[k]]``), in pair order. Each shard block takes the pairs whose node
+    it owns into its ``used`` rows — a release (``sign < 0``, not a
+    rollback) each node's requests summed from zero in pair order and
+    subtracted once, as K3's — and the replicated count planes take every
+    pair at the domain ids of its column (``shards.cdom``), never another
+    shard's node tables. ``rollback`` (a gang wave's end) restricts the pairs
+    to failed-gang members and writes PAD over their choices."""
+    sh, pods, st = tb.shards, tb.pods, tb.state
+    S, N, R = st.used.shape
+    posl = pos.long()
+    nodes = choices[:, posl]
+    pid = pod_ids.expand(S, -1)
+    keep = (gang_rollback_mask(pods, pod_ids, nodes) if rollback
+            else (pid >= 0) & (nodes >= 0))
+    ss, kk = torch.nonzero(keep, as_tuple=True)
+    if ss.numel():
+        p = pid[ss, kk].long()
+        n = nodes[ss, kk].long()
+        flat = st.used.view(S * N, R)
+        for i in range(sh.P):
+            own = (n // sh.n_local) == i
+            if not bool(own.any()):
+                continue
+            rows, req = ss[own] * N + n[own], pods.requests[p[own]]
+            if sign < 0 and not rollback:
+                delta = torch.zeros_like(flat)
+                _add_in_pair_order(delta, rows, req, pid.shape[1] == 1)
+                flat.sub_(delta)
+            else:
+                _add_in_pair_order(flat, rows, sign * req, pid.shape[1] == 1)
+        _apply_planes(tb, ss, p, sh.cdom[ss, posl[kk]].T, sign)
+    if rollback:
+        choices[:, posl] = torch.where(keep, torch.full_like(nodes, PAD), nodes)
 
 
 # ---------------------------------------------------------------------------

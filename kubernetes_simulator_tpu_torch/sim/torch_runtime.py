@@ -21,7 +21,7 @@ binds of chunks ≤ b−2). Unlike the reference's v3 program, which commits
 a wave's ``used`` in one reduction, the port adds per pod, as
 ``greedy_replay`` does.
 
-Two routes run a chunk's waves, chosen from the run's mode alone
+Three routes run a chunk's waves, chosen from the run's mode alone
 (:func:`choose_route`), never from a failure:
 
 - ``"chunk"`` (the main path): one K6 (chunk_replay) launch a chunk runs
@@ -32,7 +32,19 @@ Two routes run a chunk's waves, chosen from the run's mode alone
 - ``"slot"``: per slot the host enqueues K1 (filter_score) → K2
   (normalize_select) → K3 (apply_placements, bind) and a K3 rollback after a
   wave holding gang members. Telemetry ``series``/``timeline`` (K5 after a
-  slot's K2) and the plain twins (``plain=True``) take it.
+  slot's K2) and the plain twins (``plain=True``) take it;
+- ``"shard"`` (node-plane shards, ``node_shards > 1``; row B13, the
+  reference's node-sharded v2 program, sim/jax_runtime.py:494
+  ``make_wave_step_sharded`` and :548 ``make_chunk_fn_sharded``): the
+  tables span the padded node axis of :mod:`..parallel.shards`, and per slot
+  the host enqueues K1 over the padded axis (pad rows infeasible) → K7
+  (shard_select: each shard's packed extrema, the two-stage choice, the
+  owner's domain ids) → K8 (shard_apply, bind), K8's rollback after a gang wave and K8's
+  release at a boundary; ``plain=True`` runs their twins.
+
+Paged pod waves (``paged=True``, :mod:`.pager`) run on the chunk and shard
+routes: each chunk reads the pod rows of its page, streamed while the
+previous chunk runs.
 
 Either way every launch covers all S scenarios; K2 writes each scenario's
 choice into the device-resident choice buffer ``[S, L]`` and K3 reads it
@@ -89,6 +101,7 @@ from ..ops import reference as ref
 from ..plugins.builtin import DEFAULT_WEIGHTS, PLUGIN_NAMES
 from ..utils.metrics import fragmentation_gauges, log, series_gauges, utilization_means
 from .runtime import ReplayResult
+from ..parallel.shards import make_layout, shard_cluster
 from .telemetry import TelemetryCollector, TelemetryConfig, resolve_granularity
 from .tiers import check_tier_mode, normalize_preemption, tier_planes
 from .waves import pack_waves
@@ -364,16 +377,68 @@ class ChunkDesc(NamedTuple):
     gang: torch.Tensor  # [num_waves] u8: the wave holds a gang member
 
 
-#: The two routes of a chunk's waves (module docstring).
-ROUTES = ("chunk", "slot")
+#: The routes of a chunk's waves (module docstring).
+ROUTES = ("chunk", "slot", "shard")
 
 
-def choose_route(plain: bool, series: bool) -> str:
-    """The route of a run, from its mode: the per-slot route for the plain
-    twins and telemetry series/timeline (K5 after each slot's K2); the
-    chunk route (K6) for everything else, ``engine="v2"`` included (K1–K3
-    commit pod by pod, so v2 places as v3 on either route)."""
+def choose_route(plain: bool, series: bool, sharded: bool = False) -> str:
+    """The route of a run, from its mode: node-sharded tables take the shard
+    route (K1 → K7 → K8 a slot, their twins with ``plain``); otherwise the
+    per-slot route for the plain twins and telemetry series/timeline (K5
+    after each slot's K2); the chunk route (K6) for everything else,
+    ``engine="v2"`` included (K1–K3 commit pod by pod, so v2 places as v3 on
+    either route)."""
+    if sharded:
+        return "shard"
     return "slot" if plain or series else "chunk"
+
+
+def replicated_resident_bytes(ec: EncodedCluster, pods: EncodedPods,
+                              pods_resident: bool = True) -> int:
+    """Per-device bytes of the REPLICATED single-scenario residency: the
+    cluster tensors, the state planes and (``pods_resident``) the whole
+    trace's pod rows — the estimate behind ``KSIM_MAX_REPLICATED_BYTES``
+    (kubernetes_simulator_tpu/sim/jax_runtime.py:580, the same formula)."""
+    dc_fields = (
+        ec.allocatable, ec.node_label_key, ec.node_label_kv,
+        ec.node_label_num, ec.taint_key, ec.taint_kv, ec.taint_effect,
+        ec.node_domain, ec.num_domains, ec.expr_key, ec.expr_op,
+        ec.expr_vals, ec.expr_num, ec.group_topo,
+    )
+    total = sum(int(np.asarray(a).nbytes) for a in dc_fields)
+    N, R = ec.num_nodes, ec.num_resources
+    G = max(ec.num_groups, 1)
+    total += 4 * (N * R + 3 * G * N + G)
+    if pods_resident:
+        pod_fields = (
+            pods.requests, pods.tol_key, pods.tol_kv, pods.tol_effect,
+            pods.na_req, pods.na_has_req, pods.na_pref, pods.na_pref_w,
+            pods.aff_req, pods.anti_req, pods.pref_aff, pods.pref_aff_w,
+            pods.spread_g, pods.spread_skew, pods.spread_dns,
+            pods.pod_matches_group, pods.group_id,
+        )
+        total += sum(int(np.asarray(a).nbytes) for a in pod_fields)
+    return total
+
+
+def check_replicated_budget(ec: EncodedCluster, pods: EncodedPods, node_shards: int,
+                            engine: str, paged: bool) -> None:
+    """The reference's refusal (sim/jax_runtime.py:1108-1123): with
+    ``KSIM_MAX_REPLICATED_BYTES`` set, a replicated run whose residency
+    estimate exceeds it raises, pointing at ``node_shards`` / ``paged``."""
+    import os
+
+    budget = os.environ.get("KSIM_MAX_REPLICATED_BYTES")
+    if not budget or node_shards > 1:
+        return
+    est = replicated_resident_bytes(ec, pods, pods_resident=(engine == "v3" and not paged))
+    if est > int(budget):
+        raise ValueError(
+            f"replicated single-scenario residency ~{est / 2**20:.0f} MiB/device exceeds "
+            f"KSIM_MAX_REPLICATED_BYTES ({int(budget) / 2**20:.0f} MiB): shard the node axis "
+            "across devices (node_shards=...) and/or stream pod pages (paged=True) instead of "
+            "the replicated path"
+        )
 
 
 @dataclass
@@ -417,10 +482,20 @@ class ChunkPlan:
         """[L] i32 pod of each choice-buffer column (PAD: a padded slot)."""
         return np.concatenate([self.idx.reshape(-1), self.prebound]).astype(np.int32)
 
-    def device_desc(self, device) -> ChunkDesc:
-        """The plan's :class:`ChunkDesc` on ``device``."""
+    def page_idx(self) -> np.ndarray:
+        """[num_waves, W] i32 the page-local row of each slot's pod (paged
+        pod waves, :mod:`.pager`): slot s of chunk c names row ``s − c·C·W``
+        of its page (PAD: an empty slot)."""
+        CW = self.C * self.idx.shape[1]
+        pos = np.arange(self.idx.size, dtype=np.int32).reshape(self.idx.shape)
+        return np.where(self.idx >= 0, pos % CW, PAD).astype(np.int32)
+
+    def device_desc(self, device, paged: bool = False) -> ChunkDesc:
+        """The plan's :class:`ChunkDesc` on ``device`` (``paged``: each slot
+        names its pod's page-local row)."""
+        idx = self.page_idx() if paged else self.idx
         return ChunkDesc(
-            idx=torch.as_tensor(self.idx.reshape(-1), device=device),
+            idx=torch.as_tensor(idx.reshape(-1), device=device),
             gang=torch.as_tensor(self.gang_wave.astype(np.uint8), device=device),
         )
 
@@ -545,16 +620,39 @@ def new_series(plan: ChunkPlan, tb: ref.Tables, attribute: bool) -> Series:
     )
 
 
+def joint_release(b: int, h, apply_placements, rt: ref.Retry, choices: torch.Tensor,
+                  bucket: Optional[Tuple[torch.Tensor, torch.Tensor]]) -> None:
+    """Boundary b's pending and static releases as ONE K3 release (the
+    single replay's order, ``joint`` of :func:`run_waves`): each scenario's pairs are its
+    pending list's due entries, then the static bucket's pods at their
+    choices, and K3 sums each node's requests over them from zero in that
+    order and subtracts once — as the single replay's boundary pass sums
+    one delta (sim/boundary.py boundary_releases, models/state.py
+    release_delta)."""
+    ids, nodes, relb = rt.pend_id, rt.pend_node, rt.pend_relb
+    if bucket is not None:
+        S = ids.shape[0]
+        bid, bpos = bucket
+        ids = torch.cat([ids, bid.expand(S, -1)], dim=1)
+        nodes = torch.cat([nodes, choices[:, bpos.long()]], dim=1)
+        relb = torch.cat([relb, torch.full((S, bid.numel()), b, dtype=relb.dtype,
+                                           device=relb.device)], dim=1)
+    pos = torch.arange(ids.shape[1], dtype=torch.int32, device=ids.device)
+    apply_placements(h, ids, pos, nodes, -1.0, due=(relb, b))
+
+
 def run_retry_boundary(plan: ChunkPlan, b: int, h, fns, rt: ref.Retry,
-                       pos_rb: torch.Tensor, reject=None) -> None:
+                       pos_rb: torch.Tensor, reject=None, joint: bool = False) -> None:
     """Boundary b's retry sequence (after its static release): the K3
-    release of the pending list's due entries, the retry pass — K1 → K2
-    (→ K5 ``reject``, series telemetry) → K3 bind over each buffer slot
-    that may hold a pod, one pod per scenario (a scenario whose slot is
-    empty does nothing) — and K4."""
+    release of the pending list's due entries (unless ``joint``, where
+    :func:`joint_release` took them with the static bucket), the retry
+    pass — K1 → K2 (→ K5 ``reject``, series telemetry) → K3 bind over each
+    buffer slot that may hold a pod, one pod per scenario (a scenario whose
+    slot is empty does nothing) — and K4."""
     filter_score, normalize_select, apply_placements, retry_boundary = fns[:4]
     RB = rt.rbuf.shape[1]
-    apply_placements(h, rt.pend_id, pos_rb, rt.pend_node, -1.0, due=(rt.pend_relb, b))
+    if not joint:
+        apply_placements(h, rt.pend_id, pos_rb, rt.pend_node, -1.0, due=(rt.pend_relb, b))
     for k in range(retry_slots(plan, b, RB)):
         pod_of_s = rt.rbuf[:, k]
         filter_score(h, PAD, pod_of_s)
@@ -566,12 +664,15 @@ def run_retry_boundary(plan: ChunkPlan, b: int, h, fns, rt: ref.Retry,
 
 
 def run_waves(plan: ChunkPlan, tb: ref.Tables, choices: torch.Tensor, first: int, end: int,
-              plain: bool, ser: Optional[Series] = None, route: str = "slot") -> None:
+              plain: bool, ser: Optional[Series] = None, route: str = "slot",
+              pager=None, joint: bool = False) -> None:
     """Enqueue waves ``[first, end)`` of ``plan`` over the S scenarios of
     ``tb`` (state and ``choices`` updated in place, no synchronisation):
     the release bucket of a boundary where a chunk starts, then (under the
     retry buffer, past boundary 0) the boundary's retry sequence
-    (:func:`run_retry_boundary`), then the chunk's waves on ``route``: one
+    (:func:`run_retry_boundary`; with ``joint``, the single replay's order,
+    the boundary's pending and static releases go out as one,
+    :func:`joint_release`), then the chunk's waves on ``route``: one
     K6 launch over the chunk's waves in the range (``"chunk"``, reading the
     plan's :class:`ChunkDesc`, uploaded once a call),
     or per slot K1 → K2 → K3 bind (which appends a failed non-gang pod to
@@ -587,34 +688,72 @@ def run_waves(plan: ChunkPlan, tb: ref.Tables, choices: torch.Tensor, first: int
     when the chunk is done (at the next boundary, before its releases, or
     at the run's end) against the chunk's start planes, copied at each
     boundary. The order is the reference's: chunk b−1's fold precedes
-    boundary b's releases and retry pass (sim/jax_runtime.py:1716-1745)."""
+    boundary b's releases and retry pass (sim/jax_runtime.py:1716-1745).
+
+    On node-sharded tables (``route="shard"``, row B13) a boundary's
+    release is K8's, and per slot K1 (one block a shard) → K7 (the
+    two-stage choice) → K8 bind, with K8's rollback after a gang wave.
+
+    With ``pager`` (paged pod waves, :class:`.pager.PodPager`; ``first`` on
+    a chunk's start) each chunk runs on its page: the pod tables of its
+    slots and of its boundary's released pods, named by page-local ids,
+    while the next chunk's page is staged."""
     if route not in ROUTES:
         raise ValueError(f"route must be one of {ROUTES}, got {route!r}")
-    if route == "chunk" and ser is not None:
+    if route != "slot" and ser is not None:
         raise ValueError("telemetry series runs on the per-slot route (K5 after each slot's K2)")
+    if (route == "shard") != (tb.shards is not None):
+        raise ValueError("node-sharded tables take the shard route, and only they")
+    if pager is not None and (ser is not None or tb.retry is not None or tb.preempt is not None
+                              or first % plan.C):
+        raise ValueError("paged pod waves run from a chunk's start, without series telemetry, "
+                         "the retry buffer or tier preemption")
     dev = tb.state.used.device
     idx, C = plan.idx, plan.C
     W = idx.shape[1]
     if plain:
         fns = (ref.filter_score, ref.normalize_select, ref.apply_placements,
-               ref.retry_boundary, ref.first_reject, ref.first_reject, ref.chunk_replay)
-        h = tb
+               ref.retry_boundary, ref.first_reject, ref.first_reject, ref.chunk_replay,
+               ref.shard_select, ref.shard_apply)
+        bind = lambda t: t
     else:
         fns = (K.filter_score, K.normalize_select, K.apply_placements, K.retry_boundary,
-               K.first_reject, K.first_reject_fold, K.chunk_replay)
-        h = K.Bound(tb)
+               K.first_reject, K.first_reject_fold, K.chunk_replay, K.shard_select,
+               K.shard_apply)
+        bind = K.Bound
+    h = bind(tb)
     filter_score, normalize_select, apply_placements = fns[:3]
-    chunk_replay = fns[6]
+    chunk_replay, shard_select, shard_apply = fns[6:9]
+    release = shard_apply if route == "shard" else apply_placements
     rt = tb.retry
     if rt is not None:
         pos_rb = torch.arange(rt.rbuf.shape[1], dtype=torch.int32, device=dev)
-    desc = plan.device_desc(dev)
+    desc = plan.device_desc(dev, paged=pager is not None)
     idx_dev = desc.idx
+    if pager is not None:
+        idx = plan.page_idx()
+        bound_of_slot = {}
     # Every release bucket of the range is staged before the first launch.
     buckets = {
         w // C: tuple(torch.as_tensor(a, device=dev) for a in plan.buckets[w // C])
         for w in range(first, end) if w % C == 0 and plan.buckets[w // C] is not None
     }
+    page = None
+
+    def chunk_start(b: int) -> None:
+        """Paged: the current page is done, chunk b's page becomes the tables'
+        pod tables (its bucket's ids page-local), the next one is staged."""
+        nonlocal h, page
+        if page is not None:
+            pager.done(page)
+        page = pager.get(b)
+        if page.slot not in bound_of_slot:
+            bound_of_slot[page.slot] = bind(tb._replace(pods=page.pods))
+        h = bound_of_slot[page.slot]
+        if b in buckets:
+            buckets[b] = (page.rel_ids, buckets[b][1])
+        if (b + 1) * C < min(end, idx.shape[0]):
+            pager.prefetch(b + 1)
     preempt = tb.preempt is not None
     append = rt is not None
     reject = fns[4] if ser is not None and ser.attribute else None
@@ -630,12 +769,16 @@ def run_waves(plan: ChunkPlan, tb: ref.Tables, choices: torch.Tensor, first: int
         fold_reject(h_snap, idx_dev[cols], choices[:, cols])
 
     def boundary_work(b: int) -> None:
+        if pager is not None:
+            chunk_start(b)
         if ser is not None and ser.fold and b > 0:
             fold(b - 1)
-        if b in buckets:
-            apply_placements(h, buckets[b][0], buckets[b][1], choices, -1.0)
+        if rt is not None and joint and b > 0:
+            joint_release(b, h, apply_placements, rt, choices, buckets.get(b))
+        elif b in buckets:
+            release(h, buckets[b][0], buckets[b][1], choices, -1.0)
         if rt is not None and b > 0:
-            run_retry_boundary(plan, b, h, fns, rt, pos_rb, reject)
+            run_retry_boundary(plan, b, h, fns, rt, pos_rb, reject, joint)
         if ser is not None:
             if np.isfinite(plan.tb[b]):
                 ser.used[b].copy_(tb.state.used)
@@ -656,46 +799,57 @@ def run_waves(plan: ChunkPlan, tb: ref.Tables, choices: torch.Tensor, first: int
             chunk_replay(h, desc.idx, desc.gang, choices, w, hi,
                          boundary=b if preempt else None, append=append)
             w = hi
-        return
-
-    rows = idx.tolist()
-    gang_wave = plan.gang_wave.tolist()
-    pos_dev = torch.arange(plan.L, dtype=torch.int32, device=dev)
-    for w in range(first, end):
-        b = w // C
-        if w % C == 0:
-            boundary_work(b)
-        base = w * W
-        for k, p in enumerate(rows[w]):
-            if p < 0:
-                continue
-            s = base + k
-            filter_score(h, p)
-            normalize_select(h, p, choices, s, w)
-            if slot_reject is not None:
-                slot_reject(h, idx_dev[s : s + 1], choices[:, s : s + 1])
-            apply_placements(h, idx_dev[s : s + 1], pos_dev[s : s + 1], choices, 1.0,
-                             boundary=b if preempt else None, append=append)
-        if gang_wave[w]:
-            apply_placements(h, idx_dev[base : base + W], pos_dev[base : base + W], choices,
-                             -1.0, rollback=True)
-    if ser is not None and ser.fold and end == idx.shape[0] and end > first:
-        fold((end - 1) // C)
+    else:
+        rows = idx.tolist()
+        gang_wave = plan.gang_wave.tolist()
+        pos_dev = torch.arange(plan.L, dtype=torch.int32, device=dev)
+        shard = route == "shard"
+        for w in range(first, end):
+            b = w // C
+            if w % C == 0:
+                boundary_work(b)
+            base = w * W
+            for k, p in enumerate(rows[w]):
+                if p < 0:
+                    continue
+                s = base + k
+                filter_score(h, p)
+                if shard:
+                    shard_select(h, p, choices, s)
+                    shard_apply(h, idx_dev[s : s + 1], pos_dev[s : s + 1], choices, 1.0)
+                    continue
+                normalize_select(h, p, choices, s, w)
+                if slot_reject is not None:
+                    slot_reject(h, idx_dev[s : s + 1], choices[:, s : s + 1])
+                apply_placements(h, idx_dev[s : s + 1], pos_dev[s : s + 1], choices, 1.0,
+                                 boundary=b if preempt else None, append=append)
+            if gang_wave[w]:
+                rb = (idx_dev[base : base + W], pos_dev[base : base + W], choices, -1.0)
+                if shard:
+                    shard_apply(h, *rb, rollback=True)
+                else:
+                    apply_placements(h, *rb, rollback=True)
+        if ser is not None and ser.fold and end == idx.shape[0] and end > first:
+            fold((end - 1) // C)
+    if page is not None:
+        pager.done(page)
 
 
 def run_chunks(
     plan: ChunkPlan, tb: ref.Tables, bound_node: np.ndarray, plain: bool, timers=None,
-    ser: Optional[Series] = None, route: Optional[str] = None,
+    ser: Optional[Series] = None, route: Optional[str] = None, pager=None, joint: bool = False,
 ) -> np.ndarray:
     """Replay every chunk of ``plan`` over the S scenarios of ``tb`` (its
     state is updated in place) on ``route`` (None: :func:`choose_route`
-    of ``plain`` and ``ser``) and return the host copy of the choice buffer
-    ``[S, L]``. The one synchronisation is the final fetch."""
+    of ``plain``, ``ser`` and the tables' shards), with ``pager``'s pages
+    when given (``joint``: as :func:`run_waves`), and return the host copy
+    of the choice buffer ``[S, L]``.
+    The one synchronisation is the final fetch."""
     tick = timers.tick if timers is not None else (lambda name: contextlib.nullcontext())
-    route = route or choose_route(plain, ser is not None)
+    route = route or choose_route(plain, ser is not None, tb.shards is not None)
     choices = new_choices(plan, tb.state.used.shape[0], bound_node, tb.state.used.device)
     with tick("dispatch"), tick(f"dispatch_{route}"):
-        run_waves(plan, tb, choices, 0, plan.idx.shape[0], plain, ser, route)
+        run_waves(plan, tb, choices, 0, plan.idx.shape[0], plain, ser, route, pager, joint)
     with tick("device_wait"):
         return choices.cpu().numpy()
 
@@ -744,7 +898,7 @@ class ChunkEngine:
         S: int, wave_width, chunk_waves: int, completions: Optional[bool],
         granularity_guard: bool, engine_name: str, device: torch.device, plain: bool,
         preemption: bool = False, retry_buffer: int = 0, domains=None,
-        wrow: Optional[torch.Tensor] = None,
+        wrow: Optional[torch.Tensor] = None, layout=None, paged: bool = False,
     ) -> None:
         #: set-ups of this engine (plan and device tables): a value swap
         #: (``WhatIfEngine.set_policies``) must not add one
@@ -755,6 +909,13 @@ class ChunkEngine:
         #: (node_domain [L, T, N], num_domains [L, T], lrow [S], D) of the
         #: label rows of a batch whose scenarios relabel nodes, else None
         self._domains = domains
+        #: the node-shard layout (:mod:`..parallel.shards`), None replicated;
+        #: the device tables then span its padded node axis (``_dev_ec``)
+        self.layout = layout
+        self._dev_ec = shard_cluster(ec, layout) if layout is not None else ec
+        #: paged pod waves (:mod:`.pager`): no whole-trace pod tables on the
+        #: device
+        self.paged = bool(paged)
         #: (tiers, pod_tier) under tier preemption, else None
         self.tiers = (check_tier_mode(ec, pods, spec.interpod, spec.spread)
                       if preemption else None)
@@ -767,7 +928,8 @@ class ChunkEngine:
         #: with its granularity guard, the pod tables' upload)
         self.setup_s = {}
         t0 = time.perf_counter()
-        self.waves = pack_waves(pods, self.wave_width)
+        self.waves = pack_waves(pods, self.wave_width,
+                                page_pods=int(chunk_waves) * self.wave_width if paged else None)
         t1 = time.perf_counter()
         self.completions_on = completions_gate(pods, completions)
         self.chunk_waves = int(chunk_waves)
@@ -786,7 +948,7 @@ class ChunkEngine:
                                 spec.has_gangs)
         t2 = time.perf_counter()
         self._cluster = cluster
-        self._pods = ref.pods_to(pods, device)
+        self._pods = None if self.paged else ref.pods_to(pods, device)
         self.setup_s = dict(pack_waves=t1 - t0, plan_chunks=t2 - t1,
                             pod_tables=time.perf_counter() - t2)
 
@@ -797,7 +959,7 @@ class ChunkEngine:
         label rows differ and pods are pre-bound."""
         fields = ("used", "match_count", "anti_active", "pref_wsum")
         if self._domains is None:
-            st = init_state(self.ec, self.pods)
+            st = init_state(self._dev_ec, self.pods)
             return tuple(getattr(st, f) for f in fields)
         nd, ndom, lrow, D = self._domains
         row_ec = lambda r: dc_replace(self.ec, node_domain=nd[r], num_domains=ndom[r],
@@ -808,9 +970,14 @@ class ChunkEngine:
         rows = [init_state(row_ec(r), self.pods) for r in range(nd.shape[0])]
         return tuple(np.stack([getattr(rows[r], f) for r in lrow]) for f in fields)
 
-    def _tables(self, attribute: bool = False) -> ref.Tables:
+    def _tables(self, attribute: bool = False, pods: Optional[ref.DevPods] = None) -> ref.Tables:
         """The tables of one run; ``attribute`` adds zeroed first-reject
-        counters (telemetry series)."""
+        counters (telemetry series). ``pods``: the pod tables (a pager's
+        page); by default the whole trace's, uploaded once."""
+        if pods is None:
+            if self._pods is None:
+                self._pods = ref.pods_to(self.pods, self.device)
+            pods = self._pods
         pre = None
         if self.tiers is not None:
             tiers, pod_tier = self.tiers
@@ -823,34 +990,61 @@ class ChunkEngine:
         if self.retry_buffer:
             rt = ref.new_retry(self.retry_buffer, self.pods.duration, self.plan.tbt, self.S,
                                self.device)
+        sh = None
+        if self.layout is not None:
+            lay, plan = self.layout, self.plan
+            gdom = ref.group_domains(self._dev_ec)[0]  # [G, n_pad]
+            tail = self.pods.bound_node[plan.prebound]
+            sh = ref.new_shards(lay.P, lay.n_local, lay.n_real, self.S, plan.L, gdom.shape[0],
+                                self.device, tail_dom=gdom[:, tail].T)
         return ref.Tables(
-            cluster=self._cluster, pods=self._pods,
+            cluster=self._cluster, pods=pods,
             state=ref.stacked_state(*self._initial_planes(), self.S, self.device),
-            scratch=ref.new_scratch(self.S, self.ec.num_nodes, self.device), consts=self.consts,
-            preempt=pre, retry=rt,
+            scratch=ref.new_scratch(self.S, self._dev_ec.num_nodes, self.device),
+            consts=self.consts, preempt=pre, retry=rt,
             reject=(ref.new_reject(len(spec_plugin_names(self.spec)), self.pods.num_pods, self.S,
                                    self.device) if attribute else None),
-            wrow=self._wrow,
+            wrow=self._wrow, shards=sh,
         )
 
-    def _run(self, timers=None, series: bool = False, route: Optional[str] = None):
+    def _pager(self):
+        """A fresh pager of this engine's plan (paged pod waves), or None."""
+        if not self.paged:
+            return None
+        from .pager import PodPager
+
+        return PodPager(self.pods, self.plan.idx, self.plan.C, self.plan.buckets, self.device)
+
+    def _run(self, timers=None, series: bool = False, route: Optional[str] = None,
+             joint: bool = False):
         """(tables after the run, wall seconds, assignments [S, P], placed
         [S], pods to schedule). ``series`` takes the boundary samples and
         the first-reject attribution (:class:`Series`; none when no Filter
         plugin is on). ``route`` (``"chunk"`` or ``"slot"``) overrides the
         route the mode chooses (:func:`choose_route`), so a kernel run can be
-        held against the other route. The tables are kept as
+        held against the other route. ``joint``: a retry boundary's pending
+        and static releases go out as one (:func:`run_waves`; the single
+        replay's order). The tables are kept as
         ``last_tables``, the fetched choice buffer as ``last_choices``, the
         series buffers as ``last_series`` and the route as ``last_route``."""
         attribute = series and bool(spec_plugin_names(self.spec))
-        tb = self._tables(attribute)
+        # Paged pod waves stream the pods of a chunk's waves; telemetry series
+        # runs on the resident tables, as the reference's attributed program
+        # (sim/jax_runtime.py:2253 ``if self.paged and not use_rej``).
+        pager = self._pager() if not series else None
+        self.last_pager = pager
+        tb = self._tables(attribute, pods=pager.pods0 if pager is not None else None)
         self.last_tables = tb
         ser = new_series(self.plan, tb, attribute) if series else None
         self.last_series = ser
-        self.last_route = route or choose_route(self.plain, series)
+        self.last_route = route or choose_route(self.plain, series, self.layout is not None)
         t0 = time.perf_counter()
-        host_choices = run_chunks(self.plan, tb, self.pods.bound_node, self.plain, timers, ser,
-                                  self.last_route)
+        try:
+            host_choices = run_chunks(self.plan, tb, self.pods.bound_node, self.plain, timers,
+                                      ser, self.last_route, pager, joint)
+        finally:
+            if pager is not None:
+                pager.close()
         wall = time.perf_counter() - t0
         self.last_choices = host_choices
         rnode = tb.retry.rnode.cpu().numpy() if tb.retry is not None else None
@@ -875,6 +1069,17 @@ class TorchReplayEngine(ChunkEngine):
     both run on K1–K3, which commit pod by pod as v2 and greedy_replay do,
     so the two place alike; tier preemption needs "v3", as the
     reference's.
+
+    ``node_shards`` (> 1: row B13 on the shard route, every shard on this
+    engine's device; forces ``engine="v2"`` with the reference's log line)
+    and ``paged`` (paged pod waves, :mod:`.pager`) behave as in
+    ``JaxReplayEngine``, whose refusals they keep (tier preemption with
+    shards, ``paged`` with the retry buffer, the
+    ``KSIM_MAX_REPLICATED_BYTES`` budget of a replicated run); the retry
+    buffer and telemetry series/timeline under shards, and ``paged`` with
+    tier preemption, are refused by name. At ``series``/``timeline`` a
+    paged replay runs on the resident pod tables, as the reference's
+    attributed program does.
 
     ``telemetry`` is "off", "summary", "series" or "timeline" (a name or
     a :class:`..sim.telemetry.TelemetryConfig`). ``series`` adds K5's
@@ -912,19 +1117,47 @@ class TorchReplayEngine(ChunkEngine):
                 "completions=False is not supported with retry_buffer/kube preemption (the "
                 "boundary pass owns releases)"
             )
-        if node_shards and int(node_shards) > 1:
-            raise _later("node_shards", "node sharding, queue B row B13")
-        if paged:
-            raise _later("paged=True", "the paged pod pager")
+        #: node-plane shards (0/1: the replicated layout)
+        self.node_shards = int(node_shards or 0)
+        if self.node_shards < 0:
+            raise ValueError(f"node_shards must be >= 0, got {node_shards}")
+        if paged and rb:
+            raise ValueError(
+                "paged=True is not supported with retry_buffer / preemption='kube' yet — the "
+                "boundary mirror pre-stages the whole wave index tensor; run paged replays on "
+                "the plain path"
+            )
+        if paged and mode:
+            raise _later("paged=True with tier preemption (the eviction walk reads the pod "
+                         "tables by global pod id)", "ROADMAP queue A item 6a")
         if flight_recorder is not None:
-            raise _later("flight_recorder", "the flight recorder")
-        self.engine = engine
+            raise _later("flight_recorder", "the flight recorder, ROADMAP queue A item 6f")
         self.telemetry = resolve_granularity(telemetry)
+        layout = None
+        if self.node_shards > 1:
+            if rb:
+                raise _later("retry_buffer with node_shards (the boundary retry pass over "
+                             "node shards)", "ROADMAP queue A item 6a")
+            if TelemetryConfig.resolve(self.telemetry).want_series:
+                raise _later("telemetry series/timeline with node_shards (first-reject "
+                             "attribution over node shards)", "ROADMAP queue B item 4")
+            if engine == "v3":
+                log.info(
+                    "node_shards=%d: forcing engine='v2' — the node-sharded chunk program runs "
+                    "on the node-space planes (the v3 domain-space layout replicates exactly "
+                    "the per-domain state node sharding is meant to split)", self.node_shards)
+                engine = "v2"
+        check_replicated_budget(ec, pods, self.node_shards, engine, paged)
+        self.engine = engine
         device = resolve_device(device)
+        if self.node_shards > 1:
+            layout = make_layout(ec.num_nodes, self.node_shards, device)
         self.preemption = mode
         self._prepare(ec, pods, StepSpec.from_config(ec, config, pods),
-                      ref.cluster_to(ec, device), 1, wave_width, chunk_waves, completions,
-                      granularity_guard, "torch replay engine", device, plain, mode, rb)
+                      ref.cluster_to(shard_cluster(ec, layout) if layout else ec, device), 1,
+                      wave_width, chunk_waves, completions, granularity_guard,
+                      "torch replay engine", device, plain, mode, rb, layout=layout,
+                      paged=paged)
 
     # -- one replay --------------------------------------------------------
 
@@ -961,12 +1194,12 @@ class TorchReplayEngine(ChunkEngine):
                 "pod-by-pod K1–K3 chain; placements are bit-identical"
             )
         tb, wall, assignments, placed_s, to_schedule = self._run(
-            tel.phases if tel is not None else None, series=series)
+            tel.phases if tel is not None else None, series=series, joint=True)
         assignments = assignments[0]
         placed = int(placed_s[0])
 
         st = tb.state
-        used = st.used[0].cpu().numpy()
+        used = st.used[0, : self.ec.num_nodes].cpu().numpy()
         host_state = SchedState(
             used=used,
             match_count=st.match_count[0].cpu().numpy(),

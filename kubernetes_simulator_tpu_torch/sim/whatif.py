@@ -475,7 +475,15 @@ class WhatIfEngine(ChunkEngine):
         if mesh is not None:
             raise _later("mesh (the scenario axis over several cards)", "queue A item 10")
         if node_shards and int(node_shards) > 1:
-            raise _later("node_shards (node-plane sharding, row B13)", "queue A item 10")
+            # As the reference's what-if (sim/whatif.py:583-589): the batch
+            # spends its device axis on scenarios; node shards are the
+            # single replay's (TorchReplayEngine(node_shards=...)).
+            raise NotImplementedError(
+                "node_shards (intra-scenario node-plane sharding) is not supported by the "
+                "what-if batch, as in the reference: it shards the single replay — run it "
+                "through TorchReplayEngine(node_shards=...) / the CLI run (ROADMAP queue A "
+                "item 10, node sharding)"
+            )
         if fork_checkpoint is not None:
             raise _later("fork_checkpoint (what-if forks from a checkpoint)", "queue A item 7")
         if _dcn_recovery is not None:

@@ -169,9 +169,9 @@ _REFUSED_SECTIONS = {
     "chaos": "chaos node-event timelines",
     "dcn": "the multi-process fleet",
     "service": "the resident query service",
+    "overlap": "the stall-hiding overlap gates",
     "flightRecorder": "the flight recorder",
     "faultline": "fleet fault injection",
-    "overlap": "the stall-hiding overlap gates",
 }
 
 
@@ -221,6 +221,10 @@ class SimConfig:
     whatif: WhatIfSpec = field(default_factory=WhatIfSpec)
     # False, or tier preemption (True / "tier"); "kube" is refused.
     device_preemption: object = False
+    # Node-plane shards of the single replay (0/1: the replicated layout) and
+    # paged pod waves (the reference's round-14 Borg-scale mode).
+    node_shards: int = 0
+    paged_waves: bool = False
     tune: Optional[TuneSpec] = None
 
     @classmethod
@@ -249,10 +253,6 @@ class SimConfig:
                 "whatIf.retryBuffer requires the device-release path; remove "
                 "whatIf.completions: false (the retry pass runs at completion boundaries)"
             )
-        if int(d.get("nodeShards", 0) or 0) > 1:
-            _refuse("nodeShards", "node-sharded replay")
-        if d.get("pagedWaves", False):
-            _refuse("pagedWaves", "paged pod waves")
         cfg = cls()
         cfg.strategy = _strategy(d.get("strategy"))
         cl = d.get("cluster", {})
@@ -311,6 +311,8 @@ class SimConfig:
         cfg.wave_width = 8 if ww == "auto" else int(ww)
         cfg.chunk_waves = int(d.get("chunkWaves", 1024))
         cfg.device_preemption = dp if isinstance(dp, str) else bool(dp)
+        cfg.node_shards = int(d.get("nodeShards", 0) or 0)
+        cfg.paged_waves = bool(d.get("pagedWaves", False))
         cfg.whatif = WhatIfSpec(
             scenarios=int(wi.get("scenarios", 0)),
             seed=int(wi.get("seed", 0)),
@@ -365,6 +367,27 @@ def borg_errors(cfg: SimConfig) -> List[str]:
             errors.append(f"workload.borg.{key}: file not found: {path}")
     if b.cpu_scale <= 0 or b.mem_scale <= 0:
         errors.append("workload.borg.cpuScale/memScale: must be > 0")
+    return errors
+
+
+def shard_errors(cfg: SimConfig) -> List[str]:
+    """The reference's checks of ``nodeShards`` and ``pagedWaves``
+    (kubernetes_simulator_tpu/cli.py:735-757 ``validate_config``), as
+    error strings (empty: ok). Both strategies the port runs take them."""
+    errors = []
+    tier_on = cfg.device_preemption in (True, "tier")
+    if cfg.node_shards < 0:
+        errors.append("nodeShards: must be >= 0 (0/1 = replicated planes)")
+    if cfg.node_shards > 1 and tier_on:
+        errors.append(
+            "nodeShards is not supported with tier devicePreemption (the sharded chunk "
+            "program is the node-space engine; use devicePreemption: kube)"
+        )
+    if cfg.paged_waves and (cfg.whatif.retry_buffer or cfg.device_preemption == "kube"):
+        errors.append(
+            "pagedWaves is not supported with whatIf.retryBuffer / devicePreemption: kube "
+            "yet (the boundary mirror pre-stages the whole wave index tensor)"
+        )
     return errors
 
 

@@ -118,8 +118,8 @@ def test_cli_default_device_raises_without_a_card(monkeypatch, tmp_path):
 @pytest.mark.parametrize(
     "section",
     ["whatIf: {scenarios: 4, mesh: true}", "chaos: {enabled: true}", "devicePreemption: kube",
-     "nodeShards: 2", "pagedWaves: true", "dcn: {recovery: {enable: true}}",
-     "service: {maxBatch: 2}"],
+     "overlap: {pagerThread: true}", "flightRecorder: {path: f.jsonl}",
+     "dcn: {recovery: {enable: true}}", "service: {maxBatch: 2}"],
 )
 def test_config_refuses_later_sections_by_name(section):
     import yaml
@@ -134,7 +134,8 @@ def test_config_refuses_later_sections_by_name(section):
 @pytest.mark.parametrize(
     "kw",
     [dict(engine="v2", preemption="kube", retry_buffer=8), dict(preemption="kube"),
-     dict(preemption="kube", retry_buffer=8), dict(node_shards=2), dict(paged=True),
+     dict(preemption="kube", retry_buffer=8), dict(node_shards=2, retry_buffer=8),
+     dict(paged=True, preemption=True),
      dict(flight_recorder="f.jsonl"), dict(telemetry="series", node_shards=2)],
 )
 def test_engine_refuses_later_modes(kw):
@@ -166,7 +167,9 @@ def test_wrappers_take_the_twin_only_on_cpu():
     assert K.launch_counts() == {"filter_score": 0, "normalize_select": 0,
                                  "apply_placements": 0, "retry_boundary": 0,
                                  "first_reject": 0, "first_reject_fold": 0,
-                                 "chunk_replay": 0}
+                                 "chunk_replay": 0, "shard_select": 0, "shard_apply": 0,
+                                 "shard_apply_bind": 0, "shard_apply_rollback": 0,
+                                 "shard_apply_release": 0}
     assert np.all(np.isfinite(ec.allocatable))
 
 
@@ -175,7 +178,8 @@ def test_wrappers_take_the_twin_only_on_cpu():
     [("config1_default_cpu.yaml", "cpu"), ("config2_full_plugins_5k.yaml", None),
      ("config3_whatif_256.yaml", None), ("config4_borg_1m.yaml", None),
      ("config8_kube_preempt.yaml", "kube"), ("config11_tune.yaml", None),
-     ("config12_utilization.yaml", "kube")],
+     ("config12_utilization.yaml", "kube"), ("config13_borgscale.yaml", None),
+     ("config15_headline.yaml", "flight recorder"), ("config18_overlap.yaml", "overlap")],
 )
 def test_example_configs_parse_or_refuse(name, refused):
     """The repo's example configs: the run, what-if and tune configs parse
@@ -199,8 +203,10 @@ def test_example_configs_parse_or_refuse(name, refused):
         ref = J_SimConfig.load(str(path))
         assert cfg.workload is None and ref.workload is None
         assert dataclasses.asdict(cfg.borg) == dataclasses.asdict(ref.borg)
-        assert (cfg.borg.nodes, cfg.borg.tasks) == (10_000, 1_000_000)
+        b = raw["workload"]["borg"]
+        assert (cfg.borg.nodes, cfg.borg.tasks) == (b["nodes"], b["tasks"])
         assert cfg.chunk_waves == ref.chunk_waves == raw["chunkWaves"]
+        assert (cfg.node_shards, cfg.paged_waves) == (ref.node_shards, ref.paged_waves)
         return
     syn = raw["cluster"]["synthetic"]
     assert cfg.cluster.nodes == syn["nodes"]

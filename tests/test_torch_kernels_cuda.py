@@ -561,3 +561,102 @@ def test_chunk_replay_equals_slot_route_and_twin(card, case):
             assert torch.equal(getattr(tb_k.state, f), getattr(tb_t.state, f)), (name, c, f)
     for f in ref.DevState._fields:
         assert torch.equal(getattr(tb_k.state, f), getattr(tb_c.state, f)), (name, f)
+
+
+def _shard_engine(dev, P, paged=False, plain=False, seed=7):
+    ec, ep = _case(seed, nodes=37, pods=500, gang_fraction=0.1, gang_size=4, duration_mean=40.0)
+    return TorchReplayEngine(ec, ep, FrameworkConfig(), chunk_waves=4, device=dev,
+                             node_shards=P, paged=paged, plain=plain)
+
+
+@pytest.mark.parametrize("P", (2, 3, 8))
+def test_shard_kernels_equal_twins(card, P):
+    """K1 on the sharded tables, K7 and K8 against their twins launch by
+    launch over a whole sharded replay (37 nodes: P = 3 and 8 pad the node
+    axis): the scratch rows after K1, each shard's packed extrema, the
+    choice and the column's domain ids after K7, every state plane after each K8
+    bind, gang rollback and release."""
+    from kubernetes_simulator_tpu_torch.sim.torch_runtime import new_choices
+
+    eng = _shard_engine(card, P)
+    plan = eng.plan
+    tb_k, tb_t = eng._tables(), eng._tables()
+    b = K.Bound(tb_k)
+    ch_k = new_choices(plan, 1, eng.pods.bound_node, card)
+    ch_t = ch_k.clone()
+    idx = torch.as_tensor(plan.idx.reshape(-1), device=card)
+    pos = torch.arange(plan.L, dtype=torch.int32, device=card)
+    W, C = plan.idx.shape[1], plan.C
+    K.reset_launch_counts()
+
+    def same_state(where):
+        torch.cuda.synchronize()
+        for f in ref.DevState._fields:
+            assert torch.equal(getattr(tb_k.state, f), getattr(tb_t.state, f)), (where, f)
+        assert torch.equal(ch_k, ch_t), where
+        assert torch.equal(tb_k.shards.cdom, tb_t.shards.cdom), where
+
+    rollbacks = releases = 0
+    for w, row in enumerate(plan.idx.tolist()):
+        if w % C == 0 and plan.buckets[w // C] is not None:
+            ids, cols = (torch.as_tensor(a, device=card) for a in plan.buckets[w // C])
+            K.shard_apply(b, ids, cols, ch_k, -1.0)
+            ref.shard_apply(tb_t, ids, cols, ch_t, -1.0)
+            same_state(("release", w))
+            releases += 1
+        for k, p in enumerate(row):
+            if p < 0:
+                continue
+            s = w * W + k
+            K.filter_score(b, p)
+            ref.filter_score(tb_t, p)
+            torch.cuda.synchronize()
+            for f in ref.Scratch._fields:
+                assert torch.equal(getattr(tb_k.scratch, f), getattr(tb_t.scratch, f)), (s, f)
+            K.shard_select(b, p, ch_k, s)
+            ref.shard_select(tb_t, p, ch_t, s)
+            torch.cuda.synchronize()
+            assert torch.equal(tb_k.shards.ext, tb_t.shards.ext), s
+            K.shard_apply(b, idx[s : s + 1], pos[s : s + 1], ch_k, 1.0)
+            ref.shard_apply(tb_t, idx[s : s + 1], pos[s : s + 1], ch_t, 1.0)
+            same_state(("bind", s))
+        if plan.gang_wave[w]:
+            sl = slice(w * W, (w + 1) * W)
+            K.shard_apply(b, idx[sl], pos[sl], ch_k, -1.0, rollback=True)
+            ref.shard_apply(tb_t, idx[sl], pos[sl], ch_t, -1.0, rollback=True)
+            same_state(("rollback", w))
+            rollbacks += 1
+    slots = int((plan.idx >= 0).sum())
+    counts = K.launch_counts()
+    assert counts["filter_score"] == counts["shard_select"] == slots, counts
+    assert counts["shard_apply"] == slots + rollbacks + releases, counts
+    assert (counts["shard_apply_bind"], counts["shard_apply_rollback"],
+            counts["shard_apply_release"]) == (slots, rollbacks, releases), counts
+    assert rollbacks and releases and int((ch_k[0, : plan.idx.size] < 0).sum()) > 0
+
+
+@pytest.mark.parametrize("P,paged", [(3, False), (8, False), (3, True), (8, True), (1, True)])
+def test_shard_kernel_path_equals_plain_path(card, P, paged):
+    """A sharded (or, P = 1, paged replicated) replay on the kernels equals
+    the same replay on the twins on the card and on the CPU, and the
+    replicated K6 replay: assignments, placed and ``used``; the sharded run
+    launches K1, K7 and K8 a slot and nothing of K2, K3 or K6."""
+    rep = _shard_engine(card, 1).replay()
+    K.reset_launch_counts()
+    eng = _shard_engine(card, P, paged=paged)
+    res = eng.replay()
+    counts = K.launch_counts()
+    slots = int((eng.plan.idx >= 0).sum())
+    if P > 1:
+        assert res.route == "shard" and counts["shard_select"] == slots, counts
+        assert counts["normalize_select"] == counts["chunk_replay"] == 0, counts
+        assert counts["apply_placements"] == 0, counts
+    else:
+        assert res.route == "chunk" and counts["chunk_replay"] == len(eng.plan.buckets)
+    if paged:
+        assert eng.last_pager is not None and eng.last_pager.prefetches > 0
+    for other in (rep, _shard_engine(card, P, paged=paged, plain=True).replay(),
+                  _shard_engine("cpu", P, paged=paged).replay()):
+        np.testing.assert_array_equal(res.assignments, other.assignments)
+        assert res.placed == other.placed
+        np.testing.assert_array_equal(res.state.used, other.state.used)

@@ -390,4 +390,5 @@ def test_wrappers_take_the_twins_on_cpu_under_the_buffer():
     assert int((eng.last_tables.retry.rnode >= 0).sum()) > 0
     assert K.launch_counts() == dict.fromkeys(
         ("filter_score", "normalize_select", "apply_placements", "retry_boundary",
-         "first_reject", "first_reject_fold", "chunk_replay"), 0)
+         "first_reject", "first_reject_fold", "chunk_replay", "shard_select", "shard_apply",
+         "shard_apply_bind", "shard_apply_rollback", "shard_apply_release"), 0)
