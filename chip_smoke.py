@@ -180,6 +180,14 @@ From the root of a checkout, on a host with one CUDA card. In order:
    envelope <= 1e-6, one engine set-up; the walls of the search, the
    held-out sweep and the oracle.
 
+The selects — K2, K6's K2 phase and K7 — launch as thread-block clusters
+(ops/kernels.py ``cluster_plan``): every step that launches one prints its
+plan (cluster size C, block width, grid). K2 at S=1 (step 3) and S=128
+(step 8), K2's argmin (steps 10-11) and K7 at 8 and 3 shards (step 8e) are
+timed in turns with their PyTorch calls (kernel, library, library,
+kernel), and one line gives K6's device time a slot at the headline,
+config2 and config4 with the C of each.
+
 Every phase prints its route. Prints the kernel table as one JSON line
 (K6 ``chunk_replay`` among the kernels; each row's ``launches`` from its
 path's main run, where K1 and K2 run inside K6 and launch 0 times, and
@@ -194,6 +202,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 import hashlib
+import itertools
 import json
 import logging
 import os
@@ -524,6 +533,26 @@ def time_cuda(fn, iters, warm=3):
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / iters
+
+
+def in_turns(kernel, library, iters, match):
+    """(kernel ms, library ms, the four turns) — the device time per call of
+    ``kernel`` (its profiler records containing ``match``) and of ``library``
+    (every record), taken in turns: kernel, library, library, kernel, each
+    the mean of its two turns (CUDA events where the profiler records no
+    device time)."""
+    def one(fn, m):
+        return device_ms(fn, iters, m) or time_cuda(fn, iters)
+
+    turns = [one(kernel, match), one(library, None), one(library, None), one(kernel, match)]
+    return (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2, turns
+
+
+def plan_of(wrapper):
+    """The cluster plan of ``wrapper``'s last launch (K2, K6, K7) as a dict:
+    cluster size C, block width, grid, nodes a rank (K7: a shard)."""
+    p = wrapper.plan
+    return dict(C=p.C, threads=p.threads, grid=p.grid, span=p.span)
 
 
 def device_ms(fn, iters, match=None):
@@ -1088,6 +1117,7 @@ def hold_chunk_replay(where, eng, dev, results, assignments=None):
     ms = device_ms(k6, 20, match="chunk_replay")
     if ms is None:
         ms = time_cuda(k6, 20)
+    k6_plan = plan_of(K.chunk_replay)
 
     def twin(_):
         restore(tb_t, ch_t)
@@ -1111,10 +1141,11 @@ def hold_chunk_replay(where, eng, dev, results, assignments=None):
     tiles = k6_tiles(S, tb_k.state.used.shape[1])
     out = dict(ms=ms, per_slot_ms=ms / max(pods.size, 1), plain_ms=plain_ms, bound_ms=bound_ms,
                bound_by=bound_by, slots=int(pods.size), waves=w2 - w1, tiles=tiles,
-               max_abs_err=0.0, **twin_rec)
+               max_abs_err=0.0, cluster=k6_plan, **twin_rec)
     results.setdefault("k6", {})[where] = out
     print(f"{where}: K6 == the per-slot kernels over the first chunk ({C} waves), choices and "
-          f"every plane; K6 over {w2 - w1} waves ({pods.size} slots, {tiles} tiles): "
+          f"every plane; K6 over {w2 - w1} waves ({pods.size} slots, {tiles} tiles, cluster "
+          f"{json.dumps(k6_plan)}): "
           f"{ms * 1e3:.1f} us a launch, {ms * 1e3 / max(pods.size, 1):.2f} us a slot (bound "
           f"{bound_ms * 1e3:.3f} us by {bound_by}; twin {plain_ms:.1f} ms)", flush=True)
     return out
@@ -1262,9 +1293,10 @@ def time_kernels(ep, tb_t, held, dev, iters=200, plain_iters=20):
     t_rel_plain = time_cuda(lambda i: ref.apply_placements(tb_t, rel_p, rel_pos, rel_ch,
                                                            1.0 - 2.0 * (i % 2)), 10)
     d_k1 = device_ms(lambda i: K.filter_score(b, sl[i % n]), iters, "ksim_filter_score")
-    d_k2 = device_ms(lambda i: K.normalize_select(b, sl[i % n], ch_k, 0), iters,
-                     "ksim_normalize_select")
-    d_argmax = device_ms(lambda i: torch.argmax(masked, dim=-1), iters)
+    d_k2, d_argmax, k2_turns = in_turns(lambda i: K.normalize_select(b, sl[i % n], ch_k, 0),
+                                        lambda i: torch.argmax(masked, dim=-1), iters,
+                                        "ksim_normalize_select")
+    k2_plan = plan_of(K.normalize_select)
     d_k3 = device_ms(lambda i: K.apply_placements(b, one_p, one_pos, one_ch,
                                                   1.0 - 2.0 * (i % 2)), iters, "ksim_apply")
     d_rel = device_ms(lambda i: K.apply_placements(b, rel_p, rel_pos, rel_ch,
@@ -1279,17 +1311,22 @@ def time_kernels(ep, tb_t, held, dev, iters=200, plain_iters=20):
         "filter_score": dict(max_abs_err=held["k1_err"], ms=pick(d_k1, t_k1), device_ms=d_k1,
                              launch_interval_ms=t_k1, plain_ms=t_k1_plain, bytes=float(k1b),
                              ops=float(k1o), library_ms=None),
-        "normalize_select": dict(max_abs_err=0.0, ms=pick(d_k2, t_k2), device_ms=d_k2,
+        "normalize_select": dict(max_abs_err=0.0, ms=d_k2, device_ms=d_k2,
                                  launch_interval_ms=t_k2, plain_ms=t_k2_plain,
-                                 bytes=float(k2b), ops=float(k2o),
-                                 library_ms=pick(d_argmax, t_argmax),
-                                 library_launch_interval_ms=t_argmax),
+                                 bytes=float(k2b), ops=float(k2o), library_ms=d_argmax,
+                                 library_launch_interval_ms=t_argmax, turns_ms=k2_turns,
+                                 cluster=k2_plan),
         "apply_placements": dict(max_abs_err=0.0, ms=pick(d_k3, t_k3), device_ms=d_k3,
                                  launch_interval_ms=t_k3, plain_ms=t_k3_plain,
                                  bytes=float(k3b), ops=float(k3o), library_ms=None),
     }
     for m in out.values():
         m["bound_ms"], m["bound_by"] = bound(m["bytes"], m["ops"])
+    k2 = out["normalize_select"]
+    print(f"K2 at S={S}, N={tb_t.state.used.shape[1]} (cluster {json.dumps(k2_plan)}): "
+          f"{d_k2 * 1e3:.2f} us vs torch.argmax {d_argmax * 1e3:.2f} us in turns "
+          f"{[round(t * 1e3, 2) for t in k2_turns]} (bound {k2['bound_ms'] * 1e3:.3f} us)",
+          flush=True)
     release = dict(pairs=len(rel_pods), scenarios=S, ms=pick(d_rel, t_rel), device_ms=d_rel,
                    launch_interval_ms=t_rel, plain_ms=t_rel_plain,
                    bound_ms=bound(float(rb), float(ro))[0])
@@ -1696,12 +1733,17 @@ def time_preempt(eng, held, dev, iters=200, plain_iters=20):
     fire_n = int((pk.ev_node >= 0).sum())
     if fire_n != f["fired"]:
         raise AssertionError(f"K2 fired in {fire_n} scenarios on replay, {f['fired']} in the run")
-    t_k2 = dms(lambda i: K.normalize_select(b, p, ch_k, s, 10_000_001 + i), iters,
-                     "ksim_normalize_select")
+    waves = itertools.count(10_000_001)  # a new wave every call: the argmin fires each time
+    masked = torch.where(pk.cand < float("inf"), pk.cand, torch.full_like(pk.cand, float("inf")))
+    t_k2, t_argmin, k2_turns = in_turns(
+        lambda i: K.normalize_select(b, p, ch_k, s, next(waves)),
+        lambda i: torch.argmin(masked, dim=1), iters, "ksim_normalize_select")
+    k2_plan = plan_of(K.normalize_select)
     t_k2_plain = time_cuda(lambda i: ref.normalize_select(tt, p, ch_t, s, 10_000_001 + i),
                            plain_iters)
-    masked = torch.where(pk.cand < float("inf"), pk.cand, torch.full_like(pk.cand, float("inf")))
-    t_argmin = dms(lambda i: torch.argmin(masked, dim=1), iters)
+    print(f"K2's argmin at S={S}, N={tk.state.used.shape[1]} (cluster {json.dumps(k2_plan)}): "
+          f"{t_k2 * 1e3:.2f} us vs torch.argmin {t_argmin * 1e3:.2f} us in turns "
+          f"{[round(t * 1e3, 2) for t in k2_turns]}", flush=True)
     k2b, k2o = work.k2()
     k2fb, k2fo = work.k2_fire(fire_n)
     # The record of one more K2 call is the one every K3 call below reads.
@@ -1734,7 +1776,8 @@ def time_preempt(eng, held, dev, iters=200, plain_iters=20):
                                   ops=float(k1o + k1po), library_ms=None),
         "normalize_select_argmin": dict(ms=t_k2, plain_ms=t_k2_plain, bytes=float(k2b + k2fb),
                                         ops=float(k2o + k2fo), library_ms=t_argmin,
-                                        scenarios_firing=fire_n),
+                                        scenarios_firing=fire_n, turns_ms=k2_turns,
+                                        cluster=k2_plan),
         "apply_placements_evict": dict(ms=t_k3, plain_ms=t_k3_plain, bytes=float(k3b + k3eb),
                                        ops=float(k3o + k3eo), library_ms=None,
                                        scenarios_evicting=len(ev_t), victims=vic,
@@ -3482,6 +3525,7 @@ def run_config4(results, dev):
     launches = K.launch_counts()
     if rc != 0 or len(made) != 1:
         raise AssertionError(f"config4 run: the CLI returned {rc}")
+    k6_plan = plan_of(K.chunk_replay)
     eng = made[0]
     row = json.loads([x for x in out.getvalue().splitlines() if x.startswith("{")][-1])
     ec, ep, plan = eng.ec, eng.pods, eng.plan
@@ -3526,6 +3570,19 @@ def run_config4(results, dev):
             walls[route] += time.perf_counter() - t1
         same_planes(f"config4 chunk {c}: K6 vs the per-slot kernels", tb_k, ch_k, tb_s, ch_s)
     hold_slots = int((plan.idx[: CONFIG4_HOLD_CHUNKS * plan.C] >= 0).sum())
+    # K6 alone over the first chunk (no release before it), from the initial
+    # state, timed by CUDA events around its one launch
+    if plan.buckets[0] is not None:
+        raise AssertionError("config4: a release before the first chunk")
+    tb_e, ch_e = eng._tables(), new_choices(plan, 1, ep.bound_node, dev)
+    desc = plan.device_desc(dev)
+    b_e = K.Bound(tb_e)
+    ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+    ev[0].record()
+    K.chunk_replay(b_e, desc.idx, desc.gang, ch_e, 0, plan.C)
+    ev[1].record()
+    torch.cuda.synchronize()
+    k6_us = ev[0].elapsed_time(ev[1]) * 1e3 / int((plan.idx[: plan.C] >= 0).sum())
     results["config4"] = dict(
         nodes=ec.num_nodes, tasks=ep.num_pods, chunk_waves=plan.C, chunks=len(plan.buckets),
         waves=int(plan.idx.shape[0]), gang_waves=int(plan.gang_wave.sum()),
@@ -3535,7 +3592,8 @@ def run_config4(results, dev):
         setup_trace_s=float(setup[0][0]), setup_engine_s=float(setup[0][1]),
         setup_s=eng.setup_s, launches=launches, chunk_loop_bound_ms=bound_ms,
         k6_tiles=k6_tiles(1, ec.num_nodes), k6_twin=twin_rec, held_chunks=CONFIG4_HOLD_CHUNKS,
-        held_slots=hold_slots, held_walls_s=walls, utilization=row["utilization"])
+        held_slots=hold_slots, held_walls_s=walls, utilization=row["utilization"],
+        k6_us_per_slot=k6_us, k6_cluster=k6_plan)
     print(f"config4 through the CLI run on the card ({ec.num_nodes} nodes x {ep.num_pods} tasks, "
           f"chunkWaves {plan.C}, {len(plan.buckets)} chunks, route {eng.last_route}): placed "
           f"{row['placed']}, unschedulable {row['unschedulable']}; set-up trace "
@@ -3545,8 +3603,10 @@ def run_config4(results, dev):
           f"{command_s:.1f}s; launches {json.dumps(launches)}; B6 bound "
           f"{bound_ms['total']:.3f} ms; the first {CONFIG4_HOLD_CHUNKS} chunks ({hold_slots} "
           f"slots) on K6 == the per-slot kernels, choices and every plane ({walls['chunk']:.2f}s "
-          f"vs {walls['slot']:.2f}s)", flush=True)
-    del eng, made, tb_k, tb_s
+          f"vs {walls['slot']:.2f}s); K6 over the first chunk {k6_us:.2f} us a slot (CUDA "
+          f"events; cluster "
+          f"{json.dumps(k6_plan)})", flush=True)
+    del eng, made, tb_k, tb_s, tb_e
 
 
 def check_borg_pins(results, dev):
@@ -3697,14 +3757,21 @@ def time_shards(work, tb_k, ch_k, tb_t, ch_t, live, rel, rolled, dev, iters=200,
     # alike each call); the exchange buffers written and read once
     nb, no = work.k2_scen(work.S)
     nb += (2 * sh.ext.numel() + 2 * sh.best_v.numel() + 2 * sh.best_i.numel() + 2 * work.G) * 4
-    d7 = device_ms(lambda i: K.shard_select(bk, p, ch_k, s), iters, "shard_select")
-    t7 = time_cuda(lambda i: ref.shard_select(tb_t, p, ch_t, s), plain_iters)
+    K.shard_select(bk, p, ch_k, s)
+    ref.shard_select(tb_t, p, ch_t, s)
     ext = ref.exchange_pmax(tb_t.shards.ext[:, i] for i in range(sh.P))
     total = ref.weighted_total(tb_t, p, ext)
     masked = torch.where(tb_t.scratch.feasible, total, torch.full_like(total, float("-inf")))
-    lib = device_ms(lambda i: torch.argmax(masked, dim=-1), iters)
-    out["shard_select"] = dict(ms=d7, plain_ms=t7, library_ms=lib,
+    d7, lib, k7_turns = in_turns(lambda i: K.shard_select(bk, p, ch_k, s),
+                                 lambda i: torch.argmax(masked, dim=-1), iters, "shard_select")
+    k7_plan = plan_of(K.shard_select)
+    t7 = time_cuda(lambda i: ref.shard_select(tb_t, p, ch_t, s), plain_iters)
+    out["shard_select"] = dict(ms=d7, plain_ms=t7, library_ms=lib, turns_ms=k7_turns,
+                               cluster=k7_plan,
                                **dict(zip(("bound_ms", "bound_by"), bound(nb, no))))
+    print(f"K7 at P={sh.P} (cluster {json.dumps(k7_plan)}): {d7 * 1e3:.2f} us vs torch.argmax "
+          f"{lib * 1e3:.2f} us in turns {[round(t * 1e3, 2) for t in k7_turns]} (bound "
+          f"{out['shard_select']['bound_ms'] * 1e3:.3f} us)", flush=True)
     # K8: a bind and its undo in turns (the slot's node), a release and its
     # re-add in turns (the window's boundary bucket)
     node = ch_k[:, s].cpu().numpy()
@@ -3901,15 +3968,18 @@ def run_config13(results, dev):
             b7 += bound(nb + (2 * 8 * 7 + 32 + 2 * work.G) * 4, no)[0]
     bound_chunk = dict(filter_score_shards_ms=b1, shard_select_ms=b7)
     mark("e config13 profiled chunk")
-    holds, times = {}, {}
+    holds, times, times_p3 = {}, {}, {}
     for P in (8, 3):
         he = eng if P == 8 else TorchReplayEngine(ec, ep, FrameworkConfig(), chunk_waves=cfg_c,
                                                   node_shards=P, device=dev)
         rec, tb_k, ch_k, tb_t, ch_t, live, rel, rolled = hold_shards(f"config13 P={P}", he,
                                                                       dev, SEED + P)
         holds[P] = rec
+        t_p = time_shards(Work(ep, tb_k), tb_k, ch_k, tb_t, ch_t, live, rel, rolled, dev)
         if P == 8:
-            times = time_shards(Work(ep, tb_k), tb_k, ch_k, tb_t, ch_t, live, rel, rolled, dev)
+            times = t_p
+        else:
+            times_p3 = t_p
         del tb_k, tb_t
     mark("e config13 holds, times")
     results["config13"] = dict(
@@ -3928,7 +3998,8 @@ def run_config13(results, dev):
         first_chunk=dict(launches=chunk_launches, device_ms_per_launch=per_launch,
                          device_busy_s=busy_s, profiled_wall_s=chunk_wall,
                          bounds_ms=bound_chunk),
-        holds=holds, kernel_times=times, utilization=row["utilization"])
+        holds=holds, kernel_times=times, kernel_times_p3=times_p3,
+        utilization=row["utilization"])
     print(f"config13 through the CLI run on the card ({ec.num_nodes} nodes over "
           f"{eng.layout.P} shards of {eng.layout.n_local}, {ep.num_pods} tasks, chunkWaves "
           f"{plan.C}, paged, route {eng.last_route}): placed {row['placed']}, unschedulable "
@@ -3990,7 +4061,10 @@ def main() -> int:
     launches_c2 = K.launch_counts()
     check_result(ec, ep, res)
     check_chunk_launches("config2 replay", launches_c2, eng.plan)
-    res_p, busy_s = profiled_busy_s(eng.replay)
+    k6_plan_c2 = plan_of(K.chunk_replay)
+    by_kernel_c2 = {}
+    res_p, busy_s = profiled_busy_s(eng.replay, by_kernel_c2)
+    k6_us_c2 = k6_device_s(by_kernel_c2) * 1e6 / int((eng.plan.idx >= 0).sum())
     if not np.array_equal(res_p.assignments, res.assignments):
         raise AssertionError("the profiled replay placed differently")
     results["chunk_loop_bound_ms_config2"] = Work(ep, eng._tables()).chunk_loop_ms(
@@ -4007,12 +4081,14 @@ def main() -> int:
         phases=res.telemetry.phases if res.telemetry is not None else None,
         profiled_wall_s=res_p.wall_clock_s, device_busy_s=busy_s,
         device_busy_share=busy_s / res_p.wall_clock_s if busy_s else None, k6_twin=twin_c2,
+        k6_us_per_slot=k6_us_c2, k6_cluster=k6_plan_c2,
     )
     print(f"config2 replay (5000 nodes, 50000 pods, route {res.route}): wall "
           f"{res.wall_clock_s:.3f}s, "
           f"{res.placements_per_sec:.1f} placements/s, placed {res.placed}, launches "
           f"{json.dumps(launches_c2)}; profiled: wall {res_p.wall_clock_s:.3f}s, device busy "
-          f"{busy_s:.3f}s", flush=True)
+          f"{busy_s:.3f}s, K6 {k6_us_c2:.2f} us a slot (cluster {json.dumps(k6_plan_c2)})",
+          flush=True)
     del eng, res, res_p
     mark("7 config2 replay")
 
@@ -4027,6 +4103,7 @@ def main() -> int:
     K.reset_launch_counts()
     warm = eng.run()
     launches = K.launch_counts()
+    k6_plan_h = plan_of(K.chunk_replay)
     check_chunk_launches("headline", launches, eng.plan)
     check_whatif_result(ep, warm, hs["scenarios"])
     runs = [eng.run() for _ in range(3)]
@@ -4055,7 +4132,7 @@ def main() -> int:
         slot_route=dict(launches=slot_launches, wall_s=slot_wall,
                         sha256=assignments_sha256(warm.assignments)),
         k6_device_s=k6_s, k6_ms_per_launch=k6_s * 1e3 / launches["chunk_replay"],
-        k6_us_per_slot=k6_s * 1e6 / int((eng.plan.idx >= 0).sum()),
+        k6_us_per_slot=k6_s * 1e6 / int((eng.plan.idx >= 0).sum()), k6_cluster=k6_plan_h,
         device_s_by_kernel=by_kernel,
         walls_s=walls, warmup_wall_s=warm.wall_clock_s, wall_s=wall,
         placements_per_s=warm.total_placed / wall, total_placed=warm.total_placed,
@@ -4072,7 +4149,8 @@ def main() -> int:
           f"median wall {wall:.3f}s of {[round(w, 3) for w in walls]}, "
           f"{warm.total_placed / wall:.1f} aggregate placements/s, placed "
           f"{int(warm.placed.min())}..{int(warm.placed.max())} per scenario; scenario 0 "
-          f"{int(warm.placed[0])} == single replay {single.placed}; launches "
+          f"{int(warm.placed[0])} == single replay {single.placed}; K6 cluster "
+          f"{json.dumps(k6_plan_h)}; launches "
           f"{json.dumps(launches)}; profiled: wall {res_p.wall_clock_s:.3f}s, device busy "
           f"{busy_s:.3f}s ({busy_s / res_p.wall_clock_s:.1%}); the per-slot route places alike "
           f"(assignments' sha256 {assignments_sha256(warm.assignments)[:16]}) in "
@@ -4104,6 +4182,12 @@ def main() -> int:
     # (c)-(d): Borg-shaped traces, config4 at 10,000 x 1,000,000 on K6.
     run_config4(results, dev)
     mark("c config4 holds")
+    k6_slot = {name: dict(us_per_slot=results[key][f], C=results[key][c]["C"])
+               for name, key, f, c in (("headline", "headline", "k6_us_per_slot", "k6_cluster"),
+                                       ("config2", "config2", "k6_us_per_slot", "k6_cluster"),
+                                       ("config4", "config4", "k6_us_per_slot", "k6_cluster"))}
+    results["k6_us_per_slot"] = k6_slot
+    print("K6 device time a slot (torch.profiler): " + json.dumps(k6_slot), flush=True)
     check_borg_pins(results, dev)
     mark("d Borg cut pins")
     # (e) node-plane shards (row B13) and paged pod waves: the reduced replay
@@ -4155,6 +4239,7 @@ def main() -> int:
             "max_abs_err": m["max_abs_err"],
             "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"], "library_ms": m["library_ms"],
+            **({"cluster": m["cluster"]} if "cluster" in m else {}),
         })
     src, replaces = SOURCES["chunk_replay"]
     table.append({
@@ -4162,7 +4247,7 @@ def main() -> int:
         "launches": launches["chunk_replay"], "max_abs_err": k6["max_abs_err"], "ms": k6["ms"],
         "plain_ms": k6["plain_ms"], "bound_ms": k6["bound_ms"], "bound_by": k6["bound_by"],
         # no single PyTorch call runs a chunk of the scheduler's waves
-        "library_ms": None,
+        "library_ms": None, "cluster": k6["cluster"],
     })
     for k, m in pkernels.items():
         kernel, replaces = PREEMPT_SOURCES[k]
@@ -4172,6 +4257,7 @@ def main() -> int:
             "max_abs_err": 0.0, "ms": m["ms"],
             "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
             "library_ms": m["library_ms"],
+            **({"cluster": m["cluster"]} if "cluster" in m else {}),
         })
     for k, m in rkernels.items():
         kernel, replaces = RETRY_SOURCES[k] if k in RETRY_SOURCES else (k, SOURCES[k][1])
@@ -4217,6 +4303,7 @@ def main() -> int:
             "launches": n_launch, "max_abs_err": max(h["max_abs_err"] for h in shholds.values()),
             "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"], "library_ms": m["library_ms"],
+            **({"cluster": m["cluster"]} if "cluster" in m else {}),
         })
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:

@@ -55,9 +55,12 @@
 // The single-scenario replay is the S = 1 case.
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 #define KSIM_PAD (-1)
 #define KSIM_TOL_PAD (-2)
@@ -180,6 +183,68 @@ struct KsimArgs {
 
 // Layout check for the ctypes mirror (every library exports it).
 KSIM_EXPORT int ksim_args_size() { return (int)sizeof(KsimArgs); }
+
+// Clusters of C blocks of `threads` threads of the cooperative `kernel` that
+// the current device holds at once (C = 1: resident blocks), the most its
+// cooperative launch may take, or a negative CUDA error (also where the device
+// has no cooperative launch); cached per device, kernel, C and width.
+static inline int ksim_resident(const void* kernel, int C, int threads) {
+  struct Entry {
+    int dev, C, threads, n;
+    const void* kernel;
+  };
+  static Entry cache[32];
+  static int used = 0;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return -(int)e;
+  for (int i = 0; i < used; ++i)
+    if (cache[i].dev == dev && cache[i].kernel == kernel && cache[i].C == C &&
+        cache[i].threads == threads)
+      return cache[i].n;
+  int coop = 0;
+  if ((e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev)) != cudaSuccess)
+    return -(int)e;
+  if (!coop) return -(int)cudaErrorNotSupported;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(C);
+  cfg.blockDim = dim3(threads);
+  cudaLaunchAttribute at;
+  at.id = cudaLaunchAttributeClusterDimension;
+  at.val.clusterDim.x = C;
+  at.val.clusterDim.y = 1;
+  at.val.clusterDim.z = 1;
+  cfg.attrs = &at;
+  cfg.numAttrs = 1;
+  int n = 0;
+  if ((e = cudaOccupancyMaxActiveClusters(&n, kernel, &cfg)) != cudaSuccess) return -(int)e;
+  if (used < 32) cache[used++] = Entry{dev, C, threads, n, kernel};
+  return n;
+}
+
+// Launch `kernel` over `grid` blocks of `threads` threads as clusters of C
+// consecutive blocks (blockIdx.x / C is the cluster, its rank blockIdx.x % C),
+// cooperative (grid barriers allowed) if asked. Returns the launch's CUDA
+// error: a refused launch never runs, and nothing falls back.
+static inline int ksim_launch_clusters(const void* kernel, int grid, int threads, int C,
+                                       bool coop, void** params, cudaStream_t stream) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(threads);
+  cfg.stream = stream;
+  cudaLaunchAttribute at[2];
+  at[0].id = cudaLaunchAttributeClusterDimension;
+  at[0].val.clusterDim.x = C;
+  at[0].val.clusterDim.y = 1;
+  at[0].val.clusterDim.z = 1;
+  at[1].id = cudaLaunchAttributeCooperative;
+  at[1].val.cooperative = 1;
+  cfg.attrs = at;
+  cfg.numAttrs = coop ? 2 : 1;
+  cudaError_t e = cudaLaunchKernelExC(&cfg, kernel, params);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
 
 // Scenario scen's rows of the label tables (ksim_label_rows).
 struct KsimLabels {
@@ -654,24 +719,39 @@ __device__ __forceinline__ void ksim_extrema_init(float* v) {
 
 #define KSIM_EXTREMA_IS_MAX {true, true, false, true, false, true, true}
 
-// Fold node n's scratch rows of scenario scen into the unpacked extrema v
-// (K2's pass 1).
-__device__ __forceinline__ void ksim_extrema_node(const KsimArgs& a, int64_t scen, int n,
-                                                  float* v) {
+// One node's scratch rows of one scenario — its mask bit, its ignored bit
+// and its five raw Score rows — loaded together (independent loads overlap
+// their latency): K2's two passes and K7 read the same values.
+struct KsimRaw {
+  bool f, ign;
+  float fit, taint, na, ip, sp;
+};
+
+__device__ __forceinline__ KsimRaw ksim_raw(const KsimArgs& a, int64_t scen, int n) {
   const int N = a.N;
-  const bool f = a.feasible[scen * a.feas_ss + n] != 0;
   const float* rows = a.scores + scen * a.scores_ss;
-  v[0] = fmaxf(v[0], f ? rows[KSIM_ROW_TAINT * N + n] : 0.f);
-  v[1] = fmaxf(v[1], f ? rows[KSIM_ROW_NA * N + n] : 0.f);
-  if (f) {
-    const float ip = rows[KSIM_ROW_IP * N + n];
-    v[2] = fminf(v[2], ip);
-    v[3] = fmaxf(v[3], ip);
+  KsimRaw r;
+  r.f = a.feasible[scen * a.feas_ss + n] != 0;
+  r.ign = a.ignored[scen * a.feas_ss + n] != 0;
+  r.fit = rows[KSIM_ROW_FIT * N + n];
+  r.taint = rows[KSIM_ROW_TAINT * N + n];
+  r.na = rows[KSIM_ROW_NA * N + n];
+  r.ip = rows[KSIM_ROW_IP * N + n];
+  r.sp = rows[KSIM_ROW_SPREAD * N + n];
+  return r;
+}
+
+// Fold one node's rows into the unpacked extrema v (K2's pass 1).
+__device__ __forceinline__ void ksim_extrema_node(const KsimRaw& r, float* v) {
+  v[0] = fmaxf(v[0], r.f ? r.taint : 0.f);
+  v[1] = fmaxf(v[1], r.f ? r.na : 0.f);
+  if (r.f) {
+    v[2] = fminf(v[2], r.ip);
+    v[3] = fmaxf(v[3], r.ip);
     v[6] = 1.f;
-    if (!a.ignored[scen * a.feas_ss + n]) {
-      const float sp = rows[KSIM_ROW_SPREAD * N + n];
-      v[4] = fminf(v[4], sp);
-      v[5] = fmaxf(v[5], sp);
+    if (!r.ign) {
+      v[4] = fminf(v[4], r.sp);
+      v[5] = fmaxf(v[5], r.sp);
     }
   }
 }
@@ -680,6 +760,75 @@ __device__ __forceinline__ void ksim_extrema_node(const KsimArgs& a, int64_t sce
 __device__ __forceinline__ void ksim_extrema_flip(float* v) {
   v[2] = -v[2];
   v[4] = -v[4];
+}
+
+// ---------------------------------------------------------------------------
+// The cluster exchange of the selects (K2, K6's phase 2, K7). A scenario is
+// one thread-block cluster of C <= KSIM_MAX_CLUSTER blocks on neighbouring
+// SMs; each block reduces its own part of the node axis and PUSHES its result
+// into slot `rank` of every peer's shared memory (C remote stores through
+// DSMEM, cluster.map_shared_rank, issued by C threads and not waited on);
+// after a cluster barrier, which orders those stores, every thread folds the
+// C slots of its own block's shared memory. Max and min are exact in any
+// order, and a (value, index) pair with the lowest index on ties is a total
+// order, so every thread ends with the value a single block would have
+// reduced. Pushing, not pulling, keeps the remote traffic at C stores a
+// block and leaves nothing to read after the last barrier, so a block may
+// exit then. A block pushes into a slot array again only after the next
+// barrier, which every peer reaches after folding that array.
+// ---------------------------------------------------------------------------
+
+#define KSIM_MAX_CLUSTER 8
+
+// Push the unpacked extrema v (valid in every thread) into slot `rank` of
+// every peer's `slots`.
+__device__ __forceinline__ void ksim_cluster_push_extrema(const float* v,
+                                                          float (*slots)[KSIM_EXT]) {
+  cg::cluster_group cl = cg::this_cluster();
+  const unsigned C = cl.num_blocks();
+  if (threadIdx.x < C) {
+    float* dst = cl.map_shared_rank(slots[cl.block_rank()], threadIdx.x);
+    for (int k = 0; k < KSIM_EXT; ++k) dst[k] = v[k];
+  }
+}
+
+// Fold the C slots of extrema (after the barrier) into v, in every thread.
+__device__ __forceinline__ void ksim_cluster_fold_extrema(float* v, float (*slots)[KSIM_EXT]) {
+  const int C = (int)cg::this_cluster().num_blocks();
+  const bool is_max[KSIM_EXT] = KSIM_EXTREMA_IS_MAX;
+  for (int k = 0; k < KSIM_EXT; ++k) {
+    float x = slots[0][k];
+    for (int r = 1; r < C; ++r) x = is_max[k] ? fmaxf(x, slots[r][k]) : fminf(x, slots[r][k]);
+    v[k] = x;
+  }
+}
+
+// Push the (value, index) pair thread 0 holds into slot `rank` of every
+// peer's v_s / i_s; called by every thread of the block.
+__device__ __forceinline__ void ksim_cluster_push_pick(float bv, int bi, float* v_s, int* i_s) {
+  cg::cluster_group cl = cg::this_cluster();
+  const unsigned C = cl.num_blocks();
+  if (threadIdx.x < 32) {
+    bv = __shfl_sync(0xffffffffu, bv, 0);
+    bi = __shfl_sync(0xffffffffu, bi, 0);
+    if (threadIdx.x < C) {
+      *cl.map_shared_rank(v_s + cl.block_rank(), threadIdx.x) = bv;
+      *cl.map_shared_rank(i_s + cl.block_rank(), threadIdx.x) = bi;
+    }
+  }
+}
+
+// Fold the C pairs of v_s / i_s (after the barrier) through ksim_better
+// (MAX) or ksim_lower, in every thread.
+template <bool MAX>
+__device__ __forceinline__ void ksim_cluster_fold_pick(float& bv, int& bi, const float* v_s,
+                                                       const int* i_s) {
+  const int C = (int)cg::this_cluster().num_blocks();
+  bv = v_s[0];
+  bi = i_s[0];
+  for (int r = 1; r < C; ++r) {
+    if (MAX) ksim_better(bv, bi, v_s[r], i_s[r]); else ksim_lower(bv, bi, v_s[r], i_s[r]);
+  }
 }
 
 // The row constants of one pod's NormalizeScore from its extrema
@@ -728,31 +877,29 @@ __device__ __forceinline__ KsimNorm ksim_norm(const KsimArgs& a, int p, int64_t 
   return c;
 }
 
-// Node n's weighted total of scenario scen's normalized rows, in the
-// reference's plugin order.
-__device__ __forceinline__ float ksim_total(const KsimArgs& a, const KsimNorm& c, int64_t scen,
-                                            int n) {
-  const int N = a.N;
-  const float* rows = a.scores + scen * a.scores_ss;
+// One node's weighted total of its normalized rows, in the reference's
+// plugin order.
+__device__ __forceinline__ float ksim_total(const KsimArgs& a, const KsimNorm& c,
+                                            const KsimRaw& r) {
   float total = 0.f;
-  if (a.on_fit) total = total + c.w_fit * rows[KSIM_ROW_FIT * N + n];
+  if (a.on_fit) total = total + c.w_fit * r.fit;
   if (a.on_taint) {
-    float o = floorf((rows[KSIM_ROW_TAINT * N + n] * 100.f) / c.t_den);
+    float o = floorf((r.taint * 100.f) / c.t_den);
     o = c.t_pos ? 100.f - o : 100.f;
     total = total + c.w_taint * o;
   }
   if (a.on_na) {
-    float o = floorf((rows[KSIM_ROW_NA * N + n] * 100.f) / c.na_den);
+    float o = floorf((r.na * 100.f) / c.na_den);
     o = c.na_pos ? o : 0.f;
     total = total + c.w_na * o;
   }
   if (a.on_ip) {
-    float o = floorf((rows[KSIM_ROW_IP * N + n] - c.ip_lo0) * c.ip_k);
+    float o = floorf((r.ip - c.ip_lo0) * c.ip_k);
     o = c.ip_ok ? o : 0.f;
     total = total + c.w_ip * o;
   }
   if (a.on_sp) {
-    const float sp = rows[KSIM_ROW_SPREAD * N + n];
+    const float sp = r.sp;
     float o;
     if (a.sp_norm_f32) {
       float vals = floorf((100.f * ((c.sp_hi_f + c.sp_lo_f) - sp)) / (c.sp_pos ? c.sp_hi_f : 1.f));
@@ -762,73 +909,117 @@ __device__ __forceinline__ float ksim_total(const KsimArgs& a, const KsimNorm& c
       int32_t vals = ksim_floordiv(num, c.sp_hi_i > 0 ? c.sp_hi_i : 1);
       o = c.sp_hi_i > 0 ? (float)vals : 100.f;
     }
-    if (a.ignored[scen * a.feas_ss + n] || !c.sp_has || !c.any_scored) o = 0.f;
+    if (r.ign || !c.sp_has || !c.any_scored) o = 0.f;
     total = total + c.w_sp * o;
   }
   return total;
 }
 
-// K2's block body: the normalized total and the lowest-index argmax of pod p's
-// scratch rows in scenario scen; thread 0 writes the choice (or PAD) to
-// *choice. p < 0 (an empty retry-buffer slot, uniform over the block) writes
-// PAD. Under tier preemption a scenario with no feasible node takes, once per
-// `wave`, the masked argmin of K1's candidate row and writes the eviction
-// record K3 applies before the bind; every other scenario writes ev_node = -1.
+// K2's body, for one block of scenario scen's cluster: the normalized total
+// and the lowest-index argmax of pod p's scratch rows; the cluster's rank-0
+// block writes the choice (or PAD) to *choice. The block owns the nodes
+// [lo, hi) of the scenario (a cluster of one block: [0, N), the one-block
+// body, with no cluster barrier). p < 0 (an empty retry-buffer slot, uniform
+// over the cluster) writes PAD. Under tier preemption a scenario with no
+// feasible node takes, once per `wave`, the masked argmin of K1's candidate
+// row and writes the eviction record K3 applies before the bind; every other
+// scenario writes ev_node = -1. Every decision after an exchange (placed or
+// PAD, `fire`) is uniform over the cluster, so every thread of every block
+// reaches every cluster barrier.
 __device__ __forceinline__ void ksim_normalize_select_body(const KsimArgs& a, int p,
                                                            int64_t scen, int* choice,
-                                                           int wave) {
+                                                           int wave, int lo, int hi) {
   __shared__ float red[KSIM_EXT * 32];
   __shared__ float best_v[KSIM_MAX_WARPS];
   __shared__ int best_i[KSIM_MAX_WARPS];
   __shared__ int s_choice;
-  const int N = a.N;
+  // the cluster's slots (ksim_cluster_push_*): extrema, argmax and argmin pairs
+  __shared__ float x_ext[KSIM_MAX_CLUSTER][KSIM_EXT];
+  __shared__ float x_v[2][KSIM_MAX_CLUSTER];
+  __shared__ int x_i[2][KSIM_MAX_CLUSTER];
+  cg::cluster_group cl = cg::this_cluster();
+  const bool multi = cl.num_blocks() > 1;
+  const bool lead = cl.block_rank() == 0;
   if (p < 0) {
-    if (threadIdx.x == 0) *choice = KSIM_PAD;
+    if (lead && threadIdx.x == 0) *choice = KSIM_PAD;
     return;
   }
-  const uint8_t* feas = a.feasible + scen * a.feas_ss;
+  // A block with at most one node a thread (a cluster's rank, as a rule)
+  // loads its node's rows once, for both passes.
+  const bool one = hi - lo <= (int)blockDim.x;  // uniform over the block
+  const int n1 = lo + (int)threadIdx.x;
+  KsimRaw r1 = {};
+  if (one && n1 < hi) r1 = ksim_raw(a, scen, n1);
 
   // pass 1: extrema
   float v[KSIM_EXT];
   ksim_extrema_init(v);
   const bool is_max[KSIM_EXT] = KSIM_EXTREMA_IS_MAX;
-  for (int n = threadIdx.x; n < N; n += blockDim.x) ksim_extrema_node(a, scen, n, v);
+  if (one) {
+    if (n1 < hi) ksim_extrema_node(r1, v);
+  } else {
+    for (int n = n1; n < hi; n += blockDim.x) ksim_extrema_node(ksim_raw(a, scen, n), v);
+  }
   ksim_block_extrema(v, KSIM_EXT, is_max, red);
+  if (multi) {
+    ksim_cluster_push_extrema(v, x_ext);
+    cl.sync();
+    ksim_cluster_fold_extrema(v, x_ext);
+  }
   const KsimNorm c = ksim_norm(a, p, scen, v);
 
   // pass 2: total + argmax (lowest index on ties)
   float bv = -INFINITY;
   int bi = 0x7fffffff;
-  for (int n = threadIdx.x; n < N; n += blockDim.x) {
-    const float total = ksim_total(a, c, scen, n);
-    if (feas[n]) ksim_better(bv, bi, total, n);
+  if (one) {
+    if (n1 < hi) {
+      const float total = ksim_total(a, c, r1);
+      if (r1.f) ksim_better(bv, bi, total, n1);
+    }
+  } else {
+    for (int n = n1; n < hi; n += blockDim.x) {
+      const KsimRaw r = ksim_raw(a, scen, n);
+      const float total = ksim_total(a, c, r);
+      if (r.f) ksim_better(bv, bi, total, n);
+    }
   }
   ksim_block_pick<true>(bv, bi, best_v, best_i);
+  if (multi) {
+    ksim_cluster_push_pick(bv, bi, x_v[0], x_i[0]);
+    cl.sync();
+    ksim_cluster_fold_pick<true>(bv, bi, x_v[0], x_i[0]);
+  }
   if (threadIdx.x == 0) s_choice = bv > -INFINITY ? bi : KSIM_PAD;
   __syncthreads();
   if (!a.preempt) {
-    if (threadIdx.x == 0) *choice = s_choice;
+    if (lead && threadIdx.x == 0) *choice = s_choice;
     return;
   }
   // Tier preemption (ops/tpu3.py:1542-1575): nothing feasible, the pod may
   // preempt and no preemption fired yet in this wave of this scenario ->
   // the lowest-index masked argmin (ops/tpu.py:788) of K1's candidate row,
-  // and the eviction record K3 applies before the bind.
+  // and the eviction record K3 applies before the bind. Every block reads
+  // last_wave before the argmin's barrier; rank 0 writes it after.
   const bool fire = s_choice == KSIM_PAD && ksim_may_preempt(a, p) &&
-                    a.last_wave[scen] != wave;  // uniform over the block
+                    a.last_wave[scen] != wave;  // uniform over the cluster
   int node = KSIM_PAD;
   if (fire) {
-    const float* cand = a.cand + scen * N;
+    const float* cand = a.cand + scen * a.N;
     float mv = INFINITY;
     int mi = 0x7fffffff;
-    for (int n = threadIdx.x; n < N; n += blockDim.x) {
+    for (int n = lo + threadIdx.x; n < hi; n += blockDim.x) {
       float c2 = cand[n];
       if (c2 < INFINITY) ksim_lower(mv, mi, c2, n);
     }
     ksim_block_pick<false>(mv, mi, best_v, best_i);
+    if (multi) {
+      ksim_cluster_push_pick(mv, mi, x_v[1], x_i[1]);
+      cl.sync();
+      ksim_cluster_fold_pick<false>(mv, mi, x_v[1], x_i[1]);
+    }
     if (threadIdx.x == 0 && mv < INFINITY) node = mi;
   }
-  if (threadIdx.x == 0) {
+  if (lead && threadIdx.x == 0) {
     if (node >= 0) {
       *choice = node;
       a.ev_node[scen] = node;

@@ -35,11 +35,7 @@
 //
 // Bound on an H100: bytes — per pair R * 4 + G + a few words; launch-bound
 // at K = 1, latency-bound by the in-order walk at release sizes.
-#include <cooperative_groups.h>
-
 #include "ksim.cuh"
-
-namespace cg = cooperative_groups;
 
 #define K8_THREADS 256
 
@@ -138,28 +134,6 @@ __global__ void __launch_bounds__(K8_THREADS)
   }
 }
 
-// Blocks a cooperative launch of the kernel may hold on the current device
-// (cached per device), or a negative CUDA error.
-static int k8_max_blocks() {
-  static int cached[64] = {0};
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return -(int)e;
-  if (dev < 64 && cached[dev] > 0) return cached[dev];
-  int coop = 0, sms = 0, per_sm = 0;
-  if ((e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev)) != cudaSuccess)
-    return -(int)e;
-  if (!coop) return -(int)cudaErrorNotSupported;
-  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
-    return -(int)e;
-  if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, ksim_shard_apply_kernel,
-                                                         K8_THREADS, 0)) != cudaSuccess)
-    return -(int)e;
-  if (per_sm < 1) return -(int)cudaErrorCooperativeLaunchTooLarge;
-  if (dev < 64) cached[dev] = per_sm * sms;
-  return per_sm * sms;
-}
-
 KSIM_EXPORT int ksim_shard_apply(const KsimArgs* args, const int32_t* pods, const int32_t* pos,
                                  int32_t* choices, int K, long long choice_ss, float sign,
                                  int rollback, void* stream) {
@@ -167,7 +141,7 @@ KSIM_EXPORT int ksim_shard_apply(const KsimArgs* args, const int32_t* pods, cons
   if (!args->cdom || args->S < 1 || args->NP < 1 || args->preempt || args->retry ||
       (long long)args->NP * args->n_local != args->N || (rollback && K > KSIM_MAX_WAVE))
     return (int)cudaErrorInvalidValue;
-  const int cap = k8_max_blocks();
+  const int cap = ksim_resident((const void*)ksim_shard_apply_kernel, 1, K8_THREADS);
   if (cap < 0) return -cap;
   const long long blocks = (long long)args->NP * args->S;
   if (blocks > cap) return (int)cudaErrorCooperativeLaunchTooLarge;

@@ -45,6 +45,14 @@ a chunk's waves in one cooperative launch, so a chunk on the chunk route
 equals the same chunk on the per-slot route (K1 → K2 → K3 a slot) bit for
 bit; :mod:`..sim.torch_runtime` chooses the route from the run's mode.
 
+The selects — K2, K6's K2 phase and K7 — launch as thread-block clusters
+(Hopper, ``sm_90a``): a scenario is one cluster of C blocks on neighbouring
+SMs, each block reducing its part of the node axis (K7: its shards), the C
+results folded through distributed shared memory after a cluster barrier.
+:func:`cluster_plan` chooses C, the block width, the grid and each block's
+nodes or shards from the shapes and the card's residency alone; a refused
+launch raises.
+
 K5 runs only at telemetry ``series``/``timeline``: the default ``summary``
 launches K1–K4 as before.
 
@@ -102,6 +110,7 @@ import shutil
 import subprocess
 import threading
 import time
+from dataclasses import dataclass
 from pathlib import Path
 from typing import Callable, Dict, Optional, Tuple
 
@@ -137,8 +146,8 @@ _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_flo
 _ARGTYPES = {
     # (args, pod, pod_of_s, pod_ss, stream)
     "filter_score": [_P, _I, _P, _LL, _P],
-    # (args, pod, choice_out, choice_ss, wave, pod_of_s, pod_ss, stream)
-    "normalize_select": [_P, _I, _P, _LL, _I, _P, _LL, _P],
+    # (args, pod, choice_out, choice_ss, wave, pod_of_s, pod_ss, C, threads, span, stream)
+    "normalize_select": [_P, _I, _P, _LL, _I, _P, _LL, _I, _I, _I, _P],
     # (args, pods, pod_ss, pos, choices, K, choice_ss, sign, rollback, boundary,
     #  due_relb, due_b, append, stream)
     "apply_placements": [_P, _P, _LL, _P, _P, _I, _LL, _F, _I, _I, _P, _I, _I, _P],
@@ -147,10 +156,11 @@ _ARGTYPES = {
     # (args, pods, pod_ss, M, gate, gate_ss, reasons, attempts, attributed, K, attr_ss,
     #  stream)
     "first_reject": [_P, _P, _LL, _I, _P, _LL, _P, _P, _P, _I, _LL, _P],
-    # (args, idx, gang, choices, choice_ss, W, first, end, boundary, append, stream)
-    "chunk_replay": [_P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _P],
-    # (args, pod, choices, choice_ss, slot, stream)
-    "shard_select": [_P, _I, _P, _LL, _I, _P],
+    # (args, idx, gang, choices, choice_ss, W, first, end, boundary, append, C, grid, span,
+    #  stream)
+    "chunk_replay": [_P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # (args, pod, choices, choice_ss, slot, C, threads, stream)
+    "shard_select": [_P, _I, _P, _LL, _I, _I, _I, _P],
     # (args, pods, pos, choices, K, choice_ss, sign, rollback, stream)
     "shard_apply": [_P, _P, _P, _P, _I, _LL, _F, _I, _P],
 }
@@ -159,6 +169,98 @@ _MAX_SEG = 16
 _MAX_TERMS = 64
 _MAX_WAVE = 1024
 _MAX_RB = 4096  # the granularity guard's cap (sim/granularity.py)
+
+
+#: Largest cluster of the selects: the portable size, which every Hopper part
+#: schedules without the non-portable opt-in.
+CLUSTER_CAP = 8
+#: The selects' full block width (K6's always; K2's and K7's above the narrow
+#: case).
+SELECT_THREADS = 1024
+#: Narrowest block of K2 and K7 (a small node axis takes fewer warps per
+#: block reduction).
+MIN_THREADS = 256
+
+
+def _round32(n: int) -> int:
+    return -(-n // 32) * 32
+
+
+@dataclass(frozen=True)
+class ClusterPlan:
+    """Launch geometry of a cluster-per-scenario select: scenario s is the
+    cluster of blocks ``[s*C, (s+1)*C)`` (K6: clusters stride over the
+    scenarios); block rank r owns the nodes :meth:`node_range` (K2, K6's
+    phase 2) or the shards :meth:`shards` (K7)."""
+
+    S: int
+    N: int  #: the node axis (K7: the padded one, NP shard blocks)
+    NP: int  #: node shards (1 unsharded)
+    C: int  #: blocks a cluster
+    threads: int  #: block width
+    span: int  #: nodes of a rank (unsharded) / of a shard (K7)
+    grid: int  #: blocks of the launch, a multiple of C
+
+    def node_range(self, r: int) -> Tuple[int, int]:
+        """The nodes ``[lo, hi)`` of block rank r (unsharded)."""
+        lo = min(self.N, r * self.span)
+        return lo, min(self.N, lo + self.span)
+
+    def shards(self, r: int) -> Tuple[int, ...]:
+        """The shards block rank r reduces, in shard order (K7)."""
+        return tuple(range(r, self.NP, self.C))
+
+
+def cluster_plan(S: int, N: int, NP: Optional[int] = None, *, sms: int,
+                 clusters: Optional[Callable[[int], int]] = None,
+                 items: Optional[int] = None) -> ClusterPlan:
+    """The launch geometry of a select over S scenarios of N nodes (``NP``:
+    K7 over NP shards of N / NP nodes), a pure function of the shapes and
+    the card's residency:
+
+    - ``sms``: the card's SMs, each running one block of
+      :data:`SELECT_THREADS` threads of a select at a time. Where S alone
+      fills the card (S >= sms) C = 1, the one-block select; otherwise C =
+      min(:data:`CLUSTER_CAP`, the 1,024-node tiles (K7: NP), sms // S). A
+      second block resident on an SM (K2 and K7 fit two of 1,024 threads)
+      adds warps, not an SM: at S = 128, N = 2,000 a cluster of two ran
+      slower than one block (``scripts/cluster_sweep.py``).
+    - ``items`` (K6, a cooperative launch: every block resident, blocks of
+      :data:`SELECT_THREADS`): phase 1's (scenario, tile) items; the grid is
+      enough clusters for them and for the S scenarios, at most
+      ``clusters(C)``, the clusters of C the card holds at once (C shrinks
+      until S clusters fit).
+    - Unsharded, rank r owns ``span`` nodes (a multiple of 32, C·span >= N;
+      C shrinks so no rank is empty); K2's and K7's block is one thread a
+      node of a rank (a shard), between :data:`MIN_THREADS` and
+      :data:`SELECT_THREADS`."""
+    if S < 1 or N < 1 or sms < 1:
+        raise ValueError(f"cluster_plan: S={S}, N={N}, sms={sms}")
+    if NP is not None and (NP < 1 or N % NP):
+        raise ValueError(f"cluster_plan: {NP} shards do not tile {N} nodes")
+    tiles = -(-N // SELECT_THREADS)
+    want = min(CLUSTER_CAP, NP if NP is not None else tiles)
+    C = 1 if S >= sms else max(1, min(want, sms // S))
+    if clusters is not None:
+        while C > 1 and clusters(C) < S:
+            C -= 1
+    if NP is not None:
+        span = N // NP
+    else:
+        span = _round32(-(-N // C))
+        C = -(-N // span)
+    if items is None:
+        threads = min(SELECT_THREADS, max(MIN_THREADS, _round32(span)))
+        grid = S * C
+    else:
+        threads = SELECT_THREADS
+        n = max(S, -(-items // C))
+        if clusters is not None:
+            n = min(n, clusters(C))
+        if n < 1:
+            raise RuntimeError(f"the card holds no cluster of {C} blocks of {threads} threads")
+        grid = n * C
+    return ClusterPlan(S=S, N=N, NP=NP or 1, C=C, threads=threads, span=span, grid=grid)
 
 
 class KsimArgs(ctypes.Structure):
@@ -207,6 +309,8 @@ class KsimArgs(ctypes.Structure):
 
 _lock = threading.Lock()
 _libs: Dict[str, Callable] = {}  # kernel name → its C entry point
+_queries: Dict[str, Callable] = {}  # "chunk_clusters" → K6's residency query
+_cluster_cache: Dict[Tuple[int, int], int] = {}  # (device, C) → K6's resident clusters
 #: Wall seconds of the last build (0 when every library came from _build/).
 last_build_s = 0.0
 
@@ -283,12 +387,44 @@ def build(verbose: bool = False) -> float:
             fn.argtypes = _ARGTYPES[name]
             fn.restype = ctypes.c_int
             _libs[name] = fn
+            if name == "chunk_replay":
+                q = lib.ksim_chunk_replay_resident
+                q.argtypes, q.restype = [_I], ctypes.c_int
+                _queries["chunk_clusters"] = q
         return last_build_s
 
 
 def _check(rc: int, name: str) -> None:
     if rc != 0:
         raise RuntimeError(f"kernel {name}: launch failed with CUDA error {rc}")
+
+
+def chunk_clusters(C: int, device) -> int:
+    """Clusters of C blocks of K6 (1,024 threads) that the card ``device``
+    holds at once (cudaOccupancyMaxActiveClusters; C = 1: blocks)."""
+    dev = torch.device(device).index
+    dev = torch.cuda.current_device() if dev is None else dev
+    n = _cluster_cache.get((dev, C))
+    if n is None:
+        with torch.cuda.device(dev):
+            n = _queries["chunk_clusters"](C)
+        if n < 0:
+            raise RuntimeError(f"kernel chunk_replay: occupancy query failed with CUDA error {-n}")
+        _cluster_cache[(dev, C)] = n
+    return n
+
+
+def select_plan(name: str, tb: ref.Tables) -> ClusterPlan:
+    """:func:`cluster_plan` of the select ``name`` (``normalize_select``,
+    ``chunk_replay``, ``shard_select``) on the CUDA tables ``tb``."""
+    S, N = tb.state.used.shape[:2]
+    dev = tb.state.used.device
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    if name == "chunk_replay":
+        return cluster_plan(S, N, sms=sms, clusters=lambda C: chunk_clusters(C, dev),
+                            items=S * -(-N // SELECT_THREADS))
+    NP = tb.shards.P if name == "shard_select" else None
+    return cluster_plan(S, N, NP, sms=sms)
 
 
 # ---------------------------------------------------------------------------
@@ -503,6 +639,15 @@ class Bound:
             self._args_ptr = ctypes.addressof(self.args)
             if tb.reject is not None:
                 check_reject(tb)
+        self._plans: Dict[str, ClusterPlan] = {}
+
+    def plan(self, name: str) -> ClusterPlan:
+        """The launch geometry of the select ``name`` on these tables
+        (:func:`select_plan`, computed at its first launch)."""
+        p = self._plans.get(name)
+        if p is None:
+            p = self._plans[name] = select_plan(name, self.tables)
+        return p
 
 
 def _stream() -> int:
@@ -578,9 +723,10 @@ def normalize_select(b: Bound, pod: int, choices: torch.Tensor, slot: int,
     if not 0 <= slot < choices.shape[1]:
         raise ValueError(f"slot {slot} outside the choice buffer's {choices.shape[1]} columns")
     ptr, ss = _pod_row(b, pod_of_s)
+    plan = normalize_select.plan = b.plan("normalize_select")
     _check(_libs["normalize_select"](
         b._args_ptr, int(pod), choices.data_ptr() + 4 * int(slot), choices.shape[1],
-        int(wave), ptr, ss, _stream()), "normalize_select")
+        int(wave), ptr, ss, plan.C, plan.threads, plan.span, _stream()), "normalize_select")
     normalize_select.launches += 1
 
 
@@ -750,10 +896,11 @@ def chunk_replay(b: Bound, idx: torch.Tensor, gang: torch.Tensor, choices: torch
         raise ValueError("a failure append needs retry tables")
     if end == first:
         return
+    plan = chunk_replay.plan = b.plan("chunk_replay")
     _check(_libs["chunk_replay"](
         b._args_ptr, idx.data_ptr(), gang.data_ptr(), choices.data_ptr(), choices.shape[1],
         int(W), int(first), int(end), -1 if boundary is None else int(boundary),
-        int(bool(append)), _stream()), "chunk_replay")
+        int(bool(append)), plan.C, plan.grid, plan.span, _stream()), "chunk_replay")
     chunk_replay.launches += 1
 
 
@@ -780,8 +927,9 @@ def shard_select(b: Bound, pod: int, choices: torch.Tensor, slot: int) -> None:
     if not b.cuda:
         ref.shard_select(b.tables, pod, choices, slot)
         return
+    plan = shard_select.plan = b.plan("shard_select")
     _check(_libs["shard_select"](b._args_ptr, int(pod), choices.data_ptr(), choices.shape[1],
-                                 int(slot), _stream()), "shard_select")
+                                 int(slot), plan.C, plan.threads, _stream()), "shard_select")
     shard_select.launches += 1
 
 
@@ -836,3 +984,5 @@ def launch_counts() -> Dict[str, int]:
 
 
 reset_launch_counts()
+#: The geometry of each select's last launch (a ClusterPlan; None before one).
+normalize_select.plan = chunk_replay.plan = shard_select.plan = None

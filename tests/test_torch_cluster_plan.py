@@ -1,0 +1,124 @@
+"""The launch geometry of the cluster selects (ops/kernels.py cluster_plan).
+
+K2, K6's K2 phase and K7 launch as thread-block clusters whose size, block
+width, grid and per-block node ranges or shard sets come from one plain
+function of the shapes and the card's residency. It runs here on the CPU
+with the SM counts of H100 parts (132 SXM, 114 PCIe) and, for K6's
+all-resident launch, its clusters of C blocks of 1,024 threads modelled as
+``sms // C`` less one (the card packs them into its graphics clusters)."""
+
+import pytest
+
+from kubernetes_simulator_tpu_torch.ops.kernels import (
+    CLUSTER_CAP,
+    MIN_THREADS,
+    SELECT_THREADS,
+    ClusterPlan,
+    cluster_plan,
+)
+
+SMS = (132, 114)
+SHAPES = [(1, 37), (1, 500), (1, 2000), (1, 5000), (1, 10_000), (4, 5000), (16, 10_000),
+          (33, 3000), (128, 500), (128, 2000), (132, 2000), (300, 2000), (1000, 10_000)]
+SHARDED = [(1, 8, 1250), (1, 3, 3334), (1, 12, 834), (1, 20, 500), (1, 3, 34), (1, 8, 5),
+           (4, 8, 1250), (128, 8, 250), (300, 3, 700)]
+
+
+def _clusters(sms):
+    return lambda C: max(0, sms // C - (1 if C > 1 else 0))
+
+
+def _check_common(plan: ClusterPlan, S, sms):
+    assert 1 <= plan.C <= min(16, CLUSTER_CAP)
+    assert plan.grid % plan.C == 0 and plan.grid >= plan.C
+    assert plan.threads % 32 == 0 and MIN_THREADS <= plan.threads <= SELECT_THREADS
+    if S >= sms:
+        assert plan.C == 1
+
+
+def _check_ranges(plan: ClusterPlan, N):
+    covered = []
+    for r in range(plan.C):
+        lo, hi = plan.node_range(r)
+        assert lo < hi, (r, lo, hi)  # no rank is empty
+        covered.extend(range(lo, hi))
+    assert covered == list(range(N))  # every node once, in order
+    assert plan.span % 32 == 0 and plan.C * plan.span >= N
+
+
+@pytest.mark.parametrize("sms", SMS)
+@pytest.mark.parametrize("S,N", SHAPES)
+def test_select_plan(S, N, sms):
+    """K2: one cluster a scenario (grid S·C), the node axis split into
+    contiguous ranks of ``span`` nodes; C > 1 only while S leaves the card
+    idle, and never more ranks than 1,024-node tiles."""
+    plan = cluster_plan(S, N, sms=sms)
+    _check_common(plan, S, sms)
+    _check_ranges(plan, N)
+    assert plan.grid == S * plan.C and plan.NP == 1
+    assert plan.C <= max(1, -(-N // SELECT_THREADS))
+    assert S * plan.C <= max(sms, S)
+    assert plan == cluster_plan(S, N, sms=sms)  # a pure function
+
+
+@pytest.mark.parametrize("sms", SMS)
+@pytest.mark.parametrize("S,N", SHAPES)
+def test_chunk_plan(S, N, sms):
+    """K6: blocks of 1,024 threads, every cluster resident at once; enough
+    clusters for phase 1's (scenario, tile) items and the S scenarios, C = 1
+    once S fills the card (the headline's 128 scenarios on 132 SMs)."""
+    tiles = -(-N // SELECT_THREADS)
+    clusters = _clusters(sms)
+    plan = cluster_plan(S, N, sms=sms, clusters=clusters, items=S * tiles)
+    _check_common(plan, S, sms)
+    _check_ranges(plan, N)
+    assert plan.threads == SELECT_THREADS
+    n = plan.grid // plan.C
+    assert 1 <= n <= clusters(plan.C)
+    assert n == min(clusters(plan.C), max(S, -(-S * tiles // plan.C)))
+    if plan.C > 1:
+        assert clusters(plan.C) >= S
+    if (S, N, sms) == (128, 2000, 132):
+        assert plan.C == 1 and plan.grid == 132
+    if S == 1 and N >= 2 * SELECT_THREADS:
+        assert plan.C > 1
+    assert plan == cluster_plan(S, N, sms=sms, clusters=clusters, items=S * tiles)
+
+
+@pytest.mark.parametrize("sms", SMS)
+@pytest.mark.parametrize("S,NP,n_local", SHARDED)
+def test_shard_plan(S, NP, n_local, sms):
+    """K7: C = min(NP, the cap) blocks a scenario (C = 1 once S fills the
+    card); block r reduces the shards r, r + C, ..., so every shard falls to
+    exactly one block, each block's in shard order."""
+    N = NP * n_local
+    plan = cluster_plan(S, N, NP, sms=sms)
+    _check_common(plan, S, sms)
+    assert plan.NP == NP and plan.span == n_local and plan.grid == S * plan.C
+    if S < sms:
+        assert plan.C == min(NP, CLUSTER_CAP, sms // S)
+    owned = [q for r in range(plan.C) for q in plan.shards(r)]
+    assert sorted(owned) == list(range(NP))
+    for r in range(plan.C):
+        qs = plan.shards(r)
+        assert qs and list(qs) == sorted(qs) and all(q % plan.C == r for q in qs)
+    assert plan == cluster_plan(S, N, NP, sms=sms)
+
+
+@pytest.mark.parametrize("args,kw", [
+    ((0, 100), dict(sms=132)),
+    ((1, 0), dict(sms=132)),
+    ((1, 100), dict(sms=0)),
+    ((1, 100, 3), dict(sms=132)),
+])
+def test_plan_refuses(args, kw):
+    """Empty shapes, no SM and shards that do not tile the node axis
+    raise."""
+    with pytest.raises(ValueError):
+        cluster_plan(*args, **kw)
+
+
+def test_chunk_plan_without_room_raises():
+    """A card that holds no cluster of the chosen size refuses K6's plan."""
+    with pytest.raises(RuntimeError):
+        cluster_plan(1, 100, sms=132, clusters=lambda C: 0, items=1)

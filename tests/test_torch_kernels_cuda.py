@@ -569,7 +569,7 @@ def _shard_engine(dev, P, paged=False, plain=False, seed=7):
                              node_shards=P, paged=paged, plain=plain)
 
 
-@pytest.mark.parametrize("P", (2, 3, 8))
+@pytest.mark.parametrize("P", (2, 3, 8, 12, 20))
 def test_shard_kernels_equal_twins(card, P):
     """K1 on the sharded tables, K7 and K8 against their twins launch by
     launch over a whole sharded replay (37 nodes: P = 3 and 8 pad the node
@@ -660,3 +660,222 @@ def test_shard_kernel_path_equals_plain_path(card, P, paged):
         np.testing.assert_array_equal(res.assignments, other.assignments)
         assert res.placed == other.placed
         np.testing.assert_array_equal(res.state.used, other.state.used)
+
+
+# ---------------------------------------------------------------------------
+# The cluster selects (K2, K6's K2 phase, K7) at node counts where a scenario
+# spans several blocks (ops/kernels.py cluster_plan), bit for bit.
+# ---------------------------------------------------------------------------
+
+_CLUSTER_CASES = {}
+
+
+def _cluster_case(nodes, pods=48):
+    """A cluster of ``nodes`` nodes and a short workload, encoded once."""
+    if nodes not in _CLUSTER_CASES:
+        _CLUSTER_CASES[nodes] = _case(11, nodes=nodes, pods=pods, gang_fraction=0.1,
+                                      gang_size=3)
+    return _CLUSTER_CASES[nodes]
+
+
+def _select_tables(card, S, N, preempt=False):
+    """Tables of S scenarios over N nodes for K2 alone: the encoded case's
+    cluster and pods, zero state, the scratch rows to be filled by the test;
+    under ``preempt`` every non-gang pod of tier 1 (and a 64-column choice
+    buffer's bookkeeping)."""
+    ec, ep = _cluster_case(N)
+    consts = StepSpec.from_config(ec, FrameworkConfig(), ep).consts()
+    cl = ref.cluster_to(ec, card, S)
+    G, D = cl.gdom.shape[1], max(ec.max_domains, 1)
+    z = lambda *sh: torch.zeros(sh, dtype=torch.float32, device=card)
+    st = ref.DevState(z(S, N, ec.num_resources), z(S, G, D), z(S, G, D), z(S, G, D))
+    pre = None
+    if preempt:
+        P, L, Tt = ep.num_pods, 64, 2
+        pre = ref.new_preempt(np.ones(P, np.int32), ep.group_id, np.full(L, PAD, np.int32),
+                              np.zeros(L, np.int32), L, np.zeros((Tt, N, ec.num_resources)),
+                              np.zeros((Tt, N)), S, card)
+    return ref.Tables(cl, ref.pods_to(ep, card), st,
+                      ref.new_scratch(S, N, card), consts, preempt=pre)
+
+
+def _fill_scratch(tb, rng, case, span):
+    """Scratch rows of one case: small integer raws (many equal totals);
+    ``straddle``: only the fit row varies, its best value on both sides of
+    every block boundary (and at the last node), nothing feasible before
+    rank 0's last node; ``pad``: nothing feasible."""
+    x = tb.scratch
+    S, R, N = x.scores.shape
+    rows = rng.integers(0, 4, size=(S, R, N)).astype(np.float32)
+    feas = rng.random((S, N)) < 0.7
+    ign = rng.random((S, N)) < 0.1
+    if case == "straddle":
+        rows[:] = 0.0
+        rows[:, ref.ROW_FIT] = rng.integers(0, 3, size=(S, N))
+        top = [n for b in range(span, N, span) for n in (b - 1, b)] + [N - 1]
+        rows[:, ref.ROW_FIT, top] = 50.0
+        feas[:, : span - 1] = False
+        feas[:, top] = True
+        ign[:] = False
+    if case == "pad":
+        feas[:] = False
+    x.scores.copy_(torch.as_tensor(rows))
+    x.feasible.copy_(torch.as_tensor(feas))
+    x.ignored.copy_(torch.as_tensor(ign))
+
+
+def _clone_tables(tb):
+    cp = lambda nt: type(nt)(*(t.clone() if torch.is_tensor(t) else t for t in nt))
+    return tb._replace(scratch=cp(tb.scratch),
+                       preempt=cp(tb.preempt) if tb.preempt is not None else None)
+
+
+@pytest.mark.parametrize("S,N", [(1, 5000), (1, 10000), (4, 5000), (128, 2000)])
+@pytest.mark.parametrize("case", ["random", "straddle", "pad"])
+def test_cluster_normalize_select_equals_twin(card, S, N, case):
+    """K2 as a cluster select (N not a multiple of C x 1,024) against its
+    twin, pod after pod: random rows full of equal totals, the best total
+    on both sides of every block boundary (the lowest index must win across
+    blocks), and nothing feasible (PAD)."""
+    tb_k = _select_tables(card, S, N)
+    b = K.Bound(tb_k)
+    plan = b.plan("normalize_select")
+    assert plan.grid == S * plan.C and plan.C * plan.span >= N
+    if S == 1:
+        assert plan.C > 1 and N % (plan.C * 1024), plan
+    rng = np.random.default_rng(S * 7 + N)
+    ch_k = torch.full((S, 8), PAD, dtype=torch.int32, device=card)
+    ch_t = ch_k.clone()
+    pods = rng.choice(tb_k.pods.group_id.shape[0], size=8, replace=False)
+    for i, p in enumerate(pods.tolist()):
+        _fill_scratch(tb_k, rng, case, plan.span)
+        K.normalize_select(b, p, ch_k, i)
+        ref.normalize_select(tb_k, p, ch_t, i)
+        torch.cuda.synchronize()
+        assert torch.equal(ch_k[:, i], ch_t[:, i]), (case, p, ch_k[:, i], ch_t[:, i])
+    assert K.normalize_select.plan == plan
+    if case == "pad":
+        assert bool((ch_k == PAD).all())
+    else:
+        assert bool((ch_k >= 0).all())
+    if case == "straddle" and plan.C > 1:
+        assert bool((ch_k == plan.span - 1).all())
+
+
+def test_cluster_normalize_select_retry_pass(card):
+    """K2's retry pass (one pod a scenario, an empty slot PAD) as a cluster
+    select at S = 4, N = 5,000."""
+    S, N = 4, 5000
+    tb = _select_tables(card, S, N)
+    b = K.Bound(tb)
+    assert b.plan("normalize_select").C > 1
+    rng = np.random.default_rng(3)
+    ch_k = torch.full((S, 4), PAD, dtype=torch.int32, device=card)
+    ch_t = ch_k.clone()
+    P = tb.pods.group_id.shape[0]
+    for i in range(4):
+        _fill_scratch(tb, rng, "random", b.plan("normalize_select").span)
+        pod_of_s = torch.as_tensor(rng.integers(0, P, size=S).astype(np.int32), device=card)
+        pod_of_s[i] = PAD
+        K.normalize_select(b, PAD, ch_k, i, -1, pod_of_s)
+        ref.normalize_select(tb, PAD, ch_t, i, -1, pod_of_s)
+        torch.cuda.synchronize()
+        assert torch.equal(ch_k[:, i], ch_t[:, i]), (i, ch_k[:, i], ch_t[:, i])
+        assert int(ch_k[i, i]) == PAD
+
+
+def test_cluster_preempt_argmin(card):
+    """K2's masked argmin as a cluster select at S = 1, N = 5,000: nothing
+    feasible, candidate ranks tied on both sides of a block boundary; the
+    argmin fires once a wave (choice, eviction record, wave stamp), and a
+    second pod of the same wave writes PAD and no record."""
+    N = 5000
+    tb_k = _select_tables(card, 1, N, preempt=True)
+    b = K.Bound(tb_k)
+    plan = b.plan("normalize_select")
+    assert plan.C > 1
+    tb_t = _clone_tables(tb_k)
+    rng = np.random.default_rng(5)
+    gid = tb_k.pods.group_id.cpu().numpy()
+    p0, p1 = np.nonzero(gid < 0)[0][:2].tolist()
+    cand = np.full(N, np.inf, np.float32)
+    on = rng.random(N) < 0.3
+    cand[on] = rng.integers(1, 5, size=int(on.sum())) * 1024.0
+    b0 = plan.span
+    cand[[b0 - 1, b0, N - 1]] = 1024.0 - 1.0  # the lowest rank, at a boundary
+    cand[: b0 - 1] = np.where(cand[: b0 - 1] < 1024.0, np.inf, cand[: b0 - 1])
+    ch_k = torch.full((1, 64), PAD, dtype=torch.int32, device=card)
+    ch_t = ch_k.clone()
+    for tb in (tb_k, tb_t):
+        tb.scratch.feasible.zero_()
+        tb.preempt.cand.copy_(torch.as_tensor(cand)[None])
+    for slot, p in enumerate((p0, p1)):
+        K.normalize_select(b, p, ch_k, slot, 3)
+        ref.normalize_select(tb_t, p, ch_t, slot, 3)
+        torch.cuda.synchronize()
+        assert torch.equal(ch_k, ch_t), (slot, ch_k[0, :2], ch_t[0, :2])
+        for f in ("last_wave", "ev_node", "ev_tier"):
+            assert torch.equal(getattr(tb_k.preempt, f), getattr(tb_t.preempt, f)), (slot, f)
+    assert int(ch_k[0, 0]) == b0 - 1 and int(ch_k[0, 1]) == PAD
+    assert int(tb_k.preempt.ev_node[0]) == PAD and int(tb_k.preempt.last_wave[0]) == 3
+
+
+@pytest.mark.parametrize("nodes", [5000, 10000])
+def test_cluster_chunk_replay_s1(card, nodes):
+    """K6 at S = 1 with its K2 phase on a cluster (config2's and config4's
+    node counts): the chunk route equals the per-slot route and the twins
+    on the card (assignments and ``used``)."""
+    ec, ep = _case(13, nodes=nodes, pods=700, gang_fraction=0.1, gang_size=3,
+                   duration_mean=5.0, arrival_rate=40.0)
+    kw = dict(wave_width=8, chunk_waves=16)
+    K.reset_launch_counts()
+    eng = TorchReplayEngine(ec, ep, FrameworkConfig(), device=card, **kw)
+    res = eng.replay()
+    assert res.route == "chunk" and K.launch_counts()["chunk_replay"] == len(eng.plan.buckets)
+    plan = K.chunk_replay.plan
+    assert plan.C > 1 and plan.grid % plan.C == 0, plan
+    _, _, a_slot, _, _ = eng._run(route="slot")
+    np.testing.assert_array_equal(res.assignments, a_slot[0])
+    plain = TorchReplayEngine(ec, ep, FrameworkConfig(), device=card, plain=True, **kw).replay()
+    np.testing.assert_array_equal(res.assignments, plain.assignments)
+    np.testing.assert_array_equal(res.state.used, plain.state.used)
+
+
+@pytest.mark.parametrize("P", (3, 8, 12, 20))
+def test_cluster_shard_select_equals_twin(card, P):
+    """K7 as a cluster per scenario over 5,000 nodes (C = min(P, 8); at 12
+    and 20 shards a block owns several), after K1, slot after slot of a
+    sharded replay's first waves: each shard's packed extrema and pair,
+    the choice and the column's domain ids equal the twin's."""
+    from kubernetes_simulator_tpu_torch.sim.torch_runtime import new_choices
+
+    ec, ep = _case(17, nodes=5000, pods=300, gang_fraction=0.1, gang_size=4)
+    eng = TorchReplayEngine(ec, ep, FrameworkConfig(), chunk_waves=4, device=card,
+                            node_shards=P)
+    plan = eng.plan
+    tb_k, tb_t = eng._tables(), eng._tables()
+    b = K.Bound(tb_k)
+    cp = b.plan("shard_select")
+    assert cp.C == min(P, K.CLUSTER_CAP) and cp.NP == P, cp
+    ch_k = new_choices(plan, 1, eng.pods.bound_node, card)
+    ch_t = ch_k.clone()
+    idx = torch.as_tensor(plan.idx.reshape(-1), device=card)
+    pos = torch.arange(plan.L, dtype=torch.int32, device=card)
+    W = plan.idx.shape[1]
+    sh_k, sh_t = tb_k.shards, tb_t.shards
+    for w, row in enumerate(plan.idx[:12].tolist()):
+        for k, p in enumerate(row):
+            if p < 0:
+                continue
+            s = w * W + k
+            K.filter_score(b, p)
+            ref.filter_score(tb_t, p)
+            K.shard_select(b, p, ch_k, s)
+            ref.shard_select(tb_t, p, ch_t, s)
+            torch.cuda.synchronize()
+            for f in ("ext", "best_v", "best_i", "cdom"):
+                assert torch.equal(getattr(sh_k, f), getattr(sh_t, f)), (s, f)
+            assert torch.equal(ch_k, ch_t), s
+            K.shard_apply(b, idx[s : s + 1], pos[s : s + 1], ch_k, 1.0)
+            ref.shard_apply(tb_t, idx[s : s + 1], pos[s : s + 1], ch_t, 1.0)
+    assert int((ch_k[0, : 12 * W] >= 0).sum()) > 0
