@@ -180,13 +180,25 @@ From the root of a checkout, on a host with one CUDA card. In order:
    envelope <= 1e-6, one engine set-up; the walls of the search, the
    held-out sweep and the oracle.
 
-The selects — K2, K6's K2 phase and K7 — launch as thread-block clusters
+The selects — K2, K6 and K7 — launch as thread-block clusters
 (ops/kernels.py ``cluster_plan``): every step that launches one prints its
 plan (cluster size C, block width, grid). K2 at S=1 (step 3) and S=128
 (step 8), K2's argmin (steps 10-11) and K7 at 8 and 3 shards (step 8e) are
 timed in turns with their PyTorch calls (kernel, library, library,
 kernel), and one line gives K6's device time a slot at the headline,
-config2 and config4 with the C of each.
+config2 and config4 with the C of each, beside PR 10's (EARLIER).
+
+After the headline, K6 runs at 300 scenarios (BEYOND: more clusters than
+the card holds at once) over an 8-wave window, held against its twin and
+the per-slot kernels; config4's K6 plan is checked for ranks of more than
+1,024 nodes and a short last rank. K3's release (each tile of pairs sorted
+by node in shared memory, then each node summed in pair order) is held
+against its twin and ``_add_in_pair_order`` on BORG_CUT's 12 nodes x 5,000
+tasks (RELEASE_CASES: plain, tier planes, label rows, the pending release,
+and all 5,000 tasks, a short last tile) and at config4's largest bucket, and
+timed, with each of its two kernels' share from the same profile, beside
+one deterministic ``index_add_`` of the same requests (the release row's
+``library_ms``: a yardstick that keeps no pair order).
 
 Every phase prints its route. Prints the kernel table as one JSON line
 (K6 ``chunk_replay`` among the kernels; each row's ``launches`` from its
@@ -464,6 +476,12 @@ SOURCES_PLAIN = ("filter_score", "normalize_select", "apply_placements")
 #: K7, K8 (the shard route's; K8 also counted by mode).
 NOT_SLOT_ROUTE = ("chunk_replay", "shard_select", "shard_apply", "shard_apply_bind",
                   "shard_apply_rollback", "shard_apply_release")
+#: Earlier times printed beside this run's (PERF.md; NVIDIA H100 80GB HBM3,
+#: 700 W): K6 a slot in PR 10's chip run 6 (config4 run 7, CUDA events), the
+#: cooperative K6 with two grid barriers a slot; K3's release (ms) in PR 8,
+#: one block a scenario walking the pairs in order.
+EARLIER = dict(k6_us_per_slot=dict(headline=30.15, config2=21.24, config4=19.38),
+               release_ms=dict(headline=2.12, tier=4.33))
 #: config4 (examples/config4_borg_1m.yaml, 10,000 nodes x 1,000,000 tasks)
 #: through the CLI ``run``; the first chunks held against the per-slot route.
 CONFIG4 = "examples/config4_borg_1m.yaml"
@@ -555,11 +573,13 @@ def plan_of(wrapper):
     return dict(C=p.C, threads=p.threads, grid=p.grid, span=p.span)
 
 
-def device_ms(fn, iters, match=None):
+def device_ms(fn, iters, match=None, by_kernel=None):
     """Mean device time (ms) per ``fn(i)`` call over ``iters`` calls, from
     the CUPTI kernel records of torch.profiler: the kernels whose name
-    contains ``match`` (every kernel when None). None when the profiler
-    recorded no device time."""
+    contains ``match`` (or one of a tuple of names; every kernel when None).
+    None when the profiler recorded no device time. ``by_kernel`` (a dict)
+    receives each matched record's ms a call, by name, from the same
+    profile."""
     from torch.profiler import ProfilerActivity, profile
 
     for i in range(3):
@@ -570,11 +590,56 @@ def device_ms(fn, iters, match=None):
             fn(i)
         torch.cuda.synchronize()
     total_us = 0.0
+    names = (match,) if isinstance(match, str) else match
     for evt in prof.key_averages():
-        if match is None or match in evt.key:
-            total_us += getattr(evt, "device_time_total", None) or getattr(
-                evt, "cuda_time_total", 0.0)
+        if names is None or any(m in evt.key for m in names):
+            us = getattr(evt, "device_time_total", None) or getattr(evt, "cuda_time_total", 0.0)
+            total_us += us
+            if by_kernel is not None and us:
+                by_kernel[evt.key] = us / iters / 1e3
     return total_us / iters / 1e3 if total_us > 0 else None
+
+
+#: The device records of one K3 release: its two kernels, sort and sums
+#: (csrc/apply_placements.cu ksim_release).
+RELEASE_MATCH = ("ksim_release",)
+
+
+def restored(tb, fn):
+    """``fn(i)`` from the same state at every call: each carried plane of
+    ``tb`` (:func:`_planes`) copied back from a snapshot first (copies that
+    :data:`RELEASE_MATCH` and the kernels' names do not match). The copies
+    leave L2 cold for the call, so a kernel that can be timed in place (a
+    bind) is."""
+    snap = {name: x.clone() for name, x in _planes(tb).items()}
+
+    def call(i):
+        for name, x in _planes(tb).items():
+            x.copy_(snap[name])
+        fn(i)
+    return call
+
+
+def index_add_ms(tb, pod_ids, nodes, iters=20, due=None):
+    """The yardstick of a release: one ``index_add_`` of the live pairs'
+    requests into a zeroed [S·N, R] plane under
+    ``torch.use_deterministic_algorithms(True)`` (device ms, every kernel
+    of the call). It keeps no pair order within a row, so it is a
+    yardstick, not a path."""
+    S, N, R = tb.state.used.shape
+    pid = pod_ids if pod_ids.dim() == 2 else pod_ids.expand(S, -1)
+    live = (pid >= 0) & (nodes >= 0)
+    if due is not None:
+        live &= due[0] <= due[1]
+    s_i, k_i = torch.nonzero(live, as_tuple=True)
+    rows = s_i * N + nodes[s_i, k_i].long()
+    req = tb.pods.requests[pid[s_i, k_i].long()]
+    plane = torch.zeros(S * N, R, dtype=torch.float32, device=req.device)
+    torch.use_deterministic_algorithms(True)
+    try:
+        return device_ms(lambda i: plane.index_add_(0, rows, req), iters, None)
+    finally:
+        torch.use_deterministic_algorithms(False)
 
 
 def profiled_busy_s(fn, by_kernel=None):
@@ -612,7 +677,7 @@ def check_chunk_launches(where, launches, plan, retry=False):
                                  f"{launches}")
     elif launches["filter_score"] or launches["normalize_select"]:
         raise AssertionError(f"{where}: K1/K2 launched on the chunk route: {launches}")
-    if any(bk is not None for bk in plan.buckets) and launches["apply_placements"] <= 0:
+    if any(bk is not None for bk in plan.buckets) and launches["apply_placements_release"] <= 0:
         raise AssertionError(f"{where}: no K3 release was launched")
 
 
@@ -632,10 +697,38 @@ def slot_route(where, eng, want, series=False):
     return launches, wall
 
 
+def check_slot_route_launches(where, launches):
+    """A per-slot run with the retry buffer (series, timeline): every kernel
+    but those of NOT_SLOT_ROUTE launched, and none of those; K3's binds and
+    releases launched (rollbacks only where a wave holds a gang), its modes
+    summing to its count."""
+    for k, n in launches.items():
+        if k != "apply_placements_rollback" and (n <= 0) != (k in NOT_SLOT_ROUTE):
+            raise AssertionError(f"{where} launched {k} {n} times")
+    if sum(launches[f"apply_placements_{m}"] for m in ("bind", "rollback", "release")) != \
+            launches["apply_placements"]:
+        raise AssertionError(f"{where}: K3's launches by mode do not sum to its count: "
+                             f"{launches}")
+
+
 def bound(nbytes, nops):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = nops / F32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+#: The launch count each K3 row of the kernels line reads: K3 counts its
+#: launches by mode (ops/kernels.py apply_placements.modes).
+K3_ROW_MODE = {
+    "apply_placements": "apply_placements_bind",
+    "apply_placements_release": "apply_placements_release",
+    "apply_placements_evict": "apply_placements_bind",
+    "apply_placements_tier_release": "apply_placements_release",
+    "apply_placements_pending_release": "apply_placements_release",
+    "apply_placements_retry_bind": "apply_placements_bind",
+    "apply_placements_failure_append": "apply_placements_bind",
+    "apply_placements_label_rows": "apply_placements_bind",
+}
 
 
 def _ids(a):
@@ -1075,12 +1168,6 @@ def hold_twin(where, plan, mk, waves):
     return (tb_k, ch_k), (tb_t, ch_t), rec
 
 
-def k6_tiles(S, N):
-    """K6's work items (scenario, 1,024-node tile); its grid is the smaller
-    of these and the blocks the card holds at once (occupancy x SMs)."""
-    return S * -(-N // 1024)
-
-
 def hold_chunk_replay(where, eng, dev, results, assignments=None):
     """K6 against its twin and the per-slot route, from ``eng``'s initial
     state: the first K6_TWIN_WAVES waves of the first chunk on K6 and on
@@ -1138,17 +1225,62 @@ def hold_chunk_replay(where, eng, dev, results, assignments=None):
     run_waves(plan, tb_s, ch_s, 0, C, plain=False, route="slot")
     same_planes(f"{where}: K6 vs the per-slot kernels over the first chunk ({C} waves)",
                 tb_k, ch_k, tb_s, ch_s)
-    tiles = k6_tiles(S, tb_k.state.used.shape[1])
     out = dict(ms=ms, per_slot_ms=ms / max(pods.size, 1), plain_ms=plain_ms, bound_ms=bound_ms,
-               bound_by=bound_by, slots=int(pods.size), waves=w2 - w1, tiles=tiles,
+               bound_by=bound_by, slots=int(pods.size), waves=w2 - w1,
                max_abs_err=0.0, cluster=k6_plan, **twin_rec)
     results.setdefault("k6", {})[where] = out
     print(f"{where}: K6 == the per-slot kernels over the first chunk ({C} waves), choices and "
-          f"every plane; K6 over {w2 - w1} waves ({pods.size} slots, {tiles} tiles, cluster "
+          f"every plane; K6 over {w2 - w1} waves ({pods.size} slots, cluster "
           f"{json.dumps(k6_plan)}): "
           f"{ms * 1e3:.1f} us a launch, {ms * 1e3 / max(pods.size, 1):.2f} us a slot (bound "
           f"{bound_ms * 1e3:.3f} us by {bound_by}; twin {plain_ms:.1f} ms)", flush=True)
     return out
+
+
+#: K6 beyond what the card holds at once: the headline's trace under 300
+#: ``uniform_scenarios(seed=0)`` (300 clusters of one 1,024-thread block on
+#: 132 SMs), over an 8-wave window (chunkWaves 8).
+BEYOND = dict(scenarios=300, waves=8)
+
+
+def hold_beyond_card(ec, ep, dev, results):
+    """K6 at more scenarios than the card holds at once (its clusters run in
+    waves, which no cooperative launch could): the first BEYOND waves on
+    K6 held against its twin (:func:`hold_twin`) and the per-slot kernels
+    from the same initial state (choices and every plane), then K6's launch
+    over the window timed by CUDA events."""
+    S = BEYOND["scenarios"]
+    eng = WhatIfEngine(ec, ep, uniform_scenarios(ec, S, seed=0), FrameworkConfig(),
+                       chunk_waves=BEYOND["waves"], collect_assignments=True)
+    plan = eng.plan
+    mk = lambda: (eng._tables(), new_choices(plan, S, eng.pods.bound_node, dev))
+    (tb_k, ch_k), _, twin_rec = hold_twin(f"S={S}", plan, mk, plan.C)
+    k6_plan = plan_of(K.chunk_replay)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    if k6_plan["grid"] != S * k6_plan["C"] or k6_plan["grid"] <= sms:
+        raise AssertionError(f"S={S}: K6's plan {k6_plan} fits the card's {sms} SMs at once")
+    tb_s, ch_s = mk()
+    run_waves(plan, tb_s, ch_s, 0, plan.C, plain=False, route="slot")
+    same_planes(f"S={S}: K6 vs the per-slot kernels over {plan.C} waves", tb_k, ch_k, tb_s,
+                ch_s)
+    tb_e, ch_e = mk()
+    b = K.Bound(tb_e)
+    desc = plan.device_desc(dev)
+    K.chunk_replay(b, desc.idx, desc.gang, ch_e, 0, plan.C)  # warm
+    tb_e, ch_e = mk()
+    b = K.Bound(tb_e)
+    ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+    ev[0].record()
+    K.chunk_replay(b, desc.idx, desc.gang, ch_e, 0, plan.C)
+    ev[1].record()
+    torch.cuda.synchronize()
+    slots = int((plan.idx[: plan.C] >= 0).sum())
+    us = ev[0].elapsed_time(ev[1]) * 1e3 / slots
+    results["k6_beyond_card"] = dict(scenarios=S, sms=sms, waves=plan.C, slots=slots,
+                                     us_per_slot=us, cluster=k6_plan, **twin_rec)
+    print(f"S={S} ({S * k6_plan['C']} blocks on {sms} SMs): K6 == its twin and the per-slot "
+          f"kernels over {plan.C} waves ({slots} slots), choices and every plane; {us:.2f} us a "
+          f"slot (CUDA events)", flush=True)
 
 
 def mid_replay_tables(ec, ep, cl, consts, S, rng, dev, state=None, wrow=None):
@@ -1261,6 +1393,172 @@ def hold_kernels(where, ep, tb_t, tb_k, pre, pre_nodes, n_slots, rng, dev):
                 rel=(rel_p, rel_pos, rel_ch, pre[rel]))
 
 
+# ---------------------------------------------------------------------------
+# K3's release (pairs grouped by node, each node summed in pair order)
+# ---------------------------------------------------------------------------
+
+#: The release cases on BORG_CUT (12 nodes x 5,000 Borg-shaped tasks, their
+#: requests not binary fractions): RELEASE_S scenarios each bind
+#: RELEASE_PAIRS tasks at random nodes of their own (a tenth PAD), then
+#: release them — some 300 pairs a node.
+RELEASE_CASES = ("borg", "tier", "labels", "pending")
+RELEASE_S = 4
+RELEASE_PAIRS = 4000
+#: The same cut's release of every task: tiles of K3's release sort
+#: (kernels.release_tile: 1,024 pairs at 4 scenarios) with a short last one.
+RELEASE_ALL = 5000
+#: The pending case's boundary: pairs whose relb <= RELEASE_DUE release.
+RELEASE_DUE = 2
+
+
+def release_case(kind, ec, ep, dev, S=RELEASE_S, pods=None, n_pairs=RELEASE_PAIRS, seed=SEED):
+    """Kernel and twin tables of S scenarios and one release on the cluster
+    ``ec`` and trace ``ep``: the released pods (``pods``, in pod order;
+    None: ``n_pairs`` drawn at random) are first bound, through the twin,
+    at random nodes of each scenario's own (a tenth PAD) on the trace's
+    initial state. ``kind``: ``borg`` plain; ``tier`` with three tier
+    planes (random tiers); ``labels`` each scenario its own label row
+    (scenario s > 0 reads a permutation of the domain table's node axis);
+    ``pending`` the retry buffer's pending lists (each scenario its own
+    pods, relb in [0, 4], due at RELEASE_DUE). Returns the kernel's and
+    the twin's (tables, pod ids, pos, nodes, due or None)."""
+    rng = np.random.default_rng(seed)
+    N, R, P = ec.num_nodes, ec.num_resources, ep.num_pods
+    consts = StepSpec.from_config(ec, FrameworkConfig(), ep).consts()
+    st = init_state(ec, ep)
+    state = ref.stacked_state(st.used, st.match_count, st.anti_active, st.pref_wsum, S, dev)
+    cl = ref.cluster_to(ec, dev, S)
+    if kind == "labels":
+        perm = [torch.arange(N, device=dev)] + [
+            torch.as_tensor(rng.permutation(N), device=dev) for _ in range(S - 1)]
+        rows = lambda t: t.expand(S, *t.shape[1:]).contiguous()
+        cl = cl._replace(gdom=torch.stack([cl.gdom[0][:, q] for q in perm]).contiguous(),
+                         expr_match=rows(cl.expr_match), gnd=rows(cl.gnd), sp_w=rows(cl.sp_w),
+                         lrow=torch.arange(S, dtype=torch.int32, device=dev))
+    tb = ref.Tables(cl, ref.pods_to(ep, dev), state, ref.new_scratch(S, N, dev), consts)
+    if pods is None:
+        pods = np.sort(rng.choice(P, size=n_pairs, replace=False))
+    pods = np.asarray(pods, np.int32)
+    nodes = rng.integers(0, N, size=(S, pods.size)).astype(np.int32)
+    nodes[rng.random(nodes.shape) < 0.1] = PAD
+    pos = torch.arange(pods.size, dtype=torch.int32, device=dev)
+    due = None
+    if kind == "tier":
+        tiers = rng.integers(0, 3, size=P).astype(np.int32)
+        tb = tb._replace(preempt=ref.new_preempt(
+            tiers, ep.group_id, pods, np.zeros(pods.size, np.int32), pods.size,
+            np.zeros((3, N, R), np.float32), np.zeros((3, N), np.float32), S, dev))
+    if kind == "pending":
+        rt = ref.new_retry(pods.size, ep.duration, np.arange(4, dtype=np.float32), S, dev)
+        ids = np.stack([np.sort(rng.choice(P, size=pods.size, replace=False))
+                        for _ in range(S)]).astype(np.int32)
+        ids[rng.random(ids.shape) < 0.05] = PAD
+        rt.pend_id.copy_(torch.as_tensor(ids))
+        rt.pend_node.copy_(torch.as_tensor(nodes))
+        rt.pend_relb.copy_(torch.as_tensor(rng.integers(0, 5, size=ids.shape).astype(np.int32)))
+        tb = tb._replace(retry=rt)
+    ref.apply_placements(tb, *release_pairs(tb, pods, pos, nodes)[:3], 1.0)  # what it takes back
+    tb_k = clone_tables(tb)
+    return ((tb_k, *release_pairs(tb_k, pods, pos, nodes)),
+            (tb, *release_pairs(tb, pods, pos, nodes)))
+
+
+def release_pairs(tb, pods, pos, nodes):
+    """(pod ids, pos, nodes, due or None) of a case's release on ``tb``: the
+    pending lists of its retry tables, else ``pods`` at ``nodes``."""
+    rt = tb.retry
+    if rt is not None:
+        return rt.pend_id, pos, rt.pend_node, (rt.pend_relb, RELEASE_DUE)
+    dev = tb.state.used.device
+    return torch.as_tensor(pods, device=dev), pos, torch.as_tensor(nodes, device=dev), None
+
+
+def hold_release(where, ep, case, timed=True):
+    """K3's release against its twin (``ref.apply_placements``, which sums
+    each node's requests by ``_add_in_pair_order``) and against
+    ``_add_in_pair_order`` itself, on one case (:func:`release_case`):
+    every plane bit for bit, and exactly one K3 launch. ``timed``: its
+    device time (20 releases from a restored state, :data:`RELEASE_MATCH`)
+    beside the twin's wall, one deterministic ``index_add_`` of the same
+    requests and the least time (:meth:`Work.k3`). Returns the record."""
+    (tb_k, pid_k, pos, ch_k, due_k), (tb_t, pid_t, _, ch_t, due_t) = case
+    b = K.Bound(tb_k)
+    S, N, R = tb_t.state.used.shape
+    used0 = tb_t.state.used.clone()
+    n0 = K.apply_placements.launches
+    K.apply_placements(b, pid_k, pos, ch_k, -1.0, due=due_k)
+    if K.apply_placements.launches != n0 + 1:
+        raise AssertionError(f"{where}: the release did not launch K3 once")
+    ref.apply_placements(tb_t, pid_t, pos, ch_t, -1.0, due=due_t)
+    same_planes(f"{where}: K3's release vs its twin", tb_k, ch_k, tb_t, ch_t)
+    pid = pid_t if pid_t.dim() == 2 else pid_t.expand(S, -1)
+    live = (pid >= 0) & (ch_t >= 0)
+    if due_t is not None:
+        live &= due_t[0] <= due_t[1]
+    s_i, k_i = torch.nonzero(live, as_tuple=True)
+    rows = s_i * N + ch_t[s_i, k_i].long()
+    req = tb_t.pods.requests[pid[s_i, k_i].long()]
+    delta = torch.zeros(S * N, R, dtype=torch.float32, device=req.device)
+    ref._add_in_pair_order(delta, rows, req)
+    if not torch.equal(tb_k.state.used, used0 - delta.view(S, N, R)):
+        raise AssertionError(f"{where}: K3's release != used less _add_in_pair_order's sums")
+    dyadic = bool((req * 1024 == torch.round(req * 1024)).all())
+    rec = dict(scenarios=S, pairs=int(pid.shape[1]), live_pairs=int(live.sum()),
+               max_pairs_a_node=int(torch.bincount(rows).max()) if rows.numel() else 0,
+               dyadic_requests=dyadic, tier=tb_t.preempt is not None,
+               label_rows=int(tb_t.cluster.gdom.shape[0]), pending=due_t is not None,
+               max_abs_err=0.0)
+    if timed:
+        due_nodes = ch_t if due_t is None else torch.where(
+            due_t[0] <= due_t[1], ch_t, torch.full_like(ch_t, PAD))
+        nb, no = Work(ep, tb_t).k3(pid_t.cpu().numpy(), due_nodes.cpu().numpy())
+        split = {}
+        rec.update(
+            ms=device_ms(restored(tb_k, lambda i: K.apply_placements(b, pid_k, pos, ch_k, -1.0,
+                                                                     due=due_k)),
+                         20, RELEASE_MATCH, split),
+            ms_by_kernel=split,
+            plain_ms=time_cuda(restored(tb_t, lambda i: ref.apply_placements(
+                tb_t, pid_t, pos, ch_t, -1.0, due=due_t)), 3, warm=1),
+            library_ms=index_add_ms(tb_t, pid_t, ch_t, due=due_t), bytes=float(nb),
+            ops=float(no))
+        rec["bound_ms"], rec["bound_by"] = bound(rec["bytes"], rec["ops"])
+    print(f"{where}: K3's release ({rec['live_pairs']} live of {rec['pairs']} pairs x {S} "
+          f"scenarios, up to {rec['max_pairs_a_node']} on a node) == its twin and "
+          f"_add_in_pair_order, every plane bit for bit"
+          + (f"; {rec['ms'] * 1e3:.1f} us (by kernel, us: {_us(rec['ms_by_kernel'])}; twin "
+             f"{rec['plain_ms']:.2f} ms, deterministic index_add_ {rec['library_ms'] * 1e3:.1f} "
+             f"us, bound {rec['bound_ms'] * 1e3:.3f} us)" if timed else ""), flush=True)
+    return rec
+
+
+def _us(by_kernel):
+    """A profile's ms a call by kernel as a JSON object of µs, names cut to
+    the kernel's."""
+    return json.dumps({k.split("(")[0].split("<")[0].replace("void ", ""): round(v * 1e3, 2)
+                       for k, v in by_kernel.items()})
+
+
+def check_releases(results, dev):
+    """K3's release on BORG_CUT, each of RELEASE_CASES (plain, tier planes,
+    label rows, pending) and the plain one of every task held and timed
+    (:func:`hold_release`)."""
+    from kubernetes_simulator_tpu_torch.sim.borg import BorgSpec, make_borg_encoded
+
+    bc = BORG_CUT
+    ec, ep, _ = make_borg_encoded(BorgSpec(nodes=bc["nodes"], tasks=bc["tasks"], seed=SEED))
+    out = {}
+    cases = [(k, RELEASE_PAIRS) for k in RELEASE_CASES] + [("borg", RELEASE_ALL)]
+    for kind, pairs in cases:
+        name = kind if pairs == RELEASE_PAIRS else f"{kind}_all"
+        out[name] = hold_release(f"Borg cut release ({name})", ep,
+                                 release_case(kind, ec, ep, dev, n_pairs=pairs))
+        if out[name]["dyadic_requests"] or out[name]["max_pairs_a_node"] < 100:
+            raise AssertionError(f"Borg cut release ({name}): the case lost its point "
+                                 f"({out[name]})")
+    results["release_borg_cut"] = out
+
+
 def time_kernels(ep, tb_t, held, dev, iters=200, plain_iters=20):
     """Device time per launch (torch.profiler) and host launch interval
     (CUDA events) of each kernel at the held shapes, beside its twin's
@@ -1282,25 +1580,28 @@ def time_kernels(ep, tb_t, held, dev, iters=200, plain_iters=20):
     one_pos = torch.zeros(1, dtype=torch.int32, device=dev)
     one_ch = ch_k[:, :1].clone().clamp_(min=0).contiguous()
     one_ch_t = one_ch.clone()
-    t_k3 = time_cuda(lambda i: K.apply_placements(b, one_p, one_pos, one_ch, 1.0 - 2.0 * (i % 2)),
-                     iters)
-    t_k3_plain = time_cuda(
-        lambda i: ref.apply_placements(tb_t, one_p, one_pos, one_ch_t, 1.0 - 2.0 * (i % 2)),
-        plain_iters)
+    # Releases from a restored state (each launch interval includes the
+    # restore's copies; the device times match the kernels alone), taken
+    # first; then the bind in place, the same pod on the same node again and
+    # again (warm L2, as the chunk route's binds run).
     rel_p, rel_pos, rel_ch, rel_pods = held["rel"]
-    t_rel = time_cuda(lambda i: K.apply_placements(b, rel_p, rel_pos, rel_ch,
-                                                   1.0 - 2.0 * (i % 2)), 10)
-    t_rel_plain = time_cuda(lambda i: ref.apply_placements(tb_t, rel_p, rel_pos, rel_ch,
-                                                           1.0 - 2.0 * (i % 2)), 10)
+    rel_k = restored(b.tables, lambda i: K.apply_placements(b, rel_p, rel_pos, rel_ch, -1.0))
+    t_rel = time_cuda(rel_k, 10)
+    t_rel_plain = time_cuda(
+        restored(tb_t, lambda i: ref.apply_placements(tb_t, rel_p, rel_pos, rel_ch, -1.0)), 10)
     d_k1 = device_ms(lambda i: K.filter_score(b, sl[i % n]), iters, "ksim_filter_score")
     d_k2, d_argmax, k2_turns = in_turns(lambda i: K.normalize_select(b, sl[i % n], ch_k, 0),
                                         lambda i: torch.argmax(masked, dim=-1), iters,
                                         "ksim_normalize_select")
     k2_plan = plan_of(K.normalize_select)
-    d_k3 = device_ms(lambda i: K.apply_placements(b, one_p, one_pos, one_ch,
-                                                  1.0 - 2.0 * (i % 2)), iters, "ksim_apply")
-    d_rel = device_ms(lambda i: K.apply_placements(b, rel_p, rel_pos, rel_ch,
-                                                   1.0 - 2.0 * (i % 2)), 10, "ksim_apply")
+    rel_split = {}
+    d_rel = device_ms(rel_k, 20, RELEASE_MATCH, rel_split)
+    bind_k = lambda i: K.apply_placements(b, one_p, one_pos, one_ch, 1.0)
+    t_k3 = time_cuda(bind_k, iters)
+    t_k3_plain = time_cuda(lambda i: ref.apply_placements(tb_t, one_p, one_pos, one_ch_t, 1.0),
+                           plain_iters)
+    d_k3 = device_ms(bind_k, iters, "ksim_apply")
+    lib_rel = index_add_ms(tb_t, rel_p, rel_ch)
     pick = lambda d, t: d if d is not None else t
     work = Work(ep, tb_t)
     k1b, k1o = np.mean([work.k1(p) for p in sl], axis=0)
@@ -1328,8 +1629,9 @@ def time_kernels(ep, tb_t, held, dev, iters=200, plain_iters=20):
           f"{[round(t * 1e3, 2) for t in k2_turns]} (bound {k2['bound_ms'] * 1e3:.3f} us)",
           flush=True)
     release = dict(pairs=len(rel_pods), scenarios=S, ms=pick(d_rel, t_rel), device_ms=d_rel,
-                   launch_interval_ms=t_rel, plain_ms=t_rel_plain,
-                   bound_ms=bound(float(rb), float(ro))[0])
+                   ms_by_kernel=rel_split, launch_interval_ms=t_rel, plain_ms=t_rel_plain,
+                   library_ms=lib_rel, bytes=float(rb), ops=float(ro), max_abs_err=0.0)
+    release["bound_ms"], release["bound_by"] = bound(float(rb), float(ro))
     return out, release
 
 
@@ -1767,10 +2069,10 @@ def time_preempt(eng, held, dev, iters=200, plain_iters=20):
     rel_p, rel_pos, rel_pods = held["rel"]
     rel_ch = held["ch_k"].clone()
     rb, ro = work.k3(rel_pods, rel_ch[:, rel_pos.long()].cpu().numpy())
-    t_rel = dms(lambda i: K.apply_placements(b, rel_p, rel_pos, rel_ch,
-                                                   1.0 - 2.0 * (i % 2)), 10, "ksim_apply")
-    t_rel_plain = time_cuda(lambda i: ref.apply_placements(tt, rel_p, rel_pos, rel_ch,
-                                                           1.0 - 2.0 * (i % 2)), 10)
+    t_rel = dms(restored(b.tables, lambda i: K.apply_placements(b, rel_p, rel_pos, rel_ch, -1.0)),
+                20, RELEASE_MATCH)
+    t_rel_plain = time_cuda(
+        restored(tt, lambda i: ref.apply_placements(tt, rel_p, rel_pos, rel_ch, -1.0)), 10)
     out = {
         "filter_score_tier": dict(ms=t_k1, plain_ms=t_k1_plain, bytes=float(k1b + k1pb),
                                   ops=float(k1o + k1po), library_ms=None),
@@ -2124,7 +2426,7 @@ def clone_tables(tb):
     c = lambda nt: None if nt is None else type(nt)(
         *(x.clone() if torch.is_tensor(x) else x for x in nt))
     return tb._replace(state=c(tb.state), scratch=c(tb.scratch), retry=c(tb.retry),
-                       reject=c(tb.reject))
+                       reject=c(tb.reject), preempt=c(tb.preempt))
 
 
 def clone_series(ser):
@@ -2381,17 +2683,16 @@ def time_retry(eng, snaps, bnd, dev, iters=200, plain_iters=10):
     RB = tk.retry.rbuf.shape[1]
     pos_rb = torch.arange(RB, dtype=torch.int32, device=dev)
     rk, rt = tk.retry, tt.retry
-    sgn = lambda i: 1.0 - 2.0 * (i % 2)
     due = (rk.pend_id >= 0) & (rk.pend_relb <= bnd)
     nb, no = work.k3(rk.pend_id.cpu().numpy(),
                      torch.where(due, rk.pend_node, torch.full_like(rk.pend_node, PAD))
                      .cpu().numpy())
     out["apply_placements_pending_release"] = dict(
-        ms=dms(lambda i: K.apply_placements(b, rk.pend_id, pos_rb, rk.pend_node, sgn(i),
-                                            due=(rk.pend_relb, bnd)), "ksim_apply"),
-        plain_ms=time_cuda(lambda i: ref.apply_placements(tt, rt.pend_id, pos_rb, rt.pend_node,
-                                                          sgn(i), due=(rt.pend_relb, bnd)),
-                           plain_iters),
+        ms=dms(restored(tk, lambda i: K.apply_placements(b, rk.pend_id, pos_rb, rk.pend_node,
+                                                         -1.0, due=(rk.pend_relb, bnd))),
+               RELEASE_MATCH),
+        plain_ms=time_cuda(restored(tt, lambda i: ref.apply_placements(
+            tt, rt.pend_id, pos_rb, rt.pend_node, -1.0, due=(rt.pend_relb, bnd))), plain_iters),
         bytes=float(nb + work.S * RB * 4), ops=float(no), due_entries=int(due.sum()))
     b, tk, tt, _, _, _ = pair("retry_slot")
     rk, rt = tk.retry, tt.retry
@@ -2412,10 +2713,10 @@ def time_retry(eng, snaps, bnd, dev, iters=200, plain_iters=10):
     rch0 = rk.rchoice[:, :1].cpu().numpy()
     nb, no = work.k3(pods0[:, None], np.where(pods0[:, None] >= 0, rch0, PAD))
     out["apply_placements_retry_bind"] = dict(
-        ms=dms(lambda i: K.apply_placements(b, rk.rbuf[:, 0:1], pos_rb[0:1], rk.rchoice, sgn(i)),
-               "ksim_apply"),
+        ms=dms(lambda i: K.apply_placements(b, rk.rbuf[:, 0:1], pos_rb[0:1], rk.rchoice, 1.0),
+               "ksim_apply"),  # in place: the same binds again and again
         plain_ms=time_cuda(lambda i: ref.apply_placements(tt, rt.rbuf[:, 0:1], pos_rb[0:1],
-                                                          rt.rchoice, sgn(i)), plain_iters),
+                                                          rt.rchoice, 1.0), plain_iters),
         bytes=float(nb), ops=float(no), placed=int((rch0 >= 0).sum()))
     b, tk, tt, _, _, _ = pair("k4")
     rk, rt = tk.retry, tt.retry
@@ -2838,9 +3139,7 @@ def run_series_paths(results, dev):
         raise AssertionError("config7 run through the CLI failed")
     cli_s = time.perf_counter() - t0
     launches7 = K.launch_counts()
-    for k, n in launches7.items():
-        if (n <= 0) != (k in NOT_SLOT_ROUTE):  # series: the per-slot route
-            raise AssertionError(f"config7's CLI run at series launched {k} {n} times")
+    check_slot_route_launches("config7's CLI run at series", launches7)
     with open(d["output"]) as f:
         row = json.loads(f.read().splitlines()[-1])
     with open(trace) as f:
@@ -2886,10 +3185,7 @@ def run_series_paths(results, dev):
     K.reset_launch_counts()
     rc = ec_.replay()
     launchesc = K.launch_counts()
-    for k, n in launchesc.items():
-        if (n <= 0) != (k in NOT_SLOT_ROUTE):  # timeline: the per-slot route
-            raise AssertionError(f"the {RETRY_CUT_NODES}-node cut at timeline launched {k} {n} "
-                                 "times")
+    check_slot_route_launches(f"the {RETRY_CUT_NODES}-node cut at timeline", launchesc)
     check_series_pins(f"{RETRY_CUT_NODES}-node cut at timeline", REJECT_PINS["cut150"],
                       rc.telemetry)
     check_retry_pins(f"{RETRY_CUT_NODES}-node cut at timeline", RETRY_PINS["cut150"], rc.placed,
@@ -3583,6 +3879,16 @@ def run_config4(results, dev):
     ev[1].record()
     torch.cuda.synchronize()
     k6_us = ev[0].elapsed_time(ev[1]) * 1e3 / int((plan.idx[: plan.C] >= 0).sum())
+    # K6's ranks here own more than 1,024 nodes (phase 1 tiles the block) and
+    # the last one fewer than the rest (N is no multiple of span).
+    if not (k6_plan["span"] > K.SELECT_THREADS and ec.num_nodes % k6_plan["span"]):
+        raise AssertionError(f"config4: K6's plan {k6_plan} lost its long, uneven ranks")
+    mark("c config4 K6 holds")
+    # K3's release at config4's full size: its largest bucket, at random nodes.
+    sizes = [0 if bk is None else len(bk[0]) for bk in plan.buckets]
+    big = int(np.argmax(sizes))
+    rel = hold_release(f"config4 release (bucket {big}, {sizes[big]} tasks)", ep,
+                       release_case("borg", ec, ep, dev, S=1, pods=plan.buckets[big][0]))
     results["config4"] = dict(
         nodes=ec.num_nodes, tasks=ep.num_pods, chunk_waves=plan.C, chunks=len(plan.buckets),
         waves=int(plan.idx.shape[0]), gang_waves=int(plan.gang_wave.sum()),
@@ -3591,9 +3897,9 @@ def run_config4(results, dev):
         placements_per_s=row["placements_per_sec"], command_s=command_s,
         setup_trace_s=float(setup[0][0]), setup_engine_s=float(setup[0][1]),
         setup_s=eng.setup_s, launches=launches, chunk_loop_bound_ms=bound_ms,
-        k6_tiles=k6_tiles(1, ec.num_nodes), k6_twin=twin_rec, held_chunks=CONFIG4_HOLD_CHUNKS,
+        k6_twin=twin_rec, held_chunks=CONFIG4_HOLD_CHUNKS,
         held_slots=hold_slots, held_walls_s=walls, utilization=row["utilization"],
-        k6_us_per_slot=k6_us, k6_cluster=k6_plan)
+        k6_us_per_slot=k6_us, k6_cluster=k6_plan, release=rel)
     print(f"config4 through the CLI run on the card ({ec.num_nodes} nodes x {ep.num_pods} tasks, "
           f"chunkWaves {plan.C}, {len(plan.buckets)} chunks, route {eng.last_route}): placed "
           f"{row['placed']}, unschedulable {row['unschedulable']}; set-up trace "
@@ -4026,9 +4332,9 @@ def main() -> int:
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
     print(smi, flush=True)
-    name = torch.cuda.get_device_name(0)
-    print(f"torch {torch.__version__} cuda {torch.version.cuda} on {name}", flush=True)
-    results = {"nvidia_smi": smi, "device": name, "step_s": STEP_S}
+    device_kind = torch.cuda.get_device_name(0)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} on {device_kind}", flush=True)
+    results = {"nvidia_smi": smi, "device": device_kind, "step_s": STEP_S}
     dev = torch.device("cuda")
     _last_mark[0] = t_start
 
@@ -4105,6 +4411,12 @@ def main() -> int:
     launches = K.launch_counts()
     k6_plan_h = plan_of(K.chunk_replay)
     check_chunk_launches("headline", launches, eng.plan)
+    # K3 counted by mode where it launches: one release a bucket, the binds
+    # and rollbacks inside K6.
+    want_k3 = dict(bind=0, rollback=0,
+                   release=sum(bk is not None for bk in eng.plan.buckets))
+    if any(launches[f"apply_placements_{m}"] != n for m, n in want_k3.items()):
+        raise AssertionError(f"headline: K3 launches by mode {launches} for {want_k3}")
     check_whatif_result(ep, warm, hs["scenarios"])
     runs = [eng.run() for _ in range(3)]
     for r in runs:
@@ -4179,6 +4491,11 @@ def main() -> int:
     del eng, warm, runs, res_p, single, tb_t, tb_k, held
 
     mark("8 headline hold, kernel times")
+    # K6 beyond what the card holds at once; K3's release on the Borg cut.
+    hold_beyond_card(ec, ep, dev, results)
+    mark("8 K6 at S=300")
+    check_releases(results, dev)
+    mark("8 K3 release cases")
     # (c)-(d): Borg-shaped traces, config4 at 10,000 x 1,000,000 on K6.
     run_config4(results, dev)
     mark("c config4 holds")
@@ -4186,8 +4503,14 @@ def main() -> int:
                for name, key, f, c in (("headline", "headline", "k6_us_per_slot", "k6_cluster"),
                                        ("config2", "config2", "k6_us_per_slot", "k6_cluster"),
                                        ("config4", "config4", "k6_us_per_slot", "k6_cluster"))}
+    for path, rec in k6_slot.items():
+        rec["earlier_us_per_slot"] = EARLIER["k6_us_per_slot"][path]
     results["k6_us_per_slot"] = k6_slot
-    print("K6 device time a slot (torch.profiler): " + json.dumps(k6_slot), flush=True)
+    print("K6 device time a slot (torch.profiler; config4 CUDA events), beside PR 10's: "
+          + json.dumps(k6_slot), flush=True)
+    print(f"K3's release of {release['pairs']} pods x {release['scenarios']} scenarios: "
+          f"{release['ms'] * 1e3:.1f} us beside PR 8's {EARLIER['release_ms']['headline']} ms; "
+          f"deterministic index_add_ {release['library_ms'] * 1e3:.1f} us", flush=True)
     check_borg_pins(results, dev)
     mark("d Borg cut pins")
     # (e) node-plane shards (row B13) and paged pod waves: the reduced replay
@@ -4201,6 +4524,9 @@ def main() -> int:
     check_reduced_preempt(results)
     mark("9 reduced preemption")
     pkernels, plaunches, pslot = run_preempt_paths(results, dev)
+    print(f"K3's release with tier planes: "
+          f"{pkernels['apply_placements_tier_release']['ms'] * 1e3:.1f} us beside PR 8's "
+          f"{EARLIER['release_ms']['tier']} ms", flush=True)
     mark("11 tier kernel times")
     # Steps 12-15: the retry buffer.
     check_reduced_retry(results)
@@ -4235,7 +4561,8 @@ def main() -> int:
         src, replaces = SOURCES[k]
         table.append({
             "name": k, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": launches[k], "slot_route_launches": slot_launches[k],
+            "launches": launches[K3_ROW_MODE.get(k, k)],
+            "slot_route_launches": slot_launches[K3_ROW_MODE.get(k, k)],
             "max_abs_err": m["max_abs_err"],
             "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"], "library_ms": m["library_ms"],
@@ -4249,11 +4576,24 @@ def main() -> int:
         # no single PyTorch call runs a chunk of the scheduler's waves
         "library_ms": None, "cluster": k6["cluster"],
     })
+    # K3's release at the headline (its launches counted under the release
+    # mode): library_ms is one deterministic index_add_ of the same
+    # requests, which keeps no pair order within a node — a yardstick, not a
+    # path.
+    table.append({
+        "name": "apply_placements_release", "route": "cuda",
+        "source": SOURCES["apply_placements"][0],
+        "replaces": "kubernetes_simulator_tpu/sim/whatif.py:1620",
+        "launches": launches["apply_placements_release"], "max_abs_err": release["max_abs_err"],
+        "ms": release["ms"], "plain_ms": release["plain_ms"], "bound_ms": release["bound_ms"],
+        "bound_by": release["bound_by"], "library_ms": release["library_ms"],
+    })
     for k, m in pkernels.items():
         kernel, replaces = PREEMPT_SOURCES[k]
         table.append({
             "name": k, "route": "cuda", "source": SOURCES[kernel][0], "replaces": replaces,
-            "launches": plaunches[kernel], "slot_route_launches": pslot[kernel],
+            "launches": plaunches[K3_ROW_MODE.get(k, kernel)],
+            "slot_route_launches": pslot[K3_ROW_MODE.get(k, kernel)],
             "max_abs_err": 0.0, "ms": m["ms"],
             "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
             "library_ms": m["library_ms"],
@@ -4263,7 +4603,7 @@ def main() -> int:
         kernel, replaces = RETRY_SOURCES[k] if k in RETRY_SOURCES else (k, SOURCES[k][1])
         table.append({
             "name": k, "route": "cuda", "source": SOURCES[kernel][0], "replaces": replaces,
-            "launches": rlaunches[kernel], "max_abs_err": 0.0, "ms": m["ms"],
+            "launches": rlaunches[K3_ROW_MODE.get(k, kernel)], "max_abs_err": 0.0, "ms": m["ms"],
             "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
             "library_ms": m["library_ms"],
         })
@@ -4271,7 +4611,8 @@ def main() -> int:
         m = lkernels[kernel]
         table.append({
             "name": k, "route": "cuda", "source": SOURCES[kernel][0], "replaces": replaces,
-            "launches": llaunches[kernel], "slot_route_launches": lslot[kernel],
+            "launches": llaunches[K3_ROW_MODE.get(k, kernel)],
+            "slot_route_launches": lslot[K3_ROW_MODE.get(k, kernel)],
             "max_abs_err": m["max_abs_err"], "ms": m["ms"],
             "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
             "library_ms": m["library_ms"],
@@ -4310,7 +4651,7 @@ def main() -> int:
         json.dump(results, f, indent=1)
     print(f"done in {results['wall_s_total']:.1f}s", flush=True)
     print(json.dumps({"kernels": table}), flush=True)
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_kind,
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0
 

@@ -35,7 +35,7 @@
 //            [S,RB] i32 pending releases of pods placed on retry (then -1),
 //            rnode / rbind_b [S,P] i32 each pod's retried node and the
 //            boundary of that bind
-//   release  rel [S,N,R] f32, zero between launches: K3 sums a release's
+//   release  rel [S,N,R] f32, zero between launches: K8 sums a release's
 //            requests per node there before subtracting them
 //   policies (null when off) wrow [S,6] f32: scenario s's Score weights
 //            (columns 0-4, the plugin order of the weighted total) and its
@@ -151,7 +151,7 @@ struct KsimArgs {
   int32_t* rbind_b;
   // per-scenario policies (null: the static constants below)
   const float* wrow;  // [S, KSIM_POLICY_COLS]
-  // [S,N,R] f32 all-zero accumulator of a release's summed requests (K3, K8)
+  // [S,N,R] f32 all-zero accumulator of a release's summed requests (K8)
   float* rel;
   // node shards
   float* ext;
@@ -184,13 +184,13 @@ struct KsimArgs {
 // Layout check for the ctypes mirror (every library exports it).
 KSIM_EXPORT int ksim_args_size() { return (int)sizeof(KsimArgs); }
 
-// Clusters of C blocks of `threads` threads of the cooperative `kernel` that
-// the current device holds at once (C = 1: resident blocks), the most its
-// cooperative launch may take, or a negative CUDA error (also where the device
-// has no cooperative launch); cached per device, kernel, C and width.
-static inline int ksim_resident(const void* kernel, int C, int threads) {
+// Blocks of `threads` threads of the cooperative `kernel` that the current
+// device holds at once (K8's grid barrier needs every block resident), or a
+// negative CUDA error (also where the device has no cooperative launch);
+// cached per device, kernel and width.
+static inline int ksim_resident(const void* kernel, int threads) {
   struct Entry {
-    int dev, C, threads, n;
+    int dev, threads, n;
     const void* kernel;
   };
   static Entry cache[32];
@@ -199,16 +199,39 @@ static inline int ksim_resident(const void* kernel, int C, int threads) {
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return -(int)e;
   for (int i = 0; i < used; ++i)
-    if (cache[i].dev == dev && cache[i].kernel == kernel && cache[i].C == C &&
-        cache[i].threads == threads)
+    if (cache[i].dev == dev && cache[i].kernel == kernel && cache[i].threads == threads)
       return cache[i].n;
   int coop = 0;
   if ((e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev)) != cudaSuccess)
     return -(int)e;
   if (!coop) return -(int)cudaErrorNotSupported;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(C);
+  cfg.gridDim = dim3(1);
   cfg.blockDim = dim3(threads);
+  cudaLaunchAttribute at;
+  at.id = cudaLaunchAttributeClusterDimension;
+  at.val.clusterDim.x = 1;
+  at.val.clusterDim.y = 1;
+  at.val.clusterDim.z = 1;
+  cfg.attrs = &at;
+  cfg.numAttrs = 1;
+  int n = 0;
+  if ((e = cudaOccupancyMaxActiveClusters(&n, kernel, &cfg)) != cudaSuccess) return -(int)e;
+  if (used < 32) cache[used++] = Entry{dev, threads, n, kernel};
+  return n;
+}
+
+// Launch `kernel` over `grid` blocks of `threads` threads as clusters of C
+// consecutive blocks (blockIdx.x / C is the cluster, its rank blockIdx.x % C).
+// A plain clustered launch: clusters that the card cannot hold at once wait
+// for free SMs, so no cluster may ever wait on another. Returns the launch's
+// CUDA error: a refused launch never runs, and nothing falls back.
+static inline int ksim_launch_clusters(const void* kernel, int grid, int threads, int C,
+                                       void** params, cudaStream_t stream) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(threads);
+  cfg.stream = stream;
   cudaLaunchAttribute at;
   at.id = cudaLaunchAttributeClusterDimension;
   at.val.clusterDim.x = C;
@@ -216,31 +239,6 @@ static inline int ksim_resident(const void* kernel, int C, int threads) {
   at.val.clusterDim.z = 1;
   cfg.attrs = &at;
   cfg.numAttrs = 1;
-  int n = 0;
-  if ((e = cudaOccupancyMaxActiveClusters(&n, kernel, &cfg)) != cudaSuccess) return -(int)e;
-  if (used < 32) cache[used++] = Entry{dev, C, threads, n, kernel};
-  return n;
-}
-
-// Launch `kernel` over `grid` blocks of `threads` threads as clusters of C
-// consecutive blocks (blockIdx.x / C is the cluster, its rank blockIdx.x % C),
-// cooperative (grid barriers allowed) if asked. Returns the launch's CUDA
-// error: a refused launch never runs, and nothing falls back.
-static inline int ksim_launch_clusters(const void* kernel, int grid, int threads, int C,
-                                       bool coop, void** params, cudaStream_t stream) {
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(grid);
-  cfg.blockDim = dim3(threads);
-  cfg.stream = stream;
-  cudaLaunchAttribute at[2];
-  at[0].id = cudaLaunchAttributeClusterDimension;
-  at[0].val.clusterDim.x = C;
-  at[0].val.clusterDim.y = 1;
-  at[0].val.clusterDim.z = 1;
-  at[1].id = cudaLaunchAttributeCooperative;
-  at[1].val.cooperative = 1;
-  cfg.attrs = at;
-  cfg.numAttrs = coop ? 2 : 1;
   cudaError_t e = cudaLaunchKernelExC(&cfg, kernel, params);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
@@ -548,39 +546,27 @@ __device__ __forceinline__ KsimNodeEval ksim_eval_node(
 // ---------------------------------------------------------------------------
 // The bodies of the three per-slot kernels. K1 filter_score, K2
 // normalize_select and K3 apply_placements are thin __global__ wrappers over
-// them, and K6 chunk_replay runs the same three bodies in one cooperative
-// launch a chunk, so the per-slot route and the chunk route execute the same
-// arithmetic. Each body is written for one block; any block size that is a
-// multiple of 32 and at most 1024 gives the same result (every reduction over
-// nodes is a max, a min or a (value, index) pair with the lowest index on ties,
-// and every state cell belongs to one thread, which applies pairs in order).
+// them, and K6 chunk_replay runs the same three bodies for every slot of a
+// chunk in one launch (one cluster a scenario), so the per-slot route and the
+// chunk route execute the same arithmetic. Each body is written for one block;
+// any block size that is a multiple of 32 and at most 1024 gives the same
+// result (every reduction over nodes is a max, a min or a (value, index) pair
+// with the lowest index on ties, and every state cell belongs to one thread,
+// which applies pairs in order).
 // ---------------------------------------------------------------------------
 
 #define KSIM_MAX_WARPS 32
 
-// K1's block body: the fused Filter + raw Score of pod p on node n (this
-// thread's node; n >= N is idle) of scenario scen into the scratch rows, with
-// the tier-preemption candidate row. p < 0 (an empty retry-buffer slot, uniform
-// over the block) writes an all-zero mask, rows and ignored mask. The block
-// computes the pod's term tables for scenario scen into `terms` first; a caller
-// that runs the body again synchronises the block before it.
-__device__ __forceinline__ void ksim_filter_score_body(const KsimArgs& a, int p, int64_t scen,
-                                                       int n, KsimTerms* terms) {
+// K1's per-node body: the fused Filter + raw Score of pod p (p >= 0) on node
+// n (this thread's node; n >= N is idle) of scenario scen into the scratch
+// rows, with the tier-preemption candidate row, from the pod's term tables
+// for scenario scen in `terms` (ksim_filter_prologue, then a block barrier).
+__device__ __forceinline__ void ksim_filter_score_node(const KsimArgs& a, int p, int64_t scen,
+                                                       int n, const KsimTerms* terms) {
   const int N = a.N, R = a.R;
-  if (p < 0) {
-    if (n < N) {
-      a.feasible[scen * a.feas_ss + n] = 0;
-      a.ignored[scen * a.feas_ss + n] = 0;
-      for (int r = 0; r < KSIM_ROWS; ++r) a.scores[scen * a.scores_ss + r * N + n] = 0.f;
-    }
-    return;
-  }
-  const float* match_count = a.match_count + scen * a.plane_ss;
-  const KsimLabels lab = ksim_label_rows(a, scen);
-  ksim_filter_prologue(a, p, match_count, lab, terms);
-  __syncthreads();
   if (n >= N) return;
-
+  const KsimLabels lab = ksim_label_rows(a, scen);
+  const float* match_count = a.match_count + scen * a.plane_ss;
   const float* used_s = a.used + scen * a.used_ss;
   const KsimNodeEval e = ksim_eval_node<true>(a, p, scen, n, lab, used_s, match_count,
                                                a.anti_active + scen * a.plane_ss,
@@ -626,6 +612,27 @@ __device__ __forceinline__ void ksim_filter_score_body(const KsimArgs& a, int p,
   scores[KSIM_ROW_NA * N + n] = e.na_raw;
   scores[KSIM_ROW_IP * N + n] = e.ip_raw;
   scores[KSIM_ROW_SPREAD * N + n] = e.sp_raw;
+}
+
+// K1's block body: the pod's term tables for scenario scen into `terms`,
+// then ksim_filter_score_node on this thread's node n. p < 0 (an empty
+// retry-buffer slot, uniform over the block) writes an all-zero mask, rows
+// and ignored mask. A caller that runs the body again synchronises the
+// block before it.
+__device__ __forceinline__ void ksim_filter_score_body(const KsimArgs& a, int p, int64_t scen,
+                                                       int n, KsimTerms* terms) {
+  const int N = a.N;
+  if (p < 0) {
+    if (n < N) {
+      a.feasible[scen * a.feas_ss + n] = 0;
+      a.ignored[scen * a.feas_ss + n] = 0;
+      for (int r = 0; r < KSIM_ROWS; ++r) a.scores[scen * a.scores_ss + r * N + n] = 0.f;
+    }
+    return;
+  }
+  ksim_filter_prologue(a, p, a.match_count + scen * a.plane_ss, ksim_label_rows(a, scen), terms);
+  __syncthreads();
+  ksim_filter_score_node(a, p, scen, n, terms);
 }
 
 __device__ __forceinline__ void ksim_better(float& bv, int& bi, float v, int i) {
@@ -1083,22 +1090,20 @@ __device__ __forceinline__ void ksim_evict(const KsimArgs& a, int64_t scen, int3
 }
 
 // K3's block body in scenario scen: sign × the contribution of K (pod, node)
-// pairs, in pair order. Pair k is pod pods_all[scen * pod_ss + k] at the
-// node of choice-buffer column pos[k] (pos null: column col0 + k) of the
-// scenario's row choices + scen * choice_ss. rollback, boundary (the
-// eviction step of a bind under tier preemption), due_relb / due_b (the
-// pending release) and append (the failure append of a main-path bind)
-// as K3's launch takes them (apply_placements.cu).
+// pairs, in pair order — a bind (sign +1) or a gang rollback (sign -1,
+// rollback); a release is ksim_release's (apply_placements.cu). Pair k is pod
+// pods_all[scen * pod_ss + k] at the node of choice-buffer column pos[k] (pos
+// null: column col0 + k) of the scenario's row choices + scen * choice_ss.
+// rollback, boundary (the eviction step of a bind under tier preemption) and
+// append (the failure append of a main-path bind) as K3's launch takes them.
 __device__ __forceinline__ void ksim_apply_body(const KsimArgs& a, int64_t scen,
                                                 const int32_t* pods_all, int64_t pod_ss,
                                                 const int32_t* pos, int col0, int32_t* choices,
                                                 int K, int64_t choice_ss, float sign,
-                                                int rollback, int boundary,
-                                                const int32_t* due_relb, int due_b, int append) {
+                                                int rollback, int boundary, int append) {
   __shared__ uint8_t active[KSIM_MAX_WAVE];
   const int N = a.N, R = a.R, G = a.G, D = a.D;
   const int32_t* pods = pods_all + scen * pod_ss;
-  const int32_t* relb = due_relb ? due_relb + scen * pod_ss : nullptr;
   int32_t* ch = choices + scen * choice_ss;
   float* used = a.used + scen * a.used_ss;
   float* match_count = a.match_count + scen * a.plane_ss;
@@ -1131,13 +1136,6 @@ __device__ __forceinline__ void ksim_apply_body(const KsimArgs& a, int64_t scen,
     }
     __syncthreads();
   }
-  // A release (sign < 0, not a rollback) subtracts each node's requests
-  // summed in pair order from zero, as the reference subtracts the summed
-  // delta of the released pods (models/state.py release_delta): column c
-  // of node n accumulates in rel, then used -= rel and rel is zeroed, by
-  // the thread that owns column c. Binds and rollbacks add pod by pod.
-  const bool summed = sign < 0.f && !rollback;
-  float* rel = a.rel + scen * a.used_ss;
   const int tid = threadIdx.x;
   for (int k = 0; k < K; ++k) {
     int p = pods[k];
@@ -1145,7 +1143,6 @@ __device__ __forceinline__ void ksim_apply_body(const KsimArgs& a, int64_t scen,
     int n = ch[KSIM_COL(k)];
     if (n < 0) continue;
     if (rollback && !active[k]) continue;
-    if (relb && relb[k] > due_b) continue;
     if (tid == 0) {
       for (int t = 0; t < a.AA; ++t) {
         int g = a.anti_req[p * a.AA + t];
@@ -1163,10 +1160,7 @@ __device__ __forceinline__ void ksim_apply_body(const KsimArgs& a, int64_t scen,
       const bool tiered = TC && a.group_id[p] < 0;
       for (int c = tid - 1; c < R + G + TC; c += blockDim.x - 1) {
         if (c < R) {
-          if (summed)
-            rel[(size_t)n * R + c] += a.requests[(size_t)p * R + c];
-          else
-            used[(size_t)n * R + c] += sign * a.requests[(size_t)p * R + c];
+          used[(size_t)n * R + c] += sign * a.requests[(size_t)p * R + c];
         } else if (c < R + G) {
           int g = c - R;
           if (!a.pmg[(size_t)p * G + g]) continue;
@@ -1180,18 +1174,6 @@ __device__ __forceinline__ void ksim_apply_body(const KsimArgs& a, int64_t scen,
           else
             npods_tier[cell] += sign;
         }
-      }
-    }
-  }
-  if (summed && tid > 0) {
-    for (int k = 0; k < K; ++k) {
-      const int p = pods[k];
-      const int n = p < 0 ? KSIM_PAD : ch[KSIM_COL(k)];
-      if (n < 0 || (relb && relb[k] > due_b)) continue;
-      for (int c = tid - 1; c < R; c += blockDim.x - 1) {
-        float* acc = rel + (size_t)n * R + c;
-        used[(size_t)n * R + c] = used[(size_t)n * R + c] - *acc;
-        *acc = 0.f;
       }
     }
   }

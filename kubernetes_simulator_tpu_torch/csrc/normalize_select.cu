@@ -80,5 +80,5 @@ KSIM_EXPORT int ksim_normalize_select(const KsimArgs* args, int pod, int* choice
   void* params[] = {(void*)args, (void*)&pod, (void*)&choice_out, (void*)&css,
                     (void*)&wave, (void*)&pod_of_s, (void*)&pss, (void*)&span};
   return ksim_launch_clusters((const void*)ksim_normalize_select_kernel, args->S * C, threads,
-                              C, false, params, (cudaStream_t)stream);
+                              C, params, (cudaStream_t)stream);
 }

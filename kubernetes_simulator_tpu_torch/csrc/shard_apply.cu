@@ -141,7 +141,7 @@ KSIM_EXPORT int ksim_shard_apply(const KsimArgs* args, const int32_t* pods, cons
   if (!args->cdom || args->S < 1 || args->NP < 1 || args->preempt || args->retry ||
       (long long)args->NP * args->n_local != args->N || (rollback && K > KSIM_MAX_WAVE))
     return (int)cudaErrorInvalidValue;
-  const int cap = ksim_resident((const void*)ksim_shard_apply_kernel, 1, K8_THREADS);
+  const int cap = ksim_resident((const void*)ksim_shard_apply_kernel, K8_THREADS);
   if (cap < 0) return -cap;
   const long long blocks = (long long)args->NP * args->S;
   if (blocks > cap) return (int)cudaErrorCooperativeLaunchTooLarge;

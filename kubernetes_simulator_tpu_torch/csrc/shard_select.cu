@@ -160,5 +160,5 @@ KSIM_EXPORT int ksim_shard_select(const KsimArgs* args, int pod, int32_t* choice
   int64_t css = (int64_t)choice_ss;
   void* params[] = {(void*)args, (void*)&pod, (void*)&choices, (void*)&css, (void*)&slot};
   return ksim_launch_clusters((const void*)ksim_shard_select_kernel, args->S * C, threads, C,
-                              false, params, (cudaStream_t)stream);
+                              params, (cudaStream_t)stream);
 }

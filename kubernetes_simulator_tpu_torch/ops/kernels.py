@@ -41,16 +41,24 @@ wrapper                       replaces (kubernetes_simulator_tpu/...)
 ============================  ================================================
 
 K6 runs K1's, K2's and K3's bodies (``csrc/ksim.cuh``) for every slot of
-a chunk's waves in one cooperative launch, so a chunk on the chunk route
-equals the same chunk on the per-slot route (K1 → K2 → K3 a slot) bit for
-bit; :mod:`..sim.torch_runtime` chooses the route from the run's mode.
+a chunk's waves in one launch, one thread-block cluster a scenario with no
+grid barrier, so a chunk on the chunk route equals the same chunk on the
+per-slot route (K1 → K2 → K3 a slot) bit for bit; :mod:`..sim.torch_runtime`
+chooses the route from the run's mode.
 
-The selects — K2, K6's K2 phase and K7 — launch as thread-block clusters
-(Hopper, ``sm_90a``): a scenario is one cluster of C blocks on neighbouring
-SMs, each block reducing its part of the node axis (K7: its shards), the C
-results folded through distributed shared memory after a cluster barrier.
+K3's release (``sign < 0``, not a rollback) is two launches of its own in
+``csrc/apply_placements.cu`` (``ksim_release``): each tile of a scenario's
+pairs sorted by (node, pair) in shared memory, then each node's requests
+summed tile by tile in pair order by one thread a (node, resource) and
+subtracted once; the count planes take integer sums
+(:func:`apply_placements`).
+
+The selects — K2, K6 and K7 — launch as thread-block clusters (Hopper,
+``sm_90a``): a scenario is one cluster of C blocks on neighbouring SMs, each
+block reducing its part of the node axis (K7: its shards), the C results
+folded through distributed shared memory after a cluster barrier.
 :func:`cluster_plan` chooses C, the block width, the grid and each block's
-nodes or shards from the shapes and the card's residency alone; a refused
+nodes or shards from the shapes and the card's SM count alone; a refused
 launch raises.
 
 K5 runs only at telemetry ``series``/``timeline``: the default ``summary``
@@ -90,7 +98,8 @@ Each wrapper takes its plain twin (:mod:`.reference`) for CPU tensors and
 launches its kernel for CUDA tensors — it never falls back: a failed
 build or launch raises. A launch adds one to the wrapper's ``launches``
 count (``reset_launch_counts`` zeroes them), so a run can show that it
-went through the kernels.
+went through the kernels; K3 and K8 also count each launch under its mode
+(``modes``: bind, rollback, release).
 
 Build at first use: every ``csrc/*.cu`` is compiled by ``nvcc`` — one
 process per source, all started together — into a shared library with a
@@ -110,6 +119,7 @@ import shutil
 import subprocess
 import threading
 import time
+import dataclasses
 from dataclasses import dataclass
 from pathlib import Path
 from typing import Callable, Dict, Optional, Tuple
@@ -148,17 +158,20 @@ _ARGTYPES = {
     "filter_score": [_P, _I, _P, _LL, _P],
     # (args, pod, choice_out, choice_ss, wave, pod_of_s, pod_ss, C, threads, span, stream)
     "normalize_select": [_P, _I, _P, _LL, _I, _P, _LL, _I, _I, _I, _P],
-    # (args, pods, pod_ss, pos, choices, K, choice_ss, sign, rollback, boundary,
-    #  due_relb, due_b, append, stream)
-    "apply_placements": [_P, _P, _LL, _P, _P, _I, _LL, _F, _I, _I, _P, _I, _I, _P],
+    # (args, pods, pod_ss, pos, choices, K, choice_ss, sign, rollback, boundary, append,
+    #  stream)
+    "apply_placements": [_P, _P, _LL, _P, _P, _I, _LL, _F, _I, _I, _I, _P],
     # (args, b, t_b, stream)
     "retry_boundary": [_P, _I, _F, _P],
     # (args, pods, pod_ss, M, gate, gate_ss, reasons, attempts, attributed, K, attr_ss,
     #  stream)
     "first_reject": [_P, _P, _LL, _I, _P, _LL, _P, _P, _P, _I, _LL, _P],
-    # (args, idx, gang, choices, choice_ss, W, first, end, boundary, append, C, grid, span,
+    # (args, idx, gang, choices, choice_ss, W, first, end, boundary, append, C, threads, span,
     #  stream)
     "chunk_replay": [_P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # K3's release (apply_placements.cu): (args, pods, pod_ss, pos, choices, K, choice_ss,
+    #  due_relb, due_b, P, keys, run, dplane, stream)
+    "release": [_P, _P, _LL, _P, _P, _I, _LL, _P, _I, _I, _P, _P, _P, _P],
     # (args, pod, choices, choice_ss, slot, C, threads, stream)
     "shard_select": [_P, _I, _P, _LL, _I, _I, _I, _P],
     # (args, pods, pos, choices, K, choice_ss, sign, rollback, stream)
@@ -169,13 +182,19 @@ _MAX_SEG = 16
 _MAX_TERMS = 64
 _MAX_WAVE = 1024
 _MAX_RB = 4096  # the granularity guard's cap (sim/granularity.py)
+#: Most pairs a block of K3's release sorts (K3R_TILE in apply_placements.cu).
+RELEASE_TILE = 4096
+#: Fewest pairs a block of K3's release sorts where K allows more.
+RELEASE_MIN_TILE = 1024
+#: Entry points a library exports beside its kernel's ``ksim_<name>``.
+_EXTRA_ENTRIES = {"apply_placements": ("release",)}
 
 
 #: Largest cluster of the selects: the portable size, which every Hopper part
 #: schedules without the non-portable opt-in.
 CLUSTER_CAP = 8
-#: The selects' full block width (K6's always; K2's and K7's above the narrow
-#: case).
+#: The selects' full block width (K6's always, K6_THREADS in chunk_replay.cu;
+#: K2's and K7's above the narrow case).
 SELECT_THREADS = 1024
 #: Narrowest block of K2 and K7 (a small node axis takes fewer warps per
 #: block reduction).
@@ -189,9 +208,9 @@ def _round32(n: int) -> int:
 @dataclass(frozen=True)
 class ClusterPlan:
     """Launch geometry of a cluster-per-scenario select: scenario s is the
-    cluster of blocks ``[s*C, (s+1)*C)`` (K6: clusters stride over the
-    scenarios); block rank r owns the nodes :meth:`node_range` (K2, K6's
-    phase 2) or the shards :meth:`shards` (K7)."""
+    cluster of blocks ``[s*C, (s+1)*C)``; block rank r owns the nodes
+    :meth:`node_range` (K2, both phases of K6) or the shards :meth:`shards`
+    (K7)."""
 
     S: int
     N: int  #: the node axis (K7: the padded one, NP shard blocks)
@@ -211,12 +230,10 @@ class ClusterPlan:
         return tuple(range(r, self.NP, self.C))
 
 
-def cluster_plan(S: int, N: int, NP: Optional[int] = None, *, sms: int,
-                 clusters: Optional[Callable[[int], int]] = None,
-                 items: Optional[int] = None) -> ClusterPlan:
+def cluster_plan(S: int, N: int, NP: Optional[int] = None, *, sms: int) -> ClusterPlan:
     """The launch geometry of a select over S scenarios of N nodes (``NP``:
     K7 over NP shards of N / NP nodes), a pure function of the shapes and
-    the card's residency:
+    the card's SM count: S clusters of C blocks, grid S·C.
 
     - ``sms``: the card's SMs, each running one block of
       :data:`SELECT_THREADS` threads of a select at a time. Where S alone
@@ -225,15 +242,12 @@ def cluster_plan(S: int, N: int, NP: Optional[int] = None, *, sms: int,
       second block resident on an SM (K2 and K7 fit two of 1,024 threads)
       adds warps, not an SM: at S = 128, N = 2,000 a cluster of two ran
       slower than one block (``scripts/cluster_sweep.py``).
-    - ``items`` (K6, a cooperative launch: every block resident, blocks of
-      :data:`SELECT_THREADS`): phase 1's (scenario, tile) items; the grid is
-      enough clusters for them and for the S scenarios, at most
-      ``clusters(C)``, the clusters of C the card holds at once (C shrinks
-      until S clusters fit).
     - Unsharded, rank r owns ``span`` nodes (a multiple of 32, C·span >= N;
-      C shrinks so no rank is empty); K2's and K7's block is one thread a
+      C shrinks so no rank is empty). K2's and K7's block is one thread a
       node of a rank (a shard), between :data:`MIN_THREADS` and
-      :data:`SELECT_THREADS`."""
+      :data:`SELECT_THREADS` (K6's: :func:`chunk_plan`).
+    - Nothing caps S: a launch's clusters beyond what the card holds at once
+      wait for free SMs (no select's cluster waits on another)."""
     if S < 1 or N < 1 or sms < 1:
         raise ValueError(f"cluster_plan: S={S}, N={N}, sms={sms}")
     if NP is not None and (NP < 1 or N % NP):
@@ -241,26 +255,32 @@ def cluster_plan(S: int, N: int, NP: Optional[int] = None, *, sms: int,
     tiles = -(-N // SELECT_THREADS)
     want = min(CLUSTER_CAP, NP if NP is not None else tiles)
     C = 1 if S >= sms else max(1, min(want, sms // S))
-    if clusters is not None:
-        while C > 1 and clusters(C) < S:
-            C -= 1
     if NP is not None:
         span = N // NP
     else:
         span = _round32(-(-N // C))
         C = -(-N // span)
-    if items is None:
-        threads = min(SELECT_THREADS, max(MIN_THREADS, _round32(span)))
-        grid = S * C
-    else:
-        threads = SELECT_THREADS
-        n = max(S, -(-items // C))
-        if clusters is not None:
-            n = min(n, clusters(C))
-        if n < 1:
-            raise RuntimeError(f"the card holds no cluster of {C} blocks of {threads} threads")
-        grid = n * C
-    return ClusterPlan(S=S, N=N, NP=NP or 1, C=C, threads=threads, span=span, grid=grid)
+    threads = min(SELECT_THREADS, max(MIN_THREADS, _round32(span)))
+    return ClusterPlan(S=S, N=N, NP=NP or 1, C=C, threads=threads, span=span, grid=S * C)
+
+
+def chunk_plan(S: int, N: int, *, sms: int) -> ClusterPlan:
+    """K6's launch geometry: K2's C and span (:func:`cluster_plan`; rank r
+    owns its nodes in both phases) in blocks of :data:`SELECT_THREADS`,
+    since phase 1 runs K1's body a node a thread (``ksim_chunk_replay``
+    refuses any other width)."""
+    return dataclasses.replace(cluster_plan(S, N, sms=sms), threads=SELECT_THREADS)
+
+
+def release_tile(K: int, S: int = 1, sms: int = 1) -> int:
+    """Pairs a block of K3's release sorts, a power of two (``ksim_release``
+    refuses any other): the one >= K, at most :data:`RELEASE_TILE`, halved
+    down to :data:`RELEASE_MIN_TILE` while the S · tiles sort blocks leave
+    some of the card's ``sms`` SMs idle."""
+    P = min(RELEASE_TILE, max(2, 1 << (K - 1).bit_length()))
+    while P > RELEASE_MIN_TILE and S * -(-K // P) < sms:
+        P //= 2
+    return P
 
 
 class KsimArgs(ctypes.Structure):
@@ -308,9 +328,7 @@ class KsimArgs(ctypes.Structure):
 # ---------------------------------------------------------------------------
 
 _lock = threading.Lock()
-_libs: Dict[str, Callable] = {}  # kernel name → its C entry point
-_queries: Dict[str, Callable] = {}  # "chunk_clusters" → K6's residency query
-_cluster_cache: Dict[Tuple[int, int], int] = {}  # (device, C) → K6's resident clusters
+_libs: Dict[str, Callable] = {}  # kernel name (and _EXTRA_ENTRIES) → its C entry point
 #: Wall seconds of the last build (0 when every library came from _build/).
 last_build_s = 0.0
 
@@ -345,7 +363,7 @@ def build(verbose: bool = False) -> float:
     the wall seconds spent compiling."""
     global last_build_s
     with _lock:
-        if len(_libs) == len(KERNELS):
+        if set(KERNELS) <= set(_libs):
             return 0.0
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         todo = {}
@@ -383,35 +401,17 @@ def build(verbose: bool = False) -> float:
                     f"KsimArgs layout mismatch: C {size} B, ctypes "
                     f"{ctypes.sizeof(KsimArgs)} B"
                 )
-            fn = getattr(lib, f"ksim_{name}")
-            fn.argtypes = _ARGTYPES[name]
-            fn.restype = ctypes.c_int
-            _libs[name] = fn
-            if name == "chunk_replay":
-                q = lib.ksim_chunk_replay_resident
-                q.argtypes, q.restype = [_I], ctypes.c_int
-                _queries["chunk_clusters"] = q
+            for entry in (name, *_EXTRA_ENTRIES.get(name, ())):
+                fn = getattr(lib, f"ksim_{entry}")
+                fn.argtypes = _ARGTYPES[entry]
+                fn.restype = ctypes.c_int
+                _libs[entry] = fn
         return last_build_s
 
 
 def _check(rc: int, name: str) -> None:
     if rc != 0:
         raise RuntimeError(f"kernel {name}: launch failed with CUDA error {rc}")
-
-
-def chunk_clusters(C: int, device) -> int:
-    """Clusters of C blocks of K6 (1,024 threads) that the card ``device``
-    holds at once (cudaOccupancyMaxActiveClusters; C = 1: blocks)."""
-    dev = torch.device(device).index
-    dev = torch.cuda.current_device() if dev is None else dev
-    n = _cluster_cache.get((dev, C))
-    if n is None:
-        with torch.cuda.device(dev):
-            n = _queries["chunk_clusters"](C)
-        if n < 0:
-            raise RuntimeError(f"kernel chunk_replay: occupancy query failed with CUDA error {-n}")
-        _cluster_cache[(dev, C)] = n
-    return n
 
 
 def select_plan(name: str, tb: ref.Tables) -> ClusterPlan:
@@ -421,8 +421,7 @@ def select_plan(name: str, tb: ref.Tables) -> ClusterPlan:
     dev = tb.state.used.device
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     if name == "chunk_replay":
-        return cluster_plan(S, N, sms=sms, clusters=lambda C: chunk_clusters(C, dev),
-                            items=S * -(-N // SELECT_THREADS))
+        return chunk_plan(S, N, sms=sms)
     NP = tb.shards.P if name == "shard_select" else None
     return cluster_plan(S, N, NP, sms=sms)
 
@@ -468,6 +467,10 @@ def pack_args(tb: ref.Tables, res_w: torch.Tensor, rel: torch.Tensor) -> KsimArg
             f"(AR={dims['AR']}, SP={dims['SP']}); the kernel's shared-memory "
             "term tables hold at most that many"
         )
+    w = p.pref_aff_w
+    if not bool(((w == w.round()) & (w.abs() <= 2 ** 20)).all()):
+        raise ValueError("pref_aff_w: preferred inter-pod affinity weights are integers "
+                         "(Kubernetes' 1-100); K3's release sums them as integers")
     if p.na_pref.shape[2] != dims["TE"]:
         raise ValueError("na_req and na_pref must share the expression width")
     if len(k.seg_x0) > _MAX_SEG:
@@ -636,10 +639,33 @@ class Bound:
             self._res_w = torch.tensor(tb.consts.res_w, dtype=torch.float32, device=c.device)
             self._rel = torch.zeros_like(tb.state.used)
             self.args = pack_args(tb, self._res_w, self._rel)
+            self._dplane: Optional[torch.Tensor] = None
+            self._sms: Optional[int] = None
             self._args_ptr = ctypes.addressof(self.args)
             if tb.reject is not None:
                 check_reject(tb)
         self._plans: Dict[str, ClusterPlan] = {}
+
+    def release_workspace(self, K: int):
+        """K3's release workspace for K pairs a scenario, tiles of P =
+        :func:`release_tile` pairs: P, ``keys`` [S, tiles, P] and ``run``
+        [S, tiles, N, 2] (u16: each node's keys [begin, end) in a tile; the
+        kernels set them, and read a ``run`` entry only where the key it
+        begins at has its node, so neither needs clearing) and ``dplane``
+        [S, 3, G, D], the count planes' integer deltas, zero between
+        releases (allocated at the first)."""
+        s = self.tables.state
+        S, N = s.used.shape[:2]
+        G, D = s.match_count.shape[1:]
+        dev = s.used.device
+        if self._dplane is None:
+            self._dplane = torch.zeros(S * 3 * G * D, dtype=torch.int32, device=dev)
+        if self._sms is None:
+            self._sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        P = release_tile(K, S, self._sms)
+        tiles = -(-K // P)
+        return (P, torch.empty(S * tiles * P, dtype=torch.int32, device=dev),
+                torch.empty(S * tiles * N * 2, dtype=torch.int16, device=dev), self._dplane)
 
     def plan(self, name: str) -> ClusterPlan:
         """The launch geometry of the select ``name`` on these tables
@@ -737,8 +763,13 @@ def apply_placements(
 ) -> None:
     """K3: ``sign`` × the contribution of each pair (``pod_ids[k]``, the
     node ``choices[s, pos[k]]``), in pair order, into each scenario s's
-    state; PAD pods and nodes are skipped. ``pod_ids`` is ``[K]`` (shared)
-    or ``[S, K]`` (one list per scenario, rows may be strided). ``rollback``
+    state; PAD pods and nodes are skipped. A release (``sign`` -1, not a
+    rollback) launches K3's release kernels: the pairs grouped by node (each
+    tile of pairs sorted by node, stably), each node's requests summed from
+    zero in pair order and subtracted once, its tier cells moved pair by
+    pair, the count planes' integer sums subtracted once a cell. Each
+    launch counts under its mode too (``modes``: bind, rollback, release). ``pod_ids`` is ``[K]``
+    (shared) or ``[S, K]`` (one list per scenario, rows may be strided). ``rollback``
     undoes only failed-gang members and writes PAD over their choices.
     ``due = (relb, b)`` (``relb`` laid out like ``pod_ids``) keeps the
     pairs with ``relb <= b``. ``append`` adds each failed non-gang pod to
@@ -782,14 +813,27 @@ def apply_placements(
                              "boundary >= 0")
         if choices.shape[1] != pre.col_pod.shape[0]:
             raise ValueError("the choice buffer must have one column per preempt.col_pod entry")
+    release = sign < 0 and not rollback
+    if release and sign != -1.0:
+        raise ValueError("a release subtracts its pairs once (sign -1)")
+    if due is not None and not release:
+        raise ValueError("due pairs belong to a release")
     if K == 0:
         return
-    _check(_libs["apply_placements"](
-        b._args_ptr, pod_ids.data_ptr(), pod_ss, pos.data_ptr(), choices.data_ptr(), int(K),
-        choices.shape[1], float(sign), int(bool(rollback)),
-        -1 if boundary is None else int(boundary), relb_ptr, int(due_b), int(bool(append)),
-        _stream()), "apply_placements")
+    if release:
+        P, keys, run, dplane = b.release_workspace(K)
+        _check(_libs["release"](
+            b._args_ptr, pod_ids.data_ptr(), pod_ss, pos.data_ptr(), choices.data_ptr(), int(K),
+            choices.shape[1], relb_ptr, int(due_b), P, keys.data_ptr(), run.data_ptr(),
+            dplane.data_ptr(), _stream()), "apply_placements")
+    else:
+        _check(_libs["apply_placements"](
+            b._args_ptr, pod_ids.data_ptr(), pod_ss, pos.data_ptr(), choices.data_ptr(), int(K),
+            choices.shape[1], float(sign), int(bool(rollback)),
+            -1 if boundary is None else int(boundary), int(bool(append)), _stream()),
+            "apply_placements")
     apply_placements.launches += 1
+    apply_placements.modes["release" if release else "rollback" if rollback else "bind"] += 1
 
 
 def retry_boundary(b: Bound, bnd: int, t_b: float) -> None:
@@ -900,7 +944,7 @@ def chunk_replay(b: Bound, idx: torch.Tensor, gang: torch.Tensor, choices: torch
     _check(_libs["chunk_replay"](
         b._args_ptr, idx.data_ptr(), gang.data_ptr(), choices.data_ptr(), choices.shape[1],
         int(W), int(first), int(end), -1 if boundary is None else int(boundary),
-        int(bool(append)), plan.C, plan.grid, plan.span, _stream()), "chunk_replay")
+        int(bool(append)), plan.C, plan.threads, plan.span, _stream()), "chunk_replay")
     chunk_replay.launches += 1
 
 
@@ -969,17 +1013,24 @@ WRAPPERS = (filter_score, normalize_select, apply_placements, retry_boundary, fi
             first_reject_fold, chunk_replay, shard_select, shard_apply)
 
 
+#: The wrappers that also count their launches by mode.
+MODE_WRAPPERS = (apply_placements, shard_apply)
+
+
 def reset_launch_counts() -> None:
     for w in WRAPPERS:
         w.launches = 0
-    shard_apply.modes = dict(bind=0, rollback=0, release=0)
+    for w in MODE_WRAPPERS:
+        w.modes = dict(bind=0, rollback=0, release=0)
 
 
 def launch_counts() -> Dict[str, int]:
-    """Launches by wrapper, and K8's by mode (``shard_apply_bind``,
-    ``_rollback``, ``_release``; they sum to ``shard_apply``)."""
+    """Launches by wrapper, and K3's and K8's by mode
+    (``apply_placements_bind``, ``_rollback``, ``_release``, the same for
+    ``shard_apply``; each wrapper's sum to its count)."""
     out = {w.__name__: w.launches for w in WRAPPERS}
-    out.update({f"shard_apply_{k}": n for k, n in shard_apply.modes.items()})
+    for w in MODE_WRAPPERS:
+        out.update({f"{w.__name__}_{k}": n for k, n in w.modes.items()})
     return out
 
 

@@ -1,11 +1,9 @@
 """The launch geometry of the cluster selects (ops/kernels.py cluster_plan).
 
-K2, K6's K2 phase and K7 launch as thread-block clusters whose size, block
-width, grid and per-block node ranges or shard sets come from one plain
-function of the shapes and the card's residency. It runs here on the CPU
-with the SM counts of H100 parts (132 SXM, 114 PCIe) and, for K6's
-all-resident launch, its clusters of C blocks of 1,024 threads modelled as
-``sms // C`` less one (the card packs them into its graphics clusters)."""
+K2, K6 and K7 launch as thread-block clusters whose size, block width, grid
+and per-block node ranges or shard sets come from one plain function of the
+shapes and the card's SM count. It runs here on the CPU with the SM counts of
+H100 parts (132 SXM, 114 PCIe)."""
 
 import pytest
 
@@ -14,6 +12,7 @@ from kubernetes_simulator_tpu_torch.ops.kernels import (
     MIN_THREADS,
     SELECT_THREADS,
     ClusterPlan,
+    chunk_plan,
     cluster_plan,
 )
 
@@ -22,10 +21,8 @@ SHAPES = [(1, 37), (1, 500), (1, 2000), (1, 5000), (1, 10_000), (4, 5000), (16, 
           (33, 3000), (128, 500), (128, 2000), (132, 2000), (300, 2000), (1000, 10_000)]
 SHARDED = [(1, 8, 1250), (1, 3, 3334), (1, 12, 834), (1, 20, 500), (1, 3, 34), (1, 8, 5),
            (4, 8, 1250), (128, 8, 250), (300, 3, 700)]
-
-
-def _clusters(sms):
-    return lambda C: max(0, sms // C - (1 if C > 1 else 0))
+#: Batches the card cannot hold at once (one 1,024-thread block an SM).
+BEYOND = [(300, 2000), (1000, 10_000), (4096, 500)]
 
 
 def _check_common(plan: ClusterPlan, S, sms):
@@ -61,28 +58,45 @@ def test_select_plan(S, N, sms):
     assert plan == cluster_plan(S, N, sms=sms)  # a pure function
 
 
+def _check_chunk(plan: ClusterPlan, S, N, sms):
+    """K6: one cluster of C blocks of 1,024 threads a scenario (grid S·C),
+    rank r owning its nodes in both phases, C = 1 once S fills the card."""
+    _check_common(plan, S, sms)
+    _check_ranges(plan, N)
+    assert plan.threads == SELECT_THREADS and plan.NP == 1
+    assert plan.grid == S * plan.C
+    assert plan.C <= max(1, -(-N // SELECT_THREADS))
+    assert S * plan.C <= max(sms, S)
+    # the same C and span as K2's plan of the same shapes
+    k2 = cluster_plan(S, N, sms=sms)
+    assert (plan.C, plan.span) == (k2.C, k2.span)
+    assert plan == chunk_plan(S, N, sms=sms)  # a pure function
+
+
 @pytest.mark.parametrize("sms", SMS)
 @pytest.mark.parametrize("S,N", SHAPES)
 def test_chunk_plan(S, N, sms):
-    """K6: blocks of 1,024 threads, every cluster resident at once; enough
-    clusters for phase 1's (scenario, tile) items and the S scenarios, C = 1
-    once S fills the card (the headline's 128 scenarios on 132 SMs)."""
-    tiles = -(-N // SELECT_THREADS)
-    clusters = _clusters(sms)
-    plan = cluster_plan(S, N, sms=sms, clusters=clusters, items=S * tiles)
-    _check_common(plan, S, sms)
-    _check_ranges(plan, N)
-    assert plan.threads == SELECT_THREADS
-    n = plan.grid // plan.C
-    assert 1 <= n <= clusters(plan.C)
-    assert n == min(clusters(plan.C), max(S, -(-S * tiles // plan.C)))
-    if plan.C > 1:
-        assert clusters(plan.C) >= S
-    if (S, N, sms) == (128, 2000, 132):
-        assert plan.C == 1 and plan.grid == 132
+    """K6 at the main path's shapes: C > 1 while S leaves SMs idle (S = 1,
+    N >= 2,048: a cluster; config4's 10,000 nodes: C = 8 of 1,280), the
+    headline's 128 x 2,000 one block a scenario."""
+    plan = chunk_plan(S, N, sms=sms)
+    _check_chunk(plan, S, N, sms)
+    if (S, N) == (128, 2000):
+        assert plan.C == 1 and plan.grid == 128
+    if (S, N) == (1, 10_000):
+        assert plan.C == 8 and plan.span == 1280 and plan.node_range(7) == (8960, 10_000)
     if S == 1 and N >= 2 * SELECT_THREADS:
         assert plan.C > 1
-    assert plan == cluster_plan(S, N, sms=sms, clusters=clusters, items=S * tiles)
+
+
+@pytest.mark.parametrize("sms", SMS)
+@pytest.mark.parametrize("S,N", BEYOND)
+def test_chunk_plan_beyond_the_card(S, N, sms):
+    """No residency cap: a batch of more scenarios than the card holds at
+    once is one launch of S clusters (they run in waves)."""
+    plan = chunk_plan(S, N, sms=sms)
+    _check_chunk(plan, S, N, sms)
+    assert plan.C == 1 and plan.grid == S > sms
 
 
 @pytest.mark.parametrize("sms", SMS)
@@ -116,9 +130,3 @@ def test_plan_refuses(args, kw):
     raise."""
     with pytest.raises(ValueError):
         cluster_plan(*args, **kw)
-
-
-def test_chunk_plan_without_room_raises():
-    """A card that holds no cluster of the chosen size refuses K6's plan."""
-    with pytest.raises(RuntimeError):
-        cluster_plan(1, 100, sms=132, clusters=lambda C: 0, items=1)

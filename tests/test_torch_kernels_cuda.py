@@ -820,11 +820,12 @@ def test_cluster_preempt_argmin(card):
     assert int(tb_k.preempt.ev_node[0]) == PAD and int(tb_k.preempt.last_wave[0]) == 3
 
 
-@pytest.mark.parametrize("nodes", [5000, 10000])
+@pytest.mark.parametrize("nodes", [5000, 9001, 10000])
 def test_cluster_chunk_replay_s1(card, nodes):
-    """K6 at S = 1 with its K2 phase on a cluster (config2's and config4's
-    node counts): the chunk route equals the per-slot route and the twins
-    on the card (assignments and ``used``)."""
+    """K6 at S = 1 on a cluster (config2's and config4's node counts, and
+    9,001: ranks of 1,152 nodes, the last one 937): the chunk route equals
+    the per-slot route and the twins on the card (assignments and
+    ``used``)."""
     ec, ep = _case(13, nodes=nodes, pods=700, gang_fraction=0.1, gang_size=3,
                    duration_mean=5.0, arrival_rate=40.0)
     kw = dict(wave_width=8, chunk_waves=16)
@@ -833,12 +834,68 @@ def test_cluster_chunk_replay_s1(card, nodes):
     res = eng.replay()
     assert res.route == "chunk" and K.launch_counts()["chunk_replay"] == len(eng.plan.buckets)
     plan = K.chunk_replay.plan
-    assert plan.C > 1 and plan.grid % plan.C == 0, plan
+    assert plan.C > 1 and plan.grid == plan.C and plan.threads == K.SELECT_THREADS, plan
+    if nodes > 5000:  # phase 1 tiles a rank's nodes; the last rank is short
+        assert plan.span > K.SELECT_THREADS and nodes % plan.span, plan
     _, _, a_slot, _, _ = eng._run(route="slot")
     np.testing.assert_array_equal(res.assignments, a_slot[0])
     plain = TorchReplayEngine(ec, ep, FrameworkConfig(), device=card, plain=True, **kw).replay()
     np.testing.assert_array_equal(res.assignments, plain.assignments)
     np.testing.assert_array_equal(res.state.used, plain.state.used)
+
+
+def test_chunk_replay_beyond_the_card(card):
+    """K6 at more scenarios than the card holds at once (300 clusters of
+    one 1,024-thread block): the first 8 waves on K6 equal the per-slot
+    route and the twin (choices and every state plane)."""
+    from kubernetes_simulator_tpu_torch.sim.torch_runtime import new_choices, run_waves
+    from kubernetes_simulator_tpu_torch.sim.whatif import WhatIfEngine, uniform_scenarios
+
+    ec, ep = _case(21, nodes=2000, pods=400, gang_fraction=0.1, gang_size=3)
+    S = 300
+    eng = WhatIfEngine(ec, ep, uniform_scenarios(ec, S, seed=0), FrameworkConfig(),
+                       wave_width=8, chunk_waves=8, device=card)
+    plan = eng.plan
+    runs = {}
+    for route, plain in (("chunk", False), ("slot", False), ("twin", True)):
+        tb = eng._tables()
+        ch = new_choices(plan, S, eng.pods.bound_node, card)
+        run_waves(plan, tb, ch, 0, plan.C, plain=plain, route="slot" if route == "slot" else
+                  "chunk")
+        runs[route] = (tb, ch)
+        if route == "chunk":
+            grid = K.chunk_replay.plan.grid
+            assert grid == S > torch.cuda.get_device_properties(card).multi_processor_count
+    torch.cuda.synchronize()
+    tb_k, ch_k = runs["chunk"]
+    for route in ("slot", "twin"):
+        tb, ch = runs[route]
+        assert torch.equal(ch_k, ch), route
+        for f in ref.DevState._fields:
+            assert torch.equal(getattr(tb_k.state, f), getattr(tb.state, f)), (route, f)
+
+
+@pytest.mark.parametrize("kind,pairs", [("borg", 4000), ("tier", 4000), ("labels", 4000),
+                                        ("pending", 4000), ("borg", 5000), ("tier", 5000),
+                                        ("pending", 4096), ("borg", 3)])
+def test_release_equals_pair_order(card, kind, pairs):
+    """K3's release (each tile of pairs sorted by node, each node summed in
+    pair order) on the Borg cut's 12 nodes x 5,000 tasks, some 300 pairs a
+    node, plain, with tier planes, with a label row a scenario and as the
+    retry buffer's pending release (its largest buffer, 4,096), across
+    tiles of 1,024 pairs (each node's pairs in every tile; 5,000 pairs: a
+    short last tile) and in one tile of 4 (3 pairs): every plane equal to
+    the twin's and ``used`` to ``_add_in_pair_order``'s sums, bit for bit
+    (chip_smoke.py's hold_release)."""
+    from kubernetes_simulator_tpu_torch.sim.borg import BorgSpec, make_borg_encoded
+
+    cs = _chip_smoke()
+    ec, ep, _ = make_borg_encoded(BorgSpec(nodes=12, tasks=5000, seed=cs.SEED))
+    rec = cs.hold_release(f"release ({kind}, {pairs})", ep,
+                          cs.release_case(kind, ec, ep, card, n_pairs=pairs), timed=False)
+    assert not rec["dyadic_requests"] or pairs < 100, rec
+    if pairs >= 1000:
+        assert rec["max_pairs_a_node"] >= 100, rec
 
 
 @pytest.mark.parametrize("P", (3, 8, 12, 20))
