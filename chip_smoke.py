@@ -53,22 +53,30 @@ From the root of a checkout, on a host with one CUDA card. In order:
    routes against greedy_replay's pins (BORG_PINS);
 8e. node-plane shards (row B13) and paged pod waves: the reduced sharded
    replay (SHARD_REDUCED: 100 nodes over 3 shards, two pad rows, 600 pods)
-   on four routes — the shard route on the kernels (K1 over the padded
-   node axis -> K7 -> K8 a slot), its twins on the card and on the CPU, the replicated
-   K6 route — paged and not: assignments, placed and ``used`` identical;
-   SHARD_CUT (BORG_CUT over 4 shards, paged) against SHARD_PINS; config13
-   (``examples/config13_borgscale.yaml`` as shipped: 10,000 nodes x 100,000
-   Borg tasks, nodeShards 8, pagedWaves, chunkWaves 512) through the CLI
-   ``run``, counters zeroed just before and read just after, its
-   assignments equal to the same trace replicated on K6; the wall,
-   placements/s, set-up split, launches, the pager's stalls; its first
-   chunk profiled (K1's, K7's and K8's device time a launch) beside their
-   bounds; K1 on the sharded tables, K7 and K8 held against their
+   on every route — the shard route (K9 ``shard_chunk_replay``, one launch a
+   chunk, and K8 at each release), the per-slot shard route on the kernels
+   (K1 over the padded node axis -> K7 -> K8 a slot), K9's twin and the
+   per-slot twins on the card and on the CPU, the replicated K6 route —
+   paged and not: assignments, placed and ``used`` identical, each route's
+   launches checked; SHARD_CUT (BORG_CUT over 4 shards, paged) on K9 against
+   SHARD_PINS; config13 (``examples/config13_borgscale.yaml`` as shipped:
+   10,000 nodes x 100,000 Borg tasks, nodeShards 8, pagedWaves, chunkWaves
+   512) through the CLI ``run``, counters zeroed just before and read just
+   after (one K9 a chunk, K8 its releases, nothing else), its assignments
+   equal to the per-slot shard route's and a second K9 run's in the same
+   call and to the same trace replicated on K6; the walls of both routes,
+   placements/s, set-up split, launches, the pager's stalls on both routes;
+   K9's time a slot over the first chunk (CUDA events); the per-slot route's
+   first chunk profiled (K1's, K7's and K8's device time a launch) beside
+   their bounds; K1 on the sharded tables, K7 and K8 held against their
    twins launch by launch in mid-replay windows of config13's trace at 8
    shards and at 3 (two pad rows), every node but one in a hundred filled to
-   its allocatable (binds, undone gang rollbacks, a release),
-   and timed at 8 beside their twins, their bounds and, for K7's choice,
-   ``torch.argmax`` over the masked total row;
+   its allocatable (binds, undone gang rollbacks, a release), and timed
+   beside their twins, their bounds and, for K7's choice, ``torch.argmax``
+   over the masked total row; K9 held in the same windows against its twin
+   and the per-slot kernels (every plane, the shard buffers, the choices)
+   and timed there beside its twin and its bound (K9's registers and shared
+   bytes are printed after the build);
 9. tier preemption, reduced: a tier-preemption replay (config6 cut to 20
    nodes x 1,040 pods) and a preemption x completions what-if (8
    scenarios x 8 nodes x 400 pods) on the kernel path, the plain path on
@@ -180,7 +188,7 @@ From the root of a checkout, on a host with one CUDA card. In order:
    envelope <= 1e-6, one engine set-up; the walls of the search, the
    held-out sweep and the oracle.
 
-The selects — K2, K6 and K7 — launch as thread-block clusters
+The selects — K2, K6, K7 and K9 — launch as thread-block clusters
 (ops/kernels.py ``cluster_plan``): every step that launches one prints its
 plan (cluster size C, block width, grid). K2 at S=1 (step 3) and S=128
 (step 8), K2's argmin (steps 10-11) and K7 at 8 and 3 shards (step 8e) are
@@ -417,6 +425,8 @@ SOURCES = {
                      "kubernetes_simulator_tpu/ops/tpu.py:1316"),
     "shard_apply": ("kubernetes_simulator_tpu_torch/csrc/shard_apply.cu",
                     "kubernetes_simulator_tpu/ops/tpu.py:1406"),
+    "shard_chunk_replay": ("kubernetes_simulator_tpu_torch/csrc/shard_chunk_replay.cu",
+                           "kubernetes_simulator_tpu/sim/jax_runtime.py:548"),
 }
 #: The node-shard work (row B13), each with the kernel it runs in and the
 #: reference lines it replaces: K1 on the sharded tables (the mask and rows
@@ -473,15 +483,16 @@ LABEL_SOURCES = {
 #: whose route is chosen explicitly.
 SOURCES_PLAIN = ("filter_score", "normalize_select", "apply_placements")
 #: The kernels the per-slot route never launches: K6 (the chunk route's) and
-#: K7, K8 (the shard route's; K8 also counted by mode).
+#: K7, K8, K9 (the shard routes'; K8 also counted by mode).
 NOT_SLOT_ROUTE = ("chunk_replay", "shard_select", "shard_apply", "shard_apply_bind",
-                  "shard_apply_rollback", "shard_apply_release")
+                  "shard_apply_rollback", "shard_apply_release", "shard_chunk_replay")
 #: Earlier times printed beside this run's (PERF.md; NVIDIA H100 80GB HBM3,
 #: 700 W): K6 a slot in PR 10's chip run 6 (config4 run 7, CUDA events), the
 #: cooperative K6 with two grid barriers a slot; K3's release (ms) in PR 8,
-#: one block a scenario walking the pairs in order.
+#: one block a scenario walking the pairs in order; config13's CLI wall on
+#: the per-slot shard route (K1 -> K7 -> K8 a slot), before K9.
 EARLIER = dict(k6_us_per_slot=dict(headline=30.15, config2=21.24, config4=19.38),
-               release_ms=dict(headline=2.12, tier=4.33))
+               release_ms=dict(headline=2.12, tier=4.33), config13_wall_s=6.407)
 #: config4 (examples/config4_borg_1m.yaml, 10,000 nodes x 1,000,000 tasks)
 #: through the CLI ``run``; the first chunks held against the per-slot route.
 CONFIG4 = "examples/config4_borg_1m.yaml"
@@ -624,8 +635,9 @@ def index_add_ms(tb, pod_ids, nodes, iters=20, due=None):
     """The yardstick of a release: one ``index_add_`` of the live pairs'
     requests into a zeroed [S·N, R] plane under
     ``torch.use_deterministic_algorithms(True)`` (device ms, every kernel
-    of the call). It keeps no pair order within a row, so it is a
-    yardstick, not a path."""
+    of the call; by CUDA events where torch.profiler recorded no device
+    time). It keeps no pair order within a row, so it is a yardstick, not a
+    path."""
     S, N, R = tb.state.used.shape
     pid = pod_ids if pod_ids.dim() == 2 else pod_ids.expand(S, -1)
     live = (pid >= 0) & (nodes >= 0)
@@ -637,7 +649,9 @@ def index_add_ms(tb, pod_ids, nodes, iters=20, due=None):
     plane = torch.zeros(S * N, R, dtype=torch.float32, device=req.device)
     torch.use_deterministic_algorithms(True)
     try:
-        return device_ms(lambda i: plane.index_add_(0, rows, req), iters, None)
+        call = lambda i: plane.index_add_(0, rows, req)
+        # CUDA events where the profiler keeps no device record of the call
+        return device_ms(call, iters, None) or time_cuda(call, iters)
     finally:
         torch.use_deterministic_algorithms(False)
 
@@ -3943,24 +3957,17 @@ def _clone_shard_tables(tb):
     return tb._replace(state=c(tb.state), scratch=c(tb.scratch), shards=c(tb.shards))
 
 
-def hold_shards(where, eng, dev, seed):
-    """K1 on the sharded tables, K7 and K8 against their twins, launch by launch,
-    in a mid-replay window of ``eng`` (node-sharded): the kernels replay up to
-    the first boundary past chunk 1 that releases pods; every node is filled
-    to its allocatable but one in a hundred (at least 16), left 0-3 mean
-    requests of room; then from that boundary's K8
-    release, every slot's K1 (scratch rows), K7 (each shard's packed
-    extrema, the choice and the column's domain ids) and K8 bind (every plane),
-    and each gang wave's K8 rollback, over SHARD_HOLD_WAVES waves (more until
-    a rollback undid a pair), must equal the twins' bit for bit. Returns the
-    record, the kernel tables and choices at the window's end, a live slot
-    (for timing) and the window's release pairs."""
+def shard_window(eng, dev, seed):
+    """The start of a mid-replay window of ``eng`` (node-sharded): K9 replays
+    up to the first boundary past chunk 1 that releases pods, then every node
+    is filled to its allocatable but one in a hundred (at least 16), left 0-3
+    mean requests of room (so gangs fail and roll back). Returns (the
+    boundary, the tables, the choices), the boundary's release still to do."""
     plan = eng.plan
-    C, W = plan.C, plan.idx.shape[1]
     b = next(i for i in range(2, len(plan.buckets)) if plan.buckets[i] is not None)
     tb_k = eng._tables()
     ch_k = new_choices(plan, 1, eng.pods.bound_node, dev)
-    run_waves(plan, tb_k, ch_k, 0, b * C, plain=False, route="shard")
+    run_waves(plan, tb_k, ch_k, 0, b * plan.C, plain=False, route="shard")
     rng = np.random.default_rng(seed)
     lay = eng.layout
     alloc = tb_k.cluster.allocatable
@@ -3970,6 +3977,23 @@ def hold_shards(where, eng, dev, seed):
     room = room * eng.pods.requests.mean(axis=0)
     tb_k.state.used.copy_(torch.maximum(
         tb_k.state.used, alloc[None] - torch.as_tensor(room.astype(np.float32), device=dev)))
+    return b, tb_k, ch_k
+
+
+def hold_shards(where, eng, dev, seed):
+    """K1 on the sharded tables, K7 and K8 against their twins, launch by launch,
+    in a mid-replay window of ``eng`` (:func:`shard_window`): from the
+    window's boundary's K8 release, every slot's K1 (scratch rows), K7 (each
+    shard's packed extrema, the choice and the column's domain ids) and K8
+    bind (every plane), and each gang wave's K8 rollback, over
+    SHARD_HOLD_WAVES waves (more until a rollback undid a pair), must equal
+    the twins' bit for bit. Returns the record, the kernel tables and choices
+    at the window's end, a live slot (for timing) and the window's release
+    pairs."""
+    plan = eng.plan
+    C, W = plan.C, plan.idx.shape[1]
+    lay = eng.layout
+    b, tb_k, ch_k = shard_window(eng, dev, seed)
     tb_t = _clone_shard_tables(tb_k)
     ch_t = ch_k.clone()
     bk = K.Bound(tb_k)
@@ -4115,13 +4139,128 @@ def time_shards(work, tb_k, ch_k, tb_t, ch_t, live, rel, rolled, dev, iters=200,
     return out
 
 
+def k9_exchange_bytes(sh, G):
+    """Bytes K9 writes a slot beside the state: each shard's packed extrema
+    and (total, id) pair, and the column's domain row."""
+    return sh.P * (ref.NUM_EXT * 4 + 8) + G * 4
+
+
+def hold_k9(where, eng, dev, seed, waves):
+    """K9 against its twin and against the per-slot kernels (K1 -> K7 -> K8)
+    in the mid-replay window of :func:`shard_window` (:func:`hold_shards`'s
+    seed, so its state): from the boundary's K8 release, one K9 launch over
+    ``waves`` waves, the twin (``ref.shard_chunk_replay``) and the per-slot
+    kernels over the same waves — every state plane, the scratch rows, the
+    shard buffers and the choice buffer bit for bit. Then K9's launch over
+    the window timed from the state after the release (device time by
+    torch.profiler) beside its twin's wall and the window's least time
+    (:meth:`Work.k6`, the window as one function with the binds it made,
+    plus :func:`k9_exchange_bytes` a slot). Returns the record."""
+    plan = eng.plan
+    C, W = plan.C, plan.idx.shape[1]
+    b, tb_9, ch_9 = shard_window(eng, dev, seed)
+    w0, w1 = b * C, min(b * C + waves, (b + 1) * C)
+    snap0, ch0 = {k: x.clone() for k, x in _planes(tb_9).items()}, ch_9.clone()
+    (tb_t, ch_t), (tb_s, ch_s) = ((_clone_shard_tables(tb_9), ch_9.clone()) for _ in range(2))
+    n9 = K.shard_chunk_replay.launches
+    run_waves(plan, tb_9, ch_9, w0, w1, plain=False, route="shard")
+    if K.shard_chunk_replay.launches != n9 + 1:
+        raise AssertionError(f"{where}: the window took {K.shard_chunk_replay.launches - n9} "
+                             "K9 launches")
+    run_waves(plan, tb_t, ch_t, w0, w1, plain=True, route="shard")
+    run_waves(plan, tb_s, ch_s, w0, w1, plain=False, route="shard_slot")
+
+    def same(name, tb, ch):
+        same_planes(f"{where}: K9 vs {name} over waves [{w0}, {w1})", tb_9, ch_9, tb, ch)
+        for f in ("ext", "best_v", "best_i", "cdom"):
+            if not torch.equal(getattr(tb_9.shards, f), getattr(tb.shards, f)):
+                raise AssertionError(f"{where}: K9 vs {name}: shards.{f} differs")
+
+    same("its twin", tb_t, ch_t)
+    same("the per-slot kernels", tb_s, ch_s)
+    k9_plan = plan_of(K.shard_chunk_replay)
+    window = plan.idx[w0:w1]
+    cols = np.arange(w0 * W, w1 * W).reshape(window.shape)
+    live = window >= 0
+    after = ch_9[0].cpu().numpy()
+    a = np.full((1, eng.pods.num_pods), PAD, np.int64)
+    a[0, window[live]] = after[cols[live]]
+    rec = dict(P=eng.layout.P, boundary=b, waves=w1 - w0, slots=int(live.sum()),
+               placed=int((a >= 0).sum()), max_abs_err=0.0, cluster=k9_plan)
+    # K9's launch over the window from the state after the release.
+    for name, x in _planes(tb_9).items():
+        x.copy_(snap0[name])
+    ch_9.copy_(ch0)
+    rel_ids, rel_pos = (torch.as_tensor(x, device=dev) for x in plan.buckets[b])
+    K.shard_apply(K.Bound(tb_9), rel_ids, rel_pos, ch_9, -1.0)
+    snap, ch_snap = {k: x.clone() for k, x in _planes(tb_9).items()}, ch_9.clone()
+    desc = plan.device_desc(dev)
+    b9 = K.Bound(tb_9)
+
+    def restore(tb, ch):
+        for name, x in _planes(tb).items():
+            x.copy_(snap[name])
+        ch.copy_(ch_snap)
+
+    def k9(_):
+        restore(tb_9, ch_9)
+        K.shard_chunk_replay(b9, desc.idx, desc.gang, ch_9, w0, w1)
+
+    def twin(_):
+        restore(tb_t, ch_t)
+        ref.shard_chunk_replay(tb_t, desc.idx, desc.gang, ch_t, w0, w1)
+
+    ms = device_ms(k9, 10, match="shard_chunk_replay") or time_cuda(k9, 10)
+    plain_ms = time_cuda(twin, 1, warm=0)
+    same("its twin, timed", tb_t, ch_t)
+    nb, no = Work(eng.pods, tb_9).k6(window, plan.gang_wave[w0:w1], a, w0)
+    nb += rec["slots"] * k9_exchange_bytes(tb_9.shards, tb_9.state.match_count.shape[1])
+    bound_ms, bound_by = bound(nb, no)
+    rec.update(ms=ms, us_per_slot=ms * 1e3 / max(rec["slots"], 1), plain_ms=plain_ms,
+               bound_ms=bound_ms, bound_by=bound_by)
+    print(f"{where}: K9 == its twin == the per-slot kernels (K1 -> K7 -> K8) over waves "
+          f"[{w0}, {w1}) from boundary {b}'s release ({rec['slots']} slots, {rec['placed']} "
+          f"placed; every plane, the shard buffers, the choices); K9 (cluster "
+          f"{json.dumps(k9_plan)}) {ms * 1e3:.1f} us a launch, {rec['us_per_slot']:.2f} us a "
+          f"slot (bound {bound_ms * 1e3:.3f} us by {bound_by}; twin {plain_ms:.1f} ms)",
+          flush=True)
+    return rec
+
+
+def shard_route_launches(where, launches, plan):
+    """The shard route's launches in a run (counters zeroed just before it):
+    one K9 a chunk, K8 at each release and nowhere else, none of K1-K7."""
+    releases = sum(bk is not None for bk in plan.buckets)
+    want = dict(shard_chunk_replay=len(plan.buckets), shard_apply=releases,
+                shard_apply_release=releases, shard_apply_bind=0, shard_apply_rollback=0,
+                filter_score=0, normalize_select=0, apply_placements=0, chunk_replay=0,
+                shard_select=0)
+    if any(launches[k] != n for k, n in want.items()):
+        raise AssertionError(f"{where}: launches {launches}, expected {want}")
+
+
+def shard_slot_launches(where, launches, plan):
+    """The per-slot shard route's launches: K1 and K7 a slot, K8 a slot plus
+    each gang wave and release, none of K2, K3, K6 or K9."""
+    slots = int((plan.idx >= 0).sum())
+    gang_waves = int(plan.gang_wave.sum())
+    releases = sum(bk is not None for bk in plan.buckets)
+    want = dict(filter_score=slots, shard_select=slots,
+                shard_apply=slots + gang_waves + releases, shard_apply_bind=slots,
+                shard_apply_rollback=gang_waves, shard_apply_release=releases,
+                normalize_select=0, apply_placements=0, chunk_replay=0, shard_chunk_replay=0)
+    if any(launches[k] != n for k, n in want.items()):
+        raise AssertionError(f"{where}: launches {launches}, expected {want}")
+
+
 def check_reduced_shards(results, dev):
     """The reduced sharded replay (SHARD_REDUCED: 100 nodes over 3 shards, two
-    pad rows; 600 pods, durationMean 50, gangs 0.1 x 4) on four routes — the
-    shard route on the kernels, its twins on the card and on the CPU, and
-    the replicated K6 route — then the same paged: assignments, placed and
-    ``used`` identical; the kernel run launches K1, K7 and K8 a slot and no
-    K2, K3 or K6."""
+    pad rows; 600 pods, durationMean 50, gangs 0.1 x 4) on every route — the
+    shard route on K9 (one launch a chunk), the per-slot shard route on the
+    kernels (K1 -> K7 -> K8 a slot), K9's twin and the per-slot twins on the
+    card and on the CPU, and the replicated K6 route — then all of it again
+    paged: assignments, placed and ``used`` identical; each kernel run
+    launches what its route launches and nothing else."""
     sr = SHARD_REDUCED
     ec, ep = case(sr["nodes"], sr["pods"], gang_fraction=0.1)
     out = {}
@@ -4129,32 +4268,47 @@ def check_reduced_shards(results, dev):
         mk = lambda d, P, **kw: TorchReplayEngine(ec, ep, FrameworkConfig(),
                                                   chunk_waves=sr["chunk_waves"], device=d,
                                                   node_shards=P, paged=paged, **kw)
+        where = f"reduced shards (paged={paged})"
         K.reset_launch_counts()
         eng = mk(dev, sr["node_shards"])
         res = eng.replay()
         launches = K.launch_counts()
-        slots = int((eng.plan.idx >= 0).sum())
-        if (res.route != "shard" or launches["shard_select"] != slots
-                or launches["filter_score"] != slots or launches["normalize_select"]
-                or launches["apply_placements"] or launches["chunk_replay"]):
-            raise AssertionError(f"reduced shards (paged={paged}): route {res.route}, "
-                                 f"launches {launches}")
-        routes = {"shard kernels": res,
-                  "shard twins on the card": mk(dev, sr["node_shards"], plain=True).replay(),
-                  "shard twins on the CPU": mk("cpu", sr["node_shards"]).replay(),
+        if res.route != "shard":
+            raise AssertionError(f"{where}: route {res.route}")
+        shard_route_launches(where, launches, eng.plan)
+        K.reset_launch_counts()
+        _, slot_wall, slot_a, _, _ = eng._run(route="shard_slot")
+        slot_launches = K.launch_counts()
+        shard_slot_launches(f"{where}, per-slot route", slot_launches, eng.plan)
+        slot_used = eng.last_tables.state.used[0, : ec.num_nodes].cpu().numpy()
+        routes = {"K9's twin on the CPU": mk("cpu", sr["node_shards"]).replay(),
                   "replicated K6": mk(dev, 1).replay()}
+        plain_card = mk(dev, sr["node_shards"], plain=True)
+        routes.update({
+            "K9's twin on the card": plain_card._run(route="shard")[2][0],
+            "the per-slot twins on the card": plain_card.replay(),
+            "the per-slot twins on the CPU": mk("cpu", sr["node_shards"])._run(
+                route="shard_slot")[2][0]})
         for name, r in routes.items():
-            if (not np.array_equal(r.assignments, res.assignments) or r.placed != res.placed
-                    or not np.array_equal(r.state.used, res.state.used)):
-                raise AssertionError(f"reduced shards (paged={paged}): {name} differs")
+            a = r if isinstance(r, np.ndarray) else r.assignments
+            if not np.array_equal(a, res.assignments) or (
+                    not isinstance(r, np.ndarray) and (
+                        r.placed != res.placed or not np.array_equal(r.state.used,
+                                                                      res.state.used))):
+                raise AssertionError(f"{where}: {name} differs")
+        if not np.array_equal(slot_a[0], res.assignments) or not np.array_equal(
+                slot_used, res.state.used):
+            raise AssertionError(f"{where}: the per-slot kernels differ from K9")
         out["paged" if paged else "resident"] = dict(
             placed=res.placed, unschedulable=res.unschedulable, launches=launches,
-            walls_s={k: r.wall_clock_s for k, r in routes.items()},
+            slot_route_launches=slot_launches, slot_route_wall_s=slot_wall,
+            walls_s={k: r.wall_clock_s for k, r in routes.items()
+                     if not isinstance(r, np.ndarray)},
             pager_stalls=eng.last_pager.stalls if paged else None)
-        print(f"reduced sharded replay ({sr['nodes']} nodes over {sr['node_shards']} shards, "
-              f"{sr['pods']} pods, paged={paged}): placed {res.placed} on the shard kernels == "
-              f"the twins on the card and the CPU == replicated K6 (assignments, used); "
-              f"launches {json.dumps(launches)}", flush=True)
+        print(f"{where} ({sr['nodes']} nodes over {sr['node_shards']} shards, {sr['pods']} "
+              f"pods): placed {res.placed} on K9 == the per-slot kernels == "
+              f"{' == '.join(routes)} (assignments, used); launches {json.dumps(launches)}; "
+              f"per-slot route {json.dumps(slot_launches)}", flush=True)
     results["reduced_shards"] = out
 
 
@@ -4167,7 +4321,9 @@ def check_shard_pins(results, dev):
     ec, ep, _ = make_borg_encoded(BorgSpec(nodes=sc["nodes"], tasks=sc["tasks"], seed=SEED))
     eng = TorchReplayEngine(ec, ep, FrameworkConfig(), chunk_waves=sc["chunk_waves"],
                             node_shards=sc["node_shards"], paged=True, device=dev)
+    K.reset_launch_counts()
     res = eng.replay()
+    shard_route_launches("shard cut", K.launch_counts(), eng.plan)
     got = dict(placed=res.placed, unschedulable=res.unschedulable,
                sha256=assignments_sha256(res.assignments))
     if got != SHARD_PINS or res.route != "shard":
@@ -4175,21 +4331,28 @@ def check_shard_pins(results, dev):
     results["shard_cut"] = dict(**sc, **got, wall_s=res.wall_clock_s,
                                 pager_stalls=eng.last_pager.stalls)
     print(f"shard cut ({sc['nodes']} nodes over {sc['node_shards']} shards x {sc['tasks']} "
-          f"tasks, paged): placed {res.placed}, sha256 {got['sha256'][:16]} == SHARD_PINS",
-          flush=True)
+          f"tasks, paged, route {res.route}: one K9 a chunk): placed {res.placed}, sha256 "
+          f"{got['sha256'][:16]} == SHARD_PINS", flush=True)
 
 
 def run_config13(results, dev):
     """config13 as shipped through the CLI ``run`` on the card (nodeShards 8,
     pagedWaves, chunkWaves 512), counters zeroed just before and read just
-    after: the shard route, K1 and K7 once a slot, K8 a slot plus each gang
-    wave and release; the assignments equal the same trace replicated on K6
-    (node_shards=1); the wall, placements/s, set-up split, the pager's stalls;
-    then K1 on the sharded tables, K7 and K8 held against their twins launch by
-    launch at P = 8 and at P = 3 (two pad rows) in mid-replay windows, their
-    device times per launch in a profiled chunk of the run's own route and at
-    the window's state, with their bounds, twins and torch.argmax. Returns
-    the kernel rows' numbers and the run's launches."""
+    after: the shard route, one K9 a chunk and K8 at each release, nothing
+    else; the assignments equal the same trace replicated on K6
+    (node_shards=1) and on the per-slot shard route (K1 and K7 once a slot, K8
+    a slot plus each gang wave and release) in the same call, whose wall is
+    taken between two more K9 runs; the walls, placements/s, set-up split, the
+    pager's stalls on both routes; K9's time a slot over the first chunk
+    (CUDA events) beside the per-slot route's bounds summed over the chunk;
+    then K1 on the sharded tables, K7 and K8 held against their twins launch
+    by launch at P = 8 and at P = 3 (two pad rows) in mid-replay windows,
+    their device times per launch in a profiled chunk of the per-slot route
+    and at the window's state, with their bounds, twins and torch.argmax; and
+    K9 held against its twin and the per-slot kernels in the same windows,
+    and timed there beside its twin and its bound. Returns the kernel rows'
+    numbers, the run's launches, the per-slot route's, the holds and K9's
+    window records."""
     import contextlib
     import io
 
@@ -4224,16 +4387,49 @@ def run_config13(results, dev):
     slots = int((plan.idx >= 0).sum())
     gang_waves = int(plan.gang_wave.sum())
     releases = sum(bk is not None for bk in plan.buckets)
-    want = dict(filter_score=slots, shard_select=slots,
-                shard_apply=slots + gang_waves + releases, shard_apply_bind=slots,
-                shard_apply_rollback=gang_waves, shard_apply_release=releases,
-                normalize_select=0, apply_placements=0, chunk_replay=0)
-    if any(launches[k] != v for k, v in want.items()):
-        raise AssertionError(f"config13 run: launches {launches}, expected {want}")
+    shard_route_launches("config13 run", launches, plan)
     a_sh, placed, _ = assignments_from_choices(plan, eng.last_choices, ep.bound_node)
     if int(placed[0]) != row["placed"] or row["placed"] + row["unschedulable"] != ep.num_pods:
         raise AssertionError(f"config13 run: placed {row['placed']} / {int(placed[0])}")
     pager = eng.last_pager
+
+    def pager_rec(pg):
+        return dict(stalls=pg.stalls, stall_s=pg.stall_s, waits=pg.waits,
+                    prefetches=pg.prefetches, prefetch_wall_s=pg.prefetch_wall_s,
+                    page_rows=pg.rows)
+
+    # The per-slot shard route of the same engine, between two more K9 runs.
+    walls = {}
+    K.reset_launch_counts()
+    _, walls["shard_slot"], a_slot, _, _ = eng._run(route="shard_slot")
+    slot_launches = K.launch_counts()
+    slot_pager = pager_rec(eng.last_pager)
+    shard_slot_launches("config13, per-slot route", slot_launches, plan)
+    _, walls["shard_again"], a_again, _, _ = eng._run(route="shard")
+    k9_pager = pager_rec(eng.last_pager)
+    # One more K9 run under torch.profiler: the card's busy share on the route
+    # and K9's device time a slot over the whole run.
+    by_k9 = {}
+    (_, walls["shard_profiled"], a_prof, _, _), busy9 = profiled_busy_s(
+        lambda: eng._run(route="shard"), by_k9)
+    k9_run = dict(wall_s=walls["shard_profiled"], device_busy_s=busy9,
+                  device_busy_share=busy9 / walls["shard_profiled"],
+                  k9_device_s=sum(t for k, t in by_k9.items() if "shard_chunk_replay" in k),
+                  pager=pager_rec(eng.last_pager))
+    k9_run["k9_us_per_slot"] = k9_run["k9_device_s"] * 1e6 / slots
+    for name, a in (("the per-slot shard route", a_slot), ("a second K9 run", a_again),
+                    ("the profiled K9 run", a_prof)):
+        if not np.array_equal(a[0], a_sh[0]):
+            bad = np.nonzero(a[0] != a_sh[0])[0]
+            raise AssertionError(f"config13: the K9 run != {name} at pods {bad[:5].tolist()}")
+    print(f"config13 routes in one call: K9 (CLI) {row['wall_clock_s']:.3f}s, per-slot "
+          f"K1 -> K7 -> K8 {walls['shard_slot']:.3f}s, K9 again {walls['shard_again']:.3f}s "
+          f"(beside {EARLIER['config13_wall_s']}s on the per-slot route before K9); assignments "
+          f"equal; pager K9 {json.dumps(pager_rec(pager))}, per-slot {json.dumps(slot_pager)}, "
+          f"K9 again {json.dumps(k9_pager)}; profiled K9 run: wall "
+          f"{walls['shard_profiled']:.3f}s, device busy {busy9:.3f}s "
+          f"({k9_run['device_busy_share']:.1%}), K9 {k9_run['k9_us_per_slot']:.2f} us a slot",
+          flush=True)
     setup = [m.groups() for m in (re.search(r"set-up: trace ([\d.]+)s, engine ([\d.]+)s", x)
                                   for x in lines.lines) if m]
     cfg_c = cfg.chunk_waves
@@ -4245,16 +4441,32 @@ def run_config13(results, dev):
         bad = np.nonzero(res_rep.assignments != a_sh[0])[0]
         raise AssertionError(f"config13: the sharded run != the replicated K6 run at pods "
                              f"{bad[:5].tolist()} (route {res_rep.route})")
-    mark("e config13 CLI run, K6 run")
-    # The run's own route over its first chunk, profiled: device time a launch.
+    mark("e config13 CLI run, per-slot and K6 runs")
+    # K9 alone over the first chunk (no release before it), from the initial
+    # state, timed by CUDA events around its one launch.
+    if plan.buckets[0] is not None:
+        raise AssertionError("config13: a release before the first chunk")
+    tb_e, ch_e = eng._tables(), new_choices(plan, 1, ep.bound_node, dev)
+    desc = plan.device_desc(dev)
+    b_e = K.Bound(tb_e)
+    ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+    ev[0].record()
+    K.shard_chunk_replay(b_e, desc.idx, desc.gang, ch_e, 0, plan.C)
+    ev[1].record()
+    torch.cuda.synchronize()
+    first_slots = int((plan.idx[: plan.C] >= 0).sum())
+    k9_us = ev[0].elapsed_time(ev[1]) * 1e3 / first_slots
+    k9_plan = plan_of(K.shard_chunk_replay)
+    del tb_e, ch_e, b_e
+    # The per-slot route over its first chunk, profiled: device time a launch.
     by_kernel = {}
     tb_p = eng._tables()
     ch_p = new_choices(plan, 1, ep.bound_node, dev)
     K.reset_launch_counts()
     t_chunk = time.perf_counter()
     _, busy_s = profiled_busy_s(lambda: (run_waves(plan, tb_p, ch_p, 0, plan.C, plain=False,
-                                                   route="shard"), torch.cuda.synchronize()),
-                                by_kernel)
+                                                   route="shard_slot"),
+                                         torch.cuda.synchronize()), by_kernel)
     chunk_wall = time.perf_counter() - t_chunk
     chunk_launches = K.launch_counts()
     per_launch = {}
@@ -4273,8 +4485,11 @@ def run_config13(results, dev):
             nb, no = work.k2_scen(1)
             b7 += bound(nb + (2 * 8 * 7 + 32 + 2 * work.G) * 4, no)[0]
     bound_chunk = dict(filter_score_shards_ms=b1, shard_select_ms=b7)
+    print(f"config13 first chunk ({first_slots} slots): K9 {k9_us:.2f} us a slot (CUDA events, "
+          f"cluster {json.dumps(k9_plan)}); the per-slot route's K1 + K7 bounds summed "
+          f"{(b1 + b7) * 1e3 / first_slots:.4f} us a slot", flush=True)
     mark("e config13 profiled chunk")
-    holds, times, times_p3 = {}, {}, {}
+    holds, times, times_p3, k9_holds = {}, {}, {}, {}
     for P in (8, 3):
         he = eng if P == 8 else TorchReplayEngine(ec, ep, FrameworkConfig(), chunk_waves=cfg_c,
                                                   node_shards=P, device=dev)
@@ -4287,6 +4502,7 @@ def run_config13(results, dev):
         else:
             times_p3 = t_p
         del tb_k, tb_t
+        k9_holds[P] = hold_k9(f"config13 P={P}", he, dev, SEED + P, rec["waves"])
     mark("e config13 holds, times")
     results["config13"] = dict(
         nodes=ec.num_nodes, tasks=ep.num_pods, node_shards=eng.layout.P,
@@ -4296,11 +4512,14 @@ def run_config13(results, dev):
         placements_per_s=row["placements_per_sec"], command_s=command_s,
         setup_trace_s=float(setup[0][0]), setup_engine_s=float(setup[0][1]),
         setup_s=eng.setup_s, launches=launches,
-        pager=dict(stalls=pager.stalls, stall_s=pager.stall_s, waits=pager.waits,
-                   prefetches=pager.prefetches, prefetch_wall_s=pager.prefetch_wall_s,
-                   page_rows=pager.rows),
+        pager=pager_rec(pager),
         replicated_k6=dict(wall_s=res_rep.wall_clock_s, route=res_rep.route,
                            placed=res_rep.placed),
+        shard_slot=dict(wall_s=walls["shard_slot"], launches=slot_launches, pager=slot_pager),
+        shard_again=dict(wall_s=walls["shard_again"], pager=k9_pager), shard_profiled=k9_run,
+        k9_first_chunk=dict(us_per_slot=k9_us, slots=first_slots, cluster=k9_plan,
+                            bound_ms_per_slot_route=b1 + b7),
+        k9_holds=k9_holds,
         first_chunk=dict(launches=chunk_launches, device_ms_per_launch=per_launch,
                          device_busy_s=busy_s, profiled_wall_s=chunk_wall,
                          bounds_ms=bound_chunk),
@@ -4318,7 +4537,7 @@ def run_config13(results, dev):
           f"{chunk_wall:.3f}s, device busy {busy_s:.3f}s) device ms a launch "
           f"{json.dumps(per_launch)}, bounds {json.dumps(bound_chunk)}; kernel times "
           f"{json.dumps(times)}", flush=True)
-    return times, launches, holds
+    return times, launches, slot_launches, holds, k9_holds
 
 
 def main() -> int:
@@ -4343,6 +4562,9 @@ def main() -> int:
     results["build_s"] = K.last_build_s
     print(f"kernels built in {K.last_build_s:.2f}s "
           f"({time.perf_counter() - t0:.2f}s with loading)", flush=True)
+    results["k9_attrs"] = K.shard_chunk_replay_attrs()
+    print(f"K9 shard_chunk_replay (cudaFuncGetAttributes): {json.dumps(results['k9_attrs'])}",
+          flush=True)
 
     t0 = time.perf_counter()
     ec, ep = case(5000, 50_000)
@@ -4519,7 +4741,7 @@ def main() -> int:
     mark("e reduced shards")
     check_shard_pins(results, dev)
     mark("e shard cut pins")
-    shtimes, shlaunches, shholds = run_config13(results, dev)
+    shtimes, shlaunches, shslot, shholds, k9holds = run_config13(results, dev)
     # Steps 9-11: tier preemption.
     check_reduced_preempt(results)
     mark("9 reduced preemption")
@@ -4636,16 +4858,31 @@ def main() -> int:
         })
     for k, (kernel, replaces) in SHARD_SOURCES.items():
         m = shtimes[k]
-        # config13's CLI run, counters zeroed just before it: K8 by mode
-        n_launch = shlaunches[{"filter_score_shards": "filter_score",
-                               "shard_apply": "shard_apply_bind"}.get(k, k)]
+        # config13's CLI run (K9: K1, K7 and K8's bind and rollback launch 0
+        # times) and the same engine on the per-slot shard route, counters
+        # zeroed just before each: K8 by mode
+        key = {"filter_score_shards": "filter_score", "shard_apply": "shard_apply_bind"}.get(k, k)
         table.append({
             "name": k, "route": "cuda", "source": SOURCES[kernel][0], "replaces": replaces,
-            "launches": n_launch, "max_abs_err": max(h["max_abs_err"] for h in shholds.values()),
+            "launches": shlaunches[key], "slot_route_launches": shslot[key],
+            "max_abs_err": max(h["max_abs_err"] for h in shholds.values()),
             "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"], "library_ms": m["library_ms"],
             **({"cluster": m["cluster"]} if "cluster" in m else {}),
         })
+    # K9 over config13's window at P = 8 (the run's shards); its time a slot
+    # over the run's first chunk beside it.
+    m = k9holds[8]
+    src, replaces = SOURCES["shard_chunk_replay"]
+    table.append({
+        "name": "shard_chunk_replay", "route": "cuda", "source": src, "replaces": replaces,
+        "launches": shlaunches["shard_chunk_replay"], "slot_route_launches": 0,
+        "max_abs_err": max(h["max_abs_err"] for h in k9holds.values()), "ms": m["ms"],
+        "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
+        # no single PyTorch call runs a chunk of the scheduler's waves
+        "library_ms": None, "cluster": m["cluster"], "window_slots": m["slots"],
+        "us_per_slot_first_chunk": results["config13"]["k9_first_chunk"]["us_per_slot"],
+    })
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(results, f, indent=1)

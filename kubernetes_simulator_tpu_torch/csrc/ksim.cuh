@@ -49,7 +49,8 @@
 //            KSIM_EXT_*), best_v [S,NP] f32 / best_i [S,NP] i32 each
 //            shard's (best total, lowest global id) (K7's exchange), cdom
 //            [S,L,G] i32 the domain ids of each choice-buffer column's node
-//            (K7 -> K8; L the choice buffer's row length)
+//            (K7 -> K8, and K9's owner -> rank 0; L the choice buffer's row
+//            length)
 // The *_ss fields are the per-scenario strides in elements: scenario s of
 // a table starts at base + s * ss, and ss = 0 where the table is shared.
 // The single-scenario replay is the S = 1 case.
@@ -1196,4 +1197,233 @@ __device__ __forceinline__ void ksim_apply_body(const KsimArgs& a, int64_t scen,
     }
   }
 #undef KSIM_COL
+}
+
+// ---------------------------------------------------------------------------
+// The bodies of the node-shard kernels (row B13). K7 shard_select and K8
+// shard_apply are thin __global__ wrappers over them, and K9
+// shard_chunk_replay runs K1's per-node body and these two for every slot of a
+// chunk in one launch (one cluster a scenario), so the per-slot shard route
+// and the chunk's execute the same arithmetic.
+// ---------------------------------------------------------------------------
+
+#define KSIM_SHARD_NONE 0x7fffffff
+
+// A barrier over the C blocks of a scenario's cluster (C = 1: the block's).
+__device__ __forceinline__ void ksim_cluster_barrier(int C) {
+  if (C > 1)
+    cg::this_cluster().sync();
+  else
+    __syncthreads();
+}
+
+// K7's body for one block of scenario scen's cluster of C blocks, block rank
+// r owning shards r, r + C, ... (phases (0)-(d) of shard_select.cu): each own
+// shard's packed extrema into ext, their fold over the cluster, each own
+// shard's (max total, lowest global id) pair into best_v / best_i, their fold
+// over the cluster; the owner of the winner's shard writes the choice into
+// column `slot` of the scenario's row of the choice buffer and the winner's
+// domain row, from its own gdom block, into cdom[s, slot, :] (unplaced: rank
+// 0 writes PAD into both). Reads the scratch rows of its own shards only,
+// which the block wrote (K9) or K1 did before the launch. Two cluster
+// barriers at C > 1, reached by every thread. Returns the choice (PAD:
+// unplaced) in every thread.
+__device__ __forceinline__ int ksim_shard_select_body(const KsimArgs& a, int p, int64_t scen,
+                                                      int32_t* choices, int64_t choice_ss,
+                                                      int slot) {
+  __shared__ float red[KSIM_EXT * 32];
+  __shared__ float best_v[KSIM_MAX_WARPS];
+  __shared__ int best_i[KSIM_MAX_WARPS];
+  __shared__ int s_choice;
+  // the cluster's slots (ksim_cluster_push_*): extrema and (total, id) pairs
+  __shared__ float x_ext[KSIM_MAX_CLUSTER][KSIM_EXT];
+  __shared__ float x_v[KSIM_MAX_CLUSTER];
+  __shared__ int x_i[KSIM_MAX_CLUSTER];
+  cg::cluster_group cl = cg::this_cluster();
+  const int C = (int)cl.num_blocks(), rank = (int)cl.block_rank();
+  const bool is_max[KSIM_EXT] = KSIM_EXTREMA_IS_MAX;
+
+  // (0) each own shard's packed extrema, and their fold (unpacked)
+  float v[KSIM_EXT];
+  ksim_extrema_init(v);
+  for (int q = rank; q < a.NP; q += C) {
+    const int n0 = q * a.n_local;
+    float u[KSIM_EXT];
+    ksim_extrema_init(u);
+    for (int i = threadIdx.x; i < a.n_local; i += blockDim.x)
+      ksim_extrema_node(ksim_raw(a, scen, n0 + i), u);
+    ksim_block_extrema(u, KSIM_EXT, is_max, red);
+    for (int k = 0; k < KSIM_EXT; ++k) v[k] = is_max[k] ? fmaxf(v[k], u[k]) : fminf(v[k], u[k]);
+    if (threadIdx.x == 0) {
+      ksim_extrema_flip(u);
+      float* out = a.ext + (scen * a.NP + q) * KSIM_EXT;
+      for (int k = 0; k < KSIM_EXT; ++k) out[k] = u[k];
+    }
+  }
+  // (a) the cluster's fold of the shards' extrema
+  if (C > 1) {
+    ksim_cluster_push_extrema(v, x_ext);
+    cl.sync();
+    ksim_cluster_fold_extrema(v, x_ext);
+  }
+  const KsimNorm c = ksim_norm(a, p, scen, v);
+
+  // (b) each own shard's (max total, lowest global id), folded in shard order
+  float fv = -INFINITY;
+  int fi = KSIM_SHARD_NONE;
+  for (int q = rank; q < a.NP; q += C) {
+    const int n0 = q * a.n_local;
+    float bv = -INFINITY;
+    int bi = KSIM_SHARD_NONE;
+    for (int i = threadIdx.x; i < a.n_local; i += blockDim.x) {
+      const int n = n0 + i;
+      const KsimRaw r = ksim_raw(a, scen, n);
+      const float total = ksim_total(a, c, r);
+      if (r.f) ksim_better(bv, bi, total, n);
+    }
+    ksim_block_pick<true>(bv, bi, best_v, best_i);
+    if (threadIdx.x == 0) {
+      if (!(bv > -INFINITY)) bi = KSIM_SHARD_NONE;
+      a.best_v[scen * a.NP + q] = bv;
+      a.best_i[scen * a.NP + q] = bi;
+      ksim_better(fv, fi, bv, bi);
+    }
+    __syncthreads();  // the next shard's pick rewrites best_v / best_i
+  }
+  // (c) the cluster's fold of the pairs
+  if (C > 1) {
+    ksim_cluster_push_pick(fv, fi, x_v, x_i);
+    cl.sync();
+    ksim_cluster_fold_pick<true>(fv, fi, x_v, x_i);
+  }
+  if (threadIdx.x == 0) s_choice = fv > -INFINITY ? fi : KSIM_PAD;
+  __syncthreads();
+
+  // (d) the owner's (or, unplaced, rank 0's) writes
+  const int choice = s_choice;
+  const bool owner = choice >= 0 ? (choice / a.n_local) % C == rank : rank == 0;
+  if (owner) {
+    int32_t* cd = a.cdom + (scen * choice_ss + slot) * a.G;
+    const int32_t* gdom = ksim_label_rows(a, scen).gdom;
+    for (int g = threadIdx.x; g < a.G; g += blockDim.x)
+      cd[g] = choice >= 0 ? gdom[(size_t)g * a.N + choice] : KSIM_PAD;
+    if (threadIdx.x == 0) choices[scen * choice_ss + slot] = choice;
+  }
+  return choice;
+}
+
+// K8's body for one block of scenario scen: sign x the contribution of K
+// (pod, node) pairs, in pair order. Pair k is pod pods[k] at the node of
+// choice-buffer column pos[k] (pos null: col0 + k) of the scenario's row
+// (PAD pods and nodes skipped). The block owns the nodes of the shards q with
+// q % CO == RO (K8: CO = NP, RO its shard; K9: CO = C, RO its rank) and
+// applies the pairs at those nodes to their used rows, thread 1 + c a column
+// c; with `planes` (the block holding shard 0) it applies every pair to the
+// replicated count planes at the domain ids of its column, cdom[s, col, :],
+// never reading another shard's gdom block (thread 0 the anti-affinity and
+// preferred-affinity terms, thread 1 + R + g group g's match_count). Three
+// uses, as K3's:
+//   bind      sign +1;
+//   rollback  sign -1 over one wave: a pair is undone iff its pod placed and
+//             a slot of the same gang in the wave went unplaced; after
+//             `sync()` (a barrier over every block of the scenario, which
+//             every block reaches: each has read the wave's choices) the
+//             planes block writes PAD over the undone pairs' choices;
+//   release   sign -1, not a rollback: each owned node's requests summed from
+//             zero in pair order (the rel accumulator), then subtracted once.
+template <class Sync>
+__device__ __forceinline__ void ksim_shard_apply_body(const KsimArgs& a, int64_t scen,
+                                                      const int32_t* pods, const int32_t* pos,
+                                                      int col0, int32_t* choices, int K,
+                                                      int64_t choice_ss, float sign,
+                                                      int rollback, int CO, int RO, bool planes,
+                                                      Sync sync) {
+  __shared__ uint8_t active[KSIM_MAX_WAVE];
+  const int R = a.R, G = a.G, D = a.D;
+  int32_t* ch = choices + scen * choice_ss;
+  const int32_t* cdom = a.cdom + scen * choice_ss * G;
+  float* used = a.used + scen * a.used_ss;
+  float* rel = a.rel + scen * a.used_ss;
+  float* match_count = a.match_count + scen * a.plane_ss;
+  float* anti_active = a.anti_active + scen * a.plane_ss;
+  float* pref_wsum = a.pref_wsum + scen * a.plane_ss;
+#define KSIM_SCOL(k) (pos ? pos[(k)] : col0 + (k))
+  auto mine = [&](int n) { return n >= 0 && (n / a.n_local) % CO == RO; };
+  if (rollback) {
+    for (int k = threadIdx.x; k < K; k += blockDim.x) {
+      const int p = pods[k], n = ch[KSIM_SCOL(k)];
+      uint8_t act = 0;
+      if (p >= 0 && n >= 0) {
+        const int g = a.group_id[p];
+        if (g >= 0)
+          for (int j = 0; j < K; ++j) {
+            const int pj = pods[j];
+            if (pj >= 0 && a.group_id[pj] == g && ch[KSIM_SCOL(j)] < 0) act = 1;
+          }
+      }
+      active[k] = act;
+    }
+    __syncthreads();
+  }
+  const bool summed = sign < 0.f && !rollback;
+  const int tid = threadIdx.x;
+  for (int k = 0; k < K; ++k) {
+    const int p = pods[k];
+    if (p < 0) continue;
+    const int col = KSIM_SCOL(k);
+    const int n = ch[col];
+    if (n < 0) continue;
+    if (rollback && !active[k]) continue;
+    const int32_t* dom = cdom + (size_t)col * G;
+    if (tid == 0) {
+      if (!planes) continue;
+      for (int t = 0; t < a.AA; ++t) {
+        const int g = a.anti_req[p * a.AA + t];
+        if (g < 0) continue;
+        const int d = dom[g];
+        if (d >= 0) anti_active[g * D + d] += sign;
+      }
+      for (int t = 0; t < a.PA; ++t) {
+        const int g = a.pref_aff[p * a.PA + t];
+        if (g < 0) continue;
+        const int d = dom[g];
+        if (d >= 0) pref_wsum[g * D + d] += sign * a.pref_aff_w[p * a.PA + t];
+      }
+    } else {
+      const bool own = mine(n);
+      for (int c = tid - 1; c < R + G; c += blockDim.x - 1) {
+        if (c < R) {
+          if (!own) continue;
+          if (summed)
+            rel[(size_t)n * R + c] += a.requests[(size_t)p * R + c];
+          else
+            used[(size_t)n * R + c] += sign * a.requests[(size_t)p * R + c];
+        } else if (planes) {
+          const int g = c - R;
+          if (!a.pmg[(size_t)p * G + g]) continue;
+          const int d = dom[g];
+          if (d >= 0) match_count[g * D + d] += sign;
+        }
+      }
+    }
+  }
+  if (summed && tid > 0) {
+    for (int k = 0; k < K; ++k) {
+      const int p = pods[k];
+      const int n = p < 0 ? KSIM_PAD : ch[KSIM_SCOL(k)];
+      if (!mine(n)) continue;
+      for (int c = tid - 1; c < R; c += blockDim.x - 1) {
+        float* acc = rel + (size_t)n * R + c;
+        used[(size_t)n * R + c] = used[(size_t)n * R + c] - *acc;
+        *acc = 0.f;
+      }
+    }
+  }
+  if (rollback) {
+    sync();  // every block has read the wave's choices
+    if (planes)
+      for (int k = threadIdx.x; k < K; k += blockDim.x)
+        if (active[k]) ch[KSIM_SCOL(k)] = KSIM_PAD;
+  }
+#undef KSIM_SCOL
 }

@@ -39,99 +39,19 @@
 
 #define K8_THREADS 256
 
+// The pairs' walk is ksim.cuh's ksim_shard_apply_body (block b: shard b % NP
+// of scenario b / NP, owning its own block of nodes; shard 0's block the count
+// planes; a rollback's barrier the grid's), which K9 (shard_chunk_replay.cu)
+// runs for every bind and gang rollback of a chunk.
 __global__ void __launch_bounds__(K8_THREADS)
     ksim_shard_apply_kernel(KsimArgs a, const int32_t* pods, const int32_t* pos,
                             int32_t* choices, int K, int64_t choice_ss, float sign,
                             int rollback) {
-  __shared__ uint8_t active[KSIM_MAX_WAVE];
   cg::grid_group grid = cg::this_grid();
   const int shard = blockIdx.x % a.NP;
   const int64_t scen = blockIdx.x / a.NP;
-  const int R = a.R, G = a.G, D = a.D;
-  const int lo = shard * a.n_local, hi = lo + a.n_local;
-  const bool planes = shard == 0;
-  int32_t* ch = choices + scen * choice_ss;
-  const int32_t* cdom = a.cdom + scen * choice_ss * G;
-  float* used = a.used + scen * a.used_ss;
-  float* rel = a.rel + scen * a.used_ss;
-  float* match_count = a.match_count + scen * a.plane_ss;
-  float* anti_active = a.anti_active + scen * a.plane_ss;
-  float* pref_wsum = a.pref_wsum + scen * a.plane_ss;
-  if (rollback) {
-    for (int k = threadIdx.x; k < K; k += blockDim.x) {
-      const int p = pods[k], n = ch[pos[k]];
-      uint8_t act = 0;
-      if (p >= 0 && n >= 0) {
-        const int g = a.group_id[p];
-        if (g >= 0)
-          for (int j = 0; j < K; ++j) {
-            const int pj = pods[j];
-            if (pj >= 0 && a.group_id[pj] == g && ch[pos[j]] < 0) act = 1;
-          }
-      }
-      active[k] = act;
-    }
-    __syncthreads();
-  }
-  const bool summed = sign < 0.f && !rollback;
-  const int tid = threadIdx.x;
-  for (int k = 0; k < K; ++k) {
-    const int p = pods[k];
-    if (p < 0) continue;
-    const int n = ch[pos[k]];
-    if (n < 0) continue;
-    if (rollback && !active[k]) continue;
-    const int32_t* dom = cdom + (size_t)pos[k] * G;
-    if (tid == 0) {
-      if (!planes) continue;
-      for (int t = 0; t < a.AA; ++t) {
-        const int g = a.anti_req[p * a.AA + t];
-        if (g < 0) continue;
-        const int d = dom[g];
-        if (d >= 0) anti_active[g * D + d] += sign;
-      }
-      for (int t = 0; t < a.PA; ++t) {
-        const int g = a.pref_aff[p * a.PA + t];
-        if (g < 0) continue;
-        const int d = dom[g];
-        if (d >= 0) pref_wsum[g * D + d] += sign * a.pref_aff_w[p * a.PA + t];
-      }
-    } else {
-      const bool mine = n >= lo && n < hi;
-      for (int c = tid - 1; c < R + G; c += blockDim.x - 1) {
-        if (c < R) {
-          if (!mine) continue;
-          if (summed)
-            rel[(size_t)n * R + c] += a.requests[(size_t)p * R + c];
-          else
-            used[(size_t)n * R + c] += sign * a.requests[(size_t)p * R + c];
-        } else if (planes) {
-          const int g = c - R;
-          if (!a.pmg[(size_t)p * G + g]) continue;
-          const int d = dom[g];
-          if (d >= 0) match_count[g * D + d] += sign;
-        }
-      }
-    }
-  }
-  if (summed && tid > 0) {
-    for (int k = 0; k < K; ++k) {
-      const int p = pods[k];
-      const int n = p < 0 ? KSIM_PAD : ch[pos[k]];
-      if (n < lo || n >= hi) continue;
-      for (int c = tid - 1; c < R; c += blockDim.x - 1) {
-        float* acc = rel + (size_t)n * R + c;
-        used[(size_t)n * R + c] = used[(size_t)n * R + c] - *acc;
-        *acc = 0.f;
-      }
-    }
-  }
-  if (rollback) {
-    grid.sync();  // every block has read the wave's choices
-    if (planes)
-      for (int k = threadIdx.x; k < K; k += blockDim.x)
-        if (active[k]) ch[pos[k]] = KSIM_PAD;
-  }
+  ksim_shard_apply_body(a, scen, pods, pos, 0, choices, K, choice_ss, sign, rollback, a.NP,
+                        shard, shard == 0, [&] { grid.sync(); });
 }
 
 KSIM_EXPORT int ksim_shard_apply(const KsimArgs* args, const int32_t* pods, const int32_t* pos,

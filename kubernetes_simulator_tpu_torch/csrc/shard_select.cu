@@ -62,89 +62,14 @@
 #include "ksim.cuh"
 
 #define K7_THREADS 1024
-#define KSIM_SHARD_NONE 0x7fffffff
 
+// The phases are ksim.cuh's ksim_shard_select_body, which K9
+// (shard_chunk_replay.cu) runs for every slot of a chunk.
 __global__ void __launch_bounds__(K7_THREADS)
     ksim_shard_select_kernel(KsimArgs a, int p, int32_t* choices, int64_t choice_ss,
                              int slot) {
-  __shared__ float red[KSIM_EXT * 32];
-  __shared__ float best_v[KSIM_MAX_WARPS];
-  __shared__ int best_i[KSIM_MAX_WARPS];
-  __shared__ int s_choice;
-  // the cluster's slots (ksim_cluster_push_*): extrema and (total, id) pairs
-  __shared__ float x_ext[KSIM_MAX_CLUSTER][KSIM_EXT];
-  __shared__ float x_v[KSIM_MAX_CLUSTER];
-  __shared__ int x_i[KSIM_MAX_CLUSTER];
-  cg::cluster_group cl = cg::this_cluster();
-  const int C = (int)cl.num_blocks(), rank = (int)cl.block_rank();
-  const int64_t scen = blockIdx.x / C;
-  const bool is_max[KSIM_EXT] = KSIM_EXTREMA_IS_MAX;
-
-  // (0) each own shard's packed extrema, and their fold (unpacked)
-  float v[KSIM_EXT];
-  ksim_extrema_init(v);
-  for (int q = rank; q < a.NP; q += C) {
-    const int n0 = q * a.n_local;
-    float u[KSIM_EXT];
-    ksim_extrema_init(u);
-    for (int i = threadIdx.x; i < a.n_local; i += blockDim.x)
-      ksim_extrema_node(ksim_raw(a, scen, n0 + i), u);
-    ksim_block_extrema(u, KSIM_EXT, is_max, red);
-    for (int k = 0; k < KSIM_EXT; ++k) v[k] = is_max[k] ? fmaxf(v[k], u[k]) : fminf(v[k], u[k]);
-    if (threadIdx.x == 0) {
-      ksim_extrema_flip(u);
-      float* out = a.ext + (scen * a.NP + q) * KSIM_EXT;
-      for (int k = 0; k < KSIM_EXT; ++k) out[k] = u[k];
-    }
-  }
-  // (a) the cluster's fold of the shards' extrema
-  if (C > 1) {
-    ksim_cluster_push_extrema(v, x_ext);
-    cl.sync();
-    ksim_cluster_fold_extrema(v, x_ext);
-  }
-  const KsimNorm c = ksim_norm(a, p, scen, v);
-
-  // (b) each own shard's (max total, lowest global id), folded in shard order
-  float fv = -INFINITY;
-  int fi = KSIM_SHARD_NONE;
-  for (int q = rank; q < a.NP; q += C) {
-    const int n0 = q * a.n_local;
-    float bv = -INFINITY;
-    int bi = KSIM_SHARD_NONE;
-    for (int i = threadIdx.x; i < a.n_local; i += blockDim.x) {
-      const int n = n0 + i;
-      const KsimRaw r = ksim_raw(a, scen, n);
-      const float total = ksim_total(a, c, r);
-      if (r.f) ksim_better(bv, bi, total, n);
-    }
-    ksim_block_pick<true>(bv, bi, best_v, best_i);
-    if (threadIdx.x == 0) {
-      if (!(bv > -INFINITY)) bi = KSIM_SHARD_NONE;
-      a.best_v[scen * a.NP + q] = bv;
-      a.best_i[scen * a.NP + q] = bi;
-      ksim_better(fv, fi, bv, bi);
-    }
-    __syncthreads();  // the next shard's pick rewrites best_v / best_i
-  }
-  // (c) the cluster's fold of the pairs
-  if (C > 1) {
-    ksim_cluster_push_pick(fv, fi, x_v, x_i);
-    cl.sync();
-    ksim_cluster_fold_pick<true>(fv, fi, x_v, x_i);
-  }
-  if (threadIdx.x == 0) s_choice = fv > -INFINITY ? fi : KSIM_PAD;
-  __syncthreads();
-
-  // (d) the owner's (or, unplaced, rank 0's) writes
-  const int choice = s_choice;
-  const bool owner = choice >= 0 ? (choice / a.n_local) % C == rank : rank == 0;
-  if (!owner) return;
-  int32_t* cd = a.cdom + (scen * choice_ss + slot) * a.G;
-  const int32_t* gdom = ksim_label_rows(a, scen).gdom;
-  for (int g = threadIdx.x; g < a.G; g += blockDim.x)
-    cd[g] = choice >= 0 ? gdom[(size_t)g * a.N + choice] : KSIM_PAD;
-  if (threadIdx.x == 0) choices[scen * choice_ss + slot] = choice;
+  const int64_t scen = blockIdx.x / cg::this_cluster().num_blocks();
+  ksim_shard_select_body(a, p, scen, choices, choice_ss, slot);
 }
 
 KSIM_EXPORT int ksim_shard_select(const KsimArgs* args, int pod, int32_t* choices,

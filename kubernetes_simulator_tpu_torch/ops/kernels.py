@@ -1,6 +1,6 @@
 """The replay's hand-written Hopper kernels: build, binding and wrappers.
 
-Eight CUDA C++ kernels (``csrc/*.cu``, compiled for ``sm_90a``) carry the
+Nine CUDA C++ kernels (``csrc/*.cu``, compiled for ``sm_90a``) carry the
 device work of the replay and of the scenario-batched what-if: every
 kernel takes the S-stacked tables of :mod:`.reference` (the
 single-scenario replay is S = 1) and runs each scenario in its own
@@ -38,6 +38,9 @@ wrapper                       replaces (kubernetes_simulator_tpu/...)
 :func:`shard_apply` (K8)      ops/tpu.py:1406 apply_binding_sharded, :1435
                               apply_unbind_wave_sharded and the sharded
                               release (sim/jax_runtime.py:1224-1240)
+:func:`shard_chunk_replay`    sim/jax_runtime.py:548 make_chunk_fn_sharded
+(K9)                          (the node-sharded chunk program: one launch a
+                              chunk) with :494 make_wave_step_sharded
 ============================  ================================================
 
 K6 runs K1's, K2's and K3's bodies (``csrc/ksim.cuh``) for every slot of
@@ -69,7 +72,11 @@ make_wave_step_sharded, :548 make_chunk_fn_sharded) a slot is K1 over the
 padded node axis (pad rows infeasible) → K7 (each shard's packed
 normalization extrema over its own block, then the two-stage choice) →
 K8's bind, with K8's rollback after a gang wave and K8's release at a
-boundary; K2, K3, K5 and K6 refuse sharded tables.
+boundary; K9 runs K1's per-node body and K7's and K8's bodies
+(``csrc/ksim.cuh``) for every slot of a chunk in one launch, one
+thread-block cluster a scenario (K7's geometry) with no grid barrier, so a
+chunk on K9 equals the same chunk on K1 → K7 → K8 bit for bit; K2, K3, K5
+and K6 refuse sharded tables.
 
 Under the retry buffer (a Tables with ``retry``) K1–K3 also take one pod
 per scenario (the retry pass), K3 appends failed non-gang pods to the
@@ -149,6 +156,7 @@ KERNELS = {
     "chunk_replay": "chunk_replay.cu",
     "shard_select": "shard_select.cu",
     "shard_apply": "shard_apply.cu",
+    "shard_chunk_replay": "shard_chunk_replay.cu",
 }
 
 #: argtypes of each C entry point (every one returns a cudaError_t as int)
@@ -176,6 +184,10 @@ _ARGTYPES = {
     "shard_select": [_P, _I, _P, _LL, _I, _I, _I, _P],
     # (args, pods, pos, choices, K, choice_ss, sign, rollback, stream)
     "shard_apply": [_P, _P, _P, _P, _I, _LL, _F, _I, _P],
+    # (args, idx, gang, choices, choice_ss, W, first, end, C, threads, stream)
+    "shard_chunk_replay": [_P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _P],
+    # K9's attributes (shard_chunk_replay.cu): (regs, shared_bytes, max_threads)
+    "shard_chunk_replay_attrs": [_P, _P, _P],
 }
 
 _MAX_SEG = 16
@@ -187,14 +199,16 @@ RELEASE_TILE = 4096
 #: Fewest pairs a block of K3's release sorts where K allows more.
 RELEASE_MIN_TILE = 1024
 #: Entry points a library exports beside its kernel's ``ksim_<name>``.
-_EXTRA_ENTRIES = {"apply_placements": ("release",)}
+_EXTRA_ENTRIES = {"apply_placements": ("release",),
+                  "shard_chunk_replay": ("shard_chunk_replay_attrs",)}
 
 
 #: Largest cluster of the selects: the portable size, which every Hopper part
 #: schedules without the non-portable opt-in.
 CLUSTER_CAP = 8
-#: The selects' full block width (K6's always, K6_THREADS in chunk_replay.cu;
-#: K2's and K7's above the narrow case).
+#: The selects' full block width (K6's and K9's always, K6_THREADS in
+#: chunk_replay.cu and K9_THREADS in shard_chunk_replay.cu; K2's and K7's
+#: above the narrow case).
 SELECT_THREADS = 1024
 #: Narrowest block of K2 and K7 (a small node axis takes fewer warps per
 #: block reduction).
@@ -270,6 +284,15 @@ def chunk_plan(S: int, N: int, *, sms: int) -> ClusterPlan:
     since phase 1 runs K1's body a node a thread (``ksim_chunk_replay``
     refuses any other width)."""
     return dataclasses.replace(cluster_plan(S, N, sms=sms), threads=SELECT_THREADS)
+
+
+def shard_chunk_plan(S: int, N: int, NP: int, *, sms: int) -> ClusterPlan:
+    """K9's launch geometry: K7's C over the NP shards of the padded node
+    axis N (:func:`cluster_plan`; rank r owns :meth:`ClusterPlan.shards`
+    in every phase) in blocks of :data:`SELECT_THREADS`, since phase 1 runs
+    K1's body a node a thread (``ksim_shard_chunk_replay`` refuses any
+    other width, and any C outside 1..min(8, NP))."""
+    return dataclasses.replace(cluster_plan(S, N, NP, sms=sms), threads=SELECT_THREADS)
 
 
 def release_tile(K: int, S: int = 1, sms: int = 1) -> int:
@@ -416,12 +439,15 @@ def _check(rc: int, name: str) -> None:
 
 def select_plan(name: str, tb: ref.Tables) -> ClusterPlan:
     """:func:`cluster_plan` of the select ``name`` (``normalize_select``,
-    ``chunk_replay``, ``shard_select``) on the CUDA tables ``tb``."""
+    ``chunk_replay``, ``shard_select``, ``shard_chunk_replay``) on the CUDA
+    tables ``tb``."""
     S, N = tb.state.used.shape[:2]
     dev = tb.state.used.device
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     if name == "chunk_replay":
         return chunk_plan(S, N, sms=sms)
+    if name == "shard_chunk_replay":
+        return shard_chunk_plan(S, N, tb.shards.P, sms=sms)
     NP = tb.shards.P if name == "shard_select" else None
     return cluster_plan(S, N, NP, sms=sms)
 
@@ -920,20 +946,8 @@ def chunk_replay(b: Bound, idx: torch.Tensor, gang: torch.Tensor, choices: torch
     if not b.cuda:
         ref.chunk_replay(b.tables, idx, gang, choices, first, end, boundary, append)
         return
-    dev = b.tables.state.used.device
     _check_choices(b, choices)
-    if (idx.dtype != torch.int32 or gang.dtype != torch.uint8 or idx.dim() != 1
-            or gang.dim() != 1 or gang.numel() < 1 or idx.numel() % gang.numel()
-            or not idx.is_contiguous() or not gang.is_contiguous()
-            or idx.device != dev or gang.device != dev):
-        raise ValueError("idx must be int32 [num_waves * W] and gang uint8 [num_waves], "
-                         "contiguous on the tables' device")
-    W = idx.numel() // gang.numel()
-    if not 0 <= first <= end <= gang.numel() or W > _MAX_WAVE:
-        raise ValueError(f"waves [{first}, {end}) of {gang.numel()} (width {W}, at most "
-                         f"{_MAX_WAVE})")
-    if end * W > choices.shape[1]:
-        raise ValueError("the choice buffer has no column for every slot of the waves")
+    W = _check_chunk_desc(b, idx, gang, choices, first, end)
     if (boundary is not None) != (b.tables.preempt is not None):
         raise ValueError("a boundary goes with tier preemption, and only with it")
     if append and b.tables.retry is None:
@@ -1009,8 +1023,71 @@ def shard_apply(b: Bound, pod_ids: torch.Tensor, pos: torch.Tensor, choices: tor
     shard_apply.modes["rollback" if rollback else "bind" if sign > 0 else "release"] += 1
 
 
+def _check_chunk_desc(b: Bound, idx: torch.Tensor, gang: torch.Tensor, choices: torch.Tensor,
+                      first: int, end: int) -> int:
+    """The width W of a chunk's device descriptor (``idx`` [num_waves * W]
+    i32, ``gang`` [num_waves] u8 on the tables' device) after checking it
+    and the waves ``[first, end)`` against the choice buffer."""
+    dev = b.tables.state.used.device
+    if (idx.dtype != torch.int32 or gang.dtype != torch.uint8 or idx.dim() != 1
+            or gang.dim() != 1 or gang.numel() < 1 or idx.numel() % gang.numel()
+            or not idx.is_contiguous() or not gang.is_contiguous()
+            or idx.device != dev or gang.device != dev):
+        raise ValueError("idx must be int32 [num_waves * W] and gang uint8 [num_waves], "
+                         "contiguous on the tables' device")
+    W = idx.numel() // gang.numel()
+    if not 0 <= first <= end <= gang.numel() or W > _MAX_WAVE:
+        raise ValueError(f"waves [{first}, {end}) of {gang.numel()} (width {W}, at most "
+                         f"{_MAX_WAVE})")
+    if end * W > choices.shape[1]:
+        raise ValueError("the choice buffer has no column for every slot of the waves")
+    return W
+
+
+def shard_chunk_replay(b: Bound, idx: torch.Tensor, gang: torch.Tensor, choices: torch.Tensor,
+                       first: int, end: int) -> None:
+    """K9: waves ``[first, end)`` of one chunk on node-sharded tables in
+    every scenario, one launch: for each slot ``s`` of wave ``w`` whose pod
+    ``idx[s]`` is not PAD, K1 over the rank's shards → K7 (the choice into
+    ``choices[:, s]``, the winner's domain ids into ``shards.cdom[:, s]``)
+    → K8 bind, and after the last slot of a wave whose ``gang`` flag is set,
+    K8's rollback over the wave (``idx``, ``gang``: as :func:`chunk_replay`).
+    Refuses, on any device, what K9 refuses: tables without shards, with
+    tier preemption or the retry buffer, shards that do not tile the node
+    axis, a wave wider than 1,024 slots."""
+    _check_shards(b, choices)
+    tb = b.tables
+    sh = tb.shards
+    if tb.preempt is not None or tb.retry is not None:
+        raise ValueError("shard_chunk_replay runs without tier preemption and the retry buffer")
+    if sh.P < 1 or sh.P * sh.n_local != tb.state.used.shape[1]:
+        raise ValueError(f"shards: {sh.P} x {sh.n_local} nodes do not tile the tables' "
+                         f"{tb.state.used.shape[1]} nodes")
+    W = _check_chunk_desc(b, idx, gang, choices, first, end)
+    if not b.cuda:
+        ref.shard_chunk_replay(tb, idx, gang, choices, first, end)
+        return
+    if end == first:
+        return
+    plan = shard_chunk_replay.plan = b.plan("shard_chunk_replay")
+    _check(_libs["shard_chunk_replay"](
+        b._args_ptr, idx.data_ptr(), gang.data_ptr(), choices.data_ptr(), choices.shape[1],
+        int(W), int(first), int(end), plan.C, plan.threads, _stream()), "shard_chunk_replay")
+    shard_chunk_replay.launches += 1
+
+
+def shard_chunk_replay_attrs() -> Dict[str, int]:
+    """K9's registers a thread, static shared bytes and largest block on the
+    current card (cudaFuncGetAttributes), after :func:`build`."""
+    build()
+    out = [ctypes.c_int() for _ in range(3)]
+    _check(_libs["shard_chunk_replay_attrs"](*(ctypes.addressof(x) for x in out)),
+           "shard_chunk_replay")
+    return dict(zip(("regs", "shared_bytes", "max_threads"), (x.value for x in out)))
+
+
 WRAPPERS = (filter_score, normalize_select, apply_placements, retry_boundary, first_reject,
-            first_reject_fold, chunk_replay, shard_select, shard_apply)
+            first_reject_fold, chunk_replay, shard_select, shard_apply, shard_chunk_replay)
 
 
 #: The wrappers that also count their launches by mode.
@@ -1036,4 +1113,4 @@ def launch_counts() -> Dict[str, int]:
 
 reset_launch_counts()
 #: The geometry of each select's last launch (a ClusterPlan; None before one).
-normalize_select.plan = chunk_replay.plan = shard_select.plan = None
+normalize_select.plan = chunk_replay.plan = shard_select.plan = shard_chunk_replay.plan = None

@@ -23,6 +23,10 @@ Three functions are the plain twins of the hand-written kernels in
 
 :func:`chunk_replay` is the plain twin of K6 (``csrc/chunk_replay.cu``):
 one chunk's waves walked through the three twins above in K6's order.
+Under node shards, :func:`shard_select` and :func:`shard_apply` are the
+twins of K7 and K8, and :func:`shard_chunk_replay` the twin of K9
+(``csrc/shard_chunk_replay.cu``): one chunk's waves walked through K1's,
+K7's and K8's twins in K9's order.
 
 The fifth twin, :func:`first_reject` (K5, ``csrc/first_reject.cu``), is
 the series telemetry's first-reject attribution: the per-plugin Filter
@@ -1411,6 +1415,34 @@ def shard_apply(tb: Tables, pod_ids: torch.Tensor, pos: torch.Tensor, choices: t
         _apply_planes(tb, ss, p, sh.cdom[ss, posl[kk]].T, sign)
     if rollback:
         choices[:, posl] = torch.where(keep, torch.full_like(nodes, PAD), nodes)
+
+
+def shard_chunk_replay(tb: Tables, idx: torch.Tensor, gang: torch.Tensor, choices: torch.Tensor,
+                       first: int, end: int) -> None:
+    """Plain twin of K9 (csrc/shard_chunk_replay.cu; sim/jax_runtime.py:548
+    ``make_chunk_fn_sharded``): waves ``[first, end)`` of the device slot
+    index ``idx [num_waves * W]`` with gang flags ``gang [num_waves]`` on
+    node-sharded tables, in K9's order — for each non-PAD slot ``s``,
+    :func:`filter_score` (K1 over the padded node axis), :func:`shard_select`
+    (into ``choices[:, s]`` and ``shards.cdom[:, s]``) and the bind of
+    :func:`shard_apply`, and after the last such slot of a gang wave K8's
+    rollback over the wave's W columns."""
+    W = idx.numel() // gang.numel()
+    rows = idx[first * W : end * W].tolist()
+    flags = gang.tolist()
+    pos = torch.arange(choices.shape[1], dtype=torch.int32, device=choices.device)
+    for w in range(first, end):
+        base = w * W
+        for s in range(base, base + W):
+            p = rows[s - first * W]
+            if p < 0:
+                continue
+            filter_score(tb, p)
+            shard_select(tb, p, choices, s)
+            shard_apply(tb, idx[s : s + 1], pos[s : s + 1], choices, 1.0)
+        if flags[w]:
+            shard_apply(tb, idx[base : base + W], pos[base : base + W], choices, -1.0,
+                        rollback=True)
 
 
 # ---------------------------------------------------------------------------

@@ -21,7 +21,7 @@ binds of chunks ≤ b−2). Unlike the reference's v3 program, which commits
 a wave's ``used`` in one reduction, the port adds per pod, as
 ``greedy_replay`` does.
 
-Three routes run a chunk's waves, chosen from the run's mode alone
+Four routes run a chunk's waves, chosen from the run's mode alone
 (:func:`choose_route`), never from a failure:
 
 - ``"chunk"`` (the main path): one K6 (chunk_replay) launch a chunk runs
@@ -35,15 +35,22 @@ Three routes run a chunk's waves, chosen from the run's mode alone
   slot's K2) and the plain twins (``plain=True``) take it;
 - ``"shard"`` (node-plane shards, ``node_shards > 1``; row B13, the
   reference's node-sharded v2 program, sim/jax_runtime.py:494
-  ``make_wave_step_sharded`` and :548 ``make_chunk_fn_sharded``): the
-  tables span the padded node axis of :mod:`..parallel.shards`, and per slot
-  the host enqueues K1 over the padded axis (pad rows infeasible) → K7
-  (shard_select: each shard's packed extrema, the two-stage choice, the
-  owner's domain ids) → K8 (shard_apply, bind), K8's rollback after a gang wave and K8's
-  release at a boundary; ``plain=True`` runs their twins.
+  ``make_wave_step_sharded`` and :548 ``make_chunk_fn_sharded``, one
+  dispatch a chunk): the tables span the padded node axis of
+  :mod:`..parallel.shards`; a boundary's K8 (shard_apply) release, then one
+  K9 (shard_chunk_replay) launch a chunk runs every slot's K1 over the
+  rank's shards (pad rows infeasible) → K7 (each shard's packed extrema, the
+  two-stage choice, the owner's domain ids) → K8 bind and each gang wave's
+  K8 rollback on the card, reading the pods from the plan's
+  :class:`ChunkDesc`;
+- ``"shard_slot"``: the same tables, and per slot the host enqueues K1 over
+  the padded axis → K7 (shard_select) → K8 (shard_apply, bind), with K8's
+  rollback after a gang wave and K8's release at a boundary. The plain
+  twins (``plain=True``) on sharded tables take it; it places as
+  ``"shard"`` bit for bit (K9 runs K1's, K7's and K8's bodies).
 
 Paged pod waves (``paged=True``, :mod:`.pager`) run on the chunk and shard
-routes: each chunk reads the pod rows of its page, streamed while the
+routes (both): each chunk reads the pod rows of its page, streamed while the
 previous chunk runs.
 
 Either way every launch covers all S scenarios; K2 writes each scenario's
@@ -378,18 +385,20 @@ class ChunkDesc(NamedTuple):
 
 
 #: The routes of a chunk's waves (module docstring).
-ROUTES = ("chunk", "slot", "shard")
+ROUTES = ("chunk", "slot", "shard", "shard_slot")
+#: The routes of node-sharded tables.
+SHARD_ROUTES = ("shard", "shard_slot")
 
 
 def choose_route(plain: bool, series: bool, sharded: bool = False) -> str:
     """The route of a run, from its mode: node-sharded tables take the shard
-    route (K1 → K7 → K8 a slot, their twins with ``plain``); otherwise the
-    per-slot route for the plain twins and telemetry series/timeline (K5
-    after each slot's K2); the chunk route (K6) for everything else,
-    ``engine="v2"`` included (K1–K3 commit pod by pod, so v2 places as v3 on
-    either route)."""
+    route (one K9 a chunk), or with ``plain`` the per-slot shard route (the
+    twins of K1 → K7 → K8 a slot); otherwise the per-slot route for the
+    plain twins and telemetry series/timeline (K5 after each slot's K2); the
+    chunk route (K6) for everything else, ``engine="v2"`` included (K1–K3
+    commit pod by pod, so v2 places as v3 on either route)."""
     if sharded:
-        return "shard"
+        return "shard_slot" if plain else "shard"
     return "slot" if plain or series else "chunk"
 
 
@@ -690,9 +699,11 @@ def run_waves(plan: ChunkPlan, tb: ref.Tables, choices: torch.Tensor, first: int
     boundary. The order is the reference's: chunk b−1's fold precedes
     boundary b's releases and retry pass (sim/jax_runtime.py:1716-1745).
 
-    On node-sharded tables (``route="shard"``, row B13) a boundary's
-    release is K8's, and per slot K1 (one block a shard) → K7 (the
-    two-stage choice) → K8 bind, with K8's rollback after a gang wave.
+    On node-sharded tables (row B13) a boundary's release is K8's, and the
+    chunk's waves one K9 launch over the waves in the range (``"shard"``,
+    reading the plan's :class:`ChunkDesc`) or per slot K1 (over the padded
+    node axis) → K7 (the two-stage choice) → K8 bind, with K8's rollback
+    after a gang wave (``"shard_slot"``).
 
     With ``pager`` (paged pod waves, :class:`.pager.PodPager`; ``first`` on
     a chunk's start) each chunk runs on its page: the pod tables of its
@@ -702,8 +713,8 @@ def run_waves(plan: ChunkPlan, tb: ref.Tables, choices: torch.Tensor, first: int
         raise ValueError(f"route must be one of {ROUTES}, got {route!r}")
     if route != "slot" and ser is not None:
         raise ValueError("telemetry series runs on the per-slot route (K5 after each slot's K2)")
-    if (route == "shard") != (tb.shards is not None):
-        raise ValueError("node-sharded tables take the shard route, and only they")
+    if (route in SHARD_ROUTES) != (tb.shards is not None):
+        raise ValueError("node-sharded tables take a shard route, and only they")
     if pager is not None and (ser is not None or tb.retry is not None or tb.preempt is not None
                               or first % plan.C):
         raise ValueError("paged pod waves run from a chunk's start, without series telemetry, "
@@ -714,17 +725,17 @@ def run_waves(plan: ChunkPlan, tb: ref.Tables, choices: torch.Tensor, first: int
     if plain:
         fns = (ref.filter_score, ref.normalize_select, ref.apply_placements,
                ref.retry_boundary, ref.first_reject, ref.first_reject, ref.chunk_replay,
-               ref.shard_select, ref.shard_apply)
+               ref.shard_select, ref.shard_apply, ref.shard_chunk_replay)
         bind = lambda t: t
     else:
         fns = (K.filter_score, K.normalize_select, K.apply_placements, K.retry_boundary,
                K.first_reject, K.first_reject_fold, K.chunk_replay, K.shard_select,
-               K.shard_apply)
+               K.shard_apply, K.shard_chunk_replay)
         bind = K.Bound
     h = bind(tb)
     filter_score, normalize_select, apply_placements = fns[:3]
-    chunk_replay, shard_select, shard_apply = fns[6:9]
-    release = shard_apply if route == "shard" else apply_placements
+    chunk_replay, shard_select, shard_apply, shard_chunk_replay = fns[6:10]
+    release = shard_apply if route in SHARD_ROUTES else apply_placements
     rt = tb.retry
     if rt is not None:
         pos_rb = torch.arange(rt.rbuf.shape[1], dtype=torch.int32, device=dev)
@@ -789,21 +800,24 @@ def run_waves(plan: ChunkPlan, tb: ref.Tables, choices: torch.Tensor, first: int
                 for dst, src in zip(ser.snap, tb.state):
                     dst.copy_(src)
 
-    if route == "chunk":
+    if route in ("chunk", "shard"):
         w = first
         while w < end:
             b = w // C
             if w % C == 0:
                 boundary_work(b)
             hi = min(end, (b + 1) * C)
-            chunk_replay(h, desc.idx, desc.gang, choices, w, hi,
-                         boundary=b if preempt else None, append=append)
+            if route == "shard":
+                shard_chunk_replay(h, desc.idx, desc.gang, choices, w, hi)
+            else:
+                chunk_replay(h, desc.idx, desc.gang, choices, w, hi,
+                             boundary=b if preempt else None, append=append)
             w = hi
     else:
         rows = idx.tolist()
         gang_wave = plan.gang_wave.tolist()
         pos_dev = torch.arange(plan.L, dtype=torch.int32, device=dev)
-        shard = route == "shard"
+        shard = route == "shard_slot"
         for w in range(first, end):
             b = w // C
             if w % C == 0:
@@ -1020,7 +1034,7 @@ class ChunkEngine:
         """(tables after the run, wall seconds, assignments [S, P], placed
         [S], pods to schedule). ``series`` takes the boundary samples and
         the first-reject attribution (:class:`Series`; none when no Filter
-        plugin is on). ``route`` (``"chunk"`` or ``"slot"``) overrides the
+        plugin is on). ``route`` (one of :data:`ROUTES`) overrides the
         route the mode chooses (:func:`choose_route`), so a kernel run can be
         held against the other route. ``joint``: a retry boundary's pending
         and static releases go out as one (:func:`run_waves`; the single
@@ -1140,7 +1154,7 @@ class TorchReplayEngine(ChunkEngine):
                              "node shards)", "ROADMAP queue A item 6a")
             if TelemetryConfig.resolve(self.telemetry).want_series:
                 raise _later("telemetry series/timeline with node_shards (first-reject "
-                             "attribution over node shards)", "ROADMAP queue B item 4")
+                             "attribution over node shards)", "ROADMAP queue B item 4c")
             if engine == "v3":
                 log.info(
                     "node_shards=%d: forcing engine='v2' — the node-sharded chunk program runs "

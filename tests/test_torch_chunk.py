@@ -163,10 +163,11 @@ def test_descriptor_is_the_plan():
 
 
 def test_choose_route_and_refusals():
-    assert ROUTES == ("chunk", "slot", "shard")
+    assert ROUTES == ("chunk", "slot", "shard", "shard_slot")
     assert choose_route(False, False) == "chunk"
     assert choose_route(True, False) == choose_route(False, True) == "slot"
-    assert choose_route(False, False, True) == choose_route(True, False, True) == "shard"
+    assert choose_route(False, False, True) == "shard"
+    assert choose_route(True, False, True) == "shard_slot"
     v2 = TorchReplayEngine(*_headline_cut(pods=100), FrameworkConfig(), device="cpu",
                            engine="v2")
     assert v2.replay().route == "chunk"

@@ -1,6 +1,6 @@
 """The launch geometry of the cluster selects (ops/kernels.py cluster_plan).
 
-K2, K6 and K7 launch as thread-block clusters whose size, block width, grid
+K2, K6, K7 and K9 launch as thread-block clusters whose size, block width, grid
 and per-block node ranges or shard sets come from one plain function of the
 shapes and the card's SM count. It runs here on the CPU with the SM counts of
 H100 parts (132 SXM, 114 PCIe)."""
@@ -14,6 +14,7 @@ from kubernetes_simulator_tpu_torch.ops.kernels import (
     ClusterPlan,
     chunk_plan,
     cluster_plan,
+    shard_chunk_plan,
 )
 
 SMS = (132, 114)
@@ -117,6 +118,20 @@ def test_shard_plan(S, NP, n_local, sms):
         qs = plan.shards(r)
         assert qs and list(qs) == sorted(qs) and all(q % plan.C == r for q in qs)
     assert plan == cluster_plan(S, N, NP, sms=sms)
+
+
+@pytest.mark.parametrize("sms", SMS)
+@pytest.mark.parametrize("S,NP,n_local", SHARDED)
+def test_shard_chunk_plan(S, NP, n_local, sms):
+    """K9: K7's cluster size, grid and shard sets, in blocks of
+    SELECT_THREADS (phase 1 runs K1's body a node a thread, n_local tiled by
+    the block)."""
+    N = NP * n_local
+    plan = shard_chunk_plan(S, N, NP, sms=sms)
+    k7 = cluster_plan(S, N, NP, sms=sms)
+    assert plan.threads == SELECT_THREADS
+    assert (plan.C, plan.grid, plan.span, plan.NP) == (k7.C, k7.grid, k7.span, k7.NP)
+    assert [plan.shards(r) for r in range(plan.C)] == [k7.shards(r) for r in range(k7.C)]
 
 
 @pytest.mark.parametrize("args,kw", [

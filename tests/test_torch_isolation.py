@@ -168,7 +168,7 @@ def test_wrappers_take_the_twin_only_on_cpu():
                                  "apply_placements": 0, "retry_boundary": 0,
                                  "first_reject": 0, "first_reject_fold": 0,
                                  "chunk_replay": 0, "shard_select": 0, "shard_apply": 0,
-                                 "apply_placements_bind": 0, "apply_placements_rollback": 0,
+                                 "shard_chunk_replay": 0, "apply_placements_bind": 0, "apply_placements_rollback": 0,
                                  "apply_placements_release": 0,
                                  "shard_apply_bind": 0, "shard_apply_rollback": 0,
                                  "shard_apply_release": 0}

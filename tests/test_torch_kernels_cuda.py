@@ -640,17 +640,21 @@ def test_shard_kernel_path_equals_plain_path(card, P, paged):
     """A sharded (or, P = 1, paged replicated) replay on the kernels equals
     the same replay on the twins on the card and on the CPU, and the
     replicated K6 replay: assignments, placed and ``used``; the sharded run
-    launches K1, K7 and K8 a slot and nothing of K2, K3 or K6."""
+    launches one K9 a chunk, K8 at each release and nothing of K1, K2, K3,
+    K6 or K7."""
     rep = _shard_engine(card, 1).replay()
     K.reset_launch_counts()
     eng = _shard_engine(card, P, paged=paged)
     res = eng.replay()
     counts = K.launch_counts()
-    slots = int((eng.plan.idx >= 0).sum())
     if P > 1:
-        assert res.route == "shard" and counts["shard_select"] == slots, counts
-        assert counts["normalize_select"] == counts["chunk_replay"] == 0, counts
-        assert counts["apply_placements"] == 0, counts
+        releases = sum(bk is not None for bk in eng.plan.buckets)
+        assert res.route == "shard", res.route
+        assert counts["shard_chunk_replay"] == len(eng.plan.buckets), counts
+        assert counts["shard_apply"] == counts["shard_apply_release"] == releases, counts
+        for k in ("filter_score", "shard_select", "normalize_select", "chunk_replay",
+                  "apply_placements"):
+            assert counts[k] == 0, (k, counts)
     else:
         assert res.route == "chunk" and counts["chunk_replay"] == len(eng.plan.buckets)
     if paged:
@@ -660,6 +664,61 @@ def test_shard_kernel_path_equals_plain_path(card, P, paged):
         np.testing.assert_array_equal(res.assignments, other.assignments)
         assert res.placed == other.placed
         np.testing.assert_array_equal(res.state.used, other.state.used)
+
+
+@pytest.mark.parametrize("P", (3, 8))
+def test_shard_chunk_replay_equals_twin_and_slot_route(card, P):
+    """K9 against its twin and against the per-slot kernels (K1 -> K7 -> K8)
+    over a whole sharded replay (37 nodes: P = 3 and 8 pad the node axis),
+    chunk by chunk from the same state after each boundary's K8 release:
+    every state plane, the scratch rows, the choice buffer and the shard
+    buffers (ext, best_v, best_i, cdom) bit for bit, with K9's plan K7's C
+    in blocks of 1,024 threads."""
+    from kubernetes_simulator_tpu_torch.sim.torch_runtime import new_choices
+
+    eng = _shard_engine(card, P)
+    plan = eng.plan
+    tb_9, tb_t, tb_s = eng._tables(), eng._tables(), eng._tables()
+    b9, bs = K.Bound(tb_9), K.Bound(tb_s)
+    ch_9 = new_choices(plan, 1, eng.pods.bound_node, card)
+    ch_t, ch_s = ch_9.clone(), ch_9.clone()
+    idx = torch.as_tensor(plan.idx.reshape(-1), device=card)
+    gang = torch.as_tensor(plan.gang_wave.astype(np.uint8), device=card)
+    pos = torch.arange(plan.L, dtype=torch.int32, device=card)
+    W, C = plan.idx.shape[1], plan.C
+    K.reset_launch_counts()
+    for c in range(len(plan.buckets)):
+        if plan.buckets[c] is not None:
+            ids, cols = (torch.as_tensor(a, device=card) for a in plan.buckets[c])
+            K.shard_apply(b9, ids, cols, ch_9, -1.0)
+            ref.shard_apply(tb_t, ids, cols, ch_t, -1.0)
+            K.shard_apply(bs, ids, cols, ch_s, -1.0)
+        K.shard_chunk_replay(b9, idx, gang, ch_9, c * C, (c + 1) * C)
+        ref.shard_chunk_replay(tb_t, idx, gang, ch_t, c * C, (c + 1) * C)
+        for w in range(c * C, (c + 1) * C):
+            for k, p in enumerate(plan.idx[w].tolist()):
+                if p < 0:
+                    continue
+                s = w * W + k
+                K.filter_score(bs, p)
+                K.shard_select(bs, p, ch_s, s)
+                K.shard_apply(bs, idx[s : s + 1], pos[s : s + 1], ch_s, 1.0)
+            if plan.gang_wave[w]:
+                sl = slice(w * W, (w + 1) * W)
+                K.shard_apply(bs, idx[sl], pos[sl], ch_s, -1.0, rollback=True)
+        torch.cuda.synchronize()
+        for tb, ch, name in ((tb_t, ch_t, "twin"), (tb_s, ch_s, "per-slot kernels")):
+            for part in ("state", "scratch", "shards"):
+                x, y = getattr(tb_9, part), getattr(tb, part)
+                for f, a in zip(x._fields, x):
+                    if torch.is_tensor(a):
+                        assert torch.equal(a, getattr(y, f)), (name, c, part, f)
+            assert torch.equal(ch_9, ch), (name, c)
+    counts = K.launch_counts()
+    assert counts["shard_chunk_replay"] == len(plan.buckets), counts
+    cp = K.shard_chunk_replay.plan
+    assert cp.threads == K.SELECT_THREADS and cp.C == b9.plan("shard_select").C, cp
+    assert int(plan.gang_wave.sum()) and int((ch_9[0, : plan.idx.size] < 0).sum()) > 0
 
 
 # ---------------------------------------------------------------------------
