@@ -19,8 +19,10 @@ From the root of a checkout, on a host with one CUDA card. In order:
    on four routes — the chunk route (K6, one launch a chunk), the per-slot
    kernels (K1 -> K2 -> K3 a slot), the plain path on the card and the
    plain path on the CPU: assignments must be identical (so do steps 6, 9,
-   12 and 16; step 20's series runs take the per-slot route, and step 12's
-   timeline replay is held against the same replay at summary on K6);
+   12 and 16; step 20's series runs take the chunk route — the plain path
+   attributing inside K6 — and are held against the per-slot route, and
+   step 12's timeline replay against its per-slot route and the same
+   replay at summary on K6);
 6. runs a reduced what-if (8 scenarios × 60 nodes × 3,000 pods,
    durationMean 60, gangs: a contended trace where gangs roll back and
    completions move placements) the same three ways: assignments [S, P]
@@ -145,27 +147,37 @@ From the root of a checkout, on a host with one CUDA card. In order:
    engine "v2", completions off, scenario 1 equal to its from-scratch
    replay, and the wall;
 20. series telemetry, reduced: CONFIG6's trace cut to 20 nodes x 1,040
-   pods with devicePreemption off at ``series`` on the kernel path, the
-   plain path on the card and on the CPU (reasons, attempts, series and
-   latency identical; step 12's replay runs at ``timeline`` and holds its
+   pods with devicePreemption off at ``series`` on the kernel path (K6's
+   attributed mode, no K5), the plain path on the card and on the CPU
+   (reasons, attempts, series and latency identical; the per-slot route's
+   assignments too; step 12's replay runs at ``timeline`` and holds its
    telemetry and events the same way), and ``run`` through the port's CLI
    with ``timelineOut`` on CONFIG7's 40-node cut on the card and on the
    CPU: rows and Chrome traces identical;
 21. series telemetry at full width (the slice's main path), counters zeroed
    just before each run and read just after: (a) CONFIG6's trace with
-   devicePreemption off at ``series`` (the plain path, K5 after every
-   slot's K2) against REJECT_PINS, with sum(reasons) = 500 x unschedulable
-   and attempts = reasons; (b) CONFIG7 as shipped through the CLI ``run``
-   with ``telemetry: series`` and ``timelineOut`` (the retry path: K5 in
-   the retry pass and as the chunk fold), its row, events and the Chrome
-   trace's sha256 against REJECT_PINS; (c) the 150-node cut at
-   ``timeline`` against REJECT_PINS and RETRY_PINS; the walls of (a) and
-   (b) beside ``summary`` on the same trace, and their busy shares;
-   CONFIG6 as shipped (tier preemption) at ``series`` logging the
-   reference's note and placing as PREEMPT_PINS; K5 held against its twin
-   launch by launch in a window of (a) at S = 1, at a fold and a retry
-   pass of (c) at S = 1 and of CONFIG7's 40-node cut at S = 4, and timed
-   per launch on the plain path and as a fold;
+   devicePreemption off at ``series`` (the plain path on the chunk route:
+   one attributed K6 a chunk, no K1, K2, K3 bind or K5 launch) against
+   REJECT_PINS, with sum(reasons) = 500 x unschedulable and attempts =
+   reasons, and equal to its per-slot route (K5 after every slot's K2) in
+   assignments and reject counters; (b) CONFIG7 as shipped through the CLI
+   ``run`` with ``telemetry: series`` and ``timelineOut`` (the retry path on
+   the chunk route: K5 in the retry pass and as the chunk fold between K6
+   launches), its row, events and the Chrome trace's sha256 against
+   REJECT_PINS, its placements against RETRY_PINS; (c) the 150-node cut at
+   ``timeline`` against REJECT_PINS and RETRY_PINS; (d) CONFIG13 through the
+   CLI at ``series`` (node shards: K9 with the pager, attribution off and
+   the reference's note logged, no K5) placing as its summary run, and
+   SHARD_CUT at ``series`` against SHARD_PINS; the walls of (a) at summary,
+   series on K6 and series per slot in turns, of (b) beside ``summary``,
+   and busy shares; CONFIG6 as shipped (tier preemption) at ``series``
+   logging the reference's note and placing as PREEMPT_PINS; K6's
+   attributed mode held against its twin and the per-slot kernels in a
+   window of (a) where pods fail (its plan's C = 1 and 4 ranks forced) and
+   timed there in turns with the summary build; K5 held against its twin
+   launch by launch in the same window on the per-slot route, at a fold
+   and a retry pass of (c) at S = 1 and of CONFIG7's 40-node cut at S = 4,
+   and timed per launch on the plain path and as a fold;
 22. (P1) per-scenario policy rows at full width (their main path):
    ``PolicyTuner`` over the headline trace (CEM, 32 candidates x 4 train
    scenarios = 128 rows a sweep, 2 held-out scenarios, 2 rounds, no
@@ -450,12 +462,16 @@ SHARD_REDUCED = dict(nodes=100, pods=600, node_shards=3, chunk_waves=8)
 #: twins over, launch by launch, after every node but one in a hundred is
 #: filled to its allocatable (so gangs fail and roll back).
 SHARD_HOLD_WAVES = 6
-#: K5's modes, each with the reference lines it replaces: the plain path's
-#: per-slot attribution (make_wave_step_rej) and the retry path's chunk
-#: fold (sim/boundary.py fold_chunk).
+#: The series attribution's kernels, each with its kernel and the reference
+#: lines it replaces: K5's per-slot attribution (first_reject_counts; the
+#: retry pass and the per-slot route), K5's chunk fold on the retry path
+#: (sim/boundary.py fold_chunk), and K6's attributed mode, the plain path's
+#: instrumented chunk program (make_chunk_fn_rej).
 SERIES_SOURCES = {
-    "first_reject": "kubernetes_simulator_tpu/ops/tpu.py:816",
-    "first_reject_fold": "kubernetes_simulator_tpu/sim/boundary.py:373",
+    "first_reject": ("first_reject", "kubernetes_simulator_tpu/ops/tpu.py:816"),
+    "first_reject_fold": ("first_reject", "kubernetes_simulator_tpu/sim/boundary.py:373"),
+    "chunk_replay_attributed": ("chunk_replay",
+                                "kubernetes_simulator_tpu/sim/jax_runtime.py:443"),
 }
 #: The kernels' retry-buffer work, each with the kernel it runs in and the
 #: reference lines it replaces.
@@ -479,13 +495,9 @@ LABEL_SOURCES = {
                                     "kubernetes_simulator_tpu/sim/whatif.py:1760"),
 }
 #: The kernels the per-slot route launches (the retry buffer adds
-#: retry_boundary): at telemetry series, under engine v2, and on any path
-#: whose route is chosen explicitly.
+#: retry_boundary; telemetry series first_reject): the plain twins' route,
+#: and any path whose route is chosen explicitly.
 SOURCES_PLAIN = ("filter_score", "normalize_select", "apply_placements")
-#: The kernels the per-slot route never launches: K6 (the chunk route's) and
-#: K7, K8, K9 (the shard routes'; K8 also counted by mode).
-NOT_SLOT_ROUTE = ("chunk_replay", "shard_select", "shard_apply", "shard_apply_bind",
-                  "shard_apply_rollback", "shard_apply_release", "shard_chunk_replay")
 #: Earlier times printed beside this run's (PERF.md; NVIDIA H100 80GB HBM3,
 #: 700 W): K6 a slot in PR 10's chip run 6 (config4 run 7, CUDA events), the
 #: cooperative K6 with two grid barriers a slot; K3's release (ms) in PR 8,
@@ -656,6 +668,50 @@ def index_add_ms(tb, pod_ids, nodes, iters=20, due=None):
         torch.use_deterministic_algorithms(False)
 
 
+def launch_ms(launch, restore, iters, spin_cycles=1_000_000):
+    """Mean ms of ``launch()`` over ``iters`` calls, each between two CUDA
+    events with ``restore()`` before it, outside them (torch.profiler keeps
+    no record of some long launches: PERF.md §7). A spin of ``spin_cycles``
+    clock cycles on the card (≈0.5 ms) precedes each first event, so the
+    host has enqueued the launch before the card reaches that event: the
+    pair brackets the kernel, not the wrapper's host time."""
+    evs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+           for _ in range(iters + 1)]
+    for i, (a, b) in enumerate(evs):
+        restore()
+        torch.cuda._sleep(spin_cycles)
+        a.record()
+        launch()
+        b.record()
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in evs[1:]) / iters  # the first warms up
+
+
+def chunk_events_s(eng, dev, series=False):
+    """Device seconds of ``eng``'s single replay on the chunk route from its
+    initial state (``series``: with the attribution and samples), chunk by
+    chunk: CUDA events around the work ``run_waves`` enqueues for each chunk
+    (its boundary's work, then one K6), summed. Each chunk's K6 outlasts the
+    host's enqueue of the next by far, so the events bracket device time;
+    torch.profiler keeps no record of some long launches (PERF.md §7)."""
+    from kubernetes_simulator_tpu_torch.sim.torch_runtime import new_series
+
+    plan = eng.plan
+    tb = eng._tables(attribute=series)
+    ser = new_series(plan, tb, series) if series else None
+    ch = new_choices(plan, eng.S, eng.pods.bound_node, dev)
+    n, evs = plan.idx.shape[0], []
+    for lo in range(0, n, plan.C):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        run_waves(plan, tb, ch, lo, min(n, lo + plan.C), plain=False, ser=ser, route="chunk",
+                  joint=True)
+        b.record()
+        evs.append((a, b))
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in evs) / 1e3
+
+
 def profiled_busy_s(fn, by_kernel=None):
     """(result of fn(), seconds of device time torch.profiler recorded);
     ``by_kernel`` (a dict) receives the seconds by kernel name."""
@@ -695,12 +751,14 @@ def check_chunk_launches(where, launches, plan, retry=False):
         raise AssertionError(f"{where}: no K3 release was launched")
 
 
-def slot_route(where, eng, want, series=False):
-    """``eng``'s run on the per-slot route (K1 → K2 → K3 a slot), counters
-    zeroed just before and read just after: it must place ``want`` [S, P]
-    (the chunk route's assignments). Returns (its launches, its wall)."""
+def slot_route(where, eng, want, series=False, joint=False):
+    """``eng``'s run on the per-slot route (K1 → K2 → K3 a slot; with
+    ``series`` K5 after each slot's K2 on the plain path; ``joint``: the
+    single replay's release order), counters zeroed just before and read
+    just after: it must place ``want`` [S, P] (the chunk route's
+    assignments). Returns (its launches, its wall)."""
     K.reset_launch_counts()
-    _, wall, a, _, _ = eng._run(series=series, route="slot")
+    _, wall, a, _, _ = eng._run(series=series, route="slot", joint=joint)
     launches = K.launch_counts()
     if launches["chunk_replay"] or any(launches[k] <= 0 for k in SOURCES_PLAIN):
         raise AssertionError(f"{where}: the per-slot route launched {launches}")
@@ -709,20 +767,6 @@ def slot_route(where, eng, want, series=False):
         raise AssertionError(f"{where}: the chunk route != the per-slot route at (scenario, "
                              f"pod) {bad[:5].tolist()}")
     return launches, wall
-
-
-def check_slot_route_launches(where, launches):
-    """A per-slot run with the retry buffer (series, timeline): every kernel
-    but those of NOT_SLOT_ROUTE launched, and none of those; K3's binds and
-    releases launched (rollbacks only where a wave holds a gang), its modes
-    summing to its count."""
-    for k, n in launches.items():
-        if k != "apply_placements_rollback" and (n <= 0) != (k in NOT_SLOT_ROUTE):
-            raise AssertionError(f"{where} launched {k} {n} times")
-    if sum(launches[f"apply_placements_{m}"] for m in ("bind", "rollback", "release")) != \
-            launches["apply_placements"]:
-        raise AssertionError(f"{where}: K3's launches by mode do not sum to its count: "
-                             f"{launches}")
 
 
 def bound(nbytes, nops):
@@ -2358,13 +2402,14 @@ def check_reduced_retry(results, dev="cuda"):
     nodes, pods = 40, 2000
     cfg, ec, ep = config7_case(nodes=nodes, pods=pods)
     kw = dict(wave_width=cfg.wave_width, chunk_waves=32, retry_buffer=64)
-    runs, walls = [], []
+    runs, walls, engs = [], [], []
     for o in (dict(device=dev), dict(device=dev, plain=True), dict(device="cpu")):
         t0 = time.perf_counter()
         eng = TorchReplayEngine(ec, ep, cfg.framework, telemetry="timeline", **kw, **o)
         r = eng.replay()
         walls.append(time.perf_counter() - t0)
         runs.append((r, retry_records(eng.last_tables)))
+        engs.append(eng)
     (kern, rec), others = runs[0], runs[1:]
     for name, (other, orec) in zip(("plain on the card", "plain on the cpu"), others):
         diff = np.nonzero(kern.assignments != other.assignments)[0]
@@ -2377,15 +2422,20 @@ def check_reduced_retry(results, dev="cuda"):
             raise AssertionError(f"reduced retry replay: telemetry != {name}")
     if sum(kern.telemetry.rejection_attempts.values()) <= sum(kern.telemetry.reasons.values()):
         raise AssertionError("reduced retry replay: no retry-pass attempt was attributed")
-    # timeline runs on the per-slot route; the same replay at summary on K6
+    # timeline runs on the chunk route (K6, K5's folds and retry pass between
+    # launches); the same replay on the per-slot route and at summary on K6
+    slot_route("reduced retry replay (timeline)", engs[0], kern.assignments[None], series=True,
+               joint=True)
+    same_records("reduced retry replay, per-slot route", rec,
+                 retry_records(engs[0].last_tables))
     chunk_eng = TorchReplayEngine(ec, ep, cfg.framework, device=dev, **kw)
     chunk = chunk_eng.replay()
-    if chunk.route != "chunk" or runs[0][0].route != "slot":
+    if chunk.route != "chunk" or runs[0][0].route != "chunk":
         raise AssertionError(f"reduced retry replay routes {chunk.route}, {runs[0][0].route}")
     if (not np.array_equal(chunk.assignments, kern.assignments)
             or (chunk.placed, chunk.retry_dropped) != (kern.placed, kern.retry_dropped)):
-        raise AssertionError("reduced retry replay: the chunk route != the per-slot route")
-    same_records("reduced retry replay, chunk route", rec, retry_records(chunk_eng.last_tables))
+        raise AssertionError("reduced retry replay: summary != timeline")
+    same_records("reduced retry replay, summary", rec, retry_records(chunk_eng.last_tables))
     off_replay = TorchReplayEngine(ec, ep, cfg.framework, wave_width=cfg.wave_width,
                                    chunk_waves=32, device=dev).replay().placed
     if kern.retry_dropped <= 0 or (rec["rnode"] >= 0).sum() == 0 or off_replay == kern.placed:
@@ -2949,12 +2999,16 @@ def check_reduced_series(results, dev="cuda"):
         for o in (dict(device=dev), dict(device=dev, plain=True), dict(device="cpu")):
             K.reset_launch_counts()
             t0 = time.perf_counter()
-            r = TorchReplayEngine(ec, ep, cfg.framework, wave_width=8, **kw, **o).replay()
+            e = TorchReplayEngine(ec, ep, cfg.framework, wave_width=8, **kw, **o)
+            r = e.replay()
             walls.append(time.perf_counter() - t0)
             runs.append((r, K.launch_counts()))
+            if len(runs) == 1:
+                eng_k = e  # the kernel path's engine
         (kern, launches), others = runs[0], runs[1:]
-        if launches["first_reject"] <= 0:
-            raise AssertionError(f"reduced series {name}: K5 was not launched")
+        if kern.route != "chunk" or launches["first_reject"] or not launches["chunk_replay"]:
+            raise AssertionError(f"reduced series {name}: route {kern.route}, launches "
+                                 f"{launches}: the plain path attributes inside K6")
         for other_name, (other, _) in zip(("plain on the card", "plain on the cpu"), others):
             if (not np.array_equal(kern.assignments, other.assignments)
                     or series_digest(kern.telemetry) != series_digest(other.telemetry)
@@ -2963,6 +3017,10 @@ def check_reduced_series(results, dev="cuda"):
         tel = kern.telemetry
         if sum(tel.rejection_attempts.values()) == 0:
             raise AssertionError(f"reduced series {name} is vacuous: nothing attributed")
+        slot_launches, _ = slot_route(f"reduced series {name}", eng_k, kern.assignments[None],
+                                      series=True, joint=True)
+        if slot_launches["first_reject"] <= 0:
+            raise AssertionError(f"reduced series {name}: the per-slot route launched no K5")
         out[name] = dict(nodes=ec.num_nodes, pods=ep.num_pods, placed=kern.placed,
                          reasons=tel.reasons, attempts=tel.rejection_attempts,
                          samples=len(tel.series["t"]), events=len(tel.events),
@@ -3050,22 +3108,159 @@ def time_first_reject(tb, pods, gate, iters=200, plain_iters=10, wrapper=None):
                 launch_interval_ms=interval, plain_ms=plain_ms)
 
 
+def force_k6_ranks(b, C):
+    """K6's geometry on Bound ``b`` (S = 1) with C ranks a cluster, whatever
+    the card's SM count would choose (ops/kernels.py cluster_plan): spans of
+    a multiple of 32 nodes, the last rank short. Returns the C it took."""
+    N = b.tables.state.used.shape[1]
+    span = -(-(-(-N // C)) // 32) * 32
+    C = -(-N // span)
+    b._plans["chunk_replay"] = K.ClusterPlan(S=1, N=N, NP=1, C=C, threads=K.SELECT_THREADS,
+                                             span=span, grid=C)
+    return C
+
+
+def series_chunk_launches(where, res, launches, attributed, plan):
+    """A series run on the plain path (counters zeroed just before it): the
+    chunk route, one attributed K6 a chunk (``attributed``, the run's
+    K.chunk_replay.attributed), K3 at each release and nowhere else, none
+    of K1, K2, K4 or K5."""
+    check_chunk_launches(where, launches, plan)
+    bad = {k: launches[k] for k in ("first_reject", "first_reject_fold", "retry_boundary",
+                                    "apply_placements_bind", "apply_placements_rollback")
+           if launches[k]}
+    if res.route != "chunk" or bad or attributed != len(plan.buckets):
+        raise AssertionError(f"{where}: route {res.route}, {attributed} attributed K6 launches "
+                             f"for {len(plan.buckets)} chunks, launches {launches}")
+
+
+def series_retry_launches(where, res, launches, attributed, plan):
+    """A series run on the retry path: the chunk route (one K6 a chunk, none
+    attributed), the retry pass's K1, K2, K3, K4 and K5, K5's chunk folds."""
+    check_chunk_launches(where, launches, plan, retry=True)
+    if (res.route != "chunk" or attributed or launches["first_reject"] <= 0
+            or launches["first_reject_fold"] <= 0):
+        raise AssertionError(f"{where}: route {res.route}, {attributed} attributed K6 "
+                             f"launches, launches {launches}")
+
+
+def hold_k6_attributed(where, eng, first, end, dev, assignments, C=None):
+    """K6's attributed mode against its twin and the per-slot kernels over
+    waves [first, end) of one chunk (past its start: no boundary work in the
+    window) of ``eng``'s series run on the plain path (S = 1): the state
+    after waves [0, first) on the chunk route, copied three ways; then the
+    window as one attributed K6 launch (its plan's ranks, or ``C`` forced),
+    on the twin ``ref.chunk_replay(reject=)`` and on the per-slot kernels
+    (K1 -> K2 -> K5 -> K3 a slot, K3's rollback after a gang wave):
+    choices, every plane and the reject counters equal after. Then the
+    launch timed (:func:`launch_ms`, the state restored before each of 20
+    launches) in turns with the summary build over the same window
+    (attributed, summary, summary, attributed), beside the twin's
+    wall and the window's least time, ``Work.k6`` plus ``Work.k5`` over its
+    failed slots (``assignments`` [S, P] of the full run for the binds)."""
+    from kubernetes_simulator_tpu_torch.sim.torch_runtime import new_series
+
+    plan = eng.plan
+    if first % plan.C == 0 or first // plan.C != (end - 1) // plan.C or end <= first:
+        raise AssertionError(f"{where}: waves [{first}, {end}) are not inside one chunk, "
+                             "past its start")
+    desc = plan.device_desc(dev)
+    tb_k = eng._tables(attribute=True)
+    ser_k = new_series(plan, tb_k, True)
+    ch_k = new_choices(plan, eng.S, eng.pods.bound_node, dev)
+    run_waves(plan, tb_k, ch_k, 0, first, plain=False, ser=ser_k, route="chunk")
+    torch.cuda.synchronize()
+    tb_t, ch_t = clone_tables(tb_k), ch_k.clone()
+    tb_s, ch_s, ser_s = clone_tables(tb_k), ch_k.clone(), clone_series(ser_k)
+    snap = {name: x.clone() for name, x in _planes(tb_k).items()}
+    rj_snap = [x.clone() for x in tb_k.reject]
+    ch_snap = ch_k.clone()
+    b = K.Bound(tb_k)
+    if C is not None:
+        force_k6_ranks(b, C)
+    K.chunk_replay(b, desc.idx, desc.gang, ch_k, first, end, reject=tb_k.reject)
+    t0 = time.perf_counter()
+    ref.chunk_replay(tb_t, desc.idx, desc.gang, ch_t, first, end, reject=tb_t.reject)
+    torch.cuda.synchronize()
+    twin_s = time.perf_counter() - t0
+    K.reset_launch_counts()
+    run_waves(plan, tb_s, ch_s, first, end, plain=False, ser=ser_s, route="slot")
+    k5 = K.launch_counts()["first_reject"]
+    k6_plan = plan_of(K.chunk_replay)
+    for other, tb_o, ch_o in (("its twin", tb_t, ch_t), ("the per-slot kernels", tb_s, ch_s)):
+        same_planes(f"{where}: attributed K6 vs {other}", tb_k, ch_k, tb_o, ch_o)
+        for f, x, y in zip(tb_k.reject._fields, tb_k.reject, tb_o.reject):
+            if not torch.equal(x, y):
+                raise AssertionError(f"{where}: attributed K6 vs {other}: reject.{f} differs")
+    newly = (tb_k.reject.attributed[0] != rj_snap[2][0]).cpu().numpy()
+    failed = np.nonzero(newly)[0]
+    if not failed.size or not k5:
+        raise AssertionError(f"{where}: the window charged nothing ({k5} K5 launches)")
+
+    def restore():
+        for name, x in _planes(tb_k).items():
+            x.copy_(snap[name])
+        for x, y in zip(tb_k.reject, rj_snap):
+            x.copy_(y)
+        ch_k.copy_(ch_snap)
+
+    def launch(reject):
+        return lambda: launch_ms(
+            lambda: K.chunk_replay(b, desc.idx, desc.gang, ch_k, first, end, reject=reject),
+            restore, 20)
+
+    attr, summ = launch(tb_k.reject), launch(None)
+    turns = [attr(), summ(), summ(), attr()]
+    ms, summary_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+    window = plan.idx[first:end]
+    slots = int((window >= 0).sum())
+    w = Work(eng.pods, tb_k)
+    nb6, no6 = w.k6(window, plan.gang_wave[first:end], assignments, first)
+    nb5, no5 = w.k5(failed[None], np.ones((1, failed.size), bool))
+    bound_ms, bound_by = bound(nb6 + nb5, no6 + no5)
+    out = dict(waves=[first, end], slots=slots, failed=int(failed.size), k5_launches=k5,
+               cluster=k6_plan, ms=ms, summary_ms=summary_ms, turns_ms=turns,
+               us_per_slot=ms * 1e3 / slots, summary_us_per_slot=summary_ms * 1e3 / slots,
+               extra_us_per_failed_slot=(ms - summary_ms) * 1e3 / failed.size,
+               plain_ms=twin_s * 1e3, bound_ms=bound_ms, bound_by=bound_by, max_abs_err=0.0)
+    print(f"{where}: attributed K6 == its twin == the per-slot kernels (K1 -> K2 -> K5 -> K3) "
+          f"over waves {first}..{end} ({slots} slots, {failed.size} charged; cluster "
+          f"{json.dumps(k6_plan)}), choices, every plane and the reject counters; a launch "
+          f"{ms * 1e3:.1f} us ({out['us_per_slot']:.2f} us a slot) vs the summary build "
+          f"{summary_ms * 1e3:.1f} us ({out['summary_us_per_slot']:.2f}), turns "
+          f"{[round(t * 1e3, 1) for t in turns]} us; "
+          f"+{out['extra_us_per_failed_slot']:.2f} us a charged slot; bound "
+          f"{bound_ms * 1e3:.3f} us by {bound_by}; twin {twin_s * 1e3:.1f} ms", flush=True)
+    return out
+
+
 def run_series_paths(results, dev):
     """Series telemetry at full width (the slice's main path), each run
     with the counters zeroed just before and read just after:
     (a) CONFIG6's trace with devicePreemption off at ``series`` (500 nodes
-    x 26,000 pods, contended, the plain path: K5 after every slot's K2),
-    against REJECT_PINS, sum(reasons) = nodes x unschedulable and attempts
-    = reasons; (b) CONFIG7 as shipped through the port's CLI ``run`` with
-    ``telemetry: series`` and ``timelineOut`` (the retry path), the row,
-    the events and the Chrome trace against REJECT_PINS; (c) the 150-node
-    cut at ``timeline`` against REJECT_PINS. The walls of (a) and (b) at
-    ``series`` against ``summary`` in turns, and each one's busy share.
-    CONFIG6 as shipped (tier preemption) at ``series`` logs the
-    reference's note and places as PREEMPT_PINS. K5 held against its twin
-    launch by launch in a window of (a) at S = 1, at a chunk fold and the
-    retry pass of (c) at S = 1 and of CONFIG7's 40-node cut at S = 4, and
-    timed per launch on the plain path and as a fold."""
+    x 26,000 pods, contended, the plain path: one attributed K6 a chunk,
+    no K1, K2, K3 bind or K5 launch), against REJECT_PINS, sum(reasons) =
+    nodes x unschedulable and attempts = reasons, equal to the per-slot
+    route (K5 after every slot's K2) in assignments and reject counters;
+    (b) CONFIG7 as shipped through the port's CLI ``run`` with ``telemetry:
+    series`` and ``timelineOut`` (the retry path on the chunk route: K5's
+    folds and retry pass between K6 launches), the row, the events and the
+    Chrome trace against REJECT_PINS and the placements against
+    RETRY_PINS; (c) the 150-node cut at ``timeline`` against REJECT_PINS
+    and RETRY_PINS; (d) config13 through the CLI at ``series`` (node shards:
+    K9 with the pager, no attribution, the reference's note) placing as its
+    summary run, and SHARD_CUT at ``series`` against SHARD_PINS. The walls
+    of (a) at ``summary``, ``series`` on the chunk route and ``series`` on
+    the per-slot route in turns, of (b) at ``timeline`` against
+    ``summary``, and busy shares. CONFIG6 as shipped (tier preemption) at
+    ``series`` logs the reference's note and places as PREEMPT_PINS. K6's
+    attributed mode held against its twin and the per-slot kernels in a
+    window of (a) where pods fail, with its plan's ranks (C = 1) and with 4
+    ranks forced, and timed there a slot beside the summary build; K5 held
+    against its twin launch by launch in the same window on the per-slot
+    route, at a chunk fold and the retry pass of (c) at S = 1 and of
+    CONFIG7's 40-node cut at S = 4, and timed per launch on the plain path
+    and as a fold."""
     from kubernetes_simulator_tpu_torch import cli
     import yaml
 
@@ -3079,48 +3274,98 @@ def run_series_paths(results, dev):
     K.reset_launch_counts()
     res = eng.replay()
     launches = K.launch_counts()
-    for k in SOURCES_PLAIN + ("first_reject",):
-        if launches[k] <= 0:
-            raise AssertionError(f"kernel {k} was not launched by config6's series replay")
+    attributed = K.chunk_replay.attributed
+    series_chunk_launches("config6 series", res, launches, attributed, eng.plan)
     tel = res.telemetry
     check_series_pins("config6 series", REJECT_PINS["config6"], tel)
     if (sum(tel.reasons.values()) != ec.num_nodes * res.unschedulable
             or tel.rejection_attempts != tel.reasons):
         raise AssertionError(f"config6 series: reasons {tel.reasons} do not charge {ec.num_nodes}"
                              f" nodes for each of {res.unschedulable} unschedulable pods")
-    walls = {"summary": [], "series": []}
-    for g, e in (("summary", eng_sum), ("series", eng), ("series", eng), ("summary", eng_sum)):
-        walls[g].append(e.replay().wall_clock_s)
-    res_p, busy_s = profiled_busy_s(eng.replay)
+    rj = [x.clone() for x in eng.last_tables.reject]
+    slot_launches_a, _ = slot_route("config6 series, per-slot route", eng, res.assignments[None],
+                                    series=True, joint=True)
+    for f, x, y in zip(eng.last_tables.reject._fields, rj, eng.last_tables.reject):
+        if not torch.equal(x, y):
+            raise AssertionError(f"config6 series: reject.{f} differs on the per-slot route")
+    if slot_launches_a["first_reject"] != int((eng.plan.idx >= 0).sum()):
+        raise AssertionError(f"config6 series, per-slot route: launches {slot_launches_a}")
+    modes = {"summary": lambda: eng_sum._run(joint=True),
+             "series_chunk": lambda: eng._run(series=True, joint=True),
+             "series_slot": lambda: eng._run(series=True, route="slot", joint=True)}
+    walls = {k: [] for k in modes}
+    for k in ("summary", "series_chunk", "series_slot", "series_slot", "series_chunk",
+              "summary"):
+        walls[k].append(modes[k]()[1])
+    by_series, by_summary = {}, {}
+    res_p, busy_s = profiled_busy_s(eng.replay, by_series)
+    res_sp, busy_sum = profiled_busy_s(eng_sum.replay, by_summary)
+    (_, slot_wall_p, _, _, _), busy_slot = profiled_busy_s(modes["series_slot"])
+    ev_series, ev_summary = chunk_events_s(eng, dev, True), chunk_events_s(eng_sum, dev)
+    wall_series = float(np.median(walls["series_chunk"]))
+    wall_summary = float(np.median(walls["summary"]))
     out["config6"] = dict(nodes=ec.num_nodes, pods=ep.num_pods, placed=res.placed,
                           unschedulable=res.unschedulable, reasons=tel.reasons,
-                          samples=len(tel.series["t"]), launches=launches, walls_s=walls,
+                          samples=len(tel.series["t"]), launches=launches,
+                          k6_attributed=attributed, slot_route_launches=slot_launches_a,
+                          walls_s=walls, route=res.route, chunks=len(eng.plan.buckets),
                           profiled_wall_s=res_p.wall_clock_s, device_busy_s=busy_s,
-                          device_busy_share=busy_s / res_p.wall_clock_s if busy_s else None)
+                          device_busy_share=busy_s / res_p.wall_clock_s if busy_s else None,
+                          device_s_by_kernel=by_series, summary_profiled_wall_s=res_sp.wall_clock_s,
+                          chunk_events_device_s=ev_series, chunk_events_busy_share=ev_series
+                          / wall_series, summary_chunk_events_device_s=ev_summary,
+                          summary_chunk_events_busy_share=ev_summary / wall_summary,
+                          summary_device_busy_s=busy_sum, summary_device_s_by_kernel=by_summary,
+                          slot_profiled_wall_s=slot_wall_p, slot_device_busy_s=busy_slot,
+                          slot_device_busy_share=busy_slot / slot_wall_p if busy_slot else None)
     print(f"(a) config6 series ({ec.num_nodes} x {ep.num_pods}, devicePreemption off, route "
           f"{res.route}): placed "
           f"{res.placed}, reasons {json.dumps(tel.reasons)} == {ec.num_nodes} x "
-          f"{res.unschedulable}, attempts == reasons, == REJECT_PINS; launches "
-          f"{json.dumps(launches)}; walls series {[round(w, 3) for w in walls['series']]} s vs "
-          f"summary {[round(w, 3) for w in walls['summary']]} s; profiled busy "
-          f"{busy_s / res_p.wall_clock_s:.1%}", flush=True)
+          f"{res.unschedulable}, attempts == reasons, == REJECT_PINS, == the per-slot route "
+          f"(assignments, reject counters); launches {json.dumps(launches)}, {attributed} "
+          f"attributed K6 for {len(eng.plan.buckets)} chunks; walls in turns: summary "
+          f"{[round(w, 3) for w in walls['summary']]} s, series on K6 "
+          f"{[round(w, 3) for w in walls['series_chunk']]} s, series per slot "
+          f"{[round(w, 3) for w in walls['series_slot']]} s; profiled busy: K6 "
+          f"{busy_s / res_p.wall_clock_s:.1%} of {res_p.wall_clock_s:.3f} s (K6 "
+          f"{k6_device_s(by_series):.4f} s), summary {busy_sum / res_sp.wall_clock_s:.1%} of "
+          f"{res_sp.wall_clock_s:.3f} s (K6 {k6_device_s(by_summary):.4f} s), per slot "
+          f"{busy_slot / slot_wall_p:.1%} of {slot_wall_p:.3f} s; device time by CUDA events "
+          f"chunk by chunk: series {ev_series:.4f} s ({ev_series / wall_series:.1%} of the "
+          f"median wall), summary {ev_summary:.4f} s ({ev_summary / wall_summary:.1%})",
+          flush=True)
     mark("21 (a) config6 series runs")
-    # K5 launch by launch in a window of (a) where pods fail, and timed there.
+    # K6's attributed mode in a window of (a) where pods fail (inside one
+    # chunk, past its start), at its plan's ranks and at 4 ranks; then K5
+    # launch by launch in the same window on the per-slot route, and timed.
     unplaced = np.nonzero(res.assignments < 0)[0]
     flat = eng.plan.idx.reshape(-1)
-    w0 = int(np.nonzero(np.isin(flat, unplaced[:1]))[0][0]) // eng.plan.idx.shape[1]
-    hold_first_reject("K5 at S=1 (config6, plain path)", eng, w0, w0 + 8, dev, results)
+    Cw, Wd = eng.plan.C, eng.plan.idx.shape[1]
+    pos = {int(q): i for i, q in enumerate(flat.tolist()) if q >= 0}
+    w0 = next(pos[int(q)] // Wd for q in unplaced if (pos[int(q)] // Wd) % Cw)
+    lo = max(w0 // Cw * Cw + 1, min(w0, (w0 // Cw + 1) * Cw - 8))
+    hi = min(lo + 8, (w0 // Cw + 1) * Cw)
+    k6a = {f"C={c or 'plan'}": hold_k6_attributed(f"K6 attributed (config6, C {c or 'plan'})",
+                                                  eng, lo, hi, dev, res.assignments[None], C=c)
+           for c in (None, 4)}
+    results["k6_attributed"] = k6a
+    hold_first_reject("K5 at S=1 (config6, plain path)", eng, lo, hi, dev, results)
     p = int(unplaced[-1])
     pods = torch.tensor([p], dtype=torch.int32, device=dev)
     gate = torch.full((1, 1), PAD, dtype=torch.int32, device=dev)
     tb_end = eng.last_tables
     nb, no = Work(ep, tb_end).k5([[p]], [[True]])
     bms, bby = bound(nb, no)
+    m = k6a["C=plan"]
     kernels = {"first_reject": dict(**time_first_reject(tb_end, pods, gate), bound_ms=bms,
-                                    bound_by=bby, library_ms=None, max_abs_err=0.0,
-                                    launches=launches["first_reject"])}
+                                    bound_by=bby, library_ms=None, max_abs_err=0.0),
+               "chunk_replay_attributed": dict(
+                   ms=m["ms"], plain_ms=m["plain_ms"], bound_ms=m["bound_ms"],
+                   bound_by=m["bound_by"], library_ms=None, max_abs_err=0.0,
+                   launches=attributed, cluster=m["cluster"], window_slots=m["slots"],
+                   us_per_slot=m["us_per_slot"], summary_ms=m["summary_ms"])}
     del eng, eng_sum, res_p
-    mark("21 (a) K5 hold, time")
+    mark("21 (a) K6 attributed and K5 holds, time")
     # Config6 as shipped: tier preemption keeps its placements, with the note.
     eng_t = TorchReplayEngine(ec, ep, cfg.framework, telemetry="series", preemption=True, **kw)
     with LogLines() as lines:
@@ -3153,7 +3398,7 @@ def run_series_paths(results, dev):
         raise AssertionError("config7 run through the CLI failed")
     cli_s = time.perf_counter() - t0
     launches7 = K.launch_counts()
-    check_slot_route_launches("config7's CLI run at series", launches7)
+    attributed7 = K.chunk_replay.attributed
     with open(d["output"]) as f:
         row = json.loads(f.read().splitlines()[-1])
     with open(trace) as f:
@@ -3165,8 +3410,12 @@ def run_series_paths(results, dev):
     e7 = {g: TorchReplayEngine(ec7, ep7, cfg7.framework, telemetry=g, **kw7)
           for g in ("summary", "timeline")}
     r7 = e7["timeline"].replay()
+    series_retry_launches("config7's CLI run at series", r7, launches7, attributed7,
+                          e7["timeline"].plan)
     check_series_pins("config7 run (CLI)", REJECT_PINS["config7"], r7.telemetry,
                       dict(trace_sha256=trace_sha))
+    check_retry_pins("config7 run (CLI) at series", RETRY_PINS["config7"], r7.placed,
+                     r7.retry_dropped, r7.assignments)
     if (row["telemetry"]["granularity"] != "timeline" or row["placed"] != r7.placed
             or row["telemetry"]["timeline_events"] != len(r7.telemetry.events)
             or len(doc["traceEvents"]) == 0):
@@ -3184,7 +3433,8 @@ def run_series_paths(results, dev):
     print(f"(b) config7 run through the CLI (series + timelineOut, retryBuffer {rb}, route "
           f"{r7.route}): placed "
           f"{r7.placed}, {len(r7.telemetry.events)} events, trace of {len(doc['traceEvents'])} "
-          f"events parses, == REJECT_PINS (trace sha256 included); CLI {cli_s:.2f} s; launches "
+          f"events parses, == REJECT_PINS (trace sha256 included) and RETRY_PINS; CLI "
+          f"{cli_s:.2f} s; launches "
           f"{json.dumps(launches7)}; walls timeline {[round(w, 3) for w in walls7['timeline']]} s"
           f" vs summary {[round(w, 3) for w in walls7['summary']]} s; profiled busy "
           f"{busy7 / res_p.wall_clock_s:.1%}", flush=True)
@@ -3199,7 +3449,8 @@ def run_series_paths(results, dev):
     K.reset_launch_counts()
     rc = ec_.replay()
     launchesc = K.launch_counts()
-    check_slot_route_launches(f"the {RETRY_CUT_NODES}-node cut at timeline", launchesc)
+    series_retry_launches(f"the {RETRY_CUT_NODES}-node cut at timeline", rc, launchesc,
+                          K.chunk_replay.attributed, ec_.plan)
     check_series_pins(f"{RETRY_CUT_NODES}-node cut at timeline", REJECT_PINS["cut150"],
                       rc.telemetry)
     check_retry_pins(f"{RETRY_CUT_NODES}-node cut at timeline", RETRY_PINS["cut150"], rc.placed,
@@ -3251,13 +3502,95 @@ def run_series_paths(results, dev):
             break
     else:
         raise AssertionError("K5 at S=4: no window near the end of the run charged anything")
+    # K5's row: the retry path's per-slot launches in (b), the main run
+    kernels["first_reject"]["launches"] = launches7["first_reject"]
+    mark("21 S=4 K5 holds")
+    out["config13"] = run_series_shards(results, dev)
     results["series"] = out
     results["kernels_series"] = kernels
-    print("K5: " + "; ".join(
+    print("series kernels: " + "; ".join(
         f"{k} {m['ms'] * 1e3:.2f} us (bound {m['bound_ms'] * 1e3:.4f} us, {m['bound_by']}; twin "
         f"{m['plain_ms']:.3f} ms), {m['launches']} launches" for k, m in kernels.items()),
           flush=True)
     return kernels
+
+
+def run_series_shards(results, dev):
+    """(d) Telemetry series under node shards, as the reference runs it
+    (sim/jax_runtime.py:2137-2144: attribution off, the note logged): CONFIG13
+    through the CLI ``run`` with ``telemetry: series``, counters zeroed just
+    before and read just after — the shard route (one K9 a chunk, K8 at each
+    release, the pager), no K5 and no K6, the note logged, no reasons, the
+    assignments equal to the summary run of step e (their sha256); then
+    SHARD_CUT (4 shards, paged) at ``series`` against SHARD_PINS."""
+    import contextlib
+    import io
+
+    import yaml
+
+    from kubernetes_simulator_tpu_torch import cli
+    from kubernetes_simulator_tpu_torch.framework import registry
+    from kubernetes_simulator_tpu_torch.sim.borg import BorgSpec, make_borg_encoded
+
+    outdir = os.path.join(ROOT, "chiprun_out")
+    os.makedirs(outdir, exist_ok=True)
+    with open(os.path.join(ROOT, CONFIG13)) as f:
+        d = yaml.safe_load(f)
+    d["telemetry"] = {"granularity": "series"}
+    path = os.path.join(outdir, "config13_series.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(d, f)
+    factory = registry.get_strategy("torch")
+    made = []
+    registry._STRATEGIES["torch"] = lambda *a, **kw: made.append(factory(*a, **kw)) or made[-1]
+    buf = io.StringIO()
+    K.reset_launch_counts()
+    try:
+        with LogLines() as lines, contextlib.redirect_stdout(buf):
+            rc = cli.main(["run", path, "--device", dev.type])
+    finally:
+        registry._STRATEGIES["torch"] = factory
+    launches = K.launch_counts()
+    if rc != 0 or len(made) != 1:
+        raise AssertionError(f"config13 at series: the CLI returned {rc}")
+    eng = made[0]
+    row = json.loads([x for x in buf.getvalue().splitlines() if x.startswith("{")][-1])
+    shard_route_launches("config13 at series", launches, eng.plan)
+    if (launches["first_reject"] or launches["first_reject_fold"] or eng.last_route != "shard"
+            or eng.last_pager is None):
+        raise AssertionError(f"config13 at series: route {eng.last_route}, pager "
+                             f"{eng.last_pager}, launches {launches}")
+    if not any("rejection attribution is disabled under node sharding" in m
+               for m in lines.lines):
+        raise AssertionError("config13 at series: the reference's note was not logged")
+    a, placed, _ = assignments_from_choices(eng.plan, eng.last_choices, eng.pods.bound_node)
+    sha = assignments_sha256(a[0])
+    tel = row["telemetry"]
+    if (tel["granularity"] != "series" or tel.get("reasons")
+            or sha != results["config13"]["assignments_sha256"]
+            or row["placed"] != results["config13"]["placed"]):
+        raise AssertionError(f"config13 at series: row {row}, sha256 {sha} (summary: "
+                             f"{results['config13']['assignments_sha256']})")
+    sc = SHARD_CUT
+    ec, ep, _ = make_borg_encoded(BorgSpec(nodes=sc["nodes"], tasks=sc["tasks"], seed=SEED))
+    cut = TorchReplayEngine(ec, ep, FrameworkConfig(), chunk_waves=sc["chunk_waves"],
+                            node_shards=sc["node_shards"], paged=True, device=dev,
+                            telemetry="series").replay()
+    got = dict(placed=cut.placed, unschedulable=cut.unschedulable,
+               sha256=assignments_sha256(cut.assignments))
+    if got != SHARD_PINS or cut.route != "shard" or cut.telemetry.reasons:
+        raise AssertionError(f"shard cut at series: {got} (route {cut.route}) != SHARD_PINS")
+    out = dict(route=eng.last_route, placed=row["placed"], wall_s=row["wall_clock_s"],
+               summary_wall_s=results["config13"]["wall_s"], launches=launches,
+               pager_stalls=eng.last_pager.stalls, assignments_sha256=sha,
+               shard_cut=dict(**got, wall_s=cut.wall_clock_s))
+    print(f"(d) config13 at series through the CLI (route {eng.last_route}: one K9 a chunk, K8 "
+          f"at {launches['shard_apply_release']} releases, pager {eng.last_pager.stalls} "
+          f"stalls; no K5): the reference's note logged, no reasons, placed {row['placed']}, "
+          f"assignments == the summary run's; wall {row['wall_clock_s']:.3f} s (summary "
+          f"{results['config13']['wall_s']:.3f} s); the shard cut at series == SHARD_PINS",
+          flush=True)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -4505,6 +4838,7 @@ def run_config13(results, dev):
         k9_holds[P] = hold_k9(f"config13 P={P}", he, dev, SEED + P, rec["waves"])
     mark("e config13 holds, times")
     results["config13"] = dict(
+        assignments_sha256=assignments_sha256(a_sh[0]),
         nodes=ec.num_nodes, tasks=ep.num_pods, node_shards=eng.layout.P,
         n_local=eng.layout.n_local, chunk_waves=plan.C, chunks=len(plan.buckets),
         slots=slots, gang_waves=gang_waves, releases=releases, route=eng.last_route,
@@ -4564,6 +4898,10 @@ def main() -> int:
           f"({time.perf_counter() - t0:.2f}s with loading)", flush=True)
     results["k9_attrs"] = K.shard_chunk_replay_attrs()
     print(f"K9 shard_chunk_replay (cudaFuncGetAttributes): {json.dumps(results['k9_attrs'])}",
+          flush=True)
+    results["k6_attrs"] = {m: K.chunk_replay_attrs(m == "attributed")
+                           for m in ("summary", "attributed")}
+    print(f"K6 chunk_replay (cudaFuncGetAttributes): {json.dumps(results['k6_attrs'])}",
           flush=True)
 
     t0 = time.perf_counter()
@@ -4764,7 +5102,7 @@ def main() -> int:
     check_reduced_series(results, dev)
     mark("20 reduced series")
     skernels = run_series_paths(results, dev)
-    mark("21 S=4 K5 holds")
+    mark("21 (d) config13 at series")
     # P1-P3: per-scenario policy rows (row B1w) and the policy tuner.
     polkernels, pollaunches, polslot = run_policy_paths(results, *headline_case, dev)
     check_policy_cut(results, dev)
@@ -4840,11 +5178,14 @@ def main() -> int:
             "library_ms": m["library_ms"],
         })
     for k, m in skernels.items():
+        kernel, replaces = SERIES_SOURCES[k]
         table.append({
-            "name": k, "route": "cuda", "source": SOURCES["first_reject"][0],
-            "replaces": SERIES_SOURCES[k], "launches": m["launches"],
+            "name": k, "route": "cuda", "source": SOURCES[kernel][0],
+            "replaces": replaces, "launches": m["launches"],
             "max_abs_err": m["max_abs_err"], "ms": m["ms"], "plain_ms": m["plain_ms"],
             "bound_ms": m["bound_ms"], "bound_by": m["bound_by"], "library_ms": m["library_ms"],
+            **{x: m[x] for x in ("cluster", "window_slots", "us_per_slot", "summary_ms")
+               if x in m},
         })
     for k, (kernel, replaces) in POLICY_SOURCES.items():
         m = polkernels[kernel]

@@ -31,7 +31,9 @@
 //
 // The Filter chain is ksim.cuh's ksim_eval_node (without the score rows),
 // K1's own code, with K1's block prologue (bootstrap totals and spread
-// minima in shared memory): K1 and K5 cannot disagree on a node.
+// minima in shared memory): K1 and K5 cannot disagree on a node. The count
+// body and the charge are ksim.cuh's ksim_reject_count_body and
+// ksim_reject_charge, which K6's attributed mode (chunk_replay.cu) runs too.
 //
 // Bound on an H100: bytes — the same reads as K1's mask (used + alloc and
 // the taint / label / domain rows of the pod, per node) and [K] i32 counts
@@ -46,7 +48,6 @@ __global__ void __launch_bounds__(KSIM_REJECT_THREADS) ksim_first_reject_kernel(
     KsimArgs a, const int32_t* pods, int64_t pod_ss, const int32_t* gate, int64_t gate_ss,
     int32_t* reasons, int32_t* attempts, uint8_t* attributed, int K, int64_t attr_ss) {
   __shared__ KsimTerms terms;
-  __shared__ int s_cnt[KSIM_REJECT_THREADS / 32][KSIM_PLUGINS + 1];
 
   const int m = blockIdx.x;
   const int64_t scen = blockIdx.y;
@@ -61,45 +62,12 @@ __global__ void __launch_bounds__(KSIM_REJECT_THREADS) ksim_first_reject_kernel(
   ksim_filter_prologue(a, p, match_count, lab, &terms);
   __syncthreads();
 
-  // cnt[k]: nodes plugin k rejects first; cnt[KSIM_PLUGINS]: nodes none rejects
-  int cnt[KSIM_PLUGINS + 1];
-#pragma unroll
-  for (int k = 0; k <= KSIM_PLUGINS; ++k) cnt[k] = 0;
-  for (int n = threadIdx.x; n < a.N; n += blockDim.x) {
-    const KsimNodeEval e = ksim_eval_node<false>(a, p, scen, n, lab, used_s, match_count,
-                                                 anti_active, pref_wsum, &terms);
-    const int first = e.pass == KSIM_PASS_ALL ? KSIM_PLUGINS : __ffs(~e.pass) - 1;
-#pragma unroll
-    for (int k = 0; k <= KSIM_PLUGINS; ++k) cnt[k] += first == k ? 1 : 0;
-  }
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int k = 0; k <= KSIM_PLUGINS; ++k) {
-    int v = cnt[k];
-    for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-    if (lane == 0) s_cnt[warp][k] = v;
-  }
-  __syncthreads();
-  if (threadIdx.x != 0) return;
-  int tot[KSIM_PLUGINS + 1];
-#pragma unroll
-  for (int k = 0; k <= KSIM_PLUGINS; ++k) {
-    tot[k] = 0;
-    for (int w = 0; w < (int)(blockDim.x >> 5); ++w) tot[k] += s_cnt[w][k];
-  }
-  if (tot[KSIM_PLUGINS] > 0) return;  // a node admits the pod: nothing is charged
-  uint8_t* attr = attributed + scen * attr_ss + p;
-  const bool first_episode = *attr == 0;
-  if (first_episode) *attr = 1;  // one block per (slot, scenario) holds pod p
-  int idx = 0;  // the plugin's position among the plugins that are on
-  for (int k = 0; k < KSIM_PLUGINS; ++k) {
-    if (!ksim_plugin_on(a, k)) continue;
-    if (idx < K && tot[k]) {
-      atomicAdd(attempts + scen * K + idx, tot[k]);
-      if (first_episode) atomicAdd(reasons + scen * K + idx, tot[k]);
-    }
-    ++idx;
-  }
+  int tot[KSIM_PLUGINS + 1];  // thread 0's
+  ksim_reject_count_body(a, p, scen, 0, a.N, lab, used_s, match_count, anti_active, pref_wsum,
+                         &terms, tot);
+  // one block per (slot, scenario) holds pod p
+  if (threadIdx.x == 0)
+    ksim_reject_charge(a, tot, scen, p, reasons, attempts, attributed, K, attr_ss);
 }
 
 KSIM_EXPORT int ksim_first_reject(const KsimArgs* args, const int32_t* pods, long long pod_ss,

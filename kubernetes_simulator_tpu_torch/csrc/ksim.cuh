@@ -182,8 +182,12 @@ struct KsimArgs {
 
 #define KSIM_EXPORT extern "C" __attribute__((visibility("default")))
 
-// Layout check for the ctypes mirror (every library exports it).
+// Layout check for the ctypes mirror (every library exports it, from its
+// first translation unit: a second one of the same library, such as
+// chunk_replay_attributed.cu, defines KSIM_SECOND_TU).
+#ifndef KSIM_SECOND_TU
 KSIM_EXPORT int ksim_args_size() { return (int)sizeof(KsimArgs); }
+#endif
 
 // Blocks of `threads` threads of the cooperative `kernel` that the current
 // device holds at once (K8's grid barrier needs every block resident), or a
@@ -636,6 +640,80 @@ __device__ __forceinline__ void ksim_filter_score_body(const KsimArgs& a, int p,
   ksim_filter_score_node(a, p, scen, n, terms);
 }
 
+// ---------------------------------------------------------------------------
+// First-reject attribution: K5's count body and charge, which K6's attributed
+// mode runs too, so the two count alike (ops/tpu.py:816 first_reject_counts
+// over eval_pod(want_masks=True), sim/jax_runtime.py:270; the episode rule of
+// sim/telemetry.py:338-404).
+// ---------------------------------------------------------------------------
+
+// Pod p's first-reject counts over the nodes [lo, hi) of scenario scen at the
+// state planes given, a node a thread from lo: tot[k] the nodes Filter plugin
+// k (in the reference's order) rejects first, tot[KSIM_PLUGINS] the nodes no
+// plugin rejects. The Filter chain is K1's (ksim_eval_node without the score
+// rows) from the block's term tables `terms` at the same planes. Counts are
+// summed in registers, warp shuffles and shared memory (integers: any order
+// is exact); tot is valid in thread 0 on return. A caller that runs the body
+// again synchronises the block before it.
+__device__ __forceinline__ void ksim_reject_count_body(
+    const KsimArgs& a, int p, int64_t scen, int lo, int hi, const KsimLabels& lab,
+    const float* used_s, const float* match_count, const float* anti_active,
+    const float* pref_wsum, const KsimTerms* terms, int* tot) {
+  __shared__ int s_cnt[KSIM_MAX_WARPS][KSIM_PLUGINS + 1];
+  int cnt[KSIM_PLUGINS + 1];
+#pragma unroll
+  for (int k = 0; k <= KSIM_PLUGINS; ++k) cnt[k] = 0;
+  for (int n = lo + threadIdx.x; n < hi; n += blockDim.x) {
+    const KsimNodeEval e = ksim_eval_node<false>(a, p, scen, n, lab, used_s, match_count,
+                                                 anti_active, pref_wsum, terms);
+    const int first = e.pass == KSIM_PASS_ALL ? KSIM_PLUGINS : __ffs(~e.pass) - 1;
+#pragma unroll
+    for (int k = 0; k <= KSIM_PLUGINS; ++k) cnt[k] += first == k ? 1 : 0;
+  }
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int k = 0; k <= KSIM_PLUGINS; ++k) {
+    int v = cnt[k];
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+    if (lane == 0) s_cnt[warp][k] = v;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int k = 0; k <= KSIM_PLUGINS; ++k) {
+      tot[k] = 0;
+      for (int w = 0; w < (int)(blockDim.x >> 5); ++w) tot[k] += s_cnt[w][k];
+    }
+  }
+}
+
+// The charge of one failed slot of pod p in scenario scen from its counts
+// over every node (ksim_reject_count_body's tot): nothing where a node admits
+// the pod; else the counts of the plugins that are on, in their order, added
+// to the scenario's `attempts` and, on the pod's first charge (its episode
+// mark, never cleared: without kube preemption or chaos an episode ends only
+// with a bind), to its `reasons`. One thread a (slot, scenario); the adds are
+// integer atomics, so callers that charge one scenario from several blocks
+// at once agree with any order.
+__device__ __forceinline__ void ksim_reject_charge(const KsimArgs& a, const int* tot,
+                                                   int64_t scen, int p, int32_t* reasons,
+                                                   int32_t* attempts, uint8_t* attributed,
+                                                   int K, int64_t attr_ss) {
+  if (tot[KSIM_PLUGINS] > 0) return;  // a node admits the pod: nothing is charged
+  uint8_t* attr = attributed + scen * attr_ss + p;
+  const bool first_episode = *attr == 0;
+  if (first_episode) *attr = 1;
+  int idx = 0;  // the plugin's position among the plugins that are on
+  for (int k = 0; k < KSIM_PLUGINS; ++k) {
+    if (!ksim_plugin_on(a, k)) continue;
+    if (idx < K && tot[k]) {
+      atomicAdd(attempts + scen * K + idx, tot[k]);
+      if (first_episode) atomicAdd(reasons + scen * K + idx, tot[k]);
+    }
+    ++idx;
+  }
+}
+
 __device__ __forceinline__ void ksim_better(float& bv, int& bi, float v, int i) {
   if (v > bv || (v == bv && i < bi)) {
     bv = v;
@@ -839,6 +917,30 @@ __device__ __forceinline__ void ksim_cluster_fold_pick(float& bv, int& bi, const
   }
 }
 
+// Fold the cluster's first-reject counts (ksim_reject_count_body's tot, in
+// thread 0 of each block) into rank 0's thread 0: each rank's thread 0 writes
+// its counts into slot `rank` of rank 0's slots, then a cluster barrier, which
+// every thread of every block reaches; integer sums, in rank order. Rank 0
+// folds the slots before it reaches the caller's next cluster barrier, after
+// which a rank may write them again.
+__device__ __forceinline__ void ksim_cluster_fold_counts(int* tot) {
+  __shared__ int slots[KSIM_MAX_CLUSTER][KSIM_PLUGINS + 1];
+  cg::cluster_group cl = cg::this_cluster();
+  const int C = (int)cl.num_blocks();
+  if (threadIdx.x == 0) {
+    int* dst = cl.map_shared_rank(slots[cl.block_rank()], 0);
+    for (int k = 0; k <= KSIM_PLUGINS; ++k) dst[k] = tot[k];
+  }
+  cl.sync();
+  if (cl.block_rank() == 0 && threadIdx.x == 0) {
+    for (int k = 0; k <= KSIM_PLUGINS; ++k) {
+      int v = 0;
+      for (int r = 0; r < C; ++r) v += slots[r][k];
+      tot[k] = v;
+    }
+  }
+}
+
 // The row constants of one pod's NormalizeScore from its extrema
 // (ops/tpu.py _normalize_row / spread_norm_from_extrema) and the Score
 // weights of scenario scen.
@@ -933,8 +1035,10 @@ __device__ __forceinline__ float ksim_total(const KsimArgs& a, const KsimNorm& c
 // row and writes the eviction record K3 applies before the bind; every other
 // scenario writes ev_node = -1. Every decision after an exchange (placed or
 // PAD, `fire`) is uniform over the cluster, so every thread of every block
-// reaches every cluster barrier.
-__device__ __forceinline__ void ksim_normalize_select_body(const KsimArgs& a, int p,
+// reaches every cluster barrier. Returns, in every thread, the choice over
+// the feasible nodes (PAD: none is, or p < 0), before any eviction: the gate
+// of first-reject attribution (K6's attributed mode).
+__device__ __forceinline__ int ksim_normalize_select_body(const KsimArgs& a, int p,
                                                            int64_t scen, int* choice,
                                                            int wave, int lo, int hi) {
   __shared__ float red[KSIM_EXT * 32];
@@ -950,7 +1054,7 @@ __device__ __forceinline__ void ksim_normalize_select_body(const KsimArgs& a, in
   const bool lead = cl.block_rank() == 0;
   if (p < 0) {
     if (lead && threadIdx.x == 0) *choice = KSIM_PAD;
-    return;
+    return KSIM_PAD;
   }
   // A block with at most one node a thread (a cluster's rank, as a rule)
   // loads its node's rows once, for both passes.
@@ -1001,7 +1105,7 @@ __device__ __forceinline__ void ksim_normalize_select_body(const KsimArgs& a, in
   __syncthreads();
   if (!a.preempt) {
     if (lead && threadIdx.x == 0) *choice = s_choice;
-    return;
+    return s_choice;
   }
   // Tier preemption (ops/tpu3.py:1542-1575): nothing feasible, the pod may
   // preempt and no preemption fired yet in this wave of this scenario ->
@@ -1038,6 +1142,7 @@ __device__ __forceinline__ void ksim_normalize_select_body(const KsimArgs& a, in
       a.ev_node[scen] = KSIM_PAD;
     }
   }
+  return s_choice;  // written once a call, before the barrier above
 }
 
 // The eviction step of a bind under tier preemption (sim/greedy.py:182-215;

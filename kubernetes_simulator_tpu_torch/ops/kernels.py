@@ -31,7 +31,8 @@ wrapper                       replaces (kubernetes_simulator_tpu/...)
                               (sim/boundary.py:360-398), counted apart
 :func:`chunk_replay` (K6)     sim/jax_runtime.py:742 make_chunk_fn3_src (the
                               chunk program: one launch a chunk), with the
-                              slot gathers ops/tpu.py:285, ops/tpu3.py:633
+                              slot gathers ops/tpu.py:285, ops/tpu3.py:633;
+                              attributed: :443 make_chunk_fn_rej (+ :405)
 :func:`shard_select` (K7)     ops/tpu.py:1316 select_node_sharded and the
                               sharded normalize of eval_pod_fused
                               (:1200-1225, the packed pmax)
@@ -64,8 +65,13 @@ folded through distributed shared memory after a cluster barrier.
 nodes or shards from the shapes and the card's SM count alone; a refused
 launch raises.
 
-K5 runs only at telemetry ``series``/``timeline``: the default ``summary``
-launches K1–K4 as before.
+First-reject attribution runs only at telemetry ``series``/``timeline``:
+on the plain path inside K6 (its attributed mode, ``chunk_replay(reject=)``,
+a second instantiation of the kernel, compiled in
+``csrc/chunk_replay_attributed.cu``, that runs K5's count body from
+``ksim.cuh`` for each failed slot before its bind — sim/jax_runtime.py:443
+make_chunk_fn_rej), on the retry path and the per-slot route as K5; the
+default ``summary`` runs K6's summary instantiation, unchanged.
 
 Under node shards (a Tables with ``shards``, row B13: sim/jax_runtime.py:494
 make_wave_step_sharded, :548 make_chunk_fn_sharded) a slot is K1 over the
@@ -175,8 +181,11 @@ _ARGTYPES = {
     #  stream)
     "first_reject": [_P, _P, _LL, _I, _P, _LL, _P, _P, _P, _I, _LL, _P],
     # (args, idx, gang, choices, choice_ss, W, first, end, boundary, append, C, threads, span,
-    #  stream)
-    "chunk_replay": [_P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    #  reasons, attempts, attributed, K, attr_ss, stream)
+    "chunk_replay": [_P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _I, _LL,
+                     _P],
+    # K6's attributes (chunk_replay.cu): (attributed, regs, shared_bytes, max_threads)
+    "chunk_replay_attrs": [_I, _P, _P, _P],
     # K3's release (apply_placements.cu): (args, pods, pod_ss, pos, choices, K, choice_ss,
     #  due_relb, due_b, P, keys, run, dplane, stream)
     "release": [_P, _P, _LL, _P, _P, _I, _LL, _P, _I, _I, _P, _P, _P, _P],
@@ -200,7 +209,12 @@ RELEASE_TILE = 4096
 RELEASE_MIN_TILE = 1024
 #: Entry points a library exports beside its kernel's ``ksim_<name>``.
 _EXTRA_ENTRIES = {"apply_placements": ("release",),
+                  "chunk_replay": ("chunk_replay_attrs",),
                   "shard_chunk_replay": ("shard_chunk_replay_attrs",)}
+#: Sources a library links beside its kernel's own: K6's attributed
+#: instantiation compiles in a translation unit of its own, so the summary
+#: build's code is what it is without the mode (chunk_replay.cu).
+EXTRA_SOURCES = {"chunk_replay": ("chunk_replay_attributed.cu",)}
 
 
 #: Largest cluster of the selects: the portable size, which every Hopper part
@@ -382,7 +396,8 @@ def _lib_path(src: str) -> Path:
 
 def build(verbose: bool = False) -> float:
     """Compile every kernel source that has no library in ``_build/`` yet
-    (one ``nvcc`` per source, in parallel) and load all of them. Returns
+    (one ``nvcc`` per library — a kernel's source and its
+    :data:`EXTRA_SOURCES` — in parallel) and load all of them. Returns
     the wall seconds spent compiling."""
     global last_build_s
     with _lock:
@@ -398,7 +413,8 @@ def build(verbose: bool = False) -> float:
         procs = []
         for name, (src, out) in todo.items():
             tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(CSRC / src)]
+            cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+                   *(str(CSRC / f) for f in (src, *EXTRA_SOURCES.get(name, ())))]
             if verbose:
                 cmd.insert(1, "-Xptxas=-v")
             procs.append((name, out, tmp, subprocess.Popen(
@@ -932,7 +948,7 @@ def first_reject_fold(b: Bound, pod_ids: torch.Tensor, gate: torch.Tensor) -> No
 
 def chunk_replay(b: Bound, idx: torch.Tensor, gang: torch.Tensor, choices: torch.Tensor,
                  first: int, end: int, boundary: Optional[int] = None,
-                 append: bool = False) -> None:
+                 append: bool = False, reject: Optional[ref.Reject] = None) -> None:
     """K6: waves ``[first, end)`` of one chunk in every scenario, one
     launch: for each slot ``s`` of wave ``w`` whose pod ``idx[s]`` (``idx``
     the plan's ``[num_waves * W]`` i32 slot index on the device) is not PAD,
@@ -941,10 +957,18 @@ def chunk_replay(b: Bound, idx: torch.Tensor, gang: torch.Tensor, choices: torch
     wave whose ``gang`` flag (``[num_waves]`` u8) is set, K3's rollback over
     the wave. ``boundary`` (tier preemption: the chunk's boundary, where a
     bind's eviction releases nothing later) and ``append`` (the retry
-    buffer's failure append) are K3's bind options."""
+    buffer's failure append) are K3's bind options. ``reject`` (first-reject
+    counters as K5 takes them, :func:`check_reject`; not with tier
+    preemption) runs K6's attributed mode: a slot whose K2 choice is PAD is
+    charged as K5 charges it, before its bind. Each launch counts in
+    ``launches``, an attributed one also in ``attributed``."""
     _no_shards(b, "chunk_replay")
+    if reject is not None:
+        if b.tables.preempt is not None:
+            raise ValueError("K6's attributed mode runs without tier preemption")
+        check_reject(b.tables._replace(reject=reject))
     if not b.cuda:
-        ref.chunk_replay(b.tables, idx, gang, choices, first, end, boundary, append)
+        ref.chunk_replay(b.tables, idx, gang, choices, first, end, boundary, append, reject)
         return
     _check_choices(b, choices)
     W = _check_chunk_desc(b, idx, gang, choices, first, end)
@@ -955,11 +979,27 @@ def chunk_replay(b: Bound, idx: torch.Tensor, gang: torch.Tensor, choices: torch
     if end == first:
         return
     plan = chunk_replay.plan = b.plan("chunk_replay")
+    rj = (reject.reasons.data_ptr(), reject.attempts.data_ptr(), reject.attributed.data_ptr(),
+          reject.reasons.shape[1], reject.attributed.shape[1]) if reject is not None else (
+          None, None, None, 0, 0)
     _check(_libs["chunk_replay"](
         b._args_ptr, idx.data_ptr(), gang.data_ptr(), choices.data_ptr(), choices.shape[1],
         int(W), int(first), int(end), -1 if boundary is None else int(boundary),
-        int(bool(append)), plan.C, plan.threads, plan.span, _stream()), "chunk_replay")
+        int(bool(append)), plan.C, plan.threads, plan.span, *rj, _stream()), "chunk_replay")
     chunk_replay.launches += 1
+    if reject is not None:
+        chunk_replay.attributed += 1
+
+
+def chunk_replay_attrs(attributed: bool = False) -> Dict[str, int]:
+    """K6's registers a thread, static shared bytes and largest block on the
+    current card (cudaFuncGetAttributes) in the summary build or, with
+    ``attributed``, the attributed mode's, after :func:`build`."""
+    build()
+    out = [ctypes.c_int() for _ in range(3)]
+    _check(_libs["chunk_replay_attrs"](int(bool(attributed)),
+                                       *(ctypes.addressof(x) for x in out)), "chunk_replay")
+    return dict(zip(("regs", "shared_bytes", "max_threads"), (x.value for x in out)))
 
 
 def _check_shards(b: Bound, choices: torch.Tensor) -> None:
@@ -1099,12 +1139,14 @@ def reset_launch_counts() -> None:
         w.launches = 0
     for w in MODE_WRAPPERS:
         w.modes = dict(bind=0, rollback=0, release=0)
+    chunk_replay.attributed = 0
 
 
 def launch_counts() -> Dict[str, int]:
     """Launches by wrapper, and K3's and K8's by mode
     (``apply_placements_bind``, ``_rollback``, ``_release``, the same for
-    ``shard_apply``; each wrapper's sum to its count)."""
+    ``shard_apply``; each wrapper's sum to its count). K6's attributed
+    launches, also in ``chunk_replay``, are ``chunk_replay.attributed``."""
     out = {w.__name__: w.launches for w in WRAPPERS}
     for w in MODE_WRAPPERS:
         out.update({f"{w.__name__}_{k}": n for k, n in w.modes.items()})

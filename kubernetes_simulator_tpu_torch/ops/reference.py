@@ -1212,14 +1212,17 @@ def apply_placements(
 
 def chunk_replay(tb: Tables, idx: torch.Tensor, gang: torch.Tensor, choices: torch.Tensor,
                  first: int, end: int, boundary: Optional[int] = None,
-                 append: bool = False) -> None:
+                 append: bool = False, reject: Optional[Reject] = None) -> None:
     """Plain twin of K6 (csrc/chunk_replay.cu): waves ``[first, end)`` of the
     device slot index ``idx [num_waves * W]`` with gang flags ``gang
     [num_waves]``, in K6's order — for each non-PAD slot ``s`` of wave ``w``,
     :func:`filter_score`, :func:`normalize_select` (into ``choices[:, s]``,
-    wave ``w``) and the bind of :func:`apply_placements` (with ``boundary``
-    and ``append``), and after the last such slot of a gang wave the
-    rollback over the wave's W columns."""
+    wave ``w``), with ``reject`` (K6's attributed mode) :func:`first_reject`
+    of the slot into those counters, and the bind of
+    :func:`apply_placements` (with ``boundary`` and ``append``), and after
+    the last such slot of a gang wave the rollback over the wave's W
+    columns."""
+    rtb = tb._replace(reject=reject) if reject is not None else None
     W = idx.numel() // gang.numel()
     rows = idx[first * W : end * W].tolist()
     flags = gang.tolist()
@@ -1232,6 +1235,8 @@ def chunk_replay(tb: Tables, idx: torch.Tensor, gang: torch.Tensor, choices: tor
                 continue
             filter_score(tb, p)
             normalize_select(tb, p, choices, s, w)
+            if rtb is not None:
+                first_reject(rtb, idx[s : s + 1], choices[:, s : s + 1])
             apply_placements(tb, idx[s : s + 1], pos[s : s + 1], choices, 1.0,
                              boundary=boundary, append=append)
         if flags[w]:

@@ -28,11 +28,16 @@ Four routes run a chunk's waves, chosen from the run's mode alone
   every slot's K1 → K2 → K3 and each gang wave's rollback on the card,
   reading the pods from the plan's device descriptor (:class:`ChunkDesc`,
   uploaded once a run) — the counterpart of the reference's one dispatch a
-  chunk (``make_chunk_fn3_src``);
+  chunk (``make_chunk_fn3_src``). Telemetry ``series``/``timeline`` takes it
+  too: on the plain path K6's attributed mode charges each failed slot as
+  K5 would, before its bind (the reference's ``make_chunk_fn_rej``, one
+  dispatch a chunk); on the retry path K5 folds each chunk and runs in the
+  retry pass between K6 launches;
 - ``"slot"``: per slot the host enqueues K1 (filter_score) → K2
-  (normalize_select) → K3 (apply_placements, bind) and a K3 rollback after a
-  wave holding gang members. Telemetry ``series``/``timeline`` (K5 after a
-  slot's K2) and the plain twins (``plain=True``) take it;
+  (normalize_select) → (K5 at series on the plain path) → K3
+  (apply_placements, bind) and a K3 rollback after a wave holding gang
+  members. The plain twins (``plain=True``) take it, and ``_run(route=
+  "slot")`` holds the chunk route against it;
 - ``"shard"`` (node-plane shards, ``node_shards > 1``; row B13, the
   reference's node-sharded v2 program, sim/jax_runtime.py:494
   ``make_wave_step_sharded`` and :548 ``make_chunk_fn_sharded``, one
@@ -390,16 +395,16 @@ ROUTES = ("chunk", "slot", "shard", "shard_slot")
 SHARD_ROUTES = ("shard", "shard_slot")
 
 
-def choose_route(plain: bool, series: bool, sharded: bool = False) -> str:
+def choose_route(plain: bool, sharded: bool = False) -> str:
     """The route of a run, from its mode: node-sharded tables take the shard
     route (one K9 a chunk), or with ``plain`` the per-slot shard route (the
     twins of K1 → K7 → K8 a slot); otherwise the per-slot route for the
-    plain twins and telemetry series/timeline (K5 after each slot's K2); the
-    chunk route (K6) for everything else, ``engine="v2"`` included (K1–K3
-    commit pod by pod, so v2 places as v3 on either route)."""
+    plain twins and the chunk route (K6) for everything else —
+    ``engine="v2"`` (K1–K3 commit pod by pod, so v2 places as v3 on either
+    route) and telemetry series/timeline (K6's attributed mode) included."""
     if sharded:
         return "shard_slot" if plain else "shard"
-    return "slot" if plain or series else "chunk"
+    return "slot" if plain else "chunk"
 
 
 def replicated_resident_bytes(ec: EncodedCluster, pods: EncodedPods,
@@ -594,8 +599,9 @@ class Series:
     :563-668). Nothing here synchronises: the samples are device-to-device
     copies, read after the run's one fetch.
 
-    - ``attribute``: K5 first-reject attribution into the Tables'
-      ``reject`` counters (off under tier preemption, as the reference's);
+    - ``attribute``: first-reject attribution into the Tables' ``reject``
+      counters (K6's attributed mode, or K5; off under tier preemption and
+      node shards, as the reference's);
     - ``fold``: the retry path's form of it — a chunk's failed slots
       charged after its last wave against ``snap``, the planes at its
       start, and each failed retry-pass attempt at its own state; without
@@ -690,14 +696,16 @@ def run_waves(plan: ChunkPlan, tb: ref.Tables, choices: torch.Tensor, first: int
     the kernel wrappers run (the kernels for CUDA tensors, the twins for
     CPU tensors).
 
-    With ``ser`` (telemetry series, :class:`Series`; the per-slot route
-    only) each boundary also copies its samples, and K5 attributes
-    failures: on the plain path after each slot's K2; on the retry path in
-    each retry-pass slot and, for a chunk's failed slots, in one launch
-    when the chunk is done (at the next boundary, before its releases, or
-    at the run's end) against the chunk's start planes, copied at each
-    boundary. The order is the reference's: chunk b−1's fold precedes
-    boundary b's releases and retry pass (sim/jax_runtime.py:1716-1745).
+    With ``ser`` (telemetry series, :class:`Series`; the replicated routes
+    only) each boundary also copies its samples, and failures are
+    attributed: on the plain path after each slot's K2 (inside K6, its
+    attributed mode, on the chunk route; K5 on the per-slot route); on the
+    retry path by K5 in each retry-pass slot and, for a chunk's failed
+    slots, in one launch when the chunk is done (at the next boundary,
+    before its releases, or at the run's end) against the chunk's start
+    planes, copied at each boundary. The order is the reference's: chunk
+    b−1's fold precedes boundary b's releases and retry pass
+    (sim/jax_runtime.py:1716-1745).
 
     On node-sharded tables (row B13) a boundary's release is K8's, and the
     chunk's waves one K9 launch over the waves in the range (``"shard"``,
@@ -711,8 +719,9 @@ def run_waves(plan: ChunkPlan, tb: ref.Tables, choices: torch.Tensor, first: int
     while the next chunk's page is staged."""
     if route not in ROUTES:
         raise ValueError(f"route must be one of {ROUTES}, got {route!r}")
-    if route != "slot" and ser is not None:
-        raise ValueError("telemetry series runs on the per-slot route (K5 after each slot's K2)")
+    if route in SHARD_ROUTES and ser is not None:
+        raise ValueError("telemetry series runs on the replicated routes: the reference "
+                         "attributes nothing under node shards")
     if (route in SHARD_ROUTES) != (tb.shards is not None):
         raise ValueError("node-sharded tables take a shard route, and only they")
     if pager is not None and (ser is not None or tb.retry is not None or tb.preempt is not None
@@ -769,6 +778,8 @@ def run_waves(plan: ChunkPlan, tb: ref.Tables, choices: torch.Tensor, first: int
     append = rt is not None
     reject = fns[4] if ser is not None and ser.attribute else None
     slot_reject = reject if ser is not None and not ser.fold else None
+    # K6's attributed mode: the plain path's counters
+    k6_reject = tb.reject if slot_reject is not None else None
     fold_reject = fns[5]
     CW = C * W
     if ser is not None and ser.fold:
@@ -811,7 +822,7 @@ def run_waves(plan: ChunkPlan, tb: ref.Tables, choices: torch.Tensor, first: int
                 shard_chunk_replay(h, desc.idx, desc.gang, choices, w, hi)
             else:
                 chunk_replay(h, desc.idx, desc.gang, choices, w, hi,
-                             boundary=b if preempt else None, append=append)
+                             boundary=b if preempt else None, append=append, reject=k6_reject)
             w = hi
     else:
         rows = idx.tolist()
@@ -843,8 +854,8 @@ def run_waves(plan: ChunkPlan, tb: ref.Tables, choices: torch.Tensor, first: int
                     shard_apply(h, *rb, rollback=True)
                 else:
                     apply_placements(h, *rb, rollback=True)
-        if ser is not None and ser.fold and end == idx.shape[0] and end > first:
-            fold((end - 1) // C)
+    if ser is not None and ser.fold and end == idx.shape[0] and end > first:
+        fold((end - 1) // C)
     if page is not None:
         pager.done(page)
 
@@ -855,12 +866,12 @@ def run_chunks(
 ) -> np.ndarray:
     """Replay every chunk of ``plan`` over the S scenarios of ``tb`` (its
     state is updated in place) on ``route`` (None: :func:`choose_route`
-    of ``plain``, ``ser`` and the tables' shards), with ``pager``'s pages
+    of ``plain`` and the tables' shards), with ``pager``'s pages
     when given (``joint``: as :func:`run_waves`), and return the host copy
     of the choice buffer ``[S, L]``.
     The one synchronisation is the final fetch."""
     tick = timers.tick if timers is not None else (lambda name: contextlib.nullcontext())
-    route = route or choose_route(plain, ser is not None, tb.shards is not None)
+    route = route or choose_route(plain, tb.shards is not None)
     choices = new_choices(plan, tb.state.used.shape[0], bound_node, tb.state.used.device)
     with tick("dispatch"), tick(f"dispatch_{route}"):
         run_waves(plan, tb, choices, 0, plan.idx.shape[0], plain, ser, route, pager, joint)
@@ -1032,18 +1043,19 @@ class ChunkEngine:
     def _run(self, timers=None, series: bool = False, route: Optional[str] = None,
              joint: bool = False):
         """(tables after the run, wall seconds, assignments [S, P], placed
-        [S], pods to schedule). ``series`` takes the boundary samples and
-        the first-reject attribution (:class:`Series`; none when no Filter
-        plugin is on). ``route`` (one of :data:`ROUTES`) overrides the
-        route the mode chooses (:func:`choose_route`), so a kernel run can be
-        held against the other route. ``joint``: a retry boundary's pending
+        [S], pods to schedule). ``series`` (the reference's ``use_rej``)
+        takes the boundary samples and the first-reject attribution
+        (:class:`Series`; none when no Filter plugin is on). ``route`` (one
+        of :data:`ROUTES`) overrides the route the mode chooses
+        (:func:`choose_route`), so a kernel run can be held against the
+        other route. ``joint``: a retry boundary's pending
         and static releases go out as one (:func:`run_waves`; the single
         replay's order). The tables are kept as
         ``last_tables``, the fetched choice buffer as ``last_choices``, the
         series buffers as ``last_series`` and the route as ``last_route``."""
         attribute = series and bool(spec_plugin_names(self.spec))
-        # Paged pod waves stream the pods of a chunk's waves; telemetry series
-        # runs on the resident tables, as the reference's attributed program
+        # Paged pod waves stream the pods of a chunk's waves; the attributed
+        # run keeps the resident tables, as the reference's attributed program
         # (sim/jax_runtime.py:2253 ``if self.paged and not use_rej``).
         pager = self._pager() if not series else None
         self.last_pager = pager
@@ -1051,7 +1063,7 @@ class ChunkEngine:
         self.last_tables = tb
         ser = new_series(self.plan, tb, attribute) if series else None
         self.last_series = ser
-        self.last_route = route or choose_route(self.plain, series, self.layout is not None)
+        self.last_route = route or choose_route(self.plain, self.layout is not None)
         t0 = time.perf_counter()
         try:
             host_choices = run_chunks(self.plan, tb, self.pods.bound_node, self.plain, timers,
@@ -1090,18 +1102,21 @@ class TorchReplayEngine(ChunkEngine):
     ``JaxReplayEngine``, whose refusals they keep (tier preemption with
     shards, ``paged`` with the retry buffer, the
     ``KSIM_MAX_REPLICATED_BYTES`` budget of a replicated run); the retry
-    buffer and telemetry series/timeline under shards, and ``paged`` with
-    tier preemption, are refused by name. At ``series``/``timeline`` a
-    paged replay runs on the resident pod tables, as the reference's
-    attributed program does.
+    buffer under shards, and ``paged`` with tier preemption, are refused by
+    name. At ``series``/``timeline`` a paged replay runs on the resident pod
+    tables, as the reference's attributed program does; under node shards
+    it attributes nothing and samples no series, as the reference's
+    (sim/jax_runtime.py:2137-2144), and runs the shard route (with the
+    pager when ``paged``).
 
     ``telemetry`` is "off", "summary", "series" or "timeline" (a name or
-    a :class:`..sim.telemetry.TelemetryConfig`). ``series`` adds K5's
-    first-reject attribution and the boundary-sampled series, ``timeline``
-    the bind events (kubernetes_simulator_tpu/sim/jax_runtime.py:2117-2160,
-    sim/boundary.py:360-398, :563-668); under tier preemption attribution
-    is off, as the reference's. Every other mode of the JAX engine raises
-    ``NotImplementedError`` naming it."""
+    a :class:`..sim.telemetry.TelemetryConfig`). ``series`` adds the
+    first-reject attribution (K6's attributed mode on the plain path, K5 on
+    the retry path) and the boundary-sampled series, ``timeline`` the bind
+    events (kubernetes_simulator_tpu/sim/jax_runtime.py:2117-2160,
+    sim/boundary.py:360-398, :563-668); under tier preemption and node
+    shards attribution is off, as the reference's. Every other mode of the
+    JAX engine raises ``NotImplementedError`` naming it."""
 
     def __init__(
         self,
@@ -1152,9 +1167,6 @@ class TorchReplayEngine(ChunkEngine):
             if rb:
                 raise _later("retry_buffer with node_shards (the boundary retry pass over "
                              "node shards)", "ROADMAP queue A item 6a")
-            if TelemetryConfig.resolve(self.telemetry).want_series:
-                raise _later("telemetry series/timeline with node_shards (first-reject "
-                             "attribution over node shards)", "ROADMAP queue B item 4c")
             if engine == "v3":
                 log.info(
                     "node_shards=%d: forcing engine='v2' — the node-sharded chunk program runs "
@@ -1194,21 +1206,32 @@ class TorchReplayEngine(ChunkEngine):
         ep = self.pods
         tcfg = TelemetryConfig.resolve(self.telemetry)
         tel = TelemetryCollector(tcfg) if tcfg.enabled else None
-        series = tcfg.want_series and not self.preemption
-        if tcfg.want_series and self.preemption:
+        # The reference's use_rej (sim/jax_runtime.py:2117-2144): series and
+        # timeline attribute rejections and sample the series, except under
+        # tier preemption and node shards.
+        use_rej = tcfg.want_series
+        if use_rej and self.preemption:
             log.info(
                 "telemetry: rejection attribution is not available with in-scan tier "
                 "preemption (the attributed chain carries no tier planes) — latency/phase "
                 "telemetry still collected"
             )
-        elif series and not self.retry_buffer and self.engine == "v3":
+            use_rej = False
+        if use_rej and self.node_shards > 1:
+            log.info(
+                "telemetry: rejection attribution is disabled under node sharding (the "
+                "instrumented reference program carries replicated node planes) — "
+                "latency/phase telemetry still collected"
+            )
+            use_rej = False
+        if use_rej and not self.retry_buffer and self.engine == "v3":
             log.info(
                 "telemetry series: the plain v3 replay attributes rejections in-scan as the "
-                "reference (v2) chunk program does — K5 after each slot's K2 on the "
-                "pod-by-pod K1–K3 chain; placements are bit-identical"
+                "reference (v2) chunk program does — inside K6 (its attributed mode) on the "
+                "pod-by-pod K1–K3 chain, one launch a chunk; placements are bit-identical"
             )
         tb, wall, assignments, placed_s, to_schedule = self._run(
-            tel.phases if tel is not None else None, series=series, joint=True)
+            tel.phases if tel is not None else None, series=use_rej, joint=True)
         assignments = assignments[0]
         placed = int(placed_s[0])
 

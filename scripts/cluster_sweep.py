@@ -204,7 +204,9 @@ def stamped_chunk_replay():
     if not out.exists():
         out.parent.mkdir(parents=True, exist_ok=True)
         subprocess.run([K._nvcc(), *K.NVCC_FLAGS, "-DKSIM_K6_STAMPS", "-I", str(K.CSRC),
-                        "-o", str(out), str(K.CSRC / K.KERNELS["chunk_replay"])], check=True)
+                        "-o", str(out), *(str(K.CSRC / f) for f in (
+                            K.KERNELS["chunk_replay"], *K.EXTRA_SOURCES["chunk_replay"]))],
+                       check=True)
     lib = ctypes.CDLL(str(out))
     fn = lib.ksim_chunk_replay
     fn.argtypes, fn.restype = K._ARGTYPES["chunk_replay"], ctypes.c_int

@@ -164,22 +164,22 @@ def test_descriptor_is_the_plan():
 
 def test_choose_route_and_refusals():
     assert ROUTES == ("chunk", "slot", "shard", "shard_slot")
-    assert choose_route(False, False) == "chunk"
-    assert choose_route(True, False) == choose_route(False, True) == "slot"
-    assert choose_route(False, False, True) == "shard"
-    assert choose_route(True, False, True) == "shard_slot"
+    assert choose_route(False) == "chunk"
+    assert choose_route(True) == "slot"
+    assert choose_route(False, True) == "shard"
+    assert choose_route(True, True) == "shard_slot"
     v2 = TorchReplayEngine(*_headline_cut(pods=100), FrameworkConfig(), device="cpu",
                            engine="v2")
     assert v2.replay().route == "chunk"
     eng = TorchReplayEngine(*_headline_cut(pods=100), FrameworkConfig(), device="cpu",
                             telemetry="series")
-    assert eng.replay().route == "slot"
+    assert eng.replay().route == "chunk"
     tb = eng._tables()
     ch = new_choices(eng.plan, 1, eng.pods.bound_node, "cpu")
     from kubernetes_simulator_tpu_torch.sim.torch_runtime import new_series
 
-    with pytest.raises(ValueError, match="per-slot route"):
+    with pytest.raises(ValueError, match="replicated routes"):
         run_waves(eng.plan, tb, ch, 0, 1, plain=False, ser=new_series(eng.plan, tb, True),
-                  route="chunk")
+                  route="shard")
     with pytest.raises(ValueError, match="route must be"):
         run_waves(eng.plan, tb, ch, 0, 1, plain=False, route="wave")

@@ -136,7 +136,7 @@ def test_config_refuses_later_sections_by_name(section):
     [dict(engine="v2", preemption="kube", retry_buffer=8), dict(preemption="kube"),
      dict(preemption="kube", retry_buffer=8), dict(node_shards=2, retry_buffer=8),
      dict(paged=True, preemption=True),
-     dict(flight_recorder="f.jsonl"), dict(telemetry="series", node_shards=2)],
+     dict(flight_recorder="f.jsonl")],
 )
 def test_engine_refuses_later_modes(kw):
     from kubernetes_simulator_tpu_torch.sim.torch_runtime import TorchReplayEngine

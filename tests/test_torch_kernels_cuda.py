@@ -418,7 +418,10 @@ def test_first_reject_equals_twin(card):
                                   telemetry="timeline", **kw, **o).replay()
                 for o in (dict(device=card), dict(device=card, plain=True), dict(device="cpu"))]
         counts = K.launch_counts()
-        assert counts["first_reject"] > 0
+        # the plain path attributes inside K6 (its attributed mode); the retry
+        # path's pass and folds launch K5
+        assert (counts["first_reject"] > 0) == bool(kw)
+        assert (K.chunk_replay.attributed == counts["chunk_replay"] > 0) == (not kw)
         assert (counts["first_reject_fold"] > 0) == bool(kw)  # the fold: retry path only
         for other in runs[1:]:
             np.testing.assert_array_equal(runs[0].assignments, other.assignments)
@@ -901,6 +904,71 @@ def test_cluster_chunk_replay_s1(card, nodes):
     plain = TorchReplayEngine(ec, ep, FrameworkConfig(), device=card, plain=True, **kw).replay()
     np.testing.assert_array_equal(res.assignments, plain.assignments)
     np.testing.assert_array_equal(res.state.used, plain.state.used)
+
+
+@pytest.mark.parametrize("C", [1, 2, 4])
+def test_chunk_replay_attributed_equals_twin_and_slot_kernels(card, C):
+    """K6's attributed mode (series on the plain path) at S = 1 with C ranks
+    a cluster over 200 nodes, chunk by chunk from the initial state of a
+    contended trace without completions (7 pods fail): the choice buffer,
+    every state plane and the reject counters equal the twin
+    ref.chunk_replay(reject=) and the per-slot kernels K1 -> K2 -> K5 -> K3
+    (with K3's rollback after a gang wave) after each chunk; K6's launches
+    count as attributed. Then the series replay on the chunk route (one
+    attributed K6 a chunk, no K1, K2 or K5 launched) equals the per-slot
+    route's."""
+    from kubernetes_simulator_tpu_torch.sim.torch_runtime import new_choices
+
+    ec, ep = _case(21, nodes=200, pods=1500, gang_fraction=0.1, gang_size=3)
+    eng = TorchReplayEngine(ec, ep, FrameworkConfig(), device=card, wave_width=8,
+                            chunk_waves=16, telemetry="series")
+    plan = eng.plan
+    desc = plan.device_desc(card)
+    W = plan.idx.shape[1]
+    tbs = [eng._tables(attribute=True) for _ in range(3)]
+    chs = [new_choices(plan, 1, eng.pods.bound_node, card) for _ in range(3)]
+    b_k, b_s = K.Bound(tbs[0]), K.Bound(tbs[2])
+    assert _chip_smoke().force_k6_ranks(b_k, C) == C
+    pos = torch.arange(plan.L, dtype=torch.int32, device=card)
+    K.reset_launch_counts()
+    for c in range(len(plan.buckets)):
+        lo, hi = c * plan.C, (c + 1) * plan.C
+        K.chunk_replay(b_k, desc.idx, desc.gang, chs[0], lo, hi, reject=tbs[0].reject)
+        ref.chunk_replay(tbs[1], desc.idx, desc.gang, chs[1], lo, hi, reject=tbs[1].reject)
+        for w in range(lo, hi):
+            for k, p in enumerate(plan.idx[w].tolist()):
+                if p < 0:
+                    continue
+                s = w * W + k
+                K.filter_score(b_s, p)
+                K.normalize_select(b_s, p, chs[2], s, w)
+                K.first_reject(b_s, desc.idx[s : s + 1], chs[2][:, s : s + 1])
+                K.apply_placements(b_s, desc.idx[s : s + 1], pos[s : s + 1], chs[2], 1.0)
+            if plan.gang_wave[w]:
+                K.apply_placements(b_s, desc.idx[w * W : (w + 1) * W], pos[w * W : (w + 1) * W],
+                                   chs[2], -1.0, rollback=True)
+        torch.cuda.synchronize()
+        for i in (1, 2):
+            assert torch.equal(chs[0], chs[i]), (C, c, i)
+            for part in ("state", "reject"):
+                for f, x, y in zip(getattr(tbs[0], part)._fields, getattr(tbs[0], part),
+                                   getattr(tbs[i], part)):
+                    assert torch.equal(x, y), (C, c, i, part, f)
+    assert K.chunk_replay.plan.C == C
+    assert K.chunk_replay.launches == K.chunk_replay.attributed == len(plan.buckets)
+    assert int(tbs[0].reject.attempts.sum()) > 0
+    K.reset_launch_counts()
+    res = eng.replay()
+    counts = K.launch_counts()
+    assert res.route == "chunk" and K.chunk_replay.attributed == len(plan.buckets), counts
+    assert counts["filter_score"] == counts["normalize_select"] == counts["first_reject"] == 0
+    assert res.telemetry.reasons == res.telemetry.rejection_attempts != {}
+    rj = eng.last_tables.reject
+    tb_slot, _, a_slot, _, _ = eng._run(series=True, route="slot")
+    assert K.launch_counts()["first_reject"] > 0
+    np.testing.assert_array_equal(res.assignments, a_slot[0])
+    for f, x, y in zip(rj._fields, rj, tb_slot.reject):
+        assert torch.equal(x, y), f
 
 
 def test_chunk_replay_beyond_the_card(card):

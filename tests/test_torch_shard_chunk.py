@@ -82,7 +82,7 @@ def test_shard_route_equals_slot_route_replicated_jax_greedy(runs, P, paged):
     (pec, pep), jres, greedy, rep = runs
     eng = TorchReplayEngine(pec, pep, FrameworkConfig(), chunk_waves=CHUNK_WAVES, device="cpu",
                             node_shards=P, paged=paged)
-    assert choose_route(False, False, True) == "shard" and eng.layout.n_pad == -(-24 // P) * P
+    assert choose_route(False, True) == "shard" and eng.layout.n_pad == -(-24 // P) * P
     res = eng.replay()
     assert res.route == "shard" and (eng.last_pager is not None) == paged
     planes, choices = _planes(eng.last_tables), eng.last_choices

@@ -14,6 +14,7 @@ package to ``tests/test_jax_parity.py::assert_parity``'s 1e-3 and 1e-5, and
 between the port's own runs exact."""
 
 import dataclasses
+import logging
 import os
 import sys
 
@@ -318,13 +319,48 @@ def test_whatif_refuses_node_shards_as_reference():
 
 @pytest.mark.parametrize("kw, what", [
     (dict(retry_buffer=8), "retry_buffer with node_shards"),
-    (dict(telemetry="series"), "telemetry series/timeline with node_shards"),
-    (dict(telemetry="timeline"), "telemetry series/timeline with node_shards"),
 ])
 def test_port_refuses_by_name_under_shards(kw, what):
     ec, ep = _tiny()
     with pytest.raises(NotImplementedError, match=what):
         TorchReplayEngine(ec, ep, device="cpu", node_shards=2, **kw)
+
+
+#: The reference's note where series/timeline run under node shards
+#: (kubernetes_simulator_tpu/sim/jax_runtime.py:2137-2144).
+SHARD_SERIES_NOTE = "rejection attribution is disabled under node sharding"
+
+
+@pytest.mark.parametrize("P, telemetry, paged", [
+    (2, "series", False), (2, "timeline", True), (4, "series", True), (4, "timeline", False),
+])
+def test_series_under_shards_equals_reference(P, telemetry, paged, caplog):
+    """Telemetry series/timeline under node shards runs as the reference
+    runs it: the shard route (K9, with the pager when paged), no
+    attribution and no series samples, the reference's note logged; the
+    assignments and the whole telemetry equal JaxReplayEngine(node_shards=P)
+    on the CPU."""
+    ec, ep = _case()
+    j = JaxReplayEngine(ec, ep, J_Config(), chunk_waves=4, node_shards=P, paged=paged,
+                        telemetry=telemetry).replay()
+    pec, pep = port_case(ec, ep)
+    caplog.clear()
+    with caplog.at_level(logging.INFO, logger="k8sim.torch"):
+        eng = TorchReplayEngine(pec, pep, FrameworkConfig(), chunk_waves=4, device="cpu",
+                                node_shards=P, paged=paged, telemetry=telemetry)
+        t = eng.replay()
+    assert SHARD_SERIES_NOTE in caplog.text
+    assert t.route == "shard" and (eng.last_pager is not None) == paged
+    assert eng.last_series is None and eng.last_tables.reject is None
+    _same(t, j, f"P={P} {telemetry}", exact=False)
+    a, b = j.telemetry, t.telemetry
+    assert b.granularity == a.granularity == telemetry
+    assert b.reasons == a.reasons == {} and b.rejection_attempts == a.rejection_attempts
+    assert (b.latency, b.bind_latency, b.zero_latency_binds) == (
+        a.latency, a.bind_latency, a.zero_latency_binds)
+    assert b.events == a.events and b.series == a.series
+    tel = lambda r: {k: v for k, v in r.summary()["telemetry"].items() if k != "phases"}
+    assert tel(t) == tel(j)
 
 
 @pytest.mark.parametrize("extra", [

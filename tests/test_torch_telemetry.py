@@ -11,7 +11,9 @@ tolerance of tests/test_jax_parity.py::assert_parity (atol 1e-3: f32 sums,
 exact on these bucketed traces). The plain path (in-scan attribution,
 every failure terminal) and the retry path (chunk-fold attribution against
 the chunk's start state, retry-pass attempts, episode semantics) are both
-walked, at W=1/C=1 and at W=8 with C>1, with engine v2 and v3."""
+walked, at W=1/C=1 and at W=8 with C>1, with engine v2 and v3, on the
+chunk route (the plain path's attribution inside K6's attributed mode) and
+on the per-slot route (``_run(route="slot")``: K5 after each slot's K2)."""
 
 import json
 import logging
@@ -49,12 +51,18 @@ def _deterministic():
     torch.use_deterministic_algorithms(prev)
 
 
-def both(ec, ep, plugins=None, **kw):
-    """(JaxReplayEngine result, port result) of one trace and settings."""
+def both(ec, ep, plugins=None, route="chunk", **kw):
+    """(JaxReplayEngine result, port result) of one trace and settings, the
+    port's replay on ``route`` ("chunk", the route its mode takes, or
+    "slot", forced through ``_run(route=...)``)."""
     j = JaxReplayEngine(ec, ep, J_Config(plugins=plugins), **kw).replay()
     pec, pep = port_case(ec, ep)
-    t = TorchReplayEngine(pec, pep, FrameworkConfig(plugins=plugins), device="cpu",
-                          **kw).replay()
+    eng = TorchReplayEngine(pec, pep, FrameworkConfig(plugins=plugins), device="cpu", **kw)
+    if route != "chunk":
+        run = eng._run
+        eng._run = lambda *a, **k: run(*a, route=route, **k)
+    t = eng.replay()
+    assert t.route == route
     return j, t
 
 
@@ -99,11 +107,16 @@ def _reject_trace(num_pods=10):
     return encode(Cluster(nodes=nodes), pods)
 
 
+ROUTES = ["chunk", "slot"]
+
+
+@pytest.mark.parametrize("route", ROUTES)
 @pytest.mark.parametrize("engine", ["v2", "v3"])
 @pytest.mark.parametrize("W,C", [(1, 1), (8, 4)])
-def test_reject_trace_matches_reference(engine, W, C):
+def test_reject_trace_matches_reference(engine, W, C, route):
     ec, ep = _reject_trace()
-    j, t = both(ec, ep, wave_width=W, chunk_waves=C, engine=engine, telemetry="series")
+    j, t = both(ec, ep, wave_width=W, chunk_waves=C, engine=engine, telemetry="series",
+                route=route)
     assert_same_telemetry(j, t)
     if (W, C) == (1, 1):
         assert t.telemetry.reasons == {"NodeResourcesFit": 8, "TaintToleration": 8}
@@ -142,11 +155,12 @@ def _seeded(seed):
     return encode(cluster, pods)
 
 
+@pytest.mark.parametrize("route", ROUTES)
 @pytest.mark.parametrize("seed", [11, 12])
 @pytest.mark.parametrize("C", [2, 4])
-def test_seeded_plain_path(seed, C):
+def test_seeded_plain_path(seed, C, route):
     ec, ep = _seeded(seed)
-    j, t = both(ec, ep, wave_width=8, chunk_waves=C, telemetry="timeline")
+    j, t = both(ec, ep, wave_width=8, chunk_waves=C, telemetry="timeline", route=route)
     assert_same_telemetry(j, t)
     # Each charged pod's nodes sum to N; gang members the rollback reverted
     # are unschedulable but not charged.
@@ -155,10 +169,12 @@ def test_seeded_plain_path(seed, C):
     assert t.telemetry.events == []  # no chaos on the plain path
 
 
+@pytest.mark.parametrize("route", ROUTES)
 @pytest.mark.parametrize("seed,C,RB", [(11, 2, 16), (11, 4, 64), (12, 2, 16), (12, 3, 8)])
-def test_seeded_retry_path(seed, C, RB):
+def test_seeded_retry_path(seed, C, RB, route):
     ec, ep = _seeded(seed)
-    j, t = both(ec, ep, wave_width=8, chunk_waves=C, retry_buffer=RB, telemetry="timeline")
+    j, t = both(ec, ep, wave_width=8, chunk_waves=C, retry_buffer=RB, telemetry="timeline",
+                route=route)
     assert_same_telemetry(j, t)
     tel = t.telemetry
     # Retries grow the attempts past the episodes.
@@ -166,9 +182,11 @@ def test_seeded_retry_path(seed, C, RB):
     assert len(tel.events) == t.placed
 
 
-def test_chrome_trace_equals_reference(tmp_path):
+@pytest.mark.parametrize("route", ROUTES)
+def test_chrome_trace_equals_reference(tmp_path, route):
     ec, ep = _seeded(11)
-    j, t = both(ec, ep, wave_width=8, chunk_waves=2, retry_buffer=16, telemetry="timeline")
+    j, t = both(ec, ep, wave_width=8, chunk_waves=2, retry_buffer=16, telemetry="timeline",
+                route=route)
     pj, pt = str(tmp_path / "j.json"), str(tmp_path / "t.json")
     nj = j_write_trace(pj, j, arrival=ep.arrival, duration=ep.duration, requests=ep.requests,
                        rindex=ec.vocab._r)
@@ -215,10 +233,17 @@ def test_v3_series_logs_the_v2_note(caplog):
 @pytest.mark.parametrize("retry_buffer", [0, 16])
 def test_summary_runs_no_first_reject_and_equals_off(monkeypatch, retry_buffer):
     """The default granularity enqueues what it enqueued before (no K5
-    call), and series places exactly as summary and off."""
+    call, no attributed K6 launch), and series places exactly as summary
+    and off."""
     calls = []
-    real = K.first_reject
+    real, real_k6 = K.first_reject, K.chunk_replay
     monkeypatch.setattr(K, "first_reject", lambda *a: (calls.append(1), real(*a)))
+
+    def k6(*a, reject=None, **kw):
+        if reject is not None:
+            calls.append(1)
+        real_k6(*a, reject=reject, **kw)
+    monkeypatch.setattr(K, "chunk_replay", k6)
     ec, ep = _seeded(11)
     pec, pep = port_case(ec, ep)
     kw = dict(wave_width=8, chunk_waves=2, retry_buffer=retry_buffer, device="cpu")
