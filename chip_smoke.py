@@ -106,21 +106,35 @@ From the root of a checkout, on a host with one CUDA card. In order:
    drops, assignments and every retry record identical;
 13. the main retry path: CONFIG7's what-if as shipped (64
    ``uniform_scenarios(seed=0)`` x 500 nodes x 20,000 pods, retryBuffer
-   256, chunkWaves 256) with the counters zeroed just before its warm-up
-   and read just after — every scenario places 20,000 with no drop,
-   scenario 0 equals greedy_replay's pins (RETRY_PINS), the batch without
-   the buffer places fewer (scenario 0 pinned too); median of 3, busy
-   share, B6's bound;
-14. ``run``'s engine on CONFIG7 (S = 1) against the same pins: wall and
+   256, chunkWaves 256) on the chunk route — one K6 a chunk, each past the
+   first in its retry mode (the boundary's pending release, retry pass and
+   K4's bookkeeping inside the launch; no K1, K2, K3 bind or K4 launch) —
+   with the counters zeroed just before its warm-up and read just after:
+   every scenario places 20,000 with no drop, scenario 0 equals
+   greedy_replay's pins (RETRY_PINS), the per-slot route (the boundary
+   sequence from the host) places alike with the same retry records in the
+   same call, the batch without the buffer places fewer (scenario 0 pinned
+   too); median of 3, busy share, B6's bound; K6's retry mode held against
+   its twin and the per-slot kernels over the densest boundary's launch
+   (8 waves) and timed there against the per-slot sequence;
+14. ``run``'s engine on CONFIG7 (S = 1, the joint release order) against
+   the same pins and its per-slot route, and held likewise: wall and
    placements/s;
 15. the contended retry what-if: CONFIG7 cut to 150 nodes, 64 scenarios —
    scenario 0 against its pins with and without the buffer, the batch
-   placing differently without it; then at the boundary where the most
-   scenarios hold buffered pods every launch of the boundary sequence
-   (static and pending releases, each pass slot's K1 → K2 → K3, K4) and
-   the following main-path binds (failure appends and overflows) held
-   against the twins plane by plane, and each retry mode timed beside
-   its twin and its least time;
+   placing differently without it, its per-slot route in the same call;
+   then at the boundary where the most scenarios hold buffered pods every
+   launch of the per-slot route's boundary sequence (static and pending
+   releases, each pass slot's K1 → K2 → K3, K4) and the following
+   main-path binds (failure appends and overflows) held against the twins
+   plane by plane, and each retry mode timed beside its twin and its least
+   time; K6's retry mode over that boundary and 8 waves held against its
+   twin and the per-slot kernels with 5 ranks forced, and against the
+   per-slot kernels at its plan's C = 1, where it is timed (one launch)
+   beside the per-slot sequence and a summary K6 (new, old, old, new) and
+   the summary K6 alone; the S = 4 retry what-if of
+   tests/test_torch_kernels_cuda.py launch by launch from its initial
+   state against the twin and the per-slot kernels;
 16. label perturbations (``set_label``), reduced: 8 scenarios x 60 nodes x
    2,000 pods (durationMean 60, gangs) — a move to an existing zone with a
    capacity cut, a new zone, emptying a singleton zone, a node gaining the
@@ -162,10 +176,15 @@ From the root of a checkout, on a host with one CUDA card. In order:
    reasons, and equal to its per-slot route (K5 after every slot's K2) in
    assignments and reject counters; (b) CONFIG7 as shipped through the CLI
    ``run`` with ``telemetry: series`` and ``timelineOut`` (the retry path on
-   the chunk route: K5 in the retry pass and as the chunk fold between K6
-   launches), its row, events and the Chrome trace's sha256 against
-   REJECT_PINS, its placements against RETRY_PINS; (c) the 150-node cut at
-   ``timeline`` against REJECT_PINS and RETRY_PINS; (d) CONFIG13 through the
+   the chunk route: K6's retry mode charging the retry pass and copying the
+   boundary's samples, K5 as the chunk fold between K6 launches), its row,
+   events and the Chrome trace's sha256 against REJECT_PINS, its placements
+   against RETRY_PINS, the same replay on the per-slot route in the same
+   call (assignments, retry records, reject counters, samples), K6's retry
+   mode held over its densest boundary; (c) the 150-node cut at
+   ``timeline`` against REJECT_PINS and RETRY_PINS and its per-slot route,
+   K6's retry mode held over its densest boundary at C = 1 and 5 ranks
+   forced; (d) CONFIG13 through the
    CLI at ``series`` (node shards: K9 with the pager, attribution off and
    the reference's note logged, no K5) placing as its summary run, and
    SHARD_CUT at ``series`` against SHARD_PINS; the walls of (a) at summary,
@@ -231,6 +250,7 @@ as its last line,
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import hashlib
@@ -733,20 +753,31 @@ def k6_device_s(by_kernel):
     return sum(t for k, t in by_kernel.items() if "chunk_replay" in k)
 
 
+def retry_launch_counts():
+    """K.launch_counts() and K6's retry-mode launches (``chunk_replay_retry``,
+    ``K.chunk_replay.retry``, counted apart from the wrappers' counts)."""
+    return dict(K.launch_counts(), chunk_replay_retry=K.chunk_replay.retry)
+
+
 def check_chunk_launches(where, launches, plan, retry=False):
     """The chunk route's launches in a run (counters zeroed just before it):
-    one K6 a chunk, K3 at each release, K1 and K2 none outside the retry
-    pass (retry: K1, K2 and K4 in it)."""
+    one K6 a chunk, K3 at each static release, K1 and K2 none; with
+    ``retry`` (``launches`` from :func:`retry_launch_counts`) every K6 past
+    the first chunk in its retry mode, and no K3 bind, K4 or per-slot K5."""
     want_k6 = len(plan.buckets)
     if launches["chunk_replay"] != want_k6:
         raise AssertionError(f"{where}: {launches['chunk_replay']} K6 launches for "
                              f"{want_k6} chunks")
-    if retry:
-        if any(launches[k] <= 0 for k in SOURCES_PLAIN + ("retry_boundary",)):
-            raise AssertionError(f"{where}: a kernel of the retry pass was not launched: "
-                                 f"{launches}")
-    elif launches["filter_score"] or launches["normalize_select"]:
+    if launches["filter_score"] or launches["normalize_select"]:
         raise AssertionError(f"{where}: K1/K2 launched on the chunk route: {launches}")
+    if retry:
+        if (launches["chunk_replay_retry"] != want_k6 - 1
+                or any(launches[k] for k in ("apply_placements_bind", "retry_boundary",
+                                             "first_reject"))):
+            raise AssertionError(f"{where}: K6's retry mode launched "
+                                 f"{launches['chunk_replay_retry']} times for {want_k6 - 1} "
+                                 f"boundaries, or a per-slot kernel of the retry pass ran: "
+                                 f"{launches}")
     if any(bk is not None for bk in plan.buckets) and launches["apply_placements_release"] <= 0:
         raise AssertionError(f"{where}: no K3 release was launched")
 
@@ -1126,57 +1157,66 @@ class Work:
             nops += S * pods.size
         return nbytes, nops
 
+    def retry_phase(self, step, b, n_tbt):
+        """(bytes, ops) of K6's retry mode at boundary b from ``step`` (the
+        buffer and pending list before the boundary, the pass's choices;
+        :func:`retry_walk`): the pending list's due pairs released (K3's
+        work, the relb column read), each scenario's buffered pods through
+        K1, K2 and K3's bind (a scenario past its count does nothing: no
+        empty slot's zero rows), and K4's bookkeeping."""
+        rbuf, rch = step["rbuf"], step["rchoice"]
+        S, N = self.S, self.N
+        due = (step["pend_id"] >= 0) & (step["pend_relb"] <= b)
+        nb, no = self.k3(step["pend_id"], np.where(due, step["pend_node"], PAD))
+        nb += S * self.RB * 4
+        for k in range(int((rbuf >= 0).sum(axis=1).max(initial=0))):
+            col = rbuf[:, k]
+            act = int((col >= 0).sum())
+            b1, o1 = self.k1_scen(col)
+            b2, o2 = self.k2_scen(act)
+            b3, o3 = self.k3(col[:, None], np.where(col[:, None] >= 0, rch[:, k : k + 1], PAD))
+            nb += b1 - (S - act) * N * (2 + ref.NUM_ROWS * 4) + b2 - (S - act) * 8 + b3
+            no += o1 + o2 + o3
+        b4, o4 = self.k4(rbuf, rch, step["pend_id"], step["pend_relb"], n_tbt)
+        return nb + b4, no + o4
+
     def chunk_loop_ms(self, plan, assignments, launches, evictions=None, retry_walk=None):
         """B6's bound for a run on the chunk route (``launches``, the run's
         counts, must be the route's): each chunk's K6 launch (:meth:`k6`)
-        and the host's launches between chunks — each release's K3 and,
-        under the retry buffer ``retry_walk`` (per boundary b > 0: the
-        buffer and pending list before the boundary, the pass's choices),
-        the pending release, each pass slot's K1 → K2 → K3 and K4. The
-        binds count the nodes the run's assignments [S, P] give them (a pod
-        placed on retry counts as PAD there), which leaves out the binds of
-        pods later rolled back or evicted: this term is a floor.
-        ``evictions`` ([waves, S]) goes to :meth:`k6`."""
-        S, C = self.S, plan.C
-        k6 = 0.0
+        and each release's K3 between chunks; under the retry buffer
+        ``retry_walk`` (per boundary b > 0: the buffer and pending list
+        before the boundary, the pass's choices) adds each boundary's retry
+        mode (:meth:`retry_phase`) to its chunk's launch, one function (its
+        own bound alone in ``retry_phase``, not in the total). The binds
+        count the nodes the run's assignments [S, P] give them (a pod placed
+        on retry counts as PAD there), which leaves out the binds of pods
+        later rolled back or evicted: this term is a floor. ``evictions``
+        ([waves, S]) goes to :meth:`k6`."""
+        C = plan.C
+        k6 = phase = 0.0
         for c in range(len(plan.buckets)):
             w = slice(c * C, (c + 1) * C)
-            k6 += bound(*self.k6(plan.idx[w], plan.gang_wave[w], assignments, c * C,
-                                 None if evictions is None else evictions[w],
-                                 plan.prebound.size, retry_walk is not None))[0]
+            nb, no = self.k6(plan.idx[w], plan.gang_wave[w], assignments, c * C,
+                             None if evictions is None else evictions[w], plan.prebound.size,
+                             retry_walk is not None)
+            if retry_walk is not None and c > 0:
+                pb, po = self.retry_phase(retry_walk[c - 1], c, plan.tbt.size)
+                phase += bound(pb, po)[0]
+                nb, no = nb + pb, no + po
+            k6 += bound(nb, no)[0]
         releases = sum(bound(*self.k3(bk[0], assignments[:, bk[0]]))[0]
                        for bk in plan.buckets if bk is not None)
         want = dict(filter_score=0, normalize_select=0,
                     apply_placements=sum(bk is not None for bk in plan.buckets),
                     retry_boundary=0, chunk_replay=len(plan.buckets))
-        out = dict(k6=k6, k3_release=releases)
         if retry_walk is not None:
-            RB = retry_walk[0]["rbuf"].shape[1] if retry_walk else 0
-            k1r = k2r = k3r = pend = k4 = 0.0
-            for b, step in enumerate(retry_walk, start=1):
-                rbuf, rch = step["rbuf"], step["rchoice"]
-                due = (step["pend_id"] >= 0) & (step["pend_relb"] <= b)
-                nb, no = self.k3(step["pend_id"], np.where(due, step["pend_node"], PAD))
-                pend += bound(nb + S * RB * 4, no)[0]
-                n = retry_slots(plan, b, RB)
-                for k in range(n):
-                    k1r += bound(*self.k1_scen(rbuf[:, k]))[0]
-                    k2r += bound(*self.k2_scen(int((rbuf[:, k] >= 0).sum())))[0]
-                    k3r += bound(*self.k3(rbuf[:, k : k + 1],
-                                          np.where(rbuf[:, k : k + 1] >= 0, rch[:, k : k + 1],
-                                                   PAD)))[0]
-                k4 += bound(*self.k4(rbuf, rch, step["pend_id"], step["pend_relb"],
-                                     plan.tbt.size))[0]
-                for name in ("filter_score", "normalize_select"):
-                    want[name] += n
-                want["apply_placements"] += 1 + n
-                want["retry_boundary"] += 1
-            out.update(k3_pending_release=pend, k1_retry=k1r, k2_retry=k2r, k3_retry_bind=k3r,
-                       k4=k4)
+            want["chunk_replay_retry"] = len(plan.buckets) - 1
         if any(launches.get(k, 0) != n for k, n in want.items()):
             raise AssertionError(f"launch counts {launches} do not match the chunk plan {want}")
-        out["total"] = sum(out.values())
-        out["slots"] = int((plan.idx >= 0).sum())
+        out = dict(k6=k6, k3_release=releases, total=k6 + releases,
+                   slots=int((plan.idx >= 0).sum()))
+        if retry_walk is not None:
+            out["retry_phase"] = phase
         return out
 
 
@@ -2502,11 +2542,12 @@ def clone_series(ser):
 
 def lockstep(where, plan, tb_k, tb_t, ch_k, ch_t, first, end, dev, snap=None,
              after_bind=None, ser=None, joint=False):
-    """Waves [first, end) of ``plan`` (as run_waves enqueues them, with the
-    retry sequence at each boundary past 0 when the tables have a retry
-    buffer) on the kernels over ``tb_k`` and on the twins over ``tb_t``,
-    launch by launch: after every launch the scratch rows, the choice
-    buffer, the state and every retry table must be equal. ``snap(name, at)`` is called before chosen launches
+    """Waves [first, end) of ``plan`` (as run_waves enqueues them on the
+    per-slot route, with the retry sequence at each boundary past 0 when
+    the tables have a retry buffer) on the kernels over ``tb_k`` and on the
+    twins over ``tb_t``, launch by launch: after every launch the scratch
+    rows, the choice buffer, the state and every retry table must be
+    equal. ``snap(name, at)`` is called before chosen launches
     (the kernel tables as they stand) and ``after_bind()`` after each
     main-path bind. With ``ser`` = (kernel Series, twin Series) of a series
     run (telemetry series), K5 runs where run_waves launches it — after
@@ -2812,17 +2853,276 @@ def time_retry(eng, snaps, bnd, dev, iters=200, plain_iters=10):
     return out
 
 
+def _same_series(where, ser_a, ser_b):
+    for f in ("used", "rcount", "pend"):
+        if not torch.equal(getattr(ser_a, f), getattr(ser_b, f)):
+            raise AssertionError(f"{where}: series.{f} differs")
+    for x, y in zip(ser_a.snap or (), ser_b.snap or ()):
+        if not torch.equal(x, y):
+            raise AssertionError(f"{where}: the series' chunk-start planes differ")
+
+
+def _same_reject(where, tb_a, tb_b):
+    if tb_a.reject is None:
+        return
+    for f, x, y in zip(tb_a.reject._fields, tb_a.reject, tb_b.reject):
+        if not torch.equal(x, y):
+            raise AssertionError(f"{where}: reject.{f} differs")
+
+
+def densest_boundary(walk):
+    """The boundary b > 0 where the most scenarios, then the most pods, wait
+    in the buffer (from :func:`retry_walk`)."""
+    held = [(int((st["rbuf"][:, 0] >= 0).sum()), int((st["rbuf"] >= 0).sum())) for st in walk]
+    return 1 + max(range(len(walk)), key=lambda i: held[i])
+
+
+def k6_retry_route(where, eng, dev, C=None, joint=False, series=False):
+    """K6's retry mode against its twin and the per-slot kernels launch by
+    launch over a whole run of ``eng`` from its initial state: each chunk
+    through run_waves on the chunk route with the kernels (one K6 launch;
+    its plan's ranks, or C forced), on the chunk route with the twins and on
+    the per-slot route with the kernels; after each, the choice buffer and
+    every plane, retry record, reject counter and boundary sample equal.
+    Returns the counts."""
+    from kubernetes_simulator_tpu_torch.sim.torch_runtime import new_series
+
+    plan = eng.plan
+    tbs = [eng._tables(attribute=series) for _ in range(3)]
+    sers = [new_series(plan, tb, True) if series else None for tb in tbs]
+    chs = [new_choices(plan, eng.S, eng.pods.bound_node, dev) for _ in range(3)]
+    routes = ((False, "chunk"), (True, "chunk"), (False, "slot"))
+    n = dict(chunks=0, k6_retry=0, pass_slots=0, empty_boundaries=0)
+    with forced_k6_plan(C) if C else contextlib.nullcontext():
+        for c in range(len(plan.buckets)):
+            lo, hi = c * plan.C, (c + 1) * plan.C
+            if c:
+                held = int(tbs[0].retry.rcount.max())
+                n["pass_slots"] += int(tbs[0].retry.rcount.sum())
+                n["empty_boundaries"] += held == 0
+            for i, (plain, route) in enumerate(routes):
+                K.reset_launch_counts()
+                run_waves(plan, tbs[i], chs[i], lo, hi, plain=plain, ser=sers[i], route=route,
+                          joint=joint)
+                if i == 0:
+                    got = retry_launch_counts()
+                    if got["chunk_replay"] != 1 or got["chunk_replay_retry"] != int(c > 0):
+                        raise AssertionError(f"{where}: chunk {c} launched {got}")
+                    n["k6_retry"] += got["chunk_replay_retry"]
+                    cluster = plan_of(K.chunk_replay)
+            for i in (1, 2):
+                at = f"{where}, chunk {c}, {'twin' if i == 1 else 'per-slot kernels'}"
+                same_planes(at, tbs[0], chs[0], tbs[i], chs[i])
+                _same_reject(at, tbs[0], tbs[i])
+                if series:
+                    _same_series(at, sers[0], sers[i])
+            n["chunks"] += 1
+    rt = tbs[0].retry
+    n.update(retried_binds=int((rt.rnode >= 0).sum()), dropped=int(rt.rdrop.sum()),
+             cluster=cluster)
+    if series:
+        n["attempts"] = int(tbs[0].reject.attempts.sum())
+    if not n["pass_slots"] or not n["retried_binds"]:
+        raise AssertionError(f"{where}: no retry pass ran: {n}")
+    print(f"{where}: K6's retry mode == its twin == the per-slot kernels launch by launch "
+          f"({json.dumps(n)}), choices, every plane and retry record"
+          f"{', reject counters and samples' if series else ''}", flush=True)
+    return n
+
+
+def hold_k6_retry(where, eng, b, dev, C=None, joint=False, series=False, waves=8, timed=False,
+                  twin=True):
+    """K6's retry mode against its twin and the per-slot kernels over the
+    launch that starts chunk b (> 0) of ``eng``'s run, cut to its first
+    ``waves`` waves: the state after chunks [0, b) on the chunk route (the
+    series carriers with ``series``) copied three ways, then those waves
+    through run_waves on the chunk route with the kernels (its plan's ranks,
+    or C forced), on the chunk route with the twins and on the per-slot
+    route with the kernels (without ``twin``, the last two only): choices,
+    every plane, retry record, reject counter and sample equal after. With
+    ``timed`` (no ``series``), the same waves from the state after the
+    boundary's static release (:func:`time_k6_retry`): one K6 launch in the
+    retry mode against the per-slot route's boundary sequence and a summary
+    K6, and the summary K6 alone — the boundary phase's cost on each route
+    is its wall less that one's. Returns the record, with the window's
+    least time (``bound_ms``: Work.k6 and Work.retry_phase as one
+    function)."""
+    from kubernetes_simulator_tpu_torch.sim.torch_runtime import new_series, run_retry_boundary
+
+    plan = eng.plan
+    lo, end_c = b * plan.C, min((b + 1) * plan.C, plan.idx.shape[0])
+    hi = min(lo + waves, end_c)
+    tb_k = eng._tables(attribute=series)
+    ser_k = new_series(plan, tb_k, True) if series else None
+    ch_k = new_choices(plan, eng.S, eng.pods.bound_node, dev)
+    run_waves(plan, tb_k, ch_k, 0, lo, plain=False, ser=ser_k, route="chunk", joint=joint)
+    torch.cuda.synchronize()
+    before = retry_records(tb_k)
+    att0 = int(tb_k.reject.attempts.sum()) if series else None
+    state0 = (clone_tables(tb_k), ch_k.clone())
+    others = [(clone_tables(tb_k), ch_k.clone(), clone_series(ser_k) if series else None)
+              for _ in range(2)]
+    K.reset_launch_counts()
+    with forced_k6_plan(C) if C else contextlib.nullcontext():
+        run_waves(plan, tb_k, ch_k, lo, hi, plain=False, ser=ser_k, route="chunk", joint=joint)
+        torch.cuda.synchronize()
+    launches = retry_launch_counts()
+    cluster = plan_of(K.chunk_replay)
+    if launches["chunk_replay"] != 1 or launches["chunk_replay_retry"] != 1:
+        raise AssertionError(f"{where}: the window launched {launches}")
+    (tb_t, ch_t, ser_t), (tb_s, ch_s, ser_s) = others
+    twin_s = None
+    if twin:
+        t0 = time.perf_counter()
+        run_waves(plan, tb_t, ch_t, lo, hi, plain=True, ser=ser_t, route="chunk", joint=joint)
+        torch.cuda.synchronize()
+        twin_s = time.perf_counter() - t0
+    run_waves(plan, tb_s, ch_s, lo, hi, plain=False, ser=ser_s, route="slot", joint=joint)
+    for name, tb_o, ch_o, ser_o in ((("its twin", tb_t, ch_t, ser_t),) if twin else ()) + (
+            ("the per-slot kernels", tb_s, ch_s, ser_s),):
+        at = f"{where}: K6 (retry) vs {name}"
+        same_planes(at, tb_k, ch_k, tb_o, ch_o)
+        _same_reject(at, tb_k, tb_o)
+        if series:
+            _same_series(at, ser_k, ser_o)
+    slots = int((plan.idx[lo:hi] >= 0).sum())
+    out = dict(boundary=b, waves=[lo, hi], slots=slots, cluster=cluster,
+               attempts_added=int(tb_k.reject.attempts.sum()) - att0 if series else None,
+               scenarios_holding=int((before["rbuf"][:, 0] >= 0).sum()),
+               pass_slots=int((before["rbuf"] >= 0).sum()),
+               pending_due=int(((before["pend_id"] >= 0) & (before["pend_relb"] <= b)).sum()),
+               retried_binds=int((tb_k.retry.rbind_b.cpu().numpy() == b).sum()),
+               twin_window_s=twin_s, max_abs_err=0.0)
+    # The window's least time: K6's waves and the boundary phase as one function.
+    a = np.full((eng.S, eng.pods.num_pods), PAD, np.int32)
+    flat = plan.idx.reshape(-1)
+    W = plan.idx.shape[1]
+    cols = np.arange(lo * W, hi * W)
+    v = flat[cols] >= 0
+    a[:, flat[cols][v]] = ch_k[:, cols[v]].cpu().numpy()
+    work = Work(eng.pods, tb_k)
+    step = dict(rbuf=before["rbuf"], pend_id=before["pend_id"], pend_node=before["pend_node"],
+                pend_relb=before["pend_relb"], rchoice=tb_k.retry.rchoice.cpu().numpy())
+    nb, no = work.k6(plan.idx[lo:hi], plan.gang_wave[lo:hi], a, lo, append=True)
+    pb, po = work.retry_phase(step, b, plan.tbt.size)
+    out["bound_ms"], out["bound_by"] = bound(nb + pb, no + po)
+    out["boundary_bound_ms"], _ = bound(pb, po)
+    if timed:
+        out.update(time_k6_retry(eng, b, hi, state0, dev, joint))
+    print(f"{where}: K6's retry mode == {'its twin == ' if twin else ''}the per-slot kernels "
+          f"over boundary {b} and "
+          f"waves {lo}..{hi} ({json.dumps({k: v for k, v in out.items() if k != 'cluster'})}, "
+          f"cluster {json.dumps(cluster)}); choices, every plane, retry record"
+          f"{', reject counter and sample' if series else ''}", flush=True)
+    return out
+
+
+def time_k6_retry(eng, b, hi, state0, dev, joint, iters=20):
+    """Waves [b·C, hi) of ``eng``'s run (chunk b's boundary and its first
+    waves) timed three ways from ``state0`` (the tables and choices after
+    chunks [0, b)) after the boundary's static release: K6's retry mode
+    (``new_ms``), the per-slot boundary sequence then a summary K6 over the
+    same waves (``old_ms``) in turns (new, old, old, new), and the summary
+    K6 alone from the state after the sequence (``k6_ms``); the two routes
+    must give the same tables."""
+    from kubernetes_simulator_tpu_torch.sim.torch_runtime import joint_release, run_retry_boundary
+
+    plan = eng.plan
+    lo = b * plan.C
+    desc = plan.device_desc(dev)
+    tb, ch = clone_tables(state0[0]), state0[1].clone()
+    h = K.Bound(tb)
+    rt = tb.retry
+    bucket = (tuple(torch.as_tensor(x, device=dev) for x in plan.buckets[b])
+              if plan.buckets[b] is not None else None)
+    if joint:
+        joint_release(b, h, K.apply_placements, rt, ch, bucket)
+    elif bucket is not None:
+        K.apply_placements(h, *bucket, ch, -1.0)
+    torch.cuda.synchronize()
+    t_b = float(np.float32(plan.tb[b]))
+    pos_rb = torch.arange(rt.rbuf.shape[1], dtype=torch.int32, device=dev)
+    fns = (K.filter_score, K.normalize_select, K.apply_placements, K.retry_boundary)
+
+    def snapshot():
+        return {name: x.clone() for name, x in _planes(tb).items()}, ch.clone()
+
+    def restorer(snap):
+        def restore():
+            for name, x in _planes(tb).items():
+                x.copy_(snap[0][name])
+            ch.copy_(snap[1])
+        return restore
+
+    pre = snapshot()
+    new = lambda: K.chunk_replay(h, desc.idx, desc.gang, ch, lo, hi, append=True,
+                                 retry=(b, t_b, not joint))
+    summary = lambda: K.chunk_replay(h, desc.idx, desc.gang, ch, lo, hi, append=True)
+
+    def old():
+        run_retry_boundary(plan, b, h, fns, rt, pos_rb, None, joint)
+        summary()
+
+    new()
+    after_new = snapshot()
+    restorer(pre)()
+    run_retry_boundary(plan, b, h, fns, rt, pos_rb, None, joint)
+    post = snapshot()
+    summary()
+    torch.cuda.synchronize()
+    for name, x in _planes(tb).items():
+        if not torch.equal(x, after_new[0][name]):
+            raise AssertionError(f"chunk {b}: K6's retry mode != the per-slot sequence + K6 "
+                                 f"({name})")
+    if not torch.equal(ch, after_new[1]):
+        raise AssertionError(f"chunk {b}: K6's retry mode != the per-slot sequence + K6 (choices)")
+    turns = []
+    for fn in (new, old, old, new):
+        turns.append(launch_ms(fn, restorer(pre), iters))
+    k6_ms = launch_ms(summary, restorer(post), iters)
+    new_ms, old_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+    return dict(new_ms=new_ms, old_ms=old_ms, turns_ms=turns, k6_ms=k6_ms,
+                boundary_new_ms=new_ms - k6_ms, boundary_old_ms=old_ms - k6_ms,
+                pass_slots_run=int(state0[0].retry.rcount.sum()),
+                slot_route_pass_launches=3 * retry_slots(plan, b, rt.rbuf.shape[1]) + 2 - joint)
+
+
+def retry_case_s4(dev):
+    """The S = 4 retry what-if of tests/test_torch_kernels_cuda.py
+    (``_retry_case``): 3 nodes, 300 pods with affinity, spread,
+    tolerations, short durations and gangs arriving fast, four
+    ``uniform_scenarios`` (node loss, capacity, taints), wave width 4,
+    chunkWaves 3, retryBuffer 8: buffers fill and overflow."""
+    cluster = make_cluster(3, seed=3, taint_fraction=0.2)
+    workload, _ = make_workload(300, seed=3, arrival_rate=120.0, duration_mean=3.0,
+                                with_affinity=True, with_spread=True, with_tolerations=True,
+                                gang_fraction=0.05, gang_size=2)
+    ec, ep = encode(cluster, workload)
+    scen = uniform_scenarios(ec, 4, seed=1, p_node_down=0.5, p_capacity=0.5, p_taint=0.5)
+    return WhatIfEngine(ec, ep, scen, FrameworkConfig(), wave_width=4, chunk_waves=3,
+                        retry_buffer=8, device=dev)
+
+
 def run_retry_paths(results, dev):
-    """The retry buffer at full width. CONFIG7's what-if as shipped (64
-    ``uniform_scenarios(seed=0)`` x 500 nodes x 20,000 pods) with the
-    counters zeroed just before its warm-up run and read just after: every
-    scenario places every pod with no drop, scenario 0 equals
-    greedy_replay's pins, the batch without the buffer places fewer; a
-    median of 3 timed runs and one profiled run; B6's bound. Then ``run``'s
-    engine on CONFIG7 (S = 1) against the same pins, and the contended
-    what-if (CONFIG7 cut to 150 nodes): its pins, the batch without the
-    buffer differing, and each kernel held against its twin and timed at
-    the boundary where the most scenarios hold buffered pods."""
+    """The retry buffer at full width, on the chunk route (one K6 a chunk,
+    each past the first in its retry mode: the pending release, the retry
+    pass and K4's bookkeeping inside the launch). CONFIG7's what-if as
+    shipped (64 ``uniform_scenarios(seed=0)`` x 500 nodes x 20,000 pods)
+    with the counters zeroed just before its warm-up run and read just
+    after: every scenario places every pod with no drop, scenario 0 equals
+    greedy_replay's pins, the per-slot route (K1 -> K2 -> K3 a slot, the
+    retry pass and K4 between launches) places alike with the same retry
+    records in the same call, the batch without the buffer places fewer; a
+    median of 3 timed runs and one profiled run; B6's bound; K6's retry mode
+    held against its twin and the per-slot kernels over the densest
+    boundary's launch and timed there against the per-slot sequence. Then
+    ``run``'s engine on CONFIG7 (S = 1) against the same pins and its
+    per-slot route, and held likewise; the contended what-if (CONFIG7 cut
+    to 150 nodes): its pins, its per-slot route, the batch without the
+    buffer differing, each per-slot kernel held against its twin and timed
+    at the boundary where the most scenarios hold buffered pods, and K6's
+    retry mode held there at its plan's C and at 5 ranks forced, and timed;
+    the S = 4 retry what-if launch by launch from its initial state."""
     cfg, ec, ep = config7_case()
     rb = cfg.whatif.retry_buffer
     kw = dict(wave_width=cfg.wave_width, chunk_waves=cfg.chunk_waves, device=dev)
@@ -2833,66 +3133,88 @@ def run_retry_paths(results, dev):
     setup_s = time.perf_counter() - t0
     K.reset_launch_counts()
     warm = eng.run()
-    launches = K.launch_counts()
+    launches = retry_launch_counts()
     check_chunk_launches("config7 what-if", launches, eng.plan, retry=True)
     check_whatif_result(ep, warm, S)
     if (warm.placed != ep.num_pods).any() or warm.retry_dropped.any():
         raise AssertionError(f"config7 what-if: placed {warm.placed.min()}..{warm.placed.max()}, "
                              f"dropped {warm.retry_dropped.max()}")
     tb, _, assignments, placed, _ = eng._run()
+    rec = retry_records(tb)
     check_retry_pins("config7 what-if scenario 0", RETRY_PINS["config7"], placed[0],
                      warm.retry_dropped[0], assignments[0])
+    slot_launches, slot_wall = slot_route("config7 what-if", eng, assignments)
+    same_records("config7 what-if, per-slot route", rec, retry_records(eng.last_tables))
     runs = [eng.run() for _ in range(3)]
     for r in runs:
         if not np.array_equal(r.placed, warm.placed):
             raise AssertionError("the config7 what-if placed differently from run to run")
     walls = sorted(r.wall_clock_s for r in runs)
     wall = float(np.median(walls))
-    res_p, busy_s = profiled_busy_s(eng.run)
+    by_kernel = {}
+    res_p, busy_s = profiled_busy_s(eng.run, by_kernel)
     off_eng = WhatIfEngine(ec, ep, scen, cfg.framework, collect_assignments=True, **kw)
     off = off_eng.run()
     check_retry_pins("config7 what-if without retry, scenario 0", RETRY_PINS["config7_no_retry"],
                      off.placed[0], 0, off.assignments[0])
     if off.total_placed >= warm.total_placed:
         raise AssertionError("config7 what-if: the buffer did not place more")
-    rnode = tb.retry.rnode.cpu().numpy()
+    rnode = rec["rnode"]
     walk = retry_walk(eng, dev)
-    mark("13 config7 what-if runs, walk")
+    mark("13 config7 what-if runs, per-slot route, walk")
     results["chunk_loop_bound_ms_config7_whatif"] = Work(ep, eng._tables()).chunk_loop_ms(
         eng.plan, np.where(rnode >= 0, PAD, assignments), launches, retry_walk=walk)
     slots = [retry_slots(eng.plan, b, eng.retry_buffer) for b in range(1, len(eng.plan.buckets))]
+    hold7 = hold_k6_retry("config7 what-if, K6's retry mode", eng, densest_boundary(walk), dev,
+                          timed=True)
     results["config7_whatif"] = dict(
         scenarios=S, nodes=ec.num_nodes, pods=ep.num_pods, retry_buffer=eng.retry_buffer,
         chunk_waves_run=eng.plan.C, setup_s=setup_s, route=warm.route, launches=launches,
-        launches_detail=dict(pass_slots_per_boundary=slots,
-                             retry_launches=3 * sum(slots) + 2 * len(slots)),
+        slot_route=dict(launches=slot_launches, wall_s=slot_wall,
+                        pass_slots_per_boundary=slots,
+                        retry_launches=3 * sum(slots) + 2 * len(slots)),
         walls_s=walls, wall_s=wall, placements_per_s=warm.total_placed / wall,
         total_placed=warm.total_placed, total_placed_without_retry=off.total_placed,
         retried_binds=int((rnode >= 0).sum()), profiled_wall_s=res_p.wall_clock_s,
-        device_busy_s=busy_s, device_busy_share=busy_s / res_p.wall_clock_s if busy_s else None)
-    print(f"config7 retry what-if (route {warm.route} + the host's retry pass, {S} scenarios "
-          f"x {ec.num_nodes} nodes x {ep.num_pods} pods, "
+        device_busy_s=busy_s, device_busy_share=busy_s / res_p.wall_clock_s if busy_s else None,
+        k6_device_s=k6_device_s(by_kernel), k6_retry_window=hold7)
+    print(f"config7 retry what-if (route {warm.route}, K6's retry mode at each boundary, {S} "
+          f"scenarios x {ec.num_nodes} nodes x {ep.num_pods} pods, "
           f"retryBuffer {eng.retry_buffer}, chunkWaves {eng.plan.C}): median wall {wall:.3f}s of "
           f"{[round(x, 3) for x in walls]}, {warm.total_placed / wall:.1f} aggregate placements/s, "
           f"every scenario placed {ep.num_pods} with 0 dropped ({int((rnode >= 0).sum())} on "
           f"retry; {off.total_placed} without the buffer); scenario 0 == greedy_replay's pins; "
-          f"launches {json.dumps(launches)}; profiled: wall {res_p.wall_clock_s:.3f}s, device "
-          f"busy {busy_s:.3f}s ({busy_s / res_p.wall_clock_s:.1%}); B6 bound "
+          f"launches {json.dumps(launches)}; the per-slot route places alike with the same retry "
+          f"records in {slot_wall:.3f}s, launches {json.dumps(slot_launches)}; profiled: wall "
+          f"{res_p.wall_clock_s:.3f}s, device busy "
+          f"{busy_s:.3f}s ({busy_s / res_p.wall_clock_s:.1%}); B6 bound "
           f"{json.dumps(results['chunk_loop_bound_ms_config7_whatif'])} ms", flush=True)
     del eng, off_eng, tb, res_p
 
-    mark("13 config7 B6 bound")
+    mark("13 config7 B6 bound, K6 retry window")
     single = TorchReplayEngine(ec, ep, cfg.framework, retry_buffer=rb, **kw)
     single.replay()
+    K.reset_launch_counts()
     res1 = single.replay()
+    launches1 = retry_launch_counts()
+    check_chunk_launches("config7 run", launches1, single.plan, retry=True)
     check_retry_pins("config7 run", RETRY_PINS["config7"], res1.placed, res1.retry_dropped,
                      res1.assignments)
+    rec1 = retry_records(single.last_tables)
+    slot1, slot1_wall = slot_route("config7 run", single, res1.assignments[None], joint=True)
+    same_records("config7 run, per-slot route", rec1, retry_records(single.last_tables))
+    hold1 = hold_k6_retry("config7 run, K6's retry mode", single,
+                          densest_boundary(retry_walk(single, dev)), dev, joint=True)
     results["config7_run"] = dict(wall_s=res1.wall_clock_s,
-                                  placements_per_s=res1.placements_per_sec, placed=res1.placed)
+                                  placements_per_s=res1.placements_per_sec, placed=res1.placed,
+                                  launches=launches1, slot_route=dict(launches=slot1,
+                                                                      wall_s=slot1_wall),
+                                  k6_retry_window=hold1)
     print(f"config7 run (S=1, retryBuffer {rb}, route {res1.route}): wall "
           f"{res1.wall_clock_s:.3f}s, "
           f"{res1.placements_per_sec:.1f} placements/s, placed {res1.placed} == greedy_replay's "
-          f"pins", flush=True)
+          f"pins == the per-slot route ({slot1_wall:.3f}s; retry records equal); launches "
+          f"{json.dumps(launches1)}", flush=True)
     del single
 
     cfg, ec, ep = config7_case(nodes=RETRY_CUT_NODES)
@@ -2900,10 +3222,15 @@ def run_retry_paths(results, dev):
     eng = WhatIfEngine(ec, ep, scen, cfg.framework, retry_buffer=rb, **kw)
     K.reset_launch_counts()
     warm = eng.run()
-    launches3 = K.launch_counts()
+    launches3 = retry_launch_counts()
+    check_chunk_launches(f"{RETRY_CUT_NODES}-node what-if", launches3, eng.plan, retry=True)
     tb, _, assignments, placed, _ = eng._run()
+    rec3 = retry_records(tb)
     check_retry_pins(f"{RETRY_CUT_NODES}-node what-if scenario 0", RETRY_PINS["cut150"],
                      placed[0], warm.retry_dropped[0], assignments[0])
+    slot3, slot3_wall = slot_route(f"{RETRY_CUT_NODES}-node what-if", eng, assignments)
+    same_records(f"{RETRY_CUT_NODES}-node what-if, per-slot route", rec3,
+                 retry_records(eng.last_tables))
     off = WhatIfEngine(ec, ep, scen, cfg.framework, collect_assignments=True, **kw).run()
     check_retry_pins(f"{RETRY_CUT_NODES}-node what-if without retry, scenario 0",
                      RETRY_PINS["cut150_no_retry"], off.placed[0], 0, off.assignments[0])
@@ -2916,13 +3243,15 @@ def run_retry_paths(results, dev):
         wall_s=warm.wall_clock_s, total_placed=warm.total_placed,
         total_placed_without_retry=off.total_placed, placed=warm.placed.tolist(),
         retry_dropped=warm.retry_dropped.tolist(), scenarios_overflowing=overflowing,
+        slot_route=dict(launches=slot3, wall_s=slot3_wall),
         pending_entries_max=int(max((st["pend_id"] >= 0).sum(axis=1).max() for st in walk)))
     print(f"contended retry what-if ({S} x {ec.num_nodes} nodes x {ep.num_pods} pods, route "
           f"{warm.route}): placed "
           f"{int(warm.placed.min())}..{int(warm.placed.max())} (without the buffer "
           f"{int(off.placed.min())}..{int(off.placed.max())}), {overflowing} scenarios "
-          f"overflowing; scenario 0 == greedy_replay's pins; wall {warm.wall_clock_s:.3f}s; "
-          f"launches {json.dumps(launches3)}", flush=True)
+          f"overflowing; scenario 0 == greedy_replay's pins; wall {warm.wall_clock_s:.3f}s "
+          f"(per-slot route {slot3_wall:.3f}s, same retry records); launches "
+          f"{json.dumps(launches3)}", flush=True)
     mark("14 cut150 what-if runs, walk")
     snaps, bnd = hold_retry(f"S={S} retry kernel checks ({RETRY_CUT_NODES} nodes)", eng, walk,
                             dev, results)
@@ -2932,7 +3261,19 @@ def run_retry_paths(results, dev):
     print(f"retry kernels at S={S}, N={ec.num_nodes}: "
           + "; ".join(f"{k} {m['ms'] * 1e3:.2f} us (bound {m['bound_ms'] * 1e3:.4f} us, twin "
                       f"{m['plain_ms']:.3f} ms)" for k, m in kernels.items()), flush=True)
-    return kernels, launches
+    # K6's retry mode over the same boundary and 8 waves against the per-slot
+    # kernels (just held against the twins above), with 5 ranks forced and at
+    # the plan's C (1), timed there; the twins' retry pass at S = 64 costs
+    # ≈0.2 s a slot (the 150-node cut's window against the twin at 5 ranks
+    # runs at S = 1 in step 21 (c)).
+    k6r = {f"C={c or 'plan'}": hold_k6_retry(
+        f"{RETRY_CUT_NODES}-node what-if, K6's retry mode (C {c or 'plan'})", eng, bnd, dev,
+        C=c, timed=c is None, twin=False) for c in (5, None)}
+    k6r["S=4 from the start"] = k6_retry_route("S=4 retry what-if", retry_case_s4(dev), dev)
+    results["k6_retry"] = k6r
+    mark("15 K6 retry holds, time")
+    return kernels, launches, slot_launches, hold7
+
 
 # ---------------------------------------------------------------------------
 # Series and timeline telemetry (telemetry: series | timeline)
@@ -3108,16 +3449,40 @@ def time_first_reject(tb, pods, gate, iters=200, plain_iters=10, wrapper=None):
                 launch_interval_ms=interval, plain_ms=plain_ms)
 
 
-def force_k6_ranks(b, C):
-    """K6's geometry on Bound ``b`` (S = 1) with C ranks a cluster, whatever
-    the card's SM count would choose (ops/kernels.py cluster_plan): spans of
-    a multiple of 32 nodes, the last rank short. Returns the C it took."""
-    N = b.tables.state.used.shape[1]
+def k6_plan_of(C, S, N):
+    """K6's geometry over S scenarios of N nodes with C ranks a cluster,
+    whatever the card's SM count would choose (ops/kernels.py cluster_plan):
+    spans of a multiple of 32 nodes, the last rank short."""
     span = -(-(-(-N // C)) // 32) * 32
     C = -(-N // span)
-    b._plans["chunk_replay"] = K.ClusterPlan(S=1, N=N, NP=1, C=C, threads=K.SELECT_THREADS,
-                                             span=span, grid=C)
-    return C
+    return K.ClusterPlan(S=S, N=N, NP=1, C=C, threads=K.SELECT_THREADS, span=span, grid=S * C)
+
+
+def force_k6_ranks(b, C):
+    """K6's geometry on Bound ``b`` with C ranks a cluster (:func:`k6_plan_of`).
+    Returns the C it took."""
+    S, N = b.tables.state.used.shape[:2]
+    plan = b._plans["chunk_replay"] = k6_plan_of(C, S, N)
+    return plan.C
+
+
+@contextlib.contextmanager
+def forced_k6_plan(C):
+    """Every K6 launch inside takes C ranks a cluster (:func:`k6_plan_of`),
+    also through the Bounds run_waves makes: ops/kernels.py select_plan,
+    replaced for K6 while the block runs."""
+    orig = K.select_plan
+
+    def select(name, tb):
+        if name != "chunk_replay":
+            return orig(name, tb)
+        return k6_plan_of(C, *tb.state.used.shape[:2])
+
+    K.select_plan = select
+    try:
+        yield
+    finally:
+        K.select_plan = orig
 
 
 def series_chunk_launches(where, res, launches, attributed, plan):
@@ -3135,13 +3500,33 @@ def series_chunk_launches(where, res, launches, attributed, plan):
 
 
 def series_retry_launches(where, res, launches, attributed, plan):
-    """A series run on the retry path: the chunk route (one K6 a chunk, none
-    attributed), the retry pass's K1, K2, K3, K4 and K5, K5's chunk folds."""
+    """A series run on the retry path (``launches`` from
+    :func:`retry_launch_counts`): the chunk route, one K6 a chunk (none
+    attributed; each past the first in its retry mode, which charges the
+    retry pass), K5 only as the chunk folds, no K1, K2, K3 bind or K4."""
     check_chunk_launches(where, launches, plan, retry=True)
-    if (res.route != "chunk" or attributed or launches["first_reject"] <= 0
-            or launches["first_reject_fold"] <= 0):
+    if res.route != "chunk" or attributed or launches["first_reject_fold"] <= 0:
         raise AssertionError(f"{where}: route {res.route}, {attributed} attributed K6 "
                              f"launches, launches {launches}")
+
+
+def series_slot_route(where, eng, res):
+    """``eng``'s series run on the retry path (just replayed, ``res``) against
+    the same run on the per-slot route in the same call (the retry pass and
+    K4 between K6-less per-slot launches, K5 in each pass slot): the
+    assignments, every retry record, the reject counters and the boundary
+    samples equal. Returns (its launches, its wall)."""
+    rec, ser = retry_records(eng.last_tables), clone_series(eng.last_series)
+    rj = [x.clone() for x in eng.last_tables.reject]
+    launches, wall = slot_route(where, eng, res.assignments[None], series=True, joint=True)
+    same_records(f"{where}, per-slot route", rec, retry_records(eng.last_tables))
+    _same_series(f"{where}, per-slot route", ser, eng.last_series)
+    for f, x, y in zip(eng.last_tables.reject._fields, rj, eng.last_tables.reject):
+        if not torch.equal(x, y):
+            raise AssertionError(f"{where}, per-slot route: reject.{f} differs")
+    if launches["first_reject"] <= 0 or launches["retry_boundary"] <= 0:
+        raise AssertionError(f"{where}, per-slot route: launches {launches}")
+    return launches, wall
 
 
 def hold_k6_attributed(where, eng, first, end, dev, assignments, C=None):
@@ -3243,11 +3628,13 @@ def run_series_paths(results, dev):
     nodes x unschedulable and attempts = reasons, equal to the per-slot
     route (K5 after every slot's K2) in assignments and reject counters;
     (b) CONFIG7 as shipped through the port's CLI ``run`` with ``telemetry:
-    series`` and ``timelineOut`` (the retry path on the chunk route: K5's
-    folds and retry pass between K6 launches), the row, the events and the
-    Chrome trace against REJECT_PINS and the placements against
-    RETRY_PINS; (c) the 150-node cut at ``timeline`` against REJECT_PINS
-    and RETRY_PINS; (d) config13 through the CLI at ``series`` (node shards:
+    series`` and ``timelineOut`` (the retry path on the chunk route: K6's
+    retry mode charging the retry pass, K5's folds between K6 launches), the
+    row, the events and the Chrome trace against REJECT_PINS and the
+    placements against RETRY_PINS, its per-slot route in the same call and
+    K6's retry mode held over its densest boundary; (c) the 150-node cut at
+    ``timeline`` against REJECT_PINS, RETRY_PINS and its per-slot route, K6
+    held at C = 1 and 5 ranks; (d) config13 through the CLI at ``series`` (node shards:
     K9 with the pager, no attribution, the reference's note) placing as its
     summary run, and SHARD_CUT at ``series`` against SHARD_PINS. The walls
     of (a) at ``summary``, ``series`` on the chunk route and ``series`` on
@@ -3397,7 +3784,7 @@ def run_series_paths(results, dev):
     if cli.main(["run", path, "--device", dev.type]) != 0:
         raise AssertionError("config7 run through the CLI failed")
     cli_s = time.perf_counter() - t0
-    launches7 = K.launch_counts()
+    launches7 = retry_launch_counts()
     attributed7 = K.chunk_replay.attributed
     with open(d["output"]) as f:
         row = json.loads(f.read().splitlines()[-1])
@@ -3420,24 +3807,36 @@ def run_series_paths(results, dev):
             or row["telemetry"]["timeline_events"] != len(r7.telemetry.events)
             or len(doc["traceEvents"]) == 0):
         raise AssertionError(f"config7 run (CLI): row {row['telemetry']} or trace disagree")
-    walls7 = {"summary": [], "timeline": []}
-    for g in ("summary", "timeline", "timeline", "summary"):
-        walls7[g].append(e7[g].replay().wall_clock_s)
+    slot7, slot7_wall = series_slot_route("config7 run at timeline", e7["timeline"], r7)
+    walls7 = {"summary": [], "timeline": [], "timeline_slot": []}
+    for g in ("summary", "timeline", "timeline_slot", "timeline_slot", "timeline", "summary"):
+        walls7[g].append(e7["timeline"]._run(series=True, route="slot", joint=True)[1]
+                         if g == "timeline_slot" else e7[g].replay().wall_clock_s)
     res_p, busy7 = profiled_busy_s(e7["timeline"].replay)
+    ev7 = chunk_events_s(e7["timeline"], dev, True)
+    hold7 = hold_k6_retry("(b) config7 run at timeline, K6's retry mode", e7["timeline"],
+                          densest_boundary(retry_walk(e7["timeline"], dev)), dev, joint=True,
+                          series=True)
     out["config7"] = dict(nodes=ec7.num_nodes, pods=ep7.num_pods, placed=r7.placed,
                           reasons=r7.telemetry.reasons, events=len(r7.telemetry.events),
                           trace_events=len(doc["traceEvents"]), cli_s=cli_s, launches=launches7,
+                          slot_route=dict(launches=slot7, wall_s=slot7_wall),
                           walls_s=walls7, profiled_wall_s=res_p.wall_clock_s,
                           device_busy_s=busy7,
-                          device_busy_share=busy7 / res_p.wall_clock_s if busy7 else None)
+                          device_busy_share=busy7 / res_p.wall_clock_s if busy7 else None,
+                          chunk_events_device_s=ev7, chunk_events_busy_share=ev7 / float(
+                              np.median(walls7["timeline"])), k6_retry_window=hold7)
     print(f"(b) config7 run through the CLI (series + timelineOut, retryBuffer {rb}, route "
           f"{r7.route}): placed "
           f"{r7.placed}, {len(r7.telemetry.events)} events, trace of {len(doc['traceEvents'])} "
           f"events parses, == REJECT_PINS (trace sha256 included) and RETRY_PINS; CLI "
           f"{cli_s:.2f} s; launches "
-          f"{json.dumps(launches7)}; walls timeline {[round(w, 3) for w in walls7['timeline']]} s"
-          f" vs summary {[round(w, 3) for w in walls7['summary']]} s; profiled busy "
-          f"{busy7 / res_p.wall_clock_s:.1%}", flush=True)
+          f"{json.dumps(launches7)}; == the per-slot route (assignments, retry records, reject "
+          f"counters, samples); walls timeline {[round(w, 3) for w in walls7['timeline']]} s vs "
+          f"summary {[round(w, 3) for w in walls7['summary']]} s vs timeline per slot "
+          f"{[round(w, 3) for w in walls7['timeline_slot']]} s; profiled busy "
+          f"{busy7 / res_p.wall_clock_s:.1%}; CUDA events chunk by chunk {ev7:.4f} s of device "
+          f"time", flush=True)
     del e7, r7, res_p
 
     mark("21 (b) config7 CLI, runs")
@@ -3448,16 +3847,22 @@ def run_series_paths(results, dev):
                             device=dev)
     K.reset_launch_counts()
     rc = ec_.replay()
-    launchesc = K.launch_counts()
+    launchesc = retry_launch_counts()
     series_retry_launches(f"the {RETRY_CUT_NODES}-node cut at timeline", rc, launchesc,
                           K.chunk_replay.attributed, ec_.plan)
+    slotc, slotc_wall = series_slot_route(f"the {RETRY_CUT_NODES}-node cut at timeline", ec_, rc)
     check_series_pins(f"{RETRY_CUT_NODES}-node cut at timeline", REJECT_PINS["cut150"],
                       rc.telemetry)
     check_retry_pins(f"{RETRY_CUT_NODES}-node cut at timeline", RETRY_PINS["cut150"], rc.placed,
                      rc.retry_dropped, rc.assignments)
+    bc = densest_boundary(retry_walk(ec_, dev))
+    holdc = {f"C={c or 'plan'}": hold_k6_retry(
+        f"(c) {RETRY_CUT_NODES}-node cut at timeline, K6's retry mode (C {c or 'plan'})", ec_,
+        bc, dev, C=c, joint=True, series=True, twin=c is not None) for c in (None, 5)}
     out["cut150"] = dict(placed=rc.placed, retry_dropped=rc.retry_dropped,
                          reasons=rc.telemetry.reasons, launches=launchesc,
-                         wall_s=rc.wall_clock_s)
+                         wall_s=rc.wall_clock_s, slot_route=dict(launches=slotc, wall_s=slotc_wall),
+                         k6_retry_windows=holdc)
     print(f"(c) {RETRY_CUT_NODES}-node cut at timeline (route {rc.route}): placed "
           f"{rc.placed}, dropped "
           f"{rc.retry_dropped}, reasons {json.dumps(rc.telemetry.reasons)}, attempts "
@@ -3502,8 +3907,15 @@ def run_series_paths(results, dev):
             break
     else:
         raise AssertionError("K5 at S=4: no window near the end of the run charged anything")
-    # K5's row: the retry path's per-slot launches in (b), the main run
+    # K6's retry mode charging the retry pass, over the same boundary.
+    n4 = hold_k6_retry(f"S=4 config7 cut at series, K6's retry mode (boundary {b4})", w4, b4,
+                       dev, series=True)
+    if not n4["attempts_added"]:
+        raise AssertionError(f"S=4 config7 cut at series: nothing charged: {n4}")
+    results["k6_retry_series_s4"] = n4
+    # K5's row: (b)'s main run (0: K6 charges the retry pass) and its per-slot route
     kernels["first_reject"]["launches"] = launches7["first_reject"]
+    kernels["first_reject"]["slot_route_launches"] = slot7["first_reject"]
     mark("21 S=4 K5 holds")
     out["config13"] = run_series_shards(results, dev)
     results["series"] = out
@@ -4899,8 +5311,7 @@ def main() -> int:
     results["k9_attrs"] = K.shard_chunk_replay_attrs()
     print(f"K9 shard_chunk_replay (cudaFuncGetAttributes): {json.dumps(results['k9_attrs'])}",
           flush=True)
-    results["k6_attrs"] = {m: K.chunk_replay_attrs(m == "attributed")
-                           for m in ("summary", "attributed")}
+    results["k6_attrs"] = {m: K.chunk_replay_attrs(m) for m in K.CHUNK_REPLAY_MODES}
     print(f"K6 chunk_replay (cudaFuncGetAttributes): {json.dumps(results['k6_attrs'])}",
           flush=True)
 
@@ -5091,7 +5502,7 @@ def main() -> int:
     # Steps 12-15: the retry buffer.
     check_reduced_retry(results)
     mark("12 reduced retry")
-    rkernels, rlaunches = run_retry_paths(results, dev)
+    rkernels, rlaunches, rslot, k6retry = run_retry_paths(results, dev)
     mark("15 retry kernel times")
     # Steps 16-19: label perturbations (set_label).
     check_reduced_relabel(results)
@@ -5159,14 +5570,36 @@ def main() -> int:
             "library_ms": m["library_ms"],
             **({"cluster": m["cluster"]} if "cluster" in m else {}),
         })
+    # The retry pass's per-slot kernels: config7's what-if on the chunk route
+    # runs them inside K6's retry mode (0 launches), its per-slot route
+    # launches them (slot_route_launches; the pending release is counted
+    # with the static ones there, as K3's release mode).
     for k, m in rkernels.items():
         kernel, replaces = RETRY_SOURCES[k] if k in RETRY_SOURCES else (k, SOURCES[k][1])
+        key = K3_ROW_MODE.get(k, kernel)
         table.append({
             "name": k, "route": "cuda", "source": SOURCES[kernel][0], "replaces": replaces,
-            "launches": rlaunches[K3_ROW_MODE.get(k, kernel)], "max_abs_err": 0.0, "ms": m["ms"],
+            "launches": 0 if k == "apply_placements_pending_release" else rlaunches[key],
+            "slot_route_launches": rslot[key], "max_abs_err": 0.0, "ms": m["ms"],
             "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
             "library_ms": m["library_ms"],
         })
+    # K6's retry mode: its launches on config7's what-if; one launch over the
+    # 150-node cut's densest boundary and the 8 waves after it, timed beside
+    # the per-slot sequence and a summary K6, its twin's wall and its bound.
+    table.append({
+        "name": "chunk_replay_retry", "route": "cuda",
+        "source": "kubernetes_simulator_tpu_torch/csrc/chunk_replay_retry.cu",
+        "replaces": "kubernetes_simulator_tpu/sim/whatif.py:1413",
+        "launches": rlaunches["chunk_replay_retry"], "slot_route_launches": 0,
+        "max_abs_err": k6retry["max_abs_err"], "ms": k6retry["new_ms"],
+        "plain_ms": k6retry["twin_window_s"] * 1e3, "bound_ms": k6retry["bound_ms"],
+        "bound_by": k6retry["bound_by"],
+        # no single PyTorch call runs a chunk of the scheduler's waves
+        "library_ms": None, "cluster": k6retry["cluster"],
+        "old_route_ms": k6retry["old_ms"], "summary_k6_ms": k6retry["k6_ms"],
+        "window_waves": k6retry["waves"],
+    })
     for k, (kernel, replaces) in LABEL_SOURCES.items():
         m = lkernels[kernel]
         table.append({

@@ -146,41 +146,6 @@ __device__ __forceinline__ int ksim_release_node(const KsimRelease& r, int64_t s
   return n;
 }
 
-// The count-plane cells of pod p at node n: f(plane, cell, term) for each
-// (0 match_count, 1 anti_active, 2 pref_wsum), the term an integer. The
-// pod's pmg row is read a 4-byte word at a time (most of it is zero).
-template <class F>
-__device__ __forceinline__ void ksim_release_cells(const KsimArgs& a, const int32_t* gdom, int p,
-                                                   int n, F f) {
-  const int N = a.N, G = a.G, D = a.D;
-  const uint8_t* row = a.pmg + (size_t)p * G;
-  const uint32_t* w0 = (const uint32_t*)((uintptr_t)row & ~(uintptr_t)3);
-  const int skip = (int)((uintptr_t)row & 3);  // bytes of the first word before the row
-#pragma unroll 4
-  for (int w = 0; 4 * w - skip < G; ++w) {
-    const uint32_t v = w0[w];
-    if (!v) continue;
-    for (int b = 0; b < 4; ++b) {
-      const int g = 4 * w + b - skip;
-      if (g < 0 || g >= G || !((v >> (8 * b)) & 0xffu)) continue;
-      const int dom = gdom[(size_t)g * N + n];
-      if (dom >= 0) f(0, g * D + dom, 1);
-    }
-  }
-  for (int t = 0; t < a.AA; ++t) {
-    const int g = a.anti_req[p * a.AA + t];
-    if (g < 0) continue;
-    const int dom = gdom[(size_t)g * N + n];
-    if (dom >= 0) f(1, g * D + dom, 1);
-  }
-  for (int t = 0; t < a.PA; ++t) {
-    const int g = a.pref_aff[p * a.PA + t];
-    if (g < 0) continue;
-    const int dom = gdom[(size_t)g * N + n];
-    if (dom >= 0) f(2, g * D + dom, (int)a.pref_aff_w[p * a.PA + t]);
-  }
-}
-
 // Blocks [0, S·tiles): a block a (scenario, tile), the sort; the rest: a
 // thread a (scenario, pair), the count planes' integer deltas.
 __global__ void __launch_bounds__(K3R_THREADS) ksim_release_sort_kernel(KsimArgs a, KsimRelease r) {

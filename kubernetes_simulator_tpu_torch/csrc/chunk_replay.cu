@@ -1,8 +1,9 @@
 // K6 chunk_replay: the summary build of the kernel in chunk_replay.cuh (its
-// description there) and K6's entry points. The attributed mode's
-// instantiation is compiled in chunk_replay_attributed.cu, linked into the
-// same library (ops/kernels.py builds both sources into one), so this
-// translation unit compiles the summary kernel alone, as before the mode.
+// description there) and K6's entry points. The attributed and retry modes'
+// instantiations are compiled in chunk_replay_attributed.cu and
+// chunk_replay_retry.cu, linked into the same library (ops/kernels.py builds
+// the three sources into one), so this translation unit compiles the summary
+// kernel alone, as before the modes.
 #include "ksim.cuh"
 
 // Phase stamps, for scripts/cluster_sweep.py --split alone: that script builds
@@ -47,7 +48,8 @@ KSIM_EXPORT int ksim_chunk_replay(const KsimArgs* args, const int32_t* idx, cons
                                   int32_t* choices, long long choice_ss, int W, int first,
                                   int end, int boundary, int append, int C, int threads,
                                   int span, int32_t* reasons, int32_t* attempts,
-                                  uint8_t* attributed, int K, long long attr_ss, void* stream) {
+                                  uint8_t* attributed, int K, long long attr_ss,
+                                  const KsimRetryPhase* retry, int retry_size, void* stream) {
   if (args->S < 1 || W < 1 || W > KSIM_MAX_WAVE || first < 0 || end < first)
     return (int)cudaErrorInvalidValue;
   if ((long long)end * W > choice_ss) return (int)cudaErrorInvalidValue;
@@ -58,33 +60,52 @@ KSIM_EXPORT int ksim_chunk_replay(const KsimArgs* args, const int32_t* idx, cons
       (long long)(C - 1) * span >= args->N)
     return (int)cudaErrorInvalidValue;
   // the attributed mode: the plain path's counters (no tier preemption, whose
-  // choice may be an eviction's node)
+  // choice may be an eviction's node); with a retry boundary, the retry
+  // pass's counters
   const bool attr = reasons != nullptr;
   if (attr && (!attempts || !attributed || K < 1 || K > KSIM_PLUGINS || attr_ss < 1 ||
                args->preempt))
     return (int)cudaErrorInvalidValue;
+  // the retry mode: a boundary b > 0 of a run with the retry buffer, without
+  // tier preemption or node shards; samples given whole or not at all
+  if (retry) {
+    if (retry_size != (int)sizeof(KsimRetryPhase) || !args->retry || !append ||
+        args->preempt || args->NP != 1 || args->RB < 1 || args->RB > KSIM_MAX_RB ||
+        args->B < 1 || retry->b < 1 || end == first)
+      return (int)cudaErrorInvalidValue;
+    if (retry->used_out && (!retry->rcount_out || !retry->pend_out))
+      return (int)cudaErrorInvalidValue;
+    if (retry->snap_used && (!retry->snap_mc || !retry->snap_aa || !retry->snap_pw))
+      return (int)cudaErrorInvalidValue;
+  }
   if (end == first) return 0;
   int64_t css = (int64_t)choice_ss;
   void* params[] = {(void*)args, (void*)&idx,      (void*)&gang,   (void*)&choices,
                     (void*)&css, (void*)&W,        (void*)&first,  (void*)&end,
                     (void*)&boundary, (void*)&append, (void*)&span};
+  if (retry)
+    return ksim_chunk_replay_retry_launch(
+        params, args->S * C, C, *args,
+        KsimReject{reasons, attempts, attributed, K, (int64_t)attr_ss}, *retry,
+        (cudaStream_t)stream);
   if (attr)
     return ksim_chunk_replay_attributed_launch(
         params, args->S * C, C, KsimReject{reasons, attempts, attributed, K, (int64_t)attr_ss},
         (cudaStream_t)stream);
-  return ksim_launch_clusters((const void*)ksim_chunk_replay_kernel<false>, args->S * C,
+  return ksim_launch_clusters((const void*)ksim_chunk_replay_kernel<false, false>, args->S * C,
                               K6_THREADS, C, params, (cudaStream_t)stream);
 }
 
 // Registers a thread, static shared bytes and largest block of each mode's
-// kernel (cudaFuncGetAttributes; attributed = 0 the summary build's), for the
-// build's report.
-KSIM_EXPORT int ksim_chunk_replay_attrs(int attributed, int* regs, int* shared_bytes,
+// kernel (cudaFuncGetAttributes; mode 0 the summary build's, 1 the
+// attributed, 2 the retry), for the build's report.
+KSIM_EXPORT int ksim_chunk_replay_attrs(int mode, int* regs, int* shared_bytes,
                                         int* max_threads) {
   cudaFuncAttributes at;
-  cudaError_t e = attributed
-                      ? ksim_chunk_replay_attributed_attrs(&at)
-                      : cudaFuncGetAttributes(&at, (const void*)ksim_chunk_replay_kernel<false>);
+  const void* summary = (const void*)ksim_chunk_replay_kernel<false, false>;
+  cudaError_t e = mode == 2   ? ksim_chunk_replay_retry_attrs(&at)
+                  : mode == 1 ? ksim_chunk_replay_attributed_attrs(&at)
+                              : cudaFuncGetAttributes(&at, summary);
   if (e != cudaSuccess) return (int)e;
   *regs = at.numRegs;
   *shared_bytes = (int)at.sharedSizeBytes;

@@ -62,14 +62,42 @@
 // cluster, so the fold's cluster barrier is reached by every thread. The
 // summary instantiation compiles none of it, and each instantiation is
 // compiled in a translation unit of its own (chunk_replay.cu,
-// chunk_replay_attributed.cu, linked into one library): compiled side by
-// side, the two changed each other's register allocation and shared-memory
-// layout, and the summary build's code with it.
+// chunk_replay_attributed.cu and chunk_replay_retry.cu, linked into one
+// library): compiled side by side, the summary and attributed builds changed
+// each other's register allocation and shared-memory layout, and the summary
+// build's code with it.
+//
+// The retry mode (a third instantiation, RETRY; compiled in
+// chunk_replay_retry.cu) also replaces the boundary sequence of
+// sim/whatif.py:1413 per_scenario_retry (:1433-1494), the retry variant of
+// _build_chunk_fn's chunk program: a launch that starts a chunk at boundary
+// b > 0 first runs, in each scenario's cluster and in the reference's
+// order,
+//   (i)   the pending release of the list's due entries (relb <= b) on rank
+//         0 (ksim_pending_release: each node summed from zero in pair order,
+//         subtracted once), unless the host's K3 took them with the static
+//         bucket (the single replay's joint order); then a cluster barrier;
+//   (ii)  the retry pass, for k < rcount[s] (read once, uniform over the
+//         cluster: the buffer is dense from 0): the pod rbuf[s, k] through
+//         phase 1 and K2's body (the choice to rchoice[s, k]), at series a
+//         failed slot charged as K5 charges it (the counters in
+//         ksim_k6_reject), rank 0's K3 bind (no append: the buffer holds no
+//         gang pod, so no rollback), the cluster barrier; rchoice[s, k] for
+//         k >= rcount[s] is written PAD, as the per-slot route's K2 writes an
+//         empty slot's (its columns past its host bound were never written);
+//   (iii) K4's bookkeeping on rank 0 (ksim_retry_bookkeeping), then a
+//         cluster barrier;
+// and, given sample buffers (telemetry series), copies the scenario's used
+// plane (each rank its nodes), buffer count and pending list, and on the
+// fold path the chunk-start planes, then a cluster barrier; then the chunk's
+// waves (iv), as above, with failure appends. Every decision before a
+// barrier — the pass's count, the due pairs, PAD — is uniform over the
+// cluster.
 //
 // What stays with the host, between launches (sim/torch_runtime.py
-// run_waves): the boundary's K3 release, the retry sequence (K1 -> K2 -> K3
-// with one pod per scenario, K4) and, at telemetry series on the retry path,
-// K5's chunk fold and the retry pass's K5 a slot.
+// run_waves): the boundary's static K3 release (the reference's separate
+// _release_fn, sim/whatif.py:1742) and, at telemetry series on the retry
+// path, K5's chunk fold.
 //
 // Launch (ops/kernels.py cluster_plan, with blocks of 1,024 threads): a plain
 // clustered launch of S * C blocks, no cooperative attribute and no grid
@@ -79,7 +107,8 @@
 // = 1 where S fills the card (the headline's 128).
 //
 // Bound on an H100: bytes, as K1 + K2 + K3 per slot (PERF.md, chip_smoke.py
-// Work; the attributed mode adds K5's reads for each failed slot): a slot of
+// Work; the attributed mode adds K5's reads for each failed slot, the retry
+// mode the pass's K1 + K2 + K3 a buffered pod and K4's bytes): a slot of
 // one scenario is a few hundred kilobytes, so the chunk is latency-bound —
 // one scenario's K1 body, K2 body (two cluster exchanges at C > 1), a failed
 // slot's count body and fold, and the bind in sequence, then the cluster
@@ -110,7 +139,35 @@ struct KsimReject {
 };
 static __constant__ KsimReject ksim_k6_reject;
 
-template <bool ATTR>
+// The retry mode's boundary (RETRY; chunk_replay_retry.cu writes it, and a
+// copy of the kernel's KsimArgs, to constant memory on the launch's stream
+// before each launch, as the counters are): the boundary b and its f32 start
+// time, whether the pending list's due entries are released here, and the
+// series samples (null: none) — used [S,N,R], the buffer count [S] and
+// pending ids [S,RB] of the boundary, and on the fold path the chunk-start
+// planes (used [S,N,R], match_count / anti_active / pref_wsum [S,G,D]). The
+// retry pass charges its failed slots when ksim_k6_reject.reasons is set.
+struct KsimRetryPhase {
+  int b;
+  float t_b;
+  int pending;
+  int pad0;
+  float* used_out;
+  int32_t* rcount_out;
+  int32_t* pend_out;
+  float* snap_used;
+  float* snap_mc;
+  float* snap_aa;
+  float* snap_pw;
+};
+
+// The retry mode's boundary sequence (i)-(iii) and samples in scenario scen's
+// cluster (the header above), before the chunk's first wave: defined in
+// chunk_replay_retry.cu, the only translation unit that calls it.
+__device__ __noinline__ void ksim_k6_boundary(int64_t scen, int C, bool lead, int lo, int hi,
+                                              KsimTerms* terms);
+
+template <bool ATTR, bool RETRY>
 __global__ void __launch_bounds__(K6_THREADS, 1)
     ksim_chunk_replay_kernel(KsimArgs a, const int32_t* idx, const uint8_t* gang,
                              int32_t* choices, int64_t choice_ss, int W, int first, int end,
@@ -125,6 +182,7 @@ __global__ void __launch_bounds__(K6_THREADS, 1)
   const KsimLabels lab = ksim_label_rows(a, scen);
   int ns = 0;  // non-PAD slots so far (the stamps' index)
   K6_STAMP_EDGE(0);
+  if constexpr (RETRY) ksim_k6_boundary(scen, C, lead, lo, hi, &terms);
   for (int w = first; w < end; ++w) {
     const int base = w * W;
     int last = -1;  // the wave's last non-PAD slot, where a gang wave rolls back
@@ -186,3 +244,8 @@ __global__ void __launch_bounds__(K6_THREADS, 1)
 int ksim_chunk_replay_attributed_launch(void** params, int grid, int C, const KsimReject& rj,
                                         cudaStream_t stream);
 cudaError_t ksim_chunk_replay_attributed_attrs(cudaFuncAttributes* at);
+// The retry instantiation's launch and attributes (chunk_replay_retry.cu).
+int ksim_chunk_replay_retry_launch(void** params, int grid, int C, const KsimArgs& args,
+                                   const KsimReject& rj, const KsimRetryPhase& ph,
+                                   cudaStream_t stream);
+cudaError_t ksim_chunk_replay_retry_attrs(cudaFuncAttributes* at);

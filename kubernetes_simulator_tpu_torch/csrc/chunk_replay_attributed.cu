@@ -12,10 +12,10 @@ int ksim_chunk_replay_attributed_launch(void** params, int grid, int C, const Ks
   cudaError_t e = cudaMemcpyToSymbolAsync(ksim_k6_reject, &rj, sizeof rj, 0,
                                           cudaMemcpyHostToDevice, stream);
   if (e != cudaSuccess) return (int)e;
-  return ksim_launch_clusters((const void*)ksim_chunk_replay_kernel<true>, grid, K6_THREADS, C,
-                              params, stream);
+  return ksim_launch_clusters((const void*)ksim_chunk_replay_kernel<true, false>, grid,
+                              K6_THREADS, C, params, stream);
 }
 
 cudaError_t ksim_chunk_replay_attributed_attrs(cudaFuncAttributes* at) {
-  return cudaFuncGetAttributes(at, (const void*)ksim_chunk_replay_kernel<true>);
+  return cudaFuncGetAttributes(at, (const void*)ksim_chunk_replay_kernel<true, false>);
 }

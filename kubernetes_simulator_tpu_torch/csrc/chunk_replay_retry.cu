@@ -1,0 +1,117 @@
+// K6's retry mode (chunk_replay.cuh, RETRY = true; the retry buffer on the
+// chunk route): its instantiation and its boundary sequence in a translation
+// unit of its own, linked into chunk_replay.cu's library, whose entry
+// ksim_chunk_replay checks the arguments and calls this launch when it is
+// given a boundary.
+#define KSIM_SECOND_TU  // chunk_replay.cu exports ksim_args_size
+#include "chunk_replay.cuh"
+
+// The launch's boundary and a copy of its KsimArgs (the kernel's parameter,
+// byte for byte), which the boundary sequence reads: compiled out of line, it
+// takes no reference to the kernel's parameter, which would make the kernel
+// copy the whole block to local memory and read it there, waves included.
+static __constant__ KsimRetryPhase ksim_k6_retry;
+static __constant__ KsimArgs ksim_k6_args;
+
+// The boundary sequence (i)-(iii) and the samples of scenario scen's
+// cluster (chunk_replay.cuh's header), before the chunk's first wave; rank
+// `lead` owns the nodes [lo, hi), `terms` is the kernel's term table. Not
+// inlined: compiled into the kernel, its registers (K4's per-thread runs,
+// the pending release) made the whole launch spill more, the waves' slots
+// included (a retry launch's waves ran ≈45 % slower a slot than the summary
+// build's); called once a launch, it keeps an allocation of its own.
+__device__ __noinline__ void ksim_k6_boundary(int64_t scen, int C, bool lead, int lo, int hi,
+                                              KsimTerms* terms) {
+  const KsimArgs& a = ksim_k6_args;
+  const KsimRetryPhase& ph = ksim_k6_retry;
+  const KsimReject& rj = ksim_k6_reject;
+  const KsimLabels lab = ksim_label_rows(a, scen);
+  const float* match_count = a.match_count + scen * a.plane_ss;
+  const int RB = a.RB;
+  if (ph.pending) {  // (i)
+    if (lead) ksim_pending_release(a, scen, ph.b);
+    ksim_cluster_barrier(C);
+  }
+  const int n = a.rcount[scen];  // (ii): uniform over the cluster
+  const int32_t* rbuf = a.rbuf + scen * RB;
+  int32_t* rch = a.rchoice + scen * RB;
+  for (int k = 0; k < n; ++k) {
+    const int p = rbuf[k];  // >= 0: the buffer is dense from 0
+    ksim_filter_prologue(a, p, match_count, lab, terms);
+    __syncthreads();
+    for (int m = lo + threadIdx.x; m < hi; m += blockDim.x)
+      ksim_filter_score_node(a, p, scen, m, terms);
+    __syncthreads();
+    const int got = ksim_normalize_select_body(a, p, scen, rch + k, -1, lo, hi);
+    if (rj.reasons && got == KSIM_PAD) {  // uniform over the cluster
+      int tot[KSIM_PLUGINS + 1];  // thread 0's
+      ksim_reject_count_body(a, p, scen, lo, hi, lab, a.used + scen * a.used_ss, match_count,
+                             a.anti_active + scen * a.plane_ss,
+                             a.pref_wsum + scen * a.plane_ss, terms, tot);
+      if (C > 1) ksim_cluster_fold_counts(tot);
+      if (lead && threadIdx.x == 0)
+        ksim_reject_charge(a, tot, scen, p, rj.reasons, rj.attempts, rj.attributed, rj.K,
+                           rj.attr_ss);
+    }
+    if (lead) {
+      __syncthreads();
+      ksim_apply_body(a, scen, a.rbuf + k, RB, nullptr, k, a.rchoice, 1, RB, 1.f, 0, -1, 0);
+    }
+    ksim_cluster_barrier(C);
+  }
+  if (lead) {  // (iii)
+    for (int k = n + threadIdx.x; k < RB; k += blockDim.x) rch[k] = KSIM_PAD;
+    __syncthreads();
+    ksim_retry_bookkeeping(a, scen, ph.b, ph.t_b);
+  }
+  ksim_cluster_barrier(C);
+  if (!ph.used_out && !ph.snap_used) return;
+  // The samples: each rank its nodes' used rows, rank 0 the rest.
+  const int R = a.R;
+  const float* used = a.used + scen * a.used_ss;
+  const int64_t NR = (int64_t)a.N * R;
+  for (int i = lo * R + threadIdx.x; i < hi * R; i += blockDim.x) {
+    if (ph.used_out) ph.used_out[scen * NR + i] = used[i];
+    if (ph.snap_used) ph.snap_used[scen * NR + i] = used[i];
+  }
+  if (lead) {
+    if (ph.used_out) {
+      if (threadIdx.x == 0) ph.rcount_out[scen] = a.rcount[scen];
+      for (int k = threadIdx.x; k < RB; k += blockDim.x)
+        ph.pend_out[scen * RB + k] = a.pend_id[scen * RB + k];
+    }
+    if (ph.snap_used) {
+      const int64_t GD = (int64_t)a.G * a.D;
+      for (int64_t i = threadIdx.x; i < GD; i += blockDim.x) {
+        ph.snap_mc[scen * GD + i] = a.match_count[scen * a.plane_ss + i];
+        ph.snap_aa[scen * GD + i] = a.anti_active[scen * a.plane_ss + i];
+        ph.snap_pw[scen * GD + i] = a.pref_wsum[scen * a.plane_ss + i];
+      }
+    }
+  }
+  ksim_cluster_barrier(C);
+}
+
+
+// Write the pass's counters (reasons null: no charge), the boundary and the
+// arguments into constant memory on `stream`, then launch the retry kernel
+// with the summary build's parameters `params`.
+int ksim_chunk_replay_retry_launch(void** params, int grid, int C, const KsimArgs& args,
+                                   const KsimReject& rj, const KsimRetryPhase& ph,
+                                   cudaStream_t stream) {
+  cudaError_t e = cudaMemcpyToSymbolAsync(ksim_k6_reject, &rj, sizeof rj, 0,
+                                          cudaMemcpyHostToDevice, stream);
+  if (e == cudaSuccess)
+    e = cudaMemcpyToSymbolAsync(ksim_k6_retry, &ph, sizeof ph, 0, cudaMemcpyHostToDevice,
+                                stream);
+  if (e == cudaSuccess)
+    e = cudaMemcpyToSymbolAsync(ksim_k6_args, &args, sizeof args, 0, cudaMemcpyHostToDevice,
+                                stream);
+  if (e != cudaSuccess) return (int)e;
+  return ksim_launch_clusters((const void*)ksim_chunk_replay_kernel<false, true>, grid,
+                              K6_THREADS, C, params, stream);
+}
+
+cudaError_t ksim_chunk_replay_retry_attrs(cudaFuncAttributes* at) {
+  return cudaFuncGetAttributes(at, (const void*)ksim_chunk_replay_kernel<false, true>);
+}

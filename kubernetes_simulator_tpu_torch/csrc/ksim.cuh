@@ -1532,3 +1532,220 @@ __device__ __forceinline__ void ksim_shard_apply_body(const KsimArgs& a, int64_t
   }
 #undef KSIM_SCOL
 }
+
+// ---------------------------------------------------------------------------
+// The retry buffer's boundary bodies (sim/whatif.py:1433-1494): the pending
+// release and K4's bookkeeping. K4 retry_boundary is a thin __global__
+// wrapper over the bookkeeping; K3's release (apply_placements.cu) shares
+// ksim_release_cells; K6's retry mode (chunk_replay.cuh) runs both on the
+// rank-0 block of a scenario's cluster.
+// ---------------------------------------------------------------------------
+
+// The count-plane cells of pod p at node n: f(plane, cell, term) for each
+// (0 match_count, 1 anti_active, 2 pref_wsum), the term an integer. The
+// pod's pmg row is read a 4-byte word at a time (most of it is zero).
+template <class F>
+__device__ __forceinline__ void ksim_release_cells(const KsimArgs& a, const int32_t* gdom, int p,
+                                                   int n, F f) {
+  const int N = a.N, G = a.G, D = a.D;
+  const uint8_t* row = a.pmg + (size_t)p * G;
+  const uint32_t* w0 = (const uint32_t*)((uintptr_t)row & ~(uintptr_t)3);
+  const int skip = (int)((uintptr_t)row & 3);  // bytes of the first word before the row
+#pragma unroll 4
+  for (int w = 0; 4 * w - skip < G; ++w) {
+    const uint32_t v = w0[w];
+    if (!v) continue;
+    for (int b = 0; b < 4; ++b) {
+      const int g = 4 * w + b - skip;
+      if (g < 0 || g >= G || !((v >> (8 * b)) & 0xffu)) continue;
+      const int dom = gdom[(size_t)g * N + n];
+      if (dom >= 0) f(0, g * D + dom, 1);
+    }
+  }
+  for (int t = 0; t < a.AA; ++t) {
+    const int g = a.anti_req[p * a.AA + t];
+    if (g < 0) continue;
+    const int dom = gdom[(size_t)g * N + n];
+    if (dom >= 0) f(1, g * D + dom, 1);
+  }
+  for (int t = 0; t < a.PA; ++t) {
+    const int g = a.pref_aff[p * a.PA + t];
+    if (g < 0) continue;
+    const int dom = gdom[(size_t)g * N + n];
+    if (dom >= 0) f(2, g * D + dom, (int)a.pref_aff_w[p * a.PA + t]);
+  }
+}
+
+
+// Scenario scen's pending release at boundary due_b in one block (K6's retry
+// mode): the pairs (pend_id[k], pend_node[k]) with pend_relb[k] <= due_b, in
+// list order. Each node's requests are summed from zero in pair order by the
+// thread that owns the node's first pair and subtracted once, as K3's release
+// and the twin's _add_in_pair_order do (models/state.py release_delta); thread
+// 0 then moves the count-plane cells pair by pair (integer terms below 2^24,
+// exact in any order, one writer). Synchronises the block on return.
+__device__ __forceinline__ void ksim_pending_release(const KsimArgs& a, int64_t scen, int due_b) {
+  __shared__ int node_of[KSIM_MAX_RB];  // the pair's node, PAD for a pair not due
+  const int RB = a.RB, R = a.R;
+  const int32_t* id = a.pend_id + scen * RB;
+  const int32_t* nd = a.pend_node + scen * RB;
+  const int32_t* relb = a.pend_relb + scen * RB;
+  for (int k = threadIdx.x; k < RB; k += blockDim.x)
+    node_of[k] = id[k] >= 0 && nd[k] >= 0 && relb[k] <= due_b ? nd[k] : KSIM_PAD;
+  __syncthreads();
+  float* used = a.used + scen * a.used_ss;
+  for (int k = threadIdx.x; k < RB; k += blockDim.x) {
+    const int n = node_of[k];
+    if (n < 0) continue;
+    int j = 0;
+    while (j < k && node_of[j] != n) ++j;
+    if (j < k) continue;  // not the node's first pair
+    for (int c = 0; c < R; ++c) {
+      float acc = 0.f;
+      for (j = k; j < RB; ++j)
+        if (node_of[j] == n) acc = acc + a.requests[(size_t)id[j] * R + c];
+      used[(size_t)n * R + c] = used[(size_t)n * R + c] - acc;
+    }
+  }
+  if (threadIdx.x == 0) {
+    float* planes[3] = {a.match_count + scen * a.plane_ss, a.anti_active + scen * a.plane_ss,
+                        a.pref_wsum + scen * a.plane_ss};
+    const int32_t* gdom = ksim_label_rows(a, scen).gdom;
+    for (int k = 0; k < RB; ++k)
+      if (node_of[k] >= 0)
+        ksim_release_cells(a, gdom, id[k], node_of[k], [&](int plane, int cell, int v) {
+          planes[plane][cell] = planes[plane][cell] - (float)v;
+        });
+  }
+  __syncthreads();
+}
+
+#define KSIM_RB_THREADS 1024
+#define KSIM_RB_ITEMS (KSIM_MAX_RB / KSIM_RB_THREADS)
+
+// Exclusive block-wide prefix sum of one int per thread; *total gets the
+// block's sum. Every thread of the block must call it.
+__device__ __forceinline__ int ksim_block_exclusive_scan(int v, int* total) {
+  __shared__ int warp_sum[KSIM_RB_THREADS / 32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+  int x = v;
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, x, o);
+    if (lane >= o) x += y;
+  }
+  if (lane == 31) warp_sum[warp] = x;
+  __syncthreads();
+  if (warp == 0) {
+    int w = lane < nw ? warp_sum[lane] : 0;
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, w, o);
+      if (lane >= o) w += y;
+    }
+    if (lane < nw) warp_sum[lane] = w;  // inclusive over the warps
+  }
+  __syncthreads();
+  const int before = warp ? warp_sum[warp - 1] : 0;
+  *total = warp_sum[nw - 1];
+  __syncthreads();  // the next call may reuse warp_sum
+  return before + x - v;
+}
+
+// K4's bookkeeping of boundary b (start time t_b, f32) in scenario scen, in
+// one block of KSIM_RB_THREADS threads, after the retry pass wrote its choice
+// of each buffer slot k to rchoice[scen, k] (retry_boundary.cu describes the
+// three steps: the retried binds recorded, the pending list rebuilt, the
+// buffer compacted). Each thread owns a contiguous run of at most
+// KSIM_RB_ITEMS buffer slots and pending entries and reads all of them before
+// the block writes (the compactions are in place); block-wide exclusive scans
+// of the per-thread counts give every kept entry its position: stable,
+// integer-only, no atomics.
+__device__ __forceinline__ void ksim_retry_bookkeeping(const KsimArgs& a, int64_t scen, int b,
+                                                       float t_b) {
+  const int RB = a.RB, B = a.B;
+  int32_t* rbuf = a.rbuf + scen * RB;
+  const int32_t* rch = a.rchoice + scen * RB;
+  int32_t* pend_id = a.pend_id + scen * RB;
+  int32_t* pend_node = a.pend_node + scen * RB;
+  int32_t* pend_relb = a.pend_relb + scen * RB;
+  int32_t* rnode = a.rnode + scen * (int64_t)a.P;
+  int32_t* rbind_b = a.rbind_b + scen * (int64_t)a.P;
+  const int per = (RB + blockDim.x - 1) / blockDim.x;  // <= KSIM_RB_ITEMS
+  const int k0 = threadIdx.x * per;
+
+  // Read this thread's buffer slots and pending entries.
+  int pod[KSIM_RB_ITEMS], node[KSIM_RB_ITEMS], relb_new[KSIM_RB_ITEMS];
+  int old_id[KSIM_RB_ITEMS], old_node[KSIM_RB_ITEMS], old_relb[KSIM_RB_ITEMS];
+  int n_keep = 0, n_add = 0, n_old = 0;
+  for (int i = 0; i < per; ++i) {
+    const int k = k0 + i;
+    const int q = k < RB ? rbuf[k] : KSIM_PAD;
+    const int c = q >= 0 ? rch[k] : KSIM_PAD;
+    pod[i] = q;
+    node[i] = c;
+    relb_new[i] = KSIM_PAD;
+    if (q >= 0 && c >= 0) {
+      rnode[q] = c;
+      rbind_b[q] = b;
+      const float v = t_b + a.dur[q];
+      int lo = 0, hi = B;
+      while (lo < hi) {
+        const int mid = (lo + hi) >> 1;
+        if (a.tbt[mid] < v)
+          lo = mid + 1;
+        else
+          hi = mid;
+      }
+      if (lo < B) {
+        relb_new[i] = lo > b + 1 ? lo : b + 1;
+        ++n_add;
+      }
+    } else if (q >= 0) {
+      ++n_keep;
+    }
+    old_id[i] = KSIM_PAD;
+    if (k < RB && pend_id[k] >= 0 && pend_relb[k] > b) {
+      old_id[i] = pend_id[k];
+      old_node[i] = pend_node[k];
+      old_relb[i] = pend_relb[k];
+      ++n_old;
+    }
+  }
+  __syncthreads();  // every read before any write: the compactions are in place
+
+  // The pending list: the kept entries, then the new ones, the first RB.
+  int total_old, total_add;
+  int j = ksim_block_exclusive_scan(n_old, &total_old);
+  const int off_add = ksim_block_exclusive_scan(n_add, &total_add);
+  for (int i = 0; i < per; ++i) {
+    if (old_id[i] < 0) continue;
+    pend_id[j] = old_id[i];  // j < total_old <= RB
+    pend_node[j] = old_node[i];
+    pend_relb[j] = old_relb[i];
+    ++j;
+  }
+  j = total_old + off_add;
+  for (int i = 0; i < per; ++i) {
+    if (relb_new[i] < 0) continue;
+    if (j < RB) {
+      pend_id[j] = pod[i];
+      pend_node[j] = node[i];
+      pend_relb[j] = relb_new[i];
+    }
+    ++j;
+  }
+  const int n_pend = min(total_old + total_add, RB);
+  for (int k = n_pend + threadIdx.x; k < RB; k += blockDim.x) {
+    pend_id[k] = KSIM_PAD;
+    pend_node[k] = KSIM_PAD;
+    pend_relb[k] = KSIM_PAD;
+  }
+
+  // The buffer: its unplaced pods, in FIFO order.
+  int total_keep;
+  j = ksim_block_exclusive_scan(n_keep, &total_keep);
+  for (int i = 0; i < per; ++i)
+    if (pod[i] >= 0 && node[i] < 0) rbuf[j++] = pod[i];
+  for (int k = total_keep + threadIdx.x; k < RB; k += blockDim.x) rbuf[k] = KSIM_PAD;
+  if (threadIdx.x == 0) a.rcount[scen] = total_keep;
+}

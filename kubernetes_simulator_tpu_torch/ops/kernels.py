@@ -32,7 +32,9 @@ wrapper                       replaces (kubernetes_simulator_tpu/...)
 :func:`chunk_replay` (K6)     sim/jax_runtime.py:742 make_chunk_fn3_src (the
                               chunk program: one launch a chunk), with the
                               slot gathers ops/tpu.py:285, ops/tpu3.py:633;
-                              attributed: :443 make_chunk_fn_rej (+ :405)
+                              attributed: :443 make_chunk_fn_rej (+ :405);
+                              retry: sim/whatif.py:1413 per_scenario_retry
+                              (the boundary sequence :1433-1494)
 :func:`shard_select` (K7)     ops/tpu.py:1316 select_node_sharded and the
                               sharded normalize of eval_pod_fused
                               (:1200-1225, the packed pmax)
@@ -70,8 +72,10 @@ on the plain path inside K6 (its attributed mode, ``chunk_replay(reject=)``,
 a second instantiation of the kernel, compiled in
 ``csrc/chunk_replay_attributed.cu``, that runs K5's count body from
 ``ksim.cuh`` for each failed slot before its bind — sim/jax_runtime.py:443
-make_chunk_fn_rej), on the retry path and the per-slot route as K5; the
-default ``summary`` runs K6's summary instantiation, unchanged.
+make_chunk_fn_rej); on the retry path inside K6's retry mode for the retry
+pass (``chunk_replay(retry=, reject=)``) and as K5 for the chunk folds; on
+the per-slot route as K5. The default ``summary`` runs K6's summary
+instantiation, unchanged.
 
 Under node shards (a Tables with ``shards``, row B13: sim/jax_runtime.py:494
 make_wave_step_sharded, :548 make_chunk_fn_sharded) a slot is K1 over the
@@ -87,7 +91,14 @@ and K6 refuse sharded tables.
 Under the retry buffer (a Tables with ``retry``) K1–K3 also take one pod
 per scenario (the retry pass), K3 appends failed non-gang pods to the
 buffer on a main-path bind (sim/whatif.py:1502-1528) and releases the
-pending list's due entries (:1437-1443 through ``_release_core``).
+pending list's due entries (:1437-1443 through ``_release_core``). On the
+chunk route K6's retry mode (``chunk_replay(retry=)``, a third
+instantiation compiled in ``csrc/chunk_replay_retry.cu``) runs that
+boundary sequence — the pending release, the retry pass over each
+scenario's buffered pods with K1's, K2's and K3's bodies, K4's
+bookkeeping (``ksim.cuh`` ``ksim_retry_bookkeeping``, K4's own body) —
+in the chunk's launch before its waves; K1–K4 launch it on the per-slot
+route.
 
 In a what-if batch whose scenarios relabel nodes (``set_label``; row B11,
 the dyn sections of ops/tpu3.py:944 make_wave_step3 and the dyn release
@@ -181,10 +192,10 @@ _ARGTYPES = {
     #  stream)
     "first_reject": [_P, _P, _LL, _I, _P, _LL, _P, _P, _P, _I, _LL, _P],
     # (args, idx, gang, choices, choice_ss, W, first, end, boundary, append, C, threads, span,
-    #  reasons, attempts, attributed, K, attr_ss, stream)
+    #  reasons, attempts, attributed, K, attr_ss, retry, retry_size, stream)
     "chunk_replay": [_P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _I, _LL,
-                     _P],
-    # K6's attributes (chunk_replay.cu): (attributed, regs, shared_bytes, max_threads)
+                     _P, _I, _P],
+    # K6's attributes (chunk_replay.cu): (mode, regs, shared_bytes, max_threads)
     "chunk_replay_attrs": [_I, _P, _P, _P],
     # K3's release (apply_placements.cu): (args, pods, pod_ss, pos, choices, K, choice_ss,
     #  due_relb, due_b, P, keys, run, dplane, stream)
@@ -211,10 +222,12 @@ RELEASE_MIN_TILE = 1024
 _EXTRA_ENTRIES = {"apply_placements": ("release",),
                   "chunk_replay": ("chunk_replay_attrs",),
                   "shard_chunk_replay": ("shard_chunk_replay_attrs",)}
-#: Sources a library links beside its kernel's own: K6's attributed
-#: instantiation compiles in a translation unit of its own, so the summary
-#: build's code is what it is without the mode (chunk_replay.cu).
-EXTRA_SOURCES = {"chunk_replay": ("chunk_replay_attributed.cu",)}
+#: Sources a library links beside its kernel's own: K6's attributed and
+#: retry instantiations compile in translation units of their own, so the
+#: summary build's code is what it is without the modes (chunk_replay.cu).
+EXTRA_SOURCES = {"chunk_replay": ("chunk_replay_attributed.cu", "chunk_replay_retry.cu")}
+#: K6's builds, in the order ``ksim_chunk_replay_attrs`` numbers them.
+CHUNK_REPLAY_MODES = ("summary", "attributed", "retry")
 
 
 #: Largest cluster of the selects: the portable size, which every Hopper part
@@ -320,6 +333,19 @@ def release_tile(K: int, S: int = 1, sms: int = 1) -> int:
     return P
 
 
+class KsimRetryPhase(ctypes.Structure):
+    """Mirror of ``struct KsimRetryPhase`` in csrc/chunk_replay.cuh (K6's
+    retry mode: the boundary and its series samples; the C entry checks
+    sizeof())."""
+
+    _fields_ = (
+        [("b", ctypes.c_int32), ("t_b", ctypes.c_float), ("pending", ctypes.c_int32),
+         ("pad0", ctypes.c_int32)]
+        + [(name, ctypes.c_void_p) for name in (
+            "used_out", "rcount_out", "pend_out", "snap_used", "snap_mc", "snap_aa", "snap_pw")]
+    )
+
+
 class KsimArgs(ctypes.Structure):
     """Mirror of ``struct KsimArgs`` in csrc/ksim.cuh (same field order)."""
 
@@ -396,9 +422,10 @@ def _lib_path(src: str) -> Path:
 
 def build(verbose: bool = False) -> float:
     """Compile every kernel source that has no library in ``_build/`` yet
-    (one ``nvcc`` per library — a kernel's source and its
-    :data:`EXTRA_SOURCES` — in parallel) and load all of them. Returns
-    the wall seconds spent compiling."""
+    and load all of them: one ``nvcc`` per translation unit, all started
+    together — a library of one source straight to its shared object, one
+    with :data:`EXTRA_SOURCES` (K6's three builds) an object a source, then
+    linked. Returns the wall seconds spent compiling."""
     global last_build_s
     with _lock:
         if set(KERNELS) <= set(_libs):
@@ -408,29 +435,43 @@ def build(verbose: bool = False) -> float:
         for name, src in KERNELS.items():
             out = _lib_path(src)
             if not out.exists():
-                todo[name] = (src, out)
+                todo[name] = (src, out, out.with_name(f"{out.stem}.{os.getpid()}.tmp.so"))
         t0 = time.perf_counter()
-        procs = []
-        for name, (src, out) in todo.items():
-            tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-                   *(str(CSRC / f) for f in (src, *EXTRA_SOURCES.get(name, ())))]
-            if verbose:
-                cmd.insert(1, "-Xptxas=-v")
-            procs.append((name, out, tmp, subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-            )))
+        compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+        procs, links = [], []
+        for name, (src, out, tmp) in todo.items():
+            srcs = (src, *EXTRA_SOURCES.get(name, ()))
+            if len(srcs) == 1:
+                jobs = [([*NVCC_FLAGS, "-o", str(tmp)], srcs[0])]
+            else:
+                objs = [tmp.with_name(f"{tmp.stem}.{Path(f).stem}.o") for f in srcs]
+                jobs = [([*compile_flags, "-c", "-o", str(o)], f) for o, f in zip(objs, srcs)]
+                links.append((name, tmp, objs))
+            for flags, f in jobs:
+                cmd = [_nvcc(), *flags, "-I", str(CSRC), str(CSRC / f)]
+                if verbose:
+                    cmd.insert(1, "-Xptxas=-v")
+                procs.append((name, f, subprocess.Popen(
+                    cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                )))
         errors = []
-        for name, out, tmp, proc in procs:
+        for name, f, proc in procs:
             log, _ = proc.communicate()
             if proc.returncode != 0:
-                errors.append(f"{name}: nvcc exit {proc.returncode}\n{log}")
-                continue
-            if verbose and log:
-                print(f"[nvcc {name}]\n{log}", flush=True)
-            os.replace(tmp, out)
+                errors.append(f"{name} ({f}): nvcc exit {proc.returncode}\n{log}")
+            elif verbose and log:
+                print(f"[nvcc {name} {f}]\n{log}", flush=True)
+        for name, tmp, objs in ([] if errors else links):
+            proc = subprocess.run([_nvcc(), "-shared", "-o", str(tmp), *map(str, objs)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            if proc.returncode != 0:
+                errors.append(f"{name} (link): nvcc exit {proc.returncode}\n{proc.stdout}")
+            for o in objs:
+                o.unlink(missing_ok=True)
         if errors:
             raise RuntimeError("kernel build failed:\n" + "\n".join(errors))
+        for src, out, tmp in todo.values():
+            os.replace(tmp, out)
         last_build_s = time.perf_counter() - t0 if procs else 0.0
         for name, src in KERNELS.items():
             lib = ctypes.CDLL(str(_lib_path(src)))
@@ -946,9 +987,52 @@ def first_reject_fold(b: Bound, pod_ids: torch.Tensor, gate: torch.Tensor) -> No
         first_reject_fold.launches += 1
 
 
+def _check_retry_phase(b: Bound, retry, append: bool, reject, samples) -> None:
+    """K6's retry-mode arguments against the tables (:func:`chunk_replay`),
+    on any device: what the reference refuses with the retry buffer is
+    refused here too."""
+    tb = b.tables
+    if retry is None:
+        if samples is not None:
+            raise ValueError("samples are taken at a retry boundary (retry=)")
+        if reject is not None and tb.retry is not None:
+            raise ValueError("under the retry buffer the waves' failures are charged by the "
+                             "chunk fold (K5); K6 charges the retry pass, given retry=")
+        return
+    if tb.retry is None:
+        raise ValueError("a retry boundary needs retry tables")
+    if tb.preempt is not None:
+        raise ValueError("retry_buffer is not supported with tier preemption (the reference "
+                         "refuses it, sim/jax_runtime.py:1041-1043)")
+    bnd, _, _ = retry
+    if int(bnd) < 1 or not append:
+        raise ValueError("a retry boundary is a chunk's boundary b > 0, with failure appends")
+    if samples is not None:
+        S, N, R = tb.state.used.shape
+        RB = tb.retry.rbuf.shape[1]
+        dev = tb.state.used.device
+        trio = (samples.used, samples.rcount, samples.pend)
+        if any(t is None for t in trio) != all(t is None for t in trio):
+            raise ValueError("samples: used, rcount and pend go together")
+        want = []
+        if samples.used is not None:
+            want += [("used", samples.used, (S, N, R), torch.float32),
+                     ("rcount", samples.rcount, (S,), torch.int32),
+                     ("pend", samples.pend, (S, RB), torch.int32)]
+        if samples.snap is not None:
+            want += [(f"snap.{f}", x, tuple(y.shape), torch.float32)
+                     for f, x, y in zip(ref.DevState._fields, samples.snap, tb.state)]
+        for name, t, shape, dt in want:
+            if (tuple(t.shape) != shape or t.dtype != dt or t.device != dev
+                    or not t.is_contiguous()):
+                raise ValueError(f"samples.{name}: expected contiguous {dt} {shape}")
+
+
 def chunk_replay(b: Bound, idx: torch.Tensor, gang: torch.Tensor, choices: torch.Tensor,
                  first: int, end: int, boundary: Optional[int] = None,
-                 append: bool = False, reject: Optional[ref.Reject] = None) -> None:
+                 append: bool = False, reject: Optional[ref.Reject] = None,
+                 retry: Optional[Tuple[int, float, bool]] = None,
+                 samples: Optional[ref.RetrySamples] = None) -> None:
     """K6: waves ``[first, end)`` of one chunk in every scenario, one
     launch: for each slot ``s`` of wave ``w`` whose pod ``idx[s]`` (``idx``
     the plan's ``[num_waves * W]`` i32 slot index on the device) is not PAD,
@@ -960,15 +1044,32 @@ def chunk_replay(b: Bound, idx: torch.Tensor, gang: torch.Tensor, choices: torch
     buffer's failure append) are K3's bind options. ``reject`` (first-reject
     counters as K5 takes them, :func:`check_reject`; not with tier
     preemption) runs K6's attributed mode: a slot whose K2 choice is PAD is
-    charged as K5 charges it, before its bind. Each launch counts in
-    ``launches``, an attributed one also in ``attributed``."""
+    charged as K5 charges it, before its bind.
+
+    ``retry = (b, t_b, pending)`` (retry tables, a chunk starting at
+    boundary ``b > 0`` whose f32 start time is ``t_b``) runs K6's retry
+    mode: before the waves, the boundary's sequence in the reference's order
+    (sim/whatif.py:1433-1494) — the pending list's due entries released
+    (unless ``pending`` is False: the host's K3 took them with the static
+    bucket), the retry pass over each scenario's ``rcount`` buffered pods
+    (K1 → K2 into ``rchoice`` → K3 bind; ``rchoice`` past the count PAD),
+    K4's bookkeeping — and, with ``samples`` (:class:`ref.RetrySamples`,
+    telemetry series), the boundary's samples copied after it. There
+    ``reject`` charges the retry pass's failed slots (the waves' are the
+    chunk fold's, K5). Refused: tier preemption with the retry buffer (as
+    the reference refuses it), node shards (ROADMAP A6a).
+
+    Each launch counts in ``launches``, an attributed one also in
+    ``attributed``, a retry-mode one in ``retry``."""
     _no_shards(b, "chunk_replay")
     if reject is not None:
         if b.tables.preempt is not None:
             raise ValueError("K6's attributed mode runs without tier preemption")
         check_reject(b.tables._replace(reject=reject))
+    _check_retry_phase(b, retry, append, reject, samples)
     if not b.cuda:
-        ref.chunk_replay(b.tables, idx, gang, choices, first, end, boundary, append, reject)
+        ref.chunk_replay(b.tables, idx, gang, choices, first, end, boundary, append, reject,
+                         retry, samples)
         return
     _check_choices(b, choices)
     W = _check_chunk_desc(b, idx, gang, choices, first, end)
@@ -982,22 +1083,34 @@ def chunk_replay(b: Bound, idx: torch.Tensor, gang: torch.Tensor, choices: torch
     rj = (reject.reasons.data_ptr(), reject.attempts.data_ptr(), reject.attributed.data_ptr(),
           reject.reasons.shape[1], reject.attributed.shape[1]) if reject is not None else (
           None, None, None, 0, 0)
+    phase = None
+    if retry is not None:
+        bnd, t_b, pending = retry
+        ptr = lambda t: t.data_ptr() if t is not None else None
+        sm = samples or ref.RetrySamples(None, None, None, None)
+        snap = sm.snap or (None,) * 4
+        phase = KsimRetryPhase(int(bnd), float(t_b), int(bool(pending)), 0, ptr(sm.used),
+                               ptr(sm.rcount), ptr(sm.pend), *map(ptr, snap))
     _check(_libs["chunk_replay"](
         b._args_ptr, idx.data_ptr(), gang.data_ptr(), choices.data_ptr(), choices.shape[1],
         int(W), int(first), int(end), -1 if boundary is None else int(boundary),
-        int(bool(append)), plan.C, plan.threads, plan.span, *rj, _stream()), "chunk_replay")
+        int(bool(append)), plan.C, plan.threads, plan.span, *rj,
+        ctypes.byref(phase) if phase is not None else None, ctypes.sizeof(KsimRetryPhase),
+        _stream()), "chunk_replay")
     chunk_replay.launches += 1
-    if reject is not None:
+    if retry is not None:
+        chunk_replay.retry += 1
+    elif reject is not None:
         chunk_replay.attributed += 1
 
 
-def chunk_replay_attrs(attributed: bool = False) -> Dict[str, int]:
+def chunk_replay_attrs(mode: str = "summary") -> Dict[str, int]:
     """K6's registers a thread, static shared bytes and largest block on the
-    current card (cudaFuncGetAttributes) in the summary build or, with
-    ``attributed``, the attributed mode's, after :func:`build`."""
+    current card (cudaFuncGetAttributes) in one of its builds,
+    :data:`CHUNK_REPLAY_MODES`, after :func:`build`."""
     build()
     out = [ctypes.c_int() for _ in range(3)]
-    _check(_libs["chunk_replay_attrs"](int(bool(attributed)),
+    _check(_libs["chunk_replay_attrs"](CHUNK_REPLAY_MODES.index(mode),
                                        *(ctypes.addressof(x) for x in out)), "chunk_replay")
     return dict(zip(("regs", "shared_bytes", "max_threads"), (x.value for x in out)))
 
@@ -1139,14 +1252,15 @@ def reset_launch_counts() -> None:
         w.launches = 0
     for w in MODE_WRAPPERS:
         w.modes = dict(bind=0, rollback=0, release=0)
-    chunk_replay.attributed = 0
+    chunk_replay.attributed = chunk_replay.retry = 0
 
 
 def launch_counts() -> Dict[str, int]:
     """Launches by wrapper, and K3's and K8's by mode
     (``apply_placements_bind``, ``_rollback``, ``_release``, the same for
     ``shard_apply``; each wrapper's sum to its count). K6's attributed
-    launches, also in ``chunk_replay``, are ``chunk_replay.attributed``."""
+    launches, also in ``chunk_replay``, are ``chunk_replay.attributed``, its
+    retry-mode launches ``chunk_replay.retry``."""
     out = {w.__name__: w.launches for w in WRAPPERS}
     for w in MODE_WRAPPERS:
         out.update({f"{w.__name__}_{k}": n for k, n in w.modes.items()})

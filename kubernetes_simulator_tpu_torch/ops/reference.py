@@ -22,7 +22,8 @@ Three functions are the plain twins of the hand-written kernels in
   release), each scenario's node read from its row of the choice buffer.
 
 :func:`chunk_replay` is the plain twin of K6 (``csrc/chunk_replay.cu``):
-one chunk's waves walked through the three twins above in K6's order.
+one chunk's waves walked through the three twins above in K6's order, and
+in its retry mode the boundary's :func:`retry_pass` first.
 Under node shards, :func:`shard_select` and :func:`shard_apply` are the
 twins of K7 and K8, and :func:`shard_chunk_replay` the twin of K9
 (``csrc/shard_chunk_replay.cu``): one chunk's waves walked through K1's,
@@ -290,6 +291,20 @@ def new_reject(K: int, P: int, S: int, device) -> Reject:
     """Zero counters of K plugins for S scenarios of P pods on ``device``."""
     z = lambda *shape, dt=torch.int32: torch.zeros(shape, dtype=dt, device=device)
     return Reject(reasons=z(S, K), attempts=z(S, K), attributed=z(S, P, dt=torch.uint8))
+
+
+class RetrySamples(NamedTuple):
+    """Where K6's retry mode copies a boundary's telemetry series samples
+    after its retry sequence (sim/torch_runtime.py ``Series``): ``used``
+    ``[S, N, R]`` f32, the buffer's count ``rcount [S]`` and the pending ids
+    ``pend [S, RB]`` (all three None: none), and on the fold path the
+    chunk-start planes ``snap`` (a DevState shaped as the state, or
+    None)."""
+
+    used: Optional[torch.Tensor]
+    rcount: Optional[torch.Tensor]
+    pend: Optional[torch.Tensor]
+    snap: Optional[DevState]
 
 
 class Tables(NamedTuple):
@@ -1210,9 +1225,53 @@ def apply_placements(
         append_failures(tb, pid, nodes)
 
 
+def retry_pass(tb: Tables, bnd: int, t_b: float, pending: bool = True,
+               reject: Optional[Reject] = None) -> None:
+    """Boundary ``bnd``'s retry sequence in every scenario, the twin of K6's
+    retry mode before its waves (sim/whatif.py:1433-1494, in its order): the
+    pending list's due entries released (unless ``pending`` is False), the
+    retry pass — each buffered pod of a scenario, slot by slot, through
+    :func:`filter_score` and :func:`normalize_select` (its choice into
+    ``rchoice``), with ``reject`` :func:`first_reject` of the slot, and the
+    bind of :func:`apply_placements`; a scenario whose buffer is shorter
+    does nothing in the later slots and its ``rchoice`` there is PAD — then
+    :func:`retry_boundary` at the f32 start time ``t_b``."""
+    rt = tb.retry
+    RB = rt.rbuf.shape[1]
+    pos_rb = torch.arange(RB, dtype=torch.int32, device=rt.rbuf.device)
+    if pending:
+        apply_placements(tb, rt.pend_id, pos_rb, rt.pend_node, -1.0, due=(rt.pend_relb, bnd))
+    rtb = tb._replace(reject=reject) if reject is not None else None
+    for k in range(int(rt.rcount.max()) if rt.rcount.numel() else 0):
+        pod_of_s = rt.rbuf[:, k]
+        filter_score(tb, PAD, pod_of_s)
+        normalize_select(tb, PAD, rt.rchoice, k, -1, pod_of_s)
+        if rtb is not None:
+            first_reject(rtb, rt.rbuf[:, k : k + 1], rt.rchoice[:, k : k + 1])
+        apply_placements(tb, rt.rbuf[:, k : k + 1], pos_rb[k : k + 1], rt.rchoice, 1.0)
+    rt.rchoice.masked_fill_(pos_rb[None, :] >= rt.rcount[:, None], PAD)
+    retry_boundary(tb, bnd, t_b)
+
+
+def take_samples(tb: Tables, samples: RetrySamples) -> None:
+    """Copy a boundary's series samples from ``tb`` into ``samples`` (each
+    buffer given: ``used``, the buffer's count, the pending ids, the
+    chunk-start planes)."""
+    rt = tb.retry
+    for dst, src in ((samples.used, tb.state.used),
+                     (samples.rcount, rt.rcount if rt is not None else None),
+                     (samples.pend, rt.pend_id if rt is not None else None)):
+        if dst is not None:
+            dst.copy_(src)
+    for dst, src in zip(samples.snap or (), tb.state):
+        dst.copy_(src)
+
+
 def chunk_replay(tb: Tables, idx: torch.Tensor, gang: torch.Tensor, choices: torch.Tensor,
                  first: int, end: int, boundary: Optional[int] = None,
-                 append: bool = False, reject: Optional[Reject] = None) -> None:
+                 append: bool = False, reject: Optional[Reject] = None,
+                 retry: Optional[Tuple[int, float, bool]] = None,
+                 samples: Optional[RetrySamples] = None) -> None:
     """Plain twin of K6 (csrc/chunk_replay.cu): waves ``[first, end)`` of the
     device slot index ``idx [num_waves * W]`` with gang flags ``gang
     [num_waves]``, in K6's order — for each non-PAD slot ``s`` of wave ``w``,
@@ -1221,7 +1280,15 @@ def chunk_replay(tb: Tables, idx: torch.Tensor, gang: torch.Tensor, choices: tor
     of the slot into those counters, and the bind of
     :func:`apply_placements` (with ``boundary`` and ``append``), and after
     the last such slot of a gang wave the rollback over the wave's W
-    columns."""
+    columns. With ``retry = (b, t_b, pending)`` (K6's retry mode) the
+    boundary's :func:`retry_pass` runs first (``reject`` charges its slots,
+    and the waves are not charged: the chunk fold charges them), then
+    ``samples`` (:class:`RetrySamples`) are copied."""
+    if retry is not None:
+        retry_pass(tb, *retry, reject=reject)
+        reject = None
+        if samples is not None:
+            take_samples(tb, samples)
     rtb = tb._replace(reject=reject) if reject is not None else None
     W = idx.numel() // gang.numel()
     rows = idx[first * W : end * W].tolist()

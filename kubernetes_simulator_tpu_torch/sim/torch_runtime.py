@@ -28,16 +28,22 @@ Four routes run a chunk's waves, chosen from the run's mode alone
   every slot's K1 → K2 → K3 and each gang wave's rollback on the card,
   reading the pods from the plan's device descriptor (:class:`ChunkDesc`,
   uploaded once a run) — the counterpart of the reference's one dispatch a
-  chunk (``make_chunk_fn3_src``). Telemetry ``series``/``timeline`` takes it
-  too: on the plain path K6's attributed mode charges each failed slot as
-  K5 would, before its bind (the reference's ``make_chunk_fn_rej``, one
-  dispatch a chunk); on the retry path K5 folds each chunk and runs in the
-  retry pass between K6 launches;
+  chunk (``make_chunk_fn3_src``). Under the retry buffer each K6 launch
+  that starts a chunk past the first runs in its retry mode: the
+  boundary's pending release, retry pass and bookkeeping, then the waves
+  (the reference's one retry chunk program a chunk, sim/whatif.py:1413
+  ``per_scenario_retry``). Telemetry ``series``/``timeline`` takes it too:
+  on the plain path K6's attributed mode charges each failed slot as K5
+  would, before its bind (the reference's ``make_chunk_fn_rej``, one
+  dispatch a chunk); on the retry path K6's retry mode charges each failed
+  retry-pass slot and copies the boundary's samples, and K5 folds each
+  chunk between K6 launches;
 - ``"slot"``: per slot the host enqueues K1 (filter_score) → K2
   (normalize_select) → (K5 at series on the plain path) → K3
   (apply_placements, bind) and a K3 rollback after a wave holding gang
-  members. The plain twins (``plain=True``) take it, and ``_run(route=
-  "slot")`` holds the chunk route against it;
+  members, and under the retry buffer the boundary's sequence
+  (:func:`run_retry_boundary`). The plain twins (``plain=True``) take it,
+  and ``_run(route="slot")`` holds the chunk route against it;
 - ``"shard"`` (node-plane shards, ``node_shards > 1``; row B13, the
   reference's node-sharded v2 program, sim/jax_runtime.py:494
   ``make_wave_step_sharded`` and :548 ``make_chunk_fn_sharded``, one
@@ -85,12 +91,16 @@ single replay and as the retry variant of ``_build_chunk_fn``,
 sim/whatif.py:1406-1557, in the what-if) runs on the device in both
 engines: a main-path K3 bind appends a failed non-gang pod to its
 scenario's FIFO (overflow drops the newest, counted); at each boundary
-after the static release, K3 releases the due entries of the pending
-list, the retry pass runs K1 → K2 → K3 over the buffer slots with one
-pod per scenario, and K4 (retry_boundary) records the retried binds,
-schedules their releases on the pending list and compacts the buffer. A
-retried pod's slot column keeps PAD, so its static bucket never releases
-it; its node comes back in ``Retry.rnode``.
+after the static release, the due entries of the pending list are
+released, the retry pass places each scenario's buffered pods in order
+(K1's, K2's and K3's bodies, one pod per scenario), and K4's bookkeeping
+records the retried binds, schedules their releases on the pending list
+and compacts the buffer — inside the chunk's K6 launch on the chunk route
+(K6's retry mode, reading each scenario's buffer count on the card), as
+host launches on the per-slot route (K3's release, K1 → K2 → K3 over
+every slot that may hold a pod, K4 retry_boundary). A retried pod's slot
+column keeps PAD, so its static bucket never releases it; its node comes
+back in ``Retry.rnode``.
 """
 
 from __future__ import annotations
@@ -584,7 +594,8 @@ def new_choices(plan: ChunkPlan, S: int, bound_node: np.ndarray, device) -> torc
 
 
 def retry_slots(plan: ChunkPlan, b: int, RB: int) -> int:
-    """Buffer slots the retry pass at boundary b runs: the host cannot
+    """Buffer slots the per-slot route's retry pass at boundary b runs (the
+    chunk route reads each scenario's count on the card): the host cannot
     see the buffer without waiting on the card, so every slot that may
     hold a pod — no more than the valid non-gang pods of the waves before
     b (none at b = 0), at most RB."""
@@ -658,7 +669,8 @@ def joint_release(b: int, h, apply_placements, rt: ref.Retry, choices: torch.Ten
 
 def run_retry_boundary(plan: ChunkPlan, b: int, h, fns, rt: ref.Retry,
                        pos_rb: torch.Tensor, reject=None, joint: bool = False) -> None:
-    """Boundary b's retry sequence (after its static release): the K3
+    """Boundary b's retry sequence on the per-slot route (after its static
+    release; the chunk route runs it inside K6's retry mode): the K3
     release of the pending list's due entries (unless ``joint``, where
     :func:`joint_release` took them with the static bucket), the retry
     pass — K1 → K2 (→ K5 ``reject``, series telemetry) → K3 bind over each
@@ -683,29 +695,34 @@ def run_waves(plan: ChunkPlan, tb: ref.Tables, choices: torch.Tensor, first: int
               pager=None, joint: bool = False) -> None:
     """Enqueue waves ``[first, end)`` of ``plan`` over the S scenarios of
     ``tb`` (state and ``choices`` updated in place, no synchronisation):
-    the release bucket of a boundary where a chunk starts, then (under the
-    retry buffer, past boundary 0) the boundary's retry sequence
-    (:func:`run_retry_boundary`; with ``joint``, the single replay's order,
-    the boundary's pending and static releases go out as one,
-    :func:`joint_release`), then the chunk's waves on ``route``: one
-    K6 launch over the chunk's waves in the range (``"chunk"``, reading the
-    plan's :class:`ChunkDesc`, uploaded once a call),
-    or per slot K1 → K2 → K3 bind (which appends a failed non-gang pod to
-    the buffer) and a K3 rollback after a wave holding a gang member
-    (``"slot"``). ``plain`` runs the plain twins on any device; otherwise
-    the kernel wrappers run (the kernels for CUDA tensors, the twins for
-    CPU tensors).
+    the release bucket of a boundary where a chunk starts (with ``joint``,
+    the single replay's order, under the retry buffer past boundary 0 the
+    boundary's pending and static releases go out as one,
+    :func:`joint_release`), then the chunk's waves on ``route``: one K6
+    launch over the chunk's waves in the range (``"chunk"``, reading the
+    plan's :class:`ChunkDesc`, uploaded once a call; under the retry
+    buffer, at a chunk's start past boundary 0, in K6's retry mode, which
+    runs the boundary's retry sequence first — the pending release unless
+    ``joint`` took it, the retry pass, K4's bookkeeping), or the retry
+    sequence from the host (:func:`run_retry_boundary`) and then per slot
+    K1 → K2 → K3 bind (which appends a failed non-gang pod to the buffer)
+    and a K3 rollback after a wave holding a gang member (``"slot"``).
+    ``plain`` runs the plain twins on any device; otherwise the kernel
+    wrappers run (the kernels for CUDA tensors, the twins for CPU
+    tensors).
 
     With ``ser`` (telemetry series, :class:`Series`; the replicated routes
-    only) each boundary also copies its samples, and failures are
-    attributed: on the plain path after each slot's K2 (inside K6, its
-    attributed mode, on the chunk route; K5 on the per-slot route); on the
-    retry path by K5 in each retry-pass slot and, for a chunk's failed
-    slots, in one launch when the chunk is done (at the next boundary,
-    before its releases, or at the run's end) against the chunk's start
-    planes, copied at each boundary. The order is the reference's: chunk
-    b−1's fold precedes boundary b's releases and retry pass
-    (sim/jax_runtime.py:1716-1745).
+    only) each boundary also copies its samples (inside K6's retry mode on
+    the chunk route past boundary 0, after the retry sequence), and
+    failures are attributed: on the plain path after each slot's K2
+    (inside K6, its attributed mode, on the chunk route; K5 on the
+    per-slot route); on the retry path in each retry-pass slot (inside
+    K6's retry mode on the chunk route, K5 on the per-slot route) and, for
+    a chunk's failed slots, by K5 in one launch when the chunk is done (at
+    the next boundary, before its releases, or at the run's end) against
+    the chunk's start planes, copied at each boundary. The order is the
+    reference's: chunk b−1's fold precedes boundary b's releases and retry
+    pass (sim/jax_runtime.py:1716-1745).
 
     On node-sharded tables (row B13) a boundary's release is K8's, and the
     chunk's waves one K9 launch over the waves in the range (``"shard"``,
@@ -790,7 +807,11 @@ def run_waves(plan: ChunkPlan, tb: ref.Tables, choices: torch.Tensor, first: int
         cols = slice(c * CW, (c + 1) * CW)
         fold_reject(h_snap, idx_dev[cols], choices[:, cols])
 
-    def boundary_work(b: int) -> None:
+    def boundary_work(b: int):
+        """Boundary b's work before its chunk's waves. On the chunk route
+        with the retry buffer (b > 0) the retry sequence and the samples go
+        to the chunk's K6 launch: returns its ``retry`` and ``samples``
+        arguments (else (None, None))."""
         if pager is not None:
             chunk_start(b)
         if ser is not None and ser.fold and b > 0:
@@ -799,27 +820,31 @@ def run_waves(plan: ChunkPlan, tb: ref.Tables, choices: torch.Tensor, first: int
             joint_release(b, h, apply_placements, rt, choices, buckets.get(b))
         elif b in buckets:
             release(h, buckets[b][0], buckets[b][1], choices, -1.0)
+        samples = None
+        if ser is not None:  # each boundary with a finite start time, and the fold's planes
+            at_b = lambda x: x[b] if x is not None and np.isfinite(plan.tb[b]) else None
+            samples = ref.RetrySamples(at_b(ser.used), at_b(ser.rcount), at_b(ser.pend),
+                                       ser.snap if ser.fold else None)
+        if rt is not None and b > 0 and route == "chunk":
+            return (b, float(np.float32(plan.tb[b])), not joint), samples
         if rt is not None and b > 0:
             run_retry_boundary(plan, b, h, fns, rt, pos_rb, reject, joint)
-        if ser is not None:
-            if np.isfinite(plan.tb[b]):
-                ser.used[b].copy_(tb.state.used)
-                if rt is not None:
-                    ser.rcount[b].copy_(rt.rcount)
-                    ser.pend[b].copy_(rt.pend_id)
-            if ser.fold:
-                for dst, src in zip(ser.snap, tb.state):
-                    dst.copy_(src)
+        if samples is not None:
+            ref.take_samples(tb, samples)
+        return None, None
 
     if route in ("chunk", "shard"):
         w = first
         while w < end:
             b = w // C
-            if w % C == 0:
-                boundary_work(b)
+            retry, samples = boundary_work(b) if w % C == 0 else (None, None)
             hi = min(end, (b + 1) * C)
             if route == "shard":
                 shard_chunk_replay(h, desc.idx, desc.gang, choices, w, hi)
+            elif retry is not None:
+                chunk_replay(h, desc.idx, desc.gang, choices, w, hi, append=True,
+                             reject=tb.reject if reject is not None else None, retry=retry,
+                             samples=samples)
             else:
                 chunk_replay(h, desc.idx, desc.gang, choices, w, hi,
                              boundary=b if preempt else None, append=append, reject=k6_reject)

@@ -59,8 +59,10 @@ pods.
 
 The unschedulable-retry buffer (``retry_buffer=RB``; the retry variant of
 ``_build_chunk_fn``, :1406-1557) gives each scenario its own FIFO of
-failed non-gang pods, retry pass and pending list
-(:func:`.torch_runtime.run_retry_boundary`; ``WhatIfResult.retry_dropped
+failed non-gang pods, retry pass and pending list (on the chunk route
+inside each chunk's K6 launch, K6's retry mode, as the reference runs them
+inside its chunk program; on the per-slot route
+:func:`.torch_runtime.run_retry_boundary`; ``WhatIfResult.retry_dropped
 [S]``). It keeps the reference's refusals (no finite durations or
 ``completions=False``, ``collect_assignments``, tier preemption, fork
 checkpoints). The reference also refuses traces whose count planes

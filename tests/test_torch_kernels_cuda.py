@@ -10,6 +10,8 @@ compiled without FMA contraction and with IEEE division — except the
 what-if ``utilization_cpu`` of the card against the CPU (1e-6: an f32 mean
 over nodes summed in another order)."""
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -24,8 +26,8 @@ from kubernetes_simulator_tpu_torch.sim.torch_runtime import StepSpec, TorchRepl
 pytestmark = pytest.mark.cuda
 
 #: The kernels every path with completions launches on the chunk route, the
-#: main path (the retry buffer adds K1, K2 in its retry pass and
-#: retry_boundary).
+#: main path (the retry buffer's boundary sequence runs inside K6's retry
+#: mode).
 PATH_KERNELS = ("apply_placements", "chunk_replay")
 #: The kernels of the per-slot route.
 SLOT_KERNELS = ("filter_score", "normalize_select", "apply_placements")
@@ -314,7 +316,8 @@ def test_retry_kernels_equal_twins(card):
 def test_retry_kernel_path_equals_plain_path(card):
     """The retry replay and the S=4 retry what-if on the kernel path equal
     the plain path on the card and on the CPU: assignments, placed, drops
-    and every retry record, with all four kernels launched."""
+    and every retry record; the replay runs one K6 a chunk, each past the
+    first in K6's retry mode, and no K1, K2, K3 bind or K4."""
     from kubernetes_simulator_tpu_torch.sim.whatif import WhatIfEngine, uniform_scenarios
 
     cs = _chip_smoke()
@@ -324,7 +327,11 @@ def test_retry_kernel_path_equals_plain_path(card):
     eng = TorchReplayEngine(ec, ep, FrameworkConfig(), device=card, **kw)
     kern = eng.replay()
     counts = K.launch_counts()
-    assert all(counts[k] > 0 for k in PATH_KERNELS + SLOT_KERNELS + ("retry_boundary",))
+    # the chunk route: K6's retry mode at every boundary past 0, no per-slot launch
+    assert all(counts[k] > 0 for k in PATH_KERNELS), counts
+    assert K.chunk_replay.retry == len(eng.plan.buckets) - 1, counts
+    assert not any(counts[k] for k in ("filter_score", "normalize_select", "retry_boundary",
+                                       "apply_placements_bind")), counts
     # summary telemetry attributes nothing
     assert counts["first_reject"] == counts["first_reject_fold"] == 0
     rec = cs.retry_records(eng.last_tables)
@@ -419,9 +426,10 @@ def test_first_reject_equals_twin(card):
                 for o in (dict(device=card), dict(device=card, plain=True), dict(device="cpu"))]
         counts = K.launch_counts()
         # the plain path attributes inside K6 (its attributed mode); the retry
-        # path's pass and folds launch K5
-        assert (counts["first_reject"] > 0) == bool(kw)
+        # path's pass inside K6's retry mode, its folds by K5
+        assert counts["first_reject"] == 0
         assert (K.chunk_replay.attributed == counts["chunk_replay"] > 0) == (not kw)
+        assert (K.chunk_replay.retry > 0) == bool(kw)
         assert (counts["first_reject_fold"] > 0) == bool(kw)  # the fold: retry path only
         for other in runs[1:]:
             np.testing.assert_array_equal(runs[0].assignments, other.assignments)
@@ -532,8 +540,8 @@ def _chunk_cases():
 @pytest.mark.parametrize("case", range(7))
 def test_chunk_replay_equals_slot_route_and_twin(card, case):
     """K6 against the per-slot route and its twin: a whole run of each mode
-    on the chunk route (one K6 launch a chunk, K1 and K2 never launched
-    outside the retry pass) equals the same engine on the per-slot route on
+    on the chunk route (one K6 launch a chunk, K1 and K2 never launched; the
+    retry buffer's boundaries in K6's retry mode) equals the same engine on the per-slot route on
     the card, and the twin ref.chunk_replay, chunk by chunk: the choice
     buffer and every state plane after each chunk."""
     from kubernetes_simulator_tpu_torch.sim.torch_runtime import new_choices, run_waves
@@ -544,8 +552,9 @@ def test_chunk_replay_equals_slot_route_and_twin(card, case):
     tb_c, _, a_chunk, placed, _ = eng._run(route="chunk")
     counts = K.launch_counts()
     assert eng.last_route == "chunk" and counts["chunk_replay"] == len(eng.plan.buckets), counts
-    if eng.retry_buffer == 0:
-        assert counts["filter_score"] == counts["normalize_select"] == 0, counts
+    assert counts["filter_score"] == counts["normalize_select"] == 0, counts
+    if eng.retry_buffer:
+        assert K.chunk_replay.retry == len(eng.plan.buckets) - 1, counts
     tb_s, _, a_slot, placed_s, _ = eng._run(route="slot")
     np.testing.assert_array_equal(a_chunk, a_slot)
     np.testing.assert_array_equal(placed, placed_s)
@@ -1063,3 +1072,81 @@ def test_cluster_shard_select_equals_twin(card, P):
             K.shard_apply(b, idx[s : s + 1], pos[s : s + 1], ch_k, 1.0)
             ref.shard_apply(tb_t, idx[s : s + 1], pos[s : s + 1], ch_t, 1.0)
     assert int((ch_k[0, : 12 * W] >= 0).sum()) > 0
+
+
+def _retry_chunk_cases():
+    """(name, engine maker, forced K6 ranks or None, joint): the S = 4 retry
+    what-if of :func:`_retry_case` at its plan's C = 1, and CONFIG7 cut to
+    40 nodes x 2,000 pods (chunkWaves 32, retryBuffer 64: buffers fill and
+    overflow) as the single replay (the joint release order) with K6 forced
+    to two ranks."""
+    from kubernetes_simulator_tpu_torch.sim.whatif import WhatIfEngine, uniform_scenarios
+
+    def whatif(dev):
+        ec, ep = _retry_case()
+        scen = uniform_scenarios(ec, 4, seed=1, p_node_down=0.5, p_capacity=0.5, p_taint=0.5)
+        return WhatIfEngine(ec, ep, scen, FrameworkConfig(), wave_width=4, chunk_waves=3,
+                            retry_buffer=8, device=dev)
+
+    def replay(dev):
+        cfg, ec, ep = _chip_smoke().config7_case(nodes=40, pods=2000)
+        return TorchReplayEngine(ec, ep, cfg.framework, wave_width=cfg.wave_width,
+                                 chunk_waves=32, retry_buffer=64, device=dev)
+
+    return [("what-if S=4", whatif, None, False), ("config7 cut, C=2", replay, 2, True)]
+
+
+@pytest.mark.parametrize("series", [False, True])
+@pytest.mark.parametrize("case", range(2))
+def test_chunk_replay_retry_equals_twin_and_slot_route(card, case, series):
+    """K6's retry mode against its twin and the per-slot kernels, chunk by
+    chunk from the initial state (run_waves on the chunk route with the
+    kernels, on the chunk route with the twins, on the per-slot route with
+    the kernels): after each chunk the choice buffer, every state, scratch
+    and retry plane equal; with ``series`` (the retry path's attribution:
+    K6 charging the retry pass, K5 folding the chunks) the reject counters
+    and the boundary samples too. The kernel chunk route launches one K6 a
+    chunk, each past the first in the retry mode, and no K1, K2, K3 bind or
+    K4."""
+    from kubernetes_simulator_tpu_torch.sim.torch_runtime import (new_choices, new_series,
+                                                                  run_waves)
+
+    cs = _chip_smoke()
+    name, make, C, joint = _retry_chunk_cases()[case]
+    eng = make(card)
+    plan = eng.plan
+    tbs = [eng._tables(attribute=series) for _ in range(3)]
+    sers = [new_series(plan, tb, True) if series else None for tb in tbs]
+    chs = [new_choices(plan, eng.S, eng.pods.bound_node, card) for _ in range(3)]
+    routes = ((False, "chunk"), (True, "chunk"), (False, "slot"))
+    counts = dict.fromkeys(K.launch_counts(), 0)
+    k6_retry = 0
+    with cs.forced_k6_plan(C) if C is not None else contextlib.nullcontext():
+        for c in range(len(plan.buckets)):
+            lo, hi = c * plan.C, (c + 1) * plan.C
+            for i, (plain, route) in enumerate(routes):
+                K.reset_launch_counts()
+                run_waves(plan, tbs[i], chs[i], lo, hi, plain=plain, ser=sers[i], route=route,
+                          joint=joint)
+                if i == 0:
+                    counts = {k: counts[k] + v for k, v in K.launch_counts().items()}
+                    k6_retry += K.chunk_replay.retry
+            torch.cuda.synchronize()
+            for i in (1, 2):
+                cs.same_planes(f"{name}, chunk {c}, route {routes[i]}", tbs[0], chs[0], tbs[i],
+                               chs[i])
+                if not series:
+                    continue
+                for f, x, y in zip(tbs[0].reject._fields, tbs[0].reject, tbs[i].reject):
+                    assert torch.equal(x, y), (name, c, i, f)
+                for f in ("used", "rcount", "pend"):
+                    assert torch.equal(getattr(sers[0], f), getattr(sers[i], f)), (name, c, i, f)
+                for x, y in zip(sers[0].snap, sers[i].snap):
+                    assert torch.equal(x, y), (name, c, i, "snap")
+    assert K.chunk_replay.plan.C == (C or 1)
+    assert counts["chunk_replay"] == len(plan.buckets) and k6_retry == len(plan.buckets) - 1
+    assert not any(counts[k] for k in ("filter_score", "normalize_select", "retry_boundary",
+                                       "apply_placements_bind", "first_reject")), counts
+    assert (counts["first_reject_fold"] > 0) == series, counts
+    rt = tbs[0].retry
+    assert int((rt.rnode >= 0).sum()) > 0 and int(rt.rdrop.sum()) > 0
