@@ -59,7 +59,8 @@ From the root of a checkout, on a host with one CUDA card. In order:
    chunk, and K8 at each release), the per-slot shard route on the kernels
    (K1 over the padded node axis -> K7 -> K8 a slot), K9's twin and the
    per-slot twins on the card and on the CPU, the replicated K6 route —
-   paged and not: assignments, placed and ``used`` identical, each route's
+   paged and not (paged, the twins on the CPU left out: the CPU tests hold
+   them): assignments, placed and ``used`` identical, each route's
    launches checked; SHARD_CUT (BORG_CUT over 4 shards, paged) on K9 against
    SHARD_PINS; config13 (``examples/config13_borgscale.yaml`` as shipped:
    10,000 nodes x 100,000 Borg tasks, nodeShards 8, pagedWaves, chunkWaves
@@ -217,7 +218,31 @@ From the root of a checkout, on a host with one CUDA card. In order:
    shipped, through the CLI's entry point on the card: the trajectory
    file's sha256 equal to the JAX package's (TUNE_PINS), the oracle's
    envelope <= 1e-6, one engine set-up; the walls of the search, the
-   held-out sweep and the oracle.
+   held-out sweep and the oracle;
+25. (M1) the scenario mesh: CONFIG5 as shipped (1,024 scenarios x 1,000
+   nodes x 10,000 pods, google.com/tpu, gangs, whatIf.mesh) through the CLI
+   ``what-if`` on ``make_mesh()`` (a block a card), counters zeroed just
+   before and read just after (one K6 a chunk a block, nothing else), its
+   rows saying ``"mesh": true``; the whole choice buffer equal to the same
+   batch unsplit, scenario 0 to a single replay; K6 held against its twin
+   over the first K6_TWIN_WAVES waves at S = 1,024; K6's device time a
+   slot (CUDA events) and the busy share; the meshed and unsplit walls in
+   turns; then the headline batch split two ways on the one card
+   (``[cuda:0, cuda:0]``, a stream a block, each planned for half the
+   SMs) equal to the unsplit headline, the walls in turns;
+26. (M2) the flight recorder: CONFIG15 as shipped (10,000 x 1,000,000 Borg
+   tasks over 8 shards, paged, chunkWaves 512, the recorder on) through the
+   CLI ``run`` under torch.profiler (one K9 a chunk, K8 at each release,
+   nothing else; K9's device time a slot, the busy share); the stream read
+   back (a chunk row a boundary, a page row a pager miss, the summary); the
+   placed count and the assignments' sha256 equal to K6's replicated
+   replay of the trace at chunkWaves 512;
+27. (M3) the overlap gates: CONFIG18 (64 nodes x 4,096 pods over 2 shards,
+   paged, chunkWaves 4, the recorder on) through the CLI ``run`` four
+   times, pagerThread x twoPhaseExchange, under KSIM_DETERMINISTIC_JSONL=1:
+   the choice buffers and rows identical and the recorder streams byte for
+   byte, walls and busy shares; CONFIG13's engine with the recorder off,
+   on, on, off: the same assignments, the walls in turns.
 
 The selects — K2, K6, K7 and K9 — launch as thread-block clusters
 (ops/kernels.py ``cluster_plan``): every step that launches one prints its
@@ -475,6 +500,16 @@ SHARD_SOURCES = {
 #: config13 (examples/config13_borgscale.yaml: 10,000 nodes x 100,000 Borg
 #: tasks, nodeShards 8, pagedWaves, chunkWaves 512) through the CLI ``run``.
 CONFIG13 = "examples/config13_borgscale.yaml"
+#: config5 (1,024 scenarios x 1,000 nodes x 10,000 pods, google.com/tpu 8 at
+#: 25 %, gangs 0.05 x 4, tolerations, whatIf.mesh) through the CLI what-if;
+#: config15 (10,000 x 1,000,000 Borg tasks over 8 shards, paged, chunkWaves
+#: 512, the flight recorder on) and config18 (64 nodes x 4,096 pods over 2
+#: shards, paged, chunkWaves 4, the overlap gates, the recorder on) through
+#: the CLI run; their streams and configs go to FLIGHT_DIR.
+CONFIG5 = "examples/config5_multitenant_mesh.yaml"
+CONFIG15 = "examples/config15_headline.yaml"
+CONFIG18 = "examples/config18_overlap.yaml"
+FLIGHT_DIR = os.path.join(ROOT, "chiprun_out", "flight")
 #: The reduced sharded replay (four routes, paged and not): 100 nodes over 3
 #: shards (two pad rows), 600 pods, gangs, completions.
 SHARD_REDUCED = dict(nodes=100, pods=600, node_shards=3, chunk_waves=8)
@@ -3935,13 +3970,8 @@ def run_series_shards(results, dev):
     release, the pager), no K5 and no K6, the note logged, no reasons, the
     assignments equal to the summary run of step e (their sha256); then
     SHARD_CUT (4 shards, paged) at ``series`` against SHARD_PINS."""
-    import contextlib
-    import io
-
     import yaml
 
-    from kubernetes_simulator_tpu_torch import cli
-    from kubernetes_simulator_tpu_torch.framework import registry
     from kubernetes_simulator_tpu_torch.sim.borg import BorgSpec, make_borg_encoded
 
     outdir = os.path.join(ROOT, "chiprun_out")
@@ -3952,28 +3982,15 @@ def run_series_shards(results, dev):
     path = os.path.join(outdir, "config13_series.yaml")
     with open(path, "w") as f:
         yaml.safe_dump(d, f)
-    factory = registry.get_strategy("torch")
-    made = []
-    registry._STRATEGIES["torch"] = lambda *a, **kw: made.append(factory(*a, **kw)) or made[-1]
-    buf = io.StringIO()
-    K.reset_launch_counts()
-    try:
-        with LogLines() as lines, contextlib.redirect_stdout(buf):
-            rc = cli.main(["run", path, "--device", dev.type])
-    finally:
-        registry._STRATEGIES["torch"] = factory
-    launches = K.launch_counts()
-    if rc != 0 or len(made) != 1:
-        raise AssertionError(f"config13 at series: the CLI returned {rc}")
-    eng = made[0]
-    row = json.loads([x for x in buf.getvalue().splitlines() if x.startswith("{")][-1])
+    rows, lines, eng, _, launches = cli_call(["run", path, "--device", dev.type])
+    row = rows[-1]
     shard_route_launches("config13 at series", launches, eng.plan)
     if (launches["first_reject"] or launches["first_reject_fold"] or eng.last_route != "shard"
             or eng.last_pager is None):
         raise AssertionError(f"config13 at series: route {eng.last_route}, pager "
                              f"{eng.last_pager}, launches {launches}")
     if not any("rejection attribution is disabled under node sharding" in m
-               for m in lines.lines):
+               for m in lines):
         raise AssertionError("config13 at series: the reference's note was not logged")
     a, placed, _ = assignments_from_choices(eng.plan, eng.last_choices, eng.pods.bound_node)
     sha = assignments_sha256(a[0])
@@ -4559,30 +4576,10 @@ def run_config4(results, dev):
     state, K6 held against its twin over the first K6_TWIN_WAVES waves and
     the first CONFIG4_HOLD_CHUNKS chunks on K6 against the per-slot
     kernels, the choices and every plane equal after each."""
-    import contextlib
-    import io
-
-    from kubernetes_simulator_tpu_torch import cli
-    from kubernetes_simulator_tpu_torch.framework import registry
-
-    factory = registry.get_strategy("torch")
-    made = []
-    registry._STRATEGIES["torch"] = lambda *a, **kw: made.append(factory(*a, **kw)) or made[-1]
-    out = io.StringIO()
-    K.reset_launch_counts()
-    t0 = time.perf_counter()
-    try:
-        with LogLines() as lines, contextlib.redirect_stdout(out):
-            rc = cli.main(["run", os.path.join(ROOT, CONFIG4), "--device", dev.type])
-    finally:
-        registry._STRATEGIES["torch"] = factory
-    command_s = time.perf_counter() - t0
-    launches = K.launch_counts()
-    if rc != 0 or len(made) != 1:
-        raise AssertionError(f"config4 run: the CLI returned {rc}")
+    rows, lines, eng, command_s, launches = cli_call(["run", os.path.join(ROOT, CONFIG4),
+                                                      "--device", dev.type])
     k6_plan = plan_of(K.chunk_replay)
-    eng = made[0]
-    row = json.loads([x for x in out.getvalue().splitlines() if x.startswith("{")][-1])
+    row = rows[-1]
     ec, ep, plan = eng.ec, eng.pods, eng.plan
     if (ec.num_nodes, ep.num_pods) != (10_000, 1_000_000) or eng.last_route != "chunk":
         raise AssertionError(f"config4 run: {ec.num_nodes} nodes, {ep.num_pods} tasks, route "
@@ -4606,7 +4603,7 @@ def run_config4(results, dev):
     if ((g_placed > 0) & (g_placed < g_size)).any():
         raise AssertionError("config4 run: a gang placed partially")
     setup = [m.groups() for m in (re.search(r"set-up: trace ([\d.]+)s, engine ([\d.]+)s", x)
-                                  for x in lines.lines) if m]
+                                  for x in lines) if m]
     mark("c config4 CLI run")
     bound_ms = Work(ep, eng._tables()).chunk_loop_ms(plan, a, launches)
     mark("c config4 B6 bound")
@@ -4671,7 +4668,7 @@ def run_config4(results, dev):
           f"vs {walls['slot']:.2f}s); K6 over the first chunk {k6_us:.2f} us a slot (CUDA "
           f"events; cluster "
           f"{json.dumps(k6_plan)})", flush=True)
-    del eng, made, tb_k, tb_s, tb_e
+    del eng, tb_k, tb_s, tb_e
 
 
 def check_borg_pins(results, dev):
@@ -5004,7 +5001,8 @@ def check_reduced_shards(results, dev):
     shard route on K9 (one launch a chunk), the per-slot shard route on the
     kernels (K1 -> K7 -> K8 a slot), K9's twin and the per-slot twins on the
     card and on the CPU, and the replicated K6 route — then all of it again
-    paged: assignments, placed and ``used`` identical; each kernel run
+    paged but the twins on the CPU (tests/test_torch_pager.py holds them
+    paged): assignments, placed and ``used`` identical; each kernel run
     launches what its route launches and nothing else."""
     sr = SHARD_REDUCED
     ec, ep = case(sr["nodes"], sr["pods"], gang_fraction=0.1)
@@ -5026,14 +5024,18 @@ def check_reduced_shards(results, dev):
         slot_launches = K.launch_counts()
         shard_slot_launches(f"{where}, per-slot route", slot_launches, eng.plan)
         slot_used = eng.last_tables.state.used[0, : ec.num_nodes].cpu().numpy()
-        routes = {"K9's twin on the CPU": mk("cpu", sr["node_shards"]).replay(),
-                  "replicated K6": mk(dev, 1).replay()}
+        routes = {"replicated K6": mk(dev, 1).replay()}
         plain_card = mk(dev, sr["node_shards"], plain=True)
         routes.update({
             "K9's twin on the card": plain_card._run(route="shard")[2][0],
-            "the per-slot twins on the card": plain_card.replay(),
-            "the per-slot twins on the CPU": mk("cpu", sr["node_shards"])._run(
-                route="shard_slot")[2][0]})
+            "the per-slot twins on the card": plain_card.replay()})
+        if not paged:
+            # The twins on the CPU read pages as the resident tables
+            # (tests/test_torch_pager.py): the paged pass leaves them out.
+            routes.update({
+                "K9's twin on the CPU": mk("cpu", sr["node_shards"]).replay(),
+                "the per-slot twins on the CPU": mk("cpu", sr["node_shards"])._run(
+                    route="shard_slot")[2][0]})
         for name, r in routes.items():
             a = r if isinstance(r, np.ndarray) else r.assignments
             if not np.array_equal(a, res.assignments) or (
@@ -5098,29 +5100,9 @@ def run_config13(results, dev):
     and timed there beside its twin and its bound. Returns the kernel rows'
     numbers, the run's launches, the per-slot route's, the holds and K9's
     window records."""
-    import contextlib
-    import io
-
-    from kubernetes_simulator_tpu_torch import cli
-    from kubernetes_simulator_tpu_torch.framework import registry
-
-    factory = registry.get_strategy("torch")
-    made = []
-    registry._STRATEGIES["torch"] = lambda *a, **kw: made.append(factory(*a, **kw)) or made[-1]
-    out = io.StringIO()
-    K.reset_launch_counts()
-    t0 = time.perf_counter()
-    try:
-        with LogLines() as lines, contextlib.redirect_stdout(out):
-            rc = cli.main(["run", os.path.join(ROOT, CONFIG13), "--device", dev.type])
-    finally:
-        registry._STRATEGIES["torch"] = factory
-    command_s = time.perf_counter() - t0
-    launches = K.launch_counts()
-    if rc != 0 or len(made) != 1:
-        raise AssertionError(f"config13 run: the CLI returned {rc}")
-    eng = made[0]
-    row = json.loads([x for x in out.getvalue().splitlines() if x.startswith("{")][-1])
+    rows, lines, eng, command_s, launches = cli_call(["run", os.path.join(ROOT, CONFIG13),
+                                                      "--device", dev.type])
+    row = rows[-1]
     ec, ep, plan = eng.ec, eng.pods, eng.plan
     from kubernetes_simulator_tpu_torch.utils.config import SimConfig
 
@@ -5138,20 +5120,15 @@ def run_config13(results, dev):
         raise AssertionError(f"config13 run: placed {row['placed']} / {int(placed[0])}")
     pager = eng.last_pager
 
-    def pager_rec(pg):
-        return dict(stalls=pg.stalls, stall_s=pg.stall_s, waits=pg.waits,
-                    prefetches=pg.prefetches, prefetch_wall_s=pg.prefetch_wall_s,
-                    page_rows=pg.rows)
-
     # The per-slot shard route of the same engine, between two more K9 runs.
     walls = {}
     K.reset_launch_counts()
     _, walls["shard_slot"], a_slot, _, _ = eng._run(route="shard_slot")
     slot_launches = K.launch_counts()
-    slot_pager = pager_rec(eng.last_pager)
+    slot_pager = pager_record(eng.last_pager)
     shard_slot_launches("config13, per-slot route", slot_launches, plan)
     _, walls["shard_again"], a_again, _, _ = eng._run(route="shard")
-    k9_pager = pager_rec(eng.last_pager)
+    k9_pager = pager_record(eng.last_pager)
     # One more K9 run under torch.profiler: the card's busy share on the route
     # and K9's device time a slot over the whole run.
     by_k9 = {}
@@ -5160,7 +5137,7 @@ def run_config13(results, dev):
     k9_run = dict(wall_s=walls["shard_profiled"], device_busy_s=busy9,
                   device_busy_share=busy9 / walls["shard_profiled"],
                   k9_device_s=sum(t for k, t in by_k9.items() if "shard_chunk_replay" in k),
-                  pager=pager_rec(eng.last_pager))
+                  pager=pager_record(eng.last_pager))
     k9_run["k9_us_per_slot"] = k9_run["k9_device_s"] * 1e6 / slots
     for name, a in (("the per-slot shard route", a_slot), ("a second K9 run", a_again),
                     ("the profiled K9 run", a_prof)):
@@ -5170,13 +5147,13 @@ def run_config13(results, dev):
     print(f"config13 routes in one call: K9 (CLI) {row['wall_clock_s']:.3f}s, per-slot "
           f"K1 -> K7 -> K8 {walls['shard_slot']:.3f}s, K9 again {walls['shard_again']:.3f}s "
           f"(beside {EARLIER['config13_wall_s']}s on the per-slot route before K9); assignments "
-          f"equal; pager K9 {json.dumps(pager_rec(pager))}, per-slot {json.dumps(slot_pager)}, "
+          f"equal; pager K9 {json.dumps(pager_record(pager))}, per-slot {json.dumps(slot_pager)}, "
           f"K9 again {json.dumps(k9_pager)}; profiled K9 run: wall "
           f"{walls['shard_profiled']:.3f}s, device busy {busy9:.3f}s "
           f"({k9_run['device_busy_share']:.1%}), K9 {k9_run['k9_us_per_slot']:.2f} us a slot",
           flush=True)
     setup = [m.groups() for m in (re.search(r"set-up: trace ([\d.]+)s, engine ([\d.]+)s", x)
-                                  for x in lines.lines) if m]
+                                  for x in lines) if m]
     cfg_c = cfg.chunk_waves
     rep = TorchReplayEngine(ec, ep, FrameworkConfig(), wave_width=plan.idx.shape[1],
                             chunk_waves=cfg_c, device=dev)
@@ -5258,7 +5235,7 @@ def run_config13(results, dev):
         placements_per_s=row["placements_per_sec"], command_s=command_s,
         setup_trace_s=float(setup[0][0]), setup_engine_s=float(setup[0][1]),
         setup_s=eng.setup_s, launches=launches,
-        pager=pager_rec(pager),
+        pager=pager_record(pager),
         replicated_k6=dict(wall_s=res_rep.wall_clock_s, route=res_rep.route,
                            placed=res_rep.placed),
         shard_slot=dict(wall_s=walls["shard_slot"], launches=slot_launches, pager=slot_pager),
@@ -5284,6 +5261,379 @@ def run_config13(results, dev):
           f"{json.dumps(per_launch)}, bounds {json.dumps(bound_chunk)}; kernel times "
           f"{json.dumps(times)}", flush=True)
     return times, launches, slot_launches, holds, k9_holds
+
+
+def cli_call(argv):
+    """One CLI command in this process, counters zeroed just before it and
+    read just after: (its JSON rows on stdout, its log lines, the engine it
+    built, its seconds, its launches). Raises where it returns non-zero."""
+    import io
+
+    from kubernetes_simulator_tpu_torch import cli
+    from kubernetes_simulator_tpu_torch.framework import registry
+    from kubernetes_simulator_tpu_torch.sim import whatif as W
+
+    factory, what_if = registry.get_strategy("torch"), W.WhatIfEngine
+    made = []
+
+    class Captured(what_if):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made.append(self)
+
+    registry._STRATEGIES["torch"] = lambda *a, **kw: made.append(factory(*a, **kw)) or made[-1]
+    W.WhatIfEngine = Captured
+    out = io.StringIO()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        with LogLines() as lines, contextlib.redirect_stdout(out):
+            rc = cli.main(argv)
+    finally:
+        registry._STRATEGIES["torch"] = factory
+        W.WhatIfEngine = what_if
+    command_s = time.perf_counter() - t0
+    launches = K.launch_counts()
+    if rc != 0 or len(made) != 1:
+        raise AssertionError(f"{' '.join(argv)}: the CLI returned {rc}")
+    rows = [json.loads(x) for x in out.getvalue().splitlines() if x.startswith("{")]
+    return rows, lines.lines, made[0], command_s, launches
+
+
+def meshed_launches(where, launches, eng):
+    """A meshed batch's launches (counters zeroed just before its run): one
+    K6 a chunk in each block, K3 at each static release in each block,
+    nothing else."""
+    n, plan = len(eng._blocks), eng.plan
+    releases = sum(bk is not None for bk in plan.buckets)
+    want = dict(chunk_replay=n * len(plan.buckets), apply_placements=n * releases,
+                apply_placements_release=n * releases, filter_score=0, normalize_select=0,
+                apply_placements_bind=0, apply_placements_rollback=0, shard_chunk_replay=0)
+    if any(launches[k] != v for k, v in want.items()):
+        raise AssertionError(f"{where}: launches {launches}, expected {want}")
+
+
+def run_config5(results, headline_case, dev):
+    """(M1) config5 (CONFIG5, as shipped: 1,024 scenarios x 1,000 nodes x
+    10,000 pods, google.com/tpu 8 at 25 %, gangs 0.05 x 4, tolerations,
+    whatIf.mesh) through the CLI what-if on ``make_mesh()`` — every card
+    the host sees, one block a card — counters zeroed just before and read
+    just after: one K6 a chunk a block, nothing else; its rows say
+    ``"mesh": true``; the whole choice buffer equal to the same batch with
+    the mesh off (the same engine set-up, unsplit) and scenario 0 to a
+    single replay of the trace; K6 held against its twin over the first
+    K6_TWIN_WAVES waves at S = 1,024 (the block's tables); K6's device time
+    a slot (CUDA events, chunk by chunk) and the busy share; the walls of
+    the meshed and unsplit batches in turns. Then the headline batch split
+    two ways on the one card (``[cuda:0, cuda:0]``, a stream a block)
+    against the unsplit headline: assignments equal, launches doubled, the
+    walls in turns. Returns config5's launches."""
+    from kubernetes_simulator_tpu_torch.parallel.mesh import make_mesh
+    from kubernetes_simulator_tpu_torch.utils.config import SimConfig
+
+    rows, _, eng, command_s, launches = cli_call(["what-if", os.path.join(ROOT, CONFIG5),
+                                                  "--device", dev.type])
+    k6_plan = plan_of(K.chunk_replay)
+    cfg = SimConfig.load(os.path.join(ROOT, CONFIG5))
+    ec, ep, plan = eng.ec, eng.pods, eng.plan
+    agg, scen_rows = rows[0], rows[1:]
+    S = cfg.whatif.scenarios
+    if (eng.mesh != make_mesh() or len(eng._blocks) != torch.cuda.device_count()
+            or len(scen_rows) != S or not all(r["mesh"] for r in rows)
+            or eng.last_route != "chunk"
+            or (ec.num_nodes, ep.num_pods) != (cfg.cluster.nodes, cfg.workload.pods)
+            or "google.com/tpu" not in ec.vocab._r):
+        raise AssertionError(f"config5 what-if: mesh {eng.mesh}, {len(scen_rows)} rows, route "
+                             f"{eng.last_route}, {ec.num_nodes} nodes, {ep.num_pods} pods")
+    meshed_launches("config5 what-if", launches, eng)
+    a_mesh, placed, _ = assignments_from_choices(plan, eng.last_choices, ep.bound_node)
+    if [r["placed"] for r in scen_rows] != placed.tolist() or agg["total_placed"] <= 0:
+        raise AssertionError("config5: the rows' placed != the choice buffer's")
+    # The same batch with the mesh off, on the same set-up's scenarios.
+    scen = uniform_scenarios(ec, S, seed=cfg.whatif.seed, p_node_down=cfg.whatif.node_down_p,
+                             p_capacity=cfg.whatif.capacity_p, p_taint=cfg.whatif.taint_p)
+    one = WhatIfEngine(ec, ep, scen, cfg.framework, wave_width=cfg.wave_width,
+                       chunk_waves=cfg.chunk_waves, completions=cfg.whatif.completions,
+                       device=dev)
+    K.reset_launch_counts()
+    res_one = one.run()
+    one_launches = K.launch_counts()
+    check_chunk_launches("config5 unsplit", one_launches, one.plan)
+    if not np.array_equal(one.last_choices, eng.last_choices):
+        bad = np.argwhere(one.last_choices != eng.last_choices)
+        raise AssertionError(f"config5: the meshed batch != the unsplit one at (scenario, "
+                             f"column) {bad[:5].tolist()}")
+    single = TorchReplayEngine(ec, ep, cfg.framework, wave_width=cfg.wave_width,
+                               chunk_waves=cfg.chunk_waves, device=dev).replay()
+    if not np.array_equal(single.assignments, a_mesh[0]):
+        raise AssertionError("config5: scenario 0 != the single replay")
+    walls = {"mesh": [], "unsplit": []}
+    for tag in ("mesh", "unsplit", "unsplit", "mesh"):
+        r = (eng if tag == "mesh" else one).run()
+        if not np.array_equal(r.placed, placed):
+            raise AssertionError(f"config5: the {tag} batch placed differently run to run")
+        walls[tag].append(r.wall_clock_s)
+    blk = eng._blocks[0].engine
+    mk = lambda: (blk._tables(), new_choices(plan, blk.S, ep.bound_node, dev))
+    _, _, twin_rec = hold_twin("config5 (block 0)", plan, mk, min(K6_TWIN_WAVES, plan.C))
+    slots = int((plan.idx >= 0).sum())
+    k6_s = chunk_events_s(blk, dev)
+    wall = float(np.median(walls["mesh"] + [agg["wall_clock_s"]]))
+    mark("M1 config5 what-if, holds")
+    # The headline split two ways on the one card against the unsplit headline.
+    hs = HEADLINE
+    ec_h, ep_h = headline_case
+    scen_h = uniform_scenarios(ec_h, hs["scenarios"], seed=0)
+    mk_h = lambda mesh: WhatIfEngine(ec_h, ep_h, scen_h, FrameworkConfig(),
+                                     chunk_waves=hs["chunk_waves"], collect_assignments=True,
+                                     device=dev, mesh=mesh)
+    h_one, h_two = mk_h(None), mk_h(make_mesh(devices=[dev, dev]))
+    want = h_one.run()
+    K.reset_launch_counts()
+    got = h_two.run()
+    split_launches = K.launch_counts()
+    split_plan = plan_of(K.chunk_replay)
+    meshed_launches("headline split two ways", split_launches, h_two)
+    if split_plan["grid"] * 2 > torch.cuda.get_device_properties(dev).multi_processor_count:
+        raise AssertionError(f"the headline's two blocks on one card planned {split_plan} each: "
+                             "more blocks together than the card's SMs")
+    if not np.array_equal(got.assignments, want.assignments) or [
+            b.hi - b.lo for b in h_two._blocks] != [hs["scenarios"] // 2] * 2:
+        raise AssertionError("the headline split two ways != the unsplit headline")
+    h_walls = {"split": [], "unsplit": []}
+    for tag in ("split", "unsplit", "unsplit", "split"):
+        h_walls[tag].append((h_two if tag == "split" else h_one).run().wall_clock_s)
+    results["config5"] = dict(
+        scenarios=S, nodes=ec.num_nodes, pods=ep.num_pods, chunk_waves=plan.C,
+        chunks=len(plan.buckets), slots=slots, n_devices=len(eng._blocks), route=eng.last_route,
+        completions_on=eng.completions_on, command_s=command_s, cli_wall_s=agg["wall_clock_s"],
+        walls_s=walls, wall_s=wall, placements_per_s=agg["total_placed"] / wall,
+        total_placed=agg["total_placed"], placed_min=int(placed.min()),
+        placed_max=int(placed.max()), launches=launches, unsplit_launches=one_launches,
+        k6_cluster=k6_plan, k6_events_s=k6_s, k6_us_per_slot=k6_s * 1e6 / slots,
+        device_busy_share=k6_s / float(np.median(walls["mesh"])), k6_twin=twin_rec,
+        scenario0_placed=int(placed[0]), single_replay_placed=single.placed,
+        headline_split=dict(walls_s=h_walls, launches=split_launches, k6_cluster=split_plan,
+                            sha256=assignments_sha256(got.assignments)))
+    print(f"config5 through the CLI what-if on make_mesh() ({len(eng._blocks)} block(s); {S} "
+          f"scenarios x {ec.num_nodes} nodes x {ep.num_pods} pods, google.com/tpu, gangs, "
+          f"chunkWaves {plan.C}, {len(plan.buckets)} chunks, route {eng.last_route}): wall "
+          f"{wall:.3f}s (CLI {agg['wall_clock_s']:.3f}s; in turns mesh "
+          f"{[round(w, 3) for w in walls['mesh']]}, unsplit "
+          f"{[round(w, 3) for w in walls['unsplit']]}), "
+          f"{agg['total_placed'] / wall:.1f} aggregate placements/s, placed "
+          f"{int(placed.min())}..{int(placed.max())} a scenario; launches "
+          f"{json.dumps(launches)}; the choice buffer == the unsplit batch's; scenario 0 "
+          f"{int(placed[0])} == single replay {single.placed}; K6 (cluster "
+          f"{json.dumps(k6_plan)}) {k6_s * 1e6 / slots:.2f} us a slot by CUDA events, busy "
+          f"{k6_s / float(np.median(walls['mesh'])):.1%}; the headline split two ways on "
+          f"{dev} == unsplit (walls split {[round(w, 3) for w in h_walls['split']]}, unsplit "
+          f"{[round(w, 3) for w in h_walls['unsplit']]}; each block's K6 cluster "
+          f"{json.dumps(split_plan)}; launches {json.dumps(split_launches)})", flush=True)
+    return launches
+
+
+def pager_record(pg):
+    """The pager's counters (:mod:`..sim.pager`) as a dict."""
+    return dict(stalls=pg.stalls, stall_s=pg.stall_s, waits=pg.waits, wait_s=pg.wait_s,
+                prefetches=pg.prefetches, prefetch_wall_s=pg.prefetch_wall_s,
+                invalidations=pg.invalidations, threaded=pg.threaded, page_rows=pg.rows)
+
+
+def check_stream(where, path, plan, pager, placed):
+    """A single replay's flight stream: start, one chunk row a chunk (every
+    1) in order, a page row a miss or dropped page, the last chunk row's
+    pager gauges equal to the pager's counts, the end row's placed and event
+    count. Returns the stream's rows."""
+    from kubernetes_simulator_tpu_torch.sim.flight import read_stream
+
+    rows = read_stream(path)
+    chunks = [r for r in rows if r["event"] == "chunk"]
+    pages = [r for r in rows if r["event"] == "page"]
+    n = len(plan.buckets)
+    if (rows[0]["event"] != "start" or rows[-1]["event"] != "end"
+            or [r["chunk"] for r in chunks] != list(range(n)) or rows[-1]["events"] != n
+            or rows[-1]["placed"] != placed or len(pages) != pager.stalls + pager.invalidations
+            or (chunks[-1]["pager_stalls"], chunks[-1]["pager_waits"])
+            != (pager.stalls, pager.waits)):
+        raise AssertionError(f"{where}: the flight stream has {len(chunks)} chunk rows for {n} "
+                             f"chunks, {len(pages)} page rows for {pager.stalls} misses, end "
+                             f"{rows[-1]}")
+    return rows
+
+
+def run_config15(results, dev):
+    """(M2) config15 (CONFIG15, as shipped: 10,000 x 1,000,000 Borg tasks,
+    nodeShards 8, pagedWaves, chunkWaves 512, the flight recorder on)
+    through the CLI run, counters zeroed just before and read just after:
+    one K9 a chunk and K8 at each release, nothing else; the placed count
+    and the assignments' sha256 equal K6's replicated replay of the same
+    trace at the same chunkWaves; the stream (in chiprun_out/flight) read
+    back: a chunk row a boundary, page rows equal to the pager's misses,
+    the summary at close. Returns its launches."""
+    path = os.path.join(FLIGHT_DIR, "flight15.jsonl")
+    if os.path.exists(path):
+        os.remove(path)
+    cwd = os.getcwd()
+    os.chdir(FLIGHT_DIR)  # the config's recorder path is relative
+    by_kernel = {}
+    try:
+        (rows, lines, eng, command_s, launches), _ = profiled_busy_s(
+            lambda: cli_call(["run", os.path.join(ROOT, CONFIG15), "--device", dev.type]),
+            by_kernel)
+    finally:
+        os.chdir(cwd)
+    from kubernetes_simulator_tpu_torch.utils.config import SimConfig
+
+    cfg = SimConfig.load(os.path.join(ROOT, CONFIG15))
+    row = rows[-1]
+    ec, ep, plan, pager = eng.ec, eng.pods, eng.plan, eng.last_pager
+    if ((ec.num_nodes, ep.num_pods) != (cfg.borg.nodes, cfg.borg.tasks)
+            or eng.last_route != "shard" or eng.layout.P != cfg.node_shards or not eng.paged
+            or plan.C != cfg.chunk_waves):
+        raise AssertionError(f"config15 run: {ec.num_nodes} nodes, {ep.num_pods} tasks, route "
+                             f"{eng.last_route}, {eng.layout}, paged {eng.paged}")
+    shard_route_launches("config15 run", launches, plan)
+    a_sh, placed, _ = assignments_from_choices(plan, eng.last_choices, ep.bound_node)
+    if int(placed[0]) != row["placed"] or row["placed"] + row["unschedulable"] != ep.num_pods:
+        raise AssertionError(f"config15 run: placed {row['placed']} / {int(placed[0])}")
+    stream = check_stream("config15", path, plan, pager, row["placed"])
+    # The run's device time: K9 and K8 (the profile also holds the set-up's
+    # copies, outside the replay's wall).
+    k9_s = sum(t for k, t in by_kernel.items() if "shard_chunk_replay" in k)
+    k8_s = sum(t for k, t in by_kernel.items() if "shard_apply" in k)
+    setup = [m.groups() for m in (re.search(r"set-up: trace ([\d.]+)s, engine ([\d.]+)s", x)
+                                  for x in lines) if m]
+    mark("M2 config15 CLI run")
+    rep = TorchReplayEngine(ec, ep, FrameworkConfig(), wave_width=plan.idx.shape[1],
+                            chunk_waves=cfg.chunk_waves, device=dev)
+    res_rep = rep.replay()
+    sha = assignments_sha256(a_sh[0])
+    if res_rep.route != "chunk" or res_rep.placed != row["placed"] or assignments_sha256(
+            res_rep.assignments) != sha:
+        raise AssertionError(f"config15: the sharded run (placed {row['placed']}) != K6's "
+                             f"replicated run at chunkWaves {cfg.chunk_waves} (placed "
+                             f"{res_rep.placed})")
+    results["config15"] = dict(
+        nodes=ec.num_nodes, tasks=ep.num_pods, node_shards=eng.layout.P, chunk_waves=plan.C,
+        chunks=len(plan.buckets), releases=sum(bk is not None for bk in plan.buckets),
+        route=eng.last_route, placed=row["placed"], unschedulable=row["unschedulable"],
+        wall_s=row["wall_clock_s"], placements_per_s=row["placements_per_sec"],
+        command_s=command_s, setup_trace_s=float(setup[0][0]),
+        setup_engine_s=float(setup[0][1]), launches=launches, pager=pager_record(pager),
+        assignments_sha256=sha, stream_bytes=os.path.getsize(path), stream_rows=len(stream),
+        k9_device_s=k9_s, k8_device_s=k8_s,
+        k9_us_per_slot=k9_s * 1e6 / int((plan.idx >= 0).sum()),
+        device_busy_share=(k9_s + k8_s) / row["wall_clock_s"],
+        phases=row["telemetry"]["phases"],
+        replicated_k6=dict(wall_s=res_rep.wall_clock_s, chunk_waves=rep.plan.C,
+                           placed=res_rep.placed))
+    print(f"config15 through the CLI run on the card ({ec.num_nodes} nodes over "
+          f"{eng.layout.P} shards, {ep.num_pods} tasks, chunkWaves {plan.C}, "
+          f"{len(plan.buckets)} chunks, paged, recorder on, route {eng.last_route}): placed "
+          f"{row['placed']}, sha256 {sha[:16]} == K6's replicated run at chunkWaves {rep.plan.C} "
+          f"({res_rep.wall_clock_s:.3f}s); replay wall {row['wall_clock_s']:.3f}s, "
+          f"{row['placements_per_sec']:.1f} placements/s; K9 + K8 {k9_s + k8_s:.3f}s of device "
+          f"time (torch.profiler; busy {(k9_s + k8_s) / row['wall_clock_s']:.1%}), K9 "
+          f"{k9_s * 1e6 / int((plan.idx >= 0).sum()):.2f} us a slot; command {command_s:.1f}s; "
+          f"launches {json.dumps(launches)}; pager {json.dumps(pager_record(pager))}; stream "
+          f"{len(stream)} rows, {os.path.getsize(path)} bytes", flush=True)
+    return launches
+
+
+def run_config18(results, dev):
+    """(M3) config18 (CONFIG18: 64 nodes x 4,096 pods over 2 shards, paged,
+    chunkWaves 4, the recorder on) through the CLI run four times, the
+    overlap gates pagerThread x twoPhaseExchange on and off, under
+    KSIM_DETERMINISTIC_JSONL=1: each on the shard route (one K9 a chunk, K8
+    at each release), the choice buffers and replay rows identical and the
+    recorder streams byte for byte; the pager threaded as the gate says.
+    Then config13 (CONFIG13's engine, built once) with the recorder off,
+    on, on, off: the same assignments, the walls in turns."""
+    import yaml
+
+    from kubernetes_simulator_tpu_torch.utils.config import SimConfig, build_encoded_case
+
+    raw = yaml.safe_load(open(os.path.join(ROOT, CONFIG18)))
+    runs = {}
+    prev = os.environ.get("KSIM_DETERMINISTIC_JSONL")
+    os.environ["KSIM_DETERMINISTIC_JSONL"] = "1"
+    try:
+        for thread, two in itertools.product((True, False), repeat=2):
+            tag = f"pagerThread={thread},twoPhaseExchange={two}"
+            name = f"c18_{int(thread)}{int(two)}"
+            raw["overlap"].update(pagerThread=thread, twoPhaseExchange=two)
+            raw["output"] = os.path.join(FLIGHT_DIR, f"{name}_rows.jsonl")
+            raw["flightRecorder"] = os.path.join(FLIGHT_DIR, f"{name}_flight.jsonl")
+            for p in (raw["output"], raw["flightRecorder"]):
+                if os.path.exists(p):
+                    os.remove(p)
+            cfg_path = os.path.join(FLIGHT_DIR, f"{name}.yaml")
+            with open(cfg_path, "w") as f:
+                yaml.safe_dump(raw, f)
+            by_kernel = {}
+            (_, lines, eng, command_s, launches), _ = profiled_busy_s(
+                lambda: cli_call(["run", cfg_path, "--device", dev.type]), by_kernel)
+            shard_route_launches(f"config18 {tag}", launches, eng.plan)
+            if eng.last_pager.threaded != thread or eng.last_route != "shard":
+                raise AssertionError(f"config18 {tag}: pager threaded "
+                                     f"{eng.last_pager.threaded}, route {eng.last_route}")
+            with open(raw["output"]) as f:
+                row = json.loads(f.read().splitlines()[-1])
+            row["telemetry"].pop("phases")  # wall clock, kept under the scrub
+            for k in ("config_hash", "config"):  # each run's own file
+                row.pop(k)
+            wall = [float(m.group(1)) for m in (re.search(r"pods in ([\d.]+)s", x)
+                                                for x in lines) if m][-1]
+            with open(raw["flightRecorder"], "rb") as f:
+                stream = f.read()
+            busy = sum(t for k, t in by_kernel.items() if "shard_" in k)
+            runs[tag] = dict(choices=eng.last_choices, row=row, stream=stream, wall_s=wall,
+                             launches=launches, pager=pager_record(eng.last_pager),
+                             command_s=command_s, device_busy_share=busy / wall)
+    finally:
+        if prev is None:
+            os.environ.pop("KSIM_DETERMINISTIC_JSONL")
+        else:
+            os.environ["KSIM_DETERMINISTIC_JSONL"] = prev
+    first = next(iter(runs.values()))
+    for tag, r in runs.items():
+        if (not np.array_equal(r["choices"], first["choices"]) or r["row"] != first["row"]
+                or r["stream"] != first["stream"]):
+            raise AssertionError(f"config18 {tag} differs from {next(iter(runs))}")
+    mark("M3 config18 four runs")
+    cfg13 = SimConfig.load(os.path.join(ROOT, CONFIG13))
+    ec, ep = build_encoded_case(cfg13)
+    eng = TorchReplayEngine(ec, ep, cfg13.framework, wave_width=cfg13.wave_width,
+                            chunk_waves=cfg13.chunk_waves, node_shards=cfg13.node_shards,
+                            paged=True, device=dev)
+    want = eng.replay().assignments
+    path = os.path.join(FLIGHT_DIR, "flight13.jsonl")
+    walls = {"off": [], "on": []}
+    for tag in ("off", "on", "on", "off"):
+        if os.path.exists(path):
+            os.remove(path)
+        eng.flight_recorder = path if tag == "on" else None
+        res = eng.replay()
+        if not np.array_equal(res.assignments, want):
+            raise AssertionError(f"config13 with the recorder {tag} placed differently")
+        walls[tag].append(res.wall_clock_s)
+        if tag == "on":
+            check_stream("config13", path, eng.plan, eng.last_pager, res.placed)
+    results["config18"] = dict(
+        runs={t: dict(wall_s=r["wall_s"], launches=r["launches"], pager=r["pager"],
+                      stream_bytes=len(r["stream"]), command_s=r["command_s"],
+                      device_busy_share=r["device_busy_share"])
+              for t, r in runs.items()},
+        placed=first["row"]["placed"], recorder_config13_walls_s=walls)
+    print(f"config18 through the CLI run, pagerThread x twoPhaseExchange: placements, rows "
+          f"and the deterministic recorder streams ({len(first['stream'])} bytes) identical "
+          f"in all four; walls {json.dumps({t: round(r['wall_s'], 4) for t, r in runs.items()})}"
+          f", K9 + K8 busy (torch.profiler) "
+          f"{json.dumps({t: round(r['device_busy_share'], 3) for t, r in runs.items()})}"
+          f"; config13 with the recorder off / on in turns: off "
+          f"{[round(w, 4) for w in walls['off']]}, on {[round(w, 4) for w in walls['on']]}, "
+          f"the same assignments", flush=True)
 
 
 def main() -> int:
@@ -5520,6 +5870,15 @@ def main() -> int:
     mark("P2 policy cut")
     run_tune_cli(results, dev)
     mark("P3 config11 tune")
+    # M1-M3: the scenario mesh (config5, the headline split two ways), the
+    # flight recorder and the overlap gates (config15, config18, config13).
+    os.makedirs(FLIGHT_DIR, exist_ok=True)
+    c5_launches = run_config5(results, headline_case, dev)
+    mark("M1 headline split")
+    c15_launches = run_config15(results, dev)
+    mark("M2 config15 K6 replicated run")
+    run_config18(results, dev)
+    mark("M3 config13 recorder in turns")
     results["wall_s_total"] = time.perf_counter() - t_start
     print("step walls (s): " + json.dumps({k: round(v, 1) for k, v in STEP_S.items()}),
           flush=True)
@@ -5657,6 +6016,15 @@ def main() -> int:
         "library_ms": None, "cluster": m["cluster"], "window_slots": m["slots"],
         "us_per_slot_first_chunk": results["config13"]["k9_first_chunk"]["us_per_slot"],
     })
+    # The launches of config5's (K6) and config15's (K9, K8's release) main
+    # runs beside each row's own path's.
+    for rec in table:
+        by_path = {"chunk_replay": {"config5": c5_launches["chunk_replay"]},
+                   "shard_chunk_replay": {"config15": c15_launches["shard_chunk_replay"]},
+                   "shard_apply_release": {"config15": c15_launches["shard_apply_release"]},
+                   }.get(rec["name"])
+        if by_path:
+            rec["launches_by_path"] = by_path
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(results, f, indent=1)

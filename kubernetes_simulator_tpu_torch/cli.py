@@ -16,8 +16,15 @@ it, and its seed stamps the rows. ``run`` writes one JSONL replay row,
 each an INFO summary line with placements/sec and the route the chunks
 took (``chunk``: one K6 launch a chunk; ``slot``: K1 → K2 → K3 a slot);
 ``run`` passes ``nodeShards`` and ``pagedWaves`` to the engine (:101-102; route
-``shard``: K1 → K7 → K8 a slot), after the reference's checks of them
-(:735-757). ``tune`` writes the
+``shard``: one K9 a chunk), after the reference's checks of them
+(:735-757), and the flight recorder (``flightRecorder:``, :103-109) and the
+``overlap:`` gates (the reference exports them to the environment,
+:1011-1030; here ``pagerThread`` goes to the engine, and
+``twoPhaseExchange`` is logged: either value runs K9's one exchange).
+``what-if`` and ``tune`` run over the scenario mesh of every local card
+(:func:`.parallel.mesh.make_mesh`) when ``whatIf.mesh`` / ``tune.mesh`` is
+set (:171, :221; on ``--device cpu`` a one-device CPU mesh), and the
+what-if rows say ``"mesh": true``. ``tune`` writes the
 policy search's trajectory (schema-v3 rows without a wall-clock stamp, to
 ``tune.output`` or ``output``) and INFO lines with the winner, the
 held-out objectives, the CPU oracle's envelope and the walls. ``run --timeline-out`` (or
@@ -31,25 +38,36 @@ import argparse
 import sys
 import time
 
+import torch
 import yaml
 
 from .framework.registry import get_strategy
-from .utils.config import (
-    SimConfig, borg_errors, build_encoded_case, shard_errors, workload_seed,
-)
+from .utils.config import SimConfig, build_encoded_case, config_errors, workload_seed
 from .utils.metrics import JsonlWriter, config_hash, log, replay_row, whatif_rows
 
 
 def _load(path: str) -> SimConfig:
-    """The config at ``path``; a ``workload.borg`` section or a
-    ``nodeShards`` / ``pagedWaves`` setting that fails the reference's
-    checks (kubernetes_simulator_tpu/cli.py:671-693, :735-757) raises
-    ``ValueError`` listing them."""
+    """The config at ``path``; a ``workload.borg`` section, a ``nodeShards``
+    / ``pagedWaves`` setting, a flight recorder or an ``overlap:`` gate that
+    fails the reference's checks (kubernetes_simulator_tpu/cli.py:487-517,
+    :671-693, :735-757, :860-882; :func:`.utils.config.config_errors`)
+    raises ``ValueError`` listing them."""
     cfg = SimConfig.load(path)
-    errors = borg_errors(cfg) + shard_errors(cfg)
+    errors = config_errors(cfg)
     if errors:
         raise ValueError("invalid config: " + "; ".join(errors))
     return cfg
+
+
+def _mesh(on: bool, device: str):
+    """The scenario mesh of a ``mesh: true`` section: every local card, or
+    the one device asked for off a card; None when off."""
+    from .parallel.mesh import make_mesh
+
+    if not on:
+        return None
+    dev = torch.device(device)
+    return make_mesh() if dev.type == "cuda" else make_mesh(devices=[dev])
 
 
 def cmd_run(args) -> int:
@@ -64,12 +82,26 @@ def cmd_run(args) -> int:
     ec, ep = build_encoded_case(cfg)
     t1 = time.perf_counter()
     log.info("encoded %d nodes / %d pods", ec.num_nodes, ep.num_pods)
+    kw = {}
+    if cfg.flight_recorder is not None:
+        from .sim.flight import FlightRecorderConfig
+
+        kw["flight_recorder"] = FlightRecorderConfig(path=cfg.flight_recorder.path,
+                                                     every=cfg.flight_recorder.every)
+    ov = cfg.overlap
+    if ov is not None:
+        if ov.pager_thread is not None:
+            kw["pager_thread"] = ov.pager_thread
+        if ov.two_phase_exchange is not None:
+            log.info("overlap.twoPhaseExchange: %s — either value runs K9's one selection "
+                     "exchange inside the thread-block cluster (placements are the same)",
+                     str(ov.two_phase_exchange).lower())
     engine = get_strategy("torch")(
         ec, ep, cfg.framework,
         wave_width=cfg.wave_width, chunk_waves=cfg.chunk_waves,
         telemetry=gran, device=args.device, preemption=cfg.device_preemption,
         retry_buffer=cfg.whatif.retry_buffer, node_shards=cfg.node_shards,
-        paged=cfg.paged_waves,
+        paged=cfg.paged_waves, **kw,
     )
     log.info("set-up: trace %.3fs, engine %.3fs (%s)", t1 - t0, time.perf_counter() - t1,
              ", ".join(f"{k} {v:.3f}s" for k, v in engine.setup_s.items()))
@@ -110,24 +142,25 @@ def cmd_whatif(args) -> int:
         ec, cfg.whatif.scenarios, seed=cfg.whatif.seed, p_node_down=cfg.whatif.node_down_p,
         p_capacity=cfg.whatif.capacity_p, p_taint=cfg.whatif.taint_p,
     )
+    mesh = _mesh(cfg.whatif.mesh, args.device)
     eng = WhatIfEngine(
         ec, ep, scen, cfg.framework, wave_width=cfg.wave_width, chunk_waves=cfg.chunk_waves,
         completions=cfg.whatif.completions, telemetry=cfg.telemetry, device=args.device,
-        preemption=cfg.device_preemption, retry_buffer=cfg.whatif.retry_buffer,
+        preemption=cfg.device_preemption, retry_buffer=cfg.whatif.retry_buffer, mesh=mesh,
     )
     context = {
         "seed": workload_seed(cfg), "engine": "torch", "config_hash": config_hash(raw),
     }
     with JsonlWriter(cfg.output, context=context) as out:
         res = eng.run()
-        for row in whatif_rows(res, {"config": args.config, "mesh": False,
+        for row in whatif_rows(res, {"config": args.config, "mesh": bool(mesh),
                                      "device": str(eng.device)}):
             out.write(row)
     log.info(
         "what-if: %d scenarios, %d placements in %.3fs (%.0f placements/sec aggregate) on %s, "
-        "route %s",
+        "route %s%s",
         len(scen), res.total_placed, res.wall_clock_s, res.placements_per_sec, eng.device,
-        res.route,
+        res.route, f", mesh of {res.n_devices} device(s)" if mesh else "",
     )
     return 0
 
@@ -160,7 +193,7 @@ def cmd_tune(args) -> int:
         weight_bounds=tuple(tu.weight_bounds) if tu.weight_bounds else None,
         tune_strategy=tu.tune_strategy,
         wave_width=cfg.wave_width, chunk_waves=cfg.chunk_waves,
-        completions=cfg.whatif.completions,
+        completions=cfg.whatif.completions, mesh=_mesh(tu.mesh, args.device),
         cpu_oracle=tu.cpu_oracle, cpu_envelope=tu.cpu_envelope, device=args.device,
     )
     # The reference's row context: the config's strategy names the engine.

@@ -136,6 +136,7 @@ never ``-use_fast_math``.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -494,13 +495,32 @@ def _check(rc: int, name: str) -> None:
         raise RuntimeError(f"kernel {name}: launch failed with CUDA error {rc}")
 
 
+_share = threading.local()
+
+
+@contextlib.contextmanager
+def sm_share(n: int):
+    """Plans made inside (:func:`select_plan`) see the card's SMs divided by
+    ``n``: n batches enqueued on one card at once — the blocks of a meshed
+    what-if that share a card (:mod:`..sim.whatif`) — each plan for their
+    share, so together they fill the card as one batch would. The geometry
+    changes, not what a launch computes."""
+    prev = getattr(_share, "n", 1)
+    _share.n = max(1, int(n))
+    try:
+        yield
+    finally:
+        _share.n = prev
+
+
 def select_plan(name: str, tb: ref.Tables) -> ClusterPlan:
     """:func:`cluster_plan` of the select ``name`` (``normalize_select``,
     ``chunk_replay``, ``shard_select``, ``shard_chunk_replay``) on the CUDA
-    tables ``tb``."""
+    tables ``tb``, over the card's SMs (their share under :func:`sm_share`)."""
     S, N = tb.state.used.shape[:2]
     dev = tb.state.used.device
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    sms = max(1, torch.cuda.get_device_properties(dev).multi_processor_count
+              // getattr(_share, "n", 1))
     if name == "chunk_replay":
         return chunk_plan(S, N, sms=sms)
     if name == "shard_chunk_replay":

@@ -16,19 +16,28 @@ The kernels read a pod's rows by id only, so a page places as the resident
 tables do, bit for bit.
 
 Two pages are in flight (the chunk's own and the next), each a slot of
-pinned host buffers and device buffers. :meth:`PodPager.prefetch` hands the
-next chunk's page to ONE worker thread (the reference's default; there is
-no switch), which waits until the slot's previous host→device copy has
-left its pinned buffers, gathers the rows there, and issues the copies on
-a side stream behind a CUDA event recorded after the slot's previous chunk
-(:meth:`PodPager.done`), so no launch still reading the slot is
-overwritten. :meth:`PodPager.get` makes the current stream wait for the
-page's copies. On the CPU (the twins) the worker gathers straight into the
-slot's tensors.
+pinned host buffers and device buffers. :meth:`PodPager.prefetch` stages
+the next chunk's page: threaded (the reference's default; its gate,
+sim/jax_runtime.py:612 and :2275, is the ``overlap.pagerThread`` config
+key) it hands the gather to ONE worker thread, otherwise it gathers on the
+calling thread, as the reference's unthreaded pager does. The gather waits until the slot's previous
+host→device copy has left its pinned buffers, fills them, and issues the
+copies on a side stream behind a CUDA event recorded after the slot's
+previous chunk (:meth:`PodPager.done`), so no launch still reading the slot
+is overwritten. :meth:`PodPager.get` makes the current stream wait for the
+page's copies. On the CPU (the twins) the gather fills the slot's tensors
+directly. A page is a function of its chunk alone, so placements do not
+depend on the gate.
 
-``stalls`` / ``stall_s`` count the chunk-loop waits: the first page (and
-any page not prefetched) is fetched in the loop, and a prefetch the loop
-reaches before the worker is done is waited for.
+The counters are the reference's ``_PodPager``'s, which the flight
+recorder (:mod:`.flight`) reads: ``stalls`` counts the misses the loop
+fetches itself (the first page, a page not prefetched), a deterministic
+count; ``waits`` / ``wait_s`` the loop's waits on a prefetch still in
+flight (a race outcome); ``stall_s`` the loop's exposed wall (misses and
+waits), ``last_stall_s`` the latest of them; ``prefetch_wall_s`` the
+prefetches' own wall (hidden when threaded); ``invalidations`` the staged
+pages dropped because another chunk was asked for; ``depth`` the pages
+staged ahead (0 or 1).
 """
 
 from __future__ import annotations
@@ -75,7 +84,7 @@ class PodPager:
     chunk length."""
 
     def __init__(self, pods: EncodedPods, idx: np.ndarray, C: int,
-                 buckets: List[Optional[tuple]], device):
+                 buckets: List[Optional[tuple]], device, threaded: bool = True):
         self.device = torch.device(device)
         self.cuda = self.device.type == "cuda"
         self._pods, self._idx, self.C = pods, idx, int(C)
@@ -94,13 +103,23 @@ class PodPager:
         #: the page-local ids of a bucket's rows (a page's first k of them)
         self._rel_ids = torch.arange(self.CW, self.rows, dtype=torch.int32, device=self.device)
         self._side = torch.cuda.Stream(device=self.device) if self.cuda else None
-        self._pool = ThreadPoolExecutor(max_workers=1, thread_name_prefix="ksim-pager")
-        self._next: Optional[tuple] = None  # (chunk, Future)
+        self.threaded = bool(threaded)
+        self._pool = (ThreadPoolExecutor(max_workers=1, thread_name_prefix="ksim-pager")
+                      if self.threaded else None)
+        self._next: Optional[tuple] = None  # (chunk, Future or Page)
         self.stalls = 0
         self.stall_s = 0.0
+        self.last_stall_s = 0.0
         self.prefetches = 0
         self.waits = 0
+        self.wait_s = 0.0
         self.prefetch_wall_s = 0.0
+        self.invalidations = 0
+
+    @property
+    def depth(self) -> int:
+        """Pages staged ahead: 0 or 1 (two deep, counting the chunk's own)."""
+        return 0 if self._next is None else 1
 
     @property
     def pods0(self) -> ref.DevPods:
@@ -119,9 +138,8 @@ class PodPager:
         return rows, len(rel)
 
     def _fetch(self, c: int) -> Page:
-        """Gather page c into its slot and issue its copies (worker thread,
-        or the loop on a miss)."""
-        t0 = time.perf_counter()
+        """Gather page c into its slot and issue its copies (the worker
+        thread, or the calling thread unthreaded and on a miss)."""
         slot = c % 2
         sl = self._slots[slot]
         rows, k = self._rows_of(c)
@@ -140,36 +158,52 @@ class PodPager:
             for f, src in _FIELDS.items():
                 sl.dev[f][:n].copy_(torch.from_numpy(getattr(self._pods, src)[rows]))
         sl.used = True
-        self.prefetch_wall_s += time.perf_counter() - t0
         return Page(slot=slot, pods=self._page_pods(slot),
                     rel_ids=self._rel_ids[:k] if k else None)
+
+    def _timed_fetch(self, c: int) -> Page:
+        t0 = time.perf_counter()
+        page = self._fetch(c)
+        self.prefetch_wall_s += time.perf_counter() - t0
+        return page
+
+    @staticmethod
+    def _drain(staged) -> None:
+        if isinstance(staged, Future):
+            staged.result()
 
     def get(self, c: int) -> Page:
         """Chunk c's page, staged; the current stream waits for its copies."""
         staged, self._next = self._next, None
-        t0 = time.perf_counter()
-        if staged is not None and staged[0] == c:
-            fut: Future = staged[1]
-            waited = not fut.done()
-            page = fut.result()
-            if waited:
-                self.waits += 1
-                self.stalls += 1
-                self.stall_s += time.perf_counter() - t0
-        else:
-            if staged is not None:
-                staged[1].result()
+        if staged is not None and staged[0] != c:
+            # A page staged for another chunk: dropped once its gather is done.
+            self.invalidations += 1
+            self._drain(staged[1])
+            staged = None
+        if staged is None:
+            t0 = time.perf_counter()
             page = self._fetch(c)
+            self.last_stall_s = time.perf_counter() - t0
+            self.stall_s += self.last_stall_s
             self.stalls += 1
-            self.stall_s += time.perf_counter() - t0
+        elif isinstance(staged[1], Future) and not staged[1].done():
+            t0 = time.perf_counter()
+            page = staged[1].result()
+            self.last_stall_s = time.perf_counter() - t0
+            self.waits += 1
+            self.wait_s += self.last_stall_s
+            self.stall_s += self.last_stall_s
+        else:
+            page = staged[1].result() if isinstance(staged[1], Future) else staged[1]
         if self.cuda:
             torch.cuda.current_stream(self.device).wait_event(self._slots[page.slot].copied)
         return page
 
     def prefetch(self, c: int) -> None:
-        """Stage chunk c's page on the worker."""
+        """Stage chunk c's page (on the worker when threaded)."""
         self.prefetches += 1
-        self._next = (c, self._pool.submit(self._fetch, c))
+        self._next = (c, self._pool.submit(self._timed_fetch, c) if self._pool is not None
+                      else self._timed_fetch(c))
 
     def done(self, page: Page) -> None:
         """The launches of ``page``'s chunk are enqueued: its slot may be
@@ -179,6 +213,8 @@ class PodPager:
 
     def close(self) -> None:
         if self._next is not None:
-            self._next[1].result()
+            self._drain(self._next[1])
             self._next = None
-        self._pool.shutdown(wait=True)
+        if self._pool is not None:
+            self._pool.shutdown(wait=True)
+            self._pool = None

@@ -62,7 +62,10 @@ Four routes run a chunk's waves, chosen from the run's mode alone
 
 Paged pod waves (``paged=True``, :mod:`.pager`) run on the chunk and shard
 routes (both): each chunk reads the pod rows of its page, streamed while the
-previous chunk runs.
+previous chunk runs (on the pager's worker thread, or the calling thread:
+``pager_thread``). The single replay's flight recorder (:mod:`.flight`)
+takes a row after each chunk's launches are enqueued, from host clocks and
+counters only.
 
 Either way every launch covers all S scenarios; K2 writes each scenario's
 choice into the device-resident choice buffer ``[S, L]`` and K3 reads it
@@ -108,7 +111,7 @@ from __future__ import annotations
 import contextlib
 import time
 from dataclasses import dataclass, replace as dc_replace
-from typing import List, NamedTuple, Optional, Tuple
+from typing import Callable, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -692,7 +695,8 @@ def run_retry_boundary(plan: ChunkPlan, b: int, h, fns, rt: ref.Retry,
 
 def run_waves(plan: ChunkPlan, tb: ref.Tables, choices: torch.Tensor, first: int, end: int,
               plain: bool, ser: Optional[Series] = None, route: str = "slot",
-              pager=None, joint: bool = False) -> None:
+              pager=None, joint: bool = False, timers=None,
+              on_chunk: Optional[Callable[[int], None]] = None) -> None:
     """Enqueue waves ``[first, end)`` of ``plan`` over the S scenarios of
     ``tb`` (state and ``choices`` updated in place, no synchronisation):
     the release bucket of a boundary where a chunk starts (with ``joint``,
@@ -733,7 +737,13 @@ def run_waves(plan: ChunkPlan, tb: ref.Tables, choices: torch.Tensor, first: int
     With ``pager`` (paged pod waves, :class:`.pager.PodPager`; ``first`` on
     a chunk's start) each chunk runs on its page: the pod tables of its
     slots and of its boundary's released pods, named by page-local ids,
-    while the next chunk's page is staged."""
+    while the next chunk's page is staged.
+
+    ``timers`` (:class:`.telemetry.PhaseTimers`) is charged each chunk's
+    host wall, as ``dispatch`` and ``dispatch_<route>``; ``on_chunk(b)`` is
+    called once chunk b's launches are enqueued (the flight recorder's
+    cadence; it may read clocks and counters, and must not wait on the
+    card)."""
     if route not in ROUTES:
         raise ValueError(f"route must be one of {ROUTES}, got {route!r}")
     if route in SHARD_ROUTES and ser is not None:
@@ -833,6 +843,23 @@ def run_waves(plan: ChunkPlan, tb: ref.Tables, choices: torch.Tensor, first: int
             ref.take_samples(tb, samples)
         return None, None
 
+    t_chunk = [time.perf_counter()]
+
+    def charge() -> None:
+        """The host wall since the last charge to the timers."""
+        if timers is not None:
+            dt = time.perf_counter() - t_chunk[0]
+            timers.add("dispatch", dt)
+            timers.add(f"dispatch_{route}", dt)
+
+    def chunk_done(b: int) -> None:
+        """Chunk b's launches are enqueued: its host wall to the timers, then
+        the caller's hook."""
+        charge()
+        if on_chunk is not None:
+            on_chunk(b)
+        t_chunk[0] = time.perf_counter()
+
     if route in ("chunk", "shard"):
         w = first
         while w < end:
@@ -849,6 +876,7 @@ def run_waves(plan: ChunkPlan, tb: ref.Tables, choices: torch.Tensor, first: int
                 chunk_replay(h, desc.idx, desc.gang, choices, w, hi,
                              boundary=b if preempt else None, append=append, reject=k6_reject)
             w = hi
+            chunk_done(b)
     else:
         rows = idx.tolist()
         gang_wave = plan.gang_wave.tolist()
@@ -879,8 +907,11 @@ def run_waves(plan: ChunkPlan, tb: ref.Tables, choices: torch.Tensor, first: int
                     shard_apply(h, *rb, rollback=True)
                 else:
                     apply_placements(h, *rb, rollback=True)
+            if (w + 1) % C == 0 or w + 1 == end:
+                chunk_done(b)
     if ser is not None and ser.fold and end == idx.shape[0] and end > first:
         fold((end - 1) // C)
+        charge()
     if page is not None:
         pager.done(page)
 
@@ -888,18 +919,19 @@ def run_waves(plan: ChunkPlan, tb: ref.Tables, choices: torch.Tensor, first: int
 def run_chunks(
     plan: ChunkPlan, tb: ref.Tables, bound_node: np.ndarray, plain: bool, timers=None,
     ser: Optional[Series] = None, route: Optional[str] = None, pager=None, joint: bool = False,
+    on_chunk: Optional[Callable[[int], None]] = None,
 ) -> np.ndarray:
     """Replay every chunk of ``plan`` over the S scenarios of ``tb`` (its
     state is updated in place) on ``route`` (None: :func:`choose_route`
     of ``plain`` and the tables' shards), with ``pager``'s pages
-    when given (``joint``: as :func:`run_waves`), and return the host copy
-    of the choice buffer ``[S, L]``.
+    when given (``joint``, ``timers`` and ``on_chunk``: as :func:`run_waves`),
+    and return the host copy of the choice buffer ``[S, L]``.
     The one synchronisation is the final fetch."""
     tick = timers.tick if timers is not None else (lambda name: contextlib.nullcontext())
     route = route or choose_route(plain, tb.shards is not None)
     choices = new_choices(plan, tb.state.used.shape[0], bound_node, tb.state.used.device)
-    with tick("dispatch"), tick(f"dispatch_{route}"):
-        run_waves(plan, tb, choices, 0, plan.idx.shape[0], plain, ser, route, pager, joint)
+    run_waves(plan, tb, choices, 0, plan.idx.shape[0], plain, ser, route, pager, joint,
+              timers=timers, on_chunk=on_chunk)
     with tick("device_wait"):
         return choices.cpu().numpy()
 
@@ -1023,7 +1055,11 @@ class ChunkEngine:
     def _tables(self, attribute: bool = False, pods: Optional[ref.DevPods] = None) -> ref.Tables:
         """The tables of one run; ``attribute`` adds zeroed first-reject
         counters (telemetry series). ``pods``: the pod tables (a pager's
-        page); by default the whole trace's, uploaded once."""
+        page); by default the whole trace's, uploaded once. A meshed
+        what-if batch's tables are its blocks' (``WhatIfEngine._blocks``)."""
+        if getattr(self, "_blocks", None) is not None:
+            raise ValueError("a meshed batch has no tables of its own: each block of its "
+                             "scenarios has its own, on its device (WhatIfEngine._blocks)")
         if pods is None:
             if self._pods is None:
                 self._pods = ref.pods_to(self.pods, self.device)
@@ -1058,15 +1094,17 @@ class ChunkEngine:
         )
 
     def _pager(self):
-        """A fresh pager of this engine's plan (paged pod waves), or None."""
+        """A fresh pager of this engine's plan (paged pod waves), or None;
+        threaded unless the engine's ``pager_thread`` is False."""
         if not self.paged:
             return None
         from .pager import PodPager
 
-        return PodPager(self.pods, self.plan.idx, self.plan.C, self.plan.buckets, self.device)
+        return PodPager(self.pods, self.plan.idx, self.plan.C, self.plan.buckets, self.device,
+                        threaded=getattr(self, "pager_thread", True))
 
     def _run(self, timers=None, series: bool = False, route: Optional[str] = None,
-             joint: bool = False):
+             joint: bool = False, recorder=None):
         """(tables after the run, wall seconds, assignments [S, P], placed
         [S], pods to schedule). ``series`` (the reference's ``use_rej``)
         takes the boundary samples and the first-reject attribution
@@ -1075,9 +1113,12 @@ class ChunkEngine:
         (:func:`choose_route`), so a kernel run can be held against the
         other route. ``joint``: a retry boundary's pending
         and static releases go out as one (:func:`run_waves`; the single
-        replay's order). The tables are kept as
-        ``last_tables``, the fetched choice buffer as ``last_choices``, the
-        series buffers as ``last_series`` and the route as ``last_route``."""
+        replay's order). ``recorder`` (:class:`.flight.FlightRecorder`) takes
+        a row after each chunk's launches (:meth:`_flight_hook`), with the
+        phase deltas of ``timers`` (its own timers without them). The tables
+        are kept as ``last_tables``, the fetched choice buffer as
+        ``last_choices``, the series buffers as ``last_series`` and the
+        route as ``last_route``."""
         attribute = series and bool(spec_plugin_names(self.spec))
         # Paged pod waves stream the pods of a chunk's waves; the attributed
         # run keeps the resident tables, as the reference's attributed program
@@ -1089,10 +1130,14 @@ class ChunkEngine:
         ser = new_series(self.plan, tb, attribute) if series else None
         self.last_series = ser
         self.last_route = route or choose_route(self.plain, self.layout is not None)
+        hook = None
+        if recorder is not None:
+            timers = timers if timers is not None else recorder.phases
+            hook = self._flight_hook(recorder, pager, timers)
         t0 = time.perf_counter()
         try:
             host_choices = run_chunks(self.plan, tb, self.pods.bound_node, self.plain, timers,
-                                      ser, self.last_route, pager, joint)
+                                      ser, self.last_route, pager, joint, on_chunk=hook)
         finally:
             if pager is not None:
                 pager.close()
@@ -1101,6 +1146,27 @@ class ChunkEngine:
         rnode = tb.retry.rnode.cpu().numpy() if tb.retry is not None else None
         return (tb, wall) + assignments_from_choices(self.plan, host_choices,
                                                      self.pods.bound_node, rnode)
+
+    def _flight_hook(self, rec, pager, timers) -> Callable[[int], None]:
+        """The recorder's call after chunk b's launches (the reference's
+        loop tail, sim/jax_runtime.py:2420-2470): a ``page`` row where the
+        pager missed or dropped a page since the last row, then the
+        ``chunk`` row — chunk b's start time, the valid slots dispatched
+        through it, the phase deltas and the pager's gauges. Host clocks
+        and counters only (:mod:`.flight`)."""
+        plan = self.plan
+        CW = plan.C * plan.idx.shape[1]
+        valid = np.cumsum((plan.idx.reshape(-1, CW) >= 0).sum(axis=1))
+        seen = [0, 0]  # pager stalls, invalidations at the last page row
+
+        def hook(b: int) -> None:
+            if pager is not None and (pager.stalls > seen[0] or pager.invalidations > seen[1]):
+                rec.page(b, pager.last_stall_s, pager.stalls, invalidations=pager.invalidations)
+                seen[:] = pager.stalls, pager.invalidations
+            rec.chunk(b, t_virtual=plan.tb[b], dispatched=int(valid[b]), phase_acc=timers.acc,
+                      pager=pager)
+
+        return hook
 
 
 class TorchReplayEngine(ChunkEngine):
@@ -1132,7 +1198,18 @@ class TorchReplayEngine(ChunkEngine):
     tables, as the reference's attributed program does; under node shards
     it attributes nothing and samples no series, as the reference's
     (sim/jax_runtime.py:2137-2144), and runs the shard route (with the
-    pager when ``paged``).
+    pager when ``paged``). ``pager_thread`` is the pager's gate (False
+    gathers each page on the calling thread); placements do not depend on
+    it.
+
+    ``flight_recorder`` (None: off; a JSONL path, a
+    :class:`.flight.FlightRecorderConfig` or a live
+    :class:`.flight.FlightRecorder`) streams a row per chunk boundary and
+    per page stall, as the reference's (sim/jax_runtime.py:1288-1318); a
+    recorder that the replay opens it also closes, with the ``placed``
+    summary. It reads clocks and counters only: placements do not depend
+    on it (:mod:`.flight` lists where its rows differ from the
+    reference's).
 
     ``telemetry`` is "off", "summary", "series" or "timeline" (a name or
     a :class:`..sim.telemetry.TelemetryConfig`). ``series`` adds the
@@ -1160,6 +1237,7 @@ class TorchReplayEngine(ChunkEngine):
         node_shards: int = 0,
         paged: bool = False,
         flight_recorder=None,
+        pager_thread: bool = True,
         plain: bool = False,
     ):
         if engine not in ("v2", "v3"):
@@ -1184,8 +1262,12 @@ class TorchReplayEngine(ChunkEngine):
         if paged and mode:
             raise _later("paged=True with tier preemption (the eviction walk reads the pod "
                          "tables by global pod id)", "ROADMAP queue A item 6a")
-        if flight_recorder is not None:
-            raise _later("flight_recorder", "the flight recorder, ROADMAP queue A item 6f")
+        from .flight import FlightRecorderConfig
+
+        #: the recorder's spec (None: off), a path, a config or a live recorder
+        self.flight_recorder = FlightRecorderConfig.resolve(flight_recorder)
+        #: the pager's thread gate (overlap.pagerThread)
+        self.pager_thread = bool(pager_thread)
         self.telemetry = resolve_granularity(telemetry)
         layout = None
         if self.node_shards > 1:
@@ -1255,10 +1337,26 @@ class TorchReplayEngine(ChunkEngine):
                 "reference (v2) chunk program does — inside K6 (its attributed mode) on the "
                 "pod-by-pod K1–K3 chain, one launch a chunk; placements are bit-identical"
             )
-        tb, wall, assignments, placed_s, to_schedule = self._run(
-            tel.phases if tel is not None else None, series=use_rej, joint=True)
+        rec, rec_own = self._open_recorder()
+        try:
+            tb, wall, assignments, placed_s, to_schedule = self._run(
+                tel.phases if tel is not None else None, series=use_rej, joint=True,
+                recorder=rec)
+        except BaseException:
+            if rec_own:
+                rec.close()
+            raise
         assignments = assignments[0]
         placed = int(placed_s[0])
+        if rec is not None:
+            # The pager's walls join the phases (the reference's keys, only
+            # where paging is on and the recorder watched it).
+            pager = self.last_pager
+            if pager is not None and tel is not None:
+                tel.phases.add("pager_stall", pager.stall_s)
+                tel.phases.add("pager_prefetch", pager.prefetch_wall_s)
+            if rec_own:
+                rec.close({"placed": placed})
 
         st = tb.state
         used = st.used[0, : self.ec.num_nodes].cpu().numpy()
@@ -1292,6 +1390,31 @@ class TorchReplayEngine(ChunkEngine):
             telemetry=tel.result() if tel is not None else None,
             route=self.last_route,
         )
+
+    def _open_recorder(self):
+        """(recorder, owns) of this replay: a fresh stream from the
+        configured spec (owns: this replay closes it), a live recorder the
+        caller passed (not owned), or (None, False) — off. The ``start``
+        row carries the reference's metadata (sim/jax_runtime.py:1303-1316)."""
+        from .flight import FlightRecorder, FlightRecorderConfig
+
+        spec = FlightRecorderConfig.resolve(self.flight_recorder)
+        if spec is None:
+            return None, False
+        if isinstance(spec, FlightRecorder):
+            return spec, False
+        meta = {
+            "nodes": int(self.ec.num_nodes),
+            "pods": int(self.pods.num_pods),
+            "node_shards": int(self.node_shards),
+            "paged": bool(self.paged),
+            "engine": self.engine,
+            "chunk_waves": int(self.chunk_waves),
+            "resident_bytes": int(replicated_resident_bytes(
+                self.ec, self.pods, pods_resident=(self.engine == "v3" and not self.paged))),
+        }
+        self._last_flight = FlightRecorder(spec, meta=meta)
+        return self._last_flight, True
 
     def _collect(self, tel: TelemetryCollector, tb: ref.Tables, placed: int) -> None:
         """Fill ``tel`` from the fetched run (host work, no device step):

@@ -3,8 +3,8 @@
 Counterpart: ``kubernetes_simulator_tpu/sim/tuner.py`` (``make_objective``
 :144, ``normalize_constraints`` :107, ``SearchSpace`` :189, ``TuneResult``
 :263, ``PolicyTuner`` :300) with the device evaluator, the held-out sweep
-and the greedy CPU oracle; and ``parallel/mesh.py:198`` ``fit_population``
-in its one-process, no-mesh case.
+and the greedy CPU oracle, over one device or a scenario mesh
+(``tune.mesh``, :mod:`..parallel.mesh`).
 
 The per-scenario policy row (:mod:`..ops.policy` ``POLICY_COLS`` — one
 Score weight per plugin plus the NodeResourcesFit strategy selector) is an
@@ -32,9 +32,14 @@ and config give byte-identical files — and the same bytes as the JAX
 package's ``tune``: the same ``np.random.default_rng`` draws, the same
 objectives.
 
+With a mesh the population is padded by :func:`..parallel.mesh.fit_population`
+until the flat axis divides over the mesh's devices
+(``TuneResult.population_requested`` keeps the requested size), and both
+sweeps run on the meshed what-if engine, whose blocks split the flat axis
+on the reference's boundaries (contiguous blocks of S / ndev rows).
+
 Refused by name: the host evaluator (``evaluator: cpu``, and ``auto`` when
-the objective needs it: the CPU event engine, queue A item 13) and a mesh
-(the scenario axis over several cards, queue A item 10).
+the objective needs it: the CPU event engine, queue A item 13).
 """
 
 from __future__ import annotations
@@ -49,6 +54,7 @@ import numpy as np
 
 from ..framework.framework import FrameworkConfig
 from ..ops.policy import IDX_FIT_LEAST, POLICY_COLS, POLICY_WEIGHT_COLS
+from ..parallel.mesh import fit_population, mesh_shape
 from ..plugins.builtin import TUNABLE_FIT_STRATEGIES, tunable_parameters
 from ..utils.metrics import TUNE_SCHEMA_VERSION, log
 from .greedy import greedy_replay
@@ -214,17 +220,6 @@ def tune_config_errors(tu) -> List[str]:
     return errors
 
 
-def fit_population(population: int, mesh=None) -> int:
-    """The population a sweep runs (``parallel/mesh.py:198``'s one-process,
-    no-mesh case: the requested one, at least 1). A mesh is refused."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "a policy sweep over a mesh (tune.mesh: true, the scenario axis over several "
-            "cards) is not ported yet (queue A item 10); use the JAX package"
-        )
-    return max(int(population), 1)
-
-
 @dataclass(frozen=True)
 class SearchSpace:
     """The searched dimensions, derived from the config's tunable-parameter
@@ -302,6 +297,8 @@ class TuneResult:
     cpu_envelope: Optional[float] = None  # |device − cpu|, None if skipped
     trajectory: List[dict] = field(default_factory=list)
     population_requested: Optional[int] = None
+    n_devices: int = 1
+    mesh_shape: Optional[dict] = None  # {axis name: size} or None
     objective_constraints: List[dict] = field(default_factory=list)
     evaluator: str = "device"
     #: wall seconds of the train engine's set-up (plan and device tables,
@@ -402,8 +399,12 @@ class PolicyTuner:
         self.evaluator = "device"
         self.S_t = int(train_scenarios)
         self.S_h = int(heldout_scenarios)
+        self.mesh = mesh
         self.population_requested = int(population)
-        self.population = fit_population(population, mesh)
+        self.population = fit_population(population, self.S_t, mesh)
+        if self.population != population:
+            log.info("tune: population %d -> %d (flat population x train axis must divide "
+                     "over the mesh devices)", population, self.population)
         # One scenario pool, split train/held-out: scenario 0 (the
         # unperturbed base) lands in TRAIN; the held-out split is
         # all-perturbed.
@@ -415,7 +416,7 @@ class PolicyTuner:
         self.heldout_split: List[Scenario] = list(pool[self.S_t:])
         self._engine_kw = dict(
             config=config, wave_width=wave_width, chunk_waves=chunk_waves,
-            completions=completions, device=device,
+            completions=completions, device=device, mesh=mesh,
         )
         self.cpu_oracle = bool(cpu_oracle)
         self.cpu_envelope = float(cpu_envelope)
@@ -633,6 +634,8 @@ class PolicyTuner:
             cpu_envelope=cpu_env,
             trajectory=trajectory,
             population_requested=self.population_requested,
+            n_devices=len(self.mesh) if self.mesh is not None else 1,
+            mesh_shape=mesh_shape(self.mesh),
             objective_constraints=self.objective_constraints,
             evaluator=self.evaluator,
             phase_s={"setup": self._setup_s, "search": t1 - t0 - self._setup_s,

@@ -3,8 +3,8 @@
 Counterpart: ``kubernetes_simulator_tpu/sim/whatif.py`` — the
 perturbation DSL (``Perturbation``, ``Scenario``), ``ScenarioSet`` (:74),
 ``WhatIfResult`` (:436), ``WhatIfEngine`` (:503; ``run`` :2657) on its v3
-path with no mesh, completions and gangs on, and ``uniform_scenarios``
-(:3960). The JAX engine vmaps its chunk program over the scenario axis
+path, completions and gangs on, over one device or a scenario mesh, and
+``uniform_scenarios`` (:3960). The JAX engine vmaps its chunk program over the scenario axis
 (``_build_chunk_fn`` :1285); here the scenario axis is the leading ``S``
 dimension of the tables that the three kernels take (:mod:`..ops.kernels`),
 driven by the chunk loop and setup the single replay uses
@@ -83,12 +83,33 @@ The batch's chunks take the route its mode chooses
 above, the v2 fallback included, but the plain twins, which run K1 → K2
 → K3 a slot; ``WhatIfResult.route`` records it.
 
+A scenario mesh (``mesh=``, :mod:`..parallel.mesh`: an ordered list of
+devices; the reference shards the scenario axis over a ``jax`` mesh with a
+collective-free ``shard_map``, :1291-1320) splits the S scenarios into
+contiguous blocks of S / ndev, block i on device i. The set-up is built
+once (trace, waves, chunk plan, step constants, scenario stacks); each
+block holds its slice of the scenario-strided tables (allocatable, taints,
+label rows ``lrow``, policy rows, and the tier and retry state its tables
+make) on its device, with the pod and label tables once a device, and
+enqueues the chunk route it would run unsplit on a stream of its own; the
+blocks' choice buffers come back with one fetch each, in scenario order, so
+a block holds exactly the scenarios it would hold unsplit. The reference's
+mesh semantics hold at any ndev, one included: S must divide over the
+devices (its ``ValueError``), tier preemption with completions turns
+arrivals-only with its warning, and so does a DynTables batch, which
+leaves the device-release path under a mesh (:979-997); kube and node
+shards stay refused. ``WhatIfResult.n_devices`` and ``mesh_shape`` say how
+the batch ran.
+
 The engine's other modes raise ``NotImplementedError`` naming the queue
 item that ports them.
 """
 
 from __future__ import annotations
 
+import contextlib
+import copy
+import time
 import warnings
 from dataclasses import dataclass, field, replace as dc_replace
 from typing import Dict, List, Optional, Sequence
@@ -99,8 +120,10 @@ import torch
 from ..framework.framework import FrameworkConfig
 from ..models.core import Effect
 from ..models.encode import PAD, EncodedCluster, EncodedPods
+from ..ops import kernels as K
 from ..ops import reference as ref
 from ..ops.policy import POLICY_COLS
+from ..parallel.mesh import make_mesh, mesh_shape
 from ..utils.metrics import log
 from .telemetry import PhaseTimers, ReplayTelemetry, resolve_granularity
 from .tiers import DMAX_COARSE, nonsingleton_host_rows, normalize_preemption
@@ -108,10 +131,14 @@ from .torch_runtime import (
     ChunkEngine,
     StepSpec,
     _spread_norm_f32_ok,
+    assignments_from_choices,
     check_retry_buffer,
+    choose_route,
     completions_gate,
+    new_choices,
     release_times,
     resolve_device,
+    run_waves,
     tier_preemption,
 )
 
@@ -392,19 +419,21 @@ class WhatIfResult:
     packing_efficiency: Optional[np.ndarray] = None
     scenario_telemetry: Optional[list] = None
     fleet_telemetry: Optional[object] = None
-    n_devices: int = 1
-    mesh_shape: Optional[dict] = None
+    n_devices: int = 1  # the mesh's devices (1 without one)
+    mesh_shape: Optional[dict] = None  # {"scenarios": n_devices} under a mesh
     process_count: int = 1
     #: the route the chunks' waves took: "chunk" (K6) or "slot" (K1 -> K2 -> K3)
     route: Optional[str] = None
 
 
 class WhatIfEngine(ChunkEngine):
-    """Batched scenario evaluation on one device.
+    """Batched scenario evaluation on one device, or over a scenario mesh.
 
     ``device`` defaults to ``"cuda"`` (the kernels; raises without a card)
     and ``device="cpu"`` runs the plain twins; ``plain=True`` runs the
-    twins on any device. ``completions`` (None = on when the trace has
+    twins on any device. ``mesh`` (a list of devices,
+    :func:`..parallel.mesh.make_mesh`) splits the scenarios into a block a
+    device (module docstring); its devices replace ``device``. ``completions`` (None = on when the trace has
     finite durations), ``retry_buffer``, ``granularity_guard`` and
     ``collect_assignments`` behave as in the JAX engine; the result is the
     same whether or not the assignments are collected. ``telemetry`` is
@@ -475,7 +504,10 @@ class WhatIfEngine(ChunkEngine):
             raise _later(f"engine={engine!r} (the v2 node-space chain, row B8)",
                          "queue B item 2")
         if mesh is not None:
-            raise _later("mesh (the scenario axis over several cards)", "queue A item 10")
+            mesh = make_mesh(devices=mesh)
+            if len(scenarios) % len(mesh) != 0:
+                raise ValueError(f"num scenarios {len(scenarios)} must divide over "
+                                 f"{len(mesh)} devices")
         if node_shards and int(node_shards) > 1:
             # As the reference's what-if (sim/whatif.py:583-589): the batch
             # spends its device axis on scenarios; node shards are the
@@ -497,14 +529,23 @@ class WhatIfEngine(ChunkEngine):
         # telemetry and no per-scenario reasons (those come from the kube
         # mirrors, sim/whatif.py:2847-2863, :3576-3588).
         self.telemetry = resolve_granularity(telemetry)
+        #: the scenario mesh (:mod:`..parallel.mesh`), or None
+        self.mesh = mesh
+        if mesh is not None:
+            for d in mesh:
+                resolve_device(d)
+            device = mesh[0]
         device = resolve_device(device)
         self.collect_assignments = bool(collect_assignments)
         spec = StepSpec.from_config(ec, config, pods)
-        completions = self._completions_gate(ec, pods, completions, sset, spec)
-        self.sset = sset.to(device)
+        completions = self._completions_gate(ec, pods, completions, sset, spec, mode)
+        # Under a mesh the stacks stay on the host, and each block takes its
+        # slice to its device (_make_blocks).
+        home = device if mesh is None else torch.device("cpu")
+        self.sset = sset.to(home)
         if sset.injected_prefer_taint and not spec.taint_score:
             spec = dc_replace(spec, taint_score=True)
-        cluster = ref.cluster_to(ec, device, sset.num_scenarios)._replace(
+        cluster = ref.cluster_to(ec, home, sset.num_scenarios)._replace(
             allocatable=sset.alloc, taint_key=sset.taint_key, taint_kv=sset.taint_kv,
             taint_effect=sset.taint_effect,
         )
@@ -523,6 +564,7 @@ class WhatIfEngine(ChunkEngine):
         self._prepare(ec, pods, spec, cluster, sset.num_scenarios, wave_width, chunk_waves,
                       completions, granularity_guard, "what-if engine", device, plain, mode, rb,
                       domains, wrow)
+        self._blocks = self._make_blocks(mesh, rb) if mesh is not None else None
 
     @staticmethod
     def _check_policies(policies, S: int, preemption, retry_buffer, fork_checkpoint
@@ -568,30 +610,40 @@ class WhatIfEngine(ChunkEngine):
             raise ValueError(f"policies shape {pol.shape} must match the engine's "
                              f"{tuple(self._wrow.shape)} (the device rows are updated in place)")
         self._wrow.copy_(torch.from_numpy(np.ascontiguousarray(pol)))
+        for blk in self._blocks or ():
+            blk.engine._wrow.copy_(torch.from_numpy(np.ascontiguousarray(pol[blk.lo:blk.hi])))
 
     def _completions_gate(self, ec: EncodedCluster, pods: EncodedPods,
-                          completions: Optional[bool], sset: ScenarioSet, spec: StepSpec
-                          ) -> Optional[bool]:
-        """The reference's gate for a relabelled batch (sim/whatif.py:940-1000):
-        completions cannot be honoured on the v2 fallback, nor on a DynTables
-        batch off the device-release path (``collect_assignments``, or
-        count planes of non-singleton host-scale rows). Such a batch warns
-        and runs arrivals-only, or raises under ``completions=True``.
-        Returns the ``completions`` argument the chunk loop takes."""
+                          completions: Optional[bool], sset: ScenarioSet, spec: StepSpec,
+                          tier: bool = False) -> Optional[bool]:
+        """The reference's gate (sim/whatif.py:940-1000): completions cannot
+        be honoured on the v2 fallback, with tier preemption under a mesh,
+        nor on a DynTables batch off the device-release path (a mesh,
+        ``collect_assignments``, or count planes of non-singleton
+        host-scale rows). Such a batch warns and runs arrivals-only, or
+        raises under ``completions=True``. Returns the ``completions``
+        argument the chunk loop takes."""
+        blockers = []
         if self.engine != "v3":
-            blocker = ("the v2 fallback engine (label perturbations outside the DynTables "
-                       "envelope)")
-        elif sset.labels_dirty and (self.collect_assignments or nonsingleton_host_rows(
-                ec, pods, spec.interpod, spec.spread)):
-            why = ("collect_assignments" if self.collect_assignments
-                   else "non-singleton host-scale count planes")
-            blocker = (f"labels_dirty DynTables batches off the device-release path ({why} — "
-                       "per-scenario release domain corrections need the device path)")
-        else:
+            blockers.append("the v2 fallback engine (label perturbations outside the "
+                            "DynTables envelope)")
+        if tier and self.mesh is not None:
+            blockers.append("device tier preemption under a mesh")
+        if self.engine == "v3" and sset.labels_dirty:
+            why = [w for w, on in (("mesh", self.mesh is not None),
+                                   ("collect_assignments", self.collect_assignments)) if on]
+            if not why and nonsingleton_host_rows(ec, pods, spec.interpod, spec.spread):
+                why.append("non-singleton host-scale count planes")
+            if why:
+                blockers.append(
+                    f"labels_dirty DynTables batches off the device-release path "
+                    f"({'/'.join(why)} — per-scenario release domain corrections need the "
+                    "device path)")
+        if not blockers:
             return completions
         if completions is not False and bool(np.isfinite(release_times(pods)).any()):
-            msg = (f"what-if completions cannot be honored with {blocker} — this batch runs "
-                   "ARRIVALS-ONLY (placed pods never release resources)")
+            msg = ("what-if completions cannot be honored with " + "; ".join(blockers)
+                   + " — this batch runs ARRIVALS-ONLY (placed pods never release resources)")
             if completions is True:
                 raise ValueError(msg)
             warnings.warn(msg, stacklevel=3)
@@ -609,9 +661,94 @@ class WhatIfEngine(ChunkEngine):
                            torch.zeros_like(a))
         return frac.mean(dim=1).cpu().numpy()
 
+    def _make_blocks(self, mesh: List[torch.device], rb: int) -> List["_Block"]:
+        """The mesh's blocks: scenarios [i·S/n, (i+1)·S/n) on device i, each an
+        engine of its own that shares this one's set-up (trace, waves, chunk
+        plan, step constants) and holds its slice of the scenario-strided
+        tables — allocatable, taints and label rows (``lrow``), the policy
+        rows, the tier and retry state its tables make — on its device, with
+        the pod and label tables once a device. Each block enqueues on a
+        stream of its own; under the retry buffer the blocks of one device
+        share its stream, because K6's retry mode passes its arguments
+        through the module's constant memory, which a launch on another
+        stream of the same card could overwrite before the first one reads
+        it."""
+        n = self.S // len(mesh)
+        host = self._cluster  # every field on the host, S-stacked where per scenario
+        per_scenario = ("allocatable", "taint_key", "taint_kv", "taint_effect", "lrow")
+        shared, pods, streams, blocks = {}, {self.device: self._pods}, {}, []
+        for i, dev in enumerate(mesh):
+            lo, hi = i * n, (i + 1) * n
+            if dev not in shared:
+                shared[dev] = {f: getattr(host, f).to(dev) for f in ref.DevCluster._fields
+                               if f not in per_scenario}
+                pods[dev] = pods.get(dev) or ref.pods_to(self.pods, dev)
+            view = copy.copy(self)
+            view._blocks, view.mesh = None, None
+            view.S, view.device = n, dev
+            view._cluster = ref.DevCluster(**shared[dev], **{
+                f: getattr(host, f)[lo:hi].contiguous().to(dev) for f in per_scenario})
+            view._pods = pods[dev]
+            if self._wrow is not None:
+                view._wrow = self._wrow[lo:hi].contiguous().to(dev)
+            if self._domains is not None:
+                nd, ndom, lrow, D = self._domains
+                view._domains = (nd, ndom, lrow[lo:hi], D)
+            stream = None
+            if dev.type == "cuda":
+                if rb:
+                    stream = streams.setdefault(dev, torch.cuda.Stream(device=dev))
+                else:
+                    stream = torch.cuda.Stream(device=dev)
+            blocks.append(_Block(lo, hi, view, stream))
+        return blocks
+
+    def _run(self, timers=None, series: bool = False, route: Optional[str] = None,
+             joint: bool = False, recorder=None):
+        """:meth:`ChunkEngine._run`; under a mesh, every block's chunks are
+        enqueued (block by block, each on its device and stream) before one
+        fetch a block, in scenario order, so the blocks run at once; the
+        blocks that share a card plan their launches for their share of its
+        SMs (:func:`..ops.kernels.sm_share`). The tables are then a list, one
+        a block (``last_tables``)."""
+        if self._blocks is None:
+            return super()._run(timers, series, route, joint, recorder)
+        tick = timers.tick if timers is not None else (lambda name: contextlib.nullcontext())
+        plan, bound = self.plan, self.pods.bound_node
+        self.last_route = route = route or choose_route(self.plain)
+        tbs = [blk.engine._tables() for blk in self._blocks]
+        chs = [new_choices(plan, blk.hi - blk.lo, bound, blk.engine.device)
+               for blk in self._blocks]
+        share = {}
+        for blk in self._blocks:
+            share[blk.engine.device] = share.get(blk.engine.device, 0) + 1
+        t0 = time.perf_counter()
+        for blk, tb, ch in zip(self._blocks, tbs, chs):
+            with blk.on_device(), K.sm_share(share[blk.engine.device]):
+                run_waves(plan, tb, ch, 0, plan.idx.shape[0], self.plain, None, route,
+                          timers=timers)
+        with tick("device_wait"):
+            host = []
+            for blk, ch in zip(self._blocks, chs):
+                with blk.on_device():
+                    host.append(ch.cpu().numpy())
+        wall = time.perf_counter() - t0
+        self.last_tables, self.last_series, self.last_pager = tbs, None, None
+        self.last_choices = host_choices = np.concatenate(host)
+        rnode = (np.concatenate([tb.retry.rnode.cpu().numpy() for tb in tbs])
+                 if tbs[0].retry is not None else None)
+        return (tbs, wall) + assignments_from_choices(plan, host_choices, bound, rnode)
+
     def run(self) -> WhatIfResult:
         timers = PhaseTimers() if self.telemetry != "off" else None
         tb, wall, assignments, placed, to_schedule = self._run(timers)
+        tbs = tb if isinstance(tb, list) else [tb]
+
+        def per_block(f):
+            """``f`` of each block's tables, concatenated in scenario order."""
+            parts = [f(t) for t in tbs]
+            return None if parts[0] is None else np.concatenate(parts)
+
         total = int(placed.sum())
         return WhatIfResult(
             placed=placed,
@@ -620,15 +757,43 @@ class WhatIfEngine(ChunkEngine):
             wall_clock_s=wall,
             placements_per_sec=total / wall if wall > 0 else 0.0,
             assignments=assignments if self.collect_assignments else None,
-            utilization_cpu=self._utilization_cpu(tb),
+            utilization_cpu=per_block(self._utilization_cpu),
             completions_on=self.completions_on,
             engine=self.engine,
-            preemptions=(tb.preempt.victims.cpu().numpy() if tb.preempt is not None else None),
-            retry_dropped=(tb.retry.rdrop.cpu().numpy() if tb.retry is not None else None),
+            preemptions=per_block(lambda t: t.preempt.victims.cpu().numpy()
+                                  if t.preempt is not None else None),
+            retry_dropped=per_block(lambda t: t.retry.rdrop.cpu().numpy()
+                                    if t.retry is not None else None),
             fleet_telemetry=(ReplayTelemetry(granularity=self.telemetry, phases=timers.summary())
                              if timers is not None else None),
+            n_devices=len(self.mesh) if self.mesh is not None else 1,
+            mesh_shape=mesh_shape(self.mesh),
             route=self.last_route,
         )
+
+
+@dataclass
+class _Block:
+    """One block of a meshed batch: scenarios [lo, hi), the engine that
+    holds their tables on its device, and the CUDA stream it enqueues on
+    (None off a card)."""
+
+    lo: int
+    hi: int
+    engine: ChunkEngine
+    stream: Optional[torch.cuda.Stream]
+
+    def on_device(self):
+        """The block's device and stream as the current ones; the stream
+        first waits for the work its tables' set-up enqueued."""
+        if self.stream is None:
+            return contextlib.nullcontext()
+        dev = self.engine.device
+        stack = contextlib.ExitStack()
+        stack.enter_context(torch.cuda.device(dev))
+        self.stream.wait_stream(torch.cuda.current_stream(dev))
+        stack.enter_context(torch.cuda.stream(self.stream))
+        return stack
 
 
 def uniform_scenarios(

@@ -12,14 +12,22 @@ which promotes the granularity to ``timeline``), ``output``,
 reference's CPU event engine, is refused by name; a config without the key
 runs the port's engine), ``waveWidth``,
 ``chunkWaves``, ``devicePreemption`` (``true`` / ``"tier"``: tier
-preemption; ``"kube"`` is refused) and ``whatIf`` (``scenarios``,
-``seed``, ``nodeDownP``, ``capacityP``, ``taintP``, ``completions``,
+preemption; ``"kube"`` is refused), ``nodeShards`` / ``pagedWaves``,
+``whatIf`` (``scenarios``, ``seed``, ``mesh``: the scenario axis over the
+local cards, ``nodeDownP``, ``capacityP``, ``taintP``, ``completions``,
 ``retryBuffer``: the unschedulable-retry buffer of ``run`` and
-``what-if``) and ``tune`` (the policy tuner; ``mesh: true`` and
-``evaluator: cpu`` are refused by name). Parsing is the reference's, key
-for key, so one YAML file yields the same encoded case and the same
-scenario batch in both packages; the reference's ``validate`` refusals of a retry buffer
-(kubernetes_simulator_tpu/cli.py:705-730) raise ``ValueError`` here.
+``what-if``), ``tune`` (the policy tuner, with ``mesh``; ``evaluator:
+cpu`` is refused by name), ``flightRecorder`` (a path or ``{path,
+every}``: the single replay's flight recorder) and ``overlap``
+(``pagerThread``, ``twoPhaseExchange``; ``backgroundPublisher: true`` is
+refused by name: it moves checkpoint publication, which the port does not
+have yet). Parsing is the reference's, key for key (utils/config.py
+:213-270, :543-570), so one YAML file yields the same encoded case and the
+same scenario batch in both packages; the reference's ``validate``
+refusals of a retry buffer (kubernetes_simulator_tpu/cli.py:705-730) raise
+``ValueError`` here, and its checks of the recorder and of ``overlap:``
+(cli.py:487-517, :860-882) are :func:`flight_errors` and
+:func:`overlap_errors`.
 
 Every other section of the JAX package's schema belongs to a mode the port
 does not carry yet; :meth:`SimConfig.from_dict` refuses it with an error
@@ -87,6 +95,34 @@ class WhatIfSpec:
     completions: Optional[bool] = None
     # Unschedulable-retry buffer slots per scenario (0 = off).
     retry_buffer: int = 0
+    # The scenario axis over the local cards (parallel.mesh).
+    mesh: bool = False
+
+
+@dataclass
+class FlightRecorderSpec:
+    """``flightRecorder:`` (the reference's, utils/config.py:212-222):
+    ``path`` is the JSONL sink, ``every`` the chunk-row cadence (page rows
+    always emit). The single replay only."""
+
+    path: str = "flight.jsonl"
+    every: int = 1
+
+
+@dataclass
+class OverlapSpec:
+    """``overlap:`` (the reference's, utils/config.py:250-273); a gate left
+    None keeps the engine's default (on). ``pagerThread`` is the pager's
+    worker thread (``TorchReplayEngine(pager_thread=)``; it needs
+    ``pagedWaves``); ``twoPhaseExchange`` selects the reference's selection
+    exchange under ``nodeShards``, and either value runs K9's one exchange
+    inside the thread-block cluster (in the reference the flag changes the
+    transport, not a placement); ``backgroundPublisher: true`` is refused
+    (checkpoint publication is not ported)."""
+
+    pager_thread: Optional[bool] = None
+    background_publisher: Optional[bool] = None
+    two_phase_exchange: Optional[bool] = None
 
 
 @dataclass
@@ -97,7 +133,8 @@ class TuneSpec:
     the config's cluster/workload (:mod:`..sim.tuner`). ``objective`` maps
     metric name → weight (maximized; costs use negative weights);
     ``output`` is the trajectory JSONL sink (falls back to the top-level
-    ``output``). ``mesh: true`` and ``evaluator: cpu`` are refused."""
+    ``output``); ``mesh`` sweeps over the scenario mesh. ``evaluator: cpu``
+    is refused."""
 
     algo: str = "cem"
     population: int = 16
@@ -118,13 +155,12 @@ class TuneSpec:
     cpu_oracle: bool = True
     cpu_envelope: float = 1e-6
     output: Optional[str] = None
+    mesh: bool = False
 
 
 def _tune_spec(tu: dict) -> TuneSpec:
     """The reference's parsing of ``tune:`` (utils/config.py:435-460), key
-    for key; ``mesh: true`` and ``evaluator: cpu`` are refused by name."""
-    if bool(tu.get("mesh", False)):
-        _refuse("tune.mesh", "a policy sweep over several cards, queue A item 10")
+    for key; ``evaluator: cpu`` is refused by name."""
     if str(tu.get("evaluator", "auto")) == "cpu":
         _refuse("tune.evaluator: cpu",
                 "the host evaluator on the CPU event engine, queue A item 13")
@@ -150,7 +186,33 @@ def _tune_spec(tu: dict) -> TuneSpec:
         cpu_oracle=bool(tu.get("cpuOracle", True)),
         cpu_envelope=float(tu.get("cpuEnvelope", 1e-6)),
         output=tu.get("output"),
+        mesh=bool(tu.get("mesh", False)),
     )
+
+
+def _overlap_spec(ov: dict) -> OverlapSpec:
+    """The reference's parsing of ``overlap:`` (utils/config.py:551-568):
+    each gate None, or true/false; ``backgroundPublisher: true`` is refused
+    by name."""
+
+    def tristate(key: str) -> Optional[bool]:
+        v = ov.get(key)
+        if v is None:
+            return None
+        if isinstance(v, (bool, int)):
+            return bool(v)
+        raise ValueError(f"overlap.{key}: must be true or false, got {v!r}")
+
+    spec = OverlapSpec(
+        pager_thread=tristate("pagerThread"),
+        background_publisher=tristate("backgroundPublisher"),
+        two_phase_exchange=tristate("twoPhaseExchange"),
+    )
+    if spec.background_publisher:
+        _refuse("overlap.backgroundPublisher: true",
+                "checkpoint publication off the loop thread, with checkpoints (queue A item "
+                "6d) and the fleet (queue A item 11)")
+    return spec
 
 
 def _coerce_completions(v: object) -> Optional[bool]:
@@ -169,8 +231,6 @@ _REFUSED_SECTIONS = {
     "chaos": "chaos node-event timelines",
     "dcn": "the multi-process fleet",
     "service": "the resident query service",
-    "overlap": "the stall-hiding overlap gates",
-    "flightRecorder": "the flight recorder",
     "faultline": "fleet fault injection",
 }
 
@@ -226,12 +286,13 @@ class SimConfig:
     node_shards: int = 0
     paged_waves: bool = False
     tune: Optional[TuneSpec] = None
+    # The flight recorder (None: off) and the overlap gates (None: defaults).
+    flight_recorder: Optional[FlightRecorderSpec] = None
+    overlap: Optional[OverlapSpec] = None
 
     @classmethod
     def from_dict(cls, d: dict) -> "SimConfig":
         wi = d.get("whatIf") or {}
-        if wi.get("mesh", False):
-            _refuse("whatIf.mesh", "the scenario axis over several cards")
         for section, what in _REFUSED_SECTIONS.items():
             if d.get(section) is not None:
                 _refuse(section, what)
@@ -321,9 +382,18 @@ class SimConfig:
             taint_p=float(wi.get("taintP", 0.1)),
             completions=_coerce_completions(wi.get("completions")),
             retry_buffer=rb,
+            mesh=bool(wi.get("mesh", False)),
         )
         if d.get("tune") is not None:
             cfg.tune = _tune_spec(d["tune"])
+        fr = d.get("flightRecorder")
+        if fr is not None:
+            if isinstance(fr, str):
+                fr = {"path": fr}
+            cfg.flight_recorder = FlightRecorderSpec(
+                path=str(fr.get("path", "flight.jsonl")), every=int(fr.get("every", 1)))
+        if d.get("overlap") is not None:
+            cfg.overlap = _overlap_spec(d["overlap"])
         return cfg
 
     @classmethod
@@ -389,6 +459,53 @@ def shard_errors(cfg: SimConfig) -> List[str]:
             "yet (the boundary mirror pre-stages the whole wave index tensor)"
         )
     return errors
+
+
+def flight_errors(cfg: SimConfig) -> List[str]:
+    """The reference's checks of ``flightRecorder:``
+    (kubernetes_simulator_tpu/cli.py:860-882), as error strings (empty:
+    ok); both strategies the port runs have the chunk loop it records."""
+    import os
+
+    fr = cfg.flight_recorder
+    if fr is None:
+        return []
+    errors = []
+    d = os.path.dirname(fr.path) or "."
+    if not os.path.isdir(d):
+        errors.append(f"flightRecorder.path: directory not found: {d}")
+    elif not os.access(d, os.W_OK):
+        errors.append(f"flightRecorder.path: directory not writable: {d}")
+    if fr.every <= 0:
+        errors.append("flightRecorder.every: must be > 0")
+    if cfg.borg is not None and cfg.node_shards <= 1:
+        errors.append(
+            "flightRecorder on a borg headline workload without nodeShards: the replicated "
+            "planes bust one device at Borg scale — set nodeShards > 1 (and usually "
+            "pagedWaves: true)"
+        )
+    return errors
+
+
+def overlap_errors(cfg: SimConfig) -> List[str]:
+    """The reference's refusals of ``overlap:`` (kubernetes_simulator_tpu
+    /cli.py:487-517 ``_overlap_errors``): a gate explicitly on where the
+    machinery it overlaps is absent. ``backgroundPublisher: true`` never
+    gets here (:func:`_overlap_spec` refuses it)."""
+    ov = cfg.overlap
+    if ov is None or not ov.pager_thread or cfg.paged_waves:
+        return []
+    return [
+        "overlap.pagerThread: true requires pagedWaves: true — without paged pod waves "
+        "there is no pager (and no page fetch) to move off the chunk-loop thread"
+    ]
+
+
+def config_errors(cfg: SimConfig) -> List[str]:
+    """Every check of the reference's ``validate`` that the port's sections
+    have (:func:`borg_errors`, :func:`shard_errors`, :func:`flight_errors`,
+    :func:`overlap_errors`); empty: the config is valid."""
+    return borg_errors(cfg) + shard_errors(cfg) + flight_errors(cfg) + overlap_errors(cfg)
 
 
 def build_case(cfg: SimConfig):

@@ -1,6 +1,7 @@
 """The port stands alone: it imports and replays with JAX blocked, never
 imports the JAX package, runs on the card by default (raising where there
-is none), and refuses the modes it does not carry yet by name."""
+is none), and refuses the modes it does not carry yet by name (and runs the
+ones it has ported since they were refused)."""
 
 import ast
 import os
@@ -27,6 +28,7 @@ from kubernetes_simulator_tpu_torch.sim.torch_runtime import TorchReplayEngine
 import kubernetes_simulator_tpu_torch.cli, kubernetes_simulator_tpu_torch.convert
 import kubernetes_simulator_tpu_torch.ops.cpu, kubernetes_simulator_tpu_torch.ops.policy
 import kubernetes_simulator_tpu_torch.sim.greedy, kubernetes_simulator_tpu_torch.sim.tuner
+import kubernetes_simulator_tpu_torch.parallel.mesh, kubernetes_simulator_tpu_torch.sim.flight
 from kubernetes_simulator_tpu_torch.ops import kernels as K
 from kubernetes_simulator_tpu_torch.sim.borg import BorgSpec, make_borg_encoded
 from kubernetes_simulator_tpu_torch.sim.borg_etl import load_borg2019
@@ -115,20 +117,55 @@ def test_cli_default_device_raises_without_a_card(monkeypatch, tmp_path):
     assert row["kind"] == "replay-torch" and row["placed"] == 12 and row["device"] == "cpu"
 
 
+#: Sections once refused that the port runs now: each config of
+#: :func:`test_config_refuses_later_sections_by_name` with one of them
+#: parses and runs on the CPU through the CLI command that reads it.
+_PORTED_SECTIONS = {
+    "whatIf: {scenarios: 4, mesh: true}": ("what-if", ""),
+    "overlap: {pagerThread: true}": ("run", "pagedWaves: true\nchunkWaves: 1\n"),
+    "flightRecorder: {path: f.jsonl}": ("run", "chunkWaves: 1\n"),
+}
+
+
 @pytest.mark.parametrize(
     "section",
     ["whatIf: {scenarios: 4, mesh: true}", "chaos: {enabled: true}", "devicePreemption: kube",
      "overlap: {pagerThread: true}", "flightRecorder: {path: f.jsonl}",
      "dcn: {recovery: {enable: true}}", "service: {maxBatch: 2}"],
 )
-def test_config_refuses_later_sections_by_name(section):
+def test_config_refuses_later_sections_by_name(section, tmp_path, monkeypatch):
+    import json
+
     import yaml
 
+    from kubernetes_simulator_tpu_torch import cli
     from kubernetes_simulator_tpu_torch.utils.config import SimConfig
 
     d = yaml.safe_load(section)
-    with pytest.raises(NotImplementedError, match=list(d)[0]):
-        SimConfig.from_dict(d)
+    if section not in _PORTED_SECTIONS:
+        with pytest.raises(NotImplementedError, match=list(d)[0]):
+            SimConfig.from_dict(d)
+        return
+    cmd, extra = _PORTED_SECTIONS[section]
+    monkeypatch.chdir(tmp_path)
+    (tmp_path / "c.yaml").write_text(
+        "cluster: {synthetic: {nodes: 5, seed: 0}}\n"
+        "workload: {synthetic: {pods: 12, seed: 0}}\n"
+        f"output: out.jsonl\n{extra}{section}\n"
+    )
+    SimConfig.load("c.yaml")
+    assert cli.main([cmd, "c.yaml", "--device", "cpu"]) == 0
+    rows = [json.loads(line) for line in (tmp_path / "out.jsonl").read_text().splitlines()]
+    if cmd == "what-if":
+        assert [r["mesh"] for r in rows] == [True] * 5
+        assert [r["placed"] for r in rows[1:]] == [12] * 4
+        return
+    assert rows[-1]["placed"] == 12
+    if "flightRecorder" in section:
+        from kubernetes_simulator_tpu_torch.sim.flight import read_stream
+
+        events = [r["event"] for r in read_stream("f.jsonl")]
+        assert events[0] == "start" and events[-1] == "end" and "chunk" in events
 
 
 @pytest.mark.parametrize(
@@ -138,10 +175,19 @@ def test_config_refuses_later_sections_by_name(section):
      dict(paged=True, preemption=True),
      dict(flight_recorder="f.jsonl")],
 )
-def test_engine_refuses_later_modes(kw):
+def test_engine_refuses_later_modes(kw, tmp_path, monkeypatch):
     from kubernetes_simulator_tpu_torch.sim.torch_runtime import TorchReplayEngine
 
     ec, ep = _tiny_case()
+    if "flight_recorder" in kw:
+        # Ported since: the recorder streams the replay it watches.
+        from kubernetes_simulator_tpu_torch.sim.flight import read_stream
+
+        monkeypatch.chdir(tmp_path)
+        res = TorchReplayEngine(ec, ep, device="cpu", chunk_waves=1, **kw).replay()
+        rows = read_stream("f.jsonl")
+        assert res.placed == 6 and rows[-1]["event"] == "end" and rows[-1]["placed"] == 6
+        return
     with pytest.raises(NotImplementedError):
         TorchReplayEngine(ec, ep, device="cpu", **kw)
 
@@ -181,12 +227,13 @@ def test_wrappers_take_the_twin_only_on_cpu():
      ("config3_whatif_256.yaml", None), ("config4_borg_1m.yaml", None),
      ("config8_kube_preempt.yaml", "kube"), ("config11_tune.yaml", None),
      ("config12_utilization.yaml", "kube"), ("config13_borgscale.yaml", None),
-     ("config15_headline.yaml", "flight recorder"), ("config18_overlap.yaml", "overlap")],
+     ("config15_headline.yaml", None), ("config18_overlap.yaml", None)],
 )
 def test_example_configs_parse_or_refuse(name, refused):
     """The repo's example configs: the run, what-if and tune configs parse
     with the JAX package's values (config4's workload.borg section field for
-    field); the kube-preemption ones are refused by name."""
+    field; the flight recorder, the overlap gates and the scenario mesh);
+    the kube-preemption ones are refused by name."""
     import dataclasses
 
     import yaml
@@ -201,8 +248,14 @@ def test_example_configs_parse_or_refuse(name, refused):
         return
     cfg = SimConfig.load(str(path))
     raw = yaml.safe_load(path.read_text())
+    ref = J_SimConfig.load(str(path))
+    for port, jax in ((cfg.flight_recorder, ref.flight_recorder), (cfg.overlap, ref.overlap)):
+        assert (port is None) == (jax is None)
+        if port is not None:
+            assert dataclasses.asdict(port) == dataclasses.asdict(jax)
+    assert (cfg.whatif.mesh, cfg.node_shards, cfg.paged_waves, cfg.chunk_waves) == (
+        ref.whatif.mesh, ref.node_shards, ref.paged_waves, ref.chunk_waves)
     if "borg" in raw["workload"]:
-        ref = J_SimConfig.load(str(path))
         assert cfg.workload is None and ref.workload is None
         assert dataclasses.asdict(cfg.borg) == dataclasses.asdict(ref.borg)
         b = raw["workload"]["borg"]
@@ -228,7 +281,5 @@ def test_config11_tune_section_parses_like_the_reference():
     for f in ("algo", "population", "rounds", "seed", "elite_frac", "objective", "constraints",
               "evaluator", "train_scenarios", "heldout_scenarios", "scenario_seed",
               "node_down_p", "capacity_p", "taint_p", "weight_bounds", "tune_strategy",
-              "cpu_oracle", "cpu_envelope", "output"):
+              "cpu_oracle", "cpu_envelope", "output", "mesh"):
         assert getattr(got, f) == getattr(want, f), f
-    # tune.mesh: true is refused at parse time, so the port keeps no field.
-    assert want.mesh is False and not hasattr(got, "mesh")

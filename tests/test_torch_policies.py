@@ -286,10 +286,21 @@ def test_set_policies_checks():
     (dict(preemption="tier"), ValueError, "tier preemption"),
     (dict(retry_buffer=8), ValueError, "retry_buffer"),
     (dict(fork_checkpoint="ck.npz"), ValueError, "fork checkpoints"),
-    (dict(mesh=object()), NotImplementedError, "queue A item 10"),
+    (dict(mesh=["cpu", "cpu"]), None, "runs"),
 ])
 def test_policies_refused_where_the_reference_refuses(kw, exc, match):
     pec, pep = _small()
+    if exc is None:
+        # Ported since: policy rows run over a mesh, each block its slice of
+        # the rows, placing as the unsplit batch does.
+        rows = tile(default_row(), 2)
+        rows[1, 0] = 0.0
+        want = T.WhatIfEngine(pec, pep, [T.Scenario()] * 2, FrameworkConfig(), device="cpu",
+                              policies=rows, collect_assignments=True).run()
+        got = T.WhatIfEngine(pec, pep, [T.Scenario()] * 2, FrameworkConfig(), device="cpu",
+                             policies=rows, collect_assignments=True, **kw).run()
+        np.testing.assert_array_equal(got.assignments, want.assignments)
+        return
     with pytest.raises(exc, match=match):
         T.WhatIfEngine(pec, pep, [T.Scenario()] * 2, FrameworkConfig(), device="cpu",
                        policies=tile(default_row(), 2), **kw)

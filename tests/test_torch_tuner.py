@@ -106,7 +106,7 @@ def test_objective_validation_equals_reference(bad):
 
 @pytest.mark.parametrize("pop,per", [(5, 3), (2, 1), (16, 4)])
 def test_fit_population_equals_reference(pop, per):
-    assert TT.fit_population(pop, None) == j_fit_population(pop, per, None)
+    assert TT.fit_population(pop, per, None) == j_fit_population(pop, per, None)
 
 
 def _fragmentation_case():
@@ -187,8 +187,24 @@ def test_cli_trajectory_deterministic_and_equal_to_reference(tmp_path):
     ("  mesh: true\n", "mesh"),
 ])
 def test_cli_refuses_host_evaluator_and_mesh(tmp_path, extra, match):
+    """``evaluator: cpu`` is refused by name; ``tune.mesh`` (ported since)
+    runs the sweep over a one-device mesh on ``--device cpu`` and writes the
+    unmeshed run's rows (the config's hash apart)."""
     cfg = tmp_path / "tune.yaml"
-    _write_config(cfg, tmp_path / "o.jsonl", extra=extra)
+    out = tmp_path / "o.jsonl"
+    _write_config(cfg, out, extra=extra)
+    if match == "mesh":
+        def rows():
+            got = [json.loads(line) for line in out.read_text().splitlines()]
+            out.unlink()
+            return [{k: v for k, v in r.items() if k != "config_hash"} for r in got]
+
+        assert t_cli(["tune", str(cfg), "--device", "cpu"]) == 0
+        meshed = rows()
+        _write_config(cfg, out)
+        assert t_cli(["tune", str(cfg), "--device", "cpu"]) == 0
+        assert rows() == meshed
+        return
     with pytest.raises(NotImplementedError, match=match):
         t_cli(["tune", str(cfg), "--device", "cpu"])
 
@@ -198,13 +214,20 @@ def test_cli_refuses_host_evaluator_and_mesh(tmp_path, extra, match):
           constraints=[{"metric": "latencyP99", "max": 1.0}]), NotImplementedError,
      "queue A item 13"),
     (dict(evaluator="cpu"), NotImplementedError, "queue A item 13"),
-    (dict(mesh=object()), NotImplementedError, "queue A item 10"),
+    (dict(mesh=["cpu"] * 3), None, "fit_population"),
     (dict(objective={"latencyP99": -1.0}, evaluator="device"), ValueError, "evaluator='cpu'"),
     (dict(evaluator="gpu"), ValueError, "evaluator must be"),
 ])
 def test_tuner_refusals(kw, exc, match):
     ec, ep = _fragmentation_case()
     pec, pep = port_case(ec, ep)
+    if exc is None:
+        # A mesh (ported since): the population is padded until the flat
+        # (population x 4 train scenarios) axis divides over 3 devices.
+        tuner = TT.PolicyTuner(pec, pep, FrameworkConfig(), population=2, rounds=1,
+                               device="cpu", **kw)
+        assert (tuner.population_requested, tuner.population) == (2, 3)
+        return
     with pytest.raises(exc, match=match):
         TT.PolicyTuner(pec, pep, FrameworkConfig(), population=2, rounds=1, device="cpu",
                        **kw)

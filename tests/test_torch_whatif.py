@@ -282,11 +282,11 @@ def _tiny():
 
 @pytest.mark.parametrize(
     "kw,item",
-    [(dict(mesh=object()), "queue A item 10"),
+    [(dict(mesh=["cpu", "cpu"]), "runs"),
      (dict(fork_checkpoint="fork.npz"), "queue A item 7"),
      (dict(preemption="kube", retry_buffer=8), "queue A item 7"),
      (dict(preemption="kube"), "queue A item 7"),
-     (dict(policies=np.ones((2, 6), np.float32), mesh=object()), "queue A item 10"),
+     (dict(policies=np.ones((2, 6), np.float32), mesh=["cpu", "cpu"]), "runs"),
      (dict(node_shards=2), "queue A item 10"),
      (dict(_dcn_recovery={"block": (0, 1)}), "queue A item 11"),
      (dict(telemetry="series", engine="v2"), "queue B item 2"),
@@ -300,6 +300,15 @@ def test_engine_refuses_later_modes_by_queue_item(kw, item):
     if kw == "events":
         scen[1].events = [object()]
         kw = {}
+    if item == "runs":
+        # Ported since (the scenario mesh, :mod:`parallel.mesh`): a block a
+        # device, placing as the unsplit batch does.
+        kw.pop("mesh")
+        want = T.WhatIfEngine(ec, ep, scen, device="cpu", **kw).run()
+        res = T.WhatIfEngine(ec, ep, scen, device="cpu", mesh=["cpu", "cpu"], **kw).run()
+        assert (res.n_devices, res.mesh_shape) == (2, {"scenarios": 2})
+        np.testing.assert_array_equal(res.placed, want.placed)
+        return
     with pytest.raises(NotImplementedError, match=item):
         T.WhatIfEngine(ec, ep, scen, device="cpu", **kw)
 
@@ -360,16 +369,19 @@ def test_whatif_cli_writes_rows(tmp_path):
 
 
 def test_whatif_cli_refuses_mesh_and_retry_buffer(tmp_path):
-    """``whatIf.mesh`` is refused by name. ``whatIf.retryBuffer`` runs,
-    and is refused only where the reference refuses it: a trace with no
-    finite duration (no release boundary) and ``completions: false``."""
+    """``whatIf.mesh`` runs (a one-device mesh on ``--device cpu``; its rows
+    say so). ``whatIf.retryBuffer`` runs, and is refused only where the
+    reference refuses it: a trace with no finite duration (no release
+    boundary) and ``completions: false``."""
     from kubernetes_simulator_tpu_torch import cli
 
     cfg = tmp_path / "w.yaml"
     base = "cluster: {synthetic: {nodes: 4}}\nworkload: {synthetic: {pods: 5%s}}\n"
-    cfg.write_text(base % "" + "whatIf: {scenarios: 2, mesh: true}\n")
-    with pytest.raises(NotImplementedError, match="whatIf.mesh"):
-        cli.main(["what-if", str(cfg), "--device", "cpu"])
+    mesh_out = tmp_path / "mesh.jsonl"
+    cfg.write_text(base % "" + f"whatIf: {{scenarios: 2, mesh: true}}\noutput: {mesh_out}\n")
+    assert cli.main(["what-if", str(cfg), "--device", "cpu"]) == 0
+    rows = [json.loads(line) for line in mesh_out.read_text().splitlines()]
+    assert [r["mesh"] for r in rows] == [True] * 3 and [r["placed"] for r in rows[1:]] == [5, 5]
     cfg.write_text(base % "" + "whatIf: {scenarios: 2, retryBuffer: 64}\n")
     with pytest.raises(ValueError, match="retry_buffer requires"):
         cli.main(["what-if", str(cfg), "--device", "cpu"])
