@@ -242,7 +242,26 @@ From the root of a checkout, on a host with one CUDA card. In order:
    times, pagerThread x twoPhaseExchange, under KSIM_DETERMINISTIC_JSONL=1:
    the choice buffers and rows identical and the recorder streams byte for
    byte, walls and busy shares; CONFIG13's engine with the recorder off,
-   on, on, off: the same assignments, the walls in turns.
+   on, on, off: the same assignments, the walls in turns;
+28. (K) kube preemption: CONFIG8 as shipped (60 nodes x 4,000 pods,
+   spread and tolerations, chunkWaves 16, retryBuffer 256,
+   devicePreemption kube) through the CLI ``run`` on the card, counters
+   zeroed just before and read just after: placed, unschedulable,
+   preemptions, retry_dropped, the summary latency count and the
+   assignments' sha256 equal to KUBE_PINS (the JAX package's on the CPU),
+   one K6 a chunk plus the trailing boundary's, every K6 past the first in
+   the retry mode's kube pass, K3 at each release, K1 = K2 = K3 bind = K4 =
+   0; its wall and profiled busy share. Then config8's trace x 128 scenarios
+   (``uniform_scenarios(seed=0)``, KUBE_WHATIF) through ``WhatIfEngine``: the
+   median wall of three runs after a warm-up, aggregate placements/s, the
+   busy share, scenario 0 equal to the single replay. Then K6's kube mode
+   held against its twin launch by launch at the three densest boundaries
+   of the single replay (S = 1) and of the batch (S = 128; the twin on the
+   CPU over KUBE_TWIN_SCENARIOS of its scenarios: each scenario's cluster
+   computes alone): the boundary's release, then the K6 launch — choices,
+   every plane, the retry and kube tables, preemptions — and each launch
+   timed by CUDA events beside its twin's wall and its bound (Work.k6,
+   Work.kube_phase and Work.post_filter).
 
 The selects — K2, K6, K7 and K9 — launch as thread-block clusters
 (ops/kernels.py ``cluster_plan``): every step that launches one prints its
@@ -364,6 +383,22 @@ RETRY_PINS = {
     "cut150_no_retry": dict(placed=18508, retry_dropped=0,
                             sha256="ae0ce5f0b76ab61d5fc8bea303e0fc6da99685a2a71dbdd65738204995ac66bc"),
 }
+#: Kube preemption (devicePreemption: kube): config8 as shipped, 60 nodes x
+#: 4,000 pods, spread and tolerations, chunkWaves 16, retryBuffer 256; the
+#: JAX package's numbers on the CPU (tests/test_torch_kube_pins.py
+#: recomputes them): placed, unschedulable, victims, drops, the summary
+#: latency's count (first binds, victims that end unplaced included) and
+#: the assignments' sha256.
+CONFIG8 = "examples/config8_kube_preempt.yaml"
+KUBE_PINS = dict(placed=3055, unschedulable=945, preemptions=188, retry_dropped=705,
+                 latency_count=3163,
+                 sha256="1b9cb29d6c2e89c32f66c037c8f382e93c7349f3edd8a906f3b2d39b83e8be6e")
+#: config8's trace as a what-if batch.
+KUBE_WHATIF = dict(scenarios=128, seed=0)
+#: Boundaries held launch by launch, and the scenarios of the batch its twin
+#: runs on the CPU there (the twin's pass is a host loop a scenario).
+KUBE_HOLD_BOUNDARIES = 3
+KUBE_TWIN_SCENARIOS = 4
 #: The retry tables compared between paths and launch by launch.
 RETRY_PLANES = ("rbuf", "rcount", "rdrop", "rchoice", "pend_id", "pend_node", "pend_relb",
                 "rnode", "rbind_b")
@@ -1214,6 +1249,44 @@ class Work:
             no += o1 + o2 + o3
         b4, o4 = self.k4(rbuf, rch, step["pend_id"], step["pend_relb"], n_tbt)
         return nb + b4, no + o4
+
+    def kube_phase(self, walked, binds):
+        """(bytes, ops) of the kube pass at one boundary of an S = 1 run
+        beside its PostFilter: the pending list read and rewritten (its due
+        entries dropped) and the buffer moved into the ring, each walked pod
+        (``walked``, in walk order) through K1 and K2, each bind (``binds``:
+        (pod, node)) through K3 with its records (rnode, rbind_b, first_b,
+        rrel) and its pending entry."""
+        nbytes, nops = self.RB * 32, self.RB
+        for q in walked:
+            b1, o1 = self.k1_scen(np.array([q]))
+            b2, o2 = self.k2_scen(1)
+            nbytes, nops = nbytes + b1 + b2, nops + o1 + o2
+        for q, n in binds:
+            b3, o3 = self.k3(np.array([q]), np.array([[n]]))
+            nbytes, nops = nbytes + b3 + 28, nops + o3
+        return nbytes, nops
+
+    def post_filter(self, calls):
+        """(bytes, ops) of K6's PostFilter over ``calls`` of an S = 1 run
+        (each: ``cand`` the candidates it scanned, ``node`` and ``victims``
+        what it committed): the candidate scan — every pod's priority, gang
+        id, retried node, pending boundary, column, choice and the column's
+        release boundary read once (28 B a pod), each node's count and
+        offset written and read, each candidate's id written and read and
+        its requests read — each node's static filters and usage (its
+        allocatable and used rows, its taints); then each victim's rewind
+        (K3's work for it, with a negative sign) and its pending entry's
+        cancellation (the list read and rewritten)."""
+        N, R, P = self.N, self.R, self.ep.num_pods
+        nbytes = nops = 0
+        for c in calls:
+            nbytes += P * 28 + N * 16 + c["cand"] * (8 + 4 * R) + N * (8 * R + 12 * self.TT)
+            nops += P * 4 + N * (R * 4 + self.TT) + c["cand"] * R * 2
+            for v in c["victims"]:
+                b3, o3 = self.k3(np.array([v]), np.array([[c["node"]]]))
+                nbytes, nops = nbytes + b3 + self.RB * 24, nops + o3
+        return nbytes, nops
 
     def chunk_loop_ms(self, plan, assignments, launches, evictions=None, retry_walk=None):
         """B6's bound for a run on the chunk route (``launches``, the run's
@@ -2629,6 +2702,8 @@ def lockstep(where, plan, tb_k, tb_t, ch_k, ch_t, first, end, dev, snap=None,
         for part in ("state", "scratch", "retry", "reject"):
             x, y = getattr(tb_k, part), getattr(tb_t, part)
             for name in (x._fields if x is not None else ()):
+                if not torch.is_tensor(getattr(x, name)):  # kube's tables: None when off
+                    continue
                 if not torch.equal(getattr(x, name), getattr(y, name)):
                     raise AssertionError(f"{where}, {at}: {part}.{name} differs")
         if not torch.equal(ch_k, ch_t):
@@ -5636,6 +5711,313 @@ def run_config18(results, dev):
           f"the same assignments", flush=True)
 
 
+def config8_case():
+    """(SimConfig, EncodedCluster, EncodedPods) of CONFIG8 as the port's
+    config parses it (60 nodes, 4,000 pods, spread, tolerations, taints on
+    15 % of the nodes, devicePreemption kube, retryBuffer 256, chunkWaves
+    16)."""
+    import yaml
+
+    from kubernetes_simulator_tpu_torch.utils.config import SimConfig, build_encoded_case
+
+    def build():
+        with open(os.path.join(ROOT, CONFIG8)) as f:
+            cfg = SimConfig.from_dict(yaml.safe_load(f))
+        return (cfg,) + tuple(build_encoded_case(cfg))
+
+    return _case_copy(("config8",), build)
+
+
+def kube_launches(where, launches, plan, joint):
+    """A kube run's launches (counters zeroed just before it;
+    :func:`retry_launch_counts` with ``kube``, K6's kube-pass launches): one
+    K6 a chunk and the trailing boundary's, each past the first in the retry
+    mode's kube pass; K3 at each release (``joint``, the single replay: one
+    a boundary past 0, the trailing one included, and the static bucket at
+    0; the batch: each static bucket); K1, K2, K3's bind and rollback, K4
+    and K5 none."""
+    nb = len(plan.buckets)
+    rel = (nb + int(plan.buckets[0] is not None) if joint
+           else sum(bk is not None for bk in plan.buckets))
+    want = dict(chunk_replay=nb + 1, chunk_replay_retry=nb, kube=nb, filter_score=0,
+                normalize_select=0, apply_placements_bind=0, apply_placements_rollback=0,
+                apply_placements_release=rel, retry_boundary=0, first_reject=0,
+                first_reject_fold=0, shard_chunk_replay=0)
+    if any(launches[k] != v for k, v in want.items()):
+        raise AssertionError(f"{where}: launches {launches}, expected {want}")
+
+
+SHARED_RETRY = ("dur", "tbt", "prio", "col_of", "col_relb")
+
+
+def subset_tables(tb, ch, idx, dev="cpu"):
+    """Copies of the scenarios ``idx`` of a kube run's tables and choice
+    buffer on ``dev`` (the twin's inputs for those scenarios)."""
+    ix = torch.as_tensor(idx, device=tb.state.used.device)
+    per = lambda t: t[ix].to(dev).contiguous()
+    cl = tb.cluster
+    pick = lambda t: per(t) if t.dim() == 3 else t.to(dev)
+    cluster = ref.DevCluster(**{f: (pick(x) if f in ("allocatable", "taint_key", "taint_kv",
+                                                      "taint_effect")
+                                    else per(x) if f == "lrow" else x.to(dev))
+                                for f, x in zip(ref.DevCluster._fields, cl)})
+    rt = tb.retry
+    retry = rt._replace(**{f: (x.to(dev) if f in SHARED_RETRY else per(x))
+                           for f, x in zip(rt._fields, rt) if torch.is_tensor(x)})
+    return ref.Tables(cluster, ref.DevPods(*(x.to(dev) for x in tb.pods)),
+                      ref.DevState(*(per(x) for x in tb.state)),
+                      ref.Scratch(*(per(x) for x in tb.scratch)), tb.consts,
+                      retry=retry), per(ch)
+
+
+def same_rows(where, tb_k, ch_k, tb_t, ch_t, idx):
+    """The scenarios ``idx`` of the kernel's tables and choices equal the
+    twin's (which hold those scenarios only): every plane, scratch row and
+    retry table (the shared ones whole)."""
+    torch.cuda.synchronize()
+    ix = torch.as_tensor(idx, device=ch_k.device)
+    bad = torch.nonzero(ch_k[ix].cpu() != ch_t)
+    if bad.numel():
+        raise AssertionError(f"{where}: choices differ at (scenario, column) {bad[:5].tolist()}")
+    pk = _planes(tb_k)
+    for name, y in _planes(tb_t).items():
+        x = pk[name]
+        x = x.cpu() if name.split(".")[-1] in SHARED_RETRY else x[ix].cpu()
+        if not torch.equal(x, y):
+            raise AssertionError(f"{where}: {name} differs at "
+                                 f"{torch.nonzero(x != y)[:5].tolist()}")
+
+
+def restore_tables(dst, src, ch_dst, ch_src):
+    for part in ("state", "scratch", "retry"):
+        for x, y in zip(getattr(dst, part), getattr(src, part)):
+            if torch.is_tensor(x):
+                x.copy_(y)
+    ch_dst.copy_(ch_src)
+
+
+@contextlib.contextmanager
+def kube_trace():
+    """What the twin's kube pass does inside (the module's functions wrapped
+    while it runs): the walked pods, each PostFilter call (the candidates it
+    scanned, its node and victims) and each bind (pod, node) — Work's
+    inputs for the pass of an S = 1 run."""
+    rec = dict(walked=[], calls=[], binds=[])
+    fs, pf, ap = ref.filter_score, ref.post_filter, ref.apply_placements
+
+    def filter_score(tb, p, pod_of_s=None):
+        if pod_of_s is not None:
+            rec["walked"] += [q for q in pod_of_s.tolist() if q >= 0]
+        return fs(tb, p, pod_of_s)
+
+    def post_filter(tb, choices, sc, p, b):
+        cur = ref.bound_nodes(tb, choices, sc, b)
+        prio = tb.retry.prio.long()
+        cand = int(((cur >= 0) & (prio < int(prio[p])) & (tb.pods.group_id < 0)).sum())
+        hit = pf(tb, choices, sc, p, b)
+        rec["calls"].append(dict(cand=cand, node=hit[0] if hit else PAD,
+                                 victims=list(hit[1]) if hit else []))
+        return hit
+
+    def apply_placements(tb, pod_ids, pos, choices, sign, *a, **kw):
+        if sign > 0 and pod_ids.dim() == 2:
+            rec["binds"] += [(q, n) for q, n in zip(pod_ids[:, 0].tolist(),
+                                                    choices[:, 0].tolist()) if q >= 0 and n >= 0]
+        return ap(tb, pod_ids, pos, choices, sign, *a, **kw)
+
+    ref.filter_score, ref.post_filter, ref.apply_placements = (filter_score, post_filter,
+                                                               apply_placements)
+    try:
+        yield rec
+    finally:
+        ref.filter_score, ref.post_filter, ref.apply_placements = fs, pf, ap
+
+
+def kube_walk(eng, dev, joint):
+    """A kernel-path run of ``eng`` chunk by chunk up to its last chunk:
+    [B - 1, S] the pods each scenario's buffer holds at each boundary b in
+    1..B-1."""
+    plan = eng.plan
+    tb = eng._tables()
+    ch = new_choices(plan, eng.S, eng.pods.bound_node, dev)
+    held = []
+    for c in range(len(plan.buckets) - 1):
+        run_waves(plan, tb, ch, c * plan.C, (c + 1) * plan.C, plain=False, route="chunk",
+                  joint=joint)
+        held.append(tb.retry.rcount.cpu().numpy())
+    return np.stack(held)
+
+
+def hold_k6_kube(where, eng, b, dev, joint, twin_scen):
+    """K6's kube mode against its twin at boundary b of ``eng``'s run: the
+    tables after chunks [0, b) on the kernel path, copied for the twin on
+    the CPU (its scenarios ``twin_scen``); the boundary's release on both
+    (K3 against its twin), then chunk b's K6 launch in the retry mode's kube
+    pass against ``ref.chunk_replay`` — the choices, every plane and the
+    retry and kube tables equal after each. Then the launch timed from the
+    released state (CUDA events, :func:`launch_ms`) beside the twin's wall
+    and, at S = 1, its bound (Work.k6 + Work.kube_phase + Work.post_filter:
+    the window as one function)."""
+    plan = eng.plan
+    C = plan.C
+    lo, hi = b * C, min((b + 1) * C, plan.idx.shape[0])
+    tb = eng._tables()
+    ch = new_choices(plan, eng.S, eng.pods.bound_node, dev)
+    run_waves(plan, tb, ch, 0, lo, plain=False, route="chunk", joint=joint)
+    torch.cuda.synchronize()
+    tb_t, ch_t = subset_tables(tb, ch, twin_scen)
+    bk = K.Bound(tb)
+    bucket = plan.buckets[b]
+    on = lambda d: tuple(torch.as_tensor(x, device=d) for x in bucket) if bucket else None
+    held = int(tb.retry.rcount.sum())
+    pre0 = tb.retry.preempt.clone()
+    if joint:
+        joint_release(b, bk, K.apply_placements, tb.retry, ch, on(dev))
+        joint_release(b, tb_t, ref.apply_placements, tb_t.retry, ch_t, on("cpu"))
+    elif bucket is not None:
+        K.apply_placements(bk, *on(dev), ch, -1.0)
+        ref.apply_placements(tb_t, *on("cpu"), ch_t, -1.0)
+    same_rows(f"{where}: boundary {b}'s release vs its twin", tb, ch, tb_t, ch_t, twin_scen)
+    released = (clone_tables(tb), ch.clone())
+    dk, dt = plan.device_desc(dev), plan.device_desc("cpu")
+    retry = (b, float(np.float32(plan.tb[b])), not joint)
+    K.reset_launch_counts()
+    K.chunk_replay(bk, dk.idx, dk.gang, ch, lo, hi, append=True, retry=retry)
+    torch.cuda.synchronize()
+    if K.chunk_replay.kube != 1 or K.chunk_replay.launches != 1:
+        raise AssertionError(f"{where}: the launch at boundary {b} ran {K.launch_counts()}")
+    cluster = plan_of(K.chunk_replay)
+    with kube_trace() as trace:
+        t0 = time.perf_counter()
+        ref.chunk_replay(tb_t, dt.idx, dt.gang, ch_t, lo, hi, append=True, retry=retry)
+        twin_s = time.perf_counter() - t0
+    same_rows(f"{where}: boundary {b}'s K6 kube launch vs its twin", tb, ch, tb_t, ch_t,
+              twin_scen)
+    victims = int((tb.retry.preempt - pre0).sum())
+    out = dict(boundary=b, waves=[lo, hi], scenarios=eng.S, twin_scenarios=list(twin_scen),
+               buffered=held, victims=victims, cluster=cluster, twin_ms=twin_s * 1e3,
+               postfilter_calls_twin=len(trace["calls"]), walked_twin=len(trace["walked"]),
+               max_abs_err=0.0)
+    final = (clone_tables(tb), ch.clone())
+    out["ms"] = launch_ms(
+        lambda: K.chunk_replay(bk, dk.idx, dk.gang, ch, lo, hi, append=True, retry=retry),
+        lambda: restore_tables(tb, released[0], ch, released[1]), iters=20)
+    same_rows(f"{where}: boundary {b}'s timed launch", tb, ch, *subset_tables(final[0], final[1],
+                                                                            twin_scen),
+              twin_scen)
+    if eng.S == 1:
+        a = np.full((1, eng.pods.num_pods), PAD, np.int32)
+        flat, W = plan.idx.reshape(-1), plan.idx.shape[1]
+        cols = np.arange(lo * W, hi * W)
+        v = flat[cols] >= 0
+        a[:, flat[cols][v]] = ch[:, cols[v]].cpu().numpy()
+        work = Work(eng.pods, tb)
+        nb, no = work.k6(plan.idx[lo:hi], plan.gang_wave[lo:hi], a, lo, append=True)
+        pb, po = work.kube_phase(trace["walked"], trace["binds"])
+        fb, fo = work.post_filter(trace["calls"])
+        out["bound_ms"], out["bound_by"] = bound(nb + pb + fb, no + po + fo)
+        out["post_filter_bound_ms"], _ = bound(fb, fo)
+    print(f"{where}: K6's kube mode == its twin at boundary {b} (release, then the launch; "
+          f"{json.dumps({k: v for k, v in out.items() if k != 'cluster'})}, cluster "
+          f"{json.dumps(cluster)}); choices, every plane, retry and kube table", flush=True)
+    return out
+
+
+def run_kube_paths(results, dev):
+    """(K) kube preemption: config8 through the CLI run, its 128-scenario
+    what-if, K6's kube mode held against its twin at S = 1 and S = 128.
+    Returns the kernels line's record of K6's kube mode."""
+    cfg, ec, ep = config8_case()
+    rows, lines, eng, cmd_s, launches = cli_call(["run", CONFIG8])
+    launches = dict(retry_launch_counts(), kube=K.chunk_replay.kube)
+    kube_launches("config8 CLI run", launches, eng.plan, joint=True)
+    row = rows[0]
+    rt = eng.last_tables.retry
+    a, placed, _ = assignments_from_choices(eng.plan, eng.last_choices, ep.bound_node,
+                                            rt.rnode.cpu().numpy())
+    got = dict(placed=row["placed"], unschedulable=row["unschedulable"],
+               preemptions=row["preemptions"], retry_dropped=row["retry_dropped"],
+               latency_count=row["telemetry"]["latency"]["count"],
+               sha256=assignments_sha256(a[0]))
+    if got != KUBE_PINS or int(placed[0]) != row["placed"]:
+        raise AssertionError(f"config8: {got} != the JAX package's {KUBE_PINS}")
+    walls = sorted(eng.replay().wall_clock_s for _ in range(3))
+    by_kernel = {}
+    res_p, busy_s = profiled_busy_s(eng.replay, by_kernel)
+    if not np.array_equal(res_p.assignments, a[0]):
+        raise AssertionError("config8: the profiled replay placed differently")
+    rec = dict(route=res_p.route, chunks=len(eng.plan.buckets), cli_wall_s=row["wall_clock_s"],
+               cli_command_s=cmd_s, walls_s=walls, wall_s=float(np.median(walls)),
+               placements_per_s=KUBE_PINS["placed"] / float(np.median(walls)),
+               launches=launches, profiled_wall_s=res_p.wall_clock_s, device_busy_s=busy_s,
+               device_busy_share=busy_s / res_p.wall_clock_s if busy_s else None,
+               device_s_by_kernel=by_kernel, pins=got)
+    results["config8"] = rec
+    print(f"config8 (CLI run, 60 nodes x 4,000 pods, kube, route {res_p.route}): {json.dumps(got)} "
+          f"== KUBE_PINS; wall {row['wall_clock_s']:.4f}s (again {[round(w, 4) for w in walls]}), "
+          f"launches: K6 {launches['chunk_replay']} (kube pass {launches['kube']}), K3 release "
+          f"{launches['apply_placements_release']}, K1 {launches['filter_score']}, K2 "
+          f"{launches['normalize_select']}, K4 {launches['retry_boundary']}; profiled: wall "
+          f"{res_p.wall_clock_s:.4f}s, device busy {busy_s:.4f}s "
+          f"({busy_s / res_p.wall_clock_s:.1%})", flush=True)
+    mark("K config8 run")
+
+    # The batch: config8's trace x 128 scenarios.
+    scen = uniform_scenarios(ec, KUBE_WHATIF["scenarios"], seed=KUBE_WHATIF["seed"])
+    weng = WhatIfEngine(ec, ep, scen, cfg.framework, wave_width=cfg.wave_width,
+                        chunk_waves=cfg.chunk_waves, preemption="kube",
+                        retry_buffer=cfg.whatif.retry_buffer, collect_assignments=True)
+    K.reset_launch_counts()
+    warm = weng.run()
+    wlaunches = dict(retry_launch_counts(), kube=K.chunk_replay.kube)
+    kube_launches("config8 what-if", wlaunches, weng.plan, joint=False)
+    if not np.array_equal(warm.assignments[0], a[0]) or int(warm.preemptions[0]) != got[
+            "preemptions"] or int(warm.retry_dropped[0]) != got["retry_dropped"]:
+        raise AssertionError("config8 what-if: scenario 0 != the single replay")
+    runs = [weng.run() for _ in range(3)]
+    for r in runs:
+        if not np.array_equal(r.assignments, warm.assignments):
+            raise AssertionError("config8 what-if placed differently from run to run")
+    wwalls = sorted(r.wall_clock_s for r in runs)
+    wall = float(np.median(wwalls))
+    _, wbusy = profiled_busy_s(weng.run)
+    results["config8_whatif"] = dict(
+        **KUBE_WHATIF, route=warm.route, launches=wlaunches, walls_s=wwalls,
+        warmup_wall_s=warm.wall_clock_s, wall_s=wall, total_placed=warm.total_placed,
+        placements_per_s=warm.total_placed / wall, placed_min=int(warm.placed.min()),
+        placed_max=int(warm.placed.max()), preemptions_min=int(warm.preemptions.min()),
+        preemptions_max=int(warm.preemptions.max()),
+        retry_dropped_max=int(warm.retry_dropped.max()), device_busy_s=wbusy,
+        device_busy_share=wbusy / wall if wbusy else None,
+        sha256=assignments_sha256(warm.assignments))
+    print(f"config8 what-if ({KUBE_WHATIF['scenarios']} scenarios, kube, route {warm.route}): "
+          f"median wall {wall:.4f}s of {[round(w, 4) for w in wwalls]}, "
+          f"{warm.total_placed / wall:.1f} aggregate placements/s, placed "
+          f"{int(warm.placed.min())}..{int(warm.placed.max())}, victims "
+          f"{int(warm.preemptions.min())}..{int(warm.preemptions.max())} per scenario; scenario 0 "
+          f"== the single replay; launches {json.dumps(wlaunches)}; busy {wbusy:.4f}s", flush=True)
+    mark("K config8 what-if")
+
+    # K6's kube mode against its twin at the densest boundaries.
+    holds = {}
+    for name, e, joint in (("S=1", eng, True), ("S=128", weng, False)):
+        held = kube_walk(e, dev, joint)
+        dense = sorted(range(1, len(e.plan.buckets)), key=lambda b: (-held[b - 1].sum(), b))
+        holds[name] = []
+        for b in sorted(dense[:KUBE_HOLD_BOUNDARIES]):
+            # scenario 0 and those holding the most pods there
+            top = [int(x) for x in np.argsort(-held[b - 1], kind="stable") if x != 0]
+            twin_scen = sorted([0] + top[: KUBE_TWIN_SCENARIOS - 1])
+            holds[name].append(hold_k6_kube(f"config8 {name}", e, b, dev, joint, twin_scen))
+    results["k6_kube_holds"] = holds
+    mark("K K6 kube holds")
+    best = max(holds["S=1"], key=lambda h: h["buffered"])
+    return dict(launches=launches["kube"], ms=best["ms"], plain_ms=best["twin_ms"],
+                bound_ms=best["bound_ms"], bound_by=best["bound_by"], cluster=best["cluster"],
+                boundary=best["boundary"], post_filter_bound_ms=best["post_filter_bound_ms"],
+                s128_ms=[h["ms"] for h in holds["S=128"]])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this script needs a CUDA "
@@ -5879,6 +6261,8 @@ def main() -> int:
     mark("M2 config15 K6 replicated run")
     run_config18(results, dev)
     mark("M3 config13 recorder in turns")
+    # K: kube preemption (config8, its 128-scenario what-if, K6's kube mode).
+    k6kube = run_kube_paths(results, dev)
     results["wall_s_total"] = time.perf_counter() - t_start
     print("step walls (s): " + json.dumps({k: round(v, 1) for k, v in STEP_S.items()}),
           flush=True)
@@ -5958,6 +6342,20 @@ def main() -> int:
         "library_ms": None, "cluster": k6retry["cluster"],
         "old_route_ms": k6retry["old_ms"], "summary_k6_ms": k6retry["k6_ms"],
         "window_waves": k6retry["waves"],
+    })
+    # K6's kube mode: its launches on config8's CLI run; one launch at the
+    # single replay's densest boundary timed beside its twin (on the CPU) and
+    # its bound; s128_ms the same launches at S = 128.
+    table.append({
+        "name": "chunk_replay_kube", "route": "cuda",
+        "source": "kubernetes_simulator_tpu_torch/csrc/chunk_replay_retry.cu",
+        "replaces": "kubernetes_simulator_tpu/framework/framework.py:190",
+        "launches": k6kube["launches"], "slot_route_launches": 0, "max_abs_err": 0.0,
+        "ms": k6kube["ms"], "plain_ms": k6kube["plain_ms"], "bound_ms": k6kube["bound_ms"],
+        "bound_by": k6kube["bound_by"],
+        # no PyTorch call runs a PostFilter
+        "library_ms": None, "cluster": k6kube["cluster"], "boundary": k6kube["boundary"],
+        "post_filter_bound_ms": k6kube["post_filter_bound_ms"], "s128_ms": k6kube["s128_ms"],
     })
     for k, (kernel, replaces) in LABEL_SOURCES.items():
         m = lkernels[kernel]

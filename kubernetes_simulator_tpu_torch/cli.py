@@ -6,7 +6,8 @@ the card.
     python -m kubernetes_simulator_tpu_torch tune config.yaml [--device cpu]
 
 Counterpart: ``kubernetes_simulator_tpu/cli.py`` (``cmd_run`` :83,
-``cmd_whatif`` :140; both pass ``whatIf.retryBuffer``, :100 and :182;
+``cmd_whatif`` :140; both pass ``whatIf.retryBuffer``, :100 and :182,
+and ``devicePreemption`` — tier, or kube through the retry buffer;
 ``cmd_tune`` :205). The config is parsed as the JAX package parses it
 (utils.config); sections of modes the port does not carry yet are refused
 with an error naming them; a ``workload.borg`` section (config4's 10,000

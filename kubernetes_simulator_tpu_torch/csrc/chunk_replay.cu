@@ -71,14 +71,22 @@ KSIM_EXPORT int ksim_chunk_replay(const KsimArgs* args, const int32_t* idx, cons
   if (retry) {
     if (retry_size != (int)sizeof(KsimRetryPhase) || !args->retry || !append ||
         args->preempt || args->NP != 1 || args->RB < 1 || args->RB > KSIM_MAX_RB ||
-        args->B < 1 || retry->b < 1 || end == first)
+        args->B < 1 || retry->b < 1 || (end == first && !retry->kube))
+      return (int)cudaErrorInvalidValue;
+    // kube preemption: its tables whole, no counters and no samples (series
+    // with kube is refused); a launch with no waves is the trailing boundary
+    const KsimKube& k = retry->k;
+    if (retry->kube &&
+        (!k.prio || !k.col_of || !k.col_relb || !k.rrel || !k.first_b || !k.preempt || !k.kq ||
+         !k.kst || !k.kvic || !k.koff || !k.kcnt || k.choices != choices ||
+         k.choice_ss != choice_ss || attr || retry->used_out || retry->snap_used))
       return (int)cudaErrorInvalidValue;
     if (retry->used_out && (!retry->rcount_out || !retry->pend_out))
       return (int)cudaErrorInvalidValue;
     if (retry->snap_used && (!retry->snap_mc || !retry->snap_aa || !retry->snap_pw))
       return (int)cudaErrorInvalidValue;
   }
-  if (end == first) return 0;
+  if (end == first && !(retry && retry->kube)) return 0;
   int64_t css = (int64_t)choice_ss;
   void* params[] = {(void*)args, (void*)&idx,      (void*)&gang,   (void*)&choices,
                     (void*)&css, (void*)&W,        (void*)&first,  (void*)&end,

@@ -94,6 +94,27 @@
 // barrier — the pass's count, the due pairs, PAD — is uniform over the
 // cluster.
 //
+// Under kube preemption (KsimRetryPhase.kube; the reference's boundary_retry
+// with kube=True, sim/boundary.py:547-678, which runs on the host there) (ii)
+// and (iii) are the kube pass (chunk_replay_retry.cu ksim_k6_kube_pass): rank
+// 0 drops the pending list's due entries and moves the buffer into a ring of
+// RB slots (kq); then, until the ring is empty (its count read by every rank
+// after a cluster barrier), its head pod through phase 1 and K2's body, and
+// where no node admits it the PostFilter (ksim.cuh ksim_post_filter, every
+// rank over its nodes, folded through DSMEM); then rank 0 pops the pod and,
+// with a node, commits the victims in order — used minus each one's requests
+// and its count planes rewound (ksim_release_cells), its pending entry
+// cancelled, its retried node or its choice-buffer column cleared (no
+// release fires for it), first_b marked, counted, and pushed onto the ring
+// while the unwalked and kept entries number fewer than RB, else counted
+// dropped — binds the pod (K3's body), records its node, boundary and first
+// bind and appends its pending release while the list holds fewer than RB
+// (the reference checks that cap at each bind); without one it keeps the pod
+// at the buffer's front; a cluster barrier. The ring and the compaction keep
+// the storage at RB: the rule bounds unwalked plus kept entries by RB, not
+// the entries a pass walks. A launch with no waves (first == end) runs the
+// trailing boundary at t = inf.
+//
 // What stays with the host, between launches (sim/torch_runtime.py
 // run_waves): the boundary's static K3 release (the reference's separate
 // _release_fn, sim/whatif.py:1742) and, at telemetry series on the retry
@@ -147,11 +168,14 @@ static __constant__ KsimReject ksim_k6_reject;
 // pending ids [S,RB] of the boundary, and on the fold path the chunk-start
 // planes (used [S,N,R], match_count / anti_active / pref_wsum [S,G,D]). The
 // retry pass charges its failed slots when ksim_k6_reject.reasons is set.
+// kube = 1 runs the kube pass over the tables in `k` (ksim.cuh KsimKube;
+// they travel here, not in KsimArgs, whose size sets the offsets of the
+// kernel's other parameters in every build).
 struct KsimRetryPhase {
   int b;
   float t_b;
   int pending;
-  int pad0;
+  int kube;
   float* used_out;
   int32_t* rcount_out;
   int32_t* pend_out;
@@ -159,6 +183,7 @@ struct KsimRetryPhase {
   float* snap_mc;
   float* snap_aa;
   float* snap_pw;
+  KsimKube k;
 };
 
 // The retry mode's boundary sequence (i)-(iii) and samples in scenario scen's

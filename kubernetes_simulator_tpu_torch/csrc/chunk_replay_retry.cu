@@ -13,6 +13,158 @@
 static __constant__ KsimRetryPhase ksim_k6_retry;
 static __constant__ KsimArgs ksim_k6_args;
 
+// The kube pass, (ii)-(iii) under kube preemption (chunk_replay.cuh's
+// header), in scenario scen's cluster; rank `lead` owns the nodes [lo, hi).
+// Rank 0 alone writes the pass's state (the ring, kst, the buffer, the
+// pending list, the victims' and the pods' records); every rank reads the
+// ring's count and head pod after a cluster barrier, so the loop's trip and
+// the PostFilter's PAD are uniform over the cluster. Out of line, as the
+// boundary is.
+__device__ __noinline__ void ksim_k6_kube_pass(int64_t scen, int C, bool lead, int lo, int hi,
+                                               KsimTerms* terms) {
+  __shared__ int32_t s_pod;  // the bound pod, for K3's body
+  const KsimArgs& a = ksim_k6_args;
+  const KsimRetryPhase& ph = ksim_k6_retry;
+  const KsimKube& k = ph.k;
+  const KsimLabels lab = ksim_label_rows(a, scen);
+  const float* match_count = a.match_count + scen * a.plane_ss;
+  const int RB = a.RB, R = a.R, b = ph.b;
+  const int64_t P = a.P;
+  int32_t* rbuf = a.rbuf + scen * RB;
+  int32_t* rch = a.rchoice + scen * RB;
+  int32_t* kq = k.kq + scen * RB;
+  int32_t* kst = k.kst + scen * 4;  // ring head, unwalked count, kept count, pending length
+  int32_t* pid = a.pend_id + scen * RB;
+  int32_t* pnode = a.pend_node + scen * RB;
+  int32_t* prelb = a.pend_relb + scen * RB;
+  if (lead) {
+    if (threadIdx.x == 0) {
+      int m = 0;  // the pending list without its due entries (released before the pass)
+      for (int j = 0; j < RB; ++j) {
+        if (pid[j] < 0 || prelb[j] <= b) continue;
+        pid[m] = pid[j];
+        pnode[m] = pnode[j];
+        prelb[m] = prelb[j];
+        ++m;
+      }
+      for (int j = m; j < RB; ++j) pid[j] = pnode[j] = prelb[j] = KSIM_PAD;
+      const int n = a.rcount[scen];
+      for (int j = 0; j < n; ++j) kq[j] = rbuf[j];
+      kst[0] = 0;
+      kst[1] = n;
+      kst[2] = 0;
+      kst[3] = m;
+    }
+    for (int j = threadIdx.x; j < RB; j += blockDim.x) rch[j] = KSIM_PAD;
+  }
+  ksim_cluster_barrier(C);
+  for (;;) {
+    if (kst[1] == 0) break;  // uniform: rank 0 wrote it before the barrier
+    const int h = kst[0];
+    const int p = kq[h];
+    ksim_filter_prologue(a, p, match_count, lab, terms);
+    __syncthreads();
+    for (int m = lo + threadIdx.x; m < hi; m += blockDim.x)
+      ksim_filter_score_node(a, p, scen, m, terms);
+    __syncthreads();
+    int node = ksim_normalize_select_body(a, p, scen, rch, -1, lo, hi);
+    int nv = 0;
+    if (node == KSIM_PAD)  // uniform over the cluster
+      node = ksim_post_filter(a, k, p, scen, b, lo, hi, lab, terms, &nv);
+    if (lead) {
+      __syncthreads();
+      if (threadIdx.x == 0) {
+        int head = h + 1 == RB ? 0 : h + 1, cnt = kst[1] - 1, kept = kst[2], plen = kst[3];
+        if (node < 0) {
+          rbuf[kept++] = p;
+        } else {
+          const int32_t* vic = k.kvic + scen * P + k.koff[scen * a.N + node];
+          float* used = a.used + scen * a.used_ss + (size_t)node * R;
+          float* planes[3] = {a.match_count + scen * a.plane_ss,
+                              a.anti_active + scen * a.plane_ss, a.pref_wsum + scen * a.plane_ss};
+          for (int i = 0; i < nv; ++i) {
+            const int v = vic[i];
+            for (int r = 0; r < R; ++r) used[r] = used[r] - a.requests[(size_t)v * R + r];
+            ksim_release_cells(a, lab.gdom, v, node, [&](int plane, int cell, int t) {
+              planes[plane][cell] = planes[plane][cell] - (float)t;
+            });
+            int m = 0;  // its pending entry cancelled
+            for (int j = 0; j < plen; ++j) {
+              if (pid[j] == v) continue;
+              pid[m] = pid[j];
+              pnode[m] = pnode[j];
+              prelb[m] = prelb[j];
+              ++m;
+            }
+            for (int j = m; j < plen; ++j) pid[j] = pnode[j] = prelb[j] = KSIM_PAD;
+            plen = m;
+            const int64_t iv = scen * P + v;
+            if (a.rnode[iv] >= 0) {
+              a.rnode[iv] = KSIM_PAD;
+              k.rrel[iv] = KSIM_NEVER;
+            } else {
+              k.choices[scen * k.choice_ss + k.col_of[v]] = KSIM_PAD;
+            }
+            if (k.first_b[iv] == KSIM_PAD) k.first_b[iv] = KSIM_FIRST_IN_WAVE;
+            k.preempt[scen] += 1;
+            if (cnt + kept < RB) {
+              const int tail = head + cnt;
+              kq[tail >= RB ? tail - RB : tail] = v;
+              ++cnt;
+            } else {
+              a.rdrop[scen] += 1;
+            }
+          }
+          rch[0] = node;
+        }
+        kst[0] = head;
+        kst[1] = cnt;
+        kst[2] = kept;
+        kst[3] = plen;
+        s_pod = p;  // a pushed victim may take the pod's ring slot
+      }
+      __syncthreads();
+      if (node >= 0) {
+        ksim_apply_body(a, scen, &s_pod, 0, nullptr, 0, a.rchoice, 1, RB, 1.f, 0, -1, 0);
+        __syncthreads();
+        if (threadIdx.x == 0) {
+          const int64_t ip = scen * P + p;
+          a.rnode[ip] = node;
+          a.rbind_b[ip] = b;
+          if (k.first_b[ip] == KSIM_PAD) k.first_b[ip] = b;
+          // its pending release: f32 boundary search, >= b + 1
+          const float t = ph.t_b + a.dur[p];
+          int lo2 = 0, hi2 = a.B;
+          while (lo2 < hi2) {
+            const int mid = (lo2 + hi2) >> 1;
+            if (a.tbt[mid] < t)
+              lo2 = mid + 1;
+            else
+              hi2 = mid;
+          }
+          int plen = kst[3], rrel = KSIM_NEVER;
+          if (lo2 < a.B && plen < RB) {
+            rrel = lo2 > b + 1 ? lo2 : b + 1;
+            pid[plen] = p;
+            pnode[plen] = node;
+            prelb[plen] = rrel;
+            kst[3] = plen + 1;
+          }
+          k.rrel[ip] = rrel;
+          rch[0] = KSIM_PAD;
+        }
+      }
+    }
+    ksim_cluster_barrier(C);
+  }
+  if (lead) {
+    const int kept = kst[2];
+    for (int j = kept + threadIdx.x; j < RB; j += blockDim.x) rbuf[j] = KSIM_PAD;
+    if (threadIdx.x == 0) a.rcount[scen] = kept;
+  }
+  ksim_cluster_barrier(C);
+}
+
 // The boundary sequence (i)-(iii) and the samples of scenario scen's
 // cluster (chunk_replay.cuh's header), before the chunk's first wave; rank
 // `lead` owns the nodes [lo, hi), `terms` is the kernel's term table. Not
@@ -31,6 +183,10 @@ __device__ __noinline__ void ksim_k6_boundary(int64_t scen, int C, bool lead, in
   if (ph.pending) {  // (i)
     if (lead) ksim_pending_release(a, scen, ph.b);
     ksim_cluster_barrier(C);
+  }
+  if (ph.kube) {  // (ii)-(iii) under kube preemption
+    ksim_k6_kube_pass(scen, C, lead, lo, hi, terms);
+    return;  // no samples: series is refused with kube
   }
   const int n = a.rcount[scen];  // (ii): uniform over the cluster
   const int32_t* rbuf = a.rbuf + scen * RB;

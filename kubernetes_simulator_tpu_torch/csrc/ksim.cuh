@@ -1749,3 +1749,343 @@ __device__ __forceinline__ void ksim_retry_bookkeeping(const KsimArgs& a, int64_
   for (int k = total_keep + threadIdx.x; k < RB; k += blockDim.x) rbuf[k] = KSIM_PAD;
   if (threadIdx.x == 0) a.rcount[scen] = total_keep;
 }
+
+// ---------------------------------------------------------------------------
+// Kube preemption: the PostFilter of one scenario's cluster
+// (kubernetes_simulator_tpu/framework/framework.py:190-292
+// _post_filter_preempt and :290 _fits_after, decision for decision). K6's
+// retry mode (chunk_replay_retry.cu) runs it in its kube pass for a pod that
+// no node admits, and commits its victims there.
+// ---------------------------------------------------------------------------
+
+// The kube tables of a retry-mode launch (ops/reference.py Retry's kube
+// fields; the scratch is ops/kernels.py Bound's): raw priorities, each pod's
+// choice-buffer column and each column's static release boundary, each
+// pod's pending-release boundary (rrel: KSIM_NEVER, holds its node) and
+// first-bind mark, the victim counter; the pass's queue ring kq [S,RB] and
+// its state kst [S,4] (head, unwalked count, kept count, pending length);
+// the PostFilter's scratch kvic [S,P] (each node's victims, grouped by node)
+// and koff / kcnt [S,N]; the choice buffer.
+struct KsimKube {
+  const int32_t* prio;
+  const int32_t* col_of;
+  const int32_t* col_relb;
+  int32_t* rrel;
+  int32_t* first_b;
+  int32_t* preempt;
+  int32_t* kq;
+  int32_t* kst;
+  int32_t* kvic;
+  int32_t* koff;
+  int32_t* kcnt;
+  int32_t* choices;
+  int64_t choice_ss;
+  int32_t trace_has_anti;
+  int32_t pad0;
+};
+
+#define KSIM_NEVER 0x7fffffff
+// first_b of a pod bound in its wave (or pre-bound) and evicted since.
+#define KSIM_FIRST_IN_WAVE (-2)
+
+// Pod q's node in scenario scen during boundary b's pass (PAD: not bound):
+// its retried node while its pending release has not fired, else its
+// choice-buffer column's node while the column's static release has not.
+__device__ __forceinline__ int ksim_bound_node(const KsimArgs& a, const KsimKube& k,
+                                               int64_t scen, int q, int b) {
+  const int64_t i = scen * (int64_t)a.P + q;
+  const int rn = a.rnode[i];
+  if (rn >= 0) return k.rrel[i] > b ? rn : KSIM_PAD;
+  const int c = k.col_of[q];
+  if (c < 0) return KSIM_PAD;
+  const int n = k.choices[scen * k.choice_ss + c];
+  return n >= 0 && k.col_relb[c] > b ? n : KSIM_PAD;
+}
+
+// Victims v[0, nv) of one node that match count group g (their
+// match_count contributions there), and their required anti terms on g.
+__device__ __forceinline__ float ksim_victims_match(const KsimArgs& a, const int32_t* v, int nv,
+                                                    int g) {
+  float d = 0.f;
+  for (int i = 0; i < nv; ++i) d += a.pmg[(size_t)v[i] * a.G + g] ? 1.f : 0.f;
+  return d;
+}
+
+__device__ __forceinline__ float ksim_victims_anti(const KsimArgs& a, const int32_t* v, int nv,
+                                                   int g) {
+  float d = 0.f;
+  for (int i = 0; i < nv; ++i)
+    for (int t = 0; t < a.AA; ++t) d += a.anti_req[v[i] * a.AA + t] == g ? 1.f : 0.f;
+  return d;
+}
+
+// _fits_after's verdict at node n once the victims v[0, nv) on n are
+// evicted, beyond the resource fit (checked by the caller at the trial
+// usage) and the static filters (taints, node affinity: unchanged): the
+// inter-pod and DoNotSchedule spread filters of pod p at the planes less the
+// victims, whose contributions all sit at n's own domains. So the trial is
+// deltas at those domains (the planes are never written): a count there
+// drops by the matching victims, the bootstrap total of a required-affinity
+// group by as many, a spread minimum becomes min(old minimum, the count at
+// n's domain less the delta). Integer-valued counts: exact.
+__device__ __forceinline__ bool ksim_fits_after(const KsimArgs& a, int p, int n,
+                                                const KsimLabels& lab, const float* mc,
+                                                const float* aa, const KsimTerms* terms,
+                                                const int32_t* v, int nv) {
+  const int N = a.N, G = a.G, D = a.D;
+  const int32_t* gdom = lab.gdom;
+  const uint8_t* pm = a.pmg + (size_t)p * G;
+  if (a.interpod) {
+    for (int t = 0; t < a.AR; ++t) {
+      const int g = a.aff_req[p * a.AR + t];
+      if (g < 0) continue;
+      const int dom = gdom[g * N + n];
+      const float d = dom >= 0 ? ksim_victims_match(a, v, nv, g) : 0.f;
+      const float cnt = dom >= 0 ? mc[g * D + dom] - d : 0.f;
+      const bool boot = terms->total[t] - d == 0.f && pm[g];
+      if (!((cnt >= 1.f && dom >= 0) || boot)) return false;
+    }
+    for (int t = 0; t < a.AA; ++t) {
+      const int g = a.anti_req[p * a.AA + t];
+      if (g < 0) continue;
+      const int dom = gdom[g * N + n];
+      if (dom < 0) continue;
+      if (mc[g * D + dom] - ksim_victims_match(a, v, nv, g) >= 1.f) return false;
+    }
+    for (int g = 0; g < G; ++g) {
+      if (!pm[g]) continue;
+      const int dom = gdom[g * N + n];
+      if (dom >= 0 && aa[g * D + dom] - ksim_victims_anti(a, v, nv, g) > 0.f) return false;
+    }
+  }
+  if (a.spread) {
+    for (int t = 0; t < a.SP; ++t) {
+      const int g = a.spread_g[p * a.SP + t];
+      if (g < 0 || !a.spread_dns[p * a.SP + t]) continue;
+      if (terms->nd[t] == 0) return false;
+      const int dom = gdom[g * N + n];
+      if (dom < 0) return false;
+      const float cnt = mc[g * D + dom] - ksim_victims_match(a, v, nv, g);
+      const float mn = fminf(terms->min[t], cnt);
+      const float self = pm[g] ? 1.f : 0.f;
+      if (!((cnt + self) - mn <= (float)a.spread_skew[p * a.SP + t])) return false;
+    }
+  }
+  return true;
+}
+
+// The victims pod p needs at node n of scenario scen from n's candidates
+// v[0, len) in (priority, pod index) order: nv in 1..len, or 0 where no
+// prefix makes it fit. state_free (no state-dependent filter on p): the
+// smallest prefix whose cumulative requests fit every resource,
+// (used + req) - cum <= alloc + 1e-6 with cum summed in f32 in victim order
+// (the reference's np.cumsum); each resource's fit only improves as cum
+// grows, so the smallest prefix is the largest of the per-resource ones.
+// Otherwise the reference's trial walk: evict v[0], v[1], ...; after each,
+// the resource fit at the trial usage (used minus the victims' requests one
+// by one, as unbind subtracts them), then the full chain's verdict at n
+// (ksim_fits_after) unless state_free.
+__device__ __forceinline__ int ksim_victims_needed(const KsimArgs& a, int p, int64_t scen, int n,
+                                                   const int32_t* v, int len, bool state_free,
+                                                   const KsimLabels& lab, const float* used_s,
+                                                   const float* mc, const float* aa,
+                                                   const KsimTerms* terms) {
+  const int R = a.R;
+  const float* req = a.requests + (size_t)p * R;
+  const float* used = used_s + (size_t)n * R;
+  const float* alloc = a.alloc + scen * a.alloc_ss + (size_t)n * R;
+  if (a.fit && state_free) {
+    int need = 0;
+    for (int r = 0; r < R; ++r) {
+      const float base = used[r] + req[r], lim = alloc[r] + 1e-6f;
+      float cum = 0.f;
+      int kr = -1;
+      for (int i = 0; i < len; ++i) {
+        cum = cum + a.requests[(size_t)v[i] * R + r];
+        if (base - cum <= lim) {
+          kr = i + 1;
+          break;
+        }
+      }
+      if (kr < 0) return 0;
+      need = max(need, kr);
+    }
+    return need;
+  }
+  for (int k = 0; k < len; ++k) {
+    if (a.fit) {
+      bool fit = true;
+      for (int r = 0; r < R; ++r) {
+        float u = used[r];
+        for (int i = 0; i <= k; ++i) u = u - a.requests[(size_t)v[i] * R + r];
+        if (!(u + req[r] <= alloc[r] + 1e-6f)) fit = false;
+      }
+      if (!fit) continue;
+    }
+    if (state_free || ksim_fits_after(a, p, n, lab, mc, aa, terms, v, k + 1)) return k + 1;
+  }
+  return 0;
+}
+
+// (key, node) lexicographic minimum.
+__device__ __forceinline__ void ksim_lower_key(unsigned long long& bk, int& bn,
+                                               unsigned long long k2, int n2) {
+  if (k2 < bk || (k2 == bk && n2 < bn)) {
+    bk = k2;
+    bn = n2;
+  }
+}
+
+// The PostFilter of pod p (whose choice over the feasible nodes was PAD) in
+// scenario scen's cluster at boundary b, this block owning the nodes
+// [lo, hi) (every block of the cluster calls it; terms holds p's term tables
+// at the current planes, from phase 1):
+//   (1) the block's nodes' victim counts: each bound non-gang pod of lower
+//       raw priority (ksim_bound_node), counted on its node with integer
+//       atomics, those on nodes below lo summed;
+//   (2) each node's offset into kvic (the victims below lo first, so every
+//       rank writes a disjoint part), then each victim scattered there and
+//       each node's list sorted by (priority, pod index), one thread a node;
+//   (3) each node of the block, one thread a node: the static filters (taints
+//       and node affinity, K1's chain's bits), then ksim_victims_needed;
+//       a candidate's key is (victims, highest victim priority), with the
+//       node, folded to the lexicographic minimum over the block (warp
+//       shuffles, shared memory) and the cluster (each rank pushes its pair
+//       into every peer's shared slots through DSMEM, then a cluster barrier,
+//       which every thread reaches).
+// Returns the chosen node (PAD: none) and *nv its victims, in every thread of
+// the cluster; the victims are kvic[scen][koff[node] + i], i < *nv, written
+// before the barrier. Integer arithmetic and exact float comparisons only.
+__device__ __forceinline__ int ksim_post_filter(const KsimArgs& a, const KsimKube& k, int p,
+                                                int64_t scen, int b, int lo, int hi,
+                                                const KsimLabels& lab, const KsimTerms* terms,
+                                                int* nv_out) {
+  __shared__ int s_below[KSIM_MAX_WARPS];
+  __shared__ unsigned long long s_key[KSIM_MAX_WARPS];
+  __shared__ int s_node[KSIM_MAX_WARPS];
+  __shared__ unsigned long long x_key[KSIM_MAX_CLUSTER];
+  __shared__ int x_node[KSIM_MAX_CLUSTER];
+  __shared__ unsigned long long s_best_key;
+  __shared__ int s_best_node;
+  cg::cluster_group cl = cg::this_cluster();
+  const int C = (int)cl.num_blocks();
+  const int P = a.P, N = a.N;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+  const int pp = k.prio[p];
+  int32_t* kcnt = k.kcnt + scen * N;
+  int32_t* koff = k.koff + scen * N;
+  int32_t* kvic = k.kvic + scen * (int64_t)P;
+  // (1)
+  for (int n = lo + threadIdx.x; n < hi; n += blockDim.x) kcnt[n] = 0;
+  __syncthreads();
+  int below = 0;
+  for (int q = threadIdx.x; q < P; q += blockDim.x) {
+    if (k.prio[q] >= pp || a.group_id[q] >= 0) continue;
+    const int n = ksim_bound_node(a, k, scen, q, b);
+    if (n < 0) continue;
+    if (n < lo)
+      ++below;
+    else if (n < hi)
+      atomicAdd(kcnt + n, 1);
+  }
+  for (int o = 16; o > 0; o >>= 1) below += __shfl_down_sync(0xffffffffu, below, o);
+  if (lane == 0) s_below[warp] = below;
+  __syncthreads();
+  // (2)
+  if (threadIdx.x == 0) {
+    int off = 0;
+    for (int w = 0; w < nw; ++w) off += s_below[w];
+    for (int n = lo; n < hi; ++n) {
+      koff[n] = off;
+      off += kcnt[n];
+      kcnt[n] = 0;
+    }
+  }
+  __syncthreads();
+  for (int q = threadIdx.x; q < P; q += blockDim.x) {
+    if (k.prio[q] >= pp || a.group_id[q] >= 0) continue;
+    const int n = ksim_bound_node(a, k, scen, q, b);
+    if (n < lo || n >= hi) continue;
+    kvic[koff[n] + atomicAdd(kcnt + n, 1)] = q;
+  }
+  __syncthreads();
+  // (3)
+  bool state_free = true;
+  if (a.interpod && ((a.AR > 0 && a.aff_req[p * a.AR] >= 0) ||
+                     (a.AA > 0 && a.anti_req[p * a.AA] >= 0) || k.trace_has_anti))
+    state_free = false;
+  if (a.spread)
+    for (int t = 0; t < a.SP; ++t)
+      if (a.spread_g[p * a.SP + t] >= 0 && a.spread_dns[p * a.SP + t]) state_free = false;
+  const float* used_s = a.used + scen * a.used_ss;
+  const float* mc = a.match_count + scen * a.plane_ss;
+  const float* aa = a.anti_active + scen * a.plane_ss;
+  const float* pw = a.pref_wsum + scen * a.plane_ss;
+  unsigned long long bk = ~0ull;
+  int bn = 0x7fffffff;
+  for (int n = lo + threadIdx.x; n < hi; n += blockDim.x) {
+    const int len = kcnt[n];
+    if (len == 0) continue;
+    int32_t* v = kvic + koff[n];
+    for (int i = 1; i < len; ++i) {
+      const int x = v[i], px = k.prio[x];
+      int j = i - 1;
+      while (j >= 0 && (k.prio[v[j]] > px || (k.prio[v[j]] == px && v[j] > x))) {
+        v[j + 1] = v[j];
+        --j;
+      }
+      v[j + 1] = x;
+    }
+    const KsimNodeEval e = ksim_eval_node<false>(a, p, scen, n, lab, used_s, mc, aa, pw, terms);
+    const unsigned stat = (1u << KSIM_PLUGIN_TAINT) | (1u << KSIM_PLUGIN_NA);
+    if ((e.pass & stat) != stat) continue;
+    const int nv = ksim_victims_needed(a, p, scen, n, v, len, state_free, lab, used_s, mc, aa,
+                                       terms);
+    if (nv == 0) continue;
+    const unsigned long long key =
+        ((unsigned long long)nv << 32) | (unsigned)(k.prio[v[nv - 1]] ^ (int)0x80000000);
+    ksim_lower_key(bk, bn, key, n);
+  }
+  for (int o = 16; o > 0; o >>= 1) {
+    const unsigned long long ok = __shfl_down_sync(0xffffffffu, bk, o);
+    const int on = __shfl_down_sync(0xffffffffu, bn, o);
+    ksim_lower_key(bk, bn, ok, on);
+  }
+  if (lane == 0) {
+    s_key[warp] = bk;
+    s_node[warp] = bn;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    bk = lane < nw ? s_key[lane] : ~0ull;
+    bn = lane < nw ? s_node[lane] : 0x7fffffff;
+    for (int o = 16; o > 0; o >>= 1) {
+      const unsigned long long ok = __shfl_down_sync(0xffffffffu, bk, o);
+      const int on = __shfl_down_sync(0xffffffffu, bn, o);
+      ksim_lower_key(bk, bn, ok, on);
+    }
+    bk = __shfl_sync(0xffffffffu, bk, 0);
+    bn = __shfl_sync(0xffffffffu, bn, 0);
+    if (C > 1 && threadIdx.x < C) {
+      *cl.map_shared_rank(x_key + cl.block_rank(), threadIdx.x) = bk;
+      *cl.map_shared_rank(x_node + cl.block_rank(), threadIdx.x) = bn;
+    }
+    if (C == 1 && threadIdx.x == 0) {
+      s_best_key = bk;
+      s_best_node = bn;
+    }
+  }
+  if (C > 1) {
+    cl.sync();
+    bk = x_key[0];
+    bn = x_node[0];
+    for (int r = 1; r < C; ++r) ksim_lower_key(bk, bn, x_key[r], x_node[r]);
+  } else {
+    __syncthreads();
+    bk = s_best_key;
+    bn = s_best_node;
+  }
+  *nv_out = bk == ~0ull ? 0 : (int)(bk >> 32);
+  return bk == ~0ull ? KSIM_PAD : bn;
+}

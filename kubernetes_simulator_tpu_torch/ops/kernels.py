@@ -98,7 +98,11 @@ boundary sequence — the pending release, the retry pass over each
 scenario's buffered pods with K1's, K2's and K3's bodies, K4's
 bookkeeping (``ksim.cuh`` ``ksim_retry_bookkeeping``, K4's own body) —
 in the chunk's launch before its waves; K1–K4 launch it on the per-slot
-route.
+route. Under kube preemption the retry mode runs the kube pass instead
+(``chunk_replay(retry=)`` on Retry tables with ``prio``; the PostFilter is
+``ksim.cuh`` ``ksim_post_filter``; its tables reach the kernel in
+``KsimRetryPhase``'s ``KsimKube``, the scratch is :class:`Bound`'s); the
+per-slot route refuses kube.
 
 In a what-if batch whose scenarios relabel nodes (``set_label``; row B11,
 the dyn sections of ops/tpu3.py:944 make_wave_step3 and the dyn release
@@ -334,16 +338,31 @@ def release_tile(K: int, S: int = 1, sms: int = 1) -> int:
     return P
 
 
+class KsimKube(ctypes.Structure):
+    """Mirror of ``struct KsimKube`` in csrc/ksim.cuh (K6's retry mode under
+    kube preemption: the Retry's kube tables, Bound's scratch and the choice
+    buffer)."""
+
+    _fields_ = (
+        [(name, ctypes.c_void_p) for name in (
+            "prio", "col_of", "col_relb", "rrel", "first_b", "preempt", "kq", "kst", "kvic",
+            "koff", "kcnt", "choices")]
+        + [("choice_ss", ctypes.c_int64), ("trace_has_anti", ctypes.c_int32),
+           ("pad0", ctypes.c_int32)]
+    )
+
+
 class KsimRetryPhase(ctypes.Structure):
     """Mirror of ``struct KsimRetryPhase`` in csrc/chunk_replay.cuh (K6's
-    retry mode: the boundary and its series samples; the C entry checks
-    sizeof())."""
+    retry mode: the boundary, its series samples and, with ``kube``, the
+    kube pass's tables; the C entry checks sizeof())."""
 
     _fields_ = (
         [("b", ctypes.c_int32), ("t_b", ctypes.c_float), ("pending", ctypes.c_int32),
-         ("pad0", ctypes.c_int32)]
+         ("kube", ctypes.c_int32)]
         + [(name, ctypes.c_void_p) for name in (
             "used_out", "rcount_out", "pend_out", "snap_used", "snap_mc", "snap_aa", "snap_pw")]
+        + [("k", KsimKube)]
     )
 
 
@@ -651,6 +670,17 @@ def pack_args(tb: ref.Tables, res_w: torch.Tensor, rel: torch.Tensor) -> KsimArg
             tensors[name] = t
         if rt.tbt.shape[0] < 1:
             raise ValueError("retry.tbt: no finite boundary")
+        if rt.prio is not None:
+            L = rt.col_relb.shape[0]
+            for name, t, shape in (
+                ("prio", rt.prio, (P,)), ("col_of", rt.col_of, (P,)), ("col_relb", rt.col_relb, (L,)),
+                ("rrel", rt.rrel, (S, P)), ("first_b", rt.first_b, (S, P)),
+                ("preempt", rt.preempt, (S,)),
+            ):
+                if tuple(t.shape) != shape or t.dtype != torch.int32:
+                    raise ValueError(f"retry.{name}: expected int32 {shape}, got {t.dtype} "
+                                     f"{tuple(t.shape)}")
+                tensors[f"kube.{name}"] = t
     sh = tb.shards
     if sh is not None:
         if pre is not None or rt is not None:
@@ -683,7 +713,8 @@ def pack_args(tb: ref.Tables, res_w: torch.Tensor, rel: torch.Tensor) -> KsimArg
             raise ValueError(f"{name}: kernels take contiguous CUDA tensors on one device")
     a = KsimArgs()
     for name, t in tensors.items():
-        setattr(a, name, t.data_ptr())
+        if not name.startswith("kube."):  # K6's retry mode takes them (KsimKube)
+            setattr(a, name, t.data_ptr())
     a.res_w = res_w.data_ptr()
     if rel.shape != s.used.shape or rel.dtype != torch.float32 or rel.device != dev:
         raise ValueError("rel: an f32 tensor of the state's used shape on its device")
@@ -743,6 +774,7 @@ class Bound:
             self._rel = torch.zeros_like(tb.state.used)
             self.args = pack_args(tb, self._res_w, self._rel)
             self._dplane: Optional[torch.Tensor] = None
+            self._kube: Optional[Dict[str, torch.Tensor]] = None
             self._sms: Optional[int] = None
             self._args_ptr = ctypes.addressof(self.args)
             if tb.reject is not None:
@@ -769,6 +801,28 @@ class Bound:
         tiles = -(-K // P)
         return (P, torch.empty(S * tiles * P, dtype=torch.int32, device=dev),
                 torch.empty(S * tiles * N * 2, dtype=torch.int16, device=dev), self._dplane)
+
+    def kube_phase(self, choices: torch.Tensor) -> KsimKube:
+        """The kube tables of K6's retry mode on these tables (their Retry's
+        kube fields) with its scratch, allocated at the first call and kept
+        with the Bound: the pass's ring ``kq [S, RB]`` and state ``kst [S,
+        4]``, the PostFilter's ``kvic [S, P]``, ``koff`` / ``kcnt [S, N]``
+        (each call rewrites what it reads)."""
+        tb = self.tables
+        rt = tb.retry
+        S, N = tb.state.used.shape[:2]
+        RB, P = rt.rbuf.shape[1], rt.rnode.shape[1]
+        if self._kube is None:
+            z = lambda *shape: torch.zeros(shape, dtype=torch.int32, device=rt.rbuf.device)
+            self._kube = dict(kq=z(S, RB), kst=z(S, 4), kvic=z(S, P), koff=z(S, N), kcnt=z(S, N))
+        k = KsimKube()
+        for name in ("prio", "col_of", "col_relb", "rrel", "first_b", "preempt"):
+            setattr(k, name, getattr(rt, name).data_ptr())
+        for name, t in self._kube.items():
+            setattr(k, name, t.data_ptr())
+        k.choices, k.choice_ss = choices.data_ptr(), choices.shape[1]
+        k.trace_has_anti = int(bool(rt.trace_has_anti))
+        return k
 
     def plan(self, name: str) -> ClusterPlan:
         """The launch geometry of the select ``name`` on these tables
@@ -1024,6 +1078,9 @@ def _check_retry_phase(b: Bound, retry, append: bool, reject, samples) -> None:
     if tb.preempt is not None:
         raise ValueError("retry_buffer is not supported with tier preemption (the reference "
                          "refuses it, sim/jax_runtime.py:1041-1043)")
+    if tb.retry.prio is not None and (reject is not None or samples is not None):
+        raise ValueError("kube preemption runs without series telemetry: its attribution and "
+                         "samples are ROADMAP queue A item 6c")
     bnd, _, _ = retry
     if int(bnd) < 1 or not append:
         raise ValueError("a retry boundary is a chunk's boundary b > 0, with failure appends")
@@ -1077,10 +1134,16 @@ def chunk_replay(b: Bound, idx: torch.Tensor, gang: torch.Tensor, choices: torch
     telemetry series), the boundary's samples copied after it. There
     ``reject`` charges the retry pass's failed slots (the waves' are the
     chunk fold's, K5). Refused: tier preemption with the retry buffer (as
-    the reference refuses it), node shards (ROADMAP A6a).
+    the reference refuses it), node shards (ROADMAP A6a). Under kube
+    preemption (Retry tables with ``prio``) the pass is the kube pass
+    (csrc/chunk_replay.cuh): the PostFilter for a pod no node admits, its
+    victims' rewind and requeue, the pending appends at bind time; a launch
+    with no waves (``first == end``) is the trailing boundary; no ``reject``
+    or ``samples`` (series under kube is ROADMAP A6c).
 
     Each launch counts in ``launches``, an attributed one also in
-    ``attributed``, a retry-mode one in ``retry``."""
+    ``attributed``, a retry-mode one in ``retry``, a kube-pass one also in
+    ``kube``."""
     _no_shards(b, "chunk_replay")
     if reject is not None:
         if b.tables.preempt is not None:
@@ -1097,7 +1160,8 @@ def chunk_replay(b: Bound, idx: torch.Tensor, gang: torch.Tensor, choices: torch
         raise ValueError("a boundary goes with tier preemption, and only with it")
     if append and b.tables.retry is None:
         raise ValueError("a failure append needs retry tables")
-    if end == first:
+    kube = retry is not None and b.tables.retry.prio is not None
+    if end == first and not kube:  # under kube: the trailing boundary
         return
     plan = chunk_replay.plan = b.plan("chunk_replay")
     rj = (reject.reasons.data_ptr(), reject.attempts.data_ptr(), reject.attributed.data_ptr(),
@@ -1109,8 +1173,10 @@ def chunk_replay(b: Bound, idx: torch.Tensor, gang: torch.Tensor, choices: torch
         ptr = lambda t: t.data_ptr() if t is not None else None
         sm = samples or ref.RetrySamples(None, None, None, None)
         snap = sm.snap or (None,) * 4
-        phase = KsimRetryPhase(int(bnd), float(t_b), int(bool(pending)), 0, ptr(sm.used),
+        phase = KsimRetryPhase(int(bnd), float(t_b), int(bool(pending)), int(kube), ptr(sm.used),
                                ptr(sm.rcount), ptr(sm.pend), *map(ptr, snap))
+        if kube:
+            phase.k = b.kube_phase(choices)
     _check(_libs["chunk_replay"](
         b._args_ptr, idx.data_ptr(), gang.data_ptr(), choices.data_ptr(), choices.shape[1],
         int(W), int(first), int(end), -1 if boundary is None else int(boundary),
@@ -1120,6 +1186,7 @@ def chunk_replay(b: Bound, idx: torch.Tensor, gang: torch.Tensor, choices: torch
     chunk_replay.launches += 1
     if retry is not None:
         chunk_replay.retry += 1
+        chunk_replay.kube += int(kube)
     elif reject is not None:
         chunk_replay.attributed += 1
 
@@ -1272,7 +1339,7 @@ def reset_launch_counts() -> None:
         w.launches = 0
     for w in MODE_WRAPPERS:
         w.modes = dict(bind=0, rollback=0, release=0)
-    chunk_replay.attributed = chunk_replay.retry = 0
+    chunk_replay.attributed = chunk_replay.retry = chunk_replay.kube = 0
 
 
 def launch_counts() -> Dict[str, int]:
@@ -1280,7 +1347,8 @@ def launch_counts() -> Dict[str, int]:
     (``apply_placements_bind``, ``_rollback``, ``_release``, the same for
     ``shard_apply``; each wrapper's sum to its count). K6's attributed
     launches, also in ``chunk_replay``, are ``chunk_replay.attributed``, its
-    retry-mode launches ``chunk_replay.retry``."""
+    retry-mode launches ``chunk_replay.retry`` (of which kube passes
+    ``chunk_replay.kube``)."""
     out = {w.__name__: w.launches for w in WRAPPERS}
     for w in MODE_WRAPPERS:
         out.update({f"{w.__name__}_{k}": n for k, n in w.modes.items()})

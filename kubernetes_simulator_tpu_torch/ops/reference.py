@@ -39,7 +39,11 @@ take one pod per scenario (the retry pass over the buffer), K3 also
 appends a failed non-gang pod to its scenario's buffer and releases the
 due entries of the pending list, and a fourth twin,
 :func:`retry_boundary` (K4, ``csrc/retry_boundary.cu``), does the
-boundary's bookkeeping.
+boundary's bookkeeping. Under kube preemption (a Retry with ``prio``) the
+pass runs until its queue is empty, a pod that still fails runs
+:func:`post_filter` (the twin of K6's ``ksim_post_filter``), and the
+victims' rewind, cancellations and requeue, the binds' records and the
+pending appends happen in the pass, in bind order (:func:`retry_pass`).
 
 Every table carries a leading scenario dimension S (the what-if batch of
 ``sim/whatif.py``; the single-scenario replay is S = 1): the state
@@ -252,21 +256,54 @@ class Retry(NamedTuple):
     pend_relb: torch.Tensor  # [S, RB] i32 the boundary at which each releases
     rnode: torch.Tensor  # [S, P] i32 each pod's node from the retry pass (PAD: none)
     rbind_b: torch.Tensor  # [S, P] i32 the boundary of that bind
+    # Kube preemption (sim/boundary.py:547-678 with kube=True; None: off).
+    # A pod's current node is its retried node while its pending release
+    # has not come (rrel > b), else its choice-buffer column's node until
+    # that column's static release (col_relb > b).
+    prio: Optional[torch.Tensor] = None  # [P] i32 raw priority (not the tier index)
+    col_of: Optional[torch.Tensor] = None  # [P] i32 each pod's choice-buffer column (PAD: none)
+    col_relb: Optional[torch.Tensor] = None  # [L] i32 each column's static release boundary
+    #: [S, P] i32 the boundary at which a retried pod's pending release
+    #: fires (NEVER: it holds its node to the end)
+    rrel: Optional[torch.Tensor] = None
+    #: [S, P] i32 each pod's first bind: PAD none or in its wave (or
+    #: pre-bound) and never evicted, -2 in its wave (or pre-bound) and
+    #: evicted since, b >= 0 through the retry pass at boundary b
+    first_b: Optional[torch.Tensor] = None
+    preempt: Optional[torch.Tensor] = None  # [S] i32 victims so far
+    #: any required anti-affinity in the trace (the PostFilter's fast path
+    #: is off for every pod)
+    trace_has_anti: bool = False
 
 
-def new_retry(RB: int, duration: np.ndarray, tbt: np.ndarray, S: int, device) -> Retry:
+#: first_b of a pod bound in its wave (or pre-bound) and evicted since.
+FIRST_IN_WAVE = -2
+
+
+def new_retry(RB: int, duration: np.ndarray, tbt: np.ndarray, S: int, device,
+              kube: Optional[dict] = None) -> Retry:
     """An empty Retry of S scenarios with a buffer of RB slots on
-    ``device``."""
+    ``device``; ``kube`` (``prio [P]``, ``col_of [P]``, ``col_relb [L]``
+    host arrays and ``trace_has_anti``) adds kube preemption's tables."""
     P = int(np.asarray(duration).shape[0])
     i32 = torch.int32
     pad = lambda *shape: torch.full(shape, PAD, dtype=i32, device=device)
-    return Retry(
+    rt = Retry(
         dur=torch.as_tensor(np.asarray(duration, np.float32), device=device),
         tbt=torch.as_tensor(np.ascontiguousarray(tbt, np.float32), device=device),
         rbuf=pad(S, RB), rcount=torch.zeros(S, dtype=i32, device=device),
         rdrop=torch.zeros(S, dtype=i32, device=device), rchoice=pad(S, RB),
         pend_id=pad(S, RB), pend_node=pad(S, RB), pend_relb=pad(S, RB),
         rnode=pad(S, P), rbind_b=pad(S, P),
+    )
+    if kube is None:
+        return rt
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a, np.int32), device=device)
+    return rt._replace(
+        prio=t(kube["prio"]), col_of=t(kube["col_of"]), col_relb=t(kube["col_relb"]),
+        rrel=torch.full((S, P), NEVER, dtype=i32, device=device), first_b=pad(S, P),
+        preempt=torch.zeros(S, dtype=i32, device=device),
+        trace_has_anti=bool(kube["trace_has_anti"]),
     )
 
 
@@ -277,10 +314,11 @@ class Reject(NamedTuple):
     TelemetryCollector), in ``spec_plugin_names`` order. None in a Tables
     when attribution is off.
 
-    An episode ends with a bind or an eviction. The port runs neither kube
-    preemption nor chaos yet, so an episode ends only with a bind, after
-    which the pod is never attempted again: ``attributed`` needs no
-    clearing. Kube preemption (queue A item 6a) will clear it for victims."""
+    An episode ends with a bind or an eviction. The port attributes no run
+    with kube preemption (series and timeline under kube are refused, queue
+    A item 6c) or chaos, so an episode ends only with a bind, after which
+    the pod is never attempted again: ``attributed`` needs no clearing.
+    Kube's attribution (6c) will clear it for victims."""
 
     reasons: torch.Tensor  # [S, K] i32 per unschedulable episode
     attempts: torch.Tensor  # [S, K] i32 per failed attempt
@@ -1226,7 +1264,7 @@ def apply_placements(
 
 
 def retry_pass(tb: Tables, bnd: int, t_b: float, pending: bool = True,
-               reject: Optional[Reject] = None) -> None:
+               reject: Optional[Reject] = None, choices: Optional[torch.Tensor] = None) -> None:
     """Boundary ``bnd``'s retry sequence in every scenario, the twin of K6's
     retry mode before its waves (sim/whatif.py:1433-1494, in its order): the
     pending list's due entries released (unless ``pending`` is False), the
@@ -1235,12 +1273,19 @@ def retry_pass(tb: Tables, bnd: int, t_b: float, pending: bool = True,
     ``rchoice``), with ``reject`` :func:`first_reject` of the slot, and the
     bind of :func:`apply_placements`; a scenario whose buffer is shorter
     does nothing in the later slots and its ``rchoice`` there is PAD — then
-    :func:`retry_boundary` at the f32 start time ``t_b``."""
+    :func:`retry_boundary` at the f32 start time ``t_b``. Under kube
+    preemption (``tb.retry.prio``; ``choices`` the choice buffer) the pass
+    is :func:`kube_pass`."""
     rt = tb.retry
     RB = rt.rbuf.shape[1]
     pos_rb = torch.arange(RB, dtype=torch.int32, device=rt.rbuf.device)
     if pending:
         apply_placements(tb, rt.pend_id, pos_rb, rt.pend_node, -1.0, due=(rt.pend_relb, bnd))
+    if rt.prio is not None:
+        if reject is not None:
+            raise ValueError("kube preemption attributes nothing (queue A item 6c)")
+        kube_pass(tb, choices, bnd, t_b)
+        return
     rtb = tb._replace(reject=reject) if reject is not None else None
     for k in range(int(rt.rcount.max()) if rt.rcount.numel() else 0):
         pod_of_s = rt.rbuf[:, k]
@@ -1251,6 +1296,218 @@ def retry_pass(tb: Tables, bnd: int, t_b: float, pending: bool = True,
         apply_placements(tb, rt.rbuf[:, k : k + 1], pos_rb[k : k + 1], rt.rchoice, 1.0)
     rt.rchoice.masked_fill_(pos_rb[None, :] >= rt.rcount[:, None], PAD)
     retry_boundary(tb, bnd, t_b)
+
+
+# ---------------------------------------------------------------------------
+# Kube preemption: the PostFilter (the twin of K6's ksim_post_filter) and the
+# retry pass that runs it (sim/boundary.py:547-678 with kube=True)
+# ---------------------------------------------------------------------------
+
+
+def bound_nodes(tb: Tables, choices: torch.Tensor, s: int, b: int) -> torch.Tensor:
+    """[P] i64 each pod's current node in scenario s during boundary b's
+    pass (PAD: not bound): its retried node while its pending release has
+    not fired (``rrel > b``), else its choice-buffer column's node while the
+    column's static release has not (``col_relb > b``)."""
+    rt = tb.retry
+    col = rt.col_of.long()
+    has = col >= 0
+    ch = torch.where(has, choices[s, col.clamp(min=0)], torch.full_like(rt.col_of, PAD))
+    relb = torch.where(has, rt.col_relb[col.clamp(min=0)], torch.full_like(rt.col_of, NEVER))
+    rn = rt.rnode[s]
+    cur = torch.where((rn < 0) & (ch >= 0) & (relb > b), ch, torch.full_like(ch, PAD))
+    cur = torch.where((rn >= 0) & (rt.rrel[s] > b), rn, cur)
+    return cur.long()
+
+
+def _unbind_planes(tb: Tables, s: int, v: int, n: int) -> None:
+    """Pod v leaves node n in scenario s (models/state.py unbind): ``used``
+    minus its requests, its count-plane contributions rewound."""
+    st = tb.state
+    st.used[s, n] = st.used[s, n] - tb.pods.requests[v]
+    cl = tb.cluster
+    row = cl.gdom[0] if cl.gdom.shape[0] == 1 else cl.gdom[int(cl.lrow[s])]
+    dev = st.used.device
+    _apply_planes(tb, torch.tensor([s], device=dev), torch.tensor([v], device=dev),
+                  row[:, n : n + 1], -1.0)
+
+
+def post_filter(tb: Tables, choices: torch.Tensor, s: int, p: int, b: int
+                ) -> Optional[Tuple[int, list]]:
+    """Plain twin of K6's ``ksim_post_filter`` for pod ``p`` in scenario s
+    at boundary b (framework/framework.py ``_post_filter_preempt``, decision
+    for decision): ``(node, victims)`` or None. Victims are the bound
+    non-gang pods of lower raw priority, each node's in (priority, pod
+    index) order; the static mask is every Filter but NodeResourcesFit,
+    InterPodAffinity and PodTopologySpread at the current planes; with no
+    state-dependent filter on the pod (``state_free``) the smallest fitting
+    prefix by the reference's f32 cumsum (``used + req - cum <= alloc +
+    1e-6``), else victims evicted one by one from a copy of the planes, each
+    step followed by the resource check and the full Filter chain at the
+    node; candidates ranked by (victims, max victim priority, node)."""
+    rt, pods, k = tb.retry, tb.pods, tb.consts
+    cur = bound_nodes(tb, choices, s, b)
+    prio = rt.prio.long()
+    pp = int(prio[p])
+    lower = torch.nonzero((cur >= 0) & (prio < pp) & (pods.group_id < 0)).flatten()
+    if lower.numel() == 0:
+        return None
+    sub = _scenario_subset(tb, torch.tensor([s], device=cur.device))
+    cl = sub.cluster
+    static = torch.ones(sub.state.used.shape[1], dtype=torch.bool, device=cur.device)
+    if k.taints:
+        static = static & taint_mask(cl, pods, p).reshape(-1)
+    if k.node_affinity:
+        static = static & node_affinity_mask(cl, pods, p).reshape(-1)
+    req = pods.requests[p]
+    alloc = _stacked(cl.allocatable)[0]
+    used = sub.state.used[0]
+    state_free = not (
+        (k.interpod and (int(pods.aff_req[p, 0]) >= 0 or int(pods.anti_req[p, 0]) >= 0
+                         or rt.trace_has_anti))
+        or (k.spread and bool(((pods.spread_g[p] >= 0) & pods.spread_dns[p]).any()))
+    )
+    host_cur = cur[lower].tolist()
+    host_prio = prio[lower].tolist()
+    host_ids = lower.tolist()
+    by_node: dict = {}
+    for q, n, pr in sorted(zip(host_ids, host_cur, host_prio), key=lambda x: (x[1], x[2], x[0])):
+        by_node.setdefault(n, []).append(q)
+    eps = torch.tensor(1e-6, dtype=torch.float32, device=cur.device)
+    best = None
+    for n in sorted(by_node):
+        if not bool(static[n]):
+            continue
+        order = by_node[n]
+        victims: list = []
+        fits = False
+        if k.fit and state_free:
+            cum = torch.zeros_like(req)
+            for i, v in enumerate(order):
+                cum = cum + pods.requests[v]
+                if bool(torch.all((used[n] + req) - cum <= alloc[n] + eps)):
+                    fits, victims = True, order[: i + 1]
+                    break
+        else:
+            trial = sub._replace(state=DevState(*(x.clone() for x in sub.state)))
+            for v in order:
+                _unbind_planes(trial, 0, v, n)
+                victims.append(v)
+                if k.fit and not bool(torch.all(trial.state.used[0, n] + req <= alloc[n] + eps)):
+                    continue
+                if state_free or all(bool(m.reshape(-1)[n]) for m in filter_masks(trial, p)):
+                    fits = True
+                    break
+        if not fits:
+            continue
+        key = (len(victims), int(prio[victims[-1]]), n)
+        if best is None or key < best[0]:
+            best = (key, list(victims))
+    if best is None:
+        return None
+    return best[0][2], best[1]
+
+
+def kube_pass(tb: Tables, choices: torch.Tensor, bnd: int, t_b: float) -> None:
+    """Boundary ``bnd``'s retry pass under kube preemption in every
+    scenario, the twin of K6's retry mode there (sim/boundary.py:547-678,
+    ``boundary_retry`` with kube=True): the pending list drops its due
+    entries (released before the pass); each scenario walks its FIFO
+    ``rbuf[:rcount]`` until its queue is empty, step by step over the
+    scenarios at once through :func:`filter_score` and
+    :func:`normalize_select` (one pod a scenario, the choice into
+    ``rchoice[:, 0]``); a scenario whose pod no node admits runs
+    :func:`post_filter`. With a node, each victim in order: its node's
+    ``used`` minus its requests and its count planes rewound, its pending
+    entry cancelled, its retried node (and ``rrel``) or its choice-buffer
+    column cleared (so no release fires for it), its ``first_b`` marked
+    when it was first bound in its wave, ``preempt`` counted, and it joins
+    the queue while the unwalked and kept entries number fewer than RB
+    (else ``rdrop``); then the pod binds (:func:`apply_placements`),
+    records ``rnode``, ``rbind_b``, its first bind, and a pending release
+    at ``max(searchsorted_left(tbt, f32(t_b) + f32(duration)), b + 1)``
+    where that boundary exists and the list holds fewer than RB entries
+    (``rrel``; else NEVER). A pod that fails is kept, in walk order. After
+    the walk ``rbuf`` holds the kept pods (``rcount``) and ``rchoice`` is
+    PAD."""
+    rt = tb.retry
+    S, RB = rt.rbuf.shape
+    dev = rt.rbuf.device
+    i32 = torch.int32
+    B = rt.tbt.shape[0]
+    tb32 = rt.tbt.cpu().numpy()
+    pend = []
+    for s in range(S):
+        ids, nodes, relb = (x[s].tolist() for x in (rt.pend_id, rt.pend_node, rt.pend_relb))
+        pend.append([[q, n, r] for q, n, r in zip(ids, nodes, relb) if q >= 0 and r > bnd])
+    queues = [rt.rbuf[s, : int(rt.rcount[s])].tolist() for s in range(S)]
+    head = [0] * S
+    kept: list = [[] for _ in range(S)]
+    pos0 = torch.zeros(1, dtype=i32, device=dev)
+    rt.rchoice.fill_(PAD)
+    while any(head[s] < len(queues[s]) for s in range(S)):
+        pod = [queues[s][head[s]] if head[s] < len(queues[s]) else PAD for s in range(S)]
+        pod_of_s = torch.tensor(pod, dtype=i32, device=dev)
+        # a scenario whose queue is empty leaves its scratch rows as they
+        # are (its cluster has left the loop)
+        idle = pod_of_s < 0
+        kept_rows = [x[idle].clone() for x in tb.scratch] if bool(idle.any()) else None
+        filter_score(tb, PAD, pod_of_s)
+        if kept_rows is not None:
+            for x, y in zip(tb.scratch, kept_rows):
+                x[idle] = y
+        normalize_select(tb, PAD, rt.rchoice, 0, -1, pod_of_s)
+        node = rt.rchoice[:, 0].tolist()
+        for s in range(S):
+            p = pod[s]
+            if p < 0:
+                continue
+            head[s] += 1
+            if node[s] < 0:
+                hit = post_filter(tb, choices, s, p, bnd)
+                if hit is None:
+                    kept[s].append(p)
+                    continue
+                node[s], victims = hit
+                for v in victims:
+                    _unbind_planes(tb, s, v, node[s])
+                    rt.preempt[s] += 1
+                    pend[s] = [e for e in pend[s] if e[0] != v]
+                    if int(rt.rnode[s, v]) >= 0:
+                        rt.rnode[s, v] = PAD
+                        rt.rrel[s, v] = NEVER
+                    else:
+                        choices[s, int(rt.col_of[v])] = PAD
+                    if int(rt.first_b[s, v]) == PAD:
+                        rt.first_b[s, v] = FIRST_IN_WAVE
+                    if (len(queues[s]) - head[s]) + len(kept[s]) < RB:
+                        queues[s].append(v)
+                    else:
+                        rt.rdrop[s] += 1
+        rt.rchoice[:, 0] = torch.tensor(node, dtype=i32, device=dev)
+        apply_placements(tb, pod_of_s[:, None], pos0, rt.rchoice, 1.0)
+        for s in range(S):
+            p, n = pod[s], node[s]
+            if p < 0 or n < 0:
+                continue
+            rt.rnode[s, p] = n
+            rt.rbind_b[s, p] = bnd
+            if int(rt.first_b[s, p]) == PAD:
+                rt.first_b[s, p] = bnd
+            rrel = NEVER
+            v = np.float32(t_b) + np.float32(float(rt.dur[p]))
+            rb = int(np.searchsorted(tb32, v, side="left"))
+            if rb < B and len(pend[s]) < RB:
+                rrel = max(rb, bnd + 1)
+                pend[s].append([p, n, rrel])
+            rt.rrel[s, p] = rrel
+        rt.rchoice.fill_(PAD)
+    for s in range(S):
+        e = pend[s] + [[PAD, PAD, PAD]] * (RB - len(pend[s]))
+        for x, col in zip((rt.pend_id, rt.pend_node, rt.pend_relb), zip(*e)):
+            x[s] = torch.tensor(col, dtype=i32, device=dev)
+        rt.rbuf[s] = torch.tensor(kept[s] + [PAD] * (RB - len(kept[s])), dtype=i32, device=dev)
+        rt.rcount[s] = len(kept[s])
 
 
 def take_samples(tb: Tables, samples: RetrySamples) -> None:
@@ -1285,7 +1542,7 @@ def chunk_replay(tb: Tables, idx: torch.Tensor, gang: torch.Tensor, choices: tor
     and the waves are not charged: the chunk fold charges them), then
     ``samples`` (:class:`RetrySamples`) are copied."""
     if retry is not None:
-        retry_pass(tb, *retry, reject=reject)
+        retry_pass(tb, *retry, reject=reject, choices=choices)
         reject = None
         if samples is not None:
             take_samples(tb, samples)

@@ -3,9 +3,9 @@
 Counterpart: ``kubernetes_simulator_tpu/sim/greedy.py`` (``greedy_replay``
 :106, ``_try_tier_preempt`` :56; ``priority_tiers`` and
 ``normalize_preemption`` are :mod:`.tiers`' copies) and the part of
-``kubernetes_simulator_tpu/sim/boundary.py`` ``BoundaryOps`` (:77-546)
+``kubernetes_simulator_tpu/sim/boundary.py`` ``BoundaryOps`` (:77-678)
 that it drives: the static and pending completion releases and the
-bounded retry pass at each chunk boundary.
+bounded retry (and kube preemption) pass at each chunk boundary.
 
 The algorithm is the one the device engines run — arrival-order waves,
 sequential slots with speculative binds, wave-boundary gang
@@ -24,9 +24,17 @@ pods become unplaced and are not re-queued, and their affinity/spread
 counts are not rewound ("phantom counts"). At most one preemption fires
 per wave; gang pods neither preempt nor get evicted.
 
-``preemption="kube"`` (the minimal-victims PostFilter at chunk
-boundaries) is refused by name: it needs the PostFilter, which is not
-ported yet (queue A items 6 and 13).
+``preemption="kube"`` is kube's minimal-victims PostFilter at chunk
+boundaries, through the retry buffer: a failed non-gang pod retries at
+each boundary and, still failing, preempts (fewest victims, lowest max
+victim priority, victims lowest priority first, only those this pod
+needs, a full count rewind). Victims cancel their pending release, are
+never released statically, and re-enter the same pass's queue while it
+holds fewer than ``retry_buffer`` entries with the kept ones (else they
+are counted in ``retry_dropped``). After the last chunk a trailing
+boundary at ``t = inf`` gives the last chunk's failures their attempt.
+Requires ``completions_chunk_waves`` and ``retry_buffer > 0``. In-wave
+attempts never preempt.
 """
 
 from __future__ import annotations
@@ -88,14 +96,21 @@ def _try_tier_preempt(fw, ec, ep, st, p, pod_tier):
 
 class _Boundary:
     """Host bookkeeping and the boundary passes of the greedy anchor
-    (``BoundaryOps`` without the kube PostFilter, the device-chunk fold,
-    the lazy plane log, chaos evictions, checkpoints and telemetry): the
-    live state, assignments, counters, the FIFO retry buffer and the
-    pending releases of retry-placed pods."""
+    (``BoundaryOps`` without the device-chunk fold, the lazy plane log,
+    chaos evictions, checkpoints and telemetry): the live state,
+    assignments, counters, the FIFO retry buffer, the pending releases of
+    retry-placed pods and, under ``kube``, the PostFilter's victims."""
 
     def __init__(self, ec: EncodedCluster, ep: EncodedPods, fw: SchedulerFramework,
-                 waves: WaveBatch, wave_width: int, chunk_waves: int, retry_buffer: int = 0):
+                 waves: WaveBatch, wave_width: int, chunk_waves: int, retry_buffer: int = 0,
+                 kube: bool = False):
+        if kube and not retry_buffer:
+            raise ValueError(
+                "preemption='kube' requires retry_buffer > 0 (failed pods reach the "
+                "PostFilter through the boundary retry pass)"
+            )
         self.ec, self.ep, self.fw = ec, ep, fw
+        self.kube = kube
         if retry_buffer:
             # Wave-multiple rounding shared with the device retry pass.
             retry_buffer = -(-retry_buffer // wave_width) * wave_width
@@ -112,6 +127,7 @@ class _Boundary:
         self.retry_q: List[int] = []
         self.pend: List[list] = []  # [relb, pod, node]
         self.placed_total = 0
+        self.preemptions = 0
         self.retry_dropped = 0
         # Boundary start times: f64 for the static release schedule, f32
         # finite prefix for the retry pend schedule (the device's f32 table).
@@ -182,12 +198,35 @@ class _Boundary:
         if not (self.retry_buffer and self.retry_q):
             return
         ec, ep = self.ec, self.ep
+        # FIFO; victims join the walked queue and are attempted later in
+        # the same pass.
+        q = self.retry_q
         still_q: List[int] = []
-        for p in self.retry_q:
-            res = self.fw.schedule_one(st, p, allow_preemption=False)
+        i = 0
+        while i < len(q):
+            p = q[i]
+            i += 1
+            res = self.fw.schedule_one(st, p, allow_preemption=self.kube)
             if res.node == PAD:
                 still_q.append(p)
                 continue
+            for v in res.victims:
+                v = int(v)
+                unbind(ec, ep, st, v)  # full count rewind
+                self.preemptions += 1
+                # Its pending release frees nothing now, and a later
+                # re-placement starts at that boundary: the arrival-based
+                # static release must never fire.
+                self.pend[:] = [e for e in self.pend if e[1] != v]
+                self.bind_chunk[v] = _NEVER
+                if self.assignments[v] >= 0:
+                    self.assignments[v] = PAD
+                    if ep.bound_node[v] == PAD:
+                        self.placed_total -= 1
+                if (len(q) - i) + len(still_q) < self.retry_buffer:
+                    q.append(v)
+                else:
+                    self.retry_dropped += 1
             bind(ec, ep, st, p, res.node)
             self.assignments[p] = res.node
             if ep.bound_node[p] == PAD:
@@ -225,25 +264,29 @@ def greedy_replay(
     placed pods leave the buffer, start at the boundary's time and release
     at the first boundary whose start time reaches ``t_b + duration``
     (in f32, at least ``b+1``), through a pending list also capped at
-    ``retry_buffer``. Requires ``completions_chunk_waves``."""
+    ``retry_buffer``. Requires ``completions_chunk_waves``.
+
+    ``preemption="kube"``: the boundary pass runs the PostFilter (module
+    docstring); the result's ``preemptions`` counts its victims."""
     mode = normalize_preemption(preemption)
-    if mode == "kube":
-        raise NotImplementedError(
-            "greedy_replay(preemption='kube') (the boundary PostFilter pass) is not ported "
-            "yet (queue A items 6 and 13); use the JAX package"
-        )
-    # No PostFilter: in-wave attempts pass allow_preemption=False. Copy,
-    # don't write through the caller's config object.
-    config = dc_replace(config or FrameworkConfig(), enable_preemption=False)
+    # The kube PostFilter runs only through the boundary pass; in-wave
+    # attempts pass allow_preemption=False below. Copy, don't write
+    # through the caller's config object.
+    config = dc_replace(config or FrameworkConfig(), enable_preemption=mode == "kube")
     if retry_buffer and not completions_chunk_waves:
         raise ValueError("retry_buffer requires completions_chunk_waves")
     if retry_buffer and mode == "tier":
         raise ValueError("retry_buffer is not supported with tier preemption")
+    if mode == "kube" and not completions_chunk_waves:
+        raise ValueError(
+            "preemption='kube' requires completions_chunk_waves (the boundary grid the "
+            "PostFilter pass runs on)"
+        )
     fw = SchedulerFramework(ec, ep, config)
     if waves is None:
         waves = pack_waves(ep, wave_width)
     ops = _Boundary(ec, ep, fw, waves, wave_width, completions_chunk_waves or 1,
-                    retry_buffer=retry_buffer)
+                    retry_buffer=retry_buffer, kube=mode == "kube")
     st = ops.st
     _, pod_tier = priority_tiers(ep)
     # Pre-bound pods appear in assignments (matching the device engines)
@@ -310,8 +353,14 @@ def greedy_replay(
                 # Failed non-gang pod enters the retry buffer (slot order
                 # within the wave; overflow drops the newest).
                 ops.offer_failure(p)
+    if mode == "kube":
+        # Trailing boundary: the last chunk's failures still get their
+        # PostFilter attempt. t = inf: no static releases, every pending
+        # one due, no new pending entries.
+        ops.boundary(-(-waves.idx.shape[0] // completions_chunk_waves), np.inf)
     wall = time.perf_counter() - t0
     placed_total = ops.placed_total
+    preemptions += ops.preemptions
     to_schedule = int((ep.bound_node == PAD).sum())
     util = utilization_means(st.used, ec.allocatable, ec.vocab._r)
     pending = (ep.bound_node == PAD) & (assignments == PAD)

@@ -104,6 +104,26 @@ host launches on the per-slot route (K3's release, K1 → K2 → K3 over
 every slot that may hold a pod, K4 retry_boundary). A retried pod's slot
 column keeps PAD, so its static bucket never releases it; its node comes
 back in ``Retry.rnode``.
+
+Kube preemption (``preemption="kube"``, with ``retry_buffer > 0``; the
+reference's host boundary pass, sim/boundary.py:547-678 with kube=True,
+run against the plain chunk program in both of its engines,
+sim/jax_runtime.py:1544-1605 and sim/whatif.py:2830-2883) runs on the card
+in both engines, on the chunk route only: each retry-mode K6 launch runs the
+kube pass — the retry pass until its queue is empty, the PostFilter
+(``ksim_post_filter``; twin :func:`..ops.reference.post_filter`) for a pod
+no node admits, its victims rewound in full, their pending releases
+cancelled and their choice-buffer columns or retried nodes cleared (no
+release fires for them), requeued in the same pass or dropped, the pending
+appends at bind time — and after the last chunk one more retry-mode launch
+with no waves is the trailing boundary at ``t = inf`` (every pending entry
+due there; no static release, no new pending entry). The per-slot route
+refuses kube (its pass would need a host sync a slot), and so do node
+shards, paged waves (the reference's refusal), series/timeline telemetry
+(the PostFilter's attribution, queue A item 6c) and checkpoints (6d). The
+summary latency counts first binds only (``Retry.first_b``), victims that
+end unplaced included; ``ReplayResult.preemptions`` and ``retry_dropped``
+come from the card.
 """
 
 from __future__ import annotations
@@ -361,15 +381,17 @@ def check_retry_buffer(retry_buffer) -> int:
 
 
 def tier_preemption(preemption, engine: str = "v3", retry_buffer: int = 0,
-                    node_shards: int = 0) -> bool:
-    """True for tier preemption (``True`` / ``"tier"``), False when off;
-    the reference's errors for the modes tier preemption excludes, and
-    ``"kube"`` (the host boundary pass with the retry buffer) refused by
-    name."""
+                    node_shards: int = 0) -> Optional[str]:
+    """The preemption mode: ``"tier"`` (``True`` / ``"tier"``), ``"kube"``
+    (the PostFilter through the retry buffer's boundary pass) or None (off),
+    with the reference's errors for the modes each excludes
+    (sim/jax_runtime.py:1039-1049): kube needs ``retry_buffer > 0``."""
     mode = normalize_preemption(preemption)
-    if mode == "kube":
-        raise _later("preemption='kube' (the boundary PostFilter pass with the retry buffer)",
-                     "queue A item 6 in the replay, queue A item 7 in the what-if")
+    if mode == "kube" and not retry_buffer:
+        raise ValueError(
+            "preemption='kube' requires retry_buffer > 0 (failed pods reach the PostFilter "
+            "through the boundary retry pass)"
+        )
     if mode == "tier" and engine != "v3":
         raise ValueError("device tier preemption requires engine='v3'")
     if mode == "tier" and retry_buffer:
@@ -380,7 +402,7 @@ def tier_preemption(preemption, engine: str = "v3", retry_buffer: int = 0,
             "program is the node-space (v2) engine and tier preemption is v3-only — use "
             "preemption='kube'"
         )
-    return mode == "tier"
+    return mode
 
 
 def release_times(pods: EncodedPods) -> np.ndarray:
@@ -408,16 +430,18 @@ ROUTES = ("chunk", "slot", "shard", "shard_slot")
 SHARD_ROUTES = ("shard", "shard_slot")
 
 
-def choose_route(plain: bool, sharded: bool = False) -> str:
+def choose_route(plain: bool, sharded: bool = False, kube: bool = False) -> str:
     """The route of a run, from its mode: node-sharded tables take the shard
     route (one K9 a chunk), or with ``plain`` the per-slot shard route (the
-    twins of K1 → K7 → K8 a slot); otherwise the per-slot route for the
+    twins of K1 → K7 → K8 a slot); kube preemption the chunk route (K6, or
+    its twin with ``plain``: the per-slot route refuses kube, whose pass
+    grows by its victims on the card); otherwise the per-slot route for the
     plain twins and the chunk route (K6) for everything else —
     ``engine="v2"`` (K1–K3 commit pod by pod, so v2 places as v3 on either
     route) and telemetry series/timeline (K6's attributed mode) included."""
     if sharded:
         return "shard_slot" if plain else "shard"
-    return "slot" if plain else "chunk"
+    return "slot" if plain and not kube else "chunk"
 
 
 def replicated_resident_bytes(ec: EncodedCluster, pods: EncodedPods,
@@ -508,6 +532,16 @@ class ChunkPlan:
     def col_pod(self) -> np.ndarray:
         """[L] i32 pod of each choice-buffer column (PAD: a padded slot)."""
         return np.concatenate([self.idx.reshape(-1), self.prebound]).astype(np.int32)
+
+    def col_of(self, P: int) -> np.ndarray:
+        """[P] i32 each pod's choice-buffer column: its wave slot, a
+        pre-bound pod's tail column, PAD for a pod in no slot."""
+        out = np.full(P, PAD, np.int32)
+        flat = self.idx.reshape(-1)
+        v = flat >= 0
+        out[flat[v]] = np.nonzero(v)[0]
+        out[self.prebound] = self.idx.size + np.arange(self.prebound.size)
+        return out
 
     def page_idx(self) -> np.ndarray:
         """[num_waves, W] i32 the page-local row of each slot's pod (paged
@@ -728,6 +762,12 @@ def run_waves(plan: ChunkPlan, tb: ref.Tables, choices: torch.Tensor, first: int
     reference's: chunk b−1's fold precedes boundary b's releases and retry
     pass (sim/jax_runtime.py:1716-1745).
 
+    Under kube preemption (a Retry with ``prio``; the chunk route only) the
+    retry-mode K6 runs the kube pass, and a range that ends the plan ends
+    with the trailing boundary at ``t = inf`` (sim/greedy.py, the
+    reference's :232-239): its release (every pending entry due, no static
+    bucket) and one retry-mode K6 with no waves.
+
     On node-sharded tables (row B13) a boundary's release is K8's, and the
     chunk's waves one K9 launch over the waves in the range (``"shard"``,
     reading the plan's :class:`ChunkDesc`) or per slot K1 (over the padded
@@ -751,6 +791,14 @@ def run_waves(plan: ChunkPlan, tb: ref.Tables, choices: torch.Tensor, first: int
                          "attributes nothing under node shards")
     if (route in SHARD_ROUTES) != (tb.shards is not None):
         raise ValueError("node-sharded tables take a shard route, and only they")
+    kube = tb.retry is not None and tb.retry.prio is not None
+    if kube and route != "chunk":
+        raise _later(f"kube preemption on route {route!r} (its retry pass grows by its victims "
+                     "on the card: the per-slot route would need a host sync a pass slot)",
+                     "ROADMAP queue A item 6a; kube runs on the chunk route, K6's retry mode")
+    if kube and ser is not None:
+        raise _later("telemetry series/timeline with kube preemption (the PostFilter's "
+                     "attribution and preempt events)", "ROADMAP queue A item 6c")
     if pager is not None and (ser is not None or tb.retry is not None or tb.preempt is not None
                               or first % plan.C):
         raise ValueError("paged pod waves run from a chunk's start, without series telemetry, "
@@ -877,6 +925,13 @@ def run_waves(plan: ChunkPlan, tb: ref.Tables, choices: torch.Tensor, first: int
                              boundary=b if preempt else None, append=append, reject=k6_reject)
             w = hi
             chunk_done(b)
+        if kube and end == idx.shape[0] and end > first:
+            bt = idx.shape[0] // C
+            if joint:
+                joint_release(bt, h, apply_placements, rt, choices, None)
+            chunk_replay(h, desc.idx, desc.gang, choices, end, end, append=True,
+                         retry=(bt, float("inf"), not joint))
+            charge()
     else:
         rows = idx.tolist()
         gang_wave = plan.gang_wave.tolist()
@@ -928,7 +983,8 @@ def run_chunks(
     and return the host copy of the choice buffer ``[S, L]``.
     The one synchronisation is the final fetch."""
     tick = timers.tick if timers is not None else (lambda name: contextlib.nullcontext())
-    route = route or choose_route(plain, tb.shards is not None)
+    route = route or choose_route(plain, tb.shards is not None,
+                                  tb.retry is not None and tb.retry.prio is not None)
     choices = new_choices(plan, tb.state.used.shape[0], bound_node, tb.state.used.device)
     run_waves(plan, tb, choices, 0, plan.idx.shape[0], plain, ser, route, pager, joint,
               timers=timers, on_chunk=on_chunk)
@@ -944,7 +1000,9 @@ def assignments_from_choices(
     choice buffer: every wave pod takes its slot's choice and every
     pre-bound pod its tail column's (PAD = unplaced, rolled back or
     evicted); under the retry buffer a pod placed on retry (``rnode``
-    [S, P], its slot PAD) takes its retried node and counts once."""
+    [S, P], its slot PAD) takes its retried node and counts once, unless it
+    is pre-bound (a kube victim re-placed: the reference never counts a
+    pre-bound pod)."""
     flat_idx = plan.idx.reshape(-1)
     valid = flat_idx >= 0
     slot = host_choices[:, : flat_idx.size][:, valid]
@@ -956,7 +1014,7 @@ def assignments_from_choices(
     if rnode is not None:
         retried = rnode >= 0
         assignments[retried] = rnode[retried]
-        placed += retried.sum(axis=1).astype(np.int32)
+        placed += (retried & (bound_node < 0)[None]).sum(axis=1).astype(np.int32)
     return assignments, placed, int(valid.sum())
 
 
@@ -981,6 +1039,7 @@ class ChunkEngine:
         granularity_guard: bool, engine_name: str, device: torch.device, plain: bool,
         preemption: bool = False, retry_buffer: int = 0, domains=None,
         wrow: Optional[torch.Tensor] = None, layout=None, paged: bool = False,
+        kube: bool = False,
     ) -> None:
         #: set-ups of this engine (plan and device tables): a value swap
         #: (``WhatIfEngine.set_policies``) must not add one
@@ -998,6 +1057,8 @@ class ChunkEngine:
         #: paged pod waves (:mod:`.pager`): no whole-trace pod tables on the
         #: device
         self.paged = bool(paged)
+        #: kube preemption (the retry tables carry the PostFilter's)
+        self.kube = bool(kube)
         #: (tiers, pod_tier) under tier preemption, else None
         self.tiers = (check_tier_mode(ec, pods, spec.interpod, spec.spread)
                       if preemption else None)
@@ -1074,8 +1135,13 @@ class ChunkEngine:
                                   self.device)
         rt = None
         if self.retry_buffer:
+            kube = None
+            if self.kube:
+                kube = dict(prio=self.pods.priority, col_of=self.plan.col_of(self.pods.num_pods),
+                            col_relb=self.plan.col_relb,
+                            trace_has_anti=bool((self.pods.anti_req >= 0).any()))
             rt = ref.new_retry(self.retry_buffer, self.pods.duration, self.plan.tbt, self.S,
-                               self.device)
+                               self.device, kube=kube)
         sh = None
         if self.layout is not None:
             lay, plan = self.layout, self.plan
@@ -1129,7 +1195,7 @@ class ChunkEngine:
         self.last_tables = tb
         ser = new_series(self.plan, tb, attribute) if series else None
         self.last_series = ser
-        self.last_route = route or choose_route(self.plain, self.layout is not None)
+        self.last_route = route or choose_route(self.plain, self.layout is not None, self.kube)
         hook = None
         if recorder is not None:
             timers = timers if timers is not None else recorder.phases
@@ -1259,9 +1325,12 @@ class TorchReplayEngine(ChunkEngine):
                 "boundary mirror pre-stages the whole wave index tensor; run paged replays on "
                 "the plain path"
             )
-        if paged and mode:
+        if paged and mode == "tier":
             raise _later("paged=True with tier preemption (the eviction walk reads the pod "
                          "tables by global pod id)", "ROADMAP queue A item 6a")
+        if mode == "kube" and self.node_shards > 1:
+            raise _later("preemption='kube' with node_shards (the retry pass and the PostFilter "
+                         "over node shards)", "ROADMAP queue A item 6a")
         from .flight import FlightRecorderConfig
 
         #: the recorder's spec (None: off), a path, a config or a live recorder
@@ -1269,6 +1338,10 @@ class TorchReplayEngine(ChunkEngine):
         #: the pager's thread gate (overlap.pagerThread)
         self.pager_thread = bool(pager_thread)
         self.telemetry = resolve_granularity(telemetry)
+        if mode == "kube" and TelemetryConfig.resolve(self.telemetry).want_series:
+            raise _later(f"telemetry={self.telemetry!r} with preemption='kube' (the "
+                         "PostFilter's first-reject attribution and preempt events)",
+                         "ROADMAP queue A item 6c")
         layout = None
         if self.node_shards > 1:
             if rb:
@@ -1285,12 +1358,13 @@ class TorchReplayEngine(ChunkEngine):
         device = resolve_device(device)
         if self.node_shards > 1:
             layout = make_layout(ec.num_nodes, self.node_shards, device)
-        self.preemption = mode
+        #: tier preemption (True) or not; kube is ``self.kube``
+        self.preemption = mode == "tier"
         self._prepare(ec, pods, StepSpec.from_config(ec, config, pods),
                       ref.cluster_to(shard_cluster(ec, layout) if layout else ec, device), 1,
                       wave_width, chunk_waves, completions, granularity_guard,
-                      "torch replay engine", device, plain, mode, rb, layout=layout,
-                      paged=paged)
+                      "torch replay engine", device, plain, mode == "tier", rb, layout=layout,
+                      paged=paged, kube=mode == "kube")
 
     # -- one replay --------------------------------------------------------
 
@@ -1301,7 +1375,10 @@ class TorchReplayEngine(ChunkEngine):
         resume: bool = False,
         node_events=None,
     ) -> ReplayResult:
-        if self.preemption and (checkpoint_path or resume):
+        if (self.preemption or self.kube) and (checkpoint_path or resume):
+            if self.kube:
+                raise _later("checkpoint/resume with preemption='kube' (the boundary blob "
+                             "of the device retry tables)", "ROADMAP queue A item 6d")
             raise ValueError(
                 "checkpoint/resume is not supported with device preemption (tier planes are "
                 "not checkpointed)"
@@ -1378,7 +1455,8 @@ class TorchReplayEngine(ChunkEngine):
             assignments=assignments,
             placed=placed,
             unschedulable=to_schedule - placed,
-            preemptions=int(tb.preempt.victims[0]) if tb.preempt is not None else 0,
+            preemptions=(int(tb.preempt.victims[0]) if tb.preempt is not None
+                         else int(tb.retry.preempt[0]) if self.kube else 0),
             retry_dropped=int(tb.retry.rdrop[0]) if tb.retry is not None else 0,
             attempts=to_schedule,
             wall_clock_s=wall,
@@ -1426,7 +1504,33 @@ class TorchReplayEngine(ChunkEngine):
         wave-placed pods (at their arrival, slot order)."""
         plan, ep, rt = self.plan, self.pods, tb.retry
         order = np.zeros(0, np.int64)
-        if rt is not None:
+        if self.kube:
+            # First binds only (the reference's ``_ever_bound``,
+            # sim/boundary.py:619-627): a wave bind has latency 0, whether
+            # the pod still holds its slot or was evicted since (first_b
+            # -2); a first bind through the pass waits from arrival to its
+            # boundary's start (the last finite one at t = inf). Victims
+            # that end unplaced count; pre-bound pods never do.
+            first_b = rt.first_b[0].cpu().numpy()
+            flat = plan.idx.reshape(-1)
+            slot = self.last_choices[0, : flat.size]
+            in_wave = np.zeros(ep.num_pods, bool)
+            in_wave[flat[(flat >= 0) & (slot >= 0)]] = True
+            in_wave |= first_b == ref.FIRST_IN_WAVE
+            in_wave &= ep.bound_node < 0
+            fin = np.nonzero(np.isfinite(plan.tb))[0]
+            zero = int(in_wave.sum())
+            for p in np.nonzero(first_b >= 0)[0].tolist():
+                b = int(first_b[p])
+                t = plan.tb[b] if b < plan.tb.size and np.isfinite(plan.tb[b]) else (
+                    plan.tb[fin[fin <= b][-1]] if (fin <= b).any() else 0.0)
+                lat = float(t) - float(ep.arrival[p])
+                if lat > 0.0:
+                    tel.bind_latency(p, lat)
+                else:
+                    zero += 1
+            tel.bind_zero(zero)
+        elif rt is not None:
             rnode = rt.rnode[0].cpu().numpy()
             rbind_b = rt.rbind_b[0].cpu().numpy()
             flat = plan.idx.reshape(-1)

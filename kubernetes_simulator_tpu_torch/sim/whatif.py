@@ -69,6 +69,18 @@ checkpoints). The reference also refuses traces whose count planes
 need non-singleton host-scale rows (:956-966), a limit of its TPU plane
 layout; the port's state has no host planes, so it runs them.
 
+Kube preemption (``preemption="kube"``, ``retry_buffer > 0``; the
+reference's per-scenario host mirrors, :591-620, :864-866, :2830-2883)
+runs each scenario's retry pass, PostFilter and victims in its own cluster
+of K6's retry-mode launches, over the scenario's own allocatable and taints
+(:mod:`.torch_runtime`), with the trailing boundary after the last chunk;
+``WhatIfResult.preemptions``, ``retry_dropped`` and the zero ``evictions`` /
+``evict_*`` counters come back per scenario (sim/boundary.py:401-412). It
+keeps the reference's refusals (a mesh, fork checkpoints, no buffer,
+``completions=False``, label perturbations or ``engine="v2"``) and the
+port's refusal of pre-bound pods (queue A item 7); ``collect_assignments``
+runs.
+
 Per-scenario policies (``policies=[S, 6]``, row B1w; the reference's
 :1101-1133 and ``set_policies`` :1155) give each scenario its own Score
 weights and NodeResourcesFit selector (:mod:`..ops.policy`): the rows
@@ -97,8 +109,8 @@ a block holds exactly the scenarios it would hold unsplit. The reference's
 mesh semantics hold at any ndev, one included: S must divide over the
 devices (its ``ValueError``), tier preemption with completions turns
 arrivals-only with its warning, and so does a DynTables batch, which
-leaves the device-release path under a mesh (:979-997); kube and node
-shards stay refused. ``WhatIfResult.n_devices`` and ``mesh_shape`` say how
+leaves the device-release path under a mesh (:979-997); kube (the reference's
+error) and node shards stay refused. ``WhatIfResult.n_devices`` and ``mesh_shape`` say how
 the batch ran.
 
 The engine's other modes raise ``NotImplementedError`` naming the queue
@@ -391,10 +403,11 @@ class WhatIfResult:
     ``unschedulable``, ``total_placed``, ``wall_clock_s``,
     ``placements_per_sec``, ``assignments`` (when collected),
     ``utilization_cpu``, ``completions_on``, ``engine``,
-    ``fleet_telemetry`` (above telemetry "off"), under tier
-    preemption ``preemptions`` (victims per scenario) and under the retry
-    buffer ``retry_dropped`` (failures dropped on a full buffer, per
-    scenario); the fields of modes not ported yet stay None."""
+    ``fleet_telemetry`` (above telemetry "off"), under tier or kube
+    preemption ``preemptions`` (victims per scenario), under the retry
+    buffer ``retry_dropped`` (failures and victims dropped on a full
+    buffer, per scenario), under kube the zero ``evictions`` /
+    ``evict_*`` counters; the fields of modes not ported yet stay None."""
 
     placed: np.ndarray  # [S] i32
     unschedulable: np.ndarray  # [S] i32
@@ -471,12 +484,27 @@ class WhatIfEngine(ChunkEngine):
         scenarios = list(scenarios)
         pol = self._check_policies(policies, len(scenarios), preemption, retry_buffer,
                                    fork_checkpoint)
-        mode = tier_preemption(preemption)
         rb = check_retry_buffer(retry_buffer)
+        kube = normalize_preemption(preemption) == "kube"
+        # Tier preemption with a buffer meets the batch's own refusal below,
+        # in the reference's words; kube without one, the engines' error.
+        mode = tier_preemption(preemption, retry_buffer=rb if kube else 0)
+        if kube:
+            # The reference's kube guards (sim/whatif.py:598-620).
+            if mesh is not None:
+                raise ValueError("kube preemption requires a no-mesh batch (the eager per-chunk "
+                                 "folds would serialize the scenario axis)")
+            if fork_checkpoint is not None:
+                raise ValueError("kube preemption does not support fork checkpoints")
+            if completions is False:
+                raise ValueError(
+                    "completions=False is not supported with kube preemption (the boundary "
+                    "pass owns releases) — same rule as the single-replay engine"
+                )
         sset = ScenarioSet(ec, scenarios)
         self.engine = "v3"
         if sset.labels_dirty:
-            reasons = sset.outside_envelope(mode, fork_checkpoint, pods)
+            reasons = sset.outside_envelope(mode is not None, fork_checkpoint, pods)
             if reasons:
                 # The reference's v2 fallback: the same kernels run the
                 # batch here; completions follow the reference's gate below.
@@ -484,25 +512,37 @@ class WhatIfEngine(ChunkEngine):
                 log.info("what-if: labels_dirty batch outside the DynTables envelope (%s) — "
                          "the v2 fallback engine; WhatIfResult.engine reports it",
                          ", ".join(reasons))
-        if rb and (not completions_gate(pods, completions) or collect_assignments or mode
-                   or fork_checkpoint is not None or sset.labels_dirty):
+        if kube and (engine != "v3" or sset.labels_dirty):
+            raise ValueError(
+                "kube preemption requires the v3 engine with no label perturbations (the "
+                "per-scenario host mirrors share the base topology-domain tables)"
+            )
+        if rb and not kube and (not completions_gate(pods, completions) or collect_assignments
+                                or mode or fork_checkpoint is not None or sset.labels_dirty):
             raise ValueError(
                 "retry_buffer requires the device-release completions path (finite durations, "
                 "completions on, no collect_assignments, tier preemption or fork checkpoint) "
                 "without label-perturbation DynTables"
             )
-        if mode and (engine != "v3" or self.engine != "v3" or fork_checkpoint):
+        if mode == "tier" and (engine != "v3" or self.engine != "v3" or fork_checkpoint):
             raise ValueError(
                 "what-if preemption requires the v3 engine (no label perturbations) and no "
                 "fork checkpoint"
             )
         if mode and bool((pods.bound_node >= 0).any()):
             # The reference's aggregate tally cannot tell pre-bound victims
-            # from replay placements; the port keeps its refusal.
+            # from replay placements; the port keeps its refusal (with kube:
+            # ROADMAP queue A item 7).
             raise ValueError("what-if preemption does not support pre-bound pods")
         if engine != "v3":
-            raise _later(f"engine={engine!r} (the v2 node-space chain, row B8)",
-                         "queue B item 2")
+            # The reference's WhatIfEngine takes no engine= argument: its v2
+            # fallback runs on its own when a batch's labels are dirty
+            # (WhatIfResult.engine says so), as it does here.
+            raise NotImplementedError(
+                f"WhatIfEngine(engine={engine!r}) is refused: the reference's WhatIfEngine has "
+                "no engine= argument, and the v2 fallback runs on its own when label "
+                "perturbations leave the DynTables envelope"
+            )
         if mesh is not None:
             mesh = make_mesh(devices=mesh)
             if len(scenarios) % len(mesh) != 0:
@@ -538,7 +578,7 @@ class WhatIfEngine(ChunkEngine):
         device = resolve_device(device)
         self.collect_assignments = bool(collect_assignments)
         spec = StepSpec.from_config(ec, config, pods)
-        completions = self._completions_gate(ec, pods, completions, sset, spec, mode)
+        completions = self._completions_gate(ec, pods, completions, sset, spec, mode == "tier")
         # Under a mesh the stacks stay on the host, and each block takes its
         # slice to its device (_make_blocks).
         home = device if mesh is None else torch.device("cpu")
@@ -559,11 +599,12 @@ class WhatIfEngine(ChunkEngine):
             if spec.sp_norm_f32 and not _spread_norm_f32_ok(w_max, pods):
                 spec = dc_replace(spec, sp_norm_f32=False)
             domains = (sset.node_domain, sset.num_domains, sset.lrow_host, sset.max_domains)
-        self.preemption = mode
+        #: tier preemption (True) or not; kube is ``self.kube``
+        self.preemption = mode == "tier"
         wrow = torch.tensor(pol, device=device) if pol is not None else None
         self._prepare(ec, pods, spec, cluster, sset.num_scenarios, wave_width, chunk_waves,
-                      completions, granularity_guard, "what-if engine", device, plain, mode, rb,
-                      domains, wrow)
+                      completions, granularity_guard, "what-if engine", device, plain,
+                      mode == "tier", rb, domains, wrow, kube=kube)
         self._blocks = self._make_blocks(mesh, rb) if mesh is not None else None
 
     @staticmethod
@@ -761,9 +802,16 @@ class WhatIfEngine(ChunkEngine):
             completions_on=self.completions_on,
             engine=self.engine,
             preemptions=per_block(lambda t: t.preempt.victims.cpu().numpy()
-                                  if t.preempt is not None else None),
+                                  if t.preempt is not None else t.retry.preempt.cpu().numpy()
+                                  if self.kube else None),
             retry_dropped=per_block(lambda t: t.retry.rdrop.cpu().numpy()
                                     if t.retry is not None else None),
+            # kube batches report the reference's counters() tuple
+            # (sim/boundary.py:401-412); no chaos runs here: no evictions
+            **({} if not self.kube else dict(
+                evictions=np.zeros(self.S, np.int32), evict_rescheduled=np.zeros(self.S, np.int32),
+                evict_stranded=np.zeros(self.S, np.int32),
+                evict_latency_mean=np.zeros(self.S, np.float64))),
             fleet_telemetry=(ReplayTelemetry(granularity=self.telemetry, phases=timers.summary())
                              if timers is not None else None),
             n_devices=len(self.mesh) if self.mesh is not None else 1,

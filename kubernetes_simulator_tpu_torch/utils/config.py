@@ -12,7 +12,8 @@ which promotes the granularity to ``timeline``), ``output``,
 reference's CPU event engine, is refused by name; a config without the key
 runs the port's engine), ``waveWidth``,
 ``chunkWaves``, ``devicePreemption`` (``true`` / ``"tier"``: tier
-preemption; ``"kube"`` is refused), ``nodeShards`` / ``pagedWaves``,
+preemption; ``"kube"``: kube preemption through the retry buffer),
+``nodeShards`` / ``pagedWaves``,
 ``whatIf`` (``scenarios``, ``seed``, ``mesh``: the scenario axis over the
 local cards, ``nodeDownP``, ``capacityP``, ``taintP``, ``completions``,
 ``retryBuffer``: the unschedulable-retry buffer of ``run`` and
@@ -27,7 +28,7 @@ same scenario batch in both packages; the reference's ``validate``
 refusals of a retry buffer (kubernetes_simulator_tpu/cli.py:705-730) raise
 ``ValueError`` here, and its checks of the recorder and of ``overlap:``
 (cli.py:487-517, :860-882) are :func:`flight_errors` and
-:func:`overlap_errors`.
+:func:`overlap_errors`, and those of kube (:718-729) :func:`kube_errors`.
 
 Every other section of the JAX package's schema belongs to a mode the port
 does not carry yet; :meth:`SimConfig.from_dict` refuses it with an error
@@ -279,7 +280,7 @@ class SimConfig:
     wave_width: int = 8
     chunk_waves: int = 1024
     whatif: WhatIfSpec = field(default_factory=WhatIfSpec)
-    # False, or tier preemption (True / "tier"); "kube" is refused.
+    # False, tier preemption (True / "tier") or kube preemption ("kube").
     device_preemption: object = False
     # Node-plane shards of the single replay (0/1: the replicated layout) and
     # paged pod waves (the reference's round-14 Borg-scale mode).
@@ -297,10 +298,7 @@ class SimConfig:
             if d.get(section) is not None:
                 _refuse(section, what)
         dp = d.get("devicePreemption", False)
-        if dp == "kube":
-            _refuse("devicePreemption: kube",
-                    "kube preemption, the boundary PostFilter pass with the retry buffer")
-        if dp not in (True, False, "tier"):
+        if dp not in (True, False, "tier", "kube"):
             raise ValueError(
                 f"devicePreemption: must be true/false/'tier'/'kube', got {dp!r}"
             )
@@ -501,11 +499,33 @@ def overlap_errors(cfg: SimConfig) -> List[str]:
     ]
 
 
+def kube_errors(cfg: SimConfig) -> List[str]:
+    """The reference's checks of ``devicePreemption: kube``
+    (kubernetes_simulator_tpu/cli.py:718-729; paged is
+    :func:`shard_errors`'), as error strings (empty: ok)."""
+    if cfg.device_preemption != "kube":
+        return []
+    errors = []
+    if not cfg.whatif.retry_buffer:
+        errors.append(
+            "devicePreemption: kube requires whatIf.retryBuffer > 0 (failed pods reach the "
+            "PostFilter through the boundary retry pass)"
+        )
+    if cfg.whatif.mesh:
+        errors.append(
+            "devicePreemption: kube requires a no-mesh what-if batch (the eager per-chunk "
+            "folds would serialize the scenario axis); tier preemption runs under a mesh"
+        )
+    return errors
+
+
 def config_errors(cfg: SimConfig) -> List[str]:
     """Every check of the reference's ``validate`` that the port's sections
-    have (:func:`borg_errors`, :func:`shard_errors`, :func:`flight_errors`,
-    :func:`overlap_errors`); empty: the config is valid."""
-    return borg_errors(cfg) + shard_errors(cfg) + flight_errors(cfg) + overlap_errors(cfg)
+    have (:func:`kube_errors`, :func:`borg_errors`, :func:`shard_errors`,
+    :func:`flight_errors`, :func:`overlap_errors`); empty: the config is
+    valid."""
+    return (kube_errors(cfg) + borg_errors(cfg) + shard_errors(cfg) + flight_errors(cfg)
+            + overlap_errors(cfg))
 
 
 def build_case(cfg: SimConfig):

@@ -261,10 +261,12 @@ def whatif_rows(res, extra: Optional[dict] = None) -> Iterable[dict]:
     (kubernetes_simulator_tpu/utils/metrics.py:342-361; its retry what-if
     without preemption reports no per-scenario drops there). The
     reference's per-scenario kube, chaos, latency and fragmentation fields
-    come from modes the port does not run yet and are left out."""
+    come from modes the port does not run yet and are left out, but a kube
+    batch's ``evictions`` / ``evict_*`` counters (zero: no chaos runs)."""
     base = extra or {}
     pre = getattr(res, "preemptions", None)
     drop = getattr(res, "retry_dropped", None)
+    evi = getattr(res, "evictions", None)
     yield _scrub_timing({
         "kind": "whatif-aggregate",
         "scenarios": int(res.placed.shape[0]),
@@ -290,4 +292,9 @@ def whatif_rows(res, extra: Optional[dict] = None) -> Iterable[dict]:
             row["preemptions"] = int(pre[s])
             if drop is not None:
                 row["retry_dropped"] = int(drop[s])
+        if evi is not None:
+            row["evictions"] = int(evi[s])
+            row["evict_rescheduled"] = int(res.evict_rescheduled[s])
+            row["evict_stranded"] = int(res.evict_stranded[s])
+            row["evict_latency_mean"] = round(float(res.evict_latency_mean[s]), 4)
         yield row

@@ -156,8 +156,7 @@ def _tiny():
 
 
 @pytest.mark.parametrize("kw,exc,match", [
-    (dict(preemption="kube", completions_chunk_waves=2, retry_buffer=8), NotImplementedError,
-     "queue A items 6 and 13"),
+    (dict(preemption="kube", completions_chunk_waves=2), ValueError, "retry_buffer > 0"),
     (dict(retry_buffer=8), ValueError, "completions_chunk_waves"),
     (dict(retry_buffer=8, completions_chunk_waves=2, preemption=True), ValueError,
      "tier preemption"),
@@ -169,11 +168,15 @@ def test_refusals(kw, exc, match):
 
 
 def test_schedule_one_refuses_the_postfilter():
+    """Ported since: schedule_one runs the PostFilter where the reference's
+    does (tests/test_torch_kube.py holds it against the JAX one); a pod that
+    fits needs none, and the PostFilter finds no victim on an empty cluster."""
     pec, pep = _tiny()
     fw = SchedulerFramework(pec, pep, FrameworkConfig())
     st = init_state(pec, pep)
-    with pytest.raises(NotImplementedError, match="PostFilter"):
-        fw.schedule_one(st, 0, allow_preemption=True)
+    res = fw.schedule_one(st, 0, allow_preemption=True)
+    assert res.node >= 0 and res.victims == ()
+    assert fw._post_filter_preempt(st, 0) is None
     assert fw.schedule_one(st, 0).node >= 0
     fw_off = SchedulerFramework(pec, pep, FrameworkConfig(enable_preemption=False))
     assert fw_off.schedule_one(st, 0, allow_preemption=True).node >= 0

@@ -124,6 +124,7 @@ _PORTED_SECTIONS = {
     "whatIf: {scenarios: 4, mesh: true}": ("what-if", ""),
     "overlap: {pagerThread: true}": ("run", "pagedWaves: true\nchunkWaves: 1\n"),
     "flightRecorder: {path: f.jsonl}": ("run", "chunkWaves: 1\n"),
+    "devicePreemption: kube": ("run", "whatIf: {retryBuffer: 8}\nchunkWaves: 1\n"),
 }
 
 
@@ -179,6 +180,20 @@ def test_engine_refuses_later_modes(kw, tmp_path, monkeypatch):
     from kubernetes_simulator_tpu_torch.sim.torch_runtime import TorchReplayEngine
 
     ec, ep = _tiny_case()
+    if kw.get("preemption") == "kube":
+        # Ported since: kube preemption through the retry buffer (the
+        # reference's error without a buffer); placed as the port's anchor.
+        from kubernetes_simulator_tpu_torch.sim.greedy import greedy_replay
+
+        if not kw.get("retry_buffer"):
+            with pytest.raises(ValueError, match="retry_buffer > 0"):
+                TorchReplayEngine(ec, ep, device="cpu", **kw)
+            return
+        res = TorchReplayEngine(ec, ep, device="cpu", chunk_waves=1, **kw).replay()
+        want = greedy_replay(ec, ep, completions_chunk_waves=1, preemption="kube",
+                             retry_buffer=8)
+        np.testing.assert_array_equal(res.assignments, want.assignments)
+        return
     if "flight_recorder" in kw:
         # Ported since: the recorder streams the replay it watches.
         from kubernetes_simulator_tpu_torch.sim.flight import read_stream
@@ -225,15 +240,16 @@ def test_wrappers_take_the_twin_only_on_cpu():
     "name,refused",
     [("config1_default_cpu.yaml", "cpu"), ("config2_full_plugins_5k.yaml", None),
      ("config3_whatif_256.yaml", None), ("config4_borg_1m.yaml", None),
-     ("config8_kube_preempt.yaml", "kube"), ("config11_tune.yaml", None),
-     ("config12_utilization.yaml", "kube"), ("config13_borgscale.yaml", None),
+     ("config8_kube_preempt.yaml", None), ("config11_tune.yaml", None),
+     ("config12_utilization.yaml", None), ("config13_borgscale.yaml", None),
      ("config15_headline.yaml", None), ("config18_overlap.yaml", None)],
 )
 def test_example_configs_parse_or_refuse(name, refused):
     """The repo's example configs: the run, what-if and tune configs parse
     with the JAX package's values (config4's workload.borg section field for
-    field; the flight recorder, the overlap gates and the scenario mesh);
-    the kube-preemption ones are refused by name."""
+    field; the flight recorder, the overlap gates and the scenario mesh;
+    kube preemption and its buffer); config1's strategy cpu is refused by
+    name."""
     import dataclasses
 
     import yaml
@@ -255,6 +271,8 @@ def test_example_configs_parse_or_refuse(name, refused):
             assert dataclasses.asdict(port) == dataclasses.asdict(jax)
     assert (cfg.whatif.mesh, cfg.node_shards, cfg.paged_waves, cfg.chunk_waves) == (
         ref.whatif.mesh, ref.node_shards, ref.paged_waves, ref.chunk_waves)
+    assert (cfg.device_preemption, cfg.whatif.retry_buffer) == (
+        ref.device_preemption, ref.whatif.retry_buffer)
     if "borg" in raw["workload"]:
         assert cfg.workload is None and ref.workload is None
         assert dataclasses.asdict(cfg.borg) == dataclasses.asdict(ref.borg)

@@ -1150,3 +1150,70 @@ def test_chunk_replay_retry_equals_twin_and_slot_route(card, case, series):
     assert (counts["first_reject_fold"] > 0) == series, counts
     rt = tbs[0].retry
     assert int((rt.rnode >= 0).sum()) > 0 and int(rt.rdrop.sum()) > 0
+
+
+@pytest.mark.parametrize("C", [None, 2])
+def test_chunk_replay_kube_equals_twin(card, C):
+    """K6's kube mode (the retry mode's kube pass: the PostFilter, the
+    victims' rewind and requeue, the pending appends at bind time) against
+    its twin, ``ref.chunk_replay`` running ``ref.retry_pass``'s kube pass, on
+    the CPU, at config8's densest boundary (chip_smoke.py hold_k6_kube: the
+    boundary's joint release, then chunk b's launch; choices, every plane,
+    the retry and kube tables equal after each), at the plan's C = 1 and at
+    two ranks forced (60 nodes: spans of 32)."""
+    cs = _chip_smoke()
+    cfg, ec, ep = cs.config8_case()
+    eng = TorchReplayEngine(ec, ep, cfg.framework, wave_width=cfg.wave_width,
+                            chunk_waves=cfg.chunk_waves, preemption="kube",
+                            retry_buffer=cfg.whatif.retry_buffer, device=card)
+    held = cs.kube_walk(eng, card, True)
+    b = 1 + int(np.argmax(held.sum(axis=1)))
+    with cs.forced_k6_plan(C) if C else contextlib.nullcontext():
+        out = cs.hold_k6_kube(f"config8, C={C}", eng, b, card, True, [0])
+    assert out["cluster"]["C"] == (C or 1)
+    assert out["buffered"] > 0 and out["postfilter_calls_twin"] > 0
+
+
+@pytest.mark.parametrize("seed,with_affinity", [(2, False), (2, True)])
+def test_kube_kernel_path_equals_plain_path(card, seed, with_affinity):
+    """The kube replay and a 3-scenario kube what-if on the card equal the
+    same runs on the CPU twins (assignments, preemptions, drops, every plane
+    and table); on the chunk route: one K6 a chunk plus the trailing
+    boundary's, each past the first in the kube pass, and no K1, K2, K3 bind
+    or K4."""
+    from kubernetes_simulator_tpu_torch.sim.whatif import Perturbation, Scenario, WhatIfEngine
+
+    cs = _chip_smoke()
+    ec, ep = encode(make_cluster(6, seed=seed, taint_fraction=0.2),
+                    make_workload(260, seed=seed, with_spread=True, with_tolerations=True,
+                                  with_affinity=with_affinity, duration_mean=60.0,
+                                  arrival_rate=8.0)[0])
+    kw = dict(chunk_waves=4, preemption="kube", retry_buffer=64)
+    K.reset_launch_counts()
+    eng = TorchReplayEngine(ec, ep, FrameworkConfig(), device=card, **kw)
+    res = eng.replay()
+    counts = dict(cs.retry_launch_counts(), kube=K.chunk_replay.kube)
+    cs.kube_launches("kube replay", counts, eng.plan, joint=True)
+    cpu = TorchReplayEngine(ec, ep, FrameworkConfig(), device="cpu", **kw)
+    want = cpu.replay()
+    np.testing.assert_array_equal(res.assignments, want.assignments)
+    assert (res.preemptions, res.retry_dropped) == (want.preemptions, want.retry_dropped)
+    assert res.preemptions > 0
+    cs.same_rows("kube replay", eng.last_tables, torch.as_tensor(eng.last_choices, device=card),
+                 *cs.subset_tables(cpu.last_tables, torch.as_tensor(cpu.last_choices), [0]), [0])
+    scen = [Scenario(), Scenario([Perturbation("scale_capacity", nodes=np.arange(2),
+                                               resource="cpu", factor=0.5)]),
+            Scenario([Perturbation("add_taint", nodes=np.arange(2), key="kk", value="vv",
+                                   effect="NoSchedule")])]
+    wk = WhatIfEngine(ec, ep, scen, FrameworkConfig(), collect_assignments=True, device=card,
+                      **kw)
+    wt = WhatIfEngine(ec, ep, scen, FrameworkConfig(), collect_assignments=True, device="cpu",
+                      **kw)
+    a, b = wk.run(), wt.run()
+    np.testing.assert_array_equal(a.assignments, b.assignments)
+    np.testing.assert_array_equal(a.preemptions, b.preemptions)
+    np.testing.assert_array_equal(a.retry_dropped, b.retry_dropped)
+    cs.same_rows("kube what-if", wk.last_tables,
+                 torch.as_tensor(wk.last_choices, device=card),
+                 *cs.subset_tables(wt.last_tables, torch.as_tensor(wt.last_choices), [0, 1, 2]),
+                 [0, 1, 2])

@@ -340,8 +340,10 @@ def test_host_row_gate_equals_reference():
 
 
 def test_kube_preemption_refused_by_name():
+    """Kube preemption is ported (tests/test_torch_kube.py); without a retry
+    buffer it is refused with the reference's error, which names it."""
     pec, pep = _port_tight()
-    with pytest.raises(NotImplementedError, match="kube"):
+    with pytest.raises(ValueError, match="kube"):
         TorchReplayEngine(pec, pep, device="cpu", preemption="kube")
     with pytest.raises(ValueError, match="preemption must be"):
         TorchReplayEngine(pec, pep, device="cpu", preemption="soft")
@@ -388,13 +390,13 @@ def test_cli_runs_config6_at_reduced_size(tmp_path):
 
 
 @pytest.mark.parametrize("value,accepted", [(True, True), ("tier", True), (False, True),
-                                            ("kube", False)])
+                                            ("kube", True), ("soft", False)])
 def test_config_device_preemption(value, accepted):
     from kubernetes_simulator_tpu_torch.utils.config import SimConfig
 
     d = {"devicePreemption": value}
     if not accepted:
-        with pytest.raises(NotImplementedError, match="devicePreemption"):
+        with pytest.raises(ValueError, match="devicePreemption"):
             SimConfig.from_dict(d)
         return
     assert SimConfig.from_dict(d).device_preemption == value

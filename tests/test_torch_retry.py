@@ -311,7 +311,7 @@ def test_summary_latency_equals_jax_engine():
     [(dict(retry_buffer=8, preemption=True), ValueError, "tier preemption"),
      (dict(retry_buffer=8, completions=False), ValueError, "completions=False"),
      (dict(retry_buffer=-1), ValueError, "retry_buffer"),
-     (dict(retry_buffer=8, preemption="kube"), NotImplementedError, "kube")],
+     (dict(retry_buffer=0, preemption="kube"), ValueError, "retry_buffer > 0")],
 )
 def test_engine_refuses_what_the_reference_refuses(kw, exc, match):
     ec, ep = _contended()

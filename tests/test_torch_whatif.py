@@ -284,13 +284,13 @@ def _tiny():
     "kw,item",
     [(dict(mesh=["cpu", "cpu"]), "runs"),
      (dict(fork_checkpoint="fork.npz"), "queue A item 7"),
-     (dict(preemption="kube", retry_buffer=8), "queue A item 7"),
-     (dict(preemption="kube"), "queue A item 7"),
+     (dict(preemption="kube", retry_buffer=8), "runs"),
+     (dict(preemption="kube"), "retry_buffer > 0"),
      (dict(policies=np.ones((2, 6), np.float32), mesh=["cpu", "cpu"]), "runs"),
      (dict(node_shards=2), "queue A item 10"),
      (dict(_dcn_recovery={"block": (0, 1)}), "queue A item 11"),
-     (dict(telemetry="series", engine="v2"), "queue B item 2"),
-     (dict(engine="v2"), "queue B item 2"),
+     (dict(telemetry="series", engine="v2"), "no engine= argument"),
+     (dict(engine="v2"), "no engine= argument"),
      ("events", "queue A item 7")],
     ids=lambda v: v if isinstance(v, str) else None,
 )
@@ -300,6 +300,17 @@ def test_engine_refuses_later_modes_by_queue_item(kw, item):
     if kw == "events":
         scen[1].events = [object()]
         kw = {}
+    if item == "retry_buffer > 0":  # the reference's error
+        with pytest.raises(ValueError, match=item):
+            T.WhatIfEngine(ec, ep, scen, device="cpu", **kw)
+        return
+    if item == "runs" and kw.get("preemption") == "kube":
+        # Ported since (kube preemption, tests/test_torch_kube.py): each
+        # scenario places as the single replay does.
+        res = T.WhatIfEngine(ec, ep, scen, device="cpu", chunk_waves=1, **kw).run()
+        single = TorchReplayEngine(ec, ep, device="cpu", chunk_waves=1, **kw).replay()
+        assert res.placed.tolist() == [single.placed] * 2
+        return
     if item == "runs":
         # Ported since (the scenario mesh, :mod:`parallel.mesh`): a block a
         # device, placing as the unsplit batch does.
