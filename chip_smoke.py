@@ -261,7 +261,29 @@ From the root of a checkout, on a host with one CUDA card. In order:
    computes alone): the boundary's release, then the K6 launch — choices,
    every plane, the retry and kube tables, preemptions — and each launch
    timed by CUDA events beside its twin's wall and its bound (Work.k6,
-   Work.kube_phase and Work.post_filter).
+   Work.kube_phase and Work.post_filter);
+29. (X) chaos node events: CONFIG9 as shipped (60 nodes x 3,000 pods,
+   chunkWaves 16, retryBuffer 256, kube, the chaos: section) through the
+   CLI ``what-if`` (8 scenarios, scenario s > 0 on timeline 7 + s) and the
+   CLI ``run`` (timeline 7) on the card, counters zeroed just before each
+   and read just after: per scenario placed, unschedulable, victims, drops,
+   the four eviction counters and the assignments' sha256 equal to
+   CHAOS_PINS (the JAX package's on the CPU); one K6 a chunk and the
+   trailing boundary's, a retry-mode K6 at boundary 0 where K10 evicted
+   there, K3 at each release, K10 (``evict_node``) once a boundary where a
+   node_down falls due, no K1/K2/K3 bind/K4; the run's walls and profiled
+   busy share. Then config9's campaign (128 ``uniform_scenarios(seed=0)``,
+   timelines 7 + s; CHAOS_WHATIF): the median wall of three runs after a
+   warm-up, scenarios 1 and 2 equal single replays of their clusters under
+   the same timelines. Then K10 held against its twin (on the CPU) at the
+   three densest eviction boundaries of the run (S = 1) and the campaign (S
+   = 128): the tables before the boundary and its allocatable rows, the
+   launch — choices, every plane, the retry and chaos tables, the other
+   scenarios untouched — timed by CUDA events beside its twin's wall and
+   its bound (Work.evict_node). Then the plain path (no buffer: the
+   allocatable rows alone) under a make_chaos_timeline campaign on config2's
+   shape (CHAOS_PLAIN, S = 1): K6 equal to the per-slot route, placements
+   moved, the allocatable restored.
 
 The selects — K2, K6, K7 and K9 — launch as thread-block clusters
 (ops/kernels.py ``cluster_plan``): every step that launches one prints its
@@ -399,6 +421,36 @@ KUBE_WHATIF = dict(scenarios=128, seed=0)
 #: runs on the CPU there (the twin's pass is a host loop a scenario).
 KUBE_HOLD_BOUNDARIES = 3
 KUBE_TWIN_SCENARIOS = 4
+#: Chaos node events (step X): examples/config9_chaos_whatif.yaml as
+#: shipped (60 nodes x 3,000 pods, kube, retryBuffer 256, chunkWaves 16),
+#: pinned to the JAX package's numbers on the CPU
+#: (tests/test_torch_chaos_pins.py recomputes them): its CLI ``run`` (one
+#: timeline, chaos.seed 7; 18 events) and its CLI ``what-if`` (8 scenarios,
+#: scenario s > 0 on timeline 7 + s) — placed, unschedulable, victims, drops,
+#: the four eviction counters and the assignments' sha256.
+CONFIG9 = "examples/config9_chaos_whatif.yaml"
+CHAOS_PINS = dict(
+    run=dict(events=18, placed=2989, unschedulable=11, preemptions=2, retry_dropped=0,
+             evictions=159, evict_rescheduled=159, evict_stranded=0, evict_latency_mean=0.0,
+             sha256="10047dc8056b733004e41248f907a2984280aad9208310180a5865b554afe73b"),
+    whatif=dict(placed=[3000, 3000, 3000, 2995, 3000, 3000, 2991, 3000],
+                unschedulable=[0, 0, 0, 5, 0, 0, 9, 0],
+                preemptions=[0, 0, 0, 0, 0, 0, 2, 0], retry_dropped=[0] * 8,
+                evictions=[0, 258, 101, 176, 139, 96, 291, 182],
+                evict_rescheduled=[0, 258, 101, 176, 139, 96, 291, 182],
+                evict_stranded=[0] * 8, evict_latency_mean=[0.0] * 8,
+                sha256="9dbfac0d879fe4b41c18581df6de5c49f4dbbe064ec42d8b099382d1193dd50b"),
+)
+#: config9's campaign: its trace x 128 ``uniform_scenarios(seed=0)``,
+#: scenario s > 0 on chaos timeline 7 + s; scenarios 1 and 2 held against
+#: single replays of their clusters with the same timelines.
+CHAOS_WHATIF = dict(scenarios=128, seed=0, single=(1, 2))
+#: Boundaries at which K10 is held against its twin (the densest in victims).
+CHAOS_HOLD_BOUNDARIES = 3
+#: The plain path's campaign on config2's shape (S = 1, no retry buffer:
+#: the allocatable rows alone): make_chaos_timeline over 5 % of the nodes,
+#: mtbf half the trace's span, mttr an eighth, at most 256 events.
+CHAOS_PLAIN = dict(node_fraction=0.05, mtbf_span=0.5, mttr_span=0.125, max_events=256)
 #: The retry tables compared between paths and launch by launch.
 RETRY_PLANES = ("rbuf", "rcount", "rdrop", "rchoice", "pend_id", "pend_node", "pend_relb",
                 "rnode", "rbind_b")
@@ -831,15 +883,15 @@ def retry_launch_counts():
 
 def check_chunk_launches(where, launches, plan, retry=False):
     """The chunk route's launches in a run (counters zeroed just before it):
-    one K6 a chunk, K3 at each static release, K1 and K2 none; with
+    one K6 a chunk, K3 at each static release, K1, K2 and K10 none; with
     ``retry`` (``launches`` from :func:`retry_launch_counts`) every K6 past
     the first chunk in its retry mode, and no K3 bind, K4 or per-slot K5."""
     want_k6 = len(plan.buckets)
     if launches["chunk_replay"] != want_k6:
         raise AssertionError(f"{where}: {launches['chunk_replay']} K6 launches for "
                              f"{want_k6} chunks")
-    if launches["filter_score"] or launches["normalize_select"]:
-        raise AssertionError(f"{where}: K1/K2 launched on the chunk route: {launches}")
+    if launches["filter_score"] or launches["normalize_select"] or launches["evict_node"]:
+        raise AssertionError(f"{where}: K1/K2/K10 launched on the chunk route: {launches}")
     if retry:
         if (launches["chunk_replay_retry"] != want_k6 - 1
                 or any(launches[k] for k in ("apply_placements_bind", "retry_boundary",
@@ -1084,6 +1136,20 @@ class Work:
         at nodes[s, k] in each of the S scenarios. A rollback reads the
         wave's choices and gang ids and undoes only the pairs of a gang left
         partial: pass those pairs' nodes (PAD for the rest)."""
+        pods = np.asarray(pods, np.int64)
+        K = pods.shape[-1]
+        S = np.asarray(nodes).reshape(-1, K).shape[0]
+        nbytes = (pods.size * 4 + K * 4 + S * K * 4  # pod ids, slots; each scenario's choice
+                  + (pods.size * 4 if rollback else 0))  # gang ids
+        b, o = self.pairs(pods, nodes)
+        return nbytes + b, o
+
+    def pairs(self, pods, nodes):
+        """(bytes, ops) of binding (or rewinding) pods[k] (or, per scenario,
+        pods[s, k]) at nodes[s, k] in each of the S scenarios, PAD pairs
+        skipped: each scenario's label row index, each distinct pod's shared
+        rows, and each distinct used row, tier cell, domain-map cell and
+        plane cell the pairs touch, once however many pairs touch it."""
         ep, N, R, G, D = self.ep, self.N, self.R, self.G, self.D
         pods = np.asarray(pods, np.int64)
         K = pods.shape[-1]
@@ -1092,10 +1158,8 @@ class Work:
         pods2 = np.broadcast_to(pods, (S, K))
         uniq = np.unique(pods[pods >= 0])
         AA, PA = ep.anti_req.shape[1], ep.pref_aff.shape[1]
-        nbytes = (pods.size * 4 + K * 4 + S * K * 4  # pod ids, slots; each scenario's choice
-                  + S * 4  # each scenario's label row index
-                  + uniq.size * (R * 4 + G + AA * 4 + PA * 8)  # the pods' shared rows
-                  + (pods.size * 4 if rollback else 0))  # gang ids
+        nbytes = (S * 4  # each scenario's label row index
+                  + uniq.size * (R * 4 + G + AA * 4 + PA * 8))  # the pods' shared rows
         s_i, k_i = np.nonzero((nodes >= 0) & (pods2 >= 0))
         if s_i.size == 0:
             return nbytes, 0
@@ -1286,6 +1350,33 @@ class Work:
             for v in c["victims"]:
                 b3, o3 = self.k3(np.array([v]), np.array([[c["node"]]]))
                 nbytes, nops = nbytes + b3 + self.RB * 24, nops + o3
+        return nbytes, nops
+
+    def evict_node(self, scen, nodes, victims, pend_live):
+        """(bytes, ops) of K10 at one boundary: ``scen`` scenarios with
+        ``nodes`` down nodes in all; each scenario's pod records that give a
+        pod's node read once (rnode, rrel and its column's choice: 12 B a
+        pod; col_of and col_relb, shared: 8 B a pod) and compared once a
+        down node; the victims (``victims``: (scenario, pod, node), the
+        scenario's index in 0 .. scen - 1) unbound together (:meth:`pairs`:
+        each distinct used row and plane cell once), each one's records
+        written (rnode or its column, first_b, the f64 eviction time: 16 B)
+        and its buffer slot (4 B); the pending list's live entries
+        (``pend_live``, summed over the scenarios where a victim has one)
+        read and rewritten once (12 B each way); each scenario's counters
+        (rcount, rdrop, evictions: 12 B)."""
+        P = self.ep.num_pods
+        nbytes = P * 8 + scen * (P * 12 + 12) + len(victims) * 20 + pend_live * 24
+        nops = nodes * P + pend_live
+        if victims:
+            per = [[(v, n) for i, v, n in victims if i == x] for x in range(scen)]
+            k = max(len(p) for p in per)
+            pods, where = np.full((scen, k), -1, np.int64), np.full((scen, k), -1, np.int64)
+            for x, p in enumerate(per):
+                for j, (v, n) in enumerate(p):
+                    pods[x, j], where[x, j] = v, n
+            b, o = self.pairs(pods, where)
+            nbytes, nops = nbytes + b, nops + o
         return nbytes, nops
 
     def chunk_loop_ms(self, plan, assignments, launches, evictions=None, retry_walk=None):
@@ -5728,22 +5819,27 @@ def config8_case():
     return _case_copy(("config8",), build)
 
 
-def kube_launches(where, launches, plan, joint):
+def kube_launches(where, launches, plan, joint, steps=None):
     """A kube run's launches (counters zeroed just before it;
     :func:`retry_launch_counts` with ``kube``, K6's kube-pass launches): one
     K6 a chunk and the trailing boundary's, each past the first in the retry
     mode's kube pass; K3 at each release (``joint``, the single replay: one
     a boundary past 0, the trailing one included, and the static bucket at
-    0; the batch: each static bucket); K1, K2, K3's bind and rollback, K4
-    and K5 none."""
+    0; the batch: each static bucket); K1, K2, K3's bind and rollback, K4,
+    K5 and K10 none. Under chaos timelines (``steps``, the run's
+    ``chaos_steps``) K10 once a boundary where a node_down falls due, at
+    least once, and a retry-mode K6 at boundary 0 too where K10 evicted
+    there."""
     nb = len(plan.buckets)
     rel = (nb + int(plan.buckets[0] is not None) if joint
            else sum(bk is not None for bk in plan.buckets))
-    want = dict(chunk_replay=nb + 1, chunk_replay_retry=nb, kube=nb, filter_score=0,
+    due = [b for b, st in (steps or {}).items() if st.scen.numel() > 0]
+    at0 = int(0 in due)
+    want = dict(chunk_replay=nb + 1, chunk_replay_retry=nb + at0, kube=nb + at0, filter_score=0,
                 normalize_select=0, apply_placements_bind=0, apply_placements_rollback=0,
                 apply_placements_release=rel, retry_boundary=0, first_reject=0,
-                first_reject_fold=0, shard_chunk_replay=0)
-    if any(launches[k] != v for k, v in want.items()):
+                first_reject_fold=0, shard_chunk_replay=0, evict_node=len(due))
+    if any(launches[k] != v for k, v in want.items()) or (steps is not None and not due):
         raise AssertionError(f"{where}: launches {launches}, expected {want}")
 
 
@@ -6018,6 +6114,311 @@ def run_kube_paths(results, dev):
                 s128_ms=[h["ms"] for h in holds["S=128"]])
 
 
+def config9_case():
+    """(SimConfig, EncodedCluster, EncodedPods) of CONFIG9 as the port's
+    config parses it (60 nodes, 3,000 pods, durationMean 60, kube,
+    retryBuffer 256, chunkWaves 16, the chaos: section)."""
+    import yaml
+
+    from kubernetes_simulator_tpu_torch.utils.config import SimConfig, build_encoded_case
+
+    def build():
+        with open(os.path.join(ROOT, CONFIG9)) as f:
+            cfg = SimConfig.from_dict(yaml.safe_load(f))
+        return (cfg,) + tuple(build_encoded_case(cfg))
+
+    return _case_copy(("config9",), build)
+
+
+def chaos_timeline(cfg, ec, ep, seed):
+    """One timeline of config9's chaos: section, as the CLI draws it."""
+    from kubernetes_simulator_tpu_torch.cli import _chaos_timeline
+
+    return _chaos_timeline(cfg, ec, ep, seed)
+
+
+@contextlib.contextmanager
+def engine_events(eng, timelines):
+    """``eng``'s runs (its tables and chunk loop) under ``timelines`` (one
+    NodeEvent list a scenario) while inside — what a single replay's
+    ``replay(node_events=)`` sets for its one run."""
+    prev = getattr(eng, "_events", None)
+    eng._events = timelines
+    try:
+        yield
+    finally:
+        eng._events = prev
+
+
+def chaos_walk(eng, dev, joint):
+    """A kernel-path run of ``eng`` (its chaos timelines set) chunk by
+    chunk: ({b: [S] victims of boundary b's K10}, the run's chaos steps).
+    The allocatable the run rewrites is restored after it."""
+    from kubernetes_simulator_tpu_torch.sim.torch_runtime import chaos_steps
+
+    plan = eng.plan
+    steps = chaos_steps(plan, eng._timelines(), eng._alloc0(), dev)
+    tb = eng._tables()
+    ch = new_choices(plan, eng.S, eng.pods.bound_node, dev)
+    alloc0 = tb.cluster.allocatable.clone()
+    victims, n = {}, plan.idx.shape[0]
+    try:
+        for c in range(len(plan.buckets)):
+            before = tb.retry.evictions.clone()
+            run_waves(plan, tb, ch, c * plan.C, min(n, (c + 1) * plan.C), plain=False,
+                      route="chunk", joint=joint, chaos=steps)
+            if c in steps and steps[c].scen.numel():
+                victims[c] = (tb.retry.evictions - before).cpu().numpy()
+    finally:
+        tb.cluster.allocatable.copy_(alloc0)
+    return victims, steps
+
+
+def hold_evict_node(where, eng, b, steps, dev, joint):
+    """K10 against its twin at boundary b of ``eng``'s run (its chaos
+    timelines set): the tables after chunks [0, b) on the kernel path and
+    the boundary's allocatable rows, copied for the twin on the CPU (the
+    scenarios with a node_down there); K10's launch against
+    ``ref.evict_node`` scenario by scenario — the choices, every plane and
+    the retry and chaos tables equal after, and every other scenario
+    untouched. Then the launch timed from the same state (CUDA events,
+    :func:`launch_ms`) beside the twin's wall and its bound (Work.evict_node)."""
+    plan, st = eng.plan, steps[b]
+    tb = eng._tables()
+    ch = new_choices(plan, eng.S, eng.pods.bound_node, dev)
+    alloc0 = tb.cluster.allocatable.clone()
+    try:
+        run_waves(plan, tb, ch, 0, b * plan.C, plain=False, route="chunk", joint=joint,
+                  chaos=steps)
+        R = tb.cluster.allocatable.shape[-1]
+        tb.cluster.allocatable.view(-1, R).index_copy_(0, st.rows, st.vals)
+        torch.cuda.synchronize()
+        scen = st.scen.tolist()
+        off, nodes = st.off.tolist(), st.nodes.tolist()
+        tb_t, ch_t = subset_tables(tb, ch, scen)
+        victims = []
+        for i in range(len(scen)):
+            cur = ref.bound_nodes(tb_t, ch_t, i, b - 1)
+            for n in nodes[off[i] : off[i + 1]]:
+                victims += [(i, int(v), n) for v in torch.nonzero(cur == n).flatten().tolist()]
+        pend = tb_t.retry.pend_id.numpy()  # the scenarios' pending lists before the launch
+        pend_live = sum(int((pend[i] >= 0).sum()) for i in range(len(scen))
+                        if np.isin([v for x, v, _ in victims if x == i], pend[i]).any())
+        before = (clone_tables(tb), ch.clone())
+        bk = K.Bound(tb)
+        K.reset_launch_counts()
+        K.evict_node(bk, ch, st.scen, st.off, st.nodes, b, st.t_b)
+        torch.cuda.synchronize()
+        counts = K.launch_counts()
+        if counts["evict_node"] != 1 or sum(counts.values()) != 1:
+            raise AssertionError(f"{where}: one K10 launch expected, the launch ran {counts}")
+        t0 = time.perf_counter()
+        for i in range(len(scen)):
+            ref.evict_node(tb_t, ch_t, i, nodes[off[i] : off[i + 1]], b, st.t_b)
+        twin_s = time.perf_counter() - t0
+        same_rows(f"{where}: K10 at boundary {b} vs its twin", tb, ch, tb_t, ch_t, scen)
+        rest = [x for x in range(eng.S) if x not in scen]
+        if rest:
+            same_rows(f"{where}: K10 at boundary {b} leaves the other scenarios", tb, ch,
+                      *subset_tables(before[0], before[1], rest), rest)
+        n_vic = int((tb.retry.evictions - before[0].retry.evictions).sum())
+        if n_vic != len(victims):
+            raise AssertionError(f"{where}: {n_vic} victims, the twin's walk found {len(victims)}")
+        final = (clone_tables(tb), ch.clone())
+        ms = launch_ms(lambda: K.evict_node(bk, ch, st.scen, st.off, st.nodes, b, st.t_b),
+                       lambda: restore_tables(tb, before[0], ch, before[1]), iters=20)
+        same_rows(f"{where}: K10's timed launches at boundary {b}", tb, ch,
+                  *subset_tables(final[0], final[1], scen), scen)
+        nb, no = Work(eng.pods, tb).evict_node(len(scen), len(nodes), victims, pend_live)
+        bound_ms, bound_by = bound(nb, no)
+    finally:
+        tb.cluster.allocatable.copy_(alloc0)
+    out = dict(boundary=b, scenarios=eng.S, evicting_scenarios=len(scen), down_nodes=len(nodes),
+               victims=n_vic, ms=ms, twin_ms=twin_s * 1e3, bound_ms=bound_ms, bound_by=bound_by,
+               max_abs_err=0.0)
+    print(f"{where}: K10 == its twin at boundary {b} ({json.dumps(out)}); choices, every plane, "
+          f"retry and chaos table", flush=True)
+    return out
+
+
+def chaos_counters_of(res, s=None):
+    """The pinned counters of a replay result (``s`` None) or of scenario s
+    of a what-if result."""
+    names = ("placed", "unschedulable", "preemptions", "retry_dropped", "evictions",
+             "evict_rescheduled", "evict_stranded", "evict_latency_mean")
+    if s is None:
+        return {k: getattr(res, k) for k in names}
+    return {k: (float if k == "evict_latency_mean" else int)(getattr(res, k)[s]) for k in names}
+
+
+def run_chaos_paths(results, dev):
+    """(X) chaos node events: config9 through the CLI what-if and run ==
+    CHAOS_PINS, its 128-scenario campaign (scenarios 1 and 2 == single
+    replays of their clusters), K10 held against its twin at the densest
+    eviction boundaries (S = 1 and S = 128), the plain path's campaign on
+    config2's shape (K6 == the per-slot route). Returns the kernels line's
+    record of K10."""
+    from kubernetes_simulator_tpu_torch.sim.synthetic import make_chaos_timeline
+    from kubernetes_simulator_tpu_torch.sim.torch_runtime import chaos_steps
+
+    cfg, ec, ep = config9_case()
+    # (a) the CLI what-if: 8 scenarios, scenario s > 0 on timeline 7 + s.
+    rows, lines, weng, cmd_s, launches = cli_call(["what-if", CONFIG9])
+    k10_w = launches["evict_node"]
+    wsteps = chaos_steps(weng.plan, weng._events, weng._alloc0(), "cpu")
+    kube_launches("config9 CLI what-if", dict(retry_launch_counts(), kube=K.chunk_replay.kube),
+                  weng.plan, joint=False, steps=wsteps)
+    sc = [r for r in rows if r["kind"] == "whatif-scenario"]
+    rt = weng.last_tables.retry
+    a, _, _ = assignments_from_choices(weng.plan, weng.last_choices, ep.bound_node,
+                                       rt.rnode.cpu().numpy())
+    got_w = {k: [r[k] for r in sc] for k in CHAOS_PINS["whatif"] if k != "sha256"}
+    got_w["sha256"] = assignments_sha256(a)
+    if got_w != CHAOS_PINS["whatif"]:
+        raise AssertionError(f"config9 what-if: {got_w} != the JAX package's "
+                             f"{CHAOS_PINS['whatif']}")
+    wwall = [r for r in rows if r["kind"] == "whatif-aggregate"][0]["wall_clock_s"]
+    print(f"config9 CLI what-if (8 scenarios x 60 nodes x 3,000 pods, kube, chaos timelines "
+          f"7 + s): == CHAOS_PINS (evictions {got_w['evictions']}); wall {wwall:.4f}s, command "
+          f"{cmd_s:.2f}s, launches K6 {launches['chunk_replay']} (kube pass "
+          f"{K.chunk_replay.kube}), K3 release {launches['apply_placements_release']}, K10 "
+          f"{k10_w}", flush=True)
+    mark("X config9 what-if")
+
+    # (b) the CLI run: one timeline, chaos.seed.
+    rows, lines, eng, cmd_s, launches = cli_call(["run", CONFIG9])
+    k10_r = launches["evict_node"]
+    ev = chaos_timeline(cfg, ec, ep, cfg.chaos.seed)
+    with engine_events(eng, [ev]):
+        rsteps = chaos_steps(eng.plan, [ev], eng._alloc0(), "cpu")
+    kube_launches("config9 CLI run", dict(retry_launch_counts(), kube=K.chunk_replay.kube),
+                  eng.plan, joint=True, steps=rsteps)
+    row = rows[0]
+    rt = eng.last_tables.retry
+    a, placed, _ = assignments_from_choices(eng.plan, eng.last_choices, ep.bound_node,
+                                            rt.rnode.cpu().numpy())
+    got_r = {k: row[k] for k in CHAOS_PINS["run"] if k not in ("sha256", "events")}
+    got_r.update(events=len(ev), sha256=assignments_sha256(a[0]))
+    if got_r != CHAOS_PINS["run"] or int(placed[0]) != row["placed"]:
+        raise AssertionError(f"config9 run: {got_r} != the JAX package's {CHAOS_PINS['run']}")
+    walls = sorted(eng.replay(node_events=ev).wall_clock_s for _ in range(3))
+    res_p, busy_s = profiled_busy_s(lambda: eng.replay(node_events=ev))
+    if not np.array_equal(res_p.assignments, a[0]):
+        raise AssertionError("config9 run: the profiled replay placed differently")
+    print(f"config9 CLI run (one timeline, {len(ev)} events): == CHAOS_PINS; wall "
+          f"{row['wall_clock_s']:.4f}s (again {[round(w, 4) for w in walls]}), launches K6 "
+          f"{launches['chunk_replay']}, K3 release {launches['apply_placements_release']}, K10 "
+          f"{k10_r}; profiled: device busy {busy_s:.4f}s "
+          f"({busy_s / res_p.wall_clock_s:.1%} of {res_p.wall_clock_s:.4f}s)", flush=True)
+    results["config9"] = dict(
+        whatif=dict(pins=got_w, wall_s=wwall, launches=launches, k10_launches=k10_w),
+        run=dict(pins=got_r, cli_wall_s=row["wall_clock_s"], walls_s=walls,
+                 wall_s=float(np.median(walls)), k10_launches=k10_r,
+                 profiled_wall_s=res_p.wall_clock_s, device_busy_s=busy_s,
+                 device_busy_share=busy_s / res_p.wall_clock_s if busy_s else None))
+    mark("X config9 run")
+
+    # (c) the campaign: config9's trace x 128 scenarios.
+    cw = CHAOS_WHATIF
+    scen = uniform_scenarios(ec, cw["scenarios"], seed=cw["seed"])
+    for x in range(1, len(scen)):
+        scen[x].events = chaos_timeline(cfg, ec, ep, cfg.chaos.seed + x)
+    ceng = WhatIfEngine(ec, ep, scen, cfg.framework, wave_width=cfg.wave_width,
+                        chunk_waves=cfg.chunk_waves, preemption="kube",
+                        retry_buffer=cfg.whatif.retry_buffer, collect_assignments=True)
+    K.reset_launch_counts()
+    warm = ceng.run()
+    claunches = dict(retry_launch_counts(), kube=K.chunk_replay.kube)
+    k10_c = claunches["evict_node"]
+    csteps = chaos_steps(ceng.plan, ceng._events, ceng._alloc0(), "cpu")
+    kube_launches("config9 campaign", claunches, ceng.plan, joint=False, steps=csteps)
+    runs = [ceng.run() for _ in range(3)]
+    for r in runs:
+        if not (np.array_equal(r.assignments, warm.assignments)
+                and np.array_equal(r.evictions, warm.evictions)):
+            raise AssertionError("config9 campaign placed differently from run to run")
+    cwalls = sorted(r.wall_clock_s for r in runs)
+    cwall = float(np.median(cwalls))
+    _, cbusy = profiled_busy_s(ceng.run)
+    singles = {}
+    for x in cw["single"]:
+        hc = ScenarioSet(ec, [scen[x]]).host_clusters()[0]
+        one = TorchReplayEngine(hc, ep, cfg.framework, wave_width=cfg.wave_width,
+                                chunk_waves=cfg.chunk_waves, preemption="kube",
+                                retry_buffer=cfg.whatif.retry_buffer).replay(
+                                    node_events=scen[x].events)
+        want = chaos_counters_of(one)
+        if (not np.array_equal(warm.assignments[x], one.assignments)
+                or chaos_counters_of(warm, x) != want):
+            raise AssertionError(f"config9 campaign: scenario {x} {chaos_counters_of(warm, x)} "
+                                 f"!= its single replay {want}")
+        singles[x] = want
+    results["config9_campaign"] = dict(
+        scenarios=cw["scenarios"], walls_s=cwalls, warmup_wall_s=warm.wall_clock_s, wall_s=cwall,
+        total_placed=warm.total_placed, placements_per_s=warm.total_placed / cwall,
+        evictions=int(warm.evictions.sum()), evictions_max=int(warm.evictions.max()),
+        evict_rescheduled=int(warm.evict_rescheduled.sum()),
+        evict_stranded=int(warm.evict_stranded.sum()),
+        evict_latency_mean_max=float(warm.evict_latency_mean.max()), k10_launches=k10_c,
+        device_busy_s=cbusy, device_busy_share=cbusy / cwall if cbusy else None,
+        singles=singles, sha256=assignments_sha256(warm.assignments))
+    print(f"config9 campaign ({cw['scenarios']} scenarios, timelines 7 + s): median wall "
+          f"{cwall:.4f}s of {[round(w, 4) for w in cwalls]}, {warm.total_placed / cwall:.1f} "
+          f"aggregate placements/s, evictions {int(warm.evictions.sum())} (max "
+          f"{int(warm.evictions.max())} a scenario), K10 {k10_c}, busy {cbusy:.4f}s; scenarios "
+          f"{list(cw['single'])} == their single replays", flush=True)
+    mark("X config9 campaign")
+
+    # (d) K10 against its twin at the densest eviction boundaries.
+    holds = {}
+    for name, e, tl, joint in (("S=1", eng, [ev], True), ("S=128", ceng, None, False)):
+        with engine_events(e, tl if tl is not None else e._events):
+            vic, steps = chaos_walk(e, dev, joint)
+            dense = sorted(vic, key=lambda b: (-int(vic[b].sum()), b))[:CHAOS_HOLD_BOUNDARIES]
+            holds[name] = [hold_evict_node(f"config9 {name}", e, b, steps, dev, joint)
+                           for b in sorted(dense)]
+    results["k10_holds"] = holds
+    mark("X K10 holds")
+
+    # (e) the plain path's campaign on config2's shape, K6 against the per-slot route.
+    ec2, ep2 = case(5000, 50_000)
+    pc = CHAOS_PLAIN
+    span = float(ep2.arrival.max())
+    ev2 = make_chaos_timeline(ec2.num_nodes, seed=SEED, horizon=span, mtbf=span * pc["mtbf_span"],
+                              mttr=span * pc["mttr_span"], node_fraction=pc["node_fraction"],
+                              max_events=pc["max_events"])
+    peng = TorchReplayEngine(ec2, ep2, FrameworkConfig(), wave_width=8, chunk_waves=1024)
+    clean = peng.replay()
+    K.reset_launch_counts()
+    pres = peng.replay(node_events=ev2)
+    plaunches = K.launch_counts()
+    check_chunk_launches("config2 chaos (plain)", plaunches, peng.plan)
+    with engine_events(peng, [ev2]):
+        slot = peng._run(route="slot", joint=True)
+    if not np.array_equal(slot[2][0], pres.assignments):
+        raise AssertionError("config2 chaos: K6 and the per-slot route placed differently")
+    if np.array_equal(pres.assignments, clean.assignments):
+        raise AssertionError("config2 chaos: the events moved no placement")
+    alloc_ok = torch.equal(peng._cluster.allocatable.cpu(), torch.as_tensor(ec2.allocatable))
+    if not alloc_ok:
+        raise AssertionError("config2 chaos: the allocatable was not restored")
+    results["config2_chaos"] = dict(events=len(ev2), wall_s=pres.wall_clock_s,
+                                    clean_wall_s=clean.wall_clock_s, placed=pres.placed,
+                                    clean_placed=clean.placed, launches=plaunches,
+                                    slot_wall_s=slot[1])
+    print(f"config2 chaos (plain path, S = 1, {len(ev2)} events over "
+          f"{len(chaos_steps(peng.plan, [ev2], ec2.allocatable, 'cpu'))} boundaries): placed "
+          f"{pres.placed} (clean {clean.placed}) in {pres.wall_clock_s:.3f}s (clean "
+          f"{clean.wall_clock_s:.3f}s), launches {json.dumps(plaunches)}; == the per-slot route "
+          f"({slot[1]:.3f}s)", flush=True)
+    mark("X config2 plain chaos")
+    best = max(holds["S=1"], key=lambda h: h["victims"])
+    return dict(launches=k10_w, ms=best["ms"], plain_ms=best["twin_ms"], bound_ms=best["bound_ms"],
+                bound_by=best["bound_by"], boundary=best["boundary"], victims=best["victims"],
+                s128_ms=[h["ms"] for h in holds["S=128"]],
+                launches_by_path=dict(config9_run=k10_r, config9_campaign=k10_c))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this script needs a CUDA "
@@ -6263,6 +6664,8 @@ def main() -> int:
     mark("M3 config13 recorder in turns")
     # K: kube preemption (config8, its 128-scenario what-if, K6's kube mode).
     k6kube = run_kube_paths(results, dev)
+    # X: chaos node events (config9, its campaign, K10, the plain path's).
+    k10 = run_chaos_paths(results, dev)
     results["wall_s_total"] = time.perf_counter() - t_start
     print("step walls (s): " + json.dumps({k: round(v, 1) for k, v in STEP_S.items()}),
           flush=True)
@@ -6356,6 +6759,20 @@ def main() -> int:
         # no PyTorch call runs a PostFilter
         "library_ms": None, "cluster": k6kube["cluster"], "boundary": k6kube["boundary"],
         "post_filter_bound_ms": k6kube["post_filter_bound_ms"], "s128_ms": k6kube["s128_ms"],
+    })
+    # K10: its launches on config9's CLI what-if (the run's and the
+    # campaign's beside); one launch at the single replay's densest
+    # eviction boundary timed beside its twin (on the CPU) and its bound;
+    # s128_ms the same at S = 128.
+    table.append({
+        "name": "evict_node", "route": "cuda",
+        "source": "kubernetes_simulator_tpu_torch/csrc/evict_node.cu",
+        "replaces": "kubernetes_simulator_tpu/sim/boundary.py:430",
+        "launches": k10["launches"], "max_abs_err": 0.0, "ms": k10["ms"],
+        "plain_ms": k10["plain_ms"], "bound_ms": k10["bound_ms"], "bound_by": k10["bound_by"],
+        # no PyTorch call evicts a node's pods
+        "library_ms": None, "boundary": k10["boundary"], "victims": k10["victims"],
+        "s128_ms": k10["s128_ms"], "launches_by_path": k10["launches_by_path"],
     })
     for k, (kernel, replaces) in LABEL_SOURCES.items():
         m = lkernels[kernel]

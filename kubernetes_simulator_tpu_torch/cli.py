@@ -30,7 +30,10 @@ policy search's trajectory (schema-v3 rows without a wall-clock stamp, to
 ``tune.output`` or ``output``) and INFO lines with the winner, the
 held-out objectives, the CPU oracle's envelope and the walls. ``run --timeline-out`` (or
 ``telemetry.timelineOut``) collects at granularity ``timeline`` and writes
-the simulated cluster timeline as a Chrome trace (:87-129).
+the simulated cluster timeline as a Chrome trace (:87-129). An enabled
+``chaos:`` section (:func:`_chaos_timeline`, the reference's :50-75) gives
+``run`` one node-event timeline (``chaos.seed``) and ``what-if`` one a
+scenario past 0 (``chaos.seed + s``; scenario 0 stays clean, :150-169).
 """
 
 from __future__ import annotations
@@ -58,6 +61,34 @@ def _load(path: str) -> SimConfig:
     if errors:
         raise ValueError("invalid config: " + "; ".join(errors))
     return cfg
+
+
+def _chaos_timeline(cfg, ec, ep, seed):
+    """One seeded chaos campaign from the ``chaos:`` section (the horizon
+    defaults to the trace's last arrival — later events could never fire),
+    warning of events past that arrival, which the device engines never
+    apply (they replay no chunk past the final wave)."""
+    from .sim.synthetic import make_chaos_timeline
+
+    ch = cfg.chaos
+    last_arrival = float(ep.arrival.max())
+    horizon = ch.horizon if ch.horizon is not None else last_arrival
+    events = make_chaos_timeline(
+        ec.num_nodes, seed=seed, horizon=horizon, mtbf=ch.mtbf, mttr=ch.mttr,
+        node_fraction=ch.node_fraction, max_events=ch.max_events,
+    )
+    late = sum(1 for ev in events if ev.time > last_arrival)
+    if late:
+        log.warning(
+            "chaos: %d event(s) beyond the trace's last arrival (t=%.1f; chaos.horizon=%.1f) — "
+            "device engines stop at the final wave and will never apply them",
+            late, last_arrival, horizon,
+        )
+    return events
+
+
+def _chaos_on(cfg) -> bool:
+    return cfg.chaos is not None and cfg.chaos.enabled
 
 
 def _mesh(on: bool, device: str):
@@ -109,8 +140,12 @@ def cmd_run(args) -> int:
     context = {
         "seed": workload_seed(cfg), "engine": "torch", "config_hash": config_hash(raw),
     }
+    events = None
+    if _chaos_on(cfg):
+        events = _chaos_timeline(cfg, ec, ep, cfg.chaos.seed)
+        log.info("chaos: injecting %d node events", len(events))
     with JsonlWriter(cfg.output, context=context) as out:
-        res = engine.replay()
+        res = engine.replay(node_events=events) if events else engine.replay()
         out.write(replay_row("replay-torch", res, {"config": args.config,
                                                    "device": str(engine.device)}))
     if timeline_out and res.telemetry is not None:
@@ -143,6 +178,14 @@ def cmd_whatif(args) -> int:
         ec, cfg.whatif.scenarios, seed=cfg.whatif.seed, p_node_down=cfg.whatif.node_down_p,
         p_capacity=cfg.whatif.capacity_p, p_taint=cfg.whatif.taint_p,
     )
+    if _chaos_on(cfg):
+        # A failure sweep: scenario 0 stays the clean reference, every other
+        # scenario gets its own seeded timeline.
+        n_ev = 0
+        for s in range(1, len(scen)):
+            scen[s].events = _chaos_timeline(cfg, ec, ep, cfg.chaos.seed + s)
+            n_ev += len(scen[s].events)
+        log.info("chaos: %d timed events across %d scenario timelines", n_ev, len(scen) - 1)
     mesh = _mesh(cfg.whatif.mesh, args.device)
     eng = WhatIfEngine(
         ec, ep, scen, cfg.framework, wave_width=cfg.wave_width, chunk_waves=cfg.chunk_waves,

@@ -66,12 +66,17 @@ KSIM_EXPORT int ksim_chunk_replay(const KsimArgs* args, const int32_t* idx, cons
   if (attr && (!attempts || !attributed || K < 1 || K > KSIM_PLUGINS || attr_ss < 1 ||
                args->preempt))
     return (int)cudaErrorInvalidValue;
-  // the retry mode: a boundary b > 0 of a run with the retry buffer, without
-  // tier preemption or node shards; samples given whole or not at all
+  // the retry mode: a boundary b > 0 of a run with the retry buffer (b = 0
+  // too, where K10 evicted pre-bound pods), without tier preemption or node
+  // shards; samples given whole or not at all
   if (retry) {
     if (retry_size != (int)sizeof(KsimRetryPhase) || !args->retry || !append ||
         args->preempt || args->NP != 1 || args->RB < 1 || args->RB > KSIM_MAX_RB ||
-        args->B < 1 || retry->b < 1 || (end == first && !retry->kube))
+        args->B < 1 || retry->b < 0 || (end == first && !retry->kube))
+      return (int)cudaErrorInvalidValue;
+    // a chaos timeline: its counters whole, and the node tables K10 reads
+    if (retry->evict_t && (!retry->resched || !retry->evict_lat || !retry->k.rrel ||
+                           !retry->k.first_b))
       return (int)cudaErrorInvalidValue;
     // kube preemption: its tables whole, no counters and no samples (series
     // with kube is refused); a launch with no waves is the trailing boundary

@@ -71,8 +71,8 @@
 // chunk_replay_retry.cu) also replaces the boundary sequence of
 // sim/whatif.py:1413 per_scenario_retry (:1433-1494), the retry variant of
 // _build_chunk_fn's chunk program: a launch that starts a chunk at boundary
-// b > 0 first runs, in each scenario's cluster and in the reference's
-// order,
+// b > 0 (or at b = 0, where a chaos node_down evicted pre-bound pods) first
+// runs, in each scenario's cluster and in the reference's order,
 //   (i)   the pending release of the list's due entries (relb <= b) on rank
 //         0 (ksim_pending_release: each node summed from zero in pair order,
 //         subtracted once), unless the host's K3 took them with the static
@@ -170,7 +170,11 @@ static __constant__ KsimReject ksim_k6_reject;
 // retry pass charges its failed slots when ksim_k6_reject.reasons is set.
 // kube = 1 runs the kube pass over the tables in `k` (ksim.cuh KsimKube;
 // they travel here, not in KsimArgs, whose size sets the offsets of the
-// kernel's other parameters in every build).
+// kernel's other parameters in every build). Under a chaos timeline (evict_t
+// set; ksim.cuh KsimRebind) a retried bind also clears a NoExecute victim's
+// eviction time and counts its re-bind and latency from the boundary's f64
+// start time t_bd, and without kube `k` carries rrel and first_b, which the
+// bookkeeping keeps for K10 (evict_node.cu).
 struct KsimRetryPhase {
   int b;
   float t_b;
@@ -184,6 +188,10 @@ struct KsimRetryPhase {
   float* snap_aa;
   float* snap_pw;
   KsimKube k;
+  double t_bd;
+  double* evict_t;
+  int32_t* resched;
+  double* evict_lat;
 };
 
 // The retry mode's boundary sequence (i)-(iii) and samples in scenario scen's

@@ -151,6 +151,10 @@ __device__ __noinline__ void ksim_k6_kube_pass(int64_t scen, int C, bool lead, i
             kst[3] = plen + 1;
           }
           k.rrel[ip] = rrel;
+          if (ph.evict_t)
+            ksim_chaos_rebind(KsimRebind{k.rrel, k.first_b, ph.evict_t, ph.resched,
+                                         ph.evict_lat, ph.t_bd},
+                              scen, ip);
           rch[0] = KSIM_PAD;
         }
       }
@@ -218,7 +222,9 @@ __device__ __noinline__ void ksim_k6_boundary(int64_t scen, int C, bool lead, in
   if (lead) {  // (iii)
     for (int k = n + threadIdx.x; k < RB; k += blockDim.x) rch[k] = KSIM_PAD;
     __syncthreads();
-    ksim_retry_bookkeeping(a, scen, ph.b, ph.t_b);
+    const KsimRebind rb{ph.k.rrel, ph.k.first_b, ph.evict_t, ph.resched, ph.evict_lat,
+                        ph.t_bd};
+    ksim_retry_bookkeeping(a, scen, ph.b, ph.t_b, rb.rrel ? &rb : nullptr);
   }
   ksim_cluster_barrier(C);
   if (!ph.used_out && !ph.snap_used) return;

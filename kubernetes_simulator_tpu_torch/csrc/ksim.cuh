@@ -1651,6 +1651,40 @@ __device__ __forceinline__ int ksim_block_exclusive_scan(int v, int* total) {
   return before + x - v;
 }
 
+#define KSIM_NEVER 0x7fffffff
+// first_b of a pod bound in its wave (or pre-bound) and evicted since.
+#define KSIM_FIRST_IN_WAVE (-2)
+
+// What K6's retry mode adds to a retried bind under a chaos timeline
+// (sim/boundary.py:401-475, :632-639; null pointers: nothing): rrel / first_b
+// [S,P] the boundary of each retried pod's pending release (KSIM_NEVER: none
+// listed) and its first bind, which K10 reads to find a pod's node; evict_t
+// [S,P] f64 the start time of the boundary that evicted a pod still waiting
+// for a re-bind (negative: none), resched [S] the re-binds and evict_lat [S]
+// f64 their summed latency; t_bd the boundary's f64 start time (inf: the
+// trailing boundary, which counts a re-bind and adds no latency).
+struct KsimRebind {
+  int32_t* rrel;
+  int32_t* first_b;
+  double* evict_t;
+  int32_t* resched;
+  double* evict_lat;
+  double t_bd;
+};
+
+// Pod row i (scenario scen) is bound by the retry pass: a chaos victim
+// waiting for a re-bind is re-bound — its eviction time cleared, the re-bind
+// counted, t_bd − t_evict added in f64 at a finite boundary. One thread, in
+// bind order.
+__device__ __forceinline__ void ksim_chaos_rebind(const KsimRebind& rb, int64_t scen,
+                                                  int64_t i) {
+  const double te = rb.evict_t[i];
+  if (te < 0.0) return;
+  rb.evict_t[i] = -1.0;
+  rb.resched[scen] += 1;
+  if (isfinite(rb.t_bd)) rb.evict_lat[scen] = rb.evict_lat[scen] + (rb.t_bd - te);
+}
+
 // K4's bookkeeping of boundary b (start time t_b, f32) in scenario scen, in
 // one block of KSIM_RB_THREADS threads, after the retry pass wrote its choice
 // of each buffer slot k to rchoice[scen, k] (retry_boundary.cu describes the
@@ -1659,9 +1693,13 @@ __device__ __forceinline__ int ksim_block_exclusive_scan(int v, int* total) {
 // KSIM_RB_ITEMS buffer slots and pending entries and reads all of them before
 // the block writes (the compactions are in place); block-wide exclusive scans
 // of the per-thread counts give every kept entry its position: stable,
-// integer-only, no atomics.
+// integer-only, no atomics. With `rb` (K6's retry mode under a chaos
+// timeline) each retried bind also records its pending release's boundary
+// and its first bind, and thread 0 counts the re-binds of evicted pods in
+// buffer order (the pass's bind order).
 __device__ __forceinline__ void ksim_retry_bookkeeping(const KsimArgs& a, int64_t scen, int b,
-                                                       float t_b) {
+                                                       float t_b,
+                                                       const KsimRebind* rb = nullptr) {
   const int RB = a.RB, B = a.B;
   int32_t* rbuf = a.rbuf + scen * RB;
   const int32_t* rch = a.rchoice + scen * RB;
@@ -1672,6 +1710,15 @@ __device__ __forceinline__ void ksim_retry_bookkeeping(const KsimArgs& a, int64_
   int32_t* rbind_b = a.rbind_b + scen * (int64_t)a.P;
   const int per = (RB + blockDim.x - 1) / blockDim.x;  // <= KSIM_RB_ITEMS
   const int k0 = threadIdx.x * per;
+  int32_t* rrel = rb ? rb->rrel : nullptr;
+  int32_t* first_b = rb ? rb->first_b : nullptr;
+  if (rrel) {
+    rrel += scen * (int64_t)a.P;
+    first_b += scen * (int64_t)a.P;
+  }
+  if (rb && rb->evict_t && threadIdx.x == 0)  // reads only: the block's writes come later
+    for (int k = 0; k < RB && rbuf[k] >= 0; ++k)
+      if (rch[k] >= 0) ksim_chaos_rebind(*rb, scen, scen * (int64_t)a.P + rbuf[k]);
 
   // Read this thread's buffer slots and pending entries.
   int pod[KSIM_RB_ITEMS], node[KSIM_RB_ITEMS], relb_new[KSIM_RB_ITEMS];
@@ -1687,6 +1734,10 @@ __device__ __forceinline__ void ksim_retry_bookkeeping(const KsimArgs& a, int64_
     if (q >= 0 && c >= 0) {
       rnode[q] = c;
       rbind_b[q] = b;
+      if (rrel) {
+        if (first_b[q] == KSIM_PAD) first_b[q] = b;
+        rrel[q] = KSIM_NEVER;  // until its pending entry is listed below
+      }
       const float v = t_b + a.dur[q];
       int lo = 0, hi = B;
       while (lo < hi) {
@@ -1731,6 +1782,7 @@ __device__ __forceinline__ void ksim_retry_bookkeeping(const KsimArgs& a, int64_
       pend_id[j] = pod[i];
       pend_node[j] = node[i];
       pend_relb[j] = relb_new[i];
+      if (rrel) rrel[pod[i]] = relb_new[i];
     }
     ++j;
   }
@@ -1783,10 +1835,6 @@ struct KsimKube {
   int32_t trace_has_anti;
   int32_t pad0;
 };
-
-#define KSIM_NEVER 0x7fffffff
-// first_b of a pod bound in its wave (or pre-bound) and evicted since.
-#define KSIM_FIRST_IN_WAVE (-2)
 
 // Pod q's node in scenario scen during boundary b's pass (PAD: not bound):
 // its retried node while its pending release has not fired, else its

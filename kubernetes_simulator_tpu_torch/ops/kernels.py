@@ -1,6 +1,6 @@
 """The replay's hand-written Hopper kernels: build, binding and wrappers.
 
-Nine CUDA C++ kernels (``csrc/*.cu``, compiled for ``sm_90a``) carry the
+Ten CUDA C++ kernels (``csrc/*.cu``, compiled for ``sm_90a``) carry the
 device work of the replay and of the scenario-batched what-if: every
 kernel takes the S-stacked tables of :mod:`.reference` (the
 single-scenario replay is S = 1) and runs each scenario in its own
@@ -44,6 +44,10 @@ wrapper                       replaces (kubernetes_simulator_tpu/...)
 :func:`shard_chunk_replay`    sim/jax_runtime.py:548 make_chunk_fn_sharded
 (K9)                          (the node-sharded chunk program: one launch a
                               chunk) with :494 make_wave_step_sharded
+:func:`evict_node` (K10)      sim/boundary.py:430 evict_node (a chaos
+                              node_down's NoExecute eviction; applied at
+                              sim/jax_runtime.py:1755-1793, sim/whatif.py
+                              :3266-3330)
 ============================  ================================================
 
 K6 runs K1's, K2's and K3's bodies (``csrc/ksim.cuh``) for every slot of
@@ -103,6 +107,12 @@ route. Under kube preemption the retry mode runs the kube pass instead
 ``ksim.cuh`` ``ksim_post_filter``; its tables reach the kernel in
 ``KsimRetryPhase``'s ``KsimKube``, the scratch is :class:`Bound`'s); the
 per-slot route refuses kube.
+
+Under a chaos timeline (a Retry with ``evict_t``) K10 runs at a boundary
+where a ``node_down`` falls due, before the boundary's releases, one block
+a scenario with one: it evicts the down nodes' pods (its twin
+:func:`.reference.evict_node`), and K6's retry mode then counts each
+victim's re-bind (``KsimRetryPhase``'s chaos fields).
 
 In a what-if batch whose scenarios relabel nodes (``set_label``; row B11,
 the dyn sections of ops/tpu3.py:944 make_wave_step3 and the dyn release
@@ -179,6 +189,7 @@ KERNELS = {
     "shard_select": "shard_select.cu",
     "shard_apply": "shard_apply.cu",
     "shard_chunk_replay": "shard_chunk_replay.cu",
+    "evict_node": "evict_node.cu",
 }
 
 #: argtypes of each C entry point (every one returns a cudaError_t as int)
@@ -213,6 +224,8 @@ _ARGTYPES = {
     "shard_chunk_replay": [_P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _P],
     # K9's attributes (shard_chunk_replay.cu): (regs, shared_bytes, max_threads)
     "shard_chunk_replay_attrs": [_P, _P, _P],
+    # (args, ev, ev_size, m, stream)
+    "evict_node": [_P, _P, _I, _I, _P],
 }
 
 _MAX_SEG = 16
@@ -354,15 +367,31 @@ class KsimKube(ctypes.Structure):
 
 class KsimRetryPhase(ctypes.Structure):
     """Mirror of ``struct KsimRetryPhase`` in csrc/chunk_replay.cuh (K6's
-    retry mode: the boundary, its series samples and, with ``kube``, the
-    kube pass's tables; the C entry checks sizeof())."""
+    retry mode: the boundary, its series samples, with ``kube`` the kube
+    pass's tables, and under a chaos timeline the re-bind records and the
+    boundary's f64 start time; the C entry checks sizeof())."""
 
     _fields_ = (
         [("b", ctypes.c_int32), ("t_b", ctypes.c_float), ("pending", ctypes.c_int32),
          ("kube", ctypes.c_int32)]
         + [(name, ctypes.c_void_p) for name in (
             "used_out", "rcount_out", "pend_out", "snap_used", "snap_mc", "snap_aa", "snap_pw")]
-        + [("k", KsimKube)]
+        + [("k", KsimKube), ("t_bd", ctypes.c_double)]
+        + [(name, ctypes.c_void_p) for name in ("evict_t", "resched", "evict_lat")]
+    )
+
+
+class KsimEvict(ctypes.Structure):
+    """Mirror of ``struct KsimEvict`` in csrc/evict_node.cu (one K10 launch:
+    its scenarios and down nodes, the node tables, the chaos records and the
+    boundary; the C entry checks sizeof())."""
+
+    _fields_ = (
+        [(name, ctypes.c_void_p) for name in (
+            "scen", "off", "nodes", "col_of", "col_relb", "rrel", "first_b", "choices")]
+        + [("choice_ss", ctypes.c_int64)]
+        + [(name, ctypes.c_void_p) for name in ("evict_t", "evictions")]
+        + [("t_bd", ctypes.c_double), ("b", ctypes.c_int32), ("pad0", ctypes.c_int32)]
     )
 
 
@@ -670,15 +699,30 @@ def pack_args(tb: ref.Tables, res_w: torch.Tensor, rel: torch.Tensor) -> KsimArg
             tensors[name] = t
         if rt.tbt.shape[0] < 1:
             raise ValueError("retry.tbt: no finite boundary")
-        if rt.prio is not None:
+        if rt.col_of is not None:
             L = rt.col_relb.shape[0]
             for name, t, shape in (
                 ("prio", rt.prio, (P,)), ("col_of", rt.col_of, (P,)), ("col_relb", rt.col_relb, (L,)),
                 ("rrel", rt.rrel, (S, P)), ("first_b", rt.first_b, (S, P)),
                 ("preempt", rt.preempt, (S,)),
             ):
+                if t is None and name in ("prio", "preempt"):
+                    continue  # a chaos timeline without kube
                 if tuple(t.shape) != shape or t.dtype != torch.int32:
                     raise ValueError(f"retry.{name}: expected int32 {shape}, got {t.dtype} "
+                                     f"{tuple(t.shape)}")
+                tensors[f"kube.{name}"] = t
+        if rt.evict_t is not None:
+            if rt.col_of is None:
+                raise ValueError("retry: a chaos timeline needs the node tables (col_of, ...)")
+            for name, t, shape, dt in (
+                ("evict_t", rt.evict_t, (S, P), torch.float64),
+                ("evictions", rt.evictions, (S,), torch.int32),
+                ("resched", rt.resched, (S,), torch.int32),
+                ("evict_lat", rt.evict_lat, (S,), torch.float64),
+            ):
+                if tuple(t.shape) != shape or t.dtype != dt:
+                    raise ValueError(f"retry.{name}: expected {dt} {shape}, got {t.dtype} "
                                      f"{tuple(t.shape)}")
                 tensors[f"kube.{name}"] = t
     sh = tb.shards
@@ -807,18 +851,23 @@ class Bound:
         kube fields) with its scratch, allocated at the first call and kept
         with the Bound: the pass's ring ``kq [S, RB]`` and state ``kst [S,
         4]``, the PostFilter's ``kvic [S, P]``, ``koff`` / ``kcnt [S, N]``
-        (each call rewrites what it reads)."""
+        (each call rewrites what it reads). Under a chaos timeline without
+        kube: the node tables alone (``col_of``, ``col_relb``, ``rrel``,
+        ``first_b``, the choice buffer), the rest null."""
         tb = self.tables
         rt = tb.retry
         S, N = tb.state.used.shape[:2]
         RB, P = rt.rbuf.shape[1], rt.rnode.shape[1]
-        if self._kube is None:
+        kube = rt.prio is not None
+        if kube and self._kube is None:
             z = lambda *shape: torch.zeros(shape, dtype=torch.int32, device=rt.rbuf.device)
             self._kube = dict(kq=z(S, RB), kst=z(S, 4), kvic=z(S, P), koff=z(S, N), kcnt=z(S, N))
         k = KsimKube()
         for name in ("prio", "col_of", "col_relb", "rrel", "first_b", "preempt"):
-            setattr(k, name, getattr(rt, name).data_ptr())
-        for name, t in self._kube.items():
+            t = getattr(rt, name)
+            if t is not None:
+                setattr(k, name, t.data_ptr())
+        for name, t in (self._kube.items() if kube else ()):
             setattr(k, name, t.data_ptr())
         k.choices, k.choice_ss = choices.data_ptr(), choices.shape[1]
         k.trace_has_anti = int(bool(rt.trace_has_anti))
@@ -1082,8 +1131,9 @@ def _check_retry_phase(b: Bound, retry, append: bool, reject, samples) -> None:
         raise ValueError("kube preemption runs without series telemetry: its attribution and "
                          "samples are ROADMAP queue A item 6c")
     bnd, _, _ = retry
-    if int(bnd) < 1 or not append:
-        raise ValueError("a retry boundary is a chunk's boundary b > 0, with failure appends")
+    if int(bnd) < (0 if tb.retry.evict_t is not None else 1) or not append:
+        raise ValueError("a retry boundary is a chunk's boundary b > 0 (b >= 0 under a chaos "
+                         "timeline), with failure appends")
     if samples is not None:
         S, N, R = tb.state.used.shape
         RB = tb.retry.rbuf.shape[1]
@@ -1175,8 +1225,13 @@ def chunk_replay(b: Bound, idx: torch.Tensor, gang: torch.Tensor, choices: torch
         snap = sm.snap or (None,) * 4
         phase = KsimRetryPhase(int(bnd), float(t_b), int(bool(pending)), int(kube), ptr(sm.used),
                                ptr(sm.rcount), ptr(sm.pend), *map(ptr, snap))
-        if kube:
+        rt = b.tables.retry
+        if kube or rt.evict_t is not None:
             phase.k = b.kube_phase(choices)
+        if rt.evict_t is not None:
+            phase.t_bd = float(rt.tbd[bnd]) if bnd < rt.tbd.shape[0] else float("inf")
+            phase.evict_t, phase.resched, phase.evict_lat = (
+                rt.evict_t.data_ptr(), rt.resched.data_ptr(), rt.evict_lat.data_ptr())
     _check(_libs["chunk_replay"](
         b._args_ptr, idx.data_ptr(), gang.data_ptr(), choices.data_ptr(), choices.shape[1],
         int(W), int(first), int(end), -1 if boundary is None else int(boundary),
@@ -1326,8 +1381,45 @@ def shard_chunk_replay_attrs() -> Dict[str, int]:
     return dict(zip(("regs", "shared_bytes", "max_threads"), (x.value for x in out)))
 
 
+def evict_node(b: Bound, choices: torch.Tensor, scen: torch.Tensor, off: torch.Tensor,
+               nodes: torch.Tensor, bnd: int, t_b: float) -> None:
+    """K10: the NoExecute eviction of chaos ``node_down`` events at boundary
+    ``bnd`` (f64 start time ``t_b``), before its releases: scenario
+    ``scen[i]`` evicts the pods of its down nodes ``nodes[off[i]:off[i +
+    1]]`` in order (``scen [m]``, ``off [m + 1]``, ``nodes`` int32 on the
+    tables' device; one block a scenario) — each node's pods in pod order,
+    their state rewound, pending entries cancelled, records cleared, each
+    non-gang one requeued (:func:`.reference.evict_node`). Needs retry
+    tables with the chaos records (a Retry with ``evict_t``)."""
+    rt = b.tables.retry
+    if rt is None or rt.evict_t is None:
+        raise ValueError("evict_node needs retry tables with a chaos timeline's records")
+    if b.tables.shards is not None or b.tables.preempt is not None:
+        raise ValueError("evict_node runs on the replicated tables of the retry buffer")
+    if not b.cuda:
+        ref.evict_nodes(b.tables, choices, scen, off, nodes, bnd, t_b)
+        return
+    _check_choices(b, choices)
+    dev = b.tables.state.used.device
+    m = scen.numel()
+    for name, t, n in (("scen", scen, m), ("off", off, m + 1), ("nodes", nodes, None)):
+        if (t.dtype != torch.int32 or t.device != dev or not t.is_contiguous()
+                or (n is not None and t.numel() != n)):
+            raise ValueError(f"{name}: contiguous int32 on the tables' device expected")
+    if m == 0:
+        return
+    ev = KsimEvict(scen.data_ptr(), off.data_ptr(), nodes.data_ptr(), rt.col_of.data_ptr(),
+                   rt.col_relb.data_ptr(), rt.rrel.data_ptr(), rt.first_b.data_ptr(),
+                   choices.data_ptr(), choices.shape[1], rt.evict_t.data_ptr(),
+                   rt.evictions.data_ptr(), float(t_b), int(bnd), 0)
+    _check(_libs["evict_node"](b._args_ptr, ctypes.byref(ev), ctypes.sizeof(KsimEvict), int(m),
+                               _stream()), "evict_node")
+    evict_node.launches += 1
+
+
 WRAPPERS = (filter_score, normalize_select, apply_placements, retry_boundary, first_reject,
-            first_reject_fold, chunk_replay, shard_select, shard_apply, shard_chunk_replay)
+            first_reject_fold, chunk_replay, shard_select, shard_apply, shard_chunk_replay,
+            evict_node)
 
 
 #: The wrappers that also count their launches by mode.

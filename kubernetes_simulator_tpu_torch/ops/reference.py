@@ -34,6 +34,12 @@ the series telemetry's first-reject attribution: the per-plugin Filter
 masks of failed slots, in ``spec_plugin_names`` order, counted into the
 Tables' ``reject`` counters.
 
+Under a chaos timeline (a Retry with ``evict_t``; the host schedule is
+:func:`event_steps`) :func:`evict_node` is the twin of K10
+(``csrc/evict_node.cu``): a ``node_down``'s NoExecute eviction before the
+boundary's releases; the retry pass's binds then count each victim's
+re-bind (:func:`chaos_rebind`).
+
 Under the unschedulable-retry buffer (a Tables with ``retry``) the three
 take one pod per scenario (the retry pass over the buffer), K3 also
 appends a failed non-gang pod to its scenario's buffer and releases the
@@ -274,6 +280,19 @@ class Retry(NamedTuple):
     #: any required anti-affinity in the trace (the PostFilter's fast path
     #: is off for every pod)
     trace_has_anti: bool = False
+    # Chaos node events (sim/boundary.py:401-475; None: no timeline). The
+    # retry buffer without kube then carries col_of, col_relb, rrel and
+    # first_b too (no prio): K10 derives each pod's node from them.
+    #: [S, P] f64 the start time of the boundary that evicted the pod while
+    #: it waits for a re-bind (-1: none)
+    evict_t: Optional[torch.Tensor] = None
+    evictions: Optional[torch.Tensor] = None  # [S] i32 NoExecute victims so far
+    resched: Optional[torch.Tensor] = None  # [S] i32 evicted pods re-bound by the retry pass
+    #: [S] f64 the sum, in bind order, of (re-bind boundary time − eviction
+    #: time) over the re-binds at a finite boundary
+    evict_lat: Optional[torch.Tensor] = None
+    #: [B] f64 host start time of each boundary (a re-bind's time)
+    tbd: Optional[np.ndarray] = None
 
 
 #: first_b of a pod bound in its wave (or pre-bound) and evicted since.
@@ -281,10 +300,13 @@ FIRST_IN_WAVE = -2
 
 
 def new_retry(RB: int, duration: np.ndarray, tbt: np.ndarray, S: int, device,
-              kube: Optional[dict] = None) -> Retry:
+              kube: Optional[dict] = None, chaos: Optional[dict] = None) -> Retry:
     """An empty Retry of S scenarios with a buffer of RB slots on
     ``device``; ``kube`` (``prio [P]``, ``col_of [P]``, ``col_relb [L]``
-    host arrays and ``trace_has_anti``) adds kube preemption's tables."""
+    host arrays and ``trace_has_anti``) adds kube preemption's tables;
+    ``chaos`` (``col_of``, ``col_relb`` and ``tbd``, the boundaries' f64
+    start times) the chaos counters, and without kube the node tables K10
+    reads (``col_of``, ``col_relb``, ``rrel``, ``first_b``)."""
     P = int(np.asarray(duration).shape[0])
     i32 = torch.int32
     pad = lambda *shape: torch.full(shape, PAD, dtype=i32, device=device)
@@ -296,15 +318,24 @@ def new_retry(RB: int, duration: np.ndarray, tbt: np.ndarray, S: int, device,
         pend_id=pad(S, RB), pend_node=pad(S, RB), pend_relb=pad(S, RB),
         rnode=pad(S, P), rbind_b=pad(S, P),
     )
-    if kube is None:
-        return rt
     t = lambda a: torch.as_tensor(np.ascontiguousarray(a, np.int32), device=device)
-    return rt._replace(
-        prio=t(kube["prio"]), col_of=t(kube["col_of"]), col_relb=t(kube["col_relb"]),
-        rrel=torch.full((S, P), NEVER, dtype=i32, device=device), first_b=pad(S, P),
-        preempt=torch.zeros(S, dtype=i32, device=device),
-        trace_has_anti=bool(kube["trace_has_anti"]),
-    )
+    nodes = kube if kube is not None else chaos
+    if nodes is not None:
+        rt = rt._replace(col_of=t(nodes["col_of"]), col_relb=t(nodes["col_relb"]),
+                         rrel=torch.full((S, P), NEVER, dtype=i32, device=device),
+                         first_b=pad(S, P))
+    if kube is not None:
+        rt = rt._replace(prio=t(kube["prio"]), preempt=torch.zeros(S, dtype=i32, device=device),
+                         trace_has_anti=bool(kube["trace_has_anti"]))
+    if chaos is not None:
+        f64 = torch.float64
+        rt = rt._replace(
+            evict_t=torch.full((S, P), -1.0, dtype=f64, device=device),
+            evictions=torch.zeros(S, dtype=i32, device=device),
+            resched=torch.zeros(S, dtype=i32, device=device),
+            evict_lat=torch.zeros(S, dtype=f64, device=device),
+            tbd=np.asarray(chaos["tbd"], np.float64))
+    return rt
 
 
 class Reject(NamedTuple):
@@ -1494,6 +1525,8 @@ def kube_pass(tb: Tables, choices: torch.Tensor, bnd: int, t_b: float) -> None:
             rt.rbind_b[s, p] = bnd
             if int(rt.first_b[s, p]) == PAD:
                 rt.first_b[s, p] = bnd
+            if rt.evict_t is not None:
+                chaos_rebind(rt, s, p, bnd)
             rrel = NEVER
             v = np.float32(t_b) + np.float32(float(rt.dur[p]))
             rb = int(np.searchsorted(tb32, v, side="left"))
@@ -1508,6 +1541,145 @@ def kube_pass(tb: Tables, choices: torch.Tensor, bnd: int, t_b: float) -> None:
             x[s] = torch.tensor(col, dtype=i32, device=dev)
         rt.rbuf[s] = torch.tensor(kept[s] + [PAD] * (RB - len(kept[s])), dtype=i32, device=dev)
         rt.rcount[s] = len(kept[s])
+
+
+def chaos_rebind(rt: Retry, s: int, p: int, b: int) -> None:
+    """Pod p is bound by boundary b's retry pass in scenario s: if a
+    node_down evicted it and it waits for a re-bind, it is re-bound — its
+    eviction time cleared, ``resched`` counted, and, at a finite boundary,
+    ``t_b − t_evict`` added to ``evict_lat`` in f64 (sim/boundary.py:632-639;
+    the trailing boundary counts the re-bind and adds nothing)."""
+    t_ev = float(rt.evict_t[s, p])
+    if t_ev < 0.0:
+        return
+    rt.evict_t[s, p] = -1.0
+    rt.resched[s] += 1
+    t_b = float(rt.tbd[b]) if b < rt.tbd.shape[0] else float("inf")
+    if np.isfinite(t_b):
+        rt.evict_lat[s] = float(rt.evict_lat[s]) + (t_b - t_ev)
+
+
+def event_steps(timelines, tb: np.ndarray, alloc0: np.ndarray) -> dict:
+    """The chaos timeline of each scenario (``timelines [S]`` lists of
+    NodeEvent, each sorted by time) as the device work of each boundary
+    (the reference's schedule, sim/jax_runtime.py:1755-1793 and
+    sim/whatif.py:3266-3330): an event fires at the first boundary b whose
+    f64 start time ``tb[b]`` is at or after its time (chunk 0 included; no
+    event fires at the trailing boundary). ``alloc0`` is the allocatable
+    every scenario starts from, ``[N, R]`` (shared) or ``[S, N, R]``, f32: a
+    ``node_down`` sets the node's row to 0, a ``node_up`` back to the
+    scenario's own t = 0 row and a ``capacity_scale`` to that row times its
+    factor. Returns ``{b: ChaosStep}`` for each boundary where an event
+    fires."""
+    a0 = np.asarray(alloc0, np.float32)
+    S = len(timelines)
+    N, R = a0.shape[-2:]
+    row0 = (lambda s, n: a0[n]) if a0.ndim == 2 else (lambda s, n: a0[s, n])
+    cur = [0] * S
+    out = {}
+    for b, t in enumerate(np.asarray(tb, np.float64)):
+        rows, downs = {}, []
+        for s in range(S):
+            tl, i = timelines[s], cur[s]
+            nodes = []
+            while i < len(tl) and tl[i].time <= t:
+                ev = tl[i]
+                i += 1
+                n = int(ev.node)
+                if ev.kind == "node_down":
+                    rows[(s, n)] = np.zeros(R, np.float32)
+                    nodes.append(n)
+                elif ev.kind == "node_up":
+                    rows[(s, n)] = row0(s, n).copy()
+                elif ev.kind == "capacity_scale":
+                    rows[(s, n)] = (row0(s, n) * ev.scale).astype(np.float32)
+            cur[s] = i
+            if nodes:
+                downs.append((s, nodes))
+        if not rows:
+            continue
+        keys = sorted(rows)
+        out[b] = ChaosStep(
+            rows=np.asarray([s * N + n for s, n in keys], np.int64),
+            vals=np.stack([rows[k] for k in keys]).astype(np.float32),
+            scen=np.asarray([s for s, _ in downs], np.int32),
+            off=np.concatenate(([0], np.cumsum([len(x) for _, x in downs]))).astype(np.int32),
+            nodes=np.asarray([n for _, x in downs for n in x], np.int32),
+            t_b=float(t),
+        )
+    return out
+
+
+class ChaosStep(NamedTuple):
+    """The device work of one boundary of a chaos timeline
+    (:func:`event_steps`; numpy arrays, or their device copies): the
+    allocatable rows that change (flat row ids ``s · N + n`` of an ``[S · N,
+    R]`` view, each once, and their new values), and for K10 the scenarios
+    with a ``node_down`` here and their down nodes in timeline order
+    (``nodes[off[i]:off[i + 1]]`` for scenario ``scen[i]``); ``t_b`` the
+    boundary's f64 start time."""
+
+    rows: np.ndarray  # [k] i64
+    vals: np.ndarray  # [k, R] f32
+    scen: np.ndarray  # [m] i32
+    off: np.ndarray  # [m + 1] i32
+    nodes: np.ndarray  # [off[m]] i32
+    t_b: float
+
+
+def evict_node(tb: Tables, choices: torch.Tensor, s: int, nodes, b: int, t_b: float) -> None:
+    """Plain twin of K10 (csrc/evict_node.cu) in scenario s at boundary b
+    (f64 start time ``t_b``), before the boundary's releases: for each down
+    node in ``nodes``, in order, the NoExecute eviction of every pod bound
+    there (sim/boundary.py:430-475 ``evict_node``) — the pods whose node
+    before this boundary's releases is that node (:func:`bound_nodes` at b −
+    1: a release that falls due at b has not fired yet), in ascending pod
+    index; each one's node row loses its requests and its count planes are
+    rewound (models/state.py unbind), its pending entry is cancelled, its
+    retried node (and ``rrel``) or its choice-buffer column cleared (no
+    release fires for it), its ``first_b`` marked when it was first bound in
+    its wave, its eviction time ``t_b`` recorded, ``evictions`` counted, and
+    a non-gang victim joins the retry buffer while it has room (else
+    ``rdrop``); a gang victim stays displaced."""
+    rt = tb.retry
+    RB = rt.rbuf.shape[1]
+    gid = tb.pods.group_id
+    for n in nodes:
+        cur = bound_nodes(tb, choices, s, b - 1)
+        for v in torch.nonzero(cur == int(n)).flatten().tolist():
+            _unbind_planes(tb, s, v, int(n))
+            keep = rt.pend_id[s] != v
+            m = int(keep.sum())
+            for x in (rt.pend_id, rt.pend_node, rt.pend_relb):
+                row = x[s][keep].clone()
+                x[s].fill_(PAD)
+                x[s, :m] = row
+            if int(rt.rnode[s, v]) >= 0:
+                rt.rnode[s, v] = PAD
+                rt.rrel[s, v] = NEVER
+            else:
+                choices[s, int(rt.col_of[v])] = PAD
+            if int(rt.first_b[s, v]) == PAD:
+                rt.first_b[s, v] = FIRST_IN_WAVE
+            rt.evict_t[s, v] = float(t_b)
+            rt.evictions[s] += 1
+            if int(gid[v]) < 0:
+                c = int(rt.rcount[s])
+                if c < RB:
+                    rt.rbuf[s, c] = v
+                    rt.rcount[s] = c + 1
+                else:
+                    rt.rdrop[s] += 1
+
+
+def evict_nodes(tb: Tables, choices: torch.Tensor, scen: torch.Tensor, off: torch.Tensor,
+                nodes: torch.Tensor, b: int, t_b: float) -> None:
+    """K10's launch as its twin: :func:`evict_node` in scenario ``scen[i]``
+    over its down nodes ``nodes[off[i]:off[i + 1]]``, scenario by scenario
+    (each scenario's eviction touches only its own state)."""
+    off_h, nodes_h = off.tolist(), nodes.tolist()
+    for i, s in enumerate(scen.tolist()):
+        evict_node(tb, choices, s, nodes_h[off_h[i] : off_h[i + 1]], b, t_b)
 
 
 def take_samples(tb: Tables, samples: RetrySamples) -> None:
@@ -1801,7 +1973,11 @@ def retry_boundary(tb: Tables, b: int, t_b: float) -> None:
     3. the buffer keeps its unplaced pods, stably (``rcount`` their
        number).
 
-    Entries past a list's end are PAD in every field."""
+    Entries past a list's end are PAD in every field. With chaos tables (a
+    Retry with ``rrel``, no kube) each placed pod also records the boundary
+    of its pending release in ``rrel`` (NEVER where none was listed) and its
+    first bind in ``first_b``; with ``evict_t``, an evicted pod placed here
+    is counted re-bound (:func:`chaos_rebind`), in buffer order."""
     rt = tb.retry
     RB = rt.rbuf.shape[1]
     rbuf, ch = rt.rbuf, rt.rchoice
@@ -1811,11 +1987,22 @@ def retry_boundary(tb: Tables, b: int, t_b: float) -> None:
     q = rbuf[s_i, k_i].long()
     rt.rnode[s_i, q] = ch[s_i, k_i]
     rt.rbind_b[s_i, q] = b
+    if rt.evict_t is not None:
+        for s_, q_ in zip(s_i.tolist(), q.tolist()):  # scenario-major, buffer order
+            chaos_rebind(rt, s_, q_, b)
     v = torch.tensor(t_b, dtype=torch.float32, device=rbuf.device) + rt.dur[rbuf.clamp(min=0).long()]
     rbn = torch.searchsorted(rt.tbt, v.contiguous(), right=False).to(torch.int32)
     add = placed & (rbn < rt.tbt.shape[0])
     relb_new = torch.clamp(rbn, min=b + 1)
     keep_old = (rt.pend_id >= 0) & (rt.pend_relb > b)
+    if rt.rrel is not None:
+        # a new entry is listed while the kept ones and the new ones before
+        # it number fewer than RB
+        listed = add & (keep_old.sum(dim=1, keepdim=True) + add.cumsum(dim=1) <= RB)
+        rt.rrel[s_i, q] = torch.where(listed[s_i, k_i], relb_new[s_i, k_i],
+                                      torch.full_like(relb_new[s_i, k_i], NEVER))
+        first = rt.first_b[s_i, q]
+        rt.first_b[s_i, q] = torch.where(first == PAD, torch.full_like(first, b), first)
     ids = torch.cat([torch.where(keep_old, rt.pend_id, torch.full_like(rbuf, PAD)),
                      torch.where(add, rbuf, torch.full_like(rbuf, PAD))], dim=1)
     node = torch.cat([rt.pend_node, ch], dim=1)

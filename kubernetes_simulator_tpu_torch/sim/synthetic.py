@@ -1,8 +1,8 @@
 """Synthetic cluster/workload generators for the [BASELINE] eval configs.
 
 Counterpart: ``kubernetes_simulator_tpu/sim/synthetic.py`` (a copy, seeded
-exactly as the JAX package's so both build identical traces; the chaos
-timeline generator is not carried over).
+exactly as the JAX package's so both build identical traces, the chaos
+timeline generator ``make_chaos_timeline`` :169 included).
 
 Config 1: 100 nodes / 1k pods, NodeResourcesFit + LeastAllocated.
 Config 2: 5k nodes / 50k pods, full default plugin set (affinity, taints,
@@ -168,6 +168,70 @@ def make_workload(
         pods.append(pod)
     meta = {"num_gangs": gang_id, "makespan": t}
     return pods, meta
+
+
+
+def make_chaos_timeline(
+    num_nodes: int,
+    seed: int = 0,
+    horizon: float = 100.0,
+    mtbf: float = 200.0,
+    mttr: float = 20.0,
+    node_fraction: float = 0.2,
+    max_events: Optional[int] = None,
+):
+    """Seeded chaos campaign: per-node exponential failure/recovery pairs.
+
+    Each node in a ``node_fraction`` sample draws failure gaps from
+    ``Exp(mtbf)`` and outage lengths from ``Exp(mttr)``, emitting
+    ``node_down``/``node_up`` pairs until ``horizon``. ``mttr=0`` means
+    nodes stay down (pure-failure campaign, no ``node_up``). Events are
+    returned sorted by time — ready for ``validate_node_events`` and any
+    engine's ``node_events=`` argument. Deterministic per seed: the same
+    numpy draws as the reference's, so both packages build one timeline.
+    """
+    from .runtime import NodeEvent, validate_node_events
+
+    if mtbf <= 0:
+        raise ValueError(f"chaos mtbf must be > 0, got {mtbf}")
+    if mttr < 0:
+        raise ValueError(f"chaos mttr must be >= 0, got {mttr}")
+    if not 0.0 < node_fraction <= 1.0:
+        raise ValueError(
+            f"chaos node_fraction must be in (0, 1], got {node_fraction}"
+        )
+    rng = np.random.default_rng(seed)
+    n_pick = max(1, int(round(num_nodes * node_fraction)))
+    targets = rng.choice(num_nodes, size=min(n_pick, num_nodes), replace=False)
+    events: List = []
+    for node in sorted(int(n) for n in targets):
+        t = float(rng.exponential(mtbf))
+        while t < horizon:
+            events.append(NodeEvent(time=t, kind="node_down", node=node))
+            if mttr <= 0:
+                break  # stays down for the rest of the campaign
+            up = t + max(float(rng.exponential(mttr)), 1e-9)
+            if up >= horizon:
+                break
+            events.append(NodeEvent(time=up, kind="node_up", node=node))
+            t = up + max(float(rng.exponential(mtbf)), 1e-9)
+    events.sort(key=lambda e: (e.time, e.node))
+    if max_events is not None and len(events) > max_events:
+        # Truncate at a pair boundary: never strand a node_up whose
+        # node_down was cut (validation would reject it).
+        events = events[:max_events]
+        down = set()
+        kept = []
+        for e in events:
+            if e.kind == "node_up" and e.node not in down:
+                continue
+            if e.kind == "node_down":
+                down.add(e.node)
+            elif e.kind == "node_up":
+                down.discard(e.node)
+            kept.append(e)
+        events = kept
+    return validate_node_events(events, num_nodes)
 
 
 def config1(num_nodes: int = 100, num_pods: int = 1000, seed: int = 0):

@@ -124,6 +124,24 @@ shards, paged waves (the reference's refusal), series/timeline telemetry
 summary latency counts first binds only (``Retry.first_b``), victims that
 end unplaced included; ``ReplayResult.preemptions`` and ``retry_dropped``
 come from the card.
+
+Chaos node events (``replay(node_events=...)``, the what-if's
+``Scenario.events``; the reference's schedule, sim/jax_runtime.py:1716-1803,
+:2299-2310 and sim/whatif.py:3266-3330) fire at the first boundary whose f64
+start time is at or after the event's, chunk 0 included, never at the
+trailing one. Each boundary's work is staged on the device before the loop
+(:func:`chaos_steps`) and runs first at its boundary, before the releases:
+the allocatable rows it rewrites (``node_down`` 0, ``node_up`` the
+scenario's t = 0 row, ``capacity_scale`` that row times its factor; an
+``index_copy_``, no host sync) and, under the retry buffer or kube, K10
+(``evict_node``) over the scenarios with a ``node_down`` there — the down
+nodes' pods evicted NoExecute and requeued — then K3's releases and the
+retry-mode K6, whose pass re-binds the victims (at boundary 0 too, where
+K10 evicted pre-bound pods). The plain path rewrites rows only, as the
+reference's. The run restores the allocatable after the loop. Refused by
+name: events under node shards or paged waves and on the per-slot route
+under the retry buffer (queue A item 6b), with series/timeline (6c) and with
+checkpoints (6d).
 """
 
 from __future__ import annotations
@@ -145,7 +163,7 @@ from ..ops import kernels as K
 from ..ops import reference as ref
 from ..plugins.builtin import DEFAULT_WEIGHTS, PLUGIN_NAMES
 from ..utils.metrics import fragmentation_gauges, log, series_gauges, utilization_means
-from .runtime import ReplayResult
+from .runtime import ReplayResult, validate_node_events
 from ..parallel.shards import make_layout, shard_cluster
 from .telemetry import TelemetryCollector, TelemetryConfig, resolve_granularity
 from .tiers import check_tier_mode, normalize_preemption, tier_planes
@@ -727,10 +745,24 @@ def run_retry_boundary(plan: ChunkPlan, b: int, h, fns, rt: ref.Retry,
     retry_boundary(h, b, float(np.float32(plan.tb[b])))
 
 
+def chaos_steps(plan: ChunkPlan, timelines, alloc0: np.ndarray, device) -> dict:
+    """``{b: ChaosStep}`` of the boundaries where an event of ``timelines``
+    (one list of NodeEvent a scenario) fires (:func:`..ops.reference.
+    event_steps` over the plan's f64 boundary times; ``alloc0`` the t = 0
+    allocatable, ``[N, R]`` or ``[S, N, R]``), its arrays on ``device``,
+    uploaded once before a run, so the chunk loop enqueues each step with
+    no host transfer."""
+    t = lambda a: torch.as_tensor(a, device=device)
+    return {b: st._replace(rows=t(st.rows), vals=t(st.vals), scen=t(st.scen), off=t(st.off),
+                           nodes=t(st.nodes))
+            for b, st in ref.event_steps(timelines, plan.tb, alloc0).items()}
+
+
 def run_waves(plan: ChunkPlan, tb: ref.Tables, choices: torch.Tensor, first: int, end: int,
               plain: bool, ser: Optional[Series] = None, route: str = "slot",
               pager=None, joint: bool = False, timers=None,
-              on_chunk: Optional[Callable[[int], None]] = None) -> None:
+              on_chunk: Optional[Callable[[int], None]] = None,
+              chaos: Optional[dict] = None) -> None:
     """Enqueue waves ``[first, end)`` of ``plan`` over the S scenarios of
     ``tb`` (state and ``choices`` updated in place, no synchronisation):
     the release bucket of a boundary where a chunk starts (with ``joint``,
@@ -783,7 +815,16 @@ def run_waves(plan: ChunkPlan, tb: ref.Tables, choices: torch.Tensor, first: int
     host wall, as ``dispatch`` and ``dispatch_<route>``; ``on_chunk(b)`` is
     called once chunk b's launches are enqueued (the flight recorder's
     cadence; it may read clocks and counters, and must not wait on the
-    card)."""
+    card).
+
+    ``chaos`` (``{b: ChaosStep}``, :func:`chaos_steps`; the replicated
+    routes, without series or a pager) runs each boundary's chaos step
+    first, before its releases (sim/jax_runtime.py:1716-1803): the
+    allocatable rows it rewrites (an ``index_copy_`` on the stream) and,
+    under the retry buffer, K10's NoExecute eviction of its down nodes'
+    pods (:func:`..ops.kernels.evict_node`), whose victims the boundary's
+    retry pass then re-attempts — at boundary 0 too, in a retry-mode K6
+    (the chunk route only: the per-slot route's eviction is not ported)."""
     if route not in ROUTES:
         raise ValueError(f"route must be one of {ROUTES}, got {route!r}")
     if route in SHARD_ROUTES and ser is not None:
@@ -803,6 +844,21 @@ def run_waves(plan: ChunkPlan, tb: ref.Tables, choices: torch.Tensor, first: int
                               or first % plan.C):
         raise ValueError("paged pod waves run from a chunk's start, without series telemetry, "
                          "the retry buffer or tier preemption")
+    rt = tb.retry
+    if chaos:
+        if route in SHARD_ROUTES or pager is not None:
+            raise _later("chaos node events under node shards or paged pod waves",
+                         "ROADMAP queue A item 6b")
+        if ser is not None:
+            raise _later("telemetry series/timeline with chaos node events (evict and "
+                         "node_down events, the victims' episode clears)",
+                         "ROADMAP queue A item 6c")
+        if rt is not None and route != "chunk":
+            raise _later(f"chaos evictions on route {route!r} (the per-slot retry sequence's "
+                         "eviction step)", "ROADMAP queue A item 6b")
+        if rt is not None and rt.evict_t is None:
+            raise ValueError("a chaos timeline under the retry buffer needs retry tables "
+                             "with its records (ChunkEngine._tables)")
     dev = tb.state.used.device
     idx, C = plan.idx, plan.C
     W = idx.shape[1]
@@ -820,7 +876,8 @@ def run_waves(plan: ChunkPlan, tb: ref.Tables, choices: torch.Tensor, first: int
     filter_score, normalize_select, apply_placements = fns[:3]
     chunk_replay, shard_select, shard_apply, shard_chunk_replay = fns[6:10]
     release = shard_apply if route in SHARD_ROUTES else apply_placements
-    rt = tb.retry
+    evict = ref.evict_nodes if plain else K.evict_node
+    alloc_rows = tb.cluster.allocatable.view(-1, tb.cluster.allocatable.shape[-1])
     if rt is not None:
         pos_rb = torch.arange(rt.rbuf.shape[1], dtype=torch.int32, device=dev)
     desc = plan.device_desc(dev, paged=pager is not None)
@@ -872,6 +929,13 @@ def run_waves(plan: ChunkPlan, tb: ref.Tables, choices: torch.Tensor, first: int
         arguments (else (None, None))."""
         if pager is not None:
             chunk_start(b)
+        step = chaos.get(b) if chaos else None
+        evicted = False
+        if step is not None:
+            alloc_rows.index_copy_(0, step.rows, step.vals)
+            if rt is not None and step.scen.numel():
+                evict(h, choices, step.scen, step.off, step.nodes, b, step.t_b)
+                evicted = True
         if ser is not None and ser.fold and b > 0:
             fold(b - 1)
         if rt is not None and joint and b > 0:
@@ -883,7 +947,7 @@ def run_waves(plan: ChunkPlan, tb: ref.Tables, choices: torch.Tensor, first: int
             at_b = lambda x: x[b] if x is not None and np.isfinite(plan.tb[b]) else None
             samples = ref.RetrySamples(at_b(ser.used), at_b(ser.rcount), at_b(ser.pend),
                                        ser.snap if ser.fold else None)
-        if rt is not None and b > 0 and route == "chunk":
+        if rt is not None and (b > 0 or evicted) and route == "chunk":
             return (b, float(np.float32(plan.tb[b])), not joint), samples
         if rt is not None and b > 0:
             run_retry_boundary(plan, b, h, fns, rt, pos_rb, reject, joint)
@@ -974,20 +1038,20 @@ def run_waves(plan: ChunkPlan, tb: ref.Tables, choices: torch.Tensor, first: int
 def run_chunks(
     plan: ChunkPlan, tb: ref.Tables, bound_node: np.ndarray, plain: bool, timers=None,
     ser: Optional[Series] = None, route: Optional[str] = None, pager=None, joint: bool = False,
-    on_chunk: Optional[Callable[[int], None]] = None,
+    on_chunk: Optional[Callable[[int], None]] = None, chaos: Optional[dict] = None,
 ) -> np.ndarray:
     """Replay every chunk of ``plan`` over the S scenarios of ``tb`` (its
     state is updated in place) on ``route`` (None: :func:`choose_route`
     of ``plain`` and the tables' shards), with ``pager``'s pages
-    when given (``joint``, ``timers`` and ``on_chunk``: as :func:`run_waves`),
-    and return the host copy of the choice buffer ``[S, L]``.
-    The one synchronisation is the final fetch."""
+    when given (``joint``, ``timers``, ``on_chunk`` and ``chaos``: as
+    :func:`run_waves`), and return the host copy of the choice buffer
+    ``[S, L]``. The one synchronisation is the final fetch."""
     tick = timers.tick if timers is not None else (lambda name: contextlib.nullcontext())
     route = route or choose_route(plain, tb.shards is not None,
                                   tb.retry is not None and tb.retry.prio is not None)
     choices = new_choices(plan, tb.state.used.shape[0], bound_node, tb.state.used.device)
     run_waves(plan, tb, choices, 0, plan.idx.shape[0], plain, ser, route, pager, joint,
-              timers=timers, on_chunk=on_chunk)
+              timers=timers, on_chunk=on_chunk, chaos=chaos)
     with tick("device_wait"):
         return choices.cpu().numpy()
 
@@ -1135,13 +1199,18 @@ class ChunkEngine:
                                   self.device)
         rt = None
         if self.retry_buffer:
-            kube = None
+            kube = chaos = nodes = None
+            timelines = self._timelines()
+            if self.kube or timelines is not None:
+                nodes = dict(col_of=self.plan.col_of(self.pods.num_pods),
+                             col_relb=self.plan.col_relb)
             if self.kube:
-                kube = dict(prio=self.pods.priority, col_of=self.plan.col_of(self.pods.num_pods),
-                            col_relb=self.plan.col_relb,
-                            trace_has_anti=bool((self.pods.anti_req >= 0).any()))
+                kube = dict(prio=self.pods.priority,
+                            trace_has_anti=bool((self.pods.anti_req >= 0).any()), **nodes)
+            if timelines is not None:
+                chaos = dict(tbd=self.plan.tb, **nodes)
             rt = ref.new_retry(self.retry_buffer, self.pods.duration, self.plan.tbt, self.S,
-                               self.device, kube=kube)
+                               self.device, kube=kube, chaos=chaos)
         sh = None
         if self.layout is not None:
             lay, plan = self.layout, self.plan
@@ -1158,6 +1227,17 @@ class ChunkEngine:
                                    self.device) if attribute else None),
             wrow=self._wrow, shards=sh,
         )
+
+    def _timelines(self) -> Optional[list]:
+        """The chaos timeline of each scenario of the next run (a list of
+        NodeEvent lists), or None when no scenario has an event."""
+        tl = getattr(self, "_events", None)
+        return tl if tl is not None and any(tl) else None
+
+    def _alloc0(self) -> np.ndarray:
+        """The host allocatable every scenario starts from (a ``node_up``
+        restores its row): ``[N, R]``; the what-if batch's ``[S, N, R]``."""
+        return self.ec.allocatable
 
     def _pager(self):
         """A fresh pager of this engine's plan (paged pod waves), or None;
@@ -1200,13 +1280,24 @@ class ChunkEngine:
         if recorder is not None:
             timers = timers if timers is not None else recorder.phases
             hook = self._flight_hook(recorder, pager, timers)
+        timelines = self._timelines()
+        chaos = alloc = None
+        if timelines is not None:
+            # The steps go up before the loop; the allocatable the run
+            # rewrites comes back after it (sim/jax_runtime.py:1941-1944).
+            chaos = chaos_steps(self.plan, timelines, self._alloc0(), self.device)
+            alloc = tb.cluster.allocatable
+            alloc0 = alloc.clone()
         t0 = time.perf_counter()
         try:
             host_choices = run_chunks(self.plan, tb, self.pods.bound_node, self.plain, timers,
-                                      ser, self.last_route, pager, joint, on_chunk=hook)
+                                      ser, self.last_route, pager, joint, on_chunk=hook,
+                                      chaos=chaos)
         finally:
             if pager is not None:
                 pager.close()
+            if alloc is not None:
+                alloc.copy_(alloc0)
         wall = time.perf_counter() - t0
         self.last_choices = host_choices
         rnode = tb.retry.rnode.cpu().numpy() if tb.retry is not None else None
@@ -1283,8 +1374,15 @@ class TorchReplayEngine(ChunkEngine):
     the retry path) and the boundary-sampled series, ``timeline`` the bind
     events (kubernetes_simulator_tpu/sim/jax_runtime.py:2117-2160,
     sim/boundary.py:360-398, :563-668); under tier preemption and node
-    shards attribution is off, as the reference's. Every other mode of the
-    JAX engine raises ``NotImplementedError`` naming it."""
+    shards attribution is off, as the reference's.
+
+    ``replay(node_events=)`` (a sorted list of :class:`.runtime.NodeEvent`,
+    validated as the reference validates it) applies a chaos timeline at
+    chunk boundaries (module docstring): on the plain path the allocatable
+    rows, under the retry buffer or kube also K10's NoExecute eviction,
+    with ``evictions``, ``evict_rescheduled``, ``evict_stranded`` and
+    ``evict_latency_mean`` in the result. Every other mode of the JAX engine
+    raises ``NotImplementedError`` naming it."""
 
     def __init__(
         self,
@@ -1383,12 +1481,27 @@ class TorchReplayEngine(ChunkEngine):
                 "checkpoint/resume is not supported with device preemption (tier planes are "
                 "not checkpointed)"
             )
+        if node_events and (checkpoint_path or checkpoint_every or resume):
+            raise _later("checkpoint/resume with node_events (the event cursor and events_hash "
+                         "in the blob)", "ROADMAP queue A item 6d")
         if checkpoint_path or checkpoint_every or resume:
             raise _later("checkpoint/resume", "engine modes, queue A item 6")
-        if node_events:
-            raise _later("node_events", "chaos node events, queue A item 6")
+        validate_node_events(node_events, self.ec.num_nodes)
+        events = list(node_events or [])
         ep = self.pods
         tcfg = TelemetryConfig.resolve(self.telemetry)
+        if events:
+            if self.node_shards > 1 or self.paged:
+                raise _later("node_events with node_shards or paged=True (the allocatable rows "
+                             "and the eviction over node shards and pod pages)",
+                             "ROADMAP queue A item 6b")
+            if self.retry_buffer and choose_route(self.plain, kube=self.kube) != "chunk":
+                raise _later("node_events on the per-slot route under the retry buffer (its "
+                             "eviction step; the chunk route runs K10)",
+                             "ROADMAP queue A item 6b")
+            if tcfg.want_series:
+                raise _later(f"telemetry={self.telemetry!r} with node_events (the evictions' "
+                             "attribution and evict/node_down events)", "ROADMAP queue A item 6c")
         tel = TelemetryCollector(tcfg) if tcfg.enabled else None
         # The reference's use_rej (sim/jax_runtime.py:2117-2144): series and
         # timeline attribute rejections and sample the series, except under
@@ -1415,6 +1528,7 @@ class TorchReplayEngine(ChunkEngine):
                 "pod-by-pod K1–K3 chain, one launch a chunk; placements are bit-identical"
             )
         rec, rec_own = self._open_recorder()
+        self._events = [events] if events else None
         try:
             tb, wall, assignments, placed_s, to_schedule = self._run(
                 tel.phases if tel is not None else None, series=use_rej, joint=True,
@@ -1423,6 +1537,8 @@ class TorchReplayEngine(ChunkEngine):
             if rec_own:
                 rec.close()
             raise
+        finally:
+            self._events = None
         assignments = assignments[0]
         placed = int(placed_s[0])
         if rec is not None:
@@ -1451,6 +1567,7 @@ class TorchReplayEngine(ChunkEngine):
         )
         if tel is not None:
             self._collect(tel, tb, placed)
+        chaos = chaos_counters(tb.retry)
         return ReplayResult(
             assignments=assignments,
             placed=placed,
@@ -1467,6 +1584,8 @@ class TorchReplayEngine(ChunkEngine):
             fragmentation=frag,
             telemetry=tel.result() if tel is not None else None,
             route=self.last_route,
+            evictions=int(chaos[0][0]), evict_rescheduled=int(chaos[1][0]),
+            evict_stranded=int(chaos[2][0]), evict_latency_mean=float(chaos[3][0]),
         )
 
     def _open_recorder(self):
@@ -1504,7 +1623,7 @@ class TorchReplayEngine(ChunkEngine):
         wave-placed pods (at their arrival, slot order)."""
         plan, ep, rt = self.plan, self.pods, tb.retry
         order = np.zeros(0, np.int64)
-        if self.kube:
+        if rt is not None and rt.first_b is not None:
             # First binds only (the reference's ``_ever_bound``,
             # sim/boundary.py:619-627): a wave bind has latency 0, whether
             # the pod still holds its slot or was evicted since (first_b
@@ -1575,6 +1694,26 @@ class TorchReplayEngine(ChunkEngine):
                 m = (pods >= 0) & (nodes >= 0)
                 for p, n in zip(pods[m].tolist(), nodes[m].tolist()):
                     tel.event("bind", float(ep.arrival[p]), p, n)
+
+
+def chaos_counters(rt: Optional[ref.Retry]) -> Tuple[np.ndarray, ...]:
+    """``(evictions, evict_rescheduled, evict_stranded, evict_latency_mean)``
+    of each scenario (``[S]`` each; the reference's ``BoundaryOps``
+    counters, sim/boundary.py:401-428): NoExecute victims, their re-binds,
+    those still displaced at the end (an eviction time never cleared) and
+    the f64 mean latency of the re-binds (0 without one). Zeros without a
+    chaos timeline's records."""
+    if rt is None or rt.evict_t is None:
+        S = rt.rbuf.shape[0] if rt is not None else 1
+        z = np.zeros(S, np.int32)
+        return z, z, z, np.zeros(S, np.float64)
+    resched = rt.resched.cpu().numpy()
+    lat = rt.evict_lat.cpu().numpy()
+    mean = np.zeros(resched.shape, np.float64)
+    for s in np.nonzero(resched)[0]:
+        mean[s] = float(lat[s]) / int(resched[s])
+    return (rt.evictions.cpu().numpy(), resched,
+            (rt.evict_t >= 0).sum(dim=1).to(torch.int32).cpu().numpy(), mean)
 
 
 @register_strategy("torch")

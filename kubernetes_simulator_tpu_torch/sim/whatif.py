@@ -74,8 +74,13 @@ reference's per-scenario host mirrors, :591-620, :864-866, :2830-2883)
 runs each scenario's retry pass, PostFilter and victims in its own cluster
 of K6's retry-mode launches, over the scenario's own allocatable and taints
 (:mod:`.torch_runtime`), with the trailing boundary after the last chunk;
-``WhatIfResult.preemptions``, ``retry_dropped`` and the zero ``evictions`` /
-``evict_*`` counters come back per scenario (sim/boundary.py:401-412). It
+``WhatIfResult.preemptions``, ``retry_dropped`` and the ``evictions`` /
+``evict_*`` counters come back per scenario (sim/boundary.py:401-412). A
+kube batch takes a chaos timeline a scenario (``Scenario.events``; the
+reference's :757-781, :3266-3330): at a boundary each scenario's events
+rewrite its allocatable rows from its own t = 0 row (after its static
+perturbations), K10 evicts the pods of its down nodes before the releases,
+and the run restores the stacks. It
 keeps the reference's refusals (a mesh, fork checkpoints, no buffer,
 ``completions=False``, label perturbations or ``engine="v2"``) and the
 port's refusal of pre-bound pods (queue A item 7); ``collect_assignments``
@@ -137,6 +142,7 @@ from ..ops import reference as ref
 from ..ops.policy import POLICY_COLS
 from ..parallel.mesh import make_mesh, mesh_shape
 from ..utils.metrics import log
+from .runtime import validate_node_events
 from .telemetry import PhaseTimers, ReplayTelemetry, resolve_granularity
 from .tiers import DMAX_COARSE, nonsingleton_host_rows, normalize_preemption
 from .torch_runtime import (
@@ -144,6 +150,7 @@ from .torch_runtime import (
     StepSpec,
     _spread_norm_f32_ok,
     assignments_from_choices,
+    chaos_counters,
     check_retry_buffer,
     choose_route,
     completions_gate,
@@ -175,7 +182,8 @@ class Perturbation:
 @dataclass
 class Scenario:
     perturbations: List[Perturbation] = field(default_factory=list)
-    # Timed failure/recovery timeline (chaos campaigns); not ported yet.
+    # Timed failure/recovery timeline (chaos campaigns: sim.runtime.NodeEvent,
+    # sorted by time); needs kube preemption.
     events: List = field(default_factory=list)
 
 
@@ -489,6 +497,27 @@ class WhatIfEngine(ChunkEngine):
         # Tier preemption with a buffer meets the batch's own refusal below,
         # in the reference's words; kube without one, the engines' error.
         mode = tier_preemption(preemption, retry_buffer=rb if kube else 0)
+        # Per-scenario timed failure/recovery timelines (chaos campaigns):
+        # the reference applies them through its per-scenario kube mirrors
+        # (sim/whatif.py:757-781), so they need kube; kept as given (an
+        # unsorted timeline must error, not be silently fixed).
+        timelines = [list(getattr(sc, "events", None) or []) for sc in scenarios]
+        if any(timelines):
+            if not kube:
+                raise ValueError(
+                    "per-scenario timed event timelines (Scenario.events) require "
+                    "preemption='kube' with retry_buffer > 0: events apply through the "
+                    "per-scenario host mirrors at chunk boundaries, and node_down evictions "
+                    "requeue victims through the boundary retry pass. Use static t=0 "
+                    "Perturbations for mirror-free batches."
+                )
+            for si, tl in enumerate(timelines):
+                try:
+                    validate_node_events(tl, ec.num_nodes)
+                except ValueError as e:
+                    raise ValueError(f"scenario {si}: {e}") from None
+        #: each scenario's chaos timeline (None: no scenario has an event)
+        self._events = timelines if any(timelines) else None
         if kube:
             # The reference's kube guards (sim/whatif.py:598-620).
             if mesh is not None:
@@ -562,8 +591,6 @@ class WhatIfEngine(ChunkEngine):
             raise _later("fork_checkpoint (what-if forks from a checkpoint)", "queue A item 7")
         if _dcn_recovery is not None:
             raise _later("_dcn_recovery (the multi-process fleet)", "queue A item 11")
-        if any(sc.events for sc in scenarios):
-            raise _later("Scenario.events (per-scenario chaos timelines)", "queue A item 7")
         # Off the kube path the reference's batch collects the same at every
         # granularity above "off": the batch's phase timers in one fleet
         # telemetry and no per-scenario reasons (those come from the kube
@@ -690,6 +717,12 @@ class WhatIfEngine(ChunkEngine):
             warnings.warn(msg, stacklevel=3)
         return False
 
+    def _alloc0(self) -> np.ndarray:
+        """[S, N, R] f32: each scenario's allocatable after its static
+        perturbations, the row a ``node_up`` restores (the reference's
+        ``ksaved_alloc``, sim/whatif.py:2915)."""
+        return self.sset._alloc.astype(np.float32)
+
     def _utilization_cpu(self, tb: ref.Tables) -> Optional[np.ndarray]:
         """[S] mean over nodes of used/allocatable cpu (0 where a node has
         none), in f32 on the device as the reference computes it."""
@@ -807,11 +840,10 @@ class WhatIfEngine(ChunkEngine):
             retry_dropped=per_block(lambda t: t.retry.rdrop.cpu().numpy()
                                     if t.retry is not None else None),
             # kube batches report the reference's counters() tuple
-            # (sim/boundary.py:401-412); no chaos runs here: no evictions
-            **({} if not self.kube else dict(
-                evictions=np.zeros(self.S, np.int32), evict_rescheduled=np.zeros(self.S, np.int32),
-                evict_stranded=np.zeros(self.S, np.int32),
-                evict_latency_mean=np.zeros(self.S, np.float64))),
+            # (sim/boundary.py:401-412): zeros in a scenario without a timeline
+            **({} if not self.kube else dict(zip(
+                ("evictions", "evict_rescheduled", "evict_stranded", "evict_latency_mean"),
+                chaos_counters(tbs[0].retry)))),
             fleet_telemetry=(ReplayTelemetry(granularity=self.telemetry, phases=timers.summary())
                              if timers is not None else None),
             n_devices=len(self.mesh) if self.mesh is not None else 1,

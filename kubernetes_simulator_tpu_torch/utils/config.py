@@ -22,13 +22,15 @@ cpu`` is refused by name), ``flightRecorder`` (a path or ``{path,
 every}``: the single replay's flight recorder) and ``overlap``
 (``pagerThread``, ``twoPhaseExchange``; ``backgroundPublisher: true`` is
 refused by name: it moves checkpoint publication, which the port does not
-have yet). Parsing is the reference's, key for key (utils/config.py
+have yet) and ``chaos`` (:class:`ChaosSpec`: a seeded MTBF/MTTR node
+failure timeline for ``run``, one a scenario past 0 for ``what-if``). Parsing is the reference's, key for key (utils/config.py
 :213-270, :543-570), so one YAML file yields the same encoded case and the
 same scenario batch in both packages; the reference's ``validate``
 refusals of a retry buffer (kubernetes_simulator_tpu/cli.py:705-730) raise
 ``ValueError`` here, and its checks of the recorder and of ``overlap:``
 (cli.py:487-517, :860-882) are :func:`flight_errors` and
-:func:`overlap_errors`, and those of kube (:718-729) :func:`kube_errors`.
+:func:`overlap_errors`, those of kube (:718-729) :func:`kube_errors`, and
+those of ``chaos:`` (:759-781) :func:`chaos_errors`.
 
 Every other section of the JAX package's schema belongs to a mode the port
 does not carry yet; :meth:`SimConfig.from_dict` refuses it with an error
@@ -124,6 +126,23 @@ class OverlapSpec:
     pager_thread: Optional[bool] = None
     background_publisher: Optional[bool] = None
     two_phase_exchange: Optional[bool] = None
+
+
+@dataclass
+class ChaosSpec:
+    """Seeded chaos campaign (``chaos:`` YAML section; the reference's,
+    utils/config.py:99-112): MTBF/MTTR-style failure injection. ``run``
+    turns this into a single ``node_events`` timeline; ``what-if`` gives
+    each scenario s > 0 its own ``seed + s`` timeline (scenario 0 stays the
+    clean reference)."""
+
+    enabled: bool = False
+    seed: int = 0
+    mtbf: float = 200.0
+    mttr: float = 20.0
+    node_fraction: float = 0.2
+    horizon: Optional[float] = None  # None → workload makespan
+    max_events: Optional[int] = None
 
 
 @dataclass
@@ -229,7 +248,6 @@ def _coerce_completions(v: object) -> Optional[bool]:
 #: Sections of the JAX package's schema the port refuses, with the mode
 #: each one selects.
 _REFUSED_SECTIONS = {
-    "chaos": "chaos node-event timelines",
     "dcn": "the multi-process fleet",
     "service": "the resident query service",
     "faultline": "fleet fault injection",
@@ -290,6 +308,8 @@ class SimConfig:
     # The flight recorder (None: off) and the overlap gates (None: defaults).
     flight_recorder: Optional[FlightRecorderSpec] = None
     overlap: Optional[OverlapSpec] = None
+    # The chaos campaign (None: no chaos: section).
+    chaos: Optional[ChaosSpec] = None
 
     @classmethod
     def from_dict(cls, d: dict) -> "SimConfig":
@@ -392,6 +412,17 @@ class SimConfig:
                 path=str(fr.get("path", "flight.jsonl")), every=int(fr.get("every", 1)))
         if d.get("overlap") is not None:
             cfg.overlap = _overlap_spec(d["overlap"])
+        ch = d.get("chaos")
+        if ch is not None:
+            cfg.chaos = ChaosSpec(
+                enabled=bool(ch.get("enabled", True)),
+                seed=int(ch.get("seed", 0)),
+                mtbf=float(ch.get("mtbf", 200.0)),
+                mttr=float(ch.get("mttr", 20.0)),
+                node_fraction=float(ch.get("nodeFraction", 0.2)),
+                horizon=float(ch["horizon"]) if ch.get("horizon") is not None else None,
+                max_events=int(ch["maxEvents"]) if ch.get("maxEvents") is not None else None,
+            )
         return cfg
 
     @classmethod
@@ -519,13 +550,47 @@ def kube_errors(cfg: SimConfig) -> List[str]:
     return errors
 
 
+def chaos_errors(cfg: SimConfig) -> List[str]:
+    """The reference's checks of an enabled ``chaos:`` section
+    (kubernetes_simulator_tpu/cli.py:759-781), as error strings (empty: ok):
+    the campaign's parameters, ``whatIf.retryBuffer > 0`` (both strategies
+    the port runs are its device engine, the reference's ``jax``) and kube
+    for a what-if sweep."""
+    ch = cfg.chaos
+    if ch is None or not ch.enabled:
+        return []
+    errors = []
+    if ch.mtbf <= 0:
+        errors.append("chaos.mtbf: must be > 0")
+    if ch.mttr < 0:
+        errors.append("chaos.mttr: must be >= 0")
+    if not 0.0 < ch.node_fraction <= 1.0:
+        errors.append("chaos.nodeFraction: must be in (0, 1]")
+    if ch.horizon is not None and ch.horizon <= 0:
+        errors.append("chaos.horizon: must be > 0 (or omitted)")
+    if ch.max_events is not None and ch.max_events < 0:
+        errors.append("chaos.maxEvents: must be >= 0")
+    if not cfg.whatif.retry_buffer:
+        errors.append(
+            f"chaos with strategy: {cfg.strategy} requires whatIf.retryBuffer > 0 — without "
+            "the boundary retry pass node_down only blocks future placements (no NoExecute "
+            "eviction of bound pods)"
+        )
+    if cfg.whatif.scenarios > 0 and cfg.device_preemption != "kube":
+        errors.append(
+            "chaos what-if sweeps require devicePreemption: kube (per-scenario timelines "
+            "apply at chunk boundaries through the kube pass's eviction and requeue)"
+        )
+    return errors
+
+
 def config_errors(cfg: SimConfig) -> List[str]:
     """Every check of the reference's ``validate`` that the port's sections
     have (:func:`kube_errors`, :func:`borg_errors`, :func:`shard_errors`,
-    :func:`flight_errors`, :func:`overlap_errors`); empty: the config is
-    valid."""
+    :func:`flight_errors`, :func:`overlap_errors`, :func:`chaos_errors`);
+    empty: the config is valid."""
     return (kube_errors(cfg) + borg_errors(cfg) + shard_errors(cfg) + flight_errors(cfg)
-            + overlap_errors(cfg))
+            + overlap_errors(cfg) + chaos_errors(cfg))
 
 
 def build_case(cfg: SimConfig):

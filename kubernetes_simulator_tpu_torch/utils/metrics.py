@@ -262,7 +262,8 @@ def whatif_rows(res, extra: Optional[dict] = None) -> Iterable[dict]:
     without preemption reports no per-scenario drops there). The
     reference's per-scenario kube, chaos, latency and fragmentation fields
     come from modes the port does not run yet and are left out, but a kube
-    batch's ``evictions`` / ``evict_*`` counters (zero: no chaos runs)."""
+    batch's chaos counters ``evictions`` / ``evict_*`` (zero in a scenario
+    without a timeline)."""
     base = extra or {}
     pre = getattr(res, "preemptions", None)
     drop = getattr(res, "retry_dropped", None)

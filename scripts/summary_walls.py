@@ -8,7 +8,13 @@ against another in a single call (parent, change, change, parent):
 - config4: ``examples/config4_borg_1m.yaml`` as the CLI ``run`` builds it
   (10,000 nodes x 1,000,000 Borg tasks; K6);
 - config13: ``examples/config13_borgscale.yaml`` likewise (10,000 x 100,000
-  over 8 node shards, paged; K9).
+  over 8 node shards, paged; K9);
+- config7: the what-if of ``examples/config7_retry_completions.yaml`` as
+  shipped (64 scenarios x 500 nodes x 20,000 pods, retryBuffer 256; K6's
+  retry mode);
+- config8: the single replay of ``examples/config8_kube_preempt.yaml`` as
+  the CLI ``run`` builds it (60 x 4,000, kube, retryBuffer 256; K6's kube
+  pass).
 
 Each is one engine, a warm-up run, then three timed runs (the engine's
 own wall: host clock around the chunk loop, ending in the one fetch); and
@@ -126,6 +132,17 @@ def main() -> int:
             ec, ep = cs.case(5000, 50_000)
             eng = TorchReplayEngine(ec, ep, FrameworkConfig(), wave_width=8, chunk_waves=1024,
                                     telemetry="summary")
+        elif name == "config7":
+            cfg, ec, ep = cs.config7_case()
+            eng = WhatIfEngine(ec, ep, uniform_scenarios(ec, cfg.whatif.scenarios,
+                                                         seed=cfg.whatif.seed),
+                               cfg.framework, wave_width=cfg.wave_width,
+                               chunk_waves=cfg.chunk_waves, retry_buffer=cfg.whatif.retry_buffer)
+        elif name == "config8":
+            cfg, ec, ep = cs.config8_case()
+            eng = TorchReplayEngine(ec, ep, cfg.framework, wave_width=cfg.wave_width,
+                                    chunk_waves=cfg.chunk_waves, preemption=cfg.device_preemption,
+                                    retry_buffer=cfg.whatif.retry_buffer, telemetry="summary")
         else:
             eng = from_config(cs.CONFIG4 if name == "config4" else cs.CONFIG13)
         out[name] = timed(eng, lambda: eng._run(joint=True)[1] if isinstance(

@@ -125,6 +125,7 @@ _PORTED_SECTIONS = {
     "overlap: {pagerThread: true}": ("run", "pagedWaves: true\nchunkWaves: 1\n"),
     "flightRecorder: {path: f.jsonl}": ("run", "chunkWaves: 1\n"),
     "devicePreemption: kube": ("run", "whatIf: {retryBuffer: 8}\nchunkWaves: 1\n"),
+    "chaos: {enabled: true}": ("run", "whatIf: {retryBuffer: 8}\nchunkWaves: 1\n"),
 }
 
 
@@ -208,7 +209,7 @@ def test_engine_refuses_later_modes(kw, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("kw", [dict(checkpoint_path="ck.npz"), dict(resume=True),
-                                dict(node_events=[object()])])
+                                dict(node_events=[object()], checkpoint_path="ck.npz")])
 def test_replay_refuses_later_modes(kw):
     from kubernetes_simulator_tpu_torch.sim.torch_runtime import TorchReplayEngine
 
@@ -229,7 +230,8 @@ def test_wrappers_take_the_twin_only_on_cpu():
                                  "apply_placements": 0, "retry_boundary": 0,
                                  "first_reject": 0, "first_reject_fold": 0,
                                  "chunk_replay": 0, "shard_select": 0, "shard_apply": 0,
-                                 "shard_chunk_replay": 0, "apply_placements_bind": 0, "apply_placements_rollback": 0,
+                                 "shard_chunk_replay": 0, "evict_node": 0,
+                                 "apply_placements_bind": 0, "apply_placements_rollback": 0,
                                  "apply_placements_release": 0,
                                  "shard_apply_bind": 0, "shard_apply_rollback": 0,
                                  "shard_apply_release": 0}

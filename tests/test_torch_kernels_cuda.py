@@ -1217,3 +1217,55 @@ def test_kube_kernel_path_equals_plain_path(card, seed, with_affinity):
                  torch.as_tensor(wk.last_choices, device=card),
                  *cs.subset_tables(wt.last_tables, torch.as_tensor(wt.last_choices), [0, 1, 2]),
                  [0, 1, 2])
+
+
+@pytest.mark.parametrize("kube", [True, False])
+def test_evict_node_equals_twin(card, kube):
+    """K10 (csrc/evict_node.cu) against its twin, ``ref.evict_node`` on the
+    CPU, at config9's densest eviction boundary of the single replay under
+    its chaos.seed timeline (chip_smoke.py hold_evict_node: the tables after
+    the chunks before it and the boundary's allocatable rows; choices, every
+    plane, the retry and chaos tables equal after the launch, and after
+    timed launches from the same state), with kube and with the retry buffer
+    alone."""
+    cs = _chip_smoke()
+    cfg, ec, ep = cs.config9_case()
+    kw = dict(preemption="kube") if kube else {}
+    eng = TorchReplayEngine(ec, ep, cfg.framework, wave_width=cfg.wave_width,
+                            chunk_waves=cfg.chunk_waves, retry_buffer=cfg.whatif.retry_buffer,
+                            device=card, **kw)
+    ev = cs.chaos_timeline(cfg, ec, ep, cfg.chaos.seed)
+    with cs.engine_events(eng, [ev]):
+        vic, steps = cs.chaos_walk(eng, card, True)
+        b = max(vic, key=lambda x: (int(vic[x].sum()), -x))
+        out = cs.hold_evict_node(f"config9 kube={kube}", eng, b, steps, card, True)
+    assert out["victims"] > 0
+
+
+def test_chaos_kernel_path_equals_plain_path(card):
+    """config9's single replay under its timeline and a 4-scenario kube
+    what-if with timelines on the card equal the same runs on the CPU twins
+    (assignments and the eviction counters); K10 launches once a boundary
+    where a node_down falls due."""
+    from kubernetes_simulator_tpu_torch.sim.whatif import Scenario, WhatIfEngine
+
+    cs = _chip_smoke()
+    cfg, ec, ep = cs.config9_case()
+    kw = dict(wave_width=cfg.wave_width, chunk_waves=cfg.chunk_waves, preemption="kube",
+              retry_buffer=cfg.whatif.retry_buffer)
+    ev = cs.chaos_timeline(cfg, ec, ep, cfg.chaos.seed)
+    K.reset_launch_counts()
+    res = TorchReplayEngine(ec, ep, cfg.framework, device=card, **kw).replay(node_events=ev)
+    assert K.launch_counts()["evict_node"] > 0
+    want = TorchReplayEngine(ec, ep, cfg.framework, device="cpu", **kw).replay(node_events=ev)
+    np.testing.assert_array_equal(res.assignments, want.assignments)
+    assert cs.chaos_counters_of(res) == cs.chaos_counters_of(want)
+    scen = [Scenario()] + [Scenario(events=cs.chaos_timeline(cfg, ec, ep, cfg.chaos.seed + s))
+                           for s in range(1, 4)]
+    a = WhatIfEngine(ec, ep, scen, cfg.framework, collect_assignments=True, device=card,
+                     **kw).run()
+    b = WhatIfEngine(ec, ep, scen, cfg.framework, collect_assignments=True, device="cpu",
+                     **kw).run()
+    np.testing.assert_array_equal(a.assignments, b.assignments)
+    for s in range(4):
+        assert cs.chaos_counters_of(a, s) == cs.chaos_counters_of(b, s)

@@ -391,5 +391,6 @@ def test_wrappers_take_the_twins_on_cpu_under_the_buffer():
     assert K.launch_counts() == dict.fromkeys(
         ("filter_score", "normalize_select", "apply_placements", "retry_boundary",
          "first_reject", "first_reject_fold", "chunk_replay", "shard_select", "shard_apply",
-         "shard_chunk_replay", "apply_placements_bind", "apply_placements_rollback", "apply_placements_release",
-         "shard_apply_bind", "shard_apply_rollback", "shard_apply_release"), 0)
+         "shard_chunk_replay", "evict_node", "apply_placements_bind", "apply_placements_rollback",
+         "apply_placements_release", "shard_apply_bind", "shard_apply_rollback",
+         "shard_apply_release"), 0)

@@ -298,8 +298,17 @@ def test_engine_refuses_later_modes_by_queue_item(kw, item):
     ec, ep = _tiny()
     scen = [T.Scenario(), T.Scenario()]
     if kw == "events":
-        scen[1].events = [object()]
-        kw = {}
+        # Ported since (chaos timelines, tests/test_torch_chaos.py): without
+        # kube the reference's error, with it the batch runs.
+        from kubernetes_simulator_tpu_torch.sim.runtime import NodeEvent
+
+        scen[1].events = [NodeEvent(time=0.0, kind="node_down", node=0)]
+        with pytest.raises(ValueError, match="kube"):
+            T.WhatIfEngine(ec, ep, scen, device="cpu")
+        res = T.WhatIfEngine(ec, ep, scen, device="cpu", preemption="kube", retry_buffer=8,
+                             chunk_waves=1).run()
+        assert res.placed.shape == (2,) and int(res.evictions[0]) == 0
+        return
     if item == "retry_buffer > 0":  # the reference's error
         with pytest.raises(ValueError, match=item):
             T.WhatIfEngine(ec, ep, scen, device="cpu", **kw)
