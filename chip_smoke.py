@@ -284,6 +284,21 @@ From the root of a checkout, on a host with one CUDA card. In order:
    allocatable rows alone) under a make_chaos_timeline campaign on config2's
    shape (CHAOS_PLAIN, S = 1): K6 equal to the per-slot route, placements
    moved, the allocatable restored.
+30. (T) telemetry under kube and chaos: config10 (kube, its chaos timeline)
+   and config12 (kube) through the CLI ``run`` with timelineOut (copies in
+   chiprun_out/telemetry/), each equal to TELEMETRY_KUBE_PINS (counters,
+   reasons, attempts, the latency dict, the series' and events' sha256,
+   events by kind, the Chrome trace's size); one K6 a chunk and the
+   trailing boundary's, the kube pass past the first, K5 folding each
+   chunk, K10 where a node_down falls due; the same run at summary places
+   alike (walls in turns). config9's CLI ``what-if`` at series: per-scenario
+   latency quantiles and fragmentation gauges equal the pins. config9's
+   campaign at timeline: scenarios 1 and 2 equal single replays of their
+   clusters and timelines, telemetry included. K6's kube mode with
+   reject counters, samples and the event log held against its twin at
+   config8's three densest boundaries (S = 1 and 128), and K10 with its
+   episode clears and log at config9's densest eviction boundaries, each
+   timed with telemetry on and off (CUDA events).
 
 The selects — K2, K6, K7 and K9 — launch as thread-block clusters
 (ops/kernels.py ``cluster_plan``): every step that launches one prints its
@@ -447,6 +462,61 @@ CHAOS_PINS = dict(
 CHAOS_WHATIF = dict(scenarios=128, seed=0, single=(1, 2))
 #: Boundaries at which K10 is held against its twin (the densest in victims).
 CHAOS_HOLD_BOUNDARIES = 3
+#: Telemetry under kube preemption and chaos node events (step T):
+#: examples/config10_telemetry.yaml (40 nodes x 2,000 pods, kube,
+#: retryBuffer 256, chunkWaves 16, a chaos timeline of chaos.seed 3, series
+#: with timelineOut, so the CLI run collects at timeline) and
+#: examples/config12_utilization.yaml (40 x 1,100, kube, no durations,
+#: series with timelineOut) through the CLI run, and config9's what-if at
+#: series (a copy of CONFIG9 with telemetry: {granularity: series}). The
+#: JAX package's numbers on the CPU (tests/test_torch_telemetry_kube_pins.py
+#: recomputes them): per run (:func:`telemetry_digest`) placed,
+#: unschedulable, victims, the eviction counters, reasons, rejection
+#: attempts, the latency dict, the series' sample count and sha256, the
+#: events by kind and their sha256, and the Chrome trace's event count; per
+#: what-if scenario (:func:`whatif_telemetry_fields`) the rows' latency
+#: quantiles and fragmentation gauges.
+CONFIG10 = "examples/config10_telemetry.yaml"
+CONFIG12 = "examples/config12_utilization.yaml"
+TELEMETRY_DIR = os.path.join(ROOT, "chiprun_out", "telemetry")
+TELEMETRY_KUBE_PINS = {
+    "config10": dict(
+        placed=1963, unschedulable=37, preemptions=20, evictions=110, evict_rescheduled=110,
+        evict_stranded=0, evict_latency_mean=0.0, reasons={"NodeResourcesFit": 1480},
+        rejection_attempts={"NodeResourcesFit": 1480},
+        latency={"count": 1982, "mean": 0.026559635671219183, "max": 1.8430724461381196,
+                 "p50": 0.0, "p90": 0.0, "p99": 0.8951439049716257,
+                 "buckets": {"le_0": 1897, "le_0.5": 1940, "le_1": 1965, "le_2": 1982,
+                             "le_4": 1982, "le_8": 1982, "le_16": 1982, "le_32": 1982,
+                             "le_64": 1982, "le_128": 1982, "le_256": 1982, "le_512": 1982,
+                             "le_inf": 1982}},
+        series_samples=16,
+        series_sha256="f9c1e15a0a5967a641c512c6d827c899202a52e783344efe88ca539514bd3efd",
+        events={"bind": 2093, "evict": 110, "node_down": 4, "node_up": 4, "preempt": 20},
+        events_sha256="88ec378c5b500bd53eedbdadbe41a34b1e91bb8bd00fc5df008cef9cbcc16019",
+        trace_events=6866),
+    "config12": dict(
+        placed=1100, unschedulable=0, preemptions=0, evictions=0, evict_rescheduled=0,
+        evict_stranded=0, evict_latency_mean=0.0, reasons={}, rejection_attempts={},
+        latency={"count": 1100, "mean": 0.0, "max": 0.0, "p50": 0.0, "p90": 0.0, "p99": 0.0,
+                 "buckets": {"le_0": 1100, "le_0.5": 1100, "le_1": 1100, "le_2": 1100,
+                             "le_4": 1100, "le_8": 1100, "le_16": 1100, "le_32": 1100,
+                             "le_64": 1100, "le_128": 1100, "le_256": 1100, "le_512": 1100,
+                             "le_inf": 1100}},
+        series_samples=9,
+        series_sha256="805144bbf5a30375b2c1304202f01d5dfc54602e116b08bf985842c953795996",
+        events={"bind": 1100},
+        events_sha256="325e4129c17452b20608690fdc072a320ec24b4c6a3e986a79e9e066b299b320",
+        trace_events=3381),
+    "config9_whatif": dict(
+        latency_p50=[0.0] * 8, latency_p90=[0.0] * 8,
+        latency_p99=[0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.655258, 0.0],
+        stranded_cpu=[0.0, 0.0, 0.0, 25.0, 0.0, 0.0, 7.25, 0.0],
+        frag_index_cpu=[0.934426, 0.784512, 0.929945, 0.206612, 0.785415, 0.455319, 0.678795,
+                        0.913978],
+        packing_efficiency=[0.583333, 0.603448, 0.583333, 0.603448, 0.396552, 0.59322,
+                            0.614035, 0.603448]),
+}
 #: The plain path's campaign on config2's shape (S = 1, no retry buffer:
 #: the allocatable rows alone): make_chaos_timeline over 5 % of the nodes,
 #: mtbf half the trace's span, mttr an eighth, at most 256 events.
@@ -1379,6 +1449,23 @@ class Work:
             nbytes, nops = nbytes + b, nops + o
         return nbytes, nops
 
+    def kube_telemetry(self, failed, records, clears):
+        """(bytes, ops) telemetry adds to the kube pass of an S = 1 run:
+        K5's count body for each pod that reaches the PostFilter
+        (``failed``: its Filter chain read again, its [K] counts written
+        twice and its episode mark where it stays unplaced — :meth:`k5`),
+        each event-log record written (16 B, its count 4 B), each episode
+        mark cleared (``clears``: 1 B), and the boundary's samples — the
+        ``used`` rows written twice (the series sample and the fold's
+        chunk-start planes) with the count planes, the pending ids and the
+        buffer count."""
+        nbytes, nops = records * 20 + clears, 0
+        if len(failed):
+            b5, o5 = self.k5(np.asarray([failed]), np.ones((1, len(failed)), bool))
+            nbytes, nops = nbytes + b5, nops + o5
+        nbytes += self.S * (2 * self.N * self.R * 4 + 3 * self.G * self.D * 4 + self.RB * 4 + 4)
+        return nbytes, nops
+
     def chunk_loop_ms(self, plan, assignments, launches, evictions=None, retry_walk=None):
         """B6's bound for a run on the chunk route (``launches``, the run's
         counts, must be the route's): each chunk's K6 launch (:meth:`k6`)
@@ -1419,11 +1506,17 @@ class Work:
         return out
 
 
-def _planes(tb):
+#: The parts of a Tables :func:`_planes` compares, and with ``telemetry``
+#: the reject counters and the event log too.
+PLANE_PARTS = ("state", "scratch", "preempt", "retry")
+TELEMETRY_PARTS = PLANE_PARTS + ("reject", "log")
+
+
+def _planes(tb, parts=PLANE_PARTS):
     """Every carried plane of a Tables (state, scratch, tier and retry
-    tables) by name."""
+    tables; ``parts``) by name."""
     out = {}
-    for part in ("state", "scratch", "preempt", "retry"):
+    for part in parts:
         nt = getattr(tb, part)
         if nt is not None:
             out.update({f"{part}.{f}": x for f, x in zip(nt._fields, nt) if torch.is_tensor(x)})
@@ -2729,7 +2822,7 @@ def clone_tables(tb):
     c = lambda nt: None if nt is None else type(nt)(
         *(x.clone() if torch.is_tensor(x) else x for x in nt))
     return tb._replace(state=c(tb.state), scratch=c(tb.scratch), retry=c(tb.retry),
-                       reject=c(tb.reject), preempt=c(tb.preempt))
+                       reject=c(tb.reject), preempt=c(tb.preempt), log=c(tb.log))
 
 
 def clone_series(ser):
@@ -5819,7 +5912,7 @@ def config8_case():
     return _case_copy(("config8",), build)
 
 
-def kube_launches(where, launches, plan, joint, steps=None):
+def kube_launches(where, launches, plan, joint, steps=None, folds=0):
     """A kube run's launches (counters zeroed just before it;
     :func:`retry_launch_counts` with ``kube``, K6's kube-pass launches): one
     K6 a chunk and the trailing boundary's, each past the first in the retry
@@ -5829,7 +5922,7 @@ def kube_launches(where, launches, plan, joint, steps=None):
     K5 and K10 none. Under chaos timelines (``steps``, the run's
     ``chaos_steps``) K10 once a boundary where a node_down falls due, at
     least once, and a retry-mode K6 at boundary 0 too where K10 evicted
-    there."""
+    there. At series on the retry path (``folds``) K5 folds each chunk."""
     nb = len(plan.buckets)
     rel = (nb + int(plan.buckets[0] is not None) if joint
            else sum(bk is not None for bk in plan.buckets))
@@ -5838,7 +5931,7 @@ def kube_launches(where, launches, plan, joint, steps=None):
     want = dict(chunk_replay=nb + 1, chunk_replay_retry=nb + at0, kube=nb + at0, filter_score=0,
                 normalize_select=0, apply_placements_bind=0, apply_placements_rollback=0,
                 apply_placements_release=rel, retry_boundary=0, first_reject=0,
-                first_reject_fold=0, shard_chunk_replay=0, evict_node=len(due))
+                first_reject_fold=folds, shard_chunk_replay=0, evict_node=len(due))
     if any(launches[k] != v for k, v in want.items()) or (steps is not None and not due):
         raise AssertionError(f"{where}: launches {launches}, expected {want}")
 
@@ -5848,7 +5941,8 @@ SHARED_RETRY = ("dur", "tbt", "prio", "col_of", "col_relb")
 
 def subset_tables(tb, ch, idx, dev="cpu"):
     """Copies of the scenarios ``idx`` of a kube run's tables and choice
-    buffer on ``dev`` (the twin's inputs for those scenarios)."""
+    buffer on ``dev`` (the twin's inputs for those scenarios), with their
+    reject counters and event log where the tables have them."""
     ix = torch.as_tensor(idx, device=tb.state.used.device)
     per = lambda t: t[ix].to(dev).contiguous()
     cl = tb.cluster
@@ -5860,23 +5954,25 @@ def subset_tables(tb, ch, idx, dev="cpu"):
     rt = tb.retry
     retry = rt._replace(**{f: (x.to(dev) if f in SHARED_RETRY else per(x))
                            for f, x in zip(rt._fields, rt) if torch.is_tensor(x)})
+    sub = lambda nt: None if nt is None else type(nt)(*(per(x) for x in nt))
     return ref.Tables(cluster, ref.DevPods(*(x.to(dev) for x in tb.pods)),
                       ref.DevState(*(per(x) for x in tb.state)),
                       ref.Scratch(*(per(x) for x in tb.scratch)), tb.consts,
-                      retry=retry), per(ch)
+                      retry=retry, reject=sub(tb.reject), log=sub(tb.log)), per(ch)
 
 
-def same_rows(where, tb_k, ch_k, tb_t, ch_t, idx):
+def same_rows(where, tb_k, ch_k, tb_t, ch_t, idx, parts=PLANE_PARTS):
     """The scenarios ``idx`` of the kernel's tables and choices equal the
     twin's (which hold those scenarios only): every plane, scratch row and
-    retry table (the shared ones whole)."""
+    retry table (the shared ones whole; ``parts``: :data:`TELEMETRY_PARTS`
+    adds the reject counters and the event log)."""
     torch.cuda.synchronize()
     ix = torch.as_tensor(idx, device=ch_k.device)
     bad = torch.nonzero(ch_k[ix].cpu() != ch_t)
     if bad.numel():
         raise AssertionError(f"{where}: choices differ at (scenario, column) {bad[:5].tolist()}")
-    pk = _planes(tb_k)
-    for name, y in _planes(tb_t).items():
+    pk = _planes(tb_k, parts)
+    for name, y in _planes(tb_t, parts).items():
         x = pk[name]
         x = x.cpu() if name.split(".")[-1] in SHARED_RETRY else x[ix].cpu()
         if not torch.equal(x, y):
@@ -5885,8 +5981,8 @@ def same_rows(where, tb_k, ch_k, tb_t, ch_t, idx):
 
 
 def restore_tables(dst, src, ch_dst, ch_src):
-    for part in ("state", "scratch", "retry"):
-        for x, y in zip(getattr(dst, part), getattr(src, part)):
+    for part in ("state", "scratch", "retry", "reject", "log"):
+        for x, y in zip(getattr(dst, part) or (), getattr(src, part) or ()):
             if torch.is_tensor(x):
                 x.copy_(y)
     ch_dst.copy_(ch_src)
@@ -5911,7 +6007,7 @@ def kube_trace():
         prio = tb.retry.prio.long()
         cand = int(((cur >= 0) & (prio < int(prio[p])) & (tb.pods.group_id < 0)).sum())
         hit = pf(tb, choices, sc, p, b)
-        rec["calls"].append(dict(cand=cand, node=hit[0] if hit else PAD,
+        rec["calls"].append(dict(pod=p, cand=cand, node=hit[0] if hit else PAD,
                                  victims=list(hit[1]) if hit else []))
         return hit
 
@@ -5944,7 +6040,26 @@ def kube_walk(eng, dev, joint):
     return np.stack(held)
 
 
-def hold_k6_kube(where, eng, b, dev, joint, twin_scen):
+def sample_buffers(tb):
+    """Fresh series-sample buffers shaped as ``tb``'s state and retry tables
+    (:class:`ref.RetrySamples`, with the fold's chunk-start planes)."""
+    st, rt = tb.state, tb.retry
+    return ref.RetrySamples(torch.zeros_like(st.used), torch.zeros_like(rt.rcount),
+                            torch.full_like(rt.pend_id, PAD),
+                            ref.DevState(*(torch.zeros_like(x) for x in st)))
+
+
+def same_samples(where, sm_k, sm_t, idx):
+    """The scenarios ``idx`` of the kernel's samples equal the twin's."""
+    ix = torch.as_tensor(idx, device=sm_k.used.device)
+    pairs = list(zip(("used", "rcount", "pend"), sm_k[:3], sm_t[:3]))
+    pairs += [(f"snap.{f}", x, y) for f, x, y in zip(ref.DevState._fields, sm_k.snap, sm_t.snap)]
+    for name, x, y in pairs:
+        if not torch.equal(x[ix].cpu(), y.cpu()):
+            raise AssertionError(f"{where}: samples.{name} differ")
+
+
+def hold_k6_kube(where, eng, b, dev, joint, twin_scen, telemetry=False):
     """K6's kube mode against its twin at boundary b of ``eng``'s run: the
     tables after chunks [0, b) on the kernel path, copied for the twin on
     the CPU (its scenarios ``twin_scen``); the boundary's release on both
@@ -5953,14 +6068,26 @@ def hold_k6_kube(where, eng, b, dev, joint, twin_scen):
     retry and kube tables equal after each. Then the launch timed from the
     released state (CUDA events, :func:`launch_ms`) beside the twin's wall
     and, at S = 1, its bound (Work.k6 + Work.kube_phase + Work.post_filter:
-    the window as one function)."""
+    the window as one function).
+
+    With ``telemetry`` (step T) the tables carry the reject counters and
+    the event log, chunks [0, b) run at series (the K5 folds, the samples),
+    and the launch takes the counters, fresh sample buffers and the log:
+    the counters, episode marks, log records and samples equal the twin's
+    too; the launch is timed with telemetry on and, on the same released
+    state, off (the tables without counters and log, no samples), and the
+    bound adds Work.kube_telemetry."""
+    from kubernetes_simulator_tpu_torch.sim.torch_runtime import new_series
+
     plan = eng.plan
     C = plan.C
     lo, hi = b * C, min((b + 1) * C, plan.idx.shape[0])
-    tb = eng._tables()
+    tb = eng._tables(attribute=telemetry, timeline=telemetry)
     ch = new_choices(plan, eng.S, eng.pods.bound_node, dev)
-    run_waves(plan, tb, ch, 0, lo, plain=False, route="chunk", joint=joint)
+    ser = new_series(plan, tb, True) if telemetry else None
+    run_waves(plan, tb, ch, 0, lo, plain=False, ser=ser, route="chunk", joint=joint)
     torch.cuda.synchronize()
+    parts = TELEMETRY_PARTS if telemetry else PLANE_PARTS
     tb_t, ch_t = subset_tables(tb, ch, twin_scen)
     bk = K.Bound(tb)
     bucket = plan.buckets[b]
@@ -5973,34 +6100,57 @@ def hold_k6_kube(where, eng, b, dev, joint, twin_scen):
     elif bucket is not None:
         K.apply_placements(bk, *on(dev), ch, -1.0)
         ref.apply_placements(tb_t, *on("cpu"), ch_t, -1.0)
-    same_rows(f"{where}: boundary {b}'s release vs its twin", tb, ch, tb_t, ch_t, twin_scen)
+    same_rows(f"{where}: boundary {b}'s release vs its twin", tb, ch, tb_t, ch_t, twin_scen,
+              parts)
     released = (clone_tables(tb), ch.clone())
+    n0 = tb.log.n.clone() if tb.log is not None else None
     dk, dt = plan.device_desc(dev), plan.device_desc("cpu")
     retry = (b, float(np.float32(plan.tb[b])), not joint)
+    sm_k = sample_buffers(tb) if telemetry else None
+    sm_t = sample_buffers(tb_t) if telemetry else None
+    launch = lambda: K.chunk_replay(bk, dk.idx, dk.gang, ch, lo, hi, append=True,
+                                    reject=tb.reject, retry=retry, samples=sm_k)
     K.reset_launch_counts()
-    K.chunk_replay(bk, dk.idx, dk.gang, ch, lo, hi, append=True, retry=retry)
+    launch()
     torch.cuda.synchronize()
     if K.chunk_replay.kube != 1 or K.chunk_replay.launches != 1:
         raise AssertionError(f"{where}: the launch at boundary {b} ran {K.launch_counts()}")
     cluster = plan_of(K.chunk_replay)
     with kube_trace() as trace:
         t0 = time.perf_counter()
-        ref.chunk_replay(tb_t, dt.idx, dt.gang, ch_t, lo, hi, append=True, retry=retry)
+        ref.chunk_replay(tb_t, dt.idx, dt.gang, ch_t, lo, hi, append=True, reject=tb_t.reject,
+                         retry=retry, samples=sm_t)
         twin_s = time.perf_counter() - t0
     same_rows(f"{where}: boundary {b}'s K6 kube launch vs its twin", tb, ch, tb_t, ch_t,
-              twin_scen)
+              twin_scen, parts)
+    if telemetry:
+        same_samples(f"{where}: boundary {b}'s samples", sm_k, sm_t, twin_scen)
     victims = int((tb.retry.preempt - pre0).sum())
     out = dict(boundary=b, waves=[lo, hi], scenarios=eng.S, twin_scenarios=list(twin_scen),
                buffered=held, victims=victims, cluster=cluster, twin_ms=twin_s * 1e3,
                postfilter_calls_twin=len(trace["calls"]), walked_twin=len(trace["walked"]),
                max_abs_err=0.0)
+    if telemetry:
+        out["log_records"] = int((tb.log.n - n0).sum())
+        out["charged_twin"] = sum(c["node"] == PAD for c in trace["calls"])
     final = (clone_tables(tb), ch.clone())
-    out["ms"] = launch_ms(
-        lambda: K.chunk_replay(bk, dk.idx, dk.gang, ch, lo, hi, append=True, retry=retry),
-        lambda: restore_tables(tb, released[0], ch, released[1]), iters=20)
+    restore = lambda: restore_tables(tb, released[0], ch, released[1])
+    if telemetry:
+        bk_off = K.Bound(tb._replace(reject=None, log=None))
+        out["ms_off"] = launch_ms(
+            lambda: K.chunk_replay(bk_off, dk.idx, dk.gang, ch, lo, hi, append=True,
+                                   retry=retry), restore, iters=20)
+        # The launch without telemetry: the twin's choices and planes, the
+        # counters and the log as released.
+        same_rows(f"{where}: boundary {b}'s timed launch, telemetry off", tb, ch,
+                  *subset_tables(final[0], final[1], twin_scen), twin_scen)
+        same_rows(f"{where}: boundary {b}'s timed launch, telemetry off, counters and log", tb,
+                  ch, *subset_tables(released[0], final[1], twin_scen), twin_scen,
+                  ("reject", "log"))
+    out["ms"] = launch_ms(launch, restore, iters=20)
     same_rows(f"{where}: boundary {b}'s timed launch", tb, ch, *subset_tables(final[0], final[1],
                                                                             twin_scen),
-              twin_scen)
+              twin_scen, parts)
     if eng.S == 1:
         a = np.full((1, eng.pods.num_pods), PAD, np.int32)
         flat, W = plan.idx.reshape(-1), plan.idx.shape[1]
@@ -6011,11 +6161,18 @@ def hold_k6_kube(where, eng, b, dev, joint, twin_scen):
         nb, no = work.k6(plan.idx[lo:hi], plan.gang_wave[lo:hi], a, lo, append=True)
         pb, po = work.kube_phase(trace["walked"], trace["binds"])
         fb, fo = work.post_filter(trace["calls"])
-        out["bound_ms"], out["bound_by"] = bound(nb + pb + fb, no + po + fo)
+        tbb = tbo = 0
+        if telemetry:
+            unbinds = sum(len(c["victims"]) for c in trace["calls"])
+            tbb, tbo = work.kube_telemetry([c["pod"] for c in trace["calls"]],
+                                           out["log_records"], unbinds + len(trace["binds"]))
+        out["bound_ms"], out["bound_by"] = bound(nb + pb + fb + tbb, no + po + fo + tbo)
         out["post_filter_bound_ms"], _ = bound(fb, fo)
-    print(f"{where}: K6's kube mode == its twin at boundary {b} (release, then the launch; "
+    print(f"{where}: K6's kube mode{' with telemetry' if telemetry else ''} == its twin at "
+          f"boundary {b} (release, then the launch; "
           f"{json.dumps({k: v for k, v in out.items() if k != 'cluster'})}, cluster "
-          f"{json.dumps(cluster)}); choices, every plane, retry and kube table", flush=True)
+          f"{json.dumps(cluster)}); choices, every plane, retry and kube table"
+          f"{', reject counters, event log and samples' if telemetry else ''}", flush=True)
     return out
 
 
@@ -6174,7 +6331,7 @@ def chaos_walk(eng, dev, joint):
     return victims, steps
 
 
-def hold_evict_node(where, eng, b, steps, dev, joint):
+def hold_evict_node(where, eng, b, steps, dev, joint, telemetry=False):
     """K10 against its twin at boundary b of ``eng``'s run (its chaos
     timelines set): the tables after chunks [0, b) on the kernel path and
     the boundary's allocatable rows, copied for the twin on the CPU (the
@@ -6182,14 +6339,22 @@ def hold_evict_node(where, eng, b, steps, dev, joint):
     ``ref.evict_node`` scenario by scenario — the choices, every plane and
     the retry and chaos tables equal after, and every other scenario
     untouched. Then the launch timed from the same state (CUDA events,
-    :func:`launch_ms`) beside the twin's wall and its bound (Work.evict_node)."""
+    :func:`launch_ms`) beside the twin's wall and its bound (Work.evict_node).
+    With ``telemetry`` (step T) the chunks before b run at timeline and the
+    tables carry the reject counters and the event log: the victims'
+    episode clears and ``evict`` records equal the twin's too, and the
+    launch is timed with telemetry on and off (the tables without counters
+    and log) from the same state."""
+    from kubernetes_simulator_tpu_torch.sim.torch_runtime import new_series
+
     plan, st = eng.plan, steps[b]
-    tb = eng._tables()
+    parts = TELEMETRY_PARTS if telemetry else PLANE_PARTS
+    tb = eng._tables(attribute=telemetry, timeline=telemetry)
     ch = new_choices(plan, eng.S, eng.pods.bound_node, dev)
     alloc0 = tb.cluster.allocatable.clone()
     try:
         run_waves(plan, tb, ch, 0, b * plan.C, plain=False, route="chunk", joint=joint,
-                  chaos=steps)
+                  chaos=steps, ser=new_series(plan, tb, True) if telemetry else None)
         R = tb.cluster.allocatable.shape[-1]
         tb.cluster.allocatable.view(-1, R).index_copy_(0, st.rows, st.vals)
         torch.cuda.synchronize()
@@ -6216,28 +6381,44 @@ def hold_evict_node(where, eng, b, steps, dev, joint):
         for i in range(len(scen)):
             ref.evict_node(tb_t, ch_t, i, nodes[off[i] : off[i + 1]], b, st.t_b)
         twin_s = time.perf_counter() - t0
-        same_rows(f"{where}: K10 at boundary {b} vs its twin", tb, ch, tb_t, ch_t, scen)
+        same_rows(f"{where}: K10 at boundary {b} vs its twin", tb, ch, tb_t, ch_t, scen, parts)
         rest = [x for x in range(eng.S) if x not in scen]
         if rest:
             same_rows(f"{where}: K10 at boundary {b} leaves the other scenarios", tb, ch,
-                      *subset_tables(before[0], before[1], rest), rest)
+                      *subset_tables(before[0], before[1], rest), rest, parts)
         n_vic = int((tb.retry.evictions - before[0].retry.evictions).sum())
         if n_vic != len(victims):
             raise AssertionError(f"{where}: {n_vic} victims, the twin's walk found {len(victims)}")
         final = (clone_tables(tb), ch.clone())
+        restore = lambda: restore_tables(tb, before[0], ch, before[1])
+        ms_off = None
+        if telemetry:
+            bk_off = K.Bound(tb._replace(reject=None, log=None))
+            ms_off = launch_ms(lambda: K.evict_node(bk_off, ch, st.scen, st.off, st.nodes, b,
+                                                    st.t_b), restore, iters=20)
+            # Without telemetry: the twin's choices and planes, the counters
+            # and the log as before the launch.
+            same_rows(f"{where}: K10's timed launches at boundary {b}, telemetry off", tb, ch,
+                      *subset_tables(final[0], final[1], scen), scen)
+            same_rows(f"{where}: K10's timed launches at boundary {b}, telemetry off, counters "
+                      f"and log", tb, ch, *subset_tables(before[0], final[1], scen), scen,
+                      ("reject", "log"))
         ms = launch_ms(lambda: K.evict_node(bk, ch, st.scen, st.off, st.nodes, b, st.t_b),
-                       lambda: restore_tables(tb, before[0], ch, before[1]), iters=20)
+                       restore, iters=20)
         same_rows(f"{where}: K10's timed launches at boundary {b}", tb, ch,
-                  *subset_tables(final[0], final[1], scen), scen)
+                  *subset_tables(final[0], final[1], scen), scen, parts)
         nb, no = Work(eng.pods, tb).evict_node(len(scen), len(nodes), victims, pend_live)
+        if telemetry:  # each victim's record (16 B) and mark (1 B), each scenario's count
+            nb += len(victims) * 17 + len(scen) * 4
         bound_ms, bound_by = bound(nb, no)
     finally:
         tb.cluster.allocatable.copy_(alloc0)
     out = dict(boundary=b, scenarios=eng.S, evicting_scenarios=len(scen), down_nodes=len(nodes),
                victims=n_vic, ms=ms, twin_ms=twin_s * 1e3, bound_ms=bound_ms, bound_by=bound_by,
-               max_abs_err=0.0)
-    print(f"{where}: K10 == its twin at boundary {b} ({json.dumps(out)}); choices, every plane, "
-          f"retry and chaos table", flush=True)
+               max_abs_err=0.0, **({"ms_off": ms_off} if telemetry else {}))
+    print(f"{where}: K10{' with telemetry' if telemetry else ''} == its twin at boundary {b} "
+          f"({json.dumps(out)}); choices, every plane, retry and chaos table"
+          f"{', reject counters and event log' if telemetry else ''}", flush=True)
     return out
 
 
@@ -6249,6 +6430,247 @@ def chaos_counters_of(res, s=None):
     if s is None:
         return {k: getattr(res, k) for k in names}
     return {k: (float if k == "evict_latency_mean" else int)(getattr(res, k)[s]) for k in names}
+
+
+def telemetry_digest(res, trace_events):
+    """What TELEMETRY_KUBE_PINS holds of a replay at timeline (``res``; its
+    Chrome trace of ``trace_events`` events): placed, unschedulable, victims,
+    the eviction counters, reasons, rejection attempts, the latency dict,
+    the series' sample count and sha256, the events by kind and their
+    sha256, the trace's event count."""
+    h = lambda x: hashlib.sha256(json.dumps(x).encode()).hexdigest()
+    tel = res.telemetry
+    kinds = {}
+    for e in tel.events:
+        kinds[e[0]] = kinds.get(e[0], 0) + 1
+    out = {k: getattr(res, k) for k in ("placed", "unschedulable", "preemptions", "evictions",
+                                         "evict_rescheduled", "evict_stranded",
+                                         "evict_latency_mean")}
+    out.update(reasons=dict(sorted(tel.reasons.items())),
+               rejection_attempts=dict(sorted(tel.rejection_attempts.items())),
+               latency=tel.latency, series_samples=len(tel.series.get("t", ())),
+               series_sha256=h(tel.series), events=dict(sorted(kinds.items())),
+               events_sha256=h([list(e) for e in tel.events]), trace_events=trace_events)
+    return out
+
+
+#: The per-scenario fields of a kube what-if's rows that TELEMETRY_KUBE_PINS
+#: holds (utils/metrics.py whatif_rows: rounded, None for NaN).
+WHATIF_TELEMETRY_FIELDS = ("latency_p50", "latency_p90", "latency_p99", "stranded_cpu",
+                           "frag_index_cpu", "packing_efficiency")
+
+
+def whatif_telemetry_fields(rows):
+    """{field: [value a scenario]} of a what-if's ``whatif-scenario`` rows."""
+    sc = [r for r in rows if r["kind"] == "whatif-scenario"]
+    return {k: [r[k] for r in sc] for k in WHATIF_TELEMETRY_FIELDS}
+
+
+def telemetry_config(path, name, granularity="series", trace=True):
+    """A copy of the config at ``path`` in TELEMETRY_DIR with
+    ``telemetry.granularity`` set and its output on stdout (the copy's path,
+    its timelineOut or None): the CLI run writes its Chrome trace there."""
+    import yaml
+
+    os.makedirs(TELEMETRY_DIR, exist_ok=True)
+    with open(os.path.join(ROOT, path)) as f:
+        d = yaml.safe_load(f)
+    d.pop("output", None)
+    out = os.path.join(TELEMETRY_DIR, f"{name}_timeline.json") if trace else None
+    d["telemetry"] = dict(granularity=granularity, **({"timelineOut": out} if out else {}))
+    copy_path = os.path.join(TELEMETRY_DIR, f"{name}.yaml")
+    with open(copy_path, "w") as f:
+        yaml.safe_dump(d, f)
+    return copy_path, out
+
+
+def telemetry_case(path):
+    """(SimConfig, EncodedCluster, EncodedPods) of the config at ``path`` as
+    the port's config parses it."""
+    import yaml
+
+    from kubernetes_simulator_tpu_torch.utils.config import SimConfig, build_encoded_case
+
+    def build():
+        with open(os.path.join(ROOT, path)) as f:
+            cfg = SimConfig.from_dict(yaml.safe_load(f))
+        return (cfg,) + tuple(build_encoded_case(cfg))
+
+    return _case_copy((path,), build)
+
+
+def same_telemetry(where, a, b):
+    """Two ReplayTelemetry of one scenario equal: latency, reasons,
+    attempts, series and the events (bind, preempt and evict in order; the
+    node events as a multiset: a batch emits each node_down just before its
+    evictions, the single replay a boundary's node events first, as the
+    reference's engines do)."""
+    node = ("node_down", "node_up")
+    fields = lambda t: (t.latency, t.reasons, t.rejection_attempts, t.series,
+                        [e for e in t.events if e[0] not in node],
+                        sorted(e for e in t.events if e[0] in node))
+    for name, x, y in zip(("latency", "reasons", "rejection_attempts", "series", "events",
+                           "node events"), fields(a), fields(b)):
+        if x != y:
+            raise AssertionError(f"{where}: {name} differ")
+
+
+def run_telemetry_kube_paths(results, dev):
+    """(T) telemetry under kube preemption and chaos: config10 and config12
+    through the CLI run with timelineOut == TELEMETRY_KUBE_PINS (launches: one
+    K6 a chunk and the trailing boundary's, the kube pass in each past the
+    first, K5 folding each chunk, K10 once a boundary with a node_down); the
+    same config10 run at summary places alike (walls in turns); config9's
+    CLI what-if at series == the pins; config9's 128-scenario campaign at
+    timeline, scenarios 1 and 2 == single replays of their clusters and
+    timelines, telemetry included; K6's kube mode with reject, samples and
+    log held against its twin at config8's three densest boundaries (S = 1
+    and S = 128) and K10 with its clears and log at config9's densest
+    eviction boundaries, each timed with telemetry on and off. Returns the
+    kernels line's telemetry fields of K6's kube mode and K10."""
+    from kubernetes_simulator_tpu_torch.sim.torch_runtime import chaos_steps
+
+    pins = TELEMETRY_KUBE_PINS
+    out = {}
+    # (a) config10 and config12 through the CLI run, timelineOut in TELEMETRY_DIR.
+    for name, path in (("config10", CONFIG10), ("config12", CONFIG12)):
+        cfg, ec, ep = telemetry_case(path)
+        cpath, trace = telemetry_config(path, name)
+        rows, lines, eng, cmd_s, launches = cli_call(["run", cpath])
+        launches = dict(retry_launch_counts(), kube=K.chunk_replay.kube)
+        ev = (chaos_timeline(cfg, ec, ep, cfg.chaos.seed)
+              if cfg.chaos is not None and cfg.chaos.enabled else [])
+        steps = chaos_steps(eng.plan, [ev], eng._alloc0(), "cpu") if ev else None
+        kube_launches(f"{name} CLI run", launches, eng.plan, joint=True, steps=steps,
+                      folds=len(eng.plan.buckets))
+        with open(trace) as f:
+            n_trace = len(json.load(f)["traceEvents"])
+        res = eng.replay(node_events=ev or None)
+        got = telemetry_digest(res, n_trace)
+        row = rows[0]
+        if got != pins[name] or row["placed"] != res.placed or row["telemetry"][
+                "timeline_events"] != len(res.telemetry.events):
+            raise AssertionError(f"{name} CLI run: {got} != the JAX package's {pins[name]}")
+        # (b) the same run at summary places alike; walls in turns.
+        eng_s = TorchReplayEngine(ec, ep, cfg.framework, wave_width=cfg.wave_width,
+                                  chunk_waves=cfg.chunk_waves, preemption=cfg.device_preemption,
+                                  retry_buffer=cfg.whatif.retry_buffer, telemetry="summary")
+        walls = {"summary": [], "timeline": []}
+        for g in ("summary", "timeline", "timeline", "summary"):
+            r = (eng_s if g == "summary" else eng).replay(node_events=ev or None)
+            if not np.array_equal(r.assignments, res.assignments):
+                raise AssertionError(f"{name}: the {g} run placed differently")
+            walls[g].append(r.wall_clock_s)
+        out[name] = dict(pins=got, cli_wall_s=row["wall_clock_s"], cli_command_s=cmd_s,
+                         launches=launches, walls_s=walls, events=len(ev))
+        print(f"{name} CLI run (kube{', ' + str(len(ev)) + ' chaos events' if ev else ''}, "
+              f"timelineOut): == TELEMETRY_KUBE_PINS (events {json.dumps(got['events'])}, "
+              f"{got['series_samples']} samples, {n_trace} trace events); wall "
+              f"{row['wall_clock_s']:.4f}s, command {cmd_s:.2f}s; launches K6 "
+              f"{launches['chunk_replay']} (kube pass {launches['kube']}), K5 fold "
+              f"{launches['first_reject_fold']}, K3 release "
+              f"{launches['apply_placements_release']}, K10 {launches['evict_node']}; "
+              f"summary == timeline placements, walls summary "
+              f"{[round(w, 4) for w in walls['summary']]} s vs timeline "
+              f"{[round(w, 4) for w in walls['timeline']]} s", flush=True)
+        del eng, eng_s
+        mark(f"T {name} CLI run, walls")
+    # (c) config9's CLI what-if at series.
+    cpath, _ = telemetry_config(CONFIG9, "config9_series", trace=False)
+    rows, lines, weng, cmd_s, wlaunches = cli_call(["what-if", cpath])
+    got = whatif_telemetry_fields(rows)
+    if got != pins["config9_whatif"]:
+        raise AssertionError(f"config9 what-if at series: {got} != the JAX package's "
+                             f"{pins['config9_whatif']}")
+    wwall = [r for r in rows if r["kind"] == "whatif-aggregate"][0]["wall_clock_s"]
+    out["config9_whatif"] = dict(pins=got, wall_s=wwall, command_s=cmd_s, launches=wlaunches)
+    print(f"config9 CLI what-if at series (8 scenarios): latency quantiles and fragmentation "
+          f"gauges == TELEMETRY_KUBE_PINS; wall {wwall:.4f}s, command {cmd_s:.2f}s, K5 fold "
+          f"{wlaunches['first_reject_fold']}, K10 {wlaunches['evict_node']}", flush=True)
+    del weng
+    mark("T config9 what-if at series")
+    # (d) config9's campaign at timeline; scenarios 1-2 against single replays.
+    cfg, ec, ep = config9_case()
+    cw = CHAOS_WHATIF
+    scen = uniform_scenarios(ec, cw["scenarios"], seed=cw["seed"])
+    for x in range(1, len(scen)):
+        scen[x].events = chaos_timeline(cfg, ec, ep, cfg.chaos.seed + x)
+    kw = dict(wave_width=cfg.wave_width, chunk_waves=cfg.chunk_waves, preemption="kube",
+              retry_buffer=cfg.whatif.retry_buffer)
+    ceng = WhatIfEngine(ec, ep, scen, cfg.framework, telemetry="timeline",
+                        collect_assignments=True, **kw)
+    camp = ceng.run()
+    singles = {}
+    for x in cw["single"]:
+        hc = ScenarioSet(ec, [scen[x]]).host_clusters()[0]
+        one = TorchReplayEngine(hc, ep, cfg.framework, telemetry="timeline", **kw).replay(
+            node_events=scen[x].events)
+        if not np.array_equal(camp.assignments[x], one.assignments):
+            raise AssertionError(f"config9 campaign at timeline: scenario {x} placed otherwise")
+        same_telemetry(f"config9 campaign at timeline, scenario {x}",
+                       camp.scenario_telemetry[x], one.telemetry)
+        lat = one.telemetry.latency
+        if (float(camp.latency_p99[x]) != lat["p99"]
+                or float(camp.latency_p50[x]) != lat["p50"]):
+            raise AssertionError(f"config9 campaign: scenario {x}'s quantiles != its replay's")
+        singles[x] = dict(events=len(one.telemetry.events), reasons=one.telemetry.reasons)
+    out["config9_campaign"] = dict(scenarios=cw["scenarios"], wall_s=camp.wall_clock_s,
+                                   events=sum(len(t.events) for t in camp.scenario_telemetry),
+                                   singles=singles)
+    print(f"config9 campaign at timeline ({cw['scenarios']} scenarios): wall "
+          f"{camp.wall_clock_s:.4f}s, {out['config9_campaign']['events']} events; scenarios "
+          f"{list(cw['single'])} == their single replays (assignments, latency, "
+          f"reasons, attempts, series, events)", flush=True)
+    del ceng, camp
+    mark("T config9 campaign at timeline")
+    # (e) K6's kube mode with telemetry against its twin, S = 1 and S = 128.
+    cfg8, ec8, ep8 = config8_case()
+    kw8 = dict(wave_width=cfg8.wave_width, chunk_waves=cfg8.chunk_waves, preemption="kube",
+               retry_buffer=cfg8.whatif.retry_buffer)
+    e1 = TorchReplayEngine(ec8, ep8, cfg8.framework, telemetry="timeline", **kw8)
+    e128 = WhatIfEngine(ec8, ep8, uniform_scenarios(ec8, KUBE_WHATIF["scenarios"],
+                                                    seed=KUBE_WHATIF["seed"]),
+                        cfg8.framework, telemetry="timeline", **kw8)
+    k6 = {}
+    for name, e, joint in (("S=1", e1, True), ("S=128", e128, False)):
+        held = kube_walk(e, dev, joint)
+        dense = sorted(range(1, len(e.plan.buckets)), key=lambda b: (-held[b - 1].sum(), b))
+        k6[name] = []
+        for b in sorted(dense[:KUBE_HOLD_BOUNDARIES]):
+            top = [int(x) for x in np.argsort(-held[b - 1], kind="stable") if x != 0]
+            twin_scen = sorted([0] + top[: KUBE_TWIN_SCENARIOS - 1])
+            k6[name].append(hold_k6_kube(f"config8 {name}", e, b, dev, joint, twin_scen,
+                                         telemetry=True))
+    out["k6_kube_telemetry_holds"] = k6
+    mark("T K6 kube holds with telemetry")
+    # (f) K10 with its clears and log against its twin, S = 1 and S = 128.
+    eng9 = TorchReplayEngine(ec, ep, cfg.framework, telemetry="timeline", **kw)
+    ev9 = chaos_timeline(cfg, ec, ep, cfg.chaos.seed)
+    ceng = WhatIfEngine(ec, ep, scen, cfg.framework, telemetry="timeline", **kw)
+    k10 = {}
+    for name, e, tl, joint in (("S=1", eng9, [ev9], True), ("S=128", ceng, None, False)):
+        with engine_events(e, tl if tl is not None else e._events):
+            vic, steps = chaos_walk(e, dev, joint)
+            dense = sorted(vic, key=lambda b: (-int(vic[b].sum()), b))[:CHAOS_HOLD_BOUNDARIES]
+            k10[name] = [hold_evict_node(f"config9 {name}", e, b, steps, dev, joint,
+                                         telemetry=True) for b in sorted(dense)]
+    out["k10_telemetry_holds"] = k10
+    results["telemetry_kube"] = out
+    mark("T K10 holds with telemetry")
+    best6 = max(k6["S=1"], key=lambda h: h["buffered"])
+    best10 = max(k10["S=1"], key=lambda h: h["victims"])
+    print("K6's kube mode a launch (CUDA events), telemetry on / off: " + json.dumps(
+        {n: [[round(h["ms"], 4), round(h["ms_off"], 4)] for h in hs] for n, hs in k6.items()})
+        + "; K10: " + json.dumps(
+        {n: [[round(h["ms"], 4), round(h["ms_off"], 4)] for h in hs] for n, hs in k10.items()}),
+        flush=True)
+    return dict(
+        k6=dict(telemetry_launches=out["config10"]["launches"]["kube"], telemetry_ms=best6["ms"],
+                telemetry_off_ms=best6["ms_off"], telemetry_bound_ms=best6["bound_ms"],
+                telemetry_boundary=best6["boundary"]),
+        k10=dict(telemetry_launches=out["config10"]["launches"]["evict_node"],
+                 telemetry_ms=best10["ms"], telemetry_off_ms=best10["ms_off"],
+                 telemetry_bound_ms=best10["bound_ms"], telemetry_boundary=best10["boundary"]))
 
 
 def run_chaos_paths(results, dev):
@@ -6666,6 +7088,9 @@ def main() -> int:
     k6kube = run_kube_paths(results, dev)
     # X: chaos node events (config9, its campaign, K10, the plain path's).
     k10 = run_chaos_paths(results, dev)
+    # T: telemetry under kube and chaos (config10, config12, config9 at series,
+    # K6's kube mode and K10 with their telemetry).
+    ktel = run_telemetry_kube_paths(results, dev)
     results["wall_s_total"] = time.perf_counter() - t_start
     print("step walls (s): " + json.dumps({k: round(v, 1) for k, v in STEP_S.items()}),
           flush=True)
@@ -6759,6 +7184,7 @@ def main() -> int:
         # no PyTorch call runs a PostFilter
         "library_ms": None, "cluster": k6kube["cluster"], "boundary": k6kube["boundary"],
         "post_filter_bound_ms": k6kube["post_filter_bound_ms"], "s128_ms": k6kube["s128_ms"],
+        **ktel["k6"],
     })
     # K10: its launches on config9's CLI what-if (the run's and the
     # campaign's beside); one launch at the single replay's densest
@@ -6773,6 +7199,7 @@ def main() -> int:
         # no PyTorch call evicts a node's pods
         "library_ms": None, "boundary": k10["boundary"], "victims": k10["victims"],
         "s128_ms": k10["s128_ms"], "launches_by_path": k10["launches_by_path"],
+        **ktel["k10"],
     })
     for k, (kernel, replaces) in LABEL_SOURCES.items():
         m = lkernels[kernel]

@@ -78,13 +78,17 @@ KSIM_EXPORT int ksim_chunk_replay(const KsimArgs* args, const int32_t* idx, cons
     if (retry->evict_t && (!retry->resched || !retry->evict_lat || !retry->k.rrel ||
                            !retry->k.first_b))
       return (int)cudaErrorInvalidValue;
-    // kube preemption: its tables whole, no counters and no samples (series
-    // with kube is refused); a launch with no waves is the trailing boundary
+    // kube preemption: its tables whole; a launch with no waves is the
+    // trailing boundary
     const KsimKube& k = retry->k;
     if (retry->kube &&
         (!k.prio || !k.col_of || !k.col_relb || !k.rrel || !k.first_b || !k.preempt || !k.kq ||
          !k.kst || !k.kvic || !k.koff || !k.kcnt || k.choices != choices ||
-         k.choice_ss != choice_ss || attr || retry->used_out || retry->snap_used))
+         k.choice_ss != choice_ss))
+      return (int)cudaErrorInvalidValue;
+    // the event log: under kube or a chaos timeline, whole
+    if (retry->log.rec && (!retry->log.n || retry->log.cap < 1 ||
+                           !(retry->kube || retry->evict_t)))
       return (int)cudaErrorInvalidValue;
     if (retry->used_out && (!retry->rcount_out || !retry->pend_out))
       return (int)cudaErrorInvalidValue;

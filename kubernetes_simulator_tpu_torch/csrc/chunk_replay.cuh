@@ -82,7 +82,8 @@
 //         phase 1 and K2's body (the choice to rchoice[s, k]), at series a
 //         failed slot charged as K5 charges it (the counters in
 //         ksim_k6_reject), rank 0's K3 bind (no append: the buffer holds no
-//         gang pod, so no rollback), the cluster barrier; rchoice[s, k] for
+//         gang pod, so no rollback) and, with the event log (a chaos
+//         timeline), its bind record, the cluster barrier; rchoice[s, k] for
 //         k >= rcount[s] is written PAD, as the per-slot route's K2 writes an
 //         empty slot's (its columns past its host bound were never written);
 //   (iii) K4's bookkeeping on rank 0 (ksim_retry_bookkeeping), then a
@@ -101,19 +102,27 @@
 // RB slots (kq); then, until the ring is empty (its count read by every rank
 // after a cluster barrier), its head pod through phase 1 and K2's body, and
 // where no node admits it the PostFilter (ksim.cuh ksim_post_filter, every
-// rank over its nodes, folded through DSMEM); then rank 0 pops the pod and,
-// with a node, commits the victims in order — used minus each one's requests
-// and its count planes rewound (ksim_release_cells), its pending entry
-// cancelled, its retried node or its choice-buffer column cleared (no
+// rank over its nodes, folded through DSMEM), at series after K5's count
+// body over the ranks' nodes at the same planes (ksim_k6_kube_counts, out of
+// line: folded into rank 0's shared slots, which hold the counts through the
+// PostFilter); then rank 0 pops the pod
+// and, with a node, commits the victims in order — used minus each one's
+// requests and its count planes rewound (ksim_release_cells), its pending
+// entry cancelled, its retried node or its choice-buffer column cleared (no
 // release fires for it), first_b marked, counted, and pushed onto the ring
 // while the unwalked and kept entries number fewer than RB, else counted
 // dropped — binds the pod (K3's body), records its node, boundary and first
 // bind and appends its pending release while the list holds fewer than RB
 // (the reference checks that cap at each bind); without one it keeps the pod
-// at the buffer's front; a cluster barrier. The ring and the compaction keep
-// the storage at RB: the rule bounds unwalked plus kept entries by RB, not
-// the entries a pass walks. A launch with no waves (first == end) runs the
-// trailing boundary at t = inf.
+// at the buffer's front and, at series, charges the held counts
+// (ksim_reject_charge: a pod the PostFilter rescues carries no reasons); a
+// cluster barrier. At series each victim's and each bound pod's episode mark
+// is cleared, and at timeline (the event log) a commit appends its victims'
+// preempt records and then the pod's bind record. After the pass the samples
+// are copied as after (iii). The ring and the compaction keep the storage at
+// RB: the rule bounds unwalked plus kept entries by RB, not the entries a
+// pass walks. A launch with no waves (first == end) runs the trailing
+// boundary at t = inf.
 //
 // What stays with the host, between launches (sim/torch_runtime.py
 // run_waves): the boundary's static K3 release (the reference's separate
@@ -174,7 +183,9 @@ static __constant__ KsimReject ksim_k6_reject;
 // set; ksim.cuh KsimRebind) a retried bind also clears a NoExecute victim's
 // eviction time and counts its re-bind and latency from the boundary's f64
 // start time t_bd, and without kube `k` carries rrel and first_b, which the
-// bookkeeping keeps for K10 (evict_node.cu).
+// bookkeeping keeps for K10 (evict_node.cu). At telemetry timeline under kube
+// or a chaos timeline (log.rec set) the pass appends its preempt and bind
+// records to the event log (ksim.cuh KsimLog).
 struct KsimRetryPhase {
   int b;
   float t_b;
@@ -192,6 +203,7 @@ struct KsimRetryPhase {
   double* evict_t;
   int32_t* resched;
   double* evict_lat;
+  KsimLog log;
 };
 
 // The retry mode's boundary sequence (i)-(iii) and samples in scenario scen's

@@ -13,18 +13,40 @@
 static __constant__ KsimRetryPhase ksim_k6_retry;
 static __constant__ KsimArgs ksim_k6_args;
 
+// Pod p's first-reject counts in scenario scen's cluster at the pass's
+// planes (K5's count body over each rank's nodes [lo, hi), the ranks' counts
+// folded into rank 0), written by rank 0's thread 0 to `tot` (the kube pass's
+// shared slots, KSIM_PLUGINS + 1). Out of line, so the kube pass keeps its
+// own register allocation without the count body's, and the counts wait for
+// the PostFilter in shared memory, not in registers; every thread of the
+// cluster calls it (the fold's barrier).
+__device__ __noinline__ void ksim_k6_kube_counts(int64_t scen, int C, int p, int lo, int hi,
+                                                 KsimTerms* terms, int* tot) {
+  const KsimArgs& a = ksim_k6_args;
+  int t[KSIM_PLUGINS + 1];  // thread 0's
+  ksim_reject_count_body(a, p, scen, lo, hi, ksim_label_rows(a, scen),
+                         a.used + scen * a.used_ss, a.match_count + scen * a.plane_ss,
+                         a.anti_active + scen * a.plane_ss, a.pref_wsum + scen * a.plane_ss,
+                         terms, t);
+  if (C > 1) ksim_cluster_fold_counts(t);
+  if (threadIdx.x == 0)
+    for (int k = 0; k <= KSIM_PLUGINS; ++k) tot[k] = t[k];
+}
+
 // The kube pass, (ii)-(iii) under kube preemption (chunk_replay.cuh's
 // header), in scenario scen's cluster; rank `lead` owns the nodes [lo, hi).
 // Rank 0 alone writes the pass's state (the ring, kst, the buffer, the
-// pending list, the victims' and the pods' records); every rank reads the
-// ring's count and head pod after a cluster barrier, so the loop's trip and
-// the PostFilter's PAD are uniform over the cluster. Out of line, as the
-// boundary is.
+// pending list, the victims' and the pods' records, the counters, the episode
+// marks and the event log); every rank reads the ring's count and head pod
+// after a cluster barrier, so the loop's trip, the PostFilter's PAD and the
+// count body's are uniform over the cluster. Out of line, as the boundary is.
 __device__ __noinline__ void ksim_k6_kube_pass(int64_t scen, int C, bool lead, int lo, int hi,
                                                KsimTerms* terms) {
   __shared__ int32_t s_pod;  // the bound pod, for K3's body
+  __shared__ int s_tot[KSIM_PLUGINS + 1];  // rank 0's: the counts before the PostFilter
   const KsimArgs& a = ksim_k6_args;
   const KsimRetryPhase& ph = ksim_k6_retry;
+  const KsimReject& rj = ksim_k6_reject;
   const KsimKube& k = ph.k;
   const KsimLabels lab = ksim_label_rows(a, scen);
   const float* match_count = a.match_count + scen * a.plane_ss;
@@ -69,14 +91,18 @@ __device__ __noinline__ void ksim_k6_kube_pass(int64_t scen, int C, bool lead, i
     __syncthreads();
     int node = ksim_normalize_select_body(a, p, scen, rch, -1, lo, hi);
     int nv = 0;
-    if (node == KSIM_PAD)  // uniform over the cluster
-      node = ksim_post_filter(a, k, p, scen, b, lo, hi, lab, terms, &nv);
+    const bool failed = node == KSIM_PAD;  // uniform over the cluster
+    if (failed && rj.reasons) ksim_k6_kube_counts(scen, C, p, lo, hi, terms, s_tot);
+    if (failed) node = ksim_post_filter(a, k, p, scen, b, lo, hi, lab, terms, &nv);
     if (lead) {
       __syncthreads();
       if (threadIdx.x == 0) {
         int head = h + 1 == RB ? 0 : h + 1, cnt = kst[1] - 1, kept = kst[2], plen = kst[3];
         if (node < 0) {
           rbuf[kept++] = p;
+          if (rj.reasons)  // no node even with victims: the pod is charged
+            ksim_reject_charge(a, s_tot, scen, p, rj.reasons, rj.attempts, rj.attributed, rj.K,
+                               rj.attr_ss);
         } else {
           const int32_t* vic = k.kvic + scen * P + k.koff[scen * a.N + node];
           float* used = a.used + scen * a.used_ss + (size_t)node * R;
@@ -84,6 +110,8 @@ __device__ __noinline__ void ksim_k6_kube_pass(int64_t scen, int C, bool lead, i
                               a.anti_active + scen * a.plane_ss, a.pref_wsum + scen * a.plane_ss};
           for (int i = 0; i < nv; ++i) {
             const int v = vic[i];
+            if (rj.attributed) rj.attributed[scen * rj.attr_ss + v] = 0;
+            ksim_log_append(ph.log, scen, KSIM_LOG_PREEMPT, b, v, node);
             for (int r = 0; r < R; ++r) used[r] = used[r] - a.requests[(size_t)v * R + r];
             ksim_release_cells(a, lab.gdom, v, node, [&](int plane, int cell, int t) {
               planes[plane][cell] = planes[plane][cell] - (float)t;
@@ -129,6 +157,8 @@ __device__ __noinline__ void ksim_k6_kube_pass(int64_t scen, int C, bool lead, i
         __syncthreads();
         if (threadIdx.x == 0) {
           const int64_t ip = scen * P + p;
+          if (rj.attributed) rj.attributed[scen * rj.attr_ss + p] = 0;
+          ksim_log_append(ph.log, scen, KSIM_LOG_BIND, b, p, node);
           a.rnode[ip] = node;
           a.rbind_b[ip] = b;
           if (k.first_b[ip] == KSIM_PAD) k.first_b[ip] = b;
@@ -190,43 +220,45 @@ __device__ __noinline__ void ksim_k6_boundary(int64_t scen, int C, bool lead, in
   }
   if (ph.kube) {  // (ii)-(iii) under kube preemption
     ksim_k6_kube_pass(scen, C, lead, lo, hi, terms);
-    return;  // no samples: series is refused with kube
-  }
-  const int n = a.rcount[scen];  // (ii): uniform over the cluster
-  const int32_t* rbuf = a.rbuf + scen * RB;
-  int32_t* rch = a.rchoice + scen * RB;
-  for (int k = 0; k < n; ++k) {
-    const int p = rbuf[k];  // >= 0: the buffer is dense from 0
-    ksim_filter_prologue(a, p, match_count, lab, terms);
-    __syncthreads();
-    for (int m = lo + threadIdx.x; m < hi; m += blockDim.x)
-      ksim_filter_score_node(a, p, scen, m, terms);
-    __syncthreads();
-    const int got = ksim_normalize_select_body(a, p, scen, rch + k, -1, lo, hi);
-    if (rj.reasons && got == KSIM_PAD) {  // uniform over the cluster
-      int tot[KSIM_PLUGINS + 1];  // thread 0's
-      ksim_reject_count_body(a, p, scen, lo, hi, lab, a.used + scen * a.used_ss, match_count,
-                             a.anti_active + scen * a.plane_ss,
-                             a.pref_wsum + scen * a.plane_ss, terms, tot);
-      if (C > 1) ksim_cluster_fold_counts(tot);
-      if (lead && threadIdx.x == 0)
-        ksim_reject_charge(a, tot, scen, p, rj.reasons, rj.attempts, rj.attributed, rj.K,
-                           rj.attr_ss);
-    }
-    if (lead) {
+  } else {
+    const int n = a.rcount[scen];  // (ii): uniform over the cluster
+    const int32_t* rbuf = a.rbuf + scen * RB;
+    int32_t* rch = a.rchoice + scen * RB;
+    for (int k = 0; k < n; ++k) {
+      const int p = rbuf[k];  // >= 0: the buffer is dense from 0
+      ksim_filter_prologue(a, p, match_count, lab, terms);
       __syncthreads();
-      ksim_apply_body(a, scen, a.rbuf + k, RB, nullptr, k, a.rchoice, 1, RB, 1.f, 0, -1, 0);
+      for (int m = lo + threadIdx.x; m < hi; m += blockDim.x)
+        ksim_filter_score_node(a, p, scen, m, terms);
+      __syncthreads();
+      const int got = ksim_normalize_select_body(a, p, scen, rch + k, -1, lo, hi);
+      if (rj.reasons && got == KSIM_PAD) {  // uniform over the cluster
+        int tot[KSIM_PLUGINS + 1];  // thread 0's
+        ksim_reject_count_body(a, p, scen, lo, hi, lab, a.used + scen * a.used_ss,
+                               match_count, a.anti_active + scen * a.plane_ss,
+                               a.pref_wsum + scen * a.plane_ss, terms, tot);
+        if (C > 1) ksim_cluster_fold_counts(tot);
+        if (lead && threadIdx.x == 0)
+          ksim_reject_charge(a, tot, scen, p, rj.reasons, rj.attempts, rj.attributed, rj.K,
+                             rj.attr_ss);
+      }
+      if (lead) {
+        __syncthreads();
+        ksim_apply_body(a, scen, a.rbuf + k, RB, nullptr, k, a.rchoice, 1, RB, 1.f, 0, -1, 0);
+        if (threadIdx.x == 0 && rch[k] >= 0)  // a chaos timeline's bind record
+          ksim_log_append(ph.log, scen, KSIM_LOG_BIND, ph.b, p, rch[k]);
+      }
+      ksim_cluster_barrier(C);
+    }
+    if (lead) {  // (iii)
+      for (int k = n + threadIdx.x; k < RB; k += blockDim.x) rch[k] = KSIM_PAD;
+      __syncthreads();
+      const KsimRebind rb{ph.k.rrel, ph.k.first_b, ph.evict_t, ph.resched, ph.evict_lat,
+                          ph.t_bd};
+      ksim_retry_bookkeeping(a, scen, ph.b, ph.t_b, rb.rrel ? &rb : nullptr);
     }
     ksim_cluster_barrier(C);
   }
-  if (lead) {  // (iii)
-    for (int k = n + threadIdx.x; k < RB; k += blockDim.x) rch[k] = KSIM_PAD;
-    __syncthreads();
-    const KsimRebind rb{ph.k.rrel, ph.k.first_b, ph.evict_t, ph.resched, ph.evict_lat,
-                        ph.t_bd};
-    ksim_retry_bookkeeping(a, scen, ph.b, ph.t_b, rb.rrel ? &rb : nullptr);
-  }
-  ksim_cluster_barrier(C);
   if (!ph.used_out && !ph.snap_used) return;
   // The samples: each rank its nodes' used rows, rank 0 the rest.
   const int R = a.R;

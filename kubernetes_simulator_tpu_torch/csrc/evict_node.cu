@@ -27,7 +27,12 @@
 //      only), its eviction time t_bd stored as a double, the scenario's
 //      eviction counted, and a non-gang victim appended to the retry buffer
 //      at rcount while rcount < RB, else counted in rdrop (a gang victim
-//      stays displaced: Permit is in-wave).
+//      stays displaced: Permit is in-wave); at telemetry series its episode
+//      mark cleared (sim/telemetry.py clear_episode: an eviction starts a
+//      new unschedulable episode), and at timeline its evict record appended
+//      to the scenario's event log (ksim.cuh KsimLog), in victim order —
+//      both optional, so a run without telemetry does the same work as
+//      without them.
 // Walking a victim writes only its own records, the pending list and the
 // buffer, so the next tile's test (which reads each pod's own records) sees
 // the pods not yet walked as they were. No float atomics: every state cell
@@ -46,7 +51,9 @@
 // grid) takes its down nodes nodes[off[i] .. off[i + 1]); the node tables
 // (ksim.cuh KsimKube's col_of, col_relb, rrel, first_b; the choice buffer
 // [S, choice_ss]); the chaos records evict_t [S,P] f64 (negative: none) and
-// evictions [S]; the boundary b and its f64 start time t_bd.
+// evictions [S]; the boundary b and its f64 start time t_bd; the episode
+// marks attributed [S, attr_ss] u8 of series telemetry (null: none) and the
+// event log of a timeline (log.rec null: none).
 struct KsimEvict {
   const int32_t* scen;
   const int32_t* off;
@@ -62,6 +69,9 @@ struct KsimEvict {
   double t_bd;
   int32_t b;
   int32_t pad0;
+  uint8_t* attributed;
+  int64_t attr_ss;
+  KsimLog log;
 };
 
 __global__ void __launch_bounds__(K10_THREADS, 1)
@@ -96,6 +106,8 @@ __global__ void __launch_bounds__(K10_THREADS, 1)
       if (threadIdx.x == 0) {
         for (int i = 0; i < total; ++i) {
           const int v = vic[i];
+          if (e.attributed) e.attributed[scen * e.attr_ss + v] = 0;
+          ksim_log_append(e.log, scen, KSIM_LOG_EVICT, e.b, v, node);
           for (int r = 0; r < R; ++r)
             used[(size_t)node * R + r] = used[(size_t)node * R + r] - a.requests[(size_t)v * R + r];
           ksim_release_cells(a, gdom, v, node, [&](int plane, int cell, int t) {
@@ -146,7 +158,8 @@ KSIM_EXPORT int ksim_evict_node(const KsimArgs* args, const KsimEvict* ev, int e
       args->RB < 1 || args->RB > KSIM_MAX_RB || args->P < 1 || args->NP != 1 ||
       args->preempt || !ev->scen || !ev->off || !ev->nodes || !ev->col_of || !ev->col_relb ||
       !ev->rrel || !ev->first_b || !ev->choices || ev->choice_ss < 1 || !ev->evict_t ||
-      !ev->evictions || ev->b < 0)
+      !ev->evictions || ev->b < 0 || (ev->attributed && ev->attr_ss < args->P) ||
+      (ev->log.rec && (!ev->log.n || ev->log.cap < 1)))
     return (int)cudaErrorInvalidValue;
   ksim_evict_node_kernel<<<m, K10_THREADS, 0, (cudaStream_t)stream>>>(*args, *ev);
   return (int)cudaGetLastError();

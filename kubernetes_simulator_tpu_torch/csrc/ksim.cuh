@@ -1655,6 +1655,36 @@ __device__ __forceinline__ int ksim_block_exclusive_scan(int v, int* total) {
 // first_b of a pod bound in its wave (or pre-bound) and evicted since.
 #define KSIM_FIRST_IN_WAVE (-2)
 
+// The timeline's event log (ops/reference.py EventLog; null rec: none): rec
+// [S, cap, 4] i32 records (kind, boundary, pod, node) in append order, n [S]
+// the records each scenario appended. Past cap a record is dropped and n
+// still counts it, so the host sees a full log after the run and raises.
+#define KSIM_LOG_BIND 0
+#define KSIM_LOG_PREEMPT 1
+#define KSIM_LOG_EVICT 2
+struct KsimLog {
+  int32_t* rec;
+  int32_t* n;
+  int32_t cap;
+  int32_t pad0;
+};
+
+// Append one record to scenario scen's log: one thread, the scenario's only
+// writer (K6's rank 0, K10's block), in the reference's event order.
+__device__ __forceinline__ void ksim_log_append(const KsimLog& lg, int64_t scen, int kind,
+                                                int b, int pod, int node) {
+  if (!lg.rec) return;
+  const int i = lg.n[scen];
+  if (i < lg.cap) {
+    int32_t* r = lg.rec + (scen * lg.cap + i) * 4;
+    r[0] = kind;
+    r[1] = b;
+    r[2] = pod;
+    r[3] = node;
+  }
+  lg.n[scen] = i + 1;
+}
+
 // What K6's retry mode adds to a retried bind under a chaos timeline
 // (sim/boundary.py:401-475, :632-639; null pointers: nothing): rrel / first_b
 // [S,P] the boundary of each retried pod's pending release (KSIM_NEVER: none

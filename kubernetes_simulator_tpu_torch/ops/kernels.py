@@ -77,9 +77,14 @@ a second instantiation of the kernel, compiled in
 ``csrc/chunk_replay_attributed.cu``, that runs K5's count body from
 ``ksim.cuh`` for each failed slot before its bind — sim/jax_runtime.py:443
 make_chunk_fn_rej); on the retry path inside K6's retry mode for the retry
-pass (``chunk_replay(retry=, reject=)``) and as K5 for the chunk folds; on
-the per-slot route as K5. The default ``summary`` runs K6's summary
-instantiation, unchanged.
+pass (``chunk_replay(retry=, reject=)``; under kube the kube pass counts a
+pod before the PostFilter and charges it only where the PostFilter finds no
+node, and clears the episode marks of its victims and bound pods) and as K5
+for the chunk folds; on the per-slot route as K5. K10 clears its victims'
+marks. At ``timeline`` under kube or a chaos timeline the tables' event log
+(:class:`.reference.EventLog`, :func:`check_log`) takes K10's ``evict`` and
+the retry pass's ``preempt`` / ``bind`` records. The default ``summary``
+runs K6's summary instantiation, unchanged.
 
 Under node shards (a Tables with ``shards``, row B13: sim/jax_runtime.py:494
 make_wave_step_sharded, :548 make_chunk_fn_sharded) a slot is K1 over the
@@ -365,11 +370,20 @@ class KsimKube(ctypes.Structure):
     )
 
 
+class KsimLog(ctypes.Structure):
+    """Mirror of ``struct KsimLog`` in csrc/ksim.cuh (the timeline's event
+    log, :class:`.reference.EventLog`; null ``rec``: none)."""
+
+    _fields_ = [("rec", ctypes.c_void_p), ("n", ctypes.c_void_p), ("cap", ctypes.c_int32),
+                ("pad0", ctypes.c_int32)]
+
+
 class KsimRetryPhase(ctypes.Structure):
     """Mirror of ``struct KsimRetryPhase`` in csrc/chunk_replay.cuh (K6's
     retry mode: the boundary, its series samples, with ``kube`` the kube
-    pass's tables, and under a chaos timeline the re-bind records and the
-    boundary's f64 start time; the C entry checks sizeof())."""
+    pass's tables, under a chaos timeline the re-bind records and the
+    boundary's f64 start time, and the event log; the C entry checks
+    sizeof())."""
 
     _fields_ = (
         [("b", ctypes.c_int32), ("t_b", ctypes.c_float), ("pending", ctypes.c_int32),
@@ -378,13 +392,15 @@ class KsimRetryPhase(ctypes.Structure):
             "used_out", "rcount_out", "pend_out", "snap_used", "snap_mc", "snap_aa", "snap_pw")]
         + [("k", KsimKube), ("t_bd", ctypes.c_double)]
         + [(name, ctypes.c_void_p) for name in ("evict_t", "resched", "evict_lat")]
+        + [("log", KsimLog)]
     )
 
 
 class KsimEvict(ctypes.Structure):
     """Mirror of ``struct KsimEvict`` in csrc/evict_node.cu (one K10 launch:
-    its scenarios and down nodes, the node tables, the chaos records and the
-    boundary; the C entry checks sizeof())."""
+    its scenarios and down nodes, the node tables, the chaos records, the
+    boundary, and the episode marks and event log of telemetry; the C entry
+    checks sizeof())."""
 
     _fields_ = (
         [(name, ctypes.c_void_p) for name in (
@@ -392,6 +408,7 @@ class KsimEvict(ctypes.Structure):
         + [("choice_ss", ctypes.c_int64)]
         + [(name, ctypes.c_void_p) for name in ("evict_t", "evictions")]
         + [("t_bd", ctypes.c_double), ("b", ctypes.c_int32), ("pad0", ctypes.c_int32)]
+        + [("attributed", ctypes.c_void_p), ("attr_ss", ctypes.c_int64), ("log", KsimLog)]
     )
 
 
@@ -802,6 +819,23 @@ def check_reject(tb: ref.Tables) -> None:
         raise ValueError(f"reject tables of {K_} plugins for a step with another number on")
 
 
+def check_log(tb: ref.Tables) -> KsimLog:
+    """The event log of a Tables as K6's retry mode and K10 take it
+    (contiguous ``[S, cap, 4]`` i32 records and ``[S]`` i32 counts on the
+    state's device), or a null one without a log."""
+    lg = tb.log
+    if lg is None:
+        return KsimLog()
+    S, dev = tb.state.used.shape[0], tb.state.used.device
+    for name, t, shape in (("rec", lg.rec, (S, lg.rec.shape[1], 4)), ("n", lg.n, (S,))):
+        if (tuple(t.shape) != shape or t.dtype != torch.int32 or t.device != dev
+                or not t.is_contiguous()):
+            raise ValueError(f"log.{name}: expected contiguous int32 {shape}")
+    if tb.retry is None or (tb.retry.prio is None and tb.retry.evict_t is None):
+        raise ValueError("an event log rides the retry tables of kube or a chaos timeline")
+    return KsimLog(lg.rec.data_ptr(), lg.n.data_ptr(), lg.rec.shape[1], 0)
+
+
 class Bound:
     """A Tables plus, on a CUDA device, its packed argument block — what
     the wrappers take. The tables are checked here, once; the wrappers
@@ -823,6 +857,8 @@ class Bound:
             self._args_ptr = ctypes.addressof(self.args)
             if tb.reject is not None:
                 check_reject(tb)
+            #: the event log's mirror (null without one)
+            self.log = check_log(tb)
         self._plans: Dict[str, ClusterPlan] = {}
 
     def release_workspace(self, K: int):
@@ -1127,9 +1163,6 @@ def _check_retry_phase(b: Bound, retry, append: bool, reject, samples) -> None:
     if tb.preempt is not None:
         raise ValueError("retry_buffer is not supported with tier preemption (the reference "
                          "refuses it, sim/jax_runtime.py:1041-1043)")
-    if tb.retry.prio is not None and (reject is not None or samples is not None):
-        raise ValueError("kube preemption runs without series telemetry: its attribution and "
-                         "samples are ROADMAP queue A item 6c")
     bnd, _, _ = retry
     if int(bnd) < (0 if tb.retry.evict_t is not None else 1) or not append:
         raise ValueError("a retry boundary is a chunk's boundary b > 0 (b >= 0 under a chaos "
@@ -1188,8 +1221,11 @@ def chunk_replay(b: Bound, idx: torch.Tensor, gang: torch.Tensor, choices: torch
     preemption (Retry tables with ``prio``) the pass is the kube pass
     (csrc/chunk_replay.cuh): the PostFilter for a pod no node admits, its
     victims' rewind and requeue, the pending appends at bind time; a launch
-    with no waves (``first == end``) is the trailing boundary; no ``reject``
-    or ``samples`` (series under kube is ROADMAP A6c).
+    with no waves (``first == end``) is the trailing boundary; ``reject``
+    charges a pod the PostFilter does not rescue with its counts taken before
+    it, and clears the episode marks of the victims and the bound pods. The
+    tables' event log (``b.tables.log``: telemetry timeline under kube or a
+    chaos timeline) takes the pass's ``preempt`` and ``bind`` records.
 
     Each launch counts in ``launches``, an attributed one also in
     ``attributed``, a retry-mode one in ``retry``, a kube-pass one also in
@@ -1232,6 +1268,7 @@ def chunk_replay(b: Bound, idx: torch.Tensor, gang: torch.Tensor, choices: torch
             phase.t_bd = float(rt.tbd[bnd]) if bnd < rt.tbd.shape[0] else float("inf")
             phase.evict_t, phase.resched, phase.evict_lat = (
                 rt.evict_t.data_ptr(), rt.resched.data_ptr(), rt.evict_lat.data_ptr())
+        phase.log = b.log
     _check(_libs["chunk_replay"](
         b._args_ptr, idx.data_ptr(), gang.data_ptr(), choices.data_ptr(), choices.shape[1],
         int(W), int(first), int(end), -1 if boundary is None else int(boundary),
@@ -1389,7 +1426,9 @@ def evict_node(b: Bound, choices: torch.Tensor, scen: torch.Tensor, off: torch.T
     1]]`` in order (``scen [m]``, ``off [m + 1]``, ``nodes`` int32 on the
     tables' device; one block a scenario) — each node's pods in pod order,
     their state rewound, pending entries cancelled, records cleared, each
-    non-gang one requeued (:func:`.reference.evict_node`). Needs retry
+    non-gang one requeued (:func:`.reference.evict_node`); with the tables'
+    reject counters each victim's episode mark cleared, with their event log
+    its ``evict`` record appended. Needs retry
     tables with the chaos records (a Retry with ``evict_t``)."""
     rt = b.tables.retry
     if rt is None or rt.evict_t is None:
@@ -1408,10 +1447,13 @@ def evict_node(b: Bound, choices: torch.Tensor, scen: torch.Tensor, off: torch.T
             raise ValueError(f"{name}: contiguous int32 on the tables' device expected")
     if m == 0:
         return
+    rj = b.tables.reject
     ev = KsimEvict(scen.data_ptr(), off.data_ptr(), nodes.data_ptr(), rt.col_of.data_ptr(),
                    rt.col_relb.data_ptr(), rt.rrel.data_ptr(), rt.first_b.data_ptr(),
                    choices.data_ptr(), choices.shape[1], rt.evict_t.data_ptr(),
-                   rt.evictions.data_ptr(), float(t_b), int(bnd), 0)
+                   rt.evictions.data_ptr(), float(t_b), int(bnd), 0,
+                   rj.attributed.data_ptr() if rj is not None else None,
+                   rj.attributed.shape[1] if rj is not None else 0, b.log)
     _check(_libs["evict_node"](b._args_ptr, ctypes.byref(ev), ctypes.sizeof(KsimEvict), int(m),
                                _stream()), "evict_node")
     evict_node.launches += 1

@@ -345,11 +345,11 @@ class Reject(NamedTuple):
     TelemetryCollector), in ``spec_plugin_names`` order. None in a Tables
     when attribution is off.
 
-    An episode ends with a bind or an eviction. The port attributes no run
-    with kube preemption (series and timeline under kube are refused, queue
-    A item 6c) or chaos, so an episode ends only with a bind, after which
-    the pod is never attempted again: ``attributed`` needs no clearing.
-    Kube's attribution (6c) will clear it for victims."""
+    An episode ends with a bind or an eviction (sim/telemetry.py
+    ``clear_episode``): the kube pass clears ``attributed`` for each of its
+    victims and each pod it binds, K10 for each NoExecute victim, so a pod
+    unbound and failing again is charged to ``reasons`` again. Without kube
+    or chaos no pod is unbound, and a bound pod is never attempted again."""
 
     reasons: torch.Tensor  # [S, K] i32 per unschedulable episode
     attempts: torch.Tensor  # [S, K] i32 per failed attempt
@@ -360,6 +360,58 @@ def new_reject(K: int, P: int, S: int, device) -> Reject:
     """Zero counters of K plugins for S scenarios of P pods on ``device``."""
     z = lambda *shape, dt=torch.int32: torch.zeros(shape, dtype=dt, device=device)
     return Reject(reasons=z(S, K), attempts=z(S, K), attributed=z(S, P, dt=torch.uint8))
+
+
+#: EventLog record kinds (csrc/ksim.cuh KSIM_LOG_*), the reference's timeline
+#: event names
+LOG_KINDS = ("bind", "preempt", "evict")
+LOG_BIND, LOG_PREEMPT, LOG_EVICT = range(3)
+
+
+class EventLog(NamedTuple):
+    """The timeline events of S scenarios that undo or redo a bind, in the
+    order the reference emits them (sim/boundary.py:450-455, :585-591,
+    :611-629): K10's ``evict`` records, and the retry pass's ``preempt``
+    and ``bind`` records (the kube pass; the plain pass under a chaos
+    timeline, where an evicted pod binds again). A record is (kind,
+    boundary, pod, node); the host turns a boundary into its time. None in
+    a Tables without a timeline of such events.
+
+    ``n`` counts every record a scenario appended: past ``cap`` the record
+    is dropped and the count goes on, so a full log is seen after the run
+    (:func:`log_records` raises) and never silently cut."""
+
+    rec: torch.Tensor  # [S, cap, 4] i32 (kind, boundary, pod, node) in append order
+    n: torch.Tensor  # [S] i32 records appended (kept: min(n, cap))
+
+
+def new_log(S: int, cap: int, device) -> EventLog:
+    """An empty EventLog of ``cap`` records a scenario."""
+    return EventLog(rec=torch.full((S, max(int(cap), 1), 4), PAD, dtype=torch.int32,
+                                   device=device),
+                    n=torch.zeros(S, dtype=torch.int32, device=device))
+
+
+def log_append(log: Optional[EventLog], s: int, kind: int, b: int, pod: int, node: int) -> None:
+    """Append one record to scenario s's log (a no-op without one)."""
+    if log is None:
+        return
+    i = int(log.n[s])
+    if i < log.rec.shape[1]:
+        log.rec[s, i] = torch.tensor([kind, b, pod, node], dtype=torch.int32,
+                                     device=log.rec.device)
+    log.n[s] = i + 1
+
+
+def log_records(log: EventLog, s: int) -> list:
+    """Scenario s's records, ``[(kind name, boundary, pod, node), ...]`` in
+    append order, fetched to the host; raises where the log filled."""
+    n, cap = int(log.n[s]), log.rec.shape[1]
+    if n > cap:
+        raise RuntimeError(
+            f"the timeline event log of scenario {s} filled: {n} records for a capacity of "
+            f"{cap} (sim/torch_runtime.py log_capacity); no event was kept past it")
+    return [(LOG_KINDS[k], b, p, v) for k, b, p, v in log.rec[s, :n].tolist()]
 
 
 class RetrySamples(NamedTuple):
@@ -393,6 +445,8 @@ class Tables(NamedTuple):
     #: node-plane shards (row B13, :class:`Shards`), None in the replicated
     #: layout
     shards: Optional["Shards"] = None
+    #: the timeline's event log (:class:`EventLog`), None without one
+    log: Optional[EventLog] = None
 
 
 class Shards(NamedTuple):
@@ -1306,16 +1360,16 @@ def retry_pass(tb: Tables, bnd: int, t_b: float, pending: bool = True,
     does nothing in the later slots and its ``rchoice`` there is PAD — then
     :func:`retry_boundary` at the f32 start time ``t_b``. Under kube
     preemption (``tb.retry.prio``; ``choices`` the choice buffer) the pass
-    is :func:`kube_pass`."""
+    is :func:`kube_pass`. With ``tb.log`` (a chaos timeline) each bind of
+    the pass appends its ``bind`` record, scenario by scenario in slot
+    order."""
     rt = tb.retry
     RB = rt.rbuf.shape[1]
     pos_rb = torch.arange(RB, dtype=torch.int32, device=rt.rbuf.device)
     if pending:
         apply_placements(tb, rt.pend_id, pos_rb, rt.pend_node, -1.0, due=(rt.pend_relb, bnd))
     if rt.prio is not None:
-        if reject is not None:
-            raise ValueError("kube preemption attributes nothing (queue A item 6c)")
-        kube_pass(tb, choices, bnd, t_b)
+        kube_pass(tb, choices, bnd, t_b, reject)
         return
     rtb = tb._replace(reject=reject) if reject is not None else None
     for k in range(int(rt.rcount.max()) if rt.rcount.numel() else 0):
@@ -1325,6 +1379,10 @@ def retry_pass(tb: Tables, bnd: int, t_b: float, pending: bool = True,
         if rtb is not None:
             first_reject(rtb, rt.rbuf[:, k : k + 1], rt.rchoice[:, k : k + 1])
         apply_placements(tb, rt.rbuf[:, k : k + 1], pos_rb[k : k + 1], rt.rchoice, 1.0)
+        if tb.log is not None:
+            for s, (p, n) in enumerate(zip(pod_of_s.tolist(), rt.rchoice[:, k].tolist())):
+                if p >= 0 and n >= 0:
+                    log_append(tb.log, s, LOG_BIND, bnd, p, n)
     rt.rchoice.masked_fill_(pos_rb[None, :] >= rt.rcount[:, None], PAD)
     retry_boundary(tb, bnd, t_b)
 
@@ -1439,7 +1497,8 @@ def post_filter(tb: Tables, choices: torch.Tensor, s: int, p: int, b: int
     return best[0][2], best[1]
 
 
-def kube_pass(tb: Tables, choices: torch.Tensor, bnd: int, t_b: float) -> None:
+def kube_pass(tb: Tables, choices: torch.Tensor, bnd: int, t_b: float,
+              reject: Optional[Reject] = None) -> None:
     """Boundary ``bnd``'s retry pass under kube preemption in every
     scenario, the twin of K6's retry mode there (sim/boundary.py:547-678,
     ``boundary_retry`` with kube=True): the pending list drops its due
@@ -1460,7 +1519,16 @@ def kube_pass(tb: Tables, choices: torch.Tensor, bnd: int, t_b: float) -> None:
     where that boundary exists and the list holds fewer than RB entries
     (``rrel``; else NEVER). A pod that fails is kept, in walk order. After
     the walk ``rbuf`` holds the kept pods (``rcount``) and ``rchoice`` is
-    PAD."""
+    PAD.
+
+    With ``reject`` (telemetry series; sim/boundary.py:563-582 and
+    framework/framework.py ``schedule_one(want_reasons=True)``) a pod no
+    node admits is counted as K5 counts it, at the pass's state before the
+    PostFilter, and charged (``attempts``, and ``reasons`` on an unmarked
+    episode) only when the PostFilter finds no node: a rescued pod carries
+    no reasons. Each victim's and each bound pod's episode mark is cleared.
+    With ``tb.log`` each commit appends its victims' ``preempt`` records,
+    in victim order, and then the pod's ``bind``."""
     rt = tb.retry
     S, RB = rt.rbuf.shape
     dev = rt.rbuf.device
@@ -1495,12 +1563,24 @@ def kube_pass(tb: Tables, choices: torch.Tensor, bnd: int, t_b: float) -> None:
                 continue
             head[s] += 1
             if node[s] < 0:
+                counts = None
+                if reject is not None:
+                    sub = _scenario_subset(tb, torch.tensor([s], device=dev))
+                    counts = first_reject_counts(filter_masks(sub, p))[0][0]
                 hit = post_filter(tb, choices, s, p, bnd)
                 if hit is None:
                     kept[s].append(p)
+                    if counts is not None:
+                        reject.attempts[s] += counts
+                        if int(reject.attributed[s, p]) == 0:
+                            reject.attributed[s, p] = 1
+                            reject.reasons[s] += counts
                     continue
                 node[s], victims = hit
                 for v in victims:
+                    if reject is not None:
+                        reject.attributed[s, v] = 0
+                    log_append(tb.log, s, LOG_PREEMPT, bnd, v, node[s])
                     _unbind_planes(tb, s, v, node[s])
                     rt.preempt[s] += 1
                     pend[s] = [e for e in pend[s] if e[0] != v]
@@ -1521,6 +1601,9 @@ def kube_pass(tb: Tables, choices: torch.Tensor, bnd: int, t_b: float) -> None:
             p, n = pod[s], node[s]
             if p < 0 or n < 0:
                 continue
+            if reject is not None:
+                reject.attributed[s, p] = 0
+            log_append(tb.log, s, LOG_BIND, bnd, p, n)
             rt.rnode[s, p] = n
             rt.rbind_b[s, p] = bnd
             if int(rt.first_b[s, p]) == PAD:
@@ -1570,7 +1653,7 @@ def event_steps(timelines, tb: np.ndarray, alloc0: np.ndarray) -> dict:
     ``node_down`` sets the node's row to 0, a ``node_up`` back to the
     scenario's own t = 0 row and a ``capacity_scale`` to that row times its
     factor. Returns ``{b: ChaosStep}`` for each boundary where an event
-    fires."""
+    fires, with the events themselves (``fired``)."""
     a0 = np.asarray(alloc0, np.float32)
     S = len(timelines)
     N, R = a0.shape[-2:]
@@ -1578,7 +1661,7 @@ def event_steps(timelines, tb: np.ndarray, alloc0: np.ndarray) -> dict:
     cur = [0] * S
     out = {}
     for b, t in enumerate(np.asarray(tb, np.float64)):
-        rows, downs = {}, []
+        rows, downs, fired = {}, [], []
         for s in range(S):
             tl, i = timelines[s], cur[s]
             nodes = []
@@ -1593,6 +1676,7 @@ def event_steps(timelines, tb: np.ndarray, alloc0: np.ndarray) -> dict:
                     rows[(s, n)] = row0(s, n).copy()
                 elif ev.kind == "capacity_scale":
                     rows[(s, n)] = (row0(s, n) * ev.scale).astype(np.float32)
+            fired.append(tuple(tl[cur[s] : i]))
             cur[s] = i
             if nodes:
                 downs.append((s, nodes))
@@ -1606,6 +1690,7 @@ def event_steps(timelines, tb: np.ndarray, alloc0: np.ndarray) -> dict:
             off=np.concatenate(([0], np.cumsum([len(x) for _, x in downs]))).astype(np.int32),
             nodes=np.asarray([n for _, x in downs for n in x], np.int32),
             t_b=float(t),
+            fired=tuple(fired),
         )
     return out
 
@@ -1617,7 +1702,8 @@ class ChaosStep(NamedTuple):
     R]`` view, each once, and their new values), and for K10 the scenarios
     with a ``node_down`` here and their down nodes in timeline order
     (``nodes[off[i]:off[i + 1]]`` for scenario ``scen[i]``); ``t_b`` the
-    boundary's f64 start time."""
+    boundary's f64 start time; ``fired`` each scenario's events that fire
+    here, in timeline order (host objects: the telemetry's node events)."""
 
     rows: np.ndarray  # [k] i64
     vals: np.ndarray  # [k, R] f32
@@ -1625,6 +1711,7 @@ class ChaosStep(NamedTuple):
     off: np.ndarray  # [m + 1] i32
     nodes: np.ndarray  # [off[m]] i32
     t_b: float
+    fired: tuple = ()  # [S] tuples of NodeEvent
 
 
 def evict_node(tb: Tables, choices: torch.Tensor, s: int, nodes, b: int, t_b: float) -> None:
@@ -1640,13 +1727,18 @@ def evict_node(tb: Tables, choices: torch.Tensor, s: int, nodes, b: int, t_b: fl
     release fires for it), its ``first_b`` marked when it was first bound in
     its wave, its eviction time ``t_b`` recorded, ``evictions`` counted, and
     a non-gang victim joins the retry buffer while it has room (else
-    ``rdrop``); a gang victim stays displaced."""
+    ``rdrop``); a gang victim stays displaced. With ``tb.reject`` each
+    victim's episode mark is cleared (an eviction starts a new episode),
+    with ``tb.log`` its ``evict`` record appended, in victim order."""
     rt = tb.retry
     RB = rt.rbuf.shape[1]
     gid = tb.pods.group_id
     for n in nodes:
         cur = bound_nodes(tb, choices, s, b - 1)
         for v in torch.nonzero(cur == int(n)).flatten().tolist():
+            if tb.reject is not None:
+                tb.reject.attributed[s, v] = 0
+            log_append(tb.log, s, LOG_EVICT, b, v, int(n))
             _unbind_planes(tb, s, v, int(n))
             keep = rt.pend_id[s] != v
             m = int(keep.sum())

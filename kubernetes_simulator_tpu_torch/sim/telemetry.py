@@ -16,8 +16,8 @@ Chrome-trace export ``_trace_events`` / ``write_chrome_trace``
   (``reasons`` per unschedulable episode, ``rejection_attempts`` per failed
   attempt; counted on the card by K5 and fetched once a run) and the
   virtual-time series sampled at chunk boundaries.
-- ``timeline``: + the bind events and the Chrome-trace export (load it in
-  Perfetto).
+- ``timeline``: + the bind, preempt, evict, node_down and node_up events
+  and the Chrome-trace export (load it in Perfetto).
 """
 
 from __future__ import annotations
@@ -274,9 +274,10 @@ def _trace_events(
     """Trace events of one result: pids 0 ("cluster") / 1 ("chaos"); a pod
     span per placed pod from its first bind to its completion (or the
     makespan) on its node's row, per-node cpu/memory usage counters with
-    ``requests`` and ``rindex``, and each timeline event as an instant.
-    The port emits only ``bind`` events; the chaos row stays empty until
-    chaos is ported (node_down → node_up spans)."""
+    ``requests`` and ``rindex``, each ``node_down`` → ``node_up`` window as
+    a ``node<n> down`` span on the chaos track (a node that never comes back
+    down to the makespan), and every other timeline event (``bind``,
+    ``preempt``, ``evict``) as an instant on its node's row."""
     tel = getattr(res, "telemetry", None)
     assignments = np.asarray(res.assignments)
     makespan = float(getattr(res, "virtual_makespan", 0.0))
@@ -324,12 +325,24 @@ def _trace_events(
                     "tid": n, "ts": t * 1e6,
                     "args": {rn: round(float(run[k]), 6) for k, (rn, _) in enumerate(cols)},
                 })
+    down_at: Dict[int, float] = {}
     for kind, t, pod, node in (tel.events if tel is not None else ()):
-        ev.append({
-            "name": kind, "ph": "i", "s": "t", "pid": 0,
-            "tid": node if node >= 0 else 0, "ts": t * 1e6,
-            "args": ({"pod": pod} if pod >= 0 else {}),
-        })
+        if kind == "node_down":
+            down_at[node] = t
+        elif kind == "node_up":
+            t0 = down_at.pop(node, t)
+            ev.append({"name": f"node{node} down", "ph": "X", "pid": 1, "tid": node,
+                       "ts": t0 * 1e6, "dur": max(t - t0, 0.0) * 1e6})
+        else:
+            ev.append({
+                "name": kind, "ph": "i", "s": "t", "pid": 0,
+                "tid": node if node >= 0 else 0, "ts": t * 1e6,
+                "args": ({"pod": pod} if pod >= 0 else {}),
+            })
+    for node, t0 in sorted(down_at.items()):
+        # a node that never came back: its span runs to the makespan
+        ev.append({"name": f"node{node} down", "ph": "X", "pid": 1, "tid": node,
+                   "ts": t0 * 1e6, "dur": max(makespan - t0, 0.0) * 1e6})
     return ev
 
 

@@ -119,8 +119,7 @@ appends at bind time — and after the last chunk one more retry-mode launch
 with no waves is the trailing boundary at ``t = inf`` (every pending entry
 due there; no static release, no new pending entry). The per-slot route
 refuses kube (its pass would need a host sync a slot), and so do node
-shards, paged waves (the reference's refusal), series/timeline telemetry
-(the PostFilter's attribution, queue A item 6c) and checkpoints (6d). The
+shards, paged waves (the reference's refusal) and checkpoints (6d). The
 summary latency counts first binds only (``Retry.first_b``), victims that
 end unplaced included; ``ReplayResult.preemptions`` and ``retry_dropped``
 come from the card.
@@ -140,8 +139,21 @@ retry-mode K6, whose pass re-binds the victims (at boundary 0 too, where
 K10 evicted pre-bound pods). The plain path rewrites rows only, as the
 reference's. The run restores the allocatable after the loop. Refused by
 name: events under node shards or paged waves and on the per-slot route
-under the retry buffer (queue A item 6b), with series/timeline (6c) and with
-checkpoints (6d).
+under the retry buffer (queue A item 6b) and with checkpoints (6d).
+
+Telemetry ``series`` / ``timeline`` under kube and under chaos (the
+reference's host pass and mirror, sim/boundary.py:360-398, :430-475,
+:547-678) runs on the card too: the kube pass counts a pod no node admits
+as K5 counts it before the PostFilter and charges it only when the
+PostFilter finds no node, clears the episode marks of its victims and of
+the pods it binds, and copies the boundary's samples after the pass; K10
+clears its victims' marks; the K5 fold of chunk c runs before boundary c +
+1's allocatable rows are rewritten, and the last chunk's before the
+trailing boundary. At ``timeline`` K10 and the retry pass append their
+``evict`` / ``preempt`` / ``bind`` records to a per-scenario event log
+(:class:`..ops.reference.EventLog`, :func:`log_capacity`) that the host
+reads once after the run, so the events keep the binds that a later
+preemption or eviction undid (:meth:`ChunkEngine._collect`).
 """
 
 from __future__ import annotations
@@ -758,6 +770,38 @@ def chaos_steps(plan: ChunkPlan, timelines, alloc0: np.ndarray, device) -> dict:
             for b, st in ref.event_steps(timelines, plan.tb, alloc0).items()}
 
 
+def log_capacity(plan: ChunkPlan, RB: int, need: int = 0) -> int:
+    """Records a scenario's event log (:class:`..ops.reference.EventLog`)
+    holds: ``need`` (the most records a scenario of an earlier run of the
+    same plan appended) or, if more, twice the pods a run schedules or
+    holds bound (its valid slots and pre-bound pods) plus a buffer's worth.
+    A pass bind follows a failure or an unbind, and an unbind (``preempt``,
+    ``evict``) undoes a bind, so a run that unbinds each pod about once on
+    average fits the first time; one that needs more (a node that flaps
+    under the same pods, long preemption chains) runs again with ``need``
+    set to the count the kernels kept past the capacity
+    (:meth:`ChunkEngine._run`)."""
+    return max(int(need), 2 * (int((plan.idx >= 0).sum()) + int(plan.prebound.size)) + int(RB))
+
+
+def alloc_at_boundaries(steps: dict, B: int, alloc0: np.ndarray) -> np.ndarray:
+    """``[B, N, R]`` f32: the allocatable rows in force after each of the
+    B boundaries' events of one timeline (``steps``, its
+    :func:`..ops.reference.event_steps` over ``alloc0``, the t = 0 rows
+    ``[N, R]``), the rows :func:`chaos_steps` writes on the device — what
+    the series gauges read at each boundary (sim/jax_runtime.py:2343-2360,
+    sim/boundary.py:654-672 with the live rows of :1774-1790)."""
+    a0 = np.asarray(alloc0, np.float32)
+    out = np.repeat(a0[None], B, axis=0)
+    cur = a0.copy()
+    for b in range(B):
+        st = steps.get(b)
+        if st is not None:
+            cur[st.rows] = st.vals
+        out[b] = cur
+    return out
+
+
 def run_waves(plan: ChunkPlan, tb: ref.Tables, choices: torch.Tensor, first: int, end: int,
               plain: bool, ser: Optional[Series] = None, route: str = "slot",
               pager=None, joint: bool = False, timers=None,
@@ -791,14 +835,17 @@ def run_waves(plan: ChunkPlan, tb: ref.Tables, choices: torch.Tensor, first: int
     a chunk's failed slots, by K5 in one launch when the chunk is done (at
     the next boundary, before its releases, or at the run's end) against
     the chunk's start planes, copied at each boundary. The order is the
-    reference's: chunk b−1's fold precedes boundary b's releases and retry
-    pass (sim/jax_runtime.py:1716-1745).
+    reference's: chunk b−1's fold precedes boundary b's chaos step,
+    releases and retry pass (sim/jax_runtime.py:1716-1770), and the last
+    chunk's the trailing boundary.
 
     Under kube preemption (a Retry with ``prio``; the chunk route only) the
-    retry-mode K6 runs the kube pass, and a range that ends the plan ends
-    with the trailing boundary at ``t = inf`` (sim/greedy.py, the
-    reference's :232-239): its release (every pending entry due, no static
-    bucket) and one retry-mode K6 with no waves.
+    retry-mode K6 runs the kube pass (with ``ser`` its attribution and
+    samples), and a range that ends the plan ends with the trailing
+    boundary at ``t = inf`` (sim/greedy.py, the reference's :232-239): its
+    release (every pending entry due, no static bucket) and one retry-mode
+    K6 with no waves. The tables' event log (``tb.log``, telemetry
+    timeline) takes K10's and the retry pass's records.
 
     On node-sharded tables (row B13) a boundary's release is K8's, and the
     chunk's waves one K9 launch over the waves in the range (``"shard"``,
@@ -818,7 +865,7 @@ def run_waves(plan: ChunkPlan, tb: ref.Tables, choices: torch.Tensor, first: int
     card).
 
     ``chaos`` (``{b: ChaosStep}``, :func:`chaos_steps`; the replicated
-    routes, without series or a pager) runs each boundary's chaos step
+    routes, without a pager) runs each boundary's chaos step
     first, before its releases (sim/jax_runtime.py:1716-1803): the
     allocatable rows it rewrites (an ``index_copy_`` on the stream) and,
     under the retry buffer, K10's NoExecute eviction of its down nodes'
@@ -837,9 +884,6 @@ def run_waves(plan: ChunkPlan, tb: ref.Tables, choices: torch.Tensor, first: int
         raise _later(f"kube preemption on route {route!r} (its retry pass grows by its victims "
                      "on the card: the per-slot route would need a host sync a pass slot)",
                      "ROADMAP queue A item 6a; kube runs on the chunk route, K6's retry mode")
-    if kube and ser is not None:
-        raise _later("telemetry series/timeline with kube preemption (the PostFilter's "
-                     "attribution and preempt events)", "ROADMAP queue A item 6c")
     if pager is not None and (ser is not None or tb.retry is not None or tb.preempt is not None
                               or first % plan.C):
         raise ValueError("paged pod waves run from a chunk's start, without series telemetry, "
@@ -849,10 +893,6 @@ def run_waves(plan: ChunkPlan, tb: ref.Tables, choices: torch.Tensor, first: int
         if route in SHARD_ROUTES or pager is not None:
             raise _later("chaos node events under node shards or paged pod waves",
                          "ROADMAP queue A item 6b")
-        if ser is not None:
-            raise _later("telemetry series/timeline with chaos node events (evict and "
-                         "node_down events, the victims' episode clears)",
-                         "ROADMAP queue A item 6c")
         if rt is not None and route != "chunk":
             raise _later(f"chaos evictions on route {route!r} (the per-slot retry sequence's "
                          "eviction step)", "ROADMAP queue A item 6b")
@@ -929,6 +969,8 @@ def run_waves(plan: ChunkPlan, tb: ref.Tables, choices: torch.Tensor, first: int
         arguments (else (None, None))."""
         if pager is not None:
             chunk_start(b)
+        if ser is not None and ser.fold and b > 0:
+            fold(b - 1)  # chunk b - 1 ran on the rows before boundary b's events
         step = chaos.get(b) if chaos else None
         evicted = False
         if step is not None:
@@ -936,8 +978,6 @@ def run_waves(plan: ChunkPlan, tb: ref.Tables, choices: torch.Tensor, first: int
             if rt is not None and step.scen.numel():
                 evict(h, choices, step.scen, step.off, step.nodes, b, step.t_b)
                 evicted = True
-        if ser is not None and ser.fold and b > 0:
-            fold(b - 1)
         if rt is not None and joint and b > 0:
             joint_release(b, h, apply_placements, rt, choices, buckets.get(b))
         elif b in buckets:
@@ -991,9 +1031,12 @@ def run_waves(plan: ChunkPlan, tb: ref.Tables, choices: torch.Tensor, first: int
             chunk_done(b)
         if kube and end == idx.shape[0] and end > first:
             bt = idx.shape[0] // C
+            if ser is not None and ser.fold:
+                fold((end - 1) // C)  # the last chunk's failures, before the trailing pass
             if joint:
                 joint_release(bt, h, apply_placements, rt, choices, None)
             chunk_replay(h, desc.idx, desc.gang, choices, end, end, append=True,
+                         reject=tb.reject if reject is not None else None,
                          retry=(bt, float("inf"), not joint))
             charge()
     else:
@@ -1028,7 +1071,7 @@ def run_waves(plan: ChunkPlan, tb: ref.Tables, choices: torch.Tensor, first: int
                     apply_placements(h, *rb, rollback=True)
             if (w + 1) % C == 0 or w + 1 == end:
                 chunk_done(b)
-    if ser is not None and ser.fold and end == idx.shape[0] and end > first:
+    if ser is not None and ser.fold and end == idx.shape[0] and end > first and not kube:
         fold((end - 1) // C)
         charge()
     if page is not None:
@@ -1177,11 +1220,15 @@ class ChunkEngine:
         rows = [init_state(row_ec(r), self.pods) for r in range(nd.shape[0])]
         return tuple(np.stack([getattr(rows[r], f) for r in lrow]) for f in fields)
 
-    def _tables(self, attribute: bool = False, pods: Optional[ref.DevPods] = None) -> ref.Tables:
+    def _tables(self, attribute: bool = False, pods: Optional[ref.DevPods] = None,
+                timeline: bool = False, log_need: int = 0) -> ref.Tables:
         """The tables of one run; ``attribute`` adds zeroed first-reject
-        counters (telemetry series). ``pods``: the pod tables (a pager's
-        page); by default the whole trace's, uploaded once. A meshed
-        what-if batch's tables are its blocks' (``WhatIfEngine._blocks``)."""
+        counters (telemetry series), ``timeline`` the event log of a run
+        whose pods can be unbound (kube or a chaos timeline under the retry
+        buffer; :func:`log_capacity` records a scenario, at least
+        ``log_need``). ``pods``: the pod
+        tables (a pager's page); by default the whole trace's, uploaded once.
+        A meshed what-if batch's tables are its blocks' (``WhatIfEngine._blocks``)."""
         if getattr(self, "_blocks", None) is not None:
             raise ValueError("a meshed batch has no tables of its own: each block of its "
                              "scenarios has its own, on its device (WhatIfEngine._blocks)")
@@ -1197,10 +1244,13 @@ class ChunkEngine:
             pre = ref.new_preempt(pod_tier, self.pods.group_id, self.plan.col_pod,
                                   self.plan.col_relb, self.plan.idx.size, ut, nt, self.S,
                                   self.device)
-        rt = None
+        rt = log = None
         if self.retry_buffer:
             kube = chaos = nodes = None
             timelines = self._timelines()
+            if timeline and (self.kube or timelines is not None):
+                log = ref.new_log(self.S, log_capacity(self.plan, self.retry_buffer, log_need),
+                                  self.device)
             if self.kube or timelines is not None:
                 nodes = dict(col_of=self.plan.col_of(self.pods.num_pods),
                              col_relb=self.plan.col_relb)
@@ -1225,7 +1275,7 @@ class ChunkEngine:
             consts=self.consts, preempt=pre, retry=rt,
             reject=(ref.new_reject(len(spec_plugin_names(self.spec)), self.pods.num_pods, self.S,
                                    self.device) if attribute else None),
-            wrow=self._wrow, shards=sh,
+            wrow=self._wrow, shards=sh, log=log,
         )
 
     def _timelines(self) -> Optional[list]:
@@ -1250,11 +1300,18 @@ class ChunkEngine:
                         threaded=getattr(self, "pager_thread", True))
 
     def _run(self, timers=None, series: bool = False, route: Optional[str] = None,
-             joint: bool = False, recorder=None):
+             joint: bool = False, recorder=None, timeline: bool = False,
+             log_need: int = 0):
         """(tables after the run, wall seconds, assignments [S, P], placed
         [S], pods to schedule). ``series`` (the reference's ``use_rej``)
         takes the boundary samples and the first-reject attribution
-        (:class:`Series`; none when no Filter plugin is on). ``route`` (one
+        (:class:`Series`; none when no Filter plugin is on); ``timeline``
+        the event log of a run whose pods can be unbound (kube or a chaos
+        timeline under the retry buffer), checked after the fetch: where a
+        scenario's log filled (the kernels count on past the capacity), the
+        run is made once more with a log of that count (``log_need``; the
+        wall is both runs', ``recorder`` sees the first), and a log that
+        fills again raises: no event is silently lost. ``route`` (one
         of :data:`ROUTES`) overrides the route the mode chooses
         (:func:`choose_route`), so a kernel run can be held against the
         other route. ``joint``: a retry boundary's pending
@@ -1271,7 +1328,8 @@ class ChunkEngine:
         # (sim/jax_runtime.py:2253 ``if self.paged and not use_rej``).
         pager = self._pager() if not series else None
         self.last_pager = pager
-        tb = self._tables(attribute, pods=pager.pods0 if pager is not None else None)
+        tb = self._tables(attribute, pods=pager.pods0 if pager is not None else None,
+                          timeline=timeline, log_need=log_need)
         self.last_tables = tb
         ser = new_series(self.plan, tb, attribute) if series else None
         self.last_series = ser
@@ -1300,9 +1358,147 @@ class ChunkEngine:
                 alloc.copy_(alloc0)
         wall = time.perf_counter() - t0
         self.last_choices = host_choices
+        if tb.log is not None:
+            full = torch.nonzero(tb.log.n > tb.log.rec.shape[1]).flatten().tolist()
+            if full and not log_need:
+                # The run is deterministic: the same run with the count the
+                # kernels reported keeps every record.
+                again = ChunkEngine._run(self, timers, series, route, joint, None, timeline,
+                                         log_need=int(tb.log.n.max()))
+                return (again[0], wall + again[1]) + again[2:]
+            if full:
+                ref.log_records(tb.log, full[0])  # raises: no event is silently lost
         rnode = tb.retry.rnode.cpu().numpy() if tb.retry is not None else None
         return (tb, wall) + assignments_from_choices(self.plan, host_choices,
                                                      self.pods.bound_node, rnode)
+
+    def _collect(self, tel: TelemetryCollector, tb: ref.Tables, placed: int, s: int = 0,
+                 timeline=None, interleave: bool = False) -> None:
+        """Fill ``tel`` with scenario s of the fetched run (host work, no
+        device step; ``timeline`` its chaos events, ``placed`` its placed
+        pods): first-bind latencies, K5's counters, the series gauges (the
+        reference's f64 ``series_gauges`` of each boundary's copied ``used``
+        over the allocatable rows in force there) and, at ``timeline``, the
+        events in the reference's order: per chunk c, boundary c's
+        ``node_down`` / ``node_up`` events at their own times (with
+        ``interleave``, the what-if batch's order, sim/whatif.py:3290-3311,
+        each ``node_down`` followed by its node's evictions), then its
+        records — K10's ``evict`` and the pass's ``preempt`` and ``bind``,
+        from the run's event log (or, where no pod can be unbound, the
+        retried binds in buffer order) at the boundary's start time (the
+        last finite one on the trailing boundary) — then, on the retry path,
+        chunk c's wave binds at their arrival, in slot order, a pod that a
+        later preemption or eviction unbound included (its column is PAD
+        and its first record an unbind naming its node)."""
+        plan, ep, rt = self.plan, self.pods, tb.retry
+        choices = self.last_choices[s]
+        flat = plan.idx.reshape(-1)
+        fin = np.nonzero(np.isfinite(plan.tb))[0]
+
+        def t_at(b: int) -> float:
+            """Boundary b's start time, the last finite one past them."""
+            if b < plan.tb.size and np.isfinite(plan.tb[b]):
+                return float(plan.tb[b])
+            return float(plan.tb[fin[fin <= b][-1]]) if (fin <= b).any() else 0.0
+
+        recs = []  # (kind, boundary, pod, node) in the reference's order
+        if rt is not None and rt.first_b is not None:
+            # First binds only (the reference's ``_ever_bound``,
+            # sim/boundary.py:619-627): a wave bind has latency 0, whether
+            # the pod still holds its slot or was evicted since (first_b
+            # -2); a first bind through the pass waits from arrival to its
+            # boundary's start (the last finite one at t = inf). Victims
+            # that end unplaced count; pre-bound pods never do.
+            first_b = rt.first_b[s].cpu().numpy()
+            slot = choices[: flat.size]
+            in_wave = np.zeros(ep.num_pods, bool)
+            in_wave[flat[(flat >= 0) & (slot >= 0)]] = True
+            in_wave |= first_b == ref.FIRST_IN_WAVE
+            in_wave &= ep.bound_node < 0
+            zero = int(in_wave.sum())
+            for p in np.nonzero(first_b >= 0)[0].tolist():
+                lat = t_at(int(first_b[p])) - float(ep.arrival[p])
+                if lat > 0.0:
+                    tel.bind_latency(p, lat)
+                else:
+                    zero += 1
+            tel.bind_zero(zero)
+        elif rt is not None:
+            rnode = rt.rnode[s].cpu().numpy()
+            rbind_b = rt.rbind_b[s].cpu().numpy()
+            pos_of = np.full(ep.num_pods, -1, np.int64)
+            pos_of[flat[flat >= 0]] = np.nonzero(flat >= 0)[0]
+            retried = np.nonzero(rnode >= 0)[0]
+            order = retried[np.lexsort((pos_of[retried], rbind_b[retried]))]
+            later = 0
+            for p in order.tolist():
+                lat = float(plan.tb[rbind_b[p]]) - float(ep.arrival[p])
+                if lat > 0.0:
+                    tel.bind_latency(p, lat)
+                    later += 1
+                recs.append(("bind", int(rbind_b[p]), p, int(rnode[p])))
+            tel.bind_zero(placed - later)
+        else:
+            tel.bind_zero(placed)
+        if tb.reject is not None:
+            tel.rejection_totals(spec_plugin_names(self.spec),
+                                 tb.reject.reasons[s].cpu().numpy(),
+                                 tb.reject.attempts[s].cpu().numpy())
+        alloc0 = self._alloc0()
+        alloc0 = alloc0[s] if alloc0.ndim == 3 else alloc0
+        # The one schedule of the timeline's events: the rows in force at
+        # each boundary and the node events fired there.
+        steps = ref.event_steps([timeline], plan.tb, alloc0) if timeline else {}
+        ser = self.last_series
+        if ser is not None:
+            used = ser.used[:, s].cpu().numpy()
+            rcount = ser.rcount[:, s].cpu().numpy() if ser.rcount is not None else None
+            pend = (ser.pend[:, s] >= 0).sum(dim=1).cpu().numpy() if ser.pend is not None else None
+            alloc = (alloc_at_boundaries(steps, plan.tb.size, alloc0) if steps
+                     else np.broadcast_to(alloc0, (plan.tb.size,) + alloc0.shape))
+            for b in range(len(plan.buckets)):
+                if not np.isfinite(plan.tb[b]):
+                    continue
+                depths = ({} if rcount is None
+                          else dict(retry_depth=int(rcount[b]), pend_depth=int(pend[b])))
+                tel.sample(float(plan.tb[b]), **depths,
+                           **series_gauges(used[b], alloc[b], self.ec.vocab._r))
+        if not tel.cfg.want_timeline:
+            return
+        if tb.log is not None:
+            recs = ref.log_records(tb.log, s)
+        by_b = {}
+        first_rec = {}
+        for r in recs:
+            by_b.setdefault(r[1], []).append(r)
+            first_rec.setdefault(r[2], r)
+        downs = {b: st.fired[0] for b, st in steps.items()}
+        ch = choices[: flat.size]
+        CW = plan.C * plan.idx.shape[1]
+        nb = len(plan.buckets)
+        for c in range(nb + 1):
+            at_c, k = by_b.get(c, []), 0
+            for ev in downs.get(c, ()):
+                if ev.kind in ("node_down", "node_up"):
+                    tel.event(ev.kind, float(ev.time), -1, int(ev.node))
+                while (interleave and ev.kind == "node_down" and k < len(at_c)
+                       and at_c[k][0] == "evict" and at_c[k][3] == ev.node):
+                    tel.event("evict", t_at(c), at_c[k][2], at_c[k][3])
+                    k += 1
+            for kind, b, p, n in at_c[k:]:
+                tel.event(kind, t_at(b), p, n)
+            if rt is None or c == nb:
+                continue
+            for p, n in zip(flat[c * CW : (c + 1) * CW].tolist(), ch[c * CW : (c + 1) * CW].tolist()):
+                if p < 0:
+                    continue
+                if n < 0:
+                    r = first_rec.get(p)
+                    if r is None or r[0] == "bind":
+                        continue
+                    n = r[3]
+                tel.event("bind", float(ep.arrival[p]), p, n)
+
 
     def _flight_hook(self, rec, pager, timers) -> Callable[[int], None]:
         """The recorder's call after chunk b's launches (the reference's
@@ -1371,10 +1567,12 @@ class TorchReplayEngine(ChunkEngine):
     ``telemetry`` is "off", "summary", "series" or "timeline" (a name or
     a :class:`..sim.telemetry.TelemetryConfig`). ``series`` adds the
     first-reject attribution (K6's attributed mode on the plain path, K5 on
-    the retry path) and the boundary-sampled series, ``timeline`` the bind
-    events (kubernetes_simulator_tpu/sim/jax_runtime.py:2117-2160,
-    sim/boundary.py:360-398, :563-668); under tier preemption and node
-    shards attribution is off, as the reference's.
+    the retry path, K6's retry mode in the retry or kube pass) and the
+    boundary-sampled series, ``timeline`` the events — ``bind``,
+    ``preempt``, ``evict`` and the timeline's ``node_down`` / ``node_up``
+    (kubernetes_simulator_tpu/sim/jax_runtime.py:1764-1770, :2117-2160,
+    :2304-2310, sim/boundary.py:360-398, :430-475, :563-668); under tier
+    preemption and node shards attribution is off, as the reference's.
 
     ``replay(node_events=)`` (a sorted list of :class:`.runtime.NodeEvent`,
     validated as the reference validates it) applies a chaos timeline at
@@ -1436,10 +1634,6 @@ class TorchReplayEngine(ChunkEngine):
         #: the pager's thread gate (overlap.pagerThread)
         self.pager_thread = bool(pager_thread)
         self.telemetry = resolve_granularity(telemetry)
-        if mode == "kube" and TelemetryConfig.resolve(self.telemetry).want_series:
-            raise _later(f"telemetry={self.telemetry!r} with preemption='kube' (the "
-                         "PostFilter's first-reject attribution and preempt events)",
-                         "ROADMAP queue A item 6c")
         layout = None
         if self.node_shards > 1:
             if rb:
@@ -1499,9 +1693,6 @@ class TorchReplayEngine(ChunkEngine):
                 raise _later("node_events on the per-slot route under the retry buffer (its "
                              "eviction step; the chunk route runs K10)",
                              "ROADMAP queue A item 6b")
-            if tcfg.want_series:
-                raise _later(f"telemetry={self.telemetry!r} with node_events (the evictions' "
-                             "attribution and evict/node_down events)", "ROADMAP queue A item 6c")
         tel = TelemetryCollector(tcfg) if tcfg.enabled else None
         # The reference's use_rej (sim/jax_runtime.py:2117-2144): series and
         # timeline attribute rejections and sample the series, except under
@@ -1532,7 +1723,7 @@ class TorchReplayEngine(ChunkEngine):
         try:
             tb, wall, assignments, placed_s, to_schedule = self._run(
                 tel.phases if tel is not None else None, series=use_rej, joint=True,
-                recorder=rec)
+                recorder=rec, timeline=tcfg.want_timeline)
         except BaseException:
             if rec_own:
                 rec.close()
@@ -1566,7 +1757,7 @@ class TorchReplayEngine(ChunkEngine):
             self.ec.allocatable, used, ep.requests[pending_m], self.ec.vocab._r
         )
         if tel is not None:
-            self._collect(tel, tb, placed)
+            self._collect(tel, tb, placed, 0, events)
         chaos = chaos_counters(tb.retry)
         return ReplayResult(
             assignments=assignments,
@@ -1612,88 +1803,6 @@ class TorchReplayEngine(ChunkEngine):
         }
         self._last_flight = FlightRecorder(spec, meta=meta)
         return self._last_flight, True
-
-    def _collect(self, tel: TelemetryCollector, tb: ref.Tables, placed: int) -> None:
-        """Fill ``tel`` from the fetched run (host work, no device step):
-        first-bind latencies, K5's counters, the series gauges (the
-        reference's f64 ``series_gauges`` of each boundary's copied
-        ``used``) and, at ``timeline``, the bind events in the reference's
-        fold order: per chunk c, boundary c's retried binds (at its start
-        time, buffer order, which is slot order) and then chunk c's
-        wave-placed pods (at their arrival, slot order)."""
-        plan, ep, rt = self.plan, self.pods, tb.retry
-        order = np.zeros(0, np.int64)
-        if rt is not None and rt.first_b is not None:
-            # First binds only (the reference's ``_ever_bound``,
-            # sim/boundary.py:619-627): a wave bind has latency 0, whether
-            # the pod still holds its slot or was evicted since (first_b
-            # -2); a first bind through the pass waits from arrival to its
-            # boundary's start (the last finite one at t = inf). Victims
-            # that end unplaced count; pre-bound pods never do.
-            first_b = rt.first_b[0].cpu().numpy()
-            flat = plan.idx.reshape(-1)
-            slot = self.last_choices[0, : flat.size]
-            in_wave = np.zeros(ep.num_pods, bool)
-            in_wave[flat[(flat >= 0) & (slot >= 0)]] = True
-            in_wave |= first_b == ref.FIRST_IN_WAVE
-            in_wave &= ep.bound_node < 0
-            fin = np.nonzero(np.isfinite(plan.tb))[0]
-            zero = int(in_wave.sum())
-            for p in np.nonzero(first_b >= 0)[0].tolist():
-                b = int(first_b[p])
-                t = plan.tb[b] if b < plan.tb.size and np.isfinite(plan.tb[b]) else (
-                    plan.tb[fin[fin <= b][-1]] if (fin <= b).any() else 0.0)
-                lat = float(t) - float(ep.arrival[p])
-                if lat > 0.0:
-                    tel.bind_latency(p, lat)
-                else:
-                    zero += 1
-            tel.bind_zero(zero)
-        elif rt is not None:
-            rnode = rt.rnode[0].cpu().numpy()
-            rbind_b = rt.rbind_b[0].cpu().numpy()
-            flat = plan.idx.reshape(-1)
-            pos_of = np.full(ep.num_pods, -1, np.int64)
-            pos_of[flat[flat >= 0]] = np.nonzero(flat >= 0)[0]
-            retried = np.nonzero(rnode >= 0)[0]
-            order = retried[np.lexsort((pos_of[retried], rbind_b[retried]))]
-            later = 0
-            for p in order.tolist():
-                lat = float(plan.tb[rbind_b[p]]) - float(ep.arrival[p])
-                if lat > 0.0:
-                    tel.bind_latency(p, lat)
-                    later += 1
-            tel.bind_zero(placed - later)
-        else:
-            tel.bind_zero(placed)
-        if tb.reject is not None:
-            tel.rejection_totals(spec_plugin_names(self.spec),
-                                 tb.reject.reasons[0].cpu().numpy(),
-                                 tb.reject.attempts[0].cpu().numpy())
-        ser = self.last_series
-        if ser is not None:
-            used = ser.used[:, 0].cpu().numpy()
-            rcount = ser.rcount[:, 0].cpu().numpy() if ser.rcount is not None else None
-            pend = (ser.pend[:, 0] >= 0).sum(dim=1).cpu().numpy() if ser.pend is not None else None
-            for b in range(len(plan.buckets)):
-                if not np.isfinite(plan.tb[b]):
-                    continue
-                depths = ({} if rcount is None
-                          else dict(retry_depth=int(rcount[b]), pend_depth=int(pend[b])))
-                tel.sample(float(plan.tb[b]), **depths,
-                           **series_gauges(used[b], self.ec.allocatable, self.ec.vocab._r))
-        if tel.cfg.want_timeline and rt is not None:
-            ch = self.last_choices[0, : plan.idx.size]
-            flat = plan.idx.reshape(-1)
-            CW = plan.C * plan.idx.shape[1]
-            bnd = rbind_b[order]
-            for c in range(len(plan.buckets)):
-                for p in order[bnd == c].tolist():
-                    tel.event("bind", float(plan.tb[c]), p, int(rnode[p]))
-                pods, nodes = flat[c * CW : (c + 1) * CW], ch[c * CW : (c + 1) * CW]
-                m = (pods >= 0) & (nodes >= 0)
-                for p, n in zip(pods[m].tolist(), nodes[m].tolist()):
-                    tel.event("bind", float(ep.arrival[p]), p, n)
 
 
 def chaos_counters(rt: Optional[ref.Retry]) -> Tuple[np.ndarray, ...]:

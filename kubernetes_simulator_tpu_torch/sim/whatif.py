@@ -75,7 +75,11 @@ runs each scenario's retry pass, PostFilter and victims in its own cluster
 of K6's retry-mode launches, over the scenario's own allocatable and taints
 (:mod:`.torch_runtime`), with the trailing boundary after the last chunk;
 ``WhatIfResult.preemptions``, ``retry_dropped`` and the ``evictions`` /
-``evict_*`` counters come back per scenario (sim/boundary.py:401-412). A
+``evict_*`` counters come back per scenario (sim/boundary.py:401-412), and
+so do the fragmentation gauges and, with telemetry on, the latency
+quantiles and (at ``series`` and above) ``scenario_telemetry``: one
+collector a scenario, filled on the host after the run as the single
+replay fills its own (the reference's result assembly, :3536-3590). A
 kube batch takes a chaos timeline a scenario (``Scenario.events``; the
 reference's :757-781, :3266-3330): at a boundary each scenario's events
 rewrite its allocatable rows from its own t = 0 row (after its static
@@ -141,9 +145,10 @@ from ..ops import kernels as K
 from ..ops import reference as ref
 from ..ops.policy import POLICY_COLS
 from ..parallel.mesh import make_mesh, mesh_shape
-from ..utils.metrics import log
+from ..utils.metrics import fragmentation_gauges, log
 from .runtime import validate_node_events
-from .telemetry import PhaseTimers, ReplayTelemetry, resolve_granularity
+from .telemetry import (PhaseTimers, ReplayTelemetry, TelemetryCollector, TelemetryConfig,
+                        resolve_granularity)
 from .tiers import DMAX_COARSE, nonsingleton_host_rows, normalize_preemption
 from .torch_runtime import (
     ChunkEngine,
@@ -414,8 +419,15 @@ class WhatIfResult:
     ``fleet_telemetry`` (above telemetry "off"), under tier or kube
     preemption ``preemptions`` (victims per scenario), under the retry
     buffer ``retry_dropped`` (failures and victims dropped on a full
-    buffer, per scenario), under kube the zero ``evictions`` /
-    ``evict_*`` counters; the fields of modes not ported yet stay None."""
+    buffer, per scenario), under kube the chaos counters ``evictions`` /
+    ``evict_*`` (zero in a scenario without a timeline), the fragmentation
+    gauges ``stranded_cpu`` / ``frag_index_cpu`` / ``packing_efficiency``
+    (always, against each scenario's restored t = 0 allocatable), with
+    telemetry on the first-bind latency quantiles ``latency_p50`` /
+    ``_p90`` / ``_p99`` (NaN where a scenario bound nothing) and at
+    ``series`` and above ``scenario_telemetry`` (one ReplayTelemetry a
+    scenario: reasons, series and, at ``timeline``, its events); the
+    fields of modes not ported yet stay None."""
 
     placed: np.ndarray  # [S] i32
     unschedulable: np.ndarray  # [S] i32
@@ -460,7 +472,9 @@ class WhatIfEngine(ChunkEngine):
     same whether or not the assignments are collected. ``telemetry`` is
     any granularity; above "off" the result's ``fleet_telemetry`` carries
     it and the batch's phase timers, and, as the reference's batch off the
-    kube path, no per-scenario reasons or series. ``policies`` ([S, 6]
+    kube path, no per-scenario reasons or series; a kube batch collects
+    each scenario's on the card as the single replay does (its latency
+    quantiles, and at ``series`` and above ``scenario_telemetry``). ``policies`` ([S, 6]
     f32, :mod:`..ops.policy`) gives each scenario its own Score weights and
     fit strategy; ``set_policies`` swaps their values.
     Every other mode raises ``NotImplementedError`` naming its queue
@@ -778,7 +792,7 @@ class WhatIfEngine(ChunkEngine):
         return blocks
 
     def _run(self, timers=None, series: bool = False, route: Optional[str] = None,
-             joint: bool = False, recorder=None):
+             joint: bool = False, recorder=None, timeline: bool = False):
         """:meth:`ChunkEngine._run`; under a mesh, every block's chunks are
         enqueued (block by block, each on its device and stream) before one
         fetch a block, in scenario order, so the blocks run at once; the
@@ -786,7 +800,7 @@ class WhatIfEngine(ChunkEngine):
         SMs (:func:`..ops.kernels.sm_share`). The tables are then a list, one
         a block (``last_tables``)."""
         if self._blocks is None:
-            return super()._run(timers, series, route, joint, recorder)
+            return super()._run(timers, series, route, joint, recorder, timeline)
         tick = timers.tick if timers is not None else (lambda name: contextlib.nullcontext())
         plan, bound = self.plan, self.pods.bound_node
         self.last_route = route = route or choose_route(self.plain)
@@ -815,7 +829,13 @@ class WhatIfEngine(ChunkEngine):
 
     def run(self) -> WhatIfResult:
         timers = PhaseTimers() if self.telemetry != "off" else None
-        tb, wall, assignments, placed, to_schedule = self._run(timers)
+        tcfg = TelemetryConfig.resolve(self.telemetry)
+        # Under kube each scenario has its own collector (the reference's
+        # per-scenario host mirrors, sim/whatif.py:2847-2863): series and
+        # timeline attribute and sample on the card, as the single replay.
+        tb, wall, assignments, placed, to_schedule = self._run(
+            timers, series=self.kube and tcfg.want_series,
+            timeline=self.kube and tcfg.want_timeline)
         tbs = tb if isinstance(tb, list) else [tb]
 
         def per_block(f):
@@ -849,7 +869,46 @@ class WhatIfEngine(ChunkEngine):
             n_devices=len(self.mesh) if self.mesh is not None else 1,
             mesh_shape=mesh_shape(self.mesh),
             route=self.last_route,
+            **(self._kube_results(tb, assignments, placed, tcfg) if self.kube else {}),
         )
+
+    def _kube_results(self, tb: ref.Tables, assignments: np.ndarray, placed: np.ndarray,
+                      tcfg: TelemetryConfig) -> dict:
+        """The kube batch's per-scenario result fields (the reference's
+        result assembly, sim/whatif.py:3536-3590): fragmentation gauges of
+        each scenario's fetched ``used`` over its restored t = 0
+        allocatable and its still-pending pods' requests; with telemetry on
+        one collector a scenario (:meth:`.torch_runtime.ChunkEngine._collect`,
+        with its own chaos timeline's events), its latency quantiles
+        (NaN where it bound nothing) and, at series and above, the
+        collectors' results."""
+        S = self.S
+        used = tb.state.used.cpu().numpy()
+        alloc0 = self._alloc0()
+        pending = (self.pods.bound_node == PAD)[None] & (assignments == PAD)
+        frag = np.zeros((3, S), np.float64)
+        for s in range(S):
+            fr = fragmentation_gauges(alloc0[s], used[s], self.pods.requests[pending[s]],
+                                      self.ec.vocab._r)
+            frag[:, s] = (fr["stranded"].get("cpu", 0.0), fr["frag_index"].get("cpu", 0.0),
+                          fr["packing_efficiency"])
+        out = dict(stranded_cpu=frag[0], frag_index_cpu=frag[1], packing_efficiency=frag[2])
+        if not tcfg.enabled:
+            return out
+        timelines = self._timelines()
+        stel = []
+        for s in range(S):
+            tel = TelemetryCollector(tcfg)
+            self._collect(tel, tb, int(placed[s]), s, timelines[s] if timelines else None,
+                          interleave=True)
+            stel.append(tel.result())
+        lat = np.full((3, S), np.nan, np.float64)
+        for s, t in enumerate(stel):
+            if t.latency is not None:
+                lat[:, s] = t.latency["p50"], t.latency["p90"], t.latency["p99"]
+        out.update(latency_p50=lat[0], latency_p90=lat[1], latency_p99=lat[2],
+                   scenario_telemetry=stel if tcfg.want_series else None)
+        return out
 
 
 @dataclass

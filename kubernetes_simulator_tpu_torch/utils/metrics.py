@@ -16,6 +16,7 @@ from __future__ import annotations
 import hashlib
 import json
 import logging
+import math
 import os
 import sys
 import time
@@ -258,16 +259,20 @@ def whatif_rows(res, extra: Optional[dict] = None) -> Iterable[dict]:
     scenario; a batch run with tier preemption adds each scenario's
     ``preemptions`` (its victims), and ``retry_dropped`` rides with them
     where the result has both, as in the reference's rows
-    (kubernetes_simulator_tpu/utils/metrics.py:342-361; its retry what-if
-    without preemption reports no per-scenario drops there). The
-    reference's per-scenario kube, chaos, latency and fragmentation fields
-    come from modes the port does not run yet and are left out, but a kube
-    batch's chaos counters ``evictions`` / ``evict_*`` (zero in a scenario
-    without a timeline)."""
+    (kubernetes_simulator_tpu/utils/metrics.py:342-390; its retry what-if
+    without preemption reports no per-scenario drops there). A kube batch
+    adds each scenario's chaos counters ``evictions`` / ``evict_*`` (zero
+    in a scenario without a timeline), its fragmentation gauges
+    ``stranded_cpu`` / ``frag_index_cpu`` / ``packing_efficiency`` and,
+    with telemetry on, its first-bind latency quantiles ``latency_p50`` /
+    ``_p90`` / ``_p99`` (None where it bound nothing), rounded as the
+    reference rounds them."""
     base = extra or {}
     pre = getattr(res, "preemptions", None)
     drop = getattr(res, "retry_dropped", None)
     evi = getattr(res, "evictions", None)
+    lat50 = getattr(res, "latency_p50", None)
+    str_cpu = getattr(res, "stranded_cpu", None)
     yield _scrub_timing({
         "kind": "whatif-aggregate",
         "scenarios": int(res.placed.shape[0]),
@@ -298,4 +303,13 @@ def whatif_rows(res, extra: Optional[dict] = None) -> Iterable[dict]:
             row["evict_rescheduled"] = int(res.evict_rescheduled[s])
             row["evict_stranded"] = int(res.evict_stranded[s])
             row["evict_latency_mean"] = round(float(res.evict_latency_mean[s]), 4)
+        if lat50 is not None:
+            for key, arr in (("latency_p50", lat50), ("latency_p90", res.latency_p90),
+                             ("latency_p99", res.latency_p99)):
+                v = float(arr[s])
+                row[key] = None if math.isnan(v) else round(v, 6)
+        if str_cpu is not None:
+            row["stranded_cpu"] = round(float(str_cpu[s]), 6)
+            row["frag_index_cpu"] = round(float(res.frag_index_cpu[s]), 6)
+            row["packing_efficiency"] = round(float(res.packing_efficiency[s]), 6)
         yield row

@@ -387,8 +387,9 @@ def test_label_kernels_equal_twins(card):
 
 def test_label_kernel_path_equals_plain_path(card):
     """The reduced relabel what-if (chip_smoke.check_reduced_relabel: 8
-    scenarios x 60 nodes x 3,000 pods) on the kernel path equals the plain
-    path on the card and on the CPU, with the kernels launched."""
+    scenarios x 60 nodes x 2,000 pods) on the kernel path equals the
+    per-slot kernels, the plain path on the card and on the CPU, with the
+    kernels launched."""
     cs = _chip_smoke()
     K.reset_launch_counts()
     results = {}
@@ -1269,3 +1270,80 @@ def test_chaos_kernel_path_equals_plain_path(card):
     np.testing.assert_array_equal(a.assignments, b.assignments)
     for s in range(4):
         assert cs.chaos_counters_of(a, s) == cs.chaos_counters_of(b, s)
+
+
+@pytest.mark.parametrize("C", [None, 2])
+def test_chunk_replay_kube_telemetry_equals_twin(card, C):
+    """K6's kube mode at telemetry timeline — the counts taken before the
+    PostFilter and charged where it finds no node, the victims' and bound
+    pods' episode clears, the samples after the pass and the event log's
+    preempt and bind records — against its twin on the CPU at config8's
+    densest boundary (chip_smoke.py hold_k6_kube with telemetry: reject
+    counters, episode marks, log and samples equal too), at the plan's C = 1
+    and at two ranks forced."""
+    cs = _chip_smoke()
+    cfg, ec, ep = cs.config8_case()
+    eng = TorchReplayEngine(ec, ep, cfg.framework, wave_width=cfg.wave_width,
+                            chunk_waves=cfg.chunk_waves, preemption="kube",
+                            retry_buffer=cfg.whatif.retry_buffer, telemetry="timeline",
+                            device=card)
+    held = cs.kube_walk(eng, card, True)
+    b = 1 + int(np.argmax(held.sum(axis=1)))
+    with cs.forced_k6_plan(C) if C else contextlib.nullcontext():
+        out = cs.hold_k6_kube(f"config8 telemetry, C={C}", eng, b, card, True, [0],
+                              telemetry=True)
+    assert out["cluster"]["C"] == (C or 1)
+    assert out["log_records"] > 0 and out["postfilter_calls_twin"] > 0
+
+
+@pytest.mark.parametrize("kube", [True, False])
+def test_evict_node_telemetry_equals_twin(card, kube):
+    """K10 with the victims' episode clears and their evict records against
+    its twin on the CPU at config9's densest eviction boundary (chip_smoke.py
+    hold_evict_node with telemetry), with kube and with the retry buffer
+    alone."""
+    cs = _chip_smoke()
+    cfg, ec, ep = cs.config9_case()
+    kw = dict(preemption="kube") if kube else {}
+    eng = TorchReplayEngine(ec, ep, cfg.framework, wave_width=cfg.wave_width,
+                            chunk_waves=cfg.chunk_waves, retry_buffer=cfg.whatif.retry_buffer,
+                            telemetry="timeline", device=card, **kw)
+    ev = cs.chaos_timeline(cfg, ec, ep, cfg.chaos.seed)
+    with cs.engine_events(eng, [ev]):
+        vic, steps = cs.chaos_walk(eng, card, True)
+        b = max(vic, key=lambda x: (int(vic[x].sum()), -x))
+        out = cs.hold_evict_node(f"config9 telemetry kube={kube}", eng, b, steps, card, True,
+                                 telemetry=True)
+    assert out["victims"] > 0
+
+
+def test_telemetry_kube_kernel_path_equals_plain_path(card):
+    """config10 (kube, its chaos timeline) at timeline and a 3-scenario kube
+    what-if with timelines at series on the card equal the same runs on the
+    CPU twins: assignments, latency, reasons, attempts, series, events, and
+    per scenario the quantiles and fragmentation gauges."""
+    from kubernetes_simulator_tpu_torch.sim.whatif import Scenario, WhatIfEngine
+
+    cs = _chip_smoke()
+    cfg, ec, ep = cs.telemetry_case(cs.CONFIG10)
+    kw = dict(wave_width=cfg.wave_width, chunk_waves=cfg.chunk_waves, preemption="kube",
+              retry_buffer=cfg.whatif.retry_buffer)
+    ev = cs.chaos_timeline(cfg, ec, ep, cfg.chaos.seed)
+    runs = [TorchReplayEngine(ec, ep, cfg.framework, telemetry="timeline", device=d,
+                              **kw).replay(node_events=ev) for d in (card, "cpu")]
+    np.testing.assert_array_equal(runs[0].assignments, runs[1].assignments)
+    a, b = (r.telemetry for r in runs)
+    assert (a.latency, a.reasons, a.rejection_attempts, a.series, a.events) == (
+        b.latency, b.reasons, b.rejection_attempts, b.series, b.events)
+    assert any(e[0] == "preempt" for e in a.events) and any(e[0] == "evict" for e in a.events)
+    scen = [Scenario()] + [Scenario(events=cs.chaos_timeline(cfg, ec, ep, cfg.chaos.seed + s))
+                           for s in (1, 2)]
+    res = [WhatIfEngine(ec, ep, scen, cfg.framework, telemetry="series",
+                        collect_assignments=True, device=d, **kw).run() for d in (card, "cpu")]
+    np.testing.assert_array_equal(res[0].assignments, res[1].assignments)
+    for f in ("latency_p50", "latency_p90", "latency_p99", "stranded_cpu", "frag_index_cpu",
+              "packing_efficiency"):
+        np.testing.assert_array_equal(getattr(res[0], f), getattr(res[1], f), err_msg=f)
+    for x, y in zip(res[0].scenario_telemetry, res[1].scenario_telemetry):
+        assert (x.latency, x.reasons, x.rejection_attempts, x.series) == (
+            y.latency, y.reasons, y.rejection_attempts, y.series)
