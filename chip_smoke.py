@@ -299,6 +299,26 @@ From the root of a checkout, on a host with one CUDA card. In order:
    config8's three densest boundaries (S = 1 and 128), and K10 with its
    episode clears and log at config9's densest eviction boundaries, each
    timed with telemetry on and off (CUDA events).
+31. (H) the CPU event engine: config1 as shipped (strategy cpu) through the
+   CLI ``run`` equal to CPU_PINS, with no kernel launched; config12's
+   ``tune`` as shipped (the host evaluator) in a process that sees no card,
+   beside the card's steps, read at the end: its trajectory equal to
+   TUNE12_PINS, no set-up. Both walls printed; the card is idle for them.
+32. (S) the query service: SERVICE_STREAM through the CLI ``serve`` on
+   config20 as shipped and on its chunkWaves 32 cut (SERVICE_CONFIGS): the
+   query-result rows and the stats equal SERVICE_PINS, one query-error row,
+   the same answers at maxBatch 1; the serve's and each batch's walls, the
+   launches (K6 and its kube pass, K10, K3's release); on the cut, K10 and
+   then K6's kube mode (its retry pass re-binding K10's victims) of the last
+   batch's densest eviction boundary held against their twins.
+
+Host work that needs no card runs beside the card's: steps 5 and 6's plain
+path on the card (no kernel) while nvcc builds the kernels; the reduced
+cases' plain path on the CPU (steps 5, 6, 8e, 9, 12, 16, 20) in a process
+of this script that sees no card (``--cpu-routes DIR``, :class:`CpuRoutes`),
+each step reading its result; the twins on the CPU of steps K, T and S's
+K6 kube holds in worker processes (:class:`TwinPool`), a step's holds at
+once, each read after its launch is timed.
 
 The selects — K2, K6, K7 and K9 — launch as thread-block clusters
 (ops/kernels.py ``cluster_plan``): every step that launches one prints its
@@ -773,7 +793,7 @@ def mark(step):
     _last_mark[0] = now
 
 
-def time_cuda(fn, iters, warm=3):
+def time_cuda(fn, iters, warm=1):
     """Mean ms of ``fn(i)`` over ``iters`` calls, by CUDA events after
     ``warm`` warm-up calls."""
     for i in range(warm):
@@ -817,8 +837,7 @@ def device_ms(fn, iters, match=None, by_kernel=None):
     profile."""
     from torch.profiler import ProfilerActivity, profile
 
-    for i in range(3):
-        fn(i)
+    fn(0)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for i in range(iters):
@@ -855,7 +874,7 @@ def restored(tb, fn):
     return call
 
 
-def index_add_ms(tb, pod_ids, nodes, iters=20, due=None):
+def index_add_ms(tb, pod_ids, nodes, iters=10, due=None):
     """The yardstick of a release: one ``index_add_`` of the live pairs'
     requests into a zeroed [S·N, R] plane under
     ``torch.use_deterministic_algorithms(True)`` (device ms, every kernel
@@ -1949,7 +1968,7 @@ def check_releases(results, dev):
     results["release_borg_cut"] = out
 
 
-def time_kernels(ep, tb_t, held, dev, iters=200, plain_iters=20):
+def time_kernels(ep, tb_t, held, dev, iters=50, plain_iters=1):
     """Device time per launch (torch.profiler) and host launch interval
     (CUDA events) of each kernel at the held shapes, beside its twin's
     time, a PyTorch yardstick and the least time the card could take."""
@@ -2061,12 +2080,296 @@ def check_kernels_s4(ec, ep, results, dev):
                                release_pairs=len(held["rel"][3]))
 
 
-def check_reduced_replay(results, dev="cuda"):
-    """Step 5: kernel path == plain path on the card == plain path on the
-    CPU, on a trace where completions change the placements."""
+# ---------------------------------------------------------------------------
+# The reduced cases, and their plain path on the CPU in a process of its own
+# ---------------------------------------------------------------------------
+
+
+class CpuRoutes:
+    """The plain path on the CPU of the reduced cases (steps 5, 6, 8e, 9,
+    12, 16 and 20), run by a process of this script that sees no card
+    (``--cpu-routes DIR``, CUDA_VISIBLE_DEVICES empty) beside the card's
+    steps, in the order the steps read them: each route's result goes to
+    DIR/<name>.pkl with its seconds, and :meth:`get` waits for it. The
+    routes are the functions registered with :func:`cpu_route`; each builds
+    its case as the step that reads it does and returns what that step
+    compares."""
+
+    routes = {}
+
+    def __init__(self):
+        self.proc = None
+
+    def start(self):
+        import shutil
+
+        self.dir = os.path.join(ROOT, "chiprun_out", "cpu_routes")
+        shutil.rmtree(self.dir, ignore_errors=True)
+        os.makedirs(self.dir)
+        self.log = open(os.path.join(self.dir, "log.txt"), "w")
+        env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=ROOT)
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--cpu-routes", self.dir],
+            env=env, stdout=self.log, stderr=subprocess.STDOUT)
+
+    def get(self, name, timeout=900.0):
+        """(what route ``name`` returned, its seconds), waiting for it; run
+        here when no process was started (a step called on its own)."""
+        import pickle
+
+        if self.proc is None:
+            t0 = time.perf_counter()
+            value = self.routes[name]()
+            return value, time.perf_counter() - t0
+        path = os.path.join(self.dir, f"{name}.pkl")
+        t0 = time.perf_counter()
+        while not os.path.exists(path):
+            if self.proc.poll() is not None and not os.path.exists(path):
+                with open(os.path.join(self.dir, "log.txt")) as f:
+                    tail = f.read()[-3000:]
+                raise AssertionError(f"the CPU routes' process ended ({self.proc.returncode}) "
+                                     f"before {name}: {tail}")
+            if time.perf_counter() - t0 > timeout:
+                raise AssertionError(f"the CPU routes' process gave no {name} in {timeout} s")
+            time.sleep(0.05)
+        with open(path, "rb") as f:
+            return pickle.load(f)
+
+    def stop(self):
+        if self.proc is not None:
+            if self.proc.poll() is None:
+                self.proc.kill()
+                self.proc.wait()
+            self.log.close()
+
+    @classmethod
+    def run_all(cls, out_dir):
+        """The child's loop: every registered route, in order."""
+        import pickle
+
+        for name, fn in cls.routes.items():
+            t0 = time.perf_counter()
+            value = fn()
+            wall = time.perf_counter() - t0
+            tmp = os.path.join(out_dir, f"{name}.tmp")
+            with open(tmp, "wb") as f:
+                pickle.dump((value, wall), f)
+            os.replace(tmp, os.path.join(out_dir, f"{name}.pkl"))
+            print(f"{name}: {wall:.2f}s", flush=True)
+        return 0
+
+
+CPU_ROUTES = CpuRoutes()
+
+
+def cpu_route(fn):
+    CpuRoutes.routes[fn.__name__] = fn
+    return fn
+
+
+def reduced_case():
+    """Step 5's case: 300 nodes x REDUCED_PODS, completions and gangs."""
+    return case(300, REDUCED_PODS, duration_mean=20.0, gang_fraction=0.05), dict(
+        wave_width=8, chunk_waves=64)
+
+
+@cpu_route
+def reduced():
+    (ec, ep), kw = reduced_case()
+    return TorchReplayEngine(ec, ep, FrameworkConfig(), device="cpu", **kw).replay()
+
+
+def reduced_whatif_case():
+    """Step 6's batch: 8 scenarios x 60 nodes x 3,000 pods."""
+    ec, ep = case(60, 3000, duration_mean=60.0, gang_fraction=0.05)
+    scen = uniform_scenarios(ec, 8, seed=1, p_node_down=0.5, p_capacity=0.5, p_taint=0.5)
+    return ec, ep, scen, dict(wave_width=8, chunk_waves=64, collect_assignments=True)
+
+
+@cpu_route
+def reduced_whatif():
+    ec, ep, scen, kw = reduced_whatif_case()
+    return WhatIfEngine(ec, ep, scen, FrameworkConfig(), device="cpu", **kw).run()
+
+
+def reduced_shards_case():
+    """Step 8e's trace (SHARD_REDUCED)."""
+    sr = SHARD_REDUCED
+    return case(sr["nodes"], sr["pods"], gang_fraction=0.1)
+
+
+def _reduced_shards_cpu():
+    ec, ep = reduced_shards_case()
+    sr = SHARD_REDUCED
+    return TorchReplayEngine(ec, ep, FrameworkConfig(), chunk_waves=sr["chunk_waves"],
+                             device="cpu", node_shards=sr["node_shards"], paged=False)
+
+
+@cpu_route
+def reduced_shards_k9():
+    return _reduced_shards_cpu().replay()
+
+
+@cpu_route
+def reduced_shards_slot():
+    return _reduced_shards_cpu()._run(route="shard_slot")[2][0]
+
+
+def reduced_preempt_case():
+    """Step 9's replay: CONFIG6 cut to 20 nodes x 1,040 pods."""
+    cfg, ec, ep = config6_case(nodes=20, pods=1040)
+    return cfg, ec, ep, dict(wave_width=8, chunk_waves=cfg.chunk_waves, preemption=True)
+
+
+@cpu_route
+def reduced_preempt_replay():
+    cfg, ec, ep, kw = reduced_preempt_case()
+    return TorchReplayEngine(ec, ep, cfg.framework, device="cpu", **kw).replay()
+
+
+def reduced_preempt_whatif_case():
+    """Step 9's batch: 8 scenarios x 8 nodes x 400 pods, durationMean 20."""
+    cluster = make_cluster(8, seed=2, taint_fraction=0.2)
+    workload, _ = make_workload(400, seed=2, with_spread=True, with_tolerations=True,
+                                duration_mean=20.0, arrival_rate=12.0)
+    ec, ep = encode(cluster, workload)
+    scen = uniform_scenarios(ec, 8, seed=1, p_node_down=0.5, p_capacity=0.5, p_taint=0.5)
+    return ec, ep, scen, dict(wave_width=8, chunk_waves=4, collect_assignments=True,
+                              preemption=True)
+
+
+@cpu_route
+def reduced_preempt_whatif():
+    ec, ep, scen, kw = reduced_preempt_whatif_case()
+    return WhatIfEngine(ec, ep, scen, FrameworkConfig(), device="cpu", **kw).run()
+
+
+def reduced_retry_case():
+    """Step 12's trace: CONFIG7 cut to 40 nodes x 2,000 pods, chunkWaves 32,
+    retryBuffer 64."""
+    cfg, ec, ep = config7_case(nodes=40, pods=2000)
+    return cfg, ec, ep, dict(wave_width=cfg.wave_width, chunk_waves=32, retry_buffer=64)
+
+
+@cpu_route
+def reduced_retry_replay():
+    cfg, ec, ep, kw = reduced_retry_case()
+    eng = TorchReplayEngine(ec, ep, cfg.framework, telemetry="timeline", device="cpu", **kw)
+    r = eng.replay()
+    return r, retry_records(eng.last_tables)
+
+
+@cpu_route
+def reduced_retry_whatif():
+    cfg, ec, ep, kw = reduced_retry_case()
+    scen = uniform_scenarios(ec, 8, seed=1, p_node_down=0.5, p_capacity=0.5, p_taint=0.5)
+    tb, _, assignments, placed, _ = WhatIfEngine(ec, ep, scen, cfg.framework, device="cpu",
+                                                 **kw)._run()
+    return assignments, placed, retry_records(tb)
+
+
+def reduced_relabel_case():
+    """Step 16's batch (see :func:`check_reduced_relabel`)."""
+    cluster, workload = case_objects(60, REDUCED_PODS, duration_mean=60.0, gang_fraction=0.05)
+    cluster.nodes[7].labels[ZONE] = "zonly"
+    del cluster.nodes[11].labels[ZONE]
+    ec, ep = encode(cluster, workload)
+    P = lambda nodes, key=ZONE, value=None, **kw: Perturbation(
+        "set_label", nodes=np.asarray(nodes), key=key, value=value, **kw)
+    scen = [Scenario() for _ in range(8)]
+    scen[1].perturbations = [P([0, 4], value="zone-1"),
+                             Perturbation("scale_capacity", nodes=np.array([2]),
+                                          resource="cpu", factor=0.5)]
+    scen[2].perturbations = [P([1, 9, 17], value="zz-fresh")]
+    scen[3].perturbations = [P([7], value="zone-0")]
+    scen[4].perturbations = [P([11], value="zone-2")]
+    scen[5].perturbations = [Perturbation("add_taint", nodes=np.array([5, 6]), key="wi",
+                                          value="x", effect="NoSchedule")]
+    scen[6].perturbations = [P(np.arange(1, 30, 2), key="tier", value="hot")]
+    scen[7].perturbations = (uniform_scenarios(ec, 2, seed=3, p_node_down=1.0,
+                                               p_taint=1.0)[1].perturbations
+                             + [P(np.arange(20, 40), value="zone-new")])
+    return ec, ep, scen, dict(wave_width=8, chunk_waves=64)
+
+
+def relabel_run(eng):
+    """The assignments [S, P] of a reduced relabel batch's run, which must
+    run on the v3 engine with completions on."""
+    if eng.engine != "v3" or not eng.completions_on:
+        raise AssertionError(f"reduced relabel: engine {eng.engine}, completions "
+                             f"{eng.completions_on}")
+    return eng._run()[2]
+
+
+@cpu_route
+def reduced_relabel():
+    ec, ep, scen, kw = reduced_relabel_case()
+    return relabel_run(WhatIfEngine(ec, ep, scen, FrameworkConfig(), device="cpu", **kw))
+
+
+def reduced_series_case():
+    """Step 20's replay: CONFIG6 cut to 20 nodes x 1,040 pods at series."""
+    cfg, ec, ep = config6_case(nodes=20, pods=1040)
+    return cfg, ec, ep, dict(wave_width=8, telemetry="series", chunk_waves=cfg.chunk_waves)
+
+
+@cpu_route
+def reduced_series():
+    cfg, ec, ep, kw = reduced_series_case()
+    return TorchReplayEngine(ec, ep, cfg.framework, device="cpu", **kw).replay()
+
+
+def reduced_series_cli(device):
+    """Step 20's CLI run on ``device``: CONFIG7 cut to 40 nodes x 2,000 pods
+    (chunkWaves 32, retryBuffer 64) at series with timelineOut, through the
+    port's CLI ``run``: (the Chrome trace, the row's telemetry)."""
+    import yaml
+
+    from kubernetes_simulator_tpu_torch import cli
+
+    d = config7_dict(nodes=40, pods=2000)
+    d["chunkWaves"], d["whatIf"]["retryBuffer"] = 32, 64
+    outdir = os.path.join(ROOT, "chiprun_out")
+    os.makedirs(outdir, exist_ok=True)
+    d["telemetry"] = {"granularity": "series",
+                      "timelineOut": os.path.join(outdir, f"reduced_timeline_{device}.json")}
+    d["output"] = os.path.join(outdir, f"reduced_run_{device}.jsonl")
+    path = os.path.join(outdir, f"reduced_series_{device}.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(d, f)
+    if cli.main(["run", path, "--device", device]) != 0:
+        raise AssertionError(f"reduced series: the CLI run on {device} failed")
+    with open(d["telemetry"]["timelineOut"]) as f:
+        doc = json.load(f)
+    with open(d["output"]) as f:
+        row = json.loads(f.read().splitlines()[-1])["telemetry"]
+    os.remove(d["telemetry"]["timelineOut"])
+    return doc, row
+
+
+@cpu_route
+def reduced_series_cli_cpu():
+    return reduced_series_cli("cpu")
+
+
+def plain_card_reduced(dev):
+    """Step 5's plain path on the card (no kernel: it runs beside the build)."""
+    (ec, ep), kw = reduced_case()
+    return TorchReplayEngine(ec, ep, FrameworkConfig(), device=dev, plain=True, **kw).replay()
+
+
+def plain_card_reduced_whatif(dev):
+    """Step 6's plain path on the card (no kernel: it runs beside the build)."""
+    ec, ep, scen, kw = reduced_whatif_case()
+    return WhatIfEngine(ec, ep, scen, FrameworkConfig(), device=dev, plain=True, **kw).run()
+
+
+def check_reduced_replay(results, plain_card, dev="cuda"):
+    """Step 5: kernel path == plain path on the card (``plain_card``: its
+    result and seconds) == plain path on the CPU, on a trace where
+    completions change the placements."""
     nodes, pods = 300, REDUCED_PODS
-    ec, ep = case(nodes, pods, duration_mean=20.0, gang_fraction=0.05)
-    kw = dict(wave_width=8, chunk_waves=64)
+    (ec, ep), kw = reduced_case()
     t0 = time.perf_counter()
     eng = TorchReplayEngine(ec, ep, FrameworkConfig(), device=dev, **kw)
     kern = eng.replay()
@@ -2074,12 +2377,8 @@ def check_reduced_replay(results, dev="cuda"):
     if kern.route != "chunk":
         raise AssertionError(f"reduced replay ran on route {kern.route}")
     _, slot_s = slot_route("reduced replay", eng, kern.assignments[None])
-    t1s = time.perf_counter()
-    plain = TorchReplayEngine(ec, ep, FrameworkConfig(), device=dev, plain=True,
-                              **kw).replay()
-    t2 = time.perf_counter()
-    cpu = TorchReplayEngine(ec, ep, FrameworkConfig(), device="cpu", **kw).replay()
-    t3 = time.perf_counter()
+    plain, plain_s = plain_card
+    cpu, cpu_s = CPU_ROUTES.get("reduced")
     for name, other in (("plain on the card", plain), ("plain on the cpu", cpu)):
         diff = np.nonzero(kern.assignments != other.assignments)[0]
         if diff.size:
@@ -2094,21 +2393,21 @@ def check_reduced_replay(results, dev="cuda"):
         raise AssertionError("reduced replay placed nothing or completions changed nothing")
     results["reduced"] = dict(nodes=nodes, pods=pods, placed=kern.placed,
                               unschedulable=kern.unschedulable, moved_by_completions=moved,
-                              kernel_s=t1 - t0, slot_route_s=slot_s, plain_card_s=t2 - t1s,
-                              plain_cpu_s=t3 - t2)
+                              kernel_s=t1 - t0, slot_route_s=slot_s, plain_card_s=plain_s,
+                              plain_cpu_s=cpu_s)
     print(f"reduced replay ({nodes} nodes, {pods} pods): placed {kern.placed}, identical on the "
           f"chunk route (K6), the per-slot kernels, the plain path on the card and on the CPU "
-          f"({t1 - t0:.2f}s / {slot_s:.2f}s / {t2 - t1s:.2f}s / {t3 - t2:.2f}s); completions "
+          f"({t1 - t0:.2f}s / {slot_s:.2f}s / {plain_s:.2f}s beside the build / {cpu_s:.2f}s "
+          f"beside the card's steps); completions "
           f"move {moved} assignments", flush=True)
 
 
-def check_reduced_whatif(results, dev="cuda"):
+def check_reduced_whatif(results, plain_card, dev="cuda"):
     """Step 6: the what-if batch on the kernel path == the plain path on the
-    card == the plain path on the CPU."""
+    card (``plain_card``: its result and seconds) == the plain path on the
+    CPU."""
     nodes, pods = 60, 3000
-    ec, ep = case(nodes, pods, duration_mean=60.0, gang_fraction=0.05)
-    scen = uniform_scenarios(ec, 8, seed=1, p_node_down=0.5, p_capacity=0.5, p_taint=0.5)
-    kw = dict(wave_width=8, chunk_waves=64, collect_assignments=True)
+    ec, ep, scen, kw = reduced_whatif_case()
     mk = lambda **o: WhatIfEngine(ec, ep, scen, FrameworkConfig(), **{**kw, **o})
     t0 = time.perf_counter()
     eng = mk(device=dev)
@@ -2117,11 +2416,8 @@ def check_reduced_whatif(results, dev="cuda"):
     if kern.route != "chunk":
         raise AssertionError(f"reduced what-if ran on route {kern.route}")
     _, slot_s = slot_route("reduced what-if", eng, kern.assignments)
-    t1s = time.perf_counter()
-    plain = mk(device=dev, plain=True).run()
-    t2 = time.perf_counter()
-    cpu = mk(device="cpu").run()
-    t3 = time.perf_counter()
+    plain, plain_s = plain_card
+    cpu, cpu_s = CPU_ROUTES.get("reduced_whatif")
     for name, other in (("plain on the card", plain), ("plain on the cpu", cpu)):
         bad = np.argwhere(kern.assignments != other.assignments)
         if bad.size:
@@ -2140,11 +2436,12 @@ def check_reduced_whatif(results, dev="cuda"):
         scenarios=len(scen), nodes=nodes, pods=pods, placed=kern.placed.tolist(),
         moved_by_completions=moved, distinct_scenarios=distinct,
         gang_pods_unplaced=gang_unplaced,
-        kernel_s=t1 - t0, slot_route_s=slot_s, plain_card_s=t2 - t1s, plain_cpu_s=t3 - t2)
+        kernel_s=t1 - t0, slot_route_s=slot_s, plain_card_s=plain_s, plain_cpu_s=cpu_s)
     print(f"reduced what-if (8 scenarios x {nodes} nodes x {pods} pods): placed "
           f"{kern.placed.tolist()}, assignments identical on the chunk route (K6), the per-slot "
           f"kernels, the plain path on the card and on the CPU ({t1 - t0:.2f}s / "
-          f"{slot_s:.2f}s / {t2 - t1s:.2f}s / {t3 - t2:.2f}s); "
+          f"{slot_s:.2f}s / {plain_s:.2f}s beside the build / {cpu_s:.2f}s beside the card's "
+          f"steps); "
           f"completions move {moved} assignments, {gang_unplaced} gang pods rolled back or "
           f"unplaced", flush=True)
 
@@ -2395,7 +2692,7 @@ def hold_preempt(where, eng, n_check, dev, results):
                 rel=(rel_p, rel_pos, col_pod[cols]), wave_victims=wave_victims)
 
 
-def time_preempt(eng, held, dev, iters=200, plain_iters=20):
+def time_preempt(eng, held, dev, iters=50, plain_iters=1):
     """Device time per launch (torch.profiler) of each kernel's preemption
     work, beside its twin, a PyTorch yardstick and its least time, at the
     window slot where the most scenarios preempted (its tables before K3):
@@ -2490,8 +2787,7 @@ def check_reduced_preempt(results, dev="cuda"):
     nodes x 400 pods, durationMean 20: evictions fire and completions move
     placements), each on the kernel path, the plain path on the card and
     the plain path on the CPU: assignments and preemptions identical."""
-    cfg, ec, ep = config6_case(nodes=20, pods=1040)
-    kw = dict(wave_width=8, chunk_waves=cfg.chunk_waves, preemption=True)
+    cfg, ec, ep, kw = reduced_preempt_case()
     t0 = time.perf_counter()
     eng = TorchReplayEngine(ec, ep, cfg.framework, device=dev, **kw)
     kern = eng.replay()
@@ -2504,8 +2800,7 @@ def check_reduced_preempt(results, dev="cuda"):
     t1s = time.perf_counter()
     plain = TorchReplayEngine(ec, ep, cfg.framework, device=dev, plain=True, **kw).replay()
     t2 = time.perf_counter()
-    cpu = TorchReplayEngine(ec, ep, cfg.framework, device="cpu", **kw).replay()
-    t3 = time.perf_counter()
+    cpu, cpu_s = CPU_ROUTES.get("reduced_preempt_replay")
     for name, other in (("plain on the card", plain), ("plain on the cpu", cpu)):
         diff = np.nonzero(kern.assignments != other.assignments)[0]
         if diff.size or kern.preemptions != other.preemptions:
@@ -2515,13 +2810,8 @@ def check_reduced_preempt(results, dev="cuda"):
         raise AssertionError("reduced preemption replay fired no eviction")
     results["reduced_preempt_replay"] = dict(
         nodes=20, pods=1040, placed=kern.placed, victims=kern.preemptions,
-        kernel_s=t1 - t0, plain_card_s=t2 - t1s, plain_cpu_s=t3 - t2)
-    cluster = make_cluster(8, seed=2, taint_fraction=0.2)
-    workload, _ = make_workload(400, seed=2, with_spread=True, with_tolerations=True,
-                                duration_mean=20.0, arrival_rate=12.0)
-    ec2, ep2 = encode(cluster, workload)
-    scen = uniform_scenarios(ec2, 8, seed=1, p_node_down=0.5, p_capacity=0.5, p_taint=0.5)
-    wkw = dict(wave_width=8, chunk_waves=4, collect_assignments=True, preemption=True)
+        kernel_s=t1 - t0, plain_card_s=t2 - t1s, plain_cpu_s=cpu_s)
+    ec2, ep2, scen, wkw = reduced_preempt_whatif_case()
     mk = lambda **o: WhatIfEngine(ec2, ep2, scen, FrameworkConfig(), **{**wkw, **o})
     t0 = time.perf_counter()
     weng = mk(device=dev)
@@ -2535,8 +2825,7 @@ def check_reduced_preempt(results, dev="cuda"):
     t1s = time.perf_counter()
     wp = mk(device=dev, plain=True).run()
     t2 = time.perf_counter()
-    wc = mk(device="cpu").run()
-    t3 = time.perf_counter()
+    wc, cpu_s = CPU_ROUTES.get("reduced_preempt_whatif")
     for name, other in (("plain on the card", wp), ("plain on the cpu", wc)):
         bad = np.argwhere(wk.assignments != other.assignments)
         if bad.size or not np.array_equal(wk.preemptions, other.preemptions):
@@ -2549,7 +2838,7 @@ def check_reduced_preempt(results, dev="cuda"):
     results["reduced_preempt_whatif"] = dict(
         scenarios=8, nodes=8, pods=400, placed=wk.placed.tolist(),
         victims=wk.preemptions.tolist(), moved_by_completions=moved,
-        kernel_s=t1 - t0, plain_card_s=t2 - t1s, plain_cpu_s=t3 - t2)
+        kernel_s=t1 - t0, plain_card_s=t2 - t1s, plain_cpu_s=cpu_s)
     print(f"reduced tier preemption: replay (20 nodes x 1040 pods) placed {kern.placed}, "
           f"{kern.preemptions} victims; what-if (8 x 8 nodes x 400 pods) victims "
           f"{wk.preemptions.tolist()}, completions move {moved}; identical on the chunk route "
@@ -2575,7 +2864,7 @@ def run_preempt_paths(results, dev):
     check_result(ec, ep, warm)
     check_pins("config6 replay", PREEMPT_PINS["config6"], warm.placed, warm.preemptions,
                warm.assignments)
-    runs = [eng.replay() for _ in range(3)]
+    runs = [eng.replay() for _ in range(1)]
     for r in runs:
         if not np.array_equal(r.assignments, warm.assignments):
             raise AssertionError("the config6 replay placed differently from run to run")
@@ -2624,7 +2913,7 @@ def run_preempt_paths(results, dev):
     if (not np.array_equal(single.assignments, warm.assignments[0])
             or single.preemptions != int(warm.preemptions[0])):
         raise AssertionError("what-if scenario 0 differs from the single-scenario replay")
-    runs = [eng.run() for _ in range(3)]
+    runs = [eng.run() for _ in range(1)]
     for r in runs:
         if not np.array_equal(r.assignments, warm.assignments):
             raise AssertionError("the preemption what-if placed differently from run to run")
@@ -2732,16 +3021,18 @@ def check_reduced_retry(results, dev="cuda"):
     Placed, retry_dropped, the (internal) assignments and every retry
     record must be identical, and retry must change the outcome."""
     nodes, pods = 40, 2000
-    cfg, ec, ep = config7_case(nodes=nodes, pods=pods)
-    kw = dict(wave_width=cfg.wave_width, chunk_waves=32, retry_buffer=64)
+    cfg, ec, ep, kw = reduced_retry_case()
     runs, walls, engs = [], [], []
-    for o in (dict(device=dev), dict(device=dev, plain=True), dict(device="cpu")):
+    for o in (dict(device=dev), dict(device=dev, plain=True)):
         t0 = time.perf_counter()
         eng = TorchReplayEngine(ec, ep, cfg.framework, telemetry="timeline", **kw, **o)
         r = eng.replay()
         walls.append(time.perf_counter() - t0)
         runs.append((r, retry_records(eng.last_tables)))
         engs.append(eng)
+    cpu, cpu_s = CPU_ROUTES.get("reduced_retry_replay")
+    runs.append(cpu)
+    walls.append(cpu_s)
     (kern, rec), others = runs[0], runs[1:]
     for name, (other, orec) in zip(("plain on the card", "plain on the cpu"), others):
         diff = np.nonzero(kern.assignments != other.assignments)[0]
@@ -2781,12 +3072,15 @@ def check_reduced_retry(results, dev="cuda"):
         kernel_s=walls[0], plain_card_s=walls[1], plain_cpu_s=walls[2])
     scen = uniform_scenarios(ec, 8, seed=1, p_node_down=0.5, p_capacity=0.5, p_taint=0.5)
     runs, walls = [], []
-    for o in (dict(device=dev), dict(device=dev, plain=True), dict(device="cpu")):
+    for o in (dict(device=dev), dict(device=dev, plain=True)):
         t0 = time.perf_counter()
         eng = WhatIfEngine(ec, ep, scen, cfg.framework, **kw, **o)
         tb, _, assignments, placed, _ = eng._run()
         walls.append(time.perf_counter() - t0)
         runs.append((assignments, placed, retry_records(tb)))
+    cpu, cpu_s = CPU_ROUTES.get("reduced_retry_whatif")
+    runs.append(cpu)
+    walls.append(cpu_s)
     (ka, kp, krec), others = runs[0], runs[1:]
     slot_eng = WhatIfEngine(ec, ep, scen, cfg.framework, device=dev, **kw)
     slot_route("reduced retry what-if", slot_eng, ka)
@@ -3063,7 +3357,7 @@ def hold_retry(where, eng, walk, dev, results, waves_after=8):
     return snaps, b
 
 
-def time_retry(eng, snaps, bnd, dev, iters=200, plain_iters=10):
+def time_retry(eng, snaps, bnd, dev, iters=50, plain_iters=1):
     """Device time per launch (torch.profiler) of each retry-buffer mode,
     beside its twin's wall (CUDA events) and its least time, on copies of
     the tables snapshot before it in the held window."""
@@ -3311,7 +3605,7 @@ def hold_k6_retry(where, eng, b, dev, C=None, joint=False, series=False, waves=8
     return out
 
 
-def time_k6_retry(eng, b, hi, state0, dev, joint, iters=20):
+def time_k6_retry(eng, b, hi, state0, dev, joint, iters=10):
     """Waves [b·C, hi) of ``eng``'s run (chunk b's boundary and its first
     waves) timed three ways from ``state0`` (the tables and choices after
     chunks [0, b)) after the boundary's static release: K6's retry mode
@@ -3439,7 +3733,7 @@ def run_retry_paths(results, dev):
                      warm.retry_dropped[0], assignments[0])
     slot_launches, slot_wall = slot_route("config7 what-if", eng, assignments)
     same_records("config7 what-if, per-slot route", rec, retry_records(eng.last_tables))
-    runs = [eng.run() for _ in range(3)]
+    runs = [eng.run() for _ in range(1)]
     for r in runs:
         if not np.array_equal(r.placed, warm.placed):
             raise AssertionError("the config7 what-if placed differently from run to run")
@@ -3623,23 +3917,21 @@ def check_reduced_series(results, dev="cuda"):
     pods (chunkWaves 32, retryBuffer 64) on the card and on the CPU: the
     rows' telemetry and the Chrome traces identical, and the trace
     parses."""
-    from kubernetes_simulator_tpu_torch import cli
-
     out = {}
-    for name, (cfg, ec, ep), kw in (
-        ("config6_cut", config6_case(nodes=20, pods=1040), dict(telemetry="series")),
-    ):
-        kw["chunk_waves"] = cfg.chunk_waves
+    for name, (cfg, ec, ep, kw) in (("config6_cut", reduced_series_case()),):
         runs, walls = [], []
-        for o in (dict(device=dev), dict(device=dev, plain=True), dict(device="cpu")):
+        for o in (dict(device=dev), dict(device=dev, plain=True)):
             K.reset_launch_counts()
             t0 = time.perf_counter()
-            e = TorchReplayEngine(ec, ep, cfg.framework, wave_width=8, **kw, **o)
+            e = TorchReplayEngine(ec, ep, cfg.framework, **kw, **o)
             r = e.replay()
             walls.append(time.perf_counter() - t0)
             runs.append((r, K.launch_counts()))
             if len(runs) == 1:
                 eng_k = e  # the kernel path's engine
+        cpu, cpu_s = CPU_ROUTES.get("reduced_series")
+        runs.append((cpu, None))
+        walls.append(cpu_s)
         (kern, launches), others = runs[0], runs[1:]
         if kern.route != "chunk" or launches["first_reject"] or not launches["chunk_replay"]:
             raise AssertionError(f"reduced series {name}: route {kern.route}, launches "
@@ -3661,27 +3953,9 @@ def check_reduced_series(results, dev="cuda"):
                          samples=len(tel.series["t"]), events=len(tel.events),
                          launches=launches, kernel_s=walls[0], plain_card_s=walls[1],
                          plain_cpu_s=walls[2])
-    import yaml
-
-    d = config7_dict(nodes=40, pods=2000)
-    d["chunkWaves"], d["whatIf"]["retryBuffer"] = 32, 64
-    outdir = os.path.join(ROOT, "chiprun_out")
-    os.makedirs(outdir, exist_ok=True)
     docs, rows = {}, {}
-    for device in (dev.type, "cpu"):
-        d["telemetry"] = {"granularity": "series",
-                          "timelineOut": os.path.join(outdir, f"reduced_timeline_{device}.json")}
-        d["output"] = os.path.join(outdir, f"reduced_run_{device}.jsonl")
-        path = os.path.join(outdir, f"reduced_series_{device}.yaml")
-        with open(path, "w") as f:
-            yaml.safe_dump(d, f)
-        if cli.main(["run", path, "--device", device]) != 0:
-            raise AssertionError(f"reduced series: the CLI run on {device} failed")
-        with open(d["telemetry"]["timelineOut"]) as f:
-            docs[device] = json.load(f)
-        with open(d["output"]) as f:
-            rows[device] = json.loads(f.read().splitlines()[-1])["telemetry"]
-        os.remove(d["telemetry"]["timelineOut"])
+    docs[dev.type], rows[dev.type] = reduced_series_cli(dev.type)
+    (docs["cpu"], rows["cpu"]), _ = CPU_ROUTES.get("reduced_series_cli_cpu")
     strip = lambda t: {k: v for k, v in t.items() if k != "phases"}
     if docs[dev.type] != docs["cpu"] or strip(rows[dev.type]) != strip(rows["cpu"]):
         raise AssertionError("reduced series: the CLI's trace or row differs between the card "
@@ -3725,7 +3999,7 @@ def hold_first_reject(where, eng, first, end, dev, results, must_charge=True, jo
     return n
 
 
-def time_first_reject(tb, pods, gate, iters=200, plain_iters=10, wrapper=None):
+def time_first_reject(tb, pods, gate, iters=50, plain_iters=1, wrapper=None):
     """K5 on ``tb`` with the slots ``pods`` / ``gate`` through ``wrapper``
     (K.first_reject by default): its device time per launch
     (torch.profiler; the launch interval by CUDA events where the profiler
@@ -3738,7 +4012,7 @@ def time_first_reject(tb, pods, gate, iters=200, plain_iters=10, wrapper=None):
     interval = time_cuda(run, iters)
     tb_t = clone_tables(tb)
     plain_ms = time_cuda(lambda i: ref.first_reject(tb_t, pods, gate), plain_iters,
-                         warm=min(3, plain_iters))
+                         warm=min(1, plain_iters))
     return dict(ms=d_ms if d_ms is not None else interval, device_ms=d_ms,
                 launch_interval_ms=interval, plain_ms=plain_ms)
 
@@ -3886,7 +4160,7 @@ def hold_k6_attributed(where, eng, first, end, dev, assignments, C=None):
     def launch(reject):
         return lambda: launch_ms(
             lambda: K.chunk_replay(b, desc.idx, desc.gang, ch_k, first, end, reject=reject),
-            restore, 20)
+            restore, 10)
 
     attr, summ = launch(tb_k.reject), launch(None)
     turns = [attr(), summ(), summ(), attr()]
@@ -3964,24 +4238,20 @@ def run_series_paths(results, dev):
         raise AssertionError(f"config6 series: reasons {tel.reasons} do not charge {ec.num_nodes}"
                              f" nodes for each of {res.unschedulable} unschedulable pods")
     rj = [x.clone() for x in eng.last_tables.reject]
-    slot_launches_a, _ = slot_route("config6 series, per-slot route", eng, res.assignments[None],
-                                    series=True, joint=True)
+    slot_launches_a, slot_wall_a = slot_route("config6 series, per-slot route", eng,
+                                              res.assignments[None], series=True, joint=True)
     for f, x, y in zip(eng.last_tables.reject._fields, rj, eng.last_tables.reject):
         if not torch.equal(x, y):
             raise AssertionError(f"config6 series: reject.{f} differs on the per-slot route")
     if slot_launches_a["first_reject"] != int((eng.plan.idx >= 0).sum()):
         raise AssertionError(f"config6 series, per-slot route: launches {slot_launches_a}")
-    modes = {"summary": lambda: eng_sum._run(joint=True),
-             "series_chunk": lambda: eng._run(series=True, joint=True),
-             "series_slot": lambda: eng._run(series=True, route="slot", joint=True)}
-    walls = {k: [] for k in modes}
-    for k in ("summary", "series_chunk", "series_slot", "series_slot", "series_chunk",
-              "summary"):
-        walls[k].append(modes[k]()[1])
+    # One wall each (the per-slot route's from its hold above).
+    walls = {"summary": [eng_sum._run(joint=True)[1]],
+             "series_chunk": [eng._run(series=True, joint=True)[1]],
+             "series_slot": [slot_wall_a]}
     by_series, by_summary = {}, {}
     res_p, busy_s = profiled_busy_s(eng.replay, by_series)
     res_sp, busy_sum = profiled_busy_s(eng_sum.replay, by_summary)
-    (_, slot_wall_p, _, _, _), busy_slot = profiled_busy_s(modes["series_slot"])
     ev_series, ev_summary = chunk_events_s(eng, dev, True), chunk_events_s(eng_sum, dev)
     wall_series = float(np.median(walls["series_chunk"]))
     wall_summary = float(np.median(walls["summary"]))
@@ -3996,23 +4266,20 @@ def run_series_paths(results, dev):
                           chunk_events_device_s=ev_series, chunk_events_busy_share=ev_series
                           / wall_series, summary_chunk_events_device_s=ev_summary,
                           summary_chunk_events_busy_share=ev_summary / wall_summary,
-                          summary_device_busy_s=busy_sum, summary_device_s_by_kernel=by_summary,
-                          slot_profiled_wall_s=slot_wall_p, slot_device_busy_s=busy_slot,
-                          slot_device_busy_share=busy_slot / slot_wall_p if busy_slot else None)
+                          summary_device_busy_s=busy_sum, summary_device_s_by_kernel=by_summary)
     print(f"(a) config6 series ({ec.num_nodes} x {ep.num_pods}, devicePreemption off, route "
           f"{res.route}): placed "
           f"{res.placed}, reasons {json.dumps(tel.reasons)} == {ec.num_nodes} x "
           f"{res.unschedulable}, attempts == reasons, == REJECT_PINS, == the per-slot route "
           f"(assignments, reject counters); launches {json.dumps(launches)}, {attributed} "
-          f"attributed K6 for {len(eng.plan.buckets)} chunks; walls in turns: summary "
+          f"attributed K6 for {len(eng.plan.buckets)} chunks; walls: summary "
           f"{[round(w, 3) for w in walls['summary']]} s, series on K6 "
           f"{[round(w, 3) for w in walls['series_chunk']]} s, series per slot "
           f"{[round(w, 3) for w in walls['series_slot']]} s; profiled busy: K6 "
           f"{busy_s / res_p.wall_clock_s:.1%} of {res_p.wall_clock_s:.3f} s (K6 "
           f"{k6_device_s(by_series):.4f} s), summary {busy_sum / res_sp.wall_clock_s:.1%} of "
-          f"{res_sp.wall_clock_s:.3f} s (K6 {k6_device_s(by_summary):.4f} s), per slot "
-          f"{busy_slot / slot_wall_p:.1%} of {slot_wall_p:.3f} s; device time by CUDA events "
-          f"chunk by chunk: series {ev_series:.4f} s ({ev_series / wall_series:.1%} of the "
+          f"{res_sp.wall_clock_s:.3f} s (K6 {k6_device_s(by_summary):.4f} s); device time by "
+          f"CUDA events chunk by chunk: series {ev_series:.4f} s ({ev_series / wall_series:.1%} of the "
           f"median wall), summary {ev_summary:.4f} s ({ev_summary / wall_summary:.1%})",
           flush=True)
     mark("21 (a) config6 series runs")
@@ -4355,39 +4622,20 @@ def check_reduced_relabel(results, dev="cuda"):
     perturbations — on the kernel path, the plain path on the card and the
     plain path on the CPU: assignments [S, P] identical."""
     nodes, pods = 60, REDUCED_PODS
-    cluster, workload = case_objects(nodes, pods, duration_mean=60.0, gang_fraction=0.05)
-    cluster.nodes[7].labels[ZONE] = "zonly"
-    del cluster.nodes[11].labels[ZONE]
-    ec, ep = encode(cluster, workload)
-    P = lambda nodes, key=ZONE, value=None, **kw: Perturbation(
-        "set_label", nodes=np.asarray(nodes), key=key, value=value, **kw)
-    scen = [Scenario() for _ in range(8)]
-    scen[1].perturbations = [P([0, 4], value="zone-1"),
-                             Perturbation("scale_capacity", nodes=np.array([2]),
-                                          resource="cpu", factor=0.5)]
-    scen[2].perturbations = [P([1, 9, 17], value="zz-fresh")]
-    scen[3].perturbations = [P([7], value="zone-0")]
-    scen[4].perturbations = [P([11], value="zone-2")]
-    scen[5].perturbations = [Perturbation("add_taint", nodes=np.array([5, 6]), key="wi",
-                                          value="x", effect="NoSchedule")]
-    scen[6].perturbations = [P(np.arange(1, 30, 2), key="tier", value="hot")]
-    scen[7].perturbations = (uniform_scenarios(ec, 2, seed=3, p_node_down=1.0,
-                                               p_taint=1.0)[1].perturbations
-                             + [P(np.arange(20, 40), value="zone-new")])
-    kw = dict(wave_width=8, chunk_waves=64)
+    ec, ep, scen, kw = reduced_relabel_case()
     runs, walls = [], []
-    for o in (dict(device=dev), dict(device=dev, plain=True), dict(device="cpu")):
+    for o in (dict(device=dev), dict(device=dev, plain=True)):
         t0 = time.perf_counter()
         eng = WhatIfEngine(ec, ep, scen, FrameworkConfig(), **kw, **o)
-        if eng.engine != "v3" or not eng.completions_on:
-            raise AssertionError(f"reduced relabel: engine {eng.engine}, completions "
-                                 f"{eng.completions_on}")
-        runs.append(eng._run()[2])
+        runs.append(relabel_run(eng))
         walls.append(time.perf_counter() - t0)
         if o == dict(device=dev):
             if eng.last_route != "chunk":
                 raise AssertionError(f"reduced relabel ran on route {eng.last_route}")
             slot_route("reduced relabel what-if", eng, runs[0])
+    cpu, cpu_s = CPU_ROUTES.get("reduced_relabel")
+    runs.append(cpu)
+    walls.append(cpu_s)
     for name, other in (("plain on the card", runs[1]), ("plain on the cpu", runs[2])):
         bad = np.argwhere(runs[0] != other)
         if bad.size:
@@ -4487,7 +4735,7 @@ def run_label_paths(results, headline_s0, dev):
     _, warm_wall, assignments, placed, _ = eng._run()
     launches = K.launch_counts()
     check_chunk_launches("relabel what-if", launches, eng.plan)
-    runs = [eng.run() for _ in range(3)]
+    runs = [eng.run() for _ in range(1)]
     for r in runs:
         if not np.array_equal(r.placed, placed):
             raise AssertionError("the relabel what-if placed differently from run to run")
@@ -5063,8 +5311,8 @@ def hold_shards(where, eng, dev, seed):
     return rec, tb_k, ch_k, tb_t, ch_t, live, (rel_ids, rel_pos), rolled
 
 
-def time_shards(work, tb_k, ch_k, tb_t, ch_t, live, rel, rolled, dev, iters=200,
-                plain_iters=10):
+def time_shards(work, tb_k, ch_k, tb_t, ch_t, live, rel, rolled, dev, iters=50,
+                plain_iters=1):
     """Each shard kernel's device time per launch (torch.profiler) at the
     window's end state, beside its twin's wall per call (CUDA events), its
     least time from ``work`` and, for K7's choice, ``torch.argmax`` over the
@@ -5264,7 +5512,7 @@ def check_reduced_shards(results, dev):
     paged): assignments, placed and ``used`` identical; each kernel run
     launches what its route launches and nothing else."""
     sr = SHARD_REDUCED
-    ec, ep = case(sr["nodes"], sr["pods"], gang_fraction=0.1)
+    ec, ep = reduced_shards_case()
     out = {}
     for paged in (False, True):
         mk = lambda d, P, **kw: TorchReplayEngine(ec, ep, FrameworkConfig(),
@@ -5292,9 +5540,8 @@ def check_reduced_shards(results, dev):
             # The twins on the CPU read pages as the resident tables
             # (tests/test_torch_pager.py): the paged pass leaves them out.
             routes.update({
-                "K9's twin on the CPU": mk("cpu", sr["node_shards"]).replay(),
-                "the per-slot twins on the CPU": mk("cpu", sr["node_shards"])._run(
-                    route="shard_slot")[2][0]})
+                "K9's twin on the CPU": CPU_ROUTES.get("reduced_shards_k9")[0],
+                "the per-slot twins on the CPU": CPU_ROUTES.get("reduced_shards_slot")[0]})
         for name, r in routes.items():
             a = r if isinstance(r, np.ndarray) else r.assignments
             if not np.array_equal(a, res.assignments) or (
@@ -6059,7 +6306,56 @@ def same_samples(where, sm_k, sm_t, idx):
             raise AssertionError(f"{where}: samples.{name} differ")
 
 
-def hold_k6_kube(where, eng, b, dev, joint, twin_scen, telemetry=False):
+def _twin_kube_launch(blob):
+    """A worker's part of :func:`hold_k6_kube`: the twin's kube-mode launch
+    (``ref.chunk_replay`` under :func:`kube_trace`) on the pickled inputs;
+    returns the pickled (tables, choices, samples, trace, seconds)."""
+    import pickle
+
+    tb_t, ch_t, sm_t, dt, lo, hi, retry = pickle.loads(blob)
+    with kube_trace() as trace:
+        t0 = time.perf_counter()
+        ref.chunk_replay(tb_t, dt.idx, dt.gang, ch_t, lo, hi, append=True, reject=tb_t.reject,
+                         retry=retry, samples=sm_t)
+        twin_s = time.perf_counter() - t0
+    return pickle.dumps((tb_t, ch_t, sm_t, dict(trace), twin_s))
+
+
+def _twin_worker_init(threads):
+    """A TwinPool worker: no card, and its share of the host's cores."""
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""
+    torch.set_num_threads(threads)
+
+
+class TwinPool:
+    """Worker processes that see no card, for twins on the CPU whose inputs
+    a hold has copied off the card: the hold goes on (its launch timed) while
+    its twin runs, and the holds of a step run their twins at once, each
+    worker on its share of the host's cores. Inputs and results cross as
+    pickles."""
+
+    def __init__(self, workers=4):
+        import multiprocessing
+        from concurrent.futures import ProcessPoolExecutor
+
+        threads = max(1, (os.cpu_count() or workers) // workers)
+        self.ex = ProcessPoolExecutor(max_workers=workers, initializer=_twin_worker_init,
+                                      initargs=(threads,),
+                                      mp_context=multiprocessing.get_context("spawn"))
+
+    def submit(self, fn, *args):
+        """A callable that waits for ``fn(*args)`` in a worker and returns it."""
+        import pickle
+
+        fut = self.ex.submit(fn, pickle.dumps(args))
+        return lambda: pickle.loads(fut.result())
+
+    def close(self):
+        self.ex.shutdown(wait=True, cancel_futures=True)
+
+
+def hold_k6_kube(where, eng, b, dev, joint, twin_scen, telemetry=False, steps=None,
+                 pool=None):
     """K6's kube mode against its twin at boundary b of ``eng``'s run: the
     tables after chunks [0, b) on the kernel path, copied for the twin on
     the CPU (its scenarios ``twin_scen``); the boundary's release on both
@@ -6068,7 +6364,11 @@ def hold_k6_kube(where, eng, b, dev, joint, twin_scen, telemetry=False):
     retry and kube tables equal after each. Then the launch timed from the
     released state (CUDA events, :func:`launch_ms`) beside the twin's wall
     and, at S = 1, its bound (Work.k6 + Work.kube_phase + Work.post_filter:
-    the window as one function).
+    the window as one function). Returns the hold's record; with ``pool``
+    (a :class:`TwinPool`) a callable that returns it: the twin's launch then
+    runs in a worker while the launch is timed, and the callable waits for
+    it and holds the launch (as it first ran) against it, so a step starts
+    all its holds before it finishes any.
 
     With ``telemetry`` (step T) the tables carry the reject counters and
     the event log, chunks [0, b) run at series (the K5 folds, the samples),
@@ -6076,7 +6376,12 @@ def hold_k6_kube(where, eng, b, dev, joint, twin_scen, telemetry=False):
     the counters, episode marks, log records and samples equal the twin's
     too; the launch is timed with telemetry on and, on the same released
     state, off (the tables without counters and log, no samples), and the
-    bound adds Work.kube_telemetry."""
+    bound adds Work.kube_telemetry.
+
+    ``steps`` (an engine with chaos timelines: its chaos steps) are applied
+    to chunks [0, b) as its run applies them, and boundary b's (its
+    allocatable rows, K10) to the kernel's tables before the twin's copy:
+    the launch's retry pass then re-binds K10's victims."""
     from kubernetes_simulator_tpu_torch.sim.torch_runtime import new_series
 
     plan = eng.plan
@@ -6085,7 +6390,14 @@ def hold_k6_kube(where, eng, b, dev, joint, twin_scen, telemetry=False):
     tb = eng._tables(attribute=telemetry, timeline=telemetry)
     ch = new_choices(plan, eng.S, eng.pods.bound_node, dev)
     ser = new_series(plan, tb, True) if telemetry else None
-    run_waves(plan, tb, ch, 0, lo, plain=False, ser=ser, route="chunk", joint=joint)
+    run_waves(plan, tb, ch, 0, lo, plain=False, ser=ser, route="chunk", joint=joint,
+              chaos=steps)
+    step = steps.get(b) if steps is not None else None
+    if step is not None:
+        R = tb.cluster.allocatable.shape[-1]
+        tb.cluster.allocatable.view(-1, R).index_copy_(0, step.rows, step.vals)
+        if step.scen.numel():
+            K.evict_node(K.Bound(tb), ch, step.scen, step.off, step.nodes, b, step.t_b)
     torch.cuda.synchronize()
     parts = TELEMETRY_PARTS if telemetry else PLANE_PARTS
     tb_t, ch_t = subset_tables(tb, ch, twin_scen)
@@ -6108,6 +6420,14 @@ def hold_k6_kube(where, eng, b, dev, joint, twin_scen, telemetry=False):
     retry = (b, float(np.float32(plan.tb[b])), not joint)
     sm_k = sample_buffers(tb) if telemetry else None
     sm_t = sample_buffers(tb_t) if telemetry else None
+    if pool is not None:
+        twin = pool.submit(_twin_kube_launch, tb_t, ch_t, sm_t, dt, lo, hi, retry)
+    else:
+        import pickle
+
+        done = pickle.loads(_twin_kube_launch(pickle.dumps((tb_t, ch_t, sm_t, dt, lo, hi,
+                                                            retry))))
+        twin = lambda: done
     launch = lambda: K.chunk_replay(bk, dk.idx, dk.gang, ch, lo, hi, append=True,
                                     reject=tb.reject, retry=retry, samples=sm_k)
     K.reset_launch_counts()
@@ -6116,67 +6436,70 @@ def hold_k6_kube(where, eng, b, dev, joint, twin_scen, telemetry=False):
     if K.chunk_replay.kube != 1 or K.chunk_replay.launches != 1:
         raise AssertionError(f"{where}: the launch at boundary {b} ran {K.launch_counts()}")
     cluster = plan_of(K.chunk_replay)
-    with kube_trace() as trace:
-        t0 = time.perf_counter()
-        ref.chunk_replay(tb_t, dt.idx, dt.gang, ch_t, lo, hi, append=True, reject=tb_t.reject,
-                         retry=retry, samples=sm_t)
-        twin_s = time.perf_counter() - t0
-    same_rows(f"{where}: boundary {b}'s K6 kube launch vs its twin", tb, ch, tb_t, ch_t,
-              twin_scen, parts)
-    if telemetry:
-        same_samples(f"{where}: boundary {b}'s samples", sm_k, sm_t, twin_scen)
+    final = (clone_tables(tb), ch.clone())
+    sm_final = (ref.RetrySamples(*(x.clone() for x in sm_k[:3]),
+                                 ref.DevState(*(x.clone() for x in sm_k.snap)))
+                if telemetry else None)
     victims = int((tb.retry.preempt - pre0).sum())
     out = dict(boundary=b, waves=[lo, hi], scenarios=eng.S, twin_scenarios=list(twin_scen),
-               buffered=held, victims=victims, cluster=cluster, twin_ms=twin_s * 1e3,
-               postfilter_calls_twin=len(trace["calls"]), walked_twin=len(trace["walked"]),
-               max_abs_err=0.0)
+               buffered=held, victims=victims, cluster=cluster, max_abs_err=0.0)
     if telemetry:
         out["log_records"] = int((tb.log.n - n0).sum())
-        out["charged_twin"] = sum(c["node"] == PAD for c in trace["calls"])
-    final = (clone_tables(tb), ch.clone())
     restore = lambda: restore_tables(tb, released[0], ch, released[1])
     if telemetry:
         bk_off = K.Bound(tb._replace(reject=None, log=None))
         out["ms_off"] = launch_ms(
             lambda: K.chunk_replay(bk_off, dk.idx, dk.gang, ch, lo, hi, append=True,
-                                   retry=retry), restore, iters=20)
-        # The launch without telemetry: the twin's choices and planes, the
-        # counters and the log as released.
+                                   retry=retry), restore, iters=10)
+        # The launch without telemetry: the first launch's choices and planes,
+        # the counters and the log as released.
         same_rows(f"{where}: boundary {b}'s timed launch, telemetry off", tb, ch,
                   *subset_tables(final[0], final[1], twin_scen), twin_scen)
         same_rows(f"{where}: boundary {b}'s timed launch, telemetry off, counters and log", tb,
                   ch, *subset_tables(released[0], final[1], twin_scen), twin_scen,
                   ("reject", "log"))
-    out["ms"] = launch_ms(launch, restore, iters=20)
+    out["ms"] = launch_ms(launch, restore, iters=10)
     same_rows(f"{where}: boundary {b}'s timed launch", tb, ch, *subset_tables(final[0], final[1],
                                                                             twin_scen),
               twin_scen, parts)
-    if eng.S == 1:
-        a = np.full((1, eng.pods.num_pods), PAD, np.int32)
-        flat, W = plan.idx.reshape(-1), plan.idx.shape[1]
-        cols = np.arange(lo * W, hi * W)
-        v = flat[cols] >= 0
-        a[:, flat[cols][v]] = ch[:, cols[v]].cpu().numpy()
-        work = Work(eng.pods, tb)
-        nb, no = work.k6(plan.idx[lo:hi], plan.gang_wave[lo:hi], a, lo, append=True)
-        pb, po = work.kube_phase(trace["walked"], trace["binds"])
-        fb, fo = work.post_filter(trace["calls"])
-        tbb = tbo = 0
+
+    def finish():
+        tb_t, ch_t, sm_t, trace, twin_s = twin()
+        same_rows(f"{where}: boundary {b}'s K6 kube launch vs its twin", final[0], final[1],
+                  tb_t, ch_t, twin_scen, parts)
         if telemetry:
-            unbinds = sum(len(c["victims"]) for c in trace["calls"])
-            tbb, tbo = work.kube_telemetry([c["pod"] for c in trace["calls"]],
-                                           out["log_records"], unbinds + len(trace["binds"]))
-        out["bound_ms"], out["bound_by"] = bound(nb + pb + fb + tbb, no + po + fo + tbo)
-        out["post_filter_bound_ms"], _ = bound(fb, fo)
-    print(f"{where}: K6's kube mode{' with telemetry' if telemetry else ''} == its twin at "
-          f"boundary {b} (release, then the launch; "
-          f"{json.dumps({k: v for k, v in out.items() if k != 'cluster'})}, cluster "
-          f"{json.dumps(cluster)}); choices, every plane, retry and kube table"
-          f"{', reject counters, event log and samples' if telemetry else ''}", flush=True)
-    return out
+            same_samples(f"{where}: boundary {b}'s samples", sm_final, sm_t, twin_scen)
+            out["charged_twin"] = sum(c["node"] == PAD for c in trace["calls"])
+        out.update(twin_ms=twin_s * 1e3, postfilter_calls_twin=len(trace["calls"]),
+                   walked_twin=len(trace["walked"]))
+        if eng.S == 1:
+            a = np.full((1, eng.pods.num_pods), PAD, np.int32)
+            flat, W = plan.idx.reshape(-1), plan.idx.shape[1]
+            cols = np.arange(lo * W, hi * W)
+            v = flat[cols] >= 0
+            a[:, flat[cols][v]] = final[1][:, cols[v]].cpu().numpy()
+            work = Work(eng.pods, final[0])
+            nb, no = work.k6(plan.idx[lo:hi], plan.gang_wave[lo:hi], a, lo, append=True)
+            pb, po = work.kube_phase(trace["walked"], trace["binds"])
+            fb, fo = work.post_filter(trace["calls"])
+            tbb = tbo = 0
+            if telemetry:
+                unbinds = sum(len(c["victims"]) for c in trace["calls"])
+                tbb, tbo = work.kube_telemetry([c["pod"] for c in trace["calls"]],
+                                               out["log_records"], unbinds + len(trace["binds"]))
+            out["bound_ms"], out["bound_by"] = bound(nb + pb + fb + tbb, no + po + fo + tbo)
+            out["post_filter_bound_ms"], _ = bound(fb, fo)
+        print(f"{where}: K6's kube mode{' with telemetry' if telemetry else ''} == its twin at "
+              f"boundary {b} (release, then the launch; "
+              f"{json.dumps({k: v for k, v in out.items() if k != 'cluster'})}, cluster "
+              f"{json.dumps(cluster)}); choices, every plane, retry and kube table"
+              f"{', reject counters, event log and samples' if telemetry else ''}", flush=True)
+        return out
+
+    return finish if pool is not None else finish()
 
 
-def run_kube_paths(results, dev):
+def run_kube_paths(results, dev, pool=None):
     """(K) kube preemption: config8 through the CLI run, its 128-scenario
     what-if, K6's kube mode held against its twin at S = 1 and S = 128.
     Returns the kernels line's record of K6's kube mode."""
@@ -6194,7 +6517,7 @@ def run_kube_paths(results, dev):
                sha256=assignments_sha256(a[0]))
     if got != KUBE_PINS or int(placed[0]) != row["placed"]:
         raise AssertionError(f"config8: {got} != the JAX package's {KUBE_PINS}")
-    walls = sorted(eng.replay().wall_clock_s for _ in range(3))
+    walls = sorted(eng.replay().wall_clock_s for _ in range(1))
     by_kernel = {}
     res_p, busy_s = profiled_busy_s(eng.replay, by_kernel)
     if not np.array_equal(res_p.assignments, a[0]):
@@ -6227,7 +6550,7 @@ def run_kube_paths(results, dev):
     if not np.array_equal(warm.assignments[0], a[0]) or int(warm.preemptions[0]) != got[
             "preemptions"] or int(warm.retry_dropped[0]) != got["retry_dropped"]:
         raise AssertionError("config8 what-if: scenario 0 != the single replay")
-    runs = [weng.run() for _ in range(3)]
+    runs = [weng.run() for _ in range(1)]
     for r in runs:
         if not np.array_equal(r.assignments, warm.assignments):
             raise AssertionError("config8 what-if placed differently from run to run")
@@ -6251,7 +6574,8 @@ def run_kube_paths(results, dev):
           f"== the single replay; launches {json.dumps(wlaunches)}; busy {wbusy:.4f}s", flush=True)
     mark("K config8 what-if")
 
-    # K6's kube mode against its twin at the densest boundaries.
+    # K6's kube mode against its twin at the densest boundaries (the twins
+    # run in the TwinPool's workers, all six at once).
     holds = {}
     for name, e, joint in (("S=1", eng, True), ("S=128", weng, False)):
         held = kube_walk(e, dev, joint)
@@ -6261,7 +6585,10 @@ def run_kube_paths(results, dev):
             # scenario 0 and those holding the most pods there
             top = [int(x) for x in np.argsort(-held[b - 1], kind="stable") if x != 0]
             twin_scen = sorted([0] + top[: KUBE_TWIN_SCENARIOS - 1])
-            holds[name].append(hold_k6_kube(f"config8 {name}", e, b, dev, joint, twin_scen))
+            holds[name].append(hold_k6_kube(f"config8 {name}", e, b, dev, joint, twin_scen,
+                                            pool=pool))
+    if pool is not None:
+        holds = {name: [finish() for finish in fs] for name, fs in holds.items()}
     results["k6_kube_holds"] = holds
     mark("K K6 kube holds")
     best = max(holds["S=1"], key=lambda h: h["buffered"])
@@ -6395,7 +6722,7 @@ def hold_evict_node(where, eng, b, steps, dev, joint, telemetry=False):
         if telemetry:
             bk_off = K.Bound(tb._replace(reject=None, log=None))
             ms_off = launch_ms(lambda: K.evict_node(bk_off, ch, st.scen, st.off, st.nodes, b,
-                                                    st.t_b), restore, iters=20)
+                                                    st.t_b), restore, iters=10)
             # Without telemetry: the twin's choices and planes, the counters
             # and the log as before the launch.
             same_rows(f"{where}: K10's timed launches at boundary {b}, telemetry off", tb, ch,
@@ -6404,7 +6731,7 @@ def hold_evict_node(where, eng, b, steps, dev, joint, telemetry=False):
                       f"and log", tb, ch, *subset_tables(before[0], final[1], scen), scen,
                       ("reject", "log"))
         ms = launch_ms(lambda: K.evict_node(bk, ch, st.scen, st.off, st.nodes, b, st.t_b),
-                       restore, iters=20)
+                       restore, iters=10)
         same_rows(f"{where}: K10's timed launches at boundary {b}", tb, ch,
                   *subset_tables(final[0], final[1], scen), scen, parts)
         nb, no = Work(eng.pods, tb).evict_node(len(scen), len(nodes), victims, pend_live)
@@ -6515,7 +6842,7 @@ def same_telemetry(where, a, b):
             raise AssertionError(f"{where}: {name} differ")
 
 
-def run_telemetry_kube_paths(results, dev):
+def run_telemetry_kube_paths(results, dev, pool=None):
     """(T) telemetry under kube preemption and chaos: config10 and config12
     through the CLI run with timelineOut == TELEMETRY_KUBE_PINS (launches: one
     K6 a chunk and the trailing boundary's, the kube pass in each past the
@@ -6640,7 +6967,9 @@ def run_telemetry_kube_paths(results, dev):
             top = [int(x) for x in np.argsort(-held[b - 1], kind="stable") if x != 0]
             twin_scen = sorted([0] + top[: KUBE_TWIN_SCENARIOS - 1])
             k6[name].append(hold_k6_kube(f"config8 {name}", e, b, dev, joint, twin_scen,
-                                         telemetry=True))
+                                         telemetry=True, pool=pool))
+    if pool is not None:
+        k6 = {name: [finish() for finish in fs] for name, fs in k6.items()}
     out["k6_kube_telemetry_holds"] = k6
     mark("T K6 kube holds with telemetry")
     # (f) K10 with its clears and log against its twin, S = 1 and S = 128.
@@ -6723,7 +7052,7 @@ def run_chaos_paths(results, dev):
     got_r.update(events=len(ev), sha256=assignments_sha256(a[0]))
     if got_r != CHAOS_PINS["run"] or int(placed[0]) != row["placed"]:
         raise AssertionError(f"config9 run: {got_r} != the JAX package's {CHAOS_PINS['run']}")
-    walls = sorted(eng.replay(node_events=ev).wall_clock_s for _ in range(3))
+    walls = sorted(eng.replay(node_events=ev).wall_clock_s for _ in range(1))
     res_p, busy_s = profiled_busy_s(lambda: eng.replay(node_events=ev))
     if not np.array_equal(res_p.assignments, a[0]):
         raise AssertionError("config9 run: the profiled replay placed differently")
@@ -6754,7 +7083,7 @@ def run_chaos_paths(results, dev):
     k10_c = claunches["evict_node"]
     csteps = chaos_steps(ceng.plan, ceng._events, ceng._alloc0(), "cpu")
     kube_launches("config9 campaign", claunches, ceng.plan, joint=False, steps=csteps)
-    runs = [ceng.run() for _ in range(3)]
+    runs = [ceng.run() for _ in range(1)]
     for r in runs:
         if not (np.array_equal(r.assignments, warm.assignments)
                 and np.array_equal(r.evictions, warm.evictions)):
@@ -6841,7 +7170,369 @@ def run_chaos_paths(results, dev):
                 launches_by_path=dict(config9_run=k10_r, config9_campaign=k10_c))
 
 
+# ---------------------------------------------------------------------------
+# H: the CPU event engine (config1's run, config12's tune on the host
+# evaluator) and S: the resident query service (config20's serve)
+# ---------------------------------------------------------------------------
+
+#: H: config1 as shipped (strategy: cpu, 100 nodes x 1,000 pods) through the
+#: CLI run: placed, unschedulable and the assignments' sha256 from the JAX
+#: package's CpuReplayEngine on the CPU (tests/test_torch_host_pins.py
+#: recomputes them).
+CONFIG1 = "examples/config1_default_cpu.yaml"
+CPU_PINS = dict(placed=1000, unschedulable=0,
+                sha256="5827fb9e5486ef8f65b63e9a1245b7700ccd11c128ea79cac5442f60a011b88e")
+#: H: config12 as shipped through the CLI tune (evaluator auto -> the host
+#: evaluator: every candidate on the CPU event engine): the trajectory file's
+#: rows and sha256, the winner and the objectives, from the JAX package's CLI
+#: on the CPU (``python -m kubernetes_simulator_tpu tune
+#: examples/config12_utilization.yaml``, run from an empty directory).
+TUNE12_PINS = dict(
+    rows=37, sha256="ba0af39b46a9a12edaa8c2e22bb972c0b44f5e68cca629060fb3014ded02a007",
+    best_policy={"NodeResourcesFit": 1.235031, "TaintToleration": 1.141252, "NodeAffinity": 0.0,
+                 "InterPodAffinity": 0.855685, "PodTopologySpread": 2.550488,
+                 "fitStrategy": "MostAllocated"},
+    train_objective=0.917578125, heldout_objective=0.917578125,
+    default_heldout_objective=0.810514323)
+TUNE12_DIR = os.path.join(ROOT, "chiprun_out", "tune_config12")
+#: S: config20 (64 nodes x 2,048 pods, kube, retryBuffer 64, maxBatch 3)
+#: through the CLI serve on this NDJSON stream: 7 defrag queries from 3
+#: tenants (1-4 nodes each, by index and by name, drainAt inside the trace
+#: with and without recoverAt, one at series telemetry) and one torn line.
+CONFIG20 = "examples/config20_service.yaml"
+SERVICE_DIR = os.path.join(ROOT, "chiprun_out", "service")
+SERVICE_STREAM = (
+    '{"op": "defrag", "tenant": "team-a", "id": "q1", "nodes": [3], "drainAt": 5.0, '
+    '"recoverAt": 12.0}',
+    '{"op": "defrag", "tenant": "team-b", "id": "q1", "nodes": ["node-7", 12], '
+    '"drainAt": 8.0}',
+    '{"op": "defrag", "tenant": "team-c", "id": "q1", "nodes": [20, 21, 22, 23], '
+    '"drainAt": 10.0, "recoverAt": 18.0}',
+    '{"op": "defrag", "tenant": "team-a", "id": "q2", "nodes": [',
+    '{"op": "defrag", "tenant": "team-a", "id": "q2", "nodes": ["node-40"], "drainAt": 3.0, '
+    '"granularity": "series"}',
+    '{"op": "defrag", "tenant": "team-b", "id": "q2", "nodes": [5, "node-6"], '
+    '"drainAt": 15.0, "recoverAt": 20.0}',
+    '{"op": "defrag", "tenant": "team-c", "id": "q2", "nodes": [30], "drainAt": 6.0}',
+    '{"op": "defrag", "tenant": "team-a", "id": "q3", "nodes": [50, 51, 52], '
+    '"drainAt": 12.0, "recoverAt": 14.0}',
+)
+#: S: the configs the stream runs on: config20 as shipped, and its cut to
+#: chunkWaves 32 (shipped, its 256 waves are one chunk, so a drain lands at
+#: the trailing boundary after every completion and evicts nothing; at 32
+#: waves a chunk the drains evict and the pods re-bind).
+SERVICE_CONFIGS = {"config20": {}, "cut32": {"chunkWaves": 32}}
+#: S: per config, the service's stats and its query-result rows as
+#: :func:`service_digest` gives them, from the JAX package's CLI serve on
+#: the CPU (tests/test_torch_host_pins.py recomputes them).
+SERVICE_PINS = {
+    "config20": dict(
+        stats=dict(queries=7, batches=4, cold_builds=2, warm_hits=2,
+                   evicted_engines=0, errors=1, compile_counts={}, engines=0),
+        rows=[
+            dict(tenant="team-a", query="q1", batch=1, placed=2041, evictions=0,
+                 sha256="7d4c403e5eeda2bf503b2d50e48bfcae7ddfbbdc1995bc303693bf8a2f36604e"),
+            dict(tenant="team-b", query="q1", batch=1, placed=2041, evictions=0,
+                 sha256="0284998d017cf1e6276a1a120be302d65fc7f8c85fe6f5b2f2f1d74ffa816182"),
+            dict(tenant="team-c", query="q1", batch=1, placed=2041, evictions=0,
+                 sha256="d7f66773924e5719fd5736c37958be2e7bd066a58cfb99f93418b8a0f2563490"),
+            dict(tenant="team-a", query="q2", batch=2, placed=2041, evictions=0,
+                 sha256="32b74b28078c4e914fe13e2b3454f3cfa9ce85f8935b0cee04bac092b31cb91c"),
+            dict(tenant="team-b", query="q2", batch=3, placed=2041, evictions=0,
+                 sha256="2c861311bbe5c536fee70b5d0a07a885df03b5bbf87387d46fd23caaaadfc36f"),
+            dict(tenant="team-c", query="q2", batch=3, placed=2041, evictions=0,
+                 sha256="fe6f6fd74ed383251a57343d3a4cc533a5f064c9c52c7d1aaa43a554fae52ec5"),
+            dict(tenant="team-a", query="q3", batch=4, placed=2041, evictions=0,
+                 sha256="d21521b46274258be0eded27fb2986eefe06e5895810c6d8acc39935b89ef45b"),
+        ]),
+    "cut32": dict(
+        stats=dict(queries=7, batches=4, cold_builds=2, warm_hits=2,
+                   evicted_engines=0, errors=1, compile_counts={}, engines=0),
+        rows=[
+            dict(tenant="team-a", query="q1", batch=1, placed=2048, evictions=7,
+                 sha256="626c5b75e3c9bb3bbfecde19e949cfb4f408bd846f71c39295776cfd07ec889b"),
+            dict(tenant="team-b", query="q1", batch=1, placed=2048, evictions=26,
+                 sha256="6bf778ff4ceebac9f587ee7fc1b75584c5245e04f0b3221d84a02317d4b569bd"),
+            dict(tenant="team-c", query="q1", batch=1, placed=2048, evictions=61,
+                 sha256="d5e7f343ae69d2076422625574d8838ce31a30a42a13f3b9be6db2f84ba75303"),
+            dict(tenant="team-a", query="q2", batch=2, placed=2048, evictions=2,
+                 sha256="566843221fa75daa0cc4daa370f838614f096ee1e5c51747dfea6248bbf8ee4e"),
+            dict(tenant="team-b", query="q2", batch=3, placed=2048, evictions=41,
+                 sha256="9e594013e292862b2068d757451f6b047d4dec6187d67f212d180b653efe7d62"),
+            dict(tenant="team-c", query="q2", batch=3, placed=2048, evictions=9,
+                 sha256="a0d67125573e56ec420d43384f0a89180c0b79c77f291624e821b756b1248ec1"),
+            dict(tenant="team-a", query="q3", batch=4, placed=2048, evictions=43,
+                 sha256="124e7def1ec1af47f180788df0e31e5f54619f0281b861eee1d22f7808ab6960"),
+        ]),
+}
+#: The fields of a query-result row that depend on the batch it rode in
+#: (and on the config file's bytes: its hash).
+SERVICE_BATCH_FIELDS = ("batch", "slot", "batch_occupancy", "warm", "latency_s", "queue_wait_s",
+                        "ts", "config_hash")
+
+
+def service_config(name, changes):
+    """CONFIG20 with ``changes`` (top-level keys; a ``service`` dict merges
+    into the section) written to SERVICE_DIR/<name>.yaml: its path."""
+    import yaml
+
+    with open(os.path.join(ROOT, CONFIG20)) as f:
+        d = yaml.safe_load(f)
+    for k, v in changes.items():
+        d[k] = dict(d[k], **v) if k == "service" else v
+    os.makedirs(SERVICE_DIR, exist_ok=True)
+    path = os.path.join(SERVICE_DIR, f"{name}.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(d, f, sort_keys=False)
+    return path
+
+
+def service_digest(rows):
+    """What SERVICE_PINS holds of a serve command's rows: for each
+    query-result row, scrubbed as the reference's ``_scrub_timing`` scrubs it
+    (its latency and queue wait 0.0; no ``ts``), the sha256 of all of it
+    (its telemetry view included) beside its tenant, query, batch, placed
+    and evictions."""
+    out = []
+    for r in rows:
+        if r["kind"] != "query-result":
+            continue
+        r = dict({k: v for k, v in r.items() if k != "ts"}, latency_s=0.0, queue_wait_s=0.0)
+        out.append(dict({k: r[k] for k in ("tenant", "query", "batch", "placed", "evictions")},
+                        sha256=hashlib.sha256(json.dumps(r, sort_keys=True).encode()
+                                              ).hexdigest()))
+    return out
+
+
+def start_tune12():
+    """H: config12 as shipped through the CLI ``tune`` in a subprocess that
+    sees no card (CUDA_VISIBLE_DEVICES empty: the host evaluator does no card
+    work, and any touch of the card would raise), writing its trajectory into
+    TUNE12_DIR. Returns (the process, its start time)."""
+    os.makedirs(TUNE12_DIR, exist_ok=True)
+    traj = os.path.join(TUNE12_DIR, "tune_utilization.jsonl")
+    if os.path.exists(traj):
+        os.remove(traj)  # the writer appends
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=ROOT)
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "kubernetes_simulator_tpu_torch", "tune",
+         os.path.join(ROOT, CONFIG12)],
+        cwd=TUNE12_DIR, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return proc, time.perf_counter()
+
+
+def finish_tune12(proc, t0, results):
+    """H: config12's tune (:func:`start_tune12`) to its end: the trajectory
+    == TUNE12_PINS (rows, sha256, winner, objectives), the evaluator ``cpu``,
+    no engine set-up; its walls."""
+    out, err = proc.communicate(timeout=900)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"config12 tune: the CLI returned {proc.returncode}: {err[-2000:]}")
+    with open(os.path.join(TUNE12_DIR, "tune_utilization.jsonl"), "rb") as f:
+        data = f.read()
+    rows = data.decode().splitlines()
+    final = json.loads(rows[-1])
+    got = dict(rows=len(rows), sha256=hashlib.sha256(data).hexdigest(),
+               best_policy=final["best_policy"], train_objective=final["train_objective"],
+               heldout_objective=final["heldout_objective"],
+               default_heldout_objective=final["default_heldout_objective"])
+    if got != TUNE12_PINS or final["evaluator"] != "cpu":
+        raise AssertionError(f"config12 tune: {got} (evaluator {final['evaluator']}) != "
+                             f"TUNE12_PINS {TUNE12_PINS}")
+    m = re.search(r"\((\d+) evaluations, (\d+) set-ups?\) in ([\d.]+)s on the CPU event engine",
+                  err)
+    if m is None or int(m.group(2)) != 0:
+        raise AssertionError(f"config12 tune: no host-evaluator summary line, or a set-up: "
+                             f"{err[-2000:]}")
+    results["tune_config12"] = dict(got, evaluations=int(m.group(1)), tune_s=float(m.group(3)),
+                                    command_s=wall, card_visible=False)
+    print(f"H config12 tune through the CLI (host evaluator, in a process that sees no card; "
+          f"the card is idle for it): trajectory == TUNE12_PINS ({len(rows)} rows, sha256 "
+          f"{got['sha256'][:16]}), best {final['best_policy']['fitStrategy']}, held-out "
+          f"{final['heldout_objective']} vs default {final['default_heldout_objective']}; "
+          f"{m.group(1)} evaluations, 0 set-ups; tune wall {float(m.group(3)):.3f}s, command "
+          f"{wall:.1f}s (it ran beside the card's steps)", flush=True)
+
+
+def run_config1(results):
+    """H: config1 as shipped through the CLI ``run`` in this process
+    (strategy cpu: the CPU event engine), counters zeroed just before and
+    read just after: == CPU_PINS, no kernel launched (the card is idle)."""
+    import io
+
+    from kubernetes_simulator_tpu_torch import cli
+    from kubernetes_simulator_tpu_torch.framework import registry
+
+    factory, done = registry.get_strategy("cpu"), []
+
+    def capture(*a, **kw):
+        eng = factory(*a, **kw)
+        replay = eng.replay
+        eng.replay = lambda *x, **y: done.append(replay(*x, **y)) or done[-1]
+        return eng
+
+    out = io.StringIO()
+    registry._STRATEGIES["cpu"] = capture
+    K.reset_launch_counts()
+    mem0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(["run", os.path.join(ROOT, CONFIG1)])
+    finally:
+        registry._STRATEGIES["cpu"] = factory
+    command_s = time.perf_counter() - t0
+    launches = K.launch_counts()
+    rows = [json.loads(x) for x in out.getvalue().splitlines() if x.startswith("{")]
+    if rc != 0 or len(done) != 1 or len(rows) != 1 or rows[0]["kind"] != "replay-cpu":
+        raise AssertionError(f"config1 run: rc {rc}, rows {rows}")
+    res = done[0]
+    got = dict(placed=res.placed, unschedulable=res.unschedulable,
+               sha256=assignments_sha256(res.assignments))
+    if got != CPU_PINS or rows[0]["placed"] != res.placed:
+        raise AssertionError(f"config1 run: {got} != CPU_PINS {CPU_PINS}")
+    if any(launches.values()) or torch.cuda.memory_allocated() != mem0:
+        raise AssertionError(f"config1 run touched the card: {launches}")
+    results["config1"] = dict(got, wall_s=res.wall_clock_s, command_s=command_s,
+                              placements_per_s=res.placements_per_sec, attempts=res.attempts,
+                              launches=sum(launches.values()))
+    print(f"H config1 through the CLI run (strategy cpu, the CPU event engine; no kernel "
+          f"launched, the card idle): {json.dumps(got)} == CPU_PINS; wall "
+          f"{res.wall_clock_s:.4f}s ({res.placements_per_sec:.0f} placements/s), command "
+          f"{command_s:.3f}s", flush=True)
+
+
+def serve_call(config, dev):
+    """One CLI ``serve`` of ``config`` in this process, SERVICE_STREAM on its
+    stdin, its output in SERVICE_DIR, counters zeroed just before and read
+    just after: (its rows, the service's stats, the pool's engines in the
+    order they were built, the launches, the command's seconds)."""
+    import io
+
+    from kubernetes_simulator_tpu_torch import cli
+    from kubernetes_simulator_tpu_torch.sim import service as TS
+
+    engine_cls, service_cls = TS.WhatIfEngine, TS.QueryService
+    engines, services = [], []
+
+    class Engine(engine_cls):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            engines.append(self)
+
+    class Service(service_cls):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            services.append(self)
+
+    os.makedirs(SERVICE_DIR, exist_ok=True)
+    out_path = os.path.join(SERVICE_DIR, "service_results.jsonl")
+    if os.path.exists(out_path):
+        os.remove(out_path)  # the writer appends
+    cwd, stdin = os.getcwd(), sys.stdin
+    TS.WhatIfEngine, TS.QueryService = Engine, Service
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        os.chdir(SERVICE_DIR)
+        sys.stdin = io.StringIO("\n".join(SERVICE_STREAM) + "\n")
+        rc = cli.main(["serve", config, "--device", dev.type])
+    finally:
+        os.chdir(cwd)
+        sys.stdin = stdin
+        TS.WhatIfEngine, TS.QueryService = engine_cls, service_cls
+    command_s = time.perf_counter() - t0
+    launches = dict(retry_launch_counts(), kube=K.chunk_replay.kube)
+    if rc != 0 or len(services) != 1:
+        raise AssertionError(f"serve {config}: the CLI returned {rc}")
+    with open(out_path) as f:
+        rows = [json.loads(x) for x in f]
+    return rows, services[0].stats(), engines, launches, command_s
+
+
+def service_answers(rows):
+    """{(tenant, query): the row without the fields of its batch}."""
+    return {(r["tenant"], r["query"]): {k: v for k, v in r.items()
+                                       if k not in SERVICE_BATCH_FIELDS}
+            for r in rows if r["kind"] == "query-result"}
+
+
+def run_service_paths(results, dev):
+    """(S) the resident query service: SERVICE_STREAM through the CLI serve
+    on the card on config20 as shipped and on its chunkWaves 32 cut: the
+    query-result rows and the stats == SERVICE_PINS, one query-error row, the
+    same answers at maxBatch 1 (batched == sequential); the serve and each
+    batch's walls; on the cut, K10 and then K6's kube mode at the densest
+    eviction boundary of its last batch held against their twins (every
+    scenario). Returns the launches of config20's serve."""
+    from kubernetes_simulator_tpu_torch.sim.torch_runtime import chaos_steps
+
+    out, launches_by = {}, {}
+    for name, changes in SERVICE_CONFIGS.items():
+        path = os.path.join(ROOT, CONFIG20) if not changes else service_config(name, changes)
+        rows, stats, engines, launches, cmd_s = serve_call(path, dev)
+        pin = SERVICE_PINS[name]
+        got = service_digest(rows)
+        if stats != pin["stats"]:
+            raise AssertionError(f"serve {name}: stats {stats} != SERVICE_PINS {pin['stats']}")
+        if got != pin["rows"]:
+            bad = [i for i, (a, b) in enumerate(zip(got, pin["rows"])) if a != b]
+            raise AssertionError(f"serve {name}: query-result rows {bad} (of {len(got)}, "
+                                 f"pinned {len(pin['rows'])}) != SERVICE_PINS: "
+                                 f"{[got[i] for i in bad[:2]]}")
+        errors = [r for r in rows if r["kind"] == "query-error"]
+        if len(errors) != 1:
+            raise AssertionError(f"serve {name}: {len(errors)} query-error rows")
+        if launches["kube"] <= 0 or launches["filter_score"] or launches["normalize_select"]:
+            raise AssertionError(f"serve {name}: launches {launches}")
+        batch_s = {}
+        for r in rows:
+            if r["kind"] == "query-result":
+                batch_s[r["batch"]] = r["latency_s"]
+        one, _, _, _, one_s = serve_call(service_config(f"{name}_batch1", dict(
+            changes, service={"maxBatch": 1})), dev)
+        if service_answers(one) != service_answers(rows):
+            raise AssertionError(f"serve {name}: the answers at maxBatch 1 differ from the "
+                                 f"batched ones")
+        evictions = sum(r["evictions"] for r in rows if r["kind"] == "query-result")
+        out[name] = dict(stats=stats, command_s=cmd_s, batch_s=batch_s, batch1_command_s=one_s,
+                         launches=launches, evictions=evictions, queries=len(got))
+        launches_by[name] = launches
+        print(f"S serve {name} ({len(got)} queries, {stats['batches']} batches: "
+              f"{stats['cold_builds']} cold, {stats['warm_hits']} warm; 1 query-error): rows "
+              f"and stats == SERVICE_PINS, the same answers at maxBatch 1 ({one_s:.2f}s); "
+              f"evictions {evictions}; serve {cmd_s:.2f}s, batches "
+              f"{json.dumps({b: round(x, 4) for b, x in batch_s.items()})} s; launches K6 "
+              f"{launches['chunk_replay']} (kube pass {launches['kube']}), K10 "
+              f"{launches['evict_node']}, K3 release {launches['apply_placements_release']}",
+              flush=True)
+        mark(f"S serve {name}")
+    if out["cut32"]["evictions"] <= 0 or launches_by["cut32"]["evict_node"] <= 0:
+        raise AssertionError(f"serve cut32: no eviction ({out['cut32']})")
+    # The last batch of the cut's summary engine (its pool key's), held.
+    eng = next(e for e in engines if e.telemetry == "summary")
+    alloc0 = eng._cluster.allocatable.clone()
+    try:
+        steps = chaos_steps(eng.plan, eng._timelines(), eng._alloc0(), dev)
+        vic, _ = chaos_walk(eng, dev, joint=False)
+        b10 = sorted(vic, key=lambda b: (-int(vic[b].sum()), b))[0]
+        k10 = hold_evict_node("serve cut32", eng, b10, steps, dev, joint=False)
+        # K6's kube launch at the same boundary, after K10: its retry pass
+        # re-binds the victims.
+        k6 = hold_k6_kube("serve cut32", eng, b10, dev, False, list(range(eng.S)),
+                          steps=steps)
+    finally:
+        eng._cluster.allocatable.copy_(alloc0)
+    out["holds"] = dict(k10=k10, k6_kube=k6)
+    results["service"] = out
+    mark("S holds")
+    return launches_by["config20"]
+
+
 def main() -> int:
+    if len(sys.argv) == 3 and sys.argv[1] == "--cpu-routes":
+        return CpuRoutes.run_all(sys.argv[2])
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this script needs a CUDA "
               "card", file=sys.stderr)
@@ -6857,9 +7548,51 @@ def main() -> int:
     results = {"nvidia_smi": smi, "device": device_kind, "step_s": STEP_S}
     dev = torch.device("cuda")
     _last_mark[0] = t_start
+    # Processes that see no card run beside the card's steps once the kernels
+    # are built: config12's tune on the host evaluator (H), the reduced cases'
+    # plain path on the CPU and the kube holds' twin pool; all are stopped if
+    # a step fails before they are read.
+    tune12, pools = [], []
+    try:
+        return run_steps(results, dev, device_kind, t_start, tune12, pools)
+    finally:
+        CPU_ROUTES.stop()
+        for pool in pools:
+            pool.close()
+        for proc, _ in tune12:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def run_steps(results, dev, device_kind, t_start, tune12, pools) -> int:
+    import threading
 
     t0 = time.perf_counter()
-    K.build(verbose=True)
+    failed = []
+
+    def build():
+        try:
+            K.build(verbose=True)
+        except BaseException as e:  # re-raised on this thread below
+            failed.append(e)
+
+    builder = threading.Thread(target=build)
+    builder.start()
+    # Steps 5 and 6's plain path on the card launches no kernel: it runs on
+    # this thread while nvcc builds the kernels.
+    plain_card = {}
+    for name, fn in (("reduced", plain_card_reduced),
+                     ("reduced_whatif", plain_card_reduced_whatif)):
+        t1 = time.perf_counter()
+        plain_card[name] = (fn(dev), time.perf_counter() - t1)
+    results["plain_card_beside_build_s"] = time.perf_counter() - t0
+    builder.join()
+    if failed:
+        raise failed[0]
+    CPU_ROUTES.start()
+    pools.append(TwinPool())
+    tune12.append(start_tune12())
     results["build_s"] = K.last_build_s
     print(f"kernels built in {K.last_build_s:.2f}s "
           f"({time.perf_counter() - t0:.2f}s with loading)", flush=True)
@@ -6878,12 +7611,14 @@ def main() -> int:
           f"T={ec.node_domain.shape[0]} ({results['encode_s']:.1f}s)", flush=True)
 
     mark("1-2 build, encode")
+    run_config1(results)
+    mark("H config1 run")
     check_kernels_s1(ec, ep, results, dev)
     check_kernels_s4(ec, ep, results, dev)
     mark("3-4 kernel checks S=1, S=4")
-    check_reduced_replay(results)
+    check_reduced_replay(results, plain_card["reduced"])
     mark("5 reduced replay")
-    check_reduced_whatif(results)
+    check_reduced_whatif(results, plain_card["reduced_whatif"])
     mark("6 reduced what-if")
 
     # Step 7: the config2 single replay, kernel path; counters from zero.
@@ -7085,12 +7820,17 @@ def main() -> int:
     run_config18(results, dev)
     mark("M3 config13 recorder in turns")
     # K: kube preemption (config8, its 128-scenario what-if, K6's kube mode).
-    k6kube = run_kube_paths(results, dev)
+    k6kube = run_kube_paths(results, dev, pools[0])
     # X: chaos node events (config9, its campaign, K10, the plain path's).
     k10 = run_chaos_paths(results, dev)
     # T: telemetry under kube and chaos (config10, config12, config9 at series,
     # K6's kube mode and K10 with their telemetry).
-    ktel = run_telemetry_kube_paths(results, dev)
+    ktel = run_telemetry_kube_paths(results, dev, pools[0])
+    # S: the resident query service (config20's serve; K6's kube mode, K10).
+    svc_launches = run_service_paths(results, dev)
+    # H: config12's tune, which ran beside the card's steps.
+    finish_tune12(*tune12[0], results)
+    mark("H config12 tune (read)")
     results["wall_s_total"] = time.perf_counter() - t_start
     print("step walls (s): " + json.dumps({k: round(v, 1) for k, v in STEP_S.items()}),
           flush=True)
@@ -7129,6 +7869,7 @@ def main() -> int:
         "launches": launches["apply_placements_release"], "max_abs_err": release["max_abs_err"],
         "ms": release["ms"], "plain_ms": release["plain_ms"], "bound_ms": release["bound_ms"],
         "bound_by": release["bound_by"], "library_ms": release["library_ms"],
+        "launches_by_path": {"config20": svc_launches["apply_placements_release"]},
     })
     for k, m in pkernels.items():
         kernel, replaces = PREEMPT_SOURCES[k]
@@ -7184,6 +7925,7 @@ def main() -> int:
         # no PyTorch call runs a PostFilter
         "library_ms": None, "cluster": k6kube["cluster"], "boundary": k6kube["boundary"],
         "post_filter_bound_ms": k6kube["post_filter_bound_ms"], "s128_ms": k6kube["s128_ms"],
+        "launches_by_path": {"config20": svc_launches["kube"]},
         **ktel["k6"],
     })
     # K10: its launches on config9's CLI what-if (the run's and the
@@ -7198,7 +7940,8 @@ def main() -> int:
         "plain_ms": k10["plain_ms"], "bound_ms": k10["bound_ms"], "bound_by": k10["bound_by"],
         # no PyTorch call evicts a node's pods
         "library_ms": None, "boundary": k10["boundary"], "victims": k10["victims"],
-        "s128_ms": k10["s128_ms"], "launches_by_path": k10["launches_by_path"],
+        "s128_ms": k10["s128_ms"],
+        "launches_by_path": dict(k10["launches_by_path"], config20=svc_launches["evict_node"]),
         **ktel["k10"],
     })
     for k, (kernel, replaces) in LABEL_SOURCES.items():
@@ -7258,10 +8001,12 @@ def main() -> int:
         "library_ms": None, "cluster": m["cluster"], "window_slots": m["slots"],
         "us_per_slot_first_chunk": results["config13"]["k9_first_chunk"]["us_per_slot"],
     })
-    # The launches of config5's (K6) and config15's (K9, K8's release) main
-    # runs beside each row's own path's.
+    # The launches of config5's (K6), config15's (K9, K8's release) and
+    # config20's serve (K6, its kube mode, K10, K3's release) main runs beside
+    # each row's own path's.
     for rec in table:
-        by_path = {"chunk_replay": {"config5": c5_launches["chunk_replay"]},
+        by_path = {"chunk_replay": {"config5": c5_launches["chunk_replay"],
+                                    "config20": svc_launches["chunk_replay"]},
                    "shard_chunk_replay": {"config15": c15_launches["shard_chunk_replay"]},
                    "shard_apply_release": {"config15": c15_launches["shard_apply_release"]},
                    }.get(rec["name"])

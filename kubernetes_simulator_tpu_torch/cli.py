@@ -1,9 +1,11 @@
 """CLI of the port: replay a YAML config, or run its what-if batch, on
 the card.
 
-    python -m kubernetes_simulator_tpu_torch run config.yaml [--device cpu] [--timeline-out t.json]
+    python -m kubernetes_simulator_tpu_torch run config.yaml [--device cpu] [--strategy cpu]
+        [--timeline-out t.json]
     python -m kubernetes_simulator_tpu_torch what-if config.yaml [--device cpu]
     python -m kubernetes_simulator_tpu_torch tune config.yaml [--device cpu]
+    python -m kubernetes_simulator_tpu_torch serve config.yaml [--device cpu] < queries.ndjson
 
 Counterpart: ``kubernetes_simulator_tpu/cli.py`` (``cmd_run`` :83,
 ``cmd_whatif`` :140; both pass ``whatIf.retryBuffer``, :100 and :182,
@@ -34,6 +36,14 @@ the simulated cluster timeline as a Chrome trace (:87-129). An enabled
 ``chaos:`` section (:func:`_chaos_timeline`, the reference's :50-75) gives
 ``run`` one node-event timeline (``chaos.seed``) and ``what-if`` one a
 scenario past 0 (``chaos.seed + s``; scenario 0 stays clean, :150-169).
+``run`` with ``strategy: cpu`` (or ``--strategy cpu``, the reference's
+flag, :85-86) replays on the CPU event engine (:mod:`.sim.runtime`) with
+only the telemetry and the chaos timeline, as the reference (:96-120), and
+writes a ``replay-cpu`` row. ``tune`` scores on the CPU event engine when
+the tuner's evaluator resolves to the host (``evaluator: cpu``, or ``auto``
+with terms the batched sweep does not carry: config12). ``serve``
+(:267-335) answers a ``service:`` section's NDJSON queries through the
+resident query service (:mod:`.sim.service`).
 """
 
 from __future__ import annotations
@@ -104,6 +114,8 @@ def _mesh(on: bool, device: str):
 
 def cmd_run(args) -> int:
     cfg = _load(args.config)
+    if args.strategy:
+        cfg.strategy = args.strategy
     with open(args.config) as f:
         raw = yaml.safe_load(f) or {}
     timeline_out = getattr(args, "timeline_out", None) or cfg.timeline_out
@@ -114,6 +126,8 @@ def cmd_run(args) -> int:
     ec, ep = build_encoded_case(cfg)
     t1 = time.perf_counter()
     log.info("encoded %d nodes / %d pods", ec.num_nodes, ep.num_pods)
+    if cfg.strategy == "cpu":
+        return _run_cpu(args, cfg, raw, ec, ep, gran, timeline_out)
     kw = {}
     if cfg.flight_recorder is not None:
         from .sim.flight import FlightRecorderConfig
@@ -148,6 +162,40 @@ def cmd_run(args) -> int:
         res = engine.replay(node_events=events) if events else engine.replay()
         out.write(replay_row("replay-torch", res, {"config": args.config,
                                                    "device": str(engine.device)}))
+    _write_timeline(timeline_out, res, ec, ep)
+    log.info(
+        "placed %d/%d pods in %.3fs (%.0f placements/sec) on %s, route %s",
+        res.placed, res.placed + res.unschedulable, res.wall_clock_s,
+        res.placements_per_sec, engine.device, res.route,
+    )
+    return 0
+
+
+def _run_cpu(args, cfg, raw: dict, ec, ep, gran: str, timeline_out) -> int:
+    """``run`` on the CPU event engine (``strategy: cpu``): as the reference
+    (kubernetes_simulator_tpu/cli.py:96-120) it takes only the telemetry
+    granularity and the chaos timeline, and writes a ``replay-cpu`` row."""
+    engine = get_strategy("cpu")(ec, ep, cfg.framework, telemetry=gran)
+    context = {
+        "seed": workload_seed(cfg), "engine": "cpu", "config_hash": config_hash(raw),
+    }
+    events = None
+    if _chaos_on(cfg):
+        events = _chaos_timeline(cfg, ec, ep, cfg.chaos.seed)
+        log.info("chaos: injecting %d node events", len(events))
+    with JsonlWriter(cfg.output, context=context) as out:
+        res = engine.replay(node_events=events) if events else engine.replay()
+        out.write(replay_row("replay-cpu", res, {"config": args.config, "device": "cpu"}))
+    _write_timeline(timeline_out, res, ec, ep)
+    log.info(
+        "placed %d/%d pods in %.3fs (%.0f placements/sec) on the CPU event engine",
+        res.placed, res.placed + res.unschedulable, res.wall_clock_s, res.placements_per_sec,
+    )
+    return 0
+
+
+def _write_timeline(timeline_out, res, ec, ep) -> None:
+    """The Chrome trace of ``res`` at ``timeline_out`` (when both are set)."""
     if timeline_out and res.telemetry is not None:
         from .sim.telemetry import write_chrome_trace
 
@@ -156,12 +204,6 @@ def cmd_run(args) -> int:
             requests=ep.requests, rindex=ec.vocab._r,
         )
         log.info("timeline: wrote %d trace events to %s", n_ev, timeline_out)
-    log.info(
-        "placed %d/%d pods in %.3fs (%.0f placements/sec) on %s, route %s",
-        res.placed, res.placed + res.unschedulable, res.wall_clock_s,
-        res.placements_per_sec, engine.device, res.route,
-    )
-    return 0
 
 
 def cmd_whatif(args) -> int:
@@ -248,8 +290,9 @@ def cmd_tune(args) -> int:
         res = tuner.run(writer=out)
     log.info(
         "tune: %s over %d rounds x %d candidates (%d evaluations, %d set-up%s) in %.3fs on %s",
-        tu.algo, res.rounds, res.population, res.evaluations, res.compile_count,
-        "" if res.compile_count == 1 else "s", res.wall_clock_s, args.device,
+        tu.algo, res.rounds, res.population, res.evaluations, res.compile_count or 0,
+        "" if res.compile_count == 1 else "s", res.wall_clock_s,
+        args.device if res.evaluator == "device" else "the CPU event engine",
     )
     log.info(
         "tune: held-out objective %.6f vs default %.6f (%s); best policy %s",
@@ -265,6 +308,68 @@ def cmd_tune(args) -> int:
     return 0
 
 
+def cmd_serve(args) -> int:
+    """The resident query service (the reference's ``cmd_serve``,
+    kubernetes_simulator_tpu/cli.py:267-335): NDJSON what-if queries from
+    ``service.input`` (a file or named pipe) or stdin, answered by a pooled
+    :class:`~.sim.service.QueryService` on the card (``--device cpu``: the
+    twins), schema-v7 ``query`` / ``query-result`` / ``query-error`` rows to
+    the config's ``output``."""
+    from .sim.service import QueryService, serve_lines
+
+    cfg = SimConfig.load(args.config)
+    if cfg.service is None:
+        log.error("config has no service: section")
+        return 2
+    errors = config_errors(cfg)
+    if errors:
+        for e in errors:
+            log.error("config: %s", e)
+        return 2
+    sv = cfg.service
+    with open(args.config) as f:
+        raw = yaml.safe_load(f) or {}
+    ec, ep = build_encoded_case(cfg)
+    log.info("encoded %d nodes / %d pods", ec.num_nodes, ep.num_pods)
+    flight = None
+    if cfg.flight_recorder is not None:
+        from .sim.flight import FlightRecorder, FlightRecorderConfig
+
+        flight = FlightRecorder(
+            FlightRecorderConfig(path=cfg.flight_recorder.path, every=cfg.flight_recorder.every),
+            meta={"mode": "serve"},
+        )
+    # The reference's row context: the config's strategy names the engine.
+    context = {
+        "seed": workload_seed(cfg), "engine": cfg.strategy, "config_hash": config_hash(raw),
+    }
+    with JsonlWriter(cfg.output, context=context) as out:
+        service = QueryService(
+            ec, ep, cfg.framework,
+            max_batch=sv.max_batch, batch_deadline_s=sv.batch_deadline_s,
+            max_engines=sv.max_engines, granularity=sv.granularity,
+            retry_buffer=sv.retry_buffer, writer=out, flight=flight,
+            wave_width=cfg.wave_width, chunk_waves=cfg.chunk_waves, device=args.device,
+        )
+        try:
+            if sv.input is not None:
+                # A named pipe blocks here until a producer connects.
+                with open(sv.input) as f:
+                    stats = serve_lines(service, f, out)
+            else:
+                stats = serve_lines(service, sys.stdin, out)
+        finally:
+            if flight is not None:
+                flight.close()
+    log.info(
+        "serve: %d queries in %d batches (%d cold build%s, %d warm, %d error%s) on %s",
+        stats["queries"], stats["batches"], stats["cold_builds"],
+        "" if stats["cold_builds"] == 1 else "s", stats["warm_hits"], stats["errors"],
+        "" if stats["errors"] == 1 else "s", args.device,
+    )
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="kubernetes_simulator_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -272,6 +377,7 @@ def main(argv=None) -> int:
         ("run", cmd_run, "replay a config's trace"),
         ("what-if", cmd_whatif, "run a config's what-if scenario batch"),
         ("tune", cmd_tune, "search a config's scheduler Score policy (the tune: section)"),
+        ("serve", cmd_serve, "answer NDJSON what-if queries (the service: section)"),
     ):
         r = sub.add_parser(name, help=text)
         r.add_argument("config")
@@ -280,6 +386,10 @@ def main(argv=None) -> int:
             help="torch device (default cuda: the kernels; cpu: their plain twins)",
         )
         if name == "run":
+            r.add_argument(
+                "--strategy", choices=["cpu", "jax", "torch"],
+                help="override the config's strategy (cpu: the CPU event engine)",
+            )
             r.add_argument(
                 "--timeline-out", default=None,
                 help="write the simulated cluster timeline as a Chrome trace JSON "

@@ -1,21 +1,59 @@
-"""Replay result type and the node-event timeline.
+"""Replay result type, the node-event timeline and the CPU event engine.
 
 Counterpart: ``kubernetes_simulator_tpu/sim/runtime.py`` — the
 :class:`ReplayResult`, field for field, so rows and tests read both
-packages' results alike, and the chaos timeline's :class:`NodeEvent`,
+packages' results alike, the chaos timeline's :class:`NodeEvent`,
 ``validate_node_events`` and ``events_hash`` (:47-130, the same checks and
-messages). The JAX package's CPU event engine is not part of the port.
+messages), and the CPU event engine :class:`CpuReplayEngine` (:195-527)
+with its strategy factory ``_make_cpu`` (:529), registered as the strategy
+``"cpu"``.
+
+The event engine is an event-driven replay over a virtual clock on the
+host: pod arrivals come from the trace, each binding updates the state the
+next pod sees, completions free resources, gangs reserve until their
+``minMember`` members are placed (rolled back at a member's failure or at
+the permit timeout), and node events perturb the cluster mid-replay (a
+``node_down`` evicts its pods NoExecute and requeues them). Pods wait in
+the kube scheduling queue (:mod:`..framework.queue`): priority order,
+exponential backoff, the unschedulable set flushed by cluster events. A
+pod no node admits runs the PostFilter (kube's minimal-victims preemption,
+:meth:`..framework.framework.SchedulerFramework.schedule_one`). The loop is
+the reference's line for line: its output depends on ``heapq`` ties
+(time, kind, seq) and the queue's (−priority, seq), so the pushes come in
+the reference's order. It is the caller asking for the CPU: nothing of it
+runs on a card.
 """
 
 from __future__ import annotations
 
+import heapq
+import time
 from dataclasses import dataclass
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-from ..models.state import SchedState
-from ..utils.metrics import round_fragmentation
+from ..framework.framework import FrameworkConfig, SchedulerFramework
+from ..framework.queue import SchedulingQueue
+from ..framework.registry import register_strategy
+from ..models.encode import PAD, EncodedCluster, EncodedPods
+from ..models.state import SchedState, bind, init_state, unbind
+from ..utils.metrics import (
+    fragmentation_gauges,
+    round_fragmentation,
+    series_gauges,
+    utilization_means,
+)
+from .telemetry import TelemetryCollector, TelemetryConfig
+
+# Event kinds, in tie-break order at equal timestamps: node events first,
+# then completions (free resources), then arrivals, then permit timeouts.
+EV_NODE = 0
+EV_FINISH = 1
+EV_ARRIVAL = 2
+EV_PERMIT_TIMEOUT = 3
+
+DEFAULT_PERMIT_TIMEOUT = 600.0  # virtual seconds a gang may hold reservations
 
 
 @dataclass
@@ -154,3 +192,349 @@ class ReplayResult:
         if self.telemetry is not None:
             out["telemetry"] = self.telemetry.summary()
         return out
+
+
+class CpuReplayEngine:
+    """The CPU event engine (module docstring) over one encoded cluster and
+    trace: ``replay(node_events=)`` runs the trace with an optional chaos
+    timeline and returns a :class:`ReplayResult` with the fragmentation
+    gauges and, unless ``telemetry="off"``, the telemetry (exact event-clock
+    latencies; at ``series`` the first-reject reasons of each failed
+    attempt and a sample at every event instant; at ``timeline`` the bind,
+    preempt, evict, node_down and node_up events)."""
+
+    def __init__(
+        self,
+        ec: EncodedCluster,
+        pods: EncodedPods,
+        config: Optional[FrameworkConfig] = None,
+        permit_timeout: float = DEFAULT_PERMIT_TIMEOUT,
+        telemetry=None,
+    ):
+        self.ec = ec
+        self.pods = pods
+        self.fw = SchedulerFramework(ec, pods, config)
+        self.permit_timeout = permit_timeout
+        # Telemetry granularity (str | TelemetryConfig | None→"summary").
+        # The event engine is the exact oracle: latencies are recorded at
+        # the event clock, rejections at the failing attempt itself.
+        self.telemetry_cfg = TelemetryConfig.resolve(telemetry)
+
+    # -- helpers -----------------------------------------------------------
+
+    def _affinity_dependent(self, p: int) -> bool:
+        pods = self.pods
+        return bool(
+            pods.aff_req[p, 0] >= 0
+            or pods.anti_req[p, 0] >= 0
+            or pods.spread_g[p, 0] >= 0
+        )
+
+    # -- main loop ---------------------------------------------------------
+
+    def replay(self, node_events: Optional[List[NodeEvent]] = None) -> ReplayResult:
+        ec, pods = self.ec, self.pods
+        validate_node_events(node_events, ec.num_nodes)
+        st = init_state(ec, pods)
+        q = SchedulingQueue()
+        events: List[Tuple[float, int, int, int]] = []  # (time, kind, seq, payload)
+        seq = 0
+
+        def push_event(t: float, kind: int, payload: int) -> int:
+            nonlocal seq
+            s = seq
+            heapq.heappush(events, (t, kind, s, payload))
+            seq += 1
+            return s
+
+        to_schedule = np.nonzero(pods.bound_node == PAD)[0]
+        for p in to_schedule:
+            push_event(float(pods.arrival[p]), EV_ARRIVAL, int(p))
+        node_events = node_events or []
+        for i, ev in enumerate(node_events):
+            push_event(ev.time, EV_NODE, i)
+        # Per-pod seq of the CURRENT finish timer: an eviction + re-bind
+        # re-arms the timer, and the stale event must not complete the pod
+        # early (same staleness class as gang permit timeouts).
+        finish_seq: Dict[int, int] = {}
+
+        # Completions of pre-bound pods.
+        for p in np.nonzero(pods.bound_node >= 0)[0]:
+            if np.isfinite(pods.duration[p]):
+                finish_seq[int(p)] = push_event(
+                    float(pods.arrival[p] + pods.duration[p]), EV_FINISH, int(p)
+                )
+
+        # Gang bookkeeping (kube coscheduling's Permit).
+        reserved: Dict[int, List[int]] = {}
+        failed_groups: Dict[int, float] = {}  # group → virtual time of failure
+        gang_timeout_seq: Dict[int, int] = {}
+        failed_groups_ver: Dict[int, int] = {}  # group → progress_ver at failure
+
+        placed = preemptions = attempts = 0
+        # Chaos disruption accounting: eviction time per still-displaced
+        # pod (a re-bind pops it; what remains at trace end is stranded).
+        evictions = evict_rescheduled = 0
+        evict_lat_sum = 0.0
+        evict_time: Dict[int, float] = {}
+        # Last successful placement per pod: a COMPLETED pod keeps its node
+        # (it ran; it is not unschedulable), unlike st.bound which goes PAD
+        # at EV_FINISH. Evictions clear it until re-placed.
+        assignments = np.where(pods.bound_node >= 0, pods.bound_node, PAD).astype(
+            np.int32
+        )
+        now = 0.0
+        # Committed cluster progress (commits, completions, evictions, node
+        # events) — NOT speculative gang reserves. Gates timed gang retries
+        # so a gang that cannot complete doesn't spin the virtual clock.
+        progress_ver = 0
+        saved_alloc = ec.allocatable.copy()
+        tel = (
+            TelemetryCollector(self.telemetry_cfg)
+            if self.telemetry_cfg.enabled
+            else None
+        )
+        want_series = tel is not None and tel.cfg.want_series
+        want_timeline = tel is not None and tel.cfg.want_timeline
+        # First COMMITTED bind per pod — latency is arrival→first bind;
+        # re-binds after eviction/preemption must not re-record.
+        lat_seen: set = set()
+
+        def record_bind(m: int, t: float) -> None:
+            if tel is None:
+                return
+            tel.clear_episode(m)
+            if want_timeline:
+                tel.event("bind", t, int(m), int(st.bound[m]))
+            if m not in lat_seen:
+                lat_seen.add(m)
+                lat = t - float(pods.arrival[m])
+                if lat <= 0.0:
+                    tel.bind_zero()
+                else:
+                    tel.bind_latency(m, lat)
+
+        t0 = time.perf_counter()
+
+        def rollback_group(g: int, park: bool):
+            # ``park=False`` (permit timeout): members were placeable and the
+            # gang just failed to assemble in time → backoff retry (kube
+            # coscheduling rejects waiting pods back through the backoff
+            # queue) — but only if committed progress happened since the
+            # last failure, else retrying cannot help and would spin the
+            # virtual clock. ``park=True`` (a member failed): assembling
+            # again needs a cluster event → everyone waits for one.
+            retry = (not park) and failed_groups_ver.get(g) != progress_ver
+            for m in reserved.pop(g, []):
+                unbind(ec, pods, st, m)
+                if retry:
+                    q.requeue_backoff(m, int(pods.priority[m]), now)
+                else:
+                    q.mark_unschedulable(m, int(pods.priority[m]), now)
+            gang_timeout_seq.pop(g, None)
+            failed_groups[g] = now
+            failed_groups_ver[g] = progress_ver
+
+        def evict(p: int, requeue: bool = True):
+            if tel is not None:
+                # A displacement starts a fresh unschedulable episode: the
+                # next fully-failed attempt re-enters the reasons counts.
+                tel.clear_episode(int(p))
+            unbind(ec, pods, st, int(p))
+            assignments[int(p)] = PAD
+            # An evicted reserved gang member returns to the queue
+            # unreserved — drop it from the reservation so a later re-bind
+            # cannot enter the members list twice.
+            g = int(pods.group_id[p])
+            if g != PAD and g in reserved and int(p) in reserved[g]:
+                reserved[g].remove(int(p))
+                if not reserved[g]:
+                    reserved.pop(g)
+                    gang_timeout_seq.pop(g, None)
+            if requeue:
+                q.push(int(p), int(pods.priority[p]))
+
+        while events or len(q):
+            _pt = time.perf_counter() if tel is not None else 0.0
+            if events:
+                # Advance to the next event OR the next backoff expiry,
+                # whichever is first — a 1s backoff must not stretch to the
+                # next event's timestamp.
+                nb = q.next_backoff_time()
+                t_next = events[0][0]
+                now = max(now, min(t_next, nb) if nb is not None else t_next)
+                progressed_cluster = False
+                while events and events[0][0] <= now:
+                    _, kind, ev_seq, payload = heapq.heappop(events)
+                    if kind == EV_ARRIVAL:
+                        q.push(payload, int(pods.priority[payload]))
+                    elif kind == EV_FINISH:
+                        if st.bound[payload] != PAD and finish_seq.get(payload) == ev_seq:
+                            unbind(ec, pods, st, payload)
+                            finish_seq.pop(payload, None)
+                            progressed_cluster = True
+                            progress_ver += 1
+                    elif kind == EV_NODE:
+                        ev = node_events[payload]
+                        if ev.kind == "node_down":
+                            ec.allocatable[ev.node] = 0.0
+                            if want_timeline:
+                                tel.event("node_down", now, -1, int(ev.node))
+                            # NoExecute semantics: evict and requeue (kube).
+                            for m in np.nonzero(st.bound == ev.node)[0]:
+                                if want_timeline:
+                                    tel.event("evict", now, int(m), int(ev.node))
+                                evict(int(m))
+                                evictions += 1
+                                evict_time[int(m)] = now
+                        elif ev.kind == "node_up":
+                            ec.allocatable[ev.node] = saved_alloc[ev.node]
+                            if want_timeline:
+                                tel.event("node_up", now, -1, int(ev.node))
+                        elif ev.kind == "capacity_scale":
+                            ec.allocatable[ev.node] = saved_alloc[ev.node] * ev.scale
+                        progressed_cluster = True
+                        progress_ver += 1
+                    elif kind == EV_PERMIT_TIMEOUT:
+                        g = payload
+                        # Seq must match: stale timeouts from a rolled-back
+                        # reservation cycle must not cancel a fresh one.
+                        if g in reserved and gang_timeout_seq.get(g) == ev_seq:
+                            rollback_group(g, park=False)
+                if progressed_cluster:
+                    q.flush_unschedulable(now)
+            q.flush_backoff(now)
+            if tel is not None:
+                tel.phases.add("host_events", time.perf_counter() - _pt)
+                if want_series:
+                    tel.sample(
+                        now,
+                        active=len(q),
+                        unschedulable=q.num_unschedulable,
+                        backoff=q.num_backoff,
+                        # The utilization gauges, sampled after
+                        # the instant's events, before scheduling — the
+                        # device boundary samples the same committed
+                        # state via the shared helper (bit-parity).
+                        **series_gauges(st.used, ec.allocatable, ec.vocab._r),
+                    )
+                _pt = time.perf_counter()
+
+            made_bind = False
+            while True:
+                p = q.pop()
+                if p is None:
+                    break
+                g = int(pods.group_id[p])
+                if g != PAD and g in failed_groups and failed_groups[g] == now:
+                    # Group already failed at this instant; retry later.
+                    # No ``now``: this was not a real scheduling attempt, so
+                    # it must not inflate the pod's exponential backoff.
+                    q.mark_unschedulable(p, int(pods.priority[p]))
+                    continue
+                attempts += 1
+                res = self.fw.schedule_one(
+                    st, p, allow_preemption=g == PAD, want_reasons=want_series
+                )
+                if res.node == PAD:
+                    if want_series and res.reasons is not None:
+                        tel.rejection(int(p), res.reasons)
+                    if g != PAD and g in reserved:
+                        rollback_group(g, park=True)
+                    q.mark_unschedulable(p, int(pods.priority[p]), now)
+                    continue
+                for v in res.victims:
+                    if want_timeline:
+                        tel.event("preempt", now, int(v), int(st.bound[v]))
+                    evict(v)
+                    preemptions += 1
+                    progress_ver += 1
+                bind(ec, pods, st, p, res.node)
+                if g != PAD:
+                    members = reserved.setdefault(g, [])
+                    if not members:
+                        gang_timeout_seq[g] = push_event(
+                            now + self.permit_timeout, EV_PERMIT_TIMEOUT, g
+                        )
+                    members.append(p)
+                    if len(members) >= int(pods.pg_min_member[g]):
+                        # Permit: whole gang reserved → commit.
+                        for m in reserved.pop(g):
+                            placed += 1
+                            made_bind = True
+                            progress_ver += 1
+                            assignments[m] = st.bound[m]
+                            record_bind(m, now)
+                            if m in evict_time:
+                                evict_rescheduled += 1
+                                evict_lat_sum += now - evict_time.pop(m)
+                            if np.isfinite(pods.duration[m]):
+                                finish_seq[m] = push_event(
+                                    now + float(pods.duration[m]), EV_FINISH, m
+                                )
+                        gang_timeout_seq.pop(g, None)
+                        failed_groups.pop(g, None)
+                        failed_groups_ver.pop(g, None)
+                else:
+                    placed += 1
+                    made_bind = True
+                    progress_ver += 1
+                    assignments[p] = res.node
+                    record_bind(p, now)
+                    if p in evict_time:
+                        evict_rescheduled += 1
+                        evict_lat_sum += now - evict_time.pop(p)
+                    if np.isfinite(pods.duration[p]):
+                        finish_seq[p] = push_event(
+                            now + float(pods.duration[p]), EV_FINISH, p
+                        )
+                if made_bind and q.num_unschedulable:
+                    # Binding is a cluster event for affinity/spread waiters.
+                    q.flush_unschedulable(now)
+            if tel is not None:
+                tel.phases.add("host_schedule", time.perf_counter() - _pt)
+            # Idle until the next event (or backoff expiry).
+            nb = q.next_backoff_time()
+            if not events and len(q) == 0 and nb is not None:
+                now = max(now, nb)
+                q.flush_backoff(now)
+                if len(q) == 0:
+                    break
+
+        # Any still-reserved gang at trace end never completed → roll back.
+        for g in list(reserved):
+            rollback_group(g, park=True)
+
+        wall = time.perf_counter() - t0
+        ec.allocatable[:] = saved_alloc
+        util = utilization_means(st.used, ec.allocatable, ec.vocab._r)
+        unsched = int((assignments[to_schedule] == PAD).sum())
+        pending = to_schedule[assignments[to_schedule] == PAD]
+        frag = fragmentation_gauges(
+            ec.allocatable, st.used, pods.requests[pending], ec.vocab._r
+        )
+        return ReplayResult(
+            assignments=assignments,
+            placed=placed,
+            unschedulable=unsched,
+            preemptions=preemptions,
+            attempts=attempts,
+            wall_clock_s=wall,
+            placements_per_sec=placed / wall if wall > 0 else 0.0,
+            virtual_makespan=now,
+            utilization=util,
+            state=st,
+            evictions=evictions,
+            evict_rescheduled=evict_rescheduled,
+            evict_stranded=len(evict_time),
+            evict_latency_mean=(
+                evict_lat_sum / evict_rescheduled if evict_rescheduled else 0.0
+            ),
+            fragmentation=frag,
+            telemetry=tel.result() if tel is not None else None,
+        )
+
+
+@register_strategy("cpu")
+def _make_cpu(ec: EncodedCluster, pods: EncodedPods, config: Optional[FrameworkConfig] = None, **kw):
+    return CpuReplayEngine(ec, pods, config, **kw)

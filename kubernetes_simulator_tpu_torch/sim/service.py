@@ -1,0 +1,603 @@
+"""The resident query service: pooled what-if engines answering batched
+multi-tenant defragmentation queries.
+
+Counterpart: ``kubernetes_simulator_tpu/sim/service.py`` — ``max_engines_cap``
+(:70), ``DefragQuery`` (:83), ``ServiceStats`` (:101), ``QueryService``
+(:118) and ``serve_lines`` (:587), line for line.
+
+- **Engine pool**: one :class:`.whatif.WhatIfEngine` (kube preemption
+  with the retry buffer) a (query family, telemetry granularity) key,
+  LRU-evicted under ``maxEngines`` (``KSIM_SERVICE_MAX_ENGINES`` wins). A
+  pool hit swaps the scenario batch into the resident engine
+  (:meth:`.whatif.WhatIfEngine.set_scenarios`): a warm batch sets up
+  nothing, so there is one set-up a pool key for the whole session
+  (``stats()["compile_counts"]`` reports each pooled engine's ``setups``
+  where the reference reports its compiled-executable count). A batch
+  runs K6's kube mode, K10 at each drain and K3's release on the card, as
+  any kube what-if.
+- **Incremental base state**: a host mirror of committed usage (bind /
+  release / evict deltas, each node's binds summed in insertion order in
+  f32) enters every scenario as per-node ``scale_capacity`` perturbations
+  (factor ``(alloc − used) / alloc``), through the same
+  :class:`.whatif.ScenarioSet` a one-off run takes, so a batched answer
+  equals its one-off run's.
+- **Micro-batching admission**: slot 0 of a batch is the clean baseline,
+  slots 1..maxBatch carry queries, unused slots are padded with baseline
+  copies; the queue flushes when full or at its deadline (checked at every
+  submit / poll: no thread).
+
+A defrag query drains its nodes through the chaos eviction path
+(``node_down`` at ``drainAt``, ``node_up`` at ``recoverAt``), scored by its
+eviction cost and its fragmentation gauges beside the baseline slot's::
+
+    {"op": "defrag", "tenant": "team-a", "id": "q1",
+     "nodes": [3, "n7"], "drainAt": 5.0, "recoverAt": 12.0}
+
+Results demux per tenant (:meth:`QueryService.poll`) and stream as schema-v7
+``query`` / ``query-result`` rows; a malformed line becomes a
+``query-error`` row and the service keeps serving. The flight recorder's
+``query`` rows carry each batch's queue depth, occupancy, warm or cold and
+wall.
+"""
+
+from __future__ import annotations
+
+import math
+import os
+import time
+from collections import OrderedDict
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+
+from ..framework.framework import FrameworkConfig
+from ..models.encode import EncodedCluster, EncodedPods
+from ..utils.metrics import _scrub_timing
+from .runtime import NodeEvent
+from .telemetry import _LEVELS
+from .whatif import Perturbation, Scenario, WhatIfEngine
+
+# Telemetry granularities a query may request; batches group by
+# granularity so one flush can touch several pool engines.
+_QUERY_FAMILIES = ("defrag",)
+
+
+def max_engines_cap(default: int = 4) -> int:
+    """Engine-pool cap: ``KSIM_SERVICE_MAX_ENGINES`` wins over the
+    config/ctor value (operator env beats YAML, same rule as every
+    other KSIM_* knob)."""
+    v = os.environ.get("KSIM_SERVICE_MAX_ENGINES", "").strip()
+    if v:
+        try:
+            return max(1, int(v))
+        except ValueError:
+            pass
+    return max(1, int(default))
+
+
+@dataclass
+class DefragQuery:
+    """One validated defragmentation what-if (parsed from the wire
+    dict). ``nodes`` is sorted/deduped so the synthesized event
+    timeline is deterministic regardless of request order."""
+
+    tenant: str
+    qid: str
+    nodes: List[int]
+    drain_at: float
+    recover_at: Optional[float]
+    granularity: Optional[str] = None  # None = service default
+    submit_t: float = 0.0
+    family: str = "defrag"
+
+
+@dataclass
+class ServiceStats:
+    """Serving-plane counters (``QueryService.stats()`` returns the
+    dict form); ``compile_counts`` holds each pooled engine's set-ups,
+    under the reference's name."""
+
+    queries: int = 0
+    batches: int = 0
+    cold_builds: int = 0
+    warm_hits: int = 0
+    evicted_engines: int = 0
+    errors: int = 0
+    compile_counts: Dict[str, Optional[int]] = field(default_factory=dict)
+
+
+class QueryService:
+    """Resident what-if query service over one encoded (cluster, trace)
+    pair. Single-threaded and cooperative by design — submit/poll/flush
+    drive the admission queue; there is no background thread to race
+    the host mirrors."""
+
+    def __init__(
+        self,
+        ec: EncodedCluster,
+        ep: EncodedPods,
+        config: Optional[FrameworkConfig] = None,
+        *,
+        max_batch: int = 3,
+        batch_deadline_s: float = 0.05,
+        max_engines: int = 4,
+        granularity: str = "summary",
+        retry_buffer: int = 64,
+        writer=None,
+        flight=None,
+        clock=None,
+        **engine_kw,
+    ):
+        if max_batch < 1:
+            raise ValueError("max_batch must be >= 1")
+        if batch_deadline_s <= 0:
+            raise ValueError(
+                "batch_deadline_s must be > 0 (a zero deadline would "
+                "flush every query alone and serve nothing batched)"
+            )
+        if retry_buffer < 1:
+            raise ValueError(
+                "retry_buffer must be >= 1 (defrag queries drain nodes "
+                "through the kube boundary retry pass)"
+            )
+        self.ec = ec
+        self.ep = ep
+        self.config = config
+        self.max_batch = int(max_batch)
+        # Fixed batch shape: slot 0 = clean baseline, 1..max_batch =
+        # queries (padded with baseline copies) — one engine shape a
+        # key regardless of instantaneous occupancy.
+        self.S = self.max_batch + 1
+        self.batch_deadline_s = float(batch_deadline_s)
+        self.max_engines = max_engines_cap(max_engines)
+        self.granularity = granularity
+        self.retry_buffer = int(retry_buffer)
+        self.engine_kw = dict(engine_kw)
+        self.writer = writer
+        self.flight = flight
+        self._clock = clock or time.perf_counter
+        self._pool: "OrderedDict[Tuple[str, str], WhatIfEngine]" = (
+            OrderedDict()
+        )
+        self.stats_ = ServiceStats()
+        # Host mirror of committed base state: per-node insertion-order
+        # bind lists; used rows are recomputed lazily per dirty node by
+        # summing the active binds IN ORDER (deterministic f32).
+        self._alloc = np.asarray(ec.allocatable, dtype=np.float32)
+        self._rindex = dict(ec.vocab._r)
+        self._rname = {ri: name for name, ri in self._rindex.items()}
+        self._node_index = {n: i for i, n in enumerate(ec.node_names)}
+        self._binds: Dict[str, Tuple[int, np.ndarray]] = {}
+        self._node_binds: Dict[int, List[str]] = {}
+        self._used_rows: Dict[int, np.ndarray] = {}
+        self._node_perts: Dict[int, List[Perturbation]] = {}
+        self._dirty: set = set()
+        # Admission queue + per-tenant result store.
+        self._pending: List[DefragQuery] = []
+        self._deadline: Optional[float] = None
+        self._results: Dict[str, List[dict]] = {}
+        self._inflight_ids: set = set()
+        self._qseq = 0
+        self._closed = False
+
+    # -- base cluster state (incremental, never rebuilt from trace) ------
+
+    def _req_vector(self, requests) -> np.ndarray:
+        vec = np.zeros(self._alloc.shape[1], dtype=np.float32)
+        if requests is None:
+            return vec
+        for name, amount in dict(requests).items():
+            ri = self._rindex.get(name)
+            if ri is None:
+                raise ValueError(
+                    f"unknown resource {name!r} (cluster vocabulary: "
+                    f"{sorted(self._rindex)})"
+                )
+            vec[ri] = np.float32(amount)
+        return vec
+
+    def _node_id(self, node) -> int:
+        if isinstance(node, str):
+            ni = self._node_index.get(node)
+            if ni is None:
+                raise ValueError(f"unknown node name {node!r}")
+            return ni
+        ni = int(node)
+        if not 0 <= ni < self.ec.num_nodes:
+            raise ValueError(
+                f"node {node} out of range for a cluster of "
+                f"{self.ec.num_nodes} nodes"
+            )
+        return ni
+
+    def apply_bind(self, bind_id: str, node, requests) -> None:
+        """Commit one pod-sized usage delta to the base state. The next
+        query sees it — no trace rebuild, only the touched node's used
+        row is recomputed."""
+        if bind_id in self._binds:
+            raise ValueError(f"bind {bind_id!r} is already active")
+        ni = self._node_id(node)
+        self._binds[bind_id] = (ni, self._req_vector(requests))
+        self._node_binds.setdefault(ni, []).append(bind_id)
+        self._dirty.add(ni)
+
+    def apply_release(self, bind_id: str) -> None:
+        """Release one active bind (completion delta)."""
+        ent = self._binds.pop(bind_id, None)
+        if ent is None:
+            raise ValueError(f"unknown bind {bind_id!r}")
+        ni = ent[0]
+        self._node_binds[ni].remove(bind_id)
+        self._dirty.add(ni)
+
+    def apply_evict(self, node) -> List[str]:
+        """Evict every active bind on ``node`` (chaos/operator delta);
+        returns the released bind ids in insertion order."""
+        ni = self._node_id(node)
+        victims = list(self._node_binds.get(ni, ()))
+        for bid in victims:
+            self._binds.pop(bid, None)
+        if victims:
+            self._node_binds[ni] = []
+            self._dirty.add(ni)
+        return victims
+
+    def _used_row(self, ni: int) -> np.ndarray:
+        row = np.zeros(self._alloc.shape[1], dtype=np.float32)
+        for bid in self._node_binds.get(ni, ()):
+            row = row + self._binds[bid][1]
+        return row
+
+    def _refresh_dirty(self) -> None:
+        for ni in sorted(self._dirty):
+            row = self._used_row(ni)
+            if not row.any():
+                self._used_rows.pop(ni, None)
+                self._node_perts.pop(ni, None)
+                continue
+            self._used_rows[ni] = row
+            perts: List[Perturbation] = []
+            for ri in range(self._alloc.shape[1]):
+                alloc = float(self._alloc[ni, ri])
+                used = float(row[ri])
+                if used <= 0.0 or alloc <= 0.0:
+                    continue
+                factor = max((alloc - used) / alloc, 0.0)
+                perts.append(
+                    Perturbation(
+                        op="scale_capacity",
+                        nodes=np.array([ni]),
+                        resource=self._rname[ri],
+                        factor=factor,
+                    )
+                )
+            self._node_perts[ni] = perts
+        self._dirty.clear()
+
+    def base_perturbations(self) -> List[Perturbation]:
+        """The base state as perturbations — prepended to EVERY scenario
+        (baseline included), so queries run against the live cluster
+        through the exact same ScenarioSet path a one-off run takes."""
+        self._refresh_dirty()
+        out: List[Perturbation] = []
+        for ni in sorted(self._node_perts):
+            out.extend(self._node_perts[ni])
+        return out
+
+    def base_state(self) -> dict:
+        self._refresh_dirty()
+        return {
+            "binds": len(self._binds),
+            "nodes_used": len(self._used_rows),
+        }
+
+    # -- query admission --------------------------------------------------
+
+    def parse_query(self, q: dict) -> DefragQuery:
+        """Validate one wire dict. Raises ``ValueError`` on anything
+        malformed — the serve loop turns that into a ``query-error``
+        row and keeps serving."""
+        if not isinstance(q, dict):
+            raise ValueError("query must be a JSON object")
+        fam = q.get("op")
+        if fam not in _QUERY_FAMILIES:
+            raise ValueError(
+                f"op: unknown query family {fam!r} (known: "
+                f"{', '.join(_QUERY_FAMILIES)})"
+            )
+        tenant = str(q.get("tenant") or "default")
+        self._qseq += 1
+        qid = str(q.get("id") or f"q{self._qseq}")
+        raw_nodes = q.get("nodes")
+        if not raw_nodes:
+            raise ValueError("nodes: a defrag query must name >= 1 node")
+        nodes = sorted({self._node_id(n) for n in raw_nodes})
+        drain_at = float(q.get("drainAt", 0.0))
+        if not math.isfinite(drain_at) or drain_at < 0:
+            raise ValueError(
+                f"drainAt: must be a finite value >= 0, got {drain_at!r}"
+            )
+        recover_at = q.get("recoverAt")
+        if recover_at is not None:
+            recover_at = float(recover_at)
+            if not math.isfinite(recover_at) or recover_at <= drain_at:
+                raise ValueError(
+                    "recoverAt: must be > drainAt (or null to leave "
+                    "the nodes drained)"
+                )
+        gran = q.get("granularity")
+        if gran is not None:
+            if gran not in _LEVELS:
+                raise ValueError(
+                    f"granularity: must be one of {', '.join(_LEVELS)}"
+                )
+        return DefragQuery(
+            tenant=tenant, qid=qid, nodes=nodes, drain_at=drain_at,
+            recover_at=recover_at, granularity=gran,
+        )
+
+    def submit(self, q: dict) -> Tuple[str, str]:
+        """Admit one query; returns ``(tenant, id)``. Flushes the batch
+        when it fills; otherwise arms the deadline (checked at the next
+        submit/poll)."""
+        if self._closed:
+            raise ValueError("service is closed")
+        dq = self.parse_query(q)
+        key = (dq.tenant, dq.qid)
+        if key in self._inflight_ids:
+            raise ValueError(
+                f"duplicate query id {dq.qid!r} for tenant "
+                f"{dq.tenant!r} (poll results before reusing ids)"
+            )
+        dq.submit_t = self._clock()
+        self._inflight_ids.add(key)
+        self._pending.append(dq)
+        self.stats_.queries += 1
+        if self.writer is not None:
+            self.writer.write(
+                {
+                    "kind": "query",
+                    "tenant": dq.tenant,
+                    "query": dq.qid,
+                    "family": dq.family,
+                    "queue_depth": len(self._pending),
+                }
+            )
+        if self._deadline is None:
+            self._deadline = dq.submit_t + self.batch_deadline_s
+        if len(self._pending) >= self.max_batch:
+            self.flush()
+        return dq.tenant, dq.qid
+
+    def poll(self, tenant: Optional[str] = None) -> List[dict]:
+        """Drain finished results (for one tenant, or all). Flushes the
+        admission queue first when its deadline has expired."""
+        if (
+            self._pending
+            and self._deadline is not None
+            and self._clock() >= self._deadline
+        ):
+            self.flush()
+        if tenant is not None:
+            return self._results.pop(tenant, [])
+        out: List[dict] = []
+        for t in sorted(self._results):
+            out.extend(self._results[t])
+        self._results.clear()
+        return out
+
+    def deadline_remaining(self) -> Optional[float]:
+        """Seconds until the armed batch deadline (None when idle) —
+        the serve loop sizes its input wait with this."""
+        if self._deadline is None or not self._pending:
+            return None
+        return max(self._deadline - self._clock(), 0.0)
+
+    # -- scenario synthesis (shared with the parity oracle) ---------------
+
+    def base_scenario(self) -> Scenario:
+        """The clean-baseline scenario (slot 0 / padding)."""
+        return Scenario(perturbations=self.base_perturbations())
+
+    def query_scenario(self, dq: DefragQuery) -> Scenario:
+        """The device scenario for one defrag query: base state plus a
+        drain(/recover) timeline through the chaos eviction path. The
+        parity tests run THIS through a fresh one-off engine — the
+        conversion is the single source of truth."""
+        events = [
+            NodeEvent(time=dq.drain_at, kind="node_down", node=n)
+            for n in dq.nodes
+        ]
+        if dq.recover_at is not None:
+            events.extend(
+                NodeEvent(time=dq.recover_at, kind="node_up", node=n)
+                for n in dq.nodes
+            )
+        return Scenario(
+            perturbations=self.base_perturbations(), events=events
+        )
+
+    # -- engine pool -------------------------------------------------------
+
+    def _pool_key(self, dq: DefragQuery) -> Tuple[str, str]:
+        return (dq.family, dq.granularity or self.granularity)
+
+    def _acquire(
+        self, key: Tuple[str, str], scens: List[Scenario]
+    ) -> Tuple[WhatIfEngine, bool]:
+        eng = self._pool.get(key)
+        if eng is not None:
+            try:
+                eng.set_scenarios(scens)
+                self._pool.move_to_end(key)
+                self.stats_.warm_hits += 1
+                return eng, True
+            except ValueError:
+                # Shape/envelope drift — fall through to a cold build.
+                del self._pool[key]
+        eng = WhatIfEngine(
+            self.ec,
+            self.ep,
+            scens,
+            self.config,
+            preemption="kube",
+            retry_buffer=self.retry_buffer,
+            telemetry=key[1],
+            **self.engine_kw,
+        )
+        self.stats_.cold_builds += 1
+        self._pool[key] = eng
+        while len(self._pool) > self.max_engines:
+            self._pool.popitem(last=False)
+            self.stats_.evicted_engines += 1
+        return eng, False
+
+    # -- flush: coalesce, run, demux ---------------------------------------
+
+    def flush(self) -> int:
+        """Run every pending query now; returns the number answered.
+        Queries group by (family, granularity) — each group coalesces
+        onto the scenario axis of its pool engine."""
+        batch, self._pending, self._deadline = self._pending, [], None
+        if not batch:
+            return 0
+        groups: "OrderedDict[Tuple[str, str], List[DefragQuery]]" = (
+            OrderedDict()
+        )
+        for dq in batch:
+            groups.setdefault(self._pool_key(dq), []).append(dq)
+        for key, qs in groups.items():
+            self._run_group(key, qs)
+        return len(batch)
+
+    def _run_group(self, key: Tuple[str, str], qs: List[DefragQuery]):
+        t0 = self._clock()
+        base = self.base_scenario()
+        scens = [base] + [self.query_scenario(dq) for dq in qs]
+        while len(scens) < self.S:
+            scens.append(self.base_scenario())
+        eng, warm = self._acquire(key, scens)
+        res = eng.run()
+        latency = self._clock() - t0
+        occupancy = len(qs) / self.max_batch
+        self.stats_.batches += 1
+        if self.flight is not None:
+            self.flight.query(
+                batch=self.stats_.batches,
+                queued=len(qs),
+                occupancy=occupancy,
+                warm=warm,
+                latency_s=latency,
+                engines=len(self._pool),
+            )
+
+        def _opt(arr, si):
+            if arr is None:
+                return None
+            v = float(arr[si])
+            return None if math.isnan(v) else v
+
+        for slot, dq in enumerate(qs):
+            si = slot + 1
+            row = {
+                "kind": "query-result",
+                "tenant": dq.tenant,
+                "query": dq.qid,
+                "family": dq.family,
+                "batch": self.stats_.batches,
+                "slot": slot,
+                "batch_occupancy": round(occupancy, 4),
+                "warm": bool(warm),
+                "latency_s": round(latency, 6),
+                "queue_wait_s": round(max(t0 - dq.submit_t, 0.0), 6),
+                "placed": int(res.placed[si]),
+                "unschedulable": int(res.unschedulable[si]),
+                "placed_delta": int(res.placed[si] - res.placed[0]),
+                # Disruption price: chaos evictions through the drain.
+                "evictions": (
+                    int(res.evictions[si])
+                    if res.evictions is not None else None
+                ),
+                "evict_rescheduled": (
+                    int(res.evict_rescheduled[si])
+                    if res.evict_rescheduled is not None else None
+                ),
+                "evict_stranded": (
+                    int(res.evict_stranded[si])
+                    if res.evict_stranded is not None else None
+                ),
+                "evict_latency_mean": _opt(res.evict_latency_mean, si),
+                # Compaction benefit: fragmentation economics vs the
+                # baseline slot of the SAME batch (same base state).
+                "stranded_cpu": _opt(res.stranded_cpu, si),
+                "frag_index_cpu": _opt(res.frag_index_cpu, si),
+                "packing_efficiency": _opt(res.packing_efficiency, si),
+                "baseline_stranded_cpu": _opt(res.stranded_cpu, 0),
+                "baseline_frag_index_cpu": _opt(res.frag_index_cpu, 0),
+                "baseline_packing_efficiency": _opt(
+                    res.packing_efficiency, 0
+                ),
+            }
+            if res.scenario_telemetry is not None:
+                tel = res.scenario_telemetry[si]
+                if tel is not None:
+                    row["telemetry"] = tel.query_view()
+            self._inflight_ids.discard((dq.tenant, dq.qid))
+            self._results.setdefault(dq.tenant, []).append(row)
+            if self.writer is not None:
+                self.writer.write(_scrub_timing(dict(row)))
+
+    # -- lifecycle ---------------------------------------------------------
+
+    def stats(self) -> dict:
+        self.stats_.compile_counts = {
+            "/".join(k): eng.setups for k, eng in self._pool.items()
+        }
+        d = dict(self.stats_.__dict__)
+        d["engines"] = len(self._pool)
+        return d
+
+    def close(self) -> List[dict]:
+        """Flush whatever is queued, drop the engine pool, and return
+        any undelivered results."""
+        if self._closed:
+            return []
+        self.flush()
+        self._closed = True
+        self._pool.clear()
+        return self.poll()
+
+
+def serve_lines(service: QueryService, lines, writer) -> dict:
+    """Drive a :class:`QueryService` from an iterable of NDJSON lines
+    (the ``serve`` CLI hands it stdin or a named pipe). A malformed or
+    torn line becomes a structured ``query-error`` row and the loop
+    KEEPS SERVING — the engine pool never tears down on bad input.
+    Finished results stream through the service's writer as they
+    demux; EOF flushes the tail. Returns the final stats dict."""
+    import json
+
+    for raw in lines:
+        raw = raw.strip()
+        if not raw:
+            continue
+        try:
+            q = json.loads(raw)
+            service.submit(q)
+        except ValueError as e:
+            # json.JSONDecodeError is a ValueError: one handler covers
+            # torn/partial lines and semantically invalid queries.
+            service.stats_.errors += 1
+            if writer is not None:
+                writer.write(
+                    {
+                        "kind": "query-error",
+                        "error": str(e)[:500],
+                        "raw": raw[:200],
+                    }
+                )
+            continue
+        service.poll()  # deadline check between lines (cooperative)
+    service.close()
+    return service.stats()

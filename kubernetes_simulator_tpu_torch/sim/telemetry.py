@@ -4,7 +4,9 @@
 Counterpart: ``kubernetes_simulator_tpu/sim/telemetry.py`` —
 ``TelemetryConfig`` (:71), ``latency_summary`` (:102), ``PhaseTimers``
 (:150), ``ReplayTelemetry`` with ``summary`` / ``query_view`` (:178-235),
-``TelemetryCollector`` with its episode semantics (:338-437), and the
+``TelemetryCollector`` with its episode semantics (:338-437; the host
+hooks ``rejection`` / ``clear_episode`` that the CPU event engine calls),
+``first_reject_counts_host`` (:440-460), and the
 Chrome-trace export ``_trace_events`` / ``write_chrome_trace``
 (:462-589). The fleet merges (``ReplayTelemetry.merge``,
 ``write_chrome_trace_merged``) come with the multi-process fleet.
@@ -193,9 +195,12 @@ class TelemetryCollector:
 
     The rejection attribution's episode semantics (a pod's first
     fully-failed attempt charges ``reasons``, every failed attempt charges
-    ``rejection_attempts``) are applied on the card by K5 and its twin
-    ``ops.reference.first_reject``; the engines hand the fetched totals to
-    :meth:`rejection_totals`."""
+    ``rejection_attempts``, until a bind or an eviction re-arms the pod) are
+    applied on the card by K5 and its twin ``ops.reference.first_reject``;
+    the device engines hand the fetched totals to :meth:`rejection_totals`.
+    The CPU event engine (:class:`.runtime.CpuReplayEngine`) charges each
+    failed attempt on the host through :meth:`rejection` and
+    :meth:`clear_episode` (the reference's per-attempt hooks)."""
 
     def __init__(self, config=None):
         self.cfg = TelemetryConfig.resolve(config)
@@ -204,6 +209,7 @@ class TelemetryCollector:
         self._zero = 0
         self._reasons: Dict[str, int] = {}
         self._attempts: Dict[str, int] = {}
+        self._attributed: set = set()
         self._series: Dict[str, List[float]] = {}
         self._events: List[Tuple[str, float, int, int]] = []
 
@@ -228,6 +234,21 @@ class TelemetryCollector:
                 self._attempts[k] = self._attempts.get(k, 0) + int(a)
             if r:
                 self._reasons[k] = self._reasons.get(k, 0) + int(r)
+
+    def rejection(self, pod: int, counts: Dict[str, int]) -> None:
+        """One fully-failed scheduling attempt of ``pod`` on the host, with
+        its first-reject ``counts`` by plugin name: every attempt charges
+        ``rejection_attempts``, the first of an episode ``reasons``."""
+        for k, v in counts.items():
+            self._attempts[k] = self._attempts.get(k, 0) + int(v)
+        if pod not in self._attributed:
+            self._attributed.add(pod)
+            for k, v in counts.items():
+                self._reasons[k] = self._reasons.get(k, 0) + int(v)
+
+    def clear_episode(self, pod: int) -> None:
+        """A bind or an eviction ends the pod's unschedulable episode."""
+        self._attributed.discard(int(pod))
 
     # -- series / timeline ------------------------------------------------
 
@@ -259,6 +280,24 @@ class TelemetryCollector:
         if self.cfg.want_timeline:
             tel.events = list(self._events)
         return tel
+
+
+def first_reject_counts_host(
+    plugins, ctx, st, p: int, num_nodes: int
+) -> Tuple[np.ndarray, Dict[str, int]]:
+    """Host-side first-reject attribution: run the Filter chain charging
+    each node to the first plugin that rejects it. Returns (final mask,
+    counts); the counts are those of ``SchedulerFramework.feasible_mask``
+    with ``reject_counts``, whose early stop loses nothing."""
+    mask = np.ones(num_nodes, dtype=bool)
+    counts: Dict[str, int] = {}
+    for pl in plugins:
+        counts[pl.name] = 0
+        m = pl.filter(ctx, st, p)
+        if m is not None:
+            counts[pl.name] = int((mask & ~m).sum())
+            mask &= m
+    return mask, counts
 
 
 # -- Chrome-trace (Perfetto) export --------------------------------------

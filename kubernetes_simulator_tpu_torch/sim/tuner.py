@@ -26,6 +26,16 @@ extra 2·S_h-row sweep, winner vs the config's default policy) and by
 (the CPU oracle), whose objective must match the device objective within
 a pinned envelope.
 
+The host evaluator (``evaluator="cpu"``, and ``"auto"`` when an objective
+or constraint term is one the batched sweep does not carry: latency
+quantiles, fragmentation gauges, preemptions, evictions; the reference's
+:363-390 and :478-625) scores every candidate × scenario on the CPU event
+engine (:class:`.runtime.CpuReplayEngine`, telemetry ``summary``) over the
+split's perturbed host clusters, caching each (split, vector) objective:
+the incumbent rides as candidate 0 of every round. The held-out pair runs
+the same way, the oracle check is skipped (the evaluation already ran on
+the event engine), and no card work is done (``compile_count`` None).
+
 The trajectory streams as schema-v3 JSONL rows (``run_type: "tune"``;
 scripts/check_metrics_schema.py) with no wall-clock field, so a fixed seed
 and config give byte-identical files — and the same bytes as the JAX
@@ -37,9 +47,6 @@ until the flat axis divides over the mesh's devices
 (``TuneResult.population_requested`` keeps the requested size), and both
 sweeps run on the meshed what-if engine, whose blocks split the flat axis
 on the reference's boundaries (contiguous blocks of S / ndev rows).
-
-Refused by name: the host evaluator (``evaluator: cpu``, and ``auto`` when
-the objective needs it: the CPU event engine, queue A item 13).
 """
 
 from __future__ import annotations
@@ -58,6 +65,7 @@ from ..parallel.mesh import fit_population, mesh_shape
 from ..plugins.builtin import TUNABLE_FIT_STRATEGIES, tunable_parameters
 from ..utils.metrics import TUNE_SCHEMA_VERSION, log
 from .greedy import greedy_replay
+from .runtime import CpuReplayEngine
 from .whatif import Scenario, ScenarioSet, WhatIfEngine, uniform_scenarios
 
 #: Objective terms every engine path provides.
@@ -191,9 +199,9 @@ def tune_config_errors(tu) -> List[str]:
             "tune.scenarios: train and heldout must both be >= 1 "
             "(the acceptance check runs on the held-out split)"
         )
-    if tu.evaluator not in ("auto", "device"):
+    if tu.evaluator not in ("auto", "device", "cpu"):
         errors.append(
-            f"tune.evaluator: must be 'auto' or 'device', got {tu.evaluator!r}"
+            f"tune.evaluator: must be 'auto', 'device' or 'cpu', got {tu.evaluator!r}"
         )
     try:
         cons = normalize_constraints(tu.constraints)
@@ -292,7 +300,7 @@ class TuneResult:
     population: int
     evaluations: int  # candidate×train-scenario device evaluations
     wall_clock_s: float
-    compile_count: Optional[int]  # set-ups of the train engine (pin: 1)
+    compile_count: Optional[int]  # set-ups of the train engine (pin: 1; None: host)
     cpu_objective: Optional[float] = None  # oracle mean over held-out
     cpu_envelope: Optional[float] = None  # |device − cpu|, None if skipped
     trajectory: List[dict] = field(default_factory=list)
@@ -388,15 +396,12 @@ class PolicyTuner:
                 "use evaluator='cpu' (every candidate scored on the CPU event engine) or "
                 f"restrict terms to {sorted(_ALWAYS_METRICS)}"
             )
-        if evaluator == "cpu" or needs_host:
-            why = ("evaluator='cpu'" if evaluator == "cpu" else
-                   f"evaluator='auto' with the term(s) {sorted(terms - set(_ALWAYS_METRICS))}")
-            raise NotImplementedError(
-                f"{why} selects the host evaluator (every candidate scored on the CPU event "
-                "engine, CpuReplayEngine), which is not ported yet (queue A item 13); use "
-                f"the JAX package, or terms from {sorted(_ALWAYS_METRICS)}"
+        self.evaluator = "cpu" if (evaluator == "cpu" or needs_host) else "device"
+        if self.evaluator == "cpu" and evaluator == "auto":
+            log.info(
+                "tune: objective terms %s need the host evaluator — scoring candidates on the "
+                "CPU event engine", sorted(terms - set(_ALWAYS_METRICS)),
             )
-        self.evaluator = "device"
         self.S_t = int(train_scenarios)
         self.S_h = int(heldout_scenarios)
         self.mesh = mesh
@@ -421,6 +426,11 @@ class PolicyTuner:
         self.cpu_oracle = bool(cpu_oracle)
         self.cpu_envelope = float(cpu_envelope)
         self._train_engine: Optional[WhatIfEngine] = None
+        self._setup_s = 0.0
+        # The host evaluator's perturbed host clusters per split, and its
+        # objective per (split, vector bytes).
+        self._host_clusters: Dict[str, list] = {}
+        self._host_cache: Dict[tuple, np.ndarray] = {}
 
     # -- population sampling ------------------------------------------------
 
@@ -467,9 +477,61 @@ class PolicyTuner:
             desc, fit_strategy=strategy if self.space.tune_strategy else None
         )
 
+    # -- the host evaluator (the CPU event engine) ---------------------------
+
+    def _host_split_clusters(self, split_name: str) -> list:
+        """The perturbed host clusters of a split (built once)."""
+        clusters = self._host_clusters.get(split_name)
+        if clusters is None:
+            split = self.train_split if split_name == "train" else self.heldout_split
+            clusters = ScenarioSet(self.ec, split).host_clusters()
+            self._host_clusters[split_name] = clusters
+        return clusters
+
+    def _host_row(self, ec_s, cfg: FrameworkConfig):
+        """One scenario scored on the CPU event engine: every objective term
+        present as a length-1 array (the what-if result's shape), the latency
+        quantiles NaN where nothing bound."""
+        r = CpuReplayEngine(ec_s, self.pods, cfg, telemetry="summary").replay()
+        lat = r.telemetry.latency if r.telemetry is not None else None
+
+        def q(k: str) -> np.ndarray:
+            return np.array([float(lat[k]) if lat else np.nan], np.float64)
+
+        fr = r.fragmentation
+        return SimpleNamespace(
+            placed=np.array([float(r.placed)]),
+            unschedulable=np.array([float(r.unschedulable)]),
+            utilization_cpu=np.array([r.utilization.get("cpu", 0.0)]),
+            preemptions=np.array([float(r.preemptions)]),
+            retry_dropped=np.array([float(r.retry_dropped)]),
+            evictions=np.array([float(r.evictions)]),
+            latency_p50=q("p50"), latency_p90=q("p90"), latency_p99=q("p99"),
+            stranded_cpu=np.array([fr["stranded"].get("cpu", 0.0)]),
+            frag_index_cpu=np.array([fr["frag_index"].get("cpu", 0.0)]),
+            packing_efficiency=np.array([fr["packing_efficiency"]]),
+        )
+
+    def _host_objective(self, vec: np.ndarray, split_name: str) -> np.ndarray:
+        """Per-scenario objective of one candidate on one split by the CPU
+        event engine; cached by (split, vector bytes)."""
+        key = (split_name, np.asarray(vec, np.float32).tobytes())
+        hit = self._host_cache.get(key)
+        if hit is not None:
+            return hit
+        cfg = self._policy_config(vec)
+        rows = [self._host_row(ec_s, cfg) for ec_s in self._host_split_clusters(split_name)]
+        obj = np.concatenate([self._objective(r) for r in rows])
+        self._host_cache[key] = obj
+        return obj
+
     def _train_eval(self, cand: np.ndarray) -> np.ndarray:
-        """Evaluate the whole population in ONE sweep; returns the [P]
+        """Evaluate the whole population in ONE sweep (the host evaluator:
+        one event replay a candidate × scenario, cached); returns the [P]
         per-candidate objective (mean over its train scenarios)."""
+        if self.evaluator == "cpu":
+            return np.array([float(self._host_objective(cand[i], "train").mean())
+                             for i in range(self.population)])
         flat = self._flat_policies(cand)
         if self._train_engine is None:
             t0 = time.perf_counter()
@@ -485,8 +547,13 @@ class PolicyTuner:
 
     def _heldout_eval(self, best_vec: np.ndarray):
         """One 2-policy sweep on the held-out split: winner vs the config's
-        default policy. Returns (best_obj, default_obj, per-scenario winner
-        objectives, engine)."""
+        default policy (on the host evaluator, the two on the event engine).
+        Returns (best_obj, default_obj, per-scenario winner objectives,
+        engine: None on the host)."""
+        if self.evaluator == "cpu":
+            best = self._host_objective(best_vec, "heldout")
+            default = self._host_objective(self.space.defaults, "heldout")
+            return float(best.mean()), float(default.mean()), best, None
         pol = np.concatenate([
             np.repeat(best_vec[None], self.S_h, axis=0),
             np.repeat(self.space.defaults[None], self.S_h, axis=0),
@@ -502,7 +569,12 @@ class PolicyTuner:
     def _oracle_eval(self, best_vec: np.ndarray, eng: WhatIfEngine):
         """Re-evaluate the winner with ``greedy_replay`` per held-out
         scenario — the perturbed host clusters with the winning weights
-        materialized as an ordinary FrameworkConfig."""
+        materialized as an ordinary FrameworkConfig; skipped (None) when the
+        evaluation already ran on the CPU event engine."""
+        if self.evaluator == "cpu":
+            log.info("tune: CPU-oracle check skipped — evaluation already ran on the CPU "
+                     "event engine")
+            return None
         terms = set(self.objective_weights) | {c["metric"] for c in self.objective_constraints}
         if not terms <= _ORACLE_METRICS:
             log.info(
@@ -601,7 +673,7 @@ class PolicyTuner:
                         "%.3g (> envelope %.3g)", cpu_env, self.cpu_envelope,
                     )
         t3 = time.perf_counter()
-        compile_count = self._train_engine.setups
+        compile_count = self._train_engine.setups if self._train_engine is not None else None
         emit({
             "kind": "tune-result",
             "best_policy": self.space.describe(best_vec),

@@ -99,6 +99,14 @@ runs (plain, device release, label rows, the v2 fallback), and
 set-up (``setups``). Kube or tier preemption, the retry buffer and fork
 checkpoints refuse policies with the reference's error.
 
+``set_scenarios`` (the reference's :1185-1283) swaps the scenario batch the
+same way: a new :class:`ScenarioSet`'s allocatable and taint stacks replace
+the engine's, and each scenario's chaos timeline the old ones, with no new
+set-up; the resident query service (:mod:`.service`) answers its warm
+queries so. It refuses where the reference refuses, in its words; the
+reference's check of the compiled shapes is a check of the shapes and
+dtypes of the stacks against the tables the engine set up.
+
 The batch's chunks take the route its mode chooses
 (:func:`.torch_runtime.choose_route`): one K6 launch a chunk on every path
 above, the v2 fallback included, but the plain twins, which run K1 → K2
@@ -643,6 +651,13 @@ class WhatIfEngine(ChunkEngine):
         #: tier preemption (True) or not; kube is ``self.kube``
         self.preemption = mode == "tier"
         wrow = torch.tensor(pol, device=device) if pol is not None else None
+        #: the count planes' domain capacity, and whether a scenario scales
+        #: the "pods" capacity up (the reference's bf16 host-plane gate):
+        #: what ``set_scenarios`` holds a swapped batch to
+        self._D = max(sset.max_domains, 1)
+        self._scales_pods = self.engine == "v3" and any(
+            pt.op == "scale_capacity" and pt.resource == "pods" and pt.factor > 1
+            for sc in scenarios for pt in sc.perturbations)
         self._prepare(ec, pods, spec, cluster, sset.num_scenarios, wave_width, chunk_waves,
                       completions, granularity_guard, "what-if engine", device, plain,
                       mode == "tier", rb, domains, wrow, kube=kube)
@@ -694,6 +709,90 @@ class WhatIfEngine(ChunkEngine):
         self._wrow.copy_(torch.from_numpy(np.ascontiguousarray(pol)))
         for blk in self._blocks or ():
             blk.engine._wrow.copy_(torch.from_numpy(np.ascontiguousarray(pol[blk.lo:blk.hi])))
+
+    def set_scenarios(self, scenarios) -> None:
+        """Swap the scenario BATCH without a new set-up: the per-scenario
+        cluster stacks (allocatable and taints) and the chaos timelines are
+        rebuilt, everything else the engine set up (the plan, the pod and
+        label tables, the step constants) stays (``setups`` stays), the way
+        :meth:`set_policies` swaps the policy rows. The reference's refusals
+        (sim/whatif.py:1185-1283), in its words: a meshed engine (the
+        reference's DCN slice; its ``service`` refuses meshes, cli.py:604-607),
+        the v2 engine, label perturbations at build or in the new batch, a
+        wrong scenario count, timelines without kube, a timeline that does
+        not validate (with the scenario's index), a different domain
+        capacity, prefer-taints injected into an engine built without taint
+        scoring, a ``pods`` scale-up where the engine was built without one,
+        and stacks whose shapes or dtypes differ from the engine's tables."""
+        if self.mesh is not None:
+            raise ValueError(
+                "set_scenarios is single-process only: a meshed engine's blocks each hold a "
+                "contiguous slice of the batch and cannot swap scenarios underneath the slice "
+                "bookkeeping"
+            )
+        if self.engine != "v3":
+            raise ValueError(
+                "set_scenarios requires the v3 engine (the v2 parity fallback rebuilds "
+                "per-batch state at trace time)"
+            )
+        if self.sset.labels_dirty:
+            raise ValueError(
+                "set_scenarios does not support engines built with label perturbations "
+                "(DynTables are baked per batch) — rebuild the engine instead"
+            )
+        scenarios = list(scenarios)
+        if len(scenarios) != self.S:
+            raise ValueError(
+                f"scenario count ({len(scenarios)}) must match the engine's ({self.S}) — the "
+                "compiled program is shape-specialized"
+            )
+        timelines = [list(getattr(sc, "events", None) or []) for sc in scenarios]
+        if any(timelines):
+            if not self.kube:
+                raise ValueError(
+                    "per-scenario timed event timelines (Scenario.events) require "
+                    "preemption='kube' with retry_buffer > 0"
+                )
+            for si, tl in enumerate(timelines):
+                try:
+                    validate_node_events(tl, self.ec.num_nodes)
+                except ValueError as e:
+                    raise ValueError(f"scenario {si}: {e}") from None
+        sset = ScenarioSet(self.ec, scenarios, device=self.device)
+        if sset.labels_dirty:
+            raise ValueError(
+                "set_scenarios does not support label perturbations (the swapped batch would "
+                "need fresh DynTables) — rebuild the engine instead"
+            )
+        if max(sset.max_domains, 1) != self._D:
+            raise ValueError(
+                f"scenario batch needs domain capacity {max(sset.max_domains, 1)} but the "
+                f"engine compiled with {self._D}"
+            )
+        if sset.injected_prefer_taint and not self.spec.taint_score:
+            raise ValueError(
+                "scenario batch injects prefer-taints but the engine compiled without taint "
+                "scoring — rebuild the engine"
+            )
+        if not self._scales_pods and any(
+            pt.op == "scale_capacity" and pt.resource == "pods" and pt.factor > 1
+            for sc in scenarios for pt in sc.perturbations
+        ):
+            raise ValueError(
+                "scenario batch scales the 'pods' capacity up but the engine compiled on the "
+                "bf16 host plane — rebuild the engine with such a scenario present"
+            )
+        new = dict(allocatable=sset.alloc, taint_key=sset.taint_key, taint_kv=sset.taint_kv,
+                   taint_effect=sset.taint_effect)
+        sig = lambda ts: [(tuple(t.shape), t.dtype) for t in ts]
+        if sig(new.values()) != sig(getattr(self._cluster, f) for f in new):
+            raise ValueError(
+                "scenario batch changes the compiled array shapes/dtypes — the executable is "
+                "shape-specialized; rebuild the engine for this batch"
+            )
+        self.sset = sset
+        self._cluster = self._cluster._replace(**new)
+        self._events = timelines if any(timelines) else None
 
     def _completions_gate(self, ec: EncodedCluster, pods: EncodedPods,
                           completions: Optional[bool], sset: ScenarioSet, spec: StepSpec,

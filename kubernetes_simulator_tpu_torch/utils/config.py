@@ -8,17 +8,18 @@ task-event CSV, ``tracePath``, or from the 2019 tables, ``instanceEvents``
 / ``collectionEvents``; :mod:`..sim.borg`, :mod:`..sim.borg_etl`), the ``profile``
 (plugins, weights, ``preemption``), ``telemetry`` (with ``timelineOut``,
 which promotes the granularity to ``timeline``), ``output``,
-``strategy`` (``jax`` and ``torch`` run the port's engine; ``cpu``, the
-reference's CPU event engine, is refused by name; a config without the key
-runs the port's engine), ``waveWidth``,
+``strategy`` (``jax`` and ``torch`` run the port's device engine, ``cpu``
+the CPU event engine, :class:`..sim.runtime.CpuReplayEngine`; a config
+without the key runs the port's device engine), ``waveWidth``,
 ``chunkWaves``, ``devicePreemption`` (``true`` / ``"tier"``: tier
 preemption; ``"kube"``: kube preemption through the retry buffer),
 ``nodeShards`` / ``pagedWaves``,
 ``whatIf`` (``scenarios``, ``seed``, ``mesh``: the scenario axis over the
 local cards, ``nodeDownP``, ``capacityP``, ``taintP``, ``completions``,
 ``retryBuffer``: the unschedulable-retry buffer of ``run`` and
-``what-if``), ``tune`` (the policy tuner, with ``mesh``; ``evaluator:
-cpu`` is refused by name), ``flightRecorder`` (a path or ``{path,
+``what-if``), ``tune`` (the policy tuner, with ``mesh`` and the host
+evaluator, ``evaluator: cpu``), ``service`` (:class:`ServiceSpec`: the
+resident query service of ``serve``), ``flightRecorder`` (a path or ``{path,
 every}``: the single replay's flight recorder) and ``overlap``
 (``pagerThread``, ``twoPhaseExchange``; ``backgroundPublisher: true`` is
 refused by name: it moves checkpoint publication, which the port does not
@@ -30,7 +31,8 @@ refusals of a retry buffer (kubernetes_simulator_tpu/cli.py:705-730) raise
 ``ValueError`` here, and its checks of the recorder and of ``overlap:``
 (cli.py:487-517, :860-882) are :func:`flight_errors` and
 :func:`overlap_errors`, those of kube (:718-729) :func:`kube_errors`, and
-those of ``chaos:`` (:759-781) :func:`chaos_errors`.
+those of ``chaos:`` (:759-781) :func:`chaos_errors`, those of
+``service:`` (:571-630) :func:`service_errors`.
 
 Every other section of the JAX package's schema belongs to a mode the port
 does not carry yet; :meth:`SimConfig.from_dict` refuses it with an error
@@ -129,6 +131,26 @@ class OverlapSpec:
 
 
 @dataclass
+class ServiceSpec:
+    """``service:`` (the reference's, utils/config.py:277-300; the ``serve``
+    command): ``maxBatch`` query slots coalesced onto the scenario axis (the
+    batch is maxBatch + 1 scenarios, slot 0 the clean baseline),
+    ``batchDeadlineS`` the admission queue's flush deadline, ``maxEngines``
+    the LRU engine pool's cap (``KSIM_SERVICE_MAX_ENGINES`` wins),
+    ``granularity`` the default telemetry level of a query's result,
+    ``retryBuffer`` the kube retry pass's slots, ``input`` an NDJSON query
+    file or named pipe (None: stdin). Results go to the top-level
+    ``output``."""
+
+    max_batch: int = 3
+    batch_deadline_s: float = 0.05
+    max_engines: int = 4
+    granularity: str = "summary"
+    retry_buffer: int = 64
+    input: Optional[str] = None
+
+
+@dataclass
 class ChaosSpec:
     """Seeded chaos campaign (``chaos:`` YAML section; the reference's,
     utils/config.py:99-112): MTBF/MTTR-style failure injection. ``run``
@@ -180,10 +202,7 @@ class TuneSpec:
 
 def _tune_spec(tu: dict) -> TuneSpec:
     """The reference's parsing of ``tune:`` (utils/config.py:435-460), key
-    for key; ``evaluator: cpu`` is refused by name."""
-    if str(tu.get("evaluator", "auto")) == "cpu":
-        _refuse("tune.evaluator: cpu",
-                "the host evaluator on the CPU event engine, queue A item 13")
+    for key."""
     sc = tu.get("scenarios", {}) or {}
     wb = tu.get("weightBounds")
     return TuneSpec(
@@ -249,28 +268,21 @@ def _coerce_completions(v: object) -> Optional[bool]:
 #: each one selects.
 _REFUSED_SECTIONS = {
     "dcn": "the multi-process fleet",
-    "service": "the resident query service",
     "faultline": "fleet fault injection",
 }
 
 
-#: Strategies whose configs the port runs on its engine (the reference's
-#: device strategy and the port's own).
+#: Strategies whose configs the port runs on its device engine (the
+#: reference's device strategy and the port's own).
 STRATEGIES = ("jax", "torch")
 
 
 def _strategy(v) -> str:
-    """``strategy:`` of a config: ``jax`` / ``torch`` run; ``cpu`` (the
-    reference's default, its CPU event engine with the PostFilter) is not
-    ported; any other name raises as the reference's registry does."""
+    """``strategy:`` of a config: ``jax`` / ``torch`` run the device
+    engine, ``cpu`` (the reference's default) the CPU event engine; any
+    other name raises as the reference's registry does."""
     s = "torch" if v is None else str(v)
-    if s == "cpu":
-        raise NotImplementedError(
-            "strategy 'cpu' (the CPU event engine, CpuReplayEngine, with its PostFilter "
-            "preemption) is not ported yet (queue A item 13); run it with the JAX package "
-            "(python -m kubernetes_simulator_tpu), or set strategy: jax"
-        )
-    if s not in STRATEGIES:
+    if s not in STRATEGIES + ("cpu",):
         raise KeyError(f"unknown strategy {s!r}; registered: {sorted(STRATEGIES + ('cpu',))}")
     return s
 
@@ -310,6 +322,8 @@ class SimConfig:
     overlap: Optional[OverlapSpec] = None
     # The chaos campaign (None: no chaos: section).
     chaos: Optional[ChaosSpec] = None
+    # The resident query service (None: not a service config).
+    service: Optional["ServiceSpec"] = None
 
     @classmethod
     def from_dict(cls, d: dict) -> "SimConfig":
@@ -423,6 +437,18 @@ class SimConfig:
                 horizon=float(ch["horizon"]) if ch.get("horizon") is not None else None,
                 max_events=int(ch["maxEvents"]) if ch.get("maxEvents") is not None else None,
             )
+        sv = d.get("service")
+        if sv is not None:
+            if not isinstance(sv, dict):
+                sv = {}
+            cfg.service = ServiceSpec(
+                max_batch=int(sv.get("maxBatch", 3)),
+                batch_deadline_s=float(sv.get("batchDeadlineS", 0.05)),
+                max_engines=int(sv.get("maxEngines", 4)),
+                granularity=str(sv.get("granularity", "summary")),
+                retry_buffer=int(sv.get("retryBuffer", 64)),
+                input=sv.get("input"),
+            )
         return cfg
 
     @classmethod
@@ -472,11 +498,19 @@ def borg_errors(cfg: SimConfig) -> List[str]:
 def shard_errors(cfg: SimConfig) -> List[str]:
     """The reference's checks of ``nodeShards`` and ``pagedWaves``
     (kubernetes_simulator_tpu/cli.py:735-757 ``validate_config``), as
-    error strings (empty: ok). Both strategies the port runs take them."""
+    error strings (empty: ok). Both device strategies take them; the CPU
+    event engine refuses them."""
     errors = []
     tier_on = cfg.device_preemption in (True, "tier")
     if cfg.node_shards < 0:
         errors.append("nodeShards: must be >= 0 (0/1 = replicated planes)")
+    if cfg.node_shards > 1 and cfg.strategy == "cpu":
+        errors.append(
+            "nodeShards: intra-scenario node-plane sharding is a strategy: jax feature (the "
+            "what-if batch spends the mesh on the scenario axis)"
+        )
+    if cfg.paged_waves and cfg.strategy == "cpu":
+        errors.append("pagedWaves: requires strategy: jax")
     if cfg.node_shards > 1 and tier_on:
         errors.append(
             "nodeShards is not supported with tier devicePreemption (the sharded chunk "
@@ -553,9 +587,9 @@ def kube_errors(cfg: SimConfig) -> List[str]:
 def chaos_errors(cfg: SimConfig) -> List[str]:
     """The reference's checks of an enabled ``chaos:`` section
     (kubernetes_simulator_tpu/cli.py:759-781), as error strings (empty: ok):
-    the campaign's parameters, ``whatIf.retryBuffer > 0`` (both strategies
-    the port runs are its device engine, the reference's ``jax``) and kube
-    for a what-if sweep."""
+    the campaign's parameters, ``whatIf.retryBuffer > 0`` on the device
+    engine (both device strategies are the reference's ``jax``; the CPU
+    event engine evicts without one) and kube for a what-if sweep."""
     ch = cfg.chaos
     if ch is None or not ch.enabled:
         return []
@@ -570,7 +604,7 @@ def chaos_errors(cfg: SimConfig) -> List[str]:
         errors.append("chaos.horizon: must be > 0 (or omitted)")
     if ch.max_events is not None and ch.max_events < 0:
         errors.append("chaos.maxEvents: must be >= 0")
-    if not cfg.whatif.retry_buffer:
+    if cfg.strategy != "cpu" and not cfg.whatif.retry_buffer:
         errors.append(
             f"chaos with strategy: {cfg.strategy} requires whatIf.retryBuffer > 0 — without "
             "the boundary retry pass node_down only blocks future placements (no NoExecute "
@@ -584,13 +618,71 @@ def chaos_errors(cfg: SimConfig) -> List[str]:
     return errors
 
 
+def service_errors(cfg: SimConfig) -> List[str]:
+    """The reference's refusals of a ``service:`` section
+    (kubernetes_simulator_tpu/cli.py:571-630 ``_service_errors``), as error
+    strings (empty: ok): every envelope a defrag batch rides on (the device
+    strategy, kube preemption with the retry buffer, no node shards, no
+    mesh) must hold before the first query is admitted."""
+    import os
+
+    from ..sim.telemetry import _LEVELS
+
+    sv = cfg.service
+    if sv is None:
+        return []
+    errors = []
+    if cfg.strategy not in STRATEGIES:
+        errors.append(
+            "service: requires strategy: jax or torch (the resident engine pool is the "
+            "what-if batch on the device)"
+        )
+    if cfg.device_preemption != "kube":
+        errors.append(
+            "service: defrag queries drain nodes through chaos eviction, which needs "
+            "devicePreemption: kube (the boundary host mirror applies per-scenario timelines)"
+        )
+    if not cfg.whatif.retry_buffer:
+        errors.append(
+            "service: requires whatIf.retryBuffer > 0 — without the boundary retry pass a "
+            "drained node's pods are never rescheduled, so every defrag answer degenerates"
+        )
+    if cfg.node_shards > 1:
+        errors.append(
+            "service: nodeShards > 1 is not supported — the query batch spends the device on "
+            "the scenario axis, and set_scenarios refuses sliced engines"
+        )
+    if cfg.whatif.mesh:
+        errors.append(
+            "service: whatIf.mesh is not supported (resident engines are single-process; "
+            "set_scenarios refuses meshed engines)"
+        )
+    if sv.max_batch < 1:
+        errors.append("service.maxBatch: must be >= 1")
+    if sv.batch_deadline_s <= 0:
+        errors.append(
+            "service.batchDeadlineS: must be > 0 (the admission queue needs a flush "
+            "deadline; use maxBatch: 1 for per-query dispatch)"
+        )
+    if sv.max_engines < 1:
+        errors.append("service.maxEngines: must be >= 1")
+    if sv.retry_buffer < 1:
+        errors.append("service.retryBuffer: must be >= 1")
+    if sv.granularity not in _LEVELS:
+        errors.append(f"service.granularity: must be one of {', '.join(_LEVELS)}, "
+                      f"got {sv.granularity!r}")
+    if sv.input is not None and not os.path.exists(sv.input):
+        errors.append(f"service.input: file not found: {sv.input}")
+    return errors
+
+
 def config_errors(cfg: SimConfig) -> List[str]:
     """Every check of the reference's ``validate`` that the port's sections
     have (:func:`kube_errors`, :func:`borg_errors`, :func:`shard_errors`,
-    :func:`flight_errors`, :func:`overlap_errors`, :func:`chaos_errors`);
-    empty: the config is valid."""
+    :func:`flight_errors`, :func:`overlap_errors`, :func:`chaos_errors`,
+    :func:`service_errors`); empty: the config is valid."""
     return (kube_errors(cfg) + borg_errors(cfg) + shard_errors(cfg) + flight_errors(cfg)
-            + overlap_errors(cfg) + chaos_errors(cfg))
+            + overlap_errors(cfg) + chaos_errors(cfg) + service_errors(cfg))
 
 
 def build_case(cfg: SimConfig):

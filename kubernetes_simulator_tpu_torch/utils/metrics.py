@@ -241,7 +241,7 @@ class JsonlWriter:
 def _scrub_timing(row: dict) -> dict:
     """Zero wall-clock-derived fields under KSIM_DETERMINISTIC_JSONL."""
     if deterministic_jsonl():
-        for k in ("wall_clock_s", "placements_per_sec"):
+        for k in ("wall_clock_s", "placements_per_sec", "latency_s", "queue_wait_s"):
             if k in row:
                 row[k] = 0.0
     return row

@@ -29,6 +29,8 @@ import kubernetes_simulator_tpu_torch.cli, kubernetes_simulator_tpu_torch.conver
 import kubernetes_simulator_tpu_torch.ops.cpu, kubernetes_simulator_tpu_torch.ops.policy
 import kubernetes_simulator_tpu_torch.sim.greedy, kubernetes_simulator_tpu_torch.sim.tuner
 import kubernetes_simulator_tpu_torch.parallel.mesh, kubernetes_simulator_tpu_torch.sim.flight
+import kubernetes_simulator_tpu_torch.framework.queue, kubernetes_simulator_tpu_torch.sim.service
+from kubernetes_simulator_tpu_torch.framework.registry import get_strategy
 from kubernetes_simulator_tpu_torch.ops import kernels as K
 from kubernetes_simulator_tpu_torch.sim.borg import BorgSpec, make_borg_encoded
 from kubernetes_simulator_tpu_torch.sim.borg_etl import load_borg2019
@@ -43,6 +45,13 @@ ec, ep = encode(cluster, pods)
 res = TorchReplayEngine(ec, ep, FrameworkConfig(), device="cpu", wave_width=4,
                         chunk_waves=2).replay()
 assert res.placed > 0, res.placed
+cres = get_strategy("cpu")(ec, ep, FrameworkConfig(), telemetry="timeline").replay()
+assert cres.placed > 0 and cres.telemetry.events, cres.placed
+from kubernetes_simulator_tpu_torch.sim.service import QueryService
+svc = QueryService(ec, ep, FrameworkConfig(), max_batch=1, retry_buffer=8, device="cpu",
+                   wave_width=4, chunk_waves=2)
+svc.submit({"op": "defrag", "nodes": [0], "drainAt": 0.5})
+assert svc.close()[0]["kind"] == "query-result"
 bad = [m for m in sys.modules if m == "kubernetes_simulator_tpu"
        or m.startswith("kubernetes_simulator_tpu.")]
 assert not bad, bad
@@ -126,6 +135,8 @@ _PORTED_SECTIONS = {
     "flightRecorder: {path: f.jsonl}": ("run", "chunkWaves: 1\n"),
     "devicePreemption: kube": ("run", "whatIf: {retryBuffer: 8}\nchunkWaves: 1\n"),
     "chaos: {enabled: true}": ("run", "whatIf: {retryBuffer: 8}\nchunkWaves: 1\n"),
+    "service: {maxBatch: 2}": ("serve", "devicePreemption: kube\nwhatIf: {retryBuffer: 8}\n"
+                                        "chunkWaves: 1\n"),
 }
 
 
@@ -156,8 +167,18 @@ def test_config_refuses_later_sections_by_name(section, tmp_path, monkeypatch):
         f"output: out.jsonl\n{extra}{section}\n"
     )
     SimConfig.load("c.yaml")
+    if cmd == "serve":
+        import io
+        import sys
+
+        monkeypatch.setattr(sys, "stdin", io.StringIO(
+            '{"op": "defrag", "nodes": [0, 1], "drainAt": 0.5}\n'))
     assert cli.main([cmd, "c.yaml", "--device", "cpu"]) == 0
     rows = [json.loads(line) for line in (tmp_path / "out.jsonl").read_text().splitlines()]
+    if cmd == "serve":
+        assert [r["kind"] for r in rows] == ["query", "query-result"]
+        assert rows[-1]["placed"] == 12
+        return
     if cmd == "what-if":
         assert [r["mesh"] for r in rows] == [True] * 5
         assert [r["placed"] for r in rows[1:]] == [12] * 4
@@ -239,34 +260,37 @@ def test_wrappers_take_the_twin_only_on_cpu():
 
 
 @pytest.mark.parametrize(
-    "name,refused",
+    "name,strategy",
     [("config1_default_cpu.yaml", "cpu"), ("config2_full_plugins_5k.yaml", None),
      ("config3_whatif_256.yaml", None), ("config4_borg_1m.yaml", None),
      ("config8_kube_preempt.yaml", None), ("config11_tune.yaml", None),
      ("config12_utilization.yaml", None), ("config13_borgscale.yaml", None),
-     ("config15_headline.yaml", None), ("config18_overlap.yaml", None)],
+     ("config15_headline.yaml", None), ("config18_overlap.yaml", None),
+     ("config20_service.yaml", None)],
 )
-def test_example_configs_parse_or_refuse(name, refused):
-    """The repo's example configs: the run, what-if and tune configs parse
-    with the JAX package's values (config4's workload.borg section field for
-    field; the flight recorder, the overlap gates and the scenario mesh;
-    kube preemption and its buffer); config1's strategy cpu is refused by
-    name."""
+def test_example_configs_parse_or_refuse(name, strategy):
+    """The repo's example configs: the run, what-if, tune and serve configs
+    parse with the JAX package's values (config4's workload.borg section
+    field for field; the flight recorder, the overlap gates and the scenario
+    mesh; kube preemption and its buffer; config20's service section);
+    config1's strategy cpu (ported since: the CPU event engine) parses."""
     import dataclasses
 
     import yaml
 
     from kubernetes_simulator_tpu.utils.config import SimConfig as J_SimConfig
-    from kubernetes_simulator_tpu_torch.utils.config import SimConfig
+    from kubernetes_simulator_tpu_torch.utils.config import SimConfig, config_errors
 
     path = ROOT / "examples" / name
-    if refused:
-        with pytest.raises(NotImplementedError, match=refused):
-            SimConfig.load(str(path))
-        return
     cfg = SimConfig.load(str(path))
     raw = yaml.safe_load(path.read_text())
     ref = J_SimConfig.load(str(path))
+    assert config_errors(cfg) == []
+    if strategy:
+        assert cfg.strategy == ref.strategy == strategy
+    assert (cfg.service is None) == (ref.service is None)
+    if cfg.service is not None:
+        assert dataclasses.asdict(cfg.service) == dataclasses.asdict(ref.service)
     for port, jax in ((cfg.flight_recorder, ref.flight_recorder), (cfg.overlap, ref.overlap)):
         assert (port is None) == (jax is None)
         if port is not None:

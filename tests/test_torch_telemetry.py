@@ -416,12 +416,13 @@ def test_timeline_out_flag_promotes_the_granularity(tmp_path):
     assert any(e["name"] == "bind" for e in doc["traceEvents"])
 
 
-@pytest.mark.parametrize("strategy,ok", [("jax", True), ("torch", True), (None, True),
-                                         ("cpu", NotImplementedError), ("gpu", KeyError)])
+@pytest.mark.parametrize("strategy,ok", [
+    ("jax", True), ("torch", True), (None, True),
+    pytest.param("cpu", True, id="cpu-NotImplementedError"), ("gpu", KeyError)])
 def test_config_reads_strategy(strategy, ok):
     """``strategy:``: jax and torch run the port's engine (as does a config
-    without the key); cpu, the reference's CPU event engine, is refused by
-    name; an unknown name raises as the reference's registry does."""
+    without the key); cpu (ported since) the CPU event engine; an unknown
+    name raises as the reference's registry does."""
     from kubernetes_simulator_tpu_torch.utils.config import SimConfig
 
     d = {"cluster": {"synthetic": {"nodes": 4}}}

@@ -187,9 +187,10 @@ def test_cli_trajectory_deterministic_and_equal_to_reference(tmp_path):
     ("  mesh: true\n", "mesh"),
 ])
 def test_cli_refuses_host_evaluator_and_mesh(tmp_path, extra, match):
-    """``evaluator: cpu`` is refused by name; ``tune.mesh`` (ported since)
-    runs the sweep over a one-device mesh on ``--device cpu`` and writes the
-    unmeshed run's rows (the config's hash apart)."""
+    """``evaluator: cpu`` (ported since: the host evaluator on the CPU event
+    engine) writes the JAX CLI's bytes, with no card work; ``tune.mesh``
+    (ported since) runs the sweep over a one-device mesh on ``--device cpu``
+    and writes the unmeshed run's rows (the config's hash apart)."""
     cfg = tmp_path / "tune.yaml"
     out = tmp_path / "o.jsonl"
     _write_config(cfg, out, extra=extra)
@@ -205,15 +206,24 @@ def test_cli_refuses_host_evaluator_and_mesh(tmp_path, extra, match):
         assert t_cli(["tune", str(cfg), "--device", "cpu"]) == 0
         assert rows() == meshed
         return
-    with pytest.raises(NotImplementedError, match=match):
-        t_cli(["tune", str(cfg), "--device", "cpu"])
+    # The default device is the card's: the host evaluator never touches it.
+    assert t_cli(["tune", str(cfg)]) == 0
+    got = out.read_bytes()
+    out.unlink()
+    assert j_cli(["tune", str(cfg)]) == 0
+    assert out.read_bytes() == got
+    rows = [json.loads(line) for line in got.decode().splitlines()]
+    assert rows[-1]["evaluator"] == match and rows[-1]["cpu_objective"] is None
 
 
 @pytest.mark.parametrize("kw,exc,match", [
-    (dict(objective={"utilizationCpu": 1.0},
-          constraints=[{"metric": "latencyP99", "max": 1.0}]), NotImplementedError,
-     "queue A item 13"),
-    (dict(evaluator="cpu"), NotImplementedError, "queue A item 13"),
+    # Ported since (the host evaluator): auto with a host term, and cpu,
+    # resolve to the CPU event engine, as the reference's tuner does.
+    pytest.param(dict(objective={"utilizationCpu": 1.0},
+                      constraints=[{"metric": "latencyP99", "max": 1.0}]), "cpu", "auto",
+                 id="kw0-NotImplementedError-queue A item 13"),
+    pytest.param(dict(evaluator="cpu"), "cpu", "cpu",
+                 id="kw1-NotImplementedError-queue A item 13"),
     (dict(mesh=["cpu"] * 3), None, "fit_population"),
     (dict(objective={"latencyP99": -1.0}, evaluator="device"), ValueError, "evaluator='cpu'"),
     (dict(evaluator="gpu"), ValueError, "evaluator must be"),
@@ -227,6 +237,12 @@ def test_tuner_refusals(kw, exc, match):
         tuner = TT.PolicyTuner(pec, pep, FrameworkConfig(), population=2, rounds=1,
                                device="cpu", **kw)
         assert (tuner.population_requested, tuner.population) == (2, 3)
+        return
+    if exc == "cpu":
+        tuner = TT.PolicyTuner(pec, pep, FrameworkConfig(), population=2, rounds=1,
+                               device="cpu", **kw)
+        want = JT.PolicyTuner(ec, ep, J_Config(), population=2, rounds=1, **kw)
+        assert tuner.evaluator == want.evaluator == "cpu"
         return
     with pytest.raises(exc, match=match):
         TT.PolicyTuner(pec, pep, FrameworkConfig(), population=2, rounds=1, device="cpu",
