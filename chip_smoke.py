@@ -311,6 +311,24 @@ From the root of a checkout, on a host with one CUDA card. In order:
    launches (K6 and its kube pass, K10, K3's release); on the cut, K10 and
    then K6's kube mode (its retry pass re-binding K10's victims) of the last
    batch's densest eviction boundary held against their twins.
+33. (C) checkpoint/resume and the what-if fork: config4 as shipped replayed
+   with checkpoint_every=16 (its assignments == step 8c's), a fresh engine
+   resumed from chunk 48 to the same; the headline trace replayed at S = 1
+   with checkpoint_every=3 and [Scenario()] + 127 uniform scenarios forked
+   from chunk 3 (scenario 0 == step 8's single replay, every scenario keeps
+   the pre-fork placements); config8 saved every 10 chunks and resumed at
+   30 on the kernels and on the twins on the card (KUBE_PINS' placed,
+   victims, drops and sha256; the saving run's first binds too: the file
+   holds no telemetry); config9 saved at the longest cadence whose last
+   save falls after its first event and before a node_down (K10) and a
+   node_up (19 of 24 chunks) and resumed there (CHAOS_PINS; a different
+   timeline refused); config13 saved every 10 and resumed at 20 on K9 and
+   the pager (== step 8e); then, after every timed part, config2 through
+   the CLI ``run --profile-dir`` in a process of its own (the trace holds
+   ``chunk:0``, ``device_wait`` and K6's kernel records), config8's resume
+   on the twins running beside it. Each resumed
+   or forked run's launches are checked (K6, K3's release, K9, K8, K10);
+   each save's seconds and bytes, the set-ups and walls are printed.
 
 Host work that needs no card runs beside the card's: steps 5 and 6's plain
 path on the card (no kernel) while nvcc builds the kernels; the reduced
@@ -785,6 +803,8 @@ def case(nodes, pods, seed=SEED, duration_mean=50.0, gang_fraction=0.02):
 #: into ``chip_smoke.json``'s ``step_s``.
 STEP_S = {}
 _last_mark = [time.perf_counter()]
+#: Engines of earlier steps that step C checkpoints on (config4, config13).
+KEEP = {}
 
 
 def mark(step):
@@ -930,7 +950,7 @@ def chunk_events_s(eng, dev, series=False):
     plan = eng.plan
     tb = eng._tables(attribute=series)
     ser = new_series(plan, tb, series) if series else None
-    ch = new_choices(plan, eng.S, eng.pods.bound_node, dev)
+    ch = new_choices(plan, eng.S, dev)
     n, evs = plan.idx.shape[0], []
     for lo in range(0, n, plan.C):
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -1589,7 +1609,7 @@ def hold_chunk_replay(where, eng, dev, results, assignments=None):
     run for the binds). Returns the kernel-table row's numbers."""
     plan, S = eng.plan, eng.S
     desc = plan.device_desc(dev)
-    mk = lambda: (eng._tables(), new_choices(plan, S, eng.pods.bound_node, dev))
+    mk = lambda: (eng._tables(), new_choices(plan, S, dev))
     w1, C = min(K6_TWIN_WAVES, plan.C), plan.C
     (tb_k, ch_k), (tb_t, ch_t), twin_rec = hold_twin(where, plan, mk, w1)
     tb_s, ch_s = mk()
@@ -1662,7 +1682,7 @@ def hold_beyond_card(ec, ep, dev, results):
     eng = WhatIfEngine(ec, ep, uniform_scenarios(ec, S, seed=0), FrameworkConfig(),
                        chunk_waves=BEYOND["waves"], collect_assignments=True)
     plan = eng.plan
-    mk = lambda: (eng._tables(), new_choices(plan, S, eng.pods.bound_node, dev))
+    mk = lambda: (eng._tables(), new_choices(plan, S, dev))
     (tb_k, ch_k), _, twin_rec = hold_twin(f"S={S}", plan, mk, plan.C)
     k6_plan = plan_of(K.chunk_replay)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -2554,7 +2574,7 @@ def hold_preempt(where, eng, n_check, dev, results):
     plan, S, bound_node = eng.plan, eng.S, eng.pods.bound_node
     nw = plan.idx.shape[0]
     tb = eng._tables()
-    ch = new_choices(plan, S, bound_node, dev)
+    ch = new_choices(plan, S, dev)
     vic = np.zeros((nw + 1, S), np.int64)
     for w in range(nw):
         run_waves(plan, tb, ch, w, w + 1, plain=False)
@@ -2565,7 +2585,7 @@ def hold_preempt(where, eng, n_check, dev, results):
         raise AssertionError(f"{where}: no eviction fired in the run")
     w_start = int(np.argmax(gain)) * 16
     tb_k = eng._tables()
-    ch_k = new_choices(plan, S, bound_node, dev)
+    ch_k = new_choices(plan, S, dev)
     run_waves(plan, tb_k, ch_k, 0, w_start, plain=False)
     torch.cuda.synchronize()
     clone = lambda nt: type(nt)(*(x.clone() if torch.is_tensor(x) else x for x in nt))
@@ -3291,7 +3311,7 @@ def retry_walk(eng, dev):
     densest boundary take them)."""
     plan = eng.plan
     tb = eng._tables()
-    ch = new_choices(plan, eng.S, eng.pods.bound_node, dev)
+    ch = new_choices(plan, eng.S, dev)
     snaps = []
     for c in range(len(plan.buckets)):
         run_waves(plan, tb, ch, c * plan.C, (c + 1) * plan.C, plain=False)
@@ -3317,7 +3337,7 @@ def hold_retry(where, eng, walk, dev, results, waves_after=8):
     pods_held = [int((step["rbuf"] >= 0).sum()) for step in walk]
     b = 1 + max(range(len(walk)), key=lambda i: (held[i], pods_held[i]))
     tb_k = eng._tables()
-    ch_k = new_choices(plan, S, eng.pods.bound_node, dev)
+    ch_k = new_choices(plan, S, dev)
     run_waves(plan, tb_k, ch_k, 0, b * plan.C, plain=False)
     torch.cuda.synchronize()
     tb_t, ch_t = clone_tables(tb_k), ch_k.clone()
@@ -3478,7 +3498,7 @@ def k6_retry_route(where, eng, dev, C=None, joint=False, series=False):
     plan = eng.plan
     tbs = [eng._tables(attribute=series) for _ in range(3)]
     sers = [new_series(plan, tb, True) if series else None for tb in tbs]
-    chs = [new_choices(plan, eng.S, eng.pods.bound_node, dev) for _ in range(3)]
+    chs = [new_choices(plan, eng.S, dev) for _ in range(3)]
     routes = ((False, "chunk"), (True, "chunk"), (False, "slot"))
     n = dict(chunks=0, k6_retry=0, pass_slots=0, empty_boundaries=0)
     with forced_k6_plan(C) if C else contextlib.nullcontext():
@@ -3542,7 +3562,7 @@ def hold_k6_retry(where, eng, b, dev, C=None, joint=False, series=False, waves=8
     hi = min(lo + waves, end_c)
     tb_k = eng._tables(attribute=series)
     ser_k = new_series(plan, tb_k, True) if series else None
-    ch_k = new_choices(plan, eng.S, eng.pods.bound_node, dev)
+    ch_k = new_choices(plan, eng.S, dev)
     run_waves(plan, tb_k, ch_k, 0, lo, plain=False, ser=ser_k, route="chunk", joint=joint)
     torch.cuda.synchronize()
     before = retry_records(tb_k)
@@ -3984,7 +4004,7 @@ def hold_first_reject(where, eng, first, end, dev, results, must_charge=True, jo
     plan = eng.plan
     tb_k = eng._tables(attribute=True)
     ser_k = new_series(plan, tb_k, True)
-    ch_k = new_choices(plan, eng.S, eng.pods.bound_node, dev)
+    ch_k = new_choices(plan, eng.S, dev)
     run_waves(plan, tb_k, ch_k, 0, first, plain=False, ser=ser_k, joint=joint)
     torch.cuda.synchronize()
     tb_t, ch_t, ser_t = clone_tables(tb_k), ch_k.clone(), clone_series(ser_k)
@@ -4120,7 +4140,7 @@ def hold_k6_attributed(where, eng, first, end, dev, assignments, C=None):
     desc = plan.device_desc(dev)
     tb_k = eng._tables(attribute=True)
     ser_k = new_series(plan, tb_k, True)
-    ch_k = new_choices(plan, eng.S, eng.pods.bound_node, dev)
+    ch_k = new_choices(plan, eng.S, dev)
     run_waves(plan, tb_k, ch_k, 0, first, plain=False, ser=ser_k, route="chunk")
     torch.cuda.synchronize()
     tb_t, ch_t = clone_tables(tb_k), ch_k.clone()
@@ -4694,7 +4714,7 @@ def hold_window(where, eng, dev, results, key, min_waves=16):
     gang = np.nonzero(plan.gang_wave[first:])[0]
     end = first + max(min_waves, int(gang[0]) + 1 if gang.size else min_waves)
     tb_k = eng._tables()
-    ch_k = new_choices(plan, eng.S, eng.pods.bound_node, dev)
+    ch_k = new_choices(plan, eng.S, dev)
     run_waves(plan, tb_k, ch_k, 0, first, plain=False)
     torch.cuda.synchronize()
     tb_t, ch_t = clone_tables(tb_k), ch_k.clone()
@@ -5114,11 +5134,11 @@ def run_config4(results, dev):
     mark("c config4 CLI run")
     bound_ms = Work(ep, eng._tables()).chunk_loop_ms(plan, a, launches)
     mark("c config4 B6 bound")
-    mk = lambda: (eng._tables(), new_choices(plan, 1, ep.bound_node, dev))
+    mk = lambda: (eng._tables(), new_choices(plan, 1, dev))
     _, _, twin_rec = hold_twin("config4", plan, mk, min(K6_TWIN_WAVES, plan.C))
     mark("c config4 twin hold")
     # The first chunks on K6 and on the per-slot kernels, from the initial state.
-    (tb_k, ch_k), (tb_s, ch_s) = ((eng._tables(), new_choices(plan, 1, ep.bound_node, dev))
+    (tb_k, ch_k), (tb_s, ch_s) = ((eng._tables(), new_choices(plan, 1, dev))
                                   for _ in range(2))
     walls = {"chunk": 0.0, "slot": 0.0}
     for c in range(min(CONFIG4_HOLD_CHUNKS, len(plan.buckets))):
@@ -5133,7 +5153,7 @@ def run_config4(results, dev):
     # state, timed by CUDA events around its one launch
     if plan.buckets[0] is not None:
         raise AssertionError("config4: a release before the first chunk")
-    tb_e, ch_e = eng._tables(), new_choices(plan, 1, ep.bound_node, dev)
+    tb_e, ch_e = eng._tables(), new_choices(plan, 1, dev)
     desc = plan.device_desc(dev)
     b_e = K.Bound(tb_e)
     ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
@@ -5162,7 +5182,8 @@ def run_config4(results, dev):
         setup_s=eng.setup_s, launches=launches, chunk_loop_bound_ms=bound_ms,
         k6_twin=twin_rec, held_chunks=CONFIG4_HOLD_CHUNKS,
         held_slots=hold_slots, held_walls_s=walls, utilization=row["utilization"],
-        k6_us_per_slot=k6_us, k6_cluster=k6_plan, release=rel)
+        k6_us_per_slot=k6_us, k6_cluster=k6_plan, release=rel, sha256=assignments_sha256(a[0]))
+    KEEP["config4"] = eng  # step C's checkpointing replay runs on it
     print(f"config4 through the CLI run on the card ({ec.num_nodes} nodes x {ep.num_pods} tasks, "
           f"chunkWaves {plan.C}, {len(plan.buckets)} chunks, route {eng.last_route}): placed "
           f"{row['placed']}, unschedulable {row['unschedulable']}; set-up trace "
@@ -5175,7 +5196,7 @@ def run_config4(results, dev):
           f"vs {walls['slot']:.2f}s); K6 over the first chunk {k6_us:.2f} us a slot (CUDA "
           f"events; cluster "
           f"{json.dumps(k6_plan)})", flush=True)
-    del eng, tb_k, tb_s, tb_e
+    del tb_k, tb_s, tb_e
 
 
 def check_borg_pins(results, dev):
@@ -5215,7 +5236,7 @@ def shard_window(eng, dev, seed):
     plan = eng.plan
     b = next(i for i in range(2, len(plan.buckets)) if plan.buckets[i] is not None)
     tb_k = eng._tables()
-    ch_k = new_choices(plan, 1, eng.pods.bound_node, dev)
+    ch_k = new_choices(plan, 1, dev)
     run_waves(plan, tb_k, ch_k, 0, b * plan.C, plain=False, route="shard")
     rng = np.random.default_rng(seed)
     lay = eng.layout
@@ -5674,7 +5695,7 @@ def run_config13(results, dev):
     # state, timed by CUDA events around its one launch.
     if plan.buckets[0] is not None:
         raise AssertionError("config13: a release before the first chunk")
-    tb_e, ch_e = eng._tables(), new_choices(plan, 1, ep.bound_node, dev)
+    tb_e, ch_e = eng._tables(), new_choices(plan, 1, dev)
     desc = plan.device_desc(dev)
     b_e = K.Bound(tb_e)
     ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
@@ -5689,7 +5710,7 @@ def run_config13(results, dev):
     # The per-slot route over its first chunk, profiled: device time a launch.
     by_kernel = {}
     tb_p = eng._tables()
-    ch_p = new_choices(plan, 1, ep.bound_node, dev)
+    ch_p = new_choices(plan, 1, dev)
     K.reset_launch_counts()
     t_chunk = time.perf_counter()
     _, busy_s = profiled_busy_s(lambda: (run_waves(plan, tb_p, ch_p, 0, plan.C, plain=False,
@@ -5766,6 +5787,7 @@ def run_config13(results, dev):
           f"{chunk_wall:.3f}s, device busy {busy_s:.3f}s) device ms a launch "
           f"{json.dumps(per_launch)}, bounds {json.dumps(bound_chunk)}; kernel times "
           f"{json.dumps(times)}", flush=True)
+    KEEP["config13"] = eng  # step C's checkpointing replay runs on it
     return times, launches, slot_launches, holds, k9_holds
 
 
@@ -5880,7 +5902,7 @@ def run_config5(results, headline_case, dev):
             raise AssertionError(f"config5: the {tag} batch placed differently run to run")
         walls[tag].append(r.wall_clock_s)
     blk = eng._blocks[0].engine
-    mk = lambda: (blk._tables(), new_choices(plan, blk.S, ep.bound_node, dev))
+    mk = lambda: (blk._tables(), new_choices(plan, blk.S, dev))
     _, _, twin_rec = hold_twin("config5 (block 0)", plan, mk, min(K6_TWIN_WAVES, plan.C))
     slots = int((plan.idx >= 0).sum())
     k6_s = chunk_events_s(blk, dev)
@@ -6278,7 +6300,7 @@ def kube_walk(eng, dev, joint):
     1..B-1."""
     plan = eng.plan
     tb = eng._tables()
-    ch = new_choices(plan, eng.S, eng.pods.bound_node, dev)
+    ch = new_choices(plan, eng.S, dev)
     held = []
     for c in range(len(plan.buckets) - 1):
         run_waves(plan, tb, ch, c * plan.C, (c + 1) * plan.C, plain=False, route="chunk",
@@ -6388,7 +6410,7 @@ def hold_k6_kube(where, eng, b, dev, joint, twin_scen, telemetry=False, steps=No
     C = plan.C
     lo, hi = b * C, min((b + 1) * C, plan.idx.shape[0])
     tb = eng._tables(attribute=telemetry, timeline=telemetry)
-    ch = new_choices(plan, eng.S, eng.pods.bound_node, dev)
+    ch = new_choices(plan, eng.S, dev)
     ser = new_series(plan, tb, True) if telemetry else None
     run_waves(plan, tb, ch, 0, lo, plain=False, ser=ser, route="chunk", joint=joint,
               chaos=steps)
@@ -6643,7 +6665,7 @@ def chaos_walk(eng, dev, joint):
     plan = eng.plan
     steps = chaos_steps(plan, eng._timelines(), eng._alloc0(), dev)
     tb = eng._tables()
-    ch = new_choices(plan, eng.S, eng.pods.bound_node, dev)
+    ch = new_choices(plan, eng.S, dev)
     alloc0 = tb.cluster.allocatable.clone()
     victims, n = {}, plan.idx.shape[0]
     try:
@@ -6677,7 +6699,7 @@ def hold_evict_node(where, eng, b, steps, dev, joint, telemetry=False):
     plan, st = eng.plan, steps[b]
     parts = TELEMETRY_PARTS if telemetry else PLANE_PARTS
     tb = eng._tables(attribute=telemetry, timeline=telemetry)
-    ch = new_choices(plan, eng.S, eng.pods.bound_node, dev)
+    ch = new_choices(plan, eng.S, dev)
     alloc0 = tb.cluster.allocatable.clone()
     try:
         run_waves(plan, tb, ch, 0, b * plan.C, plain=False, route="chunk", joint=joint,
@@ -7530,6 +7552,348 @@ def run_service_paths(results, dev):
     return launches_by["config20"]
 
 
+# ---------------------------------------------------------------------------
+# Step C: checkpoint/resume of the single replay and the what-if fork
+# ---------------------------------------------------------------------------
+
+CKPT_DIR = os.path.join(ROOT, "chiprun_out", "ckpt")
+CONFIG2 = "examples/config2_full_plugins_5k.yaml"
+PROFILE_DIR = os.path.join(ROOT, "chiprun_out", "profile")
+PROFILE_LOG = os.path.join(ROOT, "chiprun_out", "profile_child.log")
+#: The profiled config2 CLI run of step C, in a process of its own (a fresh
+#: profiler: in the script's process the earlier steps' profiles ran, and a
+#: later profile can keep no kernel record, PERF.md §7). It starts after the
+#: build and reaches the card and the kernels' libraries before step 3
+#: (``ready``), then waits, idle, for step C's ``go`` after its timed parts:
+#: the CLI command (counters zeroed just before, read just after), its
+#: launches checked, the same engine replayed again unprofiled; one JSON line.
+PROFILE_CHILD = r"""
+import json, os, sys
+sys.path.insert(0, os.getcwd())
+import torch
+import chip_smoke as CS
+torch.zeros(1, device="cuda")
+CS.K.build(verbose=False)
+print("ready", flush=True)
+if sys.stdin.readline().strip() != "go":
+    sys.exit(3)
+rows, _, eng, cmd_s, launches = CS.cli_call(["run", sys.argv[1], "--profile-dir", sys.argv[2]])
+os.environ.pop("KSIM_PROFILE_DIR", None)
+CS.check_chunk_launches("config2 --profile-dir", launches, eng.plan)
+again = eng.replay()
+print(json.dumps(dict(placed=rows[-1]["placed"], unprofiled=again.placed, command_s=cmd_s,
+                      k6=launches["chunk_replay"])))
+"""
+
+
+def start_profile_child():
+    """C's profiled config2 run (:data:`PROFILE_CHILD`), started; its stderr
+    in PROFILE_LOG. Read its ``ready`` line before the card's timed steps."""
+    import shutil
+
+    shutil.rmtree(PROFILE_DIR, ignore_errors=True)
+    env = {k: v for k, v in os.environ.items() if k != "KSIM_PROFILE_DIR"}
+    os.makedirs(os.path.dirname(PROFILE_LOG), exist_ok=True)
+    with open(PROFILE_LOG, "w") as log_f:
+        return subprocess.Popen([sys.executable, "-c", PROFILE_CHILD,
+                                 os.path.join(ROOT, CONFIG2), PROFILE_DIR], cwd=ROOT, env=env,
+                                stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=log_f,
+                                text=True)
+
+
+def profile_child_failed(prof, what):
+    with open(PROFILE_LOG) as f:
+        return AssertionError(f"config2 --profile-dir (its own process) {what}: exit "
+                              f"{prof.poll()}\n{f.read()[-3000:]}")
+
+
+def config_engine(path, ec, ep, **over):
+    """A fresh device engine on (``ec``, ``ep``) with the arguments the CLI
+    ``run`` gives it for the config at ``path`` (its recorder left out),
+    ``over`` on top; (the engine, its set-up seconds)."""
+    from kubernetes_simulator_tpu_torch.utils.config import SimConfig
+
+    cfg = SimConfig.load(os.path.join(ROOT, path))
+    kw = dict(wave_width=cfg.wave_width, chunk_waves=cfg.chunk_waves, telemetry=cfg.telemetry,
+              preemption=cfg.device_preemption, retry_buffer=cfg.whatif.retry_buffer,
+              node_shards=cfg.node_shards, paged=cfg.paged_waves)
+    if cfg.overlap is not None and cfg.overlap.pager_thread is not None:
+        kw["pager_thread"] = cfg.overlap.pager_thread
+    kw.update(over)
+    t0 = time.perf_counter()
+    eng = TorchReplayEngine(ec, ep, cfg.framework, **kw)
+    return eng, time.perf_counter() - t0
+
+
+def resumed_launches(where, launches, plan, first, kube=False, shard=False, evict=0):
+    """The launches of a replay resumed at chunk ``first`` (counters zeroed
+    just before it): one K6 (K9 under node shards) a chunk from ``first``,
+    each in the retry mode under the retry buffer (``kube``: and the
+    trailing boundary's), K3 (K8) at each release from ``first``, K10
+    ``evict`` times (once a boundary from ``first`` where a node_down falls
+    due), K1, K2 and K3's bind none."""
+    nb = len(plan.buckets)
+    rel = sum(bk is not None for bk in plan.buckets[first:])
+    if shard:
+        want = dict(shard_chunk_replay=nb - first, shard_apply_release=rel, chunk_replay=0)
+    elif kube:
+        want = dict(chunk_replay=nb - first + 1, chunk_replay_retry=nb - first + 1,
+                    kube=nb - first + 1, apply_placements_release=nb - first + 1)
+    else:
+        want = dict(chunk_replay=nb - first, apply_placements_release=rel)
+    want.update(filter_score=0, normalize_select=0, apply_placements_bind=0, evict_node=evict)
+    if any(launches[k] != v for k, v in want.items()):
+        raise AssertionError(f"{where}: launches {launches}, expected {want}")
+
+
+def step_launches():
+    return dict(retry_launch_counts(), kube=K.chunk_replay.kube)
+
+
+def saves_record(eng):
+    return [dict(cursor=c, bytes=b, s=round(w, 6)) for c, b, w in eng.last_saves]
+
+
+def run_checkpoint_paths(results, headline_case, prof):
+    """(C) checkpoint/resume and the what-if fork on the card, after the
+    steps whose results it holds them to: config4 as shipped saved every 16
+    of its 63 chunks (== step 8c's assignments) and resumed at chunk 48 on a
+    fresh engine; the headline trace saved at chunk 3 of 5 (S = 1) and
+    forked into [Scenario()] + 127 uniform scenarios (scenario 0 == the
+    single replay of step 8); config8 saved every 10 and resumed at 30 ==
+    KUBE_PINS (on the twins on the card last, beside the profiled run);
+    config9 saved at the longest cadence whose last save falls
+    after its first event and before a node_down and a node_up (19 of 24
+    chunks) and resumed there, K10 and the restored chaos state running ==
+    CHAOS_PINS, a different timeline refused; config13 saved every 10,
+    resumed at 20 (K9, the pager) == step 8e; then, after every timed part,
+    config2 through the CLI ``run`` with ``--profile-dir`` in ``prof``
+    (:func:`start_profile_child`, ready and idle until now): the trace holds
+    ``chunk:0``, ``device_wait`` and a K6 kernel record a launch, and the
+    run places as the same engine unprofiled. Each resumed or forked run's
+    launches checked."""
+    import shutil
+
+    os.makedirs(CKPT_DIR, exist_ok=True)
+    rec = results["checkpoints"] = {}
+    # config4: save every 16 chunks, resume at 48 on a fresh engine.
+    eng4 = KEEP.pop("config4")
+    path = os.path.join(CKPT_DIR, "config4.npz")
+    K.reset_launch_counts()
+    full = eng4.replay(checkpoint_path=path, checkpoint_every=16)
+    check_chunk_launches("config4 checkpointing run", K.launch_counts(), eng4.plan)
+    sha = assignments_sha256(full.assignments)
+    if sha != results["config4"]["sha256"] or [c for c, _, _ in eng4.last_saves] != [16, 32, 48]:
+        raise AssertionError(f"config4 checkpointing run: sha256 {sha[:16]} (step 8c "
+                             f"{results['config4']['sha256'][:16]}), saves {eng4.last_saves}")
+    saves4 = saves_record(eng4)
+    ec4, ep4 = eng4.ec, eng4.pods
+    del eng4, full
+    eng, setup_s = config_engine(CONFIG4, ec4, ep4)
+    K.reset_launch_counts()
+    res = eng.replay(checkpoint_path=path, resume=True)
+    resumed_launches("config4 resumed at 48", step_launches(), eng.plan, 48)
+    if assignments_sha256(res.assignments) != sha or res.placed != results["config4"]["placed"]:
+        raise AssertionError(f"config4 resumed at 48: placed {res.placed}, sha256 differs")
+    rec["config4"] = dict(saves=saves4, resume_setup_s=setup_s, resume_wall_s=res.wall_clock_s,
+                          resumed_chunks=len(eng.plan.buckets) - 48, placed=res.placed,
+                          full_wall_s=results["config4"]["wall_s"])
+    print(f"C config4 saved every 16 chunks (== step 8c, sha256 {sha[:16]}): saves "
+          f"{json.dumps(saves4)}; a fresh engine (set-up {setup_s:.3f}s) resumed at chunk 48 "
+          f"in {res.wall_clock_s:.3f}s to the same {res.placed} placements", flush=True)
+    del eng, res, ec4, ep4
+    mark("C config4 save, resume")
+
+    # The headline trace: save at chunk 3 of 5, fork 128 scenarios from it.
+    ec, ep = headline_case
+    hs = HEADLINE
+    path = os.path.join(CKPT_DIR, "headline.npz")
+    single = TorchReplayEngine(ec, ep, FrameworkConfig(), chunk_waves=hs["chunk_waves"])
+    one = single.replay(checkpoint_path=path, checkpoint_every=3)
+    if (assignments_sha256(one.assignments) != results["headline"]["single_replay_sha256"]
+            or [c for c, _, _ in single.last_saves] != [3]):
+        raise AssertionError(f"headline checkpointing replay: saves {single.last_saves}, or "
+                             "its assignments != step 8's single replay")
+    scen = [Scenario()] + uniform_scenarios(ec, hs["scenarios"], seed=0)[: hs["scenarios"] - 1]
+    t0 = time.perf_counter()
+    weng = WhatIfEngine(ec, ep, scen, FrameworkConfig(), chunk_waves=hs["chunk_waves"],
+                        collect_assignments=True, fork_checkpoint=path)
+    fork_setup_s = time.perf_counter() - t0
+    K.reset_launch_counts()
+    fres = weng.run()
+    check_chunk_launches("headline fork", K.launch_counts(), weng.plan)
+    if not np.array_equal(fres.assignments[0], one.assignments):
+        raise AssertionError("headline fork: scenario 0 != the uninterrupted single replay")
+    prefix = weng.waves.idx[: weng.fork.waves_done].reshape(-1)
+    prefix = prefix[prefix >= 0]
+    if not (fres.assignments[:, prefix] == one.assignments[prefix][None]).all():
+        raise AssertionError("headline fork: a scenario changed the pre-fork placements")
+    rec["headline_fork"] = dict(
+        saves=saves_record(single), waves_done=weng.fork.waves_done,
+        fork_chunks=len(weng.plan.buckets), setup_s=fork_setup_s, wall_s=fres.wall_clock_s,
+        unforked_wall_s=results["headline"]["wall_s"], total_placed=fres.total_placed,
+        placed_min=int(fres.placed.min()), placed_max=int(fres.placed.max()))
+    print(f"C headline fork: the single replay saved at chunk 3 ({json.dumps(saves_record(single))}"
+          f"); {hs['scenarios']} scenarios forked after {weng.fork.waves_done} waves ran "
+          f"{len(weng.plan.buckets)} chunks in {fres.wall_clock_s:.3f}s (set-up "
+          f"{fork_setup_s:.3f}s) beside step 8's unforked {results['headline']['wall_s']:.3f}s; "
+          f"scenario 0 == the single replay; placed {int(fres.placed.min())}.."
+          f"{int(fres.placed.max())} after the fork", flush=True)
+    del single, one, weng, fres
+    mark("C headline fork")
+
+    # config8 (kube): save every 10 of 32 chunks, resume at 30.
+    cfg8, ec8, ep8 = config8_case()
+    path = os.path.join(CKPT_DIR, "config8.npz")
+    eng, _ = config_engine(CONFIG8, ec8, ep8)
+    full = eng.replay(checkpoint_path=path, checkpoint_every=10)
+    got = dict(placed=full.placed, unschedulable=full.unschedulable,
+               preemptions=full.preemptions, retry_dropped=full.retry_dropped,
+               latency_count=full.telemetry.latency["count"],
+               sha256=assignments_sha256(full.assignments))
+    if got != KUBE_PINS or [c for c, _, _ in eng.last_saves] != [10, 20, 30]:
+        raise AssertionError(f"config8 checkpointing run: {got}, saves {eng.last_saves}")
+    saves8 = saves_record(eng)
+    path8 = path
+
+    def resume8(where, plain):
+        e, setup_s = config_engine(CONFIG8, ec8, ep8, plain=plain)
+        K.reset_launch_counts()
+        r = e.replay(checkpoint_path=path8, resume=True)
+        if not plain:
+            resumed_launches("config8 resumed at 30", step_launches(), e.plan, 30, kube=True)
+        got_r = dict(placed=r.placed, unschedulable=r.unschedulable, preemptions=r.preemptions,
+                     retry_dropped=r.retry_dropped, sha256=assignments_sha256(r.assignments))
+        if got_r != {k: v for k, v in KUBE_PINS.items() if k != "latency_count"}:
+            raise AssertionError(f"config8 resumed at 30 on the {where}: {got_r}")
+        return dict(setup_s=setup_s, wall_s=r.wall_clock_s,
+                    latency_count=r.telemetry.latency["count"])
+
+    k8 = {"kernels": resume8("kernels", False)}
+    rec["config8"] = dict(saves=saves8, resumed=k8)
+    print(f"C config8 saved every 10 chunks ({json.dumps(saves8)}; the run == KUBE_PINS); "
+          f"resumed at 30 on the kernels == KUBE_PINS' placed, victims, drops and sha256: "
+          f"{json.dumps(k8['kernels'])}", flush=True)
+    mark("C config8 save, resume")
+
+    # config9 (kube and chaos): the last save after the first event, with a
+    # node_down and a node_up still to come.
+    cfg9, ec9, ep9 = config9_case()
+    ev = chaos_timeline(cfg9, ec9, ep9, cfg9.chaos.seed)
+    path = os.path.join(CKPT_DIR, "config9.npz")
+    eng, _ = config_engine(CONFIG9, ec9, ep9)
+    nb = len(eng.plan.buckets)
+    steps9 = ref.event_steps([ev], eng.plan.tb, ec9.allocatable)
+    first_b = min(steps9)
+
+    def after(c, kind):
+        return [b for b, st in steps9.items() if b >= c
+                and any(e.kind == kind for e in st.fired[0])]
+
+    # the longest cadence whose last save falls after the first event's
+    # boundary and before a node_down and a node_up
+    every = next((k for k in range(nb - 1, 0, -1) if first_b < nb // k * k < nb
+                  and after(nb // k * k, "node_down") and after(nb // k * k, "node_up")), None)
+    if every is None:
+        raise AssertionError(f"config9: no cadence saves after boundary {first_b} of {nb} "
+                             "with a node_down and a node_up to come")
+    full = eng.replay(node_events=ev, checkpoint_path=path, checkpoint_every=every)
+    cursor = eng.last_saves[-1][0]
+    downs = after(cursor, "node_down")
+    e, setup_s = config_engine(CONFIG9, ec9, ep9)
+    K.reset_launch_counts()
+    r = e.replay(node_events=ev, checkpoint_path=path, resume=True)
+    l9 = step_launches()
+    resumed_launches(f"config9 resumed at {cursor}", l9, e.plan, cursor, kube=True,
+                     evict=len(downs))
+    got = {k: getattr(r, k) for k in CHAOS_PINS["run"] if k not in ("sha256", "events")}
+    got.update(events=len(ev), sha256=assignments_sha256(r.assignments))
+    if got != CHAOS_PINS["run"] or not np.array_equal(r.assignments, full.assignments):
+        raise AssertionError(f"config9 resumed at {cursor}: {got} != {CHAOS_PINS['run']}")
+    other = [dataclasses.replace(x) for x in ev]
+    other[-1] = dataclasses.replace(other[-1], time=other[-1].time + 1.0)
+    try:
+        config_engine(CONFIG9, ec9, ep9)[0].replay(node_events=other, checkpoint_path=path,
+                                                   resume=True)
+    except ValueError as exc:
+        if "different node_events" not in str(exc):
+            raise
+    else:
+        raise AssertionError("config9: a resume under a different timeline ran")
+    ev_cursor = int(np.load(path)["bd_ev_cursor"][0])
+    rec["config9"] = dict(saves=saves_record(eng), every=every, cursor=cursor,
+                          ev_cursor=ev_cursor, events=len(ev), resume_setup_s=setup_s,
+                          resume_wall_s=r.wall_clock_s, launches=l9)
+    print(f"C config9 saved every {every} of {nb} chunks (first event at boundary {first_b}; "
+          f"{json.dumps(saves_record(eng))}, {ev_cursor} of {len(ev)} events applied at the "
+          f"last save); resumed at {cursor} == CHAOS_PINS in {r.wall_clock_s:.4f}s, K10 "
+          f"{l9['evict_node']} (node_downs at boundaries {downs}), K6 {l9['chunk_replay']}, "
+          f"K3's release {l9['apply_placements_release']}; a different timeline refused",
+          flush=True)
+    mark("C config9 save, resume")
+
+    # config13 (K9, the pager): save every 10 of 26 chunks, resume at 20.
+    eng13 = KEEP.pop("config13")
+    path = os.path.join(CKPT_DIR, "config13.npz")
+    K.reset_launch_counts()
+    full = eng13.replay(checkpoint_path=path, checkpoint_every=10)
+    sha = assignments_sha256(full.assignments)
+    if (sha != results["config13"]["assignments_sha256"]
+            or [c for c, _, _ in eng13.last_saves] != [10, 20]):
+        raise AssertionError(f"config13 checkpointing run: saves {eng13.last_saves}, or its "
+                             "assignments != step 8e's")
+    saves13 = saves_record(eng13)
+    e, setup_s = config_engine(CONFIG13, eng13.ec, eng13.pods)
+    del eng13, full
+    K.reset_launch_counts()
+    r = e.replay(checkpoint_path=path, resume=True)
+    resumed_launches("config13 resumed at 20", step_launches(), e.plan, 20, shard=True)
+    if assignments_sha256(r.assignments) != sha:
+        raise AssertionError("config13 resumed at 20: assignments != step 8e's")
+    rec["config13"] = dict(saves=saves13, resume_setup_s=setup_s, resume_wall_s=r.wall_clock_s,
+                           pager=pager_record(e.last_pager))
+    print(f"C config13 saved every 10 chunks ({json.dumps(saves13)}); resumed at 20 on K9 "
+          f"(set-up {setup_s:.3f}s, wall {r.wall_clock_s:.3f}s, pager "
+          f"{json.dumps(pager_record(e.last_pager))}) == step 8e's assignments", flush=True)
+    del e, r
+    mark("C config13 save, resume")
+
+    # config2 through the CLI run with --profile-dir, after the timed parts,
+    # in its own process; beside it config8's resume at 30 on the twins on
+    # the card, a check of the twins whose wall is no measurement.
+    prof.stdin.write("go\n")
+    prof.stdin.flush()
+    k8["twins on the card"] = resume8("twins on the card", True)
+    print(f"C config8 resumed at 30 on the twins on the card (beside the profiled run) == "
+          f"KUBE_PINS' placed, victims, drops and sha256: {json.dumps(k8['twins on the card'])}",
+          flush=True)
+    out, _ = prof.communicate(timeout=300)
+    if prof.returncode != 0:
+        raise profile_child_failed(prof, "after go")
+    got = json.loads(out.strip().splitlines()[-1])
+    traces = [os.path.join(PROFILE_DIR, f) for f in os.listdir(PROFILE_DIR)]
+    with open(traces[0]) as f:
+        events = json.load(f)["traceEvents"]
+    names = {e.get("name") for e in events}
+    k6_records = [e for e in events if e.get("cat") == "kernel"
+                  and "chunk_replay" in str(e.get("name"))]
+    if (not {"chunk:0", "device_wait"} <= names or len(k6_records) != got["k6"]
+            or len(traces) != 1 or got["placed"] != got["unprofiled"]):
+        raise AssertionError(f"config2 --profile-dir: {got}, {len(k6_records)} K6 records, "
+                             f"chunk:0 / device_wait {'chunk:0' in names} / "
+                             f"{'device_wait' in names}")
+    rec["config2_profile"] = dict(got, trace_bytes=os.path.getsize(traces[0]),
+                                  k6_records=len(k6_records),
+                                  k6_device_us=sum(float(e.get("dur", 0)) for e in k6_records))
+    print(f"C config2 CLI run with --profile-dir in a process of its own (command "
+          f"{got['command_s']:.1f}s): the trace ({os.path.getsize(traces[0])} bytes) holds "
+          f"chunk:0, device_wait and {len(k6_records)} K6 kernel records for {got['k6']} "
+          f"launches; placed {got['placed']} == the same engine unprofiled", flush=True)
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    shutil.rmtree(PROFILE_DIR, ignore_errors=True)
+    mark("C config2 profile, config8 twins")
+
+
 def main() -> int:
     if len(sys.argv) == 3 and sys.argv[1] == "--cpu-routes":
         return CpuRoutes.run_all(sys.argv[2])
@@ -7550,22 +7914,23 @@ def main() -> int:
     _last_mark[0] = t_start
     # Processes that see no card run beside the card's steps once the kernels
     # are built: config12's tune on the host evaluator (H), the reduced cases'
-    # plain path on the CPU and the kube holds' twin pool; all are stopped if
-    # a step fails before they are read.
-    tune12, pools = [], []
+    # plain path on the CPU and the kube holds' twin pool; and C's profiled
+    # config2 run, idle on the card until C's go. All are stopped if a step
+    # fails before they are read.
+    procs, pools = [], []
     try:
-        return run_steps(results, dev, device_kind, t_start, tune12, pools)
+        return run_steps(results, dev, device_kind, t_start, procs, pools)
     finally:
         CPU_ROUTES.stop()
         for pool in pools:
             pool.close()
-        for proc, _ in tune12:
+        for proc in procs:
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
 
 
-def run_steps(results, dev, device_kind, t_start, tune12, pools) -> int:
+def run_steps(results, dev, device_kind, t_start, procs, pools) -> int:
     import threading
 
     t0 = time.perf_counter()
@@ -7592,7 +7957,10 @@ def run_steps(results, dev, device_kind, t_start, tune12, pools) -> int:
         raise failed[0]
     CPU_ROUTES.start()
     pools.append(TwinPool())
-    tune12.append(start_tune12())
+    tune12 = start_tune12()
+    # C's profiled config2 run: started now, idle from step 3 until C's go.
+    prof = start_profile_child()
+    procs += [tune12[0], prof]
     results["build_s"] = K.last_build_s
     print(f"kernels built in {K.last_build_s:.2f}s "
           f"({time.perf_counter() - t0:.2f}s with loading)", flush=True)
@@ -7610,6 +7978,9 @@ def run_steps(results, dev, device_kind, t_start, tune12, pools) -> int:
           f"R={ec.num_resources} G={ec.num_groups} D={ec.max_domains} "
           f"T={ec.node_domain.shape[0]} ({results['encode_s']:.1f}s)", flush=True)
 
+    # C's profiled run has reached the card: from here it waits, idle.
+    if prof.stdout.readline().strip() != "ready":
+        raise profile_child_failed(prof, "before ready")
     mark("1-2 build, encode")
     run_config1(results)
     mark("H config1 run")
@@ -7638,7 +8009,7 @@ def run_steps(results, dev, device_kind, t_start, tune12, pools) -> int:
         eng.plan, res.assignments[None], launches_c2)
     print(f"config2 chunk-loop bound (B6): {json.dumps(results['chunk_loop_bound_ms_config2'])} "
           f"ms", flush=True)
-    mk = lambda: (eng._tables(), new_choices(eng.plan, 1, ep.bound_node, dev))
+    mk = lambda: (eng._tables(), new_choices(eng.plan, 1, dev))
     _, _, twin_c2 = hold_twin("config2", eng.plan, mk, min(K6_TWIN_WAVES, eng.plan.C))
     results["config2"] = dict(
         route=res.route, chunks=len(eng.plan.buckets),
@@ -7712,6 +8083,7 @@ def run_steps(results, dev, device_kind, t_start, tune12, pools) -> int:
         placed_min=int(warm.placed.min()), placed_max=int(warm.placed.max()),
         scenario0_placed=int(warm.placed[0]), single_replay_placed=single.placed,
         single_replay_wall_s=single.wall_clock_s,
+        single_replay_sha256=assignments_sha256(single.assignments),
         utilization_cpu_mean=float(warm.utilization_cpu.mean()),
         profiled_wall_s=res_p.wall_clock_s, device_busy_s=busy_s,
         device_busy_share=busy_s / res_p.wall_clock_s if busy_s else None,
@@ -7828,8 +8200,11 @@ def run_steps(results, dev, device_kind, t_start, tune12, pools) -> int:
     ktel = run_telemetry_kube_paths(results, dev, pools[0])
     # S: the resident query service (config20's serve; K6's kube mode, K10).
     svc_launches = run_service_paths(results, dev)
+    # C: checkpoint/resume and the what-if fork (config4, the headline,
+    # config8, config9, config13; config2 profiled).
+    run_checkpoint_paths(results, headline_case, prof)
     # H: config12's tune, which ran beside the card's steps.
-    finish_tune12(*tune12[0], results)
+    finish_tune12(*tune12, results)
     mark("H config12 tune (read)")
     results["wall_s_total"] = time.perf_counter() - t_start
     print("step walls (s): " + json.dumps({k: round(v, 1) for k, v in STEP_S.items()}),

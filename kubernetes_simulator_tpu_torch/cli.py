@@ -6,6 +6,8 @@ the card.
     python -m kubernetes_simulator_tpu_torch what-if config.yaml [--device cpu]
     python -m kubernetes_simulator_tpu_torch tune config.yaml [--device cpu]
     python -m kubernetes_simulator_tpu_torch serve config.yaml [--device cpu] < queries.ndjson
+    python -m kubernetes_simulator_tpu_torch validate config.yaml
+    (every subcommand: [--profile-dir DIR], a torch.profiler trace of the run)
 
 Counterpart: ``kubernetes_simulator_tpu/cli.py`` (``cmd_run`` :83,
 ``cmd_whatif`` :140; both pass ``whatIf.retryBuffer``, :100 and :182,
@@ -43,7 +45,13 @@ writes a ``replay-cpu`` row. ``tune`` scores on the CPU event engine when
 the tuner's evaluator resolves to the host (``evaluator: cpu``, or ``auto``
 with terms the batched sweep does not carry: config12). ``serve``
 (:267-335) answers a ``service:`` section's NDJSON queries through the
-resident query service (:mod:`.sim.service`).
+resident query service (:mod:`.sim.service`). ``validate`` (:894-914)
+prints the reference's JSON report of a config's checks
+(:func:`validate_config`) and exits 1 where it lists an error.
+``--profile-dir`` (:918-926) traces the command's run with
+:func:`.utils.profiling.device_trace` and also arms the chunk loop's
+annotations (``KSIM_PROFILE_DIR``), which the reference leaves to the
+environment.
 """
 
 from __future__ import annotations
@@ -58,6 +66,7 @@ import yaml
 from .framework.registry import get_strategy
 from .utils.config import SimConfig, build_encoded_case, config_errors, workload_seed
 from .utils.metrics import JsonlWriter, config_hash, log, replay_row, whatif_rows
+from .utils.profiling import device_trace
 
 
 def _load(path: str) -> SimConfig:
@@ -159,7 +168,8 @@ def cmd_run(args) -> int:
         events = _chaos_timeline(cfg, ec, ep, cfg.chaos.seed)
         log.info("chaos: injecting %d node events", len(events))
     with JsonlWriter(cfg.output, context=context) as out:
-        res = engine.replay(node_events=events) if events else engine.replay()
+        with device_trace(args.profile_dir):
+            res = engine.replay(node_events=events) if events else engine.replay()
         out.write(replay_row("replay-torch", res, {"config": args.config,
                                                    "device": str(engine.device)}))
     _write_timeline(timeline_out, res, ec, ep)
@@ -184,7 +194,8 @@ def _run_cpu(args, cfg, raw: dict, ec, ep, gran: str, timeline_out) -> int:
         events = _chaos_timeline(cfg, ec, ep, cfg.chaos.seed)
         log.info("chaos: injecting %d node events", len(events))
     with JsonlWriter(cfg.output, context=context) as out:
-        res = engine.replay(node_events=events) if events else engine.replay()
+        with device_trace(args.profile_dir):
+            res = engine.replay(node_events=events) if events else engine.replay()
         out.write(replay_row("replay-cpu", res, {"config": args.config, "device": "cpu"}))
     _write_timeline(timeline_out, res, ec, ep)
     log.info(
@@ -237,7 +248,7 @@ def cmd_whatif(args) -> int:
     context = {
         "seed": workload_seed(cfg), "engine": "torch", "config_hash": config_hash(raw),
     }
-    with JsonlWriter(cfg.output, context=context) as out:
+    with JsonlWriter(cfg.output, context=context) as out, device_trace(args.profile_dir):
         res = eng.run()
         for row in whatif_rows(res, {"config": args.config, "mesh": bool(mesh),
                                      "device": str(eng.device)}):
@@ -286,7 +297,8 @@ def cmd_tune(args) -> int:
     context = {
         "seed": workload_seed(cfg), "engine": cfg.strategy, "config_hash": config_hash(raw),
     }
-    with JsonlWriter(tu.output or cfg.output, context=context) as out:
+    with JsonlWriter(tu.output or cfg.output, context=context) as out, \
+            device_trace(args.profile_dir):
         res = tuner.run(writer=out)
     log.info(
         "tune: %s over %d rounds x %d candidates (%d evaluations, %d set-up%s) in %.3fs on %s",
@@ -352,12 +364,13 @@ def cmd_serve(args) -> int:
             wave_width=cfg.wave_width, chunk_waves=cfg.chunk_waves, device=args.device,
         )
         try:
-            if sv.input is not None:
-                # A named pipe blocks here until a producer connects.
-                with open(sv.input) as f:
-                    stats = serve_lines(service, f, out)
-            else:
-                stats = serve_lines(service, sys.stdin, out)
+            with device_trace(args.profile_dir):
+                if sv.input is not None:
+                    # A named pipe blocks here until a producer connects.
+                    with open(sv.input) as f:
+                        stats = serve_lines(service, f, out)
+                else:
+                    stats = serve_lines(service, sys.stdin, out)
         finally:
             if flight is not None:
                 flight.close()
@@ -370,6 +383,154 @@ def cmd_serve(args) -> int:
     return 0
 
 
+def validate_config(cfg: SimConfig) -> list:
+    """The reference's structural checks of a config
+    (kubernetes_simulator_tpu/cli.py:633-891 ``validate_config``), in its
+    order and words, as actionable error strings (empty: valid): strategy,
+    profile, workload, what-if, preemption, node shards and pages, chaos,
+    tune, telemetry, chunk grid, flight recorder, overlap and service. The
+    port's device strategies are ``jax`` and ``torch`` where the reference
+    names its ``jax``; the fleet's sections never reach here (the parse
+    refuses them, ROADMAP queue A item 11). One order differs: the reference
+    lists kube's checks before the retry buffer's with
+    ``whatIf.completions: false``, here after it."""
+    import os
+
+    from .framework.registry import available_strategies
+    from .plugins.builtin import PLUGIN_FACTORIES
+    from .sim import runtime as _rt  # noqa: F401  (registers "cpu")
+    from .sim import torch_runtime as _trt  # noqa: F401  (registers "torch")
+    from .sim.telemetry import _LEVELS
+    from .utils.config import (STRATEGIES, borg_errors, chaos_errors, flight_errors,
+                               kube_errors, overlap_errors, service_errors, shard_errors,
+                               value_errors)
+
+    errors = []
+    known = sorted(set(available_strategies()) | set(STRATEGIES))
+    if cfg.strategy not in known:
+        errors.append(f"strategy: unknown '{cfg.strategy}' (registered: {', '.join(known)})")
+    device = cfg.strategy != "cpu"
+    ww = cfg.wave_width
+    for e in cfg.framework.plugins or []:
+        if not isinstance(e, dict) or "name" not in e:
+            errors.append(f"profile.plugins: entry must be a mapping with name:, got {e!r}")
+            continue
+        if e.get("name") not in PLUGIN_FACTORIES:
+            errors.append(f"profile.plugins: unknown plugin '{e.get('name')}' "
+                          f"(known: {', '.join(sorted(PLUGIN_FACTORIES))})")
+    for name, w in (cfg.framework.weights or {}).items():
+        if name not in PLUGIN_FACTORIES:
+            errors.append(f"profile.weights: unknown plugin '{name}'")
+        elif not isinstance(w, (int, float)) or w < 0:
+            errors.append(f"profile.weights.{name}: must be a number >= 0")
+    if cfg.borg is not None:
+        errors.extend(borg_errors(cfg))
+    else:
+        if cfg.cluster.nodes <= 0:
+            errors.append("cluster.nodes: must be > 0")
+        wl = cfg.workload
+        if wl is not None:
+            if wl.pods <= 0:
+                errors.append("workload.pods: must be > 0")
+            if wl.gang_fraction and wl.gang_size > ww:
+                errors.append(f"workload.gangSize ({wl.gang_size}) exceeds waveWidth ({ww}): a "
+                              "gang must fit in one wave")
+    dp = cfg.device_preemption
+    if cfg.whatif.scenarios < 0:
+        errors.append("whatIf.scenarios: must be >= 0")
+    errors.extend(value_errors(cfg) + kube_errors(cfg))
+    errors.extend(shard_errors(cfg) + chaos_errors(cfg))
+    errors.extend(_tune_errors(cfg))
+    if cfg.telemetry not in _LEVELS:
+        errors.append(f"telemetry.granularity: must be one of {', '.join(_LEVELS)}, got "
+                      f"{cfg.telemetry!r}")
+    if cfg.timeline_out:
+        d = os.path.dirname(cfg.timeline_out) or "."
+        if not os.path.isdir(d):
+            errors.append(f"telemetry.timelineOut: directory not found: {d}")
+    if cfg.chunk_waves <= 0:
+        errors.append("chunkWaves: must be > 0")
+    if ww <= 0:
+        errors.append("waveWidth: must be > 0 (or 'auto')")
+    if dp and not device:
+        errors.append("devicePreemption requires strategy: jax (the cpu engine runs kube "
+                      "PostFilter preemption instead)")
+    if cfg.flight_recorder is not None and not device:
+        errors.append("flightRecorder requires strategy: jax (the cpu engine has no chunk "
+                      "loop to record)")
+    errors.extend(flight_errors(cfg))
+    errors.extend(overlap_errors(cfg))
+    errors.extend(service_errors(cfg))
+    return errors
+
+
+def _tune_errors(cfg: SimConfig) -> list:
+    """The reference's checks of a ``tune:`` section (cli.py:782-843)."""
+    tu = cfg.tune
+    if tu is None:
+        return []
+    from .sim.tuner import _ALWAYS_METRICS, _RESULT_METRICS, normalize_constraints
+
+    errors = []
+    if tu.algo not in ("cem", "random"):
+        errors.append(f"tune.algo: must be 'cem' or 'random', got {tu.algo!r}")
+    if tu.population < 2:
+        errors.append("tune.population: must be >= 2")
+    if tu.rounds < 1:
+        errors.append("tune.rounds: must be >= 1")
+    if not 0.0 < tu.elite_frac <= 1.0:
+        errors.append("tune.eliteFrac: must be in (0, 1]")
+    if tu.train_scenarios < 1 or tu.heldout_scenarios < 1:
+        errors.append("tune.scenarios: train and heldout must both be >= 1 (the acceptance "
+                      "check runs on the held-out split)")
+    if tu.evaluator not in ("auto", "device", "cpu"):
+        errors.append(f"tune.evaluator: must be 'auto', 'device' or 'cpu', got "
+                      f"{tu.evaluator!r}")
+    try:
+        cons = normalize_constraints(tu.constraints)
+    except ValueError as e:
+        errors.append(f"tune.constraints: {e}")
+        cons = []
+    for term in list(tu.objective or {}) + [c["metric"] for c in cons]:
+        if term not in _RESULT_METRICS:
+            errors.append(f"tune.objective: unknown term '{term}' (known: "
+                          f"{', '.join(sorted(_RESULT_METRICS))})")
+        elif term not in _ALWAYS_METRICS and tu.evaluator == "device":
+            errors.append(f"tune.objective: term '{term}' rides the kube host mirrors, which "
+                          "the batched policy sweep does not support — drop 'evaluator: "
+                          f"device' or use terms from {', '.join(sorted(_ALWAYS_METRICS))}")
+    wb = tu.weight_bounds
+    if wb is not None and (len(wb) != 2 or wb[0] >= wb[1]):
+        errors.append("tune.weightBounds: must be [lo, hi] with lo < hi")
+    if tu.cpu_envelope < 0:
+        errors.append("tune.cpuEnvelope: must be >= 0")
+    return errors
+
+
+def cmd_validate(args) -> int:
+    """Print the reference's JSON report of a config's checks (cli.py:894-914)
+    and exit 1 where it lists an error. A parse-time error (a malformed
+    value, a section the port refuses: the fleet's ``dcn`` and
+    ``faultline``, ROADMAP queue A item 11) is the report's only error."""
+    import json
+
+    try:
+        with open(args.config) as f:
+            cfg = SimConfig.parse(yaml.safe_load(f) or {})
+    except (ValueError, KeyError, NotImplementedError) as e:
+        print(json.dumps({"errors": [str(e)]}, indent=2))
+        return 1
+    errors = validate_config(cfg)
+    nodes = cfg.borg.nodes if cfg.borg else cfg.cluster.nodes
+    tasks = cfg.borg.tasks if cfg.borg else (cfg.workload.pods if cfg.workload else 1000)
+    print(json.dumps({"strategy": cfg.strategy, "nodes": nodes, "tasks": tasks,
+                      "workload": "borg" if cfg.borg else "synthetic",
+                      "devicePreemption": cfg.device_preemption,
+                      "whatif_scenarios": cfg.whatif.scenarios,
+                      "errors": errors}, indent=2))
+    return 1 if errors else 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="kubernetes_simulator_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -378,9 +539,14 @@ def main(argv=None) -> int:
         ("what-if", cmd_whatif, "run a config's what-if scenario batch"),
         ("tune", cmd_tune, "search a config's scheduler Score policy (the tune: section)"),
         ("serve", cmd_serve, "answer NDJSON what-if queries (the service: section)"),
+        ("validate", cmd_validate, "check a config and print the report as JSON"),
     ):
         r = sub.add_parser(name, help=text)
         r.add_argument("config")
+        r.add_argument(
+            "--profile-dir", default=None,
+            help="torch.profiler trace output dir (arms the chunk loop's annotations)",
+        )
         r.add_argument(
             "--device", default="cuda",
             help="torch device (default cuda: the kernels; cpu: their plain twins)",
@@ -397,6 +563,12 @@ def main(argv=None) -> int:
             )
         r.set_defaults(fn=fn)
     args = ap.parse_args(argv)
+    if args.profile_dir:
+        import os
+
+        # The annotations (utils/profiling.py) arm on KSIM_PROFILE_DIR; an
+        # operator's explicit value wins.
+        os.environ.setdefault("KSIM_PROFILE_DIR", args.profile_dir)
     return args.fn(args)
 
 

@@ -887,9 +887,10 @@ class Bound:
         kube fields) with its scratch, allocated at the first call and kept
         with the Bound: the pass's ring ``kq [S, RB]`` and state ``kst [S,
         4]``, the PostFilter's ``kvic [S, P]``, ``koff`` / ``kcnt [S, N]``
-        (each call rewrites what it reads). Under a chaos timeline without
-        kube: the node tables alone (``col_of``, ``col_relb``, ``rrel``,
-        ``first_b``, the choice buffer), the rest null."""
+        (each call rewrites what it reads). Without kube (a chaos timeline,
+        a checkpointing replay's retry buffer): the node tables alone
+        (``col_of``, ``col_relb``, ``rrel``, ``first_b``, the choice
+        buffer), the rest null."""
         tb = self.tables
         rt = tb.retry
         S, N = tb.state.used.shape[:2]
@@ -1262,7 +1263,7 @@ def chunk_replay(b: Bound, idx: torch.Tensor, gang: torch.Tensor, choices: torch
         phase = KsimRetryPhase(int(bnd), float(t_b), int(bool(pending)), int(kube), ptr(sm.used),
                                ptr(sm.rcount), ptr(sm.pend), *map(ptr, snap))
         rt = b.tables.retry
-        if kube or rt.evict_t is not None:
+        if rt.rrel is not None:  # kube, a chaos timeline or a checkpointing replay
             phase.k = b.kube_phase(choices)
         if rt.evict_t is not None:
             phase.t_bd = float(rt.tbd[bnd]) if bnd < rt.tbd.shape[0] else float("inf")

@@ -300,13 +300,16 @@ FIRST_IN_WAVE = -2
 
 
 def new_retry(RB: int, duration: np.ndarray, tbt: np.ndarray, S: int, device,
-              kube: Optional[dict] = None, chaos: Optional[dict] = None) -> Retry:
+              kube: Optional[dict] = None, chaos: Optional[dict] = None,
+              nodes: Optional[dict] = None) -> Retry:
     """An empty Retry of S scenarios with a buffer of RB slots on
     ``device``; ``kube`` (``prio [P]``, ``col_of [P]``, ``col_relb [L]``
     host arrays and ``trace_has_anti``) adds kube preemption's tables;
     ``chaos`` (``col_of``, ``col_relb`` and ``tbd``, the boundaries' f64
     start times) the chaos counters, and without kube the node tables K10
-    reads (``col_of``, ``col_relb``, ``rrel``, ``first_b``)."""
+    reads (``col_of``, ``col_relb``, ``rrel``, ``first_b``); ``nodes``
+    (``col_of``, ``col_relb``) those node tables alone (a checkpointing
+    replay's, whose blob reads ``rrel``)."""
     P = int(np.asarray(duration).shape[0])
     i32 = torch.int32
     pad = lambda *shape: torch.full(shape, PAD, dtype=i32, device=device)
@@ -319,7 +322,7 @@ def new_retry(RB: int, duration: np.ndarray, tbt: np.ndarray, S: int, device,
         rnode=pad(S, P), rbind_b=pad(S, P),
     )
     t = lambda a: torch.as_tensor(np.ascontiguousarray(a, np.int32), device=device)
-    nodes = kube if kube is not None else chaos
+    nodes = kube if kube is not None else chaos if chaos is not None else nodes
     if nodes is not None:
         rt = rt._replace(col_of=t(nodes["col_of"]), col_relb=t(nodes["col_relb"]),
                          rrel=torch.full((S, P), NEVER, dtype=i32, device=device),

@@ -46,7 +46,8 @@ differs from the reference's loop, its rows differ so:
 
 The ``checkpoint``, ``query`` and ``fleet`` rows and the per-process sink
 suffix are the reference's and fire only with the modes that emit them
-(checkpoints, the service, the fleet: ROADMAP queue A items 6d, 8, 11);
+(the single replay's checkpoints, the service, the fleet: ROADMAP queue A
+item 11);
 :data:`EVENT_SINKS` is where the fleet's events would arrive.
 """
 

@@ -119,7 +119,7 @@ appends at bind time — and after the last chunk one more retry-mode launch
 with no waves is the trailing boundary at ``t = inf`` (every pending entry
 due there; no static release, no new pending entry). The per-slot route
 refuses kube (its pass would need a host sync a slot), and so do node
-shards, paged waves (the reference's refusal) and checkpoints (6d). The
+shards and paged waves (the reference's refusal). The
 summary latency counts first binds only (``Retry.first_b``), victims that
 end unplaced included; ``ReplayResult.preemptions`` and ``retry_dropped``
 come from the card.
@@ -139,7 +139,31 @@ retry-mode K6, whose pass re-binds the victims (at boundary 0 too, where
 K10 evicted pre-bound pods). The plain path rewrites rows only, as the
 reference's. The run restores the allocatable after the loop. Refused by
 name: events under node shards or paged waves and on the per-slot route
-under the retry buffer (queue A item 6b) and with checkpoints (6d).
+under the retry buffer (queue A item 6b).
+
+Checkpoint/resume of the single replay (``replay(checkpoint_path=,
+checkpoint_every=, resume=)``; the reference's :1382-1401, :1614-1640,
+:1853-1876, :2165-2232 and :2402-2416, its file format
+:mod:`.checkpoint`): the chunk loop runs in ranges cut at the cadence and
+saves between two launches, after chunk ci and before boundary ci + 1's
+work (:class:`Checkpointing`), with one host sync a save. The plain path
+(v3 and v2, completions, pre-bound pods, node shards and paged waves) saves
+the planes in host layout (a sharded ``used`` sliced to the real nodes),
+each run chunk's choices in the reference's ``[C, W]`` layout and the
+released mask; a resume seeds the planes, the choice buffer and, under node
+shards, the restored columns' domain ids, and starts the loop at the
+cursor (the pager at the cursor's page). Its release buckets are static,
+so the file's mask must be the one they imply (the reference's re-pended
+last fold is their one-chunk slack). Under the retry buffer, kube and chaos
+the port keeps no host mirror: the boundary blob is derived from the
+device retry tables (a pod's node from its column, ``rnode`` and ``rrel``,
+which a checkpointing run keeps also without kube or chaos; the queue, the
+pending list and the counters as they stand) and a resume rebuilds those
+tables from it, re-applies the allocatable rows of the events before the
+cursor without evicting again and keeps the reference's guards (a mode,
+buffer, chunk grid or timeline of another run is refused). Tier preemption
+keeps the reference's refusal. Under checkpoints series attribution is off
+with the reference's log line; latency and phases are still collected.
 
 Telemetry ``series`` / ``timeline`` under kube and under chaos (the
 reference's host pass and mirror, sim/boundary.py:360-398, :430-475,
@@ -529,7 +553,9 @@ class ChunkPlan:
 
     The choice buffer has one row per scenario and ``L`` columns: one per
     wave slot (``idx.size``, in wave order) and then a static tail with
-    one column per pre-bound pod, whose node every scenario shares.
+    one column per pre-bound pod, whose node every scenario shares (in a
+    what-if fork, also one per pod of the waves before the fork point, with
+    the source replay's choice: :func:`fork_tail`).
     ``buckets[b]`` holds the pods that release at boundary b (the start of
     chunk b) and their choice-buffer columns, in pod order; None where
     nothing releases."""
@@ -537,7 +563,7 @@ class ChunkPlan:
     idx: np.ndarray  # [num_waves, W] i32, padded to a multiple of C
     C: int
     gang_wave: np.ndarray  # [num_waves] bool: the wave holds a gang member
-    prebound: np.ndarray  # pre-bound pod ids, in tail order
+    prebound: np.ndarray  # the tail's pods (pre-bound, then a fork's prefix), in tail order
     buckets: List[Optional[Tuple[np.ndarray, np.ndarray]]]
     #: [L] i32 boundary at which each column's pod releases (ref.NEVER
     #: for a pod that runs on and for a padded slot)
@@ -547,6 +573,9 @@ class ChunkPlan:
     #: [nchunks] valid non-gang pods in the waves before each boundary: no
     #: more can wait in a scenario's retry buffer there
     nongang_before: np.ndarray
+    #: [len(prebound)] i32 the node of each tail column (PAD: a fork's
+    #: unplaced pod)
+    tail_node: np.ndarray
 
     @property
     def tbt(self) -> np.ndarray:
@@ -592,14 +621,18 @@ class ChunkPlan:
 
 
 def plan_chunks(
-    pods: EncodedPods, wave_idx: np.ndarray, C: int, completions_on: bool, has_gangs: bool
+    pods: EncodedPods, wave_idx: np.ndarray, C: int, completions_on: bool, has_gangs: bool,
+    fork: Optional["ForkTail"] = None,
 ) -> ChunkPlan:
     """Pad the waves to whole chunks of C and bucket the completion
     releases (sim/whatif.py ``_stage_dev_rel``): a pod releases at
     ``b_rel = max(first boundary whose start time ≥ its release time,
     chunk_of + 2)`` — the one-chunk slack — where ``chunk_of`` is the
     chunk holding its slot (−2 for a pre-bound pod). Boundaries past the
-    last finite one never release."""
+    last finite one never release. ``fork`` (:func:`fork_tail`; the waves
+    are then those after the fork point) adds the pre-fork pods to the
+    tail at their ``chunk_of`` and leaves out of the buckets the pods whose
+    release the forked state already carries, and the unplaced ones."""
     W = wave_idx.shape[1]
     C = min(int(C), max(wave_idx.shape[0], 1))
     pad_to = ((wave_idx.shape[0] + C - 1) // C) * C
@@ -613,6 +646,10 @@ def plan_chunks(
         else np.zeros(idx.shape[0], bool)
     )
     prebound = np.nonzero(pods.bound_node >= 0)[0]
+    tail_node = pods.bound_node[prebound].astype(np.int32)
+    if fork is not None:
+        prebound = np.concatenate([prebound, fork.pods]).astype(np.int64)
+        tail_node = np.concatenate([tail_node, fork.nodes]).astype(np.int32)
     nchunks = idx.shape[0] // C
     buckets: List[Optional[Tuple[np.ndarray, np.ndarray]]] = [None] * nchunks
     col_relb = np.full(idx.size + prebound.size, ref.NEVER, np.int32)
@@ -634,6 +671,11 @@ def plan_chunks(
         nfin = int(np.isfinite(tb_all).sum())
         elig = np.searchsorted(tb_all[:nfin], rel_time, side="left").astype(np.int64)
         elig_ok = np.isfinite(rel_time) & (elig < nfin)
+        if fork is not None:
+            chunk_of[fork.pods] = fork.chunk_of
+            tail_of = np.full(P, PAD, np.int32)
+            tail_of[prebound] = tail_node
+            elig_ok &= ~fork.released & ~((pos_of >= Wtot) & (tail_of < 0))
         b_rel = np.maximum(elig, chunk_of + 2)
         ok = elig_ok & (b_rel < nchunks) & (pos_of >= 0)
         pods_ok = np.nonzero(ok)[0]
@@ -647,16 +689,71 @@ def plan_chunks(
             buckets[b] = (seg.astype(np.int32), pos_of[seg].astype(np.int32))
         col_relb[pos_of[pods_ok]] = b_rel[pods_ok]
     return ChunkPlan(idx=idx, C=C, gang_wave=gang_wave, prebound=prebound, buckets=buckets,
-                     col_relb=col_relb, tb=tb_all, nongang_before=nongang_before)
+                     col_relb=col_relb, tb=tb_all, nongang_before=nongang_before,
+                     tail_node=tail_node)
 
 
-def new_choices(plan: ChunkPlan, S: int, bound_node: np.ndarray, device) -> torch.Tensor:
+class ForkTail(NamedTuple):
+    """The pre-fork part of a what-if fork (:func:`fork_tail`)."""
+
+    waves_done: int  # real waves the source replay ran (clamped)
+    pods: np.ndarray  # [n] i64 the valid pods of those waves, in slot order
+    nodes: np.ndarray  # [n] i32 the source's choice of each (PAD: unplaced)
+    chunk_of: np.ndarray  # [n] i64 −2 folded before the fork, −1 the source's last chunk
+    released: np.ndarray  # [P] bool releases the forked state already carries
+
+
+def fork_tail(pods: EncodedPods, wave_idx: np.ndarray, ck) -> ForkTail:
+    """The fork point of a plain checkpoint ``ck`` over the waves
+    ``wave_idx`` (kubernetes_simulator_tpu/sim/whatif.py:1854-1883,
+    :2738-2810, :2939-2962): the source's saved choices clamped to the real
+    wave count (a replay pads its waves to whole chunks); the pods of its
+    chunks before the last one folded (release from boundary 0 after the
+    fork), those of its last chunk one chunk behind (from boundary 1, the
+    one-chunk slack); its released mask, or without one (a file written
+    before the field) the releases :func:`rebuild_fork_state` reconstructs
+    with slack 0, as the reference does. A boundary-mode file is refused in
+    the reference's words."""
+    if ck.boundary is not None:
+        raise ValueError(
+            "cannot fork from a boundary-mode (retry/kube) checkpoint: its placements live in "
+            "the host mirror, not the saved outs; resume it on a matching JaxReplayEngine "
+            "instead")
+    W = wave_idx.shape[1]
+    done, choices = 0, np.zeros((0, W), np.int32)
+    C_src = int(np.asarray(ck.outs[0]).shape[0]) if ck.outs else 0
+    if ck.outs:
+        fork = np.concatenate([np.asarray(o, np.int32).reshape(-1, W) for o in ck.outs])
+        done = min(fork.shape[0], wave_idx.shape[0])
+        choices = fork[:done]
+    cut = max(min((ck.chunk_cursor - 1) * C_src, done) if C_src else done, 0)
+    rows = wave_idx[:done]
+    v = rows >= 0
+    chunk_of = np.where(np.arange(done)[:, None] < cut, -2, -1) + np.zeros_like(rows)
+    if ck.released is not None:
+        released = np.asarray(ck.released, bool)
+    elif C_src:
+        need = ck.chunk_cursor * C_src
+        idx_src = wave_idx
+        if idx_src.shape[0] < need:
+            idx_src = np.concatenate(
+                [idx_src, np.full((need - idx_src.shape[0], W), PAD, np.int32)])
+        _, released = rebuild_fork_state(pods, idx_src, C_src, ck.outs,
+                                         wave_start_times(pods, idx_src), ck.chunk_cursor,
+                                         slack=0)
+    else:
+        released = np.zeros(pods.num_pods, bool)
+    return ForkTail(waves_done=done, pods=rows[v].astype(np.int64),
+                    nodes=choices[v].astype(np.int32), chunk_of=chunk_of[v].astype(np.int64),
+                    released=released)
+
+
+def new_choices(plan: ChunkPlan, S: int, device) -> torch.Tensor:
     """A fresh choice buffer ``[S, L]``: PAD in every slot column, each
-    pre-bound pod's node in its tail column."""
+    tail column's node (a pre-bound pod's, a fork's pre-fork choice)."""
     choices = torch.full((S, plan.L), PAD, dtype=torch.int32, device=device)
     if plan.prebound.size:
-        choices[:, plan.idx.size :] = torch.as_tensor(
-            bound_node[plan.prebound].astype(np.int32), device=device)
+        choices[:, plan.idx.size :] = torch.as_tensor(plan.tail_node, device=device)
     return choices
 
 
@@ -802,11 +899,44 @@ def alloc_at_boundaries(steps: dict, B: int, alloc0: np.ndarray) -> np.ndarray:
     return out
 
 
+def make_tick(timers=None) -> Callable:
+    """``tick(phase)``: the phase timer of ``timers`` (a no-op without),
+    under a ``torch.profiler`` record of the phase's name while profiling is
+    armed (:mod:`..utils.profiling`; the reference's ``_make_tick``,
+    sim/jax_runtime.py:63). Asked once a run."""
+    from ..utils.profiling import annotate, profiling_active
+
+    base = timers.tick if timers is not None else (lambda name: contextlib.nullcontext())
+    if not profiling_active():
+        return base
+
+    @contextlib.contextmanager
+    def tick(name):
+        with annotate(name), base(name):
+            yield
+
+    return tick
+
+
+def chunk_annotation(b: int):
+    """The records of chunk b's launches while profiling is armed:
+    ``chunk:<b>`` under ``dispatch`` (the reference's ``_chunk_ann``,
+    sim/jax_runtime.py:91); else a no-op context."""
+    from ..utils.profiling import annotate, profiling_active
+
+    if not profiling_active():
+        return contextlib.nullcontext()
+    stack = contextlib.ExitStack()
+    stack.enter_context(annotate("dispatch"))
+    stack.enter_context(annotate(f"chunk:{b}"))
+    return stack
+
+
 def run_waves(plan: ChunkPlan, tb: ref.Tables, choices: torch.Tensor, first: int, end: int,
               plain: bool, ser: Optional[Series] = None, route: str = "slot",
               pager=None, joint: bool = False, timers=None,
               on_chunk: Optional[Callable[[int], None]] = None,
-              chaos: Optional[dict] = None) -> None:
+              chaos: Optional[dict] = None, trailing: Optional[bool] = None) -> None:
     """Enqueue waves ``[first, end)`` of ``plan`` over the S scenarios of
     ``tb`` (state and ``choices`` updated in place, no synchronisation):
     the release bucket of a boundary where a chunk starts (with ``joint``,
@@ -844,8 +974,11 @@ def run_waves(plan: ChunkPlan, tb: ref.Tables, choices: torch.Tensor, first: int
     samples), and a range that ends the plan ends with the trailing
     boundary at ``t = inf`` (sim/greedy.py, the reference's :232-239): its
     release (every pending entry due, no static bucket) and one retry-mode
-    K6 with no waves. The tables' event log (``tb.log``, telemetry
-    timeline) takes K10's and the retry pass's records.
+    K6 with no waves (``trailing`` False leaves it to a later call, which
+    runs it with ``first == end`` and ``trailing`` True: a checkpoint after
+    the last chunk is taken before it, as the reference's). The tables'
+    event log (``tb.log``, telemetry timeline) takes K10's and the retry
+    pass's records.
 
     On node-sharded tables (row B13) a boundary's release is K8's, and the
     chunk's waves one K9 launch over the waves in the range (``"shard"``,
@@ -1016,20 +1149,24 @@ def run_waves(plan: ChunkPlan, tb: ref.Tables, choices: torch.Tensor, first: int
         w = first
         while w < end:
             b = w // C
-            retry, samples = boundary_work(b) if w % C == 0 else (None, None)
-            hi = min(end, (b + 1) * C)
-            if route == "shard":
-                shard_chunk_replay(h, desc.idx, desc.gang, choices, w, hi)
-            elif retry is not None:
-                chunk_replay(h, desc.idx, desc.gang, choices, w, hi, append=True,
-                             reject=tb.reject if reject is not None else None, retry=retry,
-                             samples=samples)
-            else:
-                chunk_replay(h, desc.idx, desc.gang, choices, w, hi,
-                             boundary=b if preempt else None, append=append, reject=k6_reject)
+            with chunk_annotation(b):
+                retry, samples = boundary_work(b) if w % C == 0 else (None, None)
+                hi = min(end, (b + 1) * C)
+                if route == "shard":
+                    shard_chunk_replay(h, desc.idx, desc.gang, choices, w, hi)
+                elif retry is not None:
+                    chunk_replay(h, desc.idx, desc.gang, choices, w, hi, append=True,
+                                 reject=tb.reject if reject is not None else None, retry=retry,
+                                 samples=samples)
+                else:
+                    chunk_replay(h, desc.idx, desc.gang, choices, w, hi,
+                                 boundary=b if preempt else None, append=append,
+                                 reject=k6_reject)
             w = hi
             chunk_done(b)
-        if kube and end == idx.shape[0] and end > first:
+        if trailing is None:
+            trailing = end > first
+        if kube and end == idx.shape[0] and trailing:
             bt = idx.shape[0] // C
             if ser is not None and ser.fold:
                 fold((end - 1) // C)  # the last chunk's failures, before the trailing pass
@@ -1047,7 +1184,8 @@ def run_waves(plan: ChunkPlan, tb: ref.Tables, choices: torch.Tensor, first: int
         for w in range(first, end):
             b = w // C
             if w % C == 0:
-                boundary_work(b)
+                with chunk_annotation(b):
+                    boundary_work(b)
             base = w * W
             for k, p in enumerate(rows[w]):
                 if p < 0:
@@ -1078,23 +1216,53 @@ def run_waves(plan: ChunkPlan, tb: ref.Tables, choices: torch.Tensor, first: int
         pager.done(page)
 
 
+class Checkpointing(NamedTuple):
+    """The checkpoints of one run of the chunk loop (:func:`run_chunks`):
+    ``save(cursor, tables, choices)`` after chunk ci when ``(ci + 1) %
+    every == 0`` (0: never), before boundary ci + 1's work (the
+    reference's save point, sim/jax_runtime.py:2402-2416 and :1853-1876),
+    and on a resume ``restore(tables) -> (cursor, choices)``, which seeds
+    the tables in place and returns the first chunk to run and the seeded
+    choice buffer."""
+
+    every: int = 0
+    save: Optional[Callable[[int, ref.Tables, torch.Tensor], None]] = None
+    restore: Optional[Callable[[ref.Tables], Tuple[int, torch.Tensor]]] = None
+
+
 def run_chunks(
-    plan: ChunkPlan, tb: ref.Tables, bound_node: np.ndarray, plain: bool, timers=None,
+    plan: ChunkPlan, tb: ref.Tables, plain: bool, timers=None,
     ser: Optional[Series] = None, route: Optional[str] = None, pager=None, joint: bool = False,
     on_chunk: Optional[Callable[[int], None]] = None, chaos: Optional[dict] = None,
+    ckpt: Optional[Checkpointing] = None,
 ) -> np.ndarray:
     """Replay every chunk of ``plan`` over the S scenarios of ``tb`` (its
     state is updated in place) on ``route`` (None: :func:`choose_route`
     of ``plain`` and the tables' shards), with ``pager``'s pages
     when given (``joint``, ``timers``, ``on_chunk`` and ``chaos``: as
     :func:`run_waves`), and return the host copy of the choice buffer
-    ``[S, L]``. The one synchronisation is the final fetch."""
-    tick = timers.tick if timers is not None else (lambda name: contextlib.nullcontext())
+    ``[S, L]``. The one synchronisation is the final fetch, and each save
+    of ``ckpt`` (:class:`Checkpointing`), which splits the waves into
+    ranges at its cadence and may resume past chunk 0."""
+    tick = make_tick(timers)
     route = route or choose_route(plain, tb.shards is not None,
                                   tb.retry is not None and tb.retry.prio is not None)
-    choices = new_choices(plan, tb.state.used.shape[0], bound_node, tb.state.used.device)
-    run_waves(plan, tb, choices, 0, plan.idx.shape[0], plain, ser, route, pager, joint,
-              timers=timers, on_chunk=on_chunk, chaos=chaos)
+    cursor, choices = 0, None
+    if ckpt is not None and ckpt.restore is not None:
+        cursor, choices = ckpt.restore(tb)
+    if choices is None:
+        choices = new_choices(plan, tb.state.used.shape[0], tb.state.used.device)
+    C, end = plan.C, plan.idx.shape[0]
+    every = ckpt.every if ckpt is not None and ckpt.save is not None else 0
+    w = cursor * C
+    for c in range(cursor + 1, end // C + 1):
+        if every and c % every == 0:
+            run_waves(plan, tb, choices, w, c * C, plain, ser, route, pager, joint,
+                      timers=timers, on_chunk=on_chunk, chaos=chaos, trailing=False)
+            ckpt.save(c, tb, choices)
+            w = c * C
+    run_waves(plan, tb, choices, w, end, plain, ser, route, pager, joint, timers=timers,
+              on_chunk=on_chunk, chaos=chaos, trailing=True if w else None)
     with tick("device_wait"):
         return choices.cpu().numpy()
 
@@ -1146,7 +1314,7 @@ class ChunkEngine:
         granularity_guard: bool, engine_name: str, device: torch.device, plain: bool,
         preemption: bool = False, retry_buffer: int = 0, domains=None,
         wrow: Optional[torch.Tensor] = None, layout=None, paged: bool = False,
-        kube: bool = False,
+        kube: bool = False, fork=None,
     ) -> None:
         #: set-ups of this engine (plan and device tables): a value swap
         #: (``WhatIfEngine.set_policies``) must not add one
@@ -1193,9 +1361,19 @@ class ChunkEngine:
             )
         #: effective retry buffer slots per scenario (0: off)
         self.retry_buffer = -(-rb // self.wave_width) * self.wave_width
+        #: the fork's checkpoint (:class:`.checkpoint.ReplayCheckpoint`; the
+        #: what-if's ``fork_checkpoint``) and its pre-fork part
+        #: (:class:`ForkTail`), else None
+        self._fork_ck, self.fork = fork, None
+        wave_idx = self.waves.idx
+        if fork is not None:
+            self.fork = fork_tail(pods, wave_idx, fork)
+            wave_idx = wave_idx[self.fork.waves_done:]
+            if wave_idx.shape[0] == 0:
+                wave_idx = np.full((1, self.wave_width), PAD, np.int32)
         #: chunk layout and release buckets, static per engine
-        self.plan = plan_chunks(pods, self.waves.idx, self.chunk_waves, self.completions_on,
-                                spec.has_gangs)
+        self.plan = plan_chunks(pods, wave_idx, self.chunk_waves, self.completions_on,
+                                spec.has_gangs, fork=self.fork)
         t2 = time.perf_counter()
         self._cluster = cluster
         self._pods = None if self.paged else ref.pods_to(pods, device)
@@ -1208,6 +1386,20 @@ class ChunkEngine:
         topology domains — one state, or an ``[S, ...]`` stack where the
         label rows differ and pods are pre-bound."""
         fields = ("used", "match_count", "anti_active", "pref_wsum")
+        ck = self._fork_ck
+        if ck is not None:
+            # The forked state: the checkpoint's planes in every scenario, its
+            # domain axis padded to the batch's (the reference's v2 fork reads
+            # a relabelled scenario's domain ids in them too, sim/whatif.py:
+            # 1910-1934).
+            D = self._domains[3] if self._domains is not None else self.ec.max_domains
+            out = [np.asarray(ck.used, np.float32)]
+            for f in fields[1:]:
+                a = np.asarray(getattr(ck, f), np.float32)
+                pad = np.zeros((a.shape[0], max(int(D), a.shape[1], 1)), np.float32)
+                pad[:, : a.shape[1]] = a
+                out.append(pad)
+            return tuple(out)
         if self._domains is None:
             st = init_state(self._dev_ec, self.pods)
             return tuple(getattr(st, f) for f in fields)
@@ -1221,12 +1413,15 @@ class ChunkEngine:
         return tuple(np.stack([getattr(rows[r], f) for r in lrow]) for f in fields)
 
     def _tables(self, attribute: bool = False, pods: Optional[ref.DevPods] = None,
-                timeline: bool = False, log_need: int = 0) -> ref.Tables:
+                timeline: bool = False, log_need: int = 0,
+                track_nodes: bool = False) -> ref.Tables:
         """The tables of one run; ``attribute`` adds zeroed first-reject
         counters (telemetry series), ``timeline`` the event log of a run
         whose pods can be unbound (kube or a chaos timeline under the retry
         buffer; :func:`log_capacity` records a scenario, at least
-        ``log_need``). ``pods``: the pod
+        ``log_need``). A checkpointing replay under the retry buffer
+        (``track_nodes``) also takes the node tables (``rrel`` tells a
+        retried pod's released node from a held one in its blob). ``pods``: the pod
         tables (a pager's page); by default the whole trace's, uploaded once.
         A meshed what-if batch's tables are its blocks' (``WhatIfEngine._blocks``)."""
         if getattr(self, "_blocks", None) is not None:
@@ -1251,7 +1446,7 @@ class ChunkEngine:
             if timeline and (self.kube or timelines is not None):
                 log = ref.new_log(self.S, log_capacity(self.plan, self.retry_buffer, log_need),
                                   self.device)
-            if self.kube or timelines is not None:
+            if self.kube or timelines is not None or track_nodes:
                 nodes = dict(col_of=self.plan.col_of(self.pods.num_pods),
                              col_relb=self.plan.col_relb)
             if self.kube:
@@ -1260,12 +1455,13 @@ class ChunkEngine:
             if timelines is not None:
                 chaos = dict(tbd=self.plan.tb, **nodes)
             rt = ref.new_retry(self.retry_buffer, self.pods.duration, self.plan.tbt, self.S,
-                               self.device, kube=kube, chaos=chaos)
+                               self.device, kube=kube, chaos=chaos,
+                               nodes=nodes if track_nodes else None)
         sh = None
         if self.layout is not None:
             lay, plan = self.layout, self.plan
             gdom = ref.group_domains(self._dev_ec)[0]  # [G, n_pad]
-            tail = self.pods.bound_node[plan.prebound]
+            tail = plan.tail_node
             sh = ref.new_shards(lay.P, lay.n_local, lay.n_real, self.S, plan.L, gdom.shape[0],
                                 self.device, tail_dom=gdom[:, tail].T)
         return ref.Tables(
@@ -1301,7 +1497,7 @@ class ChunkEngine:
 
     def _run(self, timers=None, series: bool = False, route: Optional[str] = None,
              joint: bool = False, recorder=None, timeline: bool = False,
-             log_need: int = 0):
+             log_need: int = 0, ckpt: Optional[Checkpointing] = None):
         """(tables after the run, wall seconds, assignments [S, P], placed
         [S], pods to schedule). ``series`` (the reference's ``use_rej``)
         takes the boundary samples and the first-reject attribution
@@ -1316,7 +1512,9 @@ class ChunkEngine:
         (:func:`choose_route`), so a kernel run can be held against the
         other route. ``joint``: a retry boundary's pending
         and static releases go out as one (:func:`run_waves`; the single
-        replay's order). ``recorder`` (:class:`.flight.FlightRecorder`) takes
+        replay's order). ``ckpt`` (:class:`Checkpointing`) saves and resumes
+        the run (the single replay's checkpoints). ``recorder``
+        (:class:`.flight.FlightRecorder`) takes
         a row after each chunk's launches (:meth:`_flight_hook`), with the
         phase deltas of ``timers`` (its own timers without them). The tables
         are kept as ``last_tables``, the fetched choice buffer as
@@ -1328,8 +1526,10 @@ class ChunkEngine:
         # (sim/jax_runtime.py:2253 ``if self.paged and not use_rej``).
         pager = self._pager() if not series else None
         self.last_pager = pager
+        # Under the retry buffer a checkpointing run keeps each retried pod's
+        # release boundary (rrel), which its blob reads.
         tb = self._tables(attribute, pods=pager.pods0 if pager is not None else None,
-                          timeline=timeline, log_need=log_need)
+                          timeline=timeline, log_need=log_need, track_nodes=ckpt is not None)
         self.last_tables = tb
         ser = new_series(self.plan, tb, attribute) if series else None
         self.last_series = ser
@@ -1348,9 +1548,9 @@ class ChunkEngine:
             alloc0 = alloc.clone()
         t0 = time.perf_counter()
         try:
-            host_choices = run_chunks(self.plan, tb, self.pods.bound_node, self.plain, timers,
+            host_choices = run_chunks(self.plan, tb, self.plain, timers,
                                       ser, self.last_route, pager, joint, on_chunk=hook,
-                                      chaos=chaos)
+                                      chaos=chaos, ckpt=ckpt)
         finally:
             if pager is not None:
                 pager.close()
@@ -1364,7 +1564,7 @@ class ChunkEngine:
                 # The run is deterministic: the same run with the count the
                 # kernels reported keeps every record.
                 again = ChunkEngine._run(self, timers, series, route, joint, None, timeline,
-                                         log_need=int(tb.log.n.max()))
+                                         log_need=int(tb.log.n.max()), ckpt=ckpt)
                 return (again[0], wall + again[1]) + again[2:]
             if full:
                 ref.log_records(tb.log, full[0])  # raises: no event is silently lost
@@ -1579,8 +1779,13 @@ class TorchReplayEngine(ChunkEngine):
     chunk boundaries (module docstring): on the plain path the allocatable
     rows, under the retry buffer or kube also K10's NoExecute eviction,
     with ``evictions``, ``evict_rescheduled``, ``evict_stranded`` and
-    ``evict_latency_mean`` in the result. Every other mode of the JAX engine
-    raises ``NotImplementedError`` naming it."""
+    ``evict_latency_mean`` in the result. ``replay(checkpoint_path=,
+    checkpoint_every=, resume=)`` saves the run every ``checkpoint_every``
+    chunks and resumes it from the file, in the reference's format, on
+    every path but tier preemption (module docstring; ``last_saves`` keeps
+    each save's cursor, bytes and seconds, and the flight recorder its
+    ``checkpoint`` row). Every other mode of the JAX engine raises
+    ``NotImplementedError`` naming it."""
 
     def __init__(
         self,
@@ -1667,19 +1872,11 @@ class TorchReplayEngine(ChunkEngine):
         resume: bool = False,
         node_events=None,
     ) -> ReplayResult:
-        if (self.preemption or self.kube) and (checkpoint_path or resume):
-            if self.kube:
-                raise _later("checkpoint/resume with preemption='kube' (the boundary blob "
-                             "of the device retry tables)", "ROADMAP queue A item 6d")
+        if self.preemption and (checkpoint_path or resume):
             raise ValueError(
                 "checkpoint/resume is not supported with device preemption (tier planes are "
                 "not checkpointed)"
             )
-        if node_events and (checkpoint_path or checkpoint_every or resume):
-            raise _later("checkpoint/resume with node_events (the event cursor and events_hash "
-                         "in the blob)", "ROADMAP queue A item 6d")
-        if checkpoint_path or checkpoint_every or resume:
-            raise _later("checkpoint/resume", "engine modes, queue A item 6")
         validate_node_events(node_events, self.ec.num_nodes)
         events = list(node_events or [])
         ep = self.pods
@@ -1705,6 +1902,13 @@ class TorchReplayEngine(ChunkEngine):
                 "telemetry still collected"
             )
             use_rej = False
+        if use_rej and (checkpoint_path or resume):
+            log.info(
+                "telemetry: rejection attribution is disabled under checkpoint/resume (the "
+                "instrumented carry is not part of checkpoints) — latency/phase telemetry "
+                "still collected"
+            )
+            use_rej = False
         if use_rej and self.node_shards > 1:
             log.info(
                 "telemetry: rejection attribution is disabled under node sharding (the "
@@ -1718,12 +1922,28 @@ class TorchReplayEngine(ChunkEngine):
                 "reference (v2) chunk program does — inside K6 (its attributed mode) on the "
                 "pod-by-pod K1–K3 chain, one launch a chunk; placements are bit-identical"
             )
+        #: (cursor, bytes, seconds) of each checkpoint this replay wrote
+        self.last_saves = []
+        ck = None
+        if resume and checkpoint_path:
+            from .checkpoint import ReplayCheckpoint
+
+            ck = ReplayCheckpoint.load(checkpoint_path)
+            self._check_resume(ck, events)
         rec, rec_own = self._open_recorder()
         self._events = [events] if events else None
+        ckpt = None
+        if ck is not None or (checkpoint_path and checkpoint_every):
+            ckpt = Checkpointing(
+                every=int(checkpoint_every or 0) if checkpoint_path else 0,
+                save=lambda c, tb, ch: self._save_checkpoint(checkpoint_path, c, tb, ch, events,
+                                                             rec),
+                restore=(lambda tb: self._restore_checkpoint(ck, tb, events))
+                if ck is not None else None)
         try:
             tb, wall, assignments, placed_s, to_schedule = self._run(
                 tel.phases if tel is not None else None, series=use_rej, joint=True,
-                recorder=rec, timeline=tcfg.want_timeline)
+                recorder=rec, timeline=tcfg.want_timeline, ckpt=ckpt)
         except BaseException:
             if rec_own:
                 rec.close()
@@ -1779,6 +1999,286 @@ class TorchReplayEngine(ChunkEngine):
             evict_stranded=int(chaos[2][0]), evict_latency_mean=float(chaos[3][0]),
         )
 
+    # -- checkpoints (kubernetes_simulator_tpu/sim/jax_runtime.py:1382-1401,
+    # :1614-1640, :1853-1876, :2165-2232, :2402-2416) ------------------------
+
+    def _check_resume(self, ck, events: list) -> None:
+        """Refuse a checkpoint this engine cannot resume, before any work:
+        the reference's guards in its words (a plain file on a boundary-mode
+        engine and the reverse, a different timeline, another mode, buffer
+        or chunk grid; sim/jax_runtime.py:1614-1640, :2165-2173,
+        sim/boundary.py:247-270), then the port's check that the file's
+        shapes fit this engine's plan (the reference's plain path indexes
+        the saved outs by its own grid unchecked)."""
+        plan, bd = self.plan, ck.boundary
+        W = plan.idx.shape[1]
+        if self.retry_buffer:
+            if bd is None:
+                raise ValueError("checkpoint was not written by a boundary-mode (retry/kube) "
+                                 "replay — resume it on a plain engine")
+            h = bd.get("ev_hash")
+            if h is not None and not np.array_equal(np.asarray(h, np.uint8),
+                                                    _timeline_hash(events)):
+                raise ValueError(
+                    "checkpoint was written under a different node_events timeline — resuming "
+                    "would re-apply or skip events (evictions are not idempotent); pass the "
+                    "original event list or restart the replay from scratch")
+            mode = bd.get("mode")
+            if mode is not None and (bool(mode[0]) != self.kube
+                                     or int(mode[1]) != self.retry_buffer):
+                want = "kube" if mode[0] else "retry-only"
+                this = "kube" if self.kube else "retry-only"
+                raise ValueError(
+                    f"checkpoint was written by a {want} boundary replay with retry_buffer="
+                    f"{int(mode[1])}; resume with the same configuration (this engine: {this}, "
+                    f"retry_buffer={self.retry_buffer})")
+            if mode is not None and len(mode) >= 4 and (int(mode[2]) != plan.C
+                                                        or int(mode[3]) != W):
+                raise ValueError(
+                    f"checkpoint was written on a chunk grid of chunk_waves={int(mode[2])}, "
+                    f"wave_width={int(mode[3])}; this engine uses chunk_waves={plan.C}, "
+                    f"wave_width={W}. Boundary bookkeeping (bind chunks, pending release "
+                    "boundaries) does not transfer across grids — resume with the original "
+                    "wave_width/completions_chunk_waves or restart the replay from scratch.")
+        elif bd is not None:
+            raise ValueError(
+                "checkpoint was written by a boundary-mode (retry/kube) replay — its "
+                "placements live in the host mirror, not the saved outs; resume it with the "
+                "same retry_buffer/preemption configuration")
+        elif len(ck.outs) != ck.chunk_cursor or any(np.asarray(o).size != plan.C * W
+                                                    for o in ck.outs):
+            raise ValueError(
+                f"checkpoint holds {len(ck.outs)} chunks of choices for cursor "
+                f"{ck.chunk_cursor}, not chunks of {plan.C} x {W} slots: this engine's chunk "
+                f"grid is chunk_waves={plan.C}, wave_width={W} — resume with the original "
+                "wave_width/chunk_waves")
+        G, D = self._initial_planes()[1].shape
+        want = dict(used=(self.ec.num_nodes, self.ec.num_resources), match_count=(G, D),
+                    anti_active=(G, D), pref_wsum=(G, D))
+        for name, shape in want.items():
+            if tuple(np.shape(getattr(ck, name))) != shape:
+                raise ValueError(f"checkpoint {name} has shape {np.shape(getattr(ck, name))}, "
+                                 f"this engine's is {shape}: it was written for another "
+                                 "cluster or trace")
+        if ck.chunk_cursor > len(plan.buckets):
+            raise ValueError(f"checkpoint cursor {ck.chunk_cursor} is past this engine's "
+                             f"{len(plan.buckets)} chunks")
+
+    def _save_checkpoint(self, path: str, cursor: int, tb: ref.Tables, choices: torch.Tensor,
+                         events: list, rec) -> None:
+        """Write the checkpoint of the run at ``cursor`` (chunks before it
+        done, boundary ``cursor`` not begun): the planes in host layout (the
+        real nodes of a sharded ``used``), and the choices of the run chunks
+        in the reference's ``[C, W]`` layout with the released mask, or under
+        the retry buffer the boundary blob (:meth:`_boundary_blob`). The
+        host waits here, once a save, for the card to run the chunks before
+        the cursor, then times the save itself: the recorder gets its
+        ``checkpoint`` row, ``last_saves`` (cursor, bytes, seconds)."""
+        from .checkpoint import ReplayCheckpoint
+
+        if tb.state.used.device.type == "cuda":
+            torch.cuda.synchronize(tb.state.used.device)
+        t0 = time.perf_counter()
+        plan, st, N = self.plan, tb.state, self.ec.num_nodes
+        planes = dict(used=st.used[0, :N].cpu().numpy(),
+                      match_count=st.match_count[0].cpu().numpy(),
+                      anti_active=st.anti_active[0].cpu().numpy(),
+                      pref_wsum=st.pref_wsum[0].cpu().numpy())
+        ch = choices[0].cpu().numpy()
+        if tb.retry is None:
+            W = plan.idx.shape[1]
+            outs = list(ch[: cursor * plan.C * W].reshape(cursor, plan.C, W))
+            ck = ReplayCheckpoint(cursor, outs=outs,
+                                  released=released_through(plan, ch, cursor,
+                                                            self.pods.num_pods), **planes)
+        else:
+            blob = self._boundary_blob(tb, ch, cursor, events)
+            ck = ReplayCheckpoint(cursor, outs=[], released=blob["released"], boundary=blob,
+                                  **planes)
+        ck.save(path)
+        nbytes, wall = _file_bytes(path), time.perf_counter() - t0
+        self.last_saves.append((cursor, nbytes, wall))
+        if rec is not None:
+            rec.checkpoint(cursor, nbytes, wall)
+
+    def _boundary_blob(self, tb: ref.Tables, ch: np.ndarray, cursor: int, events: list) -> dict:
+        """The reference's boundary blob (sim/boundary.py ``to_blob`` with
+        ``ev_cursor`` / ``ev_hash``) derived from the device retry tables of
+        scenario 0 at ``cursor``: a pod's node is its retried node (``rnode``)
+        or its choice-buffer column's, released where that pod's pending
+        release (``rrel``) or its column's static one (``col_relb``) came
+        before ``cursor``; a pod holding its column's node was bound in its
+        wave's chunk (−2 pre-bound), every other pod never statically
+        releases; the queue, the pending list and the counters are the
+        tables'."""
+        from .checkpoint import BIND_NEVER
+
+        plan, ep, rt = self.plan, self.pods, tb.retry
+        P = ep.num_pods
+        host = lambda t: t[0].cpu().numpy()
+        rnode, rrel = host(rt.rnode), host(rt.rrel)
+        col_of = plan.col_of(P)
+        col = np.clip(col_of, 0, None)
+        colv = np.where(col_of >= 0, ch[col], PAD)
+        retried = rnode >= 0
+        released = ((colv >= 0) & (plan.col_relb[col] < cursor)) | (retried & (rrel < cursor))
+        assignments = np.where(retried, rnode, colv).astype(np.int32)
+        bound = np.where(released, PAD, assignments).astype(np.int32)
+        bind_chunk = np.full(P, BIND_NEVER, np.int64)
+        live = colv >= 0
+        CW = plan.C * plan.idx.shape[1]
+        bind_chunk[live] = np.where(col_of[live] < plan.idx.size, col_of[live] // CW, -2)
+        pid = host(rt.pend_id)
+        keep = pid >= 0
+        pend = np.stack([host(rt.pend_relb)[keep], pid[keep], host(rt.pend_node)[keep]],
+                        axis=1).astype(np.int64)
+        chaos, lat, times = [0, 0], 0.0, np.zeros((0, 2), np.float64)
+        if rt.evict_t is not None:
+            et = host(rt.evict_t)
+            ev_p = np.nonzero(et >= 0)[0]
+            chaos = [int(rt.evictions[0]), int(rt.resched[0])]
+            lat = float(rt.evict_lat[0])
+            times = np.stack([ev_p.astype(np.float64), et[ev_p]], axis=1)
+        return {
+            "mode": np.asarray([int(self.kube), self.retry_buffer, plan.C, plan.idx.shape[1]],
+                               np.int64),
+            "bound": bound,
+            "assignments": assignments,
+            "released": released,
+            "bind_chunk": bind_chunk,
+            "retry_q": host(rt.rbuf)[: int(rt.rcount[0])].astype(np.int64),
+            "pend": pend,
+            "counters": np.asarray([int(((assignments >= 0) & (ep.bound_node < 0)).sum()),
+                                    int(rt.preempt[0]) if rt.preempt is not None else 0,
+                                    int(rt.rdrop[0])], np.int64),
+            "chaos": np.asarray(chaos, np.int64),
+            "evict_lat": np.asarray([lat], np.float64),
+            "evict_times": times,
+            "ev_cursor": np.asarray([self._events_fired(events, cursor)], np.int64),
+            "ev_hash": _timeline_hash(events),
+        }
+
+    def _events_fired(self, events: list, cursor: int) -> int:
+        """The events of ``events`` that fire at the boundaries before
+        ``cursor`` (the reference's applied-event cursor)."""
+        if not events:
+            return 0
+        steps = ref.event_steps([events], self.plan.tb, self.ec.allocatable)
+        return sum(len(st.fired[0]) for b, st in steps.items() if b < cursor)
+
+    def _restore_checkpoint(self, ck, tb: ref.Tables, events: list
+                            ) -> Tuple[int, torch.Tensor]:
+        """Seed ``tb`` from a checkpoint checked by :meth:`_check_resume`
+        and return (its cursor, the seeded choice buffer): the planes; the
+        run chunks' choices (plain) or the retry tables rebuilt from the
+        boundary blob (:meth:`_restore_boundary`); under node shards the
+        domain ids of the restored columns' nodes; and the allocatable rows
+        of the timeline's events before the cursor, which fired there (their
+        evictions are in the blob, not run again). The plain path's release
+        buckets are static (:func:`plan_chunks`), so the file's released mask
+        must be the one they imply: the one-chunk slack of the reference's
+        re-pended last fold (sim/jax_runtime.py:2204-2232) is their
+        ``chunk_of + 2``."""
+        plan, dev, N = self.plan, self.device, self.ec.num_nodes
+        c = int(ck.chunk_cursor)
+        st = tb.state
+        st.used[0, :N].copy_(torch.as_tensor(np.asarray(ck.used, np.float32)))
+        for name in ("match_count", "anti_active", "pref_wsum"):
+            getattr(st, name)[0].copy_(torch.as_tensor(np.asarray(getattr(ck, name),
+                                                                  np.float32)))
+        choices = new_choices(plan, 1, dev)
+        if tb.retry is None:
+            if c:
+                ch = np.concatenate([np.asarray(o, np.int32).reshape(-1) for o in ck.outs])
+                choices[0, : ch.size] = torch.as_tensor(ch, device=dev)
+            if ck.released is not None:
+                have = released_through(plan, choices[0].cpu().numpy(), c, self.pods.num_pods)
+                if not np.array_equal(have, np.asarray(ck.released, bool)):
+                    raise ValueError(
+                        "checkpoint's released mask is not the one this engine's completions "
+                        "plan implies at its cursor: it was written with another completions "
+                        "setting, chunk grid or trace")
+        else:
+            self._restore_boundary(ck.boundary, tb, choices, c)
+        if tb.shards is not None:
+            gdom = torch.as_tensor(ref.group_domains(self._dev_ec)[0], device=dev)  # [G, n_pad]
+            cols = torch.nonzero(choices[0] >= 0).flatten()
+            tb.shards.cdom[0, cols] = gdom[:, choices[0, cols].long()].T
+        if events:
+            steps = ref.event_steps([events], plan.tb, self.ec.allocatable)
+            fired = 0
+            rows = tb.cluster.allocatable.view(-1, tb.cluster.allocatable.shape[-1])
+            for b in sorted(steps):
+                if b < c:
+                    rows.index_copy_(0, torch.as_tensor(steps[b].rows, device=dev),
+                                     torch.as_tensor(steps[b].vals, device=dev))
+                    fired += len(steps[b].fired[0])
+            cur = (ck.boundary or {}).get("ev_cursor")
+            if cur is not None and int(np.asarray(cur).reshape(-1)[0]) != fired:
+                raise ValueError(
+                    f"checkpoint's event cursor ({int(np.asarray(cur).reshape(-1)[0])}) is not "
+                    f"the {fired} events this engine fires before chunk {c}")
+        return c, choices
+
+    def _restore_boundary(self, bd: dict, tb: ref.Tables, choices: torch.Tensor, c: int) -> None:
+        """Rebuild the retry tables of scenario 0 and the choice buffer from
+        a boundary blob (the inverse of :meth:`_boundary_blob`): a pod bound
+        in its wave or pre-bound and never unbound (its ``bind_chunk`` not
+        NEVER) takes its node in its column, every other placed pod as its
+        retried node, with its pending entry's boundary in ``rrel``
+        (``c − 1`` where its release came, NEVER where none was listed); the
+        queue, the pending list, the counters and the evictions as saved.
+        The blob holds no bind boundaries: a restored retried pod's
+        ``rbind_b`` and ``first_b`` are ``c − 1`` (telemetry only)."""
+        from .checkpoint import BIND_NEVER
+
+        plan, ep, rt, dev = self.plan, self.pods, tb.retry, self.device
+        P = ep.num_pods
+        t = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=dev)
+        asg = np.asarray(bd["assignments"], np.int32)
+        released = np.asarray(bd["released"], bool)
+        col_of = plan.col_of(P)
+        live = (np.asarray(bd["bind_chunk"]) != BIND_NEVER) & (asg >= 0) & (col_of >= 0)
+        ch = np.full(plan.L, PAD, np.int32)
+        ch[col_of[live]] = asg[live]
+        if not np.array_equal(released[live], plan.col_relb[col_of[live]] < c):
+            raise ValueError("checkpoint's released mask is not the one this engine's "
+                             "completions plan implies at its cursor: it was written for "
+                             "another trace")
+        choices[0].copy_(t(ch))
+        retried = ~live & (asg >= 0)
+        pend = np.asarray(bd["pend"], np.int64).reshape(-1, 3)
+        RB = rt.rbuf.shape[1]
+        q = np.asarray(bd["retry_q"], np.int64)
+        if len(q) > RB or len(pend) > RB:
+            raise ValueError(f"checkpoint's retry queue ({len(q)}) or pending list "
+                             f"({len(pend)}) exceeds this engine's buffer of {RB}")
+        rnode = np.full(P, PAD, np.int32)
+        rnode[retried] = asg[retried]
+        rrel = np.full(P, ref.NEVER, np.int32)
+        rrel[retried & released] = c - 1
+        rrel[pend[:, 1]] = pend[:, 0]
+        at = np.full(P, PAD, np.int32)
+        at[retried] = c - 1
+        row = lambda vals: np.concatenate([vals, np.full(RB - len(vals), PAD)]).astype(np.int32)
+        for name, vals in (("rnode", rnode), ("rbind_b", at), ("rrel", rrel), ("first_b", at),
+                           ("rbuf", row(q)), ("pend_id", row(pend[:, 1])),
+                           ("pend_node", row(pend[:, 2])), ("pend_relb", row(pend[:, 0]))):
+            getattr(rt, name)[0].copy_(t(vals))
+        counters = np.asarray(bd["counters"], np.int64)
+        rt.rcount[0] = len(q)
+        rt.rdrop[0] = int(counters[2])
+        if rt.preempt is not None:
+            rt.preempt[0] = int(counters[1])
+        if rt.evict_t is not None:
+            chaos = np.asarray(bd.get("chaos", np.zeros(2)), np.int64)
+            times = np.asarray(bd.get("evict_times", np.zeros((0, 2))), np.float64).reshape(-1, 2)
+            et = np.full(P, -1.0, np.float64)
+            et[times[:, 0].astype(np.int64)] = times[:, 1]
+            rt.evict_t[0].copy_(t(et))
+            rt.evictions[0], rt.resched[0] = int(chaos[0]), int(chaos[1])
+            rt.evict_lat[0] = float(np.asarray(bd.get("evict_lat", [0.0])).reshape(-1)[0])
+
     def _open_recorder(self):
         """(recorder, owns) of this replay: a fresh stream from the
         configured spec (owns: this replay closes it), a live recorder the
@@ -1803,6 +2303,65 @@ class TorchReplayEngine(ChunkEngine):
         }
         self._last_flight = FlightRecorder(spec, meta=meta)
         return self._last_flight, True
+
+
+def released_through(plan: ChunkPlan, ch: np.ndarray, cursor: int, P: int) -> np.ndarray:
+    """[P] bool: the pods whose completion release boundaries ``0 ..
+    cursor − 1`` applied, from a choice buffer row ``ch [L]``: a placed
+    column whose static release boundary comes before ``cursor`` (the
+    reference's ``released`` mask of its plain path)."""
+    col_pod = plan.col_pod
+    m = (col_pod >= 0) & (ch >= 0) & (plan.col_relb < cursor)
+    out = np.zeros(P, bool)
+    out[col_pod[m]] = True
+    return out
+
+
+def rebuild_fork_state(pods: EncodedPods, idx: np.ndarray, C: int, outs, wave_times: np.ndarray,
+                       upto_chunk: int, slack: int = 1) -> Tuple[np.ndarray, np.ndarray]:
+    """(host_assign [P], released [P]) of a replay through chunk
+    ``upto_chunk − 1`` from its saved per-chunk choices ``outs``, and the
+    completions it released at each boundary: a pod placed in a chunk ≤ b −
+    1 − ``slack`` (pre-bound: chunk −2) whose arrival + duration is at or
+    before boundary b's start time. The counterpart of
+    kubernetes_simulator_tpu/sim/jax_runtime.py:828-868; the fork of a file
+    without a released mask (written before the field) reconstructs it so,
+    with ``slack`` 0 as the reference does."""
+    host_assign = np.where(pods.bound_node >= 0, pods.bound_node, PAD).astype(np.int32)
+    chunk_of = np.where(pods.bound_node >= 0, -2, 1 << 30).astype(np.int64)
+    rel_time = release_times(pods)
+    for cj in range(upto_chunk):
+        rows = idx[cj * C : (cj + 1) * C]
+        ch = np.asarray(outs[cj]).reshape(rows.shape)
+        v = rows >= 0
+        host_assign[rows[v]] = ch[v]
+        chunk_of[rows[v]] = cj
+    released = np.zeros(pods.num_pods, bool)
+    for b in range(upto_chunk):
+        tb = wave_times[b * C]
+        if np.isfinite(tb):
+            released |= ((host_assign != PAD) & (chunk_of < b - slack)
+                         & np.isfinite(rel_time) & (rel_time <= tb))
+    return host_assign, released
+
+
+def _timeline_hash(events: list) -> np.ndarray:
+    """The reference's ``ev_hash`` of a timeline: :func:`.runtime.events_hash`
+    of the events sorted by time (stably), as its replay sorts them."""
+    from .runtime import events_hash
+
+    return events_hash(sorted(events, key=lambda e: e.time))
+
+
+def _file_bytes(path: str) -> int:
+    """A file's size (0 where it cannot be read: observation never fails
+    the replay; sim/jax_runtime.py:102)."""
+    import os
+
+    try:
+        return os.path.getsize(path)
+    except OSError:
+        return 0
 
 
 def chaos_counters(rt: Optional[ref.Retry]) -> Tuple[np.ndarray, ...]:

@@ -130,6 +130,20 @@ leaves the device-release path under a mesh (:979-997); kube (the reference's
 error) and node shards stay refused. ``WhatIfResult.n_devices`` and ``mesh_shape`` say how
 the batch ran.
 
+A fork (``fork_checkpoint=``, a plain checkpoint of the single replay;
+the reference's ``_load_fork_or_init`` / ``_init_states``, :1854-1934,
+and its fork paths, :2738-2810, :2939-2962) starts every scenario from the
+file's planes (its domain axis padded to the batch's; a relabelled batch
+reads its own domain ids in them, on the v2 fallback, as the reference's)
+and runs the waves after the fork point on its own chunk grid: the source's
+choices, clamped to the real wave count, are a tail of the choice buffer
+common to every scenario (:func:`.torch_runtime.fork_tail`), the pods of
+its last chunk release from boundary 1 and the others from boundary 0, and
+the file's released mask leaves out every release its state already
+carries. ``placed`` counts the waves after the fork, as the reference's.
+The reference's refusals hold: a boundary-mode file, kube, tier
+preemption, the retry buffer and policies with a fork.
+
 The engine's other modes raise ``NotImplementedError`` naming the queue
 item that ports them.
 """
@@ -167,6 +181,7 @@ from .torch_runtime import (
     check_retry_buffer,
     choose_route,
     completions_gate,
+    make_tick,
     new_choices,
     release_times,
     resolve_device,
@@ -609,8 +624,11 @@ class WhatIfEngine(ChunkEngine):
                 "through TorchReplayEngine(node_shards=...) / the CLI run (ROADMAP queue A "
                 "item 10, node sharding)"
             )
+        fork = None
         if fork_checkpoint is not None:
-            raise _later("fork_checkpoint (what-if forks from a checkpoint)", "queue A item 7")
+            from .checkpoint import ReplayCheckpoint
+
+            fork = ReplayCheckpoint.load(fork_checkpoint)
         if _dcn_recovery is not None:
             raise _later("_dcn_recovery (the multi-process fleet)", "queue A item 11")
         # Off the kube path the reference's batch collects the same at every
@@ -660,7 +678,7 @@ class WhatIfEngine(ChunkEngine):
             for sc in scenarios for pt in sc.perturbations)
         self._prepare(ec, pods, spec, cluster, sset.num_scenarios, wave_width, chunk_waves,
                       completions, granularity_guard, "what-if engine", device, plain,
-                      mode == "tier", rb, domains, wrow, kube=kube)
+                      mode == "tier", rb, domains, wrow, kube=kube, fork=fork)
         self._blocks = self._make_blocks(mesh, rb) if mesh is not None else None
 
     @staticmethod
@@ -900,11 +918,11 @@ class WhatIfEngine(ChunkEngine):
         a block (``last_tables``)."""
         if self._blocks is None:
             return super()._run(timers, series, route, joint, recorder, timeline)
-        tick = timers.tick if timers is not None else (lambda name: contextlib.nullcontext())
+        tick = make_tick(timers)
         plan, bound = self.plan, self.pods.bound_node
         self.last_route = route = route or choose_route(self.plain)
         tbs = [blk.engine._tables() for blk in self._blocks]
-        chs = [new_choices(plan, blk.hi - blk.lo, bound, blk.engine.device)
+        chs = [new_choices(plan, blk.hi - blk.lo, blk.engine.device)
                for blk in self._blocks]
         share = {}
         for blk in self._blocks:

@@ -249,8 +249,8 @@ def _overlap_spec(ov: dict) -> OverlapSpec:
     )
     if spec.background_publisher:
         _refuse("overlap.backgroundPublisher: true",
-                "checkpoint publication off the loop thread, with checkpoints (queue A item "
-                "6d) and the fleet (queue A item 11)")
+                "the fleet's checkpoint publication off the loop thread, ROADMAP queue A item "
+                "11")
     return spec
 
 
@@ -267,8 +267,8 @@ def _coerce_completions(v: object) -> Optional[bool]:
 #: Sections of the JAX package's schema the port refuses, with the mode
 #: each one selects.
 _REFUSED_SECTIONS = {
-    "dcn": "the multi-process fleet",
-    "faultline": "fleet fault injection",
+    "dcn": "the multi-process fleet, ROADMAP queue A item 11",
+    "faultline": "fleet fault injection, ROADMAP queue A item 11",
 }
 
 
@@ -327,27 +327,28 @@ class SimConfig:
 
     @classmethod
     def from_dict(cls, d: dict) -> "SimConfig":
+        """Parse a config document (:meth:`parse`) and raise on the first
+        setting the engines cannot run: an unknown strategy, then
+        :func:`value_errors`' first entry."""
+        cfg = cls.parse(d)
+        _strategy(cfg.strategy)
+        errors = value_errors(cfg)
+        if errors:
+            raise ValueError(errors[0])
+        return cfg
+
+    @classmethod
+    def parse(cls, d: dict) -> "SimConfig":
+        """Parse a config document, its values as written, for ``validate``
+        to report in the reference's order (:func:`..cli.validate_config`).
+        Sections the port refuses and malformed values raise here."""
         wi = d.get("whatIf") or {}
         for section, what in _REFUSED_SECTIONS.items():
             if d.get(section) is not None:
                 _refuse(section, what)
         dp = d.get("devicePreemption", False)
-        if dp not in (True, False, "tier", "kube"):
-            raise ValueError(
-                f"devicePreemption: must be true/false/'tier'/'kube', got {dp!r}"
-            )
-        rb = int(wi.get("retryBuffer", 0) or 0)
-        if rb < 0:
-            raise ValueError("whatIf.retryBuffer: must be >= 0")
-        if rb and dp in (True, "tier"):
-            raise ValueError("whatIf.retryBuffer is not supported with tier devicePreemption")
-        if rb and _coerce_completions(wi.get("completions")) is False:
-            raise ValueError(
-                "whatIf.retryBuffer requires the device-release path; remove "
-                "whatIf.completions: false (the retry pass runs at completion boundaries)"
-            )
         cfg = cls()
-        cfg.strategy = _strategy(d.get("strategy"))
+        cfg.strategy = str(d.get("strategy") or "torch")
         cl = d.get("cluster", {})
         syn = cl.get("synthetic", cl) or {}
         cfg.cluster = SyntheticClusterSpec(
@@ -413,7 +414,7 @@ class SimConfig:
             capacity_p=float(wi.get("capacityP", 0.3)),
             taint_p=float(wi.get("taintP", 0.1)),
             completions=_coerce_completions(wi.get("completions")),
-            retry_buffer=rb,
+            retry_buffer=int(wi.get("retryBuffer", 0) or 0),
             mesh=bool(wi.get("mesh", False)),
         )
         if d.get("tune") is not None:
@@ -509,13 +510,13 @@ def shard_errors(cfg: SimConfig) -> List[str]:
             "nodeShards: intra-scenario node-plane sharding is a strategy: jax feature (the "
             "what-if batch spends the mesh on the scenario axis)"
         )
-    if cfg.paged_waves and cfg.strategy == "cpu":
-        errors.append("pagedWaves: requires strategy: jax")
     if cfg.node_shards > 1 and tier_on:
         errors.append(
             "nodeShards is not supported with tier devicePreemption (the sharded chunk "
             "program is the node-space engine; use devicePreemption: kube)"
         )
+    if cfg.paged_waves and cfg.strategy == "cpu":
+        errors.append("pagedWaves: requires strategy: jax")
     if cfg.paged_waves and (cfg.whatif.retry_buffer or cfg.device_preemption == "kube"):
         errors.append(
             "pagedWaves is not supported with whatIf.retryBuffer / devicePreemption: kube "
@@ -562,6 +563,27 @@ def overlap_errors(cfg: SimConfig) -> List[str]:
         "overlap.pagerThread: true requires pagedWaves: true — without paged pod waves "
         "there is no pager (and no page fetch) to move off the chunk-loop thread"
     ]
+
+
+def value_errors(cfg: SimConfig) -> List[str]:
+    """The values the engines cannot run, in the reference's words
+    (kubernetes_simulator_tpu/cli.py:706-733): a negative
+    ``whatIf.retryBuffer``, an unknown ``devicePreemption``, the retry
+    buffer with tier preemption or with ``whatIf.completions: false``.
+    :meth:`SimConfig.from_dict` raises the first, ``validate`` reports them
+    all."""
+    wi, dp = cfg.whatif, cfg.device_preemption
+    errors = []
+    if wi.retry_buffer < 0:
+        errors.append("whatIf.retryBuffer: must be >= 0")
+    if dp not in (True, False, "tier", "kube"):
+        errors.append(f"devicePreemption: must be true/false/'tier'/'kube', got {dp!r}")
+    if wi.retry_buffer and dp in (True, "tier"):
+        errors.append("whatIf.retryBuffer is not supported with tier devicePreemption")
+    if wi.retry_buffer and wi.completions is False:
+        errors.append("whatIf.retryBuffer requires the device-release path; remove "
+                      "whatIf.completions: false (the retry pass runs at completion boundaries)")
+    return errors
 
 
 def kube_errors(cfg: SimConfig) -> List[str]:

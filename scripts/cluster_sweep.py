@@ -129,7 +129,7 @@ def sweep_k7(P, dev, rows):
                             node_shards=P)
     tb = eng._tables()
     b = K.Bound(tb)
-    ch = new_choices(eng.plan, 1, eng.pods.bound_node, dev)
+    ch = new_choices(eng.plan, 1, dev)
     p = int(eng.plan.idx[0, 0])
     K.filter_score(b, p)
     want = ch.clone()
@@ -155,7 +155,7 @@ def sweep_k6(N, dev, rows, waves=32):
     plan_w = eng.plan
     desc = plan_w.device_desc(dev)
     tb = eng._tables()
-    ch = new_choices(plan_w, 1, eng.pods.bound_node, dev)
+    ch = new_choices(plan_w, 1, dev)
     b = K.Bound(tb)
     snap = {k: x.clone() for k, x in cs._planes(tb).items()}
     ch0 = ch.clone()
@@ -272,7 +272,7 @@ def split_main(dev, rows):
     eng = WhatIfEngine(ec, ep, scen, FrameworkConfig(), chunk_waves=hs["chunk_waves"],
                        collect_assignments=True)
     split_k6("headline", eng.plan,
-             lambda: (eng._tables(), new_choices(eng.plan, eng.S, eng.pods.bound_node, dev)),
+             lambda: (eng._tables(), new_choices(eng.plan, eng.S, dev)),
              stamped, rows)
     del eng
     t0 = time.perf_counter()
@@ -282,7 +282,7 @@ def split_main(dev, rows):
                             chunk_waves=cfg.chunk_waves, device=dev)
     print(f"config4 built in {time.perf_counter() - t0:.1f}s", flush=True)
     split_k6("config4", eng.plan,
-             lambda: (eng._tables(), new_choices(eng.plan, 1, ep.bound_node, dev)),
+             lambda: (eng._tables(), new_choices(eng.plan, 1, dev)),
              stamped, rows)
 
 

@@ -327,13 +327,31 @@ def _refusal(kind):
     if kind == "series":  # series runs under chaos; the per-slot retry route still refuses it
         return lambda: TorchReplayEngine(ec, ep, cfg, device="cpu", retry_buffer=8,
                                          telemetry="series", plain=True).replay(node_events=ev)
-    return lambda: TorchReplayEngine(ec, ep, cfg, device="cpu", retry_buffer=8).replay(
-        node_events=ev, checkpoint_path="ck.npz")
+    import os
+    import tempfile
+
+    ck = os.path.join(tempfile.mkdtemp(), "ck.npz")
+    return lambda: (TorchReplayEngine(ec, ep, cfg, device="cpu", retry_buffer=8, wave_width=1,
+                                      chunk_waves=1).replay(node_events=ev, checkpoint_path=ck,
+                                                            checkpoint_every=3), ck)
 
 
 @pytest.mark.parametrize("kind,item", [("shards", "6b"), ("paged", "6b"), ("slot", "6b"),
                                        ("series", "6b"), ("checkpoint", "6d")])
 def test_refused_modes_name_their_queue_item(kind, item):
+    if kind == "checkpoint":
+        # Ported since (queue A item 6d, tests/test_torch_checkpoint_boundary.py):
+        # a chaos replay under the retry buffer checkpoints, and resumes to its
+        # uninterrupted result.
+        full, ck = _refusal(kind)()
+        ec, ep = port_case(*_light_trace(num_pods=8, num_nodes=3))
+        ev = _events([(2.0, "node_down", 0)])
+        res = TorchReplayEngine(ec, ep, FrameworkConfig(plugins=FIT_ONLY), device="cpu",
+                                retry_buffer=8, wave_width=1, chunk_waves=1).replay(
+            node_events=ev, checkpoint_path=ck, resume=True)
+        np.testing.assert_array_equal(res.assignments, full.assignments)
+        assert res.evictions == full.evictions > 0
+        return
     with pytest.raises(NotImplementedError, match=f"queue A item {item}"):
         _refusal(kind)()
 

@@ -105,7 +105,7 @@ def test_chunk_twin_equals_slot_route_chunk_by_chunk(case):
     plan = eng.plan
     S = eng.S
     tb_slot, tb_chunk = eng._tables(), eng._tables()
-    ch_slot = new_choices(plan, S, eng.pods.bound_node, "cpu")
+    ch_slot = new_choices(plan, S, "cpu")
     ch_chunk = ch_slot.clone()
     nchunks = len(plan.buckets)
     assert nchunks >= 3, nchunks
@@ -175,7 +175,7 @@ def test_choose_route_and_refusals():
                             telemetry="series")
     assert eng.replay().route == "chunk"
     tb = eng._tables()
-    ch = new_choices(eng.plan, 1, eng.pods.bound_node, "cpu")
+    ch = new_choices(eng.plan, 1, "cpu")
     from kubernetes_simulator_tpu_torch.sim.torch_runtime import new_series
 
     with pytest.raises(ValueError, match="replicated routes"):

@@ -62,7 +62,7 @@ def _engine(S, chunk_waves=4):
 
 def _fresh(eng):
     tb = eng._tables(attribute=True)
-    return tb, new_choices(eng.plan, eng.S, eng.pods.bound_node, "cpu")
+    return tb, new_choices(eng.plan, eng.S, "cpu")
 
 
 def _slot_chain(tb, idx, gang, choices, first, end):

@@ -30,6 +30,8 @@ import kubernetes_simulator_tpu_torch.ops.cpu, kubernetes_simulator_tpu_torch.op
 import kubernetes_simulator_tpu_torch.sim.greedy, kubernetes_simulator_tpu_torch.sim.tuner
 import kubernetes_simulator_tpu_torch.parallel.mesh, kubernetes_simulator_tpu_torch.sim.flight
 import kubernetes_simulator_tpu_torch.framework.queue, kubernetes_simulator_tpu_torch.sim.service
+import kubernetes_simulator_tpu_torch.api, kubernetes_simulator_tpu_torch.sim.checkpoint
+import kubernetes_simulator_tpu_torch.utils.profiling
 from kubernetes_simulator_tpu_torch.framework.registry import get_strategy
 from kubernetes_simulator_tpu_torch.ops import kernels as K
 from kubernetes_simulator_tpu_torch.sim.borg import BorgSpec, make_borg_encoded
@@ -45,6 +47,15 @@ ec, ep = encode(cluster, pods)
 res = TorchReplayEngine(ec, ep, FrameworkConfig(), device="cpu", wave_width=4,
                         chunk_waves=2).replay()
 assert res.placed > 0, res.placed
+import os, tempfile
+ck = os.path.join(tempfile.mkdtemp(), "ck.npz")
+eng = TorchReplayEngine(ec, ep, FrameworkConfig(), device="cpu", wave_width=4, chunk_waves=2)
+eng.replay(checkpoint_path=ck, checkpoint_every=2)
+again = TorchReplayEngine(ec, ep, FrameworkConfig(), device="cpu", wave_width=4,
+                          chunk_waves=2).replay(checkpoint_path=ck, resume=True)
+assert (again.assignments == res.assignments).all() and eng.last_saves
+from kubernetes_simulator_tpu_torch.api import Simulator
+assert Simulator(cluster, pods, device="cpu", wave_width=4, chunk_waves=2).run().placed == res.placed
 cres = get_strategy("cpu")(ec, ep, FrameworkConfig(), telemetry="timeline").replay()
 assert cres.placed > 0 and cres.telemetry.events, cres.placed
 from kubernetes_simulator_tpu_torch.sim.service import QueryService
@@ -231,12 +242,23 @@ def test_engine_refuses_later_modes(kw, tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("kw", [dict(checkpoint_path="ck.npz"), dict(resume=True),
                                 dict(node_events=[object()], checkpoint_path="ck.npz")])
-def test_replay_refuses_later_modes(kw):
+def test_replay_refuses_later_modes(kw, tmp_path, monkeypatch):
+    """Ported since: checkpoint/resume (queue A item 6d). As the reference's
+    replay, a path without a cadence writes nothing and ``resume`` without a
+    path starts from chunk 0 (both place as a plain replay), and a timeline
+    whose entries are not events is refused (by the reference's validator,
+    which reads their fields) before any checkpoint work."""
     from kubernetes_simulator_tpu_torch.sim.torch_runtime import TorchReplayEngine
 
+    monkeypatch.chdir(tmp_path)
     ec, ep = _tiny_case()
-    with pytest.raises(NotImplementedError):
-        TorchReplayEngine(ec, ep, device="cpu").replay(**kw)
+    if "node_events" in kw:
+        with pytest.raises(AttributeError):
+            TorchReplayEngine(ec, ep, device="cpu").replay(**kw)
+        assert not (tmp_path / "ck.npz").exists()
+        return
+    res = TorchReplayEngine(ec, ep, device="cpu").replay(**kw)
+    assert res.placed == 6 and not (tmp_path / "ck.npz").exists()
 
 
 def test_wrappers_take_the_twin_only_on_cpu():

@@ -194,7 +194,7 @@ def test_preempt_kernels_equal_twins(card):
                        FrameworkConfig(), chunk_waves=4, preemption=True, device=card)
     plan = eng.plan
     tb_k, tb_t = eng._tables(), eng._tables()
-    ch_k = new_choices(plan, 4, ep.bound_node, card)
+    ch_k = new_choices(plan, 4, card)
     ch_t = ch_k.clone()
     b = K.Bound(tb_k)
     pk, pt = tb_k.preempt, tb_t.preempt
@@ -305,7 +305,7 @@ def test_retry_kernels_equal_twins(card):
                        retry_buffer=8, device=card)
     tb_k = eng._tables()
     tb_t = cs.clone_tables(tb_k)
-    ch_k = new_choices(eng.plan, 4, eng.pods.bound_node, card)
+    ch_k = new_choices(eng.plan, 4, card)
     ch_t = ch_k.clone()
     n = cs.lockstep("S=4 retry what-if", eng.plan, tb_k, tb_t, ch_k, ch_t, 0,
                     eng.plan.idx.shape[0], card)
@@ -377,7 +377,7 @@ def test_label_kernels_equal_twins(card):
     tb_k = eng._tables()
     assert tb_k.cluster.gdom.shape[0] == 4 and tb_k.cluster.lrow.tolist() == [0, 1, 2, 3]
     tb_t = cs.clone_tables(tb_k)
-    ch_k = new_choices(eng.plan, 4, eng.pods.bound_node, card)
+    ch_k = new_choices(eng.plan, 4, card)
     ch_t = ch_k.clone()
     n = cs.lockstep("S=4 label rows", eng.plan, tb_k, tb_t, ch_k, ch_t, 0,
                     eng.plan.idx.shape[0], card)
@@ -562,7 +562,7 @@ def test_chunk_replay_equals_slot_route_and_twin(card, case):
     plan = eng.plan
     tb_k, tb_t = eng._tables(), eng._tables()
     S = tb_k.state.used.shape[0]
-    ch_k = new_choices(plan, S, eng.pods.bound_node, card)
+    ch_k = new_choices(plan, S, card)
     ch_t = ch_k.clone()
     for c in range(len(plan.buckets)):
         lo, hi = c * plan.C, (c + 1) * plan.C
@@ -595,7 +595,7 @@ def test_shard_kernels_equal_twins(card, P):
     plan = eng.plan
     tb_k, tb_t = eng._tables(), eng._tables()
     b = K.Bound(tb_k)
-    ch_k = new_choices(plan, 1, eng.pods.bound_node, card)
+    ch_k = new_choices(plan, 1, card)
     ch_t = ch_k.clone()
     idx = torch.as_tensor(plan.idx.reshape(-1), device=card)
     pos = torch.arange(plan.L, dtype=torch.int32, device=card)
@@ -693,7 +693,7 @@ def test_shard_chunk_replay_equals_twin_and_slot_route(card, P):
     plan = eng.plan
     tb_9, tb_t, tb_s = eng._tables(), eng._tables(), eng._tables()
     b9, bs = K.Bound(tb_9), K.Bound(tb_s)
-    ch_9 = new_choices(plan, 1, eng.pods.bound_node, card)
+    ch_9 = new_choices(plan, 1, card)
     ch_t, ch_s = ch_9.clone(), ch_9.clone()
     idx = torch.as_tensor(plan.idx.reshape(-1), device=card)
     gang = torch.as_tensor(plan.gang_wave.astype(np.uint8), device=card)
@@ -936,7 +936,7 @@ def test_chunk_replay_attributed_equals_twin_and_slot_kernels(card, C):
     desc = plan.device_desc(card)
     W = plan.idx.shape[1]
     tbs = [eng._tables(attribute=True) for _ in range(3)]
-    chs = [new_choices(plan, 1, eng.pods.bound_node, card) for _ in range(3)]
+    chs = [new_choices(plan, 1, card) for _ in range(3)]
     b_k, b_s = K.Bound(tbs[0]), K.Bound(tbs[2])
     assert _chip_smoke().force_k6_ranks(b_k, C) == C
     pos = torch.arange(plan.L, dtype=torch.int32, device=card)
@@ -996,7 +996,7 @@ def test_chunk_replay_beyond_the_card(card):
     runs = {}
     for route, plain in (("chunk", False), ("slot", False), ("twin", True)):
         tb = eng._tables()
-        ch = new_choices(plan, S, eng.pods.bound_node, card)
+        ch = new_choices(plan, S, card)
         run_waves(plan, tb, ch, 0, plan.C, plain=plain, route="slot" if route == "slot" else
                   "chunk")
         runs[route] = (tb, ch)
@@ -1051,7 +1051,7 @@ def test_cluster_shard_select_equals_twin(card, P):
     b = K.Bound(tb_k)
     cp = b.plan("shard_select")
     assert cp.C == min(P, K.CLUSTER_CAP) and cp.NP == P, cp
-    ch_k = new_choices(plan, 1, eng.pods.bound_node, card)
+    ch_k = new_choices(plan, 1, card)
     ch_t = ch_k.clone()
     idx = torch.as_tensor(plan.idx.reshape(-1), device=card)
     pos = torch.arange(plan.L, dtype=torch.int32, device=card)
@@ -1118,7 +1118,7 @@ def test_chunk_replay_retry_equals_twin_and_slot_route(card, case, series):
     plan = eng.plan
     tbs = [eng._tables(attribute=series) for _ in range(3)]
     sers = [new_series(plan, tb, True) if series else None for tb in tbs]
-    chs = [new_choices(plan, eng.S, eng.pods.bound_node, card) for _ in range(3)]
+    chs = [new_choices(plan, eng.S, card) for _ in range(3)]
     routes = ((False, "chunk"), (True, "chunk"), (False, "slot"))
     counts = dict.fromkeys(K.launch_counts(), 0)
     k6_retry = 0

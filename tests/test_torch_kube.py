@@ -347,7 +347,7 @@ def test_whatif_perturbed_equals_from_scratch_and_jax(whatif_case):
                                    atol=USED_ATOL)
 
 
-def test_guards():
+def test_guards(tmp_path):
     """The reference's refusals, and the modes the port refuses by name (each
     naming its ROADMAP item)."""
     ec, ep = encode(Cluster(nodes=[Node("n0", {"cpu": 1})]),
@@ -377,8 +377,10 @@ def test_guards():
     eng = TR.TorchReplayEngine(pec, pep, cfg, preemption="kube", retry_buffer=8, device="cpu")
     with pytest.raises(NotImplementedError, match="item 6a"):
         eng._run(route="slot")
-    with pytest.raises(NotImplementedError, match="item 6d"):
-        eng.replay(checkpoint_path="x.npz")
+    # Ported since (queue A item 6d): a path without a cadence writes
+    # nothing, as the reference's replay.
+    eng.replay(checkpoint_path=str(tmp_path / "x.npz"))
+    assert not (tmp_path / "x.npz").exists()
     assert TR.choose_route(True, kube=True) == "chunk"
     scen = [T.Scenario()]
     with pytest.raises(ValueError, match="retry_buffer > 0"):

@@ -129,7 +129,7 @@ def test_twin_equals_run_retry_boundary_then_chunk_replay(seed, W, C, RB, S, joi
     plan = eng.plan
     assert len(plan.buckets) >= 4
     tbs = [eng._tables(attribute=series) for _ in range(2)]
-    chs = [TR.new_choices(plan, eng.S, eng.pods.bound_node, "cpu") for _ in range(2)]
+    chs = [TR.new_choices(plan, eng.S, "cpu") for _ in range(2)]
     sers = [TR.new_series(plan, tb, True) if series else None for tb in tbs]
     desc = plan.device_desc("cpu")
     RBe = tbs[0].retry.rbuf.shape[1]
@@ -226,7 +226,7 @@ def test_twin_refusals():
         if kw.get("reject") == "counters":
             tb = e._tables(attribute=True)
             kw["reject"] = tb.reject
-        ch = TR.new_choices(e.plan, 1, e.pods.bound_node, "cpu")
+        ch = TR.new_choices(e.plan, 1, "cpu")
         with pytest.raises(ValueError, match=match):
             K.chunk_replay(K.Bound(tb), desc.idx, desc.gang, ch, 2, 4, **kw)
     tb = eng._tables()
@@ -236,7 +236,7 @@ def test_twin_refusals():
                           np.zeros((1, tb.state.used.shape[1]), np.float32), 1, "cpu")
     with pytest.raises(ValueError, match="tier preemption"):
         K.chunk_replay(K.Bound(tb._replace(preempt=pre)), desc.idx, desc.gang,
-                       TR.new_choices(eng.plan, 1, eng.pods.bound_node, "cpu"), 2, 4,
+                       TR.new_choices(eng.plan, 1, "cpu"), 2, 4,
                        append=True, retry=(1, 0.0, True))
 
 

@@ -115,7 +115,7 @@ def test_wrapper_refuses_what_k9_refuses(runs):
                             node_shards=3)
     plan = eng.plan
     tb = eng._tables()
-    ch = new_choices(plan, 1, eng.pods.bound_node, "cpu")
+    ch = new_choices(plan, 1, "cpu")
     desc = plan.device_desc("cpu")
     idx, gang = desc.idx, desc.gang
     n = gang.numel()
@@ -161,7 +161,7 @@ def test_run_waves_chunk_by_chunk_equals_one_call(runs):
     out = []
     for route, step in (("shard", plan.C), ("shard_slot", 1)):
         tb = eng._tables()
-        ch = new_choices(plan, 1, eng.pods.bound_node, "cpu")
+        ch = new_choices(plan, 1, "cpu")
         for w in range(0, nw, step):
             run_waves(plan, tb, ch, w, min(nw, w + step), plain=False, route=route)
         out.append((_planes(tb), ch))

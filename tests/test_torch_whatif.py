@@ -283,7 +283,7 @@ def _tiny():
 @pytest.mark.parametrize(
     "kw,item",
     [(dict(mesh=["cpu", "cpu"]), "runs"),
-     (dict(fork_checkpoint="fork.npz"), "queue A item 7"),
+     (dict(fork_checkpoint="fork.npz"), "runs"),
      (dict(preemption="kube", retry_buffer=8), "runs"),
      (dict(preemption="kube"), "retry_buffer > 0"),
      (dict(policies=np.ones((2, 6), np.float32), mesh=["cpu", "cpu"]), "runs"),
@@ -312,6 +312,19 @@ def test_engine_refuses_later_modes_by_queue_item(kw, item):
     if item == "retry_buffer > 0":  # the reference's error
         with pytest.raises(ValueError, match=item):
             T.WhatIfEngine(ec, ep, scen, device="cpu", **kw)
+        return
+    if "fork_checkpoint" in kw:
+        # Ported since (what-if forks, tests/test_torch_fork.py): the batch
+        # starts from the replay's checkpoint, scenario 0 places as it.
+        import os
+        import tempfile
+
+        ck = os.path.join(tempfile.mkdtemp(), kw["fork_checkpoint"])
+        single = TorchReplayEngine(ec, ep, device="cpu", chunk_waves=1).replay(
+            checkpoint_path=ck, checkpoint_every=1)
+        res = T.WhatIfEngine(ec, ep, scen, device="cpu", chunk_waves=1, fork_checkpoint=ck,
+                             collect_assignments=True).run()
+        np.testing.assert_array_equal(res.assignments[0], single.assignments)
         return
     if item == "runs" and kw.get("preemption") == "kube":
         # Ported since (kube preemption, tests/test_torch_kube.py): each
